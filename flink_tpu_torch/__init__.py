@@ -1,0 +1,21 @@
+"""flink_tpu_torch — the PyTorch/CUDA port of flink_tpu for one NVIDIA H100.
+
+The same DataStream API, config keys and window semantics as ``flink_tpu``
+(the JAX reference, which stays beside it), with the device work in
+hand-written Hopper kernels (``csrc/``, bound in ``ops/cuda.py``). It
+imports ``torch`` and ``numpy`` and never ``jax`` or ``flink_tpu``.
+
+Layer map (mirrors flink_tpu/):
+  core/       — config, time, key groups, types
+  ops/        — hashing, the window kernels and their CUDA twins
+  datastream/ — user-facing DataStream API
+  graph/      — transformation graph
+  runtime/    — executor, device ring, steps, sources, sinks, watermarks
+
+This slice runs one keyed event-time tumbling or sliding window with a sum
+or count into device-reduce sinks (ROADMAP.md lists what comes next).
+"""
+
+__version__ = "0.1.0"
+
+from flink_tpu_torch.datastream.environment import StreamExecutionEnvironment  # noqa: F401,E402

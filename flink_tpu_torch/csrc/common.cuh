@@ -1,0 +1,60 @@
+// Shared helpers of the window-path kernels (route_lanes.cu, clear_rows.cu,
+// scatter_update.cu, fire_reduced.cu): int32 pane arithmetic with the
+// reference's floor semantics, and block-wide reductions that end in one
+// atomic per block.
+#pragma once
+
+#include <cstdint>
+#include <climits>
+#include <cuda_runtime.h>
+
+// flink_tpu/ops/window_kernels.py PANE_NONE: the "no pane" sentinel.
+constexpr int32_t kPaneNone = INT32_MIN + 1;
+
+// floor(a / b) for b > 0, also for negative a (jnp.floor_divide).
+__device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
+  int32_t q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// a mod b in [0, b) for b > 0 (jnp.mod).
+__device__ __forceinline__ int32_t floor_mod(int32_t a, int32_t b) {
+  int32_t r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+__device__ __forceinline__ int32_t warp_sum(int32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ int32_t warp_max(int32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ int32_t warp_min(int32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Block-wide sum; the result is valid in thread 0. Every thread of the
+// block must call it (blockDim.x a multiple of 32, at most 1024).
+template <typename T>
+__device__ __forceinline__ T block_sum(T v) {
+  __shared__ T part[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // part[] may still be read by a previous call
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  const int n_warps = blockDim.x >> 5;
+  v = (threadIdx.x < n_warps) ? part[threadIdx.x] : T(0);
+  if (warp == 0) v = warp_sum(v);
+  return v;
+}

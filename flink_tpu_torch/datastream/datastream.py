@@ -1,0 +1,168 @@
+"""DataStream API — the fluent user surface (the main-path subset of
+flink_tpu/datastream/datastream.py).
+
+Same shape as the reference (DataStream / KeyedStream / WindowedStream):
+API calls record transformation nodes that ``env.execute()`` runs. This
+slice carries ``key_by``, ``time_window`` / ``window``, the window ``sum``
+and ``count``, ``allowed_lateness``, ``add_sink`` and
+``assign_timestamps_and_watermarks``. Every other method of the reference
+exists and raises NotImplementedError naming the ROADMAP item that brings
+it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.datastream.window.assigners import (
+    SlidingEventTimeWindows,
+    TumblingEventTimeWindows,
+)
+from flink_tpu_torch.graph import stream_graph as sg
+from flink_tpu_torch.ops.window_kernels import ReduceSpec
+from flink_tpu_torch.runtime import sinks as sink_mod
+from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+
+def _field_extractor(pos):
+    if callable(pos):
+        return pos
+    if isinstance(pos, (int, str)):
+        return lambda e: e[pos]
+    raise TypeError(f"cannot extract field {pos!r}")
+
+
+def _later(owner: str, name: str, item: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{owner}.{name} is not ported to flink_tpu_torch yet ({item})")
+    method.__name__ = name
+    return method
+
+
+_OPS = "ROADMAP queue 1, item 9"
+_MULTI = "ROADMAP queue 1, item 12"
+_EDGES = "ROADMAP queue 1, item 15"
+_REDUCES = "ROADMAP queue 1, item 4"
+
+
+class DataStream:
+    def __init__(self, env, transformation: sg.Transformation):
+        self.env = env
+        self.transformation = transformation
+
+    def assign_timestamps_and_watermarks(
+        self, timestamp_fn: Callable, strategy: Optional[WatermarkStrategy] = None
+    ) -> "DataStream":
+        t = sg.TimestampsWatermarksTransformation(
+            "timestamps", self.transformation,
+            timestamp_fn=timestamp_fn,
+            strategy=strategy or WatermarkStrategy.for_monotonous_timestamps(),
+        )
+        return DataStream(self.env, t)
+
+    def key_by(self, selector) -> "KeyedStream":
+        t = sg.KeyByTransformation(
+            "key_by", self.transformation, key_selector=_field_extractor(selector)
+        )
+        return KeyedStream(self.env, t)
+
+    def add_sink(self, sink) -> "DataStream":
+        if not isinstance(sink, sink_mod.Sink):
+            raise NotImplementedError(
+                f"function sinks are not ported to flink_tpu_torch yet "
+                f"({_EDGES})")
+        t = sg.SinkTransformation("sink", self.transformation, sink=sink)
+        self.env._sinks.append(t)
+        return DataStream(self.env, t)
+
+    map = _later("DataStream", "map", _OPS)
+    filter = _later("DataStream", "filter", _OPS)
+    flat_map = _later("DataStream", "flat_map", _OPS)
+    union = _later("DataStream", "union", _OPS)
+    connect = _later("DataStream", "connect", _MULTI)
+    join = _later("DataStream", "join", _OPS)
+    co_group = _later("DataStream", "co_group", _OPS)
+    split = _later("DataStream", "split", _OPS)
+    iterate = _later("DataStream", "iterate", _OPS)
+    broadcast = _later("DataStream", "broadcast", _MULTI)
+    rebalance = _later("DataStream", "rebalance", _MULTI)
+    rescale = _later("DataStream", "rescale", _MULTI)
+    shuffle = _later("DataStream", "shuffle", _MULTI)
+    global_ = _later("DataStream", "global_", _MULTI)
+    forward = _later("DataStream", "forward", _MULTI)
+    print_ = _later("DataStream", "print_", _EDGES)
+    write_as_text = _later("DataStream", "write_as_text", _EDGES)
+
+
+class KeyedStream(DataStream):
+    def window(self, assigner) -> "WindowedStream":
+        return WindowedStream(self.env, self, assigner)
+
+    def time_window(self, size_ms: int, slide_ms: Optional[int] = None):
+        if slide_ms is None:
+            return self.window(TumblingEventTimeWindows.of(size_ms))
+        return self.window(SlidingEventTimeWindows.of(size_ms, slide_ms))
+
+    count_window = _later("KeyedStream", "count_window", _OPS)
+    process = _later("KeyedStream", "process", _OPS)
+    reduce = _later("KeyedStream", "reduce", "ROADMAP queue 2, K18")
+    sum = _later("KeyedStream", "sum", "ROADMAP queue 2, K18")
+    as_queryable_state = _later("KeyedStream", "as_queryable_state", _EDGES)
+
+
+class WindowedStream:
+    def __init__(self, env, keyed: KeyedStream, assigner):
+        self.env = env
+        self.keyed = keyed
+        self.assigner = assigner
+        self._lateness_ms = 0
+
+    def allowed_lateness(self, ms: int) -> "WindowedStream":
+        self._lateness_ms = ms
+        return self
+
+    def _agg(self, name, spec_factory, extractor) -> DataStream:
+        t = sg.WindowAggTransformation(
+            name, self.keyed.transformation,
+            assigner=self.assigner,
+            extractor=extractor,
+            reduce_spec_factory=spec_factory,
+            allowed_lateness_ms=self._lateness_ms,
+        )
+        return DataStream(self.env, t)
+
+    def sum(self, pos=None, dtype=torch.float32) -> DataStream:
+        return self._agg(
+            "window_sum",
+            lambda: ReduceSpec("sum", dtype),
+            _field_extractor(pos) if pos is not None else (lambda e: e),
+        )
+
+    def count(self) -> DataStream:
+        def ones(e):
+            # columnar batches need a per-lane column; scalar per element
+            if isinstance(e, dict):
+                n = len(next(iter(e.values())))
+                return np.ones(n, np.float32)
+            return 1.0
+
+        return self._agg(
+            "window_count", lambda: ReduceSpec("count", torch.float32), ones,
+        )
+
+    trigger = _later("WindowedStream", "trigger", _OPS)
+    evictor = _later("WindowedStream", "evictor", _OPS)
+    apply = _later("WindowedStream", "apply", _OPS)
+    fold = _later("WindowedStream", "fold", _OPS)
+    min = _later("WindowedStream", "min", _REDUCES)
+    max = _later("WindowedStream", "max", _REDUCES)
+    mean = _later("WindowedStream", "mean", _REDUCES)
+    reduce = _later("WindowedStream", "reduce", _REDUCES)
+    distinct_count = _later("WindowedStream", "distinct_count",
+                            "ROADMAP queue 2, K19")
+    count_min = _later("WindowedStream", "count_min", "ROADMAP queue 2, K19")
+    aggregate = _later("WindowedStream", "aggregate", _REDUCES)

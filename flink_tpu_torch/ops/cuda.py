@@ -1,0 +1,379 @@
+"""The window path's hand-written Hopper kernels and their plain versions.
+
+Four CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for ``sm_90a``)
+carry the device work of the north-star job; each source opens with the
+reference function it replaces, what bounds it on the card and what its
+design does about that:
+
+  G1 ``route_lanes``     key-group routing + the update's lane prologue
+  G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
+  G3 ``scatter_update``  the update's accumulate phase (atomic scatter)
+  G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
+
+Build: ``nvcc`` compiles each source to an object (all started together)
+and links one shared library with a plain C interface under
+``flink_tpu_torch/_build/``, on first use, keyed by a hash of the sources
+and flags. ``ctypes`` loads it; every pointer and the stream go in as
+``c_void_p``.
+
+Wrappers: each takes tensors on one device. On a CPU tensor it runs its
+plain PyTorch version (below, same arguments, same results); on a CUDA
+tensor it launches the kernel on the current stream or raises — there is
+no fallback. Outputs and scratch are allocated here with ``torch.empty`` /
+``torch.zeros``; the kernels allocate nothing. Each wrapper counts its
+launches in ``<wrapper>.launches`` (a plain int), and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from flink_tpu_torch.core.keygroups import assign_to_key_group
+from flink_tpu_torch.ops.hashing import route_hash
+
+PANE_NONE = -(2**31) + 1
+INT32_MAX = 2**31 - 1
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
+           "fire_reduced.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P],
+    "clear_rows": [_P, _P, _P, _P, _I, _I, _P],
+    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P],
+    "fire_reduced": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    toolkit = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    if nvcc is None and os.path.exists(toolkit):
+        nvcc = toolkit
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the window kernels are built from "
+            "flink_tpu_torch/csrc on first use and need the CUDA toolkit"
+        )
+    return nvcc
+
+
+def library_path() -> Path:
+    """Where the shared library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libflink_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for src, _obj, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{src}:\n{log.decode(errors='replace')}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_so = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", tmp_so] + [o for _s, o, _p in procs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        if link.returncode:
+            raise RuntimeError(
+                "nvcc link failed:\n" + link.stdout.decode(errors="replace"))
+        os.replace(tmp_so, out)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels' shared library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+# ------------------------------------------------------------ checks
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"unsupported device {t.device}")
+    return False
+
+
+def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
+           device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this dtype on this
+    device, with this shape (any shape when ``shape`` is None)."""
+    if t is None:
+        raise ValueError(f"{name} is required")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc:
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
+
+
+def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+# ------------------------------------------------------------ G1
+
+def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
+                      slide: int, k: int, maxp: int, kg_start: int,
+                      kg_end: int):
+    """Plain version of G1. hi/lo: int32 [B] holding uint32 bits; ts int32
+    [B] ticks; valid bool [B]; watermark / purged_through int32 0-d.
+    Returns (pane int32 [B], kg int32 [B], live bool [B], stats int32 [3])
+    with stats = (late lanes, max live pane, min live pane)."""
+    kg = assign_to_key_group(route_hash(hi, lo), maxp).to(torch.int32)
+    pane = _floor_div(ts, slide).to(torch.int32)
+    mine = valid & (kg >= kg_start) & (kg <= kg_end)
+    base = torch.clamp_min(watermark, -(2**31) + 1 + slide)
+    wm_pane_l = _floor_div(base + 1 - slide, slide)
+    late = mine & ((pane + (k - 1) <= wm_pane_l) | (pane <= purged_through))
+    live = mine & ~late
+    stats = torch.stack([
+        late.sum(dtype=torch.int32),
+        torch.where(live, pane, PANE_NONE).max(),
+        torch.where(live, pane, INT32_MAX).min(),
+    ]).to(torch.int32)
+    return pane, kg, live, stats
+
+
+def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
+                k: int, maxp: int, kg_start: int, kg_end: int):
+    """G1: see route_lanes_plain for the contract."""
+    if _on_cpu(hi):
+        return route_lanes_plain(
+            hi, lo, ts, valid, watermark, purged_through, slide=slide, k=k,
+            maxp=maxp, kg_start=kg_start, kg_end=kg_end)
+    dev = hi.device
+    (B,) = hi.shape
+    for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                     (ts, "ts", torch.int32), (valid, "valid", torch.bool)):
+        _check(t, n, dt, (B,), dev)
+    _check(watermark, "watermark", torch.int32, (), dev)
+    _check(purged_through, "purged_through", torch.int32, (), dev)
+    pane = torch.empty(B, dtype=torch.int32, device=dev)
+    kg = torch.empty(B, dtype=torch.int32, device=dev)
+    live = torch.empty(B, dtype=torch.bool, device=dev)
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    rc = build().route_lanes(
+        _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
+        _ptr(purged_through), slide, k, maxp, kg_start, kg_end, _ptr(pane),
+        _ptr(kg), _ptr(live), _ptr(stats), _stream())
+    _raise_on(rc, "route_lanes")
+    route_lanes.launches += 1
+    return pane, kg, live, stats
+
+
+route_lanes.launches = 0
+
+
+# ------------------------------------------------------------ G2
+
+def clear_rows_plain(acc, clear, evicted, dropped_capacity, *, C: int,
+                     R: int) -> None:
+    """Plain version of G2, in place. acc float32 [C*R, 2] packed plane;
+    clear bool [R]; evicted bool [R] or None; dropped_capacity int32 0-d
+    (gains the touched keys of evicted rows, counted before the clear)."""
+    a3 = acc.view(R, C, 2)
+    if evicted is not None:
+        n = torch.where(evicted[:, None], a3[:, :, 1] != 0, False).sum()
+        dropped_capacity.add_(n.to(torch.int32))
+    a3.masked_fill_(clear[:, None, None], 0.0)
+
+
+def clear_rows(acc, clear, evicted, dropped_capacity, *, C: int,
+               R: int) -> None:
+    """G2: see clear_rows_plain for the contract."""
+    if _on_cpu(acc):
+        return clear_rows_plain(acc, clear, evicted, dropped_capacity, C=C,
+                                R=R)
+    dev = acc.device
+    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    _check(clear, "clear", torch.bool, (R,), dev)
+    if evicted is not None:
+        _check(evicted, "evicted", torch.bool, (R,), dev)
+    _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
+    rc = build().clear_rows(_ptr(acc), _ptr(clear), _ptr(evicted),
+                            _ptr(dropped_capacity), C, R, _stream())
+    _raise_on(rc, "clear_rows")
+    clear_rows.launches += 1
+
+
+clear_rows.launches = 0
+
+
+# ------------------------------------------------------------ G3
+
+def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live, hi,
+                         lo, values, max_pane, *, C: int, R: int) -> None:
+    """Plain version of G3, in place. acc float32 [C*R, 2]; kg_dirty bool
+    [G] or None; dropped_capacity int32 0-d; pane/kg int32 [B]; live bool
+    [B]; hi/lo int32 [B] (uint32 bits); values float32 [B] or None (count:
+    every lane adds 1.0); max_pane int32 0-d, already advanced."""
+    too_old = live & (pane < max_pane - (R - 1))
+    live = live & ~too_old
+    if kg_dirty is not None:
+        kg_dirty[kg[live].long()] = True
+    hi64 = hi.to(torch.int64) & 0xFFFFFFFF
+    lo64 = lo.to(torch.int64) & 0xFFFFFFFF
+    ok = live & (hi64 == 0) & (lo64 < C)
+    nofit = live & ~ok
+    dropped_capacity.add_((too_old.sum() + nofit.sum()).to(torch.int32))
+    flat = torch.remainder(pane.to(torch.int64), R) * C + lo64
+    idx = 2 * flat[ok]
+    flat_acc = acc.view(-1)
+    v = values[ok] if values is not None else torch.ones(
+        idx.shape[0], dtype=acc.dtype, device=acc.device)
+    flat_acc.index_add_(0, idx, v)
+    flat_acc.index_add_(0, idx + 1, torch.ones_like(v))
+
+
+def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, hi, lo,
+                   values, max_pane, *, C: int, R: int) -> None:
+    """G3: see scatter_update_plain for the contract."""
+    if _on_cpu(acc):
+        return scatter_update_plain(acc, kg_dirty, dropped_capacity, pane,
+                                    kg, live, hi, lo, values, max_pane, C=C,
+                                    R=R)
+    dev = acc.device
+    (B,) = pane.shape
+    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    if kg_dirty is not None:
+        _check(kg_dirty, "kg_dirty", torch.bool, None, dev)
+    _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
+    for t, n, dt in ((pane, "pane", torch.int32), (kg, "kg", torch.int32),
+                     (live, "live", torch.bool), (hi, "hi", torch.int32),
+                     (lo, "lo", torch.int32)):
+        _check(t, n, dt, (B,), dev)
+    if values is not None:
+        _check(values, "values", torch.float32, (B,), dev)
+    _check(max_pane, "max_pane", torch.int32, (), dev)
+    rc = build().scatter_update(
+        _ptr(acc), _ptr(kg_dirty), _ptr(dropped_capacity), _ptr(pane),
+        _ptr(kg), _ptr(live), _ptr(hi), _ptr(lo), _ptr(values),
+        _ptr(max_pane), B, C, R, _stream())
+    _raise_on(rc, "scatter_update")
+    scatter_update.launches += 1
+
+
+scatter_update.launches = 0
+
+
+# ------------------------------------------------------------ G4
+
+def fire_reduced_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of G4. acc float32 [C*R, 2]; pane_ids int32 [R];
+    p_f int32 [F] window-end pane per lane; lane_ok bool [F]. Returns
+    (counts int32 [F], value_sums float32 [F])."""
+    a3 = acc.view(R, C, 2)
+    F = p_f.shape[0]
+    vals = torch.zeros(F, C, dtype=acc.dtype, device=acc.device)
+    emit = torch.zeros(F, C, dtype=torch.bool, device=acc.device)
+    for j in range(k):
+        q = p_f - (k - 1) + j
+        row = torch.remainder(q, R).long()
+        present = lane_ok & (pane_ids[row] == q)
+        t = (a3[row, :, 1] != 0) & present[:, None]
+        vals = torch.where(t, vals + a3[row, :, 0], vals)
+        emit = emit | t
+    counts = emit.sum(dim=1, dtype=torch.int32)
+    vsums = torch.where(emit, vals, 0.0).sum(dim=1).to(torch.float32)
+    return counts, vsums
+
+
+def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G4: see fire_reduced_plain for the contract."""
+    if _on_cpu(acc):
+        return fire_reduced_plain(acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k)
+    dev = acc.device
+    (F,) = p_f.shape
+    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
+    _check(p_f, "p_f", torch.int32, (F,), dev)
+    _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+    counts = torch.zeros(F, dtype=torch.int32, device=dev)
+    vsums = torch.zeros(F, dtype=torch.float32, device=dev)
+    rc = build().fire_reduced(_ptr(acc), _ptr(pane_ids), _ptr(p_f),
+                              _ptr(lane_ok), C, R, k, F, _ptr(counts),
+                              _ptr(vsums), _stream())
+    _raise_on(rc, "fire_reduced")
+    fire_reduced.launches += 1
+    return counts, vsums
+
+
+fire_reduced.launches = 0
+
+KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

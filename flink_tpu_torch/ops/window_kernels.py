@@ -1,0 +1,433 @@
+"""Keyed window aggregation on one shard, in PyTorch — the main-path subset
+of flink_tpu/ops/window_kernels.py.
+
+The model is the reference's: time is cut into aligned panes of ``slide``
+ticks, a window of ``size = k * slide`` is the combine of k consecutive
+panes, and each shard keeps accumulators for ALL its keys across a ring of
+R recent panes. This slice carries the direct-index layout (key == slot)
+with packed planes: ``acc`` is one flat pane-major float32 plane
+``[C*R, 2]`` whose second column is the touch marker (neutral 0 ==
+untouched), exactly the reference's packed layout, so states carry across
+(``state_from_numpy`` / ``state_to_numpy``).
+
+The O(B) and O(C) work runs in the four kernels of ``ops/cuda.py``
+(G1-G4). The per-batch scalar bookkeeping — pane-ring registration, the
+fire plan, the purge plan, watermark / fired_through / purged_through —
+stays on the device as small torch ops on 0-d, [R] and [F] tensors, so a
+drain never waits for the host between slots. State tensors are updated in
+place where the reference donated its buffers to XLA; every such update is
+marked "in place" below.
+
+Not in this slice (ROADMAP queues 1-2): the hash layout and its probe
+(K9), the overflow ring and spill tier (K10), allowed lateness, split
+(unpacked) planes, min/max and generic reduces, the compact fire payload
+(K11), and the slot-major accumulator layout.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.ops import cuda as kernels
+from flink_tpu_torch.ops.cuda import INT32_MAX, PANE_NONE
+
+INT32_MIN = -(2**31)
+
+
+@dataclass(frozen=True)
+class ReduceSpec:
+    """How window contents aggregate: the builtin ``sum`` and ``count``
+    (ref ReduceFunction under ReducingStateDescriptor). Both have the
+    neutral 0, which is also the packed plane's untouched marker."""
+
+    kind: str = "sum"
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.kind not in ("sum", "count"):
+            raise NotImplementedError(
+                f"reduce kind {self.kind!r} is not ported yet: min/max and "
+                f"generic reduces are ROADMAP queue 1, item 4"
+            )
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                "only float32 reduces are ported so far (ROADMAP queue 1, "
+                "item 4)"
+            )
+
+    def neutral_value(self) -> float:
+        return 0.0
+
+
+@dataclass(frozen=True)
+class WindowSpec:
+    """Aligned time windows via pane composition (the reference's checks;
+    its allowed lateness, overflow ring and slot-major layout are not
+    ported). size_ticks must be a multiple of slide_ticks;
+    panes_per_window = size // slide (1 = tumbling); ring = R panes of
+    history; fires_per_step = F window-ends emitted per advance."""
+
+    size_ticks: int
+    slide_ticks: int
+    ring: int = 8
+    fires_per_step: int = 2
+
+    def __post_init__(self):
+        if self.size_ticks % self.slide_ticks:
+            raise ValueError("window size must be a multiple of slide")
+        if self.panes_per_window + 1 > self.ring:
+            raise ValueError(
+                f"ring={self.ring} too small for {self.panes_per_window} "
+                f"panes/window"
+            )
+
+    @property
+    def panes_per_window(self) -> int:
+        return self.size_ticks // self.slide_ticks
+
+
+@dataclass
+class WindowShardState:
+    """All device state of one key-group shard (the reference's pytree,
+    field for field; ``table.keys`` becomes ``table_keys``, and the planes
+    are always packed, so the reference's ``packed`` descriptor is 0)."""
+
+    table_keys: torch.Tensor        # int64 [C, 2]: (hi, lo) identity rows
+    acc: torch.Tensor               # float32 [C*R, 2] packed plane
+    touched: torch.Tensor           # bool [0]: rides acc's touch column
+    pane_ids: torch.Tensor          # int32 [R]: absolute pane per ring row
+    max_pane: torch.Tensor          # int32 0-d: newest registered pane
+    min_pane: torch.Tensor          # int32 0-d: oldest pane ever seen
+    watermark: torch.Tensor         # int32 0-d
+    fired_through: torch.Tensor     # int32 0-d: last window-end pane emitted
+    purged_through: torch.Tensor    # int32 0-d: panes <= this are clean
+    dropped_late: torch.Tensor      # int32 0-d counter
+    dropped_capacity: torch.Tensor  # int32 0-d counter (records lost)
+    fresh: torch.Tensor             # bool [C*R]: never set at lateness 0
+    n_fresh: torch.Tensor           # int32 0-d
+    ovf_hi: torch.Tensor            # int32 [0]: no overflow ring
+    ovf_lo: torch.Tensor            # int32 [0]
+    ovf_pane: torch.Tensor          # int32 [0]
+    ovf_val: torch.Tensor           # float32 [0]
+    ovf_n: torch.Tensor             # int32 0-d
+    kg_dirty: torch.Tensor          # bool [n_key_groups] changelog bits
+
+    @property
+    def capacity(self) -> int:
+        return self.table_keys.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.acc.device
+
+
+# field order of the reference's WindowShardState.tree_flatten
+STATE_FIELDS = (
+    "table.keys", "acc", "touched", "pane_ids", "max_pane", "min_pane",
+    "watermark", "fired_through", "purged_through", "dropped_late",
+    "dropped_capacity", "fresh", "n_fresh", "ovf_hi", "ovf_lo", "ovf_pane",
+    "ovf_val", "ovf_n", "kg_dirty",
+)
+
+
+@dataclass
+class ReducedFires:
+    """Fire output reduced on the device to per-lane scalars: the host
+    reads these small fields once per drain and never anything O(C)."""
+
+    counts: torch.Tensor            # int32 [F] fired keys per lane
+    window_end_ticks: torch.Tensor  # int32 [F] (PANE_NONE when unused)
+    n_fires: torch.Tensor           # int32 0-d: valid lanes
+    lane_valid: torch.Tensor        # bool [F]
+    value_sums: torch.Tensor        # float32 [F]
+
+
+def _scalar(v: int, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
+               n_key_groups: int = 0, device="cuda") -> WindowShardState:
+    """Fresh direct-index state with packed planes (the reference's
+    ``init_state(layout="direct", packed=True)``): the table holds identity
+    rows (0, slot), every plane starts at the neutral."""
+    R = win.ring
+    if capacity * R > INT32_MAX:
+        raise ValueError(
+            f"accumulator of {capacity * R} rows overflows int32 indices"
+        )
+    dev = torch.device(device)
+    iota = torch.arange(capacity, dtype=torch.int64, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return WindowShardState(
+        table_keys=torch.stack([torch.zeros_like(iota), iota], dim=1),
+        acc=torch.zeros(capacity * R, 2, dtype=torch.float32, device=dev),
+        touched=torch.zeros(0, dtype=torch.bool, device=dev),
+        pane_ids=torch.full((R,), PANE_NONE, **i32),
+        max_pane=_scalar(PANE_NONE, dev),
+        min_pane=_scalar(INT32_MAX, dev),
+        watermark=_scalar(INT32_MIN + 1, dev),
+        fired_through=_scalar(PANE_NONE, dev),
+        purged_through=_scalar(PANE_NONE, dev),
+        dropped_late=_scalar(0, dev),
+        dropped_capacity=_scalar(0, dev),
+        fresh=torch.zeros(capacity * R, dtype=torch.bool, device=dev),
+        n_fresh=_scalar(0, dev),
+        ovf_hi=torch.zeros(0, **i32),
+        ovf_lo=torch.zeros(0, **i32),
+        ovf_pane=torch.zeros(0, **i32),
+        ovf_val=torch.zeros(0, dtype=torch.float32, device=dev),
+        ovf_n=_scalar(0, dev),
+        kg_dirty=torch.zeros(n_key_groups, dtype=torch.bool, device=dev),
+    )
+
+
+# ------------------------------------------------- packed state planes
+# The pack/split helpers run at state carry-over only (the kernels read
+# and write the packed plane directly).
+
+def make_packed(acc: np.ndarray, touched: np.ndarray, red: ReduceSpec):
+    """Pack split host planes (acc [N], touched bool [N]) into the [N, 2]
+    plane: the touch column holds the marker 1.0 where touched, the
+    neutral elsewhere."""
+    col = np.where(touched, 1.0, red.neutral_value()).astype(acc.dtype)
+    return np.stack([acc, col], axis=-1)
+
+
+def split_packed(acc_packed, red: ReduceSpec):
+    """Unpack a packed plane (numpy or torch) into logical (acc,
+    touched)."""
+    touched = acc_packed[..., -1] != red.neutral_value()
+    return acc_packed[..., 0], touched
+
+
+def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
+                     device="cuda") -> WindowShardState:
+    """Build a port state from host arrays named as the reference's
+    ``WindowShardState.tree_flatten`` leaves (``STATE_FIELDS``). ``packed``
+    is the source's plane descriptor: 0 for a packed scalar plane
+    ``acc [C*R, 2]``, -1 for split planes ``acc [C*R]`` + ``touched
+    [C*R]`` (packed here). ``table.keys`` is uint32 [C, 2]."""
+    dev = torch.device(device)
+    missing = [f for f in STATE_FIELDS if f not in fields]
+    if missing:
+        raise KeyError(f"state fields missing: {missing}")
+    acc = np.asarray(fields["acc"], np.float32)
+    if packed < 0:
+        acc = make_packed(acc, np.asarray(fields["touched"], bool),
+                          ReduceSpec("sum"))
+    elif packed != 0:
+        raise NotImplementedError("only scalar values are ported")
+    if acc.ndim != 2 or acc.shape[1] != 2:
+        raise ValueError(f"packed acc must be [C*R, 2], got {acc.shape}")
+
+    def t(name, dtype):
+        a = np.array(fields[name])          # a writable C-order copy
+        if dtype == torch.int32 and a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    i32 = torch.int32
+    return WindowShardState(
+        table_keys=t("table.keys", torch.int64),
+        acc=torch.from_numpy(np.array(acc)).to(dev),
+        touched=torch.zeros(0, dtype=torch.bool, device=dev),
+        pane_ids=t("pane_ids", i32),
+        max_pane=t("max_pane", i32),
+        min_pane=t("min_pane", i32),
+        watermark=t("watermark", i32),
+        fired_through=t("fired_through", i32),
+        purged_through=t("purged_through", i32),
+        dropped_late=t("dropped_late", i32),
+        dropped_capacity=t("dropped_capacity", i32),
+        fresh=t("fresh", torch.bool),
+        n_fresh=t("n_fresh", i32),
+        ovf_hi=t("ovf_hi", i32),
+        ovf_lo=t("ovf_lo", i32),
+        ovf_pane=t("ovf_pane", i32),
+        ovf_val=t("ovf_val", torch.float32),
+        ovf_n=t("ovf_n", i32),
+        kg_dirty=t("kg_dirty", torch.bool),
+    )
+
+
+def state_to_numpy(state: WindowShardState) -> Dict[str, np.ndarray]:
+    """Host arrays of a port state under ``STATE_FIELDS`` names, in the
+    packed layout (``touched`` is the zero-length placeholder; use
+    ``split_packed`` for the logical planes). ``table.keys`` and the
+    overflow identities come back as uint32, as the reference holds them."""
+    out = {}
+    for name in STATE_FIELDS:
+        attr = "table_keys" if name == "table.keys" else name
+        out[name] = getattr(state, attr).detach().cpu().numpy()
+    out["table.keys"] = out["table.keys"].astype(np.uint32)
+    out["ovf_hi"] = out["ovf_hi"].view(np.uint32)
+    out["ovf_lo"] = out["ovf_lo"].view(np.uint32)
+    return out
+
+
+# ------------------------------------------------------------ update
+
+def _floor_div(a, b: int):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
+           hi, lo, ts, values, valid, *, maxp: int, kg_start: int = 0,
+           kg_end: Optional[int] = None,
+           clear_rows: Optional[torch.Tensor] = None) -> WindowShardState:
+    """Apply one micro-batch to the shard state, in place (the reference's
+    ``update`` in the direct layout with packed planes; the result equals
+    its state with ``precombine`` on and off).
+
+    hi/lo: int32 [B] holding the uint32 halves of the key identity; ts
+    int32 [B] ticks; values float32 [B]; valid bool [B]. Routing is fused
+    in (G1): a lane counts only when valid AND its key group lies in
+    ``[kg_start, kg_end]`` (the whole ``[0, maxp)`` by default — the
+    reference's ``update`` receives ``valid`` already masked).
+    ``clear_rows`` (bool [R]) folds a deferred purge into the ring-reset
+    sweep, as the reference does."""
+    C = state.capacity
+    R = win.ring
+    k = win.panes_per_window
+    if kg_end is None:
+        kg_end = maxp - 1
+    if state.kg_dirty.numel() not in (0, maxp):
+        raise ValueError(
+            f"changelog group count {state.kg_dirty.numel()} != max "
+            f"parallelism {maxp}")
+    # G1: routing mask, pane, late check, batch pane range
+    pane, kg, live, stats = kernels.route_lanes(
+        hi, lo, ts, valid, state.watermark, state.purged_through,
+        slide=win.slide_ticks, k=k, maxp=maxp, kg_start=kg_start,
+        kg_end=kg_end,
+    )
+    state.dropped_late.add_(stats[0])                       # in place
+    # pane-ring registration (window_kernels.py:687-716), device scalars
+    new_max = torch.maximum(state.max_pane, stats[1])
+    new_min = torch.minimum(state.min_pane, stats[2])
+    r_idx = torch.arange(R, dtype=torch.int32, device=state.device)
+    p_r = new_max - torch.remainder(new_max - r_idx, R)
+    p_r = torch.where(new_max != PANE_NONE, p_r, PANE_NONE)
+    stale = p_r != state.pane_ids
+    evicted = stale & (state.pane_ids != PANE_NONE) & (
+        state.pane_ids + (k - 1) > state.fired_through
+    )
+    clear = stale if clear_rows is None else (stale | clear_rows)
+    # G2: ring-reset sweep of the flagged rows (+ eviction count)
+    kernels.clear_rows(state.acc, clear, evicted, state.dropped_capacity,
+                       C=C, R=R)
+    state.pane_ids.copy_(torch.where(stale, p_r, state.pane_ids))  # in place
+    state.max_pane.copy_(new_max)                                  # in place
+    state.min_pane.copy_(new_min)                                  # in place
+    # G3: too-old drop, slot = key, scatter into the plane, kg_dirty
+    kernels.scatter_update(
+        state.acc, state.kg_dirty if state.kg_dirty.numel() else None,
+        state.dropped_capacity, pane, kg, live, hi, lo,
+        values if red.kind == "sum" else None, state.max_pane, C=C, R=R,
+    )
+    return state
+
+
+# ------------------------------------------------------------ fire
+
+def _fire_plan(state: WindowShardState, win: WindowSpec, new_watermark):
+    """Scalar half of a watermark advance: which window-ends are due
+    (window_kernels.py:1129), as device torch ops on 0-d / [F] tensors."""
+    R = win.ring
+    k = win.panes_per_window
+    F = win.fires_per_step
+    slide = win.slide_ticks
+    if not isinstance(new_watermark, torch.Tensor):
+        new_watermark = _scalar(int(new_watermark), state.device)
+    wm = torch.maximum(state.watermark, new_watermark)
+    # clamp before subtracting so the MIN sentinel cannot wrap int32
+    wm_c = torch.clamp_min(wm, INT32_MIN + 1 + slide)
+    wm_pane = _floor_div(wm_c + 1 - slide, slide)
+    have = state.max_pane != PANE_NONE
+    oldest = torch.maximum(state.max_pane - (R - 1), state.min_pane)
+    start = torch.maximum(state.fired_through + 1, oldest)
+    start = torch.where(state.fired_through == PANE_NONE, oldest, start)
+    end = torch.where(
+        have, torch.minimum(wm_pane, state.max_pane + (k - 1)), start - 1
+    )
+    n_due = torch.clamp_min(end - start + 1, 0)
+    n_now = torch.clamp_max(n_due, F)
+    f_idx = torch.arange(F, dtype=torch.int32, device=state.device)
+    p_f = start + f_idx
+    lane_ok = f_idx < n_now
+    window_end = torch.where(lane_ok, (p_f + 1) * slide, PANE_NONE)
+    new_fired = torch.where(
+        n_due > F, start + n_now - 1, torch.maximum(wm_pane, state.fired_through)
+    )
+    new_fired = torch.where(
+        have, new_fired, torch.maximum(state.fired_through, wm_pane)
+    )
+    return {"wm": wm, "n_now": n_now, "p_f": p_f, "lane_ok": lane_ok,
+            "window_end": window_end, "new_fired_through": new_fired}
+
+
+def _purge_plan(state: WindowShardState, win: WindowSpec, wm,
+                new_fired_through):
+    """Which ring rows purge at this advance, and the new purged_through
+    (window_kernels.py:1245, allowed lateness 0)."""
+    k = win.panes_per_window
+    slide = win.slide_ticks
+    base = torch.clamp_min(wm, INT32_MIN + 1 + slide)
+    wm_pane_l = _floor_div(base + 1 - slide, slide)
+    cutoff = torch.minimum(new_fired_through, wm_pane_l)
+    purgeable = (
+        (state.pane_ids != PANE_NONE)
+        & (state.pane_ids + (k - 1) <= cutoff)
+        & (state.pane_ids > state.purged_through)
+    )
+    new_purged = torch.where(
+        cutoff == PANE_NONE,
+        state.purged_through,
+        torch.maximum(
+            state.purged_through,
+            torch.clamp_min(cutoff, PANE_NONE + k) - (k - 1),
+        ),
+    )
+    return purgeable, new_purged
+
+
+def advance_and_fire_resident(state: WindowShardState, win: WindowSpec,
+                              red: ReduceSpec, new_watermark):
+    """Fused-fire advance of the resident drain (the reference's
+    ``advance_and_fire_resident`` with ``reduced=True``; its compact
+    payload is not ported, ROADMAP queue 2, K11): plan the due
+    window-ends, evaluate them for every key and reduce each lane on the
+    device (G4), advance watermark / fired_through / purged_through in
+    place, and return the purge row mask for the next update's sweep (or
+    ``apply_pending_purge``). ``new_watermark`` is an int32 0-d tensor (or
+    an int, staged here).
+
+    Returns ``(state, purge_rows bool [R], ReducedFires)``."""
+    plan = _fire_plan(state, win, new_watermark)
+    purgeable, new_purged = _purge_plan(
+        state, win, plan["wm"], plan["new_fired_through"]
+    )
+    counts, vsums = kernels.fire_reduced(
+        state.acc, state.pane_ids, plan["p_f"], plan["lane_ok"],
+        C=state.capacity, R=win.ring, k=win.panes_per_window,
+    )
+    fires = ReducedFires(counts, plan["window_end"], plan["n_now"],
+                         plan["lane_ok"], vsums)
+    state.watermark.copy_(plan["wm"])                         # in place
+    state.fired_through.copy_(plan["new_fired_through"])      # in place
+    state.purged_through.copy_(new_purged)                    # in place
+    return state, purgeable, fires
+
+
+def apply_pending_purge(state: WindowShardState, win: WindowSpec,
+                        red: ReduceSpec, rows) -> WindowShardState:
+    """Clear the ring rows whose purge was deferred past the end of a
+    drain (G2 without an eviction count), in place."""
+    kernels.clear_rows(state.acc, rows, None, state.dropped_capacity,
+                       C=state.capacity, R=win.ring)
+    return state

@@ -1,0 +1,89 @@
+"""Sinks (ref: api/functions/sink — print/socket/write/collect).
+
+This slice of the port carries the sink contract, CountingSink (the
+north-star job's device-reduce sink) and CollectSink. A window stage feeds
+only device-reduce sinks so far; per-row window output waits for the
+compact-fires path (ROADMAP queue 2, K11).
+"""
+
+from __future__ import annotations
+
+from typing import Any, List
+
+
+class Sink:
+    #: set True when invoke_columnar is overridden (vectorized fast path)
+    columnar = False
+    #: set True when the sink only consumes per-emission AGGREGATES
+    #: (count, value sum) and therefore never needs the fired keys/values
+    #: transferred off-device. The executor then reduces window fires
+    #: on-chip and delivers two scalars per drain instead of O(fires)
+    #: bytes over the (slow) device->host link — the TPU-native analog of
+    #: a pre-aggregating sink. invoke_reduced() receives the aggregates.
+    device_reduce = False
+
+    def open(self):
+        pass
+
+    def invoke_batch(self, elements: List[Any]):
+        raise NotImplementedError
+
+    def invoke_columnar(self, cols: dict):
+        """Vectorized delivery: dict of equal-length numpy arrays."""
+        names = list(cols)
+        self.invoke_batch(list(zip(*[cols[n] for n in names])))
+
+    def close(self):
+        pass
+
+    # -- exactly-once hooks (ref CheckpointedFunction on sinks, e.g.
+    # BucketingSink.snapshotState / notifyCheckpointComplete) ------------
+    def snapshot_state(self):
+        return None
+
+    def restore_state(self, state):
+        pass
+
+    def notify_checkpoint_complete(self, checkpoint_id: int):
+        pass
+
+
+class CountingSink(Sink):
+    """Benchmark sink: O(1) per batch, tallies count and value sum.
+
+    device_reduce: fired (key, window, value) rows are reduced on-chip and
+    only (n, value_sum) cross the wire per drain — results identical to
+    the columnar path, minus the per-row transfer."""
+
+    columnar = True
+    device_reduce = True
+
+    def __init__(self):
+        self.count = 0
+        self.value_sum = 0.0
+
+    def invoke_batch(self, elements):
+        self.count += len(elements)
+        for e in elements:
+            v = e[-1] if isinstance(e, tuple) else getattr(e, "value", 0.0)
+            self.value_sum += float(v)
+
+    def invoke_columnar(self, cols):
+        import numpy as np
+
+        self.count += len(cols["value"])
+        self.value_sum += float(np.sum(cols["value"]))
+
+    def invoke_reduced(self, n: int, value_sum: float):
+        self.count += int(n)
+        self.value_sum += float(value_sum)
+
+
+class CollectSink(Sink):
+    """Test sink gathering all outputs (ref test-utils collect pattern)."""
+
+    def __init__(self):
+        self.results: List[Any] = []
+
+    def invoke_batch(self, elements):
+        self.results.extend(elements)

@@ -1,0 +1,80 @@
+"""flink_tpu_torch stands alone: it imports neither jax nor flink_tpu, and
+its entry points run on the CUDA card or raise — never silently on the
+CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import flink_tpu_torch
+from flink_tpu_torch import StreamExecutionEnvironment
+from flink_tpu_torch.ops import cuda as kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    p for p in (REPO / "flink_tpu_torch").rglob("*.py")
+    if "_build" not in p.relative_to(REPO).parts
+) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flink_tpu")
+
+
+def test_port_imports_without_jax_or_the_reference():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PORT_FILES if p.name != "chip_smoke.py")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flink_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_file_imports_jax_or_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_environment_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamExecutionEnvironment()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamExecutionEnvironment(device="cuda")
+    assert StreamExecutionEnvironment(device="cpu").device.type == "cpu"
+
+
+def test_every_kernel_has_a_source_counter_and_plain_version():
+    for fn in kernels.KERNELS:
+        assert (kernels.CSRC_DIR / f"{fn.__name__}.cu").is_file()
+        assert isinstance(fn.launches, int)
+        assert callable(getattr(kernels, f"{fn.__name__}_plain"))
+    assert flink_tpu_torch.__version__

@@ -1,0 +1,102 @@
+"""flink_tpu_torch.ops.window_kernels against flink_tpu.ops.window_kernels.
+
+The same six batches (tests/torch_parity.py: late, too-old, invalid and
+out-of-range lanes, a ring rotation that evicts unfired panes, a folded
+deferred purge, negative ticks, multi-window watermark jumps) go through
+the JAX reference on the CPU — direct layout, packed planes, pre-combine
+on and off — and through the port on the CPU (its kernels' plain
+versions).
+
+Tolerances: integer-valued float data must match bit for bit. Random
+float values get rtol=1e-6 on the accumulator and the fire value sums:
+the reference's pre-combine adds a key's lanes in sorted segments, the
+port adds them in lane order (and on the card with atomics, in any
+order), so the float sums round differently.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (
+    C, MAXP, R, assert_fires_equal, assert_states_equal, batches,
+    jax_kernels, lanes_torch, set_watermark, specs,
+)
+
+from flink_tpu.ops import window_kernels as wkj
+from flink_tpu_torch.ops import cuda as kernels
+from flink_tpu_torch.ops import window_kernels as wkt
+
+# (window, reference pre-combine, random float values)
+CASES = [
+    pytest.param(window, precombine, False,
+                 id=f"{window}-precombine_{'on' if precombine else 'off'}")
+    for window in ("tumbling", "sliding") for precombine in (True, False)
+] + [pytest.param("tumbling", True, True, id="tumbling-precombine_on-floats")]
+
+
+def _fresh(window):
+    win_j, red_j, win_t, red_t = specs(window)
+    sj = wkj.init_state(C, 16, win_j, red_j, layout="direct",
+                        n_key_groups=MAXP, packed=True)
+    st = wkt.init_state(C, win_t, red_t, n_key_groups=MAXP,
+                        device="cpu")
+    return win_j, red_j, win_t, red_t, sj, st
+
+
+@pytest.mark.parametrize("window,precombine,floats", CASES)
+def test_update_sequence_matches_reference(window, precombine, floats):
+    win_j, red_j, win_t, red_t, sj, st = _fresh(window)
+    upd, _ = jax_kernels(window, precombine)
+    rtol = 1e-6 if floats else 0.0
+    for hi, lo, ts, vals, valid, wm, clear in batches(7, floats):
+        sj = upd(sj, hi, lo, ts, vals, valid, clear)
+        wkt.update(st, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
+                   maxp=MAXP, clear_rows=torch.from_numpy(clear))
+        assert_states_equal(sj, st, rtol)
+        sj = set_watermark(sj, st, int(wm))
+    # the sequence reached the branches it exists for
+    assert int(st.dropped_late) > 0
+    assert int(st.dropped_capacity) > 0
+
+
+@pytest.mark.parametrize("window,precombine,floats", CASES)
+def test_fire_and_purge_sequence_matches_reference(window, precombine,
+                                                   floats):
+    """update -> watermark -> advance_and_fire_resident(reduced=True), the
+    purge rows deferred into the next update's sweep, and the last ones
+    applied with apply_pending_purge — the resident drain's slot order."""
+    win_j, red_j, win_t, red_t, sj, st = _fresh(window)
+    upd, adv = jax_kernels(window, precombine)
+    rtol = 1e-6 if floats else 0.0
+    pend_j = np.zeros(R, bool)
+    pend_t = torch.zeros(R, dtype=torch.bool)
+    n_fired = 0
+    for hi, lo, ts, vals, valid, wm, _clear in batches(11, floats):
+        sj = upd(sj, hi, lo, ts, vals, valid, pend_j)
+        wkt.update(st, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
+                   maxp=MAXP, clear_rows=pend_t)
+        sj = set_watermark(sj, st, int(wm))
+        sj, pend_j, fr_j = adv(sj, np.int32(wm))
+        st, pend_t, fr_t = wkt.advance_and_fire_resident(
+            st, win_t, red_t, torch.tensor(int(wm), dtype=torch.int32))
+        assert_fires_equal(fr_j, fr_t, rtol)
+        np.testing.assert_array_equal(pend_t.numpy(), np.asarray(pend_j))
+        assert_states_equal(sj, st, rtol)
+        n_fired += int(fr_t.n_fires)
+    sj = wkj.apply_pending_purge(sj, win_j, red_j, pend_j)
+    wkt.apply_pending_purge(st, win_t, red_t, pend_t)
+    assert_states_equal(sj, st, rtol)
+    assert n_fired > 0 and np.asarray(pend_j).any()
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    """On CPU tensors every wrapper runs its plain version: no counter
+    moves and nothing is compiled."""
+    kernels.reset_launch_counts()
+    _, _, win_t, red_t, _, st = _fresh("tumbling")
+    hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
+    wkt.update(st, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
+               maxp=MAXP)
+    wkt.advance_and_fire_resident(st, win_t, red_t, int(wm))
+    assert [fn.launches for fn in kernels.KERNELS] == [0, 0, 0, 0]

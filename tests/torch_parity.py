@@ -1,0 +1,146 @@
+"""Shared inputs for the flink_tpu_torch parity tests (tests/test_torch_*.py).
+
+Every input is made with numpy from a fixed seed and handed to both
+packages: the JAX reference (flink_tpu, on the CPU as its own tests run
+it) and the port (flink_tpu_torch, with device="cpu", i.e. the plain
+PyTorch versions of its kernels). Shapes are small: C = 4096 keys, R = 8
+ring panes, B = 1024 lanes, max parallelism 128, slide = 10 ticks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from flink_tpu.ops import window_kernels as wkj
+from flink_tpu_torch.ops import window_kernels as wkt
+
+C, R, B, MAXP, F = 4096, 8, 1024, 128, 2
+SLIDE = 10
+WINDOWS = {"tumbling": 10, "sliding": 20}   # size ticks (k = 1, k = 2)
+
+
+def specs(window: str):
+    size = WINDOWS[window]
+    return (wkj.WindowSpec(size, SLIDE, ring=R, fires_per_step=F),
+            wkj.ReduceSpec("sum", jnp.float32),
+            wkt.WindowSpec(size, SLIDE, ring=R, fires_per_step=F),
+            wkt.ReduceSpec("sum"))
+
+
+def jax_fields(st) -> dict:
+    """A JAX WindowShardState's leaves as numpy, under the port's names."""
+    out = {"table.keys": np.asarray(st.table.keys)}
+    for name in wkt.STATE_FIELDS[1:]:
+        out[name] = np.asarray(getattr(st, name))
+    return out
+
+
+def lanes_torch(hi, lo, ts, vals, valid):
+    """numpy lanes -> the port's tensors (uint32 halves as int32 bits)."""
+    return (torch.from_numpy(hi.view(np.int32).copy()),
+            torch.from_numpy(lo.view(np.int32).copy()),
+            torch.from_numpy(ts.astype(np.int32)),
+            torch.from_numpy(vals.astype(np.float32)),
+            torch.from_numpy(valid.copy()))
+
+
+# (pane range of most lanes, watermark ticks after the batch, extra lanes)
+SCHEDULE = (
+    ((0, 3), 5, None),
+    ((0, 5), 15, None),            # pane 0 late from here on
+    ((3, 7), 25, "clear"),         # folds a deferred purge of row 1
+    ((5, 13), 28, "too_old"),      # rotates the ring over unfired panes
+    ((11, 14), 75, "negative"),    # negative ticks; several windows due
+    ((12, 15), 131, None),
+)
+
+
+def batches(seed: int, floats: bool = False):
+    """Six batches reaching every branch of the update and the fire: late
+    lanes (watermark and purge cursor), invalid lanes, keys past capacity
+    or with a nonzero high word, a ring rotation that evicts unfired panes,
+    too-old lanes, negative ticks, a deferred purge folded into the sweep,
+    and watermark jumps that make more windows due than F lanes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for (p0, p1), wm, extra in SCHEDULE:
+        hi = np.where(rng.random(B) < 0.02, 1, 0).astype(np.uint32)
+        lo = rng.integers(0, C + 64, B).astype(np.uint32)
+        lo[:64] = rng.integers(0, 32, 64)          # duplicate-heavy keys
+        ts = rng.integers(p0 * SLIDE, p1 * SLIDE, B).astype(np.int32)
+        if extra == "too_old":
+            ts[:40] = rng.integers(3 * SLIDE, 5 * SLIDE, 40)
+        if extra == "negative":
+            ts[:20] = -rng.integers(1, 30, 20)
+        if floats:
+            # positive, so a sum never cancels and a relative tolerance
+            # bounds the rounding of a different summation order
+            vals = rng.uniform(0.5, 8.0, B).astype(np.float32)
+        else:
+            vals = rng.integers(1, 9, B).astype(np.float32)
+        valid = rng.random(B) < 0.9
+        clear = np.zeros(R, bool)
+        if extra == "clear":
+            clear[1] = True
+        out.append((hi, lo, ts, vals, valid, np.int32(wm), clear))
+    return out
+
+
+def assert_states_equal(jax_st, port_st, rtol: float = 0.0) -> None:
+    """Every field equal; the accumulator plane within ``rtol`` (0 means
+    bit for bit)."""
+    want, got = jax_fields(jax_st), wkt.state_to_numpy(port_st)
+    for name in wkt.STATE_FIELDS:
+        w, g = want[name], got[name]
+        assert w.shape == g.shape, (name, w.shape, g.shape)
+        if name == "acc" and rtol:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def assert_fires_equal(jax_fr, port_fr, rtol: float = 0.0) -> None:
+    for name in ("counts", "window_end_ticks", "n_fires", "lane_valid"):
+        np.testing.assert_array_equal(
+            getattr(port_fr, name).numpy(), np.asarray(getattr(jax_fr, name)),
+            err_msg=name)
+    np.testing.assert_allclose(port_fr.value_sums.numpy(),
+                               np.asarray(jax_fr.value_sums), rtol=rtol,
+                               atol=0, err_msg="value_sums")
+
+
+def jax_set_watermark(jax_st, wm: int):
+    return dataclasses.replace(
+        jax_st, watermark=jnp.maximum(jax_st.watermark, jnp.int32(wm)))
+
+
+def set_watermark(jax_st, port_st, wm: int):
+    """Advance both watermarks as the mask route does after an update."""
+    port_st.watermark.copy_(torch.maximum(
+        port_st.watermark, torch.tensor(wm, dtype=torch.int32)))
+    return jax_set_watermark(jax_st, wm)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernels(window: str, precombine: bool):
+    """Jitted reference update (direct layout, packed or split planes per
+    the state) and resident reduced advance, built once per process so
+    the tests share their compiles."""
+    win, red, _, _ = specs(window)
+
+    def upd(st, hi, lo, ts, vals, valid, clear):
+        return wkj.update(st, win, red, hi, lo, ts, vals, valid,
+                          direct=True, precombine=precombine,
+                          clear_rows=clear)[0]
+
+    def adv(st, wm):
+        return wkj.advance_and_fire_resident(st, win, red, wm, reduced=True)
+
+    return jax.jit(upd), jax.jit(adv)
