@@ -6,28 +6,51 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the window kernels G1-G4 from flink_tpu_torch/csrc.
-  3. kernels  — runs each kernel at the north-star job's shapes (C = 1M keys,
-                R = 8 ring panes, B = 262,144 lanes, F = 2 fire lanes,
-                max parallelism 128) and holds it against its plain PyTorch
-                version on the same inputs, exactly (the data is integer-
-                valued); times kernel, plain version and, where one PyTorch
-                call computes the same function, that call, with CUDA events,
-                beside the bound the card's 3.35 TB/s sets on the bytes moved.
+  2. build    — compiles the window kernels G1-G6 from flink_tpu_torch/csrc.
+  3. kernels  — runs each kernel at the shapes its job gives it and holds it
+                against its plain PyTorch version on the same inputs, on
+                ``main`` and ``edge`` inputs, exactly (the data is
+                integer-valued). G1-G4 at the north-star job's shapes
+                (C = 1M keys, R = 8 ring panes, k = 1, B = 262,144 lanes,
+                F = 2 fire lanes, max parallelism 128); G1-G3, G5 and G6 at
+                the sparse-key job's (C = 2^21 slots, R = 12, k = 5 panes a
+                window, slide 2,000, probe length 64), G3 there fed the
+                slots G5 gives (C for a lane with none) and G1's edge lanes
+                late by the k-pane test or behind the ring's horizon. G5
+                may place a contested key at another slot than its plain
+                version, so it is held to the table's invariants: equal ok
+                and n_new, the same keys each once, each within 64 slots of
+                its chain's start where lookup finds it, and equal per-key
+                values after a G3 pass (kernels against plain versions). A
+                "hash_table" line says how deep the job's 1M keys sit in
+                their probe chains once all have arrived. Times kernel,
+                plain version and, where one PyTorch call computes the same
+                function, that call, with CUDA events, beside the bound the
+                card's 3.35 TB/s sets on the bytes moved.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
                 public API; the sink's count and value sum must equal a numpy
-                reference, and every kernel's launch counter must be > 0.
+                reference, and G1-G4 must have launched.
+  5. sparse   — nexmark q5's HOP(2 s, 10 s) count per key over the same
+                traffic with the 1M keys mapped to sparse 64-bit ids
+                (splitmix64), state capacity 2^21 (a load of 0.48) probed 64
+                slots deep, into a sink that keeps
+                every row: the auto layout must resolve to hash; the row
+                count must equal numpy's distinct (key, window) count, the
+                values must sum to 5 x 30M, no record may drop, every row of
+                the keys whose id is 0 mod 1024 must equal numpy's, and G1,
+                G2, G3, G5 and G6 must have launched.
 
-Then one line {"kernels": [...]} (launch counts from the e2e run, numbers
-from phase 3), and last {"ok": true, "device": {...}}.
+Each path's launch counters are set to 0 just before it runs and read just
+after. Then one line {"kernels": [...]} (launches summed over the two
+paths, numbers from phase 3), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of the e2e run: the generator's
-host time alone, the host's top functions, and the card's busy time and
-idle share from torch.profiler.
+adds, before those two lines, a profile of each job: the generator's host
+time alone, the host's top functions, and the card's busy time and idle
+share from torch.profiler.
 """
 
 import json
@@ -42,8 +65,10 @@ from flink_tpu_torch import StreamExecutionEnvironment
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.ops import cuda as kernels
-from flink_tpu_torch.ops.cuda import PANE_NONE
-from flink_tpu_torch.runtime.sinks import CountingSink
+from flink_tpu_torch.ops import hashtable
+from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
+from flink_tpu_torch.ops.hashing import probe_hash, splitmix64
+from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -59,6 +84,17 @@ MAX_PARALLELISM = 128
 TOTAL_EVENTS = 30_000_000
 RING_PANES = 8                # the executor's auto-sized ring at k = 1
 SPIN_CYCLES = 50_000_000      # ~25 ms of spinning at the H100's boost clock
+
+# the sparse-key job: nexmark q5's HOP(dateTime, 2 s, 10 s) count per key
+SPARSE_SIZE_MS, SPARSE_SLIDE_MS = 10_000, 2_000
+SPARSE_CAPACITY = 1 << 21     # a load of 0.48 for 1M keys
+SPARSE_RING = 12              # the executor's auto ring at k = 5
+# state.probe-len: once the 1M keys have arrived (a load of 0.48), 334-338
+# of them sit 16 or more slots from their chain's start, 3-4 sit 32 or
+# more, the deepest 38 (the hash_table line of two runs on an NVIDIA H100
+# 80GB HBM3, 700 W; see PERF.md). Strict capacity fails the job on any key
+# that finds no slot, so 16 or 32 slots would fail it; 64 hold every key.
+PROBE_LEN = 64
 
 
 def emit(obj) -> None:
@@ -154,6 +190,48 @@ def lane_inputs(dev, C, B, slide, kind, seed=0):
     }
 
 
+def sparse_lane_inputs(dev, B, kind, seed=0):
+    """G1/G3 lane inputs at the sparse-key job's shapes (slide 2,000 ticks,
+    k = 5, R = 12). ``main``: one batch of its generator that crosses a
+    pane boundary past the first window, with the watermark the executor
+    holds there. ``edge``: keys the table holds, new keys and the key -1
+    (== EMPTY, never placed); invalid lanes; panes -7 .. 3 against a
+    watermark in pane 0, so that panes <= -5 are late by the window's
+    k-pane test (pane + k - 1 <= watermark pane - 1), panes -4 .. -1 are
+    not (they would be at k = 1), and the purge cursor covers -6; 1 % of
+    the lanes at pane 10 drive the ring ahead, so that panes <= -2 fall
+    behind its 12-pane horizon and drop as too old."""
+    rng = np.random.default_rng(seed)
+    slide = SPARSE_SLIDE_MS
+    if kind == "main":
+        offset = 6 * slide * EVENTS_PER_MS - B // 2
+        keys, ts, vals = gen_batch(offset, B)
+        ids = sparse_ids(keys)
+        valid = np.ones(B, bool)
+        wm = int(ts[0]) - 1
+        purged = -1
+    else:
+        ids = sparse_ids(rng.integers(0, N_KEYS + N_KEYS // 10, B))
+        ids[rng.random(B) < 0.01] = -1
+        pane = rng.integers(-7, 4, B)
+        pane[rng.random(B) < 0.01] = 10
+        ts = pane * slide + rng.integers(0, slide, B)
+        vals = rng.integers(1, 9, B).astype(np.float32)
+        valid = rng.random(B) < 0.95
+        wm = slide // 2 - 1
+        purged = -6
+    hi, lo = id_halves(ids, dev)
+    return {
+        "hi": hi, "lo": lo,
+        "ts": _t(ts.astype(np.int32), dev, torch.int32),
+        "values": _t(vals.astype(np.float32), dev, torch.float32),
+        "valid": _t(valid, dev, torch.bool),
+        "watermark": torch.tensor(wm, dtype=torch.int32, device=dev),
+        "purged_through": torch.tensor(purged, dtype=torch.int32,
+                                       device=dev),
+    }
+
+
 def packed_plane(dev, C, R, density, seed=1):
     """A pane plane with integer values and touch counts in a ``density``
     share of the (row, key) cells."""
@@ -168,10 +246,10 @@ def _zero_i32(dev):
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
-def case_route_lanes(inp, C, R, maxp, slide):
+def case_route_lanes(inp, C, R, maxp, slide, k=1):
     args = (inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
             inp["purged_through"])
-    kw = dict(slide=slide, k=1, maxp=maxp, kg_start=0, kg_end=maxp - 1)
+    kw = dict(slide=slide, k=k, maxp=maxp, kg_start=0, kg_end=maxp - 1)
     B = inp["hi"].shape[0]
     return {
         "got": kernels.route_lanes(*args, **kw),
@@ -184,10 +262,14 @@ def case_route_lanes(inp, C, R, maxp, slide):
     }
 
 
-def case_scatter_update(inp, C, R, maxp, slide):
+def case_scatter_update(inp, C, R, maxp, slide, k=1, table=None):
+    """The direct layout's lanes (a sum) when ``table`` is None; else the
+    hash layout's (a count) with the slots G5 gives them in a copy of
+    ``table``, C for a lane that found none, as the sparse job's update
+    does: only lanes inside the ring's horizon look up or claim."""
     pane, kg, live, stats = kernels.route_lanes_plain(
         inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
-        inp["purged_through"], slide=slide, k=1, maxp=maxp, kg_start=0,
+        inp["purged_through"], slide=slide, k=k, maxp=maxp, kg_start=0,
         kg_end=maxp - 1)
     dev = pane.device
     max_pane = torch.maximum(torch.tensor(PANE_NONE, dtype=torch.int32,
@@ -197,15 +279,24 @@ def case_scatter_update(inp, C, R, maxp, slide):
     dirty1 = torch.zeros(maxp, dtype=torch.bool, device=dev)
     dirty2 = dirty1.clone()
     d1, d2 = _zero_i32(dev), _zero_i32(dev)
-    lanes = (pane, kg, live, inp["hi"], inp["lo"], inp["values"], max_pane)
+    hi, lo = inp["hi"], inp["lo"]
+    if table is None:
+        # the direct layout's slot: the key where it fits [0, C), else none
+        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
+        values = inp["values"]
+    else:
+        inside = live & (pane >= max_pane - (R - 1))
+        slot, _ok, _n = kernels.hash_upsert(table.clone(), hi, lo, inside,
+                                            probe_len=PROBE_LEN)
+        values = None
+    lanes = (pane, kg, live, slot, values, max_pane)
     kernels.scatter_update(a1, dirty1, d1, *lanes, C=C, R=R)
     kernels.scatter_update_plain(a2, dirty2, d2, *lanes, C=C, R=R)
-    lo64 = inp["lo"].long() & 0xFFFFFFFF
-    ok = live & (pane >= max_pane - (R - 1)) & (inp["hi"] == 0) & (lo64 < C)
-    idx = 2 * (torch.remainder(pane.long(), R) * C + lo64)[ok]
+    ok = live & (pane >= max_pane - (R - 1)) & (slot < C)
+    idx = 2 * (torch.remainder(pane.long(), R) * C + slot.long())[ok]
     lib_idx = torch.cat([idx, idx + 1])
-    lib_val = torch.cat([inp["values"][ok], torch.ones_like(
-        inp["values"][ok])])
+    ones = torch.ones(int(ok.sum()), device=dev)
+    lib_val = torch.cat([ones if values is None else values[ok], ones])
     B = pane.shape[0]
     return {
         "got": (a1, dirty1, d1), "want": (a2, dirty2, d2),
@@ -215,9 +306,9 @@ def case_scatter_update(inp, C, R, maxp, slide):
                                                       *lanes, C=C, R=R),
         # the same value + marker scatter in one call (no drop counting)
         "library": lambda: a2.view(-1).index_add_(0, lib_idx, lib_val),
-        # pane, kg, live, hi, lo, values in; each touched (value, marker)
+        # pane, kg, live, slot, values in; each touched (value, marker)
         # cell read and written once
-        "bytes": B * (4 + 4 + 1 + 4 + 4 + 4)
+        "bytes": B * (4 + 4 + 1 + 4 + (4 if values is not None else 0))
         + int(torch.unique(idx).numel()) * 8 * 2,
     }
 
@@ -277,37 +368,287 @@ def case_fire_reduced(dev, C, R, F, kind):
     }
 
 
+# ------------------------------------------------- phase 3, G5 and G6
+
+def sparse_ids(keys: np.ndarray) -> np.ndarray:
+    """The sparse-key job's fixed bijection: dense key -> 64-bit id."""
+    return splitmix64(keys).view(np.int64)
+
+
+def id_halves(ids: np.ndarray, dev):
+    w = np.ascontiguousarray(ids).view(np.uint64)
+    hi = (w >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (w & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return _t(hi, dev, torch.int32), _t(lo, dev, torch.int32)
+
+
+def wrapping_ids(C, n, seed):
+    """ids whose probe chain starts within PROBE_LEN - 1 slots of the end,
+    so that it wraps at C."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        ids = rng.integers(-(2**62), 2**62, 1 << 20, dtype=np.int64)
+        w = ids.view(np.uint64)
+        base = probe_hash((w >> np.uint64(32)).astype(np.uint32),
+                          (w & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+        out.extend(ids[(base & np.uint32(C - 1)) > C - PROBE_LEN].tolist())
+    return np.array(out[:n], np.int64)
+
+
+def table_invariants(table, C) -> None:
+    """Each key once, within PROBE_LEN of its chain's start, where lookup
+    finds it."""
+    used = table != EMPTY_WORD
+    words = table[used]
+    check(torch.unique(words).numel() == words.numel(),
+          "hash_upsert placed a key twice")
+    hi, lo = kernels.split_words(words)
+    slot, found = hashtable.lookup(table, hi, lo, probe_len=PROBE_LEN)
+    check(bool(found.all()), "lookup misses a placed key")
+    check(bool((slot.long() == torch.nonzero(used).reshape(-1)).all()),
+          "lookup finds a key at another slot than the one it holds")
+    base = probe_hash(hi, lo) & (C - 1)
+    check(bool(((slot.long() - base) % C < PROBE_LEN).all()),
+          "a key sits outside its probe chain")
+
+
+def keyed_columns(table, acc, C, R):
+    """The plane's [R, 2] column of every used slot, ordered by key word."""
+    used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
+    order = torch.argsort(table[used])
+    return table[used][order], acc.view(R, C, 2)[:, used[order]]
+
+
+def full_table(dev, C, B):
+    """The sparse job's table once every key has arrived: the 1M ids at a
+    load of 0.48, placed by G5. Emits how deep the keys sit in their probe
+    chains: a key at depth d needs a chain longer than d."""
+    table = hashtable.create(C, dev)
+    for off in range(0, N_KEYS, B):
+        h, l = id_halves(sparse_ids(np.arange(off, min(off + B, N_KEYS))),
+                         dev)
+        kernels.hash_upsert(table, h, l, torch.ones_like(h, dtype=torch.bool),
+                            probe_len=PROBE_LEN)
+    used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
+    hi, lo = kernels.split_words(table[used])
+    depth = (used - (probe_hash(hi, lo) & (C - 1))) % C
+    emit({"phase": "hash_table", "keys": int(used.numel()),
+          "load": used.numel() / C, "probe_len": PROBE_LEN,
+          "max_depth": int(depth.max()),
+          "keys_at_depth_16_or_more": int((depth >= 16).sum()),
+          "keys_at_depth_32_or_more": int((depth >= 32).sum())})
+    return table
+
+
+def case_hash_upsert(dev, C, B, kind, full):
+    """``main``: checked on the sparse job's first batch into an empty table
+    (every lane claims); timed on a later batch against the full table, the
+    steady state of the job (every key resident, load 0.48). ``edge``: a
+    table at a load of 0.24, lanes of the key -1 (== EMPTY), duplicate-heavy
+    lanes, chains that wrap at C, invalid lanes. ``full``: the table of
+    full_table."""
+    rng = np.random.default_rng(7)
+    table0 = hashtable.create(C, dev)
+    if kind == "main":
+        ids = sparse_ids(gen_batch(0, B)[0])
+        valid = np.ones(B, bool)
+    else:
+        pre = sparse_ids(np.arange(N_KEYS // 2, dtype=np.int64))
+        for off in range(0, len(pre), B):
+            h, l = id_halves(pre[off:off + B], dev)
+            kernels.hash_upsert_plain(
+                table0, h, l, torch.ones_like(h, dtype=torch.bool),
+                probe_len=PROBE_LEN)
+        ids = sparse_ids(rng.integers(0, N_KEYS, B))
+        ids[:4096] = sparse_ids(rng.integers(0, 16, 4096))  # duplicates
+        ids[4096:4160] = wrapping_ids(C, 4, 3).repeat(16)
+        ids[rng.random(B) < 0.01] = -1
+        valid = rng.random(B) < 0.95
+    hi, lo = id_halves(ids, dev)
+    valid_t = _t(valid, dev, torch.bool)
+    t1, t2 = table0.clone(), table0.clone()
+    s1, ok1, n1 = kernels.hash_upsert(t1, hi, lo, valid_t,
+                                      probe_len=PROBE_LEN)
+    s2, ok2, n2 = kernels.hash_upsert_plain(t2, hi, lo, valid_t,
+                                            probe_len=PROBE_LEN)
+    # the set invariants
+    check(bool((ok1 == ok2).all()), "hash_upsert: ok differs")
+    check(int(n1) == int(n2), f"hash_upsert: n_new {int(n1)} != {int(n2)}")
+    check(bool((s1[~ok1] == C).all()), "hash_upsert: a failed lane has a slot")
+    check(bool((torch.sort(t1).values == torch.sort(t2).values).all()),
+          "hash_upsert: the tables hold other keys")
+    table_invariants(t1, C)
+    key = kernels.key_words(hi, lo)
+    check(bool((t1[s1[ok1].long()] == key[ok1]).all()),
+          "hash_upsert: a lane's slot holds another key")
+    check(not bool(ok1[key == EMPTY_WORD].any()), "the key -1 was placed")
+    # equal per-key values after a G3 pass over each version's slots: the
+    # kernels' (G5 then G3) against the plain versions'
+    R = SPARSE_RING
+    pane = torch.zeros(B, dtype=torch.int32, device=dev)
+    kg = torch.zeros(B, dtype=torch.int32, device=dev)
+    vals = _t(rng.integers(1, 9, B).astype(np.float32), dev, torch.float32)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    planes = []
+    for table, slot, g3 in ((t1, s1, kernels.scatter_update),
+                            (t2, s2, kernels.scatter_update_plain)):
+        acc = torch.zeros(C * R, 2, device=dev)
+        g3(acc, None, _zero_i32(dev), pane, kg, valid_t, slot, vals, zero,
+           C=C, R=R)
+        planes.append(keyed_columns(table, acc, C, R))
+    err = max_abs_err(planes[0][1], planes[1][1])
+    check(bool((planes[0][0] == planes[1][0]).all()) and err == 0.0,
+          f"hash_upsert: per-key values differ after G3 (err {err})")
+    # the timing: the main path's steady state, every key in the table
+    if kind == "main":
+        t1 = full.clone()
+        t2 = full.clone()
+        hi, lo = id_halves(sparse_ids(gen_batch(5 * B, B)[0]), dev)
+    s_run, ok_run, n_run = kernels.hash_upsert(t1, hi, lo, valid_t,
+                                               probe_len=PROBE_LEN)
+    check(kind != "main" or (bool(ok_run.all()) and int(n_run) == 0),
+          "hash_upsert: a key of the full table went missing")
+    cand = kernels.probe_chain(hi, lo, C=C, probe_len=PROBE_LEN)
+    depth = (s_run.long() - cand[:, 0]) % C
+    on_chain = ok_run[:, None] & (
+        torch.arange(PROBE_LEN, device=dev)[None, :] <= depth[:, None])
+    n_words = int(torch.unique(cand[on_chain]).numel())
+    return {
+        "err": max(err, float((ok1 != ok2).sum()), abs(int(n1) - int(n2))),
+        "run": lambda: kernels.hash_upsert(t1, hi, lo, valid_t,
+                                           probe_len=PROBE_LEN),
+        "plain": lambda: kernels.hash_upsert_plain(t2, hi, lo, valid_t,
+                                                   probe_len=PROBE_LEN),
+        "library": None,
+        # hi, lo, valid in; slot, ok out; each table word on a chain up to
+        # its key read once
+        "bytes": B * (4 + 4 + 1 + 4 + 1) + n_words * 8,
+    }
+
+
+def case_fire_compact(dev, C, kind, table):
+    """``main``: the sparse job's fire — one due lane of F = 2, a k = 5
+    window over a hash table of 1M keys, 98 % of them touched in each pane.
+    ``edge``: the direct layout's identity table, two due lanes, one of
+    them missing a pane, 30 % touched."""
+    R, k, F = SPARSE_RING, SPARSE_SIZE_MS // SPARSE_SLIDE_MS, FIRES_PER_STEP
+    pane_ids = torch.tensor([q for q in range(40, 40 + R)],
+                            dtype=torch.int32, device=dev)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if kind == "main":
+        density, ends, n_due = 0.98, [48, 49], 1
+        used = (table != EMPTY_WORD).cpu()
+    else:
+        table = torch.arange(C, dtype=torch.int64, device=dev)
+        density, ends, n_due = 0.3, [48, 50], 2
+        used = torch.ones(C, dtype=torch.bool)
+        pane_ids[46 % R] = PANE_NONE
+    touch = (torch.rand(R, C, generator=g) < density) & used[None, :]
+    val = torch.randint(1, 9, (R, C), generator=g).float() * touch
+    acc = torch.stack([val.reshape(-1), touch.reshape(-1).float()], 1).to(dev)
+    p_f = torch.tensor(ends, dtype=torch.int32, device=dev)
+    lane_ok = torch.tensor([f < n_due for f in range(F)], device=dev)
+    args = (acc, pane_ids, p_f, lane_ok, table)
+    rows1 = tuple(torch.empty(F, C, dtype=d, device=dev)
+                  for d in (torch.int32, torch.int32, torch.float32))
+    rows2 = tuple(torch.empty_like(r) for r in rows1)
+    c1, v1 = kernels.fire_compact(*args, *rows1, C=C, R=R, k=k)
+    c2, v2 = kernels.fire_compact_plain(*args, *rows2, C=C, R=R, k=k)
+    got, want = [c1, v1], [c2, v2]
+    for f in range(F):
+        n = int(c2[f])
+        got += [r[f, :n] for r in rows1]
+        want += [r[f, :n] for r in rows2]
+    # the library yardstick: the compaction alone, of the due lane's
+    # precomputed dense emit mask and (hi, lo, value) payload
+    emit, vals = kernels._eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok,
+                                                C=C, R=R, k=k)
+    hi, lo = kernels.split_words(table)
+    payload = torch.stack([hi, lo, vals[0].view(torch.int32)], 1)
+    mask0 = emit[0]
+    n_rows = int(c2.sum())
+    n_present = sum(int(pane_ids[(e - j) % R]) == e - j
+                    for e, ok in zip(ends, lane_ok.tolist()) if ok
+                    for j in range(k))
+    return {
+        "got": got, "want": want,
+        "run": lambda: kernels.fire_compact(*args, *rows1, C=C, R=R, k=k),
+        "plain": lambda: kernels.fire_compact_plain(*args, *rows2, C=C, R=R,
+                                                    k=k),
+        "library": lambda: payload.index_select(
+            0, torch.nonzero(mask0).reshape(-1)),
+        # each present row of each due lane read once, the key word of each
+        # emitted slot, 12 B per emitted row written, pane_ids, lane outs
+        "bytes": n_present * C * 8 + n_rows * (8 + 12) + R * 4
+        + F * (4 + 1 + 4 + 4),
+    }
+
+
 def kernel_phase(dev, C, R, B, F, maxp, slide, timing=True):
-    """Hold G1-G4 against their plain versions on both input sets, and time
-    the main-path set. Returns one record per kernel."""
-    lanes = {kind: lane_inputs(dev, C, B, slide, kind)
-             for kind in ("main", "edge")}
+    """Hold G1-G6 against their plain versions on both input sets, and time
+    the main-path set. G1-G3 run on both jobs, so each is held at the
+    north-star job's shapes and at the sparse-key job's (``sparse_ms`` is
+    its time there); G4 runs on the first, G5 and G6 on the second.
+    Returns one record per kernel."""
+    SC, SR = SPARSE_CAPACITY, SPARSE_RING
+    sk = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
+    full = full_table(dev, SC, B)
+    ns = {kind: lane_inputs(dev, C, B, slide, kind)
+          for kind in ("main", "edge")}
+    sp = {kind: sparse_lane_inputs(dev, B, kind)
+          for kind in ("main", "edge")}
+    # name -> kind -> the cases, the north-star job's first
+    make = {
+        "route_lanes": lambda kind: (
+            case_route_lanes(ns[kind], C, R, maxp, slide),
+            case_route_lanes(sp[kind], SC, SR, maxp, SPARSE_SLIDE_MS, k=sk)),
+        "clear_rows": lambda kind: (
+            case_clear_rows(dev, C, R, kind),
+            case_clear_rows(dev, SC, SR, kind)),
+        "scatter_update": lambda kind: (
+            case_scatter_update(ns[kind], C, R, maxp, slide),
+            case_scatter_update(sp[kind], SC, SR, maxp, SPARSE_SLIDE_MS,
+                                k=sk, table=full)),
+        "fire_reduced": lambda kind: (case_fire_reduced(dev, C, R, F, kind),),
+        "hash_upsert": lambda kind: (case_hash_upsert(dev, SC, B, kind,
+                                                      full),),
+        "fire_compact": lambda kind: (case_fire_compact(dev, SC, kind,
+                                                        full),),
+    }
+    job_of = {"route_lanes": ("north-star", "sparse"),
+              "clear_rows": ("north-star", "sparse"),
+              "scatter_update": ("north-star", "sparse"),
+              "fire_reduced": ("north-star",), "hash_upsert": ("sparse",),
+              "fire_compact": ("sparse",)}
     out = {}
-    for name in ("route_lanes", "clear_rows", "scatter_update",
-                 "fire_reduced"):
-        cases, errs = {}, []
+    for name, cases_of in make.items():
+        mains, errs = None, []
         for kind in ("main", "edge"):
-            if name == "route_lanes":
-                c = case_route_lanes(lanes[kind], C, R, maxp, slide)
-            elif name == "scatter_update":
-                c = case_scatter_update(lanes[kind], C, R, maxp, slide)
-            elif name == "clear_rows":
-                c = case_clear_rows(dev, C, R, kind)
-            else:
-                c = case_fire_reduced(dev, C, R, F, kind)
-            err = max_abs_err(c["got"], c["want"])
-            check(err == 0.0, f"{name} ({kind} inputs) disagrees with its "
-                              f"plain version: max abs err {err}")
-            cases[kind] = c
-            errs.append(err)
-        main = cases["main"]
+            cases = cases_of(kind)
+            for job, c in zip(job_of[name], cases):
+                err = (c["err"] if "err" in c
+                       else max_abs_err(c["got"], c["want"]))
+                check(err == 0.0, f"{name} ({kind} inputs, {job} shapes) "
+                                  f"disagrees with its plain version: max "
+                                  f"abs err {err}")
+                errs.append(err)
+            if kind == "main":
+                mains = cases
+            del cases
+        main = mains[0]
         rec = {"max_abs_err": max(errs), "bound_ms": bound_ms(main["bytes"])}
         if timing:
             rec["ms"] = time_ms(main["run"])
             rec["plain_ms"] = time_ms(main["plain"], reps=5)
             rec["library_ms"] = (time_ms(main["library"])
                                  if main["library"] is not None else None)
+            if len(mains) > 1:
+                rec["sparse_ms"] = time_ms(mains[1]["run"])
+                rec["sparse_bound_ms"] = bound_ms(mains[1]["bytes"])
         out[name] = rec
+        del mains, main
     return out
 
 
@@ -357,6 +698,96 @@ def north_star_job(device, n_keys, events_per_ms, total, batch, depth):
     return sink, job, time.perf_counter() - t0
 
 
+# ------------------------------------------------------------ phase 5
+
+def sparse_gen(offset, n):
+    """The north-star traffic with each key mapped to its sparse id."""
+    keys, ts, _ = gen_batch(offset, n)
+    return {"id": sparse_ids(keys)}, ts
+
+
+def sparse_job(device, total, batch, depth):
+    """HOP(2 s, 10 s) count per sparse id into a row-keeping sink, through
+    the public API; returns (sink, job, s)."""
+    cfg = Configuration({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": depth,
+        "state.probe-len": PROBE_LEN,
+        "state.backend.overflow-ring": 0,
+    })
+    env = StreamExecutionEnvironment(cfg, device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(SPARSE_CAPACITY)
+    env.batch_size = batch
+    sink = ColumnarCollectSink()
+    (
+        env.add_source(GeneratorSource(sparse_gen, total=total))
+        .key_by(lambda c: c["id"])
+        .time_window(SPARSE_SIZE_MS, SPARSE_SLIDE_MS)
+        .count()
+        .add_sink(sink)
+    )
+    t0 = time.perf_counter()
+    job = env.execute("chip-smoke-sparse-hop")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, job, time.perf_counter() - t0
+
+
+def sparse_reference(total, chunk=1 << 22):
+    """numpy's answer for the sparse job: the number of distinct (key,
+    window) pairs, and the rows (id, window end ms, count) of the keys whose
+    id is 0 mod 1024. A window ending at pane e holds panes e-4 .. e."""
+    k = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
+    n_panes = -(-total // (EVENTS_PER_MS * SPARSE_SLIDE_MS))
+    seen = np.zeros((n_panes, N_KEYS), bool)
+    sel_ids, sel_panes = [], []
+    for off in range(0, total, chunk):
+        keys, ts, _ = gen_batch(off, min(chunk, total - off))
+        pane = ts // SPARSE_SLIDE_MS
+        seen[pane, keys] = True
+        ids = sparse_ids(keys)
+        sel = ids.view(np.uint64) % np.uint64(1024) == 0
+        sel_ids.append(ids[sel])
+        sel_panes.append(pane[sel])
+    n_pairs = 0
+    for e in range(n_panes + k - 1):
+        n_pairs += int(np.logical_or.reduce(
+            seen[max(0, e - k + 1):e + 1], axis=0).sum())
+    ids = np.concatenate(sel_ids).view(np.uint64)
+    panes = np.concatenate(sel_panes)
+    ends = np.concatenate([(panes + j + 1) * SPARSE_SLIDE_MS
+                           for j in range(k)])
+    pairs, counts = np.unique(
+        np.stack([np.tile(ids, k), ends.astype(np.uint64)], 1), axis=0,
+        return_counts=True)
+    return n_pairs, pairs, counts
+
+
+def check_sparse_rows(cols, total):
+    """The sparse job's rows against numpy; returns the row count."""
+    n_pairs, pairs, counts = sparse_reference(total)
+    n = len(cols["value"])
+    check(n == n_pairs, f"sparse job: {n} rows, numpy {n_pairs}")
+    vsum = float(np.sum(cols["value"], dtype=np.float64))
+    k = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
+    check(vsum == float(k * total),
+          f"sparse job: values sum to {vsum}, not {k * total}")
+    kid = cols["key_id"].astype(np.uint64)
+    sel = kid % np.uint64(1024) == 0
+    got = np.stack([kid[sel], cols["window_end_ms"][sel].astype(np.uint64)],
+                   1)
+    order = np.lexsort((got[:, 1], got[:, 0]))
+    check(np.array_equal(got[order], pairs)
+          and np.array_equal(cols["value"][sel][order], counts),
+          "sparse job: the rows of the keys with id = 0 mod 1024 differ "
+          "from numpy's")
+    return n
+
+
 # ------------------------------------------------------------ profile
 
 def _busy_ms(intervals) -> float:
@@ -372,12 +803,12 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
-def profile_phase(dev) -> dict:
+def profile_phase(dev, name, gen, run) -> dict:
     """Where the end-to-end time goes (``--profile`` only): the generator
-    alone on the host, the job's host profile (cProfile, top entries by
-    own time), and its device timeline (torch.profiler): busy time as the
-    union of kernel and copy intervals, and the share of wall time the
-    card sat idle."""
+    ``gen`` alone on the host, the host profile of the job ``run()``
+    (cProfile, top entries by own time), and its device timeline
+    (torch.profiler): busy time as the union of kernel and copy intervals,
+    and the share of wall time the card sat idle."""
     import cProfile
     import pstats
     from torch.autograd import DeviceType
@@ -385,13 +816,12 @@ def profile_phase(dev) -> dict:
 
     t0 = time.perf_counter()
     for off in range(0, TOTAL_EVENTS, BATCH):
-        gen_batch(off, min(BATCH, TOTAL_EVENTS - off))
+        gen(off, min(BATCH, TOTAL_EVENTS - off))
     gen_s = time.perf_counter() - t0
 
     prof_c = cProfile.Profile()
     prof_c.enable()
-    north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS, BATCH,
-                   RING_DEPTH)
+    run()
     prof_c.disable()
     st = pstats.Stats(prof_c)
     host_top = sorted(
@@ -400,8 +830,7 @@ def profile_phase(dev) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _sink, job, wall_s = north_star_job(dev, N_KEYS, EVENTS_PER_MS,
-                                            TOTAL_EVENTS, BATCH, RING_DEPTH)
+        _sink, job, wall_s = run()
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -412,7 +841,7 @@ def profile_phase(dev) -> dict:
         by_name[ev.name] = (ms + (b - a) / 1e3, n + 1)
     busy = _busy_ms(spans)
     return {
-        "phase": "profile", "generator_s": gen_s,
+        "phase": "profile", "job": name, "generator_s": gen_s,
         "host_top_own_s": host_top, "profiled_wall_s": wall_s,
         "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / (wall_s * 1e3),
@@ -434,7 +863,16 @@ KERNEL_SOURCES = {
                        "flink_tpu/ops/window_kernels.py:582"),
     "fire_reduced": ("flink_tpu_torch/csrc/fire_reduced.cu",
                      "flink_tpu/ops/window_kernels.py:1203"),
+    "hash_upsert": ("flink_tpu_torch/csrc/hash_upsert.cu",
+                    "flink_tpu/ops/hashtable.py:175"),
+    "fire_compact": ("flink_tpu_torch/csrc/fire_compact.cu",
+                     "flink_tpu/ops/window_kernels.py:1079"),
 }
+# which kernels each path must launch
+NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                      "fire_reduced")
+SPARSE_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                  "hash_upsert", "fire_compact")
 
 
 def main(argv) -> int:
@@ -458,14 +896,13 @@ def main(argv) -> int:
 
     recs = kernel_phase(dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP,
                         MAX_PARALLELISM, WINDOW_MS)
-    emit({"phase": "kernels", "checks": {
-        n: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                              "bound_ms")} for n, r in recs.items()}})
+    emit({"phase": "kernels", "checks": recs})
 
     kernels.reset_launch_counts()
     sink, job, secs = north_star_job(dev, N_KEYS, EVENTS_PER_MS,
                                      TOTAL_EVENTS, BATCH, RING_DEPTH)
     launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    total_launches = dict(launches)
     want_count = numpy_reference(TOTAL_EVENTS, N_KEYS, EVENTS_PER_MS,
                                  WINDOW_MS)
     m = job.metrics
@@ -482,14 +919,45 @@ def main(argv) -> int:
     check(m.dropped_late == 0 and m.dropped_capacity == 0,
           f"dropped records: late {m.dropped_late}, capacity "
           f"{m.dropped_capacity}")
+    for name in NORTH_STAR_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the north-star path")
+
+    kernels.reset_launch_counts()
+    sink, job, secs = sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH)
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+        total_launches[name] += n
+    cols = sink.columns()
+    m = job.metrics
+    emit({"phase": "sparse", "events": TOTAL_EVENTS, "seconds": secs,
+          "events_per_s": TOTAL_EVENTS / secs, "layout": job.state.layout,
+          "rows": len(cols.get("value", ())), "drains": m.resident_drains,
+          "fire_steps": m.fire_steps, "batches": m.steps,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash",
+          f"auto layout resolved to {job.state.layout}, not hash")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check_sparse_rows(cols, TOTAL_EVENTS)
+    for name in SPARSE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the sparse-key path")
+    del sink, cols
 
     if "--profile" in argv:
-        emit(profile_phase(dev))
+        emit(profile_phase(
+            dev, "north_star", gen_batch,
+            lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS,
+                                   BATCH, RING_DEPTH)))
+        emit(profile_phase(
+            dev, "sparse", sparse_gen,
+            lambda: sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH)))
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-        "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
+        "replaces": KERNEL_SOURCES[name][1],
+        "launches": total_launches[name],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": "bytes", "library_ms": r["library_ms"],

@@ -1,7 +1,7 @@
 // Shared helpers of the window-path kernels (route_lanes.cu, clear_rows.cu,
-// scatter_update.cu, fire_reduced.cu): int32 pane arithmetic with the
-// reference's floor semantics, and block-wide reductions that end in one
-// atomic per block.
+// scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu):
+// int32 pane arithmetic with the reference's floor semantics, block-wide
+// reductions that end in one atomic per block, and a block-wide scan.
 #pragma once
 
 #include <cstdint>
@@ -57,4 +57,33 @@ __device__ __forceinline__ T block_sum(T v) {
   v = (threadIdx.x < n_warps) ? part[threadIdx.x] : T(0);
   if (warp == 0) v = warp_sum(v);
   return v;
+}
+
+// Block-wide exclusive prefix sum of one int per thread, in thread order;
+// *total receives the block's sum in every thread. Every thread of the
+// block must call it (blockDim.x a multiple of 32, at most 1024).
+__device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
+                                                        int32_t* total) {
+  __shared__ int32_t warp_incl[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int32_t x = v;  // inclusive scan within the warp
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  __syncthreads();  // warp_incl[] may still be read by a previous call
+  if (lane == 31) warp_incl[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int32_t t = lane < n_warps ? warp_incl[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t += y;
+    }
+    warp_incl[lane] = t;  // inclusive over warps
+  }
+  __syncthreads();
+  *total = warp_incl[n_warps - 1];
+  return (warp > 0 ? warp_incl[warp - 1] : 0) + x - v;
 }

@@ -1,20 +1,22 @@
 // G3 scatter_update — accumulate one micro-batch into the packed pane plane
-// of the direct-index state backend, one thread per lane.
+// of the state backend, one thread per lane.
 //
 // Replaces (flink_tpu, the JAX reference): the accumulate phase of
-// ops/window_kernels.py update (window_kernels.py:735-916) in the direct
-// layout with packed planes — the too-old drop against the new max_pane,
-// slot = key (hi == 0 and lo < C, otherwise the lane is "nofit" and counts
-// into dropped_capacity), the changelog bits kg_dirty, and the scatter of
-// the value and the touch marker. On this path it also carries the role of
+// ops/window_kernels.py update (window_kernels.py:735-916) with packed
+// planes — the too-old drop against the new max_pane, the changelog bits
+// kg_dirty, and the scatter of the value and the touch marker at the
+// lane's slot. The slot comes in as an operand: in the direct layout
+// where(hi == 0 and lo < C, lo, C), in the hash layout what G5
+// hash_upsert placed or found. A live lane with slot C has no slot
+// ("nofit") and counts into dropped_capacity. On this path it also carries the role of
 // ops/segment.py segment_sort / reduce_sorted / scatter_combine (kernel
 // K3): the reference sorts the batch by accumulator index and pre-combines
 // duplicates because duplicate scatter indices serialize on a TPU.
 //
-// Bound: bytes. Per lane it reads pane, kg, hi, lo (4 B each), live (1 B)
-// and the value (4 B): 21 B; each touched (value, marker) cell of the plane
+// Bound: bytes. Per lane it reads pane, kg, slot (4 B each), live (1 B)
+// and the value (4 B): 17 B; each touched (value, marker) cell of the plane
 // is read and written once: 16 B. A 262,144-lane north-star batch moves
-// about 9.7 MB, 2.9 us at 3.35 TB/s. In practice the scattered 8-byte
+// about 8.6 MB, 2.6 us at 3.35 TB/s. In practice the scattered 8-byte
 // updates land in random 32-byte sectors, so the plane traffic is
 // sector-bound, not byte-bound.
 //
@@ -36,8 +38,8 @@ __global__ void scatter_update_kernel(
     float* __restrict__ acc, uint8_t* __restrict__ kg_dirty,
     int32_t* __restrict__ dropped_capacity, const int32_t* __restrict__ pane,
     const int32_t* __restrict__ kg, const uint8_t* __restrict__ live,
-    const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
-    const float* __restrict__ values, const int32_t* __restrict__ max_pane,
+    const int32_t* __restrict__ slot, const float* __restrict__ values,
+    const int32_t* __restrict__ max_pane,
     int B, int C, int R) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int32_t dropped = 0;
@@ -50,14 +52,14 @@ __global__ void scatter_update_kernel(
       // a set-only flag: read first, so the lanes of a key group after
       // its first do not all store to the same byte
       if (kg_dirty != nullptr && kg_dirty[kg[i]] == 0) kg_dirty[kg[i]] = 1;
-      const uint32_t key = lo[i];
-      if (hi[i] == 0u && key < static_cast<uint32_t>(C)) {
+      const uint32_t s = static_cast<uint32_t>(slot[i]);
+      if (s < static_cast<uint32_t>(C)) {
         const size_t flat =
-            static_cast<size_t>(floor_mod(p, R)) * C + key;  // pane-major
+            static_cast<size_t>(floor_mod(p, R)) * C + s;  // pane-major
         atomicAdd(acc + 2 * flat, values != nullptr ? values[i] : 1.0f);
         atomicAdd(acc + 2 * flat + 1, 1.0f);  // touch marker
       } else {
-        dropped = 1;  // nofit: no slot and no overflow ring in this layout
+        dropped = 1;  // nofit: no slot, and the port has no overflow ring
       }
     }
   }
@@ -69,8 +71,8 @@ __global__ void scatter_update_kernel(
 
 extern "C" int scatter_update(void* acc, void* kg_dirty,
                               void* dropped_capacity, const void* pane,
-                              const void* kg, const void* live, const void* hi,
-                              const void* lo, const void* values,
+                              const void* kg, const void* live,
+                              const void* slot, const void* values,
                               const void* max_pane, int B, int C, int R,
                               void* stream) {
   const int threads = 256;
@@ -81,8 +83,8 @@ extern "C" int scatter_update(void* acc, void* kg_dirty,
         static_cast<float*>(acc), static_cast<uint8_t*>(kg_dirty),
         static_cast<int32_t*>(dropped_capacity),
         static_cast<const int32_t*>(pane), static_cast<const int32_t*>(kg),
-        static_cast<const uint8_t*>(live), static_cast<const uint32_t*>(hi),
-        static_cast<const uint32_t*>(lo), static_cast<const float*>(values),
+        static_cast<const uint8_t*>(live), static_cast<const int32_t*>(slot),
+        static_cast<const float*>(values),
         static_cast<const int32_t*>(max_pane), B, C, R);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,7 @@
 """The window path's hand-written Hopper kernels and their plain versions.
 
-Four CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for ``sm_90a``)
-carry the device work of the north-star job; each source opens with the
+Six CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for ``sm_90a``)
+carry the device work of the window stage; each source opens with the
 reference function it replaces, what bounds it on the card and what its
 design does about that:
 
@@ -9,6 +9,8 @@ design does about that:
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
   G3 ``scatter_update``  the update's accumulate phase (atomic scatter)
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
+  G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
+  G6 ``fire_compact``    window evaluation compacted to (key, value) rows
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -39,16 +41,19 @@ from typing import Optional, Tuple
 import torch
 
 from flink_tpu_torch.core.keygroups import assign_to_key_group
-from flink_tpu_torch.ops.hashing import route_hash
+from flink_tpu_torch.ops.hashing import probe_hash, route_hash
 
 PANE_NONE = -(2**31) + 1
 INT32_MAX = 2**31 - 1
+# the hash layout's empty slot: the all-ones 64-bit key word (the
+# reference's uint32 [C, 2] row of EMPTY = 0xFFFFFFFF halves)
+EMPTY_WORD = -1
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
-           "fire_reduced.cu")
+           "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -58,9 +63,11 @@ _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P],
     "clear_rows": [_P, _P, _P, _P, _I, _I, _P],
-    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P],
+    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fire_reduced": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "fire_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -270,22 +277,22 @@ clear_rows.launches = 0
 
 # ------------------------------------------------------------ G3
 
-def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live, hi,
-                         lo, values, max_pane, *, C: int, R: int) -> None:
+def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live,
+                         slot, values, max_pane, *, C: int, R: int) -> None:
     """Plain version of G3, in place. acc float32 [C*R, 2]; kg_dirty bool
     [G] or None; dropped_capacity int32 0-d; pane/kg int32 [B]; live bool
-    [B]; hi/lo int32 [B] (uint32 bits); values float32 [B] or None (count:
-    every lane adds 1.0); max_pane int32 0-d, already advanced."""
+    [B]; slot int32 [B], the lane's state slot or C for none (the direct
+    layout's key past capacity, the hash layout's key that found no slot);
+    values float32 [B] or None (count: every lane adds 1.0); max_pane int32
+    0-d, already advanced."""
     too_old = live & (pane < max_pane - (R - 1))
     live = live & ~too_old
     if kg_dirty is not None:
         kg_dirty[kg[live].long()] = True
-    hi64 = hi.to(torch.int64) & 0xFFFFFFFF
-    lo64 = lo.to(torch.int64) & 0xFFFFFFFF
-    ok = live & (hi64 == 0) & (lo64 < C)
+    ok = live & (slot >= 0) & (slot < C)
     nofit = live & ~ok
     dropped_capacity.add_((too_old.sum() + nofit.sum()).to(torch.int32))
-    flat = torch.remainder(pane.to(torch.int64), R) * C + lo64
+    flat = torch.remainder(pane.to(torch.int64), R) * C + slot.to(torch.int64)
     idx = 2 * flat[ok]
     flat_acc = acc.view(-1)
     v = values[ok] if values is not None else torch.ones(
@@ -294,12 +301,12 @@ def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live, hi,
     flat_acc.index_add_(0, idx + 1, torch.ones_like(v))
 
 
-def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, hi, lo,
+def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, slot,
                    values, max_pane, *, C: int, R: int) -> None:
     """G3: see scatter_update_plain for the contract."""
     if _on_cpu(acc):
         return scatter_update_plain(acc, kg_dirty, dropped_capacity, pane,
-                                    kg, live, hi, lo, values, max_pane, C=C,
+                                    kg, live, slot, values, max_pane, C=C,
                                     R=R)
     dev = acc.device
     (B,) = pane.shape
@@ -308,16 +315,15 @@ def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, hi, lo,
         _check(kg_dirty, "kg_dirty", torch.bool, None, dev)
     _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
     for t, n, dt in ((pane, "pane", torch.int32), (kg, "kg", torch.int32),
-                     (live, "live", torch.bool), (hi, "hi", torch.int32),
-                     (lo, "lo", torch.int32)):
+                     (live, "live", torch.bool), (slot, "slot", torch.int32)):
         _check(t, n, dt, (B,), dev)
     if values is not None:
         _check(values, "values", torch.float32, (B,), dev)
     _check(max_pane, "max_pane", torch.int32, (), dev)
     rc = build().scatter_update(
         _ptr(acc), _ptr(kg_dirty), _ptr(dropped_capacity), _ptr(pane),
-        _ptr(kg), _ptr(live), _ptr(hi), _ptr(lo), _ptr(values),
-        _ptr(max_pane), B, C, R, _stream())
+        _ptr(kg), _ptr(live), _ptr(slot), _ptr(values), _ptr(max_pane), B,
+        C, R, _stream())
     _raise_on(rc, "scatter_update")
     scatter_update.launches += 1
 
@@ -327,11 +333,13 @@ scatter_update.launches = 0
 
 # ------------------------------------------------------------ G4
 
-def fire_reduced_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
-                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of G4. acc float32 [C*R, 2]; pane_ids int32 [R];
-    p_f int32 [F] window-end pane per lane; lane_ok bool [F]. Returns
-    (counts int32 [F], value_sums float32 [F])."""
+def _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
+                           k: int):
+    """The windows ending at panes ``p_f`` for every slot: (emit bool
+    [F, C], value float32 [F, C]). Pane q lives in ring row q mod R and
+    counts where pane_ids[row] == q and the row's touch column is set; a
+    slot is emitted when any of its k panes counts, its value is the sum of
+    those panes in pane order."""
     a3 = acc.view(R, C, 2)
     F = p_f.shape[0]
     vals = torch.zeros(F, C, dtype=acc.dtype, device=acc.device)
@@ -343,6 +351,16 @@ def fire_reduced_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
         t = (a3[row, :, 1] != 0) & present[:, None]
         vals = torch.where(t, vals + a3[row, :, 0], vals)
         emit = emit | t
+    return emit, vals
+
+
+def fire_reduced_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of G4. acc float32 [C*R, 2]; pane_ids int32 [R];
+    p_f int32 [F] window-end pane per lane; lane_ok bool [F]. Returns
+    (counts int32 [F], value_sums float32 [F])."""
+    emit, vals = _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, C=C,
+                                        R=R, k=k)
     counts = emit.sum(dim=1, dtype=torch.int32)
     vsums = torch.where(emit, vals, 0.0).sum(dim=1).to(torch.float32)
     return counts, vsums
@@ -371,7 +389,182 @@ def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
 
 fire_reduced.launches = 0
 
-KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced)
+# ------------------------------------------------------------ G5
+
+def split_words(words: torch.Tensor):
+    """int64 key words -> (hi, lo) int32 tensors holding the uint32 bits."""
+    return (words >> 32).to(torch.int32), words.to(torch.int32)
+
+
+def key_words(hi, lo) -> torch.Tensor:
+    """(hi, lo) int32 [B] holding uint32 bits -> int64 key words
+    ``(hi << 32) | lo`` (the all-ones word is EMPTY_WORD)."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) & 0xFFFFFFFF)
+
+
+def probe_chain(hi, lo, *, C: int, probe_len: int) -> torch.Tensor:
+    """[B, P] int64 candidate slots of each key's probe chain: P slots from
+    ``probe_hash & (C - 1)``, wrapping at C."""
+    base = probe_hash(hi, lo) & (C - 1)
+    offs = torch.arange(probe_len, dtype=torch.int64, device=hi.device)
+    return (base[:, None] + offs[None, :]) & (C - 1)
+
+
+def hash_upsert_plain(table, hi, lo, valid, *, probe_len: int):
+    """Plain version of G5: insert-or-find a batch of keys, table updated
+    in place. table int64 [C] key words (EMPTY_WORD = free); hi/lo int32
+    [B] (uint32 bits); valid bool [B]. Returns (slot int32 [B], C where
+    not ok; ok bool [B]; n_new int32 0-d).
+
+    A lane is ok when its key ends up in its P-slot chain. Its key goes to
+    the first slot of the chain that holds it or is free; claims of one
+    free slot by several keys go to the lowest lane, and the losers walk
+    on, round after round, until no lane can claim — so a lane fails only
+    when every slot of its chain holds another key (the kernel's CAS walk).
+    The key EMPTY_WORD (integer key -1) is never placed nor found.
+    ``n_new`` counts valid lanes whose key was absent before the call and
+    present after, duplicates of a key placed in this call included (the
+    reference's ``valid & ~found0 & found``)."""
+    C = table.shape[0]
+    B = hi.shape[0]
+    key = key_words(hi, lo)
+    cand = probe_chain(hi, lo, C=C, probe_len=probe_len)
+    lanes = valid & (key != EMPTY_WORD)
+    found0 = lanes & (table[cand] == key[:, None]).any(dim=1)
+    lane_idx = torch.arange(B, dtype=torch.int64, device=table.device)
+    while True:
+        rows = table[cand]
+        match = rows == key[:, None]
+        found = match.any(dim=1)
+        free = rows == EMPTY_WORD
+        first = torch.argmax(free.to(torch.int8), dim=1)
+        claim = lanes & ~found & free.any(dim=1)
+        if not bool(claim.any()):
+            break
+        who = lane_idx[claim]
+        target = cand[who, first[claim]]
+        winner = torch.full((C,), B, dtype=torch.int64, device=table.device)
+        winner.scatter_reduce_(0, target, who, reduce="amin")
+        won = winner[target] == who
+        table[target[won]] = key[who[won]]
+    ok = lanes & found
+    at = torch.argmax(match.to(torch.int8), dim=1)
+    slot = torch.where(ok, cand[lane_idx, at], C).to(torch.int32)
+    n_new = (ok & ~found0).sum().to(torch.int32)
+    return slot, ok, n_new
+
+
+def hash_upsert(table, hi, lo, valid, *, probe_len: int):
+    """G5: see hash_upsert_plain for the contract."""
+    if _on_cpu(table):
+        return hash_upsert_plain(table, hi, lo, valid, probe_len=probe_len)
+    dev = table.device
+    (C,) = table.shape
+    (B,) = hi.shape
+    if C & (C - 1) or C == 0:
+        raise ValueError(f"table capacity must be a power of two, got {C}")
+    if probe_len < 1:
+        raise ValueError(f"probe_len must be >= 1, got {probe_len}")
+    _check(table, "table", torch.int64, (C,), dev)
+    for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                     (valid, "valid", torch.bool)):
+        _check(t, n, dt, (B,), dev)
+    slot = torch.empty(B, dtype=torch.int32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    n_new = torch.zeros((), dtype=torch.int32, device=dev)
+    rc = build().hash_upsert(_ptr(table), _ptr(hi), _ptr(lo), _ptr(valid), B,
+                             C, probe_len, _ptr(slot), _ptr(ok), _ptr(n_new),
+                             _stream())
+    _raise_on(rc, "hash_upsert")
+    hash_upsert.launches += 1
+    return slot, ok, n_new
+
+
+hash_upsert.launches = 0
+
+
+# ------------------------------------------------------------ G6
+
+COMPACT_CHUNK = 4096   # slots per block of G6 (a multiple of its 256 threads)
+
+
+def pack_fire_lanes(table, mask, values):
+    """The pack of the reference's ``_pack_fire_lanes``: per fire lane,
+    compact dense (mask bool [F, C], values float32 [F, C]) planes into
+    prefix rows in slot order, keys read from ``table`` (int64 [C] key
+    words) and zeros past each prefix. Returns (key_hi int32 [F, C],
+    key_lo int32 [F, C], values float32 [F, C], counts int32 [F],
+    value_sums float32 [F])."""
+    F, C = mask.shape
+    dev = mask.device
+    khi = torch.zeros(F, C, dtype=torch.int32, device=dev)
+    klo = torch.zeros(F, C, dtype=torch.int32, device=dev)
+    v = torch.zeros(F, C, dtype=values.dtype, device=dev)
+    for f in range(F):
+        idx = torch.nonzero(mask[f]).reshape(-1)
+        n = idx.shape[0]
+        khi[f, :n], klo[f, :n] = split_words(table[idx])
+        v[f, :n] = values[f, idx]
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    vsums = torch.where(mask, values, 0.0).sum(dim=1).to(torch.float32)
+    return khi, klo, v, counts, vsums
+
+
+def fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo,
+                       values, *, C: int, R: int,
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of G6. acc float32 [C*R, 2]; pane_ids int32 [R]; p_f
+    int32 [F]; lane_ok bool [F]; table int64 [C] key words of the slots.
+    For each lane f the emitted slots, in slot order, go to the prefix
+    ``[:counts[f]]`` of key_hi / key_lo (int32 [F, C], the uint32 halves of
+    the slot's key word) and values (float32 [F, C]), written in place;
+    only the prefixes are meaningful. Returns (counts int32 [F],
+    value_sums float32 [F])."""
+    emit, vals = _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, C=C,
+                                        R=R, k=k)
+    khi, klo, v, counts, vsums = pack_fire_lanes(table, emit, vals)
+    key_hi.copy_(khi)
+    key_lo.copy_(klo)
+    values.copy_(v)
+    return counts, vsums
+
+
+def fire_compact(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo, values,
+                 *, C: int, R: int,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G6: see fire_compact_plain for the contract."""
+    if _on_cpu(acc):
+        return fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi,
+                                  key_lo, values, C=C, R=R, k=k)
+    dev = acc.device
+    (F,) = p_f.shape
+    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
+    _check(p_f, "p_f", torch.int32, (F,), dev)
+    _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+    _check(table, "table", torch.int64, (C,), dev)
+    _check(key_hi, "key_hi", torch.int32, (F, C), dev)
+    _check(key_lo, "key_lo", torch.int32, (F, C), dev)
+    _check(values, "values", torch.float32, (F, C), dev)
+    n_blk = -(-C // COMPACT_CHUNK)
+    blk_count = torch.empty(F, n_blk, dtype=torch.int32, device=dev)
+    blk_off = torch.empty(F, n_blk, dtype=torch.int32, device=dev)
+    blk_sum = torch.empty(F, n_blk, dtype=torch.float32, device=dev)
+    counts = torch.empty(F, dtype=torch.int32, device=dev)
+    vsums = torch.empty(F, dtype=torch.float32, device=dev)
+    rc = build().fire_compact(
+        _ptr(acc), _ptr(pane_ids), _ptr(p_f), _ptr(lane_ok), _ptr(table), C,
+        R, k, F, _ptr(blk_count), _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi),
+        _ptr(key_lo), _ptr(values), _ptr(counts), _ptr(vsums), _stream())
+    _raise_on(rc, "fire_compact")
+    fire_compact.launches += 1
+    return counts, vsums
+
+
+fire_compact.launches = 0
+
+KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced,
+           hash_upsert, fire_compact)
 
 
 def reset_launch_counts() -> None:

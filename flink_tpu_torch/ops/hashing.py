@@ -5,8 +5,9 @@ murmur-scrambles it (MathUtils.murmurHash used at KeyGroupRangeAssignment.java:6
 We use 64-bit key identities so 1M+ key cardinalities have negligible collision
 probability, then derive 32-bit hashes on device from the (hi, lo) pair.
 
-The host half is a copy of flink_tpu/ops/hashing.py; the device half is
-the plain torch version of ``route_hash`` (kernel G1 in ops/cuda.py).
+The host half is a copy of flink_tpu/ops/hashing.py; the device half holds
+the plain torch versions of ``route_hash`` (kernel G1 in ops/cuda.py) and
+``probe_hash`` (kernel G5).
 
 Host: splitmix64 (public-domain mix) vectorized in numpy for numeric keys;
 stable blake2b-based hash for strings/bytes/other objects (NOT Python's
@@ -87,10 +88,32 @@ def key_identity64(keys) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- device side
-# probe_hash (the hash layout's slot-probe start) is not ported yet: the
-# direct-index layout never probes (ROADMAP queue 2, K1).
 
 _M32 = 0xFFFFFFFF
+
+
+def probe_hash(key_hi, key_lo, xp=np):
+    """(hi, lo) uint32 pair -> uint32 slot-probe hash (device-friendly mix):
+    the start of a key's probe chain in the hash state layout. numpy in
+    gives uint32; torch tensors in give int64 holding the uint32 value (the
+    plain version of kernel G5's hash, ops/cuda.py)."""
+    if isinstance(key_hi, torch.Tensor):
+        hi = key_hi.to(torch.int64) & _M32
+        lo = key_lo.to(torch.int64) & _M32
+        h = ((hi * 0x85EBCA6B) & _M32) ^ ((lo * 0xC2B2AE35) & _M32)
+        h = h ^ (h >> 15)
+        h = (h * 0x2C1B3C6D) & _M32
+        h = h ^ (h >> 12)
+        h = (h * 0x297A2D39) & _M32
+        return h ^ (h >> 15)
+    with np.errstate(over="ignore"):
+        h = xp.asarray(key_hi).astype(xp.uint32) * np.uint32(0x85EBCA6B)
+        h = h ^ (xp.asarray(key_lo).astype(xp.uint32) * np.uint32(0xC2B2AE35))
+        h = h ^ (h >> np.uint32(15))
+        h = h * np.uint32(0x2C1B3C6D)
+        h = h ^ (h >> np.uint32(12))
+        h = h * np.uint32(0x297A2D39)
+        return h ^ (h >> np.uint32(15))
 
 
 def route_hash(key_hi, key_lo, xp=np):

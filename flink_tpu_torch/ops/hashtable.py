@@ -1,0 +1,77 @@
+"""The hash state layout's open-addressing key table, in PyTorch — the
+counterpart of flink_tpu/ops/hashtable.py.
+
+Each key-group shard owns a fixed-capacity table on the device. The
+reference keeps it as uint32 ``[C, 2]`` (hi, lo) rows with the all-ones row
+as EMPTY; the port keeps one int64 word ``(hi << 32) | lo`` per slot with
+the all-ones word as EMPTY, so that one 64-bit atomicCAS claims a slot
+(kernel G5, ``ops/cuda.py``). ``to_rows`` / ``from_rows`` convert to and
+from the reference's rows at state carry-over only.
+
+A key's probe chain is the P slots ``(probe_hash(hi, lo) + j) & (C - 1)``,
+j < P, wrapping at C; the key sits in the first slot of its chain that was
+free when it arrived. ``lookup`` finds keys; ``upsert_counted`` inserts or
+finds them (G5 on the card). The key word equal to EMPTY — integer key -1 —
+is never found nor placed: its lanes drop as capacity loss, as in the
+reference. Point removal (the reference's ``remove_slots``) is not ported:
+only ``compact_table`` uses it (ROADMAP queue 2, K11).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.ops import cuda as kernels
+from flink_tpu_torch.ops.cuda import EMPTY_WORD
+
+EMPTY = np.uint32(0xFFFFFFFF)   # the reference's EMPTY row half
+
+
+def create(capacity: int, device="cuda") -> torch.Tensor:
+    """An empty table of ``capacity`` slots (a power of two)."""
+    if capacity <= 0 or capacity & (capacity - 1):
+        raise ValueError(f"capacity must be a power of two, got {capacity}")
+    return torch.full((capacity,), EMPTY_WORD, dtype=torch.int64,
+                      device=torch.device(device))
+
+
+def lookup(table: torch.Tensor, hi, lo, *,
+           probe_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Find the slots of a batch of keys (hi/lo int32 [B], uint32 bits).
+    Returns (slot int32 [B], found bool [B]); unfound lanes get slot C."""
+    C = table.shape[0]
+    key = kernels.key_words(hi, lo)
+    cand = kernels.probe_chain(hi, lo, C=C, probe_len=probe_len)
+    match = (table[cand] == key[:, None]) & (key != EMPTY_WORD)[:, None]
+    found = match.any(dim=1)
+    at = torch.argmax(match.to(torch.int8), dim=1)
+    slot = cand.gather(1, at[:, None])[:, 0]
+    return torch.where(found, slot, C).to(torch.int32), found
+
+
+def upsert_counted(table: torch.Tensor, hi, lo, valid, *, probe_len: int):
+    """Insert-or-find a batch of keys, the table updated in place (G5).
+    Returns (slot int32 [B], C where not ok; ok bool [B]; n_new int32 0-d
+    on the device: valid lanes whose key was absent before and present
+    after). A lane is not ok when every slot of its chain holds another
+    key."""
+    return kernels.hash_upsert(table, hi, lo, valid, probe_len=probe_len)
+
+
+def to_rows(table: torch.Tensor) -> np.ndarray:
+    """Key words -> the reference's uint32 [C, 2] (hi, lo) rows."""
+    w = table.detach().cpu().numpy().view(np.uint64)
+    return np.stack([(w >> np.uint64(32)).astype(np.uint32),
+                     (w & np.uint64(0xFFFFFFFF)).astype(np.uint32)], axis=1)
+
+
+def from_rows(rows: np.ndarray, device="cuda") -> torch.Tensor:
+    """The reference's uint32 [C, 2] (hi, lo) rows -> int64 key words."""
+    r = np.asarray(rows).astype(np.uint64)
+    if r.ndim != 2 or r.shape[1] != 2:
+        raise ValueError(f"table rows must be [C, 2], got {r.shape}")
+    w = (r[:, 0] << np.uint64(32)) | r[:, 1]
+    return torch.from_numpy(w.view(np.int64)).to(torch.device(device))

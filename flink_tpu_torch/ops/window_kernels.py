@@ -4,24 +4,28 @@ of flink_tpu/ops/window_kernels.py.
 The model is the reference's: time is cut into aligned panes of ``slide``
 ticks, a window of ``size = k * slide`` is the combine of k consecutive
 panes, and each shard keeps accumulators for ALL its keys across a ring of
-R recent panes. This slice carries the direct-index layout (key == slot)
-with packed planes: ``acc`` is one flat pane-major float32 plane
+R recent panes. Two state layouts, as in the reference: ``direct`` (key ==
+slot, for bounded non-negative integer keys) and ``hash`` (an
+open-addressing table, ``ops/hashtable.py``, for any 64-bit key identity).
+The planes are packed: ``acc`` is one flat pane-major float32 plane
 ``[C*R, 2]`` whose second column is the touch marker (neutral 0 ==
 untouched), exactly the reference's packed layout, so states carry across
-(``state_from_numpy`` / ``state_to_numpy``).
+(``state_from_numpy`` / ``state_to_numpy``). The table holds one int64 key
+word ``(hi << 32) | lo`` per slot; the reference's uint32 ``[C, 2]`` rows
+appear only at carry-over.
 
-The O(B) and O(C) work runs in the four kernels of ``ops/cuda.py``
-(G1-G4). The per-batch scalar bookkeeping — pane-ring registration, the
+The O(B) and O(C) work runs in the six kernels of ``ops/cuda.py``
+(G1-G6). The per-batch scalar bookkeeping — pane-ring registration, the
 fire plan, the purge plan, watermark / fired_through / purged_through —
 stays on the device as small torch ops on 0-d, [R] and [F] tensors, so a
 drain never waits for the host between slots. State tensors are updated in
 place where the reference donated its buffers to XLA; every such update is
 marked "in place" below.
 
-Not in this slice (ROADMAP queues 1-2): the hash layout and its probe
-(K9), the overflow ring and spill tier (K10), allowed lateness, split
-(unpacked) planes, min/max and generic reduces, the compact fire payload
-(K11), and the slot-major accumulator layout.
+Not ported yet (ROADMAP queues 1-2): the fast lookup-only update and the
+overflow ring and spill tier (K10), allowed lateness and its re-fires,
+``compact_table`` and the key-group counts (K11), split (unpacked) planes,
+min/max and generic reduces, and the slot-major accumulator layout.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.ops import cuda as kernels
+from flink_tpu_torch.ops import hashtable
 from flink_tpu_torch.ops.cuda import INT32_MAX, PANE_NONE
 
 INT32_MIN = -(2**31)
@@ -93,10 +98,12 @@ class WindowSpec:
 @dataclass
 class WindowShardState:
     """All device state of one key-group shard (the reference's pytree,
-    field for field; ``table.keys`` becomes ``table_keys``, and the planes
-    are always packed, so the reference's ``packed`` descriptor is 0)."""
+    field for field; ``table.keys`` becomes ``table_keys``, one int64 key
+    word per slot, and the planes are always packed, so the reference's
+    ``packed`` descriptor is 0). ``layout`` and ``probe_len`` are static,
+    as the reference's table probe length is."""
 
-    table_keys: torch.Tensor        # int64 [C, 2]: (hi, lo) identity rows
+    table_keys: torch.Tensor        # int64 [C]: key word per slot
     acc: torch.Tensor               # float32 [C*R, 2] packed plane
     touched: torch.Tensor           # bool [0]: rides acc's touch column
     pane_ids: torch.Tensor          # int32 [R]: absolute pane per ring row
@@ -115,6 +122,8 @@ class WindowShardState:
     ovf_val: torch.Tensor           # float32 [0]
     ovf_n: torch.Tensor             # int32 0-d
     kg_dirty: torch.Tensor          # bool [n_key_groups] changelog bits
+    layout: str = "direct"          # "direct" (key == slot) | "hash"
+    probe_len: int = 16             # hash layout: slots per probe chain
 
     @property
     def capacity(self) -> int:
@@ -135,6 +144,25 @@ STATE_FIELDS = (
 
 
 @dataclass
+class CompactFires:
+    """Fire output compacted on the device (the reference's CompactFires):
+    for lane f, rows j < counts[f] are (key_hi[f, j], key_lo[f, j],
+    values[f, j]) in slot order, and the lane shares window_end_ticks[f].
+    The host reads the small fields, then only the ``[:counts[f]]``
+    prefixes. The row buffers are views of a caller-owned arena; what lies
+    past a prefix is unspecified."""
+
+    key_hi: torch.Tensor            # int32 [F, C] uint32 bits
+    key_lo: torch.Tensor            # int32 [F, C] uint32 bits
+    values: torch.Tensor            # float32 [F, C]
+    counts: torch.Tensor            # int32 [F] emitted keys per lane
+    window_end_ticks: torch.Tensor  # int32 [F] (PANE_NONE when unused)
+    n_fires: torch.Tensor           # int32 0-d: valid lanes
+    lane_valid: torch.Tensor        # bool [F]
+    value_sums: torch.Tensor        # float32 [F]
+
+
+@dataclass
 class ReducedFires:
     """Fire output reduced on the device to per-lane scalars: the host
     reads these small fields once per drain and never anything O(C)."""
@@ -151,20 +179,28 @@ def _scalar(v: int, device) -> torch.Tensor:
 
 
 def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
-               n_key_groups: int = 0, device="cuda") -> WindowShardState:
-    """Fresh direct-index state with packed planes (the reference's
-    ``init_state(layout="direct", packed=True)``): the table holds identity
-    rows (0, slot), every plane starts at the neutral."""
+               n_key_groups: int = 0, device="cuda", layout: str = "direct",
+               probe_len: int = 16) -> WindowShardState:
+    """Fresh state with packed planes (the reference's
+    ``init_state(layout=..., packed=True)``). ``direct``: the table holds
+    the identity rows (0, slot) and the key is its slot. ``hash``: an empty
+    open-addressing table (capacity a power of two) probed ``probe_len``
+    slots deep. Every plane starts at the neutral."""
     R = win.ring
     if capacity * R > INT32_MAX:
         raise ValueError(
             f"accumulator of {capacity * R} rows overflows int32 indices"
         )
     dev = torch.device(device)
-    iota = torch.arange(capacity, dtype=torch.int64, device=dev)
+    if layout == "direct":
+        table = torch.arange(capacity, dtype=torch.int64, device=dev)
+    elif layout == "hash":
+        table = hashtable.create(capacity, device=dev)
+    else:
+        raise ValueError(f"unknown state layout {layout!r}")
     i32 = dict(dtype=torch.int32, device=dev)
     return WindowShardState(
-        table_keys=torch.stack([torch.zeros_like(iota), iota], dim=1),
+        table_keys=table,
         acc=torch.zeros(capacity * R, 2, dtype=torch.float32, device=dev),
         touched=torch.zeros(0, dtype=torch.bool, device=dev),
         pane_ids=torch.full((R,), PANE_NONE, **i32),
@@ -183,6 +219,8 @@ def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
         ovf_val=torch.zeros(0, dtype=torch.float32, device=dev),
         ovf_n=_scalar(0, dev),
         kg_dirty=torch.zeros(n_key_groups, dtype=torch.bool, device=dev),
+        layout=layout,
+        probe_len=probe_len,
     )
 
 
@@ -206,12 +244,15 @@ def split_packed(acc_packed, red: ReduceSpec):
 
 
 def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
-                     device="cuda") -> WindowShardState:
+                     device="cuda", layout: str = "direct",
+                     probe_len: int = 16) -> WindowShardState:
     """Build a port state from host arrays named as the reference's
     ``WindowShardState.tree_flatten`` leaves (``STATE_FIELDS``). ``packed``
     is the source's plane descriptor: 0 for a packed scalar plane
     ``acc [C*R, 2]``, -1 for split planes ``acc [C*R]`` + ``touched
-    [C*R]`` (packed here). ``table.keys`` is uint32 [C, 2]."""
+    [C*R]`` (packed here). ``table.keys`` is the reference's uint32
+    [C, 2] (hi, lo) rows, for either ``layout``; ``probe_len`` is the
+    source table's."""
     dev = torch.device(device)
     missing = [f for f in STATE_FIELDS if f not in fields]
     if missing:
@@ -231,9 +272,11 @@ def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
             a = a.view(np.int32)
         return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
+    if layout not in ("direct", "hash"):
+        raise ValueError(f"unknown state layout {layout!r}")
     i32 = torch.int32
     return WindowShardState(
-        table_keys=t("table.keys", torch.int64),
+        table_keys=hashtable.from_rows(fields["table.keys"], device=dev),
         acc=torch.from_numpy(np.array(acc)).to(dev),
         touched=torch.zeros(0, dtype=torch.bool, device=dev),
         pane_ids=t("pane_ids", i32),
@@ -252,6 +295,8 @@ def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
         ovf_val=t("ovf_val", torch.float32),
         ovf_n=t("ovf_n", i32),
         kg_dirty=t("kg_dirty", torch.bool),
+        layout=layout,
+        probe_len=probe_len,
     )
 
 
@@ -264,7 +309,7 @@ def state_to_numpy(state: WindowShardState) -> Dict[str, np.ndarray]:
     for name in STATE_FIELDS:
         attr = "table_keys" if name == "table.keys" else name
         out[name] = getattr(state, attr).detach().cpu().numpy()
-    out["table.keys"] = out["table.keys"].astype(np.uint32)
+    out["table.keys"] = hashtable.to_rows(state.table_keys)
     out["ovf_hi"] = out["ovf_hi"].view(np.uint32)
     out["ovf_lo"] = out["ovf_lo"].view(np.uint32)
     return out
@@ -279,10 +324,12 @@ def _floor_div(a, b: int):
 def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
            hi, lo, ts, values, valid, *, maxp: int, kg_start: int = 0,
            kg_end: Optional[int] = None,
-           clear_rows: Optional[torch.Tensor] = None) -> WindowShardState:
+           clear_rows: Optional[torch.Tensor] = None):
     """Apply one micro-batch to the shard state, in place (the reference's
-    ``update`` in the direct layout with packed planes; the result equals
-    its state with ``precombine`` on and off).
+    ``update`` with packed planes, in the state's layout — ``direct``, or
+    ``hash`` with ``insert=True``; the result equals its state with
+    ``precombine`` on and off, up to which slot the hash table gives a key
+    where several keys race for one).
 
     hi/lo: int32 [B] holding the uint32 halves of the key identity; ts
     int32 [B] ticks; values float32 [B]; valid bool [B]. Routing is fused
@@ -290,7 +337,12 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     ``[kg_start, kg_end]`` (the whole ``[0, maxp)`` by default — the
     reference's ``update`` receives ``valid`` already masked).
     ``clear_rows`` (bool [R]) folds a deferred purge into the ring-reset
-    sweep, as the reference does."""
+    sweep, as the reference does.
+
+    Returns ``(state, activity)``: ``activity`` (int32 0-d, on the device)
+    counts the lanes whose key the hash table did not hold before the batch
+    and holds after it (G5's ``n_new``); None in the direct layout, which
+    has no insert phase."""
     C = state.capacity
     R = win.ring
     k = win.panes_per_window
@@ -324,13 +376,22 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     state.pane_ids.copy_(torch.where(stale, p_r, state.pane_ids))  # in place
     state.max_pane.copy_(new_max)                                  # in place
     state.min_pane.copy_(new_min)                                  # in place
-    # G3: too-old drop, slot = key, scatter into the plane, kg_dirty
+    if state.layout == "hash":
+        # G5: place or find the keys of the lanes that survive the ring
+        # horizon (the reference upserts after its too-old drop)
+        inside = live & (pane >= state.max_pane - (R - 1))
+        slot, _ok, activity = hashtable.upsert_counted(
+            state.table_keys, hi, lo, inside, probe_len=state.probe_len)
+    else:
+        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
+        activity = None
+    # G3: too-old drop, scatter at the slot into the plane, kg_dirty
     kernels.scatter_update(
         state.acc, state.kg_dirty if state.kg_dirty.numel() else None,
-        state.dropped_capacity, pane, kg, live, hi, lo,
+        state.dropped_capacity, pane, kg, live, slot,
         values if red.kind == "sum" else None, state.max_pane, C=C, R=R,
     )
-    return state
+    return state, activity
 
 
 # ------------------------------------------------------------ fire
@@ -397,31 +458,68 @@ def _purge_plan(state: WindowShardState, win: WindowSpec, wm,
 
 
 def advance_and_fire_resident(state: WindowShardState, win: WindowSpec,
-                              red: ReduceSpec, new_watermark):
+                              red: ReduceSpec, new_watermark,
+                              reduced: bool = False, out=None):
     """Fused-fire advance of the resident drain (the reference's
-    ``advance_and_fire_resident`` with ``reduced=True``; its compact
-    payload is not ported, ROADMAP queue 2, K11): plan the due
-    window-ends, evaluate them for every key and reduce each lane on the
-    device (G4), advance watermark / fired_through / purged_through in
+    ``advance_and_fire_resident``): plan the due window-ends, evaluate them
+    for every key, advance watermark / fired_through / purged_through in
     place, and return the purge row mask for the next update's sweep (or
     ``apply_pending_purge``). ``new_watermark`` is an int32 0-d tensor (or
     an int, staged here).
 
-    Returns ``(state, purge_rows bool [R], ReducedFires)``."""
+    ``reduced=True`` reduces each lane to (count, value sum) on the device
+    (G4) and returns ReducedFires. Otherwise G6 compacts the emitted rows
+    into ``out`` — ``(key_hi, key_lo, values)``, int32 / int32 / float32
+    ``[F, C]`` views of the caller's arena, allocated here when None — and
+    returns CompactFires over them.
+
+    Returns ``(state, purge_rows bool [R], fires)``."""
     plan = _fire_plan(state, win, new_watermark)
     purgeable, new_purged = _purge_plan(
         state, win, plan["wm"], plan["new_fired_through"]
     )
-    counts, vsums = kernels.fire_reduced(
-        state.acc, state.pane_ids, plan["p_f"], plan["lane_ok"],
-        C=state.capacity, R=win.ring, k=win.panes_per_window,
-    )
-    fires = ReducedFires(counts, plan["window_end"], plan["n_now"],
-                         plan["lane_ok"], vsums)
+    C, R, k = state.capacity, win.ring, win.panes_per_window
+    if reduced:
+        counts, vsums = kernels.fire_reduced(
+            state.acc, state.pane_ids, plan["p_f"], plan["lane_ok"],
+            C=C, R=R, k=k)
+        fires = ReducedFires(counts, plan["window_end"], plan["n_now"],
+                             plan["lane_ok"], vsums)
+    else:
+        if out is None:
+            out = fire_row_buffers(win.fires_per_step, C, state.device)
+        counts, vsums = kernels.fire_compact(
+            state.acc, state.pane_ids, plan["p_f"], plan["lane_ok"],
+            state.table_keys, *out, C=C, R=R, k=k)
+        fires = CompactFires(*out, counts, plan["window_end"],
+                             plan["n_now"], plan["lane_ok"], vsums)
     state.watermark.copy_(plan["wm"])                         # in place
     state.fired_through.copy_(plan["new_fired_through"])      # in place
     state.purged_through.copy_(new_purged)                    # in place
     return state, purgeable, fires
+
+
+def fire_row_buffers(*shape_and_device):
+    """Row buffers ``(key_hi, key_lo, values)`` of shape ``[..., C]`` for
+    compact fires (int32, int32, float32), uninitialised: G6 writes only
+    the prefixes it emits. ``fire_row_buffers(D, F, C, device)`` is one
+    drain's arena (D·F·C·12 bytes)."""
+    *shape, device = shape_and_device
+    return (torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty(shape, dtype=torch.float32, device=device))
+
+
+def compact_fires(table_keys, mask, values, window_end_ticks, n_fires,
+                  lane_valid) -> CompactFires:
+    """Pack dense fire planes (mask bool [F, C], values float32 [F, C]) into
+    CompactFires (the reference's ``compact_fires`` over a FireResult):
+    per lane the emitted slots in slot order, keys read from the table,
+    zeros past each prefix, and the lane's value sum."""
+    khi, klo, v, counts, vsums = kernels.pack_fire_lanes(table_keys, mask,
+                                                         values)
+    return CompactFires(khi, klo, v, counts, window_end_ticks, n_fires,
+                        lane_valid, vsums)
 
 
 def apply_pending_purge(state: WindowShardState, win: WindowSpec,

@@ -2,21 +2,32 @@
 the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
-event-time window -> sum | count -> device-reduce sinks`` with allowed
-lateness 0 and no checkpointing:
+event-time window -> sum | count -> sinks`` with allowed lateness 0 and no
+checkpointing:
 
   1. poll the source (columnar batches of ``execution.micro-batch-size``);
-  2. encode keys to 64-bit identities (``key_identity64``), split (hi, lo);
+  2. encode keys to 64-bit identities (``KeyCodec``), split (hi, lo);
   3. convert event time to int32 ticks; the origin is fixed by the first
      batch at ``floor(min_ts / size) * size``, as the reference does;
   4. advance the watermark through ``WatermarkStrategy.on_batch``;
   5. stage the batch into the next slot of the device ring;
   6. when ``pipeline.ring-depth`` slots are staged (or the stream ends),
      dispatch one resident drain over them;
-  7. read the drain's [D, F] ReducedFires once and call
-     ``sink.invoke_reduced`` — the read of drain g happens after the
-     batches of drain g+1 are staged, so host polling overlaps the device;
+  7. read the drain's fires and emit them — the read of drain g happens
+     after the batches of drain g+1 are staged, so host polling overlaps
+     the device. When every sink is a device-reduce sink the drain reduces
+     its fires on the device and the host reads the [D, F] ReducedFires
+     once (``sink.invoke_reduced``). Otherwise the drain compacts them to
+     rows (CompactFires); the host reads the small [D, F] fields once, then
+     the ``[:count]`` row prefixes in one batched read, and hands each
+     slot's rows to ``invoke_columnar`` ({"key_id", "window_end_ms",
+     "value"}) when every sink is columnar, else ``invoke_batch`` with
+     ``WindowResult(key, window_end_ms, value)`` rows, keys decoded;
   8. at end of stream, flush with the MAX watermark.
+
+The state layout follows ``state.backend.layout`` as the reference's does:
+``auto`` takes the direct layout (key == slot) when the first batch's key
+identities all fit ``[0, state capacity)``, else the hash table.
 
 A drain whose last slot filled all F fire lanes may leave due windows
 behind; the executor then fires them with watermark-only advances before
@@ -26,25 +37,31 @@ between them, and a jump of two or more panes between polls fires the
 windows it would otherwise evict first — both as the reference does.
 
 Anything else — another topology, processing time, allowed lateness,
-checkpoints, parallelism above 1, the hash layout, the overflow ring —
-raises NotImplementedError naming the ROADMAP queue item that brings it.
-Keys outside ``[0, state capacity)`` count into ``dropped_capacity`` and
-fail the job with the reference's "state backend over capacity" error.
+checkpoints, parallelism above 1, an operator after the window, the
+overflow ring — raises NotImplementedError naming the ROADMAP queue item
+that brings it. Records that find no state slot (a key past capacity in
+the direct layout, a full probe chain in the hash layout) count into
+``dropped_capacity``. With ``state.backend.overflow-ring: 0`` (strict
+capacity) the job then fails at its end with the reference's "state
+backend over capacity" error. With the ring unset the reference would
+take them into its spill tier, which is not ported: the job raises
+NotImplementedError at the first drain that shows a drop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import namedtuple
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from flink_tpu_torch.core.time import MAX_TS, TimeCharacteristic, TimeDomain
+from flink_tpu_torch.core.types import KeyCodec
 from flink_tpu_torch.datastream.window.assigners import WindowAssigner
 from flink_tpu_torch.graph import stream_graph as sg
 from flink_tpu_torch.ops import window_kernels as wk
-from flink_tpu_torch.ops.hashing import key_identity64
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
@@ -53,6 +70,8 @@ from flink_tpu_torch.runtime.step import (
     init_shard_state,
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+
+WindowResult = namedtuple("WindowResult", ["key", "window_end_ms", "value"])
 
 
 @dataclasses.dataclass
@@ -143,11 +162,6 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
                            "ROADMAP queue 1, item 9")
     if wagg.allowed_lateness_ms:
         raise _unsupported("allowed lateness", "ROADMAP queue 2, K11")
-    for s in pipe.sinks:
-        if not getattr(s, "device_reduce", False):
-            raise _unsupported(
-                f"per-row window output to {type(s).__name__} (compact "
-                f"fires)", "ROADMAP queue 2, K11")
     return pipe
 
 
@@ -194,8 +208,6 @@ def _check_config(cfg) -> None:
     if layout not in ("auto", "hash", "direct"):
         raise ValueError(
             f"state.backend.layout must be auto|hash|direct, got {layout!r}")
-    if layout == "hash":
-        raise _unsupported("the hash state layout", "ROADMAP queue 1, item 8")
     if cfg.get_int("state.backend.overflow-ring", -1) > 0:
         raise _unsupported("the overflow ring and spill tier",
                            "ROADMAP queue 2, K10")
@@ -226,6 +238,21 @@ class _WindowJob:
         )
         self.B = env.batch_size
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
+        # the reference's emit modes (executor.py:5025-5035): reduced on
+        # the device when every sink only wants aggregates, else rows —
+        # columnar when every sink takes columns, else WindowResult rows
+        self.reduced = all(getattr(s, "device_reduce", False)
+                           for s in pipe.sinks)
+        self.columnar = all(getattr(s, "columnar", False)
+                            for s in pipe.sinks)
+        self.codec = KeyCodec()
+        # the reverse key map serves only WindowResult decoding (the port
+        # has no checkpoint key map), so columnar-only jobs skip its cost
+        self.keep_reverse = (cfg.get_bool("keys.reverse-map", True)
+                             and not self.columnar)
+        # unset (-1) = the reference's spill tier would absorb keys that
+        # find no slot; 0 = strict capacity
+        self.spill = cfg.get_int("state.backend.overflow-ring", -1) < 0
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
         self.spec: Optional[WindowStageSpec] = None
@@ -253,23 +280,26 @@ class _WindowJob:
             8, 2 * ppw + self.wm_strategy.out_of_orderness_ms // self.slide_ms
             + 2)
         capacity = env.state_capacity_per_shard
-        if not (int(hi.max(initial=0)) == 0
-                and int(lo.max(initial=0)) < capacity):
-            # the reference's auto layout falls back to the hash table here
-            raise _unsupported(
-                "keys outside [0, state capacity) in the first batch (the "
-                "hash state layout)", "ROADMAP queue 1, item 8")
+        layout = cfg.get_str("state.backend.layout", "auto")
+        if layout == "auto":
+            # direct only when the first batch's identities fit [0, C)
+            # (executor.py:1925-1936, 5952-5965; every stage this port runs
+            # is spillable there)
+            fits = (int(hi.max(initial=0)) == 0
+                    and int(lo.max(initial=0)) < capacity)
+            layout = "direct" if fits else "hash"
         win = wk.WindowSpec(
             size_ticks=self.size_ms, slide_ticks=self.slide_ms, ring=ring,
             fires_per_step=cfg.get_int("window.fires-per-step", 4),
         )
         self.td = TimeDomain(origin_ms=origin_ms, ms_per_tick=1)
-        self.spec = WindowStageSpec(win=win, red=self.red,
-                                    capacity_per_shard=capacity)
+        self.spec = WindowStageSpec(
+            win=win, red=self.red, capacity_per_shard=capacity,
+            layout=layout, probe_len=cfg.get_int("state.probe-len", 16))
         self.state = init_shard_state(self.spec, self.maxp, self.device)
         self.ring = DeviceBatchRing(self.depth, self.B, self.device)
-        self.drain = build_window_resident_drain(self.spec, self.depth,
-                                                 self.maxp)
+        self.drain = build_window_resident_drain(
+            self.spec, self.depth, self.maxp, reduced=self.reduced)
 
     def wm_ticks(self, wm_ms: int) -> int:
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
@@ -296,9 +326,7 @@ class _WindowJob:
         n = len(keys)
         if n == 0:
             return
-        h = key_identity64(keys)
-        hi = (h >> np.uint64(32)).astype(np.uint32)
-        lo = (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
         values = np.asarray(pipe.window_agg.extractor(cols), np.float32)
         if pipe.ts_transform is not None:
             ts_ms = np.asarray(pipe.ts_transform.timestamp_fn(cols), np.int64)
@@ -403,28 +431,92 @@ class _WindowJob:
         wm = torch.tensor(self.wm_ticks(wm_ms), dtype=torch.int32,
                           device=self.device)
         F = self.spec.win.fires_per_step
+        # compact rows go to the drain's arena slot 0: every drain's rows
+        # were read by the consume above
+        out = None if self.reduced else self.drain.arena_rows(0)
         while True:
-            self.state, fires = fire_only(self.state, self.spec, wm)
+            self.state, fires = fire_only(self.state, self.spec, wm,
+                                          reduced=self.reduced, out=out)
             self.metrics.fire_steps += 1
             if int(self.emit(fires).reshape(-1)[0]) < F:
                 return
 
-    def emit(self, fires: wk.ReducedFires) -> np.ndarray:
-        """One device->host read of a [D, F] (or [F]) ReducedFires; the
-        sinks get one (count, value sum) per read. Returns n_fires."""
-        lanes = fires.lane_valid.to(torch.float64)
-        packed = torch.stack([
-            (fires.counts.to(torch.float64) * lanes).sum(),
-            (fires.value_sums.to(torch.float64) * lanes).sum(),
-        ])
-        host = torch.cat([packed, fires.n_fires.reshape(-1).to(
-            torch.float64)]).cpu().numpy()
-        n, vs = int(host[0]), float(host[1])
-        if n:
-            self.metrics.fires += n
+    def emit(self, fires) -> np.ndarray:
+        """Emit one [D, F] (or [F]) fire payload with one device->host read
+        of its small fields (and, for rows, one more of the row prefixes).
+        Returns n_fires per slot."""
+        st = self.state
+        small = torch.cat([
+            fires.n_fires.reshape(-1).to(torch.float64),
+            st.dropped_capacity.reshape(1).to(torch.float64),
+            fires.counts.reshape(-1).to(torch.float64),
+            fires.lane_valid.reshape(-1).to(torch.float64),
+            fires.window_end_ticks.reshape(-1).to(torch.float64),
+            fires.value_sums.reshape(-1).to(torch.float64),
+        ]).cpu().numpy()
+        n_slots = fires.n_fires.numel()
+        F = self.spec.win.fires_per_step
+        n_now = small[:n_slots].astype(np.int64)
+        dropped = int(small[n_slots])
+        counts, lanes, ends, vsums = (
+            small[n_slots + 1:].reshape(4, n_slots, F))
+        if dropped and self.spill:
+            raise _unsupported(
+                f"{dropped} records lost to state capacity: the spill "
+                f"tier, which takes records whose key finds no state slot "
+                f"(set state.backend.overflow-ring: 0 for strict capacity),",
+                "ROADMAP queue 1, item 8")
+        counts = (counts * lanes).astype(np.int64)
+        if self.reduced:
+            n = int(counts.sum())
+            if n:
+                self.metrics.fires += n
+                for s in self.pipe.sinks:
+                    s.invoke_reduced(n, float((vsums * lanes).sum()))
+        elif counts.any():
+            self.emit_rows(fires, counts, ends.astype(np.int64))
+        return n_now
+
+    def emit_rows(self, fires: wk.CompactFires, counts: np.ndarray,
+                  ends: np.ndarray) -> None:
+        """Read the ``[:count]`` row prefixes of every (slot, lane) in one
+        batched read, then hand each slot's rows to the sinks."""
+        n_slots, F = counts.shape
+        khi = fires.key_hi.reshape(n_slots, F, -1)
+        klo = fires.key_lo.reshape(n_slots, F, -1)
+        vals = fires.values.reshape(n_slots, F, -1).view(torch.int32)
+        parts = [(d, f, int(counts[d, f])) for d in range(n_slots)
+                 for f in range(F) if counts[d, f]]
+        rows = torch.cat([
+            torch.cat([khi[d, f, :n], klo[d, f, :n], vals[d, f, :n]])
+            for d, f, n in parts]).cpu().numpy()
+        by_slot = {}
+        at = 0
+        for d, f, n in parts:
+            r = rows[at:at + 3 * n]
+            at += 3 * n
+            by_slot.setdefault(d, []).append((
+                r[:n].view(np.uint32), r[n:2 * n].view(np.uint32),
+                r[2 * n:].view(np.float32),
+                np.full(n, self.td.to_ms(int(ends[d, f])), np.int64)))
+        for d in sorted(by_slot):
+            self.emit_slot(*(np.concatenate(c) for c in zip(*by_slot[d])))
+
+    def emit_slot(self, khi, klo, values, end_ms) -> None:
+        n = len(values)
+        self.metrics.fires += n
+        if self.columnar:
+            kid = (khi.astype(np.uint64) << np.uint64(32)) | klo.astype(
+                np.uint64)
+            cols = {"key_id": kid, "window_end_ms": end_ms, "value": values}
             for s in self.pipe.sinks:
-                s.invoke_reduced(n, vs)
-        return host[2:].astype(np.int64)
+                s.invoke_columnar(cols)
+            return
+        keys = self.codec.decode(khi, klo)
+        out = [WindowResult(k, int(e), v) for k, e, v in
+               zip(keys, end_ms.tolist(), values.tolist())]
+        for s in self.pipe.sinks:
+            s.invoke_batch(out)
 
     # -- end of job --------------------------------------------------------
     def finish(self, job_name: str) -> JobHandle:

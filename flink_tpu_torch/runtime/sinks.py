@@ -1,14 +1,18 @@
 """Sinks (ref: api/functions/sink — print/socket/write/collect).
 
 This slice of the port carries the sink contract, CountingSink (the
-north-star job's device-reduce sink) and CollectSink. A window stage feeds
-only device-reduce sinks so far; per-row window output waits for the
-compact-fires path (ROADMAP queue 2, K11).
+north-star job's device-reduce sink), CollectSink (``WindowResult`` rows)
+and ColumnarCollectSink (every row as columns). A window stage reduces its
+fires on the device when every sink is a device-reduce sink, and otherwise
+emits one row per fired (key, window) through ``invoke_columnar`` or
+``invoke_batch`` (runtime/executor.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List
+
+import numpy as np
 
 
 class Sink:
@@ -69,8 +73,6 @@ class CountingSink(Sink):
             self.value_sum += float(v)
 
     def invoke_columnar(self, cols):
-        import numpy as np
-
         self.count += len(cols["value"])
         self.value_sum += float(np.sum(cols["value"]))
 
@@ -87,3 +89,23 @@ class CollectSink(Sink):
 
     def invoke_batch(self, elements):
         self.results.extend(elements)
+
+
+class ColumnarCollectSink(Sink):
+    """Keeps every row it is given, as columns: a window stage hands it
+    ``{"key_id", "window_end_ms", "value"}`` arrays (key_id the uint64 key
+    identity), and ``columns()`` joins them."""
+
+    columnar = True
+
+    def __init__(self):
+        self.parts: List[Dict[str, np.ndarray]] = []
+
+    def invoke_columnar(self, cols):
+        self.parts.append({k: np.asarray(v) for k, v in cols.items()})
+
+    def columns(self) -> Dict[str, np.ndarray]:
+        if not self.parts:
+            return {}
+        return {k: np.concatenate([p[k] for p in self.parts])
+                for k in self.parts[0]}

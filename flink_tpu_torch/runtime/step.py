@@ -23,13 +23,16 @@ from flink_tpu_torch.ops import window_kernels as wk
 @dataclass
 class WindowStageSpec:
     """Static config of one keyed-window pipeline stage: the reference's
-    fields for the direct-index layout with packed planes. The port has
-    one update path, whose state equals the reference's with pre-combine
-    on and off, so there is no pre-combine field."""
+    fields for packed planes. ``layout`` is ``direct`` (key == slot) or
+    ``hash`` (the open-addressing table, ``probe_len`` slots per chain).
+    The port has one update path, whose state equals the reference's with
+    pre-combine on and off, so there is no pre-combine field."""
 
     win: wk.WindowSpec
     red: wk.ReduceSpec
     capacity_per_shard: int = 1 << 16
+    layout: str = "direct"
+    probe_len: int = 16
 
 
 def init_shard_state(spec: WindowStageSpec, max_parallelism: int,
@@ -37,50 +40,55 @@ def init_shard_state(spec: WindowStageSpec, max_parallelism: int,
     """One shard's state, with changelog bits sized to the key-group space
     (the reference's ``init_sharded_state`` for a one-device mesh)."""
     return wk.init_state(spec.capacity_per_shard, spec.win, spec.red,
-                         n_key_groups=max_parallelism, device=device)
+                         n_key_groups=max_parallelism, device=device,
+                         layout=spec.layout, probe_len=spec.probe_len)
 
 
 def mask_update_shard(state: wk.WindowShardState, spec: WindowStageSpec,
                       kg_start: int, kg_end: int, hi, lo, ts, values, valid,
-                      wm, maxp: int, clear_rows=None) -> wk.WindowShardState:
+                      wm, maxp: int, clear_rows=None):
     """Per-shard body of the mask route: hash to key groups, mask to the
-    owned groups, apply the window update (all fused into G1-G3), then
-    advance the shard watermark to ``wm`` (int32 0-d) — in place."""
-    wk.update(state, spec.win, spec.red, hi, lo, ts, values, valid,
-              maxp=maxp, kg_start=kg_start, kg_end=kg_end,
-              clear_rows=clear_rows)
+    owned groups, apply the window update (G1-G3, and G5 in the hash
+    layout), then advance the shard watermark to ``wm`` (int32 0-d) — in
+    place. Returns ``(state, activity)`` as ``update`` does."""
+    state, activity = wk.update(state, spec.win, spec.red, hi, lo, ts,
+                                values, valid, maxp=maxp, kg_start=kg_start,
+                                kg_end=kg_end, clear_rows=clear_rows)
     torch.maximum(state.watermark, wm, out=state.watermark)      # in place
-    return state
+    return state, activity
 
 
 Slot = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
 
 
-def _stack_fires(fires: Sequence[wk.ReducedFires]) -> wk.ReducedFires:
-    return wk.ReducedFires(
-        torch.stack([f.counts for f in fires]),
-        torch.stack([f.window_end_ticks for f in fires]),
-        torch.stack([f.n_fires for f in fires]),
-        torch.stack([f.lane_valid for f in fires]),
-        torch.stack([f.value_sums for f in fires]),
-    )
+def _stack_fires(fires, arena):
+    """Stack per-slot fires to [D, F]: ReducedFires, or CompactFires whose
+    row buffers are the drain's [D, F, C] arena (slot d wrote arena[d])."""
+    small = [torch.stack([getattr(f, n) for f in fires])
+             for n in ("counts", "window_end_ticks", "n_fires", "lane_valid",
+                       "value_sums")]
+    if arena is None:
+        return wk.ReducedFires(*small)
+    return wk.CompactFires(*arena, *small)
 
 
-def _skip_fires(F: int, device) -> wk.ReducedFires:
-    """The reference's zero payload of a slot past ``count``."""
+def _skip_fires(F: int, device, rows=None):
+    """The reference's zero payload of a slot past ``count`` (a compact
+    slot's rows are its arena views, never read: its counts are 0)."""
     zi = torch.zeros(F, dtype=torch.int32, device=device)
-    return wk.ReducedFires(
-        zi, zi, torch.zeros((), dtype=torch.int32, device=device),
-        torch.zeros(F, dtype=torch.bool, device=device),
-        torch.zeros(F, dtype=torch.float32, device=device),
-    )
+    small = (zi, zi, torch.zeros((), dtype=torch.int32, device=device),
+             torch.zeros(F, dtype=torch.bool, device=device),
+             torch.zeros(F, dtype=torch.float32, device=device))
+    if rows is None:
+        return wk.ReducedFires(*small)
+    return wk.CompactFires(*rows, *small)
 
 
 def build_window_resident_drain(spec: WindowStageSpec, depth: int,
-                                max_parallelism: int):
+                                max_parallelism: int, reduced: bool = True):
     """Device-resident ring drain for one device (the reference's
-    ``build_window_resident_drain`` at one shard, ``reduced=True``).
+    ``build_window_resident_drain`` at one shard).
 
     ``drain(state, slots, wmv, count)``: ``slots`` is a sequence of
     ``depth`` staged batches ``(hi, lo, ticks, values, valid)`` (int32,
@@ -89,43 +97,65 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     slots (a host int: the executor knows how many it staged). For each
     live slot it runs the update with the previous slot's deferred purge
     folded into the ring-reset sweep, advances the watermark and fires
-    up to F window-ends reduced on the device; slots past ``count`` are
-    skipped and yield zero fires. The last deferred purge is applied at
-    the end. Returns ``(state, fires)`` with ``fires`` a ReducedFires
-    stacked [depth, F]; the state is updated in place. Nothing is read
-    back to the host."""
+    up to F window-ends; slots past ``count`` are skipped and yield zero
+    fires. The last deferred purge is applied at the end. Returns
+    ``(state, fires)`` with ``fires`` stacked [depth, F]; the state is
+    updated in place. Nothing is read back to the host.
+
+    ``reduced=True``: ReducedFires, per-lane (count, value sum) reduced on
+    the device (G4). ``reduced=False``: CompactFires (G6), whose rows land
+    in one [depth, F, C] arena allocated at the drain's first call and
+    reused by every later one, D·F·C·12 bytes: a drain's rows must be read
+    before the next drain (or ``fire_only`` with ``out=arena_rows(0)``)
+    runs."""
     D = int(depth)
+    F = spec.win.fires_per_step
     kg_end = max_parallelism - 1
+    rows = None     # the compact drain's (key_hi, key_lo, values) arena
 
     def drain(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
               count: int):
         if len(slots) < count or count > D:
             raise ValueError(f"{count} live slots for a depth-{D} drain "
                              f"with {len(slots)} staged")
+        nonlocal rows
+        if not reduced and rows is None:
+            rows = wk.fire_row_buffers(D, F, state.capacity, state.device)
         pend = None
         fires = []
-        for i in range(count):
+        for i in range(D):
+            slot_rows = None if rows is None else tuple(r[i] for r in rows)
+            if i >= count:
+                fires.append(_skip_fires(F, state.device, slot_rows))
+                continue
             hi, lo, ts, values, valid = slots[i]
             wm = wmv[i]
             mask_update_shard(state, spec, 0, kg_end, hi, lo, ts, values,
                               valid, wm, max_parallelism, clear_rows=pend)
             state, pend, fr = wk.advance_and_fire_resident(
-                state, spec.win, spec.red, wm)
+                state, spec.win, spec.red, wm, reduced=reduced,
+                out=slot_rows)
             fires.append(fr)
-        skip = _skip_fires(spec.win.fires_per_step, state.device)
-        fires += [skip] * (D - count)
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
-        return state, _stack_fires(fires)
+        return state, _stack_fires(fires, rows)
 
+    def arena_rows(d: int):
+        """Slot ``d``'s [F, C] row views of the arena (compact drains)."""
+        return None if rows is None else tuple(r[d] for r in rows)
+
+    drain.arena_rows = arena_rows
     return drain
 
 
-def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm):
+def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm,
+              reduced: bool = True, out=None):
     """Advance the watermark to ``wm`` with no batch: fire up to F due
     window-ends and purge at once (the split fire step of the reference,
-    ``advance_and_fire`` + ``reduce_fires``, at allowed lateness 0)."""
+    ``advance_and_fire`` + ``reduce_fires`` or ``compact_fires``, at
+    allowed lateness 0). ``out`` is the compact rows' buffers, as for
+    ``advance_and_fire_resident``."""
     state, pend, fires = wk.advance_and_fire_resident(
-        state, spec.win, spec.red, wm)
+        state, spec.win, spec.red, wm, reduced=reduced, out=out)
     wk.apply_pending_purge(state, spec.win, spec.red, pend)
     return state, fires

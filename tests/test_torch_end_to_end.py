@@ -6,6 +6,12 @@ parallelism 1 (the conftest mesh has 8 virtual devices) and the gated
 knobs forced as on an accelerator; the port runs with device="cpu".
 CountingSink.count and value_sum must be identical on both and equal a
 numpy group-by. Every value is 1.0, so the sums are exact.
+
+The hash state layout and per-row output run through the same API: sparse
+64-bit ids (splitmix64 of the generator's keys) in a 10 s / 2 s sliding
+count into a columnar row sink, and string keys into CollectSink. Both
+packages must emit the same rows (sorted: which slot a key takes, and so
+the order of a window's rows, differs in the hash layout).
 """
 
 import numpy as np
@@ -50,7 +56,7 @@ def reference(total, size_ms=WINDOW_MS, slide_ms=WINDOW_MS):
 
 
 def run_job(pkg, total=TOTAL, bad_key_at=None, slide_ms=None, count=False,
-            config=None):
+            config=None, capacity=N_KEYS):
     if pkg == "jax":
         from flink_tpu import StreamExecutionEnvironment
         from flink_tpu.core.config import Configuration
@@ -70,7 +76,7 @@ def run_job(pkg, total=TOTAL, bad_key_at=None, slide_ms=None, count=False,
     env.set_parallelism(1)
     env.set_max_parallelism(128)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
-    env.set_state_capacity(N_KEYS)
+    env.set_state_capacity(capacity)
     env.batch_size = BATCH
     sink = CountingSink()
     windowed = (
@@ -101,6 +107,151 @@ def test_key_past_capacity_raises_on_both():
     for pkg in ("jax", "torch"):
         with pytest.raises(RuntimeError, match="state backend over capacity"):
             run_job(pkg, total=3 * BATCH, bad_key_at=2 * BATCH + 7)
+
+
+def _collect_job(pkg, gen, total, key, size_ms, slide_ms, capacity,
+                 sinks, config=None):
+    """source -> key_by(key) -> sliding count -> sinks, on either package;
+    returns the job handle."""
+    if pkg == "jax":
+        from flink_tpu import StreamExecutionEnvironment
+        from flink_tpu.core.config import Configuration
+        from flink_tpu.core.time import TimeCharacteristic
+        from flink_tpu.runtime.sources import GeneratorSource
+        kw = {}
+    else:
+        from flink_tpu_torch import StreamExecutionEnvironment
+        from flink_tpu_torch.core.config import Configuration
+        from flink_tpu_torch.core.time import TimeCharacteristic
+        from flink_tpu_torch.runtime.sources import GeneratorSource
+        kw = {"device": "cpu"}
+    env = StreamExecutionEnvironment(
+        Configuration(dict(CONFIG, **(config or {}))), **kw)
+    env.set_parallelism(1)
+    env.set_max_parallelism(128)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(capacity)
+    env.batch_size = BATCH
+    out = (env.add_source(GeneratorSource(gen, total=total))
+           .key_by(lambda c: c[key]).time_window(size_ms, slide_ms).count())
+    for sink in sinks:
+        out.add_sink(sink)
+    return env.execute("rows")
+
+
+def _sparse_gen(offset, n):
+    from flink_tpu_torch.ops.hashing import splitmix64
+    cols, ts = gen_batch(offset, n)
+    return {"id": splitmix64(cols["key"]).view(np.int64)}, ts
+
+
+def test_sparse_ids_sliding_count_rows_match_reference_and_numpy():
+    """auto resolves to the hash layout on both (the first batch's ids do
+    not fit the capacity); every (id, window end, count) row is equal."""
+    from flink_tpu.runtime.sinks import Sink as RefSink
+    from flink_tpu_torch.runtime.sinks import ColumnarCollectSink
+
+    class RefColumns(RefSink):
+        columnar = True
+
+        def __init__(self):
+            self.parts = []
+
+        def invoke_columnar(self, cols):
+            self.parts.append({k: np.asarray(v) for k, v in cols.items()})
+
+    size, slide, total = 10_000, 2_000, 4 * WINDOW_MS * EVENTS_PER_MS
+    ref = RefColumns()
+    port = ColumnarCollectSink()
+    _collect_job("jax", _sparse_gen, total, "id", size, slide, 8192, [ref])
+    job = _collect_job("torch", _sparse_gen, total, "id", size, slide, 8192,
+                       [port])
+    assert job.state.layout == "hash"
+
+    def rows(cols):
+        order = np.lexsort((cols["key_id"], cols["window_end_ms"]))
+        return tuple(np.asarray(cols[k])[order]
+                     for k in ("window_end_ms", "key_id", "value"))
+
+    got = rows(port.columns())
+    want = rows({k: np.concatenate([p[k] for p in ref.parts])
+                 for k in ref.parts[0]})
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # numpy: each event counts once in each of its 5 windows
+    ids, ts = _sparse_gen(0, total)
+    ends = {}
+    for j in range(size // slide):
+        end = (ts // slide + 1 + j) * slide
+        for pair in zip(ids["id"].view(np.uint64).tolist(), end.tolist()):
+            ends[pair] = ends.get(pair, 0) + 1
+    assert len(got[0]) == len(ends)
+    assert float(got[2].sum()) == float(total * (size // slide))
+    assert dict(zip(zip(got[1].tolist(), got[0].tolist()),
+                    got[2].tolist())) == ends
+    assert job.metrics.dropped_capacity == 0 and job.metrics.dropped_late == 0
+
+
+def test_string_keyed_job_collect_sink_matches_reference():
+    """Word keys (hashed identities) into CollectSink and a CountingSink
+    beside it: the same WindowResult rows on both packages, keys decoded
+    through the reverse map."""
+    from flink_tpu.runtime.sinks import CollectSink as RefCollect
+    from flink_tpu.runtime.sinks import CountingSink as RefCounting
+    from flink_tpu_torch.runtime.sinks import CollectSink, CountingSink
+
+    words = np.array([f"w{i}" for i in range(300)], dtype=object)
+
+    def gen(offset, n):
+        cols, ts = gen_batch(offset, n)
+        return {"word": words[cols["key"] % 300]}, ts
+
+    total = 3 * WINDOW_MS * 2
+    cfg = {"keys.reverse-map": True}
+    results = []
+    for pkg, sinks in (("jax", [RefCollect(), RefCounting()]),
+                       ("torch", [CollectSink(), CountingSink()])):
+        job = _collect_job(pkg, gen, total, "word", 2_000, 1_000, 1024,
+                           sinks, cfg)
+        rows = sorted((r.key, r.window_end_ms, r.value)
+                      for r in sinks[0].results)
+        assert sinks[1].count == len(rows)
+        results.append(rows)
+    assert results[0] == results[1]
+    assert isinstance(results[1][0][0], str)
+    assert sum(r[2] for r in results[1]) == 2 * total
+    assert job.state.layout == "hash"
+
+
+def test_explicit_hash_layout_runs_the_north_star():
+    want_count, want_sum = reference(TOTAL)
+    sink, job = run_job("torch", config={"state.backend.layout": "hash"},
+                        capacity=2 * N_KEYS)
+    assert (sink.count, sink.value_sum) == (want_count, want_sum)
+    assert job.state.layout == "hash"
+
+
+def test_drop_without_the_spill_tier_raises_not_implemented():
+    """With state.backend.overflow-ring unset the reference would take a
+    key past capacity into its spill tier; the port, which has none, says
+    so at the first drain that shows the drop."""
+    cfg = {k: v for k, v in CONFIG.items()
+           if k != "state.backend.overflow-ring"}
+    with pytest.raises(NotImplementedError, match="spill tier"):
+        from flink_tpu_torch import StreamExecutionEnvironment
+        from flink_tpu_torch.core.config import Configuration
+        from flink_tpu_torch.core.time import TimeCharacteristic
+        from flink_tpu_torch.runtime.sinks import CountingSink
+        from flink_tpu_torch.runtime.sources import GeneratorSource
+        env = StreamExecutionEnvironment(Configuration(cfg), device="cpu")
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        env.set_state_capacity(N_KEYS)
+        env.batch_size = BATCH
+        (env.add_source(GeneratorSource(
+            lambda o, n: gen_batch(o, n, 2 * BATCH + 7), total=3 * BATCH))
+         .key_by(lambda c: c["key"]).time_window(WINDOW_MS)
+         .sum(lambda c: c["value"]).add_sink(CountingSink()))
+        env.execute("spill")
 
 
 @pytest.mark.parametrize("slide_ms,count", [(None, True), (2500, False),
@@ -148,33 +299,45 @@ def test_time_jump_between_polls_fires_before_rotating():
 
 
 @pytest.mark.parametrize("change", [
-    "processing_time", "parallelism", "lateness", "collect_sink",
-    "hash_layout", "overflow_ring", "checkpointing",
+    "processing_time", "parallelism", "lateness", "min_reduce",
+    "map_after_window", "overflow_ring", "checkpointing",
 ])
 def test_port_raises_for_what_this_slice_lacks(change):
     from flink_tpu_torch import StreamExecutionEnvironment
     from flink_tpu_torch.core.config import Configuration
     from flink_tpu_torch.core.time import TimeCharacteristic
-    from flink_tpu_torch.runtime.sinks import CollectSink, CountingSink
+    from flink_tpu_torch.runtime.sinks import CountingSink
     from flink_tpu_torch.runtime.sources import GeneratorSource
 
-    cfg = dict(CONFIG)
-    if change == "hash_layout":
-        cfg["state.backend.layout"] = "hash"
-    if change == "overflow_ring":
-        cfg["state.backend.overflow-ring"] = 4096
-    env = StreamExecutionEnvironment(Configuration(cfg), device="cpu")
-    if change != "processing_time":
-        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
-    if change == "parallelism":
-        env.set_parallelism(2)
-    if change == "checkpointing":
-        env.enable_checkpointing(10)
-    win = (env.add_source(GeneratorSource(gen_batch, total=BATCH))
-           .key_by(lambda c: c["key"]).time_window(WINDOW_MS))
-    if change == "lateness":
-        win = win.allowed_lateness(100)
-    win.sum(lambda c: c["value"]).add_sink(
-        CollectSink() if change == "collect_sink" else CountingSink())
+    def build():
+        cfg = dict(CONFIG)
+        if change == "overflow_ring":
+            cfg["state.backend.overflow-ring"] = 4096
+        env = StreamExecutionEnvironment(Configuration(cfg), device="cpu")
+        if change != "processing_time":
+            env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        if change == "parallelism":
+            env.set_parallelism(2)
+        if change == "checkpointing":
+            env.enable_checkpointing(10)
+        win = (env.add_source(GeneratorSource(gen_batch, total=BATCH))
+               .key_by(lambda c: c["key"]).time_window(WINDOW_MS))
+        if change == "lateness":
+            win = win.allowed_lateness(100)
+        if change == "min_reduce":
+            agg = win.min(lambda c: c["value"])
+        else:
+            agg = win.sum(lambda c: c["value"])
+        if change == "map_after_window":
+            agg = agg.map(lambda r: r)
+        agg.add_sink(CountingSink())
+        return env
+
+    if change in ("min_reduce", "map_after_window"):
+        # refused where the job is built
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build()
+        return
+    env = build()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         env.execute("unsupported")

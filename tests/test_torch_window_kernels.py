@@ -79,7 +79,8 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
         sj = set_watermark(sj, st, int(wm))
         sj, pend_j, fr_j = adv(sj, np.int32(wm))
         st, pend_t, fr_t = wkt.advance_and_fire_resident(
-            st, win_t, red_t, torch.tensor(int(wm), dtype=torch.int32))
+            st, win_t, red_t, torch.tensor(int(wm), dtype=torch.int32),
+            reduced=True)
         assert_fires_equal(fr_j, fr_t, rtol)
         np.testing.assert_array_equal(pend_t.numpy(), np.asarray(pend_j))
         assert_states_equal(sj, st, rtol)
@@ -98,5 +99,10 @@ def test_cpu_tensors_never_launch_a_kernel():
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
     wkt.update(st, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
                maxp=MAXP)
-    wkt.advance_and_fire_resident(st, win_t, red_t, int(wm))
-    assert [fn.launches for fn in kernels.KERNELS] == [0, 0, 0, 0]
+    wkt.advance_and_fire_resident(st, win_t, red_t, int(wm), reduced=True)
+    wkt.advance_and_fire_resident(st, win_t, red_t, int(wm) + 100)
+    st_h = wkt.init_state(C, win_t, red_t, n_key_groups=MAXP, device="cpu",
+                          layout="hash")
+    wkt.update(st_h, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
+               maxp=MAXP)
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 6

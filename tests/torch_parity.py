@@ -128,6 +128,64 @@ def set_watermark(jax_st, port_st, wm: int):
     return jax_set_watermark(jax_st, wm)
 
 
+def key_halves(keys: np.ndarray):
+    """int64 key identities -> (hi, lo) uint32 halves."""
+    w = np.asarray(keys, np.int64).view(np.uint64)
+    return ((w >> np.uint64(32)).astype(np.uint32),
+            (w & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def sparse_batches(seed: int, floats: bool = False):
+    """``batches`` with sparse 64-bit key identities for the hash layout:
+    keys from a pool of 1,200 (a load of at most 0.3 at C, below where the
+    reference's four claim rounds can leave a key out), duplicate-heavy
+    lanes, and in the third batch lanes of the key -1, which equals the
+    table's EMPTY word and drops as capacity loss on both sides."""
+    rng = np.random.default_rng(seed + 1000)
+    pool = rng.integers(-(2**63), 2**63 - 1, 1200, dtype=np.int64)
+    out = []
+    for i, (_hi, _lo, ts, vals, valid, wm, clear) in enumerate(
+            batches(seed, floats)):
+        keys = pool[rng.integers(0, len(pool), B)]
+        keys[:64] = pool[:8].repeat(8)
+        if i == 2:
+            keys[64:80] = -1
+        hi, lo = key_halves(keys)
+        out.append((hi, lo, ts, vals, valid, wm, clear))
+    return out
+
+
+def logical_state(fields: dict, red) -> dict:
+    """A state's fields with the slot order taken out, so that two hash
+    tables that placed the same keys at other slots compare equal: the
+    key words of the used slots sorted, each with its [R, 2] plane column;
+    the planes of unused slots must be untouched (all zero)."""
+    rows = fields["table.keys"].astype(np.uint64)
+    words = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
+    used = words != np.uint64(0xFFFFFFFFFFFFFFFF)
+    cap = len(words)
+    planes = np.asarray(fields["acc"]).reshape(-1, cap, 2)
+    assert not planes[:, ~used].any()
+    order = np.argsort(words[used], kind="stable")
+    out = {k: v for k, v in fields.items()
+           if k not in ("table.keys", "acc", "touched", "fresh")}
+    out["keys"] = words[used][order]
+    out["planes"] = planes[:, used][:, order]
+    return out
+
+
+def fire_rows(fr, f: int):
+    """Lane f's rows of a CompactFires (either package) as
+    (key word uint64, value) sorted by key, and in emission order."""
+    n = int(np.asarray(fr.counts)[f])
+    khi = np.asarray(fr.key_hi)[f, :n].view(np.uint32).astype(np.uint64)
+    klo = np.asarray(fr.key_lo)[f, :n].view(np.uint32).astype(np.uint64)
+    words = (khi << np.uint64(32)) | klo
+    vals = np.asarray(fr.values)[f, :n]
+    order = np.argsort(words, kind="stable")
+    return (words[order], vals[order]), (words, vals)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_kernels(window: str, precombine: bool):
     """Jitted reference update (direct layout, packed or split planes per
@@ -142,5 +200,23 @@ def jax_kernels(window: str, precombine: bool):
 
     def adv(st, wm):
         return wkj.advance_and_fire_resident(st, win, red, wm, reduced=True)
+
+    return jax.jit(upd), jax.jit(adv)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_hash_kernels(window: str):
+    """Jitted reference update in the hash layout (insert path, pre-combine
+    on) and resident compact advance, returning the activity too."""
+    win, red, _, _ = specs(window)
+
+    def upd(st, hi, lo, ts, vals, valid, clear):
+        st, act, _ = wkj.update(st, win, red, hi, lo, ts, vals, valid,
+                                insert=True, precombine=True,
+                                clear_rows=clear)
+        return st, act
+
+    def adv(st, wm):
+        return wkj.advance_and_fire_resident(st, win, red, wm)
 
     return jax.jit(upd), jax.jit(adv)
