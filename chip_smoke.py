@@ -6,44 +6,66 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the window kernels G1-G6 from flink_tpu_torch/csrc.
+  2. build    — compiles the window kernels G1-G9 from flink_tpu_torch/csrc
+                with nvcc, and the spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
                 against its plain PyTorch version on the same inputs, on
                 ``main`` and ``edge`` inputs, exactly (the data is
                 integer-valued). G1-G4 at the north-star job's shapes
                 (C = 1M keys, R = 8 ring panes, k = 1, B = 262,144 lanes,
-                F = 2 fire lanes, max parallelism 128); G1-G3, G5 and G6 at
-                the sparse-key job's (C = 2^21 slots, R = 12, k = 5 panes a
-                window, slide 2,000, probe length 64), G3 there fed the
+                F = 2 fire lanes, max parallelism 128); G1-G3, G5, G6 and G8
+                at the sparse-key job's (C = 2^21 slots, R = 12, k = 5 panes
+                a window, slide 2,000, probe length 64), G3 there fed the
                 slots G5 gives (C for a lane with none) and G1's edge lanes
-                late by the k-pane test or behind the ring's horizon. G5
-                may place a contested key at another slot than its plain
-                version, so it is held to the table's invariants: equal ok
-                and n_new, the same keys each once, each within 64 slots of
-                its chain's start where lookup finds it, and equal per-key
-                values after a G3 pass (kernels against plain versions). A
-                "hash_table" line says how deep the job's 1M keys sit in
-                their probe chains once all have arrived. Times kernel,
-                plain version and, where one PyTorch call computes the same
-                function, that call, with CUDA events, beside the bound the
-                card's 3.35 TB/s sets on the bytes moved.
+                late by the k-pane test or behind the ring's horizon; G7 and
+                G9 at the churn job's overflow ring (RING_LANES lanes) and
+                compaction (2^21 slots, R = 12). G5 may place a contested
+                key at another slot than its plain version, so it is held to
+                the table's invariants: equal ok and n_new, the same keys
+                each once, each within 64 slots of its chain's start where
+                lookup finds it, and equal per-key values after a G3 pass
+                (kernels against plain versions). G9, whose re-insert is a
+                G5 launch, is held to the new table's invariants, its row
+                move and ring export equal to the plain ones on its own slot
+                map, and the same logical cells (plane + ring) as the plain
+                version. G7's edge ring fills and loses lanes; G8's edge
+                table has no free slot; G9's edge table leaves live keys
+                without a slot. A "hash_table" line says how deep the sparse
+                job's 1M keys sit in their probe chains once all have
+                arrived. Times kernel, plain version and, where one PyTorch
+                call computes the same function, that call, with CUDA
+                events, beside the bound the card's 3.35 TB/s sets on the
+                bytes moved.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
-                public API; the sink's count and value sum must equal a numpy
-                reference, and G1-G4 must have launched.
+                public API with ``state.backend.overflow-ring: 0``; the
+                sink's count and value sum must equal a numpy reference, and
+                G1-G4 must have launched.
   5. sparse   — nexmark q5's HOP(2 s, 10 s) count per key over the same
                 traffic with the 1M keys mapped to sparse 64-bit ids
                 (splitmix64), state capacity 2^21 (a load of 0.48) probed 64
-                slots deep, into a sink that keeps
-                every row: the auto layout must resolve to hash; the row
-                count must equal numpy's distinct (key, window) count, the
-                values must sum to 5 x 30M, no record may drop, every row of
-                the keys whose id is 0 mod 1024 must equal numpy's, and G1,
-                G2, G3, G5 and G6 must have launched.
+                slots deep, the overflow ring unset (auto-sized), into a
+                sink that keeps every row: the auto layout must resolve to
+                hash; the row count must equal numpy's distinct (key,
+                window) count, the values must sum to 5 x 30M, no record may
+                drop, every row of the keys whose id is 0 mod 1024 must
+                equal numpy's, the steps must have gone to the lookup-only
+                fast step once the key population stopped growing, and G1,
+                G2, G3, G5, G6, G7 and G8 must have launched.
+  6. churn    — the same query over auction ids that churn: at event time
+                t ms the id is splitmix64(100 t + u), u uniform in
+                [0, 250,000); 60M events (30 s), capacity 2^21 probed 64
+                deep, the ring unset. Dead ids fill the table, records
+                whose id finds no slot spill to the ring and the host
+                stores, and the table compacts. Every (id, window, count)
+                row must equal numpy's; the live ids must stay under 0.7
+                of capacity and the distinct ids reach 1.5x it; at least
+                two compactions and a non-empty spill; nothing dropped;
+                G1-G3, G5, G6, G7 and G9 launched.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the two
+after. Then one line {"kernels": [...]} (launches summed over the three
 paths, numbers from phase 3), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -61,13 +83,14 @@ import time
 import numpy as np
 import torch
 
-from flink_tpu_torch import StreamExecutionEnvironment
+from flink_tpu_torch import StreamExecutionEnvironment, native
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable
 from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
 from flink_tpu_torch.ops.hashing import probe_hash, splitmix64
+from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG
 from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
 
@@ -89,6 +112,16 @@ SPIN_CYCLES = 50_000_000      # ~25 ms of spinning at the H100's boost clock
 SPARSE_SIZE_MS, SPARSE_SLIDE_MS = 10_000, 2_000
 SPARSE_CAPACITY = 1 << 21     # a load of 0.48 for 1M keys
 SPARSE_RING = 12              # the executor's auto ring at k = 5
+# the churn job: nexmark q5's HOP(2 s, 10 s) count with auction ids that
+# churn — 100 new ids a millisecond, bids spread over the 250,000 newest
+CHURN_TOTAL = 60_000_000      # 30 s of event time
+CHURN_IDS_PER_MS = 100
+CHURN_LIVE = 250_000
+CHURN_CAPACITY = 1 << 21
+CHURN_SEED = 77 << 40
+# the executor's auto-sized overflow ring at this batch and ring depth
+RING_LANES = ((-(-MON_EVERY // RING_DEPTH) * RING_DEPTH * (OVF_LAG + 1)
+               + 4 + RING_DEPTH) * BATCH + 8192)
 # state.probe-len: once the 1M keys have arrived (a load of 0.48), 334-338
 # of them sit 16 or more slots from their chain's start, 3-4 sit 32 or
 # more, the deepest 38 (the hash_table line of two runs on an NVIDIA H100
@@ -134,9 +167,17 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def max_abs_err(a, b) -> float:
+    """The largest difference of two tensors (or of two lists of them);
+    for integer tensors the number of elements that differ, and infinity
+    for tensors of different shapes."""
     pairs = zip(a, b) if isinstance(a, (tuple, list)) else [(a, b)]
     err = 0.0
     for x, y in pairs:
+        if x.shape != y.shape:
+            return float("inf")
+        if not x.is_floating_point():
+            err = max(err, float((x != y).sum()))
+            continue
         d = (x.double() - y.double()).abs()
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
@@ -396,20 +437,20 @@ def wrapping_ids(C, n, seed):
     return np.array(out[:n], np.int64)
 
 
-def table_invariants(table, C) -> None:
-    """Each key once, within PROBE_LEN of its chain's start, where lookup
-    finds it."""
+def table_invariants(table, C, probe_len=PROBE_LEN) -> None:
+    """Each key once, within ``probe_len`` of its chain's start, where
+    lookup finds it."""
     used = table != EMPTY_WORD
     words = table[used]
     check(torch.unique(words).numel() == words.numel(),
-          "hash_upsert placed a key twice")
+          "a table holds a key twice")
     hi, lo = kernels.split_words(words)
-    slot, found = hashtable.lookup(table, hi, lo, probe_len=PROBE_LEN)
+    slot, found = hashtable.lookup(table, hi, lo, probe_len=probe_len)
     check(bool(found.all()), "lookup misses a placed key")
     check(bool((slot.long() == torch.nonzero(used).reshape(-1)).all()),
           "lookup finds a key at another slot than the one it holds")
     base = probe_hash(hi, lo) & (C - 1)
-    check(bool(((slot.long() - base) % C < PROBE_LEN).all()),
+    check(bool(((slot.long() - base) % C < probe_len).all()),
           "a key sits outside its probe chain")
 
 
@@ -586,12 +627,232 @@ def case_fire_compact(dev, C, kind, table):
     }
 
 
+# ------------------------------------------------- phase 3, G7-G9
+
+def ring_of(dev, O, fill, seed=9):
+    """An overflow ring of O lanes holding ``fill`` earlier lanes."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ring = (torch.randint(-2**31, 2**31 - 1, (O,), generator=g,
+                          dtype=torch.int32),
+            torch.randint(-2**31, 2**31 - 1, (O,), generator=g,
+                          dtype=torch.int32),
+            torch.randint(-5, 20, (O,), generator=g, dtype=torch.int32),
+            torch.randint(1, 9, (O,), generator=g).float(),
+            torch.tensor(fill, dtype=torch.int32))
+    return tuple(t.to(dev) for t in ring)
+
+
+def clone_ring(ring):
+    return tuple(t.clone() for t in ring)
+
+
+def case_ring_append(dev, B, kind):
+    """``main``: the ring at the jobs' auto size (RING_LANES) after a few
+    drains, 1 % of a batch's lanes with no slot, a count. ``edge``: a ring
+    of B/2 lanes 3/4 full and half the lanes masked, a sum: the ring fills,
+    and the lanes past it are lost and counted."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    share, O, fill, count = ((0.01, RING_LANES, 40_000, True) if kind == "main"
+                             else (0.5, B // 2, 3 * B // 8, False))
+    mask = (torch.rand(B, generator=g) < share).to(dev)
+    hi, lo = (torch.randint(-2**31, 2**31 - 1, (B,), generator=g,
+                            dtype=torch.int32).to(dev) for _ in range(2))
+    pane = torch.randint(0, 15, (B,), generator=g, dtype=torch.int32).to(dev)
+    vals = None if count else torch.randint(1, 9, (B,), generator=g).float(
+    ).to(dev)
+    ring0 = ring_of(dev, O, fill)
+    r1, r2 = clone_ring(ring0), clone_ring(ring0)
+    l1, l2 = _zero_i32(dev), _zero_i32(dev)
+    kernels.ring_append(r1, l1, mask, hi, lo, pane, vals)
+    kernels.ring_append_plain(r2, l2, mask, hi, lo, pane, vals)
+    n = int(mask.sum())
+    check(kind == "main" or int(l1) == fill + n - O,
+          f"ring_append: {int(l1)} lanes lost, not {fill + n - O}")
+    lanes = torch.stack([hi, lo, pane, (vals if vals is not None else
+                                        torch.ones(B, device=dev)).view(
+                                            torch.int32)], 1)
+    # the timing appends to a copy; the ring stays far from full
+    rt, lt = clone_ring(ring0), _zero_i32(dev)
+    rp, lp = clone_ring(ring0), _zero_i32(dev)
+    return {
+        "got": list(r1) + [l1], "want": list(r2) + [l2],
+        "run": lambda: kernels.ring_append(rt, lt, mask, hi, lo, pane,
+                                           vals),
+        "plain": lambda: kernels.ring_append_plain(rp, lp, mask, hi, lo,
+                                                   pane, vals),
+        # the compaction of the masked lanes' four words, in lane order
+        "library": lambda: torch.masked_select(lanes, mask[:, None]),
+        # the mask read once, each taken lane read and written (16 B each)
+        "bytes": B * 1 + n * (16 + 16) + 8,
+    }
+
+
+def full_to_the_brim(dev, C, B):
+    """A table with no free slot: G5 places fresh ids until every slot is
+    taken (each chain full, so an absent key walks all 64 slots)."""
+    table = hashtable.create(C, dev)
+    off = 50 * N_KEYS
+    for _ in range(40):
+        if not bool((table == EMPTY_WORD).any()):
+            return table
+        h, l = id_halves(sparse_ids(np.arange(off, off + B)), dev)
+        off += B
+        kernels.hash_upsert(table, h, l, torch.ones_like(h, dtype=torch.bool),
+                            probe_len=PROBE_LEN)
+    raise RuntimeError("the table kept a free slot")
+
+
+def case_hash_lookup(dev, C, B, kind, full):
+    """``main``: the sparse job's fast step, a batch of its generator
+    against the full table of full_table (every key present). ``edge``: a
+    table with no free slot, lanes of present keys, absent keys, the key
+    -1 and invalid lanes."""
+    rng = np.random.default_rng(12)
+    if kind == "main":
+        table = full
+        ids = sparse_ids(gen_batch(7 * B, B)[0])
+        valid = np.ones(B, bool)
+    else:
+        table = full_to_the_brim(dev, C, B)
+        words = table.cpu().numpy()
+        ids = np.where(rng.random(B) < 0.5, words[rng.integers(0, C, B)],
+                       sparse_ids(rng.integers(90 * N_KEYS, 91 * N_KEYS, B)))
+        ids[rng.random(B) < 0.01] = -1
+        valid = rng.random(B) < 0.95
+    hi, lo = id_halves(ids, dev)
+    valid_t = _t(valid, dev, torch.bool)
+    got = kernels.hash_lookup(table, hi, lo, valid_t, probe_len=PROBE_LEN)
+    want = kernels.hash_lookup_plain(table, hi, lo, valid_t,
+                                     probe_len=PROBE_LEN)
+    check(kind == "edge" or int(got[2]) == 0,
+          "hash_lookup: a key of the full table went missing")
+    check(kind == "main" or 0 < int(got[2]) < B,
+          "hash_lookup: the edge batch found all or none of its keys")
+    # each table word on a chain up to the key (or the whole chain of an
+    # absent key on the brimful table) read once
+    slot = got[0].long()
+    cand = kernels.probe_chain(hi, lo, C=C, probe_len=PROBE_LEN)
+    depth = torch.where(got[1], (slot - cand[:, 0]) % C, PROBE_LEN - 1)
+    on_chain = valid_t[:, None] & (
+        torch.arange(PROBE_LEN, device=dev)[None, :] <= depth[:, None])
+    return {
+        "got": got, "want": want,
+        "run": lambda: kernels.hash_lookup(table, hi, lo, valid_t,
+                                           probe_len=PROBE_LEN),
+        "plain": lambda: kernels.hash_lookup_plain(table, hi, lo, valid_t,
+                                                   probe_len=PROBE_LEN),
+        "library": None,
+        # hi, lo, valid in; slot, found out; each chain word read once
+        "bytes": B * (4 + 4 + 1 + 4 + 1)
+        + int(torch.unique(cand[on_chain]).numel()) * 8,
+    }
+
+
+def churned_state(dev, C, R, probe_len, n_keys, alive_share, seed):
+    """A hash table as the churn job holds it before a compaction: G5
+    placed ``n_keys`` ids (those past their chains left out), and a plane
+    in which ``alive_share`` of the placed keys have touched cells in some
+    of the R rows while the rest are dead. Returns (table, acc, pane_ids,
+    alive bool [C])."""
+    table = hashtable.create(C, dev)
+    for off in range(0, n_keys, 1 << 18):
+        n = min(1 << 18, n_keys - off)
+        h, l = id_halves(sparse_ids(np.arange(off, off + n) + seed * 10**9),
+                         dev)
+        kernels.hash_upsert(table, h, l, torch.ones_like(h, dtype=torch.bool),
+                            probe_len=probe_len)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    used = (table != EMPTY_WORD).cpu()
+    alive = used & (torch.rand(C, generator=g) < alive_share)
+    touch = (torch.rand(R, C, generator=g) < 0.45) & alive[None, :]
+    touch[torch.randint(0, R, (C,), generator=g), torch.arange(C)] |= alive
+    val = torch.randint(1, 9, (R, C), generator=g).float() * touch
+    acc = torch.stack([val.reshape(-1), touch.reshape(-1).float()], 1)
+    pane_ids = torch.arange(40, 40 + R, dtype=torch.int32)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))]
+    return table, acc.to(dev), pane_ids.to(dev), alive.to(dev)
+
+
+def logical_cells(table, acc, ring, C, R, pane_ids):
+    """The (key word, pane, value) cells of a plane and the filled ring
+    lanes, sorted by key then pane, as three tensors."""
+    a3 = acc.view(R, C, 2)
+    r, c = torch.nonzero(a3[:, :, 1] != 0, as_tuple=True)
+    n = int(ring[4])
+    keys = torch.cat([table[c], kernels.key_words(ring[0][:n], ring[1][:n])])
+    panes = torch.cat([pane_ids[r], ring[2][:n]])
+    vals = torch.cat([a3[r, c, 0], ring[3][:n]])
+    order = torch.argsort(panes, stable=True)
+    order = order[torch.argsort(keys[order], stable=True)]
+    return keys[order], panes[order], vals[order]
+
+
+def case_compact_table(dev, C, R, kind):
+    """``main``: the churn job's compaction, 2^21 slots probed 64 deep that
+    G5 filled with 1.9M ids, 70 % of them alive, the rest dead.
+    ``edge``: the same table 80 % alive, rebuilt with chains 2 slots long,
+    so that thousands of alive keys find no slot in the new table and move
+    to the ring. Held to:
+    the new table's set invariants; alive keys = placed + exported, once
+    each; the move equal to the plain move on G9's own slot map, the ring
+    equal to the plain export on it; and the same logical cells (plane +
+    ring) as the plain version, whichever keys each placed."""
+    probe, share = (PROBE_LEN, 0.7) if kind == "main" else (2, 0.8)
+    table, acc, pane_ids, alive = churned_state(dev, C, R, PROBE_LEN,
+                                                1_900_000, share, 4)
+    ring0 = ring_of(dev, RING_LANES, 1000)
+    r1, r2 = clone_ring(ring0), clone_ring(ring0)
+    l1, l2 = _zero_i32(dev), _zero_i32(dev)
+    acc1, tab1, slot1, ok1 = kernels.compact_table(acc, table, pane_ids, r1,
+                                                   l1, R=R, probe_len=probe)
+    acc2, tab2, _slot2, _ok2 = kernels.compact_table_plain(
+        acc, table, pane_ids, r2, l2, R=R, probe_len=probe)
+    placed = tab1 != EMPTY_WORD
+    check(int(placed.sum()) == int(ok1.sum()),
+          "compact_table: the new table holds other keys than it placed")
+    table_invariants(tab1, C, probe)
+    check(bool((ok1 <= alive).all()), "compact_table: placed a dead key")
+    check(bool((torch.sort(tab1[placed]).values
+                == torch.sort(table[ok1]).values).all()),
+          "compact_table: the placed keys are not the ok slots' keys")
+    exported = int(r1[4]) - int(ring0[4])
+    want_moved = kernels.compact_move_plain(acc, slot1, ok1, C=C, R=R)
+    r3, l3 = clone_ring(ring0), _zero_i32(dev)
+    kernels.compact_export_plain(acc, table, pane_ids, alive, ok1, r3, l3,
+                                 C=C, R=R)
+    check(kind == "main" or exported > 0,
+          "compact_table: no alive key failed in the edge table")
+    cells1 = logical_cells(tab1, acc1, r1, C, R, pane_ids)
+    cells2 = logical_cells(tab2, acc2, r2, C, R, pane_ids)
+    # the library yardstick: the move alone, as one index_copy_ of the
+    # alive keys' precomputed columns into a cleared plane
+    src = acc.view(R, C, 2)[:, ok1]
+    dst_idx = slot1[ok1].long()
+    lib_out = torch.zeros(R, C, 2, device=dev)
+    return {
+        "got": [acc1, *r1, l1, *cells1], "want": [want_moved, *r3, l3,
+                                                  *cells2],
+        "run": lambda: kernels.compact_table(
+            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), R=R,
+            probe_len=probe),
+        "plain": lambda: kernels.compact_table_plain(
+            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), R=R,
+            probe_len=probe),
+        "library": lambda: lib_out.index_copy_(1, dst_idx, src),
+        # the plane and the table read once; the new plane and the new
+        # table written once; 16 B per exported ring lane
+        "bytes": C * R * 8 * 2 + C * 8 * 2 + exported * 16,
+        "exported": exported,
+    }
+
+
 def kernel_phase(dev, C, R, B, F, maxp, slide, timing=True):
-    """Hold G1-G6 against their plain versions on both input sets, and time
+    """Hold G1-G9 against their plain versions on both input sets, and time
     the main-path set. G1-G3 run on both jobs, so each is held at the
     north-star job's shapes and at the sparse-key job's (``sparse_ms`` is
-    its time there); G4 runs on the first, G5 and G6 on the second.
-    Returns one record per kernel."""
+    its time there); G4 runs on the first, G5, G6 and G8 on the second,
+    G7 and G9 at the churn job's ring and compaction. Returns one record
+    per kernel."""
     SC, SR = SPARSE_CAPACITY, SPARSE_RING
     sk = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
     full = full_table(dev, SC, B)
@@ -616,12 +877,18 @@ def kernel_phase(dev, C, R, B, F, maxp, slide, timing=True):
                                                       full),),
         "fire_compact": lambda kind: (case_fire_compact(dev, SC, kind,
                                                         full),),
+        "ring_append": lambda kind: (case_ring_append(dev, B, kind),),
+        "hash_lookup": lambda kind: (case_hash_lookup(dev, SC, B, kind,
+                                                      full),),
+        "compact_table": lambda kind: (case_compact_table(dev, SC, SR,
+                                                          kind),),
     }
     job_of = {"route_lanes": ("north-star", "sparse"),
               "clear_rows": ("north-star", "sparse"),
               "scatter_update": ("north-star", "sparse"),
               "fire_reduced": ("north-star",), "hash_upsert": ("sparse",),
-              "fire_compact": ("sparse",)}
+              "fire_compact": ("sparse",), "ring_append": ("churn",),
+              "hash_lookup": ("sparse",), "compact_table": ("churn",)}
     out = {}
     for name, cases_of in make.items():
         mains, errs = None, []
@@ -676,6 +943,9 @@ def north_star_job(device, n_keys, events_per_ms, total, batch, depth):
         "keys.reverse-map": False,
         "window.fires-per-step": FIRES_PER_STEP,
         "pipeline.ring-depth": depth,
+        # no overflow ring: the job's keys all fit, and without a ring the
+        # drains reduce the fires on the card (G4) as in PRs 1-2
+        "state.backend.overflow-ring": 0,
     })
     env = StreamExecutionEnvironment(cfg, device=device)
     env.set_parallelism(1)
@@ -714,7 +984,6 @@ def sparse_job(device, total, batch, depth):
         "window.fires-per-step": FIRES_PER_STEP,
         "pipeline.ring-depth": depth,
         "state.probe-len": PROBE_LEN,
-        "state.backend.overflow-ring": 0,
     })
     env = StreamExecutionEnvironment(cfg, device=device)
     env.set_parallelism(1)
@@ -788,6 +1057,93 @@ def check_sparse_rows(cols, total):
     return n
 
 
+# ------------------------------------------------------------ phase 6
+
+def churn_ids(idx: np.ndarray) -> np.ndarray:
+    """The churn job's id of event ``idx``: at event time t ms,
+    splitmix64(t * CHURN_IDS_PER_MS + u), u uniform in [0, CHURN_LIVE) —
+    drawn by a hash of the event's index, so that any cut of the stream
+    gives the same ids."""
+    t = idx // EVENTS_PER_MS
+    u = splitmix64(idx + CHURN_SEED) % np.uint64(CHURN_LIVE)
+    return splitmix64(t * CHURN_IDS_PER_MS + u.astype(np.int64)).view(
+        np.int64)
+
+
+def churn_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    return {"id": churn_ids(idx)}, idx // EVENTS_PER_MS
+
+
+def churn_job(device, total, batch, depth):
+    """nexmark q5's HOP(2 s, 10 s) count per auction id, the ids churning,
+    through the public API with the overflow ring unset; returns (sink,
+    job, s)."""
+    cfg = Configuration({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": depth,
+        "state.probe-len": PROBE_LEN,
+    })
+    env = StreamExecutionEnvironment(cfg, device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(CHURN_CAPACITY)
+    env.batch_size = batch
+    sink = ColumnarCollectSink()
+    (
+        env.add_source(GeneratorSource(churn_gen, total=total))
+        .key_by(lambda c: c["id"])
+        .time_window(SPARSE_SIZE_MS, SPARSE_SLIDE_MS)
+        .count()
+        .add_sink(sink)
+    )
+    t0 = time.perf_counter()
+    job = env.execute("chip-smoke-churn")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, job, time.perf_counter() - t0
+
+
+def check_churn_rows(cols, total):
+    """Every (id, window end, count) row of the churn job against numpy's
+    group-by of the same stream. Returns (rows, distinct ids, the most ids
+    a window holds — the live set the table must keep at once)."""
+    k = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
+    per_pane = EVENTS_PER_MS * SPARSE_SLIDE_MS
+    n_panes = -(-total // per_pane)
+    panes = []
+    for p in range(n_panes):
+        idx = np.arange(p * per_pane, min((p + 1) * per_pane, total))
+        panes.append(np.unique(churn_ids(idx).view(np.uint64),
+                               return_counts=True))
+    kid = cols["key_id"].astype(np.uint64)
+    end = cols["window_end_ms"].astype(np.int64)
+    val = cols["value"]
+    order = np.lexsort((kid, end))
+    kid, end, val = kid[order], end[order], val[order]
+    bounds = np.searchsorted(end, (np.arange(n_panes + k) + 1)
+                             * SPARSE_SLIDE_MS, side="left")
+    live_max = 0
+    for e in range(n_panes + k - 1):
+        ks = [panes[q] for q in range(max(0, e - k + 1), min(e + 1, n_panes))]
+        uk, inv = np.unique(np.concatenate([a for a, _ in ks]),
+                            return_inverse=True)
+        cnt = np.bincount(inv, weights=np.concatenate([c for _, c in ks]))
+        a, b = bounds[e], bounds[e + 1]
+        check(b - a == len(uk) and np.array_equal(kid[a:b], uk)
+              and np.array_equal(val[a:b], cnt.astype(np.float32))
+              and bool((end[a:b] == (e + 1) * SPARSE_SLIDE_MS).all()),
+              f"churn job: the rows of the window ending at pane {e} "
+              f"differ from numpy's")
+        live_max = max(live_max, len(uk))
+    check(bounds[n_panes + k - 1] == len(kid),
+          "churn job: rows past the last window")
+    distinct = len(np.unique(np.concatenate([a for a, _ in panes])))
+    return len(kid), distinct, live_max
+
+
 # ------------------------------------------------------------ profile
 
 def _busy_ms(intervals) -> float:
@@ -803,7 +1159,7 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
-def profile_phase(dev, name, gen, run) -> dict:
+def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS) -> dict:
     """Where the end-to-end time goes (``--profile`` only): the generator
     ``gen`` alone on the host, the host profile of the job ``run()``
     (cProfile, top entries by own time), and its device timeline
@@ -815,8 +1171,8 @@ def profile_phase(dev, name, gen, run) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    for off in range(0, TOTAL_EVENTS, BATCH):
-        gen(off, min(BATCH, TOTAL_EVENTS - off))
+    for off in range(0, total, BATCH):
+        gen(off, min(BATCH, total - off))
     gen_s = time.perf_counter() - t0
 
     prof_c = cProfile.Profile()
@@ -849,6 +1205,7 @@ def profile_phase(dev, name, gen, run) -> dict:
             ((round(ms, 3), n, name) for name, (ms, n) in by_name.items()),
             reverse=True)[:15],
         "drains": job.metrics.resident_drains,
+        "compactions": job.metrics.compactions,
     }
 
 
@@ -867,12 +1224,21 @@ KERNEL_SOURCES = {
                     "flink_tpu/ops/hashtable.py:175"),
     "fire_compact": ("flink_tpu_torch/csrc/fire_compact.cu",
                      "flink_tpu/ops/window_kernels.py:1079"),
+    "ring_append": ("flink_tpu_torch/csrc/ring_append.cu",
+                    "flink_tpu/ops/window_kernels.py:222"),
+    "hash_lookup": ("flink_tpu_torch/csrc/hash_lookup.cu",
+                    "flink_tpu/ops/hashtable.py:94"),
+    "compact_table": ("flink_tpu_torch/csrc/compact_table.cu",
+                      "flink_tpu/ops/window_kernels.py:480"),
 }
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                       "fire_reduced")
 SPARSE_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
-                  "hash_upsert", "fire_compact")
+                  "hash_upsert", "fire_compact", "ring_append", "hash_lookup")
+CHURN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                 "hash_upsert", "fire_compact", "ring_append",
+                 "compact_table")
 
 
 def main(argv) -> int:
@@ -892,7 +1258,10 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     kernels.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    t1 = time.perf_counter()
+    native.get_lib()
+    emit({"phase": "build", "seconds": t1 - t0,
+          "spill_store_seconds": time.perf_counter() - t1})
 
     recs = kernel_phase(dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP,
                         MAX_PARALLELISM, WINDOW_MS)
@@ -911,6 +1280,8 @@ def main(argv) -> int:
           "fire_steps": m.fire_steps, "batches": m.steps,
           "count": sink.count, "count_ref": want_count,
           "value_sum": sink.value_sum, "launches": launches,
+          "overflow_ring": "0 (set: no ring, so the drains reduce on the "
+                           "card with G4, as in PRs 1-2)",
           "device": kind, "nvidia_smi": smi})
     check(sink.value_sum == float(TOTAL_EVENTS),
           f"value_sum {sink.value_sum} != {TOTAL_EVENTS}")
@@ -934,16 +1305,58 @@ def main(argv) -> int:
           "events_per_s": TOTAL_EVENTS / secs, "layout": job.state.layout,
           "rows": len(cols.get("value", ())), "drains": m.resident_drains,
           "fire_steps": m.fire_steps, "batches": m.steps,
+          "steps_fast": m.steps_fast, "spilled_records": m.spilled_records,
+          "overflow_ring": job.state.ovf_hi.numel(),
           "launches": launches, "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"auto layout resolved to {job.state.layout}, not hash")
     check(m.dropped_late == 0 and m.dropped_capacity == 0,
           f"dropped records: late {m.dropped_late}, capacity "
           f"{m.dropped_capacity}")
+    check(m.steps_fast > 0, "the sparse job never ran the fast step")
     check_sparse_rows(cols, TOTAL_EVENTS)
     for name in SPARSE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched on the sparse-key path")
+    del sink, cols
+
+    kernels.reset_launch_counts()
+    sink, job, secs = churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH)
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    for name, n in launches.items():
+        total_launches[name] += n
+    cols = sink.columns()
+    m = job.metrics
+    n_rows, distinct, live_max = check_churn_rows(cols, CHURN_TOTAL)
+    emit({"phase": "churn", "events": CHURN_TOTAL, "seconds": secs,
+          "events_per_s": CHURN_TOTAL / secs, "rows": n_rows,
+          "distinct_ids": distinct, "live_ids_max": live_max,
+          "capacity": CHURN_CAPACITY, "layout": job.state.layout,
+          "overflow_ring": job.state.ovf_hi.numel(),
+          "drains": m.resident_drains, "fire_steps": m.fire_steps,
+          "steps": m.steps, "steps_fast": m.steps_fast,
+          "ring_drains": m.ring_drains, "compactions": m.compactions,
+          "spilled_records": m.spilled_records,
+          "spill_peak_keys": m.spill_peak_keys,
+          "dropped_capacity": m.dropped_capacity,
+          "dropped_late": m.dropped_late, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash" and
+          job.state.ovf_hi.numel() == RING_LANES,
+          "churn job: not the hash layout with the auto-sized ring")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"churn job: dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check(live_max < 0.7 * CHURN_CAPACITY
+          and distinct >= 1.5 * CHURN_CAPACITY,
+          f"churn job: {live_max} live ids at most, {distinct} in all, "
+          f"against {CHURN_CAPACITY} slots")
+    check(m.compactions >= 2 and m.spilled_records > 0,
+          f"churn job: {m.compactions} compactions, {m.spilled_records} "
+          f"spilled records")
+    for name in CHURN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the churn path")
     del sink, cols
 
     if "--profile" in argv:
@@ -954,6 +1367,10 @@ def main(argv) -> int:
         emit(profile_phase(
             dev, "sparse", sparse_gen,
             lambda: sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH)))
+        emit(profile_phase(
+            dev, "churn", churn_gen,
+            lambda: churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH),
+            CHURN_TOTAL))
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

@@ -16,10 +16,11 @@
 // of a key placed in this call included (the reference's
 // valid & ~found0 & found). A lane cannot tell "placed by a sibling in this
 // batch" from "present before", so the work is two launches: a lookup pass
-// that settles found0 (and the slot of every resident key), then a claim
-// pass over the lanes still missing. The key equal to EMPTY (integer key -1)
-// is never found nor placed, as in the reference, and its lanes drop as
-// capacity loss.
+// that settles found0 (and the slot of every resident key; it stops at the
+// first EMPTY slot of a chain, hash_probe.cuh), then a claim pass over the
+// lanes still missing. The key equal to EMPTY (integer key -1)
+// is never found nor placed, as in the reference: its lanes go to the
+// overflow ring (G7), or drop as capacity loss without one.
 //
 // Claims: a missing lane walks its chain; a slot holding its key ends the
 // walk (found), a free slot is claimed with atomicCAS(EMPTY -> key) — the
@@ -29,7 +30,9 @@
 // twice. A lane fails only when all P slots of its chain hold other keys.
 // The reference's four claim rounds can also fail a lane that lost four
 // races while its chain still had room; below capacity both place every
-// key, at overload both fail the job ("state backend over capacity").
+// key, at overload both send the lanes they could not place to the
+// overflow ring (or, without one, fail the job: "state backend over
+// capacity").
 //
 // Bound: bytes. Per lane it reads hi, lo (4 B each) and valid (1 B) and
 // writes slot (4 B) and ok (1 B), 14 B; each table word on a chain up to
@@ -40,21 +43,9 @@
 // in steady state, when every key is resident.
 
 #include "common.cuh"
+#include "hash_probe.cuh"
 
 namespace {
-
-constexpr unsigned long long kEmpty = ~0ull;
-
-// ops/hashing.py probe_hash, in uint32 arithmetic.
-__device__ __forceinline__ uint32_t probe_hash(uint32_t hi, uint32_t lo) {
-  uint32_t h = hi * 0x85EBCA6Bu;
-  h ^= lo * 0xC2B2AE35u;
-  h ^= h >> 15;
-  h *= 0x2C1B3C6Du;
-  h ^= h >> 12;
-  h *= 0x297A2D39u;
-  return h ^ (h >> 15);
-}
 
 __global__ void hash_lookup_kernel(const unsigned long long* __restrict__ table,
                                    const uint32_t* __restrict__ hi,
@@ -64,26 +55,9 @@ __global__ void hash_lookup_kernel(const unsigned long long* __restrict__ table,
                                    uint8_t* __restrict__ ok) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  int32_t s_out = C;
-  uint8_t found = 0;
-  if (valid[i]) {
-    const unsigned long long key =
-        (static_cast<unsigned long long>(hi[i]) << 32) | lo[i];
-    if (key != kEmpty) {
-      const uint32_t mask = static_cast<uint32_t>(C) - 1u;
-      const uint32_t base = probe_hash(hi[i], lo[i]) & mask;
-      for (int j = 0; j < P; ++j) {
-        const uint32_t s = (base + static_cast<uint32_t>(j)) & mask;
-        if (table[s] == key) {
-          s_out = static_cast<int32_t>(s);
-          found = 1;
-          break;
-        }
-      }
-    }
-  }
-  slot[i] = s_out;
-  ok[i] = found;
+  const int32_t s = valid[i] ? find_key(table, hi[i], lo[i], C, P) : C;
+  slot[i] = s;
+  ok[i] = s < C;
 }
 
 __global__ void hash_claim_kernel(unsigned long long* table,

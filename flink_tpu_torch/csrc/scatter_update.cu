@@ -7,8 +7,11 @@
 // kg_dirty, and the scatter of the value and the touch marker at the
 // lane's slot. The slot comes in as an operand: in the direct layout
 // where(hi == 0 and lo < C, lo, C), in the hash layout what G5
-// hash_upsert placed or found. A live lane with slot C has no slot
-// ("nofit") and counts into dropped_capacity. On this path it also carries the role of
+// hash_upsert placed or G8 hash_lookup found. A live lane with slot C has
+// no slot ("nofit"): with the overflow ring on, G7 ring_append has already
+// taken it to the ring and it is skipped here (count_nofit = 0); without
+// the ring it counts into dropped_capacity. On this path it also carries
+// the role of
 // ops/segment.py segment_sort / reduce_sorted / scatter_combine (kernel
 // K3): the reference sorts the batch by accumulator index and pre-combines
 // duplicates because duplicate scatter indices serialize on a TPU.
@@ -40,7 +43,7 @@ __global__ void scatter_update_kernel(
     const int32_t* __restrict__ kg, const uint8_t* __restrict__ live,
     const int32_t* __restrict__ slot, const float* __restrict__ values,
     const int32_t* __restrict__ max_pane,
-    int B, int C, int R) {
+    int B, int C, int R, int count_nofit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int32_t dropped = 0;
   if (i < B && live[i]) {
@@ -59,7 +62,7 @@ __global__ void scatter_update_kernel(
         atomicAdd(acc + 2 * flat, values != nullptr ? values[i] : 1.0f);
         atomicAdd(acc + 2 * flat + 1, 1.0f);  // touch marker
       } else {
-        dropped = 1;  // nofit: no slot, and the port has no overflow ring
+        dropped = count_nofit;  // nofit: no slot, and no overflow ring
       }
     }
   }
@@ -74,7 +77,7 @@ extern "C" int scatter_update(void* acc, void* kg_dirty,
                               const void* kg, const void* live,
                               const void* slot, const void* values,
                               const void* max_pane, int B, int C, int R,
-                              void* stream) {
+                              int count_nofit, void* stream) {
   const int threads = 256;
   const int blocks = (B + threads - 1) / threads;
   if (blocks > 0) {
@@ -85,7 +88,7 @@ extern "C" int scatter_update(void* acc, void* kg_dirty,
         static_cast<const int32_t*>(pane), static_cast<const int32_t*>(kg),
         static_cast<const uint8_t*>(live), static_cast<const int32_t*>(slot),
         static_cast<const float*>(values),
-        static_cast<const int32_t*>(max_pane), B, C, R);
+        static_cast<const int32_t*>(max_pane), B, C, R, count_nofit);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 """The window path's hand-written Hopper kernels and their plain versions.
 
-Six CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for ``sm_90a``)
-carry the device work of the window stage; each source opens with the
-reference function it replaces, what bounds it on the card and what its
-design does about that:
+Nine CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+``sm_90a``) carry the device work of the window stage; each source opens
+with the reference function it replaces, what bounds it on the card and
+what its design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
@@ -11,6 +11,9 @@ design does about that:
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
   G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
   G6 ``fire_compact``    window evaluation compacted to (key, value) rows
+  G7 ``ring_append``     nofit lanes appended to the overflow ring
+  G8 ``hash_lookup``     the fast step's find-only probe + missing count
+  G9 ``compact_table``   table rebuild around the live keys, state moved
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -53,7 +56,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
-           "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu")
+           "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu",
+           "ring_append.cu", "hash_lookup.cu", "compact_table.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -63,11 +67,19 @@ _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P],
     "clear_rows": [_P, _P, _P, _P, _I, _I, _P],
-    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P],
     "fire_reduced": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fire_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P],
+    "ring_append": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P],
+    "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "compact_alive": [_P, _I, _I, _P, _P],
+    "compact_move": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "compact_export": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -278,20 +290,24 @@ clear_rows.launches = 0
 # ------------------------------------------------------------ G3
 
 def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live,
-                         slot, values, max_pane, *, C: int, R: int) -> None:
+                         slot, values, max_pane, *, C: int, R: int,
+                         count_nofit: bool = True) -> None:
     """Plain version of G3, in place. acc float32 [C*R, 2]; kg_dirty bool
     [G] or None; dropped_capacity int32 0-d; pane/kg int32 [B]; live bool
     [B]; slot int32 [B], the lane's state slot or C for none (the direct
     layout's key past capacity, the hash layout's key that found no slot);
     values float32 [B] or None (count: every lane adds 1.0); max_pane int32
-    0-d, already advanced."""
+    0-d, already advanced. Too-old lanes count into dropped_capacity, and
+    so do live lanes with no slot unless ``count_nofit`` is False (the
+    overflow ring took them)."""
     too_old = live & (pane < max_pane - (R - 1))
     live = live & ~too_old
     if kg_dirty is not None:
         kg_dirty[kg[live].long()] = True
     ok = live & (slot >= 0) & (slot < C)
     nofit = live & ~ok
-    dropped_capacity.add_((too_old.sum() + nofit.sum()).to(torch.int32))
+    n_nofit = nofit.sum() if count_nofit else 0
+    dropped_capacity.add_((too_old.sum() + n_nofit).to(torch.int32))
     flat = torch.remainder(pane.to(torch.int64), R) * C + slot.to(torch.int64)
     idx = 2 * flat[ok]
     flat_acc = acc.view(-1)
@@ -302,12 +318,13 @@ def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live,
 
 
 def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, slot,
-                   values, max_pane, *, C: int, R: int) -> None:
+                   values, max_pane, *, C: int, R: int,
+                   count_nofit: bool = True) -> None:
     """G3: see scatter_update_plain for the contract."""
     if _on_cpu(acc):
         return scatter_update_plain(acc, kg_dirty, dropped_capacity, pane,
                                     kg, live, slot, values, max_pane, C=C,
-                                    R=R)
+                                    R=R, count_nofit=count_nofit)
     dev = acc.device
     (B,) = pane.shape
     _check(acc, "acc", torch.float32, (C * R, 2), dev)
@@ -323,7 +340,7 @@ def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, slot,
     rc = build().scatter_update(
         _ptr(acc), _ptr(kg_dirty), _ptr(dropped_capacity), _ptr(pane),
         _ptr(kg), _ptr(live), _ptr(slot), _ptr(values), _ptr(max_pane), B,
-        C, R, _stream())
+        C, R, int(count_nofit), _stream())
     _raise_on(rc, "scatter_update")
     scatter_update.launches += 1
 
@@ -563,8 +580,221 @@ def fire_compact(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo, values,
 
 fire_compact.launches = 0
 
+# ------------------------------------------------------------ G7
+
+RING_CHUNK = 1024   # lanes per block of G7's and G9's ring scan (ring.cuh)
+
+
+def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
+    """Plain version of G7, in place. ring = (ovf_hi int32 [O], ovf_lo int32
+    [O], ovf_pane int32 [O], ovf_val float32 [O], ovf_n int32 0-d); lost
+    int32 0-d, gains the lanes that find the ring full; mask bool [B];
+    hi/lo int32 [B] (uint32 bits); pane int32 [B]; values float32 [B] or
+    None (a count: every lane contributes 1.0). The masked lanes go, in
+    lane order, to positions ovf_n, ovf_n + 1, ...; those at O or beyond
+    are lost; ovf_n = min(ovf_n + masked lanes, O)."""
+    ovf_hi, ovf_lo, ovf_pane, ovf_val, ovf_n = ring
+    O = ovf_hi.shape[0]
+    pos = ovf_n.to(torch.int64) + torch.cumsum(mask.to(torch.int64), 0) - 1
+    fits = mask & (pos < O)
+    idx = pos[fits]
+    ovf_hi[idx] = hi[fits]
+    ovf_lo[idx] = lo[fits]
+    ovf_pane[idx] = pane[fits]
+    ovf_val[idx] = values[fits] if values is not None else 1.0
+    n = mask.sum()
+    lost.add_((n - fits.sum()).to(torch.int32))
+    ovf_n.copy_(torch.clamp_max(ovf_n + n, O))
+
+
+def _check_ring(ring, dev) -> int:
+    ovf_hi, ovf_lo, ovf_pane, ovf_val, ovf_n = ring
+    (O,) = ovf_hi.shape
+    for t, n, dt in ((ovf_hi, "ovf_hi", torch.int32),
+                     (ovf_lo, "ovf_lo", torch.int32),
+                     (ovf_pane, "ovf_pane", torch.int32),
+                     (ovf_val, "ovf_val", torch.float32)):
+        _check(t, n, dt, (O,), dev)
+    _check(ovf_n, "ovf_n", torch.int32, (), dev)
+    return O
+
+
+def _ring_scratch(n: int, dev):
+    n_blk = max(1, -(-n // RING_CHUNK))
+    return (torch.empty(n_blk, dtype=torch.int32, device=dev),
+            torch.empty(n_blk, dtype=torch.int32, device=dev))
+
+
+def _ring_ptrs(ring, lost):
+    return [_ptr(t) for t in ring] + [_ptr(lost)]
+
+
+def ring_append(ring, lost, mask, hi, lo, pane, values) -> None:
+    """G7: see ring_append_plain for the contract."""
+    if _on_cpu(mask):
+        return ring_append_plain(ring, lost, mask, hi, lo, pane, values)
+    dev = mask.device
+    (B,) = mask.shape
+    O = _check_ring(ring, dev)
+    _check(lost, "lost", torch.int32, (), dev)
+    for t, n, dt in ((mask, "mask", torch.bool), (hi, "hi", torch.int32),
+                     (lo, "lo", torch.int32), (pane, "pane", torch.int32)):
+        _check(t, n, dt, (B,), dev)
+    if values is not None:
+        _check(values, "values", torch.float32, (B,), dev)
+    if O + B > INT32_MAX:
+        raise ValueError(f"ring of {O} lanes + {B} lanes overflows int32")
+    blk_count, blk_off = _ring_scratch(B, dev)
+    rc = build().ring_append(
+        _ptr(mask), _ptr(hi), _ptr(lo), _ptr(pane), _ptr(values), B, O,
+        *_ring_ptrs(ring, lost), _ptr(blk_count), _ptr(blk_off), _stream())
+    _raise_on(rc, "ring_append")
+    ring_append.launches += 1
+
+
+ring_append.launches = 0
+
+
+# ------------------------------------------------------------ G8
+
+def hash_lookup_plain(table, hi, lo, valid, *, probe_len: int):
+    """Plain version of G8: find a batch of keys without inserting. table
+    int64 [C] key words; hi/lo int32 [B] (uint32 bits); valid bool [B].
+    Returns (slot int32 [B], C where not found; found bool [B], False for
+    invalid lanes and the key EMPTY_WORD; n_missing int32 0-d, the valid
+    lanes not found)."""
+    C = table.shape[0]
+    key = key_words(hi, lo)
+    cand = probe_chain(hi, lo, C=C, probe_len=probe_len)
+    match = (table[cand] == key[:, None]) & (
+        valid & (key != EMPTY_WORD))[:, None]
+    found = match.any(dim=1)
+    at = torch.argmax(match.to(torch.int8), dim=1)
+    slot = torch.where(found, cand.gather(1, at[:, None])[:, 0], C)
+    n_missing = (valid & ~found).sum().to(torch.int32)
+    return slot.to(torch.int32), found, n_missing
+
+
+def hash_lookup(table, hi, lo, valid, *, probe_len: int):
+    """G8: see hash_lookup_plain for the contract."""
+    if _on_cpu(table):
+        return hash_lookup_plain(table, hi, lo, valid, probe_len=probe_len)
+    dev = table.device
+    (C,) = table.shape
+    (B,) = hi.shape
+    if C & (C - 1) or C == 0:
+        raise ValueError(f"table capacity must be a power of two, got {C}")
+    if probe_len < 1:
+        raise ValueError(f"probe_len must be >= 1, got {probe_len}")
+    _check(table, "table", torch.int64, (C,), dev)
+    for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                     (valid, "valid", torch.bool)):
+        _check(t, n, dt, (B,), dev)
+    slot = torch.empty(B, dtype=torch.int32, device=dev)
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    n_missing = torch.zeros((), dtype=torch.int32, device=dev)
+    rc = build().hash_lookup(_ptr(table), _ptr(hi), _ptr(lo), _ptr(valid), B,
+                             C, probe_len, _ptr(slot), _ptr(found),
+                             _ptr(n_missing), _stream())
+    _raise_on(rc, "hash_lookup")
+    hash_lookup.launches += 1
+    return slot, found, n_missing
+
+
+hash_lookup.launches = 0
+
+
+# ------------------------------------------------------------ G9
+
+def compact_alive_plain(acc, *, C: int, R: int) -> torch.Tensor:
+    """bool [C]: slots with a touched cell in any of the R ring rows."""
+    return (acc.view(R, C, 2)[:, :, 1] != 0).any(dim=0)
+
+
+def compact_move_plain(acc, slot, ok, *, C: int, R: int) -> torch.Tensor:
+    """A new packed plane [C*R, 2]: each ok slot c's R cells moved to
+    slot[c], the neutral 0 everywhere else."""
+    out = torch.zeros(R, C, 2, dtype=acc.dtype, device=acc.device)
+    out[:, slot[ok].long()] = acc.view(R, C, 2)[:, ok]
+    return out.view(C * R, 2)
+
+
+def compact_export_plain(acc, table, pane_ids, alive, ok, ring, lost, *,
+                         C: int, R: int) -> None:
+    """The touched cells of alive slots that are not ok, appended to the
+    ring as (key, pane, value) lanes in (row, slot) order (G7's contract;
+    lost lanes count into ``lost``)."""
+    a3 = acc.view(R, C, 2)
+    mask = ((a3[:, :, 1] != 0) & (alive & ~ok)[None, :]).reshape(-1)
+    hi, lo = split_words(table)
+    ring_append_plain(ring, lost, mask, hi.repeat(R), lo.repeat(R),
+                      pane_ids.repeat_interleave(C), a3[:, :, 0].reshape(-1))
+
+
+def compact_table_plain(acc, table, pane_ids, ring, lost, *, R: int,
+                        probe_len: int):
+    """Plain version of G9. acc float32 [C*R, 2] packed plane; table int64
+    [C] key words; pane_ids int32 [R]; ring the overflow ring (see
+    ring_append_plain) and lost int32 0-d, both updated in place. The alive
+    slots' keys go into a fresh table (G5's contract); each placed key's
+    cells move to its new slot; the touched cells of keys that find no
+    slot go to the ring. Returns (new acc, new table, slot int32 [C], ok
+    bool [C]): the old -> new slot map, slot C where not ok."""
+    C = table.shape[0]
+    alive = compact_alive_plain(acc, C=C, R=R)
+    new_table = torch.full_like(table, EMPTY_WORD)
+    hi, lo = split_words(table)
+    slot, ok, _ = hash_upsert_plain(new_table, hi, lo, alive,
+                                    probe_len=probe_len)
+    new_acc = compact_move_plain(acc, slot, ok, C=C, R=R)
+    compact_export_plain(acc, table, pane_ids, alive, ok, ring, lost, C=C,
+                         R=R)
+    return new_acc, new_table, slot, ok
+
+
+def compact_table(acc, table, pane_ids, ring, lost, *, R: int,
+                  probe_len: int):
+    """G9: see compact_table_plain for the contract. The re-insert is a G5
+    ``hash_upsert`` launch; a contested slot may go to another key than in
+    the plain version, so the two agree as sets (see hash_upsert_plain)."""
+    if _on_cpu(acc):
+        return compact_table_plain(acc, table, pane_ids, ring, lost, R=R,
+                                   probe_len=probe_len)
+    dev = acc.device
+    (C,) = table.shape
+    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    _check(table, "table", torch.int64, (C,), dev)
+    _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
+    O = _check_ring(ring, dev)
+    _check(lost, "lost", torch.int32, (), dev)
+    if O + C * R > INT32_MAX:
+        raise ValueError(f"ring of {O} lanes + {C * R} cells overflows int32")
+    lib = build()
+    alive = torch.empty(C, dtype=torch.bool, device=dev)
+    _raise_on(lib.compact_alive(_ptr(acc), C, R, _ptr(alive), _stream()),
+              "compact_table (alive)")
+    new_table = torch.full_like(table, EMPTY_WORD)
+    hi, lo = split_words(table)
+    slot, ok, _ = hash_upsert(new_table, hi, lo, alive, probe_len=probe_len)
+    inv = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    new_acc = torch.empty_like(acc)
+    _raise_on(lib.compact_move(_ptr(acc), _ptr(slot), _ptr(ok), C, R,
+                               _ptr(inv), _ptr(new_acc), _stream()),
+              "compact_table (move)")
+    blk_count, blk_off = _ring_scratch(C * R, dev)
+    _raise_on(lib.compact_export(
+        _ptr(acc), _ptr(alive), _ptr(ok), _ptr(table), _ptr(pane_ids), C, R,
+        O, *_ring_ptrs(ring, lost), _ptr(blk_count), _ptr(blk_off),
+        _stream()), "compact_table (export)")
+    compact_table.launches += 1
+    return new_acc, new_table, slot, ok
+
+
+compact_table.launches = 0
+
 KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced,
-           hash_upsert, fire_compact)
+           hash_upsert, fire_compact, ring_append, hash_lookup,
+           compact_table)
 
 
 def reset_launch_counts() -> None:

@@ -10,11 +10,13 @@ from the reference's rows at state carry-over only.
 
 A key's probe chain is the P slots ``(probe_hash(hi, lo) + j) & (C - 1)``,
 j < P, wrapping at C; the key sits in the first slot of its chain that was
-free when it arrived. ``lookup`` finds keys; ``upsert_counted`` inserts or
-finds them (G5 on the card). The key word equal to EMPTY — integer key -1 —
-is never found nor placed: its lanes drop as capacity loss, as in the
-reference. Point removal (the reference's ``remove_slots``) is not ported:
-only ``compact_table`` uses it (ROADMAP queue 2, K11).
+free when it arrived. ``lookup`` / ``lookup_counted`` find keys (G8 on the
+card); ``upsert_counted`` inserts or finds them (G5). The key word equal to
+EMPTY — integer key -1 — is never found nor placed: the window update
+takes its lanes to the overflow ring, or counts them as capacity loss
+without one, as the reference does. A slot is freed only by rebuilding
+the whole table (``window_kernels.compact_table``, G9); the reference's
+point removal ``remove_slots`` has no caller there and is not ported.
 """
 
 from __future__ import annotations
@@ -42,14 +44,16 @@ def lookup(table: torch.Tensor, hi, lo, *,
            probe_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Find the slots of a batch of keys (hi/lo int32 [B], uint32 bits).
     Returns (slot int32 [B], found bool [B]); unfound lanes get slot C."""
-    C = table.shape[0]
-    key = kernels.key_words(hi, lo)
-    cand = kernels.probe_chain(hi, lo, C=C, probe_len=probe_len)
-    match = (table[cand] == key[:, None]) & (key != EMPTY_WORD)[:, None]
-    found = match.any(dim=1)
-    at = torch.argmax(match.to(torch.int8), dim=1)
-    slot = cand.gather(1, at[:, None])[:, 0]
-    return torch.where(found, slot, C).to(torch.int32), found
+    valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    slot, found, _ = lookup_counted(table, hi, lo, valid, probe_len=probe_len)
+    return slot, found
+
+
+def lookup_counted(table: torch.Tensor, hi, lo, valid, *, probe_len: int):
+    """Find the keys of the valid lanes without inserting any (G8).
+    Returns (slot int32 [B], C where not found; found bool [B]; n_missing
+    int32 0-d on the device: valid lanes whose key is absent)."""
+    return kernels.hash_lookup(table, hi, lo, valid, probe_len=probe_len)
 
 
 def upsert_counted(table: torch.Tensor, hi, lo, valid, *, probe_len: int):

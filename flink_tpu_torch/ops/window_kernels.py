@@ -14,18 +14,23 @@ untouched), exactly the reference's packed layout, so states carry across
 word ``(hi << 32) | lo`` per slot; the reference's uint32 ``[C, 2]`` rows
 appear only at carry-over.
 
-The O(B) and O(C) work runs in the six kernels of ``ops/cuda.py``
-(G1-G6). The per-batch scalar bookkeeping — pane-ring registration, the
+Records whose key finds no slot (a key past capacity in the direct layout,
+a full probe chain or an absent key in the hash layout's lookup-only fast
+update) go to the overflow ring (``ovf_*``, ``WindowSpec.overflow`` lanes)
+when the spec has one; the executor drains it into its host spill stores
+and compacts the table (``compact_table``), as the reference does.
+
+The O(B) and O(C) work runs in the nine kernels of ``ops/cuda.py``
+(G1-G9). The per-batch scalar bookkeeping — pane-ring registration, the
 fire plan, the purge plan, watermark / fired_through / purged_through —
 stays on the device as small torch ops on 0-d, [R] and [F] tensors, so a
 drain never waits for the host between slots. State tensors are updated in
 place where the reference donated its buffers to XLA; every such update is
 marked "in place" below.
 
-Not ported yet (ROADMAP queues 1-2): the fast lookup-only update and the
-overflow ring and spill tier (K10), allowed lateness and its re-fires,
-``compact_table`` and the key-group counts (K11), split (unpacked) planes,
-min/max and generic reduces, and the slot-major accumulator layout.
+Not ported yet (ROADMAP queues 1-2): allowed lateness and its re-fires,
+the key-group counts (K11), split (unpacked) planes, min/max and generic
+reduces, and the slot-major accumulator layout.
 """
 
 from __future__ import annotations
@@ -71,15 +76,17 @@ class ReduceSpec:
 @dataclass(frozen=True)
 class WindowSpec:
     """Aligned time windows via pane composition (the reference's checks;
-    its allowed lateness, overflow ring and slot-major layout are not
-    ported). size_ticks must be a multiple of slide_ticks;
-    panes_per_window = size // slide (1 = tumbling); ring = R panes of
-    history; fires_per_step = F window-ends emitted per advance."""
+    its allowed lateness and slot-major layout are not ported). size_ticks
+    must be a multiple of slide_ticks; panes_per_window = size // slide
+    (1 = tumbling); ring = R panes of history; fires_per_step = F
+    window-ends emitted per advance; overflow = O lanes of the overflow
+    ring (0 = none: records that find no slot count as capacity loss)."""
 
     size_ticks: int
     slide_ticks: int
     ring: int = 8
     fires_per_step: int = 2
+    overflow: int = 0
 
     def __post_init__(self):
         if self.size_ticks % self.slide_ticks:
@@ -116,11 +123,11 @@ class WindowShardState:
     dropped_capacity: torch.Tensor  # int32 0-d counter (records lost)
     fresh: torch.Tensor             # bool [C*R]: never set at lateness 0
     n_fresh: torch.Tensor           # int32 0-d
-    ovf_hi: torch.Tensor            # int32 [0]: no overflow ring
-    ovf_lo: torch.Tensor            # int32 [0]
-    ovf_pane: torch.Tensor          # int32 [0]
-    ovf_val: torch.Tensor           # float32 [0]
-    ovf_n: torch.Tensor             # int32 0-d
+    ovf_hi: torch.Tensor            # int32 [O]: overflow ring, key hi bits
+    ovf_lo: torch.Tensor            # int32 [O]: key lo bits
+    ovf_pane: torch.Tensor          # int32 [O]
+    ovf_val: torch.Tensor           # float32 [O]: the record's contribution
+    ovf_n: torch.Tensor             # int32 0-d: filled lanes
     kg_dirty: torch.Tensor          # bool [n_key_groups] changelog bits
     layout: str = "direct"          # "direct" (key == slot) | "hash"
     probe_len: int = 16             # hash layout: slots per probe chain
@@ -132,6 +139,12 @@ class WindowShardState:
     @property
     def device(self) -> torch.device:
         return self.acc.device
+
+    @property
+    def ring(self):
+        """The overflow ring in the argument order of G7 and G9."""
+        return (self.ovf_hi, self.ovf_lo, self.ovf_pane, self.ovf_val,
+                self.ovf_n)
 
 
 # field order of the reference's WindowShardState.tree_flatten
@@ -174,6 +187,22 @@ class ReducedFires:
     value_sums: torch.Tensor        # float32 [F]
 
 
+def overflow_supported(red: ReduceSpec) -> bool:
+    """The overflow ring keeps raw record contributions that the host
+    combines, so it needs a builtin reduce the host can compute (every
+    reduce this port runs: sum and count)."""
+    return red.kind in ("sum", "count")
+
+
+def ring_append(ovf, mask, hi, lo, pane, vals, lost) -> None:
+    """Append the masked lanes (key halves hi/lo, pane, contribution
+    ``vals``, None for a count's 1.0) to the overflow ring ``ovf`` =
+    (ovf_hi, ovf_lo, ovf_pane, ovf_val, ovf_n) in lane order, in place
+    (G7; the reference's ``ring_append``). Lanes past the ring's end are
+    lost and added to ``lost`` (int32 0-d)."""
+    kernels.ring_append(ovf, lost, mask, hi, lo, pane, vals)
+
+
 def _scalar(v: int, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 
@@ -185,12 +214,18 @@ def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
     ``init_state(layout=..., packed=True)``). ``direct``: the table holds
     the identity rows (0, slot) and the key is its slot. ``hash``: an empty
     open-addressing table (capacity a power of two) probed ``probe_len``
-    slots deep. Every plane starts at the neutral."""
+    slots deep. Every plane starts at the neutral; the overflow ring has
+    ``win.overflow`` empty lanes."""
     R = win.ring
     if capacity * R > INT32_MAX:
         raise ValueError(
             f"accumulator of {capacity * R} rows overflows int32 indices"
         )
+    if win.overflow and not overflow_supported(red):
+        raise ValueError(
+            f"overflow ring requires a builtin scalar reduce, got "
+            f"kind={red.kind!r}")
+    O = win.overflow
     dev = torch.device(device)
     if layout == "direct":
         table = torch.arange(capacity, dtype=torch.int64, device=dev)
@@ -213,10 +248,10 @@ def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
         dropped_capacity=_scalar(0, dev),
         fresh=torch.zeros(capacity * R, dtype=torch.bool, device=dev),
         n_fresh=_scalar(0, dev),
-        ovf_hi=torch.zeros(0, **i32),
-        ovf_lo=torch.zeros(0, **i32),
-        ovf_pane=torch.zeros(0, **i32),
-        ovf_val=torch.zeros(0, dtype=torch.float32, device=dev),
+        ovf_hi=torch.zeros(O, **i32),
+        ovf_lo=torch.zeros(O, **i32),
+        ovf_pane=torch.full((O,), PANE_NONE, **i32),
+        ovf_val=torch.zeros(O, dtype=torch.float32, device=dev),
         ovf_n=_scalar(0, dev),
         kg_dirty=torch.zeros(n_key_groups, dtype=torch.bool, device=dev),
         layout=layout,
@@ -324,12 +359,11 @@ def _floor_div(a, b: int):
 def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
            hi, lo, ts, values, valid, *, maxp: int, kg_start: int = 0,
            kg_end: Optional[int] = None,
-           clear_rows: Optional[torch.Tensor] = None):
+           clear_rows: Optional[torch.Tensor] = None, insert: bool = True):
     """Apply one micro-batch to the shard state, in place (the reference's
-    ``update`` with packed planes, in the state's layout — ``direct``, or
-    ``hash`` with ``insert=True``; the result equals its state with
-    ``precombine`` on and off, up to which slot the hash table gives a key
-    where several keys race for one).
+    ``update`` with packed planes, in the state's layout; the result equals
+    its state with ``precombine`` on and off, up to which slot the hash
+    table gives a key where several keys race for one).
 
     hi/lo: int32 [B] holding the uint32 halves of the key identity; ts
     int32 [B] ticks; values float32 [B]; valid bool [B]. Routing is fused
@@ -339,10 +373,20 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     ``clear_rows`` (bool [R]) folds a deferred purge into the ring-reset
     sweep, as the reference does.
 
-    Returns ``(state, activity)``: ``activity`` (int32 0-d, on the device)
-    counts the lanes whose key the hash table did not hold before the batch
-    and holds after it (G5's ``n_new``); None in the direct layout, which
-    has no insert phase."""
+    In the hash layout ``insert=True`` places absent keys (G5);
+    ``insert=False`` is the reference's fast step, a lookup only (G8), for
+    a key population that has stopped growing. A live lane whose key has
+    no slot — a key past capacity in the direct layout, a full probe chain
+    or (fast step) an absent key in the hash layout — goes to the overflow
+    ring (G7) when ``win.overflow`` > 0, as (key, pane, contribution); it
+    is lost, and counted in ``dropped_capacity``, only when the ring is
+    full or absent.
+
+    Returns ``(state, activity)``, ``activity`` an int32 0-d tensor on the
+    device: the lanes whose key the table did not hold before the batch
+    and holds after it (insert step), or the live lanes whose key is
+    missing (fast step); 0 in the direct layout, which has no insert
+    phase to tier."""
     C = state.capacity
     R = win.ring
     k = win.panes_per_window
@@ -352,6 +396,10 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         raise ValueError(
             f"changelog group count {state.kg_dirty.numel()} != max "
             f"parallelism {maxp}")
+    if state.ovf_hi.numel() != win.overflow:
+        raise ValueError(
+            f"state has a {state.ovf_hi.numel()}-lane overflow ring, the "
+            f"spec {win.overflow}")
     # G1: routing mask, pane, late check, batch pane range
     pane, kg, live, stats = kernels.route_lanes(
         hi, lo, ts, valid, state.watermark, state.purged_through,
@@ -376,22 +424,52 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     state.pane_ids.copy_(torch.where(stale, p_r, state.pane_ids))  # in place
     state.max_pane.copy_(new_max)                                  # in place
     state.min_pane.copy_(new_min)                                  # in place
-    if state.layout == "hash":
-        # G5: place or find the keys of the lanes that survive the ring
-        # horizon (the reference upserts after its too-old drop)
-        inside = live & (pane >= state.max_pane - (R - 1))
+    # the lanes that survive the ring horizon (the reference looks keys up
+    # or places them, and spills them, after its too-old drop)
+    inside = live & (pane >= state.max_pane - (R - 1))
+    if state.layout == "direct":
+        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
+        activity = torch.zeros((), dtype=torch.int32, device=state.device)
+    elif insert:
+        # G5: place or find the keys
         slot, _ok, activity = hashtable.upsert_counted(
             state.table_keys, hi, lo, inside, probe_len=state.probe_len)
     else:
-        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
-        activity = None
+        # G8: find the keys, place none
+        slot, _ok, activity = hashtable.lookup_counted(
+            state.table_keys, hi, lo, inside, probe_len=state.probe_len)
+    count = red.kind == "count"
+    if win.overflow:
+        # G7: the lanes with no slot go to the overflow ring
+        ring_append(state.ring, inside & (slot == C), hi, lo, pane,
+                    None if count else values, state.dropped_capacity)
     # G3: too-old drop, scatter at the slot into the plane, kg_dirty
     kernels.scatter_update(
         state.acc, state.kg_dirty if state.kg_dirty.numel() else None,
         state.dropped_capacity, pane, kg, live, slot,
-        values if red.kind == "sum" else None, state.max_pane, C=C, R=R,
+        None if count else values, state.max_pane, C=C, R=R,
+        count_nofit=not win.overflow,
     )
     return state, activity
+
+
+def compact_table(state: WindowShardState, win: WindowSpec,
+                  red: ReduceSpec) -> WindowShardState:
+    """Rebuild the hash layout's key table around the keys that still hold
+    pane state (G9; the reference's ``compact_table``). A table never
+    frees a slot, so a stream whose keys churn fills it with dead keys;
+    the executor runs this after it drained the overflow ring. The alive
+    keys go into a fresh table and their pane cells move with them; the
+    touched cells of a key that finds no slot in the new arrangement go to
+    the overflow ring, and count as lost only when the ring is full. The
+    state's table and plane are replaced by the rebuilt ones."""
+    if state.layout != "hash":
+        raise ValueError("compact_table rebuilds a hash-layout table; the "
+                         "direct layout's slot is its key")
+    state.acc, state.table_keys, _slot, _ok = kernels.compact_table(
+        state.acc, state.table_keys, state.pane_ids, state.ring,
+        state.dropped_capacity, R=win.ring, probe_len=state.probe_len)
+    return state
 
 
 # ------------------------------------------------------------ fire

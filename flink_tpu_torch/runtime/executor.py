@@ -25,6 +25,24 @@ checkpointing:
      ``WindowResult(key, window_end_ms, value)`` rows, keys decoded;
   8. at end of stream, flush with the MAX watermark.
 
+The spill tier (the reference's, executor.py:4609-4840, 5040-5080): a
+record whose key finds no state slot (a key past capacity in the direct
+layout, a full probe chain in the hash layout) goes to the device overflow
+ring, auto-sized as the reference sizes it unless
+``state.backend.overflow-ring`` sets it (0: no ring, strict capacity).
+With a ring, every drain returns the ring's fill after each slot with its
+fires; when it is above 0, the host reads the ring and folds it into one
+``SpillStore`` per pane — slot by slot, each slot's share before that
+slot's fires are emitted, so a window merges exactly the records that
+reached the card before it fired — and merges the stores into every row
+it emits: a key on both sides is combined, a key only in the stores adds
+a row. It then compacts a hash table (the dead keys' slots are freed; a
+live key that no longer fits moves its state to the ring, which is read
+again) and drops the stores of purged panes. With a ring and a hash
+table, the executor also tiers its steps as the reference does: the
+insert drain while new keys are placed, the lookup-only fast drain
+(G8) once two drains in a row placed none, back on a miss.
+
 The state layout follows ``state.backend.layout`` as the reference's does:
 ``auto`` takes the direct layout (key == slot) when the first batch's key
 identities all fit ``[0, state capacity)``, else the hash table.
@@ -37,22 +55,18 @@ between them, and a jump of two or more panes between polls fires the
 windows it would otherwise evict first — both as the reference does.
 
 Anything else — another topology, processing time, allowed lateness,
-checkpoints, parallelism above 1, an operator after the window, the
-overflow ring — raises NotImplementedError naming the ROADMAP queue item
-that brings it. Records that find no state slot (a key past capacity in
-the direct layout, a full probe chain in the hash layout) count into
-``dropped_capacity``. With ``state.backend.overflow-ring: 0`` (strict
-capacity) the job then fails at its end with the reference's "state
-backend over capacity" error. With the ring unset the reference would
-take them into its spill tier, which is not ported: the job raises
-NotImplementedError at the first drain that shows a drop.
+checkpoints, parallelism above 1, an operator after the window —
+raises NotImplementedError naming the ROADMAP queue item that brings it.
+Records lost to capacity (no ring, a full ring, or panes evicted from the
+pane ring unfired) count into ``dropped_capacity``, and the job fails at
+its end with the reference's "state backend over capacity" error.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import namedtuple
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -61,17 +75,31 @@ from flink_tpu_torch.core.time import MAX_TS, TimeCharacteristic, TimeDomain
 from flink_tpu_torch.core.types import KeyCodec
 from flink_tpu_torch.datastream.window.assigners import WindowAssigner
 from flink_tpu_torch.graph import stream_graph as sg
+from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
     build_window_resident_drain,
+    clear_overflow,
+    compact_step,
     fire_only,
     init_shard_state,
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 
 WindowResult = namedtuple("WindowResult", ["key", "window_end_ms", "value"])
+
+# The reference samples the ring's fill and the step activity every
+# MON_EVERY micro-batches and reads a sample OVF_LAG samples late; its auto
+# ring absorbs the full-batch overflow of that window. The port reads each
+# drain's fill and activity with the drain's fires, one drain late, and
+# sizes the ring by the same formula.
+MON_EVERY = 8
+OVF_LAG = 1
+# consecutive drains that placed no key before the insert step gives way
+# to the lookup-only fast step
+TIER_QUIET_CHECKS = 2
 
 
 @dataclasses.dataclass
@@ -81,6 +109,11 @@ class JobMetrics:
     steps: int = 0              # micro-batches applied
     resident_drains: int = 0    # drain dispatches (each up to ring depth)
     fire_steps: int = 0         # watermark-only fire advances
+    steps_fast: int = 0         # micro-batches run on the fast step
+    ring_drains: int = 0        # overflow ring reads into the spill stores
+    compactions: int = 0        # hash-table rebuilds (G9)
+    spilled_records: int = 0    # ring lanes folded into the spill stores
+    spill_peak_keys: int = 0    # most (pane, key) entries the stores held
     dropped_late: int = 0
     dropped_capacity: int = 0
 
@@ -208,9 +241,6 @@ def _check_config(cfg) -> None:
     if layout not in ("auto", "hash", "direct"):
         raise ValueError(
             f"state.backend.layout must be auto|hash|direct, got {layout!r}")
-    if cfg.get_int("state.backend.overflow-ring", -1) > 0:
-        raise _unsupported("the overflow ring and spill tier",
-                           "ROADMAP queue 2, K10")
     if cfg.get_int("state.tiers.resident-key-groups", 0) > 0:
         raise _unsupported("tiered key-group state",
                            "ROADMAP queue 1, item 11")
@@ -238,11 +268,26 @@ class _WindowJob:
         )
         self.B = env.batch_size
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
-        # the reference's emit modes (executor.py:5025-5035): reduced on
-        # the device when every sink only wants aggregates, else rows —
-        # columnar when every sink takes columns, else WindowResult rows
-        self.reduced = all(getattr(s, "device_reduce", False)
-                           for s in pipe.sinks)
+        # the spill tier needs a reduce the host can combine; every other
+        # precondition of the reference's (float32 scalar values, allowed
+        # lateness 0, one stage) holds for each job this port runs
+        self.spillable = wk.overflow_supported(self.red)
+        self.ovf_cfg = cfg.get_int("state.backend.overflow-ring", -1)
+        if self.ovf_cfg > 0 and not self.spillable:
+            raise ValueError(
+                "state.backend.overflow-ring is set but this window stage "
+                "cannot use the spill tier (requires a builtin float32 "
+                "sum/count reduce and allowed lateness 0); unset it to run "
+                "with strict capacity")
+        self.has_ring = self.spillable and self.ovf_cfg != 0
+        # the reference's emit modes (executor.py:2104-2108, 5025-5035):
+        # the drains reduce on the device only when every sink wants only
+        # aggregates and the stage has no overflow ring (a spill merge needs
+        # per-key rows); else rows — columnar when every sink takes
+        # columns, else WindowResult rows
+        self.sink_device_reduce = all(getattr(s, "device_reduce", False)
+                                      for s in pipe.sinks)
+        self.reduced = self.sink_device_reduce and not self.has_ring
         self.columnar = all(getattr(s, "columnar", False)
                             for s in pipe.sinks)
         self.codec = KeyCodec()
@@ -250,19 +295,25 @@ class _WindowJob:
         # has no checkpoint key map), so columnar-only jobs skip its cost
         self.keep_reverse = (cfg.get_bool("keys.reverse-map", True)
                              and not self.columnar)
-        # unset (-1) = the reference's spill tier would absorb keys that
-        # find no slot; 0 = strict capacity
-        self.spill = cfg.get_int("state.backend.overflow-ring", -1) < 0
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
         self.spec: Optional[WindowStageSpec] = None
         self.state: Optional[wk.WindowShardState] = None
         self.ring: Optional[DeviceBatchRing] = None
         self.drain = None
+        self.fast_drain = None       # the lookup-only variant (hash + ring)
         self.staged = 0              # slots staged for the next drain
         self.staged_wm: List[int] = []
-        self.pending = None          # (fires, count, last wm) unread
+        self.pending = None          # (fires, count, last wm, mon) unread
         self.applied_max_pane: Optional[int] = None
+        # the spill tier's host half: pane -> SpillStore of key -> value
+        self.stores: Dict[int, SpillStore] = {}
+        # step tiering (executor.py:1796-1810, 4674-4722)
+        self.step_mode = "insert"
+        self.tier_quiet = 0          # consecutive drains that placed no key
+        self.miss_tolerance = 0      # fast-step misses that keep it fast
+        self.bounce_miss = 0         # misses that sent it back to insert
+        self.bounce_placed = False   # did that insert period place a key
 
     # -- setup on the first batch ------------------------------------------
     def setup(self, origin_ms: int, hi: np.ndarray, lo: np.ndarray) -> None:
@@ -279,18 +330,28 @@ class _WindowJob:
         ring = ring_cfg or max(
             8, 2 * ppw + self.wm_strategy.out_of_orderness_ms // self.slide_ms
             + 2)
+        # overflow ring (executor.py:1854-1900): unset (-1) = auto, sized to
+        # absorb the full-batch overflow of the lagged detection window;
+        # 0 = none; an explicit size wins
+        ovf = 0
+        if self.spillable:
+            grp_k = self.depth
+            stride = -(-MON_EVERY // grp_k) * grp_k
+            auto = (stride * (OVF_LAG + 1) + 4 + grp_k) * self.B + 8192
+            ovf = self.ovf_cfg if self.ovf_cfg >= 0 else auto
         capacity = env.state_capacity_per_shard
         layout = cfg.get_str("state.backend.layout", "auto")
         if layout == "auto":
-            # direct only when the first batch's identities fit [0, C)
-            # (executor.py:1925-1936, 5952-5965; every stage this port runs
-            # is spillable there)
+            # direct only when the first batch's identities fit [0, C) and
+            # the spill tier can take later keys that do not
+            # (executor.py:1925-1936, 5952-5965)
             fits = (int(hi.max(initial=0)) == 0
                     and int(lo.max(initial=0)) < capacity)
-            layout = "direct" if fits else "hash"
+            layout = "direct" if fits and self.spillable else "hash"
         win = wk.WindowSpec(
             size_ticks=self.size_ms, slide_ticks=self.slide_ms, ring=ring,
             fires_per_step=cfg.get_int("window.fires-per-step", 4),
+            overflow=ovf,
         )
         self.td = TimeDomain(origin_ms=origin_ms, ms_per_tick=1)
         self.spec = WindowStageSpec(
@@ -300,6 +361,11 @@ class _WindowJob:
         self.ring = DeviceBatchRing(self.depth, self.B, self.device)
         self.drain = build_window_resident_drain(
             self.spec, self.depth, self.maxp, reduced=self.reduced)
+        if ovf and layout == "hash":
+            # the reference's build_fast (executor.py:2053-2072)
+            self.fast_drain = build_window_resident_drain(
+                self.spec, self.depth, self.maxp, reduced=self.reduced,
+                insert=False, arena=self.drain.arena)
 
     def wm_ticks(self, wm_ms: int) -> int:
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
@@ -397,30 +463,37 @@ class _WindowJob:
 
     # -- drains and fires --------------------------------------------------
     def dispatch(self) -> None:
-        """Queue one resident drain over the staged slots. The previous
-        drain's fires are read first: they may call for watermark-only
-        fires that must precede this drain's updates."""
+        """Queue one resident drain over the staged slots, on the fast step
+        when the tiering chose it. The previous drain's fires are read
+        first: they may call for watermark-only fires that must precede
+        this drain's updates, and they settle the tier."""
         if not self.staged:
             return
         self.consume()
         count = self.staged
         slots = self.ring.slots(count)
-        self.state, fires = self.drain(self.state, slots, self.ring.wmv,
+        fast = self.step_mode == "fast"
+        drain = self.fast_drain if fast else self.drain
+        self.state, mon, fires = drain(self.state, slots, self.ring.wmv,
                                        count)
         self.ring.release(count)
-        self.pending = (fires, count, self.staged_wm[-1])
+        self.pending = (fires, count, self.staged_wm[-1], mon)
         self.staged = 0
         self.staged_wm = []
         self.metrics.resident_drains += 1
+        if fast:
+            self.metrics.steps_fast += count
 
     def consume(self) -> None:
-        """Read the last drain's fires (the one host sync per drain), emit
-        them, and fire any window-ends its F lanes left due."""
+        """Read the last drain's fires, ring fills and activity (the one
+        host sync per drain), settle the step tier, emit the fires with the
+        ring's records folded in, and fire any window-ends its F lanes left
+        due."""
         if self.pending is None:
             return
-        fires, count, last_wm = self.pending
+        fires, count, last_wm, mon = self.pending
         self.pending = None
-        n_now = self.emit(fires)
+        n_now = self.emit(fires, mon)
         if int(n_now[count - 1]) == self.spec.win.fires_per_step:
             self.fire_until_done(last_wm)
 
@@ -432,75 +505,117 @@ class _WindowJob:
                           device=self.device)
         F = self.spec.win.fires_per_step
         # compact rows go to the drain's arena slot 0: every drain's rows
-        # were read by the consume above
-        out = None if self.reduced else self.drain.arena_rows(0)
+        # were read by the consume above. The ring was drained there too,
+        # so whether the stores exist is fixed for the loop
+        reduced = self.reduced or (self.sink_device_reduce
+                                   and not self.stores)
+        out = None if reduced else self.drain.arena_rows(0)
         while True:
             self.state, fires = fire_only(self.state, self.spec, wm,
-                                          reduced=self.reduced, out=out)
+                                          reduced=reduced, out=out)
             self.metrics.fire_steps += 1
             if int(self.emit(fires).reshape(-1)[0]) < F:
                 return
 
-    def emit(self, fires) -> np.ndarray:
+    def emit(self, fires, mon=None) -> np.ndarray:
         """Emit one [D, F] (or [F]) fire payload with one device->host read
-        of its small fields (and, for rows, one more of the row prefixes).
-        Returns n_fires per slot."""
+        of its small fields — with a drain's, also its ``mon``: the ring's
+        fill after each slot and the drain's activity — and, when rows are
+        needed, one more of the row prefixes and one of the ring. Returns
+        n_fires per slot."""
         st = self.state
+        n_slots = fires.n_fires.numel()
+        if mon is None:
+            # a watermark-only fire adds nothing to the ring and has no
+            # activity (the value read in its place is not used)
+            fills, activity = st.ovf_n.reshape(1), st.ovf_n
+        else:
+            fills, activity = mon
         small = torch.cat([
             fires.n_fires.reshape(-1).to(torch.float64),
-            st.dropped_capacity.reshape(1).to(torch.float64),
+            st.purged_through.reshape(1).to(torch.float64),
+            activity.reshape(1).to(torch.float64),
+            fills.reshape(-1).to(torch.float64),
             fires.counts.reshape(-1).to(torch.float64),
             fires.lane_valid.reshape(-1).to(torch.float64),
             fires.window_end_ticks.reshape(-1).to(torch.float64),
             fires.value_sums.reshape(-1).to(torch.float64),
         ]).cpu().numpy()
-        n_slots = fires.n_fires.numel()
         F = self.spec.win.fires_per_step
         n_now = small[:n_slots].astype(np.int64)
-        dropped = int(small[n_slots])
+        purged_through = int(small[n_slots])
+        act = int(small[n_slots + 1])
+        at = n_slots + 2
+        fills = small[at:at + n_slots].astype(np.int64)
         counts, lanes, ends, vsums = (
-            small[n_slots + 1:].reshape(4, n_slots, F))
-        if dropped and self.spill:
-            raise _unsupported(
-                f"{dropped} records lost to state capacity: the spill "
-                f"tier, which takes records whose key finds no state slot "
-                f"(set state.backend.overflow-ring: 0 for strict capacity),",
-                "ROADMAP queue 1, item 8")
+            small[at + n_slots:].reshape(4, n_slots, F))
         counts = (counts * lanes).astype(np.int64)
-        if self.reduced:
-            n = int(counts.sum())
-            if n:
-                self.metrics.fires += n
-                for s in self.pipe.sinks:
-                    s.invoke_reduced(n, float((vsums * lanes).sum()))
-        elif counts.any():
-            self.emit_rows(fires, counts, ends.astype(np.int64))
+        lanes = lanes.astype(bool)
+        ends = ends.astype(np.int64)
+        if mon is not None and self.fast_drain is not None:
+            self.tier(act)
+        n_ring = int(fills[-1])
+        if self.reduced or not (self.stores or n_ring):
+            # aggregates only, or rows with no spill to merge (the
+            # reference's emit_fires shortcut for device-reduce sinks)
+            if self.sink_device_reduce:
+                n = int(counts.sum())
+                if n:
+                    self.metrics.fires += n
+                    for s in self.pipe.sinks:
+                        s.invoke_reduced(n, float((vsums * lanes).sum()))
+            elif counts.any():
+                self.emit_rows(fires, counts, lanes, ends, fills, None)
+        else:
+            ring = self.read_ring(n_ring) if n_ring else None
+            self.emit_rows(fires, counts, lanes, ends, fills, ring)
+        if n_ring:
+            self.after_ring_drain()
+        self.prune_stores(purged_through)
         return n_now
 
     def emit_rows(self, fires: wk.CompactFires, counts: np.ndarray,
-                  ends: np.ndarray) -> None:
+                  lanes: np.ndarray, ends: np.ndarray, fills: np.ndarray,
+                  ring) -> None:
         """Read the ``[:count]`` row prefixes of every (slot, lane) in one
-        batched read, then hand each slot's rows to the sinks."""
+        batched read, then for each slot fold its share of the ``ring``
+        rows (host arrays of the ring's ``[:fills[-1]]`` lanes) into the
+        spill stores and hand its rows, merged with the stores, to the
+        sinks."""
         n_slots, F = counts.shape
-        khi = fires.key_hi.reshape(n_slots, F, -1)
-        klo = fires.key_lo.reshape(n_slots, F, -1)
-        vals = fires.values.reshape(n_slots, F, -1).view(torch.int32)
         parts = [(d, f, int(counts[d, f])) for d in range(n_slots)
                  for f in range(F) if counts[d, f]]
-        rows = torch.cat([
-            torch.cat([khi[d, f, :n], klo[d, f, :n], vals[d, f, :n]])
-            for d, f, n in parts]).cpu().numpy()
         by_slot = {}
-        at = 0
-        for d, f, n in parts:
-            r = rows[at:at + 3 * n]
-            at += 3 * n
-            by_slot.setdefault(d, []).append((
-                r[:n].view(np.uint32), r[n:2 * n].view(np.uint32),
-                r[2 * n:].view(np.float32),
-                np.full(n, self.td.to_ms(int(ends[d, f])), np.int64)))
-        for d in sorted(by_slot):
-            self.emit_slot(*(np.concatenate(c) for c in zip(*by_slot[d])))
+        if parts:
+            khi = fires.key_hi.reshape(n_slots, F, -1)
+            klo = fires.key_lo.reshape(n_slots, F, -1)
+            vals = fires.values.reshape(n_slots, F, -1).view(torch.int32)
+            rows = torch.cat([
+                torch.cat([khi[d, f, :n], klo[d, f, :n], vals[d, f, :n]])
+                for d, f, n in parts]).cpu().numpy()
+            at = 0
+            for d, f, n in parts:
+                r = rows[at:at + 3 * n]
+                at += 3 * n
+                by_slot.setdefault(d, []).append((
+                    r[:n].view(np.uint32), r[n:2 * n].view(np.uint32),
+                    r[2 * n:].view(np.float32),
+                    np.full(n, self.td.to_ms(int(ends[d, f])), np.int64)))
+        prev = 0
+        for d in range(n_slots):
+            if ring is not None and fills[d] > prev:
+                self.fold_ring(*(a[prev:fills[d]] for a in ring))
+                prev = int(fills[d])
+            cols = [np.concatenate(c) for c in zip(*by_slot[d])] \
+                if d in by_slot else None
+            due = sorted({int(e) for e in ends[d][lanes[d]]})
+            if self.stores and due:
+                if cols is None:
+                    cols = [np.zeros(0, np.uint32), np.zeros(0, np.uint32),
+                            np.zeros(0, np.float32), np.zeros(0, np.int64)]
+                cols = self.merge_spill(*cols, due)
+            if cols is not None and len(cols[2]):
+                self.emit_slot(*cols)
 
     def emit_slot(self, khi, klo, values, end_ms) -> None:
         n = len(values)
@@ -518,10 +633,147 @@ class _WindowJob:
         for s in self.pipe.sinks:
             s.invoke_batch(out)
 
+    # -- the spill tier ----------------------------------------------------
+    def tier(self, act: int) -> None:
+        """The reference's step tiering (check_overflow_pressure): the
+        insert step while keys are being placed; after TIER_QUIET_CHECKS
+        drains that placed none, the fast step; back on a fast drain whose
+        misses pass the tolerance. An insert period that placed nothing
+        proves those misses were keys no chain can take, so their count
+        becomes the fast step's tolerance (reset at each ring drain, since
+        a compaction may change what fits)."""
+        if self.step_mode == "insert":
+            if act == 0:
+                self.tier_quiet += 1
+                if self.tier_quiet >= TIER_QUIET_CHECKS:
+                    self.step_mode = "fast"
+                    if self.bounce_miss and not self.bounce_placed:
+                        self.miss_tolerance = max(self.miss_tolerance,
+                                                  self.bounce_miss)
+                    self.bounce_miss = 0
+            else:
+                self.tier_quiet = 0
+                self.bounce_placed = True
+        elif act > self.miss_tolerance:
+            self.step_mode = "insert"
+            self.tier_quiet = 0
+            self.bounce_miss = act
+            self.bounce_placed = False
+
+    def read_ring(self, n: int):
+        """The ring's first ``n`` lanes as host arrays (key word uint64,
+        pane int64, value float32), in one read."""
+        st = self.state
+        raw = torch.cat([st.ovf_hi[:n], st.ovf_lo[:n], st.ovf_pane[:n],
+                         st.ovf_val[:n].view(torch.int32)]).cpu().numpy()
+        hi, lo, pane, val = raw.reshape(4, n)
+        k64 = (hi.view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+            lo.view(np.uint32).astype(np.uint64)
+        return k64, pane.astype(np.int64), val.view(np.float32)
+
+    def fold_ring(self, k64, panes, vals) -> None:
+        """Fold ring lanes into the per-pane stores (the reference's
+        _merge_ring_into_stores): each pane's contributions summed per key
+        in lane order, then added to what the store holds."""
+        self.metrics.spilled_records += len(k64)
+        for p in np.unique(panes):
+            sel = panes == p
+            uk, inv = np.unique(k64[sel], return_inverse=True)
+            agg = np.zeros(len(uk), np.float32)
+            np.add.at(agg, inv, vals[sel])
+            store = self.stores.get(int(p))
+            if store is None:
+                store = self.stores[int(p)] = SpillStore(
+                    width=1, initial_capacity=1024)
+            old, found = store.get(uk)
+            store.put(uk, np.where(found, old[:, 0] + agg, agg))
+        self.metrics.spill_peak_keys = max(
+            self.metrics.spill_peak_keys,
+            sum(len(s) for s in self.stores.values()))
+
+    def after_ring_drain(self) -> None:
+        """The ring has been folded into the stores: clear it, and compact
+        a hash table (the reference's drain_overflow). A live key that the
+        rebuilt table cannot take moves its cells to the ring, which is
+        folded at once; they belong to windows that have not fired yet."""
+        st = clear_overflow(self.state)
+        self.metrics.ring_drains += 1
+        self.miss_tolerance = 0
+        if self.spec.layout != "hash":
+            return
+        self.state = compact_step(st, self.spec)
+        self.metrics.compactions += 1
+        n = int(self.state.ovf_n)
+        if n:
+            self.fold_ring(*self.read_ring(n))
+            clear_overflow(self.state)
+
+    def spill_window_contrib(self, end_pane: int):
+        """The stores' combined contributions to the window ending at pane
+        ``end_pane`` (its k panes): (sorted unique keys uint64, values
+        float32)."""
+        k = self.spec.win.panes_per_window
+        ks_l, vs_l = [], []
+        for q in range(end_pane - k + 1, end_pane + 1):
+            store = self.stores.get(q)
+            if store is None or len(store) == 0:
+                continue
+            ks, vs = store.dump()
+            ks_l.append(ks)
+            vs_l.append(vs[:, 0])
+        if not ks_l:
+            return np.zeros(0, np.uint64), np.zeros(0, np.float32)
+        uk, inv = np.unique(np.concatenate(ks_l), return_inverse=True)
+        agg = np.zeros(len(uk), np.float32)
+        np.add.at(agg, inv, np.concatenate(vs_l))
+        return uk, agg
+
+    def merge_spill(self, khi, klo, values, end_ms, due_end_ticks):
+        """Merge the stores into one slot's emission (the reference's
+        _merge_spill): a key present on both sides is combined, a key only
+        in the stores adds a row for each due window end (every lane here
+        is on time)."""
+        slide = self.spec.win.slide_ticks
+        k64 = (khi.astype(np.uint64) << np.uint64(32)) | klo.astype(
+            np.uint64)
+        v = values.astype(np.float32, copy=True)
+        add = []
+        for e_ticks in due_end_ticks:
+            uk, uv = self.spill_window_contrib(e_ticks // slide - 1)
+            if not len(uk):
+                continue
+            e_ms = self.td.to_ms(e_ticks)
+            sel = np.nonzero(end_ms == e_ms)[0]
+            pos = np.minimum(np.searchsorted(uk, k64[sel]), len(uk) - 1)
+            hit = uk[pos] == k64[sel]
+            v[sel[hit]] += uv[pos[hit]]
+            only = np.ones(len(uk), bool)
+            only[pos[hit]] = False
+            if only.any():
+                ks = uk[only]
+                add.append(((ks >> np.uint64(32)).astype(np.uint32),
+                            (ks & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                            uv[only], np.full(len(ks), e_ms, np.int64)))
+        if add:
+            khi, klo, v, end_ms = (
+                np.concatenate([a] + list(b))
+                for a, b in zip((khi, klo, v, end_ms), zip(*add)))
+        return khi, klo, v, end_ms
+
+    def prune_stores(self, purged_through: int) -> None:
+        """Drop the stores of panes the card has purged (the reference's
+        prune_stores): every window holding them has fired and emitted,
+        and a later record of such a pane is late."""
+        for q in [q for q in self.stores if q <= purged_through]:
+            self.stores.pop(q).close()
+
     # -- end of job --------------------------------------------------------
     def finish(self, job_name: str) -> JobHandle:
         m = self.metrics
         st = self.state
+        for store in self.stores.values():
+            store.close()
+        self.stores = {}
         if st is not None:
             m.dropped_late = int(st.dropped_late)
             m.dropped_capacity = int(st.dropped_capacity)

@@ -46,14 +46,16 @@ def init_shard_state(spec: WindowStageSpec, max_parallelism: int,
 
 def mask_update_shard(state: wk.WindowShardState, spec: WindowStageSpec,
                       kg_start: int, kg_end: int, hi, lo, ts, values, valid,
-                      wm, maxp: int, clear_rows=None):
+                      wm, maxp: int, clear_rows=None, insert: bool = True):
     """Per-shard body of the mask route: hash to key groups, mask to the
-    owned groups, apply the window update (G1-G3, and G5 in the hash
-    layout), then advance the shard watermark to ``wm`` (int32 0-d) — in
-    place. Returns ``(state, activity)`` as ``update`` does."""
+    owned groups, apply the window update (G1-G3; G5 or G8 in the hash
+    layout; G7 with an overflow ring), then advance the shard watermark to
+    ``wm`` (int32 0-d) — in place. Returns ``(state, activity)`` as
+    ``update`` does."""
     state, activity = wk.update(state, spec.win, spec.red, hi, lo, ts,
                                 values, valid, maxp=maxp, kg_start=kg_start,
-                                kg_end=kg_end, clear_rows=clear_rows)
+                                kg_end=kg_end, clear_rows=clear_rows,
+                                insert=insert)
     torch.maximum(state.watermark, wm, out=state.watermark)      # in place
     return state, activity
 
@@ -86,9 +88,12 @@ def _skip_fires(F: int, device, rows=None):
 
 
 def build_window_resident_drain(spec: WindowStageSpec, depth: int,
-                                max_parallelism: int, reduced: bool = True):
+                                max_parallelism: int, reduced: bool = True,
+                                insert: bool = True, arena=None):
     """Device-resident ring drain for one device (the reference's
-    ``build_window_resident_drain`` at one shard).
+    ``build_window_resident_drain`` at one shard). ``insert=False`` builds
+    the fast variant, whose hash-layout updates look keys up and place
+    none (the reference's ``build_fast``, executor.py:2053-2072).
 
     ``drain(state, slots, wmv, count)``: ``slots`` is a sequence of
     ``depth`` staged batches ``(hi, lo, ticks, values, valid)`` (int32,
@@ -99,30 +104,39 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     folded into the ring-reset sweep, advances the watermark and fires
     up to F window-ends; slots past ``count`` are skipped and yield zero
     fires. The last deferred purge is applied at the end. Returns
-    ``(state, fires)`` with ``fires`` stacked [depth, F]; the state is
-    updated in place. Nothing is read back to the host.
+    ``(state, (ovf_n, activity), fires)``: ``ovf_n`` int32 [depth], the
+    overflow ring's fill after each slot's update (the last live slot's
+    repeated past ``count``; its last entry is the fill after the drain),
+    ``activity`` int32 0-d, the summed activity of the updates (see
+    ``update``), both on the device, and ``fires`` stacked [depth, F];
+    the state is updated in place. Nothing is read back to the host.
 
     ``reduced=True``: ReducedFires, per-lane (count, value sum) reduced on
     the device (G4). ``reduced=False``: CompactFires (G6), whose rows land
     in one [depth, F, C] arena allocated at the drain's first call and
     reused by every later one, D·F·C·12 bytes: a drain's rows must be read
     before the next drain (or ``fire_only`` with ``out=arena_rows(0)``)
-    runs."""
+    runs. ``arena`` shares another drain's (``drain.arena``) so that the
+    insert and fast variants of one stage hold one."""
     D = int(depth)
     F = spec.win.fires_per_step
     kg_end = max_parallelism - 1
-    rows = None     # the compact drain's (key_hi, key_lo, values) arena
+    # the compact drains' (key_hi, key_lo, values) arena, made at first use
+    arena = [None] if arena is None else arena
 
     def drain(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
               count: int):
         if len(slots) < count or count > D:
             raise ValueError(f"{count} live slots for a depth-{D} drain "
                              f"with {len(slots)} staged")
-        nonlocal rows
-        if not reduced and rows is None:
-            rows = wk.fire_row_buffers(D, F, state.capacity, state.device)
+        if not reduced and arena[0] is None:
+            arena[0] = wk.fire_row_buffers(D, F, state.capacity,
+                                           state.device)
+        rows = None if reduced else arena[0]
         pend = None
         fires = []
+        fills = []
+        activity = torch.zeros((), dtype=torch.int32, device=state.device)
         for i in range(D):
             slot_rows = None if rows is None else tuple(r[i] for r in rows)
             if i >= count:
@@ -130,20 +144,28 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                 continue
             hi, lo, ts, values, valid = slots[i]
             wm = wmv[i]
-            mask_update_shard(state, spec, 0, kg_end, hi, lo, ts, values,
-                              valid, wm, max_parallelism, clear_rows=pend)
+            _st, act = mask_update_shard(
+                state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
+                max_parallelism, clear_rows=pend, insert=insert)
+            activity += act
+            fills.append(state.ovf_n.clone())
             state, pend, fr = wk.advance_and_fire_resident(
                 state, spec.win, spec.red, wm, reduced=reduced,
                 out=slot_rows)
             fires.append(fr)
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
-        return state, _stack_fires(fires, rows)
+        if not fills:
+            fills.append(state.ovf_n.clone())
+        fills += fills[-1:] * (D - len(fills))
+        return (state, (torch.stack(fills), activity),
+                _stack_fires(fires, rows))
 
     def arena_rows(d: int):
         """Slot ``d``'s [F, C] row views of the arena (compact drains)."""
-        return None if rows is None else tuple(r[d] for r in rows)
+        return None if arena[0] is None else tuple(r[d] for r in arena[0])
 
+    drain.arena = arena
     drain.arena_rows = arena_rows
     return drain
 
@@ -159,3 +181,18 @@ def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm,
         state, spec.win, spec.red, wm, reduced=reduced, out=out)
     wk.apply_pending_purge(state, spec.win, spec.red, pend)
     return state, fires
+
+
+def compact_step(state: wk.WindowShardState,
+                 spec: WindowStageSpec) -> wk.WindowShardState:
+    """Whole-shard table compaction (``wk.compact_table``, G9), run by the
+    executor after it drained the overflow ring (the reference's
+    ``build_compact_step`` at one shard)."""
+    return wk.compact_table(state, spec.win, spec.red)
+
+
+def clear_overflow(state: wk.WindowShardState) -> wk.WindowShardState:
+    """Zero the overflow ring's fill after the host drained it, in place
+    (the ring's lanes may keep stale rows: only ``[:ovf_n]`` is read)."""
+    state.ovf_n.zero_()
+    return state

@@ -114,8 +114,8 @@ def _fire_sequence(layout, window, floats):
                                *lanes_torch(hi, lo, ts, vals, valid),
                                maxp=MAXP, clear_rows=pend_t)
         if layout == "direct":
-            assert act_t is None        # no insert phase, no activity
-            act_t = 0
+            # no insert phase: a device zero, as the reference's
+            assert act_t.dtype == torch.int32 and act_t.dim() == 0
         sj = set_watermark(sj, st, int(wm))
         sj, pend_j, fr_j = adv_j(sj, np.int32(wm))
         st, pend_t, fr_t = wkt.advance_and_fire_resident(

@@ -51,7 +51,8 @@ def test_resident_drain_matches_reference(window):
         wmv = np.array([[b[5] for b in group]], np.int32)
         sj, _mon, fr_j = drain_j(sj, *flat, wmv, np.int32(COUNT))
         slots = [lanes_torch(*b[:5]) for b in group]
-        st, fr_t = drain_t(st, slots, torch.from_numpy(wmv[0]), COUNT)
+        st, _mon, fr_t = drain_t(st, slots, torch.from_numpy(wmv[0]),
+                                  COUNT)
         for name in ("counts", "window_end_ticks", "n_fires", "lane_valid",
                      "value_sums"):
             np.testing.assert_array_equal(
@@ -103,7 +104,8 @@ def test_compact_drain_matches_reference(layout):
         wmv = np.array([[b[5] for b in group]], np.int32)
         sj, _mon, fr_j = drain_j(sj, *flat, wmv, np.int32(COUNT))
         slots = [lanes_torch(*b[:5]) for b in group]
-        st, fr_t = drain_t(st, slots, torch.from_numpy(wmv[0]), COUNT)
+        st, _mon, fr_t = drain_t(st, slots, torch.from_numpy(wmv[0]),
+                                  COUNT)
         arenas.add(fr_t.key_hi.data_ptr())
         assert tuple(fr_t.key_hi.shape) == (D, F, C)
         for name in ("counts", "window_end_ticks", "n_fires", "lane_valid",

@@ -232,26 +232,23 @@ def test_explicit_hash_layout_runs_the_north_star():
 
 
 def test_drop_without_the_spill_tier_raises_not_implemented():
-    """With state.backend.overflow-ring unset the reference would take a
-    key past capacity into its spill tier; the port, which has none, says
-    so at the first drain that shows the drop."""
-    cfg = {k: v for k, v in CONFIG.items()
-           if k != "state.backend.overflow-ring"}
-    with pytest.raises(NotImplementedError, match="spill tier"):
-        from flink_tpu_torch import StreamExecutionEnvironment
-        from flink_tpu_torch.core.config import Configuration
-        from flink_tpu_torch.core.time import TimeCharacteristic
-        from flink_tpu_torch.runtime.sinks import CountingSink
-        from flink_tpu_torch.runtime.sources import GeneratorSource
-        env = StreamExecutionEnvironment(Configuration(cfg), device="cpu")
-        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
-        env.set_state_capacity(N_KEYS)
-        env.batch_size = BATCH
-        (env.add_source(GeneratorSource(
-            lambda o, n: gen_batch(o, n, 2 * BATCH + 7), total=3 * BATCH))
-         .key_by(lambda c: c["key"]).time_window(WINDOW_MS)
-         .sum(lambda c: c["value"]).add_sink(CountingSink()))
-        env.execute("spill")
+    """A key past capacity with state.backend.overflow-ring unset: both
+    packages take its records into the spill tier (the auto-sized overflow
+    ring, then the host stores) and finish exactly, with nothing dropped.
+    (Before the spill tier was ported, the port raised
+    NotImplementedError here.)"""
+    cfg = {"state.backend.overflow-ring": -1}
+    total, bad = 3 * BATCH, 2 * BATCH + 7
+    cols, ts = gen_batch(0, total, bad)
+    want_count = len(set(zip(cols["key"].tolist(),
+                             (ts // WINDOW_MS).tolist())))
+    want_sum = float(total)
+    for pkg in ("jax", "torch"):
+        sink, job = run_job(pkg, total=total, bad_key_at=bad, config=cfg)
+        assert (sink.count, sink.value_sum) == (want_count, want_sum), pkg
+        assert job.metrics.dropped_capacity == 0
+    assert job.metrics.spilled_records == 1 and job.metrics.ring_drains == 1
+    assert job.metrics.compactions == 0           # the direct layout
 
 
 @pytest.mark.parametrize("slide_ms,count", [(None, True), (2500, False),
@@ -309,6 +306,8 @@ def test_port_raises_for_what_this_slice_lacks(change):
     from flink_tpu_torch.runtime.sinks import CountingSink
     from flink_tpu_torch.runtime.sources import GeneratorSource
 
+    sink = CountingSink()
+
     def build():
         cfg = dict(CONFIG)
         if change == "overflow_ring":
@@ -330,9 +329,15 @@ def test_port_raises_for_what_this_slice_lacks(change):
             agg = win.sum(lambda c: c["value"])
         if change == "map_after_window":
             agg = agg.map(lambda r: r)
-        agg.add_sink(CountingSink())
+        agg.add_sink(sink)
         return env
 
+    if change == "overflow_ring":
+        # the spill tier is ported: an explicit ring runs the job, exactly
+        job = build().execute("explicit ring")
+        assert (sink.count, sink.value_sum) == reference(BATCH)
+        assert job.state.ovf_hi.numel() == 4096
+        return
     if change in ("min_reduce", "map_after_window"):
         # refused where the job is built
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -14,6 +14,8 @@ port adds them in lane order (and on the card with atomics, in any
 order), so the float sums round differently.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -101,8 +103,12 @@ def test_cpu_tensors_never_launch_a_kernel():
                maxp=MAXP)
     wkt.advance_and_fire_resident(st, win_t, red_t, int(wm), reduced=True)
     wkt.advance_and_fire_resident(st, win_t, red_t, int(wm) + 100)
-    st_h = wkt.init_state(C, win_t, red_t, n_key_groups=MAXP, device="cpu",
+    win_o = dataclasses.replace(win_t, overflow=256)
+    st_h = wkt.init_state(C, win_o, red_t, n_key_groups=MAXP, device="cpu",
                           layout="hash")
-    wkt.update(st_h, win_t, red_t, *lanes_torch(hi, lo, ts, vals, valid),
-               maxp=MAXP)
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 6
+    for insert, lanes in zip((True, False), batches(3)):
+        wkt.update(st_h, win_o, red_t, *lanes_torch(*lanes[:5]), maxp=MAXP,
+                   insert=insert)
+    assert int(st_h.ovf_n) > 0          # the fast update spilled new keys
+    wkt.compact_table(st_h, win_o, red_t)
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 9
