@@ -6,8 +6,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the window kernels G1-G9 from flink_tpu_torch/csrc
-                with nvcc, and the spill store (host C++) with g++.
+  2. build    — compiles the kernels G1-G13 from flink_tpu_torch/csrc with
+                nvcc (one process a source, all started together), and the
+                spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
                 against its plain PyTorch version on the same inputs, on
                 ``main`` and ``edge`` inputs, exactly (the data is
@@ -35,7 +36,18 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 arrived. Times kernel, plain version and, where one PyTorch
                 call computes the same function, that call, with CUDA
                 events, beside the bound the card's 3.35 TB/s sets on the
-                bytes moved.
+                bytes moved. G10-G13 at the keyed jobs' shapes (C = 2^22
+                slots, B = 262,144 lanes): G10 on slot keys (the wordcount
+                batch's Zipf ranks) and (slot, tick) keys (a sessions
+                batch), its edge inputs one key in every lane, dead lanes,
+                ticks over the whole int32 range; its permutation also
+                equal to torch.sort(stable=True)'s, which is its library
+                time. G11 on the sessions job's state 17 s in (main) and
+                on random open sessions (edge: several sessions of one key
+                in a batch, out-of-order ticks, merges, supersession, dead
+                lanes, a watermark jump closing ~40 % of them); G12 with
+                N = 10, edge one key in every lane; G13 edge one key in
+                every lane.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -64,13 +76,35 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 two compactions and a non-empty spill; nothing dropped;
                 G1-G3, G5, G6, G7 and G9 launched.
 
+  7. sessions — nexmark q11's SESSION(dateTime, 10 s) count(*) per bidder:
+                1M sparse bidder ids (splitmix64 of an index); at t ms the
+                index is (50 t + u) mod 1M, u uniform in [0, 250,000) by a
+                hash of the event index, so each bidder bids in a 5 s burst
+                every 20 s; 40M events (20 s), monotonous watermarks,
+                capacity 2^22, as EventTimeSessionWindows.with_gap(10,000)
+                .count(). Every (id, start, end, count) row must equal
+                numpy's sessionization; nothing late or dropped; G5, G10,
+                G11 launched. A "session_table" line says how deep the ids
+                sit in their chains of 16.
+  8. wordcount — Flink's streaming WordCount, key_by(word).sum(value):
+                word ranks by the inverse Zipf(1.0, 1M) CDF at
+                splitmix64(event index) / 2^64, ids splitmix64(rank), value
+                1; 30M events, capacity 2^22. Every one of the 30M rows, in
+                input order, must equal numpy's running count of its word;
+                G5, G10, G13 launched.
+  9. windowcount — Flink's WindowWordCount as count_window(10).sum(value)
+                on the same stream (the example's slide of 5 cut: the
+                reference's count_window has no slide). The (id, ordinal)
+                rows must equal numpy's floor(count / 10) windows per word,
+                each worth 10; G5, G10, G12 launched.
+
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the three
+after. Then one line {"kernels": [...]} (launches summed over the six
 paths, numbers from phase 3), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each job: the generator's host
+adds, before those two lines, a profile of each of the six jobs: the generator's host
 time alone, the host's top functions, and the card's busy time and idle
 share from torch.profiler.
 """
@@ -87,7 +121,7 @@ from flink_tpu_torch import StreamExecutionEnvironment, native
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.ops import cuda as kernels
-from flink_tpu_torch.ops import hashtable
+from flink_tpu_torch.ops import hashtable, segment, session_windows
 from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
 from flink_tpu_torch.ops.hashing import probe_hash, splitmix64
 from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG
@@ -122,6 +156,21 @@ CHURN_SEED = 77 << 40
 # the executor's auto-sized overflow ring at this batch and ring depth
 RING_LANES = ((-(-MON_EVERY // RING_DEPTH) * RING_DEPTH * (OVF_LAG + 1)
                + 4 + RING_DEPTH) * BATCH + 8192)
+# the sessions job: nexmark q11's SESSION(dateTime, 10 s) count(*) per
+# bidder, 1M sparse bidder ids, 40M events (20 s) at EVENTS_PER_MS
+SESSION_GAP_MS = 10_000
+SESSION_BIDDERS = 1_000_000
+SESSION_ACTIVE = 250_000      # bidders bidding at any one time
+SESSION_RATE = 50             # bidder indices the burst advances per ms
+SESSION_SALT = 0x5E55
+SESSION_TOTAL = 40_000_000
+SESSION_WARM_BATCHES = 130    # the G11 main case: 17 s into the stream
+# the wordcount and windowcount jobs: Flink's streaming WordCount and
+# WindowWordCount over a Zipf(1.0) stream of a 1M-word vocabulary
+N_WORDS = 1_000_000
+WORD_TOTAL = 30_000_000
+COUNT_N = 10                  # WindowWordCount's countWindow(10, 5), cut
+KEYED_CAPACITY = 1 << 22      # the three jobs' state slots (probe 16)
 # state.probe-len: once the 1M keys have arrived (a load of 0.48), 334-338
 # of them sit 16 or more slots from their chain's start, 3-4 sit 32 or
 # more, the deepest 38 (the hash_table line of two runs on an NVIDIA H100
@@ -919,6 +968,304 @@ def kernel_phase(dev, C, R, B, F, maxp, slide, timing=True):
     return out
 
 
+# ------------------------------------------------- phase 3, G10-G13
+
+def session_index(idx: np.ndarray):
+    """The sessions job's bidder index and event time (ms) of event
+    ``idx``: at t ms the bidder index is (50 t + u) mod 1M, u uniform in
+    [0, 250,000) by a hash of the event's index, so each bidder bids in a
+    5 s burst every 20 s."""
+    t = idx // EVENTS_PER_MS
+    u = splitmix64(idx ^ SESSION_SALT) % np.uint64(SESSION_ACTIVE)
+    return (SESSION_RATE * t + u.astype(np.int64)) % SESSION_BIDDERS, t
+
+
+def session_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    b, t = session_index(idx)
+    return {"bidder": splitmix64(b).view(np.int64)}, t
+
+
+_ZIPF = {}
+
+
+def zipf_cdf() -> np.ndarray:
+    """The CDF of Zipf(s = 1.0) over N_WORDS ranks (made once)."""
+    if "cdf" not in _ZIPF:
+        w = 1.0 / np.arange(1, N_WORDS + 1, dtype=np.float64)
+        c = np.cumsum(w)
+        _ZIPF["cdf"] = c / c[-1]
+    return _ZIPF["cdf"]
+
+
+def word_ranks(idx: np.ndarray) -> np.ndarray:
+    """The word rank of event ``idx``: the inverse Zipf CDF at
+    splitmix64(idx) / 2^64."""
+    u = splitmix64(idx).astype(np.float64) / 2.0**64
+    return np.minimum(np.searchsorted(zipf_cdf(), u, side="right"),
+                      N_WORDS - 1)
+
+
+def word_gen(offset, n):
+    """Flink's WordCount stream: each event one word (id splitmix64 of its
+    Zipf rank), value 1."""
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    return {"word": splitmix64(word_ranks(idx)).view(np.int64),
+            "value": np.ones(n, np.float32)}, None
+
+
+def slot_lanes(dev, slots: np.ndarray, live: np.ndarray, C: int):
+    return segment.sort_slots(_t(slots, dev, torch.int32),
+                              _t(live, dev, torch.bool), C)
+
+
+def case_segment_sort(dev, C, B, kind):
+    """``main``: the wordcount batch's slots (Zipf ranks, the hot word in
+    ~7 % of the lanes), then the sessions batch's (slot, tick) keys with
+    the slots G5 gives its ids. ``edge``: one key in every lane, dead
+    lanes, and (slot, tick) keys with ticks across the whole int32 range
+    and equal pairs."""
+    rng = np.random.default_rng(21)
+    if kind == "main":
+        slots = word_ranks(np.arange(3 * B, 4 * B, dtype=np.int64))
+        live = np.ones(B, bool)
+        idx = np.arange(60 * B, 61 * B, dtype=np.int64)
+        b, t = session_index(idx)
+        table = hashtable.create(C, dev)
+        h, l = id_halves(splitmix64(b).view(np.int64), dev)
+        s_slot, ok, _ = kernels.hash_upsert(
+            table, h, l, torch.ones(B, dtype=torch.bool, device=dev),
+            probe_len=16)
+        s_ts = _t(t.astype(np.int32), dev, torch.int32)
+        s_live = ok
+    else:
+        slots = np.full(B, 12345)
+        live = rng.random(B) < 0.95
+        s_slot = _t(rng.integers(0, C, B).astype(np.int32), dev, torch.int32)
+        s_slot[: B // 2] = 77
+        s_ts = _t(rng.integers(-(2**31), 2**31 - 1, B).astype(np.int32), dev,
+                  torch.int32)
+        s_ts[: B // 4] = 5
+        s_live = _t(rng.random(B) < 0.95, dev, torch.bool)
+    key1 = torch.where(_t(live, dev, torch.bool),
+                       _t(slots.astype(np.int64), dev, torch.int64), C)
+    key2 = torch.where(s_live, (s_slot.to(torch.int64) << 32)
+                       | (s_ts.to(torch.int64) + 2**31), C << 32)
+    bits1, bits2 = C.bit_length(), 32 + C.bit_length()
+    got, want = [], []
+    for key, bits, sh in ((key1, bits1, 0), (key2, bits2, 32)):
+        got += kernels.segment_sort(key, bits=bits, seg_shift=sh)
+        want += kernels.segment_sort_plain(key, bits=bits, seg_shift=sh)
+        lib = torch.sort(key, stable=True)
+        check(bool((lib.indices == got[-3].long()).all()),
+              "segment_sort: the permutation differs from a stable sort")
+    return {
+        "got": got, "want": want,
+        "run": lambda: kernels.segment_sort(key1, bits=bits1, seg_shift=0),
+        "plain": lambda: kernels.segment_sort_plain(key1, bits=bits1,
+                                                    seg_shift=0),
+        "library": lambda: torch.sort(key1, stable=True),
+        "session_run": lambda: kernels.segment_sort(key2, bits=bits2,
+                                                    seg_shift=32),
+        # key in; order, sorted key, flag out
+        "bytes": B * (8 + 4 + 8 + 1),
+    }
+
+
+def case_rolling_update(dev, C, B, kind):
+    """``main``: the wordcount batch in slot order, half the keys with an
+    earlier total. ``edge``: one key in every lane, 5 % dead lanes."""
+    rng = np.random.default_rng(22)
+    if kind == "main":
+        slots = word_ranks(np.arange(5 * B, 6 * B, dtype=np.int64))
+        live = np.ones(B, bool)
+    else:
+        slots = np.full(B, 999)
+        live = rng.random(B) < 0.95
+    order, key_s, seg_start = slot_lanes(dev, slots, live, C)
+    vals = _t(rng.integers(1, 9, B).astype(np.float32), dev, torch.float32)
+    acc0 = _t(rng.integers(0, 100, C).astype(np.float32), dev, torch.float32)
+    tou0 = _t(rng.random(C) < 0.5, dev, torch.bool)
+    a1, t1, a2, t2 = acc0.clone(), tou0.clone(), acc0.clone(), tou0.clone()
+    o1 = kernels.rolling_update(a1, t1, order, key_s, seg_start, vals)
+    o2 = kernels.rolling_update_plain(a2, t2, order, key_s, seg_start, vals)
+    n_keys = int(torch.unique(key_s[key_s < C]).numel())
+    return {
+        "got": (o1, a1, t1), "want": (o2, a2, t2),
+        "run": lambda: kernels.rolling_update(a1, t1, order, key_s,
+                                              seg_start, vals),
+        "plain": lambda: kernels.rolling_update_plain(a2, t2, order, key_s,
+                                                      seg_start, vals),
+        "library": None,
+        # key, flag, order, value in, output out per lane; acc and touched
+        # read and written per key
+        "bytes": B * (8 + 1 + 4 + 4 + 4) + n_keys * (4 + 1) * 2,
+    }
+
+
+def case_count_update(dev, C, B, kind):
+    """``main``: the windowcount batch in slot order, each key with an
+    earlier count and its partial window (N = 10). ``edge``: one key in
+    every lane, 3 elements into a window, 5 % dead lanes."""
+    rng = np.random.default_rng(23)
+    if kind == "main":
+        slots = word_ranks(np.arange(7 * B, 8 * B, dtype=np.int64))
+        live = np.ones(B, bool)
+        cnt0 = rng.integers(0, 200, C)
+    else:
+        slots = np.full(B, 4321)
+        live = rng.random(B) < 0.95
+        cnt0 = np.full(C, 3)
+    order, key_s, seg_start = slot_lanes(dev, slots, live, C)
+    hi, lo = id_halves(splitmix64(slots).view(np.int64), dev)
+    vals = _t(np.ones(B, np.float32), dev, torch.float32)
+    count0 = _t(cnt0.astype(np.int32), dev, torch.int32)
+    acc0 = _t((cnt0 % COUNT_N).astype(np.float32), dev, torch.float32)
+    tou0 = _t(cnt0 % COUNT_N != 0, dev, torch.bool)
+    s1 = [count0.clone(), acc0.clone(), tou0.clone()]
+    s2 = [count0.clone(), acc0.clone(), tou0.clone()]
+    args = (order, key_s, seg_start, hi, lo, vals)
+    r1, n1 = kernels.count_update(*s1, *args, N=COUNT_N)
+    r2, n2 = kernels.count_update_plain(*s2, *args, N=COUNT_N)
+    n = int(n2)
+    check(int(n1) == n and n > 0, f"count_update: {int(n1)} rows, plain {n}")
+    n_keys = int(torch.unique(key_s[key_s < C]).numel())
+    return {
+        "got": [r[:n] for r in r1] + s1, "want": [r[:n] for r in r2] + s2,
+        "run": lambda: kernels.count_update(*s1, *args, N=COUNT_N),
+        "plain": lambda: kernels.count_update_plain(*s2, *args, N=COUNT_N),
+        "library": None,
+        # key, flag, order, value, hi, lo per lane; count, acc, touched read
+        # and written per key; 16 B per fire row
+        "bytes": B * (8 + 1 + 4 + 4 + 4 + 4) + n_keys * 9 * 2 + n * 16,
+    }
+
+
+def session_state_at(dev, C, B, n_batches):
+    """The sessions job's state after ``n_batches`` batches, driven through
+    ops/session_windows.py (G5, G10, G11), and the next batch's lanes."""
+    st = session_windows.init_state(C, device=dev)
+    wm = torch.zeros((), dtype=torch.int32, device=dev)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+    for k in range(n_batches + 1):
+        cols, t = session_gen(k * B, B)
+        h, l = id_halves(cols["bidder"], dev)
+        ts = _t(t.astype(np.int32), dev, torch.int32)
+        if k == n_batches:
+            return st, (h, l, ts, ones, valid), int(t.max()) - 1
+        wm.fill_(int(t.max()) - 1)
+        session_windows.update_and_fire(st, SESSION_GAP_MS, h, l, ts, ones,
+                                        valid, wm)
+
+
+def case_session_update(dev, C, B, kind, main_state):
+    """``main``: the sessions job 17 s into its stream (1M ids in the
+    table, ~250,000 open sessions, watermark closes due), its next batch.
+    ``edge``: random open sessions over half the slots; lanes over a
+    tenth of them, a hot slot in 20 % of the lanes whose ticks span 10
+    gaps (several sessions of one key in one batch), ticks out of order
+    within a gap, keys whose open session the batch merges with or
+    supersedes, 5 % dead lanes (late or without a slot: G11 sees both as
+    lanes of the slot C), and a watermark jump that closes ~40 % of the
+    open sessions."""
+    rng = np.random.default_rng(24)
+    G = SESSION_GAP_MS
+    if kind == "main":
+        st0, (h, l, ts, vals, _valid), wm_v = main_state
+        slot, live = hashtable.upsert(st0.table_keys, h, l,
+                                      torch.ones_like(_valid), probe_len=16)
+        state0 = (st0.start, st0.last, st0.acc, st0.active)
+        table = st0.table_keys
+    else:
+        act = rng.random(C) < 0.5
+        start = rng.integers(0, 50_000, C)
+        last = start + rng.integers(0, 20_000, C)
+        state0 = (_t(start.astype(np.int32), dev, torch.int32),
+                  _t(last.astype(np.int32), dev, torch.int32),
+                  _t(rng.integers(1, 50, C).astype(np.float32) * act, dev,
+                     torch.float32),
+                  _t(act, dev, torch.bool))
+        table = _t(rng.integers(-(2**62), 2**62, C), dev, torch.int64)
+        s = rng.integers(0, C // 10, B)
+        s[: B // 5] = 31
+        t = rng.integers(40_000, 90_000, B)
+        t[: B // 5] = rng.integers(0, 10 * 2 * G, B // 5)
+        slot = _t(s.astype(np.int32), dev, torch.int32)
+        ts = _t(t.astype(np.int32), dev, torch.int32)
+        live = _t(rng.random(B) < 0.95, dev, torch.bool)
+        h, l = id_halves(rng.integers(-(2**62), 2**62, B), dev)
+        vals = _t(rng.integers(1, 9, B).astype(np.float32), dev,
+                  torch.float32)
+        wm_v = 65_000
+    order, key_s, _ss = segment.sort_slot_ts(slot, ts, live, C)
+    wm = torch.tensor(wm_v, dtype=torch.int32, device=dev)
+    s1 = [x.clone() for x in state0]
+    s2 = [x.clone() for x in state0]
+    args = (table, wm, order, key_s, h, l, vals)
+    r1, n1 = kernels.session_update(*s1, *args, G=G)
+    r2, n2 = kernels.session_update_plain(*s2, *args, G=G)
+    n = int(n2)
+    check(int(n1) == n and n > 0, f"session_update: {int(n1)} rows, plain {n}")
+    n_close = int((state0[3] & ~s2[3]).sum())
+    n_keys = int(torch.unique(key_s[(key_s >> 32) < C] >> 32).numel())
+    # the timing runs on copies whose sessions the first call closed
+    st_run = [x.clone() for x in state0]
+    st_plain = [x.clone() for x in state0]
+    return {
+        "got": [r[:n] for r in r1] + s1, "want": [r[:n] for r in r2] + s2,
+        "run": lambda: kernels.session_update(*st_run, *args, G=G),
+        "plain": lambda: kernels.session_update_plain(*st_plain, *args, G=G),
+        "library": None,
+        # key, order, value per lane; the open session read and the last
+        # session written per key (13 B each); 20 B per fire row; the close
+        # sweep's active and last per slot, and start, acc and the key word
+        # per closed slot
+        "bytes": B * (8 + 4 + 4) + n_keys * 13 * 2 + n * 20 + C * 5
+        + n_close * (4 + 4 + 8 + 5),
+        "rows": n, "closes": n_close,
+    }
+
+
+def keyed_kernel_phase(dev, C, B, timing=True):
+    """Hold G10-G13 against their plain versions on both input sets at the
+    sessions, wordcount and windowcount jobs' shapes (C slots, B lanes),
+    and time the main set. Returns one record per kernel."""
+    main_state = session_state_at(dev, C, B, SESSION_WARM_BATCHES)
+    make = {
+        "segment_sort": lambda kind: case_segment_sort(dev, C, B, kind),
+        "session_update": lambda kind: case_session_update(dev, C, B, kind,
+                                                           main_state),
+        "count_update": lambda kind: case_count_update(dev, C, B, kind),
+        "rolling_update": lambda kind: case_rolling_update(dev, C, B, kind),
+    }
+    out = {}
+    for name, case_of in make.items():
+        errs, main = [], None
+        for kind in ("main", "edge"):
+            c = case_of(kind)
+            err = max_abs_err(c["got"], c["want"])
+            check(err == 0.0, f"{name} ({kind} inputs) disagrees with its "
+                              f"plain version: max abs err {err}")
+            errs.append(err)
+            if kind == "main":
+                main = c
+            del c
+        rec = {"max_abs_err": max(errs), "bound_ms": bound_ms(main["bytes"])}
+        if "rows" in main:
+            rec["rows"], rec["closes"] = main["rows"], main["closes"]
+        if timing:
+            rec["ms"] = time_ms(main["run"])
+            rec["plain_ms"] = time_ms(main["plain"], reps=3)
+            rec["library_ms"] = (time_ms(main["library"])
+                                 if main["library"] is not None else None)
+            if "session_run" in main:
+                rec["session_key_ms"] = time_ms(main["session_run"])
+        out[name] = rec
+        del main
+    return out
+
+
 # ------------------------------------------------------------ phase 4
 
 def numpy_reference(total, n_keys, events_per_ms, window_ms, chunk=1 << 22):
@@ -1144,6 +1491,163 @@ def check_churn_rows(cols, total):
     return len(kid), distinct, live_max
 
 
+# ------------------------------------------------------ phases 7-9
+
+def keyed_env(device):
+    env = StreamExecutionEnvironment(
+        Configuration({"keys.reverse-map": False}), device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(KEYED_CAPACITY)
+    env.batch_size = BATCH
+    return env
+
+
+def _timed_job(env, name, sink):
+    t0 = time.perf_counter()
+    job = env.execute(name)
+    if env.device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, job, time.perf_counter() - t0
+
+
+def sessions_job(device, total):
+    """nexmark q11: sessions (gap 10 s) counting each bidder's bids."""
+    from flink_tpu_torch.datastream.window.assigners import (
+        EventTimeSessionWindows,
+    )
+    env = keyed_env(device)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(session_gen, total=total))
+     .key_by(lambda c: c["bidder"])
+     .window(EventTimeSessionWindows.with_gap(SESSION_GAP_MS))
+     .count()
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-sessions", sink)
+
+
+def session_reference(total, chunk=1 << 22):
+    """numpy's sessions: the events sorted stably by bidder (time order
+    kept), cut at a bidder change or a gap > 10 s. Returns (id uint64,
+    start ms, end ms = last + gap, count) sorted by (id, start)."""
+    b_all = np.empty(total, np.int32)
+    t_all = np.empty(total, np.int32)
+    for off in range(0, total, chunk):
+        idx = np.arange(off, min(off + chunk, total), dtype=np.int64)
+        b, t = session_index(idx)
+        b_all[off:off + len(idx)] = b
+        t_all[off:off + len(idx)] = t
+    order = np.argsort(b_all, kind="stable")
+    b, t = b_all[order], t_all[order]
+    del b_all, t_all, order
+    cut = np.ones(total, bool)
+    cut[1:] = (b[1:] != b[:-1]) | (t[1:] - t[:-1] > SESSION_GAP_MS)
+    starts = np.flatnonzero(cut)
+    ends = np.append(starts[1:], total)
+    ids = splitmix64(b[starts].astype(np.int64))
+    rows = (ids, t[starts].astype(np.int64),
+            t[ends - 1].astype(np.int64) + SESSION_GAP_MS,
+            (ends - starts).astype(np.float32))
+    o = np.lexsort((rows[1], rows[0]))
+    return tuple(r[o] for r in rows)
+
+
+def check_session_rows(cols, total):
+    """Every (id, start, end, count) row against numpy's. Returns (rows,
+    sessions that the watermark closed before the end of the stream)."""
+    ids, start, end, cnt = session_reference(total)
+    kid = cols["key_id"].astype(np.uint64)
+    o = np.lexsort((cols["window_start_ms"], kid))
+    check(len(kid) == len(ids)
+          and np.array_equal(kid[o], ids)
+          and np.array_equal(cols["window_start_ms"][o], start)
+          and np.array_equal(cols["window_end_ms"][o], end)
+          and np.array_equal(cols["value"][o], cnt),
+          f"sessions job: {len(kid)} rows, numpy {len(ids)}; the rows "
+          f"differ from numpy's")
+    last_wm = (total - 1) // EVENTS_PER_MS - 1
+    return len(ids), int((end <= last_wm).sum())
+
+
+def probe_depths(table, C):
+    """How deep the table's keys sit in their chains of 16."""
+    used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
+    hi, lo = kernels.split_words(table[used])
+    depth = (used - (probe_hash(hi, lo) & (C - 1))) % C
+    return {"keys": int(used.numel()), "load": used.numel() / C,
+            "probe_len": 16, "max_depth": int(depth.max()),
+            "keys_at_depth_12_or_more": int((depth >= 12).sum())}
+
+
+def wordcount_job(device, total):
+    """Flink's streaming WordCount: keyBy(word).sum(count)."""
+    env = keyed_env(device)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(word_gen, total=total))
+     .key_by(lambda c: c["word"])
+     .sum(lambda c: c["value"])
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-wordcount", sink)
+
+
+def windowcount_job(device, total):
+    """Flink's WindowWordCount: keyBy(word).countWindow(10).sum(count)."""
+    env = keyed_env(device)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(word_gen, total=total))
+     .key_by(lambda c: c["word"])
+     .count_window(COUNT_N)
+     .sum(lambda c: c["value"])
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-windowcount", sink)
+
+
+def all_word_ranks(total, chunk=1 << 22):
+    return np.concatenate([
+        word_ranks(np.arange(off, min(off + chunk, total), dtype=np.int64))
+        for off in range(0, total, chunk)])
+
+
+def check_wordcount_rows(cols, ranks):
+    """Every row, in input order: the event's word and numpy's running
+    count of that word."""
+    n = len(ranks)
+    order = np.argsort(ranks, kind="stable")
+    r = ranks[order]
+    first = np.ones(n, bool)
+    first[1:] = r[1:] != r[:-1]
+    starts = np.flatnonzero(first)
+    seg = np.cumsum(first) - 1
+    running = np.empty(n, np.float32)
+    running[order] = (np.arange(n) - starts[seg] + 1).astype(np.float32)
+    check(len(cols["value"]) == n
+          and np.array_equal(cols["key_id"], splitmix64(ranks))
+          and np.array_equal(cols["value"], running),
+          "wordcount job: the rows differ from numpy's running counts")
+    return int(running.max())
+
+
+def check_windowcount_rows(cols, ranks):
+    """The (id, ordinal) rows: floor(count / 10) windows of each word,
+    each worth 10."""
+    uniq, cnt = np.unique(ranks, return_counts=True)
+    k = cnt // COUNT_N
+    ids = np.repeat(splitmix64(uniq), k)
+    first = np.repeat(np.cumsum(k) - k, k)
+    ordinal = np.arange(len(ids)) - first
+    o = np.lexsort((ordinal, ids))
+    kid = cols["key_id"].astype(np.uint64)
+    w = cols["window_end_ms"]
+    g = np.lexsort((w, kid))
+    check(len(kid) == len(ids) and np.array_equal(kid[g], ids[o])
+          and np.array_equal(w[g], ordinal[o])
+          and bool((cols["value"] == COUNT_N).all()),
+          f"windowcount job: {len(kid)} rows, numpy {len(ids)}; the rows "
+          f"differ from numpy's")
+    return len(ids)
+
+
 # ------------------------------------------------------------ profile
 
 def _busy_ms(intervals) -> float:
@@ -1230,6 +1734,14 @@ KERNEL_SOURCES = {
                     "flink_tpu/ops/hashtable.py:94"),
     "compact_table": ("flink_tpu_torch/csrc/compact_table.cu",
                       "flink_tpu/ops/window_kernels.py:480"),
+    "segment_sort": ("flink_tpu_torch/csrc/segment_sort.cu",
+                     "flink_tpu/ops/segment.py:89"),
+    "session_update": ("flink_tpu_torch/csrc/session_update.cu",
+                       "flink_tpu/ops/session_windows.py:85"),
+    "count_update": ("flink_tpu_torch/csrc/count_update.cu",
+                     "flink_tpu/ops/count_windows.py:57"),
+    "rolling_update": ("flink_tpu_torch/csrc/rolling_update.cu",
+                       "flink_tpu/ops/rolling.py:54"),
 }
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
@@ -1239,6 +1751,26 @@ SPARSE_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
 CHURN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                  "hash_upsert", "fire_compact", "ring_append",
                  "compact_table")
+SESSION_KERNELS = ("hash_upsert", "segment_sort", "session_update")
+WORDCOUNT_KERNELS = ("hash_upsert", "segment_sort", "rolling_update")
+WINDOWCOUNT_KERNELS = ("hash_upsert", "segment_sort", "count_update")
+
+
+def run_path(run, total_launches):
+    """Run one path with every launch count set to 0 just before; add its
+    counts to ``total_launches``; return (its counts, what run returned)."""
+    kernels.reset_launch_counts()
+    out = run()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    for name, n in launches.items():
+        total_launches[name] = total_launches.get(name, 0) + n
+    return launches, out
+
+
+def check_launched(launches, names, path):
+    for name in names:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+                                  f"{path} path")
 
 
 def main(argv) -> int:
@@ -1265,6 +1797,7 @@ def main(argv) -> int:
 
     recs = kernel_phase(dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP,
                         MAX_PARALLELISM, WINDOW_MS)
+    recs.update(keyed_kernel_phase(dev, KEYED_CAPACITY, BATCH))
     emit({"phase": "kernels", "checks": recs})
 
     kernels.reset_launch_counts()
@@ -1359,6 +1892,53 @@ def main(argv) -> int:
               f"kernel {name} never launched on the churn path")
     del sink, cols
 
+    launches, (sink, job, secs) = run_path(
+        lambda: sessions_job(dev, SESSION_TOTAL), total_launches)
+    cols = sink.columns()
+    m = job.metrics
+    n_rows, closed_early = check_session_rows(cols, SESSION_TOTAL)
+    depths = probe_depths(job.state.table_keys, KEYED_CAPACITY)
+    emit({"phase": "session_table", **depths})
+    emit({"phase": "sessions", "events": SESSION_TOTAL, "seconds": secs,
+          "events_per_s": SESSION_TOTAL / secs, "rows": n_rows,
+          "closed_by_watermark_before_end": closed_early,
+          "steps": m.steps, "dropped_late": m.dropped_late,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"sessions job: dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check_launched(launches, SESSION_KERNELS, "sessions")
+    del sink, cols
+
+    ranks = all_word_ranks(WORD_TOTAL)
+    launches, (sink, job, secs) = run_path(
+        lambda: wordcount_job(dev, WORD_TOTAL), total_launches)
+    m = job.metrics
+    hot = check_wordcount_rows(sink.columns(), ranks)
+    emit({"phase": "wordcount", "events": WORD_TOTAL, "seconds": secs,
+          "events_per_s": WORD_TOTAL / secs, "rows": WORD_TOTAL,
+          "hot_word_count": hot, "steps": m.steps,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(m.dropped_capacity == 0,
+          f"wordcount job: {m.dropped_capacity} records dropped")
+    check_launched(launches, WORDCOUNT_KERNELS, "wordcount")
+    del sink
+
+    launches, (sink, job, secs) = run_path(
+        lambda: windowcount_job(dev, WORD_TOTAL), total_launches)
+    m = job.metrics
+    n_rows = check_windowcount_rows(sink.columns(), ranks)
+    emit({"phase": "windowcount", "events": WORD_TOTAL, "seconds": secs,
+          "events_per_s": WORD_TOTAL / secs, "rows": n_rows,
+          "steps": m.steps, "dropped_capacity": m.dropped_capacity,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    check(m.dropped_capacity == 0,
+          f"windowcount job: {m.dropped_capacity} records dropped")
+    check_launched(launches, WINDOWCOUNT_KERNELS, "windowcount")
+    del sink, ranks
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -1371,6 +1951,15 @@ def main(argv) -> int:
             dev, "churn", churn_gen,
             lambda: churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH),
             CHURN_TOTAL))
+        emit(profile_phase(dev, "sessions", session_gen,
+                           lambda: sessions_job(dev, SESSION_TOTAL),
+                           SESSION_TOTAL))
+        emit(profile_phase(dev, "wordcount", word_gen,
+                           lambda: wordcount_job(dev, WORD_TOTAL),
+                           WORD_TOTAL))
+        emit(profile_phase(dev, "windowcount", word_gen,
+                           lambda: windowcount_job(dev, WORD_TOTAL),
+                           WORD_TOTAL))
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

@@ -7,13 +7,16 @@ imports ``torch`` and ``numpy`` and never ``jax`` or ``flink_tpu``.
 
 Layer map (mirrors flink_tpu/):
   core/       — config, time, key groups, types
-  ops/        — hashing, the window kernels and their CUDA twins
+  ops/        — hashing, the hash table, the window, session, count-window
+                and rolling operators, the segment sort, and the kernels
   datastream/ — user-facing DataStream API
   graph/      — transformation graph
   runtime/    — executor, device ring, steps, sources, sinks, watermarks
 
-This slice runs one keyed event-time tumbling or sliding window with a sum
-or count into device-reduce sinks (ROADMAP.md lists what comes next).
+The port runs one keyed stage a job: an event-time tumbling or sliding
+window, an event-time session window, a count window or a rolling sum,
+with a sum or count, into any of its sinks (ROADMAP.md lists what comes
+next).
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 // ring_append.cu (the update's nofit lanes) and G9 compact_table.cu (the
 // touched rows of keys that find no slot in the rebuilt table), as the
 // reference shares ops/window_kernels.py ring_append between the two so
-// that their lost-record accounting cannot diverge.
+// that their lost-record accounting cannot diverge. G11 session_update.cu
+// and G12 count_update.cu compact their fire rows with it too, into row
+// buffers of their own (the Out type).
 //
 // Semantics (window_kernels.py:222): the lanes i < n with take(i), in lane
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions
@@ -64,9 +66,9 @@ static __global__ void ring_scan_kernel(int n_blk, int O, const int32_t* __restr
   }
 }
 
-template <class Src>
+template <class Src, class Out>
 __global__ void ring_write_kernel(Src src, int n, int O,
-                                  const int32_t* __restrict__ blk_off, RingOut out) {
+                                  const int32_t* __restrict__ blk_off, Out out) {
   const int start = blockIdx.x * kRingChunk;
   const int end = min(start + kRingChunk, n);
   int32_t pos0 = blk_off[blockIdx.x];
@@ -83,14 +85,14 @@ __global__ void ring_write_kernel(Src src, int n, int O,
 
 // Launch the three passes over lanes [0, n). blk_count / blk_off hold
 // ceil(n / kRingChunk) ints each.
-template <class Src>
-int ring_append_launch(const Src& src, int n, int O, RingOut out, int32_t* ovf_n,
+template <class Src, class Out>
+int ring_append_launch(const Src& src, int n, int O, Out out, int32_t* ovf_n,
                        int32_t* lost, int32_t* blk_count, int32_t* blk_off,
                        cudaStream_t s) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int n_blk = (n + kRingChunk - 1) / kRingChunk;
   ring_count_kernel<Src><<<n_blk, kRingThreads, 0, s>>>(src, n, blk_count);
   ring_scan_kernel<<<1, 1024, 0, s>>>(n_blk, O, blk_count, blk_off, ovf_n, lost);
-  ring_write_kernel<Src><<<n_blk, kRingThreads, 0, s>>>(src, n, O, blk_off, out);
+  ring_write_kernel<Src, Out><<<n_blk, kRingThreads, 0, s>>>(src, n, O, blk_off, out);
   return static_cast<int>(cudaGetLastError());
 }

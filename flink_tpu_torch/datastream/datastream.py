@@ -2,12 +2,13 @@
 flink_tpu/datastream/datastream.py).
 
 Same shape as the reference (DataStream / KeyedStream / WindowedStream):
-API calls record transformation nodes that ``env.execute()`` runs. This
-slice carries ``key_by``, ``time_window`` / ``window``, the window ``sum``
-and ``count``, ``allowed_lateness``, ``add_sink`` and
-``assign_timestamps_and_watermarks``. Every other method of the reference
-exists and raises NotImplementedError naming the ROADMAP item that brings
-it.
+API calls record transformation nodes that ``env.execute()`` runs. The
+port carries ``key_by``, ``time_window`` / ``window`` (tumbling, sliding
+and event-time session assigners), ``count_window``, the window ``sum``
+and ``count``, the rolling ``KeyedStream.sum``, ``allowed_lateness``,
+``add_sink`` and ``assign_timestamps_and_watermarks``. Every other method
+of the reference exists and raises NotImplementedError naming the ROADMAP
+item that brings it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.datastream.window.assigners import (
+    CountWindowAssigner,
     SlidingEventTimeWindows,
     TumblingEventTimeWindows,
 )
@@ -107,10 +109,24 @@ class KeyedStream(DataStream):
             return self.window(TumblingEventTimeWindows.of(size_ms))
         return self.window(SlidingEventTimeWindows.of(size_ms, slide_ms))
 
-    count_window = _later("KeyedStream", "count_window", _OPS)
+    def count_window(self, size: int) -> "WindowedStream":
+        """Per-key tumbling windows of ``size`` elements (the reference's
+        ``count_window``, which takes no slide)."""
+        return self.window(CountWindowAssigner(size))
+
+    def sum(self, pos=None) -> DataStream:
+        """Rolling sum per key (ref StreamGroupedReduce): every record
+        emits its key's running sum."""
+        t = sg.KeyedProcessTransformation(
+            "rolling_sum", self.transformation,
+            reduce_spec_factory=lambda: ReduceSpec("sum", torch.float32),
+            extractor=_field_extractor(pos) if pos is not None
+            else (lambda e: e),
+        )
+        return DataStream(self.env, t)
+
     process = _later("KeyedStream", "process", _OPS)
-    reduce = _later("KeyedStream", "reduce", "ROADMAP queue 2, K18")
-    sum = _later("KeyedStream", "sum", "ROADMAP queue 2, K18")
+    reduce = _later("KeyedStream", "reduce", _REDUCES)
     as_queryable_state = _later("KeyedStream", "as_queryable_state", _EDGES)
 
 

@@ -1,7 +1,8 @@
-"""The window path's hand-written Hopper kernels and their plain versions.
+"""The hand-written Hopper kernels and their plain versions.
 
-Nine CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
-``sm_90a``) carry the device work of the window stage; each source opens
+Thirteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+``sm_90a``) carry the device work of the window stage (G1-G9) and of the
+session, count-window and rolling stages (G10-G13); each source opens
 with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
@@ -14,6 +15,13 @@ what its design does about that:
   G7 ``ring_append``     nofit lanes appended to the overflow ring
   G8 ``hash_lookup``     the fast step's find-only probe + missing count
   G9 ``compact_table``   table rebuild around the live keys, state moved
+  G10 ``segment_sort``   stable radix sort of lanes by slot (or slot, tick)
+  G11 ``session_update`` session cuts, merges, fires and watermark close
+  G12 ``count_update``   count windows: positions, window reduce, fires
+  G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
+
+G11-G13 share one segmented scan (``csrc/segscan.cuh``), and G7, G9, G11
+and G12 one stable row compaction (``csrc/ring.cuh``).
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -57,7 +65,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu",
-           "ring_append.cu", "hash_lookup.cu", "compact_table.cu")
+           "ring_append.cu", "hash_lookup.cu", "compact_table.cu",
+           "segment_sort.cu", "session_update.cu", "count_update.cu",
+           "rolling_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -80,6 +90,13 @@ _SIGNATURES = {
     "compact_move": [_P, _P, _P, _I, _I, _P, _P, _P],
     "compact_export": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P],
+    "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
+    "count_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "rolling_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -792,9 +809,384 @@ def compact_table(acc, table, pane_ids, ring, lost, *, R: int,
 
 compact_table.launches = 0
 
+# ------------------------------------------------------------ G10
+
+SORT_TILE = 2048       # lanes per block of G10 (csrc/segment_sort.cu)
+SCAN_CHUNK = 1024      # lanes per block of the segmented scan (segscan.cuh)
+SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G11-G13 scan
+
+
+def segment_sort_plain(key, *, bits: int, seg_shift: int):
+    """Plain version of G10: a stable LSD radix sort, one bit a pass (a
+    stable partition by cumsum). key int64 [B], each in [0, 2^bits).
+    Returns (order int32 [B], the gather permutation; key_s int64 [B], the
+    sorted keys; seg_start bool [B], lane 0 and every lane whose
+    ``key_s >> seg_shift`` differs from the lane before)."""
+    n = key.shape[0]
+    k = key
+    idx = torch.arange(n, dtype=torch.int32, device=key.device)
+    for b in range(bits):
+        one = ((k >> b) & 1).bool()
+        zero = ~one
+        pos = torch.where(zero, torch.cumsum(zero, 0) - 1,
+                          zero.sum() + torch.cumsum(one, 0) - 1)
+        k2, i2 = torch.empty_like(k), torch.empty_like(idx)
+        k2[pos] = k
+        i2[pos] = idx
+        k, idx = k2, i2
+    seg = k >> seg_shift
+    seg_start = torch.ones(n, dtype=torch.bool, device=key.device)
+    seg_start[1:] = seg[1:] != seg[:-1]
+    return idx, k, seg_start
+
+
+def segment_sort(key, *, bits: int, seg_shift: int):
+    """G10: see segment_sort_plain for the contract."""
+    if not 1 <= bits <= 63 or not 0 <= seg_shift <= 63:
+        raise ValueError(f"bits {bits} / seg_shift {seg_shift} out of range")
+    if _on_cpu(key):
+        return segment_sort_plain(key, bits=bits, seg_shift=seg_shift)
+    dev = key.device
+    (n,) = key.shape
+    _check(key, "key", torch.int64, (n,), dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    key_s = torch.empty(n, dtype=torch.int64, device=dev)
+    seg_start = torch.empty(n, dtype=torch.bool, device=dev)
+    kalt = torch.empty_like(key_s)
+    ialt = torch.empty_like(order)
+    hist = torch.empty(2 * 256 * max(1, -(-n // SORT_TILE)),
+                       dtype=torch.int32, device=dev)
+    skip = torch.empty(8, dtype=torch.int32, device=dev)
+    rc = build().segment_sort(_ptr(key), n, bits, seg_shift, _ptr(order),
+                              _ptr(key_s), _ptr(seg_start), _ptr(kalt),
+                              _ptr(ialt), _ptr(hist), _ptr(skip), _stream())
+    _raise_on(rc, "segment_sort")
+    segment_sort.launches += 1
+    return order, key_s, seg_start
+
+
+segment_sort.launches = 0
+
+
+# -------------------------------------------- the shared scan, plain
+
+def seg_scan_plain(flags, values, op):
+    """Inclusive segmented scan of ``values`` under ``op`` with segments
+    starting where ``flags`` is set (the reference's flagged operator,
+    ops/segment.py segmented_reduce_sorted): Hillis-Steele, log2(B)
+    rounds of whole-array ops."""
+    f, v = flags, values
+    n = v.shape[0]
+    off = 1
+    while off < n:
+        nv = torch.where(f[off:], v[off:], op(v[:-off], v[off:]))
+        f = torch.cat([f[:off], f[off:] | f[:-off]])
+        v = torch.cat([v[:off], nv])
+        off *= 2
+    return v
+
+
+def _keep_first(a, b):
+    return a
+
+
+def _seg_end(seg_start):
+    """The last lane of each segment: the lane before a start, and the
+    last lane."""
+    end = torch.ones_like(seg_start)
+    end[:-1] = seg_start[1:]
+    return end
+
+
+def _wrap32(x):
+    """int64 -> int32 with the reference's int32 wrap-around."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def _append_rows_plain(rows, n_rows, mask, cols) -> None:
+    """The masked lanes' ``cols``, in lane order, to row positions n_rows,
+    n_rows + 1, ... of ``rows`` (ring.cuh's contract, here with room for
+    all of them)."""
+    cap = rows[0].shape[0]
+    pos = n_rows.to(torch.int64) + torch.cumsum(mask.to(torch.int64), 0) - 1
+    fits = mask & (pos < cap)
+    idx = pos[fits]
+    for r, c in zip(rows, cols):
+        r[idx] = c[fits].to(r.dtype)
+    n_rows.copy_(torch.clamp_max(n_rows + mask.sum(), cap))
+
+
+def _scan_scratch(n: int, dev):
+    return torch.empty(max(1, -(-n // SCAN_CHUNK)) * SCAN_PAIR_BYTES,
+                       dtype=torch.uint8, device=dev)
+
+
+# ------------------------------------------------------------ G13
+
+def rolling_update_plain(acc, touched, order, key_s, seg_start, values):
+    """Plain version of G13. acc float32 [C] and touched bool [C], updated
+    in place; order int32 [B], key_s int64 [B] (the slot, C for a lane
+    with no slot) and seg_start bool [B] from G10 on the slot key; values
+    float32 [B] in lane order. Returns out float32 [B] in lane order: each
+    live lane's key accumulator just after the lane, 0 for a lane with no
+    slot."""
+    C = acc.shape[0]
+    o = order.long()
+    live = key_s < C
+    safe = torch.where(live, key_s, 0)
+    vals = torch.where(live, values[o], 0.0)
+    prefix = seg_scan_plain(seg_start, vals, torch.add)
+    rolled = torch.where(live & touched[safe], acc[safe] + prefix, prefix)
+    out = torch.empty_like(values)
+    out[o] = rolled
+    rep = _seg_end(seg_start) & live
+    acc[key_s[rep]] = rolled[rep]
+    touched[key_s[rep]] = True
+    return out
+
+
+def rolling_update(acc, touched, order, key_s, seg_start, values):
+    """G13: see rolling_update_plain for the contract."""
+    if _on_cpu(acc):
+        return rolling_update_plain(acc, touched, order, key_s, seg_start,
+                                    values)
+    dev = acc.device
+    (C,) = acc.shape
+    (B,) = order.shape
+    _check(acc, "acc", torch.float32, (C,), dev)
+    _check(touched, "touched", torch.bool, (C,), dev)
+    for t, n, dt in ((order, "order", torch.int32),
+                     (key_s, "key_s", torch.int64),
+                     (seg_start, "seg_start", torch.bool),
+                     (values, "values", torch.float32)):
+        _check(t, n, dt, (B,), dev)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    rc = build().rolling_update(
+        _ptr(key_s), _ptr(seg_start), _ptr(order), _ptr(values), B, C,
+        _ptr(acc), _ptr(touched), _ptr(out), _ptr(_scan_scratch(B, dev)),
+        _stream())
+    _raise_on(rc, "rolling_update")
+    rolling_update.launches += 1
+    return out
+
+
+rolling_update.launches = 0
+
+
+# ------------------------------------------------------------ G12
+
+def count_rows(cap: int, dev):
+    """Fire row buffers of a count-window step: (key hi, key lo, window
+    ordinal, value) [cap] each, only their ``[:n_rows]`` prefix written,
+    and the row count int32 0-d, 0."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    return ((torch.empty(cap, **i32), torch.empty(cap, **i32),
+             torch.empty(cap, **i32),
+             torch.empty(cap, dtype=torch.float32, device=dev)),
+            torch.zeros((), **i32))
+
+
+def count_update_plain(count, acc, touched, order, key_s, seg_start, hi, lo,
+                       values, *, N: int):
+    """Plain version of G12. count int32 [C], acc float32 [C], touched bool
+    [C]: updated in place; order, key_s, seg_start from G10 on the slot key
+    (C for a lane with no slot); hi, lo int32 [B] (uint32 bits) and values
+    float32 [B] in lane order. Returns (rows, n_rows): the complete windows
+    (key hi, key lo, window ordinal w, value) in sorted-lane order in the
+    prefix ``[:n_rows]`` of B rows."""
+    C = count.shape[0]
+    B = order.shape[0]
+    o = order.long()
+    live = key_s < C
+    safe = torch.where(live, key_s, 0)
+    pos = seg_scan_plain(seg_start, torch.ones(B, dtype=torch.int32,
+                                               device=count.device),
+                         torch.add)
+    old = torch.where(live, count[safe], 0)
+    a = old + pos
+    w = torch.div(a - 1, N, rounding_mode="floor")
+    vals = torch.where(live, values[o], 0.0)
+    rolled = seg_scan_plain(seg_start | ((a - 1) % N == 0), vals, torch.add)
+    fold = live & (w == torch.div(old, N, rounding_mode="floor")) \
+        & touched[safe] & (old % N != 0)
+    rolled = torch.where(fold, acc[safe] + rolled, rolled)
+    rows, n_rows = count_rows(B, count.device)
+    _append_rows_plain(rows, n_rows, live & (a % N == 0),
+                       (hi[o], lo[o], w, rolled))
+    end = _seg_end(seg_start) & live
+    s = key_s[end]
+    tail = a[end] % N != 0
+    count[s] = a[end].to(torch.int32)
+    acc[s] = torch.where(tail, rolled[end], 0.0)
+    touched[s] = tail
+    return rows, n_rows
+
+
+def count_update(count, acc, touched, order, key_s, seg_start, hi, lo,
+                 values, *, N: int):
+    """G12: see count_update_plain for the contract."""
+    if N < 1:
+        raise ValueError(f"count windows need N >= 1, got {N}")
+    if _on_cpu(count):
+        return count_update_plain(count, acc, touched, order, key_s,
+                                  seg_start, hi, lo, values, N=N)
+    dev = count.device
+    (C,) = count.shape
+    (B,) = order.shape
+    _check(count, "count", torch.int32, (C,), dev)
+    _check(acc, "acc", torch.float32, (C,), dev)
+    _check(touched, "touched", torch.bool, (C,), dev)
+    for t, n, dt in ((order, "order", torch.int32),
+                     (key_s, "key_s", torch.int64),
+                     (seg_start, "seg_start", torch.bool),
+                     (hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                     (values, "values", torch.float32)):
+        _check(t, n, dt, (B,), dev)
+    rows, n_rows = count_rows(B, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pos, a, w = (torch.empty(B, **i32) for _ in range(3))
+    v = torch.empty(B, dtype=torch.float32, device=dev)
+    fire = torch.empty(B, dtype=torch.bool, device=dev)
+    blk_count, blk_off = _ring_scratch(B, dev)
+    rc = build().count_update(
+        _ptr(key_s), _ptr(seg_start), _ptr(order), _ptr(hi), _ptr(lo),
+        _ptr(values), B, C, N, _ptr(count), _ptr(acc), _ptr(touched), B,
+        *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(pos), _ptr(a), _ptr(w),
+        _ptr(v), _ptr(fire), _ptr(_scan_scratch(B, dev)), _ptr(blk_count),
+        _ptr(blk_off), _ptr(torch.zeros((), **i32)), _stream())
+    _raise_on(rc, "count_update")
+    count_update.launches += 1
+    return rows, n_rows
+
+
+count_update.launches = 0
+
+
+# ------------------------------------------------------------ G11
+
+def session_rows(cap: int, dev):
+    """Fire row buffers of a session step: (key hi, key lo, start tick,
+    end tick, value) [cap] each, only their ``[:n_rows]`` prefix written,
+    and the row count int32 0-d, 0."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    return ((torch.empty(cap, **i32), torch.empty(cap, **i32),
+             torch.empty(cap, **i32), torch.empty(cap, **i32),
+             torch.empty(cap, dtype=torch.float32, device=dev)),
+            torch.zeros((), **i32))
+
+
+def session_key_ts(key_s):
+    """The slot and tick of (slot << 32) | (ts ^ 0x80000000) sort keys."""
+    return key_s >> 32, ((key_s & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def session_update_plain(start, last, acc, active, table, wm, order, key_s,
+                         hi, lo, values, *, G: int):
+    """Plain version of G11. State start, last int32 [C], acc float32 [C],
+    active bool [C] (updated in place) and table int64 [C] key words; wm
+    int32 0-d, the watermark after the batch; order, key_s from G10 on the
+    (slot, tick) key ((slot << 32) | (ts ^ 0x80000000), C << 32 for a lane
+    with no slot); hi, lo int32 [B] and values float32 [B] in lane order.
+    Returns (rows, n_rows): (key hi, key lo, start, end = last + G, value)
+    rows in the prefix ``[:n_rows]`` of 2B + C — the superseded open
+    sessions, then the superseded batch sessions (both in sorted-lane
+    order), then the watermark closes in slot order."""
+    C = start.shape[0]
+    B = order.shape[0]
+    dev = start.device
+    rows, n_rows = session_rows(2 * B + C, dev)
+    if B:
+        o = order.long()
+        ids, ts = session_key_ts(key_s)
+        live = ids < C
+        slot_change = torch.ones(B, dtype=torch.bool, device=dev)
+        slot_change[1:] = ids[1:] != ids[:-1]
+        gap = torch.zeros(B, dtype=torch.bool, device=dev)
+        gap[1:] = _wrap32(ts[1:].long() - ts[:-1].long()) > G
+        flag = slot_change | gap
+        agg = seg_scan_plain(flag, torch.where(live, values[o], 0.0),
+                             torch.add)
+        smin = seg_scan_plain(flag, ts, _keep_first)
+        fos = seg_scan_plain(flag, slot_change, _keep_first)
+        rep = _seg_end(flag) & live
+        last_of_slot = rep & _seg_end(slot_change)
+        safe = torch.where(live, ids, 0)
+        o_active = active[safe] & rep & fos
+        o_start, o_last, o_acc = start[safe], last[safe], acc[safe]
+        merges = o_active & (smin <= _wrap32(o_last.long() + G)) \
+            & (_wrap32(ts.long() + G) >= o_start)
+        m_acc = torch.where(merges, o_acc + agg, agg)
+        m_start = torch.where(merges, torch.minimum(o_start, smin), smin)
+        m_last = torch.where(merges, torch.maximum(o_last, ts), ts)
+        _append_rows_plain(rows, n_rows, o_active & ~merges,
+                           (hi[o], lo[o], o_start,
+                            _wrap32(o_last.long() + G), o_acc))
+        _append_rows_plain(rows, n_rows, rep & ~last_of_slot,
+                           (hi[o], lo[o], m_start,
+                            _wrap32(m_last.long() + G), m_acc))
+        s = ids[last_of_slot]
+        start[s] = m_start[last_of_slot]
+        last[s] = m_last[last_of_slot]
+        acc[s] = m_acc[last_of_slot]
+        active[s] = True
+    close = active & (_wrap32(last.long() + G) <= wm)
+    khi, klo = split_words(table)
+    _append_rows_plain(rows, n_rows, close,
+                       (khi, klo, start, _wrap32(last.long() + G), acc))
+    acc.masked_fill_(close, 0.0)
+    active.masked_fill_(close, False)
+    return rows, n_rows
+
+
+def session_update(start, last, acc, active, table, wm, order, key_s, hi,
+                   lo, values, *, G: int):
+    """G11: see session_update_plain for the contract."""
+    if G < 0:
+        raise ValueError(f"session gap must be >= 0, got {G}")
+    if _on_cpu(start):
+        return session_update_plain(start, last, acc, active, table, wm,
+                                    order, key_s, hi, lo, values, G=G)
+    dev = start.device
+    (C,) = start.shape
+    (B,) = order.shape
+    _check(start, "start", torch.int32, (C,), dev)
+    _check(last, "last", torch.int32, (C,), dev)
+    _check(acc, "acc", torch.float32, (C,), dev)
+    _check(active, "active", torch.bool, (C,), dev)
+    _check(table, "table", torch.int64, (C,), dev)
+    _check(wm, "wm", torch.int32, (), dev)
+    for t, n, dt in ((order, "order", torch.int32),
+                     (key_s, "key_s", torch.int64),
+                     (hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                     (values, "values", torch.float32)):
+        _check(t, n, dt, (B,), dev)
+    O = 2 * B + C
+    if O > INT32_MAX:
+        raise ValueError(f"{O} session rows overflow int32")
+    rows, n_rows = session_rows(O, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    fl = torch.empty(B, dtype=torch.uint8, device=dev)
+    m_start, m_last = torch.empty(B, **i32), torch.empty(B, **i32)
+    m_acc = torch.empty(B, dtype=torch.float32, device=dev)
+    blk_count, blk_off = _ring_scratch(max(B, C), dev)
+    rc = build().session_update(
+        _ptr(key_s), _ptr(order), _ptr(hi), _ptr(lo), _ptr(values), B, C, G,
+        _ptr(start), _ptr(last), _ptr(acc), _ptr(active), _ptr(table),
+        _ptr(wm), O, *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(fl),
+        _ptr(m_start), _ptr(m_last), _ptr(m_acc),
+        _ptr(_scan_scratch(B, dev)), _ptr(blk_count), _ptr(blk_off),
+        _ptr(torch.zeros((), **i32)), _stream())
+    _raise_on(rc, "session_update")
+    session_update.launches += 1
+    return rows, n_rows
+
+
+session_update.launches = 0
+
 KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced,
            hash_upsert, fire_compact, ring_append, hash_lookup,
-           compact_table)
+           compact_table, segment_sort, session_update, count_update,
+           rolling_update)
 
 
 def reset_launch_counts() -> None:

@@ -65,6 +65,18 @@ def upsert_counted(table: torch.Tensor, hi, lo, valid, *, probe_len: int):
     return kernels.hash_upsert(table, hi, lo, valid, probe_len=probe_len)
 
 
+def upsert(table: torch.Tensor, hi, lo, valid, *,
+           probe_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Insert-or-find as the session, count-window and rolling stages call
+    the reference's ``upsert(..., max_rounds=8)``: (slot int32 [B], C where
+    not ok; ok bool [B]), the table updated in place (G5). G5's CAS walk
+    places every key whose chain has room, where the reference's eight
+    claim rounds can leave out a key that lost eight races (ROADMAP
+    queue 3)."""
+    slot, ok, _ = upsert_counted(table, hi, lo, valid, probe_len=probe_len)
+    return slot, ok
+
+
 def to_rows(table: torch.Tensor) -> np.ndarray:
     """Key words -> the reference's uint32 [C, 2] (hi, lo) rows."""
     w = table.detach().cpu().numpy().view(np.uint64)

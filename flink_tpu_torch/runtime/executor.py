@@ -54,9 +54,12 @@ more panes than the ring can hold is cut into pane groups that fire
 between them, and a jump of two or more panes between polls fires the
 windows it would otherwise evict first — both as the reference does.
 
-Anything else — another topology, processing time, allowed lateness,
-checkpoints, parallelism above 1, an operator after the window —
-raises NotImplementedError naming the ROADMAP queue item that brings it.
+Rolling reduces (``key_by(...).sum(...)``), count windows
+(``count_window(n)``) and event-time session windows go to the runners of
+``runtime/keyed_jobs.py``. Anything else — another topology, processing
+time, allowed lateness, checkpoints, parallelism above 1, an operator
+after the stage — raises NotImplementedError naming the ROADMAP queue
+item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -65,7 +68,6 @@ its end with the reference's "state backend over capacity" error.
 from __future__ import annotations
 
 import dataclasses
-from collections import namedtuple
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -73,10 +75,15 @@ import torch
 
 from flink_tpu_torch.core.time import MAX_TS, TimeCharacteristic, TimeDomain
 from flink_tpu_torch.core.types import KeyCodec
-from flink_tpu_torch.datastream.window.assigners import WindowAssigner
+from flink_tpu_torch.datastream.window.assigners import (
+    CountWindowAssigner,
+    SessionWindowAssigner,
+    WindowAssigner,
+)
 from flink_tpu_torch.graph import stream_graph as sg
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
+from flink_tpu_torch.runtime import keyed_jobs
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
@@ -88,7 +95,8 @@ from flink_tpu_torch.runtime.step import (
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 
-WindowResult = namedtuple("WindowResult", ["key", "window_end_ms", "value"])
+WindowResult = keyed_jobs.WindowResult
+SessionResult = keyed_jobs.SessionResult
 
 # The reference samples the ring's fill and the step activity every
 # MON_EVERY micro-batches and reads a sample OVF_LAG samples late; its auto
@@ -130,8 +138,13 @@ class _Pipeline:
     source: Any
     ts_transform: Optional[sg.TimestampsWatermarksTransformation]
     key_by: sg.KeyByTransformation
-    window_agg: sg.WindowAggTransformation
+    window_agg: Optional[sg.WindowAggTransformation]
     sinks: List[Any]
+    rolling: Optional[sg.KeyedProcessTransformation] = None
+
+    @property
+    def stage(self):
+        return self.rolling if self.rolling is not None else self.window_agg
 
 
 def _unsupported(what: str, item: str):
@@ -140,7 +153,9 @@ def _unsupported(what: str, item: str):
 
 
 def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
-    """Check the job is the one topology this slice runs and collect it."""
+    """Check the job is a topology the port runs and collect it:
+    source -> [timestamps] -> key_by -> a window aggregation or a rolling
+    sum -> sinks."""
     if not sink_ts:
         raise ValueError("job has no sinks")
     pipe = None
@@ -157,7 +172,8 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
                 ts_t = t
             elif isinstance(t, sg.KeyByTransformation) and key_t is None:
                 key_t = t
-            elif isinstance(t, sg.WindowAggTransformation) \
+            elif isinstance(t, (sg.WindowAggTransformation,
+                                sg.KeyedProcessTransformation)) \
                     and key_t is not None and agg_t is None:
                 agg_t = t
             elif isinstance(t, sg.SinkTransformation) and t is st \
@@ -171,8 +187,11 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             raise _unsupported("a job without a keyed window",
                                "ROADMAP queue 1, item 9")
         if pipe is None:
-            pipe = _Pipeline(head.source, ts_t, key_t, agg_t, [st.sink])
-        elif agg_t is pipe.window_agg:
+            rolling = isinstance(agg_t, sg.KeyedProcessTransformation)
+            pipe = _Pipeline(head.source, ts_t, key_t,
+                             None if rolling else agg_t, [st.sink],
+                             agg_t if rolling else None)
+        elif agg_t is pipe.stage:
             pipe.sinks.append(st.sink)
         else:
             raise _unsupported("more than one window stage",
@@ -180,12 +199,24 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
     if not getattr(pipe.source, "columnar", False):
         raise _unsupported("an element-mode (non-columnar) source",
                            "ROADMAP queue 1, item 6")
+    if pipe.rolling is not None:
+        if pipe.rolling.result_fn is not None:
+            raise _unsupported("result projections", "ROADMAP queue 1, item 9")
+        return pipe
     wagg = pipe.window_agg
-    if not isinstance(wagg.assigner, WindowAssigner) \
-            or not wagg.assigner.is_event_time:
+    assigner = wagg.assigner
+    if isinstance(assigner, SessionWindowAssigner) \
+            and not assigner.is_event_time:
+        raise _unsupported("processing-time session windows",
+                           "ROADMAP queue 1, item 9")
+    if not isinstance(assigner, (WindowAssigner, SessionWindowAssigner,
+                                 CountWindowAssigner)) \
+            or (isinstance(assigner, WindowAssigner)
+                and not assigner.is_event_time):
         raise _unsupported(
-            f"window assigner {type(wagg.assigner).__name__} "
-            f"(only event-time tumbling/sliding is)", "ROADMAP queue 1, item 9")
+            f"window assigner {type(assigner).__name__} (only event-time "
+            f"tumbling, sliding and session windows and count windows are)",
+            "ROADMAP queue 1, item 9")
     if wagg.trigger is not None or wagg.evictor is not None \
             or wagg.window_fn is not None or wagg.reduce_spec_factory is None:
         raise _unsupported("custom triggers, evictors and window functions",
@@ -210,11 +241,25 @@ class LocalExecutor:
         if env.parallelism != 1:
             raise _unsupported(f"parallelism {env.parallelism}",
                                "ROADMAP queue 1, item 10")
-        if env.time_characteristic != TimeCharacteristic.EventTime:
-            raise _unsupported("processing-time windows",
-                               "ROADMAP queue 1, item 9")
         pipe = _translate(sinks)
-        job = _WindowJob(env, pipe)
+        # rolling and count stages need no time characteristic; time and
+        # session windows run in event time only
+        if pipe.window_agg is not None \
+                and not isinstance(pipe.window_agg.assigner,
+                                   CountWindowAssigner) \
+                and env.time_characteristic != TimeCharacteristic.EventTime:
+            raise _unsupported(
+                "processing-time session windows"
+                if isinstance(pipe.window_agg.assigner, SessionWindowAssigner)
+                else "processing-time windows", "ROADMAP queue 1, item 9")
+        if pipe.rolling is not None:
+            job = keyed_jobs.RollingJob(env, pipe, JobMetrics())
+        elif isinstance(pipe.window_agg.assigner, CountWindowAssigner):
+            job = keyed_jobs.CountJob(env, pipe, JobMetrics())
+        elif isinstance(pipe.window_agg.assigner, SessionWindowAssigner):
+            job = keyed_jobs.SessionJob(env, pipe, JobMetrics())
+        else:
+            job = _WindowJob(env, pipe)
         for s in pipe.sinks:
             s.open()
         pipe.source.open()
@@ -224,7 +269,10 @@ class LocalExecutor:
             pipe.source.close()
             for s in pipe.sinks:
                 s.close()
-        return job.finish(job_name)
+        if isinstance(job, _WindowJob):
+            return job.finish(job_name)
+        job.finish()
+        return JobHandle(job_name, job.metrics, state=job.state)
 
 
 def _check_config(cfg) -> None:

@@ -1,11 +1,16 @@
 """Sinks (ref: api/functions/sink — print/socket/write/collect).
 
-This slice of the port carries the sink contract, CountingSink (the
-north-star job's device-reduce sink), CollectSink (``WindowResult`` rows)
-and ColumnarCollectSink (every row as columns). A window stage reduces its
+The port carries the sink contract, CountingSink (the north-star job's
+device-reduce sink), CollectSink (the reference's rows) and
+ColumnarCollectSink (every row as columns). A window stage reduces its
 fires on the device when every sink is a device-reduce sink, and otherwise
 emits one row per fired (key, window) through ``invoke_columnar`` or
-``invoke_batch`` (runtime/executor.py).
+``invoke_batch`` (runtime/executor.py). The rows a CollectSink gets are
+the reference's: ``WindowResult(key, window_end_ms, value)`` for time and
+count windows (a count window's ``window_end_ms`` is its 0-based ordinal
+within the key), ``SessionResult(key, window_start_ms, window_end_ms,
+value)`` for sessions, and ``(key, value)`` for rolling reduces, one per
+record in input order (runtime/keyed_jobs.py).
 """
 
 from __future__ import annotations
@@ -94,7 +99,9 @@ class CollectSink(Sink):
 class ColumnarCollectSink(Sink):
     """Keeps every row it is given, as columns: a window stage hands it
     ``{"key_id", "window_end_ms", "value"}`` arrays (key_id the uint64 key
-    identity), and ``columns()`` joins them."""
+    identity), a session stage ``{"key_id", "window_start_ms",
+    "window_end_ms", "value"}``, a rolling stage ``{"key_id", "value"}``;
+    ``columns()`` joins them."""
 
     columnar = True
 

@@ -1,5 +1,5 @@
-"""Window stage steps on one device — the main-path subset of
-flink_tpu/runtime/step.py.
+"""Stage steps on one device — the window, session, count-window and
+rolling stages of flink_tpu/runtime/step.py.
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
@@ -17,6 +17,9 @@ from typing import Sequence, Tuple
 
 import torch
 
+from flink_tpu_torch.ops import count_windows as cw
+from flink_tpu_torch.ops import rolling
+from flink_tpu_torch.ops import session_windows as sw
 from flink_tpu_torch.ops import window_kernels as wk
 
 
@@ -196,3 +199,76 @@ def clear_overflow(state: wk.WindowShardState) -> wk.WindowShardState:
     (the ring's lanes may keep stale rows: only ``[:ovf_n]`` is read)."""
     state.ovf_n.zero_()
     return state
+
+
+# ------------------------------------------- sessions, counts, rolling
+#
+# The reference's SessionStageSpec / CountStageSpec / RollingStageSpec and
+# their build_*_step functions (step.py:2449-2656) at one shard. The
+# reference masks each batch to the shard's key groups (step.py:2481-2484);
+# one shard owns every key group here, so that mask is the batch's valid
+# mask and the steps take it as it is. Each step updates its state in place and returns it. The
+# stages keep the reference's fixed probe length of 16 and have no spill
+# tier (a key with no slot is a counted loss).
+
+@dataclass
+class SessionStageSpec:
+    red: wk.ReduceSpec
+    gap_ticks: int = 1000
+    capacity_per_shard: int = 1 << 16
+    probe_len: int = 16
+
+
+def init_session_state(spec: SessionStageSpec, device):
+    return sw.init_state(spec.capacity_per_shard, spec.probe_len, device)
+
+
+def build_session_step(spec: SessionStageSpec):
+    """``step(state, hi, lo, ts, values, valid, wm)`` -> (state, rows,
+    n_rows): G5, G10, G11 (``ops/session_windows.py``)."""
+    def step(state, hi, lo, ts, values, valid, wm):
+        return sw.update_and_fire(state, spec.gap_ticks, hi, lo, ts, values,
+                                  valid, wm)
+    return step
+
+
+@dataclass
+class CountStageSpec:
+    red: wk.ReduceSpec
+    n_per_window: int = 100
+    capacity_per_shard: int = 1 << 16
+    probe_len: int = 16
+
+
+def init_count_state(spec: CountStageSpec, device):
+    return cw.init_state(spec.capacity_per_shard, spec.probe_len, device)
+
+
+def build_count_step(spec: CountStageSpec):
+    """``step(state, hi, lo, values, valid)`` -> (state, rows, n_rows):
+    G5, G10, G12 (``ops/count_windows.py``)."""
+    def step(state, hi, lo, values, valid):
+        return cw.update(state, spec.n_per_window, hi, lo, values, valid)
+    return step
+
+
+@dataclass
+class RollingStageSpec:
+    red: wk.ReduceSpec
+    capacity_per_shard: int = 1 << 16
+    probe_len: int = 16
+
+
+def init_rolling_state(spec: RollingStageSpec, device):
+    return rolling.init_state(spec.capacity_per_shard, spec.probe_len,
+                              device)
+
+
+def build_rolling_step(spec: RollingStageSpec):
+    """``step(state, hi, lo, values, valid)`` -> (state, outputs,
+    out_valid): G5, G10, G13 (``ops/rolling.py``). With one shard every
+    lane's output is its own; the reference's psum over shards has nothing
+    to merge."""
+    def step(state, hi, lo, values, valid):
+        return rolling.update(state, hi, lo, values, valid)
+    return step

@@ -3,19 +3,26 @@
 reference, then three more on both sides, must end equal — in the direct
 layout field for field, in the hash layout key by key (the carried table
 is probed on the reference's chains; keys placed after the carry may take
-other slots). Integer-valued data, so everything compares bit for bit."""
+other slots). The session, count-window and rolling states carry the
+same way and continue to the same outputs. Integer-valued data, so
+everything compares bit for bit."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import (
-    C, F, MAXP, R, assert_fires_equal, assert_states_equal, batches,
+    KC, C, F, MAXP, R, assert_fires_equal, assert_keyed_states_equal,
+    assert_states_equal, batches, jax_keyed_fields, keyed_batches,
+    keyed_lanes_torch,
     fire_rows, jax_fields, jax_hash_kernels, jax_kernels, jax_set_watermark,
     lanes_torch, logical_state, set_watermark, sparse_batches, specs,
 )
 
 from flink_tpu.ops import window_kernels as wkj
+from flink_tpu.ops.window_kernels import ReduceSpec as ReduceSpecJ
 from flink_tpu_torch.ops import window_kernels as wkt
 
 
@@ -120,3 +127,118 @@ def test_hash_state_carried_mid_stream_continues_equal():
     for name, w in want.items():
         np.testing.assert_array_equal(got[name], w, err_msg=name)
     assert n_rows > 0
+
+
+# -- session, count-window and rolling states ----------------------------
+
+def _keyed_carry(ref_mod, port_mod, init_j, step_j, step_t, steps, cmp):
+    """Run the first half of ``steps`` in the reference, carry its state
+    into the port (``state_from_numpy``; back out equal), run the second
+    half on both and hand each step's outputs to ``cmp``; end with the
+    states equal key by key."""
+    half = len(steps) // 2
+    sj = init_j()
+    for s in steps[:half]:
+        sj, _ = step_j(sj, s)
+    fields = jax_keyed_fields(sj, port_mod.STATE_FIELDS)
+    st = port_mod.state_from_numpy(fields, device="cpu")
+    back = port_mod.state_to_numpy(st)
+    for name, want in fields.items():
+        np.testing.assert_array_equal(back[name], want, err_msg=name)
+    for s in steps[half:]:
+        sj, out_j = step_j(sj, s)
+        st, out_t = step_t(st, s)
+        cmp(out_j, out_t)
+    assert_keyed_states_equal(jax_keyed_fields(sj, port_mod.STATE_FIELDS),
+                              port_mod.state_to_numpy(st))
+
+
+def test_rolling_state_carried_mid_stream_continues_equal():
+    from flink_tpu.ops import rolling as rj
+    from flink_tpu_torch.ops import rolling as rt
+    red = ReduceSpecJ("sum", jnp.float32)
+    upd = jax.jit(lambda s, hi, lo, v, ok: rj.update(s, red, hi, lo, v, ok))
+
+    def step_j(s, b):
+        hi, lo, _ts, v, ok = b
+        s, out, good = upd(s, hi, lo, v, ok)
+        return s, np.where(np.asarray(good), np.asarray(out), np.nan)
+
+    def step_t(s, b):
+        hi, lo, _ts, v, ok = b
+        s, out, good = rt.update(s, *keyed_lanes_torch(hi, lo, v, ok))
+        return s, np.where(good.numpy(), out.numpy(), np.nan)
+
+    _keyed_carry(rj, rt, lambda: rj.init_state(KC, 16, red), step_j, step_t,
+                 keyed_batches(31, 4), np.testing.assert_array_equal)
+
+
+def _rows(cols):
+    a = np.stack([np.asarray(c).astype(np.float64) for c in cols], 1)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def test_count_state_carried_mid_stream_continues_equal():
+    from flink_tpu.ops import count_windows as cj
+    from flink_tpu_torch.ops import count_windows as ct
+    red = ReduceSpecJ("sum", jnp.float32)
+    upd = jax.jit(lambda s, hi, lo, v, ok: cj.update(s, red, 7, hi, lo, v,
+                                                     ok))
+
+    def step_j(s, b):
+        hi, lo, _ts, v, ok = b
+        s, khi, klo, w, fv, m = upd(s, hi, lo, v, ok)
+        m = np.asarray(m)
+        return s, _rows([np.asarray(x)[m].view(np.uint32)
+                         if x is not w and x is not fv else np.asarray(x)[m]
+                         for x in (khi, klo, w, fv)])
+
+    def step_t(s, b):
+        hi, lo, _ts, v, ok = b
+        s, rows, n = ct.update(s, 7, *keyed_lanes_torch(hi, lo, v, ok))
+        r = [x[:int(n)].numpy() for x in rows]
+        return s, _rows([r[0].view(np.uint32), r[1].view(np.uint32), r[2],
+                         r[3]])
+
+    _keyed_carry(cj, ct, lambda: cj.init_state(KC, 16, red), step_j, step_t,
+                 keyed_batches(32, 4), np.testing.assert_array_equal)
+
+
+def test_session_state_carried_mid_stream_continues_equal():
+    from flink_tpu.ops import session_windows as swj
+    from flink_tpu_torch.ops import session_windows as swt
+    red = ReduceSpecJ("sum", jnp.float32)
+    gap = 20
+    upd = jax.jit(lambda s, hi, lo, ts, v, ok, wm: swj.update_and_fire(
+        s, red, gap, hi, lo, ts, v, ok, wm))
+    steps = [(hi, lo, ts, v, ok, int(ts.max()) - 25)
+             for hi, lo, ts, v, ok in keyed_batches(33, 6)]
+
+    def step_j(s, b):
+        hi, lo, ts, v, ok, wm = b
+        s, old_f, mid_f, (ws, we, wv, wm_mask) = upd(s, hi, lo, ts, v, ok,
+                                                     np.int32(wm))
+        cols = [[] for _ in range(5)]
+        for f in (old_f, mid_f):
+            m = np.asarray(f[5])
+            for c, a in zip(cols, f[:5]):
+                c.append(np.asarray(a)[m])
+        m = np.asarray(wm_mask)
+        keys = np.asarray(s.table.keys)
+        for c, a in zip(cols, (keys[:, 0], keys[:, 1], ws, we, wv)):
+            c.append(np.asarray(a)[m])
+        cols = [np.concatenate(c) for c in cols]
+        cols[0], cols[1] = cols[0].view(np.uint32), cols[1].view(np.uint32)
+        return s, _rows(cols)
+
+    def step_t(s, b):
+        hi, lo, ts, v, ok, wm = b
+        s, rows, n = swt.update_and_fire(
+            s, gap, *keyed_lanes_torch(hi, lo, v, ok, ts=ts),
+            torch.tensor(wm, dtype=torch.int32))
+        r = [x[:int(n)].numpy() for x in rows]
+        r[0], r[1] = r[0].view(np.uint32), r[1].view(np.uint32)
+        return s, _rows(r)
+
+    _keyed_carry(swj, swt, lambda: swj.init_state(KC, 16, red), step_j,
+                 step_t, steps, np.testing.assert_array_equal)

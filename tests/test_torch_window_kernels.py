@@ -111,4 +111,15 @@ def test_cpu_tensors_never_launch_a_kernel():
                    insert=insert)
     assert int(st_h.ovf_n) > 0          # the fast update spilled new keys
     wkt.compact_table(st_h, win_o, red_t)
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 9
+    # the session, count-window and rolling stages (G10-G13)
+    from flink_tpu_torch.ops import count_windows, rolling, session_windows
+    lanes = lanes_torch(*batches(4)[0][:5])
+    rolling.update(rolling.init_state(C, device="cpu"), lanes[0], lanes[1],
+                   lanes[3], lanes[4])
+    count_windows.update(count_windows.init_state(C, device="cpu"), 3,
+                         lanes[0], lanes[1], lanes[3], lanes[4])
+    session_windows.update_and_fire(
+        session_windows.init_state(C, device="cpu"), 5, *lanes,
+        torch.tensor(20, dtype=torch.int32))
+    assert len(kernels.KERNELS) == 13
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 13

@@ -220,3 +220,105 @@ def jax_hash_kernels(window: str):
         return wkj.advance_and_fire_resident(st, win, red, wm)
 
     return jax.jit(upd), jax.jit(adv)
+
+
+# -- the keyed operators: sessions, count windows, rolling reduces -------
+
+KC, KB = 1024, 256          # their table capacity and batch
+
+
+def keyed_batches(seed: int, n: int, pool: int = 150, t0: int = 0,
+                  ts_step: int = 40, ts_span: int = 60,
+                  floats: bool = False):
+    """``n`` batches of KB lanes over a pool of sparse 64-bit keys (a load
+    of at most 0.15 at KC): a hot key in a quarter of the lanes, duplicate
+    runs, invalid lanes, and in the second batch lanes of the key -1
+    (== EMPTY, never placed: a counted capacity loss on both sides).
+    Batch i's ticks are ``t0 + i * ts_step + [0, ts_span)``, so they
+    overlap the batch before (out of order within the span)."""
+    rng = np.random.default_rng(seed)
+    keys_pool = rng.integers(-(2**63), 2**63 - 1, pool, dtype=np.int64)
+    out = []
+    for i in range(n):
+        keys = keys_pool[rng.integers(0, pool, KB)]
+        keys[: KB // 4] = keys_pool[0]
+        keys[KB // 4: KB // 4 + 32] = keys_pool[1:5].repeat(8)
+        if i == 1:
+            keys[-8:] = -1
+        hi, lo = key_halves(keys)
+        ts = (t0 + i * ts_step + rng.integers(0, ts_span, KB)).astype(
+            np.int32)
+        if floats:
+            vals = rng.uniform(0.5, 8.0, KB).astype(np.float32)
+        else:
+            vals = rng.integers(1, 9, KB).astype(np.float32)
+        valid = rng.random(KB) < 0.9
+        out.append((hi, lo, ts, vals, valid))
+    return out
+
+
+def keyed_lanes_torch(hi, lo, vals, valid, ts=None):
+    """numpy lanes -> the port's tensors; ts too when given."""
+    out = [torch.from_numpy(hi.view(np.int32).copy()),
+           torch.from_numpy(lo.view(np.int32).copy())]
+    if ts is not None:
+        out.append(torch.from_numpy(ts.astype(np.int32)))
+    out += [torch.from_numpy(vals.astype(np.float32)),
+            torch.from_numpy(valid.copy())]
+    return out
+
+
+def jax_keyed_fields(st, names) -> dict:
+    """A JAX session / count / rolling state's leaves as numpy, under the
+    port's names (``table.keys`` the uint32 [C, 2] rows)."""
+    out = {"table.keys": np.asarray(st.table.keys)}
+    for name in names[1:]:
+        out[name] = np.asarray(getattr(st, name))
+    return out
+
+
+def keyed_state(fields: dict) -> dict:
+    """Per-slot fields with the slot order taken out: the used slots' key
+    words sorted, each slot field at those slots; scalars as they are."""
+    rows = np.asarray(fields["table.keys"]).astype(np.uint64)
+    words = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
+    used = np.nonzero(words != np.uint64(0xFFFFFFFFFFFFFFFF))[0]
+    order = used[np.argsort(words[used], kind="stable")]
+    out = {"keys": words[order]}
+    for name, v in fields.items():
+        if name == "table.keys":
+            continue
+        v = np.asarray(v)
+        out[name] = v if v.ndim == 0 else v[order]
+    return out
+
+
+def assert_keyed_states_equal(want_fields: dict, got_fields: dict,
+                              rtol: float = 0.0) -> None:
+    """Tables compared as sets of keys, each key's slot fields equal (the
+    accumulators within ``rtol``; 0 means bit for bit)."""
+    want, got = keyed_state(want_fields), keyed_state(got_fields)
+    assert want.keys() == got.keys()
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        if name == "acc" and rtol:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def sorted_rows(cols) -> np.ndarray:
+    """Rows given as equal-length columns -> a float64 [n, k] array sorted
+    by all columns (key words as uint64 first), for set comparison."""
+    a = np.stack([np.asarray(c, np.float64) for c in cols], 1)
+    if not len(a):
+        return a
+    return a[np.lexsort(a.T[::-1])]
+
+
+def words_of(hi, lo) -> np.ndarray:
+    hi = np.asarray(hi).view(np.uint32).astype(np.uint64)
+    lo = np.asarray(lo).view(np.uint32).astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
