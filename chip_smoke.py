@@ -1035,7 +1035,7 @@ def case_segment_sort(dev, C, B, kind):
         h, l = id_halves(splitmix64(b).view(np.int64), dev)
         s_slot, ok, _ = kernels.hash_upsert(
             table, h, l, torch.ones(B, dtype=torch.bool, device=dev),
-            probe_len=16)
+            probe_len=hashtable.KEYED_PROBE_LEN)
         s_ts = _t(t.astype(np.int32), dev, torch.int32)
         s_live = ok
     else:
@@ -1135,9 +1135,10 @@ def case_count_update(dev, C, B, kind):
         "run": lambda: kernels.count_update(*s1, *args, N=COUNT_N),
         "plain": lambda: kernels.count_update_plain(*s2, *args, N=COUNT_N),
         "library": None,
-        # key, flag, order, value, hi, lo per lane; count, acc, touched read
-        # and written per key; 16 B per fire row
-        "bytes": B * (8 + 1 + 4 + 4 + 4 + 4) + n_keys * 9 * 2 + n * 16,
+        # key, flag, order, value per lane; hi and lo only for the n fired
+        # lanes, and 16 B per fire row; count, acc, touched read and
+        # written per key
+        "bytes": B * (8 + 1 + 4 + 4) + n * (8 + 16) + n_keys * 9 * 2,
     }
 
 
@@ -1163,8 +1164,9 @@ def case_session_update(dev, C, B, kind, main_state):
     """``main``: the sessions job 17 s into its stream (1M ids in the
     table, ~250,000 open sessions, watermark closes due), its next batch.
     ``edge``: random open sessions over half the slots; lanes over a
-    tenth of them, a hot slot in 20 % of the lanes whose ticks span 10
-    gaps (several sessions of one key in one batch), ticks out of order
+    tenth of them, a hot slot in 20 % of the lanes whose ticks fall in 10
+    clusters 2 gaps apart (10 sessions of one key in one batch, each cut
+    inside the key's multi-block run of sorted lanes), ticks out of order
     within a gap, keys whose open session the batch merges with or
     supersedes, 5 % dead lanes (late or without a slot: G11 sees both as
     lanes of the slot C), and a watermark jump that closes ~40 % of the
@@ -1174,7 +1176,7 @@ def case_session_update(dev, C, B, kind, main_state):
     if kind == "main":
         st0, (h, l, ts, vals, _valid), wm_v = main_state
         slot, live = hashtable.upsert(st0.table_keys, h, l,
-                                      torch.ones_like(_valid), probe_len=16)
+                                      torch.ones_like(_valid))
         state0 = (st0.start, st0.last, st0.acc, st0.active)
         table = st0.table_keys
     else:
@@ -1190,7 +1192,8 @@ def case_session_update(dev, C, B, kind, main_state):
         s = rng.integers(0, C // 10, B)
         s[: B // 5] = 31
         t = rng.integers(40_000, 90_000, B)
-        t[: B // 5] = rng.integers(0, 10 * 2 * G, B // 5)
+        t[: B // 5] = (rng.integers(0, 10, B // 5) * 2 * G
+                       + rng.integers(0, 1000, B // 5))
         slot = _t(s.astype(np.int32), dev, torch.int32)
         ts = _t(t.astype(np.int32), dev, torch.int32)
         live = _t(rng.random(B) < 0.95, dev, torch.bool)
@@ -1218,11 +1221,11 @@ def case_session_update(dev, C, B, kind, main_state):
         "plain": lambda: kernels.session_update_plain(*st_plain, *args, G=G),
         "library": None,
         # key, order, value per lane; the open session read and the last
-        # session written per key (13 B each); 20 B per fire row; the close
-        # sweep's active and last per slot, and start, acc and the key word
-        # per closed slot
-        "bytes": B * (8 + 4 + 4) + n_keys * 13 * 2 + n * 20 + C * 5
-        + n_close * (4 + 4 + 8 + 5),
+        # session written per key (13 B each); 20 B per fire row, and hi
+        # and lo of each lane that fires; the close sweep's active and last
+        # per slot, and start, acc and the key word per closed slot
+        "bytes": B * (8 + 4 + 4) + n_keys * 13 * 2 + n * 20
+        + (n - n_close) * 8 + C * 5 + n_close * (4 + 4 + 8 + 5),
         "rows": n, "closes": n_close,
     }
 
@@ -1571,12 +1574,13 @@ def check_session_rows(cols, total):
 
 
 def probe_depths(table, C):
-    """How deep the table's keys sit in their chains of 16."""
+    """How deep the table's keys sit in their chains (KEYED_PROBE_LEN)."""
     used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
     hi, lo = kernels.split_words(table[used])
     depth = (used - (probe_hash(hi, lo) & (C - 1))) % C
     return {"keys": int(used.numel()), "load": used.numel() / C,
-            "probe_len": 16, "max_depth": int(depth.max()),
+            "probe_len": hashtable.KEYED_PROBE_LEN,
+            "max_depth": int(depth.max()),
             "keys_at_depth_12_or_more": int((depth >= 12).sum())}
 
 

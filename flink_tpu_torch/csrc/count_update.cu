@@ -24,10 +24,11 @@
 // launch writes the state back (lanes of one key in other blocks read it
 // during the scans).
 //
-// Bound: bytes. Per lane: key (8 B), flag (1 B), order (4 B), value,
-// hi and lo through the order (12 B); per key of the batch count, acc and
-// touched read and written (9 B each); 16 B per fire row. 262,144 lanes of
-// ~190,000 keys with ~20,000 fires: ~10 MB, about 3 us at 3.35 TB/s.
+// Bound: bytes. Per lane: key (8 B), flag (1 B), order (4 B) and value
+// (4 B); per fire: hi and lo through the order (8 B) and the row (16 B);
+// per key of the batch count, acc and touched read and written (9 B
+// each). The function reads hi and lo of the fired lanes only, about one
+// lane in N.
 
 #include "ring.cuh"
 #include "segscan.cuh"

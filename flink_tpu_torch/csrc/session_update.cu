@@ -36,9 +36,10 @@
 //
 // Bound: bytes. Per lane: key (8 B), order (4 B), value (4 B); per session
 // end the open session read (13 B) and the merged one written (13 B); per
-// fire row 20 B; the close sweep reads active and last of every slot (5 B x
-// C: 21 MB at C = 2^22). A batch of 262,144 lanes at C = 2^22: ~26 MB,
-// about 8 us at 3.35 TB/s, most of it the sweep.
+// fire row 20 B, and hi and lo (8 B) of each lane that fires; the close
+// sweep reads active and last of every slot (5 B x C: 21 MB at C = 2^22),
+// and start, acc and the key word of each slot it closes. Most of it is
+// the sweep.
 
 #include "ring.cuh"
 #include "segscan.cuh"

@@ -22,8 +22,10 @@ import torch
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable, segment
 
-PROBE_LEN = 16       # the stage's chains (runtime/step.py:2515 reference)
-STATE_FIELDS = ("table.keys", "count", "acc", "touched", "dropped_capacity")
+# the reference's leaves but ``table.keys``, with the port's dtypes
+STATE_DTYPES = {"count": torch.int32, "acc": torch.float32,
+                "touched": torch.bool, "dropped_capacity": torch.int32}
+STATE_FIELDS = ("table.keys",) + tuple(STATE_DTYPES)
 
 
 @dataclass
@@ -33,15 +35,13 @@ class CountShardState:
     acc: torch.Tensor               # float32 [C]: the trailing partial
     touched: torch.Tensor           # bool [C]: the partial has data
     dropped_capacity: torch.Tensor  # int32 0-d
-    probe_len: int = PROBE_LEN
 
     @property
     def capacity(self) -> int:
         return self.table_keys.shape[0]
 
 
-def init_state(capacity: int, probe_len: int = PROBE_LEN,
-               device="cuda") -> CountShardState:
+def init_state(capacity: int, device="cuda") -> CountShardState:
     dev = torch.device(device)
     return CountShardState(
         table_keys=hashtable.create(capacity, dev),
@@ -49,7 +49,6 @@ def init_state(capacity: int, probe_len: int = PROBE_LEN,
         acc=torch.zeros(capacity, dtype=torch.float32, device=dev),
         touched=torch.zeros(capacity, dtype=torch.bool, device=dev),
         dropped_capacity=torch.zeros((), dtype=torch.int32, device=dev),
-        probe_len=probe_len,
     )
 
 
@@ -60,8 +59,7 @@ def update(state: CountShardState, n_per_window: int, hi, lo, values,
     the key, value) in the prefix ``[:n_rows]`` of the [B] row buffers,
     in the reference's sorted-lane order."""
     C = state.capacity
-    slot, ok = hashtable.upsert(state.table_keys, hi, lo, valid,
-                                probe_len=state.probe_len)
+    slot, ok = hashtable.upsert(state.table_keys, hi, lo, valid)
     state.dropped_capacity += (valid & ~ok).sum(dtype=torch.int32)
     live = valid & ok
     order, key_s, seg_start = segment.sort_slots(slot, live, C)
@@ -71,33 +69,13 @@ def update(state: CountShardState, n_per_window: int, hi, lo, values,
     return state, rows, n_rows
 
 
-def _t(fields, name, dtype, dev):
-    a = np.array(fields[name])           # a writable C-order copy
-    if dtype == torch.int32 and a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device=dev, dtype=dtype)
-
-
-def state_from_numpy(fields: Dict[str, np.ndarray], device="cuda",
-                     probe_len: int = PROBE_LEN) -> CountShardState:
+def state_from_numpy(fields: Dict[str, np.ndarray],
+                     device="cuda") -> CountShardState:
     """A port state from host arrays named as the reference's
     ``CountShardState`` leaves (``STATE_FIELDS``)."""
-    dev = torch.device(device)
-    return CountShardState(
-        table_keys=hashtable.from_rows(fields["table.keys"], device=dev),
-        count=_t(fields, "count", torch.int32, dev),
-        acc=_t(fields, "acc", torch.float32, dev),
-        touched=_t(fields, "touched", torch.bool, dev),
-        dropped_capacity=_t(fields, "dropped_capacity", torch.int32, dev),
-        probe_len=probe_len,
-    )
+    return hashtable.keyed_state_from_numpy(CountShardState, fields,
+                                            STATE_DTYPES, device)
 
 
 def state_to_numpy(state: CountShardState) -> Dict[str, np.ndarray]:
-    return {
-        "table.keys": hashtable.to_rows(state.table_keys),
-        "count": state.count.cpu().numpy(),
-        "acc": state.acc.cpu().numpy(),
-        "touched": state.touched.cpu().numpy(),
-        "dropped_capacity": state.dropped_capacity.cpu().numpy(),
-    }
+    return hashtable.keyed_state_to_numpy(state, STATE_DTYPES)

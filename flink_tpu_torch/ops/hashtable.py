@@ -21,7 +21,7 @@ point removal ``remove_slots`` has no caller there and is not ported.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,10 @@ from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops.cuda import EMPTY_WORD
 
 EMPTY = np.uint32(0xFFFFFFFF)   # the reference's EMPTY row half
+# the chains of the session, count-window and rolling stages: the
+# reference's fixed 16 (runtime/step.py:2454, 2515, 2576), whatever
+# state.probe-len says
+KEYED_PROBE_LEN = 16
 
 
 def create(capacity: int, device="cuda") -> torch.Tensor:
@@ -65,15 +69,16 @@ def upsert_counted(table: torch.Tensor, hi, lo, valid, *, probe_len: int):
     return kernels.hash_upsert(table, hi, lo, valid, probe_len=probe_len)
 
 
-def upsert(table: torch.Tensor, hi, lo, valid, *,
-           probe_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def upsert(table: torch.Tensor, hi, lo,
+           valid) -> Tuple[torch.Tensor, torch.Tensor]:
     """Insert-or-find as the session, count-window and rolling stages call
-    the reference's ``upsert(..., max_rounds=8)``: (slot int32 [B], C where
-    not ok; ok bool [B]), the table updated in place (G5). G5's CAS walk
-    places every key whose chain has room, where the reference's eight
-    claim rounds can leave out a key that lost eight races (ROADMAP
-    queue 3)."""
-    slot, ok, _ = upsert_counted(table, hi, lo, valid, probe_len=probe_len)
+    the reference's ``upsert(..., max_rounds=8)``, on chains of
+    ``KEYED_PROBE_LEN``: (slot int32 [B], C where not ok; ok bool [B]),
+    the table updated in place (G5). G5's CAS walk places every key whose
+    chain has room, where the reference's eight claim rounds can leave out
+    a key that lost eight races (ROADMAP queue 3)."""
+    slot, ok, _ = upsert_counted(table, hi, lo, valid,
+                                 probe_len=KEYED_PROBE_LEN)
     return slot, ok
 
 
@@ -91,3 +96,26 @@ def from_rows(rows: np.ndarray, device="cuda") -> torch.Tensor:
         raise ValueError(f"table rows must be [C, 2], got {r.shape}")
     w = (r[:, 0] << np.uint64(32)) | r[:, 1]
     return torch.from_numpy(w.view(np.int64)).to(torch.device(device))
+
+
+def keyed_state_from_numpy(cls, fields: Dict[str, np.ndarray],
+                           dtypes: Dict[str, torch.dtype], device):
+    """A session, count-window or rolling state ``cls`` from host arrays
+    named as the reference's leaves: ``table.keys`` as (hi, lo) rows and
+    the fields of ``dtypes`` (uint32 leaves keep their bits in int32)."""
+    dev = torch.device(device)
+    out = {"table_keys": from_rows(fields["table.keys"], device=dev)}
+    for name, dtype in dtypes.items():
+        a = np.array(fields[name])           # a writable C-order copy
+        if dtype == torch.int32 and a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = torch.from_numpy(a).to(device=dev, dtype=dtype)
+    return cls(**out)
+
+
+def keyed_state_to_numpy(state, names) -> Dict[str, np.ndarray]:
+    """The inverse of ``keyed_state_from_numpy`` for the fields ``names``."""
+    out = {"table.keys": to_rows(state.table_keys)}
+    for name in names:
+        out[name] = getattr(state, name).cpu().numpy()
+    return out

@@ -27,8 +27,10 @@ import torch
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable, segment
 
-PROBE_LEN = 16       # the stage's chains (runtime/step.py:2576 reference)
-STATE_FIELDS = ("table.keys", "acc", "touched", "dropped_capacity")
+# the reference's leaves but ``table.keys``, with the port's dtypes
+STATE_DTYPES = {"acc": torch.float32, "touched": torch.bool,
+                "dropped_capacity": torch.int32}
+STATE_FIELDS = ("table.keys",) + tuple(STATE_DTYPES)
 
 
 @dataclass
@@ -40,22 +42,19 @@ class RollingShardState:
     acc: torch.Tensor               # float32 [C]
     touched: torch.Tensor           # bool [C]
     dropped_capacity: torch.Tensor  # int32 0-d
-    probe_len: int = PROBE_LEN
 
     @property
     def capacity(self) -> int:
         return self.table_keys.shape[0]
 
 
-def init_state(capacity: int, probe_len: int = PROBE_LEN,
-               device="cuda") -> RollingShardState:
+def init_state(capacity: int, device="cuda") -> RollingShardState:
     dev = torch.device(device)
     return RollingShardState(
         table_keys=hashtable.create(capacity, dev),
         acc=torch.zeros(capacity, dtype=torch.float32, device=dev),
         touched=torch.zeros(capacity, dtype=torch.bool, device=dev),
         dropped_capacity=torch.zeros((), dtype=torch.int32, device=dev),
-        probe_len=probe_len,
     )
 
 
@@ -66,8 +65,7 @@ def update(state: RollingShardState, hi, lo, values, valid):
     right after record i (lane order = batch order); out_valid the lanes
     whose key has a slot."""
     C = state.capacity
-    slot, ok = hashtable.upsert(state.table_keys, hi, lo, valid,
-                                probe_len=state.probe_len)
+    slot, ok = hashtable.upsert(state.table_keys, hi, lo, valid)
     state.dropped_capacity += (valid & ~ok).sum(dtype=torch.int32)
     live = valid & ok
     order, key_s, seg_start = segment.sort_slots(slot, live, C)
@@ -76,32 +74,14 @@ def update(state: RollingShardState, hi, lo, values, valid):
     return state, out, live
 
 
-def _t(fields, name, dtype, dev):
-    a = np.array(fields[name])           # a writable C-order copy
-    if dtype == torch.int32 and a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device=dev, dtype=dtype)
-
-
-def state_from_numpy(fields: Dict[str, np.ndarray], device="cuda",
-                     probe_len: int = PROBE_LEN) -> RollingShardState:
+def state_from_numpy(fields: Dict[str, np.ndarray],
+                     device="cuda") -> RollingShardState:
     """A port state from host arrays named as the reference's
     ``RollingShardState`` leaves (``STATE_FIELDS``; ``table.keys`` the
     uint32 [C, 2] rows)."""
-    dev = torch.device(device)
-    return RollingShardState(
-        table_keys=hashtable.from_rows(fields["table.keys"], device=dev),
-        acc=_t(fields, "acc", torch.float32, dev),
-        touched=_t(fields, "touched", torch.bool, dev),
-        dropped_capacity=_t(fields, "dropped_capacity", torch.int32, dev),
-        probe_len=probe_len,
-    )
+    return hashtable.keyed_state_from_numpy(RollingShardState, fields,
+                                            STATE_DTYPES, device)
 
 
 def state_to_numpy(state: RollingShardState) -> Dict[str, np.ndarray]:
-    return {
-        "table.keys": hashtable.to_rows(state.table_keys),
-        "acc": state.acc.cpu().numpy(),
-        "touched": state.touched.cpu().numpy(),
-        "dropped_capacity": state.dropped_capacity.cpu().numpy(),
-    }
+    return hashtable.keyed_state_to_numpy(state, STATE_DTYPES)

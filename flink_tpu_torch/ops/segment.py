@@ -34,10 +34,10 @@ def _bits(n: int) -> int:
     return max(1, int(n).bit_length())
 
 
-def argsort_ids(ids: torch.Tensor, stable: bool = True) -> torch.Tensor:
+def argsort_ids(ids: torch.Tensor) -> torch.Tensor:
     """Permutation (int64) ordering int32 ``ids`` ascending, equal ids in
-    lane order (the reference's ``jnp.argsort`` is stable whatever
-    ``stable`` says, and so is this)."""
+    lane order (the reference's ``jnp.argsort`` is stable whatever its
+    ``stable`` flag says, so the port sorts stably always)."""
     key = ids.to(torch.int64) + 2**31       # int32 order as a uint32 key
     order, _, _ = kernels.segment_sort(key, bits=32, seg_shift=0)
     return order.long()

@@ -30,10 +30,13 @@ import torch
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable, segment
 
-PROBE_LEN = 16       # the stage's chains (runtime/step.py:2454 reference)
 WM_NONE = -(2**31) + 1
-STATE_FIELDS = ("table.keys", "start", "last", "acc", "active", "watermark",
-                "dropped_late", "dropped_capacity")
+# the reference's leaves but ``table.keys``, with the port's dtypes
+STATE_DTYPES = {"start": torch.int32, "last": torch.int32,
+                "acc": torch.float32, "active": torch.bool,
+                "watermark": torch.int32, "dropped_late": torch.int32,
+                "dropped_capacity": torch.int32}
+STATE_FIELDS = ("table.keys",) + tuple(STATE_DTYPES)
 
 
 @dataclass
@@ -46,15 +49,13 @@ class SessionShardState:
     watermark: torch.Tensor         # int32 0-d
     dropped_late: torch.Tensor      # int32 0-d
     dropped_capacity: torch.Tensor  # int32 0-d
-    probe_len: int = PROBE_LEN
 
     @property
     def capacity(self) -> int:
         return self.table_keys.shape[0]
 
 
-def init_state(capacity: int, probe_len: int = PROBE_LEN,
-               device="cuda") -> SessionShardState:
+def init_state(capacity: int, device="cuda") -> SessionShardState:
     dev = torch.device(device)
 
     def i32(*shape, fill=0):
@@ -66,7 +67,7 @@ def init_state(capacity: int, probe_len: int = PROBE_LEN,
         acc=torch.zeros(capacity, dtype=torch.float32, device=dev),
         active=torch.zeros(capacity, dtype=torch.bool, device=dev),
         watermark=i32(fill=WM_NONE), dropped_late=i32(),
-        dropped_capacity=i32(), probe_len=probe_len,
+        dropped_capacity=i32(),
     )
 
 
@@ -86,8 +87,7 @@ def update_and_fire(state: SessionShardState, gap: int, hi, lo, ts, values,
     late = valid & (ts + gap <= state.watermark)
     state.dropped_late += late.sum(dtype=torch.int32)
     live = valid & ~late
-    slot, ok = hashtable.upsert(state.table_keys, hi, lo, live,
-                                probe_len=state.probe_len)
+    slot, ok = hashtable.upsert(state.table_keys, hi, lo, live)
     state.dropped_capacity += (live & ~ok).sum(dtype=torch.int32)
     live = live & ok
     torch.maximum(state.watermark, new_watermark,
@@ -99,34 +99,13 @@ def update_and_fire(state: SessionShardState, gap: int, hi, lo, ts, values,
     return state, rows, n_rows
 
 
-def _t(fields, name, dtype, dev):
-    a = np.array(fields[name])           # a writable C-order copy
-    if dtype == torch.int32 and a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device=dev, dtype=dtype)
-
-
-def state_from_numpy(fields: Dict[str, np.ndarray], device="cuda",
-                     probe_len: int = PROBE_LEN) -> SessionShardState:
+def state_from_numpy(fields: Dict[str, np.ndarray],
+                     device="cuda") -> SessionShardState:
     """A port state from host arrays named as the reference's
     ``SessionShardState`` leaves (``STATE_FIELDS``)."""
-    dev = torch.device(device)
-    i32 = torch.int32
-    return SessionShardState(
-        table_keys=hashtable.from_rows(fields["table.keys"], device=dev),
-        start=_t(fields, "start", i32, dev),
-        last=_t(fields, "last", i32, dev),
-        acc=_t(fields, "acc", torch.float32, dev),
-        active=_t(fields, "active", torch.bool, dev),
-        watermark=_t(fields, "watermark", i32, dev),
-        dropped_late=_t(fields, "dropped_late", i32, dev),
-        dropped_capacity=_t(fields, "dropped_capacity", i32, dev),
-        probe_len=probe_len,
-    )
+    return hashtable.keyed_state_from_numpy(SessionShardState, fields,
+                                            STATE_DTYPES, device)
 
 
 def state_to_numpy(state: SessionShardState) -> Dict[str, np.ndarray]:
-    out = {"table.keys": hashtable.to_rows(state.table_keys)}
-    for name in STATE_FIELDS[1:]:
-        out[name] = getattr(state, name).cpu().numpy()
-    return out
+    return hashtable.keyed_state_to_numpy(state, STATE_DTYPES)

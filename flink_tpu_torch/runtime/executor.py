@@ -74,7 +74,6 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.core.time import MAX_TS, TimeCharacteristic, TimeDomain
-from flink_tpu_torch.core.types import KeyCodec
 from flink_tpu_torch.datastream.window.assigners import (
     CountWindowAssigner,
     SessionWindowAssigner,
@@ -85,6 +84,7 @@ from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.runtime import keyed_jobs
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
+from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
     build_window_resident_drain,
@@ -253,13 +253,14 @@ class LocalExecutor:
                 if isinstance(pipe.window_agg.assigner, SessionWindowAssigner)
                 else "processing-time windows", "ROADMAP queue 1, item 9")
         if pipe.rolling is not None:
-            job = keyed_jobs.RollingJob(env, pipe, JobMetrics())
+            job_cls = keyed_jobs.RollingJob
         elif isinstance(pipe.window_agg.assigner, CountWindowAssigner):
-            job = keyed_jobs.CountJob(env, pipe, JobMetrics())
+            job_cls = keyed_jobs.CountJob
         elif isinstance(pipe.window_agg.assigner, SessionWindowAssigner):
-            job = keyed_jobs.SessionJob(env, pipe, JobMetrics())
+            job_cls = keyed_jobs.SessionJob
         else:
-            job = _WindowJob(env, pipe)
+            job_cls = _WindowJob
+        job = job_cls(env, pipe, JobMetrics())
         for s in pipe.sinks:
             s.open()
         pipe.source.open()
@@ -269,8 +270,6 @@ class LocalExecutor:
             pipe.source.close()
             for s in pipe.sinks:
                 s.close()
-        if isinstance(job, _WindowJob):
-            return job.finish(job_name)
         job.finish()
         return JobHandle(job_name, job.metrics, state=job.state)
 
@@ -297,24 +296,23 @@ def _check_config(cfg) -> None:
                            "ROADMAP queue 2, K13")
 
 
-class _WindowJob:
+class _WindowJob(StageJob):
     """State of one run: the window stage, its ring and the host cursors."""
 
-    def __init__(self, env, pipe: _Pipeline):
+    CAPACITY_HINT = (" (raise state.backend.device.slots-per-shard or the "
+                     "pane ring, or set state.backend.strict-capacity to "
+                     "false to tolerate drops)")
+
+    def __init__(self, env, pipe: _Pipeline, metrics):
         cfg = env.config
         _check_config(cfg)
-        self.env = env
-        self.pipe = pipe
-        self.metrics = JobMetrics()
-        self.device = torch.device(env.device)
-        self.red = pipe.window_agg.reduce_spec_factory()
+        super().__init__(env, pipe, metrics, pipe.window_agg)
         assigner = pipe.window_agg.assigner
         self.size_ms, self.slide_ms = assigner.size_ms, assigner.slide_ms
         self.wm_strategy = (
             pipe.ts_transform.strategy if pipe.ts_transform is not None
             else WatermarkStrategy.for_monotonous_timestamps()
         )
-        self.B = env.batch_size
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
         # the spill tier needs a reduce the host can combine; every other
         # precondition of the reference's (float32 scalar values, allowed
@@ -336,17 +334,9 @@ class _WindowJob:
         self.sink_device_reduce = all(getattr(s, "device_reduce", False)
                                       for s in pipe.sinks)
         self.reduced = self.sink_device_reduce and not self.has_ring
-        self.columnar = all(getattr(s, "columnar", False)
-                            for s in pipe.sinks)
-        self.codec = KeyCodec()
-        # the reverse key map serves only WindowResult decoding (the port
-        # has no checkpoint key map), so columnar-only jobs skip its cost
-        self.keep_reverse = (cfg.get_bool("keys.reverse-map", True)
-                             and not self.columnar)
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
         self.spec: Optional[WindowStageSpec] = None
-        self.state: Optional[wk.WindowShardState] = None
         self.ring: Optional[DeviceBatchRing] = None
         self.drain = None
         self.fast_drain = None       # the lookup-only variant (hash + ring)
@@ -418,15 +408,8 @@ class _WindowJob:
     def wm_ticks(self, wm_ms: int) -> int:
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
 
-    # -- the poll loop -----------------------------------------------------
-    def run(self) -> None:
-        pipe = self.pipe
-        while True:
-            (cols, ts_ms), end = pipe.source.poll(self.B)
-            if cols:
-                self.apply(cols, ts_ms)
-            if end:
-                break
+    # -- the poll loop (StageJob.run) --------------------------------------
+    def end_of_stream(self) -> None:
         if self.td is None:
             return
         self.dispatch()
@@ -435,21 +418,9 @@ class _WindowJob:
         self.fire_until_done(int(self.td.to_ms(MAX_TS - 2)))
 
     def apply(self, cols, ts_ms) -> None:
-        pipe = self.pipe
-        keys = np.asarray(pipe.key_by.key_selector(cols))
-        n = len(keys)
-        if n == 0:
-            return
-        hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
-        values = np.asarray(pipe.window_agg.extractor(cols), np.float32)
-        if pipe.ts_transform is not None:
-            ts_ms = np.asarray(pipe.ts_transform.timestamp_fn(cols), np.int64)
-        elif ts_ms is None:
-            raise ValueError(
-                "event-time job but the columnar source provides no "
-                "timestamps and no assign_timestamps_and_watermarks is set")
-        ts_ms = np.asarray(ts_ms, np.int64)
-        self.metrics.records_in += n
+        _keys, hi, lo, values = self.encode(cols)
+        n = len(hi)
+        ts_ms = self.event_ts(cols, ts_ms)
         if self.td is None:
             self.setup((int(ts_ms.min()) // self.size_ms) * self.size_ms,
                        hi, lo)
@@ -669,17 +640,12 @@ class _WindowJob:
         n = len(values)
         self.metrics.fires += n
         if self.columnar:
-            kid = (khi.astype(np.uint64) << np.uint64(32)) | klo.astype(
-                np.uint64)
-            cols = {"key_id": kid, "window_end_ms": end_ms, "value": values}
-            for s in self.pipe.sinks:
-                s.invoke_columnar(cols)
+            self.sinks_columnar({"key_id": key_words(khi, klo),
+                                 "window_end_ms": end_ms, "value": values})
             return
         keys = self.codec.decode(khi, klo)
-        out = [WindowResult(k, int(e), v) for k, e, v in
-               zip(keys, end_ms.tolist(), values.tolist())]
-        for s in self.pipe.sinks:
-            s.invoke_batch(out)
+        self.sinks_rows([WindowResult(k, int(e), v) for k, e, v in
+                         zip(keys, end_ms.tolist(), values.tolist())])
 
     # -- the spill tier ----------------------------------------------------
     def tier(self, act: int) -> None:
@@ -816,20 +782,8 @@ class _WindowJob:
             self.stores.pop(q).close()
 
     # -- end of job --------------------------------------------------------
-    def finish(self, job_name: str) -> JobHandle:
-        m = self.metrics
-        st = self.state
+    def finish(self) -> None:
         for store in self.stores.values():
             store.close()
         self.stores = {}
-        if st is not None:
-            m.dropped_late = int(st.dropped_late)
-            m.dropped_capacity = int(st.dropped_capacity)
-            if m.dropped_capacity and self.env.config.get_bool(
-                    "state.backend.strict-capacity", True):
-                raise RuntimeError(
-                    f"state backend over capacity: {m.dropped_capacity} "
-                    f"records lost (raise state.backend.device.slots-per-"
-                    f"shard or the pane ring, or set state.backend.strict-"
-                    f"capacity to false to tolerate drops)")
-        return JobHandle(job_name, m, state=st)
+        super().finish()

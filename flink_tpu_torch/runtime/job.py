@@ -1,0 +1,113 @@
+"""What every stage runner of the local executor shares: the poll loop,
+key and value encoding, event-time timestamps, the sinks' output mode and
+the end-of-job capacity check. ``runtime/executor.py``'s time-window job
+and the session, count-window and rolling runners of
+``runtime/keyed_jobs.py`` subclass ``StageJob``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.core.types import KeyCodec
+
+
+def key_words(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) uint32 halves -> the uint64 key identities."""
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
+class StageJob:
+    """One run of one keyed stage. Subclasses give ``apply(cols, ts_ms)``
+    for a non-empty polled batch, and may give ``idle()`` (the source had
+    nothing new) and ``end_of_stream()``."""
+
+    # appended to the strict-capacity error
+    CAPACITY_HINT = ""
+
+    def __init__(self, env, pipe, metrics, agg):
+        self.env = env
+        self.pipe = pipe
+        self.metrics = metrics
+        self.agg = agg
+        self.device = torch.device(env.device)
+        self.B = env.batch_size
+        self.red = agg.reduce_spec_factory()
+        # rows go as columns when every sink takes them
+        self.columnar = all(getattr(s, "columnar", False) for s in pipe.sinks)
+        # the reverse key map serves only row decoding (the port has no
+        # checkpoint key map), so columnar-only jobs skip its cost
+        self.keep_reverse = (env.config.get_bool("keys.reverse-map", True)
+                             and not self.columnar)
+        self.codec = KeyCodec()
+        self.state = None
+
+    def run(self) -> None:
+        pipe = self.pipe
+        while True:
+            (cols, ts_ms), end = pipe.source.poll(self.B)
+            if cols and len(next(iter(cols.values()))):
+                self.apply(cols, ts_ms)
+            else:
+                self.idle()
+            if end:
+                break
+        self.end_of_stream()
+
+    def apply(self, cols, ts_ms) -> None:
+        raise NotImplementedError
+
+    def idle(self) -> None:
+        pass
+
+    def end_of_stream(self) -> None:
+        pass
+
+    def encode(self, cols):
+        """A batch's keys (as polled), their (hi, lo) identities and the
+        extractor's float32 values; counts the records in."""
+        keys = np.asarray(self.pipe.key_by.key_selector(cols))
+        hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
+        values = np.asarray(self.agg.extractor(cols), np.float32)
+        if values.shape != hi.shape:
+            raise ValueError(
+                f"the extractor gave {values.shape} values for {hi.shape} "
+                f"keys (only scalar values are ported)")
+        self.metrics.records_in += len(hi)
+        return keys, hi, lo, values
+
+    def event_ts(self, cols, ts_ms) -> np.ndarray:
+        """The batch's event times in ms: the timestamp assigner's, else
+        the source's."""
+        if self.pipe.ts_transform is not None:
+            ts_ms = self.pipe.ts_transform.timestamp_fn(cols)
+        elif ts_ms is None:
+            raise ValueError(
+                "event-time job but the columnar source provides no "
+                "timestamps and no assign_timestamps_and_watermarks is set")
+        return np.asarray(ts_ms, np.int64)
+
+    def sinks_columnar(self, cols) -> None:
+        for s in self.pipe.sinks:
+            s.invoke_columnar(cols)
+
+    def sinks_rows(self, rows) -> None:
+        for s in self.pipe.sinks:
+            s.invoke_batch(rows)
+
+    def finish(self) -> None:
+        """Read the state's loss counters into the metrics; with strict
+        capacity (the default) a record lost to capacity fails the job."""
+        st = self.state
+        if st is None:
+            return
+        m = self.metrics
+        m.dropped_capacity = int(st.dropped_capacity)
+        if hasattr(st, "dropped_late"):
+            m.dropped_late = int(st.dropped_late)
+        if m.dropped_capacity and self.env.config.get_bool(
+                "state.backend.strict-capacity", True):
+            raise RuntimeError(
+                f"state backend over capacity: {m.dropped_capacity} "
+                f"records lost{self.CAPACITY_HINT}")

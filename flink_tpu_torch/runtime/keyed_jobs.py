@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.core.time import TimeDomain
-from flink_tpu_torch.core.types import KeyCodec
 from flink_tpu_torch.runtime import step as step_mod
+from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 
 WindowResult = namedtuple("WindowResult", ["key", "window_end_ms", "value"])
@@ -52,8 +52,8 @@ class _LaggedEmitter:
     """A copy of the reference's ``_LaggedEmitter`` (executor.py:98):
     up to ``lag`` steps' output handles are kept and read only when they
     fall out of the window, so the read overlaps the later dispatches.
-    FIFO order is kept; ``idle()`` drains everything when the source has
-    nothing new; ``lag == 0`` is synchronous."""
+    FIFO order is kept; ``lag == 0`` is synchronous. The reference's
+    ``idle()``, which only drains, is left out: callers call ``drain()``."""
 
     CONFIG_KEY = "pipeline.max-inflight-steps"
 
@@ -67,39 +67,19 @@ class _LaggedEmitter:
         while len(self._q) > self.lag:
             self.emit_fn(self._q.popleft())
 
-    def idle(self):
-        self.drain()
-
     def drain(self):
         while self._q:
             self.emit_fn(self._q.popleft())
 
 
-def _words(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
-    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-
-
-class _KeyedJob:
-    """What the three runners share: the poll loop, key encoding, lane
-    staging, the lagged emitter and the end-of-job capacity check."""
+class _KeyedJob(StageJob):
+    """What the three runners add to ``StageJob``: lane staging, the
+    lagged emitter, and the read of compacted rows."""
 
     def __init__(self, env, pipe, metrics, agg):
-        self.env = env
-        self.pipe = pipe
-        self.metrics = metrics
-        self.agg = agg
-        self.device = torch.device(env.device)
-        self.B = env.batch_size
+        super().__init__(env, pipe, metrics, agg)
         self.capacity = env.state_capacity_per_shard
-        self.red = agg.reduce_spec_factory()
-        self.columnar = all(getattr(s, "columnar", False) for s in pipe.sinks)
-        cfg = env.config
-        # the reverse key map serves only row decoding
-        self.keep_reverse = (cfg.get_bool("keys.reverse-map", True)
-                             and not self.columnar)
-        self.codec = KeyCodec()
         self.emitter = _LaggedEmitter(env, self.emit)
-        self.state = None
 
     def lanes(self, *arrays):
         """Host lane arrays -> device tensors (uint32 halves as int32)."""
@@ -111,40 +91,12 @@ class _KeyedJob:
                 self.device, non_blocking=True))
         return out
 
-    def encode(self, cols):
-        keys = np.asarray(self.pipe.key_by.key_selector(cols))
-        hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
-        values = np.asarray(self.agg.extractor(cols), np.float32)
-        if values.shape != hi.shape:
-            raise ValueError(
-                f"the extractor gave {values.shape} values for {hi.shape} "
-                f"keys (only scalar values are ported)")
-        self.metrics.records_in += len(hi)
-        return keys, hi, lo, values
-
     def run(self) -> None:
-        pipe = self.pipe
-        while True:
-            (cols, ts_ms), end = pipe.source.poll(self.B)
-            if cols and len(next(iter(cols.values()))):
-                self.apply(cols, ts_ms)
-            else:
-                self.emitter.idle()   # an idle source must not withhold
-            if end:
-                break
-        self.end_of_stream()
+        super().run()
         self.emitter.drain()
 
-    def end_of_stream(self) -> None:
-        pass
-
-    def sinks_columnar(self, cols) -> None:
-        for s in self.pipe.sinks:
-            s.invoke_columnar(cols)
-
-    def sinks_rows(self, rows) -> None:
-        for s in self.pipe.sinks:
-            s.invoke_batch(rows)
+    def idle(self) -> None:
+        self.emitter.drain()      # an idle source must not withhold
 
     def read_rows(self, rows, n_rows):
         """The ``[:n]`` prefixes of int32 / float32 row buffers in one
@@ -154,20 +106,6 @@ class _KeyedJob:
             return None
         raw = torch.cat([r[:n].view(torch.int32) for r in rows]).cpu()
         return raw.numpy().reshape(len(rows), n)
-
-    def finish(self) -> None:
-        st = self.state
-        if st is None:
-            return
-        m = self.metrics
-        m.dropped_capacity = int(st.dropped_capacity)
-        if hasattr(st, "dropped_late"):
-            m.dropped_late = int(st.dropped_late)
-        if m.dropped_capacity and self.env.config.get_bool(
-                "state.backend.strict-capacity", True):
-            raise RuntimeError(
-                f"state backend over capacity: {m.dropped_capacity} "
-                f"records lost")
 
 
 class RollingJob(_KeyedJob):
@@ -199,7 +137,7 @@ class RollingJob(_KeyedJob):
         out_np = out_np.view(np.float32)
         ok_np = ok_np.astype(bool)
         if self.columnar:
-            self.sinks_columnar({"key_id": _words(hi, lo)[ok_np],
+            self.sinks_columnar({"key_id": key_words(hi, lo)[ok_np],
                                  "value": out_np[ok_np]})
             return
         klist = keys.tolist()
@@ -237,7 +175,7 @@ class CountJob(_KeyedJob):
         val = val.view(np.float32)
         self.metrics.fires += len(val)
         if self.columnar:
-            self.sinks_columnar({"key_id": _words(hi, lo),
+            self.sinks_columnar({"key_id": key_words(hi, lo),
                                  "window_end_ms": w.astype(np.int64),
                                  "value": val})
             return
@@ -263,15 +201,8 @@ class SessionJob(_KeyedJob):
         self.td: Optional[TimeDomain] = None
 
     def apply(self, cols, ts_ms) -> None:
-        pipe = self.pipe
         _keys, hi, lo, values = self.encode(cols)
-        if pipe.ts_transform is not None:
-            ts_ms = pipe.ts_transform.timestamp_fn(cols)
-        elif ts_ms is None:
-            raise ValueError(
-                "event-time job but the columnar source provides no "
-                "timestamps and no assign_timestamps_and_watermarks is set")
-        ts_ms = np.asarray(ts_ms, np.int64)
+        ts_ms = self.event_ts(cols, ts_ms)
         if self.td is None:
             self.td = TimeDomain(origin_ms=int(ts_ms.min()), ms_per_tick=1)
         wm_ms = self.wm_strategy.on_batch(int(ts_ms.max()))
@@ -307,7 +238,7 @@ class SessionJob(_KeyedJob):
         end_ms = self.td.to_ms(end)
         self.metrics.fires += len(val)
         if self.columnar:
-            self.sinks_columnar({"key_id": _words(hi, lo),
+            self.sinks_columnar({"key_id": key_words(hi, lo),
                                  "window_start_ms": start_ms,
                                  "window_end_ms": end_ms, "value": val})
             return

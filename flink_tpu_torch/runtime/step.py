@@ -207,20 +207,21 @@ def clear_overflow(state: wk.WindowShardState) -> wk.WindowShardState:
 # their build_*_step functions (step.py:2449-2656) at one shard. The
 # reference masks each batch to the shard's key groups (step.py:2481-2484);
 # one shard owns every key group here, so that mask is the batch's valid
-# mask and the steps take it as it is. Each step updates its state in place and returns it. The
-# stages keep the reference's fixed probe length of 16 and have no spill
-# tier (a key with no slot is a counted loss).
+# mask and the steps take it as it is. Each step updates its state in
+# place and returns it. The stages keep the reference's fixed probe length
+# (``hashtable.KEYED_PROBE_LEN``, 16; the reference's specs carry it as a
+# field only for their audit) and have no spill tier (a key with no slot
+# is a counted loss).
 
 @dataclass
 class SessionStageSpec:
     red: wk.ReduceSpec
     gap_ticks: int = 1000
     capacity_per_shard: int = 1 << 16
-    probe_len: int = 16
 
 
 def init_session_state(spec: SessionStageSpec, device):
-    return sw.init_state(spec.capacity_per_shard, spec.probe_len, device)
+    return sw.init_state(spec.capacity_per_shard, device)
 
 
 def build_session_step(spec: SessionStageSpec):
@@ -237,11 +238,10 @@ class CountStageSpec:
     red: wk.ReduceSpec
     n_per_window: int = 100
     capacity_per_shard: int = 1 << 16
-    probe_len: int = 16
 
 
 def init_count_state(spec: CountStageSpec, device):
-    return cw.init_state(spec.capacity_per_shard, spec.probe_len, device)
+    return cw.init_state(spec.capacity_per_shard, device)
 
 
 def build_count_step(spec: CountStageSpec):
@@ -256,12 +256,10 @@ def build_count_step(spec: CountStageSpec):
 class RollingStageSpec:
     red: wk.ReduceSpec
     capacity_per_shard: int = 1 << 16
-    probe_len: int = 16
 
 
 def init_rolling_state(spec: RollingStageSpec, device):
-    return rolling.init_state(spec.capacity_per_shard, spec.probe_len,
-                              device)
+    return rolling.init_state(spec.capacity_per_shard, device)
 
 
 def build_rolling_step(spec: RollingStageSpec):
