@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G13 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G15 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -47,7 +47,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 in a batch, out-of-order ticks, merges, supersession, dead
                 lanes, a watermark jump closing ~40 % of them); G12 with
                 N = 10, edge one key in every lane; G13 edge one key in
-                every lane.
+                every lane. G14, G15 and G2's split clear at both sketch
+                jobs' shapes (C = 2^14, W = 4,096: HyperLogLog p = 12,
+                R = 12, k = 5; Count-Min 4 x 1,024, R = 8, k = 2, Q = 3),
+                main inputs from a window of the jobs' traffic, edge
+                inputs with hashes of rank 33 - p, a fifth of the lanes on
+                one key and register, lanes with no slot, dead and
+                too-old lanes, random registers, a pane rotated out of
+                the ring, and a Count-Min without a query (raw rows, W =
+                64); exact but for HyperLogLog's float estimates, held to
+                rtol 1e-6.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -97,14 +106,38 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 reference's count_window has no slide). The (id, ordinal)
                 rows must equal numpy's floor(count / 10) windows per word,
                 each worth 10; G5, G10, G12 launched.
+ 10. distinct — nexmark q16's count(distinct bidder) per channel over
+                nexmark-flink's bid stream: channel one of 4 hot channels
+                with probability 1/2, else uniform over 10,000 others
+                (integer ids 0..10,003); bidder splitmix64 of a uniform
+                index in [0, 1M); 2,000 events/ms, each draw a hash of the
+                event's index. key_by(channel).time_window(10 s, 2 s)
+                .distinct_count(bidder, precision=12), capacity 2^14
+                probed 64 deep, 30M events (15 s): 3.2 GB of registers.
+                Every (channel, window, estimate) row must equal numpy's
+                HyperLogLog of the same hashes (the estimate at rtol
+                1e-6), the median relative error against the exact
+                distinct count over the 4 hot and every 64th cold channel
+                must be under 3 %, nothing dropped, the layout hash; G1,
+                G2, G5, G14, G15 launched. A "distinct_table" line says how
+                deep the 10,004 channels sit in their chains.
+ 11. countmin — BASELINE #3's Count-Min as bench_configs.py runs it,
+                keyed by channel: time_window(8 s, 4 s).count_min(auction,
+                depth=4, width=1024, query=[1, 2, 3]) on the same stream,
+                auction Zipf(1.3) mod 100,000; 30M events, 2.1 GB of
+                registers. Every (channel, window, [3] estimates) row must
+                equal numpy's Count-Min exactly and be at least the exact
+                count; G1, G2, G5, G14, G15 launched.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the six
-paths, numbers from phase 3), and last {"ok": true, "device": {...}}.
+after. Then one line {"kernels": [...]} (launches summed over the eight
+paths, numbers from phase 3; G14 and G15 at the distinct job's shapes,
+the countmin job's in phase 3's line), and last {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each of the six jobs: the generator's host
+adds, before those two lines, a profile of each of the eight jobs: the generator's host
 time alone, the host's top functions, and the card's busy time and idle
 share from torch.profiler.
 """
@@ -120,10 +153,12 @@ import torch
 from flink_tpu_torch import StreamExecutionEnvironment, native
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
+from flink_tpu_torch.core.keygroups import assign_to_key_group
 from flink_tpu_torch.ops import cuda as kernels
-from flink_tpu_torch.ops import hashtable, segment, session_windows
+from flink_tpu_torch.ops import hashtable, segment, session_windows, sketches
 from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
-from flink_tpu_torch.ops.hashing import probe_hash, splitmix64
+from flink_tpu_torch.ops.hashing import probe_hash, route_hash, splitmix64
+from flink_tpu_torch.ops.window_kernels import ReduceSpec, fire_row_buffers
 from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG
 from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
@@ -171,6 +206,21 @@ N_WORDS = 1_000_000
 WORD_TOTAL = 30_000_000
 COUNT_N = 10                  # WindowWordCount's countWindow(10, 5), cut
 KEYED_CAPACITY = 1 << 22      # the three jobs' state slots (probe 16)
+# the sketch jobs (BASELINE config #3): nexmark's bid stream
+BID_TOTAL = 30_000_000        # 15 s of event time
+BID_HOT, BID_COLD = 4, 10_000 # BidGenerator's hot channels and the rest
+BID_BIDDERS = 1_000_000
+BID_AUCTIONS = 100_000
+BID_ZIPF_S, BID_ZIPF_HEAD = 1.3, 1 << 16
+BID_SALT_CHANNEL, BID_SALT_BIDDER, BID_SALT_AUCTION = 0xC4A, 0xB1D, 0xA0C
+SKETCH_CAPACITY = 1 << 14     # 10,004 channels: load 0.61
+SKETCH_PROBE_LEN = 64         # some 60 of the 10,004 channels sit 16+ deep
+DISTINCT_SIZE_MS, DISTINCT_SLIDE_MS = 10_000, 2_000
+DISTINCT_RING = 12            # the executor's auto ring at k = 5
+HLL_P = 12
+CMS_SIZE_MS, CMS_SLIDE_MS = 8_000, 4_000
+CMS_RING = 8                  # the executor's auto ring at k = 2
+CMS_DEPTH, CMS_WIDTH, CMS_QUERY = 4, 1024, [1, 2, 3]
 # state.probe-len: once the 1M keys have arrived (a load of 0.48), 334-338
 # of them sit 16 or more slots from their chain's start, 3-4 sit 32 or
 # more, the deepest 38 (the hash_table line of two runs on an NVIDIA H100
@@ -1573,15 +1623,15 @@ def check_session_rows(cols, total):
     return len(ids), int((end <= last_wm).sum())
 
 
-def probe_depths(table, C):
-    """How deep the table's keys sit in their chains (KEYED_PROBE_LEN)."""
+def probe_depths(table, C, probe_len=hashtable.KEYED_PROBE_LEN):
+    """How deep the table's keys sit in their chains of probe_len."""
     used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
     hi, lo = kernels.split_words(table[used])
     depth = (used - (probe_hash(hi, lo) & (C - 1))) % C
     return {"keys": int(used.numel()), "load": used.numel() / C,
-            "probe_len": hashtable.KEYED_PROBE_LEN,
-            "max_depth": int(depth.max()),
-            "keys_at_depth_12_or_more": int((depth >= 12).sum())}
+            "probe_len": probe_len, "max_depth": int(depth.max()),
+            "keys_at_depth_12_or_more": int((depth >= 12).sum()),
+            "keys_at_depth_16_or_more": int((depth >= 16).sum())}
 
 
 def wordcount_job(device, total):
@@ -1650,6 +1700,603 @@ def check_windowcount_rows(cols, ranks):
           f"windowcount job: {len(kid)} rows, numpy {len(ids)}; the rows "
           f"differ from numpy's")
     return len(ids)
+
+
+# ------------------------------------------- sketches: traffic and specs
+#
+# nexmark-flink's bid stream at its hot-channel rule (BASELINE config #3's
+# sketches): every draw is a hash of the event's index, so a job's source
+# and numpy's reference see the same events.
+
+def bid_channels(idx: np.ndarray) -> np.ndarray:
+    """Channel id of each event: one of 4 hot channels with probability
+    1/2, else uniform over 10,000 others (BidGenerator's HOT_CHANNELS_RATIO
+    of 2 and CHANNELS_NUMBER), as integer ids 0..10,003."""
+    u = splitmix64(idx ^ BID_SALT_CHANNEL)
+    hot = (u & np.uint64(1)) == np.uint64(1)
+    return np.where(hot, (u >> np.uint64(1)) % np.uint64(BID_HOT),
+                    np.uint64(BID_HOT) + (u >> np.uint64(3))
+                    % np.uint64(BID_COLD)).astype(np.int64)
+
+
+def bid_bidder_index(idx: np.ndarray) -> np.ndarray:
+    return (splitmix64(idx ^ BID_SALT_BIDDER)
+            % np.uint64(BID_BIDDERS)).astype(np.int64)
+
+
+def bid_bidders(idx: np.ndarray) -> np.ndarray:
+    """Bidder id: splitmix64 of a uniform index in [0, 1M)."""
+    return splitmix64(bid_bidder_index(idx)).view(np.int64)
+
+
+def _zipf_auction_table():
+    """The head of Zipf(1.3)'s CDF (ranks 1..2^16) and zeta(1.3)."""
+    if "auction" not in _ZIPF:
+        k = np.arange(1, BID_ZIPF_HEAD + 1, dtype=np.float64)
+        w = k ** -BID_ZIPF_S
+        s, n = BID_ZIPF_S, float(BID_ZIPF_HEAD)
+        # zeta(s) by Euler-Maclaurin past the head
+        zeta = w.sum() + n ** (1 - s) / (s - 1) - n ** -s / 2
+        _ZIPF["auction"] = (np.cumsum(w) / zeta, zeta)
+    return _ZIPF["auction"]
+
+
+def bid_auctions(idx: np.ndarray) -> np.ndarray:
+    """Auction id: Zipf(1.3) mod 100,000 (bench_configs.py's count-min
+    items), drawn by the inverse CDF at splitmix64(idx) / 2^64 over the
+    head's 2^16 ranks, the continuous tail beyond."""
+    cdf, zeta = _zipf_auction_table()
+    u = splitmix64(idx ^ BID_SALT_AUCTION).astype(np.float64) / 2.0**64
+    head = np.searchsorted(cdf, u, side="right")
+    s = BID_ZIPF_S
+    tail = ((1.0 - u) * (s - 1) * zeta) ** (1.0 / (1.0 - s))
+    rank = np.where(head < BID_ZIPF_HEAD, head + 1,
+                    np.clip(tail, BID_ZIPF_HEAD + 1, 2.0**62))
+    return rank.astype(np.int64) % BID_AUCTIONS
+
+
+def bid_gen(field: str):
+    """The bid stream's source: channel plus the one column a job reads
+    (``bidder`` or ``auction``); event time idx / 2,000 ms."""
+    draw = bid_bidders if field == "bidder" else bid_auctions
+
+    def gen(offset, n):
+        idx = np.arange(offset, offset + n, dtype=np.int64)
+        return ({"channel": bid_channels(idx), field: draw(idx)},
+                idx // EVENTS_PER_MS)
+    return gen
+
+
+def hll_spec():
+    h = sketches.HyperLogLog(HLL_P)
+    return ReduceSpec("sketch", h.dtype, h.value_shape, sketch=h,
+                      finalize=h.finalize, result_shape=h.result_shape,
+                      result_dtype=h.result_dtype)
+
+
+def cms_spec(depth=None, width=None, query=CMS_QUERY):
+    c = sketches.CountMinSketch(depth or CMS_DEPTH, width or CMS_WIDTH,
+                                query=query)
+    kw = {} if query is None else dict(
+        finalize=c.finalize, result_shape=c.result_shape,
+        result_dtype=c.result_dtype)
+    return ReduceSpec("sketch", c.dtype, c.value_shape, sketch=c, **kw)
+
+
+# the two jobs' shapes: (spec, job column, ring R, slide ms, panes k)
+SKETCH_JOBS = {
+    "distinct": (hll_spec, "bidder", DISTINCT_RING, DISTINCT_SLIDE_MS,
+                 DISTINCT_SIZE_MS // DISTINCT_SLIDE_MS),
+    "countmin": (cms_spec, "auction", CMS_RING, CMS_SLIDE_MS,
+                 CMS_SIZE_MS // CMS_SLIDE_MS),
+}
+
+
+def main_end_pane(job: str) -> int:
+    """The window the kernel cases fire: the distinct job's ending at pane
+    6 (panes 2-6, 20M events), the countmin job's at pane 2 (panes 1-2,
+    16M events)."""
+    return 6 if job == "distinct" else 2
+
+
+def bid_lanes(dev, job, offset, n):
+    """One batch of a job's traffic as G14's lanes: slot = channel (the
+    identity table), pane, item hash bits; every lane live."""
+    _spec, field, _R, slide, _k = SKETCH_JOBS[job]
+    cols, ts = bid_gen(field)(offset, n)
+    h = sketches.hash32_host(cols[field]).view(np.int32)
+    return (_t(cols["channel"].astype(np.int32), dev, torch.int32),
+            _t((ts // slide).astype(np.int32), dev, torch.int32),
+            _t(h, dev, torch.int32))
+
+
+def sketch_state_at(dev, job, end_pane):
+    """A job's split planes (identity table, slot = channel) after every
+    event of the k panes of the window ending at ``end_pane``, built with
+    G14 itself (held to its plain version below): the fire's main input
+    and the base of the update's. Returns (red, acc, touched,
+    pane_ids)."""
+    make, _field, R, slide, k = SKETCH_JOBS[job]
+    red = make()
+    C, W = SKETCH_CAPACITY, red.value_shape[0]
+    acc = torch.zeros(C * R, W, dtype=torch.int32, device=dev)
+    touched = torch.zeros(C * R, dtype=torch.bool, device=dev)
+    per = slide * EVENTS_PER_MS
+    max_pane = torch.tensor(end_pane, dtype=torch.int32, device=dev)
+    lost = _zero_i32(dev)
+    for off in range((end_pane - k + 1) * per, (end_pane + 1) * per, BATCH):
+        n = min(BATCH, (end_pane + 1) * per - off)
+        slot, pane, h = bid_lanes(dev, job, off, n)
+        z = torch.zeros(n, dtype=torch.int32, device=dev)
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        kernels.sketch_update(acc, touched, None, lost, pane, z, live, slot,
+                              h, max_pane, C=C, R=R, sketch=red.sketch)
+    pane_ids = torch.tensor([q for q in range(end_pane - R + 1, end_pane + 1)],
+                            dtype=torch.int32, device=dev)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))]
+    check(int(lost) == 0, f"{job} state: {int(lost)} lanes lost")
+    return red, acc, touched, pane_ids
+
+
+def rank_zero_hashes(p: int, n: int) -> np.ndarray:
+    """n item hashes whose fmix32 is 0 in its low 32 - p bits (HyperLogLog
+    rank 33 - p)."""
+    out, start = [], 0
+    while sum(map(len, out)) < n:
+        cand = np.arange(start, start + (1 << 24), dtype=np.uint32)
+        out.append(cand[(sketches._fmix32_np(cand) << np.uint32(p)) == 0])
+        start += 1 << 24
+    return np.concatenate(out)[:n]
+
+
+def case_sketch_update(dev, job, kind, base):
+    """G14 at a job's shapes. ``main``: a batch in the middle of the last
+    pane of ``base`` (the job's state after a window's events), real
+    routes. ``edge``: item hashes above 2^24 and of rank 33 - p, a fifth
+    of the lanes on one key and one register, lanes with no slot (C), dead
+    lanes and lanes behind the ring's horizon."""
+    red, acc0, touched0, _pids = base
+    _make, _field, R, slide, k = SKETCH_JOBS[job]
+    C = SKETCH_CAPACITY
+    end_pane = main_end_pane(job)
+    per = slide * EVENTS_PER_MS
+    slot, pane, h = bid_lanes(dev, job, end_pane * per + per // 2, BATCH)
+    B = BATCH
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    if kind == "edge":
+        rng = np.random.default_rng(17)
+        s = rng.integers(0, C, B)
+        s[rng.random(B) < 0.05] = C
+        p = rng.integers(end_pane - R + 1, end_pane + 1, B)
+        p[rng.random(B) < 0.05] = end_pane - R - 1   # too old
+        hh = sketches.hash32_host(rng.integers(0, 1 << 40, B))
+        special = rng.random(B) < 0.1
+        hh[special] = rng.choice(rank_zero_hashes(HLL_P, 8),
+                                 int(special.sum()))
+        one = rng.random(B) < 0.2                    # one key, one register
+        s[one], p[one], hh[one] = 7, end_pane, hh[0]
+        slot = _t(s.astype(np.int32), dev, torch.int32)
+        pane = _t(p.astype(np.int32), dev, torch.int32)
+        h = _t(hh.view(np.int32), dev, torch.int32)
+        live = _t(rng.random(B) < 0.9, dev, torch.bool)
+    hi = torch.zeros(B, dtype=torch.int32, device=dev)
+    kg = assign_to_key_group(route_hash(hi, slot), MAX_PARALLELISM).to(
+        torch.int32)
+    max_pane = torch.tensor(end_pane, dtype=torch.int32, device=dev)
+    sides = []
+    for _ in range(2):
+        sides.append((acc0.clone(), touched0.clone(),
+                      torch.zeros(MAX_PARALLELISM, dtype=torch.bool,
+                                  device=dev), _zero_i32(dev)))
+    lanes = (pane, kg, live, slot, h, max_pane)
+    kw = dict(C=C, R=R, sketch=red.sketch)
+    kernels.sketch_update(*sides[0], *lanes, **kw)
+    kernels.sketch_update_plain(*sides[1], *lanes, **kw)
+    # the library yardstick: the register scatter alone, on precomputed
+    # register indices (no horizon, slot, touched or kg_dirty work)
+    ok = live & (pane >= end_pane - (R - 1)) & (slot < C)
+    flat = (torch.remainder(pane.long(), R) * C + slot.long())[ok]
+    eidx, upd, _m = red.sketch.expand(flat, h[ok], ok[ok])
+    regs = sides[1][0].view(-1)
+    if red.sketch.op == "max":
+        library = lambda: regs.scatter_reduce_(0, eidx, upd, reduce="amax")
+    else:
+        library = lambda: regs.index_put_((eidx,), upd, accumulate=True)
+    got, want = sides
+    # the same lanes with uniform item hashes: what the hot items' shared
+    # registers cost (a warp pre-combine could take back at most this)
+    uniform = (pane, kg, live, slot, torch.randint(
+        -2**31, 2**31 - 1, (B,), dtype=torch.int32, device=dev), max_pane)
+    return {
+        "got": list(got), "want": list(want),
+        "uniform_run": lambda: kernels.sketch_update(*got, *uniform, **kw),
+        "run": lambda: kernels.sketch_update(*got, *lanes, **kw),
+        "plain": lambda: kernels.sketch_update_plain(*want, *lanes, **kw),
+        "library": library,
+        # pane, kg, live, slot, hash in; each register it may raise read
+        # and written once; each touched byte written once
+        "bytes": B * (4 + 4 + 1 + 4 + 4)
+        + int(torch.unique(eidx).numel()) * 8
+        + int(torch.unique(flat).numel()),
+    }
+
+
+def case_sketch_fire(dev, job, kind, base):
+    """G15 at a job's shapes, both fire modes (rows into an arena, and
+    reduced). ``main``: the job's window ending at the last pane of
+    ``base``, one due lane of F = 2. ``edge``: random registers (0 and
+    33 - p among them) touched at random, two due lanes, one of them with
+    a pane rotated out of the ring; and a Count-Min without a query at a
+    small W (raw rows)."""
+    red, acc, touched, pane_ids = base
+    _make, _field, R, slide, k = SKETCH_JOBS[job]
+    C, F = SKETCH_CAPACITY, FIRES_PER_STEP
+    end_pane = int(pane_ids.max())
+    ends, n_due = [end_pane, end_pane + 1], 1
+    if kind == "edge":
+        g = torch.Generator(device=dev).manual_seed(23)
+        hi_reg = 33 - HLL_P if red.sketch.op == "max" else 50
+        acc = torch.randint(0, hi_reg + 1, acc.shape, generator=g,
+                            device=dev, dtype=torch.int32)
+        touched = torch.rand(touched.shape, generator=g, device=dev) < 0.5
+        pane_ids = pane_ids.clone()
+        pane_ids[(end_pane - 1) % R] = PANE_NONE    # rotated out
+        ends, n_due = [end_pane, end_pane - 1], 2
+    table = torch.arange(C, dtype=torch.int64, device=dev)
+    p_f = torch.tensor(ends, dtype=torch.int32, device=dev)
+    lane_ok = torch.tensor([f < n_due for f in range(F)], device=dev)
+    specs = [red]
+    if kind == "edge" and job == "countmin":
+        specs.append(cms_spec(2, 32, None))         # raw rows, W = 64
+    got, want, floats = [], [], []
+    for r in specs:
+        W = r.value_shape[0]
+        a = acc if W == acc.shape[1] else acc[:, :W].contiguous()
+        args = (a, touched, pane_ids, p_f, lane_ok, table)
+        kw = dict(C=C, R=R, k=k, red=r)
+        rows1 = fire_row_buffers(F, C, dev, red=r)
+        rows2 = fire_row_buffers(F, C, dev, red=r)
+        c1, v1 = kernels.sketch_fire(*args, rows1, **kw)
+        c2, v2 = kernels.sketch_fire_plain(*args, rows2, **kw)
+        cr1, vr1 = kernels.sketch_fire(*args, None, **kw)
+        cr2, vr2 = kernels.sketch_fire_plain(*args, None, **kw)
+        got += [c1, cr1]
+        want += [c2, cr2]
+        for f in range(F):
+            n = int(c2[f])
+            got += [rows1[0][f, :n], rows1[1][f, :n]]
+            want += [rows2[0][f, :n], rows2[1][f, :n]]
+            if r.out_dtype == torch.float32:
+                floats.append((rows1[2][f, :n], rows2[2][f, :n]))
+            else:
+                got.append(rows1[2][f, :n])
+                want.append(rows2[2][f, :n])
+        for x, y in ((v1, v2), (vr1, vr2)):
+            if r.out_dtype == torch.float32:
+                floats.append((x, y))
+            else:
+                got.append(x)
+                want.append(y)
+    W = red.value_shape[0]
+    args = (acc, touched, pane_ids, p_f, lane_ok, table)
+    kw = dict(C=C, R=R, k=k, red=red)
+    rows1 = fire_row_buffers(F, C, dev, red=red)
+    rows2 = fire_row_buffers(F, C, dev, red=red)
+    # bytes: the touched bytes of every present row of a due lane; per
+    # emitted slot its present panes' registers (all W for hll, D x Q for
+    # a query); 8 B of key and the value per emitted row
+    t2 = touched.view(R, C)
+    n_rows, n_cells, n_present = 0, 0, 0
+    for e, ok in zip(ends, lane_ok.tolist()):
+        if not ok:
+            continue
+        rows = [(e - j) % R for j in range(k)
+                if int(pane_ids[(e - j) % R]) == e - j]
+        n_present += len(rows)
+        if rows:
+            per_slot = t2[rows].sum(0)
+            n_cells += int(per_slot.sum())
+            n_rows += int((per_slot > 0).sum())
+    cells_w = W if red.finalize is None or red.sketch.op == "max" else \
+        red.sketch.depth * len(red.sketch.query)
+    out_w = int(np.prod(red.out_shape, dtype=np.int64))
+    return {
+        "got": got, "want": want, "floats": floats,
+        "run": lambda: kernels.sketch_fire(*args, rows1, **kw),
+        "plain": lambda: kernels.sketch_fire_plain(*args, rows2, **kw),
+        "library": None,
+        "bytes": n_present * C + n_cells * cells_w * 4
+        + n_rows * (8 + 4 * out_w) + R * 4 + F * (4 + 1 + 4 + 4),
+        "rows": n_rows,
+    }
+
+
+def float_errs(pairs):
+    """(max abs err, max rel err) over (got, want) float tensor pairs; the
+    relative error against max(|want|, 1) (an estimate is >= 1 where a
+    slot was touched)."""
+    abs_e = rel_e = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape:
+            return float("inf"), float("inf")
+        if a.numel():
+            d = (a.double() - b.double()).abs()
+            abs_e = max(abs_e, float(d.max()))
+            rel_e = max(rel_e, float(
+                (d / b.double().abs().clamp_min(1.0)).max()))
+    return abs_e, rel_e
+
+
+def case_clear_split(dev, job, kind, base):
+    """G2 on a job's split planes. ``main``: a pane crossing clears one
+    stale row. ``edge``: two rows, one of them evicted with unfired data
+    (its touched slots counted)."""
+    red, acc0, touched0, _pids = base
+    R = SKETCH_JOBS[job][2]
+    C = SKETCH_CAPACITY
+    W = red.value_shape[0]
+    end_pane = int(_pids.max())
+    clear = torch.zeros(R, dtype=torch.bool, device=dev)
+    evicted = torch.zeros(R, dtype=torch.bool, device=dev)
+    clear[(end_pane + 1) % R] = True
+    if kind == "edge":
+        q = end_pane % R
+        clear[q] = evicted[q] = True
+    rows = clear.nonzero().reshape(-1)
+    sides = [(acc0.clone(), touched0.clone(), _zero_i32(dev))
+             for _ in range(2)]
+    kw = dict(C=C, R=R)
+    (a1, t1, d1), (a2, t2, d2) = sides
+    kernels.clear_rows(a1, clear, evicted, d1, touched=t1, **kw)
+    kernels.clear_rows_plain(a2, clear, evicted, d2, touched=t2, **kw)
+    return {
+        "got": [a1, t1, d1], "want": [a2, t2, d2],
+        "run": lambda: kernels.clear_rows(a1, clear, evicted, d1,
+                                          touched=t1, **kw),
+        "plain": lambda: kernels.clear_rows_plain(a2, clear, evicted, d2,
+                                                  touched=t2, **kw),
+        "library": lambda: (a2.view(R, C * W).index_fill_(0, rows, 0),
+                            t2.view(R, C).index_fill_(0, rows, False)),
+        # flagged rows' registers and touched bytes written, evicted rows'
+        # touched bytes read, masks read
+        "bytes": int(clear.sum()) * C * (W * 4 + 1)
+        + int(evicted.sum()) * C + 2 * R,
+    }
+
+
+def sketch_kernel_phase(dev, timing=True):
+    """Hold G14, G15 and G2's split variant against their plain versions
+    on both inputs at both sketch jobs' shapes (C = 2^14 slots, W = 4,096
+    registers: HyperLogLog p = 12 with R = 12, k = 5; Count-Min 4 x 1,024
+    with R = 8, k = 2, Q = 3), and time the main inputs. Equality is exact
+    but for HyperLogLog's float estimates (and value sums), held to rtol
+    1e-6: the kernel's log and the plain version's may round apart.
+    Returns one record per kernel, the distinct job's numbers first."""
+    recs = {}
+    for job in ("distinct", "countmin"):
+        base = sketch_state_at(dev, job, main_end_pane(job))
+        for name, case in (("sketch_update", case_sketch_update),
+                           ("sketch_fire", case_sketch_fire),
+                           ("clear_rows_split", case_clear_split)):
+            errs, rels, main = [], [], None
+            for kind in ("main", "edge"):
+                c = case(dev, job, kind, base)
+                err = max_abs_err(c["got"], c["want"])
+                f_abs, f_rel = float_errs(c.get("floats", ()))
+                check(err == 0.0 and f_rel <= 1e-6,
+                      f"{name} ({kind} inputs, {job} shapes) disagrees "
+                      f"with its plain version: {err} integer elements "
+                      f"differ, float rel err {f_rel}")
+                errs.append(max(err, f_abs))
+                rels.append(f_rel)
+                if kind == "main":
+                    main = c
+                else:
+                    del c
+            rec = {"max_abs_err": max(errs), "max_rel_err": max(rels),
+                   "bound_ms": bound_ms(main["bytes"])}
+            if "rows" in main:
+                rec["rows"] = main["rows"]
+            if timing:
+                rec["ms"] = time_ms(main["run"])
+                rec["plain_ms"] = time_ms(main["plain"], reps=3)
+                rec["library_ms"] = (time_ms(main["library"])
+                                     if main["library"] is not None
+                                     else None)
+                if "uniform_run" in main:
+                    rec["uniform_items_ms"] = time_ms(main["uniform_run"])
+            del main
+            recs.setdefault(name, {})[job] = rec
+        del base
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
+# ------------------------------------------- sketches: the two jobs
+
+def sketch_env(device):
+    env = StreamExecutionEnvironment(Configuration({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": RING_DEPTH,
+        "state.probe-len": SKETCH_PROBE_LEN,
+    }), device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(SKETCH_CAPACITY)
+    env.batch_size = BATCH
+    return env
+
+
+def distinct_job(device, total):
+    """nexmark q16's count(distinct bidder) per channel over HOP(2 s, 10 s),
+    as distinct_count(bidder, precision=12)."""
+    env = sketch_env(device)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(bid_gen("bidder"), total=total))
+     .key_by(lambda c: c["channel"])
+     .time_window(DISTINCT_SIZE_MS, DISTINCT_SLIDE_MS)
+     .distinct_count(lambda c: c["bidder"], precision=HLL_P)
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-distinct", sink)
+
+
+def countmin_job(device, total):
+    """BASELINE #3's Count-Min as bench_configs.py runs it, keyed by
+    channel: HOP(4 s, 8 s), count_min(auction, 4, 1024, query=[1, 2, 3])."""
+    env = sketch_env(device)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(bid_gen("auction"), total=total))
+     .key_by(lambda c: c["channel"])
+     .time_window(CMS_SIZE_MS, CMS_SLIDE_MS)
+     .count_min(lambda c: c["auction"], depth=CMS_DEPTH, width=CMS_WIDTH,
+                query=CMS_QUERY)
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-countmin", sink)
+
+
+def _hll_rank(h: np.ndarray, p: int):
+    """numpy's (bucket, rank) of item hashes (HyperLogLog.host_add's law,
+    vectorized): frexp gives floor(log2 w) + 1 exactly for a uint32 w."""
+    x = sketches._fmix32_np(h)
+    bucket = (x >> np.uint32(32 - p)).astype(np.int64)
+    w = (x.astype(np.uint64) << np.uint64(p)) & np.uint64(0xFFFFFFFF)
+    e = np.frexp(w.astype(np.float64))[1]
+    rho = np.where(w == 0, 33 - p, 33 - e)
+    return bucket, rho.astype(np.int8)
+
+
+def _sorted_rows(cols):
+    kid = cols["key_id"].astype(np.int64)
+    o = np.lexsort((cols["window_end_ms"], kid))
+    return kid[o], cols["window_end_ms"][o], np.asarray(cols["value"])[o]
+
+
+def check_distinct_rows(cols, total, chunk=1 << 22):
+    """numpy's HyperLogLog of the same hashes: registers per (pane,
+    channel) by np.maximum.at, each window's the max over its panes, the
+    estimate from their exact sums as the port computes it; every (channel,
+    window, estimate) row equal, the estimate at rtol 1e-6. Then the
+    median relative error against numpy's exact distinct bidders over the
+    4 hot channels and every 64th cold one. Returns (rows, median error,
+    windows checked for error)."""
+    hll = sketches.HyperLogLog(HLL_P)
+    W, NCH = hll.m, BID_HOT + BID_COLD
+    per = DISTINCT_SLIDE_MS * EVENTS_PER_MS
+    n_panes = -(-total // per)
+    k = DISTINCT_SIZE_MS // DISTINCT_SLIDE_MS
+    check(n_panes <= 8, "the exact count keeps one bit a pane in a byte")
+    regs = np.zeros(n_panes * NCH * W, np.int8)
+    sel = np.full(NCH, -1, np.int64)
+    sel_ch = np.concatenate([np.arange(BID_HOT),
+                             np.arange(BID_HOT, NCH, 64)])
+    sel[sel_ch] = np.arange(len(sel_ch))
+    seen = np.zeros(len(sel_ch) * BID_BIDDERS, np.uint8)
+    for off in range(0, total, chunk):
+        idx = np.arange(off, min(off + chunk, total), dtype=np.int64)
+        ch = bid_channels(idx)
+        b = bid_bidder_index(idx)
+        pane = idx // per
+        bucket, rho = _hll_rank(sketches.hash32_host(splitmix64(b).view(np.int64)),
+                                HLL_P)
+        np.maximum.at(regs, (pane * NCH + ch) * W + bucket, rho)
+        s = sel[ch]
+        m = s >= 0
+        pos, pm = s[m] * BID_BIDDERS + b[m], pane[m]
+        for q in np.unique(pm):
+            seen[pos[pm == q]] |= np.uint8(1 << int(q))
+    regs = regs.reshape(n_panes, NCH, W)
+    lut = (np.int64(1) << (hll.base - np.arange(hll.base + 1))).astype(
+        np.int64)
+    want_k, want_e, want_v, errs = [], [], [], []
+    seen = seen.reshape(len(sel_ch), BID_BIDDERS)
+    for p in range(n_panes + k - 1):
+        qs = list(range(max(0, p - k + 1), min(p, n_panes - 1) + 1))
+        r = regs[qs].max(axis=0)
+        present = np.flatnonzero(r.any(axis=1))
+        rp = r[present]
+        est = hll.estimate(torch.from_numpy(lut[rp].sum(axis=1)),
+                           torch.from_numpy((rp == 0).sum(axis=1))).numpy()
+        want_k.append(present)
+        want_e.append(np.full(len(present), (p + 1) * DISTINCT_SLIDE_MS))
+        want_v.append(est)
+        wmask = np.uint8(sum(1 << q for q in qs))
+        exact = ((seen & wmask) != 0).sum(axis=1)
+        e_sel = dict(zip(present.tolist(), est.tolist()))
+        for c, x in zip(sel_ch.tolist(), exact.tolist()):
+            if x:
+                errs.append(abs(e_sel[c] - x) / x)
+    wk_, we_, wv_ = (np.concatenate(a) for a in (want_k, want_e, want_v))
+    o = np.lexsort((we_, wk_))
+    wk_, we_, wv_ = wk_[o], we_[o], wv_[o]
+    gk, ge, gv = _sorted_rows(cols)
+    check(len(gk) == len(wk_) and np.array_equal(gk, wk_)
+          and np.array_equal(ge, we_),
+          f"distinct job: {len(gk)} rows, numpy {len(wk_)}; the (channel, "
+          f"window) pairs differ")
+    rel = float(np.max(np.abs(gv.astype(np.float64) - wv_)
+                       / np.abs(wv_.astype(np.float64))))
+    check(rel <= 1e-6, f"distinct job: estimates off numpy's by rel {rel}")
+    med = float(np.median(errs))
+    check(med < 0.03, f"distinct job: median relative error {med} >= 3 %")
+    return len(gk), med, len(errs), rel
+
+
+def check_countmin_rows(cols, total, chunk=1 << 22):
+    """numpy's Count-Min of the same hashes at the query's columns: per
+    (pane, channel) and row d the events whose register is the query
+    item's, summed over each window's panes, the min over d; every
+    (channel, window, [3] estimates) row equal, and every estimate at
+    least the item's exact count. Returns (rows, hot-channel estimate of
+    item 1 in the first full window, its exact count)."""
+    cms = sketches.CountMinSketch(CMS_DEPTH, CMS_WIDTH, query=CMS_QUERY)
+    NCH, D, Q = BID_HOT + BID_COLD, CMS_DEPTH, len(CMS_QUERY)
+    per = CMS_SLIDE_MS * EVENTS_PER_MS
+    n_panes = -(-total // per)
+    k = CMS_SIZE_MS // CMS_SLIDE_MS
+    hits = np.zeros((n_panes * NCH, D, Q), np.int64)
+    exact = np.zeros((n_panes * NCH, Q), np.int64)
+    events = np.zeros(n_panes * NCH, np.int64)
+    n_cells = n_panes * NCH
+    for off in range(0, total, chunk):
+        idx = np.arange(off, min(off + chunk, total), dtype=np.int64)
+        cell = (idx // per) * NCH + bid_channels(idx)
+        items = bid_auctions(idx)
+        h = sketches.hash32_host(items)
+        events += np.bincount(cell, minlength=n_cells)
+        for d in range(D):
+            pos = cms._positions_np(h, d)
+            for q in range(Q):
+                hits[:, d, q] += np.bincount(
+                    cell[pos == cms.qpos[d, q]], minlength=n_cells)
+        for q, item in enumerate(CMS_QUERY):
+            exact[:, q] += np.bincount(cell[items == item],
+                                       minlength=n_cells)
+    hits = hits.reshape(n_panes, NCH, D, Q)
+    exact = exact.reshape(n_panes, NCH, Q)
+    events = events.reshape(n_panes, NCH)
+    want_k, want_e, want_v, want_x = [], [], [], []
+    for p in range(n_panes + k - 1):
+        qs = list(range(max(0, p - k + 1), min(p, n_panes - 1) + 1))
+        present = np.flatnonzero(events[qs].sum(axis=0))
+        want_k.append(present)
+        want_e.append(np.full(len(present), (p + 1) * CMS_SLIDE_MS))
+        want_v.append(hits[qs].sum(axis=0)[present].min(axis=1))
+        want_x.append(exact[qs].sum(axis=0)[present])
+    wk_, we_, wv_, wx_ = (np.concatenate(a) for a in
+                          (want_k, want_e, want_v, want_x))
+    o = np.lexsort((we_, wk_))
+    wk_, we_, wv_, wx_ = wk_[o], we_[o], wv_[o], wx_[o]
+    gk, ge, gv = _sorted_rows(cols)
+    check(len(gk) == len(wk_) and np.array_equal(gk, wk_)
+          and np.array_equal(ge, we_) and np.array_equal(gv, wv_),
+          f"countmin job: {len(gk)} rows, numpy {len(wk_)}; the rows "
+          f"differ from numpy's Count-Min")
+    check(bool((gv >= wx_).all()), "countmin job: an estimate under-counts")
+    first = np.flatnonzero((wk_ == 0) & (we_ == CMS_SIZE_MS))[0]
+    return len(gk), int(gv[first, 0]), int(wx_[first, 0])
 
 
 # ------------------------------------------------------------ profile
@@ -1746,6 +2393,10 @@ KERNEL_SOURCES = {
                      "flink_tpu/ops/count_windows.py:57"),
     "rolling_update": ("flink_tpu_torch/csrc/rolling_update.cu",
                        "flink_tpu/ops/rolling.py:54"),
+    "sketch_update": ("flink_tpu_torch/csrc/sketch_update.cu",
+                      "flink_tpu/ops/sketches.py:112"),
+    "sketch_fire": ("flink_tpu_torch/csrc/sketch_fire.cu",
+                    "flink_tpu/ops/window_kernels.py:1203"),
 }
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
@@ -1758,6 +2409,8 @@ CHURN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
 SESSION_KERNELS = ("hash_upsert", "segment_sort", "session_update")
 WORDCOUNT_KERNELS = ("hash_upsert", "segment_sort", "rolling_update")
 WINDOWCOUNT_KERNELS = ("hash_upsert", "segment_sort", "count_update")
+SKETCH_KERNELS = ("route_lanes", "clear_rows", "hash_upsert",
+                  "sketch_update", "sketch_fire")
 
 
 def run_path(run, total_launches):
@@ -1802,6 +2455,11 @@ def main(argv) -> int:
     recs = kernel_phase(dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP,
                         MAX_PARALLELISM, WINDOW_MS)
     recs.update(keyed_kernel_phase(dev, KEYED_CAPACITY, BATCH))
+    sk_recs = sketch_kernel_phase(dev)
+    for name in ("sketch_update", "sketch_fire"):
+        recs[name] = dict(sk_recs[name]["distinct"],
+                          countmin=sk_recs[name]["countmin"])
+    recs["clear_rows"]["split"] = sk_recs["clear_rows_split"]
     emit({"phase": "kernels", "checks": recs})
 
     kernels.reset_launch_counts()
@@ -1943,6 +2601,52 @@ def main(argv) -> int:
     check_launched(launches, WINDOWCOUNT_KERNELS, "windowcount")
     del sink, ranks
 
+    launches, (sink, job, secs) = run_path(
+        lambda: distinct_job(dev, BID_TOTAL), total_launches)
+    m = job.metrics
+    n_rows, med, n_err, rel = check_distinct_rows(sink.columns(), BID_TOTAL)
+    depths = probe_depths(job.state.table_keys, SKETCH_CAPACITY,
+                          SKETCH_PROBE_LEN)
+    emit({"phase": "distinct_table", **depths})
+    emit({"phase": "distinct", "events": BID_TOTAL, "seconds": secs,
+          "events_per_s": BID_TOTAL / secs, "rows": n_rows,
+          "median_rel_err_vs_exact": med, "windows_checked": n_err,
+          "max_rel_err_vs_numpy_hll": rel, "layout": job.state.layout,
+          "register_state_gb": job.state.acc.numel() * 4 / 1e9,
+          "drains": m.resident_drains, "fire_steps": m.fire_steps,
+          "batches": m.steps, "dropped_late": m.dropped_late,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash",
+          f"distinct job: auto layout resolved to {job.state.layout}")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"distinct job: dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check_launched(launches, SKETCH_KERNELS, "distinct")
+    del sink, job
+
+    launches, (sink, job, secs) = run_path(
+        lambda: countmin_job(dev, BID_TOTAL), total_launches)
+    m = job.metrics
+    n_rows, hot_est, hot_exact = check_countmin_rows(sink.columns(),
+                                                     BID_TOTAL)
+    emit({"phase": "countmin", "events": BID_TOTAL, "seconds": secs,
+          "events_per_s": BID_TOTAL / secs, "rows": n_rows,
+          "hot_channel_item1_estimate": hot_est,
+          "hot_channel_item1_exact": hot_exact, "layout": job.state.layout,
+          "register_state_gb": job.state.acc.numel() * 4 / 1e9,
+          "drains": m.resident_drains, "fire_steps": m.fire_steps,
+          "batches": m.steps, "dropped_late": m.dropped_late,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash",
+          f"countmin job: auto layout resolved to {job.state.layout}")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"countmin job: dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check_launched(launches, SKETCH_KERNELS, "countmin")
+    del sink, job
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -1964,6 +2668,10 @@ def main(argv) -> int:
         emit(profile_phase(dev, "windowcount", word_gen,
                            lambda: windowcount_job(dev, WORD_TOTAL),
                            WORD_TOTAL))
+        emit(profile_phase(dev, "distinct", bid_gen("bidder"),
+                           lambda: distinct_job(dev, BID_TOTAL), BID_TOTAL))
+        emit(profile_phase(dev, "countmin", bid_gen("auction"),
+                           lambda: countmin_job(dev, BID_TOTAL), BID_TOTAL))
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

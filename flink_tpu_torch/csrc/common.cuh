@@ -1,5 +1,6 @@
 // Shared helpers of the window-path kernels (route_lanes.cu, clear_rows.cu,
-// scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu):
+// scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu,
+// sketch_update.cu, sketch_fire.cu and the rest of csrc/):
 // int32 pane arithmetic with the reference's floor semantics, block-wide
 // reductions that end in one atomic per block, and a block-wide scan.
 #pragma once
@@ -29,6 +30,16 @@ __device__ __forceinline__ int32_t warp_sum(int32_t v) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }

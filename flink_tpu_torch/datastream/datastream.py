@@ -5,7 +5,8 @@ Same shape as the reference (DataStream / KeyedStream / WindowedStream):
 API calls record transformation nodes that ``env.execute()`` runs. The
 port carries ``key_by``, ``time_window`` / ``window`` (tumbling, sliding
 and event-time session assigners), ``count_window``, the window ``sum``
-and ``count``, the rolling ``KeyedStream.sum``, ``allowed_lateness``,
+and ``count``, the sketch windows ``distinct_count`` (HyperLogLog) and
+``count_min``, the rolling ``KeyedStream.sum``, ``allowed_lateness``,
 ``add_sink`` and ``assign_timestamps_and_watermarks``. Every other method
 of the reference exists and raises NotImplementedError naming the ROADMAP
 item that brings it.
@@ -24,6 +25,7 @@ from flink_tpu_torch.datastream.window.assigners import (
     TumblingEventTimeWindows,
 )
 from flink_tpu_torch.graph import stream_graph as sg
+from flink_tpu_torch.ops import sketches as sk
 from flink_tpu_torch.ops.window_kernels import ReduceSpec
 from flink_tpu_torch.runtime import sinks as sink_mod
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
@@ -141,12 +143,14 @@ class WindowedStream:
         self._lateness_ms = ms
         return self
 
-    def _agg(self, name, spec_factory, extractor) -> DataStream:
+    def _agg(self, name, spec_factory, extractor,
+             value_prep=None) -> DataStream:
         t = sg.WindowAggTransformation(
             name, self.keyed.transformation,
             assigner=self.assigner,
             extractor=extractor,
             reduce_spec_factory=spec_factory,
+            value_prep=value_prep,
             allowed_lateness_ms=self._lateness_ms,
         )
         return DataStream(self.env, t)
@@ -170,6 +174,47 @@ class WindowedStream:
             "window_count", lambda: ReduceSpec("count", torch.float32), ones,
         )
 
+    def distinct_count(self, pos=None, precision: int = 12) -> DataStream:
+        """Approximate per-key distinct count of the extracted item per
+        window via a HyperLogLog register array in device state (BASELINE
+        config #3). Emits a float estimate per key per window."""
+        def factory(p=precision):
+            h = sk.HyperLogLog(p)
+            return ReduceSpec(
+                "sketch", h.dtype, h.value_shape, sketch=h,
+                finalize=h.finalize, result_shape=h.result_shape,
+                result_dtype=h.result_dtype,
+            )
+
+        return self._agg(
+            "window_hll",
+            factory,
+            _field_extractor(pos) if pos is not None else (lambda e: e),
+            value_prep=sk.hash32_host,
+        )
+
+    def count_min(self, pos=None, depth: int = 4, width: int = 1024,
+                  query=None) -> DataStream:
+        """Per-key Count-Min sketch of the extracted items per window
+        (BASELINE config #3). With `query` (a fixed item list) each fire
+        emits the Q point estimates; otherwise the raw depth*width register
+        vector (queryable via CountMinSketch.estimate_np)."""
+        def factory(d=depth, w=width, q=query):
+            cms = sk.CountMinSketch(d, w, query=q)
+            kwargs = dict(sketch=cms)
+            if q is not None:
+                kwargs.update(finalize=cms.finalize,
+                              result_shape=cms.result_shape,
+                              result_dtype=cms.result_dtype)
+            return ReduceSpec("sketch", cms.dtype, cms.value_shape, **kwargs)
+
+        return self._agg(
+            "window_cms",
+            factory,
+            _field_extractor(pos) if pos is not None else (lambda e: e),
+            value_prep=sk.hash32_host,
+        )
+
     trigger = _later("WindowedStream", "trigger", _OPS)
     evictor = _later("WindowedStream", "evictor", _OPS)
     apply = _later("WindowedStream", "apply", _OPS)
@@ -178,7 +223,4 @@ class WindowedStream:
     max = _later("WindowedStream", "max", _REDUCES)
     mean = _later("WindowedStream", "mean", _REDUCES)
     reduce = _later("WindowedStream", "reduce", _REDUCES)
-    distinct_count = _later("WindowedStream", "distinct_count",
-                            "ROADMAP queue 2, K19")
-    count_min = _later("WindowedStream", "count_min", "ROADMAP queue 2, K19")
     aggregate = _later("WindowedStream", "aggregate", _REDUCES)

@@ -1,13 +1,14 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Thirteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
-``sm_90a``) carry the device work of the window stage (G1-G9) and of the
-session, count-window and rolling stages (G10-G13); each source opens
-with the reference function it replaces, what bounds it on the card and
-what its design does about that:
+Fifteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+``sm_90a``) carry the device work of the window stage (G1-G9, and G14,
+G15 for its sketch reduces) and of the session, count-window and rolling
+stages (G10-G13); each source opens with the reference function it
+replaces, what bounds it on the card and what its design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
+                         (packed planes, or a sketch's split planes)
   G3 ``scatter_update``  the update's accumulate phase (atomic scatter)
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
   G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
@@ -19,6 +20,8 @@ what its design does about that:
   G11 ``session_update`` session cuts, merges, fires and watermark close
   G12 ``count_update``   count windows: positions, window reduce, fires
   G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
+  G14 ``sketch_update``  Count-Min / HyperLogLog register scatter (add, max)
+  G15 ``sketch_fire``    sketch windows: pane combine, finalize, compaction
 
 G11-G13 share one segmented scan (``csrc/segscan.cuh``), and G7, G9, G11
 and G12 one stable row compaction (``csrc/ring.cuh``).
@@ -67,16 +70,18 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu",
            "ring_append.cu", "hash_lookup.cu", "compact_table.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
-           "rolling_update.cu")
+           "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P],
     "clear_rows": [_P, _P, _P, _P, _I, _I, _P],
+    "clear_rows_split": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P],
     "fire_reduced": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -97,6 +102,9 @@ _SIGNATURES = {
     "count_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "rolling_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sketch_update": [_P] * 11 + [_I] * 8 + [_P],
+    "sketch_fire": [_P] * 6 + [_I] * 7 + [_P, _I, _I, _I, _D, _D, _I]
+    + [_P] * 10,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -272,10 +280,20 @@ route_lanes.launches = 0
 # ------------------------------------------------------------ G2
 
 def clear_rows_plain(acc, clear, evicted, dropped_capacity, *, C: int,
-                     R: int) -> None:
-    """Plain version of G2, in place. acc float32 [C*R, 2] packed plane;
-    clear bool [R]; evicted bool [R] or None; dropped_capacity int32 0-d
-    (gains the touched keys of evicted rows, counted before the clear)."""
+                     R: int, touched=None) -> None:
+    """Plain version of G2, in place. acc float32 [C*R, 2] packed plane, or
+    with ``touched`` (bool [C*R]) a sketch's split planes: acc int32
+    [C*R, W] registers; clear bool [R]; evicted bool [R] or None;
+    dropped_capacity int32 0-d (gains the touched keys of evicted rows,
+    counted before the clear)."""
+    if touched is not None:
+        t2 = touched.view(R, C)
+        if evicted is not None:
+            n = (t2 & evicted[:, None]).sum()
+            dropped_capacity.add_(n.to(torch.int32))
+        acc.view(R, C, -1).masked_fill_(clear[:, None, None], 0)
+        t2.masked_fill_(clear[:, None], False)
+        return
     a3 = acc.view(R, C, 2)
     if evicted is not None:
         n = torch.where(evicted[:, None], a3[:, :, 1] != 0, False).sum()
@@ -283,20 +301,28 @@ def clear_rows_plain(acc, clear, evicted, dropped_capacity, *, C: int,
     a3.masked_fill_(clear[:, None, None], 0.0)
 
 
-def clear_rows(acc, clear, evicted, dropped_capacity, *, C: int,
-               R: int) -> None:
+def clear_rows(acc, clear, evicted, dropped_capacity, *, C: int, R: int,
+               touched=None) -> None:
     """G2: see clear_rows_plain for the contract."""
     if _on_cpu(acc):
         return clear_rows_plain(acc, clear, evicted, dropped_capacity, C=C,
-                                R=R)
+                                R=R, touched=touched)
     dev = acc.device
-    _check(acc, "acc", torch.float32, (C * R, 2), dev)
     _check(clear, "clear", torch.bool, (R,), dev)
     if evicted is not None:
         _check(evicted, "evicted", torch.bool, (R,), dev)
     _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
-    rc = build().clear_rows(_ptr(acc), _ptr(clear), _ptr(evicted),
-                            _ptr(dropped_capacity), C, R, _stream())
+    if touched is not None:
+        W = acc.shape[-1]
+        _check(acc, "acc", torch.int32, (C * R, W), dev)
+        _check(touched, "touched", torch.bool, (C * R,), dev)
+        rc = build().clear_rows_split(
+            _ptr(acc), _ptr(touched), _ptr(clear), _ptr(evicted),
+            _ptr(dropped_capacity), C, R, W, _stream())
+    else:
+        _check(acc, "acc", torch.float32, (C * R, 2), dev)
+        rc = build().clear_rows(_ptr(acc), _ptr(clear), _ptr(evicted),
+                                _ptr(dropped_capacity), C, R, _stream())
     _raise_on(rc, "clear_rows")
     clear_rows.launches += 1
 
@@ -1183,10 +1209,214 @@ def session_update(start, last, acc, active, table, wm, order, key_s, hi,
 
 session_update.launches = 0
 
+# ------------------------------------------------------------ G14
+
+def sketch_update_plain(acc, touched, kg_dirty, dropped_capacity, pane, kg,
+                        live, slot, hashes, max_pane, *, C: int, R: int,
+                        sketch) -> None:
+    """Plain version of G14, in place. acc int32 [C*R, W] split register
+    plane, pane-major; touched bool [C*R]; kg_dirty bool [G] or None;
+    dropped_capacity int32 0-d; pane/kg int32 [B]; live bool [B]; slot
+    int32 [B], the lane's state slot or C for none; hashes int32 [B], the
+    item hashes' uint32 bits; max_pane int32 0-d, already advanced;
+    ``sketch`` an ``ops/sketches.py`` spec (``expand`` gives the register
+    updates, ``op`` how they land). Too-old lanes and live lanes with no
+    slot count into dropped_capacity (a sketch stage has no overflow
+    ring)."""
+    too_old = live & (pane < max_pane - (R - 1))
+    live = live & ~too_old
+    if kg_dirty is not None:
+        kg_dirty[kg[live].long()] = True
+    ok = live & (slot >= 0) & (slot < C)
+    dropped_capacity.add_((too_old.sum() + (live & ~ok).sum()).to(
+        torch.int32))
+    flat = (torch.remainder(pane.to(torch.int64), R) * C
+            + slot.to(torch.int64))[ok]
+    touched[flat] = True
+    eidx, upd, _mask = sketch.expand(flat, hashes[ok], ok[ok])
+    regs = acc.view(-1)
+    if sketch.op == "add":
+        regs.index_add_(0, eidx, upd)
+    else:
+        regs.scatter_reduce_(0, eidx, upd, reduce="amax")
+
+
+def _sketch_kernel_args(sketch, dev):
+    """G14's (mode, depth, row width, p, seeds tensor) for a spec."""
+    if sketch.op == "add":
+        seeds, _qcols = sketch.device_arrays(dev)
+        return 0, sketch.depth, sketch.width, 0, seeds
+    if sketch.op == "max":
+        return 1, 0, 0, sketch.p, None
+    raise NotImplementedError(f"sketch op {sketch.op!r} has no kernel")
+
+
+def sketch_update(acc, touched, kg_dirty, dropped_capacity, pane, kg, live,
+                  slot, hashes, max_pane, *, C: int, R: int,
+                  sketch) -> None:
+    """G14: see sketch_update_plain for the contract."""
+    if _on_cpu(acc):
+        return sketch_update_plain(acc, touched, kg_dirty, dropped_capacity,
+                                   pane, kg, live, slot, hashes, max_pane,
+                                   C=C, R=R, sketch=sketch)
+    dev = acc.device
+    (B,) = pane.shape
+    (W,) = sketch.value_shape
+    if C * R * W > INT32_MAX:
+        raise ValueError(f"{C * R * W} registers overflow int32 indices")
+    _check(acc, "acc", torch.int32, (C * R, W), dev)
+    _check(touched, "touched", torch.bool, (C * R,), dev)
+    if kg_dirty is not None:
+        _check(kg_dirty, "kg_dirty", torch.bool, None, dev)
+    _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
+    for t, n, dt in ((pane, "pane", torch.int32), (kg, "kg", torch.int32),
+                     (live, "live", torch.bool), (slot, "slot", torch.int32),
+                     (hashes, "hashes", torch.int32)):
+        _check(t, n, dt, (B,), dev)
+    _check(max_pane, "max_pane", torch.int32, (), dev)
+    mode, depth, width, p, seeds = _sketch_kernel_args(sketch, dev)
+    rc = build().sketch_update(
+        _ptr(acc), _ptr(touched), _ptr(kg_dirty), _ptr(dropped_capacity),
+        _ptr(pane), _ptr(kg), _ptr(live), _ptr(slot), _ptr(hashes),
+        _ptr(max_pane), _ptr(seeds), B, C, R, W, mode, depth, width, p,
+        _stream())
+    _raise_on(rc, "sketch_update")
+    sketch_update.launches += 1
+
+
+sketch_update.launches = 0
+
+
+# ------------------------------------------------------------ G15
+
+def _sketch_fire_lane_plain(a3, t2, pane_ids, p, ok, *, R: int, k: int,
+                            red):
+    """One fire lane of a sketch stage: the window ending at pane ``p`` (0-d
+    int32) for every slot: (emit bool [C], finalized values [C,
+    *out_shape], value-sum terms float64 [C]). Pane q counts for a slot
+    where pane_ids[q mod R] == q and its touched bit is set; the present
+    panes' registers combine from the neutral in pane order."""
+    C, W = a3.shape[1], a3.shape[2]
+    combine = red.combine_fn()
+    vals = torch.zeros(C, W, dtype=a3.dtype, device=a3.device)
+    emit = torch.zeros(C, dtype=torch.bool, device=a3.device)
+    for j in range(k):
+        q = p - (k - 1) + j
+        row = torch.remainder(q, R).long()
+        col_t = t2[row] & ok & (pane_ids[row] == q)
+        vals = torch.where(col_t[:, None], combine(vals, a3[row]), vals)
+        emit = emit | col_t
+    out = vals if red.finalize is None else red.finalize(vals)
+    if out.dtype == torch.float32:
+        terms = out.to(torch.float64)
+    else:
+        terms = out.to(torch.int64).reshape(C, -1).sum(dim=1).to(
+            torch.float64)
+    return emit, out, terms
+
+
+def sketch_fire_plain(acc, touched, pane_ids, p_f, lane_ok, table, out, *,
+                      C: int, R: int, k: int, red):
+    """Plain version of G15. acc int32 [C*R, W] split register plane;
+    touched bool [C*R]; pane_ids int32 [R]; p_f int32 [F] window-end pane
+    per lane; lane_ok bool [F]; ``red`` the stage's sketch ReduceSpec
+    (combine, finalize, out_shape, out_dtype). With ``out`` = (key_hi,
+    key_lo, values), int32 [F, C], int32 [F, C] and [F, C, *out_shape] of
+    out_dtype, each lane's emitted slots go, in slot order, to the prefix
+    ``[:counts[f]]`` (keys read from ``table``, int64 [C] key words),
+    written in place; ``out`` None reduces each lane for a device-reduce
+    sink. Returns (counts int32 [F], value_sums float32 [F]): the emitted
+    slots and the sum of their values' elements, added in float64."""
+    W = acc.shape[1]
+    F = p_f.shape[0]
+    a3 = acc.view(R, C, W)
+    t2 = touched.view(R, C)
+    counts = torch.zeros(F, dtype=torch.int32, device=acc.device)
+    vsums = torch.zeros(F, dtype=torch.float32, device=acc.device)
+    for f in range(F):
+        emit, vals, terms = _sketch_fire_lane_plain(
+            a3, t2, pane_ids, p_f[f], lane_ok[f], R=R, k=k, red=red)
+        counts[f] = emit.sum()
+        vsums[f] = torch.where(emit, terms, 0.0).sum().to(torch.float32)
+        if out is not None:
+            idx = torch.nonzero(emit).reshape(-1)
+            n = idx.shape[0]
+            out[0][f, :n], out[1][f, :n] = split_words(table[idx])
+            out[2][f, :n] = vals[idx]
+    return counts, vsums
+
+
+def _fire_mode(red) -> Tuple[int, int]:
+    """G15's (op, final mode) for a sketch ReduceSpec: op 0 add, 1 max;
+    final 0 raw registers, 1 Count-Min query, 2 HyperLogLog estimate."""
+    sk = red.sketch
+    op = {"add": 0, "max": 1}[sk.op]
+    if red.finalize is None:
+        return op, 0
+    if red.finalize != sk.finalize:
+        raise NotImplementedError("G15 runs the sketches' own finalize only")
+    return op, 2 if hasattr(sk, "base") else 1
+
+
+SKETCH_CHUNK = 256   # slots per block of G15's count and rank passes
+
+
+def sketch_fire(acc, touched, pane_ids, p_f, lane_ok, table, out, *, C: int,
+                R: int, k: int, red):
+    """G15: see sketch_fire_plain for the contract."""
+    if _on_cpu(acc):
+        return sketch_fire_plain(acc, touched, pane_ids, p_f, lane_ok, table,
+                                 out, C=C, R=R, k=k, red=red)
+    dev = acc.device
+    (F,) = p_f.shape
+    W = acc.shape[-1]
+    _check(acc, "acc", torch.int32, (C * R, W), dev)
+    _check(touched, "touched", torch.bool, (C * R,), dev)
+    _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
+    _check(p_f, "p_f", torch.int32, (F,), dev)
+    _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+    op, final = _fire_mode(red)
+    sk = red.sketch
+    qcol, D, Q = None, 0, 0
+    if final == 1:
+        _seeds, qcol = sk.device_arrays(dev)
+        D, Q = sk.qpos.shape
+    base, scale, log_m, m = (
+        (sk.base, sk.scale, sk.log_m, sk.m) if final == 2 else (0, 0., 0., 0))
+    i32 = dict(dtype=torch.int32, device=dev)
+    n_blk = -(-C // SKETCH_CHUNK)
+    blk_count = torch.empty(F, n_blk, **i32)
+    blk_off = torch.empty(F, n_blk, **i32)
+    contrib = torch.empty(F, C, dtype=torch.float64, device=dev)
+    counts = torch.empty(F, **i32)
+    vsums = torch.empty(F, dtype=torch.float32, device=dev)
+    pos = None
+    if out is not None:
+        key_hi, key_lo, values = out
+        _check(table, "table", torch.int64, (C,), dev)
+        _check(key_hi, "key_hi", torch.int32, (F, C), dev)
+        _check(key_lo, "key_lo", torch.int32, (F, C), dev)
+        _check(values, "values", red.out_dtype, (F, C) + red.out_shape, dev)
+        pos = torch.empty(F, C, **i32)
+    else:
+        key_hi = key_lo = values = None
+    rc = build().sketch_fire(
+        _ptr(acc), _ptr(touched), _ptr(pane_ids), _ptr(p_f), _ptr(lane_ok),
+        _ptr(table), C, R, k, F, W, op, final, _ptr(qcol), D, Q, base, scale,
+        log_m, m, _ptr(blk_count), _ptr(blk_off), _ptr(pos), _ptr(contrib),
+        _ptr(key_hi), _ptr(key_lo), _ptr(values), _ptr(counts), _ptr(vsums),
+        _stream())
+    _raise_on(rc, "sketch_fire")
+    sketch_fire.launches += 1
+    return counts, vsums
+
+
+sketch_fire.launches = 0
+
 KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced,
            hash_upsert, fire_compact, ring_append, hash_lookup,
            compact_table, segment_sort, session_update, count_update,
-           rolling_update)
+           rolling_update, sketch_update, sketch_fire)
 
 
 def reset_launch_counts() -> None:

@@ -7,12 +7,15 @@ panes, and each shard keeps accumulators for ALL its keys across a ring of
 R recent panes. Two state layouts, as in the reference: ``direct`` (key ==
 slot, for bounded non-negative integer keys) and ``hash`` (an
 open-addressing table, ``ops/hashtable.py``, for any 64-bit key identity).
-The planes are packed: ``acc`` is one flat pane-major float32 plane
-``[C*R, 2]`` whose second column is the touch marker (neutral 0 ==
-untouched), exactly the reference's packed layout, so states carry across
-(``state_from_numpy`` / ``state_to_numpy``). The table holds one int64 key
-word ``(hi << 32) | lo`` per slot; the reference's uint32 ``[C, 2]`` rows
-appear only at carry-over.
+The planes of a sum or count are packed: ``acc`` is one flat pane-major
+float32 plane ``[C*R, 2]`` whose second column is the touch marker
+(neutral 0 == untouched), exactly the reference's packed layout. A sketch
+reduce (Count-Min, HyperLogLog: ``ops/sketches.py``) keeps the
+reference's split planes: ``acc`` int32 ``[C*R, W]`` registers,
+pane-major, beside a ``touched`` bool plane ``[C*R]`` (``packed = -1``).
+Either carries across (``state_from_numpy`` / ``state_to_numpy``). The
+table holds one int64 key word ``(hi << 32) | lo`` per slot; the
+reference's uint32 ``[C, 2]`` rows appear only at carry-over.
 
 Records whose key finds no slot (a key past capacity in the direct layout,
 a full probe chain or an absent key in the hash layout's lookup-only fast
@@ -20,23 +23,25 @@ update) go to the overflow ring (``ovf_*``, ``WindowSpec.overflow`` lanes)
 when the spec has one; the executor drains it into its host spill stores
 and compacts the table (``compact_table``), as the reference does.
 
-The O(B) and O(C) work runs in the nine kernels of ``ops/cuda.py``
-(G1-G9). The per-batch scalar bookkeeping — pane-ring registration, the
-fire plan, the purge plan, watermark / fired_through / purged_through —
+The O(B) and O(C) work runs in the kernels of ``ops/cuda.py``: G1-G9,
+and for a sketch G14 (the register scatter) and G15 (the fire's pane
+combine, finalize and compaction) in place of G3, G4 and G6. The
+per-batch scalar bookkeeping — pane-ring registration, the fire plan,
+the purge plan, watermark / fired_through / purged_through —
 stays on the device as small torch ops on 0-d, [R] and [F] tensors, so a
 drain never waits for the host between slots. State tensors are updated in
 place where the reference donated its buffers to XLA; every such update is
 marked "in place" below.
 
 Not ported yet (ROADMAP queues 1-2): allowed lateness and its re-fires,
-the key-group counts (K11), split (unpacked) planes, min/max and generic
-reduces, and the slot-major accumulator layout.
+the key-group counts (K11), min/max and generic reduces, vector values
+other than a sketch's, and the slot-major accumulator layout.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,26 +56,60 @@ INT32_MIN = -(2**31)
 @dataclass(frozen=True)
 class ReduceSpec:
     """How window contents aggregate: the builtin ``sum`` and ``count``
-    (ref ReduceFunction under ReducingStateDescriptor). Both have the
-    neutral 0, which is also the packed plane's untouched marker."""
+    (ref ReduceFunction under ReducingStateDescriptor), or a ``sketch``
+    (``ops/sketches.py``) whose int32 register vector of ``value_shape``
+    is the accumulator: records expand into it and panes compose
+    elementwise by the sketch's op. ``finalize`` turns a window's
+    combined registers into its ``result_shape`` / ``result_dtype`` value
+    at fire time (the reference's window-function result extraction).
+    Every kind has the neutral 0, also the packed plane's untouched
+    marker."""
 
     kind: str = "sum"
     dtype: Any = torch.float32
+    value_shape: Tuple[int, ...] = ()
+    sketch: Any = None
+    finalize: Optional[Callable] = None
+    result_shape: Optional[Tuple[int, ...]] = None
+    result_dtype: Any = None
 
     def __post_init__(self):
+        if self.kind == "sketch":
+            if self.sketch is None or self.sketch.op not in ("add", "max"):
+                raise ValueError("a sketch reduce needs an add or max sketch")
+            if self.dtype != torch.int32 or \
+                    tuple(self.value_shape) != tuple(self.sketch.value_shape):
+                raise ValueError("a sketch reduce holds the sketch's int32 "
+                                 "registers")
+            return
         if self.kind not in ("sum", "count"):
             raise NotImplementedError(
                 f"reduce kind {self.kind!r} is not ported yet: min/max and "
                 f"generic reduces are ROADMAP queue 1, item 4"
             )
-        if self.dtype != torch.float32:
+        if self.dtype != torch.float32 or self.value_shape \
+                or self.finalize is not None:
             raise NotImplementedError(
-                "only float32 reduces are ported so far (ROADMAP queue 1, "
-                "item 4)"
+                "only float32 scalar sums and counts are ported besides the "
+                "sketches (ROADMAP queue 1, item 4)"
             )
+
+    @property
+    def out_shape(self) -> Tuple[int, ...]:
+        return tuple(self.value_shape if self.finalize is None
+                     else self.result_shape)
+
+    @property
+    def out_dtype(self):
+        return self.dtype if self.result_dtype is None else self.result_dtype
 
     def neutral_value(self) -> float:
         return 0.0
+
+    def combine_fn(self) -> Callable:
+        if self.kind == "sketch":
+            return {"add": torch.add, "max": torch.maximum}[self.sketch.op]
+        return torch.add
 
 
 @dataclass(frozen=True)
@@ -106,13 +145,16 @@ class WindowSpec:
 class WindowShardState:
     """All device state of one key-group shard (the reference's pytree,
     field for field; ``table.keys`` becomes ``table_keys``, one int64 key
-    word per slot, and the planes are always packed, so the reference's
-    ``packed`` descriptor is 0). ``layout`` and ``probe_len`` are static,
-    as the reference's table probe length is."""
+    word per slot). ``packed`` is the reference's plane descriptor: 0 for
+    a sum or count's packed plane, -1 for a sketch's split planes.
+    ``layout``, ``probe_len`` and ``packed`` are static, as the
+    reference's table probe length and plane descriptor are."""
 
     table_keys: torch.Tensor        # int64 [C]: key word per slot
-    acc: torch.Tensor               # float32 [C*R, 2] packed plane
-    touched: torch.Tensor           # bool [0]: rides acc's touch column
+    acc: torch.Tensor               # float32 [C*R, 2] packed plane, or
+                                    # int32 [C*R, W] split registers
+    touched: torch.Tensor           # bool [0]: rides acc's touch column,
+                                    # or bool [C*R] with split planes
     pane_ids: torch.Tensor          # int32 [R]: absolute pane per ring row
     max_pane: torch.Tensor          # int32 0-d: newest registered pane
     min_pane: torch.Tensor          # int32 0-d: oldest pane ever seen
@@ -127,10 +169,12 @@ class WindowShardState:
     ovf_lo: torch.Tensor            # int32 [O]: key lo bits
     ovf_pane: torch.Tensor          # int32 [O]
     ovf_val: torch.Tensor           # float32 [O]: the record's contribution
+                                    # (int32 [0, W] with split planes)
     ovf_n: torch.Tensor             # int32 0-d: filled lanes
     kg_dirty: torch.Tensor          # bool [n_key_groups] changelog bits
     layout: str = "direct"          # "direct" (key == slot) | "hash"
     probe_len: int = 16             # hash layout: slots per probe chain
+    packed: int = 0                 # 0 packed, -1 split planes
 
     @property
     def capacity(self) -> int:
@@ -210,16 +254,20 @@ def _scalar(v: int, device) -> torch.Tensor:
 def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
                n_key_groups: int = 0, device="cuda", layout: str = "direct",
                probe_len: int = 16) -> WindowShardState:
-    """Fresh state with packed planes (the reference's
-    ``init_state(layout=..., packed=True)``). ``direct``: the table holds
-    the identity rows (0, slot) and the key is its slot. ``hash``: an empty
-    open-addressing table (capacity a power of two) probed ``probe_len``
-    slots deep. Every plane starts at the neutral; the overflow ring has
-    ``win.overflow`` empty lanes."""
+    """Fresh state with packed planes for a sum or count (the reference's
+    ``init_state(layout=..., packed=True)``), split planes for a sketch
+    (``packed=False``: int32 registers ``[C*R, W]`` and a touched plane).
+    ``direct``: the table holds the identity rows (0, slot) and the key is
+    its slot. ``hash``: an empty open-addressing table (capacity a power of
+    two) probed ``probe_len`` slots deep. Every plane starts at the
+    neutral; the overflow ring has ``win.overflow`` empty lanes."""
     R = win.ring
-    if capacity * R > INT32_MAX:
+    split = red.kind == "sketch"
+    W = int(np.prod(red.value_shape, dtype=np.int64)) if split else 1
+    if capacity * R * W > INT32_MAX:
         raise ValueError(
-            f"accumulator of {capacity * R} rows overflows int32 indices"
+            f"accumulator of {capacity * R * W} elements overflows int32 "
+            f"indices; lower capacity/ring or the sketch register count"
         )
     if win.overflow and not overflow_supported(red):
         raise ValueError(
@@ -234,10 +282,15 @@ def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
     else:
         raise ValueError(f"unknown state layout {layout!r}")
     i32 = dict(dtype=torch.int32, device=dev)
+    if split:
+        acc = torch.zeros(capacity * R, W, dtype=torch.int32, device=dev)
+    else:
+        acc = torch.zeros(capacity * R, 2, dtype=torch.float32, device=dev)
     return WindowShardState(
         table_keys=table,
-        acc=torch.zeros(capacity * R, 2, dtype=torch.float32, device=dev),
-        touched=torch.zeros(0, dtype=torch.bool, device=dev),
+        acc=acc,
+        touched=torch.zeros(capacity * R if split else 0, dtype=torch.bool,
+                            device=dev),
         pane_ids=torch.full((R,), PANE_NONE, **i32),
         max_pane=_scalar(PANE_NONE, dev),
         min_pane=_scalar(INT32_MAX, dev),
@@ -251,11 +304,13 @@ def init_state(capacity: int, win: WindowSpec, red: ReduceSpec,
         ovf_hi=torch.zeros(O, **i32),
         ovf_lo=torch.zeros(O, **i32),
         ovf_pane=torch.full((O,), PANE_NONE, **i32),
-        ovf_val=torch.zeros(O, dtype=torch.float32, device=dev),
+        ovf_val=torch.zeros((O,) + tuple(red.value_shape), dtype=red.dtype,
+                            device=dev),
         ovf_n=_scalar(0, dev),
         kg_dirty=torch.zeros(n_key_groups, dtype=torch.bool, device=dev),
         layout=layout,
         probe_len=probe_len,
+        packed=-1 if split else 0,
     )
 
 
@@ -284,21 +339,33 @@ def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
     """Build a port state from host arrays named as the reference's
     ``WindowShardState.tree_flatten`` leaves (``STATE_FIELDS``). ``packed``
     is the source's plane descriptor: 0 for a packed scalar plane
-    ``acc [C*R, 2]``, -1 for split planes ``acc [C*R]`` + ``touched
-    [C*R]`` (packed here). ``table.keys`` is the reference's uint32
-    [C, 2] (hi, lo) rows, for either ``layout``; ``probe_len`` is the
-    source table's."""
+    ``acc [C*R, 2]``; -1 for split planes, either a scalar's ``acc [C*R]``
+    + ``touched [C*R]`` (packed here) or a sketch's int32 registers ``acc
+    [C*R, W]`` + ``touched [C*R]`` (kept split). ``table.keys`` is the
+    reference's uint32 [C, 2] (hi, lo) rows, for either ``layout``;
+    ``probe_len`` is the source table's."""
     dev = torch.device(device)
     missing = [f for f in STATE_FIELDS if f not in fields]
     if missing:
         raise KeyError(f"state fields missing: {missing}")
-    acc = np.asarray(fields["acc"], np.float32)
-    if packed < 0:
-        acc = make_packed(acc, np.asarray(fields["touched"], bool),
+    raw = np.asarray(fields["acc"])
+    split = packed < 0 and raw.ndim == 2
+    touched = np.zeros(0, bool)
+    if split:
+        acc = raw.astype(np.int32)
+        touched = np.asarray(fields["touched"], bool)
+        if touched.shape != acc.shape[:1]:
+            raise ValueError(f"touched {touched.shape} does not match acc "
+                             f"{acc.shape}")
+    elif packed < 0:
+        acc = make_packed(raw.astype(np.float32),
+                          np.asarray(fields["touched"], bool),
                           ReduceSpec("sum"))
     elif packed != 0:
-        raise NotImplementedError("only scalar values are ported")
-    if acc.ndim != 2 or acc.shape[1] != 2:
+        raise NotImplementedError("only scalar and sketch values are ported")
+    else:
+        acc = raw.astype(np.float32)
+    if not split and (acc.ndim != 2 or acc.shape[1] != 2):
         raise ValueError(f"packed acc must be [C*R, 2], got {acc.shape}")
 
     def t(name, dtype):
@@ -313,7 +380,7 @@ def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
     return WindowShardState(
         table_keys=hashtable.from_rows(fields["table.keys"], device=dev),
         acc=torch.from_numpy(np.array(acc)).to(dev),
-        touched=torch.zeros(0, dtype=torch.bool, device=dev),
+        touched=torch.from_numpy(np.array(touched)).to(dev),
         pane_ids=t("pane_ids", i32),
         max_pane=t("max_pane", i32),
         min_pane=t("min_pane", i32),
@@ -327,18 +394,20 @@ def state_from_numpy(fields: Dict[str, np.ndarray], packed: int,
         ovf_hi=t("ovf_hi", i32),
         ovf_lo=t("ovf_lo", i32),
         ovf_pane=t("ovf_pane", i32),
-        ovf_val=t("ovf_val", torch.float32),
+        ovf_val=t("ovf_val", torch.int32 if split else torch.float32),
         ovf_n=t("ovf_n", i32),
         kg_dirty=t("kg_dirty", torch.bool),
         layout=layout,
         probe_len=probe_len,
+        packed=-1 if split else 0,
     )
 
 
 def state_to_numpy(state: WindowShardState) -> Dict[str, np.ndarray]:
     """Host arrays of a port state under ``STATE_FIELDS`` names, in the
-    packed layout (``touched`` is the zero-length placeholder; use
-    ``split_packed`` for the logical planes). ``table.keys`` and the
+    state's layout: packed (``touched`` is the zero-length placeholder;
+    use ``split_packed`` for the logical planes) or a sketch's split
+    planes (``packed = -1``). ``table.keys`` and the
     overflow identities come back as uint32, as the reference holds them."""
     out = {}
     for name in STATE_FIELDS:
@@ -366,7 +435,8 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     table gives a key where several keys race for one).
 
     hi/lo: int32 [B] holding the uint32 halves of the key identity; ts
-    int32 [B] ticks; values float32 [B]; valid bool [B]. Routing is fused
+    int32 [B] ticks; values float32 [B], or for a sketch int32 [B], the
+    uint32 bits of each record's item hash; valid bool [B]. Routing is fused
     in (G1): a lane counts only when valid AND its key group lies in
     ``[kg_start, kg_end]`` (the whole ``[0, maxp)`` by default — the
     reference's ``update`` receives ``valid`` already masked).
@@ -381,6 +451,9 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     ring (G7) when ``win.overflow`` > 0, as (key, pane, contribution); it
     is lost, and counted in ``dropped_capacity``, only when the ring is
     full or absent.
+
+    A sketch (split planes) has no overflow ring: G14 expands each lane
+    into its registers, and a live lane with no slot counts as lost.
 
     Returns ``(state, activity)``, ``activity`` an int32 0-d tensor on the
     device: the lanes whose key the table did not hold before the batch
@@ -400,6 +473,10 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         raise ValueError(
             f"state has a {state.ovf_hi.numel()}-lane overflow ring, the "
             f"spec {win.overflow}")
+    sketch = red.kind == "sketch"
+    if sketch != (state.packed < 0):
+        raise ValueError("a sketch reduce runs on split planes, a sum or "
+                         "count on packed ones")
     # G1: routing mask, pane, late check, batch pane range
     pane, kg, live, stats = kernels.route_lanes(
         hi, lo, ts, valid, state.watermark, state.purged_through,
@@ -420,7 +497,7 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     clear = stale if clear_rows is None else (stale | clear_rows)
     # G2: ring-reset sweep of the flagged rows (+ eviction count)
     kernels.clear_rows(state.acc, clear, evicted, state.dropped_capacity,
-                       C=C, R=R)
+                       C=C, R=R, touched=state.touched if sketch else None)
     state.pane_ids.copy_(torch.where(stale, p_r, state.pane_ids))  # in place
     state.max_pane.copy_(new_max)                                  # in place
     state.min_pane.copy_(new_min)                                  # in place
@@ -438,6 +515,14 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         # G8: find the keys, place none
         slot, _ok, activity = hashtable.lookup_counted(
             state.table_keys, hi, lo, inside, probe_len=state.probe_len)
+    if sketch:
+        # G14: too-old drop, kg_dirty, expand into the registers
+        kernels.sketch_update(
+            state.acc, state.touched,
+            state.kg_dirty if state.kg_dirty.numel() else None,
+            state.dropped_capacity, pane, kg, live, slot, values,
+            state.max_pane, C=C, R=R, sketch=red.sketch)
+        return state, activity
     count = red.kind == "count"
     if win.overflow:
         # G7: the lanes with no slot go to the overflow ring
@@ -463,9 +548,10 @@ def compact_table(state: WindowShardState, win: WindowSpec,
     touched cells of a key that finds no slot in the new arrangement go to
     the overflow ring, and count as lost only when the ring is full. The
     state's table and plane are replaced by the rebuilt ones."""
-    if state.layout != "hash":
-        raise ValueError("compact_table rebuilds a hash-layout table; the "
-                         "direct layout's slot is its key")
+    if state.layout != "hash" or state.packed < 0:
+        raise ValueError("compact_table rebuilds a hash-layout table of "
+                         "packed planes; the direct layout's slot is its "
+                         "key, and a sketch stage has no spill tier")
     state.acc, state.table_keys, _slot, _ok = kernels.compact_table(
         state.acc, state.table_keys, state.pane_ids, state.ring,
         state.dropped_capacity, R=win.ring, probe_len=state.probe_len)
@@ -549,7 +635,9 @@ def advance_and_fire_resident(state: WindowShardState, win: WindowSpec,
     (G4) and returns ReducedFires. Otherwise G6 compacts the emitted rows
     into ``out`` — ``(key_hi, key_lo, values)``, int32 / int32 / float32
     ``[F, C]`` views of the caller's arena, allocated here when None — and
-    returns CompactFires over them.
+    returns CompactFires over them. A sketch's windows run on G15 in
+    either mode: its values are the finalized ``red.out_shape`` of
+    ``red.out_dtype`` (``[F, C, *out_shape]`` rows).
 
     Returns ``(state, purge_rows bool [R], fires)``."""
     plan = _fire_plan(state, win, new_watermark)
@@ -557,7 +645,19 @@ def advance_and_fire_resident(state: WindowShardState, win: WindowSpec,
         state, win, plan["wm"], plan["new_fired_through"]
     )
     C, R, k = state.capacity, win.ring, win.panes_per_window
-    if reduced:
+    if red.kind == "sketch":
+        if not reduced and out is None:
+            out = fire_row_buffers(win.fires_per_step, C, state.device,
+                                   red=red)
+        counts, vsums = kernels.sketch_fire(
+            state.acc, state.touched, state.pane_ids, plan["p_f"],
+            plan["lane_ok"], state.table_keys, None if reduced else out,
+            C=C, R=R, k=k, red=red)
+        fires = (ReducedFires(counts, plan["window_end"], plan["n_now"],
+                              plan["lane_ok"], vsums) if reduced else
+                 CompactFires(*out, counts, plan["window_end"],
+                              plan["n_now"], plan["lane_ok"], vsums))
+    elif reduced:
         counts, vsums = kernels.fire_reduced(
             state.acc, state.pane_ids, plan["p_f"], plan["lane_ok"],
             C=C, R=R, k=k)
@@ -577,15 +677,20 @@ def advance_and_fire_resident(state: WindowShardState, win: WindowSpec,
     return state, purgeable, fires
 
 
-def fire_row_buffers(*shape_and_device):
+def fire_row_buffers(*shape_and_device, red: Optional[ReduceSpec] = None):
     """Row buffers ``(key_hi, key_lo, values)`` of shape ``[..., C]`` for
-    compact fires (int32, int32, float32), uninitialised: G6 writes only
-    the prefixes it emits. ``fire_row_buffers(D, F, C, device)`` is one
-    drain's arena (D·F·C·12 bytes)."""
+    compact fires (int32, int32, float32), uninitialised: G6 and G15 write
+    only the prefixes they emit. ``fire_row_buffers(D, F, C, device)`` is
+    one drain's arena (D·F·C·12 bytes). With a sketch ``red`` the values
+    are ``[..., C, *red.out_shape]`` of ``red.out_dtype``."""
     *shape, device = shape_and_device
+    v_shape, v_dtype = list(shape), torch.float32
+    if red is not None:
+        v_shape += list(red.out_shape)
+        v_dtype = red.out_dtype
     return (torch.empty(shape, dtype=torch.int32, device=device),
             torch.empty(shape, dtype=torch.int32, device=device),
-            torch.empty(shape, dtype=torch.float32, device=device))
+            torch.empty(v_shape, dtype=v_dtype, device=device))
 
 
 def compact_fires(table_keys, mask, values, window_end_ticks, n_fires,
@@ -605,5 +710,6 @@ def apply_pending_purge(state: WindowShardState, win: WindowSpec,
     """Clear the ring rows whose purge was deferred past the end of a
     drain (G2 without an eviction count), in place."""
     kernels.clear_rows(state.acc, rows, None, state.dropped_capacity,
-                       C=state.capacity, R=win.ring)
+                       C=state.capacity, R=win.ring,
+                       touched=state.touched if state.packed < 0 else None)
     return state

@@ -2,8 +2,8 @@
 the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
-event-time window -> sum | count -> sinks`` with allowed lateness 0 and no
-checkpointing:
+event-time window -> sum | count | distinct_count | count_min -> sinks``
+with allowed lateness 0 and no checkpointing:
 
   1. poll the source (columnar batches of ``execution.micro-batch-size``);
   2. encode keys to 64-bit identities (``KeyCodec``), split (hi, lo);
@@ -24,6 +24,20 @@ checkpointing:
      "value"}) when every sink is columnar, else ``invoke_batch`` with
      ``WindowResult(key, window_end_ms, value)`` rows, keys decoded;
   8. at end of stream, flush with the MAX watermark.
+
+A sketch stage (``distinct_count``: HyperLogLog; ``count_min``: Count-Min,
+``ops/sketches.py``) hashes each record's item on the host (the stage's
+``value_prep``, as the reference does at executor.py:5472) and stages the
+uint32 hashes in an int32 values column. Its state keeps the reference's
+split planes (``state.packed-planes: on`` raises, as the reference's
+does); it has no spill tier, so the ``auto`` layout resolves to hash, an
+explicit ``state.backend.overflow-ring`` above 0 raises, and capacity is
+strict. Its fires run on G15, and its rows carry a vector value (a
+Count-Min query's ``[Q]`` int32 estimates, or its raw ``[D*W]``
+registers) or HyperLogLog's float32 estimate: a columnar sink gets a
+``value`` column of ``[n, Q]`` (or ``[n]``), a row sink
+``WindowResult(key, window_end_ms, value)`` with the value as a list (or
+a float), as the reference emits them.
 
 The spill tier (the reference's, executor.py:4609-4840, 5040-5080): a
 record whose key finds no state slot (a key past capacity in the direct
@@ -221,8 +235,11 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             or wagg.window_fn is not None or wagg.reduce_spec_factory is None:
         raise _unsupported("custom triggers, evictors and window functions",
                            "ROADMAP queue 1, item 9")
-    if wagg.result_fn is not None or wagg.value_prep is not None:
-        raise _unsupported("result projections and sketch value prep",
+    if wagg.result_fn is not None:
+        raise _unsupported("result projections", "ROADMAP queue 1, item 9")
+    if wagg.value_prep is not None \
+            and not isinstance(assigner, WindowAssigner):
+        raise _unsupported("sketches over session and count windows",
                            "ROADMAP queue 1, item 9")
     if wagg.allowed_lateness_ms:
         raise _unsupported("allowed lateness", "ROADMAP queue 2, K11")
@@ -274,7 +291,7 @@ class LocalExecutor:
         return JobHandle(job_name, job.metrics, state=job.state)
 
 
-def _check_config(cfg) -> None:
+def _check_config(cfg, red: wk.ReduceSpec) -> None:
     """The reference's window-stage knobs: validated as it validates them;
     those naming a path this slice lacks raise."""
     for key, allowed in (("pipeline.update-precombine", ("auto", "on", "off")),
@@ -284,6 +301,14 @@ def _check_config(cfg) -> None:
         v = cfg.get_str(key, "auto")
         if v not in allowed:
             raise ValueError(f"{key} must be {'|'.join(allowed)}, got {v!r}")
+    if red.kind == "sketch" and cfg.get_str("state.packed-planes",
+                                            "auto") == "on":
+        # the reference's check (executor.py:1756-1761); a sketch keeps
+        # split planes whatever the knob says otherwise
+        raise ValueError(
+            "state.packed-planes=on requires a builtin sum/count/min/max "
+            "reduce with the default neutral and an at-most-1-D value; "
+            "unset it for this stage")
     layout = cfg.get_str("state.backend.layout", "auto")
     if layout not in ("auto", "hash", "direct"):
         raise ValueError(
@@ -305,8 +330,8 @@ class _WindowJob(StageJob):
 
     def __init__(self, env, pipe: _Pipeline, metrics):
         cfg = env.config
-        _check_config(cfg)
         super().__init__(env, pipe, metrics, pipe.window_agg)
+        _check_config(cfg, self.red)
         assigner = pipe.window_agg.assigner
         self.size_ms, self.slide_ms = assigner.size_ms, assigner.slide_ms
         self.wm_strategy = (
@@ -314,9 +339,10 @@ class _WindowJob(StageJob):
             else WatermarkStrategy.for_monotonous_timestamps()
         )
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
-        # the spill tier needs a reduce the host can combine; every other
-        # precondition of the reference's (float32 scalar values, allowed
-        # lateness 0, one stage) holds for each job this port runs
+        # the spill tier needs a reduce the host can combine (not a
+        # sketch); every other precondition of the reference's (float32
+        # scalar values, allowed lateness 0, one stage) holds for each job
+        # this port runs
         self.spillable = wk.overflow_supported(self.red)
         self.ovf_cfg = cfg.get_int("state.backend.overflow-ring", -1)
         if self.ovf_cfg > 0 and not self.spillable:
@@ -396,7 +422,8 @@ class _WindowJob(StageJob):
             win=win, red=self.red, capacity_per_shard=capacity,
             layout=layout, probe_len=cfg.get_int("state.probe-len", 16))
         self.state = init_shard_state(self.spec, self.maxp, self.device)
-        self.ring = DeviceBatchRing(self.depth, self.B, self.device)
+        self.ring = DeviceBatchRing(self.depth, self.B, self.device,
+                                    value_dtype=self.red.dtype)
         self.drain = build_window_resident_drain(
             self.spec, self.depth, self.maxp, reduced=self.reduced)
         if ovf and layout == "hash":
@@ -605,20 +632,28 @@ class _WindowJob(StageJob):
         parts = [(d, f, int(counts[d, f])) for d in range(n_slots)
                  for f in range(F) if counts[d, f]]
         by_slot = {}
+        red = self.red
+        v_shape = red.out_shape
+        v_np = np.float32 if red.out_dtype == torch.float32 else np.int32
+        width = int(np.prod(v_shape, dtype=np.int64))
         if parts:
-            khi = fires.key_hi.reshape(n_slots, F, -1)
-            klo = fires.key_lo.reshape(n_slots, F, -1)
-            vals = fires.values.reshape(n_slots, F, -1).view(torch.int32)
+            C = fires.key_hi.shape[-1]
+            khi = fires.key_hi.reshape(n_slots, F, C)
+            klo = fires.key_lo.reshape(n_slots, F, C)
+            vals = fires.values.reshape(n_slots, F, C * width)
+            if vals.dtype == torch.float32:
+                vals = vals.view(torch.int32)
             rows = torch.cat([
-                torch.cat([khi[d, f, :n], klo[d, f, :n], vals[d, f, :n]])
+                torch.cat([khi[d, f, :n], klo[d, f, :n],
+                           vals[d, f, :n * width]])
                 for d, f, n in parts]).cpu().numpy()
             at = 0
             for d, f, n in parts:
-                r = rows[at:at + 3 * n]
-                at += 3 * n
+                r = rows[at:at + (2 + width) * n]
+                at += (2 + width) * n
                 by_slot.setdefault(d, []).append((
                     r[:n].view(np.uint32), r[n:2 * n].view(np.uint32),
-                    r[2 * n:].view(np.float32),
+                    r[2 * n:].view(v_np).reshape((n,) + v_shape),
                     np.full(n, self.td.to_ms(int(ends[d, f])), np.int64)))
         prev = 0
         for d in range(n_slots):

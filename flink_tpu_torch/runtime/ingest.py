@@ -3,7 +3,10 @@ flink_tpu/runtime/ingest.py.
 
 ``DeviceBatchRing`` holds ``depth`` slots. On a CUDA device each slot is a
 set of pinned host buffers plus the device tensors of one padded batch
-(hi, lo, ticks, values, valid) and the slot's watermark; staging fills the
+(hi, lo, ticks, values, valid) and the slot's watermark. The values column
+has the stage's value dtype: float32 for a sum or count, int32 for a
+sketch, whose values are uint32 item hashes carried as int32 bits (a
+float32 would round every hash above 2^24). Staging fills the
 pinned buffers and copies them with ``non_blocking`` copies on a side
 stream, recording an event after each copy. The drain's stream waits on
 those events (a device-side wait: the host never blocks on a copy), and
@@ -26,7 +29,8 @@ import torch
 
 
 class DeviceBatchRing:
-    def __init__(self, depth: int, batch: int, device):
+    def __init__(self, depth: int, batch: int, device,
+                 value_dtype=torch.float32):
         self.depth = max(1, int(depth))
         self.batch = int(batch)
         self.device = torch.device(device)
@@ -40,7 +44,7 @@ class DeviceBatchRing:
         # [D, B] host staging (pinned on CUDA) and [D, B] device slots
         self._host = {
             "hi": host(torch.int32), "lo": host(torch.int32),
-            "ts": host(torch.int32), "values": host(torch.float32),
+            "ts": host(torch.int32), "values": host(value_dtype),
             "valid": host(torch.bool),
         }
         self._host_wm = torch.zeros(D, dtype=torch.int32, pin_memory=pin)
@@ -60,8 +64,9 @@ class DeviceBatchRing:
 
     def stage(self, i: int, hi: np.ndarray, lo: np.ndarray, ticks: np.ndarray,
               values: np.ndarray, wm_ticks: int) -> None:
-        """Fill slot ``i`` with one batch of ``n <= batch`` lanes (hi / lo
-        as uint32 or int32 bits) and its watermark, and start its copy."""
+        """Fill slot ``i`` with one batch of ``n <= batch`` lanes (hi / lo,
+        and an int32 values column, as uint32 or int32 bits) and its
+        watermark, and start its copy."""
         n = len(ticks)
         if n > self.batch:
             raise ValueError(f"{n} records exceed the ring's batch "
@@ -73,6 +78,8 @@ class DeviceBatchRing:
         h["hi"][i, :n] = np.asarray(hi).view(np.int32)
         h["lo"][i, :n] = np.asarray(lo).view(np.int32)
         h["ts"][i, :n] = ticks
+        if h["values"].dtype == np.int32:
+            values = np.asarray(values).view(np.int32)
         h["values"][i, :n] = values
         h["valid"][i, :n] = True
         h["valid"][i, n:] = False

@@ -10,7 +10,11 @@ the reference's: ``WindowResult(key, window_end_ms, value)`` for time and
 count windows (a count window's ``window_end_ms`` is its 0-based ordinal
 within the key), ``SessionResult(key, window_start_ms, window_end_ms,
 value)`` for sessions, and ``(key, value)`` for rolling reduces, one per
-record in input order (runtime/keyed_jobs.py).
+record in input order (runtime/keyed_jobs.py). A sketch window's value is
+HyperLogLog's float estimate or a Count-Min vector: a list in a
+``WindowResult`` (the Q query estimates, or the raw registers), an
+``[n, Q]`` array in a columnar ``value`` column; a device-reduce sink's
+value sum adds every element.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ class CountingSink(Sink):
         self.count += len(elements)
         for e in elements:
             v = e[-1] if isinstance(e, tuple) else getattr(e, "value", 0.0)
-            self.value_sum += float(v)
+            self.value_sum += float(np.sum(v))
 
     def invoke_columnar(self, cols):
         self.count += len(cols["value"])
@@ -99,7 +103,8 @@ class CollectSink(Sink):
 class ColumnarCollectSink(Sink):
     """Keeps every row it is given, as columns: a window stage hands it
     ``{"key_id", "window_end_ms", "value"}`` arrays (key_id the uint64 key
-    identity), a session stage ``{"key_id", "window_start_ms",
+    identity; value ``[n]``, or ``[n, Q]`` for a vector value), a session
+    stage ``{"key_id", "window_start_ms",
     "window_end_ms", "value"}``, a rolling stage ``{"key_id", "value"}``;
     ``columns()`` joins them."""
 

@@ -26,8 +26,10 @@ from flink_tpu_torch.ops import window_kernels as wk
 @dataclass
 class WindowStageSpec:
     """Static config of one keyed-window pipeline stage: the reference's
-    fields for packed planes. ``layout`` is ``direct`` (key == slot) or
-    ``hash`` (the open-addressing table, ``probe_len`` slots per chain).
+    fields, with packed planes for a sum or count and split planes for a
+    sketch (``red.kind == "sketch"``). ``layout`` is ``direct`` (key ==
+    slot) or ``hash`` (the open-addressing table, ``probe_len`` slots per
+    chain).
     The port has one update path, whose state equals the reference's with
     pre-combine on and off, so there is no pre-combine field."""
 
@@ -100,7 +102,8 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
 
     ``drain(state, slots, wmv, count)``: ``slots`` is a sequence of
     ``depth`` staged batches ``(hi, lo, ticks, values, valid)`` (int32,
-    int32, int32, float32, bool; [B] each), ``wmv`` an int32 [depth]
+    int32, int32, float32 — a sketch's int32 item hashes —, bool; [B]
+    each), ``wmv`` an int32 [depth]
     device tensor of per-slot watermarks, ``count`` the number of live
     slots (a host int: the executor knows how many it staged). For each
     live slot it runs the update with the previous slot's deferred purge
@@ -115,9 +118,10 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     the state is updated in place. Nothing is read back to the host.
 
     ``reduced=True``: ReducedFires, per-lane (count, value sum) reduced on
-    the device (G4). ``reduced=False``: CompactFires (G6), whose rows land
-    in one [depth, F, C] arena allocated at the drain's first call and
-    reused by every later one, D·F·C·12 bytes: a drain's rows must be read
+    the device (G4; G15 for a sketch). ``reduced=False``: CompactFires (G6;
+    G15), whose rows land in one [depth, F, C] arena allocated at the
+    drain's first call and reused by every later one, D·F·C·12 bytes (a
+    sketch's values are [depth, F, C, *out_shape]): a drain's rows must be read
     before the next drain (or ``fire_only`` with ``out=arena_rows(0)``)
     runs. ``arena`` shares another drain's (``drain.arena``) so that the
     insert and fast variants of one stage hold one."""
@@ -133,8 +137,9 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
             raise ValueError(f"{count} live slots for a depth-{D} drain "
                              f"with {len(slots)} staged")
         if not reduced and arena[0] is None:
-            arena[0] = wk.fire_row_buffers(D, F, state.capacity,
-                                           state.device)
+            arena[0] = wk.fire_row_buffers(
+                D, F, state.capacity, state.device,
+                red=spec.red if spec.red.kind == "sketch" else None)
         rows = None if reduced else arena[0]
         pend = None
         fires = []

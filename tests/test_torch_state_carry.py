@@ -5,7 +5,12 @@ layout field for field, in the hash layout key by key (the carried table
 is probed on the reference's chains; keys placed after the carry may take
 other slots). The session, count-window and rolling states carry the
 same way and continue to the same outputs. Integer-valued data, so
-everything compares bit for bit."""
+everything compares bit for bit. A sketch window's split planes (int32
+registers and touched bits, the reference's ``packed = -1``) carry too,
+and continue through the port's staging ring and resident drain, whose
+int32 values column keeps item hashes above 2^24 that a float32 one
+would round; HyperLogLog estimates are held to the tolerance of
+``tests/test_torch_sketches.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +19,9 @@ import pytest
 import torch
 
 from torch_parity import (
-    KC, C, F, MAXP, R, assert_fires_equal, assert_keyed_states_equal,
+    KC, C, F, MAXP, R, SLIDE, assert_fires_equal, assert_keyed_states_equal,
+    assert_sketch_states_equal, assert_values_equal, jax_sketch_kernels,
+    port_lanes, sketch_batches, sketch_fire_rows, sketch_states,
     assert_states_equal, batches, jax_keyed_fields, keyed_batches,
     keyed_lanes_torch,
     fire_rows, jax_fields, jax_hash_kernels, jax_kernels, jax_set_watermark,
@@ -242,3 +249,107 @@ def test_session_state_carried_mid_stream_continues_equal():
 
     _keyed_carry(swj, swt, lambda: swj.init_state(KC, 16, red), step_j,
                  step_t, steps, np.testing.assert_array_equal)
+
+
+# -- sketch windows (split planes) ----------------------------------------
+
+def _sketch_carry(kind, seed):
+    """Three batches of the sketch schedule in the reference, then its
+    state carried into the port (and back out equal)."""
+    _, _, win_t, red_t, sj, _ = sketch_states(kind)
+    upd, adv, _ = jax_sketch_kernels(kind)
+    seq = sketch_batches(seed)
+    pend_j = np.zeros(R, bool)
+    for hi, lo, ts, h, valid, wm, _ in seq[:3]:
+        sj, _ = upd(sj, hi, lo, ts, h, valid, pend_j)
+        sj = jax_set_watermark(sj, int(wm))
+        sj, pend_j, _ = adv(sj, np.int32(wm))
+    assert sj.packed == -1
+    fields = jax_fields(sj)
+    st = wkt.state_from_numpy(fields, sj.packed, device="cpu",
+                              layout="hash", probe_len=16)
+    back = wkt.state_to_numpy(st)
+    assert back.keys() == fields.keys()
+    for name, want in fields.items():
+        assert back[name].dtype == want.dtype, name
+        np.testing.assert_array_equal(back[name], want, err_msg=name)
+    assert st.packed == -1 and st.touched.any()
+    return win_t, red_t, upd, adv, sj, st, seq[3:], pend_j
+
+
+def _assert_sketch_fires_equal(kind, fr_j, fr_t):
+    np.testing.assert_array_equal(np.asarray(fr_t.counts),
+                                  np.asarray(fr_j.counts))
+    n = 0
+    for f in range(F):
+        wj, vj = sketch_fire_rows(fr_j, f)
+        wt, vt = sketch_fire_rows(fr_t, f)
+        np.testing.assert_array_equal(wt, wj)
+        assert_values_equal(kind, vt, vj)
+        n += len(wt)
+    return n
+
+
+@pytest.mark.parametrize("kind", ["hll", "cms_query"])
+def test_sketch_state_carried_mid_stream_continues_equal(kind):
+    win_t, red_t, upd, adv, sj, st, rest, pend_j = _sketch_carry(kind, 41)
+    pend_t = torch.from_numpy(np.asarray(pend_j).copy())
+    n_rows = 0
+    for hi, lo, ts, h, valid, wm, _ in rest:
+        sj, _ = upd(sj, hi, lo, ts, h, valid, pend_j)
+        wkt.update(st, win_t, red_t, *port_lanes(hi, lo, ts, h, valid),
+                   maxp=MAXP, clear_rows=pend_t)
+        sj = set_watermark(sj, st, int(wm))
+        sj, pend_j, fr_j = adv(sj, np.int32(wm))
+        st, pend_t, fr_t = wkt.advance_and_fire_resident(st, win_t, red_t,
+                                                         int(wm))
+        n_rows += _assert_sketch_fires_equal(kind, fr_j, fr_t)
+        assert_sketch_states_equal(sj, st)
+    assert n_rows > 0
+
+
+@pytest.mark.parametrize("kind", ["hll", "cms_query"])
+def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
+    """The carried state goes on through DeviceBatchRing and the resident
+    drain (the executor's path): the staged item hashes, nearly all above
+    2^24, must reach the registers unrounded."""
+    from flink_tpu_torch.runtime.ingest import DeviceBatchRing
+    from flink_tpu_torch.runtime.step import (
+        WindowStageSpec,
+        build_window_resident_drain,
+    )
+    win_t, red_t, upd, adv, sj, st, rest, pend_j = _sketch_carry(kind, 43)
+    # a purge the reference deferred before the carry folds into its next
+    # update's sweep; the port's drain starts with none pending
+    wkt.apply_pending_purge(st, win_t, red_t,
+                            torch.from_numpy(np.asarray(pend_j).copy()))
+    hashes = np.concatenate([b[3] for b in rest])
+    assert (hashes >= 1 << 24).mean() > 0.9
+    spec = WindowStageSpec(win=win_t, red=red_t, capacity_per_shard=C,
+                           layout="hash")
+    drain = build_window_resident_drain(spec, len(rest), MAXP,
+                                        reduced=False)
+    ring = DeviceBatchRing(len(rest), len(rest[0][0]), "cpu",
+                           value_dtype=red_t.dtype)
+    fires_j = []
+    for i, (hi, lo, ts, h, valid, wm, _) in enumerate(rest):
+        n = int(valid.sum())
+        sel = np.nonzero(valid)[0]
+        ring.stage(i, hi[sel], lo[sel], ts[sel], h[sel], int(wm))
+        sj, _ = upd(sj, hi[sel], lo[sel], ts[sel], h[sel],
+                    np.ones(n, bool), pend_j)
+        sj = jax_set_watermark(sj, int(wm))
+        sj, pend_j, fr = adv(sj, np.int32(wm))
+        fires_j.append(fr)
+    # the reference's last deferred purge lands at the drain's end
+    win_j = wkj.WindowSpec(2 * SLIDE, SLIDE, ring=R, fires_per_step=F)
+    sj = wkj.apply_pending_purge(sj, win_j, sketch_states(kind)[1], pend_j)
+    st, _mon, fires = drain(st, ring.slots(len(rest)), ring.wmv, len(rest))
+    n_rows = 0
+    for d, fr_j in enumerate(fires_j):
+        fr_t = wkt.CompactFires(*(getattr(fires, n)[d] for n in (
+            "key_hi", "key_lo", "values", "counts", "window_end_ticks",
+            "n_fires", "lane_valid", "value_sums")))
+        n_rows += _assert_sketch_fires_equal(kind, fr_j, fr_t)
+    assert_sketch_states_equal(sj, st)
+    assert n_rows > 0

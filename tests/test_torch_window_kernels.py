@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled."""
+    moves and nothing is compiled (G1-G15)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -121,5 +121,17 @@ def test_cpu_tensors_never_launch_a_kernel():
     session_windows.update_and_fire(
         session_windows.init_state(C, device="cpu"), 5, *lanes,
         torch.tensor(20, dtype=torch.int32))
-    assert len(kernels.KERNELS) == 13
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 13
+    # the sketch windows (G2's split planes, G14, G15)
+    from torch_parity import port_lanes, sketch_batches, sketch_states
+    for kind in ("hll", "cms_query"):
+        _, _, win_s, red_s, _, st_s = sketch_states(kind)
+        hi, lo, ts, h, valid, wm, clear = sketch_batches(5)[0]
+        wkt.update(st_s, win_s, red_s, *port_lanes(hi, lo, ts, h, valid),
+                   maxp=MAXP, clear_rows=torch.from_numpy(clear))
+        wkt.advance_and_fire_resident(st_s, win_s, red_s, int(wm) + 100,
+                                      reduced=True)
+        _, pend, _ = wkt.advance_and_fire_resident(st_s, win_s, red_s,
+                                                   int(wm) + 200)
+        wkt.apply_pending_purge(st_s, win_s, red_s, pend)
+    assert len(kernels.KERNELS) == 15
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 15

@@ -322,3 +322,146 @@ def words_of(hi, lo) -> np.ndarray:
     hi = np.asarray(hi).view(np.uint32).astype(np.uint64)
     lo = np.asarray(lo).view(np.uint32).astype(np.uint64)
     return (hi << np.uint64(32)) | lo
+
+
+# -- sketch windows (Count-Min, HyperLogLog) ------------------------------
+
+from flink_tpu.ops import sketches as skj  # noqa: E402
+from flink_tpu_torch.ops import sketches as skt  # noqa: E402
+
+QUERY = [1, 2, 3]
+P = 8                       # HyperLogLog precision: W = 256 registers
+DEPTH, WIDTH = 4, 64        # Count-Min: W = 256 registers
+KINDS = ("hll", "cms_query", "cms_raw")
+
+
+def hll_atol(m: int) -> float:
+    return 4 * m * float(np.spacing(np.float32(np.log(m))))
+
+
+def reduce_specs(kind: str):
+    """(reference ReduceSpec, port ReduceSpec) as distinct_count and
+    count_min build them."""
+    out = []
+    for sk, wk in ((skj, wkj), (skt, wkt)):
+        if kind == "hll":
+            s = sk.HyperLogLog(P)
+            out.append(wk.ReduceSpec(
+                "sketch", s.dtype, s.value_shape, sketch=s,
+                finalize=s.finalize, result_shape=s.result_shape,
+                result_dtype=s.result_dtype))
+        else:
+            q = QUERY if kind == "cms_query" else None
+            s = sk.CountMinSketch(DEPTH, WIDTH, query=q)
+            kw = {} if q is None else dict(
+                finalize=s.finalize, result_shape=s.result_shape,
+                result_dtype=s.result_dtype)
+            out.append(wk.ReduceSpec("sketch", s.dtype, s.value_shape,
+                                     sketch=s, **kw))
+    return out
+
+
+def item_hashes(seed: int, n: int) -> np.ndarray:
+    """uint32 item hashes of a stream: item 1 in a quarter of the lanes,
+    the other query items often, the rest from 5,000 items."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(0, 5000, n)
+    items[rng.random(n) < 0.25] = 1
+    items[rng.random(n) < 0.05] = rng.integers(2, 4)
+    return skt.hash32_host(items)
+
+
+def sketch_batches(seed: int):
+    """The six-batch schedule with sparse keys, each batch's values the
+    item hashes' int32 bits."""
+    out = []
+    for i, (hi, lo, ts, _v, valid, wm, clear) in enumerate(
+            sparse_batches(seed)):
+        h = item_hashes(seed * 10 + i, len(hi))
+        out.append((hi, lo, ts, h, valid, wm, clear))
+    return out
+
+
+def port_lanes(hi, lo, ts, h, valid):
+    t = lanes_torch(hi, lo, ts, np.zeros(len(hi), np.float32), valid)
+    return t[0], t[1], t[2], torch.from_numpy(h.view(np.int32).copy()), t[4]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sketch_kernels(kind: str):
+    win = wkj.WindowSpec(2 * SLIDE, SLIDE, ring=R, fires_per_step=F)
+    red = reduce_specs(kind)[0]
+
+    def upd(st, hi, lo, ts, h, valid, clear):
+        st, act, _ = wkj.update(st, win, red, hi, lo, ts, h, valid,
+                                insert=True, clear_rows=clear)
+        return st, act
+
+    def adv(st, wm):
+        return wkj.advance_and_fire_resident(st, win, red, wm)
+
+    def adv_reduced(st, wm):
+        return wkj.advance_and_fire_resident(st, win, red, wm, reduced=True)
+
+    return jax.jit(upd), jax.jit(adv), jax.jit(adv_reduced)
+
+
+def sketch_states(kind: str):
+    red_j, red_t = reduce_specs(kind)
+    win_t = wkt.WindowSpec(2 * SLIDE, SLIDE, ring=R, fires_per_step=F)
+    win_j = wkj.WindowSpec(2 * SLIDE, SLIDE, ring=R, fires_per_step=F)
+    sj = wkj.init_state(C, 16, win_j, red_j, layout="hash",
+                        n_key_groups=MAXP, packed=False)
+    st = wkt.init_state(C, win_t, red_t, n_key_groups=MAXP, device="cpu",
+                        layout="hash")
+    return win_j, red_j, win_t, red_t, sj, st
+
+
+def logical_sketch_state(fields: dict) -> dict:
+    """A split-plane state's fields with the slot order taken out: the used
+    slots' key words sorted, each with its [R, W] registers and [R]
+    touched bits; unused slots must be untouched (all zero)."""
+    rows = fields["table.keys"].astype(np.uint64)
+    words = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
+    used = words != np.uint64(0xFFFFFFFFFFFFFFFF)
+    cap = len(words)
+    regs = np.asarray(fields["acc"]).reshape(-1, cap,
+                                             fields["acc"].shape[-1])
+    touched = np.asarray(fields["touched"]).reshape(-1, cap)
+    assert not regs[:, ~used].any() and not touched[:, ~used].any()
+    order = np.argsort(words[used], kind="stable")
+    out = {k: v for k, v in fields.items()
+           if k not in ("table.keys", "acc", "touched")}
+    out["keys"] = words[used][order]
+    out["registers"] = regs[:, used][:, order]
+    out["touched"] = touched[:, used][:, order]
+    return out
+
+
+def assert_sketch_states_equal(sj, st) -> None:
+    want = logical_sketch_state(jax_fields(sj))
+    got = logical_sketch_state(wkt.state_to_numpy(st))
+    assert want.keys() == got.keys()
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def sketch_fire_rows(fr, f: int):
+    """Lane f's (key words, values) sorted by key, from either package."""
+    n = int(np.asarray(fr.counts)[f])
+    words = words_of(np.asarray(fr.key_hi)[f, :n],
+                     np.asarray(fr.key_lo)[f, :n])
+    vals = np.asarray(fr.values)[f, :n]
+    order = np.argsort(words, kind="stable")
+    return words[order], vals[order]
+
+
+def assert_values_equal(kind, got, want, n_rows=1, err=""):
+    if kind == "hll":
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=hll_atol(1 << P) * n_rows,
+                                   err_msg=err)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=err)
