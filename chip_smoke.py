@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G15 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G16 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -56,7 +56,19 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 too-old lanes, random registers, a pane rotated out of
                 the ring, and a Count-Min without a query (raw rows, W =
                 64); exact but for HyperLogLog's float estimates, held to
-                rtol 1e-6.
+                rtol 1e-6. Then (``reduce_kernel_phase``) the modes of the
+                reduces, bit for bit (a fire's float lane sums at rtol
+                1e-5): G3 max at the maxprice job's shapes (C = 2^21, R =
+                12, k = 5; edge: min, a fifth of the lanes on one hot
+                slot, negative values, +-0.0, NaN, the lateness fresh
+                marking) and W = 2 at the mean job's (C = 2^20, R = 8);
+                G2 with the -/+FLT_MAX neutrals, W = 2, the split float
+                plane and its fresh rows; G4 and G6 with max (edge: min)
+                at k = 5, W = 2 and the fresh mask of re-fire lanes; G9
+                on a max plane (edge: a min plane, chains of 2); G1 with
+                lateness; G7 with W = 2; G2's fresh_rows, G6's fire_pack
+                and G16's rep_gather / rep_set at the late-reduce job's
+                shapes (C = 2^21, R = 8, 2F = 4 lanes).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -129,15 +141,36 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 equal numpy's Count-Min exactly and be at least the exact
                 count; G1, G2, G5, G14, G15 launched.
 
+ 12. maxprice — nexmark q7's MAX(price) keyed per auction as q5 keys it:
+                key_by(auction).time_window(10 s, 2 s).max(price), auctions
+                splitmix64 of a uniform index in [0, 1M), price nexmark's
+                round(10^(6u) * 100) as float32, 30M events, capacity 2^21
+                probed 64 deep (hash layout, spill tier). Every (auction,
+                window, max) row must equal numpy's; G1-G3, G5-G7
+                launched.
+ 13. mean     — key_by(bidder).time_window(10 s).mean(price) over 1M
+                integer bidders, capacity 1M (the direct layout's [C*R, 3]
+                plane), 30M events; every row within rtol 1e-5 of numpy's
+                float64 mean; G1-G3, G6, G7 launched.
+ 14. late-reduce — the north star's traffic with 5 % of it moved back by
+                up to 3 s, a 500 ms watermark bound, time_window(5 s)
+                .allowed_lateness(2 s).reduce(a + b), hash layout,
+                capacity 2^21, 30M events: each (key, window)'s last row
+                equals numpy's sum of the records not beyond the lateness,
+                the late drops equal numpy's count, and the windows with
+                re-fire rows are exactly those a late-but-allowed record
+                reached; G1, G2, fresh_rows, G5, G10, G16, fire_pack
+                launched.
+
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the eight
+after. Then one line {"kernels": [...]} (launches summed over the eleven
 paths, numbers from phase 3; G14 and G15 at the distinct job's shapes,
-the countmin job's in phase 3's line), and last {"ok": true, "device":
-{...}}.
+the countmin job's in phase 3's line; the new modes nested under their
+kernel in phase 3's line), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each of the eight jobs: the generator's host
+adds, before those two lines, a profile of each of the eleven jobs: the generator's host
 time alone, the host's top functions, and the card's busy time and idle
 share from torch.profiler.
 """
@@ -560,16 +593,19 @@ def keyed_columns(table, acc, C, R):
     return table[used][order], acc.view(R, C, 2)[:, used[order]]
 
 
-def full_table(dev, C, B):
+def full_table(dev, C, B, report=True):
     """The sparse job's table once every key has arrived: the 1M ids at a
-    load of 0.48, placed by G5. Emits how deep the keys sit in their probe
-    chains: a key at depth d needs a chain longer than d."""
+    load of 0.48, placed by G5. With ``report``, emits how deep the keys
+    sit in their probe chains: a key at depth d needs a chain longer than
+    d."""
     table = hashtable.create(C, dev)
     for off in range(0, N_KEYS, B):
         h, l = id_halves(sparse_ids(np.arange(off, min(off + B, N_KEYS))),
                          dev)
         kernels.hash_upsert(table, h, l, torch.ones_like(h, dtype=torch.bool),
                             probe_len=PROBE_LEN)
+    if not report:
+        return table
     used = torch.nonzero(table != EMPTY_WORD).reshape(-1)
     hi, lo = kernels.split_words(table[used])
     depth = (used - (probe_hash(hi, lo) & (C - 1))) % C
@@ -706,7 +742,7 @@ def case_fire_compact(dev, C, kind, table):
     emit, vals = kernels._eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok,
                                                 C=C, R=R, k=k)
     hi, lo = kernels.split_words(table)
-    payload = torch.stack([hi, lo, vals[0].view(torch.int32)], 1)
+    payload = torch.stack([hi, lo, vals[0, :, 0].view(torch.int32)], 1)
     mask0 = emit[0]
     n_rows = int(c2.sum())
     n_present = sum(int(pane_ids[(e - j) % R]) == e - j
@@ -872,11 +908,12 @@ def churned_state(dev, C, R, probe_len, n_keys, alive_share, seed):
     return table, acc.to(dev), pane_ids.to(dev), alive.to(dev)
 
 
-def logical_cells(table, acc, ring, C, R, pane_ids):
-    """The (key word, pane, value) cells of a plane and the filled ring
-    lanes, sorted by key then pane, as three tensors."""
+def logical_cells(table, acc, ring, C, R, pane_ids, neutral=0.0):
+    """The (key word, pane, value) cells of a plane (touch column !=
+    ``neutral``) and the filled ring lanes, sorted by key then pane, as
+    three tensors."""
     a3 = acc.view(R, C, 2)
-    r, c = torch.nonzero(a3[:, :, 1] != 0, as_tuple=True)
+    r, c = torch.nonzero(a3[:, :, 1] != neutral, as_tuple=True)
     n = int(ring[4])
     keys = torch.cat([table[c], kernels.key_words(ring[0][:n], ring[1][:n])])
     panes = torch.cat([pane_ids[r], ring[2][:n]])
@@ -2299,6 +2336,907 @@ def check_countmin_rows(cols, total, chunk=1 << 22):
     return len(gk), int(gv[first, 0]), int(wx_[first, 0])
 
 
+# ------------------------------------- the reduces: min, max, mean, generic
+#
+# Three jobs: maxprice (nexmark q7's MAX(price), keyed per auction as q5
+# keys it, HOP(2 s, 10 s), the sparse job's capacity and probe length),
+# mean (the mean price per bidder over 1M integer bidders, 10 s tumbling
+# windows, the direct layout) and late-reduce (the north star's traffic
+# with a generic reduce and allowed lateness).
+
+PRICE_SALT, AUCTION_SALT = 0x9A1CE, 0xA0C7
+BIDDER_SALT, LATE_SALT = 0xB1DD, 0x1A7E
+MEAN_CAPACITY = 1 << 20       # >= the 1M bidders: the direct layout
+MEAN_WINDOW_MS = 10_000
+MEAN_RING = 8                 # the executor's auto ring at k = 1
+LATE_WINDOW_MS, LATE_LATENESS_MS, LATE_OOO_MS = 5_000, 2_000, 500
+LATE_SHARE, LATE_MAX_MS = 0.05, 3_000
+LATE_CAPACITY = 1 << 21       # 1M keys in the hash layout: load 0.48
+LATE_RING = 8                 # the executor's auto ring: 2 + 2.5 s / 5 s + 2
+
+
+def unit_draw(idx: np.ndarray, salt: int) -> np.ndarray:
+    """A uniform float64 in [0, 1) from a hash of each event's index."""
+    return (splitmix64(idx + salt) >> np.uint64(11)).astype(np.float64) \
+        / float(1 << 53)
+
+
+def bid_price(idx: np.ndarray) -> np.ndarray:
+    """nexmark's PriceGenerator: round(10^(6u) * 100) cents, float32."""
+    return np.round(10.0 ** (6.0 * unit_draw(idx, PRICE_SALT))
+                    * 100.0).astype(np.float32)
+
+
+def maxprice_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    u = (unit_draw(idx, AUCTION_SALT) * N_KEYS).astype(np.int64)
+    return {"auction": sparse_ids(u), "price": bid_price(idx)}, \
+        idx // EVENTS_PER_MS
+
+
+def mean_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    bidder = (unit_draw(idx, BIDDER_SALT) * N_KEYS).astype(np.int64)
+    return {"bidder": bidder, "price": bid_price(idx)}, idx // EVENTS_PER_MS
+
+
+def late_ts(idx: np.ndarray) -> np.ndarray:
+    """The north star's event time, 5 % of the events moved back by a
+    uniform 0-3 s (both draws a hash of the event's index)."""
+    ts = idx // EVENTS_PER_MS
+    late = unit_draw(idx, LATE_SALT) < LATE_SHARE
+    back = (unit_draw(idx, LATE_SALT + 1) * LATE_MAX_MS).astype(np.int64)
+    return np.where(late, np.maximum(ts - back, 0), ts)
+
+
+def late_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    keys = (idx * 2862933555777941757) % N_KEYS
+    return {"key": keys, "v": np.ones(n, np.float32), "ts": late_ts(idx)}, \
+        None
+
+
+def reduce_env(device, capacity, config=None):
+    env = StreamExecutionEnvironment(Configuration(dict({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": RING_DEPTH,
+        "state.probe-len": PROBE_LEN,
+    }, **(config or {}))), device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(capacity)
+    env.batch_size = BATCH
+    return env
+
+
+def maxprice_job(device, total):
+    """key_by(auction).time_window(10 s, 2 s).max(price)."""
+    env = reduce_env(device, SPARSE_CAPACITY)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(maxprice_gen, total=total))
+     .key_by(lambda c: c["auction"])
+     .time_window(SPARSE_SIZE_MS, SPARSE_SLIDE_MS)
+     .max(lambda c: c["price"]).add_sink(sink))
+    return _timed_job(env, "chip-smoke-maxprice", sink)
+
+
+def mean_job(device, total):
+    """key_by(bidder).time_window(10 s).mean(price), direct layout."""
+    env = reduce_env(device, MEAN_CAPACITY)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(mean_gen, total=total))
+     .key_by(lambda c: c["bidder"]).time_window(MEAN_WINDOW_MS)
+     .mean(lambda c: c["price"]).add_sink(sink))
+    return _timed_job(env, "chip-smoke-mean", sink)
+
+
+def late_job(device, total):
+    """time_window(5 s).allowed_lateness(2 s).reduce(a + b) over the north
+    star's traffic, 5 % of it up to 3 s late, watermark 500 ms behind."""
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    env = reduce_env(device, LATE_CAPACITY)
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(late_gen, total=total))
+     .assign_timestamps_and_watermarks(
+         lambda c: c["ts"],
+         WatermarkStrategy.for_bounded_out_of_orderness(LATE_OOO_MS))
+     .key_by(lambda c: c["key"]).time_window(LATE_WINDOW_MS)
+     .allowed_lateness(LATE_LATENESS_MS)
+     .reduce(lambda a, b: a + b, extractor=lambda c: c["v"], neutral=0.0)
+     .add_sink(sink))
+    return _timed_job(env, "chip-smoke-late-reduce", sink)
+
+
+def _rows_by_window(cols):
+    kid = cols["key_id"].astype(np.uint64)
+    end = cols["window_end_ms"].astype(np.int64)
+    order = np.lexsort((kid, end))
+    return kid[order], end[order], np.asarray(cols["value"])[order]
+
+
+def check_maxprice_rows(cols, total):
+    """Every (auction, window, max price) row against numpy: per pane each
+    auction's max, then each window's max over its 5 panes. Exact: max
+    picks an input."""
+    k = SPARSE_SIZE_MS // SPARSE_SLIDE_MS
+    per_pane = EVENTS_PER_MS * SPARSE_SLIDE_MS
+    n_panes = -(-total // per_pane)
+    panes = []
+    for p in range(n_panes):
+        c, _ = maxprice_gen(p * per_pane, min(per_pane, total - p * per_pane))
+        uk, inv = np.unique(c["auction"].view(np.uint64),
+                            return_inverse=True)
+        mx = np.full(len(uk), -np.inf, np.float32)
+        np.maximum.at(mx, inv, c["price"])
+        panes.append((uk, mx))
+    kid, end, val = _rows_by_window(cols)
+    bounds = np.searchsorted(end, (np.arange(n_panes + k) + 1)
+                             * SPARSE_SLIDE_MS, side="left")
+    for e in range(n_panes + k - 1):
+        ks = [panes[q] for q in range(max(0, e - k + 1), min(e + 1, n_panes))]
+        uk, inv = np.unique(np.concatenate([a for a, _ in ks]),
+                            return_inverse=True)
+        mx = np.full(len(uk), -np.inf, np.float32)
+        np.maximum.at(mx, inv, np.concatenate([m for _, m in ks]))
+        a, b = bounds[e], bounds[e + 1]
+        check(b - a == len(uk) and np.array_equal(kid[a:b], uk)
+              and np.array_equal(val[a:b], mx),
+              f"maxprice job: the rows of the window ending at pane {e} "
+              f"differ from numpy's")
+    check(bounds[n_panes + k - 1] == len(kid),
+          "maxprice job: rows past the last window")
+    return len(kid)
+
+
+def check_mean_rows(cols, total, chunk=1 << 22):
+    """Every (bidder, window, mean price) row against numpy's float64 mean
+    of the same float32 prices, at rtol 1e-5 (the port sums in float32)."""
+    n_win = -(-total // (EVENTS_PER_MS * MEAN_WINDOW_MS))
+    s = np.zeros(n_win * N_KEYS)
+    cnt = np.zeros(n_win * N_KEYS)
+    for off in range(0, total, chunk):
+        c, ts = mean_gen(off, min(chunk, total - off))
+        g = (ts // MEAN_WINDOW_MS) * N_KEYS + c["bidder"]
+        s += np.bincount(g, weights=c["price"].astype(np.float64),
+                         minlength=len(s))
+        cnt += np.bincount(g, minlength=len(s))
+    have = np.nonzero(cnt)[0]
+    kid, end, val = _rows_by_window(cols)
+    check(len(kid) == len(have), f"mean job: {len(kid)} rows, numpy "
+                                 f"{len(have)}")
+    want_key = (have % N_KEYS).astype(np.uint64)
+    want_end = (have // N_KEYS + 1) * MEAN_WINDOW_MS
+    check(np.array_equal(kid, want_key) and np.array_equal(end, want_end),
+          "mean job: the (bidder, window) rows differ from numpy's")
+    want = s[have] / cnt[have]
+    rel = float(np.max(np.abs(val.astype(np.float64) - want) / want))
+    check(rel <= 1e-5, f"mean job: rel err {rel} against numpy's mean")
+    return len(kid), rel
+
+
+def late_reference(total):
+    """numpy's late-reduce: per batch (the source's cut), the watermark the
+    batch meets (the earlier batches' newest event time - 500 - 1); a
+    record drops when its window's end - 1 + 2 s <= that watermark, counts
+    as a late-but-allowed record when its window had fired (end - 1 <=
+    that watermark), and otherwise on time. Returns (dropped, the sum per
+    (key, window) of the kept records, the (key, window) pairs that got a
+    late-but-allowed record), keyed key * n_windows + window."""
+    n_win = -(-(total // EVENTS_PER_MS + 1) // LATE_WINDOW_MS) + 1
+    sums = np.zeros(N_KEYS * n_win)
+    lated = np.zeros(N_KEYS * n_win, bool)
+    dropped, newest = 0, None
+    for off in range(0, total, BATCH):
+        c, _ = late_gen(off, min(BATCH, total - off))
+        ts = c["ts"]
+        w = ts // LATE_WINDOW_MS
+        end = (w + 1) * LATE_WINDOW_MS
+        keep = np.ones(len(ts), bool)
+        late = np.zeros(len(ts), bool)
+        if newest is not None:
+            wm = newest - LATE_OOO_MS - 1
+            keep = end - 1 + LATE_LATENESS_MS > wm
+            late = keep & (end - 1 <= wm)
+        dropped += int((~keep).sum())
+        g = c["key"] * n_win + w
+        sums += np.bincount(g[keep], minlength=len(sums))
+        lated[g[late]] = True
+        newest = int(ts.max()) if newest is None else max(newest,
+                                                          int(ts.max()))
+    return dropped, sums, lated, n_win
+
+
+def check_late_rows(cols, total, dropped_late):
+    """The late-reduce job's rows: the last row of each (key, window)
+    equals numpy's sum of its records not beyond the lateness; the late
+    drops equal numpy's count; the (key, window) pairs with re-fire rows
+    are exactly those a late-but-allowed record reached."""
+    dropped, sums, lated, n_win = late_reference(total)
+    check(dropped_late == dropped,
+          f"late-reduce job: {dropped_late} late drops, numpy {dropped}")
+    g = cols["key_id"].astype(np.int64) * n_win + \
+        cols["window_end_ms"].astype(np.int64) // LATE_WINDOW_MS - 1
+    val = np.asarray(cols["value"], np.float64)
+    last = np.full(len(sums), np.nan)
+    last[g] = val                       # later rows overwrite earlier ones
+    n_rows = np.bincount(g, minlength=len(sums))
+    have = np.nonzero(sums)[0]
+    check(np.array_equal(np.nonzero(n_rows)[0], have),
+          "late-reduce job: its (key, window) rows differ from numpy's")
+    check(np.array_equal(last[have], sums[have]),
+          "late-reduce job: a window's last row differs from numpy's sum")
+    refired = n_rows > 1
+    check(np.array_equal(refired, lated),
+          f"late-reduce job: {int(refired.sum())} windows re-fired, "
+          f"{int(lated.sum())} got a late record")
+    return len(g), int(refired.sum()), int((n_rows - 1).clip(0).sum())
+
+
+# ------------------------------------- the reduces: kernels (phase 3)
+
+def bits_err(a, b) -> float:
+    """Elements whose bits differ (float tensors compared as int32 words:
+    signed zeros and NaN payloads count), across lists of tensors."""
+    pairs = zip(a, b) if isinstance(a, (tuple, list)) else [(a, b)]
+    err = 0.0
+    for x, y in pairs:
+        if x.shape != y.shape:
+            return float("inf")
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        err += float((x != y).sum())
+    return err
+
+
+def neutral_plane(dev, C, R, W, neutral, density, seed, values):
+    """A packed plane [C*R, W+1]: the neutral everywhere, ``values(n)``
+    (float32 [n, W]) and the touch marker in a ``density`` share of the
+    cells (marker 1 for add, 0 for min and max)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    touch = torch.rand(R * C, generator=g) < density
+    acc = torch.full((R * C, W + 1), float(neutral))
+    n = int(touch.sum())
+    acc[touch, :W] = values(n, g)
+    acc[touch, W] = 1.0 if neutral == 0 else 0.0
+    return acc.to(dev)
+
+
+def _prices(n, g):
+    u = torch.rand(n, 1, generator=g, dtype=torch.float64)
+    return torch.round(10.0 ** (6.0 * u) * 100.0).float()
+
+
+def _mean_pairs(n, g):
+    """[sum, count] cells of small integers: every float32 sum on the
+    plane stays exact (below 2^24) whatever order the card adds in."""
+    c = torch.randint(1, 40, (n,), generator=g).float()
+    return torch.stack([torch.randint(1, 100, (n,), generator=g).float()
+                        * c, c], 1)
+
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def case_scatter_reduce(dev, kind, shape, full):
+    """G3 with a min or max combine or a W = 2 sum. ``maxprice`` (max, the
+    sparse job's lanes and the full table's slots, C = 2^21, R = 12, k =
+    5) and ``mean`` (W = 2 [price, 1] pairs, the direct layout, C = 2^20,
+    R = 8): ``main`` the job's batch; ``edge`` also a fifth of the lanes on
+    one hot slot, negative values, +-0.0 and NaN (min at the maxprice
+    shapes), and the lateness fresh marking (panes at or before
+    fired_through set their cells' flags)."""
+    if shape == "maxprice":
+        C, R, k, slide, op = (SPARSE_CAPACITY, SPARSE_RING,
+                              SPARSE_SIZE_MS // SPARSE_SLIDE_MS,
+                              SPARSE_SLIDE_MS, "max" if kind == "main"
+                              else "min")
+        inp = sparse_lane_inputs(dev, BATCH, kind)
+    else:
+        C, R, k, slide, op = MEAN_CAPACITY, MEAN_RING, 1, MEAN_WINDOW_MS, \
+            "add"
+        inp = lane_inputs(dev, C, BATCH, slide, kind)
+    B = BATCH
+    pane, kg, live, stats = kernels.route_lanes_plain(
+        inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
+        inp["purged_through"], slide=slide, k=k, maxp=MAX_PARALLELISM,
+        kg_start=0, kg_end=MAX_PARALLELISM - 1)
+    max_pane = torch.maximum(torch.tensor(PANE_NONE, dtype=torch.int32,
+                                          device=dev), stats[1])
+    g = torch.Generator(device="cpu").manual_seed(17)
+    W = 1 if shape == "maxprice" else 2
+    neutral = {"min": FLT_MAX, "max": -FLT_MAX, "add": 0.0}[op]
+    vals = (_prices(B, g)[:, 0] if W == 1 else
+            torch.stack([torch.randint(1, 100, (B,), generator=g).float(),
+                         torch.ones(B)], 1))
+    if shape == "maxprice":
+        inside = live & (pane >= max_pane - (R - 1))
+        slot, _ok, _n = kernels.hash_upsert(full.clone(), inp["hi"],
+                                            inp["lo"], inside,
+                                            probe_len=PROBE_LEN)
+    else:
+        hi, lo = inp["hi"], inp["lo"]
+        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
+    fresh_kw = [{}, {}]
+    if kind == "edge":
+        hot = torch.rand(B, generator=g) < 0.2
+        slot = torch.where(hot.to(dev), slot[0], slot)
+        sign = torch.where(torch.rand(B, generator=g) < 0.5, -1.0, 1.0)
+        vals = vals * (sign if W == 1 else sign[:, None])
+        special = torch.tensor([0.0, -0.0, float("nan"), FLT_MAX, -FLT_MAX])
+        pick = torch.randint(0, len(special), (B,), generator=g)
+        edge_lane = torch.rand(B, generator=g) < 0.05
+        if W == 1:
+            vals = torch.where(edge_lane, special[pick], vals)
+        fired = int(max_pane) - 2
+        for d in fresh_kw:
+            d.update(fresh=torch.zeros(C * R, dtype=torch.bool, device=dev),
+                     fired_through=torch.tensor(fired, dtype=torch.int32,
+                                                device=dev),
+                     n_fresh=_zero_i32(dev))
+    vals = vals.to(dev).contiguous()
+    acc0 = neutral_plane(dev, C, R, W, neutral, 0.3, 5,
+                         _prices if W == 1 else _mean_pairs)
+    if kind == "edge":
+        # a NaN and signed zeros already in the plane too
+        acc0[:64:2, 0] = float("nan") if W == 1 else acc0[:64:2, 0]
+    a1, a2 = acc0.clone(), acc0.clone()
+    dirty1 = torch.zeros(MAX_PARALLELISM, dtype=torch.bool, device=dev)
+    dirty2 = dirty1.clone()
+    d1, d2 = _zero_i32(dev), _zero_i32(dev)
+    lanes = (pane, kg, live, slot, vals, max_pane)
+    kw = dict(C=C, R=R, op=op)
+    kernels.scatter_update(a1, dirty1, d1, *lanes, **kw, **fresh_kw[0])
+    kernels.scatter_update_plain(a2, dirty2, d2, *lanes, **kw, **fresh_kw[1])
+    got = [a1, dirty1, d1] + list(fresh_kw[0].values())
+    want = [a2, dirty2, d2] + list(fresh_kw[1].values())
+    check(kind == "main" or int(fresh_kw[0]["n_fresh"]) > 0,
+          "scatter_update: the edge batch marked no fresh cell")
+    ok = live & (pane >= max_pane - (R - 1)) & (slot < C)
+    flat = (torch.remainder(pane.long(), R) * C + slot.long())[ok]
+    lib_idx = flat[:, None] * (W + 1) + torch.arange(W, device=dev)
+    lib_val = vals[ok].reshape(-1, W)
+    lib = {"max": "amax", "min": "amin", "add": "sum"}[op]
+    return {
+        "err": bits_err(got, want),
+        "run": lambda: kernels.scatter_update(a1, dirty1, d1, *lanes, **kw,
+                                              **fresh_kw[0]),
+        "plain": lambda: kernels.scatter_update_plain(a2, dirty2, d2,
+                                                      *lanes, **kw,
+                                                      **fresh_kw[1]),
+        # the value columns' scatter-reduce in one call (no marker, no
+        # drop counting)
+        "library": lambda: a2.view(-1).scatter_reduce_(
+            0, lib_idx.reshape(-1), lib_val.reshape(-1), lib,
+            include_self=True),
+        # pane, kg, live, slot, W values in; each touched cell read and
+        # written once
+        "bytes": B * (4 + 4 + 1 + 4 + 4 * W)
+        + int(torch.unique(flat).numel()) * 4 * (W + 1) * 2,
+    }
+
+
+def case_clear_reduce(dev, kind, shape):
+    """G2 with a reduce's neutral: ``max`` (the maxprice job's packed plane,
+    -FLT_MAX neutral, C = 2^21, R = 12), ``min`` (the same shapes, +FLT_MAX),
+    ``mean`` (W = 2, C = 2^20, R = 8),
+    ``generic`` (the late-reduce job's split float plane and touched bytes,
+    C = 2^21, R = 8, with its fresh rows). ``main``: one stale row;
+    ``edge``: two rows, one evicted with unfired data, and (generic) fresh
+    rows cleared on their own mask."""
+    C, R, W, neutral, split = {
+        "max": (SPARSE_CAPACITY, SPARSE_RING, 1, -FLT_MAX, False),
+        "min": (SPARSE_CAPACITY, SPARSE_RING, 1, FLT_MAX, False),
+        "mean": (MEAN_CAPACITY, MEAN_RING, 2, 0.0, False),
+        "generic": (LATE_CAPACITY, LATE_RING, 1, 0.0, True)}[shape]
+    g = torch.Generator(device="cpu").manual_seed(23)
+    clear = torch.zeros(R, dtype=torch.bool, device=dev)
+    evicted = torch.zeros(R, dtype=torch.bool, device=dev)
+    clear[1] = True
+    if kind == "edge":
+        clear[5] = evicted[5] = True
+    fresh_clear = None
+    if split:
+        touched0 = (torch.rand(R * C, generator=g) < 0.5).to(dev)
+        acc0 = (torch.randint(1, 9, (R * C,), generator=g).float().to(dev)
+                * touched0)
+        fresh0 = (torch.rand(R * C, generator=g) < 0.02).to(dev)
+        if kind == "edge":
+            fresh_clear = torch.zeros(R, dtype=torch.bool, device=dev)
+            fresh_clear[2] = True
+    else:
+        acc0 = neutral_plane(dev, C, R, W, neutral, 0.9, 29,
+                             _prices if W == 1 else _mean_pairs)
+        touched0 = fresh0 = None
+    sides = []
+    for _ in range(2):
+        sides.append(dict(acc=acc0.clone(), d=_zero_i32(dev),
+                          touched=None if touched0 is None
+                          else touched0.clone(),
+                          fresh=None if fresh0 is None else fresh0.clone()))
+    kw = dict(C=C, R=R, neutral=neutral, fresh_clear=fresh_clear)
+
+    def call(fn, s):
+        fn(s["acc"], clear, evicted, s["d"], touched=s["touched"],
+           fresh=s["fresh"], **kw)
+
+    call(kernels.clear_rows, sides[0])
+    call(kernels.clear_rows_plain, sides[1])
+    flat = [[v for v in s.values() if v is not None] for s in sides]
+    rows = clear.nonzero().reshape(-1)
+    n_rows = int(clear.sum())
+    width = (4 * W + 1) if split else 4 * (W + 1)
+    return {
+        "err": bits_err(flat[0], flat[1]),
+        "run": lambda: call(kernels.clear_rows, sides[0]),
+        "plain": lambda: call(kernels.clear_rows_plain, sides[1]),
+        "library": lambda: sides[1]["acc"].view(R, -1).index_fill_(
+            0, rows, neutral),
+        # flagged rows written (values, touch column or bytes, fresh
+        # bytes), evicted rows' touch read, masks read
+        "bytes": n_rows * C * (width + (1 if split else 0))
+        + int(evicted.sum()) * C * (1 if split else 4) + 3 * R,
+    }
+
+
+def _fire_setup(dev, shape, kind, g):
+    """(acc, pane_ids, p_f, lane_ok, table, C, R, k, op, W, neutral, fresh,
+    n_ontime) for a fire case (``maxprice``: max on the main inputs, min on
+    the edge ones)."""
+    if shape == "maxprice":
+        C, R = SPARSE_CAPACITY, SPARSE_RING
+        k, W = SPARSE_SIZE_MS // SPARSE_SLIDE_MS, 1
+        op, neutral = (("max", -FLT_MAX) if kind == "main"
+                       else ("min", FLT_MAX))
+    elif shape == "mean":
+        C, R, k, op, W, neutral = MEAN_CAPACITY, MEAN_RING, 1, "add", 2, 0.0
+    else:   # a packed sum with lateness: F on-time + F re-fire lanes
+        C, R, k, op, W, neutral = LATE_CAPACITY, LATE_RING, 1, "add", 1, 0.0
+    acc = neutral_plane(dev, C, R, W, neutral, 0.7, 31,
+                        _prices if W == 1 else _mean_pairs)
+    pane_ids = torch.arange(40, 40 + R, dtype=torch.int32)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))].to(dev)
+    table = torch.arange(C, dtype=torch.int64, device=dev)
+    F = FIRES_PER_STEP
+    fresh = n_ontime = None
+    if shape == "fresh":
+        ends = [47, 48, 41, 43]
+        ok = [True, False, True, True]
+        fresh = (torch.rand(R * C, generator=g) < 0.01).to(dev) & (
+            acc[:, W] != neutral)
+        n_ontime = F
+    else:
+        ends = [44 + k, 45 + k]
+        ok = [True, False]
+    p_f = torch.tensor(ends, dtype=torch.int32, device=dev)
+    lane_ok = torch.tensor(ok, device=dev)
+    return (acc, pane_ids, p_f, lane_ok, table, C, R, k, op, W, neutral,
+            fresh, n_ontime)
+
+
+def case_fire_reduce(dev, kind, shape, compact):
+    """G4 (``compact`` False) or G6 with a reduce's combine and width:
+    ``maxprice`` (max, k = 5; min on the edge inputs), ``mean`` (W = 2)
+    and ``fresh`` (a packed
+    sum with allowed lateness: two on-time lanes, then two re-fire lanes
+    emitting by the fresh plane). ``edge`` adds a second due lane and a
+    ring row that holds another pane."""
+    g = torch.Generator(device="cpu").manual_seed(37)
+    (acc, pane_ids, p_f, lane_ok, table, C, R, k, op, W, neutral, fresh,
+     n_ontime) = _fire_setup(dev, shape, kind, g)
+    if kind == "edge":
+        lane_ok = torch.ones_like(lane_ok)
+        pane_ids[int(p_f[0]) % R] = PANE_NONE
+    Ft = p_f.shape[0]
+    kw = dict(C=C, R=R, k=k, op=op, neutral=neutral, fresh=fresh,
+              n_ontime=n_ontime)
+    args = (acc, pane_ids, p_f, lane_ok)
+    if compact:
+        vs = (Ft, C) if W == 1 else (Ft, C, W)
+        rows1 = (torch.empty(Ft, C, dtype=torch.int32, device=dev),
+                 torch.empty(Ft, C, dtype=torch.int32, device=dev),
+                 torch.empty(vs, dtype=torch.float32, device=dev))
+        rows2 = tuple(torch.empty_like(r) for r in rows1)
+        c1, v1 = kernels.fire_compact(*args, table, *rows1, **kw)
+        c2, v2 = kernels.fire_compact_plain(*args, table, *rows2, **kw)
+        got, want = [c1], [c2]
+        for f in range(Ft):
+            n = int(c2[f])
+            got += [r[f, :n] for r in rows1]
+            want += [r[f, :n] for r in rows2]
+        run = lambda: kernels.fire_compact(*args, table, *rows1, **kw)
+        plain = lambda: kernels.fire_compact_plain(*args, table, *rows2,
+                                                   **kw)
+    else:
+        c1, v1 = kernels.fire_reduced(*args, **kw)
+        c2, v2 = kernels.fire_reduced_plain(*args, **kw)
+        got, want = [c1], [c2]
+        run = lambda: kernels.fire_reduced(*args, **kw)
+        plain = lambda: kernels.fire_reduced_plain(*args, **kw)
+    # the lane sums add in another order on the card: rtol 1e-5
+    rel = float(((v1.double() - v2.double()).abs()
+                 / v2.double().abs().clamp_min(1.0)).max())
+    n_present = sum(int(pane_ids[(int(e) - j) % R]) == int(e) - j
+                    for e, o in zip(p_f.tolist(), lane_ok.tolist()) if o
+                    for j in range(k))
+    n_rows = int(c2.sum())
+    return {
+        "err": bits_err(got, want), "float_rel": rel,
+        "run": run, "plain": plain, "library": None,
+        # each present row of each due lane read once (and its fresh
+        # bytes for a re-fire lane), the emitted rows written
+        "bytes": n_present * C * 4 * (W + 1)
+        + (n_present * C // 2 if fresh is not None else 0)
+        + (n_rows * (16 + 4 * W) if compact else 0) + R * 4 + Ft * 13,
+    }
+
+
+def case_compact_reduce(dev, kind):
+    """G9 on a max plane (-FLT_MAX neutral, touch column 0 where touched;
+    a min plane, +FLT_MAX, on the edge inputs):
+    the maxprice job's table shape, 2^21 slots probed 64 deep filled by G5
+    with 1.9M ids, ``main`` 70 % alive, ``edge`` 80 % alive rebuilt with
+    chains of 2, so that alive keys move to the ring. The alive test must
+    read the touch column against the neutral: a dead key's cells are all
+    -FLT_MAX, a live key's touch column 0. Held to the same logical cells
+    (plane + ring) as the plain version, and no dead key placed."""
+    probe, share = (PROBE_LEN, 0.7) if kind == "main" else (2, 0.8)
+    R = SPARSE_RING
+    C = SPARSE_CAPACITY
+    table, acc_sum, pane_ids, alive = churned_state(
+        dev, C, R, PROBE_LEN, int(0.9 * C), share, 4)
+    touched = acc_sum[:, 1] != 0
+    neutral = -FLT_MAX if kind == "main" else FLT_MAX
+    acc = torch.where(touched[:, None],
+                      torch.stack([acc_sum[:, 0] - 4.5,
+                                   torch.zeros_like(acc_sum[:, 0])], 1),
+                      neutral)
+    ring0 = ring_of(dev, RING_LANES, 1000)
+    r1, r2 = clone_ring(ring0), clone_ring(ring0)
+    l1, l2 = _zero_i32(dev), _zero_i32(dev)
+    kw = dict(R=R, probe_len=probe, neutral=neutral)
+    acc1, tab1, _s1, ok1 = kernels.compact_table(acc, table, pane_ids, r1,
+                                                 l1, **kw)
+    acc2, tab2, _s2, ok2 = kernels.compact_table_plain(acc, table, pane_ids,
+                                                       r2, l2, **kw)
+    check(bool((ok1 <= alive).all()) and bool((ok2 <= alive).all()),
+          "compact_table (min / max plane): placed a dead key")
+    cells1 = logical_cells(tab1, acc1, r1, C, R, pane_ids, neutral)
+    cells2 = logical_cells(tab2, acc2, r2, C, R, pane_ids, neutral)
+    check(int(cells1[0].numel()) == int(
+        (touched.view(R, C) & alive[None, :]).sum()) + 1000,
+        "compact_table (min / max plane): cells lost or invented")
+    return {
+        # G5's CAS walk and the plain claim rounds may place other keys
+        # (and, with chains of 2, another number of them): the cells of
+        # the plane and the ring together must be the same
+        "err": bits_err(list(cells1), list(cells2)),
+        "run": lambda: kernels.compact_table(
+            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), **kw),
+        "plain": lambda: kernels.compact_table_plain(
+            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), **kw),
+        "library": None,
+        "bytes": C * R * 8 * 2 + C * 8 * 2,
+    }
+
+
+def late_table_slots(dev, keys: np.ndarray, table):
+    """The late-reduce job's keys' slots in ``table`` (G5 places them)."""
+    hi = torch.zeros(len(keys), dtype=torch.int32, device=dev)
+    lo = _t(keys.astype(np.int32), dev, torch.int32)
+    slot, _ok, _n = kernels.hash_upsert(table, hi, lo,
+                                        torch.ones_like(hi, dtype=torch.bool),
+                                        probe_len=PROBE_LEN)
+    return hi, lo, slot
+
+
+def case_rep_update(dev, kind, phase):
+    """G16 at the late-reduce job's shapes (C = 2^21 slots, R = 8, B =
+    262,144): one batch of its traffic, sorted by cell with G10, gathered
+    (rep_gather) and, after the sum's scan, set (rep_set, with the lane
+    bookkeeping: drops, kg_dirty, fresh marking). ``main``: the job's
+    batch; ``edge``: a fifth of the lanes on one hot key, dead and too-old
+    lanes, panes at or before fired_through."""
+    C, R = LATE_CAPACITY, LATE_RING
+    B = BATCH
+    off = 6 * LATE_WINDOW_MS * EVENTS_PER_MS
+    cols, _ = late_gen(off, B)
+    keys = cols["key"].copy()
+    g = torch.Generator(device="cpu").manual_seed(41)
+    if kind == "edge":
+        keys[(torch.rand(B, generator=g) < 0.2).numpy()] = keys[0]
+    table = hashtable.create(C, dev)
+    hi, lo, slot = late_table_slots(dev, keys, table)
+    pane = _t(cols["ts"] // LATE_WINDOW_MS, dev, torch.int32)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    max_pane = pane.max()
+    if kind == "edge":
+        live = (torch.rand(B, generator=g) < 0.95).to(dev)
+        pane = torch.where((torch.rand(B, generator=g) < 0.01).to(dev),
+                           pane - R, pane)
+    kg = assign_to_key_group(route_hash(hi, lo), MAX_PARALLELISM).to(
+        torch.int32)
+    N = C * R
+    ok = live & (pane >= max_pane - (R - 1)) & (slot < C)
+    cell = torch.remainder(pane.long(), R) * C + slot.long()
+    key = torch.where(ok, cell, N)
+    order, key_s, seg_start = kernels.segment_sort(
+        key, bits=segment._bits(N), seg_shift=0)
+    values = _t(cols["v"], dev, torch.float32)
+    acc0 = torch.zeros(N, device=dev)
+    touched0 = torch.zeros(N, dtype=torch.bool, device=dev)
+    # a third of the cells hold earlier records
+    pre = (torch.rand(N, generator=g) < 0.3).to(dev)
+    acc0[pre] = 3.0
+    touched0 |= pre
+    if phase == "gather":
+        got = kernels.rep_gather(order, key_s, values, acc0, touched0, 0.0)
+        want = kernels.rep_gather_plain(order, key_s, values, acc0, touched0,
+                                        0.0)
+        return {
+            "err": bits_err(list(got), list(want)),
+            "run": lambda: kernels.rep_gather(order, key_s, values, acc0,
+                                              touched0, 0.0),
+            "plain": lambda: kernels.rep_gather_plain(
+                order, key_s, values, acc0, touched0, 0.0),
+            # the yardstick: the gathers alone
+            "library": lambda: (values.index_select(0, order.long()),
+                                acc0.index_select(0, key_s.clamp_max(N - 1))),
+            # order, key_s, the lane's value and its cell (+ touched) read;
+            # two floats and a byte written a lane
+            "bytes": B * (4 + 8 + 4 + 4 + 1 + 4 + 4 + 1),
+        }
+    v_s, old, old_t = kernels.rep_gather_plain(order, key_s, values, acc0,
+                                               touched0, 0.0)
+    prefix = segment.segmented_reduce_sorted(v_s, seg_start, torch.add)
+    merged = torch.where(old_t, old + prefix, prefix).contiguous()
+    fired = torch.tensor(int(max_pane) - (1 if kind == "edge" else 9),
+                         dtype=torch.int32, device=dev)
+    sides = []
+    for _ in range(2):
+        sides.append(dict(
+            acc=acc0.clone(), touched=touched0.clone(),
+            dirty=torch.zeros(MAX_PARALLELISM, dtype=torch.bool, device=dev),
+            dropped=_zero_i32(dev),
+            fresh=torch.zeros(N, dtype=torch.bool, device=dev),
+            n_fresh=_zero_i32(dev)))
+
+    def call(fn, s):
+        fn(s["acc"], s["touched"], order, key_s, seg_start, merged,
+           lanes=kernels.WindowLanes(pane, kg, live, slot, max_pane,
+                                     s["dirty"], s["dropped"], s["fresh"],
+                                     fired, s["n_fresh"]), C=C, R=R)
+
+    call(kernels.rep_set, sides[0])
+    call(kernels.rep_set_plain, sides[1])
+    check(kind == "main" or int(sides[0]["n_fresh"]) > 0,
+          "rep_set: the edge batch marked no fresh cell")
+    rep = kernels._seg_end(seg_start) & (key_s < N)
+    n_rep = int(rep.sum())
+    dst = key_s[rep]
+    src = merged[rep]
+    return {
+        "err": bits_err(list(sides[0].values()), list(sides[1].values())),
+        "run": lambda: call(kernels.rep_set, sides[0]),
+        "plain": lambda: call(kernels.rep_set_plain, sides[1]),
+        # the yardstick: the set alone
+        "library": lambda: sides[1]["acc"].index_copy_(0, dst, src),
+        # the sorted keys, flags and merged values read; one cell and its
+        # touched byte written a segment; pane, kg, slot, live read
+        "bytes": B * (8 + 1 + 4 + 13) + n_rep * 5,
+    }
+
+
+def case_fresh_rows(dev, kind):
+    """G2's fresh_rows at the late-reduce job's shapes (C = 2^21, R = 8):
+    ``main`` the fresh flags a late record sets (1 % of one row), ``edge``
+    rows full, empty and sparse."""
+    C, R = LATE_CAPACITY, LATE_RING
+    g = torch.Generator(device="cpu").manual_seed(43)
+    share = torch.tensor([0.0, 0.01, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]) \
+        if kind == "main" else torch.tensor([1.0, 0.0, 0.5, 1e-6, 0.3, 0.0,
+                                             0.9, 0.01])
+    fresh = (torch.rand(R, C, generator=g) < share[:, None]).reshape(-1).to(
+        dev)
+    return {
+        "err": bits_err(kernels.fresh_rows(fresh, C=C, R=R),
+                        kernels.fresh_rows_plain(fresh, C=C, R=R)),
+        "run": lambda: kernels.fresh_rows(fresh, C=C, R=R),
+        "plain": lambda: kernels.fresh_rows_plain(fresh, C=C, R=R),
+        "library": lambda: fresh.view(R, C).sum(dim=1, dtype=torch.int32),
+        "bytes": R * C + R * 4,
+    }
+
+
+def case_fire_pack(dev, kind):
+    """G6's fire_pack at the late-reduce job's shapes (C = 2^21 slots, 2F =
+    4 lanes): the dense fire of the generic reduce (its combine in torch)
+    compacted. ``main``: one on-time lane emitting 48 % of the slots (the
+    keys of a window) and re-fire lanes emitting 2 %; ``edge``: every lane
+    due, one emitting nothing, one everything."""
+    C, F = LATE_CAPACITY, 2 * FIRES_PER_STEP
+    g = torch.Generator(device="cpu").manual_seed(47)
+    share = ([0.48, 0.0, 0.02, 0.02] if kind == "main"
+             else [0.48, 0.0, 1.0, 0.3])
+    mask = (torch.rand(F, C, generator=g)
+            < torch.tensor(share)[:, None]).to(dev)
+    vals = torch.randint(1, 60, (F, C), generator=g).float().to(dev)
+    lane_ok = torch.tensor([True, False, True, True] if kind == "main"
+                           else [True] * F, device=dev)
+    table = hashtable.create(C, dev)
+    late_table_slots(dev, np.arange(N_KEYS), table)
+    outs = [tuple(torch.empty(F, C, dtype=d, device=dev)
+                  for d in (torch.int32, torch.int32, torch.float32))
+            for _ in range(2)]
+    c1, v1 = kernels.fire_pack(table, mask, vals, lane_ok, outs[0])
+    c2, v2 = kernels.fire_pack_plain(table, mask, vals, lane_ok, outs[1])
+    got, want = [c1], [c2]
+    for f in range(F):
+        n = int(c2[f])
+        got += [r[f, :n] for r in outs[0]]
+        want += [r[f, :n] for r in outs[1]]
+    emitted = mask & lane_ok[:, None]
+    n_rows = int(emitted.sum())
+    m0 = torch.nonzero(emitted[0]).reshape(-1)
+    return {
+        "err": bits_err(got, want),
+        # the lane sums add in another order on the card: rtol 1e-5
+        "float_rel": float(((v1.double() - v2.double()).abs()
+                            / v2.double().abs().clamp_min(1.0)).max()),
+        "run": lambda: kernels.fire_pack(table, mask, vals, lane_ok,
+                                         outs[0]),
+        "plain": lambda: kernels.fire_pack_plain(table, mask, vals, lane_ok,
+                                                 outs[1]),
+        "library": lambda: vals[0].index_select(0, m0),
+        # the masks of the due lanes read, each emitted slot's value and
+        # key word read and its row (12 B) written
+        "bytes": int(lane_ok.sum()) * C + n_rows * (4 + 8 + 12),
+    }
+
+
+def case_route_late(dev, kind):
+    """G1 with allowed lateness at the late-reduce job's shapes (slide =
+    size = 5,000 ms, L = 2,000 ms): a batch of its traffic against a
+    watermark that has passed the previous window's end by ``main`` 1 s
+    (its late records re-fire) and ``edge`` 2.5 s (beyond the lateness:
+    they drop), the purge cursor behind."""
+    off = 6 * LATE_WINDOW_MS * EVENTS_PER_MS
+    cols, _ = late_gen(off, BATCH)
+    ts = cols["ts"]
+    end = (int(ts.max()) // LATE_WINDOW_MS) * LATE_WINDOW_MS
+    wm = end - 1 + (1000 if kind == "main" else 2500)
+    inp = {
+        "hi": torch.zeros(BATCH, dtype=torch.int32, device=dev),
+        "lo": _t(cols["key"].astype(np.int32), dev, torch.int32),
+        "ts": _t(ts.astype(np.int32), dev, torch.int32),
+        "valid": torch.ones(BATCH, dtype=torch.bool, device=dev),
+        "watermark": torch.tensor(wm, dtype=torch.int32, device=dev),
+        "purged_through": torch.tensor(end // LATE_WINDOW_MS - 3,
+                                       dtype=torch.int32, device=dev)}
+    args = (inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
+            inp["purged_through"])
+    kw = dict(slide=LATE_WINDOW_MS, k=1, maxp=MAX_PARALLELISM, kg_start=0,
+              kg_end=MAX_PARALLELISM - 1, L=LATE_LATENESS_MS)
+    got = kernels.route_lanes(*args, **kw)
+    want = kernels.route_lanes_plain(*args, **kw)
+    check((int(got[3][0]) > 0) == (kind == "edge"),
+          "route_lanes: the lateness cases' late drops are not as built")
+    return {
+        "err": bits_err(list(got), list(want)),
+        "run": lambda: kernels.route_lanes(*args, **kw),
+        "plain": lambda: kernels.route_lanes_plain(*args, **kw),
+        "library": None,
+        "bytes": BATCH * (4 + 4 + 4 + 1 + 4 + 4 + 1),
+    }
+
+
+def case_ring_mean(dev, kind):
+    """G7 with mean's W = 2 value columns: the mean job's ring (RING_LANES)
+    taking 1 % of a batch's lanes (``main``), or a ring of B/2 lanes 3/4
+    full taking half of them, so that lanes are lost (``edge``)."""
+    B = BATCH
+    g = torch.Generator(device="cpu").manual_seed(53)
+    share, O, fill = ((0.01, RING_LANES, 40_000) if kind == "main"
+                      else (0.5, B // 2, 3 * B // 8))
+    mask = (torch.rand(B, generator=g) < share).to(dev)
+    hi, lo = (torch.randint(-2**31, 2**31 - 1, (B,), generator=g,
+                            dtype=torch.int32).to(dev) for _ in range(2))
+    pane = torch.randint(0, 15, (B,), generator=g, dtype=torch.int32).to(dev)
+    vals = torch.stack([_prices(B, g)[:, 0], torch.ones(B)], 1).to(dev)
+    ring0 = list(ring_of(dev, O, fill))
+    ring0[3] = torch.zeros(O, 2, device=dev)
+    ring0 = tuple(ring0)
+    r1, r2 = clone_ring(ring0), clone_ring(ring0)
+    l1, l2 = _zero_i32(dev), _zero_i32(dev)
+    kernels.ring_append(r1, l1, mask, hi, lo, pane, vals)
+    kernels.ring_append_plain(r2, l2, mask, hi, lo, pane, vals)
+    rt, lt = clone_ring(ring0), _zero_i32(dev)
+    rp, lp = clone_ring(ring0), _zero_i32(dev)
+    lanes = torch.cat([torch.stack([hi, lo, pane], 1),
+                       vals.view(torch.int32)], 1)
+    n = int(mask.sum())
+    return {
+        "err": bits_err(list(r1) + [l1], list(r2) + [l2]),
+        "run": lambda: kernels.ring_append(rt, lt, mask, hi, lo, pane, vals),
+        "plain": lambda: kernels.ring_append_plain(rp, lp, mask, hi, lo,
+                                                   pane, vals),
+        "library": lambda: torch.masked_select(lanes, mask[:, None]),
+        "bytes": B + n * 20 * 2 + 8,
+    }
+
+
+def hold(name, make, timing, kinds=("main", "edge")):
+    """Hold one kernel mode against its plain version on each input kind
+    (bit for bit; a fire's float lane sums, which the card adds in another
+    order, at rtol 1e-5) and time the main one: a record with the PERF.md
+    numbers."""
+    errs, rels, main = [], [], None
+    for kind in kinds:
+        c = make(kind)
+        rel = c.get("float_rel", 0.0)
+        check(c["err"] == 0.0 and rel <= 1e-5,
+              f"{name} ({kind} inputs) disagrees with its plain version: "
+              f"{c['err']} elements differ, lane sums rel err {rel}")
+        errs.append(c["err"])
+        rels.append(rel)
+        if kind == "main":
+            main = c
+        else:
+            del c
+    rec = {"max_abs_err": max(errs), "max_rel_err": max(rels),
+           "bound_ms": bound_ms(main["bytes"])}
+    if timing:
+        rec["ms"] = time_ms(main["run"])
+        rec["plain_ms"] = time_ms(main["plain"], reps=3)
+        rec["library_ms"] = (time_ms(main["library"])
+                             if main["library"] is not None else None)
+    del main
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return rec
+
+
+def reduce_kernel_phase(dev, timing=True):
+    """Hold the new kernel modes and G16 against their plain versions at
+    the three reduce jobs' shapes. Returns {kernel: {mode: record}} for the
+    modes of G1-G4, G6, G7 and G9, and {kernel: record} for fresh_rows,
+    fire_pack, rep_gather and rep_set."""
+    full = full_table(dev, SPARSE_CAPACITY, BATCH, report=False)
+    modes = {
+        "scatter_update": {
+            "max": lambda kind: case_scatter_reduce(dev, kind, "maxprice",
+                                                    full),
+            "mean": lambda kind: case_scatter_reduce(dev, kind, "mean",
+                                                     full)},
+        "clear_rows": {s: (lambda kind, s=s: case_clear_reduce(dev, kind, s))
+                       for s in ("max", "min", "mean", "generic")},
+        "fire_reduced": {s: (lambda kind, s=s: case_fire_reduce(
+            dev, kind, s, False)) for s in ("maxprice", "mean", "fresh")},
+        "fire_compact": {s: (lambda kind, s=s: case_fire_reduce(
+            dev, kind, s, True)) for s in ("maxprice", "mean", "fresh")},
+        "compact_table": {"max": lambda kind: case_compact_reduce(dev,
+                                                                  kind)},
+        "route_lanes": {"lateness": lambda kind: case_route_late(dev, kind)},
+        "ring_append": {"mean": lambda kind: case_ring_mean(dev, kind)},
+    }
+    out = {}
+    for name, by_mode in modes.items():
+        for mode, make in by_mode.items():
+            out.setdefault(name, {})[mode] = hold(f"{name} ({mode})", make,
+                                                  timing)
+    del full
+    out["fresh_rows"] = hold("fresh_rows", lambda k: case_fresh_rows(dev, k),
+                             timing)
+    out["fire_pack"] = hold("fire_pack", lambda k: case_fire_pack(dev, k),
+                            timing)
+    for phase in ("gather", "set"):
+        out[f"rep_{phase}"] = hold(
+            f"rep_{phase}", lambda k, p=phase: case_rep_update(dev, k, p),
+            timing)
+    return out
+
+
 # ------------------------------------------------------------ profile
 
 def _busy_ms(intervals) -> float:
@@ -2397,6 +3335,14 @@ KERNEL_SOURCES = {
                       "flink_tpu/ops/sketches.py:112"),
     "sketch_fire": ("flink_tpu_torch/csrc/sketch_fire.cu",
                     "flink_tpu/ops/window_kernels.py:1203"),
+    "fresh_rows": ("flink_tpu_torch/csrc/clear_rows.cu",
+                   "flink_tpu/ops/window_kernels.py:1350"),
+    "fire_pack": ("flink_tpu_torch/csrc/fire_compact.cu",
+                  "flink_tpu/ops/window_kernels.py:1079"),
+    "rep_gather": ("flink_tpu_torch/csrc/rep_update.cu",
+                   "flink_tpu/ops/segment.py:131"),
+    "rep_set": ("flink_tpu_torch/csrc/rep_update.cu",
+                "flink_tpu/ops/window_kernels.py:916"),
 }
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
@@ -2411,6 +3357,13 @@ WORDCOUNT_KERNELS = ("hash_upsert", "segment_sort", "rolling_update")
 WINDOWCOUNT_KERNELS = ("hash_upsert", "segment_sort", "count_update")
 SKETCH_KERNELS = ("route_lanes", "clear_rows", "hash_upsert",
                   "sketch_update", "sketch_fire")
+MAXPRICE_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                    "hash_upsert", "fire_compact", "ring_append")
+MEAN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                "fire_compact", "ring_append")
+LATE_KERNELS = ("route_lanes", "clear_rows", "fresh_rows", "hash_upsert",
+                "segment_sort", "rep_gather", "rep_set", "fire_pack")
+REDUCE_TOTAL = 30_000_000
 
 
 def run_path(run, total_launches):
@@ -2460,6 +3413,8 @@ def main(argv) -> int:
         recs[name] = dict(sk_recs[name]["distinct"],
                           countmin=sk_recs[name]["countmin"])
     recs["clear_rows"]["split"] = sk_recs["clear_rows_split"]
+    for name, rec in reduce_kernel_phase(dev).items():
+        recs.setdefault(name, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
 
     kernels.reset_launch_counts()
@@ -2647,6 +3602,67 @@ def main(argv) -> int:
     check_launched(launches, SKETCH_KERNELS, "countmin")
     del sink, job
 
+    launches, (sink, job, secs) = run_path(
+        lambda: maxprice_job(dev, REDUCE_TOTAL), total_launches)
+    m = job.metrics
+    n_rows = check_maxprice_rows(sink.columns(), REDUCE_TOTAL)
+    emit({"phase": "maxprice", "events": REDUCE_TOTAL, "seconds": secs,
+          "events_per_s": REDUCE_TOTAL / secs, "rows": n_rows,
+          "layout": job.state.layout, "drains": m.resident_drains,
+          "fire_steps": m.fire_steps, "batches": m.steps,
+          "steps_fast": m.steps_fast, "spilled_records": m.spilled_records,
+          "dropped_late": m.dropped_late,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash",
+          f"maxprice job: auto layout resolved to {job.state.layout}")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"maxprice job: dropped records: late {m.dropped_late}, "
+          f"capacity {m.dropped_capacity}")
+    check_launched(launches, MAXPRICE_KERNELS, "maxprice")
+    del sink, job
+
+    launches, (sink, job, secs) = run_path(
+        lambda: mean_job(dev, REDUCE_TOTAL), total_launches)
+    m = job.metrics
+    n_rows, rel = check_mean_rows(sink.columns(), REDUCE_TOTAL)
+    emit({"phase": "mean", "events": REDUCE_TOTAL, "seconds": secs,
+          "events_per_s": REDUCE_TOTAL / secs, "rows": n_rows,
+          "max_rel_err_vs_numpy_float64": rel, "layout": job.state.layout,
+          "plane_mb": job.state.acc.numel() * 4 / 1e6,
+          "drains": m.resident_drains, "fire_steps": m.fire_steps,
+          "batches": m.steps, "dropped_late": m.dropped_late,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "direct" and job.state.acc.shape[1] == 3,
+          "mean job: not the direct layout's [C*R, 3] plane")
+    check(m.dropped_late == 0 and m.dropped_capacity == 0,
+          f"mean job: dropped records: late {m.dropped_late}, capacity "
+          f"{m.dropped_capacity}")
+    check_launched(launches, MEAN_KERNELS, "mean")
+    del sink, job
+
+    launches, (sink, job, secs) = run_path(
+        lambda: late_job(dev, REDUCE_TOTAL), total_launches)
+    m = job.metrics
+    n_rows, n_refired, n_refire_rows = check_late_rows(
+        sink.columns(), REDUCE_TOTAL, m.dropped_late)
+    emit({"phase": "late_reduce", "events": REDUCE_TOTAL, "seconds": secs,
+          "events_per_s": REDUCE_TOTAL / secs, "rows": n_rows,
+          "windows_refired": n_refired, "refire_rows": n_refire_rows,
+          "dropped_late": m.dropped_late, "layout": job.state.layout,
+          "drains": m.resident_drains, "fire_steps": m.fire_steps,
+          "batches": m.steps, "dropped_capacity": m.dropped_capacity,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    check(job.state.layout == "hash",
+          f"late-reduce job: auto layout resolved to {job.state.layout}")
+    check(m.dropped_capacity == 0 and m.dropped_late > 0
+          and n_refire_rows > 0,
+          f"late-reduce job: capacity drops {m.dropped_capacity}, late "
+          f"drops {m.dropped_late}, re-fire rows {n_refire_rows}")
+    check_launched(launches, LATE_KERNELS, "late-reduce")
+    del sink, job
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -2672,6 +3688,12 @@ def main(argv) -> int:
                            lambda: distinct_job(dev, BID_TOTAL), BID_TOTAL))
         emit(profile_phase(dev, "countmin", bid_gen("auction"),
                            lambda: countmin_job(dev, BID_TOTAL), BID_TOTAL))
+        for name, gen, job_fn in (("maxprice", maxprice_gen, maxprice_job),
+                                  ("mean", mean_gen, mean_job),
+                                  ("late_reduce", late_gen, late_job)):
+            emit(profile_phase(dev, name, gen,
+                               lambda f=job_fn: f(dev, REDUCE_TOTAL),
+                               REDUCE_TOTAL))
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

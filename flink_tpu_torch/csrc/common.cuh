@@ -2,7 +2,8 @@
 // scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu,
 // sketch_update.cu, sketch_fire.cu and the rest of csrc/):
 // int32 pane arithmetic with the reference's floor semantics, block-wide
-// reductions that end in one atomic per block, and a block-wide scan.
+// reductions that end in one atomic per block, a block-wide scan, and the
+// float min / max combines of the min and max reduces.
 #pragma once
 
 #include <cstdint>
@@ -22,6 +23,49 @@ __device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
 __device__ __forceinline__ int32_t floor_mod(int32_t a, int32_t b) {
   int32_t r = a % b;
   return r < 0 ? r + b : r;
+}
+
+// jnp.minimum / jnp.maximum on float32, as XLA's scatter-min and -max
+// combine: NaN wins, and -0.0 orders below +0.0 (so min(+0, -0) is -0 and
+// max(+0, -0) is +0 in either order). fminf / fmaxf do neither.
+__device__ __forceinline__ float jnp_min(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return (__float_as_uint(a) & 0x80000000u) ? a : b;
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ float jnp_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return (__float_as_uint(a) & 0x80000000u) ? b : a;
+  return a > b ? a : b;
+}
+
+// A builtin reduce's combine: op 0 add, 1 min, 2 max (ops/cuda.py OPS).
+__device__ __forceinline__ float combine_op(int op, float a, float b) {
+  return op == 0 ? a + b : (op == 1 ? jnp_min(a, b) : jnp_max(a, b));
+}
+
+// *p = combine(*p, v), atomically. Add is the hardware float atomicAdd;
+// min and max loop on a 32-bit atomicCAS, leaving at once when the cell
+// already holds the result (a hot key's repeated max costs one load).
+__device__ __forceinline__ void atomic_combine(float* p, float v, int op) {
+  if (op == 0) {
+    atomicAdd(p, v);
+    return;
+  }
+  unsigned int* q = reinterpret_cast<unsigned int*>(p);
+  unsigned int old = *q;
+  while (true) {
+    const float cur = __uint_as_float(old);
+    const unsigned int want =
+        __float_as_uint(op == 1 ? jnp_min(cur, v) : jnp_max(cur, v));
+    if (want == old) return;
+    const unsigned int seen = atomicCAS(q, old, want);
+    if (seen == old) return;
+    old = seen;
+  }
 }
 
 __device__ __forceinline__ int32_t warp_sum(int32_t v) {

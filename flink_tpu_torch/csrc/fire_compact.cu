@@ -1,28 +1,33 @@
 // G6 fire_compact — evaluate the due windows for every slot and compact the
-// emitted ones into per-lane (key_hi, key_lo, value) prefixes on the device.
+// emitted ones into per-lane (key_hi, key_lo, value) prefixes on the device;
+// and fire_pack, the same compaction of a dense fire result computed
+// elsewhere.
 //
 // Replaces (flink_tpu, the JAX reference): the compact branch of
 // ops/window_kernels.py advance_and_fire_resident (:1490-1496, kernel K5):
 // _eval_fire_lanes (:1203) followed by _pack_fire_lanes (:1079, kernel K11),
 // the cumsum + searchsorted stream compaction that compact_fires (:1116)
-// also uses. Lane f's emitted slots land, in slot order, in the prefix
-// [0, counts[f]) of its rows, with the slot's key identity read from the
-// table (direct layout: the identity rows (0, slot); hash layout: the
-// placed keys) and the value summed over the window's panes. value_sums[f]
-// is the lane's sum of emitted values. The scalar fire plan runs before
-// this kernel as device torch ops and hands it p_f[F] and lane_ok[F]; a
-// lane that is not due costs three launches of blocks that exit at once.
+// also uses — for the builtin reduces on packed planes (sum, count, min,
+// max; W >= 1 value columns, kernel K7) and, with a fresh plane, the
+// allowed-lateness re-fire lanes of advance_and_fire (:1309-1423, kernel
+// K11) that compact_fires packs after it. Lane f's emitted slots land, in
+// slot order, in the prefix [0, counts[f]) of its rows, with the slot's key
+// identity read from the table (direct layout: the identity rows (0, slot);
+// hash layout: the placed keys) and its W value columns. value_sums[f] is
+// the lane's sum of every emitted value column. The scalar fire plan runs
+// before this kernel as device torch ops and hands it p_f[F] and
+// lane_ok[F]; a lane that is not due costs three launches of blocks that
+// exit at once. fire_pack takes the emitted mask [F, C] and values
+// [F, C, W] of a generic reduce's fire, whose combine is the user's torch
+// function and runs as torch ops before it (ops/window_kernels.py).
 //
-// Semantics of a slot, as in G4 fire_reduced: pane q of the window ending
-// at pane p (q = p-k+1 .. p) lives in ring row q mod R and counts where
-// pane_ids[row] == q and the row's touch column is set; the slot is emitted
-// when any of its k panes counts, and its value adds those panes in order.
+// Semantics of a slot: fire_eval.cuh, as in G4 fire_reduced.
 //
 // Bound: bytes. A due lane reads its present rows of the packed plane once
-// (8 B x C each: 84 MB for k = 5 at C = 2^21, about 25 us at 3.35 TB/s),
-// the key word of each emitted slot (8 B) and writes 12 B per emitted row.
-// This first version reads the rows twice (count, then write), so it moves
-// about twice the bound.
+// (4 (W+1) B x C each: 84 MB for k = 5, W = 1 at C = 2^21, about 25 us at
+// 3.35 TB/s), the key word of each emitted slot (8 B) and writes
+// 8 + 4 W B per emitted row. This first version reads the rows twice
+// (count, then write), so it moves about twice the bound.
 //
 // Design: a two-pass block scan, stable in slot order. Blocks own
 // contiguous chunks of kChunk slots. (1) count: each block counts its
@@ -33,65 +38,39 @@
 // block walks its chunk in tiles of blockDim slots (coalesced plane loads),
 // ranks the emitted slots of a tile with a block scan, and writes them at
 // its offset. The output rows are one arena per job, owned by the caller;
-// nothing is zeroed, and only [0, counts[f]) is meaningful.
+// nothing is zeroed, and only [0, counts[f]) is meaningful. fire_pack
+// without output rows (a device-reduce sink) runs passes 1 and 2 only.
 
-#include "common.cuh"
+#include "fire_eval.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 4096;   // ops/cuda.py COMPACT_CHUNK
-constexpr int kMaxPanes = 64;  // k <= ring - 1
 
-// rows[j] = ring row of pane j of the window ending at p, -1 if absent
-__device__ __forceinline__ void window_rows(const int32_t* pane_ids, int32_t p,
-                                            int R, int k, int32_t* rows) {
-  if (static_cast<int>(threadIdx.x) < k) {
-    const int32_t q = p - (k - 1) + static_cast<int32_t>(threadIdx.x);
-    const int32_t row = floor_mod(q, R);
-    rows[threadIdx.x] = pane_ids[row] == q ? row : -1;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool eval_slot(const float2* __restrict__ acc,
-                                          const int32_t* rows, int k, int C,
-                                          int c, float* v_out) {
-  float v = 0.0f;
-  bool emit = false;
-  for (int j = 0; j < k; ++j) {
-    const int32_t row = rows[j];
-    if (row < 0) continue;
-    const float2 a = acc[static_cast<size_t>(row) * C + c];
-    if (a.y != 0.0f) {
-      v += a.x;
-      emit = true;
-    }
-  }
-  *v_out = v;
-  return emit;
-}
-
-__global__ void compact_count_kernel(const float2* __restrict__ acc,
-                                     const int32_t* __restrict__ pane_ids,
-                                     const int32_t* __restrict__ p_f,
+template <class Src>
+__global__ void compact_count_kernel(Src src,
                                      const uint8_t* __restrict__ lane_ok,
-                                     int C, int R, int k,
                                      int32_t* __restrict__ blk_count,
                                      float* __restrict__ blk_sum) {
+  constexpr int kW = Src::kWidth;
   const int f = blockIdx.y;
   if (!lane_ok[f]) return;  // uniform per block
   __shared__ int32_t s_row[kMaxPanes];
-  window_rows(pane_ids, p_f[f], R, k, s_row);
+  src.prepare(f, s_row);
+  const int nw = src.W();
   const int start = blockIdx.x * kChunk;
-  const int end = min(start + kChunk, C);
+  const int end = min(start + kChunk, src.C);
   int32_t n = 0;
   float sum = 0.0f;
   for (int c = start + threadIdx.x; c < end; c += blockDim.x) {
-    float v;
-    if (eval_slot(acc, s_row, k, C, c, &v)) {
+    float v[kW ? kW : kMaxW];
+    if (src.eval(f, s_row, c, v)) {
       ++n;
-      sum += v;
+#pragma unroll
+      for (int w = 0; w < (kW ? kW : kMaxW); ++w) {
+        if (w < nw) sum += v[w];
+      }
     }
   }
   n = block_sum(n);
@@ -137,24 +116,27 @@ __global__ void compact_scan_kernel(const uint8_t* __restrict__ lane_ok,
   }
 }
 
+template <class Src>
 __global__ void compact_write_kernel(
-    const float2* __restrict__ acc, const int32_t* __restrict__ pane_ids,
-    const int32_t* __restrict__ p_f, const uint8_t* __restrict__ lane_ok,
-    const unsigned long long* __restrict__ table, int C, int R, int k,
+    Src src, const uint8_t* __restrict__ lane_ok,
+    const unsigned long long* __restrict__ table,
     const int32_t* __restrict__ blk_off, uint32_t* __restrict__ key_hi,
     uint32_t* __restrict__ key_lo, float* __restrict__ values) {
+  constexpr int kW = Src::kWidth;
   const int f = blockIdx.y;
   if (!lane_ok[f]) return;  // uniform per block
   __shared__ int32_t s_row[kMaxPanes];
-  window_rows(pane_ids, p_f[f], R, k, s_row);
+  src.prepare(f, s_row);
+  const int nw = src.W();
+  const int C = src.C;
   const int start = blockIdx.x * kChunk;
   const int end = min(start + kChunk, C);
   int32_t out = blk_off[f * gridDim.x + blockIdx.x];
   const size_t lane_base = static_cast<size_t>(f) * C;
   for (int c0 = start; c0 < end; c0 += blockDim.x) {  // uniform trip count
     const int c = c0 + threadIdx.x;
-    float v = 0.0f;
-    const bool emit = c < end && eval_slot(acc, s_row, k, C, c, &v);
+    float v[kW ? kW : kMaxW];
+    const bool emit = c < end && src.eval(f, s_row, c, v);
     int32_t tile_total;
     const int32_t pos = block_exclusive_scan(emit ? 1 : 0, &tile_total);
     if (emit) {
@@ -162,39 +144,105 @@ __global__ void compact_write_kernel(
       const size_t o = lane_base + static_cast<size_t>(out + pos);
       key_hi[o] = static_cast<uint32_t>(w >> 32);
       key_lo[o] = static_cast<uint32_t>(w);
-      values[o] = v;
+#pragma unroll
+      for (int j = 0; j < (kW ? kW : kMaxW); ++j) {
+        if (j < nw) values[o * nw + j] = v[j];
+      }
     }
     out += tile_total;
   }
 }
 
+struct Scratch {
+  int32_t* blk_count;
+  int32_t* blk_off;
+  float* blk_sum;
+  int32_t* counts;
+  float* vsums;
+};
+
+template <class Src>
+void launch(const Src& src, const uint8_t* lane_ok, int F,
+            const unsigned long long* table, uint32_t* key_hi,
+            uint32_t* key_lo, float* values, Scratch sc, cudaStream_t s) {
+  const int n_blk = (src.C + kChunk - 1) / kChunk;
+  const dim3 grid(n_blk, F);
+  compact_count_kernel<Src><<<grid, kThreads, 0, s>>>(
+      src, lane_ok, sc.blk_count, sc.blk_sum);
+  compact_scan_kernel<<<F, 1024, 0, s>>>(lane_ok, n_blk, sc.blk_count,
+                                         sc.blk_sum, sc.blk_off, sc.counts,
+                                         sc.vsums);
+  if (key_hi != nullptr) {
+    compact_write_kernel<Src><<<grid, kThreads, 0, s>>>(
+        src, lane_ok, table, sc.blk_off, key_hi, key_lo, values);
+  }
+}
+
+struct Launch {
+  const uint8_t* lane_ok;
+  int F;
+  const unsigned long long* table;
+  uint32_t* key_hi;
+  uint32_t* key_lo;
+  float* values;
+  Scratch sc;
+  cudaStream_t s;
+
+  template <class Src>
+  void operator()(const Src& src) const {
+    launch(src, lane_ok, F, table, key_hi, key_lo, values, sc, s);
+  }
+};
+
 }  // namespace
 
-extern "C" int fire_compact(const void* acc, const void* pane_ids,
-                            const void* p_f, const void* lane_ok,
-                            const void* table, int C, int R, int k, int F,
-                            void* blk_count, void* blk_off, void* blk_sum,
-                            void* key_hi, void* key_lo, void* values,
-                            void* counts, void* vsums, void* stream) {
-  if (k < 1 || k > kMaxPanes) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int fire_compact(const void* acc, int W, int op, float neutral,
+                            const void* fresh, int n_ontime,
+                            const void* pane_ids, const void* p_f,
+                            const void* lane_ok, const void* table, int C,
+                            int R, int k, int F, void* blk_count,
+                            void* blk_off, void* blk_sum, void* key_hi,
+                            void* key_lo, void* values, void* counts,
+                            void* vsums, void* stream) {
+  if (k < 1 || k > kMaxPanes || W < 1 || W > kMaxW || op < 0 || op > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (C <= 0 || F <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_blk = (C + kChunk - 1) / kChunk;
-  const dim3 grid(n_blk, F);
-  compact_count_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float2*>(acc), static_cast<const int32_t*>(pane_ids),
-      static_cast<const int32_t*>(p_f), static_cast<const uint8_t*>(lane_ok),
-      C, R, k, static_cast<int32_t*>(blk_count), static_cast<float*>(blk_sum));
-  compact_scan_kernel<<<F, 1024, 0, s>>>(
-      static_cast<const uint8_t*>(lane_ok), n_blk,
-      static_cast<const int32_t*>(blk_count),
-      static_cast<const float*>(blk_sum), static_cast<int32_t*>(blk_off),
-      static_cast<int32_t*>(counts), static_cast<float*>(vsums));
-  compact_write_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float2*>(acc), static_cast<const int32_t*>(pane_ids),
-      static_cast<const int32_t*>(p_f), static_cast<const uint8_t*>(lane_ok),
-      static_cast<const unsigned long long*>(table), C, R, k,
-      static_cast<const int32_t*>(blk_off), static_cast<uint32_t*>(key_hi),
-      static_cast<uint32_t*>(key_lo), static_cast<float*>(values));
+  const PlaneArgs args{static_cast<const float*>(acc),
+                       static_cast<const uint8_t*>(fresh),
+                       static_cast<const int32_t*>(pane_ids),
+                       static_cast<const int32_t*>(p_f), n_ontime, W, neutral,
+                       C, R, k};
+  const Scratch sc{static_cast<int32_t*>(blk_count),
+                   static_cast<int32_t*>(blk_off),
+                   static_cast<float*>(blk_sum), static_cast<int32_t*>(counts),
+                   static_cast<float*>(vsums)};
+  with_plane(args, op,
+             Launch{static_cast<const uint8_t*>(lane_ok), F,
+                    static_cast<const unsigned long long*>(table),
+                    static_cast<uint32_t*>(key_hi),
+                    static_cast<uint32_t*>(key_lo),
+                    static_cast<float*>(values), sc,
+                    static_cast<cudaStream_t>(stream)});
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fire_pack(const void* mask, const void* values_in, int W,
+                         const void* lane_ok, const void* table, int C, int F,
+                         void* blk_count, void* blk_off, void* blk_sum,
+                         void* key_hi, void* key_lo, void* values,
+                         void* counts, void* vsums, void* stream) {
+  if (W < 1 || W > kMaxW) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 0 || F <= 0) return static_cast<int>(cudaGetLastError());
+  const Scratch sc{static_cast<int32_t*>(blk_count),
+                   static_cast<int32_t*>(blk_off),
+                   static_cast<float*>(blk_sum), static_cast<int32_t*>(counts),
+                   static_cast<float*>(vsums)};
+  launch(DenseSrc{static_cast<const uint8_t*>(mask),
+                     static_cast<const float*>(values_in), W, C},
+            static_cast<const uint8_t*>(lane_ok), F,
+            static_cast<const unsigned long long*>(table),
+            static_cast<uint32_t*>(key_hi), static_cast<uint32_t*>(key_lo),
+            static_cast<float*>(values), sc, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

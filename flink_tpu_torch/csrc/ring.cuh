@@ -31,7 +31,8 @@ struct RingOut {
   uint32_t* hi;
   uint32_t* lo;
   int32_t* pane;
-  float* val;
+  float* val;  // [O, W] row-major
+  int W = 1;
 };
 
 template <class Src>

@@ -6,7 +6,9 @@
 //   compute_key_group_for_key_hash / assign_to_key_group (kernels K1, K2),
 //   runtime/step.py mask_update_shard (the owned-key-group mask), and the
 //   lane prologue of ops/window_kernels.py update (pane = floor(ts/slide),
-//   the late check against the pre-batch watermark and purged_through, and
+//   the late check against the pre-batch watermark and purged_through with
+//   the allowed lateness L — a lane drops only when the newest window
+//   holding its pane has passed end - 1 + L, or the pane is purged — and
 //   the batch max / min live pane, window_kernels.py:668-689).
 //
 // Bound: bytes. Per lane it reads hi, lo, ts (4 B each) and valid (1 B) and
@@ -55,16 +57,17 @@ __global__ void route_lanes_kernel(
     const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
     const int32_t* __restrict__ ts, const uint8_t* __restrict__ valid, int B,
     const int32_t* __restrict__ watermark,
-    const int32_t* __restrict__ purged_through, int slide, int k, int maxp,
+    const int32_t* __restrict__ purged_through, int slide, int k, int L,
+    int maxp,
     int kg_start, int kg_end, int32_t* __restrict__ pane_out,
     int32_t* __restrict__ kg_out, uint8_t* __restrict__ live_out,
     int32_t* __restrict__ stats) {
-  // late threshold (window_kernels.py:674-678, allowed lateness 0): clamp
-  // before subtracting so the MIN sentinel watermark cannot wrap int32
+  // late threshold (window_kernels.py:674-678): clamp before subtracting
+  // the lateness so the MIN sentinel watermark cannot wrap int32
   const int32_t wm = *watermark;
   const int32_t purged = *purged_through;
-  const int32_t floor_wm = INT32_MIN + 1 + slide;
-  const int32_t base = wm > floor_wm ? wm : floor_wm;
+  const int32_t floor_wm = INT32_MIN + 1 + slide + L;
+  const int32_t base = (wm > floor_wm ? wm : floor_wm) - L;
   const int32_t wm_pane_l = floor_div(base + 1 - slide, slide);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -117,7 +120,8 @@ __global__ void route_lanes_kernel(
 extern "C" int route_lanes(const void* hi, const void* lo, const void* ts,
                            const void* valid, int B, const void* watermark,
                            const void* purged_through, int slide, int k,
-                           int maxp, int kg_start, int kg_end, void* pane_out,
+                           int L, int maxp, int kg_start, int kg_end,
+                           void* pane_out,
                            void* kg_out, void* live_out, void* stats,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -129,8 +133,8 @@ extern "C" int route_lanes(const void* hi, const void* lo, const void* ts,
         static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
         static_cast<const int32_t*>(ts), static_cast<const uint8_t*>(valid), B,
         static_cast<const int32_t*>(watermark),
-        static_cast<const int32_t*>(purged_through), slide, k, maxp, kg_start,
-        kg_end, static_cast<int32_t*>(pane_out), static_cast<int32_t*>(kg_out),
+        static_cast<const int32_t*>(purged_through), slide, k, L, maxp,
+        kg_start, kg_end, static_cast<int32_t*>(pane_out), static_cast<int32_t*>(kg_out),
         static_cast<uint8_t*>(live_out), static_cast<int32_t*>(stats));
   }
   return static_cast<int>(cudaGetLastError());

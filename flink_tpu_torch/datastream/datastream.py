@@ -4,10 +4,14 @@ flink_tpu/datastream/datastream.py).
 Same shape as the reference (DataStream / KeyedStream / WindowedStream):
 API calls record transformation nodes that ``env.execute()`` runs. The
 port carries ``key_by``, ``time_window`` / ``window`` (tumbling, sliding
-and event-time session assigners), ``count_window``, the window ``sum``
-and ``count``, the sketch windows ``distinct_count`` (HyperLogLog) and
-``count_min``, the rolling ``KeyedStream.sum``, ``allowed_lateness``,
-``add_sink`` and ``assign_timestamps_and_watermarks``. Every other method
+and event-time session assigners), ``count_window``, the window ``sum``,
+``count``, ``min``, ``max``, ``mean``, ``reduce`` and ``aggregate``, the
+sketch windows ``distinct_count`` (HyperLogLog) and ``count_min``, the
+rolling ``KeyedStream.sum`` and ``KeyedStream.reduce``,
+``allowed_lateness``, ``add_sink`` and
+``assign_timestamps_and_watermarks``. A ``reduce``'s function is an
+associative callable on torch tensors, as the reference's is on jnp
+arrays. Every other method
 of the reference exists and raises NotImplementedError naming the ROADMAP
 item that brings it.
 """
@@ -50,7 +54,6 @@ def _later(owner: str, name: str, item: str):
 _OPS = "ROADMAP queue 1, item 9"
 _MULTI = "ROADMAP queue 1, item 12"
 _EDGES = "ROADMAP queue 1, item 15"
-_REDUCES = "ROADMAP queue 1, item 4"
 
 
 class DataStream:
@@ -127,8 +130,21 @@ class KeyedStream(DataStream):
         )
         return DataStream(self.env, t)
 
+    def reduce(self, fn: Callable, extractor=None, neutral=0.0,
+               dtype=torch.float32) -> DataStream:
+        """Rolling reduce per key (ref StreamGroupedReduce): emits the
+        updated accumulator for every input record. ``fn`` combines two
+        float32 tensors associatively; ``neutral`` is its identity."""
+        t = sg.KeyedProcessTransformation(
+            "rolling_reduce", self.transformation,
+            reduce_spec_factory=lambda: ReduceSpec(
+                "generic", dtype, combine=fn, neutral=neutral),
+            extractor=_field_extractor(extractor) if extractor is not None
+            else (lambda e: e),
+        )
+        return DataStream(self.env, t)
+
     process = _later("KeyedStream", "process", _OPS)
-    reduce = _later("KeyedStream", "reduce", _REDUCES)
     as_queryable_state = _later("KeyedStream", "as_queryable_state", _EDGES)
 
 
@@ -143,13 +159,14 @@ class WindowedStream:
         self._lateness_ms = ms
         return self
 
-    def _agg(self, name, spec_factory, extractor,
+    def _agg(self, name, spec_factory, extractor, result_fn=None,
              value_prep=None) -> DataStream:
         t = sg.WindowAggTransformation(
             name, self.keyed.transformation,
             assigner=self.assigner,
             extractor=extractor,
             reduce_spec_factory=spec_factory,
+            result_fn=result_fn,
             value_prep=value_prep,
             allowed_lateness_ms=self._lateness_ms,
         )
@@ -159,6 +176,18 @@ class WindowedStream:
         return self._agg(
             "window_sum",
             lambda: ReduceSpec("sum", dtype),
+            _field_extractor(pos) if pos is not None else (lambda e: e),
+        )
+
+    def min(self, pos=None, dtype=torch.float32) -> DataStream:
+        return self._agg(
+            "window_min", lambda: ReduceSpec("min", dtype),
+            _field_extractor(pos) if pos is not None else (lambda e: e),
+        )
+
+    def max(self, pos=None, dtype=torch.float32) -> DataStream:
+        return self._agg(
+            "window_max", lambda: ReduceSpec("max", dtype),
             _field_extractor(pos) if pos is not None else (lambda e: e),
         )
 
@@ -172,6 +201,48 @@ class WindowedStream:
 
         return self._agg(
             "window_count", lambda: ReduceSpec("count", torch.float32), ones,
+        )
+
+    def mean(self, pos=None) -> DataStream:
+        """sum+count composite accumulator, host-side divide at fire. The
+        extractor pairs each value with 1.0 — for a columnar batch, its
+        value column with a column of ones, ``[n, 2]``."""
+        get = _field_extractor(pos) if pos is not None else (lambda e: e)
+
+        def extractor(e):
+            v = np.asarray(get(e), np.float32)
+            return np.stack([v, np.ones_like(v)], axis=-1)
+
+        return self._agg(
+            "window_mean",
+            lambda: ReduceSpec("sum", torch.float32, value_shape=(2,)),
+            extractor,
+            result_fn=lambda acc: acc[..., 0] / np.maximum(acc[..., 1], 1.0),
+        )
+
+    def reduce(self, fn: Callable, extractor=None, neutral=0.0,
+               dtype=torch.float32, value_shape=()) -> DataStream:
+        """General associative reduce. ``fn`` combines two float32 torch
+        tensors ``[..., *value_shape]``; ``neutral`` is its identity; for
+        arbitrary element types provide ``extractor`` (element -> array)
+        and a result projection via ``.aggregate()``."""
+        return self._agg(
+            "window_reduce",
+            lambda: ReduceSpec("generic", dtype, tuple(value_shape),
+                               combine=fn, neutral=neutral),
+            _field_extractor(extractor) if extractor is not None
+            else (lambda e: e),
+        )
+
+    def aggregate(self, agg_fn) -> DataStream:
+        """AggregateFunction contract (add/merge/get_result) — ref
+        AggregatingState. agg_fn: state.AggregatingStateDescriptor or any
+        object with .to_reduce_spec(), .extractor, .get_result."""
+        return self._agg(
+            "window_aggregate",
+            agg_fn.to_reduce_spec,
+            getattr(agg_fn, "extractor", lambda e: e),
+            result_fn=getattr(agg_fn, "get_result", None),
         )
 
     def distinct_count(self, pos=None, precision: int = 12) -> DataStream:
@@ -219,8 +290,3 @@ class WindowedStream:
     evictor = _later("WindowedStream", "evictor", _OPS)
     apply = _later("WindowedStream", "apply", _OPS)
     fold = _later("WindowedStream", "fold", _OPS)
-    min = _later("WindowedStream", "min", _REDUCES)
-    max = _later("WindowedStream", "max", _REDUCES)
-    mean = _later("WindowedStream", "mean", _REDUCES)
-    reduce = _later("WindowedStream", "reduce", _REDUCES)
-    aggregate = _later("WindowedStream", "aggregate", _REDUCES)

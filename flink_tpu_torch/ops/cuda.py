@@ -1,18 +1,22 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Fifteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
-``sm_90a``) carry the device work of the window stage (G1-G9, and G14,
-G15 for its sketch reduces) and of the session, count-window and rolling
-stages (G10-G13); each source opens with the reference function it
-replaces, what bounds it on the card and what its design does about that:
+Sixteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
+for its sketch reduces, G16 for its generic reduce) and of the session,
+count-window and rolling stages (G10-G13, G16); each source opens with the
+reference function it replaces, what bounds it on the card and what its
+design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
-                         (packed planes, or a sketch's split planes)
-  G3 ``scatter_update``  the update's accumulate phase (atomic scatter)
+                         (packed planes, or split planes), fresh rows;
+     ``fresh_rows``      each ring row's count of fresh flags
+  G3 ``scatter_update``  the update's accumulate phase (atomic add, min,
+                         max), the lateness fresh marking
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
   G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
-  G6 ``fire_compact``    window evaluation compacted to (key, value) rows
+  G6 ``fire_compact``    window evaluation compacted to (key, value) rows;
+     ``fire_pack``       the same compaction of a dense fire result
   G7 ``ring_append``     nofit lanes appended to the overflow ring
   G8 ``hash_lookup``     the fast step's find-only probe + missing count
   G9 ``compact_table``   table rebuild around the live keys, state moved
@@ -22,6 +26,14 @@ replaces, what bounds it on the card and what its design does about that:
   G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
   G14 ``sketch_update``  Count-Min / HyperLogLog register scatter (add, max)
   G15 ``sketch_fire``    sketch windows: pane combine, finalize, compaction
+  G16 ``rep_gather``     a generic reduce's sorted values and old rows;
+      ``rep_set``        its merged rows set, with the lane bookkeeping
+
+The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
+jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
+combine is the user's torch function; it runs as torch ops between G16's
+two launches and in the fire before G6's ``fire_pack``: the one path with
+no hand kernel for its combine.
 
 G11-G13 share one segmented scan (``csrc/segscan.cuh``), and G7, G9, G11
 and G12 one stable row compaction (``csrc/ring.cuh``).
@@ -50,7 +62,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -70,31 +82,39 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "fire_reduced.cu", "hash_upsert.cu", "fire_compact.cu",
            "ring_append.cu", "hash_lookup.cu", "compact_table.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
-           "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu")
+           "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
+           "rep_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                    _P, _P, _P],
-    "clear_rows": [_P, _P, _P, _P, _I, _I, _P],
-    "clear_rows_split": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "scatter_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _P],
-    "fire_reduced": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                    _P, _P, _P, _P],
+    "clear_rows": [_P, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P],
+    "clear_rows_split": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                         _P],
+    "fresh_rows": [_P, _I, _I, _P, _P],
+    "scatter_update": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _P, _P, _P, _P],
+    "fire_reduced": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                     _P, _P],
     "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "fire_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P],
-    "ring_append": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                    _P, _P],
+    "fire_compact": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fire_pack": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                  _P, _P],
+    "ring_append": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P],
     "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "compact_alive": [_P, _I, _I, _P, _P],
-    "compact_move": [_P, _P, _P, _I, _I, _P, _P, _P],
-    "compact_export": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+    "compact_alive": [_P, _I, _F, _I, _I, _P, _P],
+    "compact_move": [_P, _I, _F, _P, _P, _I, _I, _P, _P, _P],
+    "compact_export": [_P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P],
     "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -105,6 +125,9 @@ _SIGNATURES = {
     "sketch_update": [_P] * 11 + [_I] * 8 + [_P],
     "sketch_fire": [_P] * 6 + [_I] * 7 + [_P, _I, _I, _I, _D, _D, _I]
     + [_P] * 10,
+    "rep_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
+    "rep_set": [_P, _P, _I, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -223,19 +246,47 @@ def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
 
+# ------------------------------------------------------------ the combines
+
+OPS = {"add": 0, "min": 1, "max": 2}
+
+
+def fmin(a, b):
+    """jnp.minimum (and XLA's scatter-min): NaN wins, -0.0 < +0.0, in
+    either argument order (torch.minimum keeps the first of two zeros)."""
+    r = torch.where((a < b) | ((a == b) & torch.signbit(a)), a, b)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
+
+
+def fmax(a, b):
+    """jnp.maximum: NaN wins, +0.0 > -0.0, in either argument order."""
+    r = torch.where((a > b) | ((a == b) & ~torch.signbit(a)), a, b)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
+
+
+COMBINE = {"add": torch.add, "min": fmin, "max": fmax}
+
+
+def _expand(flag, like):
+    """``flag`` [n] reshaped to broadcast against ``like`` [n, ...]."""
+    return flag.reshape(flag.shape + (1,) * (like.dim() - flag.dim()))
+
+
 # ------------------------------------------------------------ G1
 
 def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
                       slide: int, k: int, maxp: int, kg_start: int,
-                      kg_end: int):
+                      kg_end: int, L: int = 0):
     """Plain version of G1. hi/lo: int32 [B] holding uint32 bits; ts int32
-    [B] ticks; valid bool [B]; watermark / purged_through int32 0-d.
-    Returns (pane int32 [B], kg int32 [B], live bool [B], stats int32 [3])
-    with stats = (late lanes, max live pane, min live pane)."""
+    [B] ticks; valid bool [B]; watermark / purged_through int32 0-d; L the
+    allowed lateness in ticks. Returns (pane int32 [B], kg int32 [B], live
+    bool [B], stats int32 [3]) with stats = (late lanes, max live pane, min
+    live pane). A lane is late when the newest window holding its pane
+    ended more than L ticks before the watermark, or its pane is purged."""
     kg = assign_to_key_group(route_hash(hi, lo), maxp).to(torch.int32)
     pane = _floor_div(ts, slide).to(torch.int32)
     mine = valid & (kg >= kg_start) & (kg <= kg_end)
-    base = torch.clamp_min(watermark, -(2**31) + 1 + slide)
+    base = torch.clamp_min(watermark, -(2**31) + 1 + slide + L) - L
     wm_pane_l = _floor_div(base + 1 - slide, slide)
     late = mine & ((pane + (k - 1) <= wm_pane_l) | (pane <= purged_through))
     live = mine & ~late
@@ -248,12 +299,12 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
 
 
 def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
-                k: int, maxp: int, kg_start: int, kg_end: int):
+                k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0):
     """G1: see route_lanes_plain for the contract."""
     if _on_cpu(hi):
         return route_lanes_plain(
             hi, lo, ts, valid, watermark, purged_through, slide=slide, k=k,
-            maxp=maxp, kg_start=kg_start, kg_end=kg_end)
+            maxp=maxp, kg_start=kg_start, kg_end=kg_end, L=L)
     dev = hi.device
     (B,) = hi.shape
     for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
@@ -261,14 +312,16 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
         _check(t, n, dt, (B,), dev)
     _check(watermark, "watermark", torch.int32, (), dev)
     _check(purged_through, "purged_through", torch.int32, (), dev)
+    if L < 0 or slide + L > INT32_MAX // 2:
+        raise ValueError(f"allowed lateness {L} out of range")
     pane = torch.empty(B, dtype=torch.int32, device=dev)
     kg = torch.empty(B, dtype=torch.int32, device=dev)
     live = torch.empty(B, dtype=torch.bool, device=dev)
     stats = torch.empty(3, dtype=torch.int32, device=dev)
     rc = build().route_lanes(
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
-        _ptr(purged_through), slide, k, maxp, kg_start, kg_end, _ptr(pane),
-        _ptr(kg), _ptr(live), _ptr(stats), _stream())
+        _ptr(purged_through), slide, k, L, maxp, kg_start, kg_end,
+        _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _stream())
     _raise_on(rc, "route_lanes")
     route_lanes.launches += 1
     return pane, kg, live, stats
@@ -279,50 +332,88 @@ route_lanes.launches = 0
 
 # ------------------------------------------------------------ G2
 
+_PATTERNS = {}
+
+
+def _pattern(neutral, W: int, dev) -> torch.Tensor:
+    """The 32-bit words of a split plane's neutral: one word when every
+    component is equal, else the W words of a row; cached per device."""
+    words = torch.as_tensor(neutral, dtype=torch.float32).reshape(-1)
+    words = words.expand(W) if words.numel() == 1 else words
+    if bool((words == words[0]).all()):
+        words = words[:1]
+    key = (tuple(words.view(torch.int32).tolist()), str(dev))
+    if key not in _PATTERNS:
+        _PATTERNS[key] = words.view(torch.int32).to(dev)
+    return _PATTERNS[key]
+
+
 def clear_rows_plain(acc, clear, evicted, dropped_capacity, *, C: int,
-                     R: int, touched=None) -> None:
-    """Plain version of G2, in place. acc float32 [C*R, 2] packed plane, or
-    with ``touched`` (bool [C*R]) a sketch's split planes: acc int32
-    [C*R, W] registers; clear bool [R]; evicted bool [R] or None;
-    dropped_capacity int32 0-d (gains the touched keys of evicted rows,
-    counted before the clear)."""
+                     R: int, touched=None, neutral=0.0, fresh=None,
+                     fresh_clear=None) -> None:
+    """Plain version of G2, in place. acc float32 [C*R, Wc] packed plane
+    (Wc - 1 value columns and the touch column), or with ``touched`` (bool
+    [C*R]) split planes: a sketch's int32 registers [C*R, W] or a generic
+    reduce's float32 values [C*R, *value_shape]; clear bool [R]; evicted
+    bool [R] or None; dropped_capacity int32 0-d (gains the touched keys of
+    evicted rows, counted before the clear). Flagged rows take the
+    ``neutral`` (a float, or a value_shape array for split float planes)
+    and lose their touch marks. ``fresh`` (bool [C*R]) clears its rows
+    flagged in ``fresh_clear`` (``clear`` when None)."""
+    a3 = acc.view(R, C, -1)
     if touched is not None:
         t2 = touched.view(R, C)
         if evicted is not None:
             n = (t2 & evicted[:, None]).sum()
             dropped_capacity.add_(n.to(torch.int32))
-        acc.view(R, C, -1).masked_fill_(clear[:, None, None], 0)
+        fill = torch.as_tensor(neutral, dtype=acc.dtype,
+                               device=acc.device).reshape(-1)
+        a3.copy_(torch.where(clear[:, None, None], fill.view(1, 1, -1), a3))
         t2.masked_fill_(clear[:, None], False)
-        return
-    a3 = acc.view(R, C, 2)
-    if evicted is not None:
-        n = torch.where(evicted[:, None], a3[:, :, 1] != 0, False).sum()
-        dropped_capacity.add_(n.to(torch.int32))
-    a3.masked_fill_(clear[:, None, None], 0.0)
+    else:
+        if evicted is not None:
+            n = torch.where(evicted[:, None], a3[:, :, -1] != neutral,
+                            False).sum()
+            dropped_capacity.add_(n.to(torch.int32))
+        a3.masked_fill_(clear[:, None, None], float(neutral))
+    if fresh is not None:
+        rows = clear if fresh_clear is None else fresh_clear
+        fresh.view(R, C).masked_fill_(rows[:, None], False)
 
 
 def clear_rows(acc, clear, evicted, dropped_capacity, *, C: int, R: int,
-               touched=None) -> None:
+               touched=None, neutral=0.0, fresh=None,
+               fresh_clear=None) -> None:
     """G2: see clear_rows_plain for the contract."""
     if _on_cpu(acc):
         return clear_rows_plain(acc, clear, evicted, dropped_capacity, C=C,
-                                R=R, touched=touched)
+                                R=R, touched=touched, neutral=neutral,
+                                fresh=fresh, fresh_clear=fresh_clear)
     dev = acc.device
     _check(clear, "clear", torch.bool, (R,), dev)
     if evicted is not None:
         _check(evicted, "evicted", torch.bool, (R,), dev)
     _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
+    if fresh is not None:
+        _check(fresh, "fresh", torch.bool, (C * R,), dev)
+        fresh_clear = clear if fresh_clear is None else fresh_clear
+        _check(fresh_clear, "fresh_clear", torch.bool, (R,), dev)
+    W = acc[0].numel() if acc.shape[0] else 1
     if touched is not None:
-        W = acc.shape[-1]
-        _check(acc, "acc", torch.int32, (C * R, W), dev)
+        if acc.dtype not in (torch.int32, torch.float32):
+            raise TypeError(f"split plane of {acc.dtype}")
+        _check(acc, "acc", acc.dtype, (C * R,) + tuple(acc.shape[1:]), dev)
         _check(touched, "touched", torch.bool, (C * R,), dev)
+        pat = _pattern(0.0 if acc.dtype == torch.int32 else neutral, W, dev)
         rc = build().clear_rows_split(
-            _ptr(acc), _ptr(touched), _ptr(clear), _ptr(evicted),
-            _ptr(dropped_capacity), C, R, W, _stream())
+            _ptr(acc), _ptr(touched), _ptr(pat), pat.numel(), _ptr(clear),
+            _ptr(evicted), _ptr(dropped_capacity), C, R, W, _ptr(fresh),
+            _ptr(fresh_clear), _stream())
     else:
-        _check(acc, "acc", torch.float32, (C * R, 2), dev)
-        rc = build().clear_rows(_ptr(acc), _ptr(clear), _ptr(evicted),
-                                _ptr(dropped_capacity), C, R, _stream())
+        _check(acc, "acc", torch.float32, (C * R, W), dev)
+        rc = build().clear_rows(_ptr(acc), W, float(neutral), _ptr(clear),
+                                _ptr(evicted), _ptr(dropped_capacity), C, R,
+                                _ptr(fresh), _ptr(fresh_clear), _stream())
     _raise_on(rc, "clear_rows")
     clear_rows.launches += 1
 
@@ -330,19 +421,64 @@ def clear_rows(acc, clear, evicted, dropped_capacity, *, C: int, R: int,
 clear_rows.launches = 0
 
 
+def fresh_rows_plain(fresh, *, C: int, R: int) -> torch.Tensor:
+    """Plain version of G2's fresh_rows: int32 [R], the set flags of each
+    ring row of the fresh plane (bool [C*R])."""
+    return fresh.view(R, C).sum(dim=1, dtype=torch.int32)
+
+
+def fresh_rows(fresh, *, C: int, R: int) -> torch.Tensor:
+    """G2 fresh_rows: see fresh_rows_plain for the contract."""
+    if _on_cpu(fresh):
+        return fresh_rows_plain(fresh, C=C, R=R)
+    dev = fresh.device
+    _check(fresh, "fresh", torch.bool, (C * R,), dev)
+    counts = torch.zeros(R, dtype=torch.int32, device=dev)
+    rc = build().fresh_rows(_ptr(fresh), C, R, _ptr(counts), _stream())
+    _raise_on(rc, "fresh_rows")
+    fresh_rows.launches += 1
+    return counts
+
+
+fresh_rows.launches = 0
+
+
 # ------------------------------------------------------------ G3
+
+def _scatter_combine_rows(target, idx, upd, op) -> None:
+    """target[idx[i]] = op(target[idx[i]], upd[i]) for every i, duplicates
+    combined (in place): a stable sort by index, a segmented scan of each
+    index's rows, one combine with the target at each index."""
+    if idx.numel() == 0:
+        return
+    order = torch.sort(idx, stable=True).indices
+    ids, u = idx[order], upd[order]
+    start = torch.ones_like(ids, dtype=torch.bool)
+    start[1:] = ids[1:] != ids[:-1]
+    red = seg_scan_plain(start, u, op)
+    end = _seg_end(start)
+    t = ids[end]
+    target[t] = op(target[t], red[end])
+
 
 def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live,
                          slot, values, max_pane, *, C: int, R: int,
-                         count_nofit: bool = True) -> None:
-    """Plain version of G3, in place. acc float32 [C*R, 2]; kg_dirty bool
-    [G] or None; dropped_capacity int32 0-d; pane/kg int32 [B]; live bool
-    [B]; slot int32 [B], the lane's state slot or C for none (the direct
-    layout's key past capacity, the hash layout's key that found no slot);
-    values float32 [B] or None (count: every lane adds 1.0); max_pane int32
-    0-d, already advanced. Too-old lanes count into dropped_capacity, and
-    so do live lanes with no slot unless ``count_nofit`` is False (the
-    overflow ring took them)."""
+                         count_nofit: bool = True, op: str = "add",
+                         fresh=None, fired_through=None,
+                         n_fresh=None) -> None:
+    """Plain version of G3, in place. acc float32 [C*R, W+1] packed plane;
+    kg_dirty bool [G] or None; dropped_capacity int32 0-d; pane/kg int32
+    [B]; live bool [B]; slot int32 [B], the lane's state slot or C for none
+    (the direct layout's key past capacity, the hash layout's key that
+    found no slot); values float32 [B] or [B, W], or None (count: every
+    lane adds 1.0); max_pane int32 0-d, already advanced; ``op`` the
+    reduce's combine (OPS): each lane combines its values into its cell
+    and its touch marker (1.0 for add, 0.0 for min and max) into the touch
+    column. Too-old lanes count into dropped_capacity, and so do live lanes
+    with no slot unless ``count_nofit`` is False (the overflow ring took
+    them). With ``fresh`` (bool [C*R]), a placed lane whose pane is at or
+    before ``fired_through`` (int32 0-d) sets its cell's flag and adds one
+    to ``n_fresh`` (int32 0-d)."""
     too_old = live & (pane < max_pane - (R - 1))
     live = live & ~too_old
     if kg_dirty is not None:
@@ -352,25 +488,39 @@ def scatter_update_plain(acc, kg_dirty, dropped_capacity, pane, kg, live,
     n_nofit = nofit.sum() if count_nofit else 0
     dropped_capacity.add_((too_old.sum() + n_nofit).to(torch.int32))
     flat = torch.remainder(pane.to(torch.int64), R) * C + slot.to(torch.int64)
-    idx = 2 * flat[ok]
-    flat_acc = acc.view(-1)
-    v = values[ok] if values is not None else torch.ones(
-        idx.shape[0], dtype=acc.dtype, device=acc.device)
-    flat_acc.index_add_(0, idx, v)
-    flat_acc.index_add_(0, idx + 1, torch.ones_like(v))
+    idx = flat[ok]
+    W = acc.shape[1] - 1
+    n = idx.shape[0]
+    v = (values[ok].reshape(n, W) if values is not None else
+         torch.ones(n, W, dtype=acc.dtype, device=acc.device))
+    marker = torch.full((n, 1), 1.0 if op == "add" else 0.0,
+                        dtype=acc.dtype, device=acc.device)
+    upd = torch.cat([v, marker], 1)
+    if op == "add":
+        acc.index_add_(0, idx, upd)
+    else:
+        _scatter_combine_rows(acc, idx, upd, COMBINE[op])
+    if fresh is not None:
+        late = ok & (pane <= fired_through)
+        fresh[flat[late]] = True
+        n_fresh.add_(late.sum().to(torch.int32))
 
 
 def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, slot,
                    values, max_pane, *, C: int, R: int,
-                   count_nofit: bool = True) -> None:
+                   count_nofit: bool = True, op: str = "add", fresh=None,
+                   fired_through=None, n_fresh=None) -> None:
     """G3: see scatter_update_plain for the contract."""
     if _on_cpu(acc):
         return scatter_update_plain(acc, kg_dirty, dropped_capacity, pane,
                                     kg, live, slot, values, max_pane, C=C,
-                                    R=R, count_nofit=count_nofit)
+                                    R=R, count_nofit=count_nofit, op=op,
+                                    fresh=fresh, fired_through=fired_through,
+                                    n_fresh=n_fresh)
     dev = acc.device
     (B,) = pane.shape
-    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    W = acc.shape[1] - 1
+    _check(acc, "acc", torch.float32, (C * R, W + 1), dev)
     if kg_dirty is not None:
         _check(kg_dirty, "kg_dirty", torch.bool, None, dev)
     _check(dropped_capacity, "dropped_capacity", torch.int32, (), dev)
@@ -378,12 +528,20 @@ def scatter_update(acc, kg_dirty, dropped_capacity, pane, kg, live, slot,
                      (live, "live", torch.bool), (slot, "slot", torch.int32)):
         _check(t, n, dt, (B,), dev)
     if values is not None:
-        _check(values, "values", torch.float32, (B,), dev)
+        _check(values, "values", torch.float32,
+               (B,) if values.dim() == 1 else (B, W), dev)
+        if values.dim() == 1 and W != 1:
+            raise ValueError(f"{W} value columns, scalar values given")
     _check(max_pane, "max_pane", torch.int32, (), dev)
+    if fresh is not None:
+        _check(fresh, "fresh", torch.bool, (C * R,), dev)
+        _check(fired_through, "fired_through", torch.int32, (), dev)
+        _check(n_fresh, "n_fresh", torch.int32, (), dev)
     rc = build().scatter_update(
-        _ptr(acc), _ptr(kg_dirty), _ptr(dropped_capacity), _ptr(pane),
-        _ptr(kg), _ptr(live), _ptr(slot), _ptr(values), _ptr(max_pane), B,
-        C, R, int(count_nofit), _stream())
+        _ptr(acc), W, OPS[op], _ptr(kg_dirty), _ptr(dropped_capacity),
+        _ptr(pane), _ptr(kg), _ptr(live), _ptr(slot), _ptr(values),
+        _ptr(max_pane), B, C, R, int(count_nofit), _ptr(fresh),
+        _ptr(fired_through), _ptr(n_fresh), _stream())
     _raise_on(rc, "scatter_update")
     scatter_update.launches += 1
 
@@ -393,55 +551,99 @@ scatter_update.launches = 0
 
 # ------------------------------------------------------------ G4
 
+MAX_PLANE_W = 16      # value columns a packed plane may have (fire_eval.cuh)
+
+
 def _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
-                           k: int):
-    """The windows ending at panes ``p_f`` for every slot: (emit bool
-    [F, C], value float32 [F, C]). Pane q lives in ring row q mod R and
-    counts where pane_ids[row] == q and the row's touch column is set; a
-    slot is emitted when any of its k panes counts, its value is the sum of
-    those panes in pane order."""
-    a3 = acc.view(R, C, 2)
+                           k: int, op: str = "add", neutral=0.0, fresh=None,
+                           n_ontime=None):
+    """The windows ending at panes ``p_f`` for every slot of a packed plane
+    acc [C*R, W+1]: (emit bool [F, C], value float32 [F, C, W]). Pane q
+    lives in ring row q mod R and counts where pane_ids[row] == q and the
+    row's touch column differs from ``neutral``; a slot's value combines
+    its counting panes from the neutral, in pane order, by ``op``. A slot
+    is emitted when any of its k panes counts — or, for a lane f >=
+    ``n_ontime`` with a ``fresh`` plane (bool [C*R]), any of its present
+    panes is fresh (an allowed-lateness re-fire)."""
+    Wc = acc.shape[1]
+    a3 = acc.view(R, C, Wc)
     F = p_f.shape[0]
-    vals = torch.zeros(F, C, dtype=acc.dtype, device=acc.device)
+    combine = COMBINE[op]
+    vals = torch.full((F, C, Wc - 1), float(neutral), dtype=acc.dtype,
+                      device=acc.device)
     emit = torch.zeros(F, C, dtype=torch.bool, device=acc.device)
+    late = torch.zeros(F, dtype=torch.bool, device=acc.device)
+    if fresh is not None:
+        late[n_ontime:] = True
+        f2 = fresh.view(R, C)
     for j in range(k):
         q = p_f - (k - 1) + j
         row = torch.remainder(q, R).long()
         present = lane_ok & (pane_ids[row] == q)
-        t = (a3[row, :, 1] != 0) & present[:, None]
-        vals = torch.where(t, vals + a3[row, :, 0], vals)
-        emit = emit | t
+        cells = a3[row]                                   # [F, C, Wc]
+        t = (cells[:, :, -1] != neutral) & present[:, None]
+        vals = torch.where(t[:, :, None], combine(vals, cells[:, :, :-1]),
+                           vals)
+        m = t if fresh is None else torch.where(
+            late[:, None], f2[row] & present[:, None], t)
+        emit = emit | m
     return emit, vals
 
 
 def fire_reduced_plain(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
-                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of G4. acc float32 [C*R, 2]; pane_ids int32 [R];
-    p_f int32 [F] window-end pane per lane; lane_ok bool [F]. Returns
-    (counts int32 [F], value_sums float32 [F])."""
-    emit, vals = _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, C=C,
-                                        R=R, k=k)
+                       k: int, op: str = "add", neutral=0.0, fresh=None,
+                       n_ontime=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of G4. acc float32 [C*R, W+1]; pane_ids int32 [R];
+    p_f int32 [F] window-end pane per lane; lane_ok bool [F]; ``op``,
+    ``neutral``, ``fresh`` and ``n_ontime`` as for _eval_fire_lanes_plain.
+    Returns (counts int32 [F], value_sums float32 [F]: every value column
+    of every emitted slot)."""
+    emit, vals = _eval_fire_lanes_plain(
+        acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k, op=op, neutral=neutral,
+        fresh=fresh, n_ontime=n_ontime)
     counts = emit.sum(dim=1, dtype=torch.int32)
-    vsums = torch.where(emit, vals, 0.0).sum(dim=1).to(torch.float32)
+    vsums = torch.where(emit[:, :, None], vals, 0.0).sum(dim=(1, 2)).to(
+        torch.float32)
     return counts, vsums
 
 
-def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int,
-                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G4: see fire_reduced_plain for the contract."""
-    if _on_cpu(acc):
-        return fire_reduced_plain(acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k)
+def _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, *, C, R, k):
     dev = acc.device
     (F,) = p_f.shape
-    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    Wc = acc.shape[1]
+    if not 2 <= Wc <= MAX_PLANE_W + 1:
+        raise NotImplementedError(f"a packed plane of {Wc - 1} value "
+                                  f"columns (at most {MAX_PLANE_W})")
+    if not 1 <= k < R or k > 64:
+        raise ValueError(f"{k} panes a window in a ring of {R}")
+    _check(acc, "acc", torch.float32, (C * R, Wc), dev)
     _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
     _check(p_f, "p_f", torch.int32, (F,), dev)
     _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+    if fresh is not None:
+        _check(fresh, "fresh", torch.bool, (C * R,), dev)
+        if not 0 <= n_ontime <= F:
+            raise ValueError(f"n_ontime {n_ontime} of {F} lanes")
+    return F, Wc - 1
+
+
+def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int, k: int,
+                 op: str = "add", neutral=0.0, fresh=None,
+                 n_ontime=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G4: see fire_reduced_plain for the contract."""
+    if _on_cpu(acc):
+        return fire_reduced_plain(acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k,
+                                  op=op, neutral=neutral, fresh=fresh,
+                                  n_ontime=n_ontime)
+    dev = acc.device
+    F, W = _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, C=C,
+                       R=R, k=k)
     counts = torch.zeros(F, dtype=torch.int32, device=dev)
     vsums = torch.zeros(F, dtype=torch.float32, device=dev)
-    rc = build().fire_reduced(_ptr(acc), _ptr(pane_ids), _ptr(p_f),
-                              _ptr(lane_ok), C, R, k, F, _ptr(counts),
-                              _ptr(vsums), _stream())
+    rc = build().fire_reduced(
+        _ptr(acc), W, OPS[op], float(neutral), _ptr(fresh),
+        F if fresh is None else n_ontime, _ptr(pane_ids), _ptr(p_f),
+        _ptr(lane_ok), C, R, k, F, _ptr(counts), _ptr(vsums), _stream())
     _raise_on(rc, "fire_reduced")
     fire_reduced.launches += 1
     return counts, vsums
@@ -550,78 +752,142 @@ COMPACT_CHUNK = 4096   # slots per block of G6 (a multiple of its 256 threads)
 
 def pack_fire_lanes(table, mask, values):
     """The pack of the reference's ``_pack_fire_lanes``: per fire lane,
-    compact dense (mask bool [F, C], values float32 [F, C]) planes into
+    compact dense (mask bool [F, C], values float32 [F, C, *v]) planes into
     prefix rows in slot order, keys read from ``table`` (int64 [C] key
     words) and zeros past each prefix. Returns (key_hi int32 [F, C],
-    key_lo int32 [F, C], values float32 [F, C], counts int32 [F],
-    value_sums float32 [F])."""
+    key_lo int32 [F, C], values float32 [F, C, *v], counts int32 [F],
+    value_sums float32 [F]: every value element of every emitted row)."""
     F, C = mask.shape
     dev = mask.device
     khi = torch.zeros(F, C, dtype=torch.int32, device=dev)
     klo = torch.zeros(F, C, dtype=torch.int32, device=dev)
-    v = torch.zeros(F, C, dtype=values.dtype, device=dev)
+    v = torch.zeros_like(values)
     for f in range(F):
         idx = torch.nonzero(mask[f]).reshape(-1)
         n = idx.shape[0]
         khi[f, :n], klo[f, :n] = split_words(table[idx])
         v[f, :n] = values[f, idx]
     counts = mask.sum(dim=1, dtype=torch.int32)
-    vsums = torch.where(mask, values, 0.0).sum(dim=1).to(torch.float32)
+    vsums = torch.where(_expand(mask, values), values, 0.0).reshape(
+        F, -1).sum(dim=1).to(torch.float32)
     return khi, klo, v, counts, vsums
 
 
 def fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo,
-                       values, *, C: int, R: int,
-                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of G6. acc float32 [C*R, 2]; pane_ids int32 [R]; p_f
-    int32 [F]; lane_ok bool [F]; table int64 [C] key words of the slots.
-    For each lane f the emitted slots, in slot order, go to the prefix
-    ``[:counts[f]]`` of key_hi / key_lo (int32 [F, C], the uint32 halves of
-    the slot's key word) and values (float32 [F, C]), written in place;
-    only the prefixes are meaningful. Returns (counts int32 [F],
-    value_sums float32 [F])."""
-    emit, vals = _eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok, C=C,
-                                        R=R, k=k)
+                       values, *, C: int, R: int, k: int, op: str = "add",
+                       neutral=0.0, fresh=None,
+                       n_ontime=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of G6. acc float32 [C*R, W+1]; pane_ids int32 [R]; p_f
+    int32 [F]; lane_ok bool [F]; table int64 [C] key words of the slots;
+    ``op``, ``neutral``, ``fresh`` and ``n_ontime`` as for
+    _eval_fire_lanes_plain. For each lane f the emitted slots, in slot
+    order, go to the prefix ``[:counts[f]]`` of key_hi / key_lo (int32
+    [F, C], the uint32 halves of the slot's key word) and values (float32
+    [F, C] for a scalar, [F, C, W] for a vector), written in place; only
+    the prefixes are meaningful. Returns (counts int32 [F], value_sums
+    float32 [F])."""
+    emit, vals = _eval_fire_lanes_plain(
+        acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k, op=op, neutral=neutral,
+        fresh=fresh, n_ontime=n_ontime)
     khi, klo, v, counts, vsums = pack_fire_lanes(table, emit, vals)
     key_hi.copy_(khi)
     key_lo.copy_(klo)
-    values.copy_(v)
+    values.copy_(v.reshape(values.shape))
     return counts, vsums
 
 
-def fire_compact(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo, values,
-                 *, C: int, R: int,
-                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G6: see fire_compact_plain for the contract."""
-    if _on_cpu(acc):
-        return fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi,
-                                  key_lo, values, C=C, R=R, k=k)
-    dev = acc.device
-    (F,) = p_f.shape
-    _check(acc, "acc", torch.float32, (C * R, 2), dev)
-    _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
-    _check(p_f, "p_f", torch.int32, (F,), dev)
-    _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+def _compact_scratch(F: int, C: int, dev):
+    n_blk = -(-C // COMPACT_CHUNK)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.empty(F, n_blk, **i32), torch.empty(F, n_blk, **i32),
+            torch.empty(F, n_blk, dtype=torch.float32, device=dev),
+            torch.empty(F, **i32),
+            torch.empty(F, dtype=torch.float32, device=dev))
+
+
+def _check_rows(table, key_hi, key_lo, values, F, C, W, dev):
     _check(table, "table", torch.int64, (C,), dev)
     _check(key_hi, "key_hi", torch.int32, (F, C), dev)
     _check(key_lo, "key_lo", torch.int32, (F, C), dev)
-    _check(values, "values", torch.float32, (F, C), dev)
-    n_blk = -(-C // COMPACT_CHUNK)
-    blk_count = torch.empty(F, n_blk, dtype=torch.int32, device=dev)
-    blk_off = torch.empty(F, n_blk, dtype=torch.int32, device=dev)
-    blk_sum = torch.empty(F, n_blk, dtype=torch.float32, device=dev)
-    counts = torch.empty(F, dtype=torch.int32, device=dev)
-    vsums = torch.empty(F, dtype=torch.float32, device=dev)
+    _check(values, "values", torch.float32,
+           (F, C) if values.dim() == 2 else (F, C, W), dev)
+    if values.dim() == 2 and W != 1:
+        raise ValueError(f"{W} value columns into scalar rows")
+
+
+def fire_compact(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo, values,
+                 *, C: int, R: int, k: int, op: str = "add", neutral=0.0,
+                 fresh=None,
+                 n_ontime=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G6: see fire_compact_plain for the contract."""
+    if _on_cpu(acc):
+        return fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi,
+                                  key_lo, values, C=C, R=R, k=k, op=op,
+                                  neutral=neutral, fresh=fresh,
+                                  n_ontime=n_ontime)
+    dev = acc.device
+    F, W = _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, C=C,
+                       R=R, k=k)
+    _check_rows(table, key_hi, key_lo, values, F, C, W, dev)
+    blk_count, blk_off, blk_sum, counts, vsums = _compact_scratch(F, C, dev)
     rc = build().fire_compact(
-        _ptr(acc), _ptr(pane_ids), _ptr(p_f), _ptr(lane_ok), _ptr(table), C,
-        R, k, F, _ptr(blk_count), _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi),
-        _ptr(key_lo), _ptr(values), _ptr(counts), _ptr(vsums), _stream())
+        _ptr(acc), W, OPS[op], float(neutral), _ptr(fresh),
+        F if fresh is None else n_ontime, _ptr(pane_ids), _ptr(p_f),
+        _ptr(lane_ok), _ptr(table), C, R, k, F, _ptr(blk_count),
+        _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi), _ptr(key_lo),
+        _ptr(values), _ptr(counts), _ptr(vsums), _stream())
     _raise_on(rc, "fire_compact")
     fire_compact.launches += 1
     return counts, vsums
 
 
 fire_compact.launches = 0
+
+
+def fire_pack_plain(table, mask, values, lane_ok, out=None):
+    """Plain version of G6's fire_pack: compact a dense fire result (mask
+    bool [F, C], values float32 [F, C, *v]; lanes not ``lane_ok`` emit
+    nothing) into ``out`` = (key_hi, key_lo, values) rows as fire_compact
+    writes them, or, with ``out`` None, count it only. Returns (counts
+    int32 [F], value_sums float32 [F])."""
+    mask = mask & lane_ok[:, None]
+    khi, klo, v, counts, vsums = pack_fire_lanes(table, mask, values)
+    if out is not None:
+        out[0].copy_(khi)
+        out[1].copy_(klo)
+        out[2].copy_(v.reshape(out[2].shape))
+    return counts, vsums
+
+
+def fire_pack(table, mask, values, lane_ok, out=None):
+    """G6 fire_pack: see fire_pack_plain for the contract."""
+    if _on_cpu(mask):
+        return fire_pack_plain(table, mask, values, lane_ok, out)
+    dev = mask.device
+    F, C = mask.shape
+    W = values[0, 0].numel() if F and C else 1
+    if W > MAX_PLANE_W:
+        raise NotImplementedError(f"{W} value elements a row (at most "
+                                  f"{MAX_PLANE_W})")
+    _check(mask, "mask", torch.bool, (F, C), dev)
+    _check(values, "values", torch.float32, (F, C) + values.shape[2:], dev)
+    _check(lane_ok, "lane_ok", torch.bool, (F,), dev)
+    key_hi = key_lo = rows = None
+    if out is not None:
+        key_hi, key_lo, rows = out
+        _check_rows(table, key_hi, key_lo, rows.view(F, C, W) if W > 1
+                    else rows, F, C, W, dev)
+    blk_count, blk_off, blk_sum, counts, vsums = _compact_scratch(F, C, dev)
+    rc = build().fire_pack(
+        _ptr(mask), _ptr(values), W, _ptr(lane_ok), _ptr(table), C, F,
+        _ptr(blk_count), _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi),
+        _ptr(key_lo), _ptr(rows), _ptr(counts), _ptr(vsums), _stream())
+    _raise_on(rc, "fire_pack")
+    fire_pack.launches += 1
+    return counts, vsums
+
+
+fire_pack.launches = 0
 
 # ------------------------------------------------------------ G7
 
@@ -630,12 +896,13 @@ RING_CHUNK = 1024   # lanes per block of G7's and G9's ring scan (ring.cuh)
 
 def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
     """Plain version of G7, in place. ring = (ovf_hi int32 [O], ovf_lo int32
-    [O], ovf_pane int32 [O], ovf_val float32 [O], ovf_n int32 0-d); lost
-    int32 0-d, gains the lanes that find the ring full; mask bool [B];
-    hi/lo int32 [B] (uint32 bits); pane int32 [B]; values float32 [B] or
-    None (a count: every lane contributes 1.0). The masked lanes go, in
-    lane order, to positions ovf_n, ovf_n + 1, ...; those at O or beyond
-    are lost; ovf_n = min(ovf_n + masked lanes, O)."""
+    [O], ovf_pane int32 [O], ovf_val float32 [O] or [O, W], ovf_n int32
+    0-d); lost int32 0-d, gains the lanes that find the ring full; mask
+    bool [B]; hi/lo int32 [B] (uint32 bits); pane int32 [B]; values float32
+    [B] or [B, W] (W value columns), or None (a count: every lane
+    contributes 1.0). The masked lanes go, in lane order, to positions
+    ovf_n, ovf_n + 1, ...; those at O or beyond are lost; ovf_n =
+    min(ovf_n + masked lanes, O)."""
     ovf_hi, ovf_lo, ovf_pane, ovf_val, ovf_n = ring
     O = ovf_hi.shape[0]
     pos = ovf_n.to(torch.int64) + torch.cumsum(mask.to(torch.int64), 0) - 1
@@ -650,16 +917,19 @@ def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
     ovf_n.copy_(torch.clamp_max(ovf_n + n, O))
 
 
-def _check_ring(ring, dev) -> int:
+def _check_ring(ring, dev) -> Tuple[int, int]:
+    """(O, W): the ring's lanes and value columns."""
     ovf_hi, ovf_lo, ovf_pane, ovf_val, ovf_n = ring
     (O,) = ovf_hi.shape
     for t, n, dt in ((ovf_hi, "ovf_hi", torch.int32),
                      (ovf_lo, "ovf_lo", torch.int32),
-                     (ovf_pane, "ovf_pane", torch.int32),
-                     (ovf_val, "ovf_val", torch.float32)):
+                     (ovf_pane, "ovf_pane", torch.int32)):
         _check(t, n, dt, (O,), dev)
+    _check(ovf_val, "ovf_val", torch.float32, (O,) + ovf_val.shape[1:], dev)
+    if ovf_val.dim() > 2:
+        raise ValueError(f"ring values of shape {tuple(ovf_val.shape)}")
     _check(ovf_n, "ovf_n", torch.int32, (), dev)
-    return O
+    return O, (ovf_val.shape[1] if ovf_val.dim() == 2 else 1)
 
 
 def _ring_scratch(n: int, dev):
@@ -678,18 +948,19 @@ def ring_append(ring, lost, mask, hi, lo, pane, values) -> None:
         return ring_append_plain(ring, lost, mask, hi, lo, pane, values)
     dev = mask.device
     (B,) = mask.shape
-    O = _check_ring(ring, dev)
+    O, W = _check_ring(ring, dev)
     _check(lost, "lost", torch.int32, (), dev)
     for t, n, dt in ((mask, "mask", torch.bool), (hi, "hi", torch.int32),
                      (lo, "lo", torch.int32), (pane, "pane", torch.int32)):
         _check(t, n, dt, (B,), dev)
     if values is not None:
-        _check(values, "values", torch.float32, (B,), dev)
+        _check(values, "values", torch.float32,
+               (B,) + tuple(ring[3].shape[1:]), dev)
     if O + B > INT32_MAX:
         raise ValueError(f"ring of {O} lanes + {B} lanes overflows int32")
     blk_count, blk_off = _ring_scratch(B, dev)
     rc = build().ring_append(
-        _ptr(mask), _ptr(hi), _ptr(lo), _ptr(pane), _ptr(values), B, O,
+        _ptr(mask), _ptr(hi), _ptr(lo), _ptr(pane), _ptr(values), W, B, O,
         *_ring_ptrs(ring, lost), _ptr(blk_count), _ptr(blk_off), _stream())
     _raise_on(rc, "ring_append")
     ring_append.launches += 1
@@ -749,86 +1020,100 @@ hash_lookup.launches = 0
 
 # ------------------------------------------------------------ G9
 
-def compact_alive_plain(acc, *, C: int, R: int) -> torch.Tensor:
-    """bool [C]: slots with a touched cell in any of the R ring rows."""
-    return (acc.view(R, C, 2)[:, :, 1] != 0).any(dim=0)
+def compact_alive_plain(acc, *, C: int, R: int, neutral=0.0) -> torch.Tensor:
+    """bool [C]: slots with a touched cell (touch column != ``neutral``) in
+    any of the R ring rows of the packed plane acc [C*R, Wc]."""
+    return (acc.view(R, C, -1)[:, :, -1] != neutral).any(dim=0)
 
 
-def compact_move_plain(acc, slot, ok, *, C: int, R: int) -> torch.Tensor:
-    """A new packed plane [C*R, 2]: each ok slot c's R cells moved to
-    slot[c], the neutral 0 everywhere else."""
-    out = torch.zeros(R, C, 2, dtype=acc.dtype, device=acc.device)
-    out[:, slot[ok].long()] = acc.view(R, C, 2)[:, ok]
-    return out.view(C * R, 2)
+def compact_move_plain(acc, slot, ok, *, C: int, R: int,
+                       neutral=0.0) -> torch.Tensor:
+    """A new packed plane [C*R, Wc]: each ok slot c's R cells moved to
+    slot[c], the ``neutral`` everywhere else."""
+    Wc = acc.shape[1]
+    out = torch.full((R, C, Wc), float(neutral), dtype=acc.dtype,
+                     device=acc.device)
+    out[:, slot[ok].long()] = acc.view(R, C, Wc)[:, ok]
+    return out.view(C * R, Wc)
 
 
 def compact_export_plain(acc, table, pane_ids, alive, ok, ring, lost, *,
-                         C: int, R: int) -> None:
+                         C: int, R: int, neutral=0.0) -> None:
     """The touched cells of alive slots that are not ok, appended to the
-    ring as (key, pane, value) lanes in (row, slot) order (G7's contract;
-    lost lanes count into ``lost``)."""
-    a3 = acc.view(R, C, 2)
-    mask = ((a3[:, :, 1] != 0) & (alive & ~ok)[None, :]).reshape(-1)
+    ring as (key, pane, W values) lanes in (row, slot) order (G7's
+    contract; lost lanes count into ``lost``)."""
+    Wc = acc.shape[1]
+    a3 = acc.view(R, C, Wc)
+    mask = ((a3[:, :, -1] != neutral) & (alive & ~ok)[None, :]).reshape(-1)
     hi, lo = split_words(table)
+    vals = a3[:, :, :-1].reshape(C * R, Wc - 1)
+    if ring[3].dim() == 1:
+        vals = vals[:, 0]
     ring_append_plain(ring, lost, mask, hi.repeat(R), lo.repeat(R),
-                      pane_ids.repeat_interleave(C), a3[:, :, 0].reshape(-1))
+                      pane_ids.repeat_interleave(C), vals)
 
 
 def compact_table_plain(acc, table, pane_ids, ring, lost, *, R: int,
-                        probe_len: int):
-    """Plain version of G9. acc float32 [C*R, 2] packed plane; table int64
-    [C] key words; pane_ids int32 [R]; ring the overflow ring (see
-    ring_append_plain) and lost int32 0-d, both updated in place. The alive
-    slots' keys go into a fresh table (G5's contract); each placed key's
-    cells move to its new slot; the touched cells of keys that find no
-    slot go to the ring. Returns (new acc, new table, slot int32 [C], ok
-    bool [C]): the old -> new slot map, slot C where not ok."""
+                        probe_len: int, neutral=0.0):
+    """Plain version of G9. acc float32 [C*R, Wc] packed plane (touch
+    column ``neutral`` where untouched); table int64 [C] key words;
+    pane_ids int32 [R]; ring the overflow ring (see ring_append_plain;
+    its values [O] or [O, Wc - 1]) and lost int32 0-d, both updated in
+    place. The alive slots' keys go into a fresh table (G5's contract);
+    each placed key's cells move to its new slot; the touched cells of keys
+    that find no slot go to the ring. Returns (new acc, new table, slot
+    int32 [C], ok bool [C]): the old -> new slot map, slot C where not
+    ok."""
     C = table.shape[0]
-    alive = compact_alive_plain(acc, C=C, R=R)
+    alive = compact_alive_plain(acc, C=C, R=R, neutral=neutral)
     new_table = torch.full_like(table, EMPTY_WORD)
     hi, lo = split_words(table)
     slot, ok, _ = hash_upsert_plain(new_table, hi, lo, alive,
                                     probe_len=probe_len)
-    new_acc = compact_move_plain(acc, slot, ok, C=C, R=R)
+    new_acc = compact_move_plain(acc, slot, ok, C=C, R=R, neutral=neutral)
     compact_export_plain(acc, table, pane_ids, alive, ok, ring, lost, C=C,
-                         R=R)
+                         R=R, neutral=neutral)
     return new_acc, new_table, slot, ok
 
 
 def compact_table(acc, table, pane_ids, ring, lost, *, R: int,
-                  probe_len: int):
+                  probe_len: int, neutral=0.0):
     """G9: see compact_table_plain for the contract. The re-insert is a G5
     ``hash_upsert`` launch; a contested slot may go to another key than in
     the plain version, so the two agree as sets (see hash_upsert_plain)."""
     if _on_cpu(acc):
         return compact_table_plain(acc, table, pane_ids, ring, lost, R=R,
-                                   probe_len=probe_len)
+                                   probe_len=probe_len, neutral=neutral)
     dev = acc.device
     (C,) = table.shape
-    _check(acc, "acc", torch.float32, (C * R, 2), dev)
+    Wc = acc.shape[1]
+    _check(acc, "acc", torch.float32, (C * R, Wc), dev)
     _check(table, "table", torch.int64, (C,), dev)
     _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
-    O = _check_ring(ring, dev)
+    O, W = _check_ring(ring, dev)
+    if W != Wc - 1:
+        raise ValueError(f"ring of {W} value columns, plane of {Wc - 1}")
     _check(lost, "lost", torch.int32, (), dev)
     if O + C * R > INT32_MAX:
         raise ValueError(f"ring of {O} lanes + {C * R} cells overflows int32")
     lib = build()
     alive = torch.empty(C, dtype=torch.bool, device=dev)
-    _raise_on(lib.compact_alive(_ptr(acc), C, R, _ptr(alive), _stream()),
-              "compact_table (alive)")
+    nt = float(neutral)
+    _raise_on(lib.compact_alive(_ptr(acc), Wc, nt, C, R, _ptr(alive),
+                                _stream()), "compact_table (alive)")
     new_table = torch.full_like(table, EMPTY_WORD)
     hi, lo = split_words(table)
     slot, ok, _ = hash_upsert(new_table, hi, lo, alive, probe_len=probe_len)
     inv = torch.full((C,), -1, dtype=torch.int32, device=dev)
     new_acc = torch.empty_like(acc)
-    _raise_on(lib.compact_move(_ptr(acc), _ptr(slot), _ptr(ok), C, R,
+    _raise_on(lib.compact_move(_ptr(acc), Wc, nt, _ptr(slot), _ptr(ok), C, R,
                                _ptr(inv), _ptr(new_acc), _stream()),
               "compact_table (move)")
     blk_count, blk_off = _ring_scratch(C * R, dev)
     _raise_on(lib.compact_export(
-        _ptr(acc), _ptr(alive), _ptr(ok), _ptr(table), _ptr(pane_ids), C, R,
-        O, *_ring_ptrs(ring, lost), _ptr(blk_count), _ptr(blk_off),
-        _stream()), "compact_table (export)")
+        _ptr(acc), Wc, nt, _ptr(alive), _ptr(ok), _ptr(table),
+        _ptr(pane_ids), C, R, O, *_ring_ptrs(ring, lost), _ptr(blk_count),
+        _ptr(blk_off), _stream()), "compact_table (export)")
     compact_table.launches += 1
     return new_acc, new_table, slot, ok
 
@@ -905,7 +1190,7 @@ def seg_scan_plain(flags, values, op):
     n = v.shape[0]
     off = 1
     while off < n:
-        nv = torch.where(f[off:], v[off:], op(v[:-off], v[off:]))
+        nv = torch.where(_expand(f[off:], v), v[off:], op(v[:-off], v[off:]))
         f = torch.cat([f[:off], f[off:] | f[:-off]])
         v = torch.cat([v[:off], nv])
         off *= 2
@@ -1413,10 +1698,179 @@ def sketch_fire(acc, touched, pane_ids, p_f, lane_ok, table, out, *, C: int,
 
 sketch_fire.launches = 0
 
-KERNELS = (route_lanes, clear_rows, scatter_update, fire_reduced,
-           hash_upsert, fire_compact, ring_append, hash_lookup,
-           compact_table, segment_sort, session_update, count_update,
-           rolling_update, sketch_update, sketch_fire)
+# ------------------------------------------------------------ G16
+
+class WindowLanes(NamedTuple):
+    """The lane-order half of a generic window update that G16's rep_set
+    does beside its set: the lanes' pane, key group, liveness and slot (C
+    for none), the ring horizon (max_pane, already advanced), and the
+    state it updates in place — kg_dirty (bool [G] or None), the drop
+    counter, and with allowed lateness the fresh plane, fired_through and
+    n_fresh (else None)."""
+
+    pane: torch.Tensor
+    kg: torch.Tensor
+    live: torch.Tensor
+    slot: torch.Tensor
+    max_pane: torch.Tensor
+    kg_dirty: Optional[torch.Tensor]
+    dropped_capacity: torch.Tensor
+    fresh: Optional[torch.Tensor] = None
+    fired_through: Optional[torch.Tensor] = None
+    n_fresh: Optional[torch.Tensor] = None
+
+
+def rep_gather_plain(order, key_s, values, acc, touched, neutral):
+    """Plain version of G16's rep_gather. order int32 [B] and key_s int64
+    [B] from G10 (key_s the lane's row of acc, N = acc rows for a dead
+    lane); values float32 [B, *v] in lane order; acc float32 [N, *v] rows
+    and touched bool [N]; ``neutral`` a float or a [*v] array. Returns, in
+    sorted order, (v_s [B, *v]: each lane's value, the neutral in dead
+    lanes; old [B, *v]: its row of acc, the neutral in dead lanes; old_t
+    bool [B]: its row's touched bit, False in dead lanes)."""
+    N = acc.shape[0]
+    o = order.long()
+    live = key_s < N
+    safe = torch.where(live, key_s, 0)
+    fill = torch.as_tensor(neutral, dtype=acc.dtype, device=acc.device)
+    v = values[o]
+    v_s = torch.where(_expand(live, v), v, fill)
+    old = torch.where(_expand(live, v), acc[safe], fill)
+    return v_s, old, live & touched[safe]
+
+
+def rep_gather(order, key_s, values, acc, touched, neutral):
+    """G16 rep_gather: see rep_gather_plain for the contract."""
+    if _on_cpu(acc):
+        return rep_gather_plain(order, key_s, values, acc, touched, neutral)
+    dev = acc.device
+    (B,) = order.shape
+    N = acc.shape[0]
+    W = acc[0].numel() if N else 1
+    _check(order, "order", torch.int32, (B,), dev)
+    _check(key_s, "key_s", torch.int64, (B,), dev)
+    _check(values, "values", torch.float32, (B,) + acc.shape[1:], dev)
+    _check(acc, "acc", torch.float32, None, dev)
+    _check(touched, "touched", torch.bool, (N,), dev)
+    fill = _pattern(neutral, W, dev)
+    if fill.numel() != W:
+        fill = fill.expand(W).contiguous()
+    v_s = torch.empty_like(values)
+    old = torch.empty_like(values)
+    old_t = torch.empty(B, dtype=torch.bool, device=dev)
+    rc = build().rep_gather(
+        _ptr(order), _ptr(key_s), _ptr(values), _ptr(acc), _ptr(touched),
+        _ptr(fill), B, W, N, _ptr(v_s), _ptr(old), _ptr(old_t), _stream())
+    _raise_on(rc, "rep_gather")
+    rep_gather.launches += 1
+    return v_s, old, old_t
+
+
+rep_gather.launches = 0
+
+
+def rep_set_plain(acc, touched, order, key_s, seg_start, merged, *,
+                  out=None, lanes: Optional[WindowLanes] = None,
+                  C: int = 0, R: int = 0) -> None:
+    """Plain version of G16's rep_set, in place. acc float32 [N, *v] rows,
+    touched bool [N]; order, key_s, seg_start from G10 (key_s N for a dead
+    lane); merged float32 [B, *v] in sorted order. Each live segment's last
+    lane writes its merged value to its row and sets the row's touched bit.
+    ``out`` (float32 [B, *v]) receives every sorted lane's merged value at
+    its lane-order position. ``lanes`` (WindowLanes, in lane order, with the
+    plane's C and R) adds a window update's bookkeeping: too-old lanes and
+    live lanes with no slot count into dropped_capacity, the surviving
+    lanes mark kg_dirty, and with a fresh plane a placed lane whose pane is
+    at or before fired_through sets its cell's flag and adds one to
+    n_fresh."""
+    N = acc.shape[0]
+    rep = _seg_end(seg_start) & (key_s < N)
+    acc[key_s[rep]] = merged[rep]
+    touched[key_s[rep]] = True
+    if out is not None:
+        out[order.long()] = merged
+    if lanes is None:
+        return
+    pane, kg, live, slot, max_pane, kg_dirty, dropped, fresh, fired, n_fr = \
+        lanes
+    too_old = live & (pane < max_pane - (R - 1))
+    live = live & ~too_old
+    if kg_dirty is not None:
+        kg_dirty[kg[live].long()] = True
+    ok = live & (slot >= 0) & (slot < C)
+    dropped.add_((too_old.sum() + (live & ~ok).sum()).to(torch.int32))
+    if fresh is not None:
+        late = ok & (pane <= fired)
+        flat = torch.remainder(pane.long(), R) * C + slot.long()
+        fresh[flat[late]] = True
+        n_fr.add_(late.sum().to(torch.int32))
+
+
+def rep_set(acc, touched, order, key_s, seg_start, merged, *, out=None,
+            lanes: Optional[WindowLanes] = None, C: int = 0,
+            R: int = 0) -> None:
+    """G16 rep_set: see rep_set_plain for the contract."""
+    if _on_cpu(acc):
+        return rep_set_plain(acc, touched, order, key_s, seg_start, merged,
+                             out=out, lanes=lanes, C=C, R=R)
+    dev = acc.device
+    (B,) = order.shape
+    N = acc.shape[0]
+    W = acc[0].numel() if N else 1
+    _check(acc, "acc", torch.float32, None, dev)
+    _check(touched, "touched", torch.bool, (N,), dev)
+    _check(order, "order", torch.int32, (B,), dev)
+    _check(key_s, "key_s", torch.int64, (B,), dev)
+    _check(seg_start, "seg_start", torch.bool, (B,), dev)
+    _check(merged, "merged", torch.float32, (B,) + acc.shape[1:], dev)
+    if out is not None:
+        _check(out, "out", torch.float32, (B,) + acc.shape[1:], dev)
+    ln = [None] * 10
+    if lanes is not None:
+        if C * R != N:
+            raise ValueError(f"plane of {N} rows for C = {C}, R = {R}")
+        for t, n, dt in ((lanes.pane, "pane", torch.int32),
+                         (lanes.kg, "kg", torch.int32),
+                         (lanes.live, "live", torch.bool),
+                         (lanes.slot, "slot", torch.int32)):
+            _check(t, n, dt, (B,), dev)
+        _check(lanes.max_pane, "max_pane", torch.int32, (), dev)
+        _check(lanes.dropped_capacity, "dropped_capacity", torch.int32, (),
+               dev)
+        if lanes.fresh is not None:
+            _check(lanes.fresh, "fresh", torch.bool, (N,), dev)
+            _check(lanes.fired_through, "fired_through", torch.int32, (),
+                   dev)
+            _check(lanes.n_fresh, "n_fresh", torch.int32, (), dev)
+        ln = list(lanes)
+    pane, kg, live, slot, max_pane, kg_dirty, dropped, fresh, fired, n_fr = ln
+    rc = build().rep_set(
+        _ptr(acc), _ptr(touched), W, N, _ptr(order), _ptr(key_s),
+        _ptr(seg_start), _ptr(merged), B, _ptr(out), _ptr(pane), _ptr(kg),
+        _ptr(live), _ptr(slot), _ptr(max_pane), C, R, _ptr(kg_dirty),
+        _ptr(dropped), _ptr(fresh), _ptr(fired), _ptr(n_fr), _stream())
+    _raise_on(rc, "rep_set")
+    rep_set.launches += 1
+
+
+rep_set.launches = 0
+
+KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
+           fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
+           hash_lookup, compact_table, segment_sort, session_update,
+           count_update, rolling_update, sketch_update, sketch_fire,
+           rep_gather, rep_set)
+
+
+# wrappers whose kernel lives in another wrapper's source
+_SHARED_SOURCE = {"fresh_rows": "clear_rows.cu",
+                  "fire_pack": "fire_compact.cu",
+                  "rep_gather": "rep_update.cu", "rep_set": "rep_update.cu"}
+
+
+def source_of(fn) -> str:
+    """The file under csrc/ that holds a wrapper's kernel."""
+    return _SHARED_SOURCE.get(fn.__name__, f"{fn.__name__}.cu")
 
 
 def reset_launch_counts() -> None:

@@ -15,8 +15,16 @@ for lanes with no slot, so they sort last in lane order — the reference's
 32) | (ts ^ 0x80000000)`` and ``C << 32`` for dead lanes, one sort in
 place of the reference's two stable sorts (``_lexsort_slot_ts``).
 
-``preaggregate``, ``scatter_combine`` and ``grouped_reduce`` have no
-caller on the port's paths yet (ROADMAP queue 1, item 3).
+``preaggregate`` is the reference's pre-aggregation of a batch by
+segment under a general associative combine, merged with each segment's
+old accumulator: the generic window reduce and ``KeyedStream.reduce`` run
+on it. The sort is G10, the gathers around the combine are G16's
+``rep_gather``, and the combine itself — the user's torch function — runs
+as torch ops over a log-step (Hillis-Steele) segmented scan, the one step
+of the port with no hand kernel. The reference's float ``scatter_combine``
+min and max are G3's (``ops/cuda.py`` ``scatter_update``, its plain
+version ``_scatter_combine_rows``). ``grouped_reduce`` (the batch DataSet
+and Table path) is not ported yet (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -80,6 +88,31 @@ def reduce_sorted(order, valid_s, seg_start, values, combine: Callable,
     v = values[order]
     v = torch.where(valid_s, v, torch.as_tensor(neutral, dtype=v.dtype))
     return segmented_reduce_sorted(v, seg_start, combine)
+
+
+def preaggregate(key: torch.Tensor, values: torch.Tensor, acc: torch.Tensor,
+                 touched: torch.Tensor, neutral, combine: Callable,
+                 n_rows: int):
+    """The reference's ``preaggregate`` (ops/segment.py:131) and the
+    gather-combine of its generic update (window_kernels.py:916-927) and
+    rolling reduce (rolling.py:54-110): lanes whose ``key`` (int64 [B], a
+    row of ``acc`` in [0, n_rows), ``n_rows`` for a dead lane) is equal
+    form a segment. G10 sorts them stably by key; G16's rep_gather gathers
+    each sorted lane's value (``values`` [B, *v], the ``neutral`` in dead
+    lanes) and its row's old value and touched bit; ``combine`` scans each
+    segment in lane order (an inclusive segmented scan) and merges the old
+    value of a touched row in front: ``combine(old, prefix)``. Returns
+    (order int32 [B], key_s int64 [B], seg_start bool [B], merged float32
+    [B, *v]): every sorted lane's running value, its segment's last lane
+    the segment's total, for G16's rep_set."""
+    order, key_s, seg_start = kernels.segment_sort(
+        key, bits=_bits(n_rows), seg_shift=0)
+    v_s, old, old_t = kernels.rep_gather(order, key_s, values, acc, touched,
+                                         neutral)
+    prefix = segmented_reduce_sorted(v_s, seg_start, combine)
+    merged = torch.where(kernels._expand(old_t, old), combine(old, prefix),
+                         prefix)
+    return order, key_s, seg_start, merged.to(acc.dtype).contiguous()
 
 
 def sort_slots(slot: torch.Tensor, live: torch.Tensor, capacity: int):

@@ -2,8 +2,9 @@
 the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
-event-time window -> sum | count | distinct_count | count_min -> sinks``
-with allowed lateness 0 and no checkpointing:
+event-time window [-> allowed_lateness] -> sum | count | min | max | mean |
+reduce | aggregate | distinct_count | count_min -> sinks`` with no
+checkpointing:
 
   1. poll the source (columnar batches of ``execution.micro-batch-size``);
   2. encode keys to 64-bit identities (``KeyCodec``), split (hi, lo);
@@ -25,6 +26,23 @@ with allowed lateness 0 and no checkpointing:
      ``WindowResult(key, window_end_ms, value)`` rows, keys decoded;
   8. at end of stream, flush with the MAX watermark.
 
+``mean`` and ``aggregate`` carry a result projection (``result_fn``): the
+reference divides, or calls the AggregateFunction's ``get_result``, on the
+host at emit, after the spill merge; the port does the same, so their
+sinks get rows (never the device-reduced aggregates).
+
+Allowed lateness L > 0 (``allowed_lateness``; the reference's, executor.py
+:1847-1868, 5432): the pane ring grows by L / slide panes, the spill tier
+is off (strict capacity: the host stores carry no freshness, so they
+cannot replay a re-fire), and the auto layout resolves to hash. Every
+batch drains alone and fires with the classic advance — F on-time lanes,
+then up to F re-fires of windows a late record reached, each re-emitting
+only those keys with the window's corrected value — and the executor then
+fires eagerly at the batch's watermark until a step fills fewer than F
+lanes of either kind, before the next batch: the reference's split path
+with ``drain_fires`` every cycle. Records beyond the lateness count into
+``dropped_late``.
+
 A sketch stage (``distinct_count``: HyperLogLog; ``count_min``: Count-Min,
 ``ops/sketches.py``) hashes each record's item on the host (the stage's
 ``value_prep``, as the reference does at executor.py:5472) and stages the
@@ -39,7 +57,9 @@ registers) or HyperLogLog's float32 estimate: a columnar sink gets a
 ``WindowResult(key, window_end_ms, value)`` with the value as a list (or
 a float), as the reference emits them.
 
-The spill tier (the reference's, executor.py:4609-4840, 5040-5080): a
+The spill tier (the reference's, executor.py:4609-4840, 5040-5080), for
+the builtin float32 reduces of at most one value dimension (sum, count,
+min, max, mean) at allowed lateness 0: a
 record whose key finds no state slot (a key past capacity in the direct
 layout, a full probe chain in the hash layout) goes to the device overflow
 ring, auto-sized as the reference sizes it unless
@@ -49,10 +69,11 @@ fires; when it is above 0, the host reads the ring and folds it into one
 ``SpillStore`` per pane — slot by slot, each slot's share before that
 slot's fires are emitted, so a window merges exactly the records that
 reached the card before it fired — and merges the stores into every row
-it emits: a key on both sides is combined, a key only in the stores adds
-a row. It then compacts a hash table (the dead keys' slots are freed; a
-live key that no longer fits moves its state to the ring, which is read
-again) and drops the stores of purged panes. With a ring and a hash
+it emits by the reduce's host combine (``HOST_REDUCE``: add, minimum or
+maximum, column by column): a key on both sides is combined, a key only
+in the stores adds a row. It then compacts a hash table (the dead keys'
+slots are freed; a live key that no longer fits moves its state to the
+ring, which is read again) and drops the stores of purged panes. With a ring and a hash
 table, the executor also tiers its steps as the reference does: the
 insert drain while new keys are placed, the lookup-only fast drain
 (G8) once two drains in a row placed none, back on a miss.
@@ -68,12 +89,12 @@ more panes than the ring can hold is cut into pane groups that fire
 between them, and a jump of two or more panes between polls fires the
 windows it would otherwise evict first — both as the reference does.
 
-Rolling reduces (``key_by(...).sum(...)``), count windows
-(``count_window(n)``) and event-time session windows go to the runners of
-``runtime/keyed_jobs.py``. Anything else — another topology, processing
-time, allowed lateness, checkpoints, parallelism above 1, an operator
-after the stage — raises NotImplementedError naming the ROADMAP queue
-item that brings it.
+Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
+windows (``count_window(n)``) and event-time session windows go to the
+runners of ``runtime/keyed_jobs.py``. Anything else — another topology,
+processing time, checkpoints, parallelism above 1, an operator after the
+stage, a reduce other than sum or count over session and count windows —
+raises NotImplementedError naming the ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -119,6 +140,14 @@ SessionResult = keyed_jobs.SessionResult
 # sizes the ring by the same formula.
 MON_EVERY = 8
 OVF_LAG = 1
+# builtin reduce kinds the spill tier merges on the host: kind ->
+# (accumulating numpy ufunc, neutral element), the reference's _HOST_REDUCE
+HOST_REDUCE = {
+    "sum": (np.add, 0.0),
+    "count": (np.add, 0.0),
+    "min": (np.minimum, np.inf),
+    "max": (np.maximum, -np.inf),
+}
 # consecutive drains that placed no key before the insert step gives way
 # to the lookup-only fast step
 TIER_QUIET_CHECKS = 2
@@ -214,8 +243,6 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
         raise _unsupported("an element-mode (non-columnar) source",
                            "ROADMAP queue 1, item 6")
     if pipe.rolling is not None:
-        if pipe.rolling.result_fn is not None:
-            raise _unsupported("result projections", "ROADMAP queue 1, item 9")
         return pipe
     wagg = pipe.window_agg
     assigner = wagg.assigner
@@ -235,14 +262,22 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             or wagg.window_fn is not None or wagg.reduce_spec_factory is None:
         raise _unsupported("custom triggers, evictors and window functions",
                            "ROADMAP queue 1, item 9")
-    if wagg.result_fn is not None:
-        raise _unsupported("result projections", "ROADMAP queue 1, item 9")
     if wagg.value_prep is not None \
             and not isinstance(assigner, WindowAssigner):
         raise _unsupported("sketches over session and count windows",
                            "ROADMAP queue 1, item 9")
-    if wagg.allowed_lateness_ms:
-        raise _unsupported("allowed lateness", "ROADMAP queue 2, K11")
+    if not isinstance(assigner, WindowAssigner):
+        kind = wagg.reduce_spec_factory().kind
+        if kind not in ("sum", "count", "sketch"):
+            raise _unsupported(f"{kind} reduces over session and count "
+                               f"windows", "ROADMAP queue 1, item 9")
+        if wagg.result_fn is not None or wagg.allowed_lateness_ms:
+            raise _unsupported("result projections and allowed lateness "
+                               "over session and count windows",
+                               "ROADMAP queue 1, item 9")
+    if wagg.allowed_lateness_ms and wagg.value_prep is not None:
+        raise _unsupported("allowed lateness on sketch windows",
+                           "ROADMAP queue 1, item 9")
     return pipe
 
 
@@ -301,10 +336,10 @@ def _check_config(cfg, red: wk.ReduceSpec) -> None:
         v = cfg.get_str(key, "auto")
         if v not in allowed:
             raise ValueError(f"{key} must be {'|'.join(allowed)}, got {v!r}")
-    if red.kind == "sketch" and cfg.get_str("state.packed-planes",
-                                            "auto") == "on":
-        # the reference's check (executor.py:1756-1761); a sketch keeps
-        # split planes whatever the knob says otherwise
+    if not wk.packed_eligible(red) and cfg.get_str("state.packed-planes",
+                                                   "auto") == "on":
+        # the reference's check (executor.py:1756-1761); a generic reduce
+        # or a sketch keeps split planes whatever the knob says otherwise
         raise ValueError(
             "state.packed-planes=on requires a builtin sum/count/min/max "
             "reduce with the default neutral and an at-most-1-D value; "
@@ -339,26 +374,30 @@ class _WindowJob(StageJob):
             else WatermarkStrategy.for_monotonous_timestamps()
         )
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
-        # the spill tier needs a reduce the host can combine (not a
-        # sketch); every other precondition of the reference's (float32
-        # scalar values, allowed lateness 0, one stage) holds for each job
-        # this port runs
-        self.spillable = wk.overflow_supported(self.red)
+        self.lateness_ms = pipe.window_agg.allowed_lateness_ms
+        self.result_fn = pipe.window_agg.result_fn
+        # the spill tier (executor.py:1857-1868): a reduce the host can
+        # combine, float32 values of at most one dimension, and allowed
+        # lateness 0 (the host stores carry no freshness for a re-fire)
+        self.spillable = (wk.overflow_supported(self.red)
+                          and self.red.dtype == torch.float32
+                          and len(self.red.value_shape) <= 1
+                          and self.lateness_ms == 0)
         self.ovf_cfg = cfg.get_int("state.backend.overflow-ring", -1)
         if self.ovf_cfg > 0 and not self.spillable:
             raise ValueError(
                 "state.backend.overflow-ring is set but this window stage "
                 "cannot use the spill tier (requires a builtin float32 "
-                "sum/count reduce and allowed lateness 0); unset it to run "
-                "with strict capacity")
+                "sum/count/min/max reduce without finalize and allowed "
+                "lateness 0); unset it to run with strict capacity")
         self.has_ring = self.spillable and self.ovf_cfg != 0
         # the reference's emit modes (executor.py:2104-2108, 5025-5035):
         # the drains reduce on the device only when every sink wants only
         # aggregates and the stage has no overflow ring (a spill merge needs
         # per-key rows); else rows — columnar when every sink takes
         # columns, else WindowResult rows
-        self.sink_device_reduce = all(getattr(s, "device_reduce", False)
-                                      for s in pipe.sinks)
+        self.sink_device_reduce = self.result_fn is None and all(
+            getattr(s, "device_reduce", False) for s in pipe.sinks)
         self.reduced = self.sink_device_reduce and not self.has_ring
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
@@ -372,6 +411,10 @@ class _WindowJob(StageJob):
         self.applied_max_pane: Optional[int] = None
         # the spill tier's host half: pane -> SpillStore of key -> value
         self.stores: Dict[int, SpillStore] = {}
+        self.host_ufunc, self.host_neutral = HOST_REDUCE.get(
+            self.red.kind, (None, None))
+        self.ovf_w = max(1, int(np.prod(self.red.value_shape,
+                                        dtype=np.int64)))
         # step tiering (executor.py:1796-1810, 4674-4722)
         self.step_mode = "insert"
         self.tier_quiet = 0          # consecutive drains that placed no key
@@ -392,8 +435,8 @@ class _WindowJob(StageJob):
                 f"= {ppw + 3}); raise it or unset it to use the auto-sized "
                 f"ring")
         ring = ring_cfg or max(
-            8, 2 * ppw + self.wm_strategy.out_of_orderness_ms // self.slide_ms
-            + 2)
+            8, 2 * ppw + (self.wm_strategy.out_of_orderness_ms
+                          + self.lateness_ms) // self.slide_ms + 2)
         # overflow ring (executor.py:1854-1900): unset (-1) = auto, sized to
         # absorb the full-batch overflow of the lagged detection window;
         # 0 = none; an explicit size wins
@@ -415,15 +458,17 @@ class _WindowJob(StageJob):
         win = wk.WindowSpec(
             size_ticks=self.size_ms, slide_ticks=self.slide_ms, ring=ring,
             fires_per_step=cfg.get_int("window.fires-per-step", 4),
-            overflow=ovf,
+            lateness_ticks=self.lateness_ms, overflow=ovf,
         )
         self.td = TimeDomain(origin_ms=origin_ms, ms_per_tick=1)
         self.spec = WindowStageSpec(
             win=win, red=self.red, capacity_per_shard=capacity,
             layout=layout, probe_len=cfg.get_int("state.probe-len", 16))
         self.state = init_shard_state(self.spec, self.maxp, self.device)
-        self.ring = DeviceBatchRing(self.depth, self.B, self.device,
-                                    value_dtype=self.red.dtype)
+        self.ring = DeviceBatchRing(
+            self.depth, self.B, self.device, value_dtype=self.red.dtype,
+            value_shape=(() if self.red.kind == "sketch"
+                         else self.red.value_shape))
         self.drain = build_window_resident_drain(
             self.spec, self.depth, self.maxp, reduced=self.reduced)
         if ovf and layout == "hash":
@@ -504,7 +549,9 @@ class _WindowJob(StageJob):
         self.staged += 1
         self.staged_wm.append(wm_ms)
         self.metrics.steps += 1
-        if self.staged == self.depth:
+        # with lateness every batch fires eagerly (the next batch's update
+        # must see the re-fires of this one done), so it drains alone
+        if self.staged == self.depth or self.lateness_ms:
             self.dispatch()
 
     # -- drains and fires --------------------------------------------------
@@ -539,17 +586,23 @@ class _WindowJob(StageJob):
             return
         fires, count, last_wm, mon = self.pending
         self.pending = None
-        n_now = self.emit(fires, mon)
-        if int(n_now[count - 1]) == self.spec.win.fires_per_step:
+        lanes = self.emit(fires, mon)
+        # with lateness the reference fires eagerly after every drain
+        if self.lateness_ms or self.lanes_full(lanes[count - 1]):
             self.fire_until_done(last_wm)
+
+    def lanes_full(self, lanes) -> bool:
+        """Did an advance fill all F on-time lanes, or all F re-fire lanes
+        (backlog may remain)?"""
+        F = self.spec.win.fires_per_step
+        return lanes[:F].sum() == F or lanes[F:].sum() == F
 
     def fire_until_done(self, wm_ms: int) -> None:
         """Watermark-only advances at ``wm_ms`` until an advance fills fewer
-        than F lanes (the reference's drain_fires)."""
+        than F lanes of either kind (the reference's drain_fires)."""
         self.consume()
         wm = torch.tensor(self.wm_ticks(wm_ms), dtype=torch.int32,
                           device=self.device)
-        F = self.spec.win.fires_per_step
         # compact rows go to the drain's arena slot 0: every drain's rows
         # were read by the consume above. The ring was drained there too,
         # so whether the stores exist is fixed for the loop
@@ -560,15 +613,15 @@ class _WindowJob(StageJob):
             self.state, fires = fire_only(self.state, self.spec, wm,
                                           reduced=reduced, out=out)
             self.metrics.fire_steps += 1
-            if int(self.emit(fires).reshape(-1)[0]) < F:
+            if not self.lanes_full(self.emit(fires)[0]):
                 return
 
     def emit(self, fires, mon=None) -> np.ndarray:
-        """Emit one [D, F] (or [F]) fire payload with one device->host read
-        of its small fields — with a drain's, also its ``mon``: the ring's
-        fill after each slot and the drain's activity — and, when rows are
-        needed, one more of the row prefixes and one of the ring. Returns
-        n_fires per slot."""
+        """Emit one [D, Ft] (or [Ft]) fire payload with one device->host
+        read of its small fields — with a drain's, also its ``mon``: the
+        ring's fill after each slot and the drain's activity — and, when
+        rows are needed, one more of the row prefixes and one of the ring.
+        Returns the lanes that fired, bool [D, Ft]."""
         st = self.state
         n_slots = fires.n_fires.numel()
         if mon is None:
@@ -587,8 +640,7 @@ class _WindowJob(StageJob):
             fires.window_end_ticks.reshape(-1).to(torch.float64),
             fires.value_sums.reshape(-1).to(torch.float64),
         ]).cpu().numpy()
-        F = self.spec.win.fires_per_step
-        n_now = small[:n_slots].astype(np.int64)
+        F = self.spec.win.fire_lanes
         purged_through = int(small[n_slots])
         act = int(small[n_slots + 1])
         at = n_slots + 2
@@ -618,7 +670,7 @@ class _WindowJob(StageJob):
         if n_ring:
             self.after_ring_drain()
         self.prune_stores(purged_through)
-        return n_now
+        return lanes
 
     def emit_rows(self, fires: wk.CompactFires, counts: np.ndarray,
                   lanes: np.ndarray, ends: np.ndarray, fills: np.ndarray,
@@ -666,12 +718,18 @@ class _WindowJob(StageJob):
             if self.stores and due:
                 if cols is None:
                     cols = [np.zeros(0, np.uint32), np.zeros(0, np.uint32),
-                            np.zeros(0, np.float32), np.zeros(0, np.int64)]
+                            np.zeros((0,) + v_shape, np.float32),
+                            np.zeros(0, np.int64)]
                 cols = self.merge_spill(*cols, due)
             if cols is not None and len(cols[2]):
                 self.emit_slot(*cols)
 
     def emit_slot(self, khi, klo, values, end_ms) -> None:
+        """Hand one slot's rows to the sinks, values through the stage's
+        result projection (mean's divide, an AggregateFunction's
+        get_result) when it has one."""
+        if self.result_fn is not None:
+            values = np.asarray(self.result_fn(values))
         n = len(values)
         self.metrics.fires += n
         if self.columnar:
@@ -711,31 +769,36 @@ class _WindowJob(StageJob):
 
     def read_ring(self, n: int):
         """The ring's first ``n`` lanes as host arrays (key word uint64,
-        pane int64, value float32), in one read."""
+        pane int64, values float32 [n, W]), in one read."""
         st = self.state
+        W = self.ovf_w
         raw = torch.cat([st.ovf_hi[:n], st.ovf_lo[:n], st.ovf_pane[:n],
-                         st.ovf_val[:n].view(torch.int32)]).cpu().numpy()
-        hi, lo, pane, val = raw.reshape(4, n)
+                         st.ovf_val[:n].reshape(-1).view(torch.int32)]
+                        ).cpu().numpy()
+        hi, lo, pane = raw[:3 * n].reshape(3, n)
+        val = raw[3 * n:].view(np.float32).reshape(n, W)
         k64 = (hi.view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
             lo.view(np.uint32).astype(np.uint64)
-        return k64, pane.astype(np.int64), val.view(np.float32)
+        return k64, pane.astype(np.int64), val
 
     def fold_ring(self, k64, panes, vals) -> None:
-        """Fold ring lanes into the per-pane stores (the reference's
-        _merge_ring_into_stores): each pane's contributions summed per key
-        in lane order, then added to what the store holds."""
+        """Fold ring lanes (values [n, W]) into the per-pane stores (the
+        reference's _merge_ring_into_stores): each pane's contributions
+        combined per key by the host ufunc from its neutral, then combined
+        with what the store holds."""
         self.metrics.spilled_records += len(k64)
+        ufunc, W = self.host_ufunc, self.ovf_w
         for p in np.unique(panes):
             sel = panes == p
             uk, inv = np.unique(k64[sel], return_inverse=True)
-            agg = np.zeros(len(uk), np.float32)
-            np.add.at(agg, inv, vals[sel])
+            agg = np.full((len(uk), W), self.host_neutral, np.float32)
+            ufunc.at(agg, inv, vals[sel].reshape(-1, W))
             store = self.stores.get(int(p))
             if store is None:
                 store = self.stores[int(p)] = SpillStore(
-                    width=1, initial_capacity=1024)
+                    width=W, initial_capacity=1024)
             old, found = store.get(uk)
-            store.put(uk, np.where(found, old[:, 0] + agg, agg))
+            store.put(uk, np.where(found[:, None], ufunc(old, agg), agg))
         self.metrics.spill_peak_keys = max(
             self.metrics.spill_peak_keys,
             sum(len(s) for s in self.stores.values()))
@@ -760,8 +823,9 @@ class _WindowJob(StageJob):
     def spill_window_contrib(self, end_pane: int):
         """The stores' combined contributions to the window ending at pane
         ``end_pane`` (its k panes): (sorted unique keys uint64, values
-        float32)."""
+        float32 [n, W])."""
         k = self.spec.win.panes_per_window
+        W = self.ovf_w
         ks_l, vs_l = [], []
         for q in range(end_pane - k + 1, end_pane + 1):
             store = self.stores.get(q)
@@ -769,12 +833,12 @@ class _WindowJob(StageJob):
                 continue
             ks, vs = store.dump()
             ks_l.append(ks)
-            vs_l.append(vs[:, 0])
+            vs_l.append(vs)
         if not ks_l:
-            return np.zeros(0, np.uint64), np.zeros(0, np.float32)
+            return np.zeros(0, np.uint64), np.zeros((0, W), np.float32)
         uk, inv = np.unique(np.concatenate(ks_l), return_inverse=True)
-        agg = np.zeros(len(uk), np.float32)
-        np.add.at(agg, inv, np.concatenate(vs_l))
+        agg = np.full((len(uk), W), self.host_neutral, np.float32)
+        self.host_ufunc.at(agg, inv, np.concatenate(vs_l))
         return uk, agg
 
     def merge_spill(self, khi, klo, values, end_ms, due_end_ticks):
@@ -785,7 +849,9 @@ class _WindowJob(StageJob):
         slide = self.spec.win.slide_ticks
         k64 = (khi.astype(np.uint64) << np.uint64(32)) | klo.astype(
             np.uint64)
-        v = values.astype(np.float32, copy=True)
+        v_shape = values.shape[1:]
+        v = values.reshape(len(values), self.ovf_w).astype(np.float32,
+                                                           copy=True)
         add = []
         for e_ticks in due_end_ticks:
             uk, uv = self.spill_window_contrib(e_ticks // slide - 1)
@@ -795,7 +861,7 @@ class _WindowJob(StageJob):
             sel = np.nonzero(end_ms == e_ms)[0]
             pos = np.minimum(np.searchsorted(uk, k64[sel]), len(uk) - 1)
             hit = uk[pos] == k64[sel]
-            v[sel[hit]] += uv[pos[hit]]
+            v[sel[hit]] = self.host_ufunc(v[sel[hit]], uv[pos[hit]])
             only = np.ones(len(uk), bool)
             only[pos[hit]] = False
             if only.any():
@@ -807,7 +873,7 @@ class _WindowJob(StageJob):
             khi, klo, v, end_ms = (
                 np.concatenate([a] + list(b))
                 for a, b in zip((khi, klo, v, end_ms), zip(*add)))
-        return khi, klo, v, end_ms
+        return khi, klo, v.reshape((len(v),) + v_shape), end_ms
 
     def prune_stores(self, purged_through: int) -> None:
         """Drop the stores of panes the card has purged (the reference's

@@ -4,9 +4,11 @@ flink_tpu/runtime/ingest.py.
 ``DeviceBatchRing`` holds ``depth`` slots. On a CUDA device each slot is a
 set of pinned host buffers plus the device tensors of one padded batch
 (hi, lo, ticks, values, valid) and the slot's watermark. The values column
-has the stage's value dtype: float32 for a sum or count, int32 for a
-sketch, whose values are uint32 item hashes carried as int32 bits (a
-float32 would round every hash above 2^24). Staging fills the
+has the stage's value dtype and shape: float32 ``[B]`` for a scalar
+reduce, ``[B, *value_shape]`` for a vector one (``mean``'s [sum, count]
+pairs are ``[B, 2]``), int32 ``[B]`` for a sketch, whose values are
+uint32 item hashes carried as int32 bits (a float32 would round every hash
+above 2^24). Staging fills the
 pinned buffers and copies them with ``non_blocking`` copies on a side
 stream, recording an event after each copy. The drain's stream waits on
 those events (a device-side wait: the host never blocks on a copy), and
@@ -30,7 +32,7 @@ import torch
 
 class DeviceBatchRing:
     def __init__(self, depth: int, batch: int, device,
-                 value_dtype=torch.float32):
+                 value_dtype=torch.float32, value_shape=()):
         self.depth = max(1, int(depth))
         self.batch = int(batch)
         self.device = torch.device(device)
@@ -38,13 +40,15 @@ class DeviceBatchRing:
         B, D = self.batch, self.depth
         pin = self.cuda
 
-        def host(dtype, n=B):
-            return torch.zeros((D, n), dtype=dtype, pin_memory=pin)
+        def host(dtype, tail=()):
+            return torch.zeros((D, B) + tuple(tail), dtype=dtype,
+                               pin_memory=pin)
 
         # [D, B] host staging (pinned on CUDA) and [D, B] device slots
         self._host = {
             "hi": host(torch.int32), "lo": host(torch.int32),
-            "ts": host(torch.int32), "values": host(value_dtype),
+            "ts": host(torch.int32),
+            "values": host(value_dtype, value_shape),
             "valid": host(torch.bool),
         }
         self._host_wm = torch.zeros(D, dtype=torch.int32, pin_memory=pin)

@@ -66,21 +66,23 @@ class StageJob:
 
     def encode(self, cols):
         """A batch's keys (as polled), their (hi, lo) identities and the
-        extractor's values: float32, or what the stage's ``value_prep``
-        makes of them on the host (a sketch's uint32 item hashes, the
-        reference's ``value_prep`` at executor.py:5472); counts the records
-        in."""
+        extractor's values: float32 ``[n, *value_shape]``, or what the
+        stage's ``value_prep`` makes of them on the host (a sketch's uint32
+        item hashes, the reference's ``value_prep`` at executor.py:5472);
+        counts the records in."""
         keys = np.asarray(self.pipe.key_by.key_selector(cols))
         hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
         prep = getattr(self.agg, "value_prep", None)
         if prep is not None:
             values = np.asarray(prep(self.agg.extractor(cols)))
+            want = hi.shape
         else:
             values = np.asarray(self.agg.extractor(cols), np.float32)
-        if values.shape != hi.shape:
+            want = hi.shape + tuple(self.red.value_shape)
+        if values.shape != want:
             raise ValueError(
-                f"the extractor gave {values.shape} values for {hi.shape} "
-                f"keys (only scalar values are ported)")
+                f"the extractor gave values of shape {values.shape} for "
+                f"{len(hi)} keys; the stage's reduce takes {want}")
         self.metrics.records_in += len(hi)
         return keys, hi, lo, values
 

@@ -109,11 +109,13 @@ class _KeyedJob(StageJob):
 
 
 class RollingJob(_KeyedJob):
-    """``key_by(...).sum(...)``: every record emits its key's running
-    sum (the reference's StreamGroupedReduce)."""
+    """``key_by(...).sum(...)`` / ``.reduce(fn)``: every record emits its
+    key's running sum or reduce (the reference's StreamGroupedReduce),
+    through the stage's ``result_fn`` when it has one."""
 
     def __init__(self, env, pipe, metrics):
         super().__init__(env, pipe, metrics, pipe.rolling)
+        self.result_fn = pipe.rolling.result_fn
         # rows carry the keys as polled, so no reverse map is needed
         self.keep_reverse = False
         self.spec = step_mod.RollingStageSpec(
@@ -132,10 +134,12 @@ class RollingJob(_KeyedJob):
 
     def emit(self, item) -> None:
         out, ok, keys, hi, lo = item
-        raw = torch.cat([out.view(torch.int32), ok.to(torch.int32)]).cpu()
-        out_np, ok_np = raw.numpy().reshape(2, -1)
-        out_np = out_np.view(np.float32)
-        ok_np = ok_np.astype(bool)
+        raw = torch.cat([out.reshape(-1).view(torch.int32),
+                         ok.to(torch.int32)]).cpu().numpy()
+        out_np = raw[:out.numel()].view(np.float32).reshape(out.shape)
+        ok_np = raw[out.numel():].astype(bool)
+        if self.result_fn is not None:
+            out_np = np.asarray(self.result_fn(out_np))
         if self.columnar:
             self.sinks_columnar({"key_id": key_words(hi, lo)[ok_np],
                                  "value": out_np[ok_np]})

@@ -26,10 +26,10 @@ from flink_tpu_torch.ops import window_kernels as wk
 @dataclass
 class WindowStageSpec:
     """Static config of one keyed-window pipeline stage: the reference's
-    fields, with packed planes for a sum or count and split planes for a
-    sketch (``red.kind == "sketch"``). ``layout`` is ``direct`` (key ==
-    slot) or ``hash`` (the open-addressing table, ``probe_len`` slots per
-    chain).
+    fields, with the reduce's planes (``wk.plane_of``: packed for sum,
+    count, min, max and mean, split for a generic reduce or a sketch).
+    ``layout`` is ``direct`` (key == slot) or ``hash`` (the open-addressing
+    table, ``probe_len`` slots per chain).
     The port has one update path, whose state equals the reference's with
     pre-combine on and off, so there is no pre-combine field."""
 
@@ -102,31 +102,36 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
 
     ``drain(state, slots, wmv, count)``: ``slots`` is a sequence of
     ``depth`` staged batches ``(hi, lo, ticks, values, valid)`` (int32,
-    int32, int32, float32 — a sketch's int32 item hashes —, bool; [B]
-    each), ``wmv`` an int32 [depth]
+    int32, int32, float32 — ``[B, *value_shape]`` for a vector reduce, a
+    sketch's int32 item hashes —, bool; [B] each), ``wmv`` an int32 [depth]
     device tensor of per-slot watermarks, ``count`` the number of live
     slots (a host int: the executor knows how many it staged). For each
     live slot it runs the update with the previous slot's deferred purge
     folded into the ring-reset sweep, advances the watermark and fires
     up to F window-ends; slots past ``count`` are skipped and yield zero
-    fires. The last deferred purge is applied at the end. Returns
+    fires. The last deferred purge is applied at the end. With allowed
+    lateness each slot's fire is the reference's classic advance (its
+    ``build_window_fire_step``, step.py:2303): F on-time lanes and F
+    re-fire lanes, purged at once, no purge deferred. Returns
     ``(state, (ovf_n, activity), fires)``: ``ovf_n`` int32 [depth], the
     overflow ring's fill after each slot's update (the last live slot's
     repeated past ``count``; its last entry is the fill after the drain),
     ``activity`` int32 0-d, the summed activity of the updates (see
-    ``update``), both on the device, and ``fires`` stacked [depth, F];
+    ``update``), both on the device, and ``fires`` stacked [depth, Ft]
+    (Ft = ``win.fire_lanes``: F, or 2F with lateness);
     the state is updated in place. Nothing is read back to the host.
 
     ``reduced=True``: ReducedFires, per-lane (count, value sum) reduced on
-    the device (G4; G15 for a sketch). ``reduced=False``: CompactFires (G6;
-    G15), whose rows land in one [depth, F, C] arena allocated at the
-    drain's first call and reused by every later one, D·F·C·12 bytes (a
-    sketch's values are [depth, F, C, *out_shape]): a drain's rows must be read
+    the device (G4; G15 for a sketch; G6's fire_pack for a generic
+    reduce). ``reduced=False``: CompactFires (G6; G15), whose rows land in
+    one [depth, Ft, C] arena allocated at the drain's first call and reused
+    by every later one, D·Ft·C·(8 + 4 W) bytes (values [depth, Ft, C,
+    *out_shape]): a drain's rows must be read
     before the next drain (or ``fire_only`` with ``out=arena_rows(0)``)
     runs. ``arena`` shares another drain's (``drain.arena``) so that the
     insert and fast variants of one stage hold one."""
     D = int(depth)
-    F = spec.win.fires_per_step
+    F = spec.win.fire_lanes
     kg_end = max_parallelism - 1
     # the compact drains' (key_hi, key_lo, values) arena, made at first use
     arena = [None] if arena is None else arena
@@ -137,9 +142,8 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
             raise ValueError(f"{count} live slots for a depth-{D} drain "
                              f"with {len(slots)} staged")
         if not reduced and arena[0] is None:
-            arena[0] = wk.fire_row_buffers(
-                D, F, state.capacity, state.device,
-                red=spec.red if spec.red.kind == "sketch" else None)
+            arena[0] = wk.fire_row_buffers(D, F, state.capacity,
+                                           state.device, red=spec.red)
         rows = None if reduced else arena[0]
         pend = None
         fires = []
@@ -181,10 +185,10 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
 def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm,
               reduced: bool = True, out=None):
     """Advance the watermark to ``wm`` with no batch: fire up to F due
-    window-ends and purge at once (the split fire step of the reference,
-    ``advance_and_fire`` + ``reduce_fires`` or ``compact_fires``, at
-    allowed lateness 0). ``out`` is the compact rows' buffers, as for
-    ``advance_and_fire_resident``."""
+    window-ends (and up to F re-fires with allowed lateness) and purge at
+    once (the split fire step of the reference, ``advance_and_fire`` +
+    ``reduce_fires`` or ``compact_fires``). ``out`` is the compact rows'
+    buffers ([Ft, C]), as for ``advance_and_fire_resident``."""
     state, pend, fires = wk.advance_and_fire_resident(
         state, spec.win, spec.red, wm, reduced=reduced, out=out)
     wk.apply_pending_purge(state, spec.win, spec.red, pend)
@@ -264,14 +268,15 @@ class RollingStageSpec:
 
 
 def init_rolling_state(spec: RollingStageSpec, device):
-    return rolling.init_state(spec.capacity_per_shard, device)
+    return rolling.init_state(spec.capacity_per_shard, device, red=spec.red)
 
 
 def build_rolling_step(spec: RollingStageSpec):
     """``step(state, hi, lo, values, valid)`` -> (state, outputs,
-    out_valid): G5, G10, G13 (``ops/rolling.py``). With one shard every
-    lane's output is its own; the reference's psum over shards has nothing
-    to merge."""
+    out_valid): G5, G10, G13 for a sum; G5, G10, G16 and the user's combine
+    for a generic reduce (``ops/rolling.py``). With one shard every lane's
+    output is its own; the reference's psum over shards has nothing to
+    merge."""
     def step(state, hi, lo, values, valid):
-        return rolling.update(state, hi, lo, values, valid)
+        return rolling.update(state, hi, lo, values, valid, red=spec.red)
     return step

@@ -338,7 +338,19 @@ def test_port_raises_for_what_this_slice_lacks(change):
         assert (sink.count, sink.value_sum) == reference(BATCH)
         assert job.state.ovf_hi.numel() == 4096
         return
-    if change in ("min_reduce", "map_after_window"):
+    if change in ("lateness", "min_reduce"):
+        # allowed lateness and min are ported: the job runs, exactly (every
+        # value is 1.0, so a window's min is 1.0 and the sum of mins its
+        # count); lateness drops the spill tier (strict capacity)
+        job = build().execute(change)
+        count, value_sum = reference(BATCH)
+        assert (sink.count, sink.value_sum) == (
+            (count, value_sum) if change == "lateness"
+            else (count, float(count)))
+        if change == "lateness":
+            assert job.state.ovf_hi.numel() == 0
+        return
+    if change == "map_after_window":
         # refused where the job is built
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build()

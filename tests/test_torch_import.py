@@ -74,7 +74,8 @@ def test_environment_raises_without_cuda(monkeypatch):
 
 def test_every_kernel_has_a_source_counter_and_plain_version():
     for fn in kernels.KERNELS:
-        assert (kernels.CSRC_DIR / f"{fn.__name__}.cu").is_file()
+        assert (kernels.CSRC_DIR / kernels.source_of(fn)).is_file()
+        assert kernels.source_of(fn) in kernels.SOURCES
         assert isinstance(fn.launches, int)
         assert callable(getattr(kernels, f"{fn.__name__}_plain"))
     assert flink_tpu_torch.__version__

@@ -627,3 +627,65 @@ def test_spill_tier_is_invisible_to_out_of_order_records():
     assert job_s.metrics.compactions >= 2 and job_s.metrics.spilled_records
     assert job_r.metrics.spilled_records == 0
     assert job_s.metrics.dropped_capacity == job_r.metrics.dropped_capacity == 0
+
+
+def _post_fire_gen(offset, n):
+    """Keys 0..599 against 512 slots of the direct layout (keys past the
+    capacity always spill), 2 events a ms, 20 % of the records up to 1.5 s
+    out of order under a 1 s watermark bound: a record may reach a pane
+    after a HOP window holding it fired, while the pane is still open to
+    the later windows."""
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    rng = np.random.default_rng(offset + 7)
+    lag = np.where(rng.random(n) < 0.2, rng.integers(0, 1500, n), 0)
+    return {"id": (idx * 2862933555777941757) % 600,
+            "ts": np.maximum(idx // 2 - lag, 0)}, None
+
+
+def _post_fire_numpy(total, batch=1024, ooo=1000, slide=2000, k=5):
+    """numpy's rows: a record counts in the windows that had not fired
+    when its batch arrived (each batch's fire runs after its update; the
+    watermark before it is the earlier batches' newest time - ooo - 1)."""
+    out, newest = {}, None
+    for off in range(0, total, batch):
+        cols, _ = _post_fire_gen(off, min(batch, total - off))
+        ts, ids = cols["ts"], cols["id"]
+        fired = (-(2**62) if newest is None
+                 else (newest - ooo - 1 + 1 - slide) // slide)
+        for j in range(k):
+            e = ts // slide + j
+            sel = e > fired
+            ends = ((e[sel] + 1) * slide).tolist()
+            for pair in zip(ids[sel].tolist(), ends):
+                out[pair] = out.get(pair, 0.0) + 1.0
+        newest = int(ts.max()) if newest is None else max(newest,
+                                                          int(ts.max()))
+    return sorted((key, e, v) for (key, e), v in out.items())
+
+
+def test_reference_merges_post_fire_ring_lanes_into_fired_windows():
+    """The queued reference-fault check (ROADMAP queue 3). HOP(2 s, 10 s)
+    counts in the direct layout, where keys past the capacity spill and
+    nothing compacts (so the reference's compaction double count cannot
+    enter), records out of order into panes still open to later windows,
+    and ring drains between fires (ring depth 4, drains of several slots).
+    The port's rows equal numpy's: a slot's ring lanes reach the stores
+    before that slot's fires, and none that came after them. The
+    reference's rows for the spilled keys come out larger: it drains the
+    ring of the whole drain before emitting the drain's fires, so a record
+    that reached the card after a window fired is merged into that window.
+    Only spilled keys differ, and only upward."""
+    total = 40_000
+    want = _post_fire_numpy(total)
+    cfg = {"state.backend.layout": "direct"}
+    job, got = _sparse_hop("torch", _post_fire_gen, total, 512, cfg,
+                           out_of_order_ms=1000)
+    assert got == want
+    assert job.metrics.spilled_records > 0 and job.metrics.dropped_late == 0
+    _, ref = _sparse_hop("jax", _post_fire_gen, total, 512, cfg,
+                         out_of_order_ms=1000)
+    assert [r[:2] for r in ref] == [r[:2] for r in want]
+    extra = [(k, e, r - w) for (k, e, r), (_, _, w) in zip(ref, want)
+             if r != w]
+    assert extra, "the reference no longer merges post-fire ring lanes"
+    assert all(key >= 512 and d > 0 for key, _e, d in extra)

@@ -80,5 +80,5 @@ def test_an_empty_poll_changes_no_row(stage):
 
 @pytest.mark.parametrize("stage", STAGES)
 def test_values_wider_than_one_per_record_fail_every_stage(stage):
-    with pytest.raises(ValueError, match="only scalar values are ported"):
+    with pytest.raises(ValueError, match="the stage's reduce takes"):
         _run(stage, values=lambda c: np.stack([c["v"], c["v"]], axis=1))

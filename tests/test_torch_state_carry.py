@@ -4,8 +4,10 @@ reference, then three more on both sides, must end equal — in the direct
 layout field for field, in the hash layout key by key (the carried table
 is probed on the reference's chains; keys placed after the carry may take
 other slots). The session, count-window and rolling states carry the
-same way and continue to the same outputs. Integer-valued data, so
-everything compares bit for bit. A sketch window's split planes (int32
+same way and continue to the same outputs. Integer-valued data compares
+bit for bit; the min, max, mean and generic planes with fresh flags
+carry both ways, random float sums at rtol 1e-6 (1e-5 on a lane's value
+sum), as in tests/test_torch_reduces.py. A sketch window's split planes (int32
 registers and touched bits, the reference's ``packed = -1``) carry too,
 and continue through the port's staging ring and resident drain, whose
 int32 values column keeps item hashes above 2^24 that a float32 one
@@ -352,4 +354,81 @@ def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
             "n_fires", "lane_valid", "value_sums")))
         n_rows += _assert_sketch_fires_equal(kind, fr_j, fr_t)
     assert_sketch_states_equal(sj, st)
+    assert n_rows > 0
+
+
+# -- min, max, mean and generic planes, with fresh flags ------------------
+
+def _jax_state(fields: dict, packed: int):
+    """A reference WindowShardState from host fields named as its leaves
+    (a port state's ``state_to_numpy``, carried back)."""
+    import jax.numpy as jnp
+    from flink_tpu.ops.hashtable import SlotTable
+
+    return wkj.WindowShardState(
+        SlotTable(jnp.asarray(fields["table.keys"]), 16),
+        *(jnp.asarray(fields[n]) for n in wkt.STATE_FIELDS[1:]),
+        packed=packed)
+
+
+@pytest.mark.parametrize("kind", ["min", "max", "mean", "gvec"])
+def test_reduce_planes_with_fresh_flags_carry_both_ways(kind):
+    """Allowed lateness L = 25 ticks, sliding windows: three batches in the
+    reference; its state (min / max packed planes with the -/+FLT_MAX
+    neutral, mean's [C*R, 3] plane, a generic reduce's split planes, and
+    fresh flags of pending re-fires) carries into the port and back out
+    equal; two batches on both; the port's state carries back into the
+    reference; one more batch on both. Every fire (re-fires included) and
+    the final states are equal."""
+    from torch_parity import (
+        LATENESS, WINDOWS, late_batches, reduce_pair, reduce_values,
+    )
+    red_j, red_t, packed = reduce_pair(kind)
+    exact = kind in ("min", "max")     # random floats elsewhere: rtol
+    kw = dict(ring=R, fires_per_step=F, lateness_ticks=LATENESS)
+    win_j = wkj.WindowSpec(WINDOWS["sliding"], SLIDE, **kw)
+    win_t = wkt.WindowSpec(WINDOWS["sliding"], SLIDE, **kw)
+    upd = jax.jit(lambda s, hi, lo, ts, v, valid: wkj.update(
+        s, win_j, red_j, hi, lo, ts, v, valid, direct=True,
+        precombine=packed and kind not in ("min", "max"))[0])
+    adv = jax.jit(lambda s, wm: wkj.advance_and_fire_resident(
+        s, win_j, red_j, wm))
+    sj = wkj.init_state(C, 16, win_j, red_j, layout="direct",
+                        n_key_groups=MAXP, packed=packed)
+    seq = [(b, reduce_values(kind, b[3], i))
+           for i, b in enumerate(late_batches(17, floats=kind == "mean"))]
+
+    def step_jax(sj, b, v):
+        hi, lo, ts, _vals, valid, wm, _ = b
+        sj = upd(sj, hi, lo, ts, v, valid)
+        return adv(jax_set_watermark(sj, int(wm)), np.int32(wm))
+
+    for b, v in seq[:3]:
+        sj, _, _ = step_jax(sj, b, v)
+    fields = jax_fields(sj)
+    assert fields["fresh"].any() and int(fields["n_fresh"]) > 0
+    st = wkt.state_from_numpy(fields, sj.packed, device="cpu", red=red_t)
+    back = wkt.state_to_numpy(st)
+    for name, want in fields.items():
+        np.testing.assert_array_equal(back[name], want, err_msg=name)
+    n_rows = 0
+    for i, (b, v) in enumerate(seq[3:]):
+        if i == 2:
+            sj = _jax_state(wkt.state_to_numpy(st), st.packed)
+        hi, lo, ts, vals, valid, wm, _ = b
+        sj, _, fr_j = step_jax(sj, b, v)
+        lanes = lanes_torch(hi, lo, ts, vals, valid)
+        wkt.update(st, win_t, red_t, *lanes[:3], torch.from_numpy(v),
+                   lanes[4], maxp=MAXP)
+        set_watermark(sj, st, int(wm))
+        st, _, fr_t = wkt.advance_and_fire_resident(st, win_t, red_t,
+                                                    int(wm))
+        assert_fires_equal(fr_j, fr_t, rtol=0 if exact else 1e-5)
+        for f in range(2 * F):
+            (wj, vj), _ = fire_rows(fr_j, f)
+            (wt, vt), _ = fire_rows(fr_t, f)
+            np.testing.assert_array_equal(wt, wj)
+            np.testing.assert_allclose(vt, vj, rtol=1e-6, atol=0)
+            n_rows += len(wt)
+    assert_states_equal(sj, st, rtol=0.0 if exact else 1e-6)
     assert n_rows > 0

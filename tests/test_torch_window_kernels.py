@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G15)."""
+    moves and nothing is compiled (G1-G16)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -133,5 +133,26 @@ def test_cpu_tensors_never_launch_a_kernel():
         _, pend, _ = wkt.advance_and_fire_resident(st_s, win_s, red_s,
                                                    int(wm) + 200)
         wkt.apply_pending_purge(st_s, win_s, red_s, pend)
-    assert len(kernels.KERNELS) == 15
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 15
+    # min, mean, a generic reduce (G16, G6's fire_pack) and allowed
+    # lateness (G2's fresh_rows, the re-fire lanes), and a generic rolling
+    # reduce
+    from torch_parity import LATENESS, late_batches, reduce_pair, \
+        reduce_values
+    for kind in ("min", "mean", "gvec"):
+        red_k = reduce_pair(kind)[1]
+        win_l = dataclasses.replace(win_t, lateness_ticks=LATENESS)
+        st_k = wkt.init_state(C, win_l, red_k, n_key_groups=MAXP,
+                              device="cpu")
+        for i, (hi, lo, ts, vals, valid, wm, _c) in enumerate(
+                late_batches(3)[:3]):
+            lanes = lanes_torch(hi, lo, ts, vals, valid)
+            wkt.update(st_k, win_l, red_k, *lanes[:3],
+                       torch.from_numpy(reduce_values(kind, vals, i)),
+                       lanes[4], maxp=MAXP)
+            wkt.advance_and_fire_resident(st_k, win_l, red_k, int(wm),
+                                          reduced=i == 1)
+    red_g = reduce_pair("gmax")[1]
+    rolling.update(rolling.init_state(C, device="cpu", red=red_g),
+                   lanes[0], lanes[1], lanes[3], lanes[4], red=red_g)
+    assert len(kernels.KERNELS) == 19
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 19

@@ -465,3 +465,133 @@ def assert_values_equal(kind, got, want, n_rows=1, err=""):
                                    err_msg=err)
     else:
         np.testing.assert_array_equal(got, want, err_msg=err)
+
+
+# -- allowed lateness ------------------------------------------------------
+
+LATENESS = 25               # ticks: 2.5 panes of slide 10
+
+# (pane range of most lanes, late pane range of a third of them,
+#  watermark ticks after the batch)
+LATE_SCHEDULE = (
+    ((0, 3), None, 25),
+    ((2, 6), (0, 3), 55),          # pane 0-2 late: re-fire or beyond L
+    ((4, 8), (1, 5), 62),          # more fresh windows than F lanes
+    ((5, 9), (3, 7), 75),
+    ((7, 11), (2, 9), 99),         # some beyond lateness, some re-fire
+    ((9, 12), (6, 10), 131),       # a jump: the horizon passes them all
+)
+
+
+def late_batches(seed: int, floats: bool = False):
+    """Six batches of out-of-order records for allowed lateness L =
+    ``LATENESS``: each batch after the first sends a third of its lanes to
+    panes the watermark has passed — some within L of their windows' ends
+    (they re-fire them; more than F windows at a time), some beyond it
+    (late drops) — with duplicate-heavy keys, invalid lanes and keys past
+    capacity, as ``batches`` has them."""
+    rng = np.random.default_rng(seed + 500)
+    out = []
+    for (p0, p1), late, wm in LATE_SCHEDULE:
+        hi = np.where(rng.random(B) < 0.02, 1, 0).astype(np.uint32)
+        lo = rng.integers(0, C + 64, B).astype(np.uint32)
+        lo[:64] = rng.integers(0, 32, 64)
+        ts = rng.integers(p0 * SLIDE, p1 * SLIDE, B).astype(np.int32)
+        if late is not None:
+            sel = rng.random(B) < 1 / 3
+            ts[sel] = rng.integers(late[0] * SLIDE, late[1] * SLIDE,
+                                   int(sel.sum()))
+        if floats:
+            vals = rng.uniform(0.5, 8.0, B).astype(np.float32)
+        else:
+            vals = rng.integers(1, 9, B).astype(np.float32)
+        valid = rng.random(B) < 0.9
+        out.append((hi, lo, ts, vals, valid, np.int32(wm),
+                    np.zeros(R, bool)))
+    return out
+
+
+# -- min, max, mean and generic reduces -----------------------------------
+
+# kind -> what the test's values look like: mean is the [v, 1] pair the
+# API's extractor builds; gvec a (sum, max) pair of a generic reduce
+REDUCE_KINDS = ("min", "max", "mean", "gsum", "gmax", "gvec")
+GMAX_NEUTRAL = -1e30
+
+
+def _gvec_jax(a, b):
+    return jnp.stack([a[..., 0] + b[..., 0],
+                      jnp.maximum(a[..., 1], b[..., 1])], -1)
+
+
+def _gvec_torch(a, b):
+    return torch.stack([a[..., 0] + b[..., 0],
+                        torch.maximum(a[..., 1], b[..., 1])], -1)
+
+
+def reduce_pair(kind: str):
+    """(reference ReduceSpec, port ReduceSpec, packed planes?) for a kind
+    of ``REDUCE_KINDS`` and for sum and count; each package gets its own
+    combine function (jnp on one side, torch on the other)."""
+    if kind == "mean":
+        return (wkj.ReduceSpec("sum", jnp.float32, value_shape=(2,)),
+                wkt.ReduceSpec("sum", value_shape=(2,)), True)
+    if kind == "gsum":
+        return (wkj.ReduceSpec("generic", jnp.float32,
+                               combine=lambda a, b: a + b, neutral=0.0),
+                wkt.ReduceSpec("generic", combine=lambda a, b: a + b,
+                               neutral=0.0), False)
+    if kind == "gmax":
+        return (wkj.ReduceSpec("generic", jnp.float32, combine=jnp.maximum,
+                               neutral=GMAX_NEUTRAL),
+                wkt.ReduceSpec("generic", combine=torch.maximum,
+                               neutral=GMAX_NEUTRAL), False)
+    if kind == "gvec":
+        neutral = np.array([0.0, GMAX_NEUTRAL], np.float32)
+        return (wkj.ReduceSpec("generic", jnp.float32, (2,),
+                               combine=_gvec_jax, neutral=neutral),
+                wkt.ReduceSpec("generic", torch.float32, (2,),
+                               combine=_gvec_torch, neutral=neutral), False)
+    return wkj.ReduceSpec(kind, jnp.float32), wkt.ReduceSpec(kind), True
+
+
+def reduce_values(kind: str, vals: np.ndarray, seed: int) -> np.ndarray:
+    """A batch's values for a reduce kind: the batch's scalars shifted to
+    both signs for min and max (with +-0.0 and a hot key's ties), a
+    [v, 1] pair for mean, a [v, w] pair for gvec."""
+    rng = np.random.default_rng(seed)
+    if kind == "mean":
+        return np.stack([vals, np.ones_like(vals)], -1)
+    if kind == "gvec":
+        return np.stack([vals, rng.uniform(-9, 9, len(vals)).astype(
+            np.float32)], -1)
+    out = (vals - 4.5).astype(np.float32)
+    if kind in ("min", "max"):
+        out[:16] = np.array([0.0, -0.0] * 8, np.float32)
+    return out
+
+
+def logical_planes(fields: dict) -> dict:
+    """A window state's fields with the slot order taken out (either
+    plane): the used slots' key words sorted, each with its [R, ...] acc
+    cells (and touched bits for split planes); unused slots must hold
+    their plane's untouched contents."""
+    rows = fields["table.keys"].astype(np.uint64)
+    words = (rows[:, 0] << np.uint64(32)) | rows[:, 1]
+    used = words != np.uint64(0xFFFFFFFFFFFFFFFF)
+    cap = len(words)
+    acc = np.asarray(fields["acc"])
+    cells = acc.reshape((-1, cap) + acc.shape[1:])
+    order = np.argsort(words[used], kind="stable")
+    out = {k: v for k, v in fields.items()
+           if k not in ("table.keys", "acc", "touched", "fresh")}
+    out["keys"] = words[used][order]
+    out["cells"] = cells[:, used][:, order]
+    out["fresh"] = np.asarray(fields["fresh"]).reshape(-1, cap)[:, used][
+        :, order]
+    assert not np.asarray(fields["fresh"]).reshape(-1, cap)[:, ~used].any()
+    if np.asarray(fields["touched"]).size:
+        t = np.asarray(fields["touched"]).reshape(-1, cap)
+        assert not t[:, ~used].any()
+        out["touched"] = t[:, used][:, order]
+    return out
