@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G16 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G18 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -68,13 +68,40 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 on a max plane (edge: a min plane, chains of 2); G1 with
                 lateness; G7 with W = 2; G2's fresh_rows, G6's fire_pack
                 and G16's rep_gather / rep_set at the late-reduce job's
-                shapes (C = 2^21, R = 8, 2F = 4 lanes).
+                shapes (C = 2^21, R = 8, 2F = 4 lanes). Then
+                (``telemetry_kernel_phase``) the skew telemetry and the
+                flight recorder, exactly: G1 with the key-group fill at
+                the north star's and the sparse job's batches (maxp 128;
+                edge: maxp 32,768, every lane on one key, dead, late and
+                purged lanes), timed beside G1 without the fill and
+                torch.bincount over G1's kg; G17 kg_occupancy at the north
+                star's state (direct, packed sum, C = 1M, R = 8), the
+                sparse job's (hash, C = 2^21, R = 12, half the slots
+                empty), the distinct job's split plane and the
+                late-reduce job's fresh cells (edge: maxp 32,768, every
+                slot on one key), its bound the bytes this data needs (the
+                touch cells up to a slot's first touched row, an alive
+                slot's key); G18 slot_stats and its companion on a
+                north-star slot (edge: the first advance from the MIN
+                sentinel, a jump past 2^20 ticks, negative watermarks, a
+                watermark that stays, kg-fill off with 2F lanes, the
+                end-of-stream jump).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
                 public API with ``state.backend.overflow-ring: 0``; the
                 sink's count and value sum must equal a numpy reference, and
-                G1-G4 must have launched.
+                G1-G4 must have launched. Then the telemetry run: the same
+                job with observability.drain-stats on (every drain read),
+                kg-stats on (occupancy at every fire boundary): the flight
+                recorder's totals must hold the 30M events and no drop,
+                its fired keys the drains' fires (``metrics.fires`` less
+                the watermark-only advances'), its panes plus those of
+                the watermark-only advances the stream's; the occupancy
+                must equal numpy's bincount of the live keys' key groups
+                at its last refresh, the fill the sampled batches' lanes;
+                G1's fill, G17 and G18 must have launched; its events/s
+                print beside the run without telemetry.
   5. sparse   — nexmark q5's HOP(2 s, 10 s) count per key over the same
                 traffic with the 1M keys mapped to sparse 64-bit ids
                 (splitmix64), state capacity 2^21 (a load of 0.48) probed 64
@@ -162,9 +189,14 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 reached; G1, G2, fresh_rows, G5, G10, G16, fire_pack
                 launched.
 
+Every event-time window job's line (north star, telemetry, sparse, churn,
+distinct, countmin, maxprice, mean, late-reduce) carries its fire latency:
+p50 and p99 over its windows, from a drain's dispatch (or a watermark
+crossing) to the emission, with the sample count.
+
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the eleven
-paths, numbers from phase 3; G14 and G15 at the distinct job's shapes,
+after. Then one line {"kernels": [...]} (launches summed over the twelve
+paths; G1's fill nested in G1's entry, numbers from phase 3; G14 and G15 at the distinct job's shapes,
 the countmin job's in phase 3's line; the new modes nested under their
 kernel in phase 3's line), and last {"ok": true, "device": {...}}.
 
@@ -192,7 +224,7 @@ from flink_tpu_torch.ops import hashtable, segment, session_windows, sketches
 from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
 from flink_tpu_torch.ops.hashing import probe_hash, route_hash, splitmix64
 from flink_tpu_torch.ops.window_kernels import ReduceSpec, fire_row_buffers
-from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG
+from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG, panes_crossed
 from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
 
@@ -1370,8 +1402,11 @@ def numpy_reference(total, n_keys, events_per_ms, window_ms, chunk=1 << 22):
     return int(seen.sum())
 
 
-def north_star_job(device, n_keys, events_per_ms, total, batch, depth):
-    """The north-star job through the public API; returns (sink, job, s)."""
+def north_star_job(device, n_keys, events_per_ms, total, batch, depth,
+                   config=None, with_env=False):
+    """The north-star job through the public API, with ``config`` added to
+    its configuration; returns (sink, job, s), or (sink, env, job, s) with
+    ``with_env``."""
     def gen(offset, n):
         keys, ts, vals = gen_batch(offset, n, n_keys, events_per_ms)
         return {"key": keys, "value": vals}, ts
@@ -1383,6 +1418,7 @@ def north_star_job(device, n_keys, events_per_ms, total, batch, depth):
         # no overflow ring: the job's keys all fit, and without a ring the
         # drains reduce the fires on the card (G4) as in PRs 1-2
         "state.backend.overflow-ring": 0,
+        **(config or {}),
     })
     env = StreamExecutionEnvironment(cfg, device=device)
     env.set_parallelism(1)
@@ -1402,7 +1438,8 @@ def north_star_job(device, n_keys, events_per_ms, total, batch, depth):
     job = env.execute("chip-smoke-north-star")
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return sink, job, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    return (sink, env, job, secs) if with_env else (sink, job, secs)
 
 
 # ------------------------------------------------------------ phase 5
@@ -3237,6 +3274,368 @@ def reduce_kernel_phase(dev, timing=True):
     return out
 
 
+# ------------------------------------------- phase 3, G1's fill, G17, G18
+
+KG_EDGE_MAXP = 1 << 15        # Flink's largest max parallelism
+
+
+def case_route_fill(dev, kind):
+    """G1 with the key-group fill. ``main``: the north-star job's batch
+    (B = 262,144, maxp 128); ``sparse``: the sparse job's; ``edge``: maxp
+    32,768 and every lane on one key (one key group), with G1's edge lanes
+    — dead, late by the watermark and by the purge cursor. Held exactly:
+    pane, kg, live, the stats and the fill. Library: torch.bincount over
+    G1's own kg with the lanes not owned moved to an extra bin."""
+    if kind == "sparse":
+        inp = sparse_lane_inputs(dev, BATCH, "main")
+        slide, k, maxp = SPARSE_SLIDE_MS, SPARSE_SIZE_MS // SPARSE_SLIDE_MS, \
+            MAX_PARALLELISM
+    else:
+        inp = lane_inputs(dev, N_KEYS, BATCH, WINDOW_MS, kind)
+        slide, k = WINDOW_MS, 1
+        maxp = MAX_PARALLELISM if kind == "main" else KG_EDGE_MAXP
+    if kind == "edge":
+        inp["hi"] = torch.zeros_like(inp["hi"])
+        inp["lo"] = torch.full_like(inp["lo"], 7)
+    args = (inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
+            inp["purged_through"])
+    kw = dict(slide=slide, k=k, maxp=maxp, kg_start=0, kg_end=maxp - 1)
+    fill_g = torch.zeros(maxp, dtype=torch.int32, device=dev)
+    fill_w = torch.zeros(maxp, dtype=torch.int32, device=dev)
+    got = kernels.route_lanes(*args, **kw, fill=fill_g)
+    want = kernels.route_lanes_plain(*args, **kw, fill=fill_w)
+    if kind == "edge":
+        check(int(got[3][0]) > 0 and not bool(inp["valid"].all())
+              and int(fill_g.count_nonzero()) == 1,
+              "route_lanes (kg fill): the edge lanes are not as built")
+    idx = torch.where(inp["valid"], got[1], maxp).long()
+    B = inp["hi"].shape[0]
+    run_fill = torch.zeros(maxp, dtype=torch.int32, device=dev)
+    return {
+        "err": max_abs_err(list(got) + [fill_g], list(want) + [fill_w]),
+        "run": lambda: kernels.route_lanes(*args, **kw, fill=run_fill),
+        "plain": lambda: kernels.route_lanes_plain(*args, **kw,
+                                                   fill=run_fill),
+        "library": lambda: torch.bincount(idx, minlength=maxp + 1),
+        "nofill": lambda: kernels.route_lanes(*args, **kw),
+        "bytes": B * (4 + 4 + 4 + 1 + 4 + 4 + 1) + 4 * maxp,
+    }
+
+
+def occupancy_bytes(alive_rows, alive, col_bytes, fresh_rows=None):
+    """The least bytes G17 moves on this data: each slot's touch cells up
+    to its first touched row (all R when none), a fresh plane's the same,
+    and the key of each alive slot."""
+    n = int(alive_rows.sum()) * col_bytes + 8 * int(alive.sum())
+    if fresh_rows is not None:
+        n += int(fresh_rows.sum())
+    return n
+
+
+def _rows_to_first(mask2):
+    """Per slot of a [R, C] bool: rows read up to the first True (R when
+    none)."""
+    R = mask2.shape[0]
+    first = torch.where(mask2.any(0), mask2.int().argmax(0), R - 1)
+    return first + 1
+
+
+def case_kg_occupancy(dev, kind):
+    """G17 over a window state. ``main``: the north-star job's (direct
+    identity table, packed sum plane, C = 1M, R = 8, a third of the cells
+    touched); ``sparse``: the sparse job's (hash table of the 1M ids in
+    2^21 slots — half of them empty — packed count plane, R = 12);
+    ``split``: the distinct job's split touched plane (C = 2^14, R = 12,
+    10,004 channels); ``fresh``: the late-reduce job's split float planes
+    with lateness (C = 2^21, R = 8, touched and fresh); ``edge``: maxp
+    32,768 and every slot holding one key (one key group), a packed
+    plane of C = 2^20, R = 8, and half the slots dead. Held exactly."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    maxp = KG_EDGE_MAXP if kind == "edge" else MAX_PARALLELISM
+    kw = {}
+    if kind in ("main", "edge"):
+        C, R = (N_KEYS, RING_PANES) if kind == "main" else (1 << 20, 8)
+        acc = packed_plane(dev, C, R, 0.33 if kind == "main" else 0.1)
+        table = torch.arange(C, dtype=torch.int64, device=dev)
+        if kind == "edge":
+            table = torch.full((C,), 7, dtype=torch.int64, device=dev)
+            dead = (torch.rand(C, generator=g) < 0.5).to(dev)
+            acc.view(R, C, 2)[:, dead] = 0.0
+        kw = dict(acc=acc, neutral=0.0)
+        touch2 = acc.view(R, C, 2)[:, :, 1] != 0.0
+        col = 4
+    elif kind == "sparse":
+        C, R = SPARSE_CAPACITY, SPARSE_RING
+        table = full_table(dev, C, BATCH, report=False)
+        acc = packed_plane(dev, C, R, 0.4)
+        acc.view(R, C, 2)[:, table == EMPTY_WORD] = 0.0
+        kw = dict(acc=acc, neutral=0.0)
+        touch2 = acc.view(R, C, 2)[:, :, 1] != 0.0
+        col = 4
+    else:
+        C, R = ((SKETCH_CAPACITY, DISTINCT_RING) if kind == "split"
+                else (LATE_CAPACITY, LATE_RING))
+        table = torch.full((C,), EMPTY_WORD, dtype=torch.int64)
+        n_keys = BID_HOT + BID_COLD if kind == "split" else N_KEYS
+        slots = torch.randperm(C, generator=g)[:n_keys]
+        table[slots] = (torch.arange(n_keys, dtype=torch.int64) if
+                        kind == "split" else torch.from_numpy(
+                            sparse_ids(np.arange(n_keys)).view(np.int64)))
+        table = table.to(dev)
+        held = (table != EMPTY_WORD)
+        touched = ((torch.rand(R * C, generator=g) < 0.3).to(dev)
+                   & held.repeat(R))
+        kw = dict(touched=touched)
+        if kind == "fresh":
+            kw["fresh"] = ((torch.rand(R * C, generator=g) < 0.02).to(dev)
+                           & held.repeat(R))
+        touch2 = touched.view(R, C)
+        col = 1
+    fresh2 = kw["fresh"].view(R, C) if "fresh" in kw else None
+    alive = touch2.any(0) if fresh2 is None else (touch2 | fresh2).any(0)
+    got = kernels.kg_occupancy(table, R=R, maxp=maxp, **kw)
+    want = kernels.kg_occupancy_plain(table, R=R, maxp=maxp, **kw)
+    check(int(got.sum()) == int(alive.sum()),
+          f"kg_occupancy ({kind}): {int(got.sum())} alive slots counted, "
+          f"{int(alive.sum())} alive")
+    nbytes = occupancy_bytes(
+        _rows_to_first(touch2 if fresh2 is None else touch2 | fresh2),
+        alive, col,
+        None if fresh2 is None else _rows_to_first(touch2 | fresh2)) \
+        + 4 * maxp
+    return {
+        "err": max_abs_err(got, want),
+        "run": lambda: kernels.kg_occupancy(table, R=R, maxp=maxp, **kw),
+        "plain": lambda: kernels.kg_occupancy_plain(table, R=R, maxp=maxp,
+                                                    **kw),
+        "library": None,
+        "bytes": nbytes,
+    }
+
+
+def _slot_inputs(dev, wm_before, wm_after, Ft, fill_on, g):
+    """One slot's G18 inputs: G1's stats, activity, Ft fire lanes, the
+    state's counters after the fire, the fill and the snapshot."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    lane_valid = (torch.rand(Ft, generator=g) < 0.6).to(dev)
+    counts = torch.where(lane_valid, torch.randint(
+        0, N_KEYS, (Ft,), generator=g).to(dev), 0).to(torch.int32)
+    late0, cap0 = 1234, 56
+    return dict(
+        lane_stats=torch.tensor([17, 3, 1, BATCH - 9], **i32),
+        activity=torch.tensor(int(torch.randint(0, 999, (1,), generator=g)),
+                              **i32),
+        lane_valid=lane_valid, counts=counts,
+        dropped_late=torch.tensor(late0 + 17, **i32),
+        dropped_capacity=torch.tensor(cap0 + 5, **i32),
+        ovf_n=torch.tensor(4096, **i32),
+        fill=(torch.randint(0, 5000, (MAX_PARALLELISM,), generator=g).to(
+            dev, torch.int32) if fill_on else None),
+        watermark=torch.tensor(wm_after, **i32),
+        snap=torch.tensor([wm_before, late0, cap0], **i32))
+
+
+SLOT_EDGES = (
+    # (wm_before, wm_after, Ft, fill): the first advance from the MIN
+    # sentinel; a jump of more than 2^20 ticks; negative watermarks across
+    # a pane; a watermark that stays put; kg-fill off with the 2F lanes of
+    # a lateness drain; the end-of-stream jump to the MAX watermark
+    (-(2**31) + 1, 130, FIRES_PER_STEP, True),
+    (9_999, 9_999 + 3 * (1 << 20), FIRES_PER_STEP, True),
+    (-12_001, -4_999, FIRES_PER_STEP, True),
+    (-7, -7, FIRES_PER_STEP, True),
+    (4_998, 10_002, 2 * FIRES_PER_STEP, False),
+    (14_998, 2**31 - 4, FIRES_PER_STEP, True),
+)
+
+
+def case_slot_stats(dev, kind):
+    """G18 (and its companion, slot_stats_begin) on one drain slot.
+    ``main``: a north-star slot whose watermark crosses a window end (F = 2
+    lanes, maxp 128); ``edge``: each of SLOT_EDGES. Held exactly, row for
+    row, and the begin kernel's snapshot likewise."""
+    g = torch.Generator(device="cpu").manual_seed(18)
+    edges = ((4_998, 5_129, FIRES_PER_STEP, True),) if kind == "main" \
+        else SLOT_EDGES
+    err = 0.0
+    for wb, wa, Ft, fill_on in edges:
+        inp = _slot_inputs(dev, wb, wa, Ft, fill_on, g)
+        row_g = torch.full((9,), -1, dtype=torch.int32, device=dev)
+        row_w = torch.full((9,), -1, dtype=torch.int32, device=dev)
+        args = [inp[n] for n in ("lane_stats", "activity", "lane_valid",
+                                 "counts", "dropped_late", "dropped_capacity",
+                                 "ovf_n", "fill", "watermark", "snap")]
+        kernels.slot_stats(row_g, *args, slide=WINDOW_MS)
+        kernels.slot_stats_plain(row_w, *args, slide=WINDOW_MS)
+        err = max(err, max_abs_err(row_g, row_w))
+        snap_g = torch.empty(3, dtype=torch.int32, device=dev)
+        snap_w = torch.empty(3, dtype=torch.int32, device=dev)
+        before = (inp["watermark"], inp["dropped_late"],
+                  inp["dropped_capacity"])
+        kernels.slot_stats_begin(*before, snap_g)
+        kernels.slot_stats_begin_plain(*before, snap_w)
+        err = max(err, max_abs_err(snap_g, snap_w))
+    maxp = MAX_PARALLELISM
+    row = torch.empty(9, dtype=torch.int32, device=dev)
+    snap = torch.empty(3, dtype=torch.int32, device=dev)
+    return {
+        "err": err,
+        "run": lambda: kernels.slot_stats(row, *args, slide=WINDOW_MS),
+        "plain": lambda: kernels.slot_stats_plain(row, *args,
+                                                  slide=WINDOW_MS),
+        "begin": lambda: kernels.slot_stats_begin(*before, snap),
+        "begin_plain": lambda: kernels.slot_stats_begin_plain(*before, snap),
+        "library": None,
+        # 4 stats, activity, Ft flags, Ft counts, late, cap, ovf_n,
+        # watermark, the 3-int snap and maxp bins in; the 9-int row out
+        "bytes": 16 + 4 + Ft + 4 * Ft + 16 + 12 + 4 * maxp + 36,
+        "begin_bytes": 12 + 12,
+    }
+
+
+def telemetry_kernel_phase(dev, timing=True):
+    """Hold G1's fill, G17 and G18 against their plain versions on the
+    main and edge inputs, and time the main ones. Returns {"route_lanes":
+    {"kg_fill": record}, "kg_occupancy": record, "slot_stats": record,
+    "slot_stats_begin": record}; G1's fill record carries G1's time
+    without the fill from the same inputs (``nofill_ms``) and G17's its
+    times at the other jobs' states (``<job>_ms``)."""
+    out = {}
+    rec = hold("route_lanes (kg fill)", lambda k: case_route_fill(dev, k),
+               False, kinds=("main", "sparse", "edge"))
+    if timing:
+        c = case_route_fill(dev, "main")
+        rec["ms"] = time_ms(c["run"])
+        rec["nofill_ms"] = time_ms(c["nofill"])
+        rec["plain_ms"] = time_ms(c["plain"], reps=5)
+        rec["library_ms"] = time_ms(c["library"])
+        rec["library"] = "torch.bincount over G1's kg"
+        c = case_route_fill(dev, "sparse")
+        rec["sparse_ms"] = time_ms(c["run"])
+        rec["sparse_nofill_ms"] = time_ms(c["nofill"])
+        del c
+    out["route_lanes"] = {"kg_fill": rec}
+    occ = {}
+    for kind in ("main", "sparse", "split", "fresh", "edge"):
+        c = case_kg_occupancy(dev, kind)
+        check(c["err"] == 0.0, f"kg_occupancy ({kind} inputs) disagrees "
+                               f"with its plain version: {c['err']} bins")
+        r = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"])}
+        if timing:
+            r["ms"] = time_ms(c["run"])
+            r["plain_ms"] = time_ms(c["plain"], reps=3)
+        occ[kind] = r
+        del c
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    rec = dict(occ["main"], library_ms=None,
+               max_abs_err=max(r["max_abs_err"] for r in occ.values()))
+    for kind in ("sparse", "split", "fresh"):
+        rec[kind] = occ[kind]
+    out["kg_occupancy"] = rec
+    rec = hold("slot_stats", lambda k: case_slot_stats(dev, k), False)
+    c = case_slot_stats(dev, "main")
+    begin = {"max_abs_err": rec["max_abs_err"],
+             "bound_ms": bound_ms(c["begin_bytes"]), "library_ms": None}
+    if timing:
+        rec["ms"] = time_ms(c["run"])
+        rec["plain_ms"] = time_ms(c["plain"], reps=5)
+        rec["library_ms"] = None
+        begin["ms"] = time_ms(c["begin"])
+        begin["plain_ms"] = time_ms(c["begin_plain"], reps=5)
+    out["slot_stats"] = rec
+    out["slot_stats_begin"] = begin
+    return out
+
+
+def fire_latency(m) -> dict:
+    """A job's fire latency: p50 and p99 over its windows, in ms, with the
+    sample count and the windows the samples weigh."""
+    lat = m.fire_latency
+    return {"p50": m.fire_latency_pct(50.0), "p99": m.fire_latency_pct(99.0),
+            "samples": len(lat) if lat else 0,
+            "windows": int(sum(n for n, _ in lat._samples)) if lat else 0}
+
+
+TELEMETRY_CONFIG = {
+    "observability.drain-stats": True,
+    "observability.drain-stats-every": 1,
+    "observability.kg-stats": True,
+    "observability.kg-stats-interval-ms": 0,
+}
+
+
+def live_key_groups(total, events_per_ms, window_ms, n_keys, maxp,
+                    chunk=1 << 22):
+    """numpy's bincount of the key groups of the keys that hold state at
+    the end-of-stream flush: the keys of the last window's events (the
+    windows before it fired and purged while the stream ran)."""
+    last = (total - 1) // events_per_ms // window_ms
+    first = last * window_ms * events_per_ms
+    seen = np.zeros(n_keys, bool)
+    for off in range(first, total, chunk):
+        keys, _ts, _ = gen_batch(off, min(chunk, total - off), n_keys,
+                                 events_per_ms)
+        seen[keys] = True
+    keys = torch.from_numpy(np.nonzero(seen)[0].astype(np.int32))
+    kg = assign_to_key_group(route_hash(torch.zeros_like(keys), keys), maxp)
+    return np.bincount(kg.numpy().astype(np.int64), minlength=maxp)
+
+
+def check_telemetry(env, job, total, batch, events_per_ms, window_ms,
+                    n_keys, maxp) -> dict:
+    """The telemetry phase's checks against what the north-star job must
+    have recorded; returns the numbers it checked."""
+    m = job.metrics
+    rep = env._pipeline_report()
+    check(rep["available"] and rep["payload_fetches"] == rep["drains"]
+          == m.resident_drains,
+          f"pipeline report: {rep.get('payload_fetches')} payloads for "
+          f"{m.resident_drains} drains")
+    tot = rep["shards"][0]["totals"]
+    check(tot["events"] == total and tot["late_dropped"] == 0
+          and tot["nofit_dropped"] == 0,
+          f"flight recorder totals {tot} against {total} events")
+    drain_fires = m.fires - m.fire_step_fires
+    check(tot["fired_keys"] == drain_fires,
+          f"fired_keys {tot['fired_keys']} != the drains' fires "
+          f"{drain_fires}")
+    # the watermark after the first and the last batch (monotonous: the
+    # batch's max tick - 1), and the end-of-stream flush to the MAX
+    # watermark, counted with the recorder's jump clamp
+    wm_first = (min(batch, total) - 1) // events_per_ms - 1
+    wm_last = (total - 1) // events_per_ms - 1
+    want_panes = (wm_last // window_ms - wm_first // window_ms
+                  + panes_crossed(wm_last, 2**31 - 4, window_ms))
+    check(tot["panes_advanced"] + m.fire_step_panes == want_panes,
+          f"panes: {tot['panes_advanced']} in the drains + "
+          f"{m.fire_step_panes} in watermark-only advances != {want_panes}")
+    kg = env._kg_report(maxp)
+    occ = np.zeros(maxp, np.int64)
+    for r in kg["occupancy_top"]:
+        occ[r["group"]] = r["count"]
+    want_occ = live_key_groups(total, events_per_ms, window_ms, n_keys, maxp)
+    check(np.array_equal(occ, want_occ)
+          and kg["occupied_groups"] == int((want_occ > 0).sum()),
+          f"occupancy differs from numpy's in "
+          f"{int((occ != want_occ).sum())} groups")
+    fill = sum(r["count"] for r in kg["fill_top"])
+    n_batches = -(-total // batch)
+    last_len = total - (n_batches - 1) * batch
+    sampled = kg["fill_sampled_batches"]
+    check(sampled > 0 and fill in (sampled * batch,
+                                   (sampled - 1) * batch + last_len),
+          f"fill sums to {fill} over {sampled} sampled batches of {batch}")
+    return {"totals": tot, "levels": rep["shards"][0]["levels"],
+            "drains": rep["drains"], "fire_step_fires": m.fire_step_fires,
+            "fire_step_panes": m.fire_step_panes, "want_panes": want_panes,
+            "occupied_groups": kg["occupied_groups"],
+            "occupancy_keys": int(occ.sum()), "fill_sum": fill,
+            "fill_sampled_batches": sampled,
+            "latency_ms": rep["latency_ms"],
+            "kg_heat_skew_ratio": rep["kg_heat"].get("skew_ratio")}
+
+
 # ------------------------------------------------------------ profile
 
 def _busy_ms(intervals) -> float:
@@ -3343,7 +3742,15 @@ KERNEL_SOURCES = {
                    "flink_tpu/ops/segment.py:131"),
     "rep_set": ("flink_tpu_torch/csrc/rep_update.cu",
                 "flink_tpu/ops/window_kernels.py:916"),
+    "kg_occupancy": ("flink_tpu_torch/csrc/kg_occupancy.cu",
+                     "flink_tpu/ops/window_kernels.py:432"),
+    "slot_stats_begin": ("flink_tpu_torch/csrc/slot_stats.cu",
+                         "flink_tpu/runtime/step.py:800"),
+    "slot_stats": ("flink_tpu_torch/csrc/slot_stats.cu",
+                   "flink_tpu/runtime/step.py:800"),
 }
+# G1's fill replaces K4's kg_fill branch and K11's kg_batch_fill
+KG_FILL_REPLACES = "flink_tpu/ops/window_kernels.py:464"
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                       "fire_reduced")
@@ -3361,9 +3768,19 @@ MAXPRICE_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                     "hash_upsert", "fire_compact", "ring_append")
 MEAN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                 "fire_compact", "ring_append")
+TELEMETRY_KERNELS = NORTH_STAR_KERNELS + ("kg_occupancy", "slot_stats_begin",
+                                         "slot_stats", "route_lanes_fill")
 LATE_KERNELS = ("route_lanes", "clear_rows", "fresh_rows", "hash_upsert",
                 "segment_sort", "rep_gather", "rep_set", "fire_pack")
 REDUCE_TOTAL = 30_000_000
+
+
+def read_launches() -> dict:
+    """Every wrapper's launch count, and G1's launches with the fill
+    (``route_lanes_fill``)."""
+    out = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    out["route_lanes_fill"] = kernels.route_lanes.fill_launches
+    return out
 
 
 def run_path(run, total_launches):
@@ -3371,7 +3788,7 @@ def run_path(run, total_launches):
     counts to ``total_launches``; return (its counts, what run returned)."""
     kernels.reset_launch_counts()
     out = run()
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    launches = read_launches()
     for name, n in launches.items():
         total_launches[name] = total_launches.get(name, 0) + n
     return launches, out
@@ -3415,13 +3832,14 @@ def main(argv) -> int:
     recs["clear_rows"]["split"] = sk_recs["clear_rows_split"]
     for name, rec in reduce_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
+    for name, rec in telemetry_kernel_phase(dev).items():
+        recs.setdefault(name, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
 
-    kernels.reset_launch_counts()
-    sink, job, secs = north_star_job(dev, N_KEYS, EVENTS_PER_MS,
-                                     TOTAL_EVENTS, BATCH, RING_DEPTH)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    total_launches = dict(launches)
+    total_launches = {}
+    launches, (sink, job, secs) = run_path(
+        lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS,
+                               BATCH, RING_DEPTH), total_launches)
     want_count = numpy_reference(TOTAL_EVENTS, N_KEYS, EVENTS_PER_MS,
                                  WINDOW_MS)
     m = job.metrics
@@ -3430,6 +3848,7 @@ def main(argv) -> int:
           "fire_steps": m.fire_steps, "batches": m.steps,
           "count": sink.count, "count_ref": want_count,
           "value_sum": sink.value_sum, "launches": launches,
+          "fire_latency_ms": fire_latency(m),
           "overflow_ring": "0 (set: no ring, so the drains reduce on the "
                            "card with G4, as in PRs 1-2)",
           "device": kind, "nvidia_smi": smi})
@@ -3443,12 +3862,34 @@ def main(argv) -> int:
     for name in NORTH_STAR_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched on the north-star path")
+    plain_eps = TOTAL_EVENTS / secs
 
-    kernels.reset_launch_counts()
-    sink, job, secs = sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    for name, n in launches.items():
-        total_launches[name] += n
+    launches, (sink, env_t, job, secs) = run_path(
+        lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS,
+                               BATCH, RING_DEPTH, config=TELEMETRY_CONFIG,
+                               with_env=True), total_launches)
+    check(sink.value_sum == float(TOTAL_EVENTS) and sink.count == want_count,
+          f"telemetry run: {sink.count} rows summing to {sink.value_sum}")
+    checked = check_telemetry(env_t, job, TOTAL_EVENTS, BATCH, EVENTS_PER_MS,
+                              WINDOW_MS, N_KEYS, MAX_PARALLELISM)
+    # in turns: without, with (the two runs above), with, without
+    turns = {"without": [plain_eps], "with": [TOTAL_EVENTS / secs]}
+    for name, cfg in (("with", TELEMETRY_CONFIG), ("without", None)):
+        turns[name].append(TOTAL_EVENTS / north_star_job(
+            dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS, BATCH, RING_DEPTH,
+            config=cfg)[2])
+    emit({"phase": "telemetry", "events": TOTAL_EVENTS, "seconds": secs,
+          "events_per_s": TOTAL_EVENTS / secs,
+          "events_per_s_without": plain_eps,
+          "events_per_s_in_turns": turns, "config": TELEMETRY_CONFIG,
+          "fire_latency_ms": fire_latency(job.metrics), **checked,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    check_launched(launches, TELEMETRY_KERNELS, "telemetry")
+    del sink, env_t, job
+
+    launches, (sink, job, secs) = run_path(
+        lambda: sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH),
+        total_launches)
     cols = sink.columns()
     m = job.metrics
     emit({"phase": "sparse", "events": TOTAL_EVENTS, "seconds": secs,
@@ -3457,6 +3898,7 @@ def main(argv) -> int:
           "fire_steps": m.fire_steps, "batches": m.steps,
           "steps_fast": m.steps_fast, "spilled_records": m.spilled_records,
           "overflow_ring": job.state.ovf_hi.numel(),
+          "fire_latency_ms": fire_latency(m),
           "launches": launches, "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"auto layout resolved to {job.state.layout}, not hash")
@@ -3470,11 +3912,9 @@ def main(argv) -> int:
               f"kernel {name} never launched on the sparse-key path")
     del sink, cols
 
-    kernels.reset_launch_counts()
-    sink, job, secs = churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    for name, n in launches.items():
-        total_launches[name] += n
+    launches, (sink, job, secs) = run_path(
+        lambda: churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH),
+        total_launches)
     cols = sink.columns()
     m = job.metrics
     n_rows, distinct, live_max = check_churn_rows(cols, CHURN_TOTAL)
@@ -3489,8 +3929,9 @@ def main(argv) -> int:
           "spilled_records": m.spilled_records,
           "spill_peak_keys": m.spill_peak_keys,
           "dropped_capacity": m.dropped_capacity,
-          "dropped_late": m.dropped_late, "launches": launches,
-          "device": kind, "nvidia_smi": smi})
+          "dropped_late": m.dropped_late,
+          "fire_latency_ms": fire_latency(m),
+          "launches": launches, "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash" and
           job.state.ovf_hi.numel() == RING_LANES,
           "churn job: not the hash layout with the auto-sized ring")
@@ -3570,7 +4011,9 @@ def main(argv) -> int:
           "register_state_gb": job.state.acc.numel() * 4 / 1e9,
           "drains": m.resident_drains, "fire_steps": m.fire_steps,
           "batches": m.steps, "dropped_late": m.dropped_late,
-          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "dropped_capacity": m.dropped_capacity,
+          "fire_latency_ms": fire_latency(m),
+          "launches": launches,
           "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"distinct job: auto layout resolved to {job.state.layout}")
@@ -3592,7 +4035,9 @@ def main(argv) -> int:
           "register_state_gb": job.state.acc.numel() * 4 / 1e9,
           "drains": m.resident_drains, "fire_steps": m.fire_steps,
           "batches": m.steps, "dropped_late": m.dropped_late,
-          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "dropped_capacity": m.dropped_capacity,
+          "fire_latency_ms": fire_latency(m),
+          "launches": launches,
           "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"countmin job: auto layout resolved to {job.state.layout}")
@@ -3612,7 +4057,9 @@ def main(argv) -> int:
           "fire_steps": m.fire_steps, "batches": m.steps,
           "steps_fast": m.steps_fast, "spilled_records": m.spilled_records,
           "dropped_late": m.dropped_late,
-          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "dropped_capacity": m.dropped_capacity,
+          "fire_latency_ms": fire_latency(m),
+          "launches": launches,
           "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"maxprice job: auto layout resolved to {job.state.layout}")
@@ -3632,7 +4079,9 @@ def main(argv) -> int:
           "plane_mb": job.state.acc.numel() * 4 / 1e6,
           "drains": m.resident_drains, "fire_steps": m.fire_steps,
           "batches": m.steps, "dropped_late": m.dropped_late,
-          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "dropped_capacity": m.dropped_capacity,
+          "fire_latency_ms": fire_latency(m),
+          "launches": launches,
           "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "direct" and job.state.acc.shape[1] == 3,
           "mean job: not the direct layout's [C*R, 3] plane")
@@ -3653,6 +4102,7 @@ def main(argv) -> int:
           "dropped_late": m.dropped_late, "layout": job.state.layout,
           "drains": m.resident_drains, "fire_steps": m.fire_steps,
           "batches": m.steps, "dropped_capacity": m.dropped_capacity,
+          "fire_latency_ms": fire_latency(m),
           "launches": launches, "device": kind, "nvidia_smi": smi})
     check(job.state.layout == "hash",
           f"late-reduce job: auto layout resolved to {job.state.layout}")
@@ -3694,14 +4144,21 @@ def main(argv) -> int:
             emit(profile_phase(dev, name, gen,
                                lambda f=job_fn: f(dev, REDUCE_TOTAL),
                                REDUCE_TOTAL))
-    emit({"kernels": [{
+    line = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
         "launches": total_launches[name],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": "bytes", "library_ms": r["library_ms"],
-    } for name, r in recs.items()]})
+    } for name, r in recs.items()]
+    fill = recs["route_lanes"]["kg_fill"]
+    line[0]["kg_fill"] = {
+        "replaces": KG_FILL_REPLACES,
+        "launches": total_launches["route_lanes_fill"],
+        **{k: fill[k] for k in ("max_abs_err", "ms", "nofill_ms", "plain_ms",
+                                "bound_ms", "library_ms")}}
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

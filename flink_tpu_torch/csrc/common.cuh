@@ -1,8 +1,9 @@
 // Shared helpers of the window-path kernels (route_lanes.cu, clear_rows.cu,
 // scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu,
 // sketch_update.cu, sketch_fire.cu and the rest of csrc/):
-// int32 pane arithmetic with the reference's floor semantics, block-wide
-// reductions that end in one atomic per block, a block-wide scan, and the
+// int32 pane arithmetic with the reference's floor semantics, the key-group
+// hash of a key identity, block-wide reductions that end in one atomic per
+// block, a block-wide scan, a shared-memory key-group histogram, and the
 // float min / max combines of the min and max reduces.
 #pragma once
 
@@ -17,6 +18,34 @@ constexpr int32_t kPaneNone = INT32_MIN + 1;
 __device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
   int32_t q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// core/keygroups.py murmur3_32: one 32-bit word, seed 0, length 4.
+__device__ __forceinline__ uint32_t murmur3_32(uint32_t k) {
+  k *= 0xCC9E2D51u;
+  k = rotl32(k, 15);
+  k *= 0x1B873593u;
+  uint32_t h = rotl32(k, 13);
+  h = h * 5u + 0xE6546B64u;
+  h ^= 4u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The key group of a key identity (hi, lo): ops/hashing.py route_hash,
+// then core/keygroups.py assign_to_key_group over maxp groups.
+__device__ __forceinline__ int32_t key_group(uint32_t hi, uint32_t lo,
+                                             int maxp) {
+  const uint32_t h = lo ^ (hi * 0x9E3779B9u);
+  return static_cast<int32_t>(murmur3_32(h) % static_cast<uint32_t>(maxp));
 }
 
 // a mod b in [0, b) for b > 0 (jnp.mod).
@@ -141,4 +170,55 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
   __syncthreads();
   *total = warp_incl[n_warps - 1];
   return (warp > 0 ? warp_incl[warp - 1] : 0) + x - v;
+}
+
+// A block's key-group histogram in dynamic shared memory (``hist``, maxp
+// int32 bins): every thread of the block calls kg_hist_zero, then counts
+// its items with atomicAdd on hist (shared-memory atomics), then every
+// thread calls kg_hist_flush, which adds each non-zero bin to the global
+// histogram with one atomic. A block with n items touches at most n bins,
+// so the flush issues at most n global atomics; it scans all maxp bins, so
+// a caller gives each block many more items than maxp / blockDim.x.
+__device__ __forceinline__ void kg_hist_zero(int32_t* hist, int maxp) {
+  for (int b = threadIdx.x; b < maxp; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void kg_hist_flush(const int32_t* hist, int maxp,
+                                              int32_t* __restrict__ out) {
+  __syncthreads();
+  for (int b = threadIdx.x; b < maxp; b += blockDim.x) {
+    const int32_t v = hist[b];
+    if (v) atomicAdd(&out[b], v);
+  }
+}
+
+// Blocks for a histogramming pass over n items with maxp bins: enough
+// blocks to fill the card (two a multiprocessor), and no more than one per
+// ``threads`` items, each block taking at least 4 * maxp items when that
+// still leaves two a multiprocessor.
+inline int kg_hist_blocks(long long n, int maxp, int threads) {
+  int sms = 132;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long most = (n + threads - 1) / threads;
+  const long long per = 4LL * maxp > threads ? 4LL * maxp : threads;
+  long long want = (n + per - 1) / per;
+  const long long floor_blocks = 2LL * sms;
+  if (want < floor_blocks) want = floor_blocks;
+  if (want > most) want = most;
+  return static_cast<int>(want < 1 ? 1 : want);
+}
+
+// Opt a histogramming kernel into more than the default 48 KB of dynamic
+// shared memory (H100: up to 227 KB a block) when maxp bins need it.
+template <typename K>
+inline cudaError_t kg_hist_smem(K kernel, int maxp) {
+  const int bytes = maxp * static_cast<int>(sizeof(int32_t));
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }

@@ -16,43 +16,39 @@
 // 262,144-lane batch, about 1.7 us at 3.35 TB/s. The hash is a few dozen
 // integer operations a lane, far below the card's integer rate.
 //
-// Design: every access is coalesced (lane i at address i). The three batch
-// scalars (late count, max and min live pane) reduce in registers with warp
-// shuffles, then through shared memory, so each block issues one atomic per
-// scalar instead of one per lane. The scalars land in a 3-int buffer that a
-// one-thread kernel initialises first on the same stream; the reference's
-// bookkeeping that consumes them (ring registration) stays on the device.
+// Design: every access is coalesced (lane i at address i). The batch
+// scalars (late count, max and min live pane, valid lanes) reduce in
+// registers with warp shuffles, then through shared memory, so each block
+// issues one atomic per scalar instead of one per lane. The scalars land in
+// a 4-int buffer that a one-thread kernel initialises first on the same
+// stream; the reference's bookkeeping that consumes them (ring
+// registration) stays on the device.
+//
+// Key-group fill (K4's kg_fill, window_kernels.py:896-915, 934, and K11's
+// kg_batch_fill, :464): the FILL instance of the kernel also bincounts the
+// key group of every owned, valid lane ("mine", counted before the late
+// check, so late, too-old and no-fit lanes count) into an int32 [maxp]
+// histogram. Each block counts into a maxp-bin histogram in shared memory
+// and flushes its non-zero bins with one global atomic each; it walks a
+// grid-stride loop over at least 4 * maxp lanes (kg_hist_blocks), so the
+// zeroing and the flush scan of its maxp bins stay small beside its lanes.
+// maxp runs to Flink's 32,768 bins, 128 KB, past the default 48 KB of
+// dynamic shared memory: the launch opts in (kg_hist_smem). The fill adds
+// 4 maxp bytes of output to the 22 B a lane. The instance without the
+// fill is the kernel as it was: one lane a thread, no shared histogram.
 
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// core/keygroups.py murmur3_32: one 32-bit word, seed 0, length 4.
-__device__ __forceinline__ uint32_t murmur3_32(uint32_t k) {
-  k *= 0xCC9E2D51u;
-  k = rotl32(k, 15);
-  k *= 0x1B873593u;
-  uint32_t h = rotl32(k, 13);
-  h = h * 5u + 0xE6546B64u;
-  h ^= 4u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 __global__ void init_stats(int32_t* stats) {
   stats[0] = 0;          // late lanes
   stats[1] = kPaneNone;  // max live pane
   stats[2] = INT32_MAX;  // min live pane
+  stats[3] = 0;          // valid lanes (the drain's "events")
 }
 
+template <bool FILL>
 __global__ void route_lanes_kernel(
     const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
     const int32_t* __restrict__ ts, const uint8_t* __restrict__ valid, int B,
@@ -61,7 +57,9 @@ __global__ void route_lanes_kernel(
     int maxp,
     int kg_start, int kg_end, int32_t* __restrict__ pane_out,
     int32_t* __restrict__ kg_out, uint8_t* __restrict__ live_out,
-    int32_t* __restrict__ stats) {
+    int32_t* __restrict__ stats, int32_t* __restrict__ fill) {
+  extern __shared__ int32_t hist[];  // FILL: maxp bins
+  if (FILL) kg_hist_zero(hist, maxp);
   // late threshold (window_kernels.py:674-678): clamp before subtracting
   // the lateness so the MIN sentinel watermark cannot wrap int32
   const int32_t wm = *watermark;
@@ -70,33 +68,37 @@ __global__ void route_lanes_kernel(
   const int32_t base = (wm > floor_wm ? wm : floor_wm) - L;
   const int32_t wm_pane_l = floor_div(base + 1 - slide, slide);
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t late = 0, mx = kPaneNone, mn = INT32_MAX;
-  if (i < B) {
-    const uint32_t h = lo[i] ^ (hi[i] * 0x9E3779B9u);  // route_hash
-    const int32_t g = static_cast<int32_t>(murmur3_32(h) % static_cast<uint32_t>(maxp));
+  int32_t late = 0, mx = kPaneNone, mn = INT32_MAX, events = 0;
+  const int stride = FILL ? gridDim.x * blockDim.x : B;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B; i += stride) {
+    const int32_t g = key_group(hi[i], lo[i], maxp);
     const int32_t p = floor_div(ts[i], slide);
-    const bool mine = valid[i] != 0 && g >= kg_start && g <= kg_end;
+    const bool v = valid[i] != 0;
+    const bool mine = v && g >= kg_start && g <= kg_end;
     const bool is_late = mine && (p + (k - 1) <= wm_pane_l || p <= purged);
     const bool live = mine && !is_late;
     pane_out[i] = p;
     kg_out[i] = g;
     live_out[i] = live ? 1 : 0;
-    late = is_late ? 1 : 0;
+    late += is_late ? 1 : 0;
+    events += v ? 1 : 0;
     if (live) {
-      mx = p;
-      mn = p;
+      mx = max(mx, p);
+      mn = min(mn, p);
     }
+    if (FILL && mine) atomicAdd(&hist[g], 1);
   }
-  __shared__ int32_t s_late[32], s_max[32], s_min[32];
+  __shared__ int32_t s_late[32], s_max[32], s_min[32], s_ev[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   late = warp_sum(late);
+  events = warp_sum(events);
   mx = warp_max(mx);
   mn = warp_min(mn);
   if (lane == 0) {
     s_late[warp] = late;
     s_max[warp] = mx;
     s_min[warp] = mn;
+    s_ev[warp] = events;
   }
   __syncthreads();
   if (warp == 0) {
@@ -104,38 +106,58 @@ __global__ void route_lanes_kernel(
     late = lane < n_warps ? s_late[lane] : 0;
     mx = lane < n_warps ? s_max[lane] : kPaneNone;
     mn = lane < n_warps ? s_min[lane] : INT32_MAX;
+    events = lane < n_warps ? s_ev[lane] : 0;
     late = warp_sum(late);
+    events = warp_sum(events);
     mx = warp_max(mx);
     mn = warp_min(mn);
     if (lane == 0) {
       if (late) atomicAdd(&stats[0], late);
       if (mx != kPaneNone) atomicMax(&stats[1], mx);
       if (mn != INT32_MAX) atomicMin(&stats[2], mn);
+      if (events) atomicAdd(&stats[3], events);
     }
   }
+  if (FILL) kg_hist_flush(hist, maxp, fill);
 }
 
 }  // namespace
 
+// ``fill`` null: no key-group fill (the kernel as it was); else an int32
+// [maxp] histogram, zeroed by the caller, that the mine lanes add to.
 extern "C" int route_lanes(const void* hi, const void* lo, const void* ts,
                            const void* valid, int B, const void* watermark,
                            const void* purged_through, int slide, int k,
                            int L, int maxp, int kg_start, int kg_end,
                            void* pane_out,
                            void* kg_out, void* live_out, void* stats,
-                           void* stream) {
+                           void* fill, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   init_stats<<<1, 1, 0, s>>>(static_cast<int32_t*>(stats));
   const int threads = 256;
   const int blocks = (B + threads - 1) / threads;
-  if (blocks > 0) {
-    route_lanes_kernel<<<blocks, threads, 0, s>>>(
-        static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-        static_cast<const int32_t*>(ts), static_cast<const uint8_t*>(valid), B,
-        static_cast<const int32_t*>(watermark),
-        static_cast<const int32_t*>(purged_through), slide, k, L, maxp,
-        kg_start, kg_end, static_cast<int32_t*>(pane_out), static_cast<int32_t*>(kg_out),
-        static_cast<uint8_t*>(live_out), static_cast<int32_t*>(stats));
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const uint32_t* h = static_cast<const uint32_t*>(hi);
+  const uint32_t* l = static_cast<const uint32_t*>(lo);
+  const int32_t* t = static_cast<const int32_t*>(ts);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  const int32_t* w = static_cast<const int32_t*>(watermark);
+  const int32_t* pt = static_cast<const int32_t*>(purged_through);
+  int32_t* po = static_cast<int32_t*>(pane_out);
+  int32_t* ko = static_cast<int32_t*>(kg_out);
+  uint8_t* lv = static_cast<uint8_t*>(live_out);
+  int32_t* st = static_cast<int32_t*>(stats);
+  if (fill == nullptr) {
+    route_lanes_kernel<false><<<blocks, threads, 0, s>>>(
+        h, l, t, v, B, w, pt, slide, k, L, maxp, kg_start, kg_end, po, ko,
+        lv, st, nullptr);
+  } else {
+    cudaError_t e = kg_hist_smem(route_lanes_kernel<true>, maxp);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int fb = kg_hist_blocks(B, maxp, threads);
+    route_lanes_kernel<true><<<fb, threads, maxp * sizeof(int32_t), s>>>(
+        h, l, t, v, B, w, pt, slide, k, L, maxp, kg_start, kg_end, po, ko,
+        lv, st, static_cast<int32_t*>(fill));
   }
   return static_cast<int>(cudaGetLastError());
 }

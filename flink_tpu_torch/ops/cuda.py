@@ -1,13 +1,14 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Sixteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Eighteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
-for its sketch reduces, G16 for its generic reduce) and of the session,
-count-window and rolling stages (G10-G13, G16); each source opens with the
-reference function it replaces, what bounds it on the card and what its
-design does about that:
+for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
+telemetry) and of the session, count-window and rolling stages (G10-G13,
+G16); each source opens with the reference function it replaces, what
+bounds it on the card and what its design does about that:
 
-  G1 ``route_lanes``     key-group routing + the update's lane prologue
+  G1 ``route_lanes``     key-group routing + the update's lane prologue,
+                         and optionally the batch's key-group fill
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
                          (packed planes, or split planes), fresh rows;
      ``fresh_rows``      each ring row's count of fresh flags
@@ -28,6 +29,9 @@ design does about that:
   G15 ``sketch_fire``    sketch windows: pane combine, finalize, compaction
   G16 ``rep_gather``     a generic reduce's sorted values and old rows;
       ``rep_set``        its merged rows set, with the lane bookkeeping
+  G17 ``kg_occupancy``   live keys per key group of a window state
+  G18 ``slot_stats``     a drain slot's flight-recorder row;
+      ``slot_stats_begin`` the slot's counters saved before its update
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -49,7 +53,8 @@ plain PyTorch version (below, same arguments, same results); on a CUDA
 tensor it launches the kernel on the current stream or raises — there is
 no fallback. Outputs and scratch are allocated here with ``torch.empty`` /
 ``torch.zeros``; the kernels allocate nothing. Each wrapper counts its
-launches in ``<wrapper>.launches`` (a plain int), and nowhere else.
+launches in ``<wrapper>.launches`` (a plain int), and nowhere else; G1
+counts its launches with the key-group fill in ``fill_launches`` too.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from flink_tpu_torch.core.keygroups import assign_to_key_group
+from flink_tpu_torch.metrics.drain_stats import DRAIN_STAT_FIELDS
 from flink_tpu_torch.ops.hashing import probe_hash, route_hash
 
 PANE_NONE = -(2**31) + 1
@@ -83,7 +89,7 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "ring_append.cu", "hash_lookup.cu", "compact_table.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
            "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
-           "rep_update.cu")
+           "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -94,7 +100,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                    _P, _P, _P, _P],
+                    _P, _P, _P, _P, _P],
     "clear_rows": [_P, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P],
     "clear_rows_split": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                          _P],
@@ -128,6 +134,10 @@ _SIGNATURES = {
     "rep_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     "rep_set": [_P, _P, _I, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                 _I, _I, _P, _P, _P, _P, _P, _P],
+    "kg_occupancy": [_P, _I, _I, _P, _I, _F, _P, _P, _I, _P, _P],
+    "slot_stats_begin": [_P, _P, _P, _P, _P],
+    "slot_stats": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+                   _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -274,15 +284,28 @@ def _expand(flag, like):
 
 # ------------------------------------------------------------ G1
 
+def kg_batch_fill_plain(kg, mask, n_key_groups: int) -> torch.Tensor:
+    """Per-key-group lane counts (the reference's ``kg_batch_fill``): int32
+    [n_key_groups], the ``mask``-selected lanes bincounted by their key
+    group ``kg`` (int32 [B])."""
+    idx = torch.where(mask, kg.long(), n_key_groups)
+    out = torch.zeros(n_key_groups + 1, dtype=torch.int32, device=kg.device)
+    out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return out[:n_key_groups]
+
+
 def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
                       slide: int, k: int, maxp: int, kg_start: int,
-                      kg_end: int, L: int = 0):
+                      kg_end: int, L: int = 0, fill=None):
     """Plain version of G1. hi/lo: int32 [B] holding uint32 bits; ts int32
     [B] ticks; valid bool [B]; watermark / purged_through int32 0-d; L the
     allowed lateness in ticks. Returns (pane int32 [B], kg int32 [B], live
-    bool [B], stats int32 [3]) with stats = (late lanes, max live pane, min
-    live pane). A lane is late when the newest window holding its pane
-    ended more than L ticks before the watermark, or its pane is purged."""
+    bool [B], stats int32 [4]) with stats = (late lanes, max live pane, min
+    live pane, valid lanes). A lane is late when the newest window holding
+    its pane ended more than L ticks before the watermark, or its pane is
+    purged. ``fill`` (int32 [maxp]), when given, gets the key groups of the
+    owned valid lanes added to it, in place, late lanes included (the
+    reference's kg_fill, counted before the late check)."""
     kg = assign_to_key_group(route_hash(hi, lo), maxp).to(torch.int32)
     pane = _floor_div(ts, slide).to(torch.int32)
     mine = valid & (kg >= kg_start) & (kg <= kg_end)
@@ -294,17 +317,21 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
         late.sum(dtype=torch.int32),
         torch.where(live, pane, PANE_NONE).max(),
         torch.where(live, pane, INT32_MAX).min(),
+        valid.sum(dtype=torch.int32),
     ]).to(torch.int32)
+    if fill is not None:
+        fill += kg_batch_fill_plain(kg, mine, maxp)
     return pane, kg, live, stats
 
 
 def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
-                k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0):
+                k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0,
+                fill=None):
     """G1: see route_lanes_plain for the contract."""
     if _on_cpu(hi):
         return route_lanes_plain(
             hi, lo, ts, valid, watermark, purged_through, slide=slide, k=k,
-            maxp=maxp, kg_start=kg_start, kg_end=kg_end, L=L)
+            maxp=maxp, kg_start=kg_start, kg_end=kg_end, L=L, fill=fill)
     dev = hi.device
     (B,) = hi.shape
     for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
@@ -312,22 +339,28 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
         _check(t, n, dt, (B,), dev)
     _check(watermark, "watermark", torch.int32, (), dev)
     _check(purged_through, "purged_through", torch.int32, (), dev)
+    if fill is not None:
+        _check(fill, "fill", torch.int32, (maxp,), dev)
     if L < 0 or slide + L > INT32_MAX // 2:
         raise ValueError(f"allowed lateness {L} out of range")
     pane = torch.empty(B, dtype=torch.int32, device=dev)
     kg = torch.empty(B, dtype=torch.int32, device=dev)
     live = torch.empty(B, dtype=torch.bool, device=dev)
-    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
     rc = build().route_lanes(
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
         _ptr(purged_through), slide, k, L, maxp, kg_start, kg_end,
-        _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _stream())
+        _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _ptr(fill),
+        _stream())
     _raise_on(rc, "route_lanes")
     route_lanes.launches += 1
+    if fill is not None:
+        route_lanes.fill_launches += 1
     return pane, kg, live, stats
 
 
 route_lanes.launches = 0
+route_lanes.fill_launches = 0      # of those, the launches with the fill
 
 
 # ------------------------------------------------------------ G2
@@ -1855,17 +1888,170 @@ def rep_set(acc, touched, order, key_s, seg_start, merged, *, out=None,
 
 rep_set.launches = 0
 
+# ------------------------------------------------------------ G17
+
+def kg_occupancy_plain(table_keys, *, R: int, maxp: int, acc=None,
+                       neutral=0.0, touched=None, fresh=None) -> torch.Tensor:
+    """Plain version of G17 (the reference's ``kg_occupancy``): int32
+    [maxp], the key groups of the slots alive in any of the R pane rows —
+    a packed plane ``acc`` float32 [C*R, Wc] whose touch column differs
+    from ``neutral``, or split planes' ``touched`` bool [C*R], or a
+    ``fresh`` bool [C*R] cell — bincounted. ``table_keys`` int64 [C]: one
+    key word (hi << 32 | lo) a slot, identity rows in the direct layout."""
+    C = table_keys.shape[0]
+    alive = (compact_alive_plain(acc, C=C, R=R, neutral=neutral)
+             if acc is not None else touched.view(R, C).any(dim=0))
+    if fresh is not None:
+        alive = alive | fresh.view(R, C).any(dim=0)
+    hi, lo = split_words(table_keys)
+    kg = assign_to_key_group(route_hash(hi, lo), maxp).to(torch.int32)
+    return kg_batch_fill_plain(kg, alive, maxp)
+
+
+def kg_occupancy(table_keys, *, R: int, maxp: int, acc=None, neutral=0.0,
+                 touched=None, fresh=None) -> torch.Tensor:
+    """G17: see kg_occupancy_plain for the contract. Exactly one of
+    ``acc`` and ``touched`` is given."""
+    if (acc is None) == (touched is None):
+        raise ValueError("kg_occupancy reads a packed plane or a touched "
+                         "plane, exactly one")
+    if _on_cpu(table_keys):
+        return kg_occupancy_plain(table_keys, R=R, maxp=maxp, acc=acc,
+                                  neutral=neutral, touched=touched,
+                                  fresh=fresh)
+    dev = table_keys.device
+    (C,) = table_keys.shape
+    _check(table_keys, "table_keys", torch.int64, (C,), dev)
+    Wc = 0
+    if acc is not None:
+        Wc = acc.shape[1]
+        _check(acc, "acc", torch.float32, (C * R, Wc), dev)
+    else:
+        _check(touched, "touched", torch.bool, (C * R,), dev)
+    if fresh is not None:
+        _check(fresh, "fresh", torch.bool, (C * R,), dev)
+    if not 0 < maxp <= 1 << 15:
+        raise ValueError(f"{maxp} key groups: G17 bins up to 32,768")
+    out = torch.zeros(maxp, dtype=torch.int32, device=dev)
+    rc = build().kg_occupancy(_ptr(table_keys), C, R, _ptr(acc), Wc,
+                              float(neutral), _ptr(touched), _ptr(fresh),
+                              maxp, _ptr(out), _stream())
+    _raise_on(rc, "kg_occupancy")
+    kg_occupancy.launches += 1
+    return out
+
+
+kg_occupancy.launches = 0
+
+# ------------------------------------------------------------ G18
+
+# panes_advanced counts a watermark jump of at most 2^20 ticks, and 0 for
+# an advance from a fresh job's MIN sentinel (below -2^30)
+PANE_JUMP_CLAMP = 1 << 20
+WM_FRESH = -(1 << 30)
+
+
+def slot_stats_begin_plain(watermark, dropped_late, dropped_capacity,
+                           snap) -> None:
+    """Plain version of G18's companion: the slot's watermark, dropped_late
+    and dropped_capacity (int32 0-d each) before its update, into ``snap``
+    (int32 [3]), in place."""
+    snap.copy_(torch.stack([watermark, dropped_late, dropped_capacity]))
+
+
+def slot_stats_begin(watermark, dropped_late, dropped_capacity,
+                     snap) -> None:
+    """G18's companion: see slot_stats_begin_plain."""
+    if _on_cpu(snap):
+        return slot_stats_begin_plain(watermark, dropped_late,
+                                      dropped_capacity, snap)
+    dev = snap.device
+    for t, n in ((watermark, "watermark"), (dropped_late, "dropped_late"),
+                 (dropped_capacity, "dropped_capacity")):
+        _check(t, n, torch.int32, (), dev)
+    _check(snap, "snap", torch.int32, (3,), dev)
+    _raise_on(build().slot_stats_begin(
+        _ptr(watermark), _ptr(dropped_late), _ptr(dropped_capacity),
+        _ptr(snap), _stream()), "slot_stats_begin")
+    slot_stats_begin.launches += 1
+
+
+slot_stats_begin.launches = 0
+
+
+def slot_stats_plain(row, lane_stats, activity, lane_valid, counts,
+                     dropped_late, dropped_capacity, ovf_n, fill, watermark,
+                     snap, *, slide: int) -> None:
+    """Plain version of G18 (the reference's ``_slot_drain_stats``): one
+    live slot's ``DRAIN_STAT_FIELDS`` row into ``row`` (int32 [9]), in
+    place, after the slot's update and fire. ``lane_stats`` is G1's int32
+    [4] (its last entry the valid lanes), ``activity`` the update's int32
+    0-d, ``lane_valid`` bool [Ft] and ``counts`` int32 [Ft] the slot's
+    fires, ``dropped_late`` / ``dropped_capacity`` / ``ovf_n`` /
+    ``watermark`` the state's counters after the fire, ``fill`` the slot's
+    int32 [maxp] key-group fill (None: kg-fill off), ``snap`` the int32
+    [3] that slot_stats_begin saved before the update."""
+    wm = watermark.long()
+    wm_b = snap[0].long()
+    wb = torch.maximum(wm_b, wm - PANE_JUMP_CLAMP)
+    panes = torch.clamp_min(_floor_div(wm, slide) - _floor_div(wb, slide), 0)
+    panes = torch.where(wm_b < WM_FRESH, 0, panes)
+    zero = torch.zeros((), dtype=torch.int32, device=row.device)
+    row.copy_(torch.stack([
+        lane_stats[3], activity.reshape(()),
+        lane_valid.sum(dtype=torch.int32), counts.sum(dtype=torch.int32),
+        dropped_late - snap[1], dropped_capacity - snap[2], ovf_n,
+        fill.max() if fill is not None and fill.numel() else zero,
+        panes.to(torch.int32),
+    ]).to(torch.int32))
+
+
+def slot_stats(row, lane_stats, activity, lane_valid, counts, dropped_late,
+               dropped_capacity, ovf_n, fill, watermark, snap, *,
+               slide: int) -> None:
+    """G18: see slot_stats_plain for the contract."""
+    if _on_cpu(row):
+        return slot_stats_plain(row, lane_stats, activity, lane_valid,
+                                counts, dropped_late, dropped_capacity,
+                                ovf_n, fill, watermark, snap, slide=slide)
+    dev = row.device
+    (Ft,) = lane_valid.shape
+    _check(row, "row", torch.int32, (len(DRAIN_STAT_FIELDS),), dev)
+    _check(lane_stats, "lane_stats", torch.int32, (4,), dev)
+    _check(activity, "activity", torch.int32, (), dev)
+    _check(lane_valid, "lane_valid", torch.bool, (Ft,), dev)
+    _check(counts, "counts", torch.int32, (Ft,), dev)
+    for t, n in ((dropped_late, "dropped_late"),
+                 (dropped_capacity, "dropped_capacity"), (ovf_n, "ovf_n"),
+                 (watermark, "watermark")):
+        _check(t, n, torch.int32, (), dev)
+    _check(snap, "snap", torch.int32, (3,), dev)
+    maxp = 0
+    if fill is not None:
+        maxp = fill.shape[0]
+        _check(fill, "fill", torch.int32, (maxp,), dev)
+    _raise_on(build().slot_stats(
+        _ptr(lane_stats), _ptr(activity), _ptr(lane_valid), _ptr(counts), Ft,
+        _ptr(dropped_late), _ptr(dropped_capacity), _ptr(ovf_n), _ptr(fill),
+        maxp, _ptr(watermark), _ptr(snap), slide, _ptr(row), _stream()),
+        "slot_stats")
+    slot_stats.launches += 1
+
+
+slot_stats.launches = 0
+
 KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
            hash_lookup, compact_table, segment_sort, session_update,
            count_update, rolling_update, sketch_update, sketch_fire,
-           rep_gather, rep_set)
+           rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats)
 
 
 # wrappers whose kernel lives in another wrapper's source
 _SHARED_SOURCE = {"fresh_rows": "clear_rows.cu",
                   "fire_pack": "fire_compact.cu",
-                  "rep_gather": "rep_update.cu", "rep_set": "rep_update.cu"}
+                  "rep_gather": "rep_update.cu", "rep_set": "rep_update.cu",
+                  "slot_stats_begin": "slot_stats.cu"}
 
 
 def source_of(fn) -> str:
@@ -1876,3 +2062,4 @@ def source_of(fn) -> str:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    route_lanes.fill_launches = 0

@@ -43,7 +43,9 @@ with their corrected full value. Panes purge only once the lateness
 horizon has passed and no re-fire is pending on them.
 
 The O(B) and O(C) work runs in the kernels of ``ops/cuda.py``: G1-G9 for
-the packed planes, G14 (the register scatter) and G15 (the fire) for a
+the packed planes (G1 also counts a batch's lanes per key group, the
+``kg_fill`` skew telemetry; G17 counts live keys per key group,
+``kg_occupancy``), G14 (the register scatter) and G15 (the fire) for a
 sketch, and for a generic reduce G10 (the sort), G16 (the gather and the
 set around the user's combine, which runs as torch ops over a log-step
 segmented scan — ``ops/segment.py`` ``preaggregate``) and G6's
@@ -54,10 +56,10 @@ fired_through / purged_through — stays on the device as small torch ops on
 between slots. State tensors are updated in place where the reference
 donated its buffers to XLA; every such update is marked "in place" below.
 
-Not ported yet (ROADMAP queues 1-2): the key-group counts (K11's
-``kg_occupancy`` and K4's ``kg_fill``: item 7), value dtypes other than
-float32 (item 9), builtin reduces with an explicit neutral or a value of
-more than one dimension (item 9), and the slot-major accumulator layout.
+Not ported yet (ROADMAP queues 1-2): value dtypes other than float32
+(item 9), builtin reduces with an explicit neutral or a value of more than
+one dimension (item 9), the tiered key-group residency (``kg_res``: item
+11), and the slot-major accumulator layout.
 """
 
 from __future__ import annotations
@@ -338,6 +340,34 @@ def ring_append(ovf, mask, hi, lo, pane, vals, lost) -> None:
     kernels.ring_append(ovf, lost, mask, hi, lo, pane, vals)
 
 
+def kg_batch_fill(kg, mask, n_key_groups: int) -> torch.Tensor:
+    """Per-key-group lane counts of one micro-batch (the reference's
+    ``kg_batch_fill``): int32 [n_key_groups], the ``mask``-selected lanes
+    bincounted by their key group ``kg``. On the card ``update`` counts it
+    inside G1 (``kg_fill``); this is the plain form, for the tests."""
+    return kernels.kg_batch_fill_plain(kg, mask, n_key_groups)
+
+
+def kg_occupancy(state: WindowShardState, n_key_groups: int,
+                 red: ReduceSpec,
+                 win: Optional[WindowSpec] = None) -> torch.Tensor:
+    """Per-key-group live-key occupancy of one shard (the reference's
+    ``kg_occupancy``): int32 [n_key_groups], how many table keys with at
+    least one touched pane cell — or, with allowed lateness, a fresh one —
+    hash into each key group (G17). The touch is the packed plane's marker
+    column against the reduce's neutral, or the split planes' ``touched``.
+    ``win`` None reads the fresh plane whatever the lateness. The state is
+    only read."""
+    R = state.pane_ids.shape[0]
+    fresh = (state.fresh if win is None or win.lateness_ticks else None)
+    if state.packed >= 0:
+        return kernels.kg_occupancy(state.table_keys, R=R,
+                                    maxp=n_key_groups, acc=state.acc,
+                                    neutral=red.neutral_value(), fresh=fresh)
+    return kernels.kg_occupancy(state.table_keys, R=R, maxp=n_key_groups,
+                                touched=state.touched, fresh=fresh)
+
+
 def _scalar(v: int, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 
@@ -552,7 +582,9 @@ def _check_plane(state: WindowShardState, red: ReduceSpec) -> str:
 def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
            hi, lo, ts, values, valid, *, maxp: int, kg_start: int = 0,
            kg_end: Optional[int] = None,
-           clear_rows: Optional[torch.Tensor] = None, insert: bool = True):
+           clear_rows: Optional[torch.Tensor] = None, insert: bool = True,
+           kg_fill: int = 0, fill_out: Optional[torch.Tensor] = None,
+           lane_stats: Optional[torch.Tensor] = None):
     """Apply one micro-batch to the shard state, in place (the reference's
     ``update``, in the state's layout and plane; the result equals its
     state with ``precombine`` on and off, up to which slot the hash table
@@ -587,11 +619,21 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     placed lane whose pane is at or before ``fired_through`` marks its
     cell fresh (G3, G16).
 
-    Returns ``(state, activity)``, ``activity`` an int32 0-d tensor on the
-    device: the lanes whose key the table did not hold before the batch
+    ``kg_fill`` (0, or ``maxp``) turns on the skew telemetry's fill: the
+    batch's owned valid lanes counted per key group, before the late check
+    (late, too-old and no-fit lanes count), by G1 — the reference's
+    ``kg_fill``, which its pre-combine and one-scatter branches give
+    alike. The counts go into ``fill_out`` (int32 [maxp], added to in
+    place) when given, else into a new zeroed vector. ``lane_stats`` (int32
+    [4]), when given, receives G1's batch scalars (late lanes, max and min
+    live pane, valid lanes) for the drain's flight recorder.
+
+    Returns ``(state, activity, kgf)``, ``activity`` an int32 0-d tensor on
+    the device: the lanes whose key the table did not hold before the batch
     and holds after it (insert step), or the live lanes whose key is
     missing (fast step); 0 in the direct layout, which has no insert
-    phase to tier."""
+    phase to tier. ``kgf`` is the fill, int32 [kg_fill] (``[0]`` when
+    ``kg_fill`` is 0)."""
     C = state.capacity
     R = win.ring
     k = win.panes_per_window
@@ -606,17 +648,25 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         raise ValueError(
             f"state has a {state.ovf_hi.numel()}-lane overflow ring, the "
             f"spec {win.overflow}")
+    if kg_fill and kg_fill != maxp:
+        raise ValueError(f"kg_fill group count {kg_fill} != max parallelism "
+                         f"{maxp}")
     plane = _check_plane(state, red)
     if L and plane == "sketch":
         raise NotImplementedError(
             "allowed lateness on sketch windows is not ported yet (ROADMAP "
             "queue 1, item 9)")
-    # G1: routing mask, pane, late check, batch pane range
+    kgf = fill_out
+    if kgf is None:
+        kgf = torch.zeros(kg_fill, dtype=torch.int32, device=state.device)
+    # G1: routing mask, pane, late check, batch pane range (and the fill)
     pane, kg, live, stats = kernels.route_lanes(
         hi, lo, ts, valid, state.watermark, state.purged_through,
         slide=win.slide_ticks, k=k, maxp=maxp, kg_start=kg_start,
-        kg_end=kg_end, L=L,
+        kg_end=kg_end, L=L, fill=kgf if kg_fill else None,
     )
+    if lane_stats is not None:
+        lane_stats.copy_(stats)
     state.dropped_late.add_(stats[0])                       # in place
     # pane-ring registration (window_kernels.py:687-716), device scalars
     new_max = torch.maximum(state.max_pane, stats[1])
@@ -663,11 +713,11 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
             state.acc, state.touched, kg_dirty, state.dropped_capacity,
             pane, kg, live, slot, values, state.max_pane, C=C, R=R,
             sketch=red.sketch)
-        return state, activity
+        return state, activity, kgf
     if plane == "split":
         _generic_update(state, red, pane, kg, live, slot, values, kg_dirty,
                         late, C=C, R=R)
-        return state, activity
+        return state, activity, kgf
     count = red.kind == "count"
     if win.overflow:
         # G7: the lanes with no slot go to the overflow ring
@@ -679,7 +729,7 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         None if count else values, state.max_pane, C=C, R=R,
         count_nofit=not win.overflow, op=red.op, **late,
     )
-    return state, activity
+    return state, activity, kgf
 
 
 def _generic_update(state: WindowShardState, red: ReduceSpec, pane, kg,

@@ -89,6 +89,28 @@ more panes than the ring can hold is cut into pane groups that fire
 between them, and a jump of two or more panes between polls fires the
 windows it would otherwise evict first — both as the reference does.
 
+Telemetry (the reference's, executor.py:3686-3802), on an event-time
+time-window job:
+
+  * fire latency, always: every emitted window is one sample weighted by
+    its keys (the ``metrics.fires`` delta) — a drain's fires at their
+    consume, measured from the drain's dispatch; a watermark-only
+    advance's from when the host saw the crossing.
+    ``metrics.fire_latency_pct(q)`` answers the weighted percentile;
+  * ``observability.drain-stats`` (default: the tracing flag, so off):
+    the drain's flight recorder (G18), read with the drain's fires on
+    every ``observability.drain-stats-every``-th drain into a
+    ``DrainTelemetry`` that also takes each staged batch's publish stamp
+    and each dispatch; ``env._pipeline_report()`` is its report;
+  * ``observability.kg-stats`` (default: the tracing flag): the batches'
+    lanes per key group (G1's fill), read with the drain's fires every
+    MON_EVERY batches, and the live keys per key group (G17), refreshed at
+    fire boundaries at most once an ``observability.kg-stats-interval-ms``;
+    ``env._kg_report(k)`` reports both.
+
+``observability.tracing`` (the reference's span tracer) is not ported: it
+raises.
+
 Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
 windows (``count_window(n)``) and event-time session windows go to the
 runners of ``runtime/keyed_jobs.py``. Anything else — another topology,
@@ -103,6 +125,7 @@ its end with the reference's "state backend over capacity" error.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -115,13 +138,17 @@ from flink_tpu_torch.datastream.window.assigners import (
     WindowAssigner,
 )
 from flink_tpu_torch.graph import stream_graph as sg
+from flink_tpu_torch.metrics.drain_stats import DrainTelemetry
+from flink_tpu_torch.metrics.latency import LatencySamples
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
+from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
 from flink_tpu_torch.runtime import keyed_jobs
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
+    build_kg_occupancy_step,
     build_window_resident_drain,
     clear_overflow,
     compact_step,
@@ -151,6 +178,16 @@ HOST_REDUCE = {
 # consecutive drains that placed no key before the insert step gives way
 # to the lookup-only fast step
 TIER_QUIET_CHECKS = 2
+WM_SENTINEL = -(2**31) + 1     # a fresh state's watermark
+
+
+def panes_crossed(wm_before: int, wm_after: int, slide: int) -> int:
+    """Panes a watermark advance from ``wm_before`` to ``wm_after`` ticks
+    crosses, counted as the flight recorder (G18) counts them."""
+    if wm_before < WM_FRESH:
+        return 0
+    wb = max(wm_before, wm_after - PANE_JUMP_CLAMP)
+    return max(0, wm_after // slide - wb // slide)
 
 
 @dataclasses.dataclass
@@ -167,6 +204,25 @@ class JobMetrics:
     spill_peak_keys: int = 0    # most (pane, key) entries the stores held
     dropped_late: int = 0
     dropped_capacity: int = 0
+    fire_step_fires: int = 0    # of ``fires``, those of watermark-only
+                                # advances (the rest: the drains' own)
+    fire_step_panes: int = 0    # panes the watermark-only advances crossed
+                                # (counted as the flight recorder counts)
+    # fire latency: bounded weighted samples, one per emission weighted by
+    # its windows (the reference's; the p99 half of the north-star metric)
+    fire_latency: Any = None
+
+    def record_fire_latency(self, n_windows: int, ms: float) -> None:
+        if self.fire_latency is None:
+            self.fire_latency = LatencySamples()
+        self.fire_latency.record(n_windows, ms)
+
+    def fire_latency_pct(self, q: float):
+        """Weighted percentile (0..100) over emitted windows; None if
+        none."""
+        if not self.fire_latency:
+            return None
+        return self.fire_latency.percentile(q)
 
 
 @dataclasses.dataclass
@@ -293,7 +349,15 @@ class LocalExecutor:
         if env.parallelism != 1:
             raise _unsupported(f"parallelism {env.parallelism}",
                                "ROADMAP queue 1, item 10")
+        if env.config.get_bool("observability.tracing", False):
+            raise _unsupported(
+                "observability.tracing (the step-loop span tracer, the "
+                "reference's metrics/tracing.py SpanTracer)",
+                "ROADMAP queue 1, item 15")
         pipe = _translate(sinks)
+        # a time-window job replaces these with its own telemetry
+        env._pipeline_report = _no_pipeline_report
+        env._kg_report = _no_kg_report(env.max_parallelism)
         # rolling and count stages need no time characteristic; time and
         # session windows run in event time only
         if pipe.window_agg is not None \
@@ -324,6 +388,29 @@ class LocalExecutor:
                 s.close()
         job.finish()
         return JobHandle(job_name, job.metrics, state=job.state)
+
+
+def _no_pipeline_report() -> dict:
+    return {"available": False,
+            "reason": "observability.drain-stats off or the resident loop "
+                      "is not active"}
+
+
+def _no_kg_report(maxp: int):
+    def kg_report(k: int = 10) -> dict:
+        return {"key_groups": maxp, "n_shards": 1, "occupancy_top": [],
+                "fill_top": [], "fill_sampled_batches": 0,
+                "occupied_groups": None}
+    return kg_report
+
+
+def _top_k(arr, k: int):
+    """The k largest non-zero entries of ``arr`` as {"group", "count"}."""
+    if arr is None or not len(arr):
+        return []
+    k = max(1, min(int(k), len(arr)))
+    idx = np.argsort(arr)[::-1][:k]
+    return [{"group": int(g), "count": int(arr[g])} for g in idx if arr[g] > 0]
 
 
 def _check_config(cfg, red: wk.ReduceSpec) -> None:
@@ -421,6 +508,27 @@ class _WindowJob(StageJob):
         self.miss_tolerance = 0      # fast-step misses that keep it fast
         self.bounce_miss = 0         # misses that sent it back to insert
         self.bounce_placed = False   # did that insert period place a key
+        # telemetry (executor.py:3672-3715): both flags default to the
+        # tracing flag, which is off here (tracing raises)
+        tracing = cfg.get_bool("observability.tracing", False)
+        self.kg_stats = cfg.get_bool("observability.kg-stats", tracing)
+        self.kg_interval_s = cfg.get_float(
+            "observability.kg-stats-interval-ms", 1000.0) / 1e3
+        self.drain_stats = cfg.get_bool("observability.drain-stats", tracing)
+        self.drain_stats_every = max(1, cfg.get_int(
+            "observability.drain-stats-every", 8))
+        self.telem: Optional[DrainTelemetry] = None  # built in setup()
+        self.kg_fill_total = np.zeros(self.maxp, np.int64)
+        self.kg_fill_sampled = 0     # batches the fill counts cover
+        self.kg_occ: Optional[np.ndarray] = None
+        self.kg_occ_step = None      # G17, built on first use
+        self.kg_last_refresh = 0.0
+        self.mon_skip = 0            # batches since the last fill sample
+        self.ds_skip = 0             # drains since the last payload read
+        self.pub_seq = 0             # batches staged so far
+        self.wm_dev = WM_SENTINEL    # the device watermark, in ticks
+        env._kg_report = self.kg_report
+        env._pipeline_report = self.pipeline_report
 
     # -- setup on the first batch ------------------------------------------
     def setup(self, origin_ms: int, hi: np.ndarray, lo: np.ndarray) -> None:
@@ -469,13 +577,20 @@ class _WindowJob(StageJob):
             self.depth, self.B, self.device, value_dtype=self.red.dtype,
             value_shape=(() if self.red.kind == "sketch"
                          else self.red.value_shape))
+        tel = dict(kg_fill=self.kg_stats, drain_stats=self.drain_stats)
         self.drain = build_window_resident_drain(
-            self.spec, self.depth, self.maxp, reduced=self.reduced)
+            self.spec, self.depth, self.maxp, reduced=self.reduced, **tel)
         if ovf and layout == "hash":
             # the reference's build_fast (executor.py:2053-2072)
             self.fast_drain = build_window_resident_drain(
                 self.spec, self.depth, self.maxp, reduced=self.reduced,
-                insert=False, arena=self.drain.arena)
+                insert=False, arena=self.drain.arena, **tel)
+        if self.drain_stats:
+            # the flight recorder's host half (executor.py:2325-2350): one
+            # ring lane, since the port runs one shard
+            self.telem = DrainTelemetry(
+                1, self.depth, key_groups=self.maxp if self.kg_stats else 0,
+                kg_alpha=cfg.get_float("observability.kg-heat-alpha", 0.05))
 
     def wm_ticks(self, wm_ms: int) -> int:
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
@@ -487,7 +602,8 @@ class _WindowJob(StageJob):
         self.dispatch()
         self.consume()
         # end of stream: MAX watermark flush (ref Watermark.MAX_WATERMARK)
-        self.fire_until_done(int(self.td.to_ms(MAX_TS - 2)))
+        self.fire_until_done(int(self.td.to_ms(MAX_TS - 2)),
+                             time.perf_counter())
 
     def apply(self, cols, ts_ms) -> None:
         _keys, hi, lo, values = self.encode(cols)
@@ -534,14 +650,15 @@ class _WindowJob(StageJob):
                 g_min_pane = int(g[2].min()) // slide
                 self.dispatch()
                 self.fire_until_done(
-                    min(g_wm, int(self.td.to_ms(g_min_pane * slide)) - 1))
+                    min(g_wm, int(self.td.to_ms(g_min_pane * slide)) - 1),
+                    time.perf_counter())
             self.applied_max_pane = (
                 g_max_pane if self.applied_max_pane is None
                 else max(self.applied_max_pane, g_max_pane))
             self.stage(*g, g_wm)
             if sel is not None:
                 self.dispatch()
-                self.fire_until_done(g_wm)
+                self.fire_until_done(g_wm, time.perf_counter())
 
     def stage(self, hi, lo, ticks, values, wm_ms: int) -> None:
         wm = self.wm_ticks(wm_ms)
@@ -549,6 +666,14 @@ class _WindowJob(StageJob):
         self.staged += 1
         self.staged_wm.append(wm_ms)
         self.metrics.steps += 1
+        if self.telem is not None:
+            # the publish stamp (the reference's ring publish_samples):
+            # (shard, seq, ring fill, max event tick, wall time)
+            self.telem.ingest_publish([(
+                0, self.pub_seq, self.staged,
+                int(ticks.max()) if len(ticks) else None,
+                time.perf_counter())])
+        self.pub_seq += 1
         # with lateness every batch fires eagerly (the next batch's update
         # must see the re-fires of this one done), so it drains alone
         if self.staged == self.depth or self.lateness_ms:
@@ -567,15 +692,37 @@ class _WindowJob(StageJob):
         slots = self.ring.slots(count)
         fast = self.step_mode == "fast"
         drain = self.fast_drain if fast else self.drain
-        self.state, mon, fires = drain(self.state, slots, self.ring.wmv,
-                                       count)
+        out = drain(self.state, slots, self.ring.wmv, count)
+        self.state, mon, fires = out[:3]
+        t_disp = time.perf_counter()
         self.ring.release(count)
-        self.pending = (fires, count, self.staged_wm[-1], mon)
+        self.wm_dev = max([self.wm_dev]
+                          + [self.wm_ticks(w) for w in self.staged_wm])
+        # the sampled reads ride this drain's one read (executor.py:4400-
+        # 4445): the key-group fill every MON_EVERY batches, the flight
+        # recorder every drain-stats-every drains
+        kg_batches = 0
+        if self.kg_stats:
+            self.mon_skip += count
+            if self.mon_skip >= MON_EVERY:
+                self.mon_skip = 0
+                kg_batches = count
+        ds = None
+        if self.drain_stats:
+            self.ds_skip += 1
+            if self.ds_skip >= self.drain_stats_every:
+                self.ds_skip = 0
+                ds = out[3]
+        self.pending = (fires, count, self.staged_wm[-1], mon, t_disp, ds,
+                        kg_batches)
         self.staged = 0
         self.staged_wm = []
         self.metrics.resident_drains += 1
         if fast:
             self.metrics.steps_fast += count
+        if self.telem is not None:
+            # every slot was staged for this drain: the ring is empty after
+            self.telem.on_drain([count], [0], [self.pub_seq - 1], t_disp)
 
     def consume(self) -> None:
         """Read the last drain's fires, ring fills and activity (the one
@@ -584,12 +731,18 @@ class _WindowJob(StageJob):
         due."""
         if self.pending is None:
             return
-        fires, count, last_wm, mon = self.pending
+        fires, count, last_wm, mon, t_disp, ds, kg_batches = self.pending
         self.pending = None
-        lanes = self.emit(fires, mon)
+        fires_before = self.metrics.fires
+        lanes = self.emit(fires, mon, ds, kg_batches)
+        n = self.metrics.fires - fires_before
+        if n:
+            # a drain's fires: from its dispatch to their emission
+            self.metrics.record_fire_latency(
+                n, (time.perf_counter() - t_disp) * 1e3)
         # with lateness the reference fires eagerly after every drain
         if self.lateness_ms or self.lanes_full(lanes[count - 1]):
-            self.fire_until_done(last_wm)
+            self.fire_until_done(last_wm, time.perf_counter())
 
     def lanes_full(self, lanes) -> bool:
         """Did an advance fill all F on-time lanes, or all F re-fire lanes
@@ -597,29 +750,50 @@ class _WindowJob(StageJob):
         F = self.spec.win.fires_per_step
         return lanes[:F].sum() == F or lanes[F:].sum() == F
 
-    def fire_until_done(self, wm_ms: int) -> None:
+    def fire_until_done(self, wm_ms: int, t_cross: Optional[float] = None
+                        ) -> None:
         """Watermark-only advances at ``wm_ms`` until an advance fills fewer
-        than F lanes of either kind (the reference's drain_fires)."""
+        than F lanes of either kind (the reference's drain_fires).
+        ``t_cross``: when the host saw the watermark crossing; each
+        advance's windows record the time from it to their emission as
+        their fire latency."""
         self.consume()
-        wm = torch.tensor(self.wm_ticks(wm_ms), dtype=torch.int32,
-                          device=self.device)
+        # the live keys per key group, before these fires purge panes
+        self.refresh_kg_occupancy()
+        wm_t = self.wm_ticks(wm_ms)
+        wm_after = max(self.wm_dev, wm_t)
+        self.metrics.fire_step_panes += panes_crossed(
+            self.wm_dev, wm_after, self.spec.win.slide_ticks)
+        self.wm_dev = wm_after
+        wm = torch.tensor(wm_t, dtype=torch.int32, device=self.device)
         # compact rows go to the drain's arena slot 0: every drain's rows
         # were read by the consume above. The ring was drained there too,
         # so whether the stores exist is fixed for the loop
         reduced = self.reduced or (self.sink_device_reduce
                                    and not self.stores)
         out = None if reduced else self.drain.arena_rows(0)
+        m = self.metrics
         while True:
             self.state, fires = fire_only(self.state, self.spec, wm,
                                           reduced=reduced, out=out)
-            self.metrics.fire_steps += 1
-            if not self.lanes_full(self.emit(fires)[0]):
+            m.fire_steps += 1
+            fires_before = m.fires
+            lanes = self.emit(fires)[0]
+            n = m.fires - fires_before
+            m.fire_step_fires += n
+            if t_cross is not None:
+                m.record_fire_latency(
+                    n, (time.perf_counter() - t_cross) * 1e3)
+            if not self.lanes_full(lanes):
                 return
 
-    def emit(self, fires, mon=None) -> np.ndarray:
+    def emit(self, fires, mon=None, ds=None, kg_batches: int = 0
+             ) -> np.ndarray:
         """Emit one [D, Ft] (or [Ft]) fire payload with one device->host
         read of its small fields — with a drain's, also its ``mon``: the
-        ring's fill after each slot and the drain's activity — and, when
+        ring's fill after each slot and the drain's activity, and when
+        ``kg_batches`` is above 0 its key-group fill (covering that many
+        batches), and the flight recorder ``ds`` when given — and, when
         rows are needed, one more of the row prefixes and one of the ring.
         Returns the lanes that fired, bool [D, Ft]."""
         st = self.state
@@ -629,27 +803,47 @@ class _WindowJob(StageJob):
             # activity (the value read in its place is not used)
             fills, activity = st.ovf_n.reshape(1), st.ovf_n
         else:
-            fills, activity = mon
-        small = torch.cat([
-            fires.n_fires.reshape(-1).to(torch.float64),
-            st.purged_through.reshape(1).to(torch.float64),
-            activity.reshape(1).to(torch.float64),
-            fills.reshape(-1).to(torch.float64),
-            fires.counts.reshape(-1).to(torch.float64),
-            fires.lane_valid.reshape(-1).to(torch.float64),
-            fires.window_end_ticks.reshape(-1).to(torch.float64),
-            fires.value_sums.reshape(-1).to(torch.float64),
-        ]).cpu().numpy()
+            fills, activity = mon[:2]
+        parts = [
+            fires.n_fires.reshape(-1),
+            st.purged_through.reshape(1),
+            activity.reshape(1),
+            fills.reshape(-1),
+            fires.counts.reshape(-1),
+            fires.lane_valid.reshape(-1),
+            fires.window_end_ticks.reshape(-1),
+            fires.value_sums.reshape(-1),
+        ]
+        n_kg = mon[2].numel() if kg_batches else 0
+        if n_kg:
+            parts.append(mon[2])
+        if ds is not None:
+            parts.append(ds.reshape(-1))
+        small = torch.cat([t.to(torch.float64) for t in parts]).cpu().numpy()
         F = self.spec.win.fire_lanes
         purged_through = int(small[n_slots])
         act = int(small[n_slots + 1])
         at = n_slots + 2
         fills = small[at:at + n_slots].astype(np.int64)
+        at += n_slots
         counts, lanes, ends, vsums = (
-            small[at + n_slots:].reshape(4, n_slots, F))
+            small[at:at + 4 * n_slots * F].reshape(4, n_slots, F))
+        at += 4 * n_slots * F
         counts = (counts * lanes).astype(np.int64)
         lanes = lanes.astype(bool)
         ends = ends.astype(np.int64)
+        if n_kg:
+            self.absorb_kg(small[at:at + n_kg].astype(np.int64), kg_batches)
+            at += n_kg
+        if self.telem is not None and mon is not None:
+            if ds is not None:
+                self.telem.absorb_payload(
+                    small[at:].astype(np.int64).reshape(1, n_slots, -1))
+            if lanes.any():
+                # event time to fire: each live lane is one window end
+                # weighted by its keys
+                self.telem.note_fires(list(zip(ends[lanes].tolist(),
+                                               counts[lanes].tolist())))
         if mon is not None and self.fast_drain is not None:
             self.tier(act)
         n_ring = int(fills[-1])
@@ -739,6 +933,54 @@ class _WindowJob(StageJob):
         keys = self.codec.decode(khi, klo)
         self.sinks_rows([WindowResult(k, int(e), v) for k, e, v in
                          zip(keys, end_ms.tolist(), values.tolist())])
+
+    # -- telemetry ---------------------------------------------------------
+    def absorb_kg(self, kg_sum: np.ndarray, n_batches: int) -> None:
+        """Fold one sampled drain's key-group fill (int64 [maxp], covering
+        ``n_batches`` batches) into the skew telemetry (executor.py:4633-
+        4653)."""
+        self.kg_fill_total += kg_sum
+        self.kg_fill_sampled += n_batches
+        if self.telem is not None:
+            self.telem.absorb_kg_fill(kg_sum, n_batches)
+
+    def refresh_kg_occupancy(self, force: bool = False) -> None:
+        """Run G17 over the state and keep the host view, at most once an
+        ``observability.kg-stats-interval-ms`` (executor.py:3725-3744).
+        Called at fire boundaries, where the loop reads the device
+        anyway; it only reads the state."""
+        if not self.kg_stats or self.state is None:
+            return
+        now = time.monotonic()
+        if not force and now - self.kg_last_refresh < self.kg_interval_s:
+            return
+        self.kg_last_refresh = now
+        if self.kg_occ_step is None:
+            self.kg_occ_step = build_kg_occupancy_step(self.spec, self.maxp)
+        self.kg_occ = self.kg_occ_step(self.state).cpu().numpy().astype(
+            np.int64)
+
+    def kg_report(self, k: int = 10) -> dict:
+        """The reference's ``env._kg_report`` (executor.py:3757-3770)."""
+        occ = self.kg_occ
+        return {
+            "key_groups": self.maxp,
+            "n_shards": 1,
+            "occupancy_top": _top_k(occ, k),
+            "fill_top": _top_k(self.kg_fill_total, k),
+            "fill_sampled_batches": self.kg_fill_sampled,
+            "occupied_groups": (int((occ > 0).sum()) if occ is not None
+                                else None),
+        }
+
+    def pipeline_report(self) -> dict:
+        """The reference's ``env._pipeline_report`` (executor.py:3772-
+        3802): the flight recorder's report, or why there is none."""
+        if self.telem is None:
+            return _no_pipeline_report()
+        rep = self.telem.report(refusals=None)
+        rep["drain_stats_every"] = self.drain_stats_every
+        return rep
 
     # -- the spill tier ----------------------------------------------------
     def tier(self, act: int) -> None:

@@ -17,7 +17,9 @@ from typing import Sequence, Tuple
 
 import torch
 
+from flink_tpu_torch.metrics.drain_stats import DRAIN_STAT_FIELDS
 from flink_tpu_torch.ops import count_windows as cw
+from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import rolling
 from flink_tpu_torch.ops import session_windows as sw
 from flink_tpu_torch.ops import window_kernels as wk
@@ -51,18 +53,23 @@ def init_shard_state(spec: WindowStageSpec, max_parallelism: int,
 
 def mask_update_shard(state: wk.WindowShardState, spec: WindowStageSpec,
                       kg_start: int, kg_end: int, hi, lo, ts, values, valid,
-                      wm, maxp: int, clear_rows=None, insert: bool = True):
+                      wm, maxp: int, clear_rows=None, insert: bool = True,
+                      kg_fill: bool = False, fill_out=None, lane_stats=None):
     """Per-shard body of the mask route: hash to key groups, mask to the
     owned groups, apply the window update (G1-G3; G5 or G8 in the hash
     layout; G7 with an overflow ring), then advance the shard watermark to
-    ``wm`` (int32 0-d) — in place. Returns ``(state, activity)`` as
-    ``update`` does."""
-    state, activity = wk.update(state, spec.win, spec.red, hi, lo, ts,
-                                values, valid, maxp=maxp, kg_start=kg_start,
-                                kg_end=kg_end, clear_rows=clear_rows,
-                                insert=insert)
+    ``wm`` (int32 0-d) — in place. ``kg_fill`` counts the batch's owned
+    lanes per key group inside G1 (observability.kg-stats), into
+    ``fill_out`` when given. Returns ``(state, activity, kgf)`` as
+    ``update`` does (``kgf`` int32 [maxp], or [0] with the fill off);
+    ``lane_stats`` receives G1's batch scalars (see ``update``)."""
+    state, activity, kgf = wk.update(
+        state, spec.win, spec.red, hi, lo, ts, values, valid, maxp=maxp,
+        kg_start=kg_start, kg_end=kg_end, clear_rows=clear_rows,
+        insert=insert, kg_fill=maxp if kg_fill else 0, fill_out=fill_out,
+        lane_stats=lane_stats)
     torch.maximum(state.watermark, wm, out=state.watermark)      # in place
-    return state, activity
+    return state, activity, kgf
 
 
 Slot = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -94,7 +101,9 @@ def _skip_fires(F: int, device, rows=None):
 
 def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                                 max_parallelism: int, reduced: bool = True,
-                                insert: bool = True, arena=None):
+                                insert: bool = True, arena=None,
+                                kg_fill: bool = False,
+                                drain_stats: bool = False):
     """Device-resident ring drain for one device (the reference's
     ``build_window_resident_drain`` at one shard). ``insert=False`` builds
     the fast variant, whose hash-layout updates look keys up and place
@@ -113,13 +122,22 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     lateness each slot's fire is the reference's classic advance (its
     ``build_window_fire_step``, step.py:2303): F on-time lanes and F
     re-fire lanes, purged at once, no purge deferred. Returns
-    ``(state, (ovf_n, activity), fires)``: ``ovf_n`` int32 [depth], the
-    overflow ring's fill after each slot's update (the last live slot's
-    repeated past ``count``; its last entry is the fill after the drain),
-    ``activity`` int32 0-d, the summed activity of the updates (see
-    ``update``), both on the device, and ``fires`` stacked [depth, Ft]
-    (Ft = ``win.fire_lanes``: F, or 2F with lateness);
-    the state is updated in place. Nothing is read back to the host.
+    ``(state, (ovf_n, activity, kg_fill), fires)``: ``ovf_n`` int32
+    [depth], the overflow ring's fill after each slot's update (the last
+    live slot's repeated past ``count``; its last entry is the fill after
+    the drain), ``activity`` int32 0-d, the summed activity of the updates
+    (see ``update``), ``kg_fill`` int32 [max_parallelism], the live slots'
+    lanes per key group summed (G1's fill; [0] when ``kg_fill`` is off),
+    all on the device, and ``fires`` stacked [depth, Ft] (Ft =
+    ``win.fire_lanes``: F, or 2F with lateness); the state is updated in
+    place. Nothing is read back to the host.
+
+    ``drain_stats`` (observability.drain-stats) adds a fourth element,
+    the flight recorder: int32 [depth, len(DRAIN_STAT_FIELDS)], one row a
+    live slot written by G18 after the slot's fire (G18's companion saves
+    the slot's watermark and drop counters before its update), zeros past
+    ``count`` (the reference's contract, its step.py:896-905, at one
+    shard).
 
     ``reduced=True``: ReducedFires, per-lane (count, value sum) reduced on
     the device (G4; G15 for a sketch; G6's fire_pack for a generic
@@ -145,33 +163,53 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
             arena[0] = wk.fire_row_buffers(D, F, state.capacity,
                                            state.device, red=spec.red)
         rows = None if reduced else arena[0]
+        dev = state.device
+        i32 = dict(dtype=torch.int32, device=dev)
         pend = None
         fires = []
         fills = []
-        activity = torch.zeros((), dtype=torch.int32, device=state.device)
+        activity = torch.zeros((), **i32)
+        kgf = torch.zeros((D, max_parallelism) if kg_fill else (0,), **i32)
+        if drain_stats:
+            ds = torch.zeros((D, len(DRAIN_STAT_FIELDS)), **i32)
+            lane_stats = torch.empty((D, 4), **i32)
+            snaps = torch.empty((D, 3), **i32)
         for i in range(D):
             slot_rows = None if rows is None else tuple(r[i] for r in rows)
             if i >= count:
-                fires.append(_skip_fires(F, state.device, slot_rows))
+                fires.append(_skip_fires(F, dev, slot_rows))
                 continue
             hi, lo, ts, values, valid = slots[i]
             wm = wmv[i]
-            _st, act = mask_update_shard(
+            if drain_stats:
+                kernels.slot_stats_begin(state.watermark, state.dropped_late,
+                                         state.dropped_capacity, snaps[i])
+            _st, act, _kgf = mask_update_shard(
                 state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
-                max_parallelism, clear_rows=pend, insert=insert)
+                max_parallelism, clear_rows=pend, insert=insert,
+                kg_fill=kg_fill, fill_out=kgf[i] if kg_fill else None,
+                lane_stats=lane_stats[i] if drain_stats else None)
             activity += act
             fills.append(state.ovf_n.clone())
             state, pend, fr = wk.advance_and_fire_resident(
                 state, spec.win, spec.red, wm, reduced=reduced,
                 out=slot_rows)
             fires.append(fr)
+            if drain_stats:
+                kernels.slot_stats(
+                    ds[i], lane_stats[i], act, fr.lane_valid, fr.counts,
+                    state.dropped_late, state.dropped_capacity, state.ovf_n,
+                    kgf[i] if kg_fill else None, state.watermark, snaps[i],
+                    slide=spec.win.slide_ticks)
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
         if not fills:
             fills.append(state.ovf_n.clone())
         fills += fills[-1:] * (D - len(fills))
-        return (state, (torch.stack(fills), activity),
-                _stack_fires(fires, rows))
+        kg_sum = kgf.sum(0, dtype=torch.int32) if kg_fill else kgf
+        out = (state, (torch.stack(fills), activity, kg_sum),
+               _stack_fires(fires, rows))
+        return out + (ds,) if drain_stats else out
 
     def arena_rows(d: int):
         """Slot ``d``'s [F, C] row views of the arena (compact drains)."""
@@ -180,6 +218,17 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     drain.arena = arena
     drain.arena_rows = arena_rows
     return drain
+
+
+def build_kg_occupancy_step(spec: WindowStageSpec, max_parallelism: int):
+    """Per-key-group live-key occupancy of the stage's state (G17, the
+    reference's ``build_kg_occupancy_step`` at one shard): ``step(state)``
+    -> int32 [max_parallelism] on the device. It only reads the state;
+    the executor runs it at fire boundaries, at most once an
+    ``observability.kg-stats-interval-ms``."""
+    def occupancy_step(state: wk.WindowShardState):
+        return wk.kg_occupancy(state, max_parallelism, spec.red, spec.win)
+    return occupancy_step
 
 
 def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm,

@@ -110,7 +110,7 @@ def _fire_sequence(layout, window, floats):
     pend_t = torch.zeros(R, dtype=torch.bool)
     for hi, lo, ts, vals, valid, wm, _clear in seq:
         sj, act_j = upd_j(sj, hi, lo, ts, vals, valid, pend_j)
-        st, act_t = wkt.update(st, win_t, red_t,
+        st, act_t, _kgf = wkt.update(st, win_t, red_t,
                                *lanes_torch(hi, lo, ts, vals, valid),
                                maxp=MAXP, clear_rows=pend_t)
         if layout == "direct":

@@ -122,7 +122,7 @@ def test_update_sequence_matches_reference(kind):
     upd, _, _ = jax_sketch_kernels(kind)
     for hi, lo, ts, h, valid, wm, clear in sketch_batches(7):
         sj, act_j = upd(sj, hi, lo, ts, h, valid, clear)
-        st, act_t = wkt.update(st, win_t, red_t,
+        st, act_t, _kgf = wkt.update(st, win_t, red_t,
                                *port_lanes(hi, lo, ts, h, valid), maxp=MAXP,
                                clear_rows=torch.from_numpy(clear))
         assert int(act_t) == int(act_j)

@@ -176,7 +176,7 @@ def _step_both(sj, st, window, layout, insert, lanes, wm):
     activities."""
     win_j, red_j, win_t, red_t = _specs(window)
     sj, act_j = _jax_update(window, layout, insert)(sj, *lanes)
-    st, act_t = wkt.update(st, win_t, red_t, *lanes_torch(*lanes),
+    st, act_t, _kgf = wkt.update(st, win_t, red_t, *lanes_torch(*lanes),
                            maxp=MAXP, insert=insert)
     sj = set_watermark(sj, st, wm)
     return sj, int(act_j), int(act_t)

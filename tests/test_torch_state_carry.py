@@ -116,7 +116,7 @@ def test_hash_state_carried_mid_stream_continues_equal():
     n_rows = 0
     for hi, lo, ts, vals, valid, wm, _ in seq[3:]:
         sj, act_j = upd(sj, hi, lo, ts, vals, valid, pend_j)
-        st, act_t = wkt.update(st, win_t, red_t,
+        st, act_t, _kgf = wkt.update(st, win_t, red_t,
                                *lanes_torch(hi, lo, ts, vals, valid),
                                maxp=MAXP, clear_rows=pend_t)
         assert int(act_t) == int(act_j)

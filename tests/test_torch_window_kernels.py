@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G16)."""
+    moves and nothing is compiled (G1-G18)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -154,5 +154,16 @@ def test_cpu_tensors_never_launch_a_kernel():
     red_g = reduce_pair("gmax")[1]
     rolling.update(rolling.init_state(C, device="cpu", red=red_g),
                    lanes[0], lanes[1], lanes[3], lanes[4], red=red_g)
-    assert len(kernels.KERNELS) == 19
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 19
+    # the telemetry: G1's fill, G17, G18 and its companion in a drain
+    from flink_tpu_torch.runtime import step as step_port
+    spec = step_port.WindowStageSpec(win=win_t, red=red_t,
+                                     capacity_per_shard=C)
+    drain = step_port.build_window_resident_drain(
+        spec, 2, MAXP, kg_fill=True, drain_stats=True)
+    st_d = step_port.init_shard_state(spec, MAXP, "cpu")
+    b = batches(6)[:2]
+    drain(st_d, [lanes_torch(*x[:5]) for x in b],
+          torch.tensor([x[5] for x in b], dtype=torch.int32), 2)
+    step_port.build_kg_occupancy_step(spec, MAXP)(st_d)
+    assert len(kernels.KERNELS) == 22
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 22
