@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G18 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G20 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -85,7 +85,17 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 north-star slot (edge: the first advance from the MIN
                 sentinel, a jump past 2^20 ticks, negative watermarks, a
                 watermark that stays, kg-fill off with 2F lanes, the
-                end-of-stream jump).
+                end-of-stream jump). Then (``cep_kernel_phase``) the
+                count NFA of device CEP, bit for bit (every count below
+                2^24): G19 cep_scan at the cep job's shape (16,384 lanes
+                of 1,000 keys, D = 3, capacity 2^16), the cep-within job's
+                (262,144 lanes of 1M keys, D = 20, capacity 2^22), one
+                segment of 262,144 lanes at D = 20 (the non-keyed
+                stream), and the largest D, 128 (15 stages, a hot key,
+                dead lanes); G19 must refuse D = 129; G20 cep_expire over
+                carry [2^22 + 1, 20] with one stale bucket. Library time:
+                none (no PyTorch call computes a segmented matrix-product
+                scan).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -188,6 +198,28 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 re-fire rows are exactly those a late-but-allowed record
                 reached; G1, G2, fresh_rows, G5, G10, G16, fire_pack
                 launched.
+ 15. cep      — BASELINE #5 as bench_configs.py:264-287 runs it:
+                from_collection of its 400,000 events (seed 3; names a, b,
+                x, y at 0.05, 0.05, 0.45, 0.45; 1,000 keys), key_by(key),
+                begin("a").followed_by("b") in processing time, batches of
+                16,384, select(1.0) into a CountingSink. The count must
+                equal numpy's closed form (for each b, the earlier a's of
+                its key), detected == extracted; G5, G10, G19 launched.
+ 16. cep-within — the Flink 1.2 CEP documentation's Getting Started
+                pattern, keyed and in event time: start (id == 42) next
+                middle (SubEvent, volume >= 10) followedBy end (name ==
+                "end") within 10 s (S = 3, Q = 9, D = 20), over 8M events
+                at 100 a ms from a columnar GeneratorSource through
+                to_elements (1M sparse splitmix64 keys; id uniform in
+                [0, 64), SubEvent p 0.5, volume uniform in [0, 20), end p
+                0.1, up to 16 ms out of order behind a 16 ms bounded
+                watermark; each draw a hash of the event's index salted
+                by ``--seed``, default 8), capacity 2^22, the port's
+                default batch. No record dropped, detected == extracted ==
+                rows == numpy's count over every key, and each of 10,000
+                sampled keys' rows, in order, equal to the copied host
+                NFA's over its events in timestamp order on pane-quantised
+                timestamps; G5, G10, G19, G20 launched.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce) carries its fire latency:
@@ -195,16 +227,22 @@ p50 and p99 over its windows, from a drain's dispatch (or a watermark
 crossing) to the emission, with the sample count.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the twelve
-paths; G1's fill nested in G1's entry, numbers from phase 3; G14 and G15 at the distinct job's shapes,
+after. Then one line {"kernels": [...]} (launches summed over the fourteen
+paths; G19's shapes other than cep-within's nested in its entry; G1's fill nested in G1's entry, numbers from phase 3; G14 and G15 at the distinct job's shapes,
 the countmin job's in phase 3's line; the new modes nested under their
 kernel in phase 3's line), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each of the eleven jobs: the generator's host
-time alone, the host's top functions, and the card's busy time and idle
-share from torch.profiler.
+adds, before those two lines, a profile of each of the thirteen jobs: the
+generator's host time alone, the host's top functions (and, for the CEP
+jobs, the cumulative seconds of the element conversion, the reorder
+buffer, the predicates, batch_gaps, the count NFA's advance, replay and
+prune), and the card's busy time and idle share from torch.profiler.
+
+    python3 chip_smoke.py --seed N
+
+salts the cep-within job's events and its sample of keys with N.
 """
 
 import json
@@ -216,6 +254,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch import StreamExecutionEnvironment, native
+from flink_tpu_torch.cep.device import DevicePatternSpec
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.core.keygroups import assign_to_key_group
@@ -3638,6 +3677,355 @@ def check_telemetry(env, job, total, batch, events_per_ms, window_ms,
 
 # ------------------------------------------------------------ profile
 
+# ------------------------------------------------ CEP: G19, G20, two jobs
+
+CEP_TOTAL = 400_000            # bench_configs.py:2915 (run_cep)
+CEP_BATCH = 16_384             # bench_configs.py:276
+CEP_KEYS = 1_000
+CEP_SEED = 3
+CEP_CAPACITY = 1 << 16         # the env's default slots, as the bench runs
+CEPW_TOTAL = 8_000_000         # 80 s of event time: eight within() horizons
+CEPW_EVENTS_PER_MS = 100
+CEPW_KEYS = 1_000_000
+CEPW_CAPACITY = 1 << 22
+CEPW_WITHIN_MS = 10_000
+CEPW_OOO_MS = 16               # run_cep_event_time's bounded out-of-orderness
+CEPW_SAMPLE = 10_000           # keys whose rows the host NFA re-derives
+CEPW_SEED = 8                  # --seed
+# the columnar cep-within event: (key, id, sub, volume, name, ts, seq)
+CW_KEY, CW_ID, CW_SUB, CW_VOL, CW_NAME, CW_TS, CW_SEQ = range(7)
+CEP_KERNELS = ("hash_upsert", "segment_sort", "cep_scan")
+CEPW_KERNELS = CEP_KERNELS + ("cep_expire",)
+
+
+class CepEvent:
+    """bench_configs.py's CEP event (``_cep_events``)."""
+
+    __slots__ = ("name", "key", "ts")
+
+    def __init__(self, name, key, ts):
+        self.name = name
+        self.key = key
+        self.ts = ts
+
+
+def cep_events(total, seed=CEP_SEED):
+    """bench_configs.py:290-307's stream: names a, b, x, y at 0.05, 0.05,
+    0.45, 0.45 and 1,000 keys from ``seed``; returns (events, names,
+    keys)."""
+    rng = np.random.default_rng(seed)
+    names = rng.choice(["a", "b", "x", "y"], total,
+                       p=[0.05, 0.05, 0.45, 0.45])
+    keys = rng.integers(0, CEP_KEYS, total)
+    events = [CepEvent(n, k, i) for i, (n, k) in
+              enumerate(zip(names.tolist(), keys.tolist()))]
+    return events, names, keys
+
+
+def cep_pattern():
+    from flink_tpu_torch.cep import Pattern
+    return (Pattern.begin("a").where(lambda e: e.name == "a")
+            .followed_by("b").where(lambda e: e.name == "b"))
+
+
+def cep_reference(names, keys) -> int:
+    """numpy's count of ``a followedBy b`` matches in arrival order: for
+    each b event, the a events of its key before it."""
+    order = np.argsort(keys, kind="stable")
+    k_s = keys[order]
+    a_s = (names[order] == "a").astype(np.int64)
+    b_s = names[order] == "b"
+    before = np.cumsum(a_s) - a_s
+    starts = np.r_[True, k_s[1:] != k_s[:-1]]
+    first = np.maximum.accumulate(np.where(starts, np.arange(len(k_s)), 0))
+    return int(((before - before[first]) * b_s).sum())
+
+
+def cep_job(device, events):
+    """BASELINE #5 as bench_configs.py:264-287 runs it: processing time,
+    batches of 16,384, select(1.0) into a CountingSink."""
+    from flink_tpu_torch.cep import CEP
+    env = StreamExecutionEnvironment(Configuration(), device=device)
+    env.set_parallelism(1)
+    env.batch_size = CEP_BATCH
+    sink = CountingSink()
+    stream = env.from_collection(events).key_by(lambda e: e.key)
+    CEP.pattern(stream, cep_pattern()).select(lambda m: 1.0).add_sink(sink)
+    return _timed_job(env, "chip-smoke-cep", sink)
+
+
+class _SubEventType(type):
+    """A columnar event is a tuple; a SubEvent is one whose ``sub`` column
+    is set, so ``subtype(SubEvent)`` reads as the documentation's."""
+
+    def __instancecheck__(cls, e):
+        return bool(e[CW_SUB])
+
+
+class SubEvent(metaclass=_SubEventType):
+    pass
+
+
+def cepw_gen(offset, n, seed=None):
+    """The Getting Started pattern's events: 1M sparse keys (splitmix64 of
+    a uniform index), ``id`` uniform in [0, 64), SubEvent with p 0.5,
+    ``volume`` uniform in [0, 20), ``name`` "end" with p 0.1, 100 events a
+    ms arriving up to 16 ms out of order; every draw a hash of the event's
+    index salted by the seed."""
+    salt = (CEPW_SEED if seed is None else seed) << 40
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    key = sparse_ids((unit_draw(idx, salt + 1) * CEPW_KEYS).astype(np.int64))
+    back = (unit_draw(idx, salt + 6) * CEPW_OOO_MS).astype(np.int64)
+    ts = np.maximum(idx // CEPW_EVENTS_PER_MS - back, 0)
+    cols = {
+        "key": key,
+        "id": (unit_draw(idx, salt + 2) * 64).astype(np.int64),
+        "sub": unit_draw(idx, salt + 3) < 0.5,
+        "volume": unit_draw(idx, salt + 4) * 20.0,
+        "name": np.where(unit_draw(idx, salt + 5) < 0.1, "end", "other"),
+        "ts": ts,
+        "seq": idx,
+    }
+    return cols, ts
+
+
+def cepw_pattern():
+    """docs/dev/libs/cep.md's Getting Started pattern (Flink 1.2)."""
+    from flink_tpu_torch.cep import Pattern
+    return (Pattern.begin("start").where(lambda e: e[CW_ID] == 42)
+            .next("middle").subtype(SubEvent)
+            .where(lambda e: e[CW_VOL] >= 10.0)
+            .followed_by("end").where(lambda e: e[CW_NAME] == "end")
+            .within(CEPW_WITHIN_MS))
+
+
+def cepw_select(m):
+    return (m["start"][CW_KEY], m["start"][CW_SEQ], m["middle"][CW_SEQ],
+            m["end"][CW_SEQ])
+
+
+def cepw_job(device, total, capacity=CEPW_CAPACITY):
+    """The pattern keyed by ``key``, in event time, from a columnar
+    GeneratorSource through to_elements, at the port's default batch."""
+    from flink_tpu_torch.cep import CEP
+    from flink_tpu_torch.runtime.sinks import CollectSink
+    from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+    env = StreamExecutionEnvironment(Configuration(), device=device)
+    env.set_parallelism(1)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(capacity)
+    sink = CollectSink()
+    stream = (env.add_source(GeneratorSource(cepw_gen, total=total))
+              .assign_timestamps_and_watermarks(
+                  lambda e: e[CW_TS],
+                  WatermarkStrategy.for_bounded_out_of_orderness(
+                      CEPW_OOO_MS))
+              .key_by(lambda e: e[CW_KEY]))
+    CEP.pattern(stream, cepw_pattern()).select(cepw_select).add_sink(sink)
+    return _timed_job(env, "chip-smoke-cep-within", sink)
+
+
+def cepw_columns(total, chunk=1 << 22):
+    parts = [cepw_gen(off, min(chunk, total - off))[0]
+             for off in range(0, total, chunk)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def cepw_reference(cols, pane_ms) -> int:
+    """numpy's match count over every key: events in (key, ts, arrival)
+    order on pane-quantised timestamps; each start directly followed by a
+    middle of its key within the horizon pairs with every later end of
+    its key within the horizon of the start."""
+    order = np.lexsort((cols["seq"], cols["ts"], cols["key"]))
+    key = cols["key"][order]
+    qts = cols["ts"][order] // pane_ms * pane_ms
+    start = cols["id"][order] == 42
+    mid = cols["sub"][order] & (cols["volume"][order] >= 10.0)
+    end = cols["name"][order] == "end"
+    rank = np.cumsum(np.r_[True, key[1:] != key[:-1]])
+    comp = rank.astype(np.int64) * (1 << 40) + qts
+    n = len(key)
+    i = np.nonzero(start[:-1] & mid[1:] & (key[1:] == key[:-1])
+                   & (qts[1:] - qts[:-1] <= CEPW_WITHIN_MS))[0]
+    last = np.searchsorted(comp, comp[i] + CEPW_WITHIN_MS, side="right") - 1
+    cum_end = np.cumsum(end)
+    got = cum_end[np.minimum(last, n - 1)] - cum_end[i + 1]
+    return int(np.maximum(got, 0).sum())
+
+
+def check_cepw_rows(results, cols, pane_ms, seed):
+    """Every row against numpy's count; for a seeded sample of keys, each
+    key's rows, in order, against the copied host NFA run over that key's
+    events in (timestamp, arrival) order on pane-quantised timestamps
+    (tests/test_cep_device.py:194-204). Returns (rows, numpy's count,
+    sampled keys with a match, their rows)."""
+    from flink_tpu_torch.cep import NFA
+    want_total = cepw_reference(cols, pane_ms)
+    check(len(results) == want_total,
+          f"cep-within: {len(results)} rows, numpy counts {want_total}")
+    rng = np.random.default_rng(seed)
+    sample = sparse_ids(rng.choice(CEPW_KEYS, CEPW_SAMPLE, replace=False))
+    pick = np.isin(cols["key"], sample)
+    sub = {k: v[pick] for k, v in cols.items()}
+    order = np.lexsort((sub["seq"], sub["ts"], sub["key"]))
+    names = list(sub)
+    rows = list(zip(*[sub[k][order].tolist() for k in names]))
+    nfa = NFA(cepw_pattern())
+    want, partials = {}, {}
+    for e in rows:
+        k = e[CW_KEY]
+        p, ms = nfa.process(partials.get(k, []), e,
+                            e[CW_TS] // pane_ms * pane_ms)
+        partials[k] = p
+        want.setdefault(k, []).extend(cepw_select(m) for m in ms)
+    want = {k: v for k, v in want.items() if v}
+    sample_set = set(sample.tolist())
+    got = {}
+    for r in results:
+        if r[0] in sample_set:
+            got.setdefault(r[0], []).append(r)
+    check(got == want,
+          f"cep-within: the sampled keys' rows differ from the host NFA's "
+          f"({sum(map(len, got.values()))} rows against "
+          f"{sum(map(len, want.values()))})")
+    return len(results), want_total, len(want), sum(map(len, want.values()))
+
+
+def cep_lanes(dev, C, B, n_keys, S, Q, kind, seed):
+    """G19's inputs: ``n_keys`` keys on random distinct slots (one key in
+    every lane for ``one_segment``; a fifth of the lanes on one hot key
+    and 5 % of the lanes dead for ``edge``), the stage bits of the job
+    whose shape this is, a carry of small counts."""
+    rng = np.random.default_rng(seed)
+    slots = rng.choice(C, n_keys, replace=False)
+    if kind == "one_segment":
+        slot = np.full(B, slots[0])
+    else:
+        slot = slots[rng.integers(0, n_keys, B)]
+    live = np.ones(B, bool)
+    if kind == "edge":
+        slot = np.where(rng.random(B) < 0.2, slots[0], slot)
+        live = rng.random(B) < 0.95
+    if S == 2:      # the cep job's a, b names
+        u = rng.random(B)
+        masks = np.stack([u < 0.05, (u >= 0.05) & (u < 0.1)], axis=1)
+    elif S == 3:    # the cep-within job's stage probabilities
+        masks = rng.random((B, 3)) < np.array([1 / 64, 0.25, 0.1])
+    else:
+        masks = rng.random((B, S)) < 0.05
+    D = (S - 1) * Q + 2
+    carry = np.zeros((C + 1, D), np.float32)
+    carry[:, D - 1] = 1.0
+    carry[slots, :D - 2] = rng.integers(0, 3, (n_keys, D - 2)) * \
+        (rng.random((n_keys, D - 2)) < 0.1)
+    order, key_s, seg_start = slot_lanes(dev, slot, live, C)
+    return (order, key_s, seg_start, _t(masks, dev, torch.bool),
+            _t(carry, dev, torch.float32), int(np.unique(slot[live]).size))
+
+
+def case_cep_scan(dev, C, B, n_keys, S, Q, relaxed, kind, seed=31):
+    order, key_s, seg_start, masks, carry0, touched = cep_lanes(
+        dev, C, B, n_keys, S, Q, kind, seed)
+    q_t = seed % Q
+    args = dict(relaxed=relaxed, Q=Q, q_t=q_t)
+    c1, c2 = carry0.clone(), carry0.clone()
+    d1 = kernels.cep_scan(order, key_s, seg_start, masks, c1, **args)
+    d2 = kernels.cep_scan_plain(order, key_s, seg_start, masks, c2, **args)
+    D = carry0.shape[1]
+    return {
+        "err": max_abs_err((d1, c1), (d2, c2)),
+        "matches": float(d2.sum()),
+        "run": lambda: kernels.cep_scan(order, key_s, seg_start, masks, c1,
+                                        **args),
+        "plain": lambda: kernels.cep_scan_plain(order, key_s, seg_start,
+                                                masks, c2, **args),
+        "library": None,
+        # stage bits, order, sorted key, flag in and the delta out per
+        # lane; a touched key's carry row read and written
+        "bytes": B * (S + 4 + 8 + 1 + 4) + touched * D * 4 * 2,
+    }
+
+
+def case_cep_expire(dev, C, S, Q, seed=32):
+    rng = np.random.default_rng(seed)
+    D = (S - 1) * Q + 2
+    carry0 = _t(rng.integers(0, 4, (C + 1, D)).astype(np.float32), dev,
+                torch.float32)
+    stale = [q == seed % Q for q in range(Q)]
+    c1, c2 = carry0.clone(), carry0.clone()
+    kernels.cep_expire(c1, stale, S=S, Q=Q)
+    kernels.cep_expire_plain(c2, stale, S=S, Q=Q)
+    return {
+        "err": max_abs_err(c1, c2),
+        "run": lambda: kernels.cep_expire(c1, stale, S=S, Q=Q),
+        "plain": lambda: kernels.cep_expire_plain(c2, stale, S=S, Q=Q),
+        "library": None,
+        # the stale columns, read and written
+        "bytes": (C + 1) * (S - 1) * sum(stale) * 4 * 2,
+    }
+
+
+def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
+                     cepw_c=CEPW_CAPACITY, cepw_b=BATCH, cepw_keys=CEPW_KEYS):
+    """Hold G19 and G20 against their plain versions, bit for bit (every
+    count stays below 2^24): G19 at (a) the cep job's shape (16,384 lanes
+    of 1,000 keys, D = 3, capacity 2^16), (b) the cep-within job's
+    (262,144 lanes of 1M keys, D = 20, capacity 2^22), (c) one segment of
+    262,144 lanes at D = 20 (the non-keyed stream), and an edge case at
+    the largest D, 128 (15 stages, Q = 9; a hot key, dead lanes); G20 at
+    (d), carry [2^22 + 1, 20] with one stale bucket. D = 129 must raise.
+    Returns {"cep_scan": record of (b) with (a), (c) and the edge nested,
+    "cep_expire": record of (d)}."""
+    within = (True, False, True)         # begin, next, followedBy
+    shapes = {
+        "cep_job": (CEP_CAPACITY, cep_b, CEP_KEYS, 2, 1, (True, True),
+                    "main"),
+        "cep_within": (cepw_c, cepw_b, cepw_keys, 3, 9, within, "main"),
+        "one_segment": (cepw_c, cepw_b, 1, 3, 9, within, "one_segment"),
+        "edge_d128": (1 << 16, cep_b, 500, 15, 9,
+                      (True, True) + (False,) * 13, "edge"),
+    }
+    recs = {}
+    for name, (C, B, nk, S, Q, relaxed, kind) in shapes.items():
+        c = case_cep_scan(dev, C, B, nk, S, Q, relaxed, kind)
+        check(c["err"] == 0.0, f"cep_scan ({name}) disagrees with its "
+                               f"plain version: max abs err {c['err']}")
+        check(c["matches"] < 2**24, f"cep_scan ({name}): counts reach 2^24")
+        rec = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"]),
+               "lanes": B, "D": (S - 1) * Q + 2, "matches": c["matches"]}
+        if timing:
+            rec["ms"] = time_ms(c["run"])
+            rec["plain_ms"] = time_ms(c["plain"], reps=3)
+            rec["library_ms"] = None
+        recs[name] = rec
+        del c
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    try:
+        kernels.cep_scan(*(torch.zeros(1, dtype=dt, device=dev) for dt in
+                           (torch.int32, torch.int64, torch.bool)),
+                         torch.zeros(1, 2, dtype=torch.bool, device=dev),
+                         torch.zeros(2, 129, dtype=torch.float32, device=dev),
+                         relaxed=(True, True), Q=127, q_t=0)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "cep_scan took D = 129")
+    scan = dict(recs.pop("cep_within"),
+                max_abs_err=max(r["max_abs_err"] for r in recs.values()))
+    scan.update(recs)
+    c = case_cep_expire(dev, cepw_c, 3, 9)
+    check(c["err"] == 0.0, f"cep_expire disagrees with its plain version: "
+                           f"{c['err']}")
+    exp = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"])}
+    if timing:
+        exp["ms"] = time_ms(c["run"])
+        exp["plain_ms"] = time_ms(c["plain"], reps=3)
+        exp["library_ms"] = None
+    del c
+    return {"cep_scan": scan, "cep_expire": exp}
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) intervals, in ms."""
     busy, last_end = 0.0, None
@@ -3651,19 +4039,22 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
-def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS) -> dict:
+def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS,
+                  cumulative=()) -> dict:
     """Where the end-to-end time goes (``--profile`` only): the generator
-    ``gen`` alone on the host, the host profile of the job ``run()``
-    (cProfile, top entries by own time), and its device timeline
-    (torch.profiler): busy time as the union of kernel and copy intervals,
-    and the share of wall time the card sat idle."""
+    ``gen`` alone on the host (None: the job's data is made before it),
+    the host profile of the job ``run()`` (cProfile, top entries by own
+    time, and the cumulative seconds of the functions named in
+    ``cumulative``), and its device timeline (torch.profiler): busy time
+    as the union of kernel and copy intervals, and the share of wall time
+    the card sat idle."""
     import cProfile
     import pstats
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    for off in range(0, total, BATCH):
+    for off in range(0, total if gen is not None else 0, BATCH):
         gen(off, min(BATCH, total - off))
     gen_s = time.perf_counter() - t0
 
@@ -3675,6 +4066,8 @@ def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS) -> dict:
     host_top = sorted(
         ((v[2], f"{k[0].rsplit('/', 2)[-1]}:{k[1]}:{k[2]}")
          for k, v in st.stats.items()), reverse=True)[:12]
+    host_cum = {fn: sum(v[3] for k, v in st.stats.items() if k[2] == fn)
+                for fn in cumulative}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3690,7 +4083,8 @@ def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS) -> dict:
     busy = _busy_ms(spans)
     return {
         "phase": "profile", "job": name, "generator_s": gen_s,
-        "host_top_own_s": host_top, "profiled_wall_s": wall_s,
+        "host_top_own_s": host_top, "host_cumulative_s": host_cum,
+        "profiled_wall_s": wall_s,
         "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / (wall_s * 1e3),
         "device_top_ms": sorted(
@@ -3748,7 +4142,15 @@ KERNEL_SOURCES = {
                          "flink_tpu/runtime/step.py:800"),
     "slot_stats": ("flink_tpu_torch/csrc/slot_stats.cu",
                    "flink_tpu/runtime/step.py:800"),
+    "cep_scan": ("flink_tpu_torch/csrc/cep_scan.cu",
+                 "flink_tpu/cep/device.py:199"),
+    "cep_expire": ("flink_tpu_torch/csrc/cep_scan.cu",
+                   "flink_tpu/cep/device.py:228"),
 }
+# the host functions of the CEP jobs whose cumulative time --profile reads
+CEP_HOST_FUNCTIONS = ("to_elements", "push", "process_batch", "_masks",
+                      "batch_gaps", "advance", "_replay", "prune_dead_keys",
+                      "emit")
 # G1's fill replaces K4's kg_fill branch and K11's kg_batch_fill
 KG_FILL_REPLACES = "flink_tpu/ops/window_kernels.py:464"
 # which kernels each path must launch
@@ -3801,9 +4203,12 @@ def check_launched(launches, names, path):
 
 
 def main(argv) -> int:
+    global CEPW_SEED
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--seed" in argv:
+        CEPW_SEED = int(argv[argv.index("--seed") + 1])
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3834,6 +4239,7 @@ def main(argv) -> int:
         recs.setdefault(name, {}).update(rec)
     for name, rec in telemetry_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
+    recs.update(cep_kernel_phase(dev))
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -4113,6 +4519,58 @@ def main(argv) -> int:
     check_launched(launches, LATE_KERNELS, "late-reduce")
     del sink, job
 
+    events, names, keys = cep_events(CEP_TOTAL)
+    want = cep_reference(names, keys)
+    launches, (sink, job, secs) = run_path(lambda: cep_job(dev, events),
+                                           total_launches)
+    m = job.metrics
+    emit({"phase": "cep", "events": CEP_TOTAL, "seconds": secs,
+          "events_per_s": CEP_TOTAL / secs, "matches": sink.count,
+          "matches_numpy": want, "engine": m.cep_engine,
+          "device_steps": m.cep_device_steps,
+          "matches_detected": m.cep_matches_detected,
+          "matches_extracted": m.cep_matches_extracted,
+          "dropped_capacity": m.dropped_capacity, "launches": launches,
+          "device": kind, "nvidia_smi": smi})
+    check(m.cep_engine == "device" and m.cep_device_steps > 0,
+          "cep job: the device path was not taken")
+    check(sink.count == want == m.cep_matches_detected
+          == m.cep_matches_extracted,
+          f"cep job: {sink.count} matches, numpy {want}, detected "
+          f"{m.cep_matches_detected}, extracted {m.cep_matches_extracted}")
+    check(m.dropped_capacity == 0,
+          f"cep job: {m.dropped_capacity} records dropped")
+    check_launched(launches, CEP_KERNELS, "cep")
+    del sink, job, events, names, keys
+
+    launches, (sink, job, secs) = run_path(
+        lambda: cepw_job(dev, CEPW_TOTAL), total_launches)
+    m = job.metrics
+    cols = cepw_columns(CEPW_TOTAL)
+    pane_ms = DevicePatternSpec.from_pattern(cepw_pattern()).pane_ms
+    n_rows, want, keys_matched, sample_rows = check_cepw_rows(
+        sink.results, cols, pane_ms, CEPW_SEED)
+    emit({"phase": "cep_within", "events": CEPW_TOTAL, "seconds": secs,
+          "events_per_s": CEPW_TOTAL / secs, "rows": n_rows,
+          "rows_numpy": want, "sampled_keys": CEPW_SAMPLE,
+          "sampled_keys_with_matches": keys_matched,
+          "sampled_rows": sample_rows, "seed": CEPW_SEED,
+          "pane_ms": pane_ms, "device_steps": m.cep_device_steps,
+          "matches_detected": m.cep_matches_detected,
+          "matches_extracted": m.cep_matches_extracted,
+          "dropped_capacity": m.dropped_capacity,
+          "carry_mb": job.state.carry.numel() * 4 / 1e6,
+          "table_mb": job.state.table.numel() * 8 / 1e6,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    check(m.dropped_capacity == 0,
+          f"cep-within job: {m.dropped_capacity} records dropped")
+    check(m.cep_matches_detected == m.cep_matches_extracted == n_rows,
+          f"cep-within job: detected {m.cep_matches_detected}, extracted "
+          f"{m.cep_matches_extracted}, rows {n_rows}")
+    check(sample_rows > 0, "cep-within job: no sampled key matched")
+    check_launched(launches, CEPW_KERNELS, "cep-within")
+    del sink, job, cols
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -4144,6 +4602,13 @@ def main(argv) -> int:
             emit(profile_phase(dev, name, gen,
                                lambda f=job_fn: f(dev, REDUCE_TOTAL),
                                REDUCE_TOTAL))
+        events = cep_events(CEP_TOTAL)[0]
+        emit(profile_phase(dev, "cep", None, lambda: cep_job(dev, events),
+                           CEP_TOTAL, CEP_HOST_FUNCTIONS))
+        del events
+        emit(profile_phase(dev, "cep_within", cepw_gen,
+                           lambda: cepw_job(dev, CEPW_TOTAL), CEPW_TOTAL,
+                           CEP_HOST_FUNCTIONS))
     line = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

@@ -9,14 +9,15 @@ Layer map (mirrors flink_tpu/):
   core/       — config, time, key groups, types
   ops/        — hashing, the hash table, the window, session, count-window
                 and rolling operators, the segment sort, and the kernels
+  cep/        — CEP: the pattern API, the host NFA, the device count NFA
   datastream/ — user-facing DataStream API
   graph/      — transformation graph
   runtime/    — executor, device ring, steps, sources, sinks, watermarks
 
 The port runs one keyed stage a job: an event-time tumbling or sliding
-window, an event-time session window, a count window or a rolling sum,
-with a sum or count, into any of its sinks (ROADMAP.md lists what comes
-next).
+window, an event-time session window, a count window, a rolling reduce,
+or a CEP pattern (``flink_tpu_torch.cep``), into any of its sinks
+(ROADMAP.md lists what comes next).
 """
 
 __version__ = "0.1.0"

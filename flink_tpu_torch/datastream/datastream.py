@@ -8,8 +8,9 @@ and event-time session assigners), ``count_window``, the window ``sum``,
 ``count``, ``min``, ``max``, ``mean``, ``reduce`` and ``aggregate``, the
 sketch windows ``distinct_count`` (HyperLogLog) and ``count_min``, the
 rolling ``KeyedStream.sum`` and ``KeyedStream.reduce``,
-``allowed_lateness``, ``add_sink`` and
-``assign_timestamps_and_watermarks``. A ``reduce``'s function is an
+``allowed_lateness``, ``add_sink``, ``assign_timestamps_and_watermarks``
+and, for ``CEP.pattern(...).select`` / ``flat_select``, the
+``KeyedStream.process`` of a ``CEPProcessFunction``. A ``reduce``'s function is an
 associative callable on torch tensors, as the reference's is on jnp
 arrays. Every other method
 of the reference exists and raises NotImplementedError naming the ROADMAP
@@ -144,7 +145,20 @@ class KeyedStream(DataStream):
         )
         return DataStream(self.env, t)
 
-    process = _later("KeyedStream", "process", _OPS)
+    def process(self, fn) -> DataStream:
+        """A keyed ProcessFunction stage. The port runs the one that
+        ``CEP.pattern(...).select`` / ``flat_select`` builds (a
+        ``CEPProcessFunction``, on the device CEP path); any other function
+        raises (ROADMAP queue 1, item 9)."""
+        from flink_tpu_torch.cep.operator import CEPProcessFunction
+
+        if not isinstance(fn, CEPProcessFunction):
+            raise NotImplementedError(
+                f"KeyedStream.process with {type(fn).__name__} is not "
+                f"ported to flink_tpu_torch yet ({_OPS})")
+        t = sg.ProcessTransformation("process", self.transformation, fn=fn)
+        return DataStream(self.env, t)
+
     as_queryable_state = _later("KeyedStream", "as_queryable_state", _EDGES)
 
 

@@ -96,10 +96,15 @@ class StreamExecutionEnvironment:
         t = sg.SourceTransformation(name, None, source=source)
         return DataStream(self, t)
 
-    from_collection = _later("StreamExecutionEnvironment", "from_collection",
-                             "ROADMAP queue 1, item 6")
-    from_elements = _later("StreamExecutionEnvironment", "from_elements",
-                           "ROADMAP queue 1, item 6")
+    def from_collection(self, elements) -> DataStream:
+        """An element-mode stream over a finite collection. The port runs
+        element streams into CEP patterns; a window or rolling stage over
+        one raises (ROADMAP queue 1, item 9)."""
+        return self.add_source(src_mod.CollectionSource(list(elements)))
+
+    def from_elements(self, *elements) -> DataStream:
+        return self.from_collection(list(elements))
+
     socket_text_stream = _later("StreamExecutionEnvironment",
                                 "socket_text_stream",
                                 "ROADMAP queue 1, item 15")

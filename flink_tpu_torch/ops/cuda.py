@@ -1,11 +1,12 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Eighteen CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Twenty CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
 for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
-telemetry) and of the session, count-window and rolling stages (G10-G13,
-G16); each source opens with the reference function it replaces, what
-bounds it on the card and what its design does about that:
+telemetry), of the session, count-window and rolling stages (G10-G13,
+G16) and of device CEP (G19, G20, with G5 and G10); each source opens
+with the reference function it replaces, what bounds it on the card and
+what its design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue,
                          and optionally the batch's key-group fill
@@ -32,6 +33,9 @@ bounds it on the card and what its design does about that:
   G17 ``kg_occupancy``   live keys per key group of a window state
   G18 ``slot_stats``     a drain slot's flight-recorder row;
       ``slot_stats_begin`` the slot's counters saved before its update
+  G19 ``cep_scan``       CEP's count NFA: each key's events applied in lane
+                         order to its carried count vector, match deltas
+  G20 ``cep_expire``     CEP's within() expiry: stale ring buckets zeroed
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -89,7 +93,8 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "ring_append.cu", "hash_lookup.cu", "compact_table.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
            "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
-           "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu")
+           "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu",
+           "cep_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -98,6 +103,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P],
@@ -138,6 +144,8 @@ _SIGNATURES = {
     "slot_stats_begin": [_P, _P, _P, _P, _P],
     "slot_stats": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P,
                    _P],
+    "cep_scan": [_P] * 5 + [_I] * 6 + [_P] * 7,
+    "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -2040,18 +2048,201 @@ def slot_stats(row, lane_stats, activity, lane_valid, counts, dropped_late,
 
 slot_stats.launches = 0
 
+
+# ------------------------------------------------------------ G19, G20
+
+CEP_TILE = 256        # lanes per tile of G19 (csrc/cep_scan.cu)
+CEP_MAX_DIM = 128     # the largest state dimension D G19 and G20 take
+CEP_INT_MAX = float(2**31)   # the reference's float32(2^31 - 1)
+
+_RELAXED = {}
+
+
+def _relaxed_bits(relaxed, dev) -> torch.Tensor:
+    """The stages' relaxed flags as a uint8 [S] tensor on ``dev``, made
+    once per (flags, device)."""
+    key = (tuple(bool(r) for r in relaxed), str(dev))
+    t = _RELAXED.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.uint8, device=dev)
+        _RELAXED[key] = t
+    return t
+
+
+def _check_cep_dim(D: int) -> None:
+    if D > CEP_MAX_DIM:
+        raise ValueError(
+            f"the CEP state dimension D = (S - 1) * Q + 2 = {D} exceeds "
+            f"{CEP_MAX_DIM}, the largest cep_scan and cep_expire take: use "
+            f"fewer stages or fewer cep.device.within-buckets")
+
+
+def cep_transitions_plain(masks, live, relaxed, Q: int, q_t: int):
+    """The reference's ``event_matrices`` (cep/device.py:109): per-lane
+    float32 [B, D, D] transitions from the stage bits ``masks`` (bool
+    [B, S]), the identity where ``live`` (bool [B]) is False. ``relaxed``
+    is each stage's contiguity, ``Q`` the within() ring, ``q_t`` this
+    batch's ring slot."""
+    B, S = masks.shape
+    D = (S - 1) * Q + 2
+    dev = masks.device
+    m = (masks & live[:, None]).to(torch.float32)
+    T = torch.zeros(B, D, D, dtype=torch.float32, device=dev)
+    T[:, D - 1, D - 1] = 1.0
+    T[:, D - 2, D - 2] = 1.0
+    if S == 1:
+        T[:, D - 2, D - 1] += m[:, 0]
+    else:
+        for q in range(Q):
+            T[:, D - 2, (S - 2) * Q + q] += m[:, S - 1]
+            if q == q_t:
+                T[:, q, D - 1] += m[:, 0]
+            for s in range(S - 1):
+                if relaxed[s + 1]:
+                    T[:, s * Q + q, s * Q + q] += 1.0
+                if s > 0:
+                    T[:, s * Q + q, (s - 1) * Q + q] += m[:, s]
+    eye = torch.eye(D, dtype=torch.float32, device=dev)
+    return torch.where(live[:, None, None], T, eye)
+
+
+def seg_matmul_scan_plain(seg_start, T):
+    """The reference's ``associative_scan(_seg_matmul)`` (cep/device.py
+    :156): P_i = T_i @ ... @ T_first over each segment of lanes, segments
+    starting where ``seg_start`` is set; Hillis-Steele, log2(B) rounds of
+    batched float32 matrix products."""
+    f, P = seg_start, T
+    n = P.shape[0]
+    off = 1
+    while off < n:
+        comb = torch.bmm(P[off:], P[:-off])
+        nP = torch.where(f[off:, None, None], P[off:], comb)
+        f = torch.cat([f[:off], f[off:] | f[:-off]])
+        P = torch.cat([P[:off], nP])
+        off *= 2
+    return P
+
+
+def cep_scan_plain(order, key_s, seg_start, masks, carry, *, relaxed,
+                   Q: int, q_t: int) -> torch.Tensor:
+    """Plain version of G19, as the reference's ``advance`` computes it
+    after its sort (cep/device.py:251-288): the per-lane matrices T(e),
+    their segmented product P, v = min(P @ carry[key], INT_MAX), each
+    lane's completed matches M_i - M_{i-1}, and the carry row of each
+    segment's last lane with M = 0, then row C := the neutral vector.
+
+    order int32 [B], key_s int64 [B] (the slot, C for a lane with no slot)
+    and seg_start bool [B] from G10 on the slot key; masks bool [B, S] in
+    lane order; carry float32 [C+1, D], updated in place; ``relaxed`` the
+    S stages' contiguity; ``Q`` the within() ring (1 without within);
+    ``q_t`` this batch's ring slot. Returns delta float32 [B] in lane
+    order."""
+    C = carry.shape[0] - 1
+    D = carry.shape[1]
+    o = order.long()
+    live_s = key_s < C
+    T = cep_transitions_plain(masks[o], live_s, relaxed, Q, q_t)
+    P = seg_matmul_scan_plain(seg_start, T)
+    v0 = carry[key_s]
+    v = torch.clamp_max(torch.bmm(P, v0[:, :, None])[:, :, 0], CEP_INT_MAX)
+    M = v[:, D - 2]
+    M_prev = torch.cat([M.new_zeros(1), M[:-1]])
+    delta_s = M - torch.where(seg_start, v0[:, D - 2], M_prev)
+    is_last = _seg_end(seg_start)
+    v_out = v.clone()
+    v_out[:, D - 2] = 0.0
+    carry[key_s[is_last]] = v_out[is_last]
+    carry[C] = 0.0
+    carry[C, D - 1] = 1.0
+    delta = torch.empty_like(delta_s)
+    delta[o] = delta_s
+    return delta
+
+
+def cep_scan(order, key_s, seg_start, masks, carry, *, relaxed, Q: int,
+             q_t: int) -> torch.Tensor:
+    """G19: see cep_scan_plain for the contract. Raises for D above
+    CEP_MAX_DIM."""
+    C1, D = carry.shape
+    S = masks.shape[1]
+    if D != (S - 1) * Q + 2 or len(relaxed) != S or not 0 <= q_t < Q:
+        raise ValueError(f"carry width {D} does not fit S = {S}, Q = {Q}, "
+                         f"q_t = {q_t}")
+    _check_cep_dim(D)
+    if _on_cpu(carry):
+        return cep_scan_plain(order, key_s, seg_start, masks, carry,
+                              relaxed=relaxed, Q=Q, q_t=q_t)
+    dev = carry.device
+    (B,) = order.shape
+    _check(carry, "carry", torch.float32, (C1, D), dev)
+    _check(order, "order", torch.int32, (B,), dev)
+    _check(key_s, "key_s", torch.int64, (B,), dev)
+    _check(seg_start, "seg_start", torch.bool, (B,), dev)
+    _check(masks, "masks", torch.bool, (B, S), dev)
+    n_tiles = -(-B // CEP_TILE)
+    delta = torch.empty(B, dtype=torch.float32, device=dev)
+    reset = torch.empty(max(1, n_tiles), dtype=torch.int32, device=dev)
+    W = torch.empty(max(1, n_tiles) * D, dtype=torch.float32, device=dev)
+    Sv = torch.empty_like(W)
+    A = torch.empty(max(1, n_tiles) * D * D, dtype=torch.float32,
+                    device=dev)
+    rc = build().cep_scan(
+        _ptr(order), _ptr(key_s), _ptr(seg_start), _ptr(masks),
+        _ptr(_relaxed_bits(relaxed, dev)), B, C1 - 1, S, Q, D, q_t,
+        _ptr(carry), _ptr(delta), _ptr(reset), _ptr(W), _ptr(Sv), _ptr(A),
+        _stream())
+    _raise_on(rc, "cep_scan")
+    cep_scan.launches += 1
+    return delta
+
+
+cep_scan.launches = 0
+
+
+def cep_expire_plain(carry, stale, *, S: int, Q: int) -> None:
+    """Plain version of G20, the reference's within() rotation
+    (cep/device.py:228-243): zero the columns s * Q + q (s < S - 1) of
+    every carry row for each ring slot q with ``stale[q]``, in place."""
+    col = torch.zeros(carry.shape[1], dtype=torch.bool, device=carry.device)
+    st = torch.as_tensor(list(stale), dtype=torch.bool, device=carry.device)
+    for s in range(S - 1):
+        col[s * Q:(s + 1) * Q] = st
+    carry.copy_(torch.where(col[None, :], 0.0, carry))
+
+
+def cep_expire(carry, stale, *, S: int, Q: int) -> None:
+    """G20: see cep_expire_plain for the contract. ``stale`` is a host
+    sequence of Q flags."""
+    C1, D = carry.shape
+    if D != (S - 1) * Q + 2 or len(stale) != Q:
+        raise ValueError(f"carry width {D} does not fit S = {S}, Q = {Q}")
+    _check_cep_dim(D)
+    if _on_cpu(carry):
+        return cep_expire_plain(carry, stale, S=S, Q=Q)
+    _check(carry, "carry", torch.float32, (C1, D), carry.device)
+    bits = sum(1 << q for q, st in enumerate(stale) if st)
+    rc = build().cep_expire(_ptr(carry), C1, D, S, Q,
+                            bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, _stream())
+    _raise_on(rc, "cep_expire")
+    cep_expire.launches += 1
+
+
+cep_expire.launches = 0
+
 KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
            hash_lookup, compact_table, segment_sort, session_update,
            count_update, rolling_update, sketch_update, sketch_fire,
-           rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats)
+           rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats,
+           cep_scan, cep_expire)
 
 
 # wrappers whose kernel lives in another wrapper's source
 _SHARED_SOURCE = {"fresh_rows": "clear_rows.cu",
                   "fire_pack": "fire_compact.cu",
                   "rep_gather": "rep_update.cu", "rep_set": "rep_update.cu",
-                  "slot_stats_begin": "slot_stats.cu"}
+                  "slot_stats_begin": "slot_stats.cu",
+                  "cep_expire": "cep_scan.cu"}
 
 
 def source_of(fn) -> str:

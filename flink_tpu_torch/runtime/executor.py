@@ -113,10 +113,15 @@ raises.
 
 Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
 windows (``count_window(n)``) and event-time session windows go to the
-runners of ``runtime/keyed_jobs.py``. Anything else — another topology,
-processing time, checkpoints, parallelism above 1, an operator after the
-stage, a reduce other than sum or count over session and count windows —
-raises NotImplementedError naming the ROADMAP queue item that brings it.
+runners of ``runtime/keyed_jobs.py``; ``CEP.pattern(...).select`` /
+``flat_select`` (keyed or not, processing or event time, from an
+element-mode or a columnar source) to the device CEP job of
+``runtime/cep_job.py``. Anything else — another topology, processing-time
+windows, an element-mode source under a window or rolling stage, the host
+CEP operator (``cep.device.enabled: false``), checkpoints, parallelism
+above 1, an operator after the stage, a reduce other than sum or count
+over session and count windows — raises NotImplementedError naming the
+ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -143,7 +148,7 @@ from flink_tpu_torch.metrics.latency import LatencySamples
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
-from flink_tpu_torch.runtime import keyed_jobs
+from flink_tpu_torch.runtime import cep_job, keyed_jobs
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.step import (
@@ -208,6 +213,13 @@ class JobMetrics:
                                 # advances (the rest: the drains' own)
     fire_step_panes: int = 0    # panes the watermark-only advances crossed
                                 # (counted as the flight recorder counts)
+    # CEP: the engine that ran ("device"; the host NFA is not ported), the
+    # count NFA's steps, and the matches the card detected and the host
+    # replay extracted — the two must agree
+    cep_engine: str = ""
+    cep_device_steps: int = 0
+    cep_matches_detected: int = 0
+    cep_matches_extracted: int = 0
     # fire latency: bounded weighted samples, one per emission weighted by
     # its windows (the reference's; the p99 half of the north-star metric)
     fire_latency: Any = None
@@ -240,10 +252,11 @@ class _Pipeline:
     window_agg: Optional[sg.WindowAggTransformation]
     sinks: List[Any]
     rolling: Optional[sg.KeyedProcessTransformation] = None
+    process: Optional[sg.ProcessTransformation] = None   # CEP
 
     @property
     def stage(self):
-        return self.rolling if self.rolling is not None else self.window_agg
+        return self.rolling or self.process or self.window_agg
 
 
 def _unsupported(what: str, item: str):
@@ -253,8 +266,8 @@ def _unsupported(what: str, item: str):
 
 def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
     """Check the job is a topology the port runs and collect it:
-    source -> [timestamps] -> key_by -> a window aggregation or a rolling
-    sum -> sinks."""
+    source -> [timestamps] -> key_by -> a window aggregation, a rolling
+    reduce or a CEP pattern -> sinks."""
     if not sink_ts:
         raise ValueError("job has no sinks")
     pipe = None
@@ -272,7 +285,8 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             elif isinstance(t, sg.KeyByTransformation) and key_t is None:
                 key_t = t
             elif isinstance(t, (sg.WindowAggTransformation,
-                                sg.KeyedProcessTransformation)) \
+                                sg.KeyedProcessTransformation,
+                                sg.ProcessTransformation)) \
                     and key_t is not None and agg_t is None:
                 agg_t = t
             elif isinstance(t, sg.SinkTransformation) and t is st \
@@ -286,18 +300,23 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             raise _unsupported("a job without a keyed window",
                                "ROADMAP queue 1, item 9")
         if pipe is None:
-            rolling = isinstance(agg_t, sg.KeyedProcessTransformation)
+            def of(cls):
+                return agg_t if isinstance(agg_t, cls) else None
             pipe = _Pipeline(head.source, ts_t, key_t,
-                             None if rolling else agg_t, [st.sink],
-                             agg_t if rolling else None)
+                             of(sg.WindowAggTransformation), [st.sink],
+                             of(sg.KeyedProcessTransformation),
+                             of(sg.ProcessTransformation))
         elif agg_t is pipe.stage:
             pipe.sinks.append(st.sink)
         else:
             raise _unsupported("more than one window stage",
                                "ROADMAP queue 1, item 11")
+    if pipe.process is not None:
+        return pipe
     if not getattr(pipe.source, "columnar", False):
-        raise _unsupported("an element-mode (non-columnar) source",
-                           "ROADMAP queue 1, item 6")
+        raise _unsupported("an element-mode source (from_collection, "
+                           "from_elements) under a window or rolling stage",
+                           "ROADMAP queue 1, item 9")
     if pipe.rolling is not None:
         return pipe
     wagg = pipe.window_agg
@@ -368,7 +387,9 @@ class LocalExecutor:
                 "processing-time session windows"
                 if isinstance(pipe.window_agg.assigner, SessionWindowAssigner)
                 else "processing-time windows", "ROADMAP queue 1, item 9")
-        if pipe.rolling is not None:
+        if pipe.process is not None:
+            job_cls = _cep_job_class(env, pipe)
+        elif pipe.rolling is not None:
             job_cls = keyed_jobs.RollingJob
         elif isinstance(pipe.window_agg.assigner, CountWindowAssigner):
             job_cls = keyed_jobs.CountJob
@@ -388,6 +409,21 @@ class LocalExecutor:
                 s.close()
         job.finish()
         return JobHandle(job_name, job.metrics, state=job.state)
+
+
+def _cep_job_class(env, pipe):
+    """The device CEP job, or a refusal naming what the slice lacks: the
+    reference's host CEP operator (``_run_process``), which it takes with
+    ``cep.device.enabled: false`` and for an event-time job without a
+    timestamp assigner."""
+    if not env.config.get_bool("cep.device.enabled", True):
+        raise _unsupported("cep.device.enabled: false (the host CEP "
+                           "operator)", "ROADMAP queue 1, item 9")
+    if pipe.process.fn.event_time and pipe.ts_transform is None:
+        raise _unsupported("event-time CEP without a timestamp assigner "
+                           "(the host CEP operator)",
+                           "ROADMAP queue 1, item 9")
+    return cep_job.CepJob
 
 
 def _no_pipeline_report() -> dict:

@@ -16,14 +16,16 @@ exactly-once.
 Two data modes: object mode (list of Python elements, general API) and
 columnar mode (dict of numpy arrays + timestamps, the fast path).
 
-This slice of the port carries the source contract and the columnar
-generator. The ring-buffer, socket and native-parser sources wait for
-their slices (ROADMAP queue 1, items 8 and 15).
+This slice of the port carries the source contract, the element-mode
+``CollectionSource`` behind ``from_collection`` / ``from_elements`` (a
+copy of the reference's) and the columnar generator. The ring-buffer,
+socket and native-parser sources wait for their slices (ROADMAP queue 1,
+items 6 and 15).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, List, Optional
 
 
 class Source:
@@ -63,6 +65,25 @@ class Source:
         """Called once a checkpoint containing `offsets` is durable — the
         point where offsets may be committed externally (ref
         FlinkKafkaConsumerBase.notifyCheckpointComplete:384)."""
+
+
+class CollectionSource(Source):
+    """from_collection: finite in-memory source with replayable position."""
+
+    def __init__(self, elements: List[Any]):
+        self.elements = list(elements)
+        self.pos = 0
+
+    def poll(self, max_records: int):
+        chunk = self.elements[self.pos : self.pos + max_records]
+        self.pos += len(chunk)
+        return chunk, self.pos >= len(self.elements)
+
+    def snapshot_offsets(self):
+        return self.pos
+
+    def restore_offsets(self, state):
+        self.pos = int(state)
 
 
 class ColumnarSource(Source):

@@ -79,3 +79,28 @@ def test_every_kernel_has_a_source_counter_and_plain_version():
         assert isinstance(fn.launches, int)
         assert callable(getattr(kernels, f"{fn.__name__}_plain"))
     assert flink_tpu_torch.__version__
+
+
+def test_cep_package_and_its_kernels():
+    """The cep/ package's public names, and G19 / G20 in the kernel table:
+    one source, a counter each, and a plain version that the CPU runs
+    without counting a launch."""
+    from flink_tpu_torch import cep
+    from flink_tpu_torch.cep import accel, device, nfa, operator, pattern
+
+    assert set(cep.__all__) == {"CEP", "PatternStream", "NFA", "Pattern"}
+    assert cep.Pattern is pattern.Pattern and cep.NFA is nfa.NFA
+    assert issubclass(accel.DeviceCepOperator, object)
+    assert operator.CEPProcessFunction.__mro__[1].__name__ == \
+        "ProcessFunction"
+    for fn in (kernels.cep_scan, kernels.cep_expire):
+        assert fn in kernels.KERNELS
+        assert kernels.source_of(fn) == "cep_scan.cu"
+    before = (kernels.cep_scan.launches, kernels.cep_expire.launches)
+    spec = device.DevicePatternSpec(2, (True, True))
+    st = device.init_state(8, 8, spec, device="cpu")
+    z = torch.zeros(2, dtype=torch.int32)
+    device.advance(st, spec, z, z, torch.ones(2, 2, dtype=torch.bool),
+                   torch.ones(2, dtype=torch.bool))
+    kernels.cep_expire(st.carry, [True], S=2, Q=1)
+    assert (kernels.cep_scan.launches, kernels.cep_expire.launches) == before

@@ -432,3 +432,118 @@ def test_reduce_planes_with_fresh_flags_carry_both_ways(kind):
             n_rows += len(wt)
     assert_states_equal(sj, st, rtol=0.0 if exact else 1e-6)
     assert n_rows > 0
+
+
+# ------------------------------------------------------------ device CEP
+
+def _cep_pattern(P):
+    """a, then b strictly next, then c followedBy, within 60 ms: every kind
+    of partial, bucketed on the ring, lives across the carry."""
+    return (P.begin("a").where(lambda e: e[1] == "a")
+            .next("b").where(lambda e: e[1] == "b")
+            .followed_by("c").where(lambda e: e[1] == "c").within(60))
+
+
+def _cep_batches(seed=9, n_batches=8, B=96, n_keys=12):
+    """(events, keys, ts) micro-batches, ts advancing across panes; an
+    event is (key, name, seq)."""
+    rng = np.random.default_rng(seed)
+    out, seq, ts = [], 0, 1_000
+    for _ in range(n_batches):
+        keys = rng.integers(0, n_keys, B).tolist()
+        names = rng.choice(list("abcx"), B, p=[0.3, 0.3, 0.2, 0.2]).tolist()
+        out.append(([(k, a, seq + i) for i, (k, a) in
+                     enumerate(zip(keys, names))], keys, ts))
+        seq += B
+        ts += int(rng.integers(0, 25))
+    return out
+
+
+def _ref_snapshot_from_port(snap):
+    """The port's snapshot in the reference's own classes (its device leaves
+    as a reference CepShardState, its NFA partials as reference Partial /
+    Entry objects): the reference restores only those."""
+    from flink_tpu.cep import nfa as nfa_j
+    from flink_tpu.cep.device import CepShardState
+    from flink_tpu.ops.hashtable import SlotTable
+
+    memo = {}
+
+    def entry(e):
+        if e is None:
+            return None
+        if id(e) not in memo:
+            memo[id(e)] = nfa_j.Entry(e.event)
+            memo[id(e)].edges = [(entry(p), v) for p, v in e.edges]
+        return memo[id(e)]
+
+    d = snap["device"]
+    out = dict(snap)
+    out["device"] = CepShardState(
+        table=SlotTable(jnp.asarray(d["table.keys"]), 16),
+        carry=jnp.asarray(d["carry"]), pane_ids=jnp.asarray(d["pane_ids"]),
+        dropped_capacity=jnp.asarray(d["dropped_capacity"]))
+    out["partials"] = {
+        k: [nfa_j.Partial(p.stage_idx, entry(p.ptr), p.version, p.start_ts)
+            for p in v] for k, v in snap["partials"].items()}
+    return out
+
+
+@pytest.mark.parametrize("direction", ["reference_to_port",
+                                       "port_to_reference"])
+def test_cep_operator_carried_mid_stream_continues_equal(direction):
+    """Four batches on one package, its ``snapshot()`` restored into a fresh
+    operator of the other, four more batches on both continuations: the
+    same match rows (in order), deltas' totals, counters and carry."""
+    from flink_tpu.cep import Pattern as PJ
+    from flink_tpu.cep.accel import DeviceCepOperator as OpJ
+    from flink_tpu_torch.cep import Pattern as PT
+    from flink_tpu_torch.cep.accel import DeviceCepOperator as OpT
+
+    batches = _cep_batches()
+    first, src_cls, dst_cls = ((OpJ, PJ), (OpJ, PJ), (OpT, PT)) \
+        if direction == "reference_to_port" else ((OpT, PT), (OpT, PT),
+                                                  (OpJ, PJ))
+
+    def make(cls_p):
+        cls, P = cls_p
+        kw = {"device": "cpu"} if cls is OpT else {}
+        return cls(_cep_pattern(P), capacity=64, **kw)
+
+    src = make(src_cls)
+    for ev, keys, ts in batches[:4]:
+        src.process_batch(ev, keys, ts)
+    snap = src.snapshot()
+    if direction == "port_to_reference":
+        snap = _ref_snapshot_from_port(snap)
+    dst = make(dst_cls)
+    dst.restore(snap)
+    got_src, got_dst = [], []
+    for ev, keys, ts in batches[4:]:
+        got_src += src.process_batch(ev, keys, ts)
+        got_dst += dst.process_batch(ev, keys, ts)
+    assert got_src and got_dst == got_src
+    for name in ("matches_detected", "matches_extracted", "steps",
+                 "dropped_capacity"):
+        assert getattr(dst, name) == getattr(src, name)
+    assert dst.buffers == src.buffers and dst.trailing == src.trailing
+    a, b = src.snapshot()["device"], dst.snapshot()["device"]
+    rows = (a["table.keys"], np.asarray(a["carry"])) if isinstance(a, dict) \
+        else (np.asarray(a.table.keys), np.asarray(a.carry))
+    rows_b = (b["table.keys"], np.asarray(b["carry"])) if isinstance(b, dict) \
+        else (np.asarray(b.table.keys), np.asarray(b.carry))
+    np.testing.assert_array_equal(rows_b[0], rows[0])
+    np.testing.assert_array_equal(rows_b[1], rows[1])
+
+
+def test_cep_restore_validates_as_the_reference():
+    from flink_tpu_torch.cep import Pattern as PT
+    from flink_tpu_torch.cep.accel import DeviceCepOperator as OpT
+
+    op = OpT(_cep_pattern(PT), capacity=64, device="cpu")
+    snap = op.snapshot()
+    for key, bad in (("capacity", 128), ("pane_ms", 3), ("n_shards", 2),
+                     ("max_parallelism", 64)):
+        with pytest.raises(ValueError):
+            OpT(_cep_pattern(PT), capacity=64, device="cpu").restore(
+                dict(snap, **{key: bad}))

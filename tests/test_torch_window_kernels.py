@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G18)."""
+    moves and nothing is compiled (G1-G20)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -165,5 +165,13 @@ def test_cpu_tensors_never_launch_a_kernel():
     drain(st_d, [lanes_torch(*x[:5]) for x in b],
           torch.tensor([x[5] for x in b], dtype=torch.int32), 2)
     step_port.build_kg_occupancy_step(spec, MAXP)(st_d)
-    assert len(kernels.KERNELS) == 22
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 22
+    # device CEP's count NFA (G19) with within()'s expiry (G20)
+    from flink_tpu_torch.cep import device as cep_device
+    spec_c = cep_device.DevicePatternSpec(3, (True, False, True), 9, 10)
+    st_c = cep_device.init_state(C, 16, spec_c, device="cpu")
+    for pane in (0, 1, 12):
+        cep_device.advance(st_c, spec_c, lanes[0], lanes[1],
+                           lanes[4][:, None].expand(-1, 3).contiguous(),
+                           lanes[4], pane)
+    assert len(kernels.KERNELS) == 24
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 24
