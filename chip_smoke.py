@@ -89,10 +89,12 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 count NFA of device CEP, bit for bit (every count below
                 2^24): G19 cep_scan at the cep job's shape (16,384 lanes
                 of 1,000 keys, D = 3, capacity 2^16), the cep-within job's
-                (262,144 lanes of 1M keys, D = 20, capacity 2^22), one
-                segment of 262,144 lanes at D = 20 (the non-keyed
-                stream), and the largest D, 128 (15 stages, a hot key,
-                dead lanes); G19 must refuse D = 129; G20 cep_expire over
+                (8,192 lanes, the port's default batch, of 1M keys, D =
+                20, capacity 2^22), the same at 262,144 lanes (a stress
+                case), one segment of 262,144 lanes at D = 20 (the
+                non-keyed stream), and the largest D, 128 (15 stages, a
+                hot key, dead lanes); G19 must refuse D = 129; G20
+                cep_expire over
                 carry [2^22 + 1, 20] with one stale bucket. Library time:
                 none (no PyTorch call computes a segmented matrix-product
                 scan).
@@ -216,10 +218,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 watermark; each draw a hash of the event's index salted
                 by ``--seed``, default 8), capacity 2^22, the port's
                 default batch. No record dropped, detected == extracted ==
-                rows == numpy's count over every key, and each of 10,000
-                sampled keys' rows, in order, equal to the copied host
-                NFA's over its events in timestamp order on pane-quantised
-                timestamps; G5, G10, G19, G20 launched.
+                rows; every key's rows, in order, equal to numpy's
+                enumeration of its matches (key, start, middle and end
+                event), and each of 10,000 sampled keys' rows equal to the
+                copied host NFA's over its events in timestamp order on
+                pane-quantised timestamps; G5, G10, G19, G20 launched.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce) carries its fire latency:
@@ -255,7 +258,7 @@ import torch
 
 from flink_tpu_torch import StreamExecutionEnvironment, native
 from flink_tpu_torch.cep.device import DevicePatternSpec
-from flink_tpu_torch.core.config import Configuration
+from flink_tpu_torch.core.config import Configuration, CoreOptions
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.core.keygroups import assign_to_key_group
 from flink_tpu_torch.ops import cuda as kernels
@@ -3688,6 +3691,7 @@ CEPW_TOTAL = 8_000_000         # 80 s of event time: eight within() horizons
 CEPW_EVENTS_PER_MS = 100
 CEPW_KEYS = 1_000_000
 CEPW_CAPACITY = 1 << 22
+CEPW_BATCH = Configuration().get(CoreOptions.BATCH_SIZE)   # 8,192
 CEPW_WITHIN_MS = 10_000
 CEPW_OOO_MS = 16               # run_cep_event_time's bounded out-of-orderness
 CEPW_SAMPLE = 10_000           # keys whose rows the host NFA re-derives
@@ -3811,6 +3815,8 @@ def cepw_job(device, total, capacity=CEPW_CAPACITY):
     from flink_tpu_torch.runtime.sinks import CollectSink
     from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
     env = StreamExecutionEnvironment(Configuration(), device=device)
+    check(env.batch_size == CEPW_BATCH, f"cep-within job: batch "
+          f"{env.batch_size}, the kernel phase times G19 at {CEPW_BATCH}")
     env.set_parallelism(1)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(capacity)
@@ -3831,11 +3837,14 @@ def cepw_columns(total, chunk=1 << 22):
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-def cepw_reference(cols, pane_ms) -> int:
-    """numpy's match count over every key: events in (key, ts, arrival)
-    order on pane-quantised timestamps; each start directly followed by a
+def cepw_reference(cols, pane_ms) -> np.ndarray:
+    """numpy's matches over every key: events in (key, ts, arrival) order
+    on pane-quantised timestamps; each start directly followed by a
     middle of its key within the horizon pairs with every later end of
-    its key within the horizon of the start."""
+    its key within the horizon of the start. Returns int64 rows [M, 4] of
+    cepw_select's (key, start, middle, end seq), each key's in the host
+    NFA's emission order: by end event, then by start (its partials stay
+    in the order they started)."""
     order = np.lexsort((cols["seq"], cols["ts"], cols["key"]))
     key = cols["key"][order]
     qts = cols["ts"][order] // pane_ms * pane_ms
@@ -3848,21 +3857,42 @@ def cepw_reference(cols, pane_ms) -> int:
     i = np.nonzero(start[:-1] & mid[1:] & (key[1:] == key[:-1])
                    & (qts[1:] - qts[:-1] <= CEPW_WITHIN_MS))[0]
     last = np.searchsorted(comp, comp[i] + CEPW_WITHIN_MS, side="right") - 1
-    cum_end = np.cumsum(end)
-    got = cum_end[np.minimum(last, n - 1)] - cum_end[i + 1]
-    return int(np.maximum(got, 0).sum())
+    ends = np.nonzero(end)[0]
+    lo = np.searchsorted(ends, i + 2)
+    n_per = np.maximum(np.searchsorted(ends, np.minimum(last, n - 1),
+                                       side="right") - lo, 0)
+    first = np.cumsum(n_per) - n_per
+    pair = np.repeat(np.arange(len(i)), n_per)
+    j = ends[lo[pair] + np.arange(int(n_per.sum())) - first[pair]]
+    si = i[pair]
+    seq = cols["seq"][order]
+    rows = np.stack([key[si], seq[si], seq[si + 1], seq[j]], axis=1)
+    return rows[np.lexsort((si, j))]
+
+
+def _rows_by_key(rows):
+    out = {}
+    for r in rows:
+        out.setdefault(int(r[0]), []).append(tuple(int(x) for x in r))
+    return out
 
 
 def check_cepw_rows(results, cols, pane_ms, seed):
-    """Every row against numpy's count; for a seeded sample of keys, each
-    key's rows, in order, against the copied host NFA run over that key's
-    events in (timestamp, arrival) order on pane-quantised timestamps
-    (tests/test_cep_device.py:194-204). Returns (rows, numpy's count,
+    """Every key's rows, in order, against numpy's enumeration of its
+    matches; for a seeded sample of keys, each key's rows, in order,
+    against the copied host NFA run over that key's events in (timestamp,
+    arrival) order on pane-quantised timestamps
+    (tests/test_cep_device.py:194-204). Returns (rows, numpy's rows,
     sampled keys with a match, their rows)."""
     from flink_tpu_torch.cep import NFA
-    want_total = cepw_reference(cols, pane_ms)
-    check(len(results) == want_total,
-          f"cep-within: {len(results)} rows, numpy counts {want_total}")
+    want_rows = cepw_reference(cols, pane_ms)
+    got_all = _rows_by_key(results)
+    want_all = _rows_by_key(want_rows.tolist())
+    bad = [k for k in set(got_all) | set(want_all)
+           if got_all.get(k) != want_all.get(k)]
+    check(len(results) == len(want_rows) and not bad,
+          f"cep-within: {len(results)} rows, numpy {len(want_rows)}; "
+          f"{len(bad)} keys' rows differ from numpy's")
     rng = np.random.default_rng(seed)
     sample = sparse_ids(rng.choice(CEPW_KEYS, CEPW_SAMPLE, replace=False))
     pick = np.isin(cols["key"], sample)
@@ -3879,16 +3909,13 @@ def check_cepw_rows(results, cols, pane_ms, seed):
         partials[k] = p
         want.setdefault(k, []).extend(cepw_select(m) for m in ms)
     want = {k: v for k, v in want.items() if v}
-    sample_set = set(sample.tolist())
-    got = {}
-    for r in results:
-        if r[0] in sample_set:
-            got.setdefault(r[0], []).append(r)
+    got = {k: got_all[k] for k in sample.tolist() if k in got_all}
     check(got == want,
           f"cep-within: the sampled keys' rows differ from the host NFA's "
           f"({sum(map(len, got.values()))} rows against "
           f"{sum(map(len, want.values()))})")
-    return len(results), want_total, len(want), sum(map(len, want.values()))
+    return (len(results), len(want_rows), len(want),
+            sum(map(len, want.values())))
 
 
 def cep_lanes(dev, C, B, n_keys, S, Q, kind, seed):
@@ -3966,22 +3993,25 @@ def case_cep_expire(dev, C, S, Q, seed=32):
 
 
 def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
-                     cepw_c=CEPW_CAPACITY, cepw_b=BATCH, cepw_keys=CEPW_KEYS):
+                     cepw_c=CEPW_CAPACITY, cepw_b=CEPW_BATCH,
+                     stress_b=BATCH, cepw_keys=CEPW_KEYS):
     """Hold G19 and G20 against their plain versions, bit for bit (every
     count stays below 2^24): G19 at (a) the cep job's shape (16,384 lanes
-    of 1,000 keys, D = 3, capacity 2^16), (b) the cep-within job's
-    (262,144 lanes of 1M keys, D = 20, capacity 2^22), (c) one segment of
-    262,144 lanes at D = 20 (the non-keyed stream), and an edge case at
-    the largest D, 128 (15 stages, Q = 9; a hot key, dead lanes); G20 at
-    (d), carry [2^22 + 1, 20] with one stale bucket. D = 129 must raise.
-    Returns {"cep_scan": record of (b) with (a), (c) and the edge nested,
-    "cep_expire": record of (d)}."""
+    of 1,000 keys, D = 3, capacity 2^16), (b) the cep-within job's (8,192
+    lanes, its batch, of 1M keys, D = 20, capacity 2^22) and the same at
+    262,144 lanes (stress), (c) one segment of 262,144 lanes at D = 20
+    (the non-keyed stream), and an edge case at the largest D, 128 (15
+    stages, Q = 9; a hot key, dead lanes); G20 at (d), carry [2^22 + 1,
+    20] with one stale bucket. D = 129 must raise. Returns {"cep_scan":
+    record of (b) with the others nested, "cep_expire": record of (d)}."""
     within = (True, False, True)         # begin, next, followedBy
     shapes = {
         "cep_job": (CEP_CAPACITY, cep_b, CEP_KEYS, 2, 1, (True, True),
                     "main"),
         "cep_within": (cepw_c, cepw_b, cepw_keys, 3, 9, within, "main"),
-        "one_segment": (cepw_c, cepw_b, 1, 3, 9, within, "one_segment"),
+        "cep_within_stress": (cepw_c, stress_b, cepw_keys, 3, 9, within,
+                              "main"),
+        "one_segment": (cepw_c, stress_b, 1, 3, 9, within, "one_segment"),
         "edge_d128": (1 << 16, cep_b, 500, 15, 9,
                       (True, True) + (False,) * 13, "edge"),
     }
@@ -4011,8 +4041,9 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
     except ValueError:
         raised = True
     check(raised, "cep_scan took D = 129")
-    scan = dict(recs.pop("cep_within"),
+    scan = dict(recs["cep_within"],
                 max_abs_err=max(r["max_abs_err"] for r in recs.values()))
+    del recs["cep_within"]
     scan.update(recs)
     c = case_cep_expire(dev, cepw_c, 3, 9)
     check(c["err"] == 0.0, f"cep_expire disagrees with its plain version: "

@@ -47,7 +47,7 @@ from flink_tpu_torch.cep.pattern import RELAXED, Pattern
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable, segment
 
-INT_MAX = np.float32(2**31 - 1)
+INT_MAX = np.float32(kernels.CEP_INT_MAX)
 PANE_NONE = np.int32(-(2**31) + 1)
 
 

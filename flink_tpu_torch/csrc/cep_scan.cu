@@ -110,12 +110,15 @@ struct CepArgs {
   const long long* key_s;       // [B] sorted slot keys (C: no slot)
   const uint8_t* seg_start;     // [B]
   const uint8_t* masks;         // [B, S] stage bits, original lane order
-  const uint8_t* relaxed;       // [S]
+  unsigned long long relaxed_lo, relaxed_hi;  // bit s: stage s relaxed
   int B, C, S, Q, D, q_t;
 };
 
 __device__ void load_keep(const CepArgs& a, uint8_t* keep) {
-  for (int s = threadIdx.x; s < a.S - 1; s += blockDim.x) keep[s] = a.relaxed[s + 1];
+  for (int s = threadIdx.x; s < a.S - 1; s += blockDim.x) {
+    const int b = s + 1;
+    keep[s] = static_cast<uint8_t>((b < 64 ? a.relaxed_lo >> b : a.relaxed_hi >> (b - 64)) & 1ull);
+  }
 }
 
 // The tile's last lane with a segment start, or -1.
@@ -257,12 +260,14 @@ __global__ void cep_expire_kernel(float* __restrict__ carry, long long n, int D,
 
 // G19. order int32 [B], key_s int64 [B], seg_start uint8 [B] from G10 on
 // the slot key (C for a lane with no slot); masks uint8 [B, S] in lane
-// order; relaxed uint8 [S]; carry float32 [C+1, D], updated in place;
+// order; the stages' relaxed flags as a 128-bit mask (S <= 127, since D <=
+// kCepMaxDim); carry float32 [C+1, D], updated in place;
 // delta float32 [B] (lane order). Scratch: reset int32 [n_tiles], W and Sv
 // float32 [n_tiles, D], A float32 [n_tiles, D, D], n_tiles =
 // ceil(B / kCepTile).
 extern "C" int cep_scan(const void* order, const void* key_s, const void* seg_start,
-                        const void* masks, const void* relaxed, int B, int C, int S,
+                        const void* masks, unsigned long long relaxed_lo,
+                        unsigned long long relaxed_hi, int B, int C, int S,
                         int Q, int D, int q_t, void* carry, void* delta, void* reset,
                         void* W, void* Sv, void* A, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -271,8 +276,7 @@ extern "C" int cep_scan(const void* order, const void* key_s, const void* seg_st
                   static_cast<const long long*>(key_s),
                   static_cast<const uint8_t*>(seg_start),
                   static_cast<const uint8_t*>(masks),
-                  static_cast<const uint8_t*>(relaxed),
-                  B, C, S, Q, D, q_t};
+                  relaxed_lo, relaxed_hi, B, C, S, Q, D, q_t};
   const int n_tiles = (B + kCepTile - 1) / kCepTile;
   float* Wf = static_cast<float*>(W);
   float* Svf = static_cast<float*>(Sv);

@@ -144,7 +144,7 @@ _SIGNATURES = {
     "slot_stats_begin": [_P, _P, _P, _P, _P],
     "slot_stats": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P,
                    _P],
-    "cep_scan": [_P] * 5 + [_I] * 6 + [_P] * 7,
+    "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 7,
     "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
 }
 
@@ -2055,18 +2055,11 @@ CEP_TILE = 256        # lanes per tile of G19 (csrc/cep_scan.cu)
 CEP_MAX_DIM = 128     # the largest state dimension D G19 and G20 take
 CEP_INT_MAX = float(2**31)   # the reference's float32(2^31 - 1)
 
-_RELAXED = {}
 
-
-def _relaxed_bits(relaxed, dev) -> torch.Tensor:
-    """The stages' relaxed flags as a uint8 [S] tensor on ``dev``, made
-    once per (flags, device)."""
-    key = (tuple(bool(r) for r in relaxed), str(dev))
-    t = _RELAXED.get(key)
-    if t is None:
-        t = torch.tensor(key[0], dtype=torch.uint8, device=dev)
-        _RELAXED[key] = t
-    return t
+def _mask_bits(flags) -> int:
+    """Host flags as one integer, bit i for flag i: G19 and G20 take it
+    as two 64-bit words (at most 127 flags, since D <= CEP_MAX_DIM)."""
+    return sum(1 << i for i, f in enumerate(flags) if f)
 
 
 def _check_cep_dim(D: int) -> None:
@@ -2186,9 +2179,10 @@ def cep_scan(order, key_s, seg_start, masks, carry, *, relaxed, Q: int,
     Sv = torch.empty_like(W)
     A = torch.empty(max(1, n_tiles) * D * D, dtype=torch.float32,
                     device=dev)
+    bits = _mask_bits(relaxed)
     rc = build().cep_scan(
         _ptr(order), _ptr(key_s), _ptr(seg_start), _ptr(masks),
-        _ptr(_relaxed_bits(relaxed, dev)), B, C1 - 1, S, Q, D, q_t,
+        bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, B, C1 - 1, S, Q, D, q_t,
         _ptr(carry), _ptr(delta), _ptr(reset), _ptr(W), _ptr(Sv), _ptr(A),
         _stream())
     _raise_on(rc, "cep_scan")
@@ -2220,7 +2214,7 @@ def cep_expire(carry, stale, *, S: int, Q: int) -> None:
     if _on_cpu(carry):
         return cep_expire_plain(carry, stale, S=S, Q=Q)
     _check(carry, "carry", torch.float32, (C1, D), carry.device)
-    bits = sum(1 << q for q, st in enumerate(stale) if st)
+    bits = _mask_bits(stale)
     rc = build().cep_expire(_ptr(carry), C1, D, S, Q,
                             bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, _stream())
     _raise_on(rc, "cep_expire")
