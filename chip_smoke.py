@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G20 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G22 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -85,7 +85,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 north-star slot (edge: the first advance from the MIN
                 sentinel, a jump past 2^20 ticks, negative watermarks, a
                 watermark that stays, kg-fill off with 2F lanes, the
-                end-of-stream jump). Then (``cep_kernel_phase``) the
+                end-of-stream jump; each also in the chained drain's
+                deferred mode). Then (``cep_kernel_phase``) the
                 count NFA of device CEP, bit for bit (every count below
                 2^24): G19 cep_scan at the cep job's shape (16,384 lanes
                 of 1,000 keys, D = 3, capacity 2^16), the cep-within job's
@@ -97,7 +98,20 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 cep_expire over
                 carry [2^22 + 1, 20] with one stale bucket. Library time:
                 none (no PyTorch call computes a segmented matrix-product
-                scan).
+                scan). Then (``chain_kernel_phase``) the chained stages'
+                kernels, bit for bit: G21 chain_pack at the chained job's
+                real second drain (the stage-0 fires of 1 s windows 2 and
+                3, ~865,000 keys each, in its [16, 2, 1M] arena) into an
+                edge of 2^22 lanes, and on an over-full edge (2^20 lanes),
+                every plane invalid, every plane empty, counts above C,
+                W = 2 values and the end-of-stream watermark clamp; it must
+                refuse 1,025 planes; its library time is none (no PyTorch
+                call packs prefix-compacted planes). G22 fire_columns on
+                that drain's [16, 2] fires (edge: 3 live slots of 16, 4
+                lanes a slot), its library time Tensor.sum(dim=1) over the
+                counts; stage_record at a stage-1 fire (edge: the first
+                advance from the MIN sentinel, the flush, an over-full
+                edge).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -223,25 +237,51 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 event), and each of 10,000 sampled keys' rows equal to the
                 copied host NFA's over its events in timestamp order on
                 pane-quantised timestamps; G5, G10, G19, G20 launched.
+ 17. chained  — a per-second rollup of the north star, two chained keyed
+                window stages in one drain: key_by(key).time_window(1 s)
+                .sum(value).key_by(r.key).time_window(5 s).sum(r.value),
+                the north star's traffic (1M integer keys, 30M events,
+                batches of 262,144, ring depth 16, F = 2), direct layout at
+                capacity 1M, no overflow ring, an edge of 2^22 lanes
+                (pipeline.stages.exchange-lanes). The 1 s windows nest in
+                the 5 s ones, so every one of its ~3M rows must equal
+                numpy's 5 s count of that (key, window); nothing dropped;
+                G1-G3, G6 and G21 launched. Then again with
+                observability.drain-stats on (every drain read): the
+                recorder's stage row must carry every stage-0 row across
+                the edge (numpy's distinct (key, 1 s window) pairs), drop
+                none and peak at most at the edge's width; G18, G22
+                launched.
+ 18. chained-sparse — the same rollup over the sparse job's splitmix64
+                ids, hash layout at capacity 2^21 probed 64 deep: the row
+                count and value sum equal numpy's, every row of the ids 0
+                mod 1024 equal to numpy's, nothing dropped, and G5
+                launched in both stages (once a stage-0 slot plus once a
+                drain).
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
-distinct, countmin, maxprice, mean, late-reduce) carries its fire latency:
+distinct, countmin, maxprice, mean, late-reduce, the three chained runs)
+carries its fire latency:
 p50 and p99 over its windows, from a drain's dispatch (or a watermark
 crossing) to the emission, with the sample count.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the fourteen
-paths; G19's shapes other than cep-within's nested in its entry; G1's fill nested in G1's entry, numbers from phase 3; G14 and G15 at the distinct job's shapes,
-the countmin job's in phase 3's line; the new modes nested under their
-kernel in phase 3's line), and last {"ok": true, "device": {...}}.
+after. Then one line {"kernels": [...]} (launches summed over the
+seventeen paths; G19's shapes other than cep-within's nested in its entry;
+G21's edge cases nested in its entry; G1's fill nested in G1's entry,
+numbers from phase 3; G14 and G15 at the distinct job's shapes, the
+countmin job's in phase 3's line; the new modes nested under their kernel
+in phase 3's line), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each of the thirteen jobs: the
+adds, before those two lines, a profile of each of the fifteen jobs: the
 generator's host time alone, the host's top functions (and, for the CEP
 jobs, the cumulative seconds of the element conversion, the reorder
 buffer, the predicates, batch_gaps, the count NFA's advance, replay and
-prune), and the card's busy time and idle share from torch.profiler.
+prune; for the chained jobs, of the key encode, the drains, their stage
+tails, the fires' reads and emits and the flushes), and the card's busy
+time and idle share from torch.profiler.
 
     python3 chip_smoke.py --seed N
 
@@ -3494,8 +3534,9 @@ SLOT_EDGES = (
 def case_slot_stats(dev, kind):
     """G18 (and its companion, slot_stats_begin) on one drain slot.
     ``main``: a north-star slot whose watermark crosses a window end (F = 2
-    lanes, maxp 128); ``edge``: each of SLOT_EDGES. Held exactly, row for
-    row, and the begin kernel's snapshot likewise."""
+    lanes, maxp 128); ``edge``: each of SLOT_EDGES, with and without the
+    chained drain's deferred fire columns. Held exactly, row for row, and
+    the begin kernel's snapshot likewise."""
     g = torch.Generator(device="cpu").manual_seed(18)
     edges = ((4_998, 5_129, FIRES_PER_STEP, True),) if kind == "main" \
         else SLOT_EDGES
@@ -3507,9 +3548,11 @@ def case_slot_stats(dev, kind):
         args = [inp[n] for n in ("lane_stats", "activity", "lane_valid",
                                  "counts", "dropped_late", "dropped_capacity",
                                  "ovf_n", "fill", "watermark", "snap")]
-        kernels.slot_stats(row_g, *args, slide=WINDOW_MS)
-        kernels.slot_stats_plain(row_w, *args, slide=WINDOW_MS)
-        err = max(err, max_abs_err(row_g, row_w))
+        for defer in ((False,) if kind == "main" else (False, True)):
+            kernels.slot_stats(row_g, *args, slide=WINDOW_MS, defer=defer)
+            kernels.slot_stats_plain(row_w, *args, slide=WINDOW_MS,
+                                     defer=defer)
+            err = max(err, max_abs_err(row_g, row_w))
         snap_g = torch.empty(3, dtype=torch.int32, device=dev)
         snap_w = torch.empty(3, dtype=torch.int32, device=dev)
         before = (inp["watermark"], inp["dropped_late"],
@@ -4057,6 +4100,423 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
     return {"cep_scan": scan, "cep_expire": exp}
 
 
+# ------------------------------------- chained stages: G21, G22, two jobs
+
+CHAIN_W1_MS = 1_000            # stage 0: the per-second aggregate
+CHAIN_EDGE_LANES = 1 << 22     # pipeline.stages.exchange-lanes of both jobs
+CHAIN_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                 "fire_compact", "chain_pack")
+CHAIN_STATS_KERNELS = CHAIN_KERNELS + ("slot_stats", "fire_columns",
+                                       "stage_record")
+CHAIN_SPARSE_KERNELS = CHAIN_KERNELS + ("hash_upsert",)
+
+
+def chain_window_keys(w: int, n_keys=N_KEYS, events_per_ms=EVENTS_PER_MS,
+                      window_ms=CHAIN_W1_MS):
+    """The north-star generator's keys of 1 s window ``w`` as stage 0 of
+    the chained job fires them (ascending, the direct layout's slot order)
+    with their counts."""
+    per = events_per_ms * window_ms
+    keys, _ts, _ = gen_batch(w * per, per, n_keys, events_per_ms)
+    counts = np.bincount(keys, minlength=n_keys)
+    k = np.nonzero(counts)[0]
+    return k, counts[k]
+
+
+def chain_main_planes():
+    """The stage-0 fire planes of the chained job's second drain (batches
+    D..2D-1): (slot, lane) -> (keys, counts, window end ms) for each 1 s
+    window whose end the watermark crosses in that drain — with the real
+    shapes, windows 2 and 3 in slots 6 and 14."""
+    per = EVENTS_PER_MS * CHAIN_W1_MS
+    planes = {}
+    w = 0
+    while True:
+        # the first batch whose largest tick reaches the window's end
+        i = -(-((w + 1) * per + 1) // BATCH) - 1
+        if i >= 2 * RING_DEPTH:
+            return planes
+        if i >= RING_DEPTH:
+            d = i - RING_DEPTH
+            f = sum(1 for dd, _f in planes if dd == d)
+            k, v = chain_window_keys(w)
+            planes[(d, f)] = (k, v.astype(np.float32),
+                              (w + 1) * CHAIN_W1_MS)
+        w += 1
+
+
+def chain_stack(dev, D, F, C, planes, W=None, seed=21):
+    """A [D, F, C] stack of stage-0 fire planes: ``planes`` maps (slot,
+    lane) to (keys, values, window end); the other planes have count 0 and
+    invalid lanes, and every row past a plane's count is random (it must
+    never be read)."""
+    g = np.random.default_rng(seed)
+    vshape = (D, F, C) + (() if W is None else (W,))
+    khi = g.integers(-2**31, 2**31, (D, F, C), dtype=np.int64).astype(
+        np.int32)
+    klo = g.integers(-2**31, 2**31, (D, F, C), dtype=np.int64).astype(
+        np.int32)
+    vals = g.integers(-99, 99, vshape).astype(np.float32)
+    counts = np.zeros((D, F), np.int32)
+    lanes = np.zeros((D, F), bool)
+    ends = np.full((D, F), PANE_NONE, np.int32)
+    for (d, f), (k, v, end) in planes.items():
+        n = min(len(k), C)
+        khi[d, f, :n] = 0
+        klo[d, f, :n] = k[:n]
+        vals[d, f, :n] = v[:n] if W is None else np.stack(
+            [v[:n]] * W, axis=-1)
+        counts[d, f] = len(k)
+        lanes[d, f] = True
+        ends[d, f] = end
+    return tuple(_t(a, dev, dt) for a, dt in (
+        (khi, torch.int32), (klo, torch.int32), (vals, torch.float32),
+        (counts, torch.int32), (lanes, torch.bool), (ends, torch.int32)))
+
+
+def case_chain_pack(dev, kind, job_planes):
+    """G21 on one stack. ``main``: the chained job's second drain
+    (chain_main_planes) in its [16, 2, 1M] arena into E = 2^22, at that
+    drain's watermarks. Edge kinds (CHAIN_EDGES): the same into E = 2^20
+    (lanes dropped); every plane invalid (random counts); every plane
+    valid and empty; counts above C (C = 2^16); W = 2 values; the
+    end-of-stream flush (fired_through at 2^31 / slide, clamped)."""
+    D, F, C, E = RING_DEPTH, FIRES_PER_STEP, N_KEYS, CHAIN_EDGE_LANES
+    i32 = dict(dtype=torch.int32, device=dev)
+    planes, W, slide = dict(job_planes), None, CHAIN_W1_MS
+    # the drain's watermark (its last batch's largest tick - 1) and stage
+    # 0's fired_through after it (the pane of the last window it fired)
+    up_wm = (2 * D * BATCH - 1) // EVENTS_PER_MS - 1
+    ft = max(e for _k, _v, e in planes.values()) // slide - 1
+    if kind == "over_full":
+        E = CHAIN_EDGE_LANES // 4
+    elif kind == "all_invalid":
+        planes = {}
+    elif kind == "all_empty":
+        planes = {p: (k[:0], v[:0], e) for p, (k, v, e) in planes.items()}
+    elif kind == "counts_above_c":
+        C = 1 << 16
+        planes = {p: (k[:C + 17], v[:C + 17], e)
+                  for p, (k, v, e) in planes.items()}
+    elif kind == "w2":
+        W = 2
+    elif kind == "flush":
+        up_wm, ft = 2**31 - 4, 2**31 // slide
+    stack = chain_stack(dev, D, F, C, planes, W)
+    if kind == "counts_above_c":
+        stack[3].copy_(torch.where(stack[4], C + 17, 0))
+    if kind == "all_invalid":
+        stack[3].copy_(torch.randint(0, C, (D, F), generator=torch.Generator(
+        ).manual_seed(5)).to(dev, torch.int32))
+    kw = dict(n_lanes=E, up_wm=torch.tensor(up_wm, **i32),
+              fired_through=torch.tensor(ft, **i32), slide=slide)
+    got = kernels.chain_pack(*stack, **kw)
+    want = kernels.chain_pack_plain(*stack, **kw)
+    err = max_abs_err(list(got), list(want))
+    demand = int(want.demand)
+    want_demand = (C * len(planes) if kind == "counts_above_c" else
+                   sum(len(k) for k, _v, _e in planes.values()))
+    check(demand == want_demand,
+          f"chain_pack ({kind}): demand {demand}, want {want_demand}")
+    if kind == "over_full":
+        check(int(want.dropped) > 0, "chain_pack: the over-full edge "
+                                     "dropped nothing")
+    if kind == "flush":
+        check(int(want.wm) == min(up_wm, ((2**31 - 4) // slide) * slide - 2),
+              f"chain_pack: flush watermark {int(want.wm)}")
+    width = 1 if W is None else W
+    live = min(demand, E)
+    return {
+        "err": err, "demand": demand, "lanes": E,
+        "dropped": int(want.dropped),
+        "run": lambda: kernels.chain_pack(*stack, **kw),
+        "plain": lambda: kernels.chain_pack_plain(*stack, **kw),
+        "library": None,
+        # the E lanes written (hi, lo, ts, values, ok); the live rows read
+        # once (key halves, value); the plane counts, flags and ends
+        "bytes": E * (13 + 4 * width) + live * (8 + 4 * width)
+        + D * F * 9 + 12,
+    }
+
+
+CHAIN_EDGES = ("over_full", "all_invalid", "all_empty", "counts_above_c",
+               "w2", "flush")
+
+
+def case_fire_columns(dev, kind):
+    """G22 fire_columns on the chained job's [16, 2] stack: ``main`` its
+    second drain's stage-0 fires (chain_main_planes); ``edge`` random
+    lanes and counts up to 2^20 with only 3 live slots, the rest skipped
+    (zero), as in the job's last drain, and 4 lanes a slot."""
+    D = RING_DEPTH
+    g = torch.Generator().manual_seed(22)
+    F = FIRES_PER_STEP if kind == "main" else 4
+    lanes = torch.zeros(D, F, dtype=torch.bool)
+    counts = torch.zeros(D, F, dtype=torch.int32)
+    if kind == "main":
+        for (d, f), (k, _v, _e) in chain_main_planes().items():
+            lanes[d, f] = True
+            counts[d, f] = len(k)
+    else:
+        lanes = torch.rand(D, F, generator=g) < 0.5
+        counts = torch.randint(0, 1 << 20, (D, F), generator=g).to(
+            torch.int32)
+        lanes[3:] = False
+        counts[3:] = 0
+    ds = torch.randint(0, 1000, (D, 9), generator=g).to(torch.int32)
+    ds[:, 2:4] = 0
+    lanes, counts, ds = lanes.to(dev), counts.to(dev), ds.to(dev)
+    ds_g, ds_w = ds.clone(), ds.clone()
+    kernels.fire_columns(ds_g, lanes, counts)
+    kernels.fire_columns_plain(ds_w, lanes, counts)
+    return {
+        "err": max_abs_err(ds_g, ds_w),
+        "run": lambda: kernels.fire_columns(ds_g, lanes, counts),
+        "plain": lambda: kernels.fire_columns_plain(ds_w, lanes, counts),
+        "library": lambda: counts.sum(dim=1),
+        "bytes": D * F * 5 + D * 8,
+    }
+
+
+STAGE_RECORD_EDGES = (
+    # (demand, E, lanes, dropped, wm_up, wm_j, wm_before, wm_after):
+    # the first advance from the MIN sentinel; the end-of-stream flush
+    (1_729_086, CHAIN_EDGE_LANES, (True, False), 0, 1_999, 998,
+     PANE_NONE, 998),
+    (0, CHAIN_EDGE_LANES, (True, True), 0, 2**31 - 4,
+     ((2**31 - 4) // CHAIN_W1_MS) * CHAIN_W1_MS - 2, 14_998,
+     ((2**31 - 4) // CHAIN_W1_MS) * CHAIN_W1_MS - 2),
+    (5_000_000, CHAIN_EDGE_LANES, (True, True), 5_000_000 - (1 << 22),
+     9_999, 7_998, 4_998, 7_998),
+)
+
+
+def case_stage_record(dev, kind):
+    """G22 stage_record: ``main`` the chained job's stage 1 at a drain that
+    fires its first 5 s window; ``edge`` each of STAGE_RECORD_EDGES."""
+    rows = (((1_729_086, CHAIN_EDGE_LANES, (True, False), 0, 5_999, 3_998,
+              2_998, 3_998),) if kind == "main" else STAGE_RECORD_EDGES)
+    i32 = dict(dtype=torch.int32, device=dev)
+    err = 0.0
+    for dem, E, lv, drop, wu, wj, wb, wa in rows:
+        args = [torch.tensor(dem, **i32), E,
+                torch.tensor(lv, dtype=torch.bool, device=dev),
+                torch.tensor(drop, **i32), torch.tensor(wu, **i32),
+                torch.tensor(wj, **i32), torch.tensor(wb, **i32),
+                torch.tensor(wa, **i32)]
+        row_g = torch.full((6,), -1, **i32)
+        row_w = torch.full((6,), -1, **i32)
+        kernels.stage_record(row_g, *args, slide=5_000)
+        kernels.stage_record_plain(row_w, *args, slide=5_000)
+        err = max(err, max_abs_err(row_g, row_w))
+    return {
+        "err": err,
+        "run": lambda: kernels.stage_record(row_g, *args, slide=5_000),
+        "plain": lambda: kernels.stage_record_plain(row_w, *args,
+                                                    slide=5_000),
+        "library": None,
+        # six scalars and F flags in, six ints out
+        "bytes": 6 * 4 + len(lv) + 24,
+    }
+
+
+def chain_kernel_phase(dev, timing=True):
+    """Hold G21 and both G22 instances against their plain versions, bit
+    for bit: G21 at the chained job's real drain (main) and on each of
+    CHAIN_EDGES, and above CHAIN_MAX_PLANES planes it must raise; G22's
+    fire_columns and stage_record on their main and edge inputs. Returns
+    {"chain_pack": record with each edge's nested, "fire_columns": record,
+    "stage_record": record}."""
+    planes = chain_main_planes()
+    c = case_chain_pack(dev, "main", planes)
+    check(c["err"] == 0.0, f"chain_pack (main) disagrees with its plain "
+                           f"version: {c['err']}")
+    rec = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"]),
+           "demand": c["demand"], "lanes": c["lanes"], "library_ms": None}
+    if timing:
+        rec["ms"] = time_ms(c["run"])
+        rec["plain_ms"] = time_ms(c["plain"], reps=3)
+    del c
+    for kind in CHAIN_EDGES:
+        c = case_chain_pack(dev, kind, planes)
+        check(c["err"] == 0.0, f"chain_pack ({kind}) disagrees with its "
+                               f"plain version: {c['err']}")
+        rec[kind] = {"max_abs_err": c["err"], "demand": c["demand"],
+                     "lanes": c["lanes"], "dropped": c["dropped"],
+                     "bound_ms": bound_ms(c["bytes"])}
+        if timing:
+            rec[kind]["ms"] = time_ms(c["run"])
+        rec["max_abs_err"] = max(rec["max_abs_err"], c["err"])
+        del c
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    many = kernels.CHAIN_MAX_PLANES + 1
+    z = torch.zeros((many, 1), dtype=torch.int32, device=dev)
+    try:
+        kernels.chain_pack(z, z, z.float(), z[:, 0].contiguous(),
+                           z[:, 0].bool().contiguous(),
+                           z[:, 0].contiguous(), n_lanes=8)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, f"chain_pack took {many} planes")
+    out = {"chain_pack": rec}
+    for name, case in (("fire_columns", case_fire_columns),
+                       ("stage_record", case_stage_record)):
+        r = hold(name, lambda k, f=case: f(dev, k), False)
+        if timing:
+            c = case(dev, "main")
+            r["ms"] = time_ms(c["run"])
+            r["plain_ms"] = time_ms(c["plain"], reps=5)
+            r["library_ms"] = (time_ms(c["library"])
+                               if c["library"] is not None else None)
+            if c["library"] is not None:
+                r["library"] = "Tensor.sum(dim=1) over the [16, 2] counts"
+        out[name] = r
+    return out
+
+
+def chained_job(device, total, sparse=False, config=None):
+    """The chained rollup through the public API: the north star's traffic
+    (its dense keys, or with ``sparse`` the sparse job's splitmix64 ids)
+    through key_by -> 1 s tumbling sum -> key_by(r.key) -> 5 s tumbling
+    sum(r.value) into a row-keeping sink; direct layout at capacity 1M, or
+    the hash layout at 2^21 probed 64 deep; no overflow ring; an edge of
+    CHAIN_EDGE_LANES lanes. Returns (sink, env, job, s)."""
+    def gen(offset, n):
+        keys, ts, vals = gen_batch(offset, n)
+        key = sparse_ids(keys) if sparse else keys
+        return {"key": key, "value": vals}, ts
+
+    cfg = Configuration({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": RING_DEPTH,
+        "state.backend.overflow-ring": 0,
+        "state.backend.layout": "hash" if sparse else "direct",
+        "state.probe-len": PROBE_LEN,
+        "pipeline.stages.exchange-lanes": CHAIN_EDGE_LANES,
+        **(config or {}),
+    })
+    env = StreamExecutionEnvironment(cfg, device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(SPARSE_CAPACITY if sparse else N_KEYS)
+    env.batch_size = BATCH
+    sink = ColumnarCollectSink()
+    (
+        env.add_source(GeneratorSource(gen, total=total))
+        .key_by(lambda c: c["key"])
+        .time_window(CHAIN_W1_MS)
+        .sum(lambda c: c["value"])
+        .key_by(lambda r: r.key)
+        .time_window(WINDOW_MS)
+        .sum(lambda r: r.value)
+        .add_sink(sink)
+    )
+    t0 = time.perf_counter()
+    job = env.execute("chip-smoke-chained" + ("-sparse" if sparse else ""))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, env, job, time.perf_counter() - t0
+
+
+def chained_reference(total, chunk=1 << 22):
+    """numpy's 5 s tumbling counts of the north star's traffic, [windows,
+    N_KEYS] (the 1 s windows nest in the 5 s ones, so the rollup's rows
+    are these counts), and the number of stage-0 rows (distinct (key, 1 s
+    window) pairs)."""
+    n5 = -(-total // (EVENTS_PER_MS * WINDOW_MS))
+    n1 = -(-total // (EVENTS_PER_MS * CHAIN_W1_MS))
+    counts = np.zeros(n5 * N_KEYS, np.int64)
+    seen1 = np.zeros((n1, N_KEYS), bool)
+    for off in range(0, total, chunk):
+        keys, ts, _ = gen_batch(off, min(chunk, total - off))
+        counts += np.bincount((ts // WINDOW_MS) * N_KEYS + keys,
+                              minlength=n5 * N_KEYS)
+        seen1[ts // CHAIN_W1_MS, keys] = True
+    return counts.reshape(n5, N_KEYS), int(seen1.sum())
+
+
+def check_chained_rows(cols, want, sparse=False):
+    """Every row of the chained job against numpy's 5 s counts: the row
+    count, each row's value, no (key, window) twice; for the sparse job the
+    row count, the value sum and every row of the ids 0 mod 1024. Returns
+    the row count."""
+    n = len(cols.get("value", ()))
+    n_want = int((want > 0).sum())
+    check(n == n_want, f"chained job: {n} rows, numpy {n_want}")
+    win = cols["window_end_ms"].astype(np.int64) // WINDOW_MS - 1
+    kid = cols["key_id"].astype(np.uint64)
+    vals = cols["value"].astype(np.float64)
+    if not sparse:
+        check(int(kid.max(initial=0)) < N_KEYS and win.min(initial=0) >= 0
+              and win.max(initial=0) < want.shape[0],
+              "chained job: a row outside numpy's keys or windows")
+        cell = win * N_KEYS + kid.astype(np.int64)
+        check(len(np.unique(cell)) == n, "chained job: a (key, window) "
+                                         "emitted twice")
+        check(np.array_equal(vals, want.reshape(-1)[cell]),
+              "chained job: rows differ from numpy's 5 s counts")
+        return n
+    check(float(vals.sum()) == float(want.sum()),
+          f"chained-sparse job: values sum to {vals.sum()}, numpy "
+          f"{want.sum()}")
+    ids = sparse_ids(np.arange(N_KEYS)).view(np.uint64)
+    sel_keys = np.nonzero(ids % np.uint64(1024) == 0)[0]
+    w_idx, k_idx = np.nonzero(want[:, sel_keys])
+    exp = {(int(ids[sel_keys[k]]), int(w)): float(want[w, sel_keys[k]])
+           for w, k in zip(w_idx, k_idx)}
+    sel = kid % np.uint64(1024) == 0
+    got = {(int(k), int(w)): float(v)
+           for k, w, v in zip(kid[sel], win[sel], vals[sel])}
+    check(got == exp and int(sel.sum()) == len(exp),
+          "chained-sparse job: the rows of the ids 0 mod 1024 differ from "
+          "numpy's")
+    return n
+
+
+def check_chain_stats(env, job, stage0_rows) -> dict:
+    """The chained telemetry run's stage rows: every stage-0 row crossed
+    the edge, none dropped, the peak demand within the edge."""
+    rep = env._pipeline_report()
+    check(rep["available"] and len(rep.get("stages", ())) == 1,
+          "chained job: no stage rows in the pipeline report")
+    st = rep["stages"][0]
+    tot = st["totals"]
+    check(tot["edge_events"] == tot["edge_demand"] == stage0_rows,
+          f"chained job: edge events {tot['edge_events']}, demand "
+          f"{tot['edge_demand']}, stage-0 rows {stage0_rows}")
+    check(tot["dropped_capacity"] == 0, "chained job: the edge dropped "
+                                        f"{tot['dropped_capacity']} lanes")
+    check(0 < st["edge_peak_demand"] <= CHAIN_EDGE_LANES,
+          f"chained job: peak edge demand {st['edge_peak_demand']}")
+    return {"stage": st, "shard0_totals": rep["shards"][0]["totals"],
+            "drains": rep["drains"]}
+
+
+CHAIN_STATS_CONFIG = {
+    "observability.drain-stats": True,
+    "observability.drain-stats-every": 1,
+}
+
+
+def _no_env(out):
+    """(sink, env, job, s) -> (sink, job, s), as profile_phase reads it."""
+    sink, _env, job, secs = out
+    return sink, job, secs
+
+
+def chain_metrics(m) -> dict:
+    return {"drains": m.resident_drains,
+            "flush_drains": m.chain_flush_drains, "batches": m.steps,
+            "records_in": m.records_in, "fires": m.fires,
+            "dropped_late": m.dropped_late,
+            "dropped_capacity": m.dropped_capacity,
+            "fire_latency_ms": fire_latency(m)}
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) intervals, in ms."""
     busy, last_end = 0.0, None
@@ -4177,7 +4637,18 @@ KERNEL_SOURCES = {
                  "flink_tpu/cep/device.py:199"),
     "cep_expire": ("flink_tpu_torch/csrc/cep_scan.cu",
                    "flink_tpu/cep/device.py:228"),
+    "chain_pack": ("flink_tpu_torch/csrc/chain_pack.cu",
+                   "flink_tpu/runtime/step.py:1789"),
+    "fire_columns": ("flink_tpu_torch/csrc/slot_stats.cu",
+                     "flink_tpu/runtime/step.py:842"),
+    "stage_record": ("flink_tpu_torch/csrc/slot_stats.cu",
+                     "flink_tpu/runtime/step.py:1962"),
 }
+# the host functions of the chained jobs whose cumulative time --profile
+# reads: the key encode, the drains (the stage tail within them), the
+# reads and emits of their fires, the watermark flushes
+CHAIN_HOST_FUNCTIONS = ("encode", "dispatch", "_chained_stage_tail",
+                        "consume", "emit_rows", "drain_chained")
 # the host functions of the CEP jobs whose cumulative time --profile reads
 CEP_HOST_FUNCTIONS = ("to_elements", "push", "process_batch", "_masks",
                       "batch_gaps", "advance", "_replay", "prune_dead_keys",
@@ -4271,6 +4742,7 @@ def main(argv) -> int:
     for name, rec in telemetry_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
     recs.update(cep_kernel_phase(dev))
+    recs.update(chain_kernel_phase(dev))
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -4602,6 +5074,43 @@ def main(argv) -> int:
     check_launched(launches, CEPW_KERNELS, "cep-within")
     del sink, job, cols
 
+    want5, stage0_rows = chained_reference(TOTAL_EVENTS)
+    for name, run, kernels_of in (
+            ("chained", lambda: chained_job(dev, TOTAL_EVENTS),
+             CHAIN_KERNELS),
+            ("chained_stats", lambda: chained_job(
+                dev, TOTAL_EVENTS, config=CHAIN_STATS_CONFIG),
+             CHAIN_STATS_KERNELS),
+            ("chained_sparse", lambda: chained_job(dev, TOTAL_EVENTS,
+                                                   sparse=True),
+             CHAIN_SPARSE_KERNELS)):
+        launches, (sink, env_c, job, secs) = run_path(run, total_launches)
+        m = job.metrics
+        sparse = name == "chained_sparse"
+        n_rows = check_chained_rows(sink.columns(), want5, sparse=sparse)
+        line = {"phase": name, "events": TOTAL_EVENTS, "seconds": secs,
+                "events_per_s": TOTAL_EVENTS / secs, "rows": n_rows,
+                "stage0_rows_numpy": stage0_rows,
+                "layout": job.state.layout, **chain_metrics(m),
+                "launches": launches, "device": kind, "nvidia_smi": smi}
+        if name == "chained_stats":
+            line.update(check_chain_stats(env_c, job, stage0_rows))
+        emit(line)
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              f"{name} job: dropped records: late {m.dropped_late}, "
+              f"capacity {m.dropped_capacity}")
+        check(job.state.layout == ("hash" if sparse else "direct"),
+              f"{name} job: layout {job.state.layout}")
+        check_launched(launches, kernels_of, name)
+        if sparse:
+            # G5 in both stages: stage 0 once a slot (the batches and one
+            # empty slot a flush drain), stage 1 once a drain
+            want_g5 = m.steps + m.chain_flush_drains + m.resident_drains
+            check(launches["hash_upsert"] == want_g5,
+                  f"chained-sparse job: {launches['hash_upsert']} G5 "
+                  f"launches, the two stages' {want_g5}")
+        del sink, env_c, job
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -4640,6 +5149,12 @@ def main(argv) -> int:
         emit(profile_phase(dev, "cep_within", cepw_gen,
                            lambda: cepw_job(dev, CEPW_TOTAL), CEPW_TOTAL,
                            CEP_HOST_FUNCTIONS))
+        for name, sparse in (("chained", False), ("chained_sparse", True)):
+            emit(profile_phase(
+                dev, name, sparse_gen if sparse else gen_batch,
+                lambda s=sparse: _no_env(chained_job(dev, TOTAL_EVENTS,
+                                                     sparse=s)),
+                cumulative=CHAIN_HOST_FUNCTIONS))
     line = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

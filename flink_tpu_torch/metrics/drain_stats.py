@@ -20,8 +20,8 @@ read with the drain's fires, plus the ring's publish-time stamps into:
     is given.
 
 The stage-aware half (``STAGE_STAT_FIELDS``, ``absorb_stage_payload``)
-serves chained stages, which the port does not run yet (ROADMAP queue 1,
-item 11).
+serves chained stages: the chained drain's per-stage rows, written by
+G22 ``stage_record``.
 
 Threading: the executor's step loop calls the ``ingest_publish`` /
 ``on_drain`` / ``note_fires`` mutators; readers call ``report()`` and the

@@ -1,10 +1,11 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Twenty CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Twenty-two CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
 for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
-telemetry), of the session, count-window and rolling stages (G10-G13,
-G16) and of device CEP (G19, G20, with G5 and G10); each source opens
+telemetry), of chained window stages (G21, G22), of the session,
+count-window and rolling stages (G10-G13, G16) and of device CEP (G19,
+G20, with G5 and G10); each source opens
 with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
@@ -36,6 +37,10 @@ what its design does about that:
   G19 ``cep_scan``       CEP's count NFA: each key's events applied in lane
                          order to its carried count vector, match deltas
   G20 ``cep_expire``     CEP's within() expiry: stale ring buckets zeroed
+  G21 ``chain_pack``     a drain's stacked fires packed into the next
+                         chained stage's edge lanes; its coupled watermark
+  G22 ``fire_columns``   the chained drain's deferred recorder columns;
+      ``stage_record``   a downstream stage's recorder row (G18's source)
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -76,7 +81,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from flink_tpu_torch.core.keygroups import assign_to_key_group
-from flink_tpu_torch.metrics.drain_stats import DRAIN_STAT_FIELDS
+from flink_tpu_torch.metrics.drain_stats import (
+    DRAIN_STAT_FIELDS, STAGE_STAT_FIELDS,
+)
 from flink_tpu_torch.ops.hashing import probe_hash, route_hash
 
 PANE_NONE = -(2**31) + 1
@@ -94,7 +101,7 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
            "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
            "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu",
-           "cep_scan.cu")
+           "cep_scan.cu", "chain_pack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -142,8 +149,11 @@ _SIGNATURES = {
                 _I, _I, _P, _P, _P, _P, _P, _P],
     "kg_occupancy": [_P, _I, _I, _P, _I, _F, _P, _P, _I, _P, _P],
     "slot_stats_begin": [_P, _P, _P, _P, _P],
-    "slot_stats": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P,
-                   _P],
+    "slot_stats": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                   _P, _P],
+    "fire_columns": [_P, _I, _I, _P, _P, _I, _P],
+    "stage_record": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "chain_pack": [_P] * 6 + [_I] * 4 + [_P, _P, _I] + [_P] * 8,
     "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 7,
     "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
 }
@@ -1959,6 +1969,16 @@ PANE_JUMP_CLAMP = 1 << 20
 WM_FRESH = -(1 << 30)
 
 
+def _panes_plain(wm_before, wm_after, slide: int):
+    """Panes a watermark advance crossed, as the recorder counts them: at
+    most a 2^20-tick jump, none from a fresh job's MIN sentinel (int64
+    0-d)."""
+    wa, wbf = wm_after.long(), wm_before.long()
+    wb = torch.maximum(wbf, wa - PANE_JUMP_CLAMP)
+    panes = torch.clamp_min(_floor_div(wa, slide) - _floor_div(wb, slide), 0)
+    return torch.where(wbf < WM_FRESH, 0, panes)
+
+
 def slot_stats_begin_plain(watermark, dropped_late, dropped_capacity,
                            snap) -> None:
     """Plain version of G18's companion: the slot's watermark, dropped_late
@@ -1989,7 +2009,7 @@ slot_stats_begin.launches = 0
 
 def slot_stats_plain(row, lane_stats, activity, lane_valid, counts,
                      dropped_late, dropped_capacity, ovf_n, fill, watermark,
-                     snap, *, slide: int) -> None:
+                     snap, *, slide: int, defer: bool = False) -> None:
     """Plain version of G18 (the reference's ``_slot_drain_stats``): one
     live slot's ``DRAIN_STAT_FIELDS`` row into ``row`` (int32 [9]), in
     place, after the slot's update and fire. ``lane_stats`` is G1's int32
@@ -1998,30 +2018,30 @@ def slot_stats_plain(row, lane_stats, activity, lane_valid, counts,
     fires, ``dropped_late`` / ``dropped_capacity`` / ``ovf_n`` /
     ``watermark`` the state's counters after the fire, ``fill`` the slot's
     int32 [maxp] key-group fill (None: kg-fill off), ``snap`` the int32
-    [3] that slot_stats_begin saved before the update."""
-    wm = watermark.long()
-    wm_b = snap[0].long()
-    wb = torch.maximum(wm_b, wm - PANE_JUMP_CLAMP)
-    panes = torch.clamp_min(_floor_div(wm, slide) - _floor_div(wb, slide), 0)
-    panes = torch.where(wm_b < WM_FRESH, 0, panes)
+    [3] that slot_stats_begin saved before the update. ``defer`` (the
+    reference's ``defer_fires``, the chained drain's stage 0) writes 0 into
+    fire_lanes and fired_keys, which ``fire_columns`` fills after the slot
+    loop."""
     zero = torch.zeros((), dtype=torch.int32, device=row.device)
     row.copy_(torch.stack([
         lane_stats[3], activity.reshape(()),
-        lane_valid.sum(dtype=torch.int32), counts.sum(dtype=torch.int32),
+        zero if defer else lane_valid.sum(dtype=torch.int32),
+        zero if defer else counts.sum(dtype=torch.int32),
         dropped_late - snap[1], dropped_capacity - snap[2], ovf_n,
         fill.max() if fill is not None and fill.numel() else zero,
-        panes.to(torch.int32),
+        _panes_plain(snap[0], watermark, slide).to(torch.int32),
     ]).to(torch.int32))
 
 
 def slot_stats(row, lane_stats, activity, lane_valid, counts, dropped_late,
                dropped_capacity, ovf_n, fill, watermark, snap, *,
-               slide: int) -> None:
+               slide: int, defer: bool = False) -> None:
     """G18: see slot_stats_plain for the contract."""
     if _on_cpu(row):
         return slot_stats_plain(row, lane_stats, activity, lane_valid,
                                 counts, dropped_late, dropped_capacity,
-                                ovf_n, fill, watermark, snap, slide=slide)
+                                ovf_n, fill, watermark, snap, slide=slide,
+                                defer=defer)
     dev = row.device
     (Ft,) = lane_valid.shape
     _check(row, "row", torch.int32, (len(DRAIN_STAT_FIELDS),), dev)
@@ -2041,12 +2061,227 @@ def slot_stats(row, lane_stats, activity, lane_valid, counts, dropped_late,
     _raise_on(build().slot_stats(
         _ptr(lane_stats), _ptr(activity), _ptr(lane_valid), _ptr(counts), Ft,
         _ptr(dropped_late), _ptr(dropped_capacity), _ptr(ovf_n), _ptr(fill),
-        maxp, _ptr(watermark), _ptr(snap), slide, _ptr(row), _stream()),
-        "slot_stats")
+        maxp, _ptr(watermark), _ptr(snap), slide, int(defer), _ptr(row),
+        _stream()), "slot_stats")
     slot_stats.launches += 1
 
 
 slot_stats.launches = 0
+
+
+# ------------------------------------------------------------ G22
+
+def fire_columns_plain(ds, lane_valid, counts) -> None:
+    """Plain version of G22's ``fire_columns`` (the reference's
+    ``_deferred_fire_columns``): columns 2 and 3 (fire_lanes, fired_keys)
+    of a drain's int32 [D, 9] recorder stack ``ds``, in place, from its
+    stacked fires' ``lane_valid`` (bool [D, F]) and ``counts`` (int32 [D,
+    F]) summed per slot."""
+    ds[:, 2] = lane_valid.sum(1, dtype=torch.int32)
+    ds[:, 3] = counts.sum(1, dtype=torch.int32)
+
+
+def fire_columns(ds, lane_valid, counts) -> None:
+    """G22 ``fire_columns``: see fire_columns_plain."""
+    if _on_cpu(ds):
+        return fire_columns_plain(ds, lane_valid, counts)
+    dev = ds.device
+    D, F = lane_valid.shape
+    _check(ds, "ds", torch.int32, (D, len(DRAIN_STAT_FIELDS)), dev)
+    _check(lane_valid, "lane_valid", torch.bool, (D, F), dev)
+    _check(counts, "counts", torch.int32, (D, F), dev)
+    _raise_on(build().fire_columns(
+        _ptr(ds), D, len(DRAIN_STAT_FIELDS), _ptr(lane_valid), _ptr(counts),
+        F, _stream()), "fire_columns")
+    fire_columns.launches += 1
+
+
+fire_columns.launches = 0
+
+
+def stage_record_plain(row, demand, n_lanes: int, lane_valid, dropped,
+                       wm_up, wm_j, wm_before, wm_after, *,
+                       slide: int) -> None:
+    """Plain version of G22's ``stage_record``: one downstream stage's
+    ``STAGE_STAT_FIELDS`` row for one drain (the reference's
+    ``_chained_stage_tail`` record), into ``row`` (int32 [6]), in place:
+    the edge's ``demand`` (int32 0-d), the lanes inserted (``min(demand,
+    n_lanes)``), the stage's valid fire lanes (``lane_valid`` bool [F]),
+    the edge's ``dropped`` lanes, the coupled watermark's lag behind the
+    upstream one in the stage's panes (``max(wm_up - wm_j, 0) // slide``)
+    and the panes the stage's advance from ``wm_before`` to ``wm_after``
+    crossed, with G18's sentinel clamps."""
+    lag = torch.clamp_min(wm_up.long() - wm_j.long(), 0) // slide
+    row.copy_(torch.stack([
+        demand.long(), torch.clamp_max(demand.long(), n_lanes),
+        lane_valid.sum().long(), dropped.long(), lag,
+        _panes_plain(wm_before, wm_after, slide),
+    ]).to(torch.int32))
+
+
+def stage_record(row, demand, n_lanes: int, lane_valid, dropped, wm_up,
+                 wm_j, wm_before, wm_after, *, slide: int) -> None:
+    """G22 ``stage_record``: see stage_record_plain."""
+    if _on_cpu(row):
+        return stage_record_plain(row, demand, n_lanes, lane_valid, dropped,
+                                  wm_up, wm_j, wm_before, wm_after,
+                                  slide=slide)
+    dev = row.device
+    (F,) = lane_valid.shape
+    _check(row, "row", torch.int32, (len(STAGE_STAT_FIELDS),), dev)
+    _check(lane_valid, "lane_valid", torch.bool, (F,), dev)
+    for t, n in ((demand, "demand"), (dropped, "dropped"), (wm_up, "wm_up"),
+                 (wm_j, "wm_j"), (wm_before, "wm_before"),
+                 (wm_after, "wm_after")):
+        _check(t, n, torch.int32, (), dev)
+    _raise_on(build().stage_record(
+        _ptr(demand), int(n_lanes), _ptr(lane_valid), F, _ptr(dropped),
+        _ptr(wm_up), _ptr(wm_j), _ptr(wm_before), _ptr(wm_after), slide,
+        _ptr(row), _stream()), "stage_record")
+    stage_record.launches += 1
+
+
+stage_record.launches = 0
+
+
+# ------------------------------------------------------------ G21
+
+CHAIN_MAX_PLANES = 1024   # fire planes (D * F) G21's one-block plan scans
+
+
+class EdgeLanes(NamedTuple):
+    """G21's output: the edge lanes of one chained stage (int32 key halves
+    and ticks [E], values [E, *out_shape], ok bool [E]) and its int32 0-d
+    scalars: the lanes dropped past E, the demand (the live rows offered),
+    and the coupled watermark (None when no upstream watermark was
+    given)."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    ts: torch.Tensor
+    vals: torch.Tensor
+    ok: torch.Tensor
+    dropped: torch.Tensor
+    demand: torch.Tensor
+    wm: Optional[torch.Tensor]
+
+
+def _chain_shapes(key_hi, values, counts):
+    """(Pn, C, the value's trailing shape) of a stack of fire planes whose
+    row buffers are [..., C] and values [..., C, *out]; refuses stacks the
+    plan cannot scan or whose offsets could wrap int32."""
+    Pn = counts.numel()
+    C = key_hi.shape[-1]
+    out_shape = tuple(values.shape[counts.dim() + 1:])
+    if Pn > CHAIN_MAX_PLANES:
+        raise ValueError(
+            f"chain_pack takes at most {CHAIN_MAX_PLANES} fire planes "
+            f"(ring depth x fire lanes), got {Pn}")
+    if Pn * C > INT32_MAX:
+        raise ValueError(f"{Pn} fire planes of {C} rows overflow the "
+                         f"edge's int32 offsets")
+    return Pn, C, out_shape
+
+
+def chain_watermark_plain(up_wm, fired_through, slide: int):
+    """The reference's ``_chain_stage_watermark``: ``min(up_wm,
+    (clip(fired_through, -1, ft_cap) + 2) * slide - 2)`` with ``ft_cap =
+    (2^31 - 4) // slide - 2``, int32 0-d."""
+    ft_cap = (2**31 - 4) // slide - 2
+    ft = torch.clamp(fired_through.long(), -1, ft_cap)
+    return torch.minimum(up_wm.long(), (ft + 2) * slide - 2).to(torch.int32)
+
+
+def chain_pack_plain(key_hi, key_lo, values, counts, lane_valid, ends, *,
+                     n_lanes: int, up_wm=None, fired_through=None,
+                     slide: int = 0) -> EdgeLanes:
+    """Plain version of G21 (the reference's ``_chain_fires_to_lanes``
+    over a stack of CompactFires planes, and ``_chain_stage_watermark``
+    when ``up_wm`` is given): ``key_hi`` / ``key_lo`` int32 [..., C],
+    ``values`` [..., C, *out], ``counts`` int32, ``lane_valid`` bool and
+    ``ends`` int32 of the stack's leading shape. Every live row of a valid
+    plane (its first min(count, C) rows) becomes one of ``n_lanes`` edge
+    lanes, in plane order: the row's key halves, ``ts = end - 1`` and its
+    value, ok = True; lanes past the live total are zero. See EdgeLanes."""
+    Pn, C, out_shape = _chain_shapes(key_hi, values, counts)
+    dev = key_hi.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    E = int(n_lanes)
+    counts = counts.reshape(Pn)
+    live = torch.where(lane_valid.reshape(Pn), torch.clamp_max(counts, C),
+                       0).to(torch.int32)
+    offs = torch.cumsum(live, 0, dtype=torch.int32)
+    total = offs[-1] if Pn else torch.zeros((), **i32)
+    ar = torch.arange(E, **i32)
+    ok = ar < total
+    hi = torch.zeros(E, **i32)
+    lo = torch.zeros(E, **i32)
+    ts = torch.zeros(E, **i32)
+    vals = torch.zeros((E,) + out_shape, dtype=values.dtype, device=dev)
+    if Pn:
+        f_sel = torch.clamp(torch.searchsorted(offs, ar + 1), 0, Pn - 1)
+        idx = torch.clamp(ar - (offs - live)[f_sel], 0, C - 1).long()
+        f_sel = f_sel.long()
+        hi = torch.where(ok, key_hi.reshape(Pn, C)[f_sel, idx], hi)
+        lo = torch.where(ok, key_lo.reshape(Pn, C)[f_sel, idx], lo)
+        ts = torch.where(ok, ends.reshape(Pn)[f_sel] - 1, ts)
+        rows = values.reshape((Pn, C) + out_shape)[f_sel, idx]
+        vals = torch.where(_expand(ok, rows), rows, vals)
+    dropped = torch.clamp_min(total - E, 0).to(torch.int32)
+    wm = (None if up_wm is None else
+          chain_watermark_plain(up_wm, fired_through, slide))
+    return EdgeLanes(hi, lo, ts, vals, ok, dropped, total.to(torch.int32),
+                     wm)
+
+
+def chain_pack(key_hi, key_lo, values, counts, lane_valid, ends, *,
+               n_lanes: int, up_wm=None, fired_through=None,
+               slide: int = 0) -> EdgeLanes:
+    """G21: see chain_pack_plain. Above CHAIN_MAX_PLANES planes it raises,
+    on every device."""
+    if _on_cpu(key_hi):
+        return chain_pack_plain(key_hi, key_lo, values, counts, lane_valid,
+                                ends, n_lanes=n_lanes, up_wm=up_wm,
+                                fired_through=fired_through, slide=slide)
+    Pn, C, out_shape = _chain_shapes(key_hi, values, counts)
+    dev = key_hi.device
+    lead = tuple(counts.shape)
+    _check(key_hi, "key_hi", torch.int32, lead + (C,), dev)
+    _check(key_lo, "key_lo", torch.int32, lead + (C,), dev)
+    if values.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"values of {values.dtype}: G21 moves 32-bit words")
+    _check(values, "values", values.dtype, lead + (C,) + out_shape, dev)
+    _check(counts, "counts", torch.int32, lead, dev)
+    _check(lane_valid, "lane_valid", torch.bool, lead, dev)
+    _check(ends, "ends", torch.int32, lead, dev)
+    if up_wm is not None:
+        _check(up_wm, "up_wm", torch.int32, (), dev)
+        _check(fired_through, "fired_through", torch.int32, (), dev)
+        if slide <= 0:
+            raise ValueError(f"slide must be positive, got {slide}")
+    E = int(n_lanes)
+    W = 1
+    for d in out_shape:
+        W *= int(d)
+    i32 = dict(dtype=torch.int32, device=dev)
+    offs = torch.empty(max(Pn, 1), **i32)
+    scalars = torch.empty(3, **i32)
+    hi = torch.empty(E, **i32)
+    lo = torch.empty(E, **i32)
+    ts = torch.empty(E, **i32)
+    vals = torch.empty((E,) + out_shape, dtype=values.dtype, device=dev)
+    ok = torch.empty(E, dtype=torch.bool, device=dev)
+    _raise_on(build().chain_pack(
+        _ptr(key_hi), _ptr(key_lo), _ptr(values), _ptr(counts),
+        _ptr(lane_valid), _ptr(ends), Pn, C, W, E, _ptr(up_wm),
+        _ptr(fired_through), int(slide), _ptr(offs), _ptr(scalars), _ptr(hi),
+        _ptr(lo), _ptr(ts), _ptr(vals), _ptr(ok), _stream()), "chain_pack")
+    chain_pack.launches += 1
+    return EdgeLanes(hi, lo, ts, vals, ok, scalars[1], scalars[0],
+                     None if up_wm is None else scalars[2])
+
+
+chain_pack.launches = 0
 
 
 # ------------------------------------------------------------ G19, G20
@@ -2228,7 +2463,7 @@ KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            hash_lookup, compact_table, segment_sort, session_update,
            count_update, rolling_update, sketch_update, sketch_fire,
            rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats,
-           cep_scan, cep_expire)
+           cep_scan, cep_expire, chain_pack, fire_columns, stage_record)
 
 
 # wrappers whose kernel lives in another wrapper's source
@@ -2236,6 +2471,8 @@ _SHARED_SOURCE = {"fresh_rows": "clear_rows.cu",
                   "fire_pack": "fire_compact.cu",
                   "rep_gather": "rep_update.cu", "rep_set": "rep_update.cu",
                   "slot_stats_begin": "slot_stats.cu",
+                  "fire_columns": "slot_stats.cu",
+                  "stage_record": "slot_stats.cu",
                   "cep_expire": "cep_scan.cu"}
 
 

@@ -111,6 +111,23 @@ time-window job:
 ``observability.tracing`` (the reference's span tracer) is not ported: it
 raises.
 
+Chained keyed window stages (the reference's stage graph,
+executor.py:889-946, 1581-1591, 5279-5320): ``key_by -> window -> key_by(
+r.key) -> window(...)(r.value)`` up to ``pipeline.stages.max-stages``
+event-time tumbling or sliding stages with builtin reduces, validated by
+the copied ``runtime/stages.py`` (a ``StageGraphError`` names the stage
+or edge it cannot run). The chained drain is the job's only dispatch:
+stage 0 takes the staged batches, each downstream stage the whole drain's
+upstream fires once a drain through an edge of
+``pipeline.stages.exchange-lanes`` lanes (G21); the sinks take the final
+stage's rows. There is no spill tier (strict capacity; ``auto`` takes the
+hash layout, as the reference's does), no fast step and no watermark-only
+fire: a flush — at a pane jump, a pane group, a drain whose stage filled
+all F lanes, the end of the stream — is the reference's empty chained
+drains. Edge lanes past the budget count into the downstream stage's
+``dropped_capacity``, which the job's strict-capacity check sums over
+every stage.
+
 Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
 windows (``count_window(n)``) and event-time session windows go to the
 runners of ``runtime/keyed_jobs.py``; ``CEP.pattern(...).select`` /
@@ -119,9 +136,9 @@ element-mode or a columnar source) to the device CEP job of
 ``runtime/cep_job.py``. Anything else — another topology, processing-time
 windows, an element-mode source under a window or rolling stage, the host
 CEP operator (``cep.device.enabled: false``), checkpoints, parallelism
-above 1, an operator after the stage, a reduce other than sum or count
-over session and count windows — raises NotImplementedError naming the
-ROADMAP queue item that brings it.
+above 1, an operator after the stage, sinks on more than one stage, a
+reduce other than sum or count over session and count windows — raises
+NotImplementedError naming the ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -131,11 +148,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from flink_tpu_torch.core.config import CoreOptions
 from flink_tpu_torch.core.time import MAX_TS, TimeCharacteristic, TimeDomain
 from flink_tpu_torch.datastream.window.assigners import (
     CountWindowAssigner,
@@ -143,7 +161,9 @@ from flink_tpu_torch.datastream.window.assigners import (
     WindowAssigner,
 )
 from flink_tpu_torch.graph import stream_graph as sg
-from flink_tpu_torch.metrics.drain_stats import DrainTelemetry
+from flink_tpu_torch.metrics.drain_stats import (
+    DRAIN_STAT_FIELDS, STAGE_STAT_FIELDS, DrainTelemetry,
+)
 from flink_tpu_torch.metrics.latency import LatencySamples
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
@@ -151,9 +171,11 @@ from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
 from flink_tpu_torch.runtime import cep_job, keyed_jobs
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.job import StageJob, key_words
+from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
     build_kg_occupancy_step,
+    build_window_chained_drain,
     build_window_resident_drain,
     clear_overflow,
     compact_step,
@@ -213,6 +235,8 @@ class JobMetrics:
                                 # advances (the rest: the drains' own)
     fire_step_panes: int = 0    # panes the watermark-only advances crossed
                                 # (counted as the flight recorder counts)
+    chain_flush_drains: int = 0  # of ``resident_drains``, a chained job's
+                                 # empty drains of its watermark flushes
     # CEP: the engine that ran ("device"; the host NFA is not ported), the
     # count NFA's steps, and the matches the card detected and the host
     # replay extracted — the two must agree
@@ -253,15 +277,29 @@ class _Pipeline:
     sinks: List[Any]
     rolling: Optional[sg.KeyedProcessTransformation] = None
     process: Optional[sg.ProcessTransformation] = None   # CEP
+    # chained keyed window stages after the first: [key_by, window_agg]
+    # pairs in order, validated into ``graph`` (runtime/stages.py)
+    stages: List[list] = dataclasses.field(default_factory=list)
+    graph: Optional[StageGraph] = None
 
     @property
     def stage(self):
+        """The transformation whose output the sinks take."""
+        if self.stages:
+            return self.stages[-1][1]
         return self.rolling or self.process or self.window_agg
 
 
 def _unsupported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to flink_tpu_torch yet ({item})")
+
+
+def _chain_tail_error(stages) -> StageGraphError:
+    return StageGraphError(
+        f"stage[{len(stages)}] does not end in a window aggregation — a "
+        f"chained keyed stage must be a keyBy→window pair (rolling reduces "
+        f"and process functions cannot chain after a windowed stage)")
 
 
 def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
@@ -278,12 +316,34 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
             raise _unsupported(f"a {type(head).__name__} input",
                                "ROADMAP queue 1, item 9")
         ts_t = key_t = agg_t = None
+        stages: List[list] = []
         for t in rest:
             if isinstance(t, sg.TimestampsWatermarksTransformation) \
                     and key_t is None and ts_t is None:
                 ts_t = t
             elif isinstance(t, sg.KeyByTransformation) and key_t is None:
                 key_t = t
+            elif isinstance(t, sg.KeyByTransformation) \
+                    and isinstance(agg_t, sg.WindowAggTransformation):
+                # a second keyed boundary: a chained stage (the
+                # reference's executor.py:889-897)
+                stages.append([t, None])
+            elif isinstance(t, sg.WindowAggTransformation) and stages:
+                if stages[-1][1] is not None:
+                    raise StageGraphError(
+                        f"two window aggregations with no keyBy between "
+                        f"them after stage[{len(stages)}] — every chained "
+                        f"stage is a keyBy→window pair")
+                stages[-1][1] = t
+            elif isinstance(t, sg.WindowAggTransformation) \
+                    and isinstance(agg_t, sg.WindowAggTransformation):
+                raise StageGraphError(
+                    "two window aggregations with no keyBy between them "
+                    "— a downstream window must re-key the upstream "
+                    "stage's results (.key_by(lambda r: r.key))")
+            elif isinstance(t, (sg.KeyedProcessTransformation,
+                                sg.ProcessTransformation)) and stages:
+                raise _chain_tail_error(stages)
             elif isinstance(t, (sg.WindowAggTransformation,
                                 sg.KeyedProcessTransformation,
                                 sg.ProcessTransformation)) \
@@ -296,21 +356,28 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
                 raise _unsupported(
                     f"operator {t.name!r} ({type(t).__name__}) in this "
                     f"position", "ROADMAP queue 1, items 9-15")
+        if stages and stages[-1][1] is None:
+            raise _chain_tail_error(stages)
         if agg_t is None:
             raise _unsupported("a job without a keyed window",
                                "ROADMAP queue 1, item 9")
+        final = stages[-1][1] if stages else agg_t
         if pipe is None:
             def of(cls):
                 return agg_t if isinstance(agg_t, cls) else None
             pipe = _Pipeline(head.source, ts_t, key_t,
                              of(sg.WindowAggTransformation), [st.sink],
                              of(sg.KeyedProcessTransformation),
-                             of(sg.ProcessTransformation))
-        elif agg_t is pipe.stage:
+                             of(sg.ProcessTransformation), stages)
+        elif final is pipe.stage:
             pipe.sinks.append(st.sink)
         else:
-            raise _unsupported("more than one window stage",
-                               "ROADMAP queue 1, item 11")
+            raise _unsupported("sinks on more than one keyed stage or "
+                               "branch of the job", "ROADMAP queue 1, item 9")
+    if pipe.stages:
+        # every unsupported chain shape raises here, naming its stage or
+        # edge, before anything runs (the reference's executor.py:1239-1245)
+        pipe.graph = StageGraph.from_pipeline(pipe)
     if pipe.process is not None:
         return pipe
     if not getattr(pipe.source, "columnar", False):
@@ -449,6 +516,18 @@ def _top_k(arr, k: int):
     return [{"group": int(g), "count": int(arr[g])} for g in idx if arr[g] > 0]
 
 
+def _chain_resident(cfg) -> bool:
+    """Whether a chained job has its resident drain, as the reference
+    resolves it for a stage graph (executor.py:5562-5600): not with
+    ``pipeline.resident-loop: off``, nor without the staging substrate
+    (``pipeline.prefetch`` or ``pipeline.device-staging`` off). The
+    port's substrate is its device ring; its single-stage jobs always
+    drain."""
+    return (cfg.get_str("pipeline.resident-loop", "auto") != "off"
+            and cfg.get_str("pipeline.prefetch", "auto") != "off"
+            and cfg.get_str("pipeline.device-staging", "auto") != "off")
+
+
 def _check_config(cfg, red: wk.ReduceSpec) -> None:
     """The reference's window-stage knobs: validated as it validates them;
     those naming a path this slice lacks raise."""
@@ -498,14 +577,39 @@ class _WindowJob(StageJob):
         )
         self.depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
         self.lateness_ms = pipe.window_agg.allowed_lateness_ms
-        self.result_fn = pipe.window_agg.result_fn
+        # a chained stage graph (runtime/stages.py): the sinks take the
+        # final stage's rows, with its reduce and result projection
+        self.graph = pipe.graph
+        if self.graph is not None:
+            self.CAPACITY_HINT = (
+                " (raise state.backend.device.slots-per-shard or the pane "
+                "ring — for chained stage graphs also "
+                "pipeline.stages.exchange-lanes — or set "
+                "state.backend.strict-capacity to false to tolerate drops)")
+        self.emit_red = (self.graph.plan_reduces()[-1] if self.graph
+                         else self.red)
+        self.result_fn = (self.graph.stages[-1].wagg if self.graph
+                          else pipe.window_agg).result_fn
+        self.chain_specs: List[WindowStageSpec] = []
+        self.chain_states: List[wk.WindowShardState] = []
+        self.chain_full = False      # a chained drain's stage filled F lanes
+        self.flushing = False        # inside drain_chained
+        # a chained flush that a drain's read called for while batches
+        # were staged: (watermark ms, crossing stamp), run once the drain
+        # over those batches is queued (the flush stages into the ring)
+        self.flush_owed: Optional[Tuple[int, float]] = None
+        # the flush's crossing stamp: the latency origin of its rounds
+        self.flush_t: Optional[float] = None
         # the spill tier (executor.py:1857-1868): a reduce the host can
-        # combine, float32 values of at most one dimension, and allowed
-        # lateness 0 (the host stores carry no freshness for a re-fire)
+        # combine, float32 values of at most one dimension, allowed
+        # lateness 0 (the host stores carry no freshness for a re-fire),
+        # and no chained stages (strict capacity: a spilled stage-0 record
+        # would have to replay through every downstream stage)
         self.spillable = (wk.overflow_supported(self.red)
                           and self.red.dtype == torch.float32
                           and len(self.red.value_shape) <= 1
-                          and self.lateness_ms == 0)
+                          and self.lateness_ms == 0
+                          and self.graph is None)
         self.ovf_cfg = cfg.get_int("state.backend.overflow-ring", -1)
         if self.ovf_cfg > 0 and not self.spillable:
             raise ValueError(
@@ -614,8 +718,12 @@ class _WindowJob(StageJob):
             value_shape=(() if self.red.kind == "sketch"
                          else self.red.value_shape))
         tel = dict(kg_fill=self.kg_stats, drain_stats=self.drain_stats)
-        self.drain = build_window_resident_drain(
-            self.spec, self.depth, self.maxp, reduced=self.reduced, **tel)
+        if self.graph is not None:
+            self.setup_chain(ovf, tel)
+        else:
+            self.drain = build_window_resident_drain(
+                self.spec, self.depth, self.maxp, reduced=self.reduced,
+                **tel)
         if ovf and layout == "hash":
             # the reference's build_fast (executor.py:2053-2072)
             self.fast_drain = build_window_resident_drain(
@@ -626,7 +734,40 @@ class _WindowJob(StageJob):
             # ring lane, since the port runs one shard
             self.telem = DrainTelemetry(
                 1, self.depth, key_groups=self.maxp if self.kg_stats else 0,
-                kg_alpha=cfg.get_float("observability.kg-heat-alpha", 0.05))
+                kg_alpha=cfg.get_float("observability.kg-heat-alpha", 0.05),
+                n_stages=1 + len(self.chain_specs),
+                exchange_lanes=(cfg.get(
+                    CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES)
+                    if self.graph is not None else 0))
+
+    def setup_chain(self, ovf: int, tel: dict) -> None:
+        """Plan the downstream stages off stage 0's spec, refuse the
+        runtime shapes the chained drain cannot serve (the reference's
+        executor.py:1994-2010, 2032-2040) and build the chained drain, the
+        job's only dispatch: there is no fast variant (strict capacity)
+        and no watermark-only fire (a fire outside the drain would consume
+        stage-0 fires without feeding stage 1)."""
+        cfg = self.env.config
+        graph = self.graph
+        self.chain_specs = graph.plan_specs(self.spec,
+                                            drain_depth=self.depth)
+        graph.check_runtime(
+            use_resident=_chain_resident(cfg), overflow_lanes=ovf,
+            drain_stats=self.drain_stats,
+            reduced_fires=self.sink_device_reduce,
+            max_stages=cfg.get(CoreOptions.PIPELINE_STAGES_MAX_STAGES))
+        if cfg.get_str("exchange.mode", "auto") == "all_to_all":
+            raise StageGraphError(
+                "exchange.mode=all_to_all is not supported with chained "
+                "stage graphs — the identity re-key keeps fires "
+                "shard-local, so the chained drain runs the "
+                "replicate-and-mask route; unset exchange.mode")
+        self.chain_states = [init_shard_state(cs, self.maxp, self.device)
+                             for cs in self.chain_specs]
+        self.drain = build_window_chained_drain(
+            (self.spec,) + tuple(self.chain_specs), self.depth, self.maxp,
+            exchange_lanes=cfg.get(
+                CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES), **tel)
 
     def wm_ticks(self, wm_ms: int) -> int:
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
@@ -637,7 +778,8 @@ class _WindowJob(StageJob):
             return
         self.dispatch()
         self.consume()
-        # end of stream: MAX watermark flush (ref Watermark.MAX_WATERMARK)
+        # end of stream: MAX watermark flush (ref Watermark.MAX_WATERMARK;
+        # a chained job's goes through empty chained drains)
         self.fire_until_done(int(self.td.to_ms(MAX_TS - 2)),
                              time.perf_counter())
 
@@ -720,7 +862,8 @@ class _WindowJob(StageJob):
         """Queue one resident drain over the staged slots, on the fast step
         when the tiering chose it. The previous drain's fires are read
         first: they may call for watermark-only fires that must precede
-        this drain's updates, and they settle the tier."""
+        this drain's updates, and they settle the tier. A chained job's
+        flush they call for runs once this drain is queued."""
         if not self.staged:
             return
         self.consume()
@@ -728,9 +871,20 @@ class _WindowJob(StageJob):
         slots = self.ring.slots(count)
         fast = self.step_mode == "fast"
         drain = self.fast_drain if fast else self.drain
-        out = drain(self.state, slots, self.ring.wmv, count)
-        self.state, mon, fires = out[:3]
+        if self.graph is not None:
+            # one dispatch advances every stage; the sinks take the final
+            # stage's fires, and mon the fill after the drain and, for the
+            # flush decision, each stage's last advance's fire lanes
+            out = drain((self.state,) + tuple(self.chain_states), slots,
+                        self.ring.wmv, count)
+            states, mon, fires = out[:3]
+            self.state, self.chain_states = states[0], list(states[1:])
+            mon = (mon[0][-1:], mon[1], mon[2], drain.stage_lanes)
+        else:
+            out = drain(self.state, slots, self.ring.wmv, count)
+            self.state, mon, fires = out[:3]
         t_disp = time.perf_counter()
+        last_wm = self.staged_wm[-1]
         self.ring.release(count)
         self.wm_dev = max([self.wm_dev]
                           + [self.wm_ticks(w) for w in self.staged_wm])
@@ -749,8 +903,10 @@ class _WindowJob(StageJob):
             if self.ds_skip >= self.drain_stats_every:
                 self.ds_skip = 0
                 ds = out[3]
-        self.pending = (fires, count, self.staged_wm[-1], mon, t_disp, ds,
-                        kg_batches)
+        # the fires' latency origin: the dispatch, or within a chained
+        # flush the watermark crossing that called for it
+        t_lat = t_disp if self.flush_t is None else self.flush_t
+        self.pending = (fires, count, last_wm, mon, t_lat, ds, kg_batches)
         self.staged = 0
         self.staged_wm = []
         self.metrics.resident_drains += 1
@@ -759,6 +915,10 @@ class _WindowJob(StageJob):
         if self.telem is not None:
             # every slot was staged for this drain: the ring is empty after
             self.telem.on_drain([count], [0], [self.pub_seq - 1], t_disp)
+        if self.flush_owed is not None:
+            wm, t_cross = self.flush_owed
+            self.flush_owed = None
+            self.drain_chained(max(wm, last_wm), t_cross)
 
     def consume(self) -> None:
         """Read the last drain's fires, ring fills and activity (the one
@@ -767,17 +927,26 @@ class _WindowJob(StageJob):
         due."""
         if self.pending is None:
             return
-        fires, count, last_wm, mon, t_disp, ds, kg_batches = self.pending
+        fires, count, last_wm, mon, t_lat, ds, kg_batches = self.pending
         self.pending = None
         fires_before = self.metrics.fires
         lanes = self.emit(fires, mon, ds, kg_batches)
         n = self.metrics.fires - fires_before
         if n:
-            # a drain's fires: from its dispatch to their emission
+            # a drain's fires: from its dispatch (or its flush's crossing)
+            # to their emission
             self.metrics.record_fire_latency(
-                n, (time.perf_counter() - t_disp) * 1e3)
+                n, (time.perf_counter() - t_lat) * 1e3)
         # with lateness the reference fires eagerly after every drain
-        if self.lateness_ms or self.lanes_full(lanes[count - 1]):
+        if self.graph is not None:
+            if self.chain_full and not self.flushing:
+                if self.staged:
+                    # called by dispatch before it queues the staged
+                    # batches: the flush's rounds would overwrite them
+                    self.flush_owed = (last_wm, time.perf_counter())
+                else:
+                    self.drain_chained(last_wm, time.perf_counter())
+        elif self.lateness_ms or self.lanes_full(lanes[count - 1]):
             self.fire_until_done(last_wm, time.perf_counter())
 
     def lanes_full(self, lanes) -> bool:
@@ -793,6 +962,8 @@ class _WindowJob(StageJob):
         ``t_cross``: when the host saw the watermark crossing; each
         advance's windows record the time from it to their emission as
         their fire latency."""
+        if self.graph is not None:
+            return self.drain_chained(wm_ms, t_cross)
         self.consume()
         # the live keys per key group, before these fires purge panes
         self.refresh_kg_occupancy()
@@ -822,6 +993,42 @@ class _WindowJob(StageJob):
                     n, (time.perf_counter() - t_cross) * 1e3)
             if not self.lanes_full(lanes):
                 return
+
+    def drain_chained(self, wm_ms: int, t_cross: Optional[float] = None
+                      ) -> None:
+        """A chained job's watermark flush (the reference's drain_chained,
+        executor.py:5279-5318): empty chained drains at ``wm_ms``, each
+        firing up to F window-ends a stage and forwarding them one edge
+        down — one a stage and hop, plus ceil((ring + panes a window) / F)
+        a stage, bound the backlog. Each round's fires are emitted before
+        the next (the final stage's arena is reused), and record their
+        latency from ``t_cross`` when given. Nothing may be staged: the
+        rounds stage into ring slot 0 (``dispatch`` runs a flush its read
+        calls for once its own drain is queued)."""
+        self.flushing = True
+        try:
+            self.consume()
+            self.refresh_kg_occupancy()
+            rounds = len(self.chain_specs) + 1
+            for sp in (self.spec,) + tuple(self.chain_specs):
+                w = sp.win
+                rounds += -(-(w.ring + w.panes_per_window)
+                            // w.fires_per_step)
+            v_shape = () if self.red.kind == "sketch" else self.red.value_shape
+            empty = (np.zeros(0, np.uint32), np.zeros(0, np.uint32),
+                     np.zeros(0, np.int32),
+                     np.zeros((0,) + v_shape, np.float32))
+            self.flush_t = t_cross
+            for _ in range(rounds):
+                self.ring.stage(0, *empty, self.wm_ticks(wm_ms))
+                self.staged = 1
+                self.staged_wm = [wm_ms]
+                self.dispatch()
+                self.metrics.chain_flush_drains += 1
+            self.consume()
+        finally:
+            self.flushing = False
+            self.flush_t = None
 
     def emit(self, fires, mon=None, ds=None, kg_batches: int = 0
              ) -> np.ndarray:
@@ -853,8 +1060,14 @@ class _WindowJob(StageJob):
         n_kg = mon[2].numel() if kg_batches else 0
         if n_kg:
             parts.append(mon[2])
-        if ds is not None:
-            parts.append(ds.reshape(-1))
+        n_sl = mon[3].numel() if mon is not None and len(mon) > 3 else 0
+        if n_sl:
+            parts.append(mon[3])
+        # the flight recorder: a [D, 9] stack, or a chained drain's pair
+        # (stage 0's stack, the downstream stages' [S - 1, 6] records)
+        ds_parts = () if ds is None else (
+            ds if isinstance(ds, tuple) else (ds,))
+        parts += [t.reshape(-1) for t in ds_parts]
         small = torch.cat([t.to(torch.float64) for t in parts]).cpu().numpy()
         F = self.spec.win.fire_lanes
         purged_through = int(small[n_slots])
@@ -871,10 +1084,21 @@ class _WindowJob(StageJob):
         if n_kg:
             self.absorb_kg(small[at:at + n_kg].astype(np.int64), kg_batches)
             at += n_kg
+        if n_sl:
+            # did any stage's last advance fill all F lanes (backlog may
+            # remain)?
+            full = small[at:at + n_sl].reshape(-1, F).astype(bool)
+            self.chain_full = bool(full.all(1).any())
+            at += n_sl
         if self.telem is not None and mon is not None:
-            if ds is not None:
+            if ds_parts:
+                rest = small[at:].astype(np.int64)
+                n0 = ds_parts[0].numel()
                 self.telem.absorb_payload(
-                    small[at:].astype(np.int64).reshape(1, n_slots, -1))
+                    rest[:n0].reshape(1, -1, len(DRAIN_STAT_FIELDS)))
+                if len(ds_parts) > 1:
+                    self.telem.absorb_stage_payload(
+                        rest[n0:].reshape(-1, 1, len(STAGE_STAT_FIELDS)))
             if lanes.any():
                 # event time to fire: each live lane is one window end
                 # weighted by its keys
@@ -914,7 +1138,7 @@ class _WindowJob(StageJob):
         parts = [(d, f, int(counts[d, f])) for d in range(n_slots)
                  for f in range(F) if counts[d, f]]
         by_slot = {}
-        red = self.red
+        red = self.emit_red
         v_shape = red.out_shape
         v_np = np.float32 if red.out_dtype == torch.float32 else np.int32
         width = int(np.prod(v_shape, dtype=np.int64))
@@ -1161,6 +1385,13 @@ class _WindowJob(StageJob):
             self.stores.pop(q).close()
 
     # -- end of job --------------------------------------------------------
+    def loss_counters(self):
+        # every stage's counters: an over-full edge lands its lanes in the
+        # downstream stage's dropped_capacity (executor.py:6384-6405)
+        states = [self.state] + self.chain_states
+        return (sum(int(st.dropped_late) for st in states),
+                sum(int(st.dropped_capacity) for st in states))
+
     def finish(self) -> None:
         for store in self.stores.values():
             store.close()

@@ -105,16 +105,22 @@ class StageJob:
         for s in self.pipe.sinks:
             s.invoke_batch(rows)
 
+    def loss_counters(self):
+        """``(dropped_late, dropped_capacity)`` of the job's state, the
+        first None where the state counts no late records."""
+        st = self.state
+        return (int(st.dropped_late) if hasattr(st, "dropped_late")
+                else None, int(st.dropped_capacity))
+
     def finish(self) -> None:
         """Read the state's loss counters into the metrics; with strict
         capacity (the default) a record lost to capacity fails the job."""
-        st = self.state
-        if st is None:
+        if self.state is None:
             return
         m = self.metrics
-        m.dropped_capacity = int(st.dropped_capacity)
-        if hasattr(st, "dropped_late"):
-            m.dropped_late = int(st.dropped_late)
+        late, m.dropped_capacity = self.loss_counters()
+        if late is not None:
+            m.dropped_late = late
         if m.dropped_capacity and self.env.config.get_bool(
                 "state.backend.strict-capacity", True):
             raise RuntimeError(

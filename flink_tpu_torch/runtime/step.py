@@ -1,5 +1,6 @@
-"""Stage steps on one device — the window, session, count-window and
-rolling stages of flink_tpu/runtime/step.py.
+"""Stage steps on one device — the window stage (its resident drain, and
+the chained drain of consecutive window stages), the session, count-window
+and rolling stages of flink_tpu/runtime/step.py.
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
@@ -17,12 +18,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-from flink_tpu_torch.metrics.drain_stats import DRAIN_STAT_FIELDS
+from flink_tpu_torch.metrics.drain_stats import (
+    DRAIN_STAT_FIELDS, STAGE_STAT_FIELDS,
+)
 from flink_tpu_torch.ops import count_windows as cw
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import rolling
 from flink_tpu_torch.ops import session_windows as sw
 from flink_tpu_torch.ops import window_kernels as wk
+from flink_tpu_torch.ops.cuda import PANE_NONE
 
 
 @dataclass
@@ -103,7 +107,8 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                                 max_parallelism: int, reduced: bool = True,
                                 insert: bool = True, arena=None,
                                 kg_fill: bool = False,
-                                drain_stats: bool = False):
+                                drain_stats: bool = False,
+                                defer_fires: bool = False):
     """Device-resident ring drain for one device (the reference's
     ``build_window_resident_drain`` at one shard). ``insert=False`` builds
     the fast variant, whose hash-layout updates look keys up and place
@@ -200,7 +205,7 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                     ds[i], lane_stats[i], act, fr.lane_valid, fr.counts,
                     state.dropped_late, state.dropped_capacity, state.ovf_n,
                     kgf[i] if kg_fill else None, state.watermark, snaps[i],
-                    slide=spec.win.slide_ticks)
+                    slide=spec.win.slide_ticks, defer=defer_fires)
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
         if not fills:
@@ -217,6 +222,168 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
 
     drain.arena = arena
     drain.arena_rows = arena_rows
+    return drain
+
+
+# ------------------------------------------- chained keyed window stages
+#
+# The reference's chained resident drain (step.py:1789-2172) at one
+# device: stage 0 runs the resident drain's slot loop with compact fires
+# into its [D, F, C] arena; then, once a drain, each downstream stage j
+# takes the whole stack of its upstream's fires as one edge (G21), one
+# update, one advance and fire into its own [1, F, C] arena, and one purge.
+
+def chain_fires_to_lanes(cf: wk.CompactFires, n_lanes: int):
+    """The reference's ``_chain_fires_to_lanes`` (G21): a CompactFires of
+    one slot ([F, C] planes) or a drain's stack ([D, F, C]) re-keyed into
+    ``n_lanes`` edge lanes, every fired (key, window) row one record with
+    the same key and ts = window_end - 1. Returns the reference's ``(hi,
+    lo, ts, vals, ok, dropped, demand)``: int32 key halves and ticks [E],
+    values [E, *out_shape], ok bool [E], and int32 0-d counts of the rows
+    past E and of all live rows."""
+    e = kernels.chain_pack(cf.key_hi, cf.key_lo, cf.values, cf.counts,
+                           cf.lane_valid, cf.window_end_ticks,
+                           n_lanes=n_lanes)
+    return e.hi, e.lo, e.ts, e.vals, e.ok, e.dropped, e.demand
+
+
+def chain_stage_watermark(up_wm, up_state: wk.WindowShardState,
+                          up_spec: WindowStageSpec):
+    """The reference's ``_chain_stage_watermark`` (G21 on an empty stack):
+    the watermark of the stage fed by ``up_state``'s fires, ``min(up_wm,
+    (fired_through + 2) * slide - 2)`` with fired_through clamped to [-1,
+    (2^31 - 4) // slide - 2], so that no future upstream fire is late
+    downstream and the end-of-stream jump cannot wrap. int32 0-d."""
+    dev = up_state.device
+    if not isinstance(up_wm, torch.Tensor):
+        up_wm = torch.tensor(int(up_wm), dtype=torch.int32, device=dev)
+    rows = torch.zeros((0, 1), dtype=torch.int32, device=dev)
+    flags = torch.zeros(0, dtype=torch.int32, device=dev)
+    return kernels.chain_pack(
+        rows, rows, rows.float(), flags, flags.bool(), flags, n_lanes=0,
+        up_wm=up_wm, fired_through=up_state.fired_through,
+        slide=up_spec.win.slide_ticks).wm
+
+
+def deferred_fire_columns(ds_stack, cf_stack):
+    """The reference's ``_deferred_fire_columns`` (G22 ``fire_columns``):
+    the fire_lanes and fired_keys columns of a drain's [D, 9] recorder
+    stack filled from its stacked [D, F] fires, in place; returns the
+    stack."""
+    D = ds_stack.shape[0]
+    kernels.fire_columns(ds_stack, cf_stack.lane_valid.reshape(D, -1),
+                         cf_stack.counts.reshape(D, -1))
+    return ds_stack
+
+
+def _chained_stage_tail(down_states, specs, st0, cf_stack, wm_last,
+                        max_parallelism: int, exchange_lanes: int, arenas,
+                        drain_stats: bool = False, lanes_out=None):
+    """Downstream stages of the chained drain, once a drain (the
+    reference's ``_chained_stage_tail``): for each stage j >= 1, G21 packs
+    its upstream's fires into ``exchange_lanes`` edge lanes and computes
+    the coupled watermark; the lanes update the stage (inserting; an
+    over-full edge's lanes count into its ``dropped_capacity``), which then
+    advances and fires into its ``[1, F, C]`` arena (``arenas[j - 1]``,
+    made at first use) and purges at once. Every insert precedes the
+    stage's single advance, so no window closes before this drain's
+    records for it. Returns ``(down_states, final fires stacked [1, F])``
+    and, with ``drain_stats``, the per-stage int32 [S - 1, 6] record
+    (G22 ``stage_record``, STAGE_STAT_FIELDS order). ``lanes_out``, a
+    list, receives each stage's fire ``lane_valid``."""
+    out, recs = [], []
+    up_state, up_fires, wm_up = st0, cf_stack, wm_last
+    kg_end = max_parallelism - 1
+    E = int(exchange_lanes)
+    for j in range(1, len(specs)):
+        sp = specs[j]
+        edge = kernels.chain_pack(
+            up_fires.key_hi, up_fires.key_lo, up_fires.values,
+            up_fires.counts, up_fires.lane_valid, up_fires.window_end_ticks,
+            n_lanes=E, up_wm=wm_up, fired_through=up_state.fired_through,
+            slide=specs[j - 1].win.slide_ticks)
+        st_j = down_states[j - 1]
+        wm_b = st_j.watermark.clone() if drain_stats else None
+        # downstream stages always insert: their keys arrive by the edge
+        mask_update_shard(st_j, sp, 0, kg_end, edge.hi, edge.lo, edge.ts,
+                          edge.vals, edge.ok, edge.wm, max_parallelism)
+        st_j.dropped_capacity.add_(edge.dropped)                 # in place
+        if arenas[j - 1] is None:
+            arenas[j - 1] = wk.fire_row_buffers(
+                1, sp.win.fire_lanes, st_j.capacity, st_j.device, red=sp.red)
+        st_j, pend, cf = wk.advance_and_fire_resident(
+            st_j, sp.win, sp.red, edge.wm, reduced=False,
+            out=tuple(r[0] for r in arenas[j - 1]))
+        wk.apply_pending_purge(st_j, sp.win, sp.red, pend)
+        if lanes_out is not None:
+            lanes_out.append(cf.lane_valid)
+        if drain_stats:
+            row = torch.empty(len(STAGE_STAT_FIELDS), dtype=torch.int32,
+                              device=st_j.device)
+            kernels.stage_record(row, edge.demand, E, cf.lane_valid,
+                                 edge.dropped, wm_up, edge.wm, wm_b,
+                                 st_j.watermark, slide=sp.win.slide_ticks)
+            recs.append(row)
+        out.append(st_j)
+        up_state, wm_up = st_j, edge.wm
+        up_fires = _stack_fires([cf], arenas[j - 1])
+    if drain_stats:
+        return tuple(out), up_fires, torch.stack(recs)
+    return tuple(out), up_fires
+
+
+def build_window_chained_drain(specs: Sequence[WindowStageSpec], depth: int,
+                               max_parallelism: int, kg_fill: bool = False,
+                               exchange_lanes: int = 1024,
+                               drain_stats: bool = False):
+    """Multi-stage resident ring drain for one device (the reference's
+    ``build_window_chained_drain`` over a one-shard mesh): stage 0 consumes
+    up to ``depth`` staged slots as ``build_window_resident_drain`` does,
+    with compact fires stacked in its [D, F, C] arena; then each downstream
+    stage runs once over the whole stack (``_chained_stage_tail``) at the
+    coupled watermark, the first from the drain's watermark — the maximum
+    over the live slots' watermarks.
+
+    ``drain(states, slots, wmv, count)``: ``states`` the tuple of every
+    stage's ``WindowShardState`` (updated in place), the rest as for the
+    resident drain. Returns ``(states, (ovf_n, activity, kg_fill),
+    fires)``, ``fires`` the final stage's CompactFires stacked [1, F] in its
+    own arena; with ``drain_stats`` a fourth element, the pair ``(ds0,
+    ss)``: stage 0's [depth, 9] flight recorder (fire columns filled after
+    the loop, G22) and the [S - 1, 6] per-stage records. A drain's stage-0
+    rows are read by G21 within the drain; only the final fires reach the
+    host, and they must be read before the next drain runs.
+    ``exchange_lanes`` bounds each edge's lanes a drain. After each call
+    ``drain.stage_lanes`` holds, bool [S * F] on the device, the fire
+    lanes of each stage's last advance (stage 0's last live slot's, then
+    each downstream stage's): where one stage filled all F, due windows
+    may remain for a flush."""
+    specs = tuple(specs)
+    D = int(depth)
+    stage0 = build_window_resident_drain(
+        specs[0], D, max_parallelism, reduced=False,
+        kg_fill=kg_fill, drain_stats=drain_stats, defer_fires=True)
+    arenas = [None] * (len(specs) - 1)
+
+    def drain(states, slots: Sequence[Slot], wmv, count: int):
+        st0 = states[0]
+        out = stage0(st0, slots, wmv, count)
+        st0, mon, cf_stack = out[:3]
+        live = torch.arange(D, device=wmv.device) < count
+        wm_last = torch.where(live, wmv, PANE_NONE).max()
+        lanes = [cf_stack.lane_valid[max(count, 1) - 1]]
+        tail = _chained_stage_tail(states[1:], specs, st0, cf_stack, wm_last,
+                                   max_parallelism, exchange_lanes, arenas,
+                                   drain_stats=drain_stats, lanes_out=lanes)
+        drain.stage_lanes = torch.cat(lanes)
+        res = ((st0,) + tail[0], mon, tail[1])
+        if drain_stats:
+            res += ((deferred_fire_columns(out[3], cf_stack), tail[2]),)
+        return res
+
+    drain.stage_lanes = None
+    drain.n_stages = len(specs)
+    drain.exchange_lanes = int(exchange_lanes)
     return drain
 
 

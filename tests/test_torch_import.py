@@ -104,3 +104,37 @@ def test_cep_package_and_its_kernels():
                    torch.ones(2, dtype=torch.bool))
     kernels.cep_expire(st.carry, [True], S=2, Q=1)
     assert (kernels.cep_scan.launches, kernels.cep_expire.launches) == before
+
+
+def test_chained_stages_run_with_jax_and_the_reference_blocked():
+    """The chained-stage modules (the copied runtime/stages.py, the chained
+    drain, G21 and G22's plain versions) import and run a two-stage drain
+    on the CPU with ``jax`` and ``flink_tpu`` unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flink_tpu'] = None\n"
+        "import torch\n"
+        "from flink_tpu_torch.runtime import stages, step\n"
+        "from flink_tpu_torch.ops import window_kernels as wk\n"
+        "specs = [step.WindowStageSpec(wk.WindowSpec(s, s, ring=8), "
+        "wk.ReduceSpec('sum'), capacity_per_shard=64) for s in (10, 40)]\n"
+        "drain = step.build_window_chained_drain(specs, 2, 128, "
+        "drain_stats=True)\n"
+        "sts = tuple(step.init_shard_state(sp, 128, 'cpu') for sp in specs)\n"
+        "B = 32\n"
+        "lane = (torch.zeros(B, dtype=torch.int32), "
+        "torch.arange(B, dtype=torch.int32), "
+        "torch.arange(B, dtype=torch.int32), torch.ones(B), "
+        "torch.ones(B, dtype=torch.bool))\n"
+        "out = drain(sts, [lane, lane], torch.tensor([100, 100], "
+        "dtype=torch.int32), 2)\n"
+        "assert len(out) == 4 and out[3][1].shape == (1, 6)\n"
+        "assert issubclass(stages.StageGraphError, ValueError)\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

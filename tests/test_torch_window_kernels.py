@@ -173,5 +173,15 @@ def test_cpu_tensors_never_launch_a_kernel():
         cep_device.advance(st_c, spec_c, lanes[0], lanes[1],
                            lanes[4][:, None].expand(-1, 3).contiguous(),
                            lanes[4], pane)
-    assert len(kernels.KERNELS) == 24
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 24
+    # a chained drain with its recorder (G21, G22 and G18's deferred mode)
+    spec_1 = step_port.WindowStageSpec(
+        win=wkt.WindowSpec(40, 40, ring=8, fires_per_step=2), red=red_t,
+        capacity_per_shard=C)
+    chained = step_port.build_window_chained_drain(
+        (spec, spec_1), 2, MAXP, drain_stats=True)
+    sts = tuple(step_port.init_shard_state(sp, MAXP, "cpu")
+                for sp in (spec, spec_1))
+    chained(sts, [lanes_torch(*x[:5]) for x in b],
+            torch.tensor([x[5] for x in b], dtype=torch.int32), 2)
+    assert len(kernels.KERNELS) == 27
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 27
