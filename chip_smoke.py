@@ -111,7 +111,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 lanes a slot), its library time Tensor.sum(dim=1) over the
                 counts; stage_record at a stage-1 fire (edge: the first
                 advance from the MIN sentinel, the flush, an over-full
-                edge).
+                edge). Then (``res_kernel_phase``) G1's residency mode,
+                tiered state's divert, bit for bit: at the north star's
+                batch with half the key groups resident (main), all
+                resident (which must equal G1 without the mask) and none
+                (every live lane cold), at maxp 32,768 on G1's edge
+                lanes, and at the tiered job's own shape (32,768 Zipf
+                lanes, maxp 64, the TierManager's initial 5-of-64 mask,
+                without and with the fill); timed beside G1 without the
+                mask, its library time res.index_select(0, kg) over G1's
+                kg.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -258,30 +267,64 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 mod 1024 equal to numpy's, nothing dropped, and G5
                 launched in both stages (once a stage-0 slot plus once a
                 drain).
+ 19. checkpoint — the north star (its keys, traffic, batches, direct
+                layout and no overflow ring) into a sink that keeps every
+                row, as the reference's run_checkpoint_overhead cell
+                (bench_configs.py:380) at the north star's width, in turns:
+                checkpoints off; sync-full every 32 batches into a
+                temporary directory; again with a step.drain fault on the
+                6th drain (whose dispatch first emits window 2, past the
+                cut at batch 64 that the restore returns to) and
+                restart-strategy fixed-delay (1 attempt, delay 0). Each run's events/s, checkpoints, mean and max
+                sync_ms and bytes; the crashed run's seconds from the
+                fault to the first drain after its restore. Every run's
+                (key, window) -> value map must equal numpy's, and a
+                window the crashed run emits twice must carry the same
+                value both times (the count is printed, and must be above
+                0); G1-G3, G6 launched.
+ 20. tiered   — the reference's own cell, bench_configs.py:2508
+                run_tiered, at its shape: max parallelism 64 and a budget
+                of 5 resident key groups, 4,096 keys drawn Zipf(2.5) with
+                seed 7, batches of 32,768, a 1 s tumbling sum, ts =
+                (index // 4,096) * 125 ms, capacity 2^14 in the hash layout
+                with the auto-sized overflow ring, 8M events (about 244
+                windows); all-resident and tiered in turns, then tiered
+                with observability.drain-stats and kg-stats on (faults and
+                heat fed). Each run's events/s, p99 fire latency, the
+                tiers report and the host seconds in the swaps, the
+                tiered / all-resident ratio beside the reference's
+                >= 0.6 criterion (information only). Every row must equal
+                numpy's and every tiered run must demote and promote; G1
+                with the mask, G2, G3, G5, G6, G7 launched.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
-distinct, countmin, maxprice, mean, late-reduce, the three chained runs)
-carries its fire latency:
+distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
+the checkpoint and tiered runs) carries its fire latency:
 p50 and p99 over its windows, from a drain's dispatch (or a watermark
 crossing) to the emission, with the sample count.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after. Then one line {"kernels": [...]} (launches summed over the
-seventeen paths; G19's shapes other than cep-within's nested in its entry;
-G21's edge cases nested in its entry; G1's fill nested in G1's entry,
-numbers from phase 3; G14 and G15 at the distinct job's shapes, the
-countmin job's in phase 3's line; the new modes nested under their kernel
-in phase 3's line), and last {"ok": true, "device": {...}}.
+nineteen paths, every run of the checkpoint and tiered jobs counted;
+G19's shapes other than cep-within's nested in its entry; G21's edge
+cases nested in its entry; G1's fill and its residency mode nested in
+G1's entry, numbers from phase 3; G14 and G15 at the distinct job's
+shapes, the countmin job's in phase 3's line; the new modes nested under
+their kernel in phase 3's line), and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds, before those two lines, a profile of each of the fifteen jobs: the
-generator's host time alone, the host's top functions (and, for the CEP
-jobs, the cumulative seconds of the element conversion, the reorder
-buffer, the predicates, batch_gaps, the count NFA's advance, replay and
-prune; for the chained jobs, of the key encode, the drains, their stage
-tails, the fires' reads and emits and the flushes), and the card's busy
-time and idle share from torch.profiler.
+adds, before those two lines, a profile of seventeen of the jobs (all
+but telemetry and chained-stats; checkpoint with its checkpoints on,
+tiered with its budget): the generator's host time alone, the host's top
+functions (and, for the CEP jobs, the cumulative seconds of the element
+conversion, the reorder buffer, the predicates, batch_gaps, the count
+NFA's advance, replay and prune; for the chained jobs, of the key encode,
+the drains, their stage tails, the fires' reads and emits and the
+flushes; for the checkpoint job, of the cut, its staging, extraction,
+spill fold, write and restore; for the tiered job, of the maintenance
+pass, the swaps and their staging, folds, fetches and rebuilds), and the
+card's busy time and idle share from torch.profiler.
 
     python3 chip_smoke.py --seed N
 
@@ -289,8 +332,10 @@ salts the cep-within job's events and its sample of keys with N.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -309,6 +354,8 @@ from flink_tpu_torch.ops.window_kernels import ReduceSpec, fire_row_buffers
 from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG, panes_crossed
 from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
+from flink_tpu_torch.runtime.tiers import TierManager
+from flink_tpu_torch.testing import faults
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 
@@ -4586,6 +4633,371 @@ def profile_phase(dev, name, gen, run, total=TOTAL_EVENTS,
     }
 
 
+# ---------------------- G1's residency mode; the checkpoint, tiered jobs
+
+def tier_lane_inputs(dev):
+    """G1's lane inputs at the tiered job's shape: one batch of 32,768
+    lanes of ``tier_gen`` that crosses a window boundary (a batch is one
+    1 s window), with the watermark the executor holds there; integer keys
+    are their own 64-bit identity (hi 0, lo the key)."""
+    offset = 10 * TIER_BATCH + TIER_BATCH // 2
+    cols, ts = tier_gen(offset, TIER_BATCH, TIER_TOTAL)
+    return {
+        "hi": _t(np.zeros(TIER_BATCH, np.int32), dev, torch.int32),
+        "lo": _t(cols["key"].astype(np.uint32).view(np.int32), dev,
+                 torch.int32),
+        "ts": _t(ts.astype(np.int32), dev, torch.int32),
+        "valid": _t(np.ones(TIER_BATCH, bool), dev, torch.bool),
+        "watermark": torch.tensor(int(ts[0]) - 1, dtype=torch.int32,
+                                  device=dev),
+        "purged_through": torch.tensor(-1, dtype=torch.int32, device=dev),
+    }
+
+
+def case_route_res(dev, kind):
+    """G1 with the residency mask (tiered state's divert). At the north
+    star's batch (B = 262,144, maxp 128): ``main``, half the key groups
+    resident (a seeded random half); ``all``, every group resident, which
+    must give no cold lane and G1's four outputs without the mask;
+    ``none``, no group resident, every live lane cold. ``edge``: maxp
+    32,768, a random mask, G1's edge lanes (dead, late, purged, past
+    capacity). ``tiered`` / ``tiered_fill``: the tiered job's own shape
+    (B = 32,768 lanes of its Zipf pool, maxp 64, the TierManager's
+    initial 5-of-64 mask), without and with the kg fill, as its runs with
+    ``observability.kg-stats`` off and on launch it. Held exactly: pane,
+    kg, live, the stats, the cold mask and the fill. Library:
+    ``res.index_select(0, kg)`` over G1's own kg."""
+    tiered = kind.startswith("tiered")
+    if tiered:
+        maxp, slide = TIER_MAXP, TIER_WINDOW_MS
+        inp = tier_lane_inputs(dev)
+        res_np = TierManager(TIER_MAXP, [0], [TIER_MAXP - 1],
+                             TIER_BUDGET).mask()
+    else:
+        maxp = KG_EDGE_MAXP if kind == "edge" else MAX_PARALLELISM
+        slide = WINDOW_MS
+        inp = lane_inputs(dev, N_KEYS, BATCH, WINDOW_MS,
+                          "edge" if kind == "edge" else "main")
+        rng = np.random.default_rng(17)
+        res_np = {"all": np.ones(maxp, bool),
+                  "none": np.zeros(maxp, bool)}.get(
+            kind, rng.random(maxp) < 0.5)
+    args = (inp["hi"], inp["lo"], inp["ts"], inp["valid"], inp["watermark"],
+            inp["purged_through"])
+    kw = dict(slide=slide, k=1, maxp=maxp, kg_start=0, kg_end=maxp - 1)
+    res = _t(res_np, dev, torch.bool)
+    fills = [torch.zeros(maxp, dtype=torch.int32, device=dev)
+             if kind == "tiered_fill" else None for _ in range(2)]
+    got = kernels.route_lanes(*args, **kw, res=res, fill=fills[0])
+    want = kernels.route_lanes_plain(*args, **kw, res=res, fill=fills[1])
+    err = max_abs_err(list(got), list(want))
+    if fills[0] is not None:
+        err = max(err, max_abs_err([fills[0]], [fills[1]]))
+    live, cold = got[2], got[4]
+    if kind == "all":
+        # all resident: G1 as it was, no cold lane
+        err = max(err, max_abs_err(list(got[:4]),
+                                   list(kernels.route_lanes(*args, **kw))),
+                  float(cold.sum()))
+    elif kind == "none":
+        err = max(err, float((cold != live).sum()))
+    else:
+        check(bool(cold.any()) and bool((live & ~cold).any()),
+              f"route_lanes (kg_res, {kind}): no cold or no hot lane")
+    kg = got[1].long()
+    B = inp["hi"].shape[0]
+    return {
+        "err": err,
+        "run": lambda: kernels.route_lanes(*args, **kw, res=res),
+        "plain": lambda: kernels.route_lanes_plain(*args, **kw, res=res),
+        "library": lambda: res.index_select(0, kg),
+        "nores": lambda: kernels.route_lanes(*args, **kw),
+        # G1's bytes, the [maxp] mask read, the [B] cold mask written
+        "bytes": B * (4 + 4 + 4 + 1 + 4 + 4 + 1) + maxp + B,
+    }
+
+
+def res_kernel_phase(dev, timing=True):
+    """Hold G1's residency mode against its plain version (half, all and
+    no groups resident at the north star's batch, the edge case, and the
+    tiered job's shape without and with the fill) and
+    time it beside G1 without the mask: {"route_lanes": {"kg_res":
+    record}}, with ``all_ms`` / ``none_ms`` at the other masks."""
+    rec = hold("route_lanes (kg_res)", lambda k: case_route_res(dev, k),
+               False, kinds=("main", "all", "none", "edge", "tiered",
+                             "tiered_fill"))
+    if timing:
+        c = case_route_res(dev, "main")
+        rec["ms"] = time_ms(c["run"])
+        rec["nores_ms"] = time_ms(c["nores"])
+        rec["plain_ms"] = time_ms(c["plain"], reps=5)
+        rec["library_ms"] = time_ms(c["library"])
+        rec["library"] = "res.index_select(0, kg) over G1's kg"
+        for kind in ("all", "none"):
+            rec[f"{kind}_ms"] = time_ms(case_route_res(dev, kind)["run"])
+        del c
+    return {"route_lanes": {"kg_res": rec}}
+
+
+CKPT_INTERVAL = 32            # batches between two checkpoints
+CKPT_FAULT_DRAIN = 5          # the crash: the 6th drain (0-based hit 5)
+CKPT_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                "fire_compact")
+
+
+def ckpt_job(device, total, ckpt_dir=None, fault_at=None):
+    """The north-star job (1M integer keys, 5 s tumbling sum, batches of
+    262,144, direct layout, no overflow ring) into a sink that keeps every
+    row; with ``ckpt_dir`` checkpointing sync-full every CKPT_INTERVAL
+    batches there, and with ``fault_at`` crashed once at that ``step.drain``
+    hit and restarted by ``restart-strategy: fixed-delay`` (1 attempt,
+    delay 0). Returns (sink, job, s)."""
+    def gen(offset, n):
+        keys, ts, vals = gen_batch(offset, n)
+        return {"key": keys, "value": vals}, ts
+
+    cfg = Configuration({
+        "keys.reverse-map": False,
+        "window.fires-per-step": FIRES_PER_STEP,
+        "pipeline.ring-depth": RING_DEPTH,
+        "state.backend.overflow-ring": 0,
+        "restart-strategy": "fixed-delay",
+        "restart-strategy.fixed-delay.attempts": 1,
+        "restart-strategy.fixed-delay.delay": 0,
+    })
+    env = StreamExecutionEnvironment(cfg, device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(N_KEYS)
+    env.batch_size = BATCH
+    if ckpt_dir is not None:
+        env.enable_checkpointing(CKPT_INTERVAL, str(ckpt_dir))
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(gen, total=total))
+     .key_by(lambda c: c["key"]).time_window(WINDOW_MS)
+     .sum(lambda c: c["value"]).add_sink(sink))
+    inj = (faults.FaultInjector([faults.FaultRule(
+        "step.drain", exc=RuntimeError("injected drain crash"),
+        at=fault_at)]) if fault_at is not None else None)
+    t0 = time.perf_counter()
+    if inj is None:
+        job = env.execute("chip-smoke-checkpoint")
+    else:
+        with faults.active(inj):
+            job = env.execute("chip-smoke-checkpoint-crash")
+        check(bool(inj.fired_at("step.drain")), "the drain fault never fired")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, job, time.perf_counter() - t0
+
+
+def window_counts(keys, windows, n_keys, n_windows) -> np.ndarray:
+    """numpy's count of each (key, window) cell, flat key-major."""
+    return np.bincount(keys.astype(np.int64) * n_windows + windows,
+                       minlength=n_keys * n_windows)
+
+
+def check_window_rows(cols, want, n_windows, window_ms, name) -> int:
+    """Rows {"key_id", "window_end_ms", "value"} against numpy's counts
+    ``want`` (flat key-major): every (key, window) numpy has, with its
+    value, and no other. A window emitted twice (replayed after a
+    restore) must carry the same value both times; returns how many
+    such repeats there were."""
+    cell = (cols["key_id"].astype(np.int64) * n_windows
+            + cols["window_end_ms"] // window_ms - 1)
+    order = np.argsort(cell, kind="stable")
+    cell, vals = cell[order], cols["value"][order]
+    dup = cell[1:] == cell[:-1]
+    check(bool((vals[1:][dup] == vals[:-1][dup]).all()),
+          f"{name}: a window re-emitted with another value")
+    first = np.concatenate([[True], ~dup])
+    have = np.nonzero(want)[0]
+    check(np.array_equal(cell[first], have)
+          and np.array_equal(vals[first], want[have].astype(np.float32)),
+          f"{name}: rows differ from numpy's ({int(first.sum())} cells "
+          f"against {len(have)})")
+    return int(dup.sum())
+
+
+def ckpt_reference(total, chunk=1 << 22) -> np.ndarray:
+    n_windows = -(-total // (EVENTS_PER_MS * WINDOW_MS))
+    want = np.zeros(N_KEYS * n_windows, np.int64)
+    for off in range(0, total, chunk):
+        keys, ts, _ = gen_batch(off, min(chunk, total - off))
+        want += window_counts(keys, ts // WINDOW_MS, N_KEYS, n_windows)
+    return want
+
+
+def ckpt_stats(m) -> dict:
+    stats = m.checkpoint_stats or []
+    sync = [r["sync_ms"] for r in stats]
+    return {"checkpoints": len(stats),
+            "sync_ms_mean": float(np.mean(sync)) if sync else None,
+            "sync_ms_max": max(sync) if sync else None,
+            "bytes": sum(r["bytes"] for r in stats),
+            "entries": sum(r["entries"] for r in stats)}
+
+
+# the tiered cell, bench_configs.py:2508 run_tiered, at its shape
+TIER_MAXP, TIER_BUDGET = 64, 5
+TIER_KEYS = 4096
+TIER_BATCH = 32_768
+TIER_WINDOW_MS = 1000
+TIER_CAPACITY = 1 << 14
+TIER_TOTAL = 8_000_000        # run_tiered's 2M raised: ~244 windows
+TIER_ZIPF, TIER_SEED = 2.5, 7
+TIER_KERNELS = ("route_lanes", "route_lanes_res", "clear_rows",
+                "scatter_update", "hash_upsert", "fire_compact",
+                "ring_append")
+_TIER_POOL = {}
+
+
+def tier_pool(total) -> np.ndarray:
+    """run_tiered's key pool: Zipf(2.5) draws capped at 4,096 keys, from
+    one generator of seed 7 (the top 4 keys carry ~95 % of the traffic;
+    the tail sprays every key group)."""
+    if total not in _TIER_POOL:
+        rng = np.random.default_rng(TIER_SEED)
+        _TIER_POOL[total] = (np.minimum(rng.zipf(TIER_ZIPF, size=total),
+                                        TIER_KEYS) - 1).astype(np.int64)
+    return _TIER_POOL[total]
+
+
+def tier_gen(offset, n, total=None):
+    """run_tiered's generator: one pane (125 ms) every 4,096 events."""
+    pool = tier_pool(total or TIER_TOTAL)
+    idx = np.arange(offset, offset + n)
+    return ({"key": pool[offset:offset + n],
+             "value": np.ones(n, np.float32)},
+            (idx // (TIER_BATCH // 8)) * (TIER_WINDOW_MS // 8))
+
+
+def tier_job(device, total, budget, config=None):
+    """run_tiered's job: key_by(key).time_window(1 s).sum(value) over the
+    Zipf pool, max parallelism 64, capacity 2^14 in the hash layout with
+    the default (auto) ring, batches of 32,768, into a sink that keeps
+    every row; ``budget`` resident key groups (0: all resident). Returns
+    (sink, env, job, s)."""
+    opts = {"state.backend.layout": "hash", **(config or {})}
+    if budget:
+        opts["state.tiers.resident-key-groups"] = budget
+    env = StreamExecutionEnvironment(Configuration(opts), device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(TIER_MAXP)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(TIER_CAPACITY)
+    env.batch_size = TIER_BATCH
+    sink = ColumnarCollectSink()
+    (env.add_source(GeneratorSource(lambda o, n: tier_gen(o, n, total),
+                                    total=total))
+     .key_by(lambda c: c["key"]).time_window(TIER_WINDOW_MS)
+     .sum(lambda c: c["value"]).add_sink(sink))
+    t0 = time.perf_counter()
+    job = env.execute(f"chip-smoke-tiered-{budget}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, env, job, time.perf_counter() - t0
+
+
+def tier_reference(total):
+    cols, ts = tier_gen(0, total, total)
+    n_windows = int(ts.max()) // TIER_WINDOW_MS + 1
+    return window_counts(cols["key"], ts // TIER_WINDOW_MS, TIER_KEYS,
+                         n_windows), n_windows
+
+
+def checkpoint_runs(dev, kind, smi, total_launches, total) -> None:
+    """The checkpoint job in turns: the north star with checkpoints off,
+    sync-full every CKPT_INTERVAL batches, and crashed at its 6th drain
+    and restarted; every run's rows against numpy's, each run's launches
+    added to ``total_launches``. The 6th drain's dispatch reads the 5th's
+    fires, which emit window 2, before it crashes; the restore returns to
+    the cut at batch 64, so window 2 is emitted again and its values are
+    held equal."""
+    want_ck = ckpt_reference(total)
+    n_windows_ck = len(want_ck) // N_KEYS
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+        for name, kw in (
+                ("off", {}),
+                ("sync_full", dict(ckpt_dir=os.path.join(tmp, "a"))),
+                ("crashed", dict(ckpt_dir=os.path.join(tmp, "b"),
+                                 fault_at=CKPT_FAULT_DRAIN))):
+            launches, (sink, job, secs) = run_path(
+                lambda kw=kw: ckpt_job(dev, total, **kw),
+                total_launches)
+            m = job.metrics
+            cols = sink.columns()
+            repeats = check_window_rows(cols, want_ck, n_windows_ck,
+                                        WINDOW_MS, f"checkpoint {name}")
+            rec = m.recovery_ms or []
+            emit({"phase": "checkpoint", "run": name,
+                  "events": total, "seconds": secs,
+                  "events_per_s": total / secs,
+                  "rows": len(cols["value"]), "repeated_windows": repeats,
+                  "interval_batches": CKPT_INTERVAL if kw else None,
+                  **ckpt_stats(m), "restarts": m.restarts,
+                  "fault_to_first_drain_s": [r / 1e3 for r in rec],
+                  "fire_latency_ms": fire_latency(m), "launches": launches,
+                  "device": kind, "nvidia_smi": smi})
+            check(m.dropped_late == 0 and m.dropped_capacity == 0,
+                  f"checkpoint {name}: records dropped")
+            check_launched(launches, CKPT_KERNELS, f"checkpoint {name}")
+            if kw:
+                check(bool(m.checkpoint_stats),
+                      f"checkpoint {name}: no checkpoint taken")
+            if name == "crashed":
+                check(m.restarts == 1 and len(rec) == 1,
+                      f"crashed run: {m.restarts} restarts, recovery {rec}")
+                check(repeats > 0, "crashed run: no window re-emitted")
+            del sink, job, cols
+
+
+def tiered_runs(dev, kind, smi, total_launches, total) -> None:
+    """run_tiered's cell all-resident and tiered in turns, then tiered
+    with the skew telemetry and the flight recorder feeding faults and
+    heat; every run's rows against numpy's, the swaps checked."""
+    want_t, n_windows_t = tier_reference(total)
+    turns = {"all_resident": [], "tiered": []}
+    tier_runs = (("all_resident", 0, None), ("tiered", TIER_BUDGET, None),
+                 ("tiered", TIER_BUDGET, None), ("all_resident", 0, None),
+                 ("tiered_kg_stats", TIER_BUDGET, TELEMETRY_CONFIG))
+    for name, budget, cfg in tier_runs:
+        launches, (sink, env_t, job, secs) = run_path(
+            lambda b=budget, c=cfg: tier_job(dev, total, b, c),
+            total_launches)
+        m = job.metrics
+        cols = sink.columns()
+        check_window_rows(cols, want_t, n_windows_t, TIER_WINDOW_MS,
+                          f"tiered job ({name})")
+        eps = total / secs
+        turns.setdefault(name, []).append(eps)
+        line = {"phase": "tiered", "run": name, "events": total,
+                "seconds": secs, "events_per_s": eps,
+                "rows": len(cols["value"]),
+                "fire_latency_ms": fire_latency(m),
+                "spilled_records": m.spilled_records,
+                "ring_drains": m.ring_drains, "compactions": m.compactions,
+                "steps_fast": m.steps_fast, "launches": launches,
+                "device": kind, "nvidia_smi": smi}
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              f"tiered job ({name}): records dropped")
+        if budget:
+            rep = env_t._pipeline_report()["tiers"]
+            line.update(tiers=rep, tier_swap_host_s=m.tier_swap_s)
+            check(rep["demotes"] > 0 and rep["promotes"] > 0,
+                  f"tiered job ({name}): no swap ({rep})")
+            check_launched(launches, TIER_KERNELS, f"tiered ({name})")
+        emit(line)
+        del sink, env_t, job, cols
+    ratio = float(np.mean(turns["tiered"]) / np.mean(turns["all_resident"]))
+    emit({"phase": "tiered_turns", "events_per_s_in_turns": turns,
+          "tiered_over_all_resident": ratio,
+          "reference_criterion": ">= 0.6 (information only; taken on a "
+                                 "TPU, not asserted here)",
+          "device": kind, "nvidia_smi": smi})
+
+
 # ------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -4655,6 +5067,17 @@ CEP_HOST_FUNCTIONS = ("to_elements", "push", "process_batch", "_masks",
                       "emit")
 # G1's fill replaces K4's kg_fill branch and K11's kg_batch_fill
 KG_FILL_REPLACES = "flink_tpu/ops/window_kernels.py:464"
+# G1's residency mode replaces K10's kg_res divert
+KG_RES_REPLACES = "flink_tpu/ops/window_kernels.py:785"
+# the host functions of the checkpoint and tiered jobs --profile reads
+CKPT_HOST_FUNCTIONS = ("write_checkpoint", "stage_window_state",
+                       "extract_entries", "fold_spill_entries", "write",
+                       "restore")
+TIER_HOST_FUNCTIONS = ("tier_maintenance", "apply_tier_plan",
+                       "stage_window_state", "extract_entries",
+                       "fold_entries", "fetch_group_entries",
+                       "precombine_entries", "restore_window_state",
+                       "consume")
 # which kernels each path must launch
 NORTH_STAR_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                       "fire_reduced")
@@ -4681,9 +5104,11 @@ REDUCE_TOTAL = 30_000_000
 
 def read_launches() -> dict:
     """Every wrapper's launch count, and G1's launches with the fill
-    (``route_lanes_fill``)."""
+    (``route_lanes_fill``) and with the residency mask
+    (``route_lanes_res``)."""
     out = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     out["route_lanes_fill"] = kernels.route_lanes.fill_launches
+    out["route_lanes_res"] = kernels.route_lanes.res_launches
     return out
 
 
@@ -4743,6 +5168,8 @@ def main(argv) -> int:
         recs.setdefault(name, {}).update(rec)
     recs.update(cep_kernel_phase(dev))
     recs.update(chain_kernel_phase(dev))
+    for name, rec in res_kernel_phase(dev).items():
+        recs.setdefault(name, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -5111,6 +5538,9 @@ def main(argv) -> int:
                   f"launches, the two stages' {want_g5}")
         del sink, env_c, job
 
+    checkpoint_runs(dev, kind, smi, total_launches, TOTAL_EVENTS)
+    tiered_runs(dev, kind, smi, total_launches, TIER_TOTAL)
+
     if "--profile" in argv:
         emit(profile_phase(
             dev, "north_star", gen_batch,
@@ -5155,6 +5585,15 @@ def main(argv) -> int:
                 lambda s=sparse: _no_env(chained_job(dev, TOTAL_EVENTS,
                                                      sparse=s)),
                 cumulative=CHAIN_HOST_FUNCTIONS))
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+            emit(profile_phase(
+                dev, "checkpoint", gen_batch,
+                lambda: ckpt_job(dev, TOTAL_EVENTS, ckpt_dir=tmp),
+                cumulative=CKPT_HOST_FUNCTIONS))
+        emit(profile_phase(
+            dev, "tiered", tier_gen,
+            lambda: _no_env(tier_job(dev, TIER_TOTAL, TIER_BUDGET)),
+            TIER_TOTAL, TIER_HOST_FUNCTIONS))
     line = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],
@@ -5169,6 +5608,13 @@ def main(argv) -> int:
         "launches": total_launches["route_lanes_fill"],
         **{k: fill[k] for k in ("max_abs_err", "ms", "nofill_ms", "plain_ms",
                                 "bound_ms", "library_ms")}}
+    res = recs["route_lanes"]["kg_res"]
+    line[0]["kg_res"] = {
+        "replaces": KG_RES_REPLACES,
+        "launches": total_launches["route_lanes_res"],
+        **{k: res[k] for k in ("max_abs_err", "ms", "nores_ms", "all_ms",
+                               "none_ms", "plain_ms", "bound_ms",
+                               "library_ms")}}
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

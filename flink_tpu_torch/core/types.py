@@ -141,6 +141,16 @@ class KeyCodec:
     # kept as an alias for the columnar fast path's call sites
     encode_numeric = encode
 
+    def restore(self, rev: dict) -> None:
+        """Replace the reverse map with a checkpoint's keymap log (key id
+        -> original key, in the order the keys were first seen)."""
+        with self._lock:
+            self._rev = dict(rev)
+
+    def size(self) -> int:
+        """Keys in the reverse map."""
+        return len(self._rev)
+
     def decode(self, hi: np.ndarray, lo: np.ndarray):
         h = (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(
             lo, dtype=np.uint64

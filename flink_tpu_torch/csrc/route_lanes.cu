@@ -36,6 +36,17 @@
 // dynamic shared memory: the launch opts in (kg_hist_smem). The fill adds
 // 4 maxp bytes of output to the 22 B a lane. The instance without the
 // fill is the kernel as it was: one lane a thread, no shared histogram.
+//
+// Residency (K10's kg_res divert, window_kernels.py:770-820, tiered
+// key-group state): the RES instance takes the bool [maxp] residency mask
+// and writes a cold lane mask, cold = live and not res[kg]. The executor
+// diverts the cold lanes to the overflow ring (ops/window_kernels.py
+// update): they claim no slot, add no activity, and still mark kg_dirty.
+// Each block stages the mask in shared memory once, beside the fill
+// histogram when both are on, and walks the same grid-stride loop as the
+// fill, so the staging is amortised over at least 4 * maxp lanes; each
+// lane then costs one shared-memory byte read and one byte written. The
+// mode adds maxp bytes read and B bytes written to the 22 B a lane.
 
 #include "common.cuh"
 
@@ -48,7 +59,7 @@ __global__ void init_stats(int32_t* stats) {
   stats[3] = 0;          // valid lanes (the drain's "events")
 }
 
-template <bool FILL>
+template <bool FILL, bool RES>
 __global__ void route_lanes_kernel(
     const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
     const int32_t* __restrict__ ts, const uint8_t* __restrict__ valid, int B,
@@ -57,9 +68,19 @@ __global__ void route_lanes_kernel(
     int maxp,
     int kg_start, int kg_end, int32_t* __restrict__ pane_out,
     int32_t* __restrict__ kg_out, uint8_t* __restrict__ live_out,
-    int32_t* __restrict__ stats, int32_t* __restrict__ fill) {
-  extern __shared__ int32_t hist[];  // FILL: maxp bins
-  if (FILL) kg_hist_zero(hist, maxp);
+    int32_t* __restrict__ stats, int32_t* __restrict__ fill,
+    const uint8_t* __restrict__ res, uint8_t* __restrict__ cold_out) {
+  // FILL: maxp int32 bins, then RES: the maxp-byte residency mask
+  extern __shared__ int32_t hist[];
+  uint8_t* res_s = reinterpret_cast<uint8_t*>(hist + (FILL ? maxp : 0));
+  if (RES) {
+    for (int b = threadIdx.x; b < maxp; b += blockDim.x) res_s[b] = res[b];
+  }
+  if (FILL) {
+    kg_hist_zero(hist, maxp);  // its barrier covers the staged mask too
+  } else if (RES) {
+    __syncthreads();
+  }
   // late threshold (window_kernels.py:674-678): clamp before subtracting
   // the lateness so the MIN sentinel watermark cannot wrap int32
   const int32_t wm = *watermark;
@@ -69,7 +90,7 @@ __global__ void route_lanes_kernel(
   const int32_t wm_pane_l = floor_div(base + 1 - slide, slide);
 
   int32_t late = 0, mx = kPaneNone, mn = INT32_MAX, events = 0;
-  const int stride = FILL ? gridDim.x * blockDim.x : B;
+  const int stride = (FILL || RES) ? gridDim.x * blockDim.x : B;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B; i += stride) {
     const int32_t g = key_group(hi[i], lo[i], maxp);
     const int32_t p = floor_div(ts[i], slide);
@@ -80,6 +101,7 @@ __global__ void route_lanes_kernel(
     pane_out[i] = p;
     kg_out[i] = g;
     live_out[i] = live ? 1 : 0;
+    if (RES) cold_out[i] = (live && !res_s[g]) ? 1 : 0;
     late += is_late ? 1 : 0;
     events += v ? 1 : 0;
     if (live) {
@@ -121,22 +143,53 @@ __global__ void route_lanes_kernel(
   if (FILL) kg_hist_flush(hist, maxp, fill);
 }
 
+// Dynamic shared memory of an instance: the fill's bins and the staged
+// residency mask. maxp runs to 32,768 (128 KB of bins, 32 KB of mask),
+// past the default 48 KB: the launch opts in.
+template <bool FILL, bool RES>
+cudaError_t launch(int B, int threads, cudaStream_t s, int maxp,
+                   const uint32_t* h, const uint32_t* l, const int32_t* t,
+                   const uint8_t* v, const int32_t* w, const int32_t* pt,
+                   int slide, int k, int L, int kg_start, int kg_end,
+                   int32_t* po, int32_t* ko, uint8_t* lv, int32_t* st,
+                   int32_t* fill, const uint8_t* res, uint8_t* cold) {
+  const int bytes = (FILL ? maxp * static_cast<int>(sizeof(int32_t)) : 0) +
+                    (RES ? maxp : 0);
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        route_lanes_kernel<FILL, RES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (FILL || RES) ? kg_hist_blocks(B, maxp, threads)
+                                   : (B + threads - 1) / threads;
+  route_lanes_kernel<FILL, RES><<<blocks, threads, bytes, s>>>(
+      h, l, t, v, B, w, pt, slide, k, L, maxp, kg_start, kg_end, po, ko, lv,
+      st, fill, res, cold);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// ``fill`` null: no key-group fill (the kernel as it was); else an int32
-// [maxp] histogram, zeroed by the caller, that the mine lanes add to.
+// ``fill`` null: no key-group fill; else an int32 [maxp] histogram, zeroed
+// by the caller, that the mine lanes add to. ``res`` null: no residency
+// (the kernel as it was); else a bool [maxp] mask, and ``cold_out`` a
+// bool [B] output.
 extern "C" int route_lanes(const void* hi, const void* lo, const void* ts,
                            const void* valid, int B, const void* watermark,
                            const void* purged_through, int slide, int k,
                            int L, int maxp, int kg_start, int kg_end,
                            void* pane_out,
                            void* kg_out, void* live_out, void* stats,
-                           void* fill, void* stream) {
+                           void* fill, const void* res, void* cold_out,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   init_stats<<<1, 1, 0, s>>>(static_cast<int32_t*>(stats));
   const int threads = 256;
-  const int blocks = (B + threads - 1) / threads;
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if ((res == nullptr) != (cold_out == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const uint32_t* h = static_cast<const uint32_t*>(hi);
   const uint32_t* l = static_cast<const uint32_t*>(lo);
   const int32_t* t = static_cast<const int32_t*>(ts);
@@ -147,17 +200,22 @@ extern "C" int route_lanes(const void* hi, const void* lo, const void* ts,
   int32_t* ko = static_cast<int32_t*>(kg_out);
   uint8_t* lv = static_cast<uint8_t*>(live_out);
   int32_t* st = static_cast<int32_t*>(stats);
-  if (fill == nullptr) {
-    route_lanes_kernel<false><<<blocks, threads, 0, s>>>(
-        h, l, t, v, B, w, pt, slide, k, L, maxp, kg_start, kg_end, po, ko,
-        lv, st, nullptr);
+  int32_t* f = static_cast<int32_t*>(fill);
+  const uint8_t* r = static_cast<const uint8_t*>(res);
+  uint8_t* c = static_cast<uint8_t*>(cold_out);
+  cudaError_t e;
+  if (f == nullptr && r == nullptr) {
+    e = launch<false, false>(B, threads, s, maxp, h, l, t, v, w, pt, slide,
+                             k, L, kg_start, kg_end, po, ko, lv, st, f, r, c);
+  } else if (r == nullptr) {
+    e = launch<true, false>(B, threads, s, maxp, h, l, t, v, w, pt, slide,
+                            k, L, kg_start, kg_end, po, ko, lv, st, f, r, c);
+  } else if (f == nullptr) {
+    e = launch<false, true>(B, threads, s, maxp, h, l, t, v, w, pt, slide,
+                            k, L, kg_start, kg_end, po, ko, lv, st, f, r, c);
   } else {
-    cudaError_t e = kg_hist_smem(route_lanes_kernel<true>, maxp);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int fb = kg_hist_blocks(B, maxp, threads);
-    route_lanes_kernel<true><<<fb, threads, maxp * sizeof(int32_t), s>>>(
-        h, l, t, v, B, w, pt, slide, k, L, maxp, kg_start, kg_end, po, ko,
-        lv, st, static_cast<int32_t*>(fill));
+    e = launch<true, true>(B, threads, s, maxp, h, l, t, v, w, pt, slide,
+                           k, L, kg_start, kg_end, po, ko, lv, st, f, r, c);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

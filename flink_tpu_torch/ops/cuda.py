@@ -10,7 +10,8 @@ with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue,
-                         and optionally the batch's key-group fill
+                         and optionally the batch's key-group fill and
+                         the residency divert's cold lanes (tiered state)
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
                          (packed planes, or split planes), fresh rows;
      ``fresh_rows``      each ring row's count of fresh flags
@@ -113,7 +114,7 @@ _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                    _P, _P, _P, _P, _P],
+                    _P, _P, _P, _P, _P, _P, _P],
     "clear_rows": [_P, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P],
     "clear_rows_split": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                          _P],
@@ -314,7 +315,7 @@ def kg_batch_fill_plain(kg, mask, n_key_groups: int) -> torch.Tensor:
 
 def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
                       slide: int, k: int, maxp: int, kg_start: int,
-                      kg_end: int, L: int = 0, fill=None):
+                      kg_end: int, L: int = 0, fill=None, res=None):
     """Plain version of G1. hi/lo: int32 [B] holding uint32 bits; ts int32
     [B] ticks; valid bool [B]; watermark / purged_through int32 0-d; L the
     allowed lateness in ticks. Returns (pane int32 [B], kg int32 [B], live
@@ -323,7 +324,10 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
     its pane ended more than L ticks before the watermark, or its pane is
     purged. ``fill`` (int32 [maxp]), when given, gets the key groups of the
     owned valid lanes added to it, in place, late lanes included (the
-    reference's kg_fill, counted before the late check)."""
+    reference's kg_fill, counted before the late check). ``res`` (bool
+    [maxp]), when given, is tiered state's residency mask: a fifth output,
+    cold bool [B], marks the live lanes whose key group is not resident
+    (the reference's ``tier_nonres``, window_kernels.py:784)."""
     kg = assign_to_key_group(route_hash(hi, lo), maxp).to(torch.int32)
     pane = _floor_div(ts, slide).to(torch.int32)
     mine = valid & (kg >= kg_start) & (kg <= kg_end)
@@ -339,17 +343,20 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
     ]).to(torch.int32)
     if fill is not None:
         fill += kg_batch_fill_plain(kg, mine, maxp)
+    if res is not None:
+        return pane, kg, live, stats, live & ~res[kg.long()]
     return pane, kg, live, stats
 
 
 def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
                 k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0,
-                fill=None):
+                fill=None, res=None):
     """G1: see route_lanes_plain for the contract."""
     if _on_cpu(hi):
         return route_lanes_plain(
             hi, lo, ts, valid, watermark, purged_through, slide=slide, k=k,
-            maxp=maxp, kg_start=kg_start, kg_end=kg_end, L=L, fill=fill)
+            maxp=maxp, kg_start=kg_start, kg_end=kg_end, L=L, fill=fill,
+            res=res)
     dev = hi.device
     (B,) = hi.shape
     for t, n, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
@@ -359,6 +366,10 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
     _check(purged_through, "purged_through", torch.int32, (), dev)
     if fill is not None:
         _check(fill, "fill", torch.int32, (maxp,), dev)
+    cold = None
+    if res is not None:
+        _check(res, "res", torch.bool, (maxp,), dev)
+        cold = torch.empty(B, dtype=torch.bool, device=dev)
     if L < 0 or slide + L > INT32_MAX // 2:
         raise ValueError(f"allowed lateness {L} out of range")
     pane = torch.empty(B, dtype=torch.int32, device=dev)
@@ -369,16 +380,20 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
         _ptr(purged_through), slide, k, L, maxp, kg_start, kg_end,
         _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _ptr(fill),
-        _stream())
+        _ptr(res), _ptr(cold), _stream())
     _raise_on(rc, "route_lanes")
     route_lanes.launches += 1
     if fill is not None:
         route_lanes.fill_launches += 1
+    if res is not None:
+        route_lanes.res_launches += 1
+        return pane, kg, live, stats, cold
     return pane, kg, live, stats
 
 
 route_lanes.launches = 0
 route_lanes.fill_launches = 0      # of those, the launches with the fill
+route_lanes.res_launches = 0       # and those with the residency mask
 
 
 # ------------------------------------------------------------ G2
@@ -2485,3 +2500,4 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     route_lanes.fill_launches = 0
+    route_lanes.res_launches = 0

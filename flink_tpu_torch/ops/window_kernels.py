@@ -56,10 +56,13 @@ fired_through / purged_through — stays on the device as small torch ops on
 between slots. State tensors are updated in place where the reference
 donated its buffers to XLA; every such update is marked "in place" below.
 
+Tiered key-group state (``update(kg_res=)``): G1 marks the live lanes
+whose key group the residency mask leaves cold, and they take the
+overflow ring instead of a slot, as the reference diverts them.
+
 Not ported yet (ROADMAP queues 1-2): value dtypes other than float32
 (item 9), builtin reduces with an explicit neutral or a value of more than
-one dimension (item 9), the tiered key-group residency (``kg_res``: item
-11), and the slot-major accumulator layout.
+one dimension (item 9), and the slot-major accumulator layout.
 """
 
 from __future__ import annotations
@@ -584,7 +587,8 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
            kg_end: Optional[int] = None,
            clear_rows: Optional[torch.Tensor] = None, insert: bool = True,
            kg_fill: int = 0, fill_out: Optional[torch.Tensor] = None,
-           lane_stats: Optional[torch.Tensor] = None):
+           lane_stats: Optional[torch.Tensor] = None,
+           kg_res: Optional[torch.Tensor] = None):
     """Apply one micro-batch to the shard state, in place (the reference's
     ``update``, in the state's layout and plane; the result equals its
     state with ``precombine`` on and off, up to which slot the hash table
@@ -628,6 +632,15 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     [4]), when given, receives G1's batch scalars (late lanes, max and min
     live pane, valid lanes) for the drain's flight recorder.
 
+    ``kg_res`` (bool [maxp]), tiered key-group state's residency mask (the
+    reference's ``kg_res``, window_kernels.py:770-820): G1 marks the live
+    lanes of non-resident key groups cold. A cold lane claims no slot and
+    adds nothing to ``activity`` (G5 / G8 and the direct layout's slot
+    skip it); it goes to the overflow ring with the lanes that have no
+    slot, and G3, which sees it as a lane with no slot, still marks its
+    key group in ``kg_dirty`` and counts it when it is too old. Packed
+    planes with an overflow ring only.
+
     Returns ``(state, activity, kgf)``, ``activity`` an int32 0-d tensor on
     the device: the lanes whose key the table did not hold before the batch
     and holds after it (insert step), or the live lanes whose key is
@@ -652,6 +665,9 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         raise ValueError(f"kg_fill group count {kg_fill} != max parallelism "
                          f"{maxp}")
     plane = _check_plane(state, red)
+    if kg_res is not None and (plane != "packed" or not win.overflow):
+        raise ValueError("kg_res diverts cold lanes to the overflow ring: it "
+                         "needs packed planes and a ring")
     if L and plane == "sketch":
         raise NotImplementedError(
             "allowed lateness on sketch windows is not ported yet (ROADMAP "
@@ -659,12 +675,15 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     kgf = fill_out
     if kgf is None:
         kgf = torch.zeros(kg_fill, dtype=torch.int32, device=state.device)
-    # G1: routing mask, pane, late check, batch pane range (and the fill)
-    pane, kg, live, stats = kernels.route_lanes(
+    # G1: routing mask, pane, late check, batch pane range (and the fill,
+    # and the cold lanes of tiered state)
+    routed = kernels.route_lanes(
         hi, lo, ts, valid, state.watermark, state.purged_through,
         slide=win.slide_ticks, k=k, maxp=maxp, kg_start=kg_start,
-        kg_end=kg_end, L=L, fill=kgf if kg_fill else None,
+        kg_end=kg_end, L=L, fill=kgf if kg_fill else None, res=kg_res,
     )
+    pane, kg, live, stats = routed[:4]
+    cold = routed[4] if kg_res is not None else None
     if lane_stats is not None:
         lane_stats.copy_(stats)
     state.dropped_late.add_(stats[0])                       # in place
@@ -692,17 +711,20 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
     # the lanes that survive the ring horizon (the reference looks keys up
     # or places them, and spills them, after its too-old drop)
     inside = live & (pane >= state.max_pane - (R - 1))
+    # a cold lane takes no slot: it reaches G7 and G3 as a lane without one
+    place = inside if cold is None else inside & ~cold
     if state.layout == "direct":
-        slot = torch.where((hi == 0) & (lo >= 0) & (lo < C), lo, C)
+        fit = (hi == 0) & (lo >= 0) & (lo < C)
+        slot = torch.where(fit if cold is None else fit & ~cold, lo, C)
         activity = torch.zeros((), dtype=torch.int32, device=state.device)
     elif insert:
         # G5: place or find the keys
         slot, _ok, activity = hashtable.upsert_counted(
-            state.table_keys, hi, lo, inside, probe_len=state.probe_len)
+            state.table_keys, hi, lo, place, probe_len=state.probe_len)
     else:
         # G8: find the keys, place none
         slot, _ok, activity = hashtable.lookup_counted(
-            state.table_keys, hi, lo, inside, probe_len=state.probe_len)
+            state.table_keys, hi, lo, place, probe_len=state.probe_len)
     kg_dirty = state.kg_dirty if state.kg_dirty.numel() else None
     late = ({} if not L else
             dict(fresh=state.fresh, fired_through=state.fired_through,
@@ -720,7 +742,8 @@ def update(state: WindowShardState, win: WindowSpec, red: ReduceSpec,
         return state, activity, kgf
     count = red.kind == "count"
     if win.overflow:
-        # G7: the lanes with no slot go to the overflow ring
+        # G7: the lanes with no slot (cold lanes among them) go to the
+        # overflow ring
         ring_append(state.ring, inside & (slot == C), hi, lo, pane,
                     None if count else values, state.dropped_capacity)
     # G3: too-old drop, scatter at the slot into the plane, kg_dirty, fresh

@@ -3,8 +3,7 @@ the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
 event-time window [-> allowed_lateness] -> sum | count | min | max | mean |
-reduce | aggregate | distinct_count | count_min -> sinks`` with no
-checkpointing:
+reduce | aggregate | distinct_count | count_min -> sinks``:
 
   1. poll the source (columnar batches of ``execution.micro-batch-size``);
   2. encode keys to 64-bit identities (``KeyCodec``), split (hi, lo);
@@ -111,6 +110,29 @@ time-window job:
 ``observability.tracing`` (the reference's span tracer) is not ported: it
 raises.
 
+Checkpoints and restarts (the reference's sync-full path, executor.py:
+2855-2960, 3327-3490, 6270-6360), for a single-stage window job:
+``env.enable_checkpointing(n, dir)`` takes a checkpoint once n batches
+have been applied since the last, at a poll-cycle boundary — every staged
+batch drained and every fire read, the windows due at the current
+watermark fired, then the state, the spill stores and the source offsets
+written as the reference's logical entries (``runtime/checkpoint.py``).
+``execute(restore_from=dir)`` resumes from the newest checkpoint there
+(the reference's own included), and ``restart-strategy`` restarts a
+failed job in-process from the newest one of its own directory.
+
+Tiered key-group state (``state.tiers.resident-key-groups``, the
+reference's executor.py:1772-1986, 4840-5023): a budget of key groups
+keeps device slot rows, the rest live in the spill tier's host stores.
+The drains take the residency mask as one device operand (G1 diverts the
+cold groups' lanes to the overflow ring); at each poll-cycle boundary the
+copied ``runtime/tiers.py`` ``TierManager`` plans demotes and promotes
+from the flight recorder's key-group heat (flat without it) and the
+pending panes of the cold groups, and the job swaps them: the pending
+fires read, the state staged to logical entries, the demoted groups'
+entries folded into the stores, the promoted groups' taken out of them,
+the state rebuilt around the rest and the mask rewritten.
+
 Chained keyed window stages (the reference's stage graph,
 executor.py:889-946, 1581-1591, 5279-5320): ``key_by -> window -> key_by(
 r.key) -> window(...)(r.value)`` up to ``pipeline.stages.max-stages``
@@ -135,10 +157,11 @@ runners of ``runtime/keyed_jobs.py``; ``CEP.pattern(...).select`` /
 element-mode or a columnar source) to the device CEP job of
 ``runtime/cep_job.py``. Anything else — another topology, processing-time
 windows, an element-mode source under a window or rolling stage, the host
-CEP operator (``cep.device.enabled: false``), checkpoints, parallelism
-above 1, an operator after the stage, sinks on more than one stage, a
-reduce other than sum or count over session and count windows — raises
-NotImplementedError naming the ROADMAP queue item that brings it.
+CEP operator (``cep.device.enabled: false``), checkpoints of anything but
+a single-stage window job, parallelism above 1, an operator after the
+stage, sinks on more than one stage, a reduce other than sum or count
+over session and count windows — raises NotImplementedError naming the
+ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -147,6 +170,7 @@ its end with the reference's "state backend over capacity" error.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -169,6 +193,8 @@ from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
 from flink_tpu_torch.runtime import cep_job, keyed_jobs
+from flink_tpu_torch.runtime import checkpoint as ckpt
+from flink_tpu_torch.runtime import tiers as tiers_mod
 from flink_tpu_torch.runtime.ingest import DeviceBatchRing
 from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
@@ -183,6 +209,7 @@ from flink_tpu_torch.runtime.step import (
     init_shard_state,
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
+from flink_tpu_torch.testing import faults
 
 WindowResult = keyed_jobs.WindowResult
 SessionResult = keyed_jobs.SessionResult
@@ -247,6 +274,30 @@ class JobMetrics:
     # fire latency: bounded weighted samples, one per emission weighted by
     # its windows (the reference's; the p99 half of the north-star metric)
     fire_latency: Any = None
+    # checkpoints and restarts: restarts taken, the checkpoint history (the
+    # reference's rows, newest last) and, for each restart, the ms from
+    # the failure to the first drain dispatched after its restore
+    restarts: int = 0
+    checkpoint_stats: Any = None
+    recovery_ms: Any = None
+    # tiered state: host seconds spent in the tier swaps
+    tier_swap_s: float = 0.0
+
+    def record_checkpoint(self, cid: int, trigger_ms: float,
+                          duration_ms: float, nbytes: int,
+                          entries: int) -> None:
+        """A completed sync-full checkpoint (the reference's row; the
+        whole duration stalls the loop, so it is the sync_ms too)."""
+        if self.checkpoint_stats is None:
+            self.checkpoint_stats = []
+        self.checkpoint_stats.append({
+            "id": cid, "status": "completed",
+            "trigger_ms": round(trigger_ms, 1),
+            "duration_ms": round(duration_ms, 2), "bytes": nbytes,
+            "entries": entries, "kind": "full",
+            "sync_ms": round(duration_ms, 2), "async_ms": 0.0,
+            "staging_wait_ms": 0.0, "staging_occupancy": 0})
+        del self.checkpoint_stats[:-200]      # bounded history
 
     def record_fire_latency(self, n_windows: int, ms: float) -> None:
         if self.fire_latency is None:
@@ -429,9 +480,10 @@ class LocalExecutor:
 
     def run(self, job_name: str, sinks, restore_from=None) -> JobHandle:
         env = self.env
-        if restore_from is not None or env.checkpoint_interval_steps > 0:
-            raise _unsupported("checkpoint snapshot and restore",
-                               "ROADMAP queue 1, item 6")
+        checkpointing = (restore_from is not None
+                         or env.checkpoint_interval_steps > 0)
+        if checkpointing:
+            _check_checkpoint_config(env.config)
         if env.parallelism != 1:
             raise _unsupported(f"parallelism {env.parallelism}",
                                "ROADMAP queue 1, item 10")
@@ -444,6 +496,7 @@ class LocalExecutor:
         # a time-window job replaces these with its own telemetry
         env._pipeline_report = _no_pipeline_report
         env._kg_report = _no_kg_report(env.max_parallelism)
+        env._gauges = {}
         # rolling and count stages need no time characteristic; time and
         # session windows run in event time only
         if pipe.window_agg is not None \
@@ -464,7 +517,16 @@ class LocalExecutor:
             job_cls = keyed_jobs.SessionJob
         else:
             job_cls = _WindowJob
-        job = job_cls(env, pipe, JobMetrics())
+        if checkpointing and (job_cls is not _WindowJob
+                              or pipe.graph is not None):
+            raise _unsupported(
+                "checkpoint snapshot and restore of chained stage graphs, "
+                "session, count-window and rolling stages and CEP jobs",
+                "ROADMAP queue 1, item 6")
+        if job_cls is _WindowJob:
+            job = _WindowJob(env, pipe, JobMetrics(), restore_from)
+        else:
+            job = job_cls(env, pipe, JobMetrics())
         for s in pipe.sinks:
             s.open()
         pipe.source.open()
@@ -476,6 +538,19 @@ class LocalExecutor:
                 s.close()
         job.finish()
         return JobHandle(job_name, job.metrics, state=job.state)
+
+
+def _check_checkpoint_config(cfg) -> None:
+    """Checkpoints are sync-full: the incremental and asynchronous modes
+    and the task-local snapshot cache raise."""
+    if cfg.get_str("checkpoint.mode", "full") != "full":
+        raise _unsupported("checkpoint.mode: incremental",
+                           "ROADMAP queue 1, item 13")
+    if cfg.get_bool("checkpoint.async", False):
+        raise _unsupported("checkpoint.async", "ROADMAP queue 1, item 13")
+    if cfg.get_bool("checkpoint.local.enabled", False):
+        raise _unsupported("checkpoint.local.enabled (the task-local "
+                           "snapshot cache)", "ROADMAP queue 1, item 13")
 
 
 def _cep_job_class(env, pipe):
@@ -550,9 +625,6 @@ def _check_config(cfg, red: wk.ReduceSpec) -> None:
     if layout not in ("auto", "hash", "direct"):
         raise ValueError(
             f"state.backend.layout must be auto|hash|direct, got {layout!r}")
-    if cfg.get_int("state.tiers.resident-key-groups", 0) > 0:
-        raise _unsupported("tiered key-group state",
-                           "ROADMAP queue 1, item 11")
     if cfg.get_int("pipeline.steps-per-dispatch", 1) > 1:
         raise _unsupported("megastep dispatch fusion",
                            "ROADMAP queue 2, K13")
@@ -565,7 +637,7 @@ class _WindowJob(StageJob):
                      "pane ring, or set state.backend.strict-capacity to "
                      "false to tolerate drops)")
 
-    def __init__(self, env, pipe: _Pipeline, metrics):
+    def __init__(self, env, pipe: _Pipeline, metrics, restore_from=None):
         cfg = env.config
         super().__init__(env, pipe, metrics, pipe.window_agg)
         _check_config(cfg, self.red)
@@ -618,6 +690,29 @@ class _WindowJob(StageJob):
                 "sum/count/min/max reduce without finalize and allowed "
                 "lateness 0); unset it to run with strict capacity")
         self.has_ring = self.spillable and self.ovf_cfg != 0
+        # tiered key-group state rides the spill tier: a cold lane takes
+        # the overflow ring into the host stores (executor.py:1902-1914)
+        self.tier_budget = cfg.get_int("state.tiers.resident-key-groups", 0)
+        if self.tier_budget > 0 and not self.has_ring:
+            raise ValueError(
+                "state.tiers.resident-key-groups is set but this window "
+                "stage cannot run tiered state (requires the spill tier: a "
+                "builtin float32 sum/count/min/max reduce without finalize, "
+                "allowed lateness 0, no chained stage graph, and a non-zero "
+                "overflow ring); unset it to keep every key-group resident")
+        self.tier_mgr: Optional[tiers_mod.TierManager] = None
+        self.kg_res: Optional[torch.Tensor] = None   # the device mask
+        # checkpoints (executor.py:2626-2640): a storage when the job has a
+        # directory, numbered on from what the directory holds
+        self.restore_from = restore_from
+        self.storage = (ckpt.CheckpointStorage(
+            env.checkpoint_dir, retain=cfg.get_int("checkpoint.retain", 2))
+            if env.checkpoint_dir else None)
+        self.next_cid = (self.storage.latest() or 0) + 1 \
+            if self.storage is not None else 1
+        self.steps_at_ckpt = 0
+        self.n_keys_logged = 0       # reverse-map keys in the keymap log
+        self.t_failed: Optional[float] = None   # a failure not yet drained
         # the reference's emit modes (executor.py:2104-2108, 5025-5035):
         # the drains reduce on the device only when every sink wants only
         # aggregates and the stage has no overflow ring (a spill merge needs
@@ -671,7 +766,19 @@ class _WindowJob(StageJob):
         env._pipeline_report = self.pipeline_report
 
     # -- setup on the first batch ------------------------------------------
-    def setup(self, origin_ms: int, hi: np.ndarray, lo: np.ndarray) -> None:
+    def resolve_layout(self, hi: np.ndarray, lo: np.ndarray) -> str:
+        """``state.backend.layout``, with ``auto`` resolved on the first
+        batch: direct only when its identities fit [0, C) and the spill
+        tier can take later keys that do not (executor.py:1925-1936,
+        5952-5965)."""
+        layout = self.env.config.get_str("state.backend.layout", "auto")
+        if layout != "auto":
+            return layout
+        fits = (int(hi.max(initial=0)) == 0
+                and int(lo.max(initial=0)) < self.env.state_capacity_per_shard)
+        return "direct" if fits and self.spillable else "hash"
+
+    def setup(self, origin_ms: int, layout: str) -> None:
         env = self.env
         cfg = env.config
         ppw = self.size_ms // self.slide_ms
@@ -695,14 +802,6 @@ class _WindowJob(StageJob):
             auto = (stride * (OVF_LAG + 1) + 4 + grp_k) * self.B + 8192
             ovf = self.ovf_cfg if self.ovf_cfg >= 0 else auto
         capacity = env.state_capacity_per_shard
-        layout = cfg.get_str("state.backend.layout", "auto")
-        if layout == "auto":
-            # direct only when the first batch's identities fit [0, C) and
-            # the spill tier can take later keys that do not
-            # (executor.py:1925-1936, 5952-5965)
-            fits = (int(hi.max(initial=0)) == 0
-                    and int(lo.max(initial=0)) < capacity)
-            layout = "direct" if fits and self.spillable else "hash"
         win = wk.WindowSpec(
             size_ticks=self.size_ms, slide_ticks=self.slide_ms, ring=ring,
             fires_per_step=cfg.get_int("window.fires-per-step", 4),
@@ -724,11 +823,13 @@ class _WindowJob(StageJob):
             self.drain = build_window_resident_drain(
                 self.spec, self.depth, self.maxp, reduced=self.reduced,
                 **tel)
-        if ovf and layout == "hash":
-            # the reference's build_fast (executor.py:2053-2072)
-            self.fast_drain = build_window_resident_drain(
-                self.spec, self.depth, self.maxp, reduced=self.reduced,
-                insert=False, arena=self.drain.arena, **tel)
+            if ovf and layout == "hash":
+                # the reference's build_fast (executor.py:2053-2072)
+                self.fast_drain = build_window_resident_drain(
+                    self.spec, self.depth, self.maxp, reduced=self.reduced,
+                    insert=False, arena=self.drain.arena, **tel)
+        if self.tier_budget > 0:
+            self.setup_tiers()
         if self.drain_stats:
             # the flight recorder's host half (executor.py:2325-2350): one
             # ring lane, since the port runs one shard
@@ -739,6 +840,32 @@ class _WindowJob(StageJob):
                 exchange_lanes=(cfg.get(
                     CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES)
                     if self.graph is not None else 0))
+
+    def setup_tiers(self) -> None:
+        """The tier manager (executor.py:1947-1986): made once, re-sliced
+        by a restore so that its counters span the job; residency starts
+        at the first ``budget`` key groups. Its mask goes to the device
+        and its four gauges to ``env._gauges``."""
+        cfg = self.env.config
+        if self.tier_mgr is None:
+            self.tier_mgr = tiers_mod.TierManager(
+                self.maxp, [0], [self.maxp - 1], self.tier_budget,
+                prefetch_ahead_panes=cfg.get(
+                    CoreOptions.STATE_TIERS_PREFETCH_AHEAD_PANES),
+                min_dwell_cycles=cfg.get(
+                    CoreOptions.STATE_TIERS_MIN_DWELL_CYCLES),
+                max_swaps_per_cycle=cfg.get(
+                    CoreOptions.STATE_TIERS_MAX_SWAPS_PER_CYCLE))
+        else:
+            self.tier_mgr.rescale([0], [self.maxp - 1])
+        self.kg_res = torch.from_numpy(self.tier_mgr.mask()).to(self.device)
+        tm = self.tier_mgr
+        self.env._gauges.update({
+            "tier_resident_groups": tm.resident_groups,
+            "tier_faults": lambda: tm.tier_faults,
+            "tier_prefetch_hits": lambda: tm.prefetch_hits,
+            "tier_prefetch_misses": lambda: tm.prefetch_misses,
+        })
 
     def setup_chain(self, ovf: int, tel: dict) -> None:
         """Plan the downstream stages off stage 0's spec, refuse the
@@ -773,6 +900,51 @@ class _WindowJob(StageJob):
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
 
     # -- the poll loop (StageJob.run) --------------------------------------
+    def run(self) -> None:
+        """Restore from ``restore_from`` when given, then the poll loop and
+        the end-of-stream flush inside the restart strategy's protection
+        (executor.py:6336-6373): a failure anywhere in them, the final
+        flush included, restores the newest checkpoint of the job's own
+        directory and replays from its cut."""
+        if self.restore_from is not None:
+            self.restore(self.restore_from)
+        restart = ckpt.restart_strategy(self.env.config)
+        while True:
+            try:
+                super().run()
+                return
+            except Exception as exc:
+                self.recover(exc, restart)
+
+    def recover(self, exc: Exception, restart) -> None:
+        """One failure -> a restored, runnable job, or ``exc`` raised: with
+        no checkpoint to restart from, or when the strategy declines. A
+        failure during the restore takes another of the strategy's
+        attempts (executor.py:6275-6334)."""
+        t_fail = time.perf_counter()
+        while True:
+            if self.storage is None or self.storage.latest() is None \
+                    or not restart.should_restart():
+                raise exc
+            self.metrics.restarts += 1
+            try:
+                self.restore(self.storage)
+                break
+            except Exception as e2:
+                exc = e2
+        self.t_failed = t_fail
+
+    def cycle_start(self) -> None:
+        # tiered state's maintenance at the cycle's cut, between drains
+        if self.tier_mgr is not None and self.td is not None:
+            self.tier_maintenance()
+
+    def cycle_end(self) -> None:
+        interval = self.env.checkpoint_interval_steps
+        if self.storage is not None and interval > 0 and self.td is not None \
+                and self.metrics.steps - self.steps_at_ckpt >= interval:
+            self.write_checkpoint()
+
     def end_of_stream(self) -> None:
         if self.td is None:
             return
@@ -789,7 +961,7 @@ class _WindowJob(StageJob):
         ts_ms = self.event_ts(cols, ts_ms)
         if self.td is None:
             self.setup((int(ts_ms.min()) // self.size_ms) * self.size_ms,
-                       hi, lo)
+                       self.resolve_layout(hi, lo))
         ticks = self.td.to_ticks(ts_ms)
         wm_ms = self.wm_strategy.on_batch(int(ts_ms.max()))
         win = self.spec.win
@@ -871,6 +1043,8 @@ class _WindowJob(StageJob):
         slots = self.ring.slots(count)
         fast = self.step_mode == "fast"
         drain = self.fast_drain if fast else self.drain
+        # the mid-drain crash seam of the exactly-once tests
+        faults.inject("step.drain", step=self.metrics.steps, slots=count)
         if self.graph is not None:
             # one dispatch advances every stage; the sinks take the final
             # stage's fires, and mon the fill after the drain and, for the
@@ -881,9 +1055,15 @@ class _WindowJob(StageJob):
             self.state, self.chain_states = states[0], list(states[1:])
             mon = (mon[0][-1:], mon[1], mon[2], drain.stage_lanes)
         else:
-            out = drain(self.state, slots, self.ring.wmv, count)
+            out = drain(self.state, slots, self.ring.wmv, count, self.kg_res)
             self.state, mon, fires = out[:3]
         t_disp = time.perf_counter()
+        if self.t_failed is not None:
+            # the first drain after a restore: the recovery is over
+            if self.metrics.recovery_ms is None:
+                self.metrics.recovery_ms = []
+            self.metrics.recovery_ms.append((t_disp - self.t_failed) * 1e3)
+            self.t_failed = None
         last_wm = self.staged_wm[-1]
         self.ring.release(count)
         self.wm_dev = max([self.wm_dev]
@@ -1194,6 +1374,171 @@ class _WindowJob(StageJob):
         self.sinks_rows([WindowResult(k, int(e), v) for k, e, v in
                          zip(keys, end_ms.tolist(), values.tolist())])
 
+    # -- checkpoints and restarts -------------------------------------------
+    def write_checkpoint(self) -> None:
+        """The checkpoint cut (the reference's write_checkpoint, sync-full,
+        executor.py:2855-2960): every staged batch drained and its fires
+        read, the windows due at the current watermark fired (an exact cut:
+        no payload of the state is left unread), then the state staged to
+        the host, the spill stores folded into its entries, and the cut
+        written with the source offsets, the sinks' states and the aux
+        scalars. The whole of it stalls the loop (``sync_ms``)."""
+        t0 = time.perf_counter()
+        trigger_ms = time.time() * 1000
+        cid = self.next_cid
+        self.dispatch()
+        self.fire_until_done(int(self.wm_strategy.current()), t0)
+        staged = ckpt.stage_window_state(self.state, self.red)
+        dumped = self.dump_spill_stores()
+        storage = self.storage
+        if self.keep_reverse:
+            items, self.n_keys_logged = self.codec.rev_slice(
+                self.n_keys_logged)
+            storage.append_keymap(items)
+        aux = {
+            "origin_ms": self.td.origin_ms,
+            "wm_current": self.wm_strategy.current(),
+            "codec_rev_count": self.n_keys_logged if self.keep_reverse else 0,
+            "size_ms": self.size_ms, "slide_ms": self.slide_ms,
+            "lateness_ms": self.lateness_ms,
+            "state_layout": self.spec.layout,
+            "sink_states": [s.snapshot_state() for s in self.pipe.sinks],
+        }
+        offsets = self.pipe.source.snapshot_offsets()
+        entries, scalars = ckpt.extract_entries(staged, self.spec.win)
+        entries = self.fold_spill_entries(entries, dumped)
+        path = storage.write(cid, entries, scalars, offsets, aux)
+        self.pipe.source.notify_checkpoint_complete(cid, offsets)
+        for s in self.pipe.sinks:
+            s.notify_checkpoint_complete(cid)
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        self.metrics.record_checkpoint(
+            cid, trigger_ms, (time.perf_counter() - t0) * 1e3, nbytes,
+            len(entries["key_hi"]))
+        self.next_cid += 1
+        self.steps_at_ckpt = self.metrics.steps
+
+    def restore(self, target) -> None:
+        """Restore the newest checkpoint of ``target`` (a directory, or
+        the job's own storage), the reference's restore_checkpoint
+        (executor.py:3327-3490): staged batches and unread fires die with
+        the failed state (the rewound source replays them, the restored
+        cut re-fires them), the spill stores are dropped and re-seeded
+        from the entries that do not fit the table, the state is rebuilt
+        in the snapshot's layout (an ``auto`` layout resumes as it was
+        taken), and the source offsets, the sinks' states, the watermark
+        and the reverse key map rewind to the cut. A restore places every
+        key anew, so whatever is keyed by slot starts over: the step
+        tiering returns to the insert step, the occupancy view is
+        dropped, and tiered state's residency re-slices to its first
+        ``budget`` groups."""
+        cfg = self.env.config
+        if isinstance(target, ckpt.CheckpointStorage):
+            st = target
+        elif self.storage is not None and os.path.abspath(str(target)) \
+                == os.path.abspath(self.storage.dir):
+            st = self.storage
+        else:
+            st = ckpt.CheckpointStorage(str(target))
+        cid = st.latest()
+        if cid is None:
+            raise FileNotFoundError(f"no checkpoint in {st.dir}")
+        self.pending = None
+        self.staged = 0
+        self.staged_wm = []
+        for store in self.stores.values():
+            store.close()
+        self.stores = {}
+        entries, scalars, offsets, aux = st.read(cid)
+        if (aux["size_ms"], aux["slide_ms"]) != (self.size_ms,
+                                                 self.slide_ms):
+            raise ValueError("checkpoint window spec mismatch")
+        if aux.get("chain_stages"):
+            raise ValueError(
+                "checkpoint carries chained stage state but the job is "
+                "single-stage — restore with the matching pipeline")
+        # re-arm the pane-jump guard: the restored ring holds unfired panes
+        # up to the snapshot's newest
+        self.applied_max_pane = (int(entries["pane"].max())
+                                 if len(entries["pane"]) else None)
+        if self.td is None or aux["origin_ms"] != self.td.origin_ms:
+            layout = cfg.get_str("state.backend.layout", "auto")
+            if layout == "auto":
+                layout = aux.get("state_layout", "hash")
+            self.setup(aux["origin_ms"], layout)
+        leftover = [] if self.spec.win.overflow else None
+        self.state = ckpt.restore_window_state(
+            entries, scalars, self.spec, self.maxp, self.device,
+            leftover=leftover)
+        self.seed_spill_leftover(leftover)
+        self.reset_step_tier()
+        self.kg_occ = None
+        self.wm_dev = int(scalars["watermark"])
+        if self.tier_mgr is not None:
+            self.setup_tiers()
+        self.pipe.source.restore_offsets(offsets)
+        sink_states = aux.get("sink_states")
+        if sink_states:
+            if len(sink_states) != len(self.pipe.sinks):
+                raise ValueError(
+                    f"checkpoint has {len(sink_states)} sink states but the "
+                    f"job topology has {len(self.pipe.sinks)} sinks — "
+                    f"restore with the matching pipeline")
+            for s, ss in zip(self.pipe.sinks, sink_states):
+                s.restore_state(ss)
+        self.wm_strategy.restore(aux["wm_current"])
+        count = aux.get("codec_rev_count", 0)
+        if count:
+            self.codec.restore(st.read_keymap(count))
+        self.n_keys_logged = self.codec.size() if st is self.storage else 0
+        self.steps_at_ckpt = self.metrics.steps
+
+    def dump_spill_stores(self):
+        """The spill stores' contents as [(pane, keys uint64, values [n, W]
+        float32)] copies (the reference's _dump_spill_stores)."""
+        out = []
+        for p, store in self.stores.items():
+            ks, vs = store.dump()
+            if len(ks):
+                out.append((int(p), np.array(ks, copy=True),
+                            np.array(vs, copy=True)))
+        return out
+
+    def fold_spill_entries(self, entries: dict, dumped) -> dict:
+        """The spill stores ride the snapshot as logical entries, a (key,
+        pane) held on both sides combined by the reduce (the reference's
+        _fold_spill_entries; the restore scatter keeps the last write)."""
+        if not dumped:
+            return entries
+        v_shape = tuple(self.red.value_shape)
+        added = [dict(key_hi=(ks >> np.uint64(32)).astype(np.uint32),
+                      key_lo=(ks & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                      pane=np.full(len(ks), p, np.int32),
+                      value=vs.reshape((len(ks),) + v_shape),
+                      fresh=np.zeros(len(ks), bool))
+                 for p, ks, vs in dumped]
+        entries = dict(entries, value=entries["value"].astype(np.float32))
+        for a in added:
+            entries = tiers_mod.concat_entries(entries, a)
+        return tiers_mod.precombine_entries(entries, self.ovf_w,
+                                            self.host_ufunc,
+                                            self.host_neutral)
+
+    def seed_spill_leftover(self, leftover) -> None:
+        """Entries a restore could not place go back to the spill stores
+        they came from (the reference's _seed_spill_leftover)."""
+        for l_hi, l_lo, l_pane, l_val in leftover or ():
+            k64 = key_words(l_hi, l_lo)
+            for p in np.unique(l_pane):
+                m = l_pane == p
+                store = self.stores.get(int(p))
+                if store is None:
+                    store = self.stores[int(p)] = SpillStore(
+                        width=self.ovf_w, initial_capacity=1024)
+                store.put(k64[m],
+                          l_val[m].reshape(-1, self.ovf_w).astype(np.float32))
+
     # -- telemetry ---------------------------------------------------------
     def absorb_kg(self, kg_sum: np.ndarray, n_batches: int) -> None:
         """Fold one sampled drain's key-group fill (int64 [maxp], covering
@@ -1203,6 +1548,9 @@ class _WindowJob(StageJob):
         self.kg_fill_sampled += n_batches
         if self.telem is not None:
             self.telem.absorb_kg_fill(kg_sum, n_batches)
+        if self.tier_mgr is not None:
+            # tier faults ride the same sampled vector (executor.py:4654)
+            self.tier_mgr.note_sample(kg_sum)
 
     def refresh_kg_occupancy(self, force: bool = False) -> None:
         """Run G17 over the state and keep the host view, at most once an
@@ -1237,9 +1585,13 @@ class _WindowJob(StageJob):
         """The reference's ``env._pipeline_report`` (executor.py:3772-
         3802): the flight recorder's report, or why there is none."""
         if self.telem is None:
-            return _no_pipeline_report()
-        rep = self.telem.report(refusals=None)
-        rep["drain_stats_every"] = self.drain_stats_every
+            rep = _no_pipeline_report()
+        else:
+            rep = self.telem.report(refusals=None)
+            rep["drain_stats_every"] = self.drain_stats_every
+        if self.tier_mgr is not None:
+            # tiered jobs stay observable with drain-stats off
+            rep["tiers"] = self.tier_mgr.report()
         return rep
 
     # -- the spill tier ----------------------------------------------------
@@ -1268,6 +1620,13 @@ class _WindowJob(StageJob):
             self.tier_quiet = 0
             self.bounce_miss = act
             self.bounce_placed = False
+
+    def reset_step_tier(self) -> None:
+        """Back to the insert step with no history: after a restore or a
+        tier swap, which place the table's keys anew."""
+        self.step_mode = "insert"
+        self.tier_quiet = self.miss_tolerance = self.bounce_miss = 0
+        self.bounce_placed = False
 
     def read_ring(self, n: int):
         """The ring's first ``n`` lanes as host arrays (key word uint64,
@@ -1304,6 +1663,12 @@ class _WindowJob(StageJob):
         self.metrics.spill_peak_keys = max(
             self.metrics.spill_peak_keys,
             sum(len(s) for s in self.stores.values()))
+        if self.tier_mgr is not None and len(k64):
+            # the prefetcher's pending-pane index (executor.py:4761-4766)
+            self.tier_mgr.note_cold(tiers_mod.entries_key_groups(
+                {"key_hi": (k64 >> np.uint64(32)).astype(np.uint32),
+                 "key_lo": (k64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)},
+                self.maxp), panes)
 
     def after_ring_drain(self) -> None:
         """The ring has been folded into the stores: clear it, and compact
@@ -1383,6 +1748,124 @@ class _WindowJob(StageJob):
         and a later record of such a pane is late."""
         for q in [q for q in self.stores if q <= purged_through]:
             self.stores.pop(q).close()
+        if self.tier_mgr is not None:
+            # the same horizon for the prefetcher's index
+            self.tier_mgr.prune_cold(purged_through)
+
+    # -- tiered key-group state --------------------------------------------
+    def tier_maintenance(self) -> None:
+        """The poll-cycle tier pass (the reference's _tier_maintenance,
+        executor.py:4993-5023): rank the key groups on the flight
+        recorder's heat and recency (flat without it) and the watermark's
+        next pane, and apply the plan at this cut. Planning is host numpy;
+        an empty plan costs nothing on the card."""
+        tm = self.tier_mgr
+        telem = self.telem
+        heat = getattr(telem, "_kg_heat", None) if telem is not None \
+            else None
+        if heat is not None and len(heat) == self.maxp:
+            heat = np.asarray(heat, np.float64)
+            last = np.asarray(telem._kg_last, np.int64)
+            seq = int(telem._kg_seq)
+        else:
+            heat = np.zeros(self.maxp, np.float64)
+            last = np.full(self.maxp, -1, np.int64)
+            seq = 0
+        wm_pane = None
+        if self.wm_dev > WM_SENTINEL:
+            slide = self.spec.win.slide_ticks
+            b = max(self.wm_dev, -(2**31) + 1 + slide)
+            wm_pane = (b + 1 - slide) // slide + 1
+        self.apply_tier_plan(tm.plan(heat, last, seq, wm_pane=wm_pane))
+
+    def fold_cold(self, entries: dict, fault_point: Optional[str]) -> None:
+        """Fold entries into the spill stores, combined per (key, pane),
+        and index them as cold (the reference's fold_cold)."""
+        tiers_mod.fold_entries(
+            entries, self.stores, self.ovf_w, self.host_ufunc,
+            self.host_neutral,
+            lambda: SpillStore(width=self.ovf_w, initial_capacity=1024),
+            self.host_ufunc, fault_point=fault_point)
+        if len(entries["pane"]):
+            self.tier_mgr.note_cold(
+                tiers_mod.entries_key_groups(entries, self.maxp),
+                entries["pane"])
+
+    def apply_tier_plan(self, plan) -> None:
+        """The demote / promote swap at the cut (the reference's
+        _apply_tier_plan, executor.py:4840-4991). The pending fires were
+        computed against the current placement, so they are read first
+        (with the ring) before any entry moves; batches staged for the
+        next drain have not touched the state and apply under the new
+        mask. Then the state is staged to logical entries, the demoted
+        groups' entries fold into the stores (``tier.demote.write``), each
+        promoted group's pending entries come out of them
+        (``tier.promote.read``: those inside the pane ring join the device
+        half, the rest fold back), the union is pre-combined per (key,
+        pane) and the state rebuilt around it — its table, plane and fresh
+        flags replaced, the swapped groups marked in kg_dirty — and the
+        mask is rewritten. Entries the rebuilt table cannot place go back
+        cold. Correctness does not depend on residency: a (key, pane) may
+        be split across the card and the stores, and every emission,
+        checkpoint and restore combines both halves."""
+        tm = self.tier_mgr
+        if plan:
+            t0 = time.perf_counter()
+            self.consume()
+            n = int(self.state.ovf_n)
+            if n:
+                self.fold_ring(*self.read_ring(n))
+                clear_overflow(self.state)
+            W, win = self.ovf_w, self.spec.win
+            staged = ckpt.stage_window_state(self.state, self.red)
+            entries, scalars = ckpt.extract_entries(staged, win)
+            kgs = tiers_mod.entries_key_groups(entries, self.maxp)
+            dem_m = (np.isin(kgs, np.asarray(plan.demote, np.int64))
+                     if plan.demote else np.zeros(len(kgs), bool))
+            merged, demoted = tiers_mod.split_entries(entries, ~dem_m)
+            # unconditional: the demote seam fires once a swap, whether or
+            # not entries move
+            self.fold_cold(demoted, "tier.demote.write")
+            for g in plan.promote:
+                got = tiers_mod.fetch_group_entries(
+                    self.stores, g, self.maxp, W, staged["value_tail"],
+                    staged["value_dtype"])
+                tm.forget_cold(g)
+                on, off = tiers_mod.ring_window(
+                    got, int(scalars["max_pane"]), int(win.ring))
+                # panes outside the live ring have no device row yet: back
+                # to the stores, to merge at fire the spill tier's way
+                self.fold_cold(off, None)
+                merged = tiers_mod.concat_entries(merged, on)
+            merged = tiers_mod.precombine_entries(
+                merged, W, self.host_ufunc, self.host_neutral)
+            leftover = []
+            new = ckpt.restore_window_state(
+                merged, scalars, self.spec, self.maxp, self.device,
+                leftover=leftover)
+            st = self.state
+            st.table_keys, st.acc, st.fresh = (new.table_keys, new.acc,
+                                               new.fresh)
+            st.pane_ids.copy_(new.pane_ids)
+            st.n_fresh.copy_(new.n_fresh)
+            for l_hi, l_lo, l_pane, l_val in leftover:
+                self.fold_cold({"key_hi": l_hi, "key_lo": l_lo,
+                                "pane": l_pane, "value": l_val,
+                                "fresh": np.ones(len(l_pane), bool)}, None)
+            # the swap changed these groups' rows without the kernels
+            # marking them
+            groups = list(plan.demote) + list(plan.promote)
+            if groups and st.kg_dirty.numel():
+                st.kg_dirty[torch.as_tensor(groups, device=self.device)] = \
+                    True
+            # the rebuilt table placed its keys anew: the occupancy view
+            # is stale, and the step tiering starts over at the insert step
+            self.kg_occ = None
+            self.reset_step_tier()
+            self.metrics.tier_swap_s += time.perf_counter() - t0
+        tm.apply(plan)
+        if plan:
+            self.kg_res.copy_(torch.from_numpy(tm.mask()))
 
     # -- end of job --------------------------------------------------------
     def loss_counters(self):

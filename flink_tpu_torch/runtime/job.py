@@ -21,7 +21,8 @@ def key_words(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 class StageJob:
     """One run of one keyed stage. Subclasses give ``apply(cols, ts_ms)``
     for a non-empty polled batch, and may give ``idle()`` (the source had
-    nothing new) and ``end_of_stream()``."""
+    nothing new), ``end_of_stream()``, ``cycle_start()`` and
+    ``cycle_end()``."""
 
     # appended to the strict-capacity error
     CAPACITY_HINT = ""
@@ -36,8 +37,9 @@ class StageJob:
         self.red = agg.reduce_spec_factory()
         # rows go as columns when every sink takes them
         self.columnar = all(getattr(s, "columnar", False) for s in pipe.sinks)
-        # the reverse key map serves only row decoding (the port has no
-        # checkpoint key map), so columnar-only jobs skip its cost
+        # the reverse key map serves row decoding (and the checkpoints' key
+        # map, which only row decoding reads back), so columnar-only jobs
+        # skip its cost
         self.keep_reverse = (env.config.get_bool("keys.reverse-map", True)
                              and not self.columnar)
         self.codec = KeyCodec()
@@ -46,11 +48,13 @@ class StageJob:
     def run(self) -> None:
         pipe = self.pipe
         while True:
+            self.cycle_start()
             (cols, ts_ms), end = pipe.source.poll(self.B)
             if cols and len(next(iter(cols.values()))):
                 self.apply(cols, ts_ms)
             else:
                 self.idle()
+            self.cycle_end()
             if end:
                 break
         self.end_of_stream()
@@ -60,6 +64,12 @@ class StageJob:
 
     def idle(self) -> None:
         pass
+
+    def cycle_start(self) -> None:
+        """Before each poll: the cut between drains (tiered state)."""
+
+    def cycle_end(self) -> None:
+        """After each polled batch is applied (the checkpoint trigger)."""
 
     def end_of_stream(self) -> None:
         pass

@@ -58,7 +58,8 @@ def init_shard_state(spec: WindowStageSpec, max_parallelism: int,
 def mask_update_shard(state: wk.WindowShardState, spec: WindowStageSpec,
                       kg_start: int, kg_end: int, hi, lo, ts, values, valid,
                       wm, maxp: int, clear_rows=None, insert: bool = True,
-                      kg_fill: bool = False, fill_out=None, lane_stats=None):
+                      kg_fill: bool = False, fill_out=None, lane_stats=None,
+                      kg_res=None):
     """Per-shard body of the mask route: hash to key groups, mask to the
     owned groups, apply the window update (G1-G3; G5 or G8 in the hash
     layout; G7 with an overflow ring), then advance the shard watermark to
@@ -66,12 +67,14 @@ def mask_update_shard(state: wk.WindowShardState, spec: WindowStageSpec,
     lanes per key group inside G1 (observability.kg-stats), into
     ``fill_out`` when given. Returns ``(state, activity, kgf)`` as
     ``update`` does (``kgf`` int32 [maxp], or [0] with the fill off);
-    ``lane_stats`` receives G1's batch scalars (see ``update``)."""
+    ``lane_stats`` receives G1's batch scalars (see ``update``).
+    ``kg_res`` (bool [maxp], tiered state) diverts the lanes of
+    non-resident key groups to the overflow ring (``update``)."""
     state, activity, kgf = wk.update(
         state, spec.win, spec.red, hi, lo, ts, values, valid, maxp=maxp,
         kg_start=kg_start, kg_end=kg_end, clear_rows=clear_rows,
         insert=insert, kg_fill=maxp if kg_fill else 0, fill_out=fill_out,
-        lane_stats=lane_stats)
+        lane_stats=lane_stats, kg_res=kg_res)
     torch.maximum(state.watermark, wm, out=state.watermark)      # in place
     return state, activity, kgf
 
@@ -114,7 +117,7 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     the fast variant, whose hash-layout updates look keys up and place
     none (the reference's ``build_fast``, executor.py:2053-2072).
 
-    ``drain(state, slots, wmv, count)``: ``slots`` is a sequence of
+    ``drain(state, slots, wmv, count[, kg_res])``: ``slots`` is a sequence of
     ``depth`` staged batches ``(hi, lo, ticks, values, valid)`` (int32,
     int32, int32, float32 — ``[B, *value_shape]`` for a vector reduce, a
     sketch's int32 item hashes —, bool; [B] each), ``wmv`` an int32 [depth]
@@ -152,7 +155,13 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     *out_shape]): a drain's rows must be read
     before the next drain (or ``fire_only`` with ``out=arena_rows(0)``)
     runs. ``arena`` shares another drain's (``drain.arena``) so that the
-    insert and fast variants of one stage hold one."""
+    insert and fast variants of one stage hold one.
+
+    ``kg_res`` (tiered key-group state, the reference's ``tiered``
+    operand, step.py:861), when given, is a bool [max_parallelism] device
+    tensor: every slot's update diverts the lanes of non-resident key
+    groups to the overflow ring. The mask is data: a tier swap rewrites it
+    between drains, and the drain is not rebuilt."""
     D = int(depth)
     F = spec.win.fire_lanes
     kg_end = max_parallelism - 1
@@ -160,7 +169,7 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     arena = [None] if arena is None else arena
 
     def drain(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
-              count: int):
+              count: int, kg_res=None):
         if len(slots) < count or count > D:
             raise ValueError(f"{count} live slots for a depth-{D} drain "
                              f"with {len(slots)} staged")
@@ -193,7 +202,8 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                 state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
                 max_parallelism, clear_rows=pend, insert=insert,
                 kg_fill=kg_fill, fill_out=kgf[i] if kg_fill else None,
-                lane_stats=lane_stats[i] if drain_stats else None)
+                lane_stats=lane_stats[i] if drain_stats else None,
+                kg_res=kg_res)
             activity += act
             fills.append(state.ovf_n.clone())
             state, pend, fr = wk.advance_and_fire_resident(

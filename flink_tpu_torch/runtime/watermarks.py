@@ -43,6 +43,10 @@ class WatermarkStrategy:
     def current(self) -> int:
         return self._current
 
+    def restore(self, current_ms: int) -> None:
+        """Set the watermark to a checkpoint's ``wm_current``."""
+        self._current = int(current_ms)
+
     def max_event_ts(self) -> int:
         return self._max_ts
 

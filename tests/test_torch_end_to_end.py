@@ -299,7 +299,7 @@ def test_time_jump_between_polls_fires_before_rotating():
     "processing_time", "parallelism", "lateness", "min_reduce",
     "map_after_window", "overflow_ring", "checkpointing",
 ])
-def test_port_raises_for_what_this_slice_lacks(change):
+def test_port_raises_for_what_this_slice_lacks(change, tmp_path):
     from flink_tpu_torch import StreamExecutionEnvironment
     from flink_tpu_torch.core.config import Configuration
     from flink_tpu_torch.core.time import TimeCharacteristic
@@ -318,7 +318,7 @@ def test_port_raises_for_what_this_slice_lacks(change):
         if change == "parallelism":
             env.set_parallelism(2)
         if change == "checkpointing":
-            env.enable_checkpointing(10)
+            env.enable_checkpointing(1, str(tmp_path))
         win = (env.add_source(GeneratorSource(gen_batch, total=BATCH))
                .key_by(lambda c: c["key"]).time_window(WINDOW_MS))
         if change == "lateness":
@@ -337,6 +337,13 @@ def test_port_raises_for_what_this_slice_lacks(change):
         job = build().execute("explicit ring")
         assert (sink.count, sink.value_sum) == reference(BATCH)
         assert job.state.ovf_hi.numel() == 4096
+        return
+    if change == "checkpointing":
+        # checkpoints of a single-stage window job are ported: the job
+        # runs, exactly, and writes its cut
+        job = build().execute("checkpointed")
+        assert (sink.count, sink.value_sum) == reference(BATCH)
+        assert len(job.metrics.checkpoint_stats) == 1
         return
     if change in ("lateness", "min_reduce"):
         # allowed lateness and min are ported: the job runs, exactly (every

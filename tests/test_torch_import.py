@@ -138,3 +138,62 @@ def test_chained_stages_run_with_jax_and_the_reference_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_checkpoints_and_tiers_run_with_jax_and_the_reference_blocked(
+        tmp_path):
+    """The checkpoint, tier and fault-injection modules (copies of the
+    reference's ``testing/faults.py`` and ``runtime/tiers.py``, the port's
+    ``runtime/checkpoint.py``) import and run a tiered window job that
+    checkpoints every batch, crashes at a drain and restarts, with
+    ``jax`` and ``flink_tpu`` unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flink_tpu'] = None\n"
+        "import numpy as np\n"
+        "from flink_tpu_torch import StreamExecutionEnvironment\n"
+        "from flink_tpu_torch.core.config import Configuration\n"
+        "from flink_tpu_torch.core.time import TimeCharacteristic\n"
+        "from flink_tpu_torch.runtime import checkpoint, tiers\n"
+        "from flink_tpu_torch.runtime.sinks import CollectSink\n"
+        "from flink_tpu_torch.runtime.sources import GeneratorSource\n"
+        "from flink_tpu_torch.testing import faults\n"
+        "env = StreamExecutionEnvironment(Configuration({\n"
+        "    'pipeline.ring-depth': 2,\n"
+        "    'state.tiers.resident-key-groups': 2,\n"
+        "    'state.tiers.min-dwell-cycles': 1,\n"
+        "    'restart-strategy': 'fixed-delay'}), device='cpu')\n"
+        "env.set_max_parallelism(8)\n"
+        "env.set_stream_time_characteristic(TimeCharacteristic.EventTime)\n"
+        "env.set_state_capacity(1024)\n"
+        "env.batch_size = 256\n"
+        f"env.enable_checkpointing(1, {str(tmp_path)!r})\n"
+        "def gen(o, n):\n"
+        "    i = np.arange(o, o + n)\n"
+        "    return {'key': i % 512, 'value': np.ones(n, np.float32)}, "
+        "i * 4000 // 3072\n"
+        "sink = CollectSink()\n"
+        "(env.add_source(GeneratorSource(gen, total=3072))\n"
+        " .key_by(lambda c: c['key']).time_window(1000)\n"
+        " .sum(lambda c: c['value']).add_sink(sink))\n"
+        "rule = faults.FaultRule('step.drain', exc=OSError('x'), at=3)\n"
+        "with faults.active(faults.FaultInjector([rule])):\n"
+        "    job = env.execute('tiered')\n"
+        "rows = {(r.key, r.window_end_ms): r.value for r in sink.results}\n"
+        "cols, ts = gen(0, 3072)\n"
+        "want = {}\n"
+        "for k, t in zip(cols['key'].tolist(), ts.tolist()):\n"
+        "    e = (t // 1000 + 1) * 1000\n"
+        "    want[(k, e)] = want.get((k, e), 0.0) + 1.0\n"
+        "assert rows == want\n"
+        "assert job.metrics.restarts == 1 and job.metrics.checkpoint_stats\n"
+        "assert env._pipeline_report()['tiers']['demotes'] > 0\n"
+        f"assert checkpoint.CheckpointStorage({str(tmp_path)!r}).latest()\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
