@@ -272,16 +272,20 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 row, as the reference's run_checkpoint_overhead cell
                 (bench_configs.py:380) at the north star's width, in turns:
                 checkpoints off; sync-full every 32 batches into a
-                temporary directory; again with a step.drain fault on the
-                6th drain (whose dispatch first emits window 2, past the
-                cut at batch 64 that the restore returns to) and
-                restart-strategy fixed-delay (1 attempt, delay 0). Each run's events/s, checkpoints, mean and max
-                sync_ms and bytes; the crashed run's seconds from the
-                fault to the first drain after its restore. Every run's
-                (key, window) -> value map must equal numpy's, and a
-                window the crashed run emits twice must carry the same
-                value both times (the count is printed, and must be above
-                0); G1-G3, G6 launched.
+                temporary directory; again with a step.drain fault at
+                the drain dispatch whose read first emits window 2 (the
+                restore returns to the cut before it) and again with an
+                ingest.producer fault at the producer's 51st prep, each
+                with restart-strategy fixed-delay (1 attempt, delay 0).
+                The scan drain, the producer thread ahead of every cut.
+                Each run's events/s, checkpoints, mean and max sync_ms and
+                bytes; the crashed runs' seconds from the fault to the
+                first dispatch after the restore. Every run's (key,
+                window) -> value map must equal numpy's, and a window a
+                crashed run emits twice must carry the same value both
+                times (the drain crash's count is printed, and must be
+                above 0 unless a cut fell between window 2's emission and
+                the crash, which the line says); G1-G3, G6 launched.
  20. tiered   — the reference's own cell, bench_configs.py:2508
                 run_tiered, at its shape: max parallelism 64 and a budget
                 of 5 resident key groups, 4,096 keys drawn Zipf(2.5) with
@@ -296,6 +300,34 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 >= 0.6 criterion (information only). Every row must equal
                 numpy's and every tiered run must demote and promote; G1
                 with the mask, G2, G3, G5, G6, G7 launched.
+ 21. ingest   — the window runner's dispatch modes and its producer
+                thread. The north star (after the e2e run, which is
+                ``auto``) in each mode: ``auto`` (the split path: an
+                update step a batch, the fire steps at each crossing, the
+                producer polling, encoding and staging ahead), ``on``
+                (the scan drain), ``while`` (the while-drain, max_slots
+                32) and ``auto`` with ``pipeline.prefetch: off``; each
+                with its count and sum against numpy, events/s, p99 fire
+                latency, drains or steps, ring publish refusals, and the
+                card's idle share from a second, profiled run; G1-G4
+                launched in each. The telemetry, checkpoint and tiered
+                runs pin ``on`` (the recorder and the step.drain seam
+                exist only on the drains). bench_configs.py:459
+                run_ingest_pipeline at its shape (2^20 keys, capacity
+                2^21, batches of 131,072, 10 s windows, 30M events):
+                prefetch off, on, and on with sync-full cuts every 8
+                batches (its incremental and async cuts raise: item 13),
+                count and sum against numpy, the ratios.
+                bench_configs.py:1912 run_while_drain at its shape (B =
+                512, C = 4,096, ring 9, 4 fire lanes, 4 batches a pane,
+                512 batches): the scan drain at D = 32 against the
+                while-drain at 64 slots, events/s (best of three after a
+                warm run), dispatches, p99 fire visibility, every fired
+                window's keys and sum against numpy's. A producer thread
+                publishing 512 batches of 8,192 lanes into a 16-slot
+                device ring while the step loop retires slots from
+                write-cursor snapshots: every slot retired once, each
+                read (after its copy event) holding its own batch.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -328,7 +360,11 @@ card's busy time and idle share from torch.profiler.
 
     python3 chip_smoke.py --seed N
 
-salts the cep-within job's events and its sample of keys with N.
+salts the cep-within job's events and its sample of keys with N, and
+
+    python3 chip_smoke.py --log PATH
+
+also appends every JSON line to PATH.
 """
 
 import json
@@ -350,7 +386,9 @@ from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable, segment, session_windows, sketches
 from flink_tpu_torch.ops.cuda import EMPTY_WORD, PANE_NONE
 from flink_tpu_torch.ops.hashing import probe_hash, route_hash, splitmix64
+from flink_tpu_torch.metrics.latency import weighted_percentile
 from flink_tpu_torch.ops.window_kernels import ReduceSpec, fire_row_buffers
+from flink_tpu_torch.runtime import checkpoint as ckpt_mod
 from flink_tpu_torch.runtime.executor import MON_EVERY, OVF_LAG, panes_crossed
 from flink_tpu_torch.runtime.sinks import ColumnarCollectSink, CountingSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
@@ -423,8 +461,15 @@ CMS_DEPTH, CMS_WIDTH, CMS_QUERY = 4, 1024, [1, 2, 3]
 PROBE_LEN = 64
 
 
+LOG = []          # ``--log PATH``: every JSON line is also appended there
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for path in LOG:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3690,6 +3735,8 @@ def fire_latency(m) -> dict:
 
 
 TELEMETRY_CONFIG = {
+    # the flight recorder exists only on the drains
+    "pipeline.resident-loop": "on",
     "observability.drain-stats": True,
     "observability.drain-stats-every": 1,
     "observability.kg-stats": True,
@@ -4740,18 +4787,23 @@ def res_kernel_phase(dev, timing=True):
 
 
 CKPT_INTERVAL = 32            # batches between two checkpoints
-CKPT_FAULT_DRAIN = 5          # the crash: the 6th drain (0-based hit 5)
+CKPT_PRODUCER_HIT = 50        # the producer's crash: its 51st prep
 CKPT_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                 "fire_compact")
 
 
-def ckpt_job(device, total, ckpt_dir=None, fault_at=None):
+def ckpt_job(device, total, ckpt_dir=None, fault=None):
     """The north-star job (1M integer keys, 5 s tumbling sum, batches of
-    262,144, direct layout, no overflow ring) into a sink that keeps every
-    row; with ``ckpt_dir`` checkpointing sync-full every CKPT_INTERVAL
-    batches there, and with ``fault_at`` crashed once at that ``step.drain``
-    hit and restarted by ``restart-strategy: fixed-delay`` (1 attempt,
-    delay 0). Returns (sink, job, s)."""
+    262,144, direct layout, no overflow ring, the scan drain, the producer
+    thread ahead) into a sink that keeps every row; with ``ckpt_dir``
+    checkpointing sync-full every CKPT_INTERVAL batches there, and with
+    ``fault`` crashed once and restarted by ``restart-strategy:
+    fixed-delay`` (1 attempt, delay 0): ``step.drain`` at the first drain
+    dispatch after window 2's rows reached the sink (the dispatch's read
+    emitted them; the restore goes back to the cut before them, so they
+    are emitted again), ``ingest.producer`` at the producer's
+    CKPT_PRODUCER_HIT-th prep (the thread dies; the step loop finds it
+    dead). Returns (sink, job, s)."""
     def gen(offset, n):
         keys, ts, vals = gen_batch(offset, n)
         return {"key": keys, "value": vals}, ts
@@ -4761,6 +4813,7 @@ def ckpt_job(device, total, ckpt_dir=None, fault_at=None):
         "window.fires-per-step": FIRES_PER_STEP,
         "pipeline.ring-depth": RING_DEPTH,
         "state.backend.overflow-ring": 0,
+        **RESIDENT_ON,
         "restart-strategy": "fixed-delay",
         "restart-strategy.fixed-delay.attempts": 1,
         "restart-strategy.fixed-delay.delay": 0,
@@ -4777,18 +4830,39 @@ def ckpt_job(device, total, ckpt_dir=None, fault_at=None):
     (env.add_source(GeneratorSource(gen, total=total))
      .key_by(lambda c: c["key"]).time_window(WINDOW_MS)
      .sum(lambda c: c["value"]).add_sink(sink))
-    inj = (faults.FaultInjector([faults.FaultRule(
-        "step.drain", exc=RuntimeError("injected drain crash"),
-        at=fault_at)]) if fault_at is not None else None)
+    # step.drain: each seam hit notes the newest cut on disk; window 2's
+    # rows arrive between two hits, and the crash takes the later one.
+    # A cut between the two (one whose own drain fired window 2) holds the
+    # window, so then the replay need not emit it again
+    crashed, cuts = [], [None]
+
+    def after_window_2(ctx):
+        latest = ckpt_mod.CheckpointStorage(str(ckpt_dir)).latest()
+        if not crashed and len(sink.columns().get("value", ())) > N_KEYS:
+            crashed.append(latest != cuts[0])
+            raise RuntimeError("injected drain crash")
+        cuts[0] = latest
+
+    rule = {"step.drain": faults.FaultRule(
+                "step.drain", action="call", fn=after_window_2, times=0),
+            "ingest.producer": faults.FaultRule(
+                "ingest.producer", exc=RuntimeError("injected producer "
+                                                    "crash"),
+                at=CKPT_PRODUCER_HIT),
+            None: None}[fault]
     t0 = time.perf_counter()
-    if inj is None:
+    if rule is None:
         job = env.execute("chip-smoke-checkpoint")
     else:
+        inj = faults.FaultInjector([rule])
         with faults.active(inj):
             job = env.execute("chip-smoke-checkpoint-crash")
-        check(bool(inj.fired_at("step.drain")), "the drain fault never fired")
+        check(bool(crashed) if fault == "step.drain"
+              else bool(inj.fired_at(fault)), f"the {fault} fault never "
+                                              f"fired")
     if device.type == "cuda":
         torch.cuda.synchronize()
+    job.cut_between = bool(crashed and crashed[0])
     return sink, job, time.perf_counter() - t0
 
 
@@ -4879,7 +4953,7 @@ def tier_job(device, total, budget, config=None):
     the default (auto) ring, batches of 32,768, into a sink that keeps
     every row; ``budget`` resident key groups (0: all resident). Returns
     (sink, env, job, s)."""
-    opts = {"state.backend.layout": "hash", **(config or {})}
+    opts = {"state.backend.layout": "hash", **RESIDENT_ON, **(config or {})}
     if budget:
         opts["state.tiers.resident-key-groups"] = budget
     env = StreamExecutionEnvironment(Configuration(opts), device=device)
@@ -4909,12 +4983,13 @@ def tier_reference(total):
 
 def checkpoint_runs(dev, kind, smi, total_launches, total) -> None:
     """The checkpoint job in turns: the north star with checkpoints off,
-    sync-full every CKPT_INTERVAL batches, and crashed at its 6th drain
-    and restarted; every run's rows against numpy's, each run's launches
-    added to ``total_launches``. The 6th drain's dispatch reads the 5th's
-    fires, which emit window 2, before it crashes; the restore returns to
-    the cut at batch 64, so window 2 is emitted again and its values are
-    held equal."""
+    sync-full every CKPT_INTERVAL batches, crashed at the drain dispatch
+    whose read emitted window 2 and restarted (the restore returns to the
+    cut before it, so window 2 is emitted again and its values are held
+    equal), and crashed on the producer thread and restarted; every run's
+    rows against numpy's, each run's launches added to
+    ``total_launches``. The producer runs ahead of the cuts in every
+    run."""
     want_ck = ckpt_reference(total)
     n_windows_ck = len(want_ck) // N_KEYS
     with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
@@ -4922,7 +4997,9 @@ def checkpoint_runs(dev, kind, smi, total_launches, total) -> None:
                 ("off", {}),
                 ("sync_full", dict(ckpt_dir=os.path.join(tmp, "a"))),
                 ("crashed", dict(ckpt_dir=os.path.join(tmp, "b"),
-                                 fault_at=CKPT_FAULT_DRAIN))):
+                                 fault="step.drain")),
+                ("crashed_producer", dict(ckpt_dir=os.path.join(tmp, "c"),
+                                          fault="ingest.producer"))):
             launches, (sink, job, secs) = run_path(
                 lambda kw=kw: ckpt_job(dev, total, **kw),
                 total_launches)
@@ -4938,6 +5015,8 @@ def checkpoint_runs(dev, kind, smi, total_launches, total) -> None:
                   "interval_batches": CKPT_INTERVAL if kw else None,
                   **ckpt_stats(m), "restarts": m.restarts,
                   "fault_to_first_drain_s": [r / 1e3 for r in rec],
+                  "cut_between_emission_and_crash":
+                      getattr(job, "cut_between", None),
                   "fire_latency_ms": fire_latency(m), "launches": launches,
                   "device": kind, "nvidia_smi": smi})
             check(m.dropped_late == 0 and m.dropped_capacity == 0,
@@ -4946,10 +5025,12 @@ def checkpoint_runs(dev, kind, smi, total_launches, total) -> None:
             if kw:
                 check(bool(m.checkpoint_stats),
                       f"checkpoint {name}: no checkpoint taken")
-            if name == "crashed":
+            if name.startswith("crashed"):
                 check(m.restarts == 1 and len(rec) == 1,
-                      f"crashed run: {m.restarts} restarts, recovery {rec}")
-                check(repeats > 0, "crashed run: no window re-emitted")
+                      f"{name} run: {m.restarts} restarts, recovery {rec}")
+            if name == "crashed":
+                check(repeats > 0 or job.cut_between,
+                      "crashed run: no window re-emitted")
             del sink, job, cols
 
 
@@ -4996,6 +5077,372 @@ def tiered_runs(dev, kind, smi, total_launches, total) -> None:
           "reference_criterion": ">= 0.6 (information only; taken on a "
                                  "TPU, not asserted here)",
           "device": kind, "nvidia_smi": smi})
+
+
+# ------------------- the ingest thread and the window runner's dispatch modes
+
+WHILE_MAX_SLOTS = 32          # pipeline.while-drain.max-slots of the while run
+RESIDENT_ON = {"pipeline.resident-loop": "on"}
+NS_MODES = (
+    ("auto", {}),                                     # the split path
+    ("on", RESIDENT_ON),                              # the scan drain
+    ("while", {"pipeline.resident-loop": "while",
+               "pipeline.while-drain.max-slots": WHILE_MAX_SLOTS}),
+    ("auto_prefetch_off", {"pipeline.prefetch": "off"}),
+)
+
+
+def device_busy(run):
+    """``run()`` under torch.profiler: (what it returned, the card's busy
+    ms — the union of kernel and copy intervals, the producer's copies
+    included —)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    return out, _busy_ms(spans)
+
+
+def north_star_modes(dev, kind, smi, total_launches, want_count) -> dict:
+    """The north star through the public API in the four dispatch modes:
+    ``auto`` (the split path: an update step a batch, the fire steps at
+    each pane crossing, the producer thread polling and staging ahead),
+    ``on`` (the scan drain), ``while`` (the while-drain, max_slots 32) and
+    ``auto`` with ``pipeline.prefetch: off`` (the split path polled
+    inline). Each run's count and sum against numpy, G1-G4 launched; a
+    second, profiled run of each gives the card's idle share. Returns
+    events/s by mode."""
+    eps = {}
+    for name, cfg in NS_MODES:
+        launches, (sink, env, job, secs) = run_path(
+            lambda c=cfg: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                         TOTAL_EVENTS, BATCH, RING_DEPTH,
+                                         config=c, with_env=True),
+            total_launches)
+        m = job.metrics
+        check(sink.value_sum == float(TOTAL_EVENTS)
+              and sink.count == want_count,
+              f"north star ({name}): {sink.count} rows summing to "
+              f"{sink.value_sum}, numpy {want_count} and {TOTAL_EVENTS}")
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              f"north star ({name}): records dropped")
+        check_launched(launches, NORTH_STAR_KERNELS, f"north star ({name})")
+        split = name.startswith("auto")
+        check((m.resident_drains == 0) == split,
+              f"north star ({name}): {m.resident_drains} drains")
+        (_s, _e, job_p, wall_p), busy = device_busy(
+            lambda c=cfg: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                         TOTAL_EVENTS, BATCH, RING_DEPTH,
+                                         config=c, with_env=True))
+        eps[name] = TOTAL_EVENTS / secs
+        emit({"phase": "north_star_mode", "mode": name, "config": cfg,
+              "events": TOTAL_EVENTS, "seconds": secs,
+              "events_per_s": eps[name],
+              "fire_latency_ms": fire_latency(m),
+              "device_busy_ms": busy, "profiled_wall_s": wall_p,
+              "device_idle_share": 1.0 - busy / (wall_p * 1e3),
+              "drains": m.resident_drains, "update_steps":
+              0 if not split else m.steps, "batches": m.steps,
+              "fire_steps": m.fire_steps,
+              "ring_publish_refusals": m.ring_publish_refusals,
+              "launches": launches, "device": kind, "nvidia_smi": smi})
+        del sink, env, job, job_p
+    return eps
+
+
+# bench_configs.py:459 run_ingest_pipeline at its shape
+INGEST_KEYS = 1 << 20
+INGEST_CAPACITY = 1 << 21
+INGEST_BATCH = 131_072
+INGEST_WINDOW_MS = 10_000
+INGEST_TOTAL = 30_000_000
+INGEST_CKPT_INTERVAL = 8      # batches between two sync-full cuts
+
+
+def ingest_gen(offset, n):
+    idx = np.arange(offset, offset + n, dtype=np.int64)
+    return ({"key": (idx * 2654435761) % INGEST_KEYS,
+             "value": np.ones(n, np.float32)}, (idx // 32768) * 1000)
+
+
+def ingest_job(device, total, prefetch, ckpt_dir=None, config=None):
+    """run_ingest_pipeline's job: 2^20 keys, capacity 2^21, batches of
+    131,072, 10 s tumbling sum into a CountingSink. Returns (sink, env,
+    job, s)."""
+    cfg = Configuration({"pipeline.prefetch": prefetch,
+                         "keys.reverse-map": False, **(config or {})})
+    env = StreamExecutionEnvironment(cfg, device=device)
+    env.set_parallelism(1)
+    env.set_max_parallelism(MAX_PARALLELISM)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    env.set_state_capacity(INGEST_CAPACITY)
+    env.batch_size = INGEST_BATCH
+    if ckpt_dir is not None:
+        env.enable_checkpointing(INGEST_CKPT_INTERVAL, str(ckpt_dir))
+    sink = CountingSink()
+    (env.add_source(GeneratorSource(ingest_gen, total=total))
+     .key_by(lambda c: c["key"]).time_window(INGEST_WINDOW_MS)
+     .sum(lambda c: c["value"]).add_sink(sink))
+    t0 = time.perf_counter()
+    job = env.execute("chip-smoke-ingest")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return sink, env, job, time.perf_counter() - t0
+
+
+def ingest_reference(total) -> int:
+    """numpy's (key, window) pairs of ingest_gen: each window's distinct
+    keys."""
+    per = INGEST_WINDOW_MS // 1000 * 32768
+    n = 0
+    for off in range(0, total, per):
+        cols, _ = ingest_gen(off, min(per, total - off))
+        n += len(np.unique(cols["key"]))
+    return n
+
+
+def ingest_runs(dev, kind, smi, total_launches, total=INGEST_TOTAL):
+    """run_ingest_pipeline's three modes (prefetch off, on, on with
+    sync-full cuts every 8 batches), each checked against numpy; the
+    reference's incremental and async cuts raise here (ROADMAP item 13).
+    Reports on-with-cuts over on."""
+    want = ingest_reference(total)
+    eps = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ingest-") as tmp:
+        for name, prefetch, ckpt in (("prefetch_off", "off", False),
+                                     ("prefetch_on", "on", False),
+                                     ("prefetch_on_ckpt", "on", True)):
+            launches, (sink, env, job, secs) = run_path(
+                lambda p=prefetch, c=ckpt: ingest_job(
+                    dev, total, p, os.path.join(tmp, "c") if c else None),
+                total_launches)
+            m = job.metrics
+            check(sink.value_sum == float(total) and sink.count == want,
+                  f"ingest {name}: {sink.count} rows summing to "
+                  f"{sink.value_sum}, numpy {want} and {total}")
+            check(m.dropped_late == 0 and m.dropped_capacity == 0,
+                  f"ingest {name}: records dropped")
+            check_launched(launches, ("route_lanes", "clear_rows",
+                                      "scatter_update"), f"ingest {name}")
+            eps[name] = total / secs
+            emit({"phase": "ingest_pipeline", "run": name,
+                  "events": total, "seconds": secs,
+                  "events_per_s": eps[name], "rows": sink.count,
+                  **ckpt_stats(m), "update_steps": m.steps,
+                  "fire_steps": m.fire_steps,
+                  "fire_latency_ms": fire_latency(m),
+                  "launches": launches, "device": kind, "nvidia_smi": smi})
+            if ckpt:
+                check(bool(m.checkpoint_stats), "ingest: no checkpoint")
+            del sink, env, job
+        refused = []
+        for cfg in ({"checkpoint.mode": "incremental"},
+                    {"checkpoint.async": True}):
+            try:
+                ingest_job(dev, INGEST_BATCH, "on",
+                           os.path.join(tmp, "r"), cfg)
+            except NotImplementedError as e:
+                refused.append(str(e))
+        check(len(refused) == 2, "ingest: incremental or async cuts ran")
+    emit({"phase": "ingest_pipeline_ratio",
+          "ckpt_over_on": eps["prefetch_on_ckpt"] / eps["prefetch_on"],
+          "on_over_off": eps["prefetch_on"] / eps["prefetch_off"],
+          "reference_criterion": ">= 0.90 with incremental + async cuts "
+                                 "(not ported, ROADMAP item 13; here "
+                                 "sync-full, information only)",
+          "refused": refused, "device": kind, "nvidia_smi": smi})
+
+
+# bench_configs.py:1912 run_while_drain at its shape
+WD_B, WD_C, WD_RING, WD_SLIDE, WD_BPP = 512, 4096, 9, 1000, 4
+WD_D, WD_MS = 32, 64          # scan ring depth; while-drain max_slots
+WD_GROUPS = 8                 # while dispatches a run (16 scan dispatches)
+
+
+def while_stream(dev):
+    """run_while_drain's firing stream on the card: WD_GROUPS * 64 batches
+    of 512 lanes, half the lanes on 64 hot keys, 4 batches a pane, each
+    batch's watermark closing the pane before it."""
+    rng = np.random.default_rng(11)
+    n = WD_GROUPS * WD_MS
+    slots, wms, keys = [], [], []
+    for j in range(n):
+        p = j // WD_BPP
+        hot = WD_B // 2
+        lo = np.concatenate([rng.integers(0, WD_C - 1, WD_B - hot),
+                             rng.integers(0, 64, hot)]).astype(np.int64)
+        rng.shuffle(lo)
+        keys.append(lo)
+        ts = np.full(WD_B, p * WD_SLIDE + WD_SLIDE // 2, np.int32)
+        slots.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            np.zeros(WD_B, np.int32), lo.astype(np.int32), ts,
+            np.ones(WD_B, np.float32), np.ones(WD_B, bool))))
+        wms.append(p * WD_SLIDE - 1)
+    return slots, wms, keys
+
+
+def while_drain_mirror(dev, kind, smi, total_launches) -> None:
+    """run_while_drain: the scan drain at D = 32 against the while-drain
+    at max_slots 64 (its cursor the whole staged burst, as the bench's
+    steady state), B = 512, C = 4,096, ring 9, 4 fire lanes: events/s
+    (best of 3 after a warm run), dispatches, p99 fire visibility, and
+    every fired window's (keys, sum) against numpy's."""
+    from flink_tpu_torch.ops import window_kernels as wk
+    from flink_tpu_torch.runtime.step import (
+        WindowStageSpec, build_window_resident_drain,
+        build_window_while_drain, fire_only, init_shard_state)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    spec = WindowStageSpec(
+        win=wk.WindowSpec(size_ticks=WD_SLIDE, slide_ticks=WD_SLIDE,
+                          ring=WD_RING, fires_per_step=4),
+        red=wk.ReduceSpec("sum"), capacity_per_shard=WD_C)
+    slots, wms, keys = while_stream(dev)
+    n = len(slots)
+    n_panes = n // WD_BPP
+    want = {(p + 1) * WD_SLIDE: (len(np.unique(np.concatenate(
+        keys[p * WD_BPP:(p + 1) * WD_BPP]))), float(WD_B * WD_BPP))
+        for p in range(n_panes)}
+
+    def measure(group, drain, is_while):
+        wmvs = [torch.tensor(wms[g * group:(g + 1) * group],
+                             dtype=torch.int32, device=dev)
+                for g in range(n // group)]
+        lat, rows = [], {}
+
+        def read(cf, t_d):
+            c, ok, e, s = (t.cpu().numpy() for t in (
+                cf.counts, cf.lane_valid, cf.window_end_ticks,
+                cf.value_sums))
+            for cc, oo, ee, ss in zip(c.reshape(-1), ok.reshape(-1),
+                                      e.reshape(-1), s.reshape(-1)):
+                if oo:
+                    check(int(ee) not in rows, f"window {ee} fired twice")
+                    rows[int(ee)] = (int(cc), float(ss))
+            lat.append((max(int(ok.sum()), 1),
+                        (time.perf_counter() - t_d) * 1e3))
+
+        def run_once():
+            rows.clear()
+            state = init_shard_state(spec, MAX_PARALLELISM, dev)
+            sync()
+            t0 = time.perf_counter()
+            pend = None
+            for g in range(n // group):
+                sel = slots[g * group:(g + 1) * group]
+                if is_while:
+                    base = g * group
+                    out = drain(state, sel, wmvs[g], base + group, base,
+                                group)
+                else:
+                    out = drain(state, sel, wmvs[g], group)
+                state, fires = out[0], out[2]
+                if pend is not None:
+                    read(*pend)
+                pend = (fires, time.perf_counter())
+            read(*pend)
+            sync()
+            dt = time.perf_counter() - t0
+            while True:                    # the last panes, at the end
+                state, fr = fire_only(state, spec, 2**31 - 4)
+                read(fr, time.perf_counter())
+                if int(fr.lane_valid.sum()) < spec.win.fires_per_step:
+                    break
+            return dt
+
+        run_once()
+        lat.clear()
+        dt = min(run_once() for _ in range(3))
+        check(rows == want, f"while mirror: fired windows differ from "
+                            f"numpy's ({len(rows)} of {len(want)})")
+        return WD_B * n / dt, lat, n // group
+
+    def p99(lat):
+        return weighted_percentile(lat, 99)
+
+    launches, res = run_path(lambda: (
+        measure(WD_D, build_window_resident_drain(
+            spec, WD_D, MAX_PARALLELISM, reduced=True), False),
+        measure(WD_MS, build_window_while_drain(
+            spec, WD_MS, MAX_PARALLELISM, reduced=True), True)),
+        total_launches)
+    (scan_eps, scan_lat, scan_n), (while_eps, while_lat, while_n) = res
+    check_launched(launches, NORTH_STAR_KERNELS, "while mirror")
+    emit({"phase": "while_drain_mirror", "B": WD_B, "C": WD_C,
+          "ring": WD_RING, "batches": n, "bpp": WD_BPP,
+          "scan_d32": {"events_per_s": scan_eps, "dispatches": scan_n,
+                       "p99_fire_ms": p99(scan_lat)},
+          "while_ms64": {"events_per_s": while_eps, "dispatches": while_n,
+                         "p99_fire_ms": p99(while_lat)},
+          "throughput_ratio": while_eps / scan_eps,
+          "dispatch_cut": scan_n / while_n, "windows_checked": len(want),
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+
+
+def ring_race(dev, kind, smi, m_batches=512, b=8192, depth=16) -> None:
+    """A producer thread publishes into a device ring on the card (its
+    copy stream, waiting while the ring is full) while the step loop
+    retires slots from write-cursor snapshots: each retired slot's
+    payload, read after the loop's stream waited on its copy, is the
+    batch published into it, and every slot is retired once."""
+    import threading
+
+    from flink_tpu_torch.runtime.ingest import DeviceBatchRing, IngestPlan
+
+    plan = IngestPlan(td=None, slide_ticks=1, span_limit=1, B=b,
+                      staging=True, device=dev, ring_depth=depth)
+    ring = DeviceBatchRing(plan, depth)
+    events, errs = [], []
+
+    def producer():
+        try:
+            for j in range(m_batches):
+                args = (np.zeros(b, np.uint32),
+                        np.full(b, j, np.uint32), np.full(b, j, np.int32),
+                        np.full(b, j, np.float32))
+                while True:
+                    pub = ring.try_publish(plan, *args, b, "mask", 0)
+                    if pub is not None:
+                        break
+                    time.sleep(0.0001)
+                events.append(pub[2])
+        except Exception as e:     # surfaced by the check below
+            errs.append(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    retired, freed, snaps = 0, 0, []
+    cur = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    deadline = time.monotonic() + 120
+    while retired < m_batches and time.monotonic() < deadline:
+        snap = min(ring.write_cursor(), len(events))
+        snaps.append(snap)
+        for s in range(retired, snap):
+            if cur is not None:
+                cur.wait_event(events[s])
+            hi, lo, ts, vals, ok = ring.slot(s)
+            got = torch.stack([lo.float().sum(), ts.float().sum(),
+                               vals.sum(), ok.float().sum()]).cpu()
+            check(got.tolist() == [float(s * b)] * 3 + [float(b)],
+                  f"ring race: slot {s} holds {got.tolist()}")
+            ring.note_read([s])
+            freed += ring.release_through(s)
+        retired = snap
+    t.join(timeout=30)
+    check(not t.is_alive() and not errs, f"ring race: producer {errs}")
+    check(freed == m_batches and ring.occupancy() == 0
+          and snaps == sorted(snaps),
+          f"ring race: {freed} of {m_batches} retired")
+    emit({"phase": "ring_race", "batches": m_batches, "lanes": b,
+          "depth": depth, "retired": freed,
+          "refusals": ring.refusals()[0], "consumer_reads": len(snaps),
+          "seconds": time.perf_counter() - t0, "device": kind,
+          "nvidia_smi": smi})
 
 
 # ------------------------------------------------------------ main
@@ -5136,6 +5583,8 @@ def main(argv) -> int:
         return 2
     if "--seed" in argv:
         CEPW_SEED = int(argv[argv.index("--seed") + 1])
+    if "--log" in argv:
+        LOG.append(argv[argv.index("--log") + 1])
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5185,8 +5634,9 @@ def main(argv) -> int:
           "count": sink.count, "count_ref": want_count,
           "value_sum": sink.value_sum, "launches": launches,
           "fire_latency_ms": fire_latency(m),
-          "overflow_ring": "0 (set: no ring, so the drains reduce on the "
+          "overflow_ring": "0 (set: no ring, so the fires reduce on the "
                            "card with G4, as in PRs 1-2)",
+          "mode": "auto: the split path, the producer thread ahead",
           "device": kind, "nvidia_smi": smi})
     check(sink.value_sum == float(TOTAL_EVENTS),
           f"value_sum {sink.value_sum} != {TOTAL_EVENTS}")
@@ -5198,7 +5648,8 @@ def main(argv) -> int:
     for name in NORTH_STAR_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched on the north-star path")
-    plain_eps = TOTAL_EVENTS / secs
+    mode_eps = north_star_modes(dev, kind, smi, total_launches, want_count)
+    plain_eps = mode_eps["on"]
 
     launches, (sink, env_t, job, secs) = run_path(
         lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS,
@@ -5208,9 +5659,10 @@ def main(argv) -> int:
           f"telemetry run: {sink.count} rows summing to {sink.value_sum}")
     checked = check_telemetry(env_t, job, TOTAL_EVENTS, BATCH, EVENTS_PER_MS,
                               WINDOW_MS, N_KEYS, MAX_PARALLELISM)
-    # in turns: without, with (the two runs above), with, without
+    # in turns, both on the scan drain: without (the "on" mode's run),
+    # with (the run above), with, without
     turns = {"without": [plain_eps], "with": [TOTAL_EVENTS / secs]}
-    for name, cfg in (("with", TELEMETRY_CONFIG), ("without", None)):
+    for name, cfg in (("with", TELEMETRY_CONFIG), ("without", RESIDENT_ON)):
         turns[name].append(TOTAL_EVENTS / north_star_job(
             dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS, BATCH, RING_DEPTH,
             config=cfg)[2])
@@ -5540,6 +5992,9 @@ def main(argv) -> int:
 
     checkpoint_runs(dev, kind, smi, total_launches, TOTAL_EVENTS)
     tiered_runs(dev, kind, smi, total_launches, TIER_TOTAL)
+    ingest_runs(dev, kind, smi, total_launches)
+    while_drain_mirror(dev, kind, smi, total_launches)
+    ring_race(dev, kind, smi)
 
     if "--profile" in argv:
         emit(profile_phase(

@@ -155,4 +155,8 @@ class KeyCodec:
         h = (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(
             lo, dtype=np.uint64
         )
-        return [self._rev.get(int(v), int(v)) for v in h.tolist()]
+        # under the lock encode inserts hold: the producer thread encodes
+        # the next batches while the step loop decodes fired rows
+        with self._lock:
+            rev = self._rev
+            return [rev.get(int(v), int(v)) for v in h.tolist()]

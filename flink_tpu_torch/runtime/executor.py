@@ -3,27 +3,60 @@ the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
 event-time window [-> allowed_lateness] -> sum | count | min | max | mean |
-reduce | aggregate | distinct_count | count_min -> sinks``:
+reduce | aggregate | distinct_count | count_min -> sinks``. Each cycle
+splits into the reference's two halves (``runtime/ingest.py``):
 
-  1. poll the source (columnar batches of ``execution.micro-batch-size``);
-  2. encode keys to 64-bit identities (``KeyCodec``), split (hi, lo);
-  3. convert event time to int32 ticks; the origin is fixed by the first
-     batch at ``floor(min_ts / size) * size``, as the reference does;
-  4. advance the watermark through ``WatermarkStrategy.on_batch``;
-  5. stage the batch into the next slot of the device ring;
-  6. when ``pipeline.ring-depth`` slots are staged (or the stream ends),
-     dispatch one resident drain over them;
-  7. read the drain's fires and emit them — the read of drain g happens
-     after the batches of drain g+1 are staged, so host polling overlaps
-     the device. When every sink is a device-reduce sink the drain reduces
-     its fires on the device and the host reads the [D, F] ReducedFires
-     once (``sink.invoke_reduced``). Otherwise the drain compacts them to
-     rows (CompactFires); the host reads the small [D, F] fields once, then
-     the ``[:count]`` row prefixes in one batched read, and hands each
-     slot's rows to ``invoke_columnar`` ({"key_id", "window_end_ms",
-     "value"}) when every sink is columnar, else ``invoke_batch`` with
-     ``WindowResult(key, window_end_ms, value)`` rows, keys decoded;
-  8. at end of stream, flush with the MAX watermark.
+  * **prep** (``prep_batch``): poll ``execution.micro-batch-size`` records
+    with the post-poll source offsets, encode keys to 64-bit identities
+    (``KeyCodec``, split (hi, lo)) and values, take the event times. With
+    ``pipeline.prefetch`` (auto: on) it runs on the producer thread of an
+    ``IngestPipeline`` ahead of the step loop, which also converts the
+    times to int32 ticks and copies each batch of one pane group to the
+    device (``pipeline.device-staging``); with checkpoints and a source
+    that cannot replay, ``auto`` polls inline and ``on`` raises;
+  * **apply** (the step loop): the watermark (``WatermarkStrategy.
+    on_batch``), the stage's setup on the first batch (the time origin at
+    ``floor(min_ts / size) * size``, as the reference fixes it), the
+    time-jump guard, then the dispatch the mode gives.
+
+The dispatch modes resolve as the reference resolves
+``pipeline.resident-loop`` (executor.py:1639-1697, 5520-5615):
+
+  * ``auto`` (and ``off``): the **split path** while
+    ``pipeline.steps-per-dispatch`` is 1 (above 1 raises: the megastep is
+    ROADMAP item 11). One update step a batch (``build_window_update_step``:
+    G1-G3, G5 or G8 in the hash layout, G7 with an overflow ring),
+    nothing read back; on CUDA the loop waits on the event of the step
+    ``pipeline.max-inflight-steps`` (4) back, never on the whole device.
+    When the watermark crosses a pane boundary the fire steps run
+    (``build_window_fire_reduced_step``, G4, for device-reduce sinks with
+    no spill stores, else ``build_window_fire_step``, G6) until one fills
+    fewer than F lanes. Every MON_EVERY-th step's (ring fill, activity,
+    key-group fill) is read OVF_LAG samples late: it settles the insert /
+    fast step tiering and drains a ring fuller than B / 8;
+  * ``on``: the **scan drain** — the producer publishes into the
+    ``DeviceBatchRing`` and the step loop groups up to
+    ``pipeline.ring-depth`` staged batches (taking every batch the queue
+    already holds) into one resident drain (``build_window_resident_drain``);
+  * ``while``: the **while-drain** (``build_window_while_drain``) over
+    groups of up to ``pipeline.while-drain.max-slots`` (0: twice the ring
+    depth, never below it), its bound re-reading the ring's write cursor
+    before every slot; on the CPU it is the scan drain unless
+    ``pipeline.while-drain.cpu-override: on``. ``on`` and ``while`` need
+    prefetch and staging, and raise the reference's error without.
+
+In the drain modes the first batch and catch-up spans (batches prepped
+before the plan, or spanning more panes than the ring holds) take the
+general path as 1-slot drains. A drain's fires are read once, before the
+next dispatch — when every sink is a device-reduce sink the fires are
+reduced on the device and the host reads the [D, F] ReducedFires
+(``sink.invoke_reduced``); otherwise the drain compacts them to rows
+(CompactFires); the host reads the small [D, F] fields once, then the
+``[:count]`` row prefixes in one batched read, and hands each slot's rows
+to ``invoke_columnar`` ({"key_id", "window_end_ms", "value"}) when every
+sink is columnar, else ``invoke_batch`` with ``WindowResult(key,
+window_end_ms, value)`` rows, keys decoded. At end of stream the job
+flushes with the MAX watermark.
 
 ``mean`` and ``aggregate`` carry a result projection (``result_fn``): the
 reference divides, or calls the AggregateFunction's ``get_result``, on the
@@ -33,8 +66,10 @@ sinks get rows (never the device-reduced aggregates).
 Allowed lateness L > 0 (``allowed_lateness``; the reference's, executor.py
 :1847-1868, 5432): the pane ring grows by L / slide panes, the spill tier
 is off (strict capacity: the host stores carry no freshness, so they
-cannot replay a re-fire), and the auto layout resolves to hash. Every
-batch drains alone and fires with the classic advance — F on-time lanes,
+cannot replay a re-fire), and the auto layout resolves to hash. On a
+drain every batch drains alone; on the split path every batch's update is
+followed by fire steps. Each fires with the classic advance — F on-time
+lanes,
 then up to F re-fires of windows a late record reached, each re-emitting
 only those keys with the window's corrected value — and the executor then
 fires eagerly at the batch's watermark until a step fills fewer than F
@@ -113,10 +148,14 @@ raises.
 Checkpoints and restarts (the reference's sync-full path, executor.py:
 2855-2960, 3327-3490, 6270-6360), for a single-stage window job:
 ``env.enable_checkpointing(n, dir)`` takes a checkpoint once n batches
-have been applied since the last, at a poll-cycle boundary — every staged
+have been applied since the last, at a poll-cycle boundary — every grouped
 batch drained and every fire read, the windows due at the current
-watermark fired, then the state, the spill stores and the source offsets
-written as the reference's logical entries (``runtime/checkpoint.py``).
+watermark fired, then the state, the spill stores and the offsets of the
+last APPLIED batch (``IngestPipeline.applied_offsets``: the producer may
+have polled past them) written as the reference's logical entries
+(``runtime/checkpoint.py``). A restore pauses the producer, drops the
+grouped and queued batches, clears the device ring (the epoch bump) and
+rewinds the source before the producer resumes.
 ``execute(restore_from=dir)`` resumes from the newest checkpoint there
 (the reference's own included), and ``restart-strategy`` restarts a
 failed job in-process from the newest one of its own directory.
@@ -172,6 +211,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -194,18 +234,22 @@ from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
 from flink_tpu_torch.runtime import cep_job, keyed_jobs
 from flink_tpu_torch.runtime import checkpoint as ckpt
+from flink_tpu_torch.runtime import sources as sources_mod
 from flink_tpu_torch.runtime import tiers as tiers_mod
-from flink_tpu_torch.runtime.ingest import DeviceBatchRing
+from flink_tpu_torch.runtime import ingest as ingest_mod
 from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
     build_kg_occupancy_step,
     build_window_chained_drain,
+    build_window_fire_reduced_step,
+    build_window_fire_step,
     build_window_resident_drain,
+    build_window_update_step,
+    build_window_while_drain,
     clear_overflow,
     compact_step,
-    fire_only,
     init_shard_state,
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
@@ -282,6 +326,10 @@ class JobMetrics:
     recovery_ms: Any = None
     # tiered state: host seconds spent in the tier swaps
     tier_swap_s: float = 0.0
+    # full device-ring publishes the producer staged outside the ring: a
+    # drain that cannot keep up, as backpressure (the reference's
+    # ring_publish_refusals gauge)
+    ring_publish_refusals: int = 0
 
     def record_checkpoint(self, cid: int, trigger_ms: float,
                           duration_ms: float, nbytes: int,
@@ -591,16 +639,88 @@ def _top_k(arr, k: int):
     return [{"group": int(g), "count": int(arr[g])} for g in idx if arr[g] > 0]
 
 
-def _chain_resident(cfg) -> bool:
-    """Whether a chained job has its resident drain, as the reference
-    resolves it for a stage graph (executor.py:5562-5600): not with
-    ``pipeline.resident-loop: off``, nor without the staging substrate
-    (``pipeline.prefetch`` or ``pipeline.device-staging`` off). The
-    port's substrate is its device ring; its single-stage jobs always
-    drain."""
-    return (cfg.get_str("pipeline.resident-loop", "auto") != "off"
-            and cfg.get_str("pipeline.prefetch", "auto") != "off"
-            and cfg.get_str("pipeline.device-staging", "auto") != "off")
+@dataclasses.dataclass
+class _Dispatch:
+    """How a window job feeds and dispatches its stage, resolved as the
+    reference resolves it (executor.py:1639-1697, 5520-5615)."""
+
+    prefetch: bool       # the prep half runs on the producer thread
+    staging: bool        # the producer copies batches to the device
+    resident: bool       # a ring drain (scan, while or chained) per group
+    while_drain: bool    # the while-drain (resident-loop: while)
+    max_slots: int       # pipeline.while-drain.max-slots, resolved
+
+
+def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
+                      device) -> _Dispatch:
+    """``pipeline.prefetch``, ``pipeline.device-staging`` and
+    ``pipeline.resident-loop`` as the reference resolves them, with its
+    errors. ``auto`` is the split path while ``steps-per-dispatch`` is 1
+    (the reference lights the drain only for its fused-fire megasteps);
+    ``on`` is the scan drain, ``while`` the while-drain on CUDA (on the
+    CPU the scan drain unless ``pipeline.while-drain.cpu-override: on``,
+    the reference's platform gate), ``off`` the split path. A chained job
+    has no single steps: ``auto`` takes its drain whenever staging
+    exists, and its setup refuses a job without one."""
+    res_cfg = cfg.get_str("pipeline.resident-loop", "auto")
+    ff_cfg = cfg.get_str("pipeline.fused-fire", "auto")
+    if ff_cfg not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pipeline.fused-fire must be auto|on|off, got {ff_cfg!r}")
+    k_fuse = max(1, cfg.get_int("pipeline.steps-per-dispatch", 1))
+    use_fused_fire = k_fuse > 1 and ff_cfg != "off"
+    ring_depth = max(2, cfg.get_int("pipeline.ring-depth", 16))
+    max_slots = cfg.get_int("pipeline.while-drain.max-slots", 0)
+    if max_slots <= 0:
+        max_slots = 2 * ring_depth
+    max_slots = max(ring_depth, max_slots)
+    cpu_override = cfg.get_str("pipeline.while-drain.cpu-override",
+                               "off") == "on"
+    prefetch_cfg = cfg.get_str("pipeline.prefetch", "auto")
+    if prefetch_cfg not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pipeline.prefetch must be auto|on|off, got {prefetch_cfg!r}")
+    use_prefetch = prefetch_cfg != "off"
+    # the applied-offset cut needs a source that can rewind to it: with
+    # checkpoints, a non-replayable source polls inline (auto) or raises
+    if can_snapshot and not sources_mod.replayable(source):
+        if prefetch_cfg == "on":
+            raise ValueError(
+                "pipeline.prefetch=on with checkpointing/savepoints "
+                "requires a replayable source (snapshot_offsets "
+                "returning a position): this source cannot rewind to "
+                "the applied-offset cut, so batches prefetched past a "
+                "snapshot would be lost on restore")
+        use_prefetch = False
+    staging_cfg = cfg.get_str("pipeline.device-staging", "auto")
+    if staging_cfg not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pipeline.device-staging must be auto|on|off, "
+            f"got {staging_cfg!r}")
+    if staging_cfg == "on" and not use_prefetch:
+        raise ValueError(
+            "pipeline.device-staging=on requires pipeline.prefetch: "
+            "the staging transfer-completion wait runs on the ingest "
+            "thread and would otherwise block the step loop")
+    use_staging = use_prefetch and staging_cfg != "off"
+    use_while = False
+    if res_cfg in ("on", "while"):
+        if not use_staging:
+            raise ValueError(
+                f"pipeline.resident-loop={res_cfg} requires pipeline."
+                "prefetch + pipeline.device-staging: the drain "
+                "consumes device-staged batches published into the "
+                "HBM ring by the ingest thread")
+        use_resident = True
+        use_while = res_cfg == "while" and not chained and (
+            torch.device(device).type != "cpu" or cpu_override)
+    else:
+        use_resident = (res_cfg == "auto" and use_fused_fire and use_staging
+                        and torch.device(device).type != "cpu")
+        if chained and res_cfg == "auto":
+            use_resident = use_staging
+    return _Dispatch(use_prefetch, use_staging, use_resident, use_while,
+                     max_slots)
 
 
 def _check_config(cfg, red: wk.ReduceSpec) -> None:
@@ -626,8 +746,9 @@ def _check_config(cfg, red: wk.ReduceSpec) -> None:
         raise ValueError(
             f"state.backend.layout must be auto|hash|direct, got {layout!r}")
     if cfg.get_int("pipeline.steps-per-dispatch", 1) > 1:
-        raise _unsupported("megastep dispatch fusion",
-                           "ROADMAP queue 2, K13")
+        raise _unsupported("pipeline.steps-per-dispatch > 1 (K13's "
+                           "megastep dispatch fusion)",
+                           "ROADMAP queue 1, item 11")
 
 
 class _WindowJob(StageJob):
@@ -724,13 +845,37 @@ class _WindowJob(StageJob):
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
         self.spec: Optional[WindowStageSpec] = None
-        self.ring: Optional[DeviceBatchRing] = None
-        self.drain = None
-        self.fast_drain = None       # the lookup-only variant (hash + ring)
-        self.staged = 0              # slots staged for the next drain
-        self.staged_wm: List[int] = []
+        # the dispatch modes (the reference's resolution): the split
+        # path's update and fire steps, or a ring drain per group
+        self.mode = _resolve_dispatch(
+            cfg, self.graph is not None, self.storage is not None,
+            pipe.source, self.device)
+        self.drain = None            # the ring drain (resident modes)
+        self.fast_drain = None       # its lookup-only variant (hash + ring)
+        self.update_step = None      # the split steps (single-stage jobs)
+        self.fast_step = None
+        self.fire_step = None
+        self.fire_reduced_step = None
+        self.fire_rows = None        # the fire steps' [Ft, C] row buffers
+        self.empty_slot = None       # a chained flush round's batch
+        # the drain group: up to a drain's slots of staged batches
+        self.group = ingest_mod.FusedBatchAccumulator(
+            self.mode.max_slots if self.mode.while_drain else self.depth)
+        self.pending_batch = None    # a greedy fill's leftover batch
         self.pending = None          # (fires, count, last wm, mon) unread
         self.applied_max_pane: Optional[int] = None
+        self.host_fired_pane = -(2**62)   # newest pane the split path fired
+        # the split path's pacing: events of the last max-inflight-steps
+        # dispatches (CUDA), and the lagged monitoring samples
+        self.max_inflight = cfg.get_int("pipeline.max-inflight-steps", 4)
+        self.inflight: deque = deque()
+        self.mon_watch: deque = deque()
+        # the prep half: inline, or on the producer thread
+        self.ingest = ingest_mod.IngestPipeline(
+            self.prep_batch, prefetch=self.mode.prefetch,
+            initial_offsets=sources_mod.snapshot_offsets(pipe.source),
+            depth=cfg.get_int("pipeline.prefetch-depth", 2),
+            ring_depth=cfg.get_int("pipeline.staging-ring-depth", 2))
         # the spill tier's host half: pane -> SpillStore of key -> value
         self.stores: Dict[int, SpillStore] = {}
         self.host_ufunc, self.host_neutral = HOST_REDUCE.get(
@@ -760,7 +905,6 @@ class _WindowJob(StageJob):
         self.kg_last_refresh = 0.0
         self.mon_skip = 0            # batches since the last fill sample
         self.ds_skip = 0             # drains since the last payload read
-        self.pub_seq = 0             # batches staged so far
         self.wm_dev = WM_SENTINEL    # the device watermark, in ticks
         env._kg_report = self.kg_report
         env._pipeline_report = self.pipeline_report
@@ -812,25 +956,61 @@ class _WindowJob(StageJob):
             win=win, red=self.red, capacity_per_shard=capacity,
             layout=layout, probe_len=cfg.get_int("state.probe-len", 16))
         self.state = init_shard_state(self.spec, self.maxp, self.device)
-        self.ring = DeviceBatchRing(
-            self.depth, self.B, self.device, value_dtype=self.red.dtype,
-            value_shape=(() if self.red.kind == "sketch"
-                         else self.red.value_shape))
         tel = dict(kg_fill=self.kg_stats, drain_stats=self.drain_stats)
+        mode = self.mode
+        build_fast = bool(ovf) and layout == "hash"
         if self.graph is not None:
             self.setup_chain(ovf, tel)
         else:
-            self.drain = build_window_resident_drain(
-                self.spec, self.depth, self.maxp, reduced=self.reduced,
-                **tel)
-            if ovf and layout == "hash":
-                # the reference's build_fast (executor.py:2053-2072)
-                self.fast_drain = build_window_resident_drain(
+            # the split steps (executor.py:1995-2080, 2437-2455): the fire
+            # steps serve every single-stage mode's watermark-only fires
+            if not mode.resident:
+                self.update_step = build_window_update_step(
+                    self.spec, self.maxp, kg_fill=self.kg_stats)
+                if build_fast:
+                    # the reference's build_fast (executor.py:2053-2072)
+                    self.fast_step = build_window_update_step(
+                        self.spec, self.maxp, insert=False,
+                        kg_fill=self.kg_stats)
+            self.fire_step = build_window_fire_step(
+                self.spec, out=self.fire_row_views)
+            if self.sink_device_reduce:
+                self.fire_reduced_step = build_window_fire_reduced_step(
+                    self.spec)
+        if mode.resident and self.graph is None:
+            if mode.while_drain:
+                self.drain = build_window_while_drain(
+                    self.spec, mode.max_slots, self.maxp,
+                    reduced=self.reduced, **tel)
+                fast_of = build_window_while_drain
+                depth = mode.max_slots
+            else:
+                self.drain = build_window_resident_drain(
                     self.spec, self.depth, self.maxp, reduced=self.reduced,
+                    **tel)
+                fast_of = build_window_resident_drain
+                depth = self.depth
+            if build_fast:
+                self.fast_drain = fast_of(
+                    self.spec, depth, self.maxp, reduced=self.reduced,
                     insert=False, arena=self.drain.arena, **tel)
         if self.tier_budget > 0:
             self.setup_tiers()
-        if self.drain_stats:
+        # the prep side's plan (executor.py:2456-2490): re-installed by a
+        # restore that moves the origin, with the producer paused
+        sketch = self.red.kind == "sketch"
+        win = self.spec.win
+        self.ingest.set_plan(ingest_mod.IngestPlan(
+            td=self.td, slide_ticks=win.slide_ticks,
+            span_limit=win.ring - max(2, win.panes_per_window + 1),
+            B=self.B, staging=mode.staging, device=self.device,
+            value_shape=() if sketch else tuple(self.red.value_shape),
+            value_dtype=np.uint32 if sketch else np.float32,
+            ring_depth=self.depth if mode.resident else 0))
+        self.telem = None
+        dr = self.ingest.device_ring
+        if self.drain_stats and mode.resident and dr is not None:
+            dr.stats_enabled = True
             # the flight recorder's host half (executor.py:2325-2350): one
             # ring lane, since the port runs one shard
             self.telem = DrainTelemetry(
@@ -879,7 +1059,7 @@ class _WindowJob(StageJob):
         self.chain_specs = graph.plan_specs(self.spec,
                                             drain_depth=self.depth)
         graph.check_runtime(
-            use_resident=_chain_resident(cfg), overflow_lanes=ovf,
+            use_resident=self.mode.resident, overflow_lanes=ovf,
             drain_stats=self.drain_stats,
             reduced_fires=self.sink_device_reduce,
             max_stages=cfg.get(CoreOptions.PIPELINE_STAGES_MAX_STAGES))
@@ -895,26 +1075,89 @@ class _WindowJob(StageJob):
             (self.spec,) + tuple(self.chain_specs), self.depth, self.maxp,
             exchange_lanes=cfg.get(
                 CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES), **tel)
+        # a flush round's batch: B lanes, none valid (read only)
+        v_dtype, v_shape = self.value_layout()
+        self.empty_slot = ingest_mod.stage_fresh(
+            self.device, self.B, np.zeros(0, np.uint32),
+            np.zeros(0, np.uint32), np.zeros(0, np.int32),
+            np.zeros((0,) + v_shape, v_dtype), 0, v_dtype, v_shape)
 
-    def wm_ticks(self, wm_ms: int) -> int:
+    def wm_ticks(self, wm_ms: Optional[int]) -> int:
+        """A watermark in ticks; None (a chunk that carries none) is the
+        MIN sentinel, which advances nothing."""
+        if wm_ms is None:
+            return WM_SENTINEL
         return min(int(self.td.to_ticks(wm_ms)), 2**31 - 4)
 
-    # -- the poll loop (StageJob.run) --------------------------------------
+    def wm_pane_of(self, wm_ms: int) -> int:
+        """The newest pane a watermark closes (executor.py:5434-5437)."""
+        slide = self.spec.win.slide_ticks
+        b = max(self.wm_ticks(wm_ms), -(2**31) + 1 + slide)
+        return (b + 1 - slide) // slide
+
+    def to_device_i32(self, values) -> torch.Tensor:
+        """A small int32 tensor (a watermark, a drain's watermarks) on the
+        device without a host sync: pinned, copied on the current stream
+        (the caching host allocator keeps the block until the copy ran)."""
+        t = torch.tensor(values, dtype=torch.int32)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def fire_row_views(self):
+        """The fire steps' [Ft, C] row buffers: the drain arena's slot 0
+        when a compact drain made one (its rows were read by then), else
+        the job's own, made at first use."""
+        rows = self.drain.arena_rows(0) if self.drain is not None else None
+        if rows is not None:
+            return rows
+        if self.fire_rows is None:
+            self.fire_rows = wk.fire_row_buffers(
+                self.spec.win.fire_lanes, self.spec.capacity_per_shard,
+                self.device, red=self.red)
+        return self.fire_rows
+
+    # -- the prep half (the producer thread, or inline) --------------------
+    def prep_batch(self) -> ingest_mod.PreppedBatch:
+        """The front half of a cycle (the reference's prep_batch,
+        executor.py:5439-5520): poll with the post-poll offsets, encode
+        keys and values, take the event times. Pure host numpy that reads
+        nothing the step loop mutates, so the producer runs it ahead."""
+        polled, end, offsets = sources_mod.poll_with_offsets(
+            self.pipe.source, self.B)
+        cols, ts_ms = polled
+        hi = lo = values = None
+        n = 0
+        if cols and len(next(iter(cols.values()))):
+            _keys, hi, lo, values = self.encode(cols, count=False)
+            n = len(hi)
+            ts_ms = self.event_ts(cols, ts_ms)
+        return ingest_mod.PreppedBatch(
+            end=end, n=n, offsets=offsets,
+            hi=hi, lo=lo, values=values, ts_ms=ts_ms if n else None)
+
+    # -- the step loop -----------------------------------------------------
     def run(self) -> None:
         """Restore from ``restore_from`` when given, then the poll loop and
         the end-of-stream flush inside the restart strategy's protection
-        (executor.py:6336-6373): a failure anywhere in them, the final
-        flush included, restores the newest checkpoint of the job's own
-        directory and replays from its cut."""
-        if self.restore_from is not None:
-            self.restore(self.restore_from)
-        restart = ckpt.restart_strategy(self.env.config)
-        while True:
-            try:
-                super().run()
-                return
-            except Exception as exc:
-                self.recover(exc, restart)
+        (executor.py:6336-6373): a failure anywhere in them — the producer
+        thread's included — restores the newest checkpoint of the job's
+        own directory and replays from its cut."""
+        try:
+            if self.restore_from is not None:
+                self.restore(self.restore_from)
+            restart = ckpt.restart_strategy(self.env.config)
+            while True:
+                try:
+                    end = False
+                    while not end:
+                        end = self.poll_cycle()
+                    self.end_of_stream()
+                    return
+                except Exception as exc:
+                    self.recover(exc, restart)
+        finally:
+            self.ingest.close()
 
     def recover(self, exc: Exception, restart) -> None:
         """One failure -> a restored, runnable job, or ``exc`` raised: with
@@ -933,6 +1176,52 @@ class _WindowJob(StageJob):
             except Exception as e2:
                 exc = e2
         self.t_failed = t_fail
+
+    def poll_cycle(self) -> bool:
+        """One cycle (the reference's poll_cycle, executor.py:5884-6048):
+        the tier cut, the next prepped batch, its apply, the applied cut
+        and the checkpoint trigger. Returns whether the stream ended."""
+        self.cycle_start()
+        if self.pending_batch is not None:
+            pb, self.pending_batch = self.pending_batch, None
+        else:
+            pb = self.ingest.next()
+        self.metrics.records_in += pb.n
+        deferred = False
+        if pb.n:
+            if self.td is None:
+                self.setup((int(np.min(pb.ts_ms)) // self.size_ms)
+                           * self.size_ms, self.resolve_layout(pb.hi, pb.lo))
+            if pb.route is not None:
+                deferred = self.apply_planned(pb)
+                # a drain group takes every batch the queue already holds
+                while self.drain is not None and deferred:
+                    nxt = self.ingest.try_next()
+                    if nxt is None:
+                        break
+                    if nxt.n and nxt.route is not None and not nxt.end:
+                        self.metrics.records_in += nxt.n
+                        if not self.apply_planned(nxt):
+                            self.ingest.mark_applied(nxt)
+                            break
+                    else:
+                        self.pending_batch = nxt
+                        break
+            else:
+                self.apply_general(pb)
+        elif self.td is not None:
+            # an idle poll: dispatch what the group holds (its batches
+            # precede this poll's offsets) and read the pending fires
+            self.dispatch()
+            self.consume()
+        if pb.end:
+            self.dispatch()
+            self.consume()
+            deferred = False
+        if not deferred:
+            self.ingest.mark_applied(pb)
+        self.cycle_end()
+        return pb.end
 
     def cycle_start(self) -> None:
         # tiered state's maintenance at the cycle's cut, between drains
@@ -955,20 +1244,74 @@ class _WindowJob(StageJob):
         self.fire_until_done(int(self.td.to_ms(MAX_TS - 2)),
                              time.perf_counter())
 
-    def apply(self, cols, ts_ms) -> None:
-        _keys, hi, lo, values = self.encode(cols)
-        n = len(hi)
-        ts_ms = self.event_ts(cols, ts_ms)
-        if self.td is None:
-            self.setup((int(ts_ms.min()) // self.size_ms) * self.size_ms,
-                       self.resolve_layout(hi, lo))
+    def time_jump(self, g_wm: int, t_min: int, t_max: int) -> None:
+        """A jump of 2+ panes past everything applied would rotate the ring
+        over unfired panes: fire their windows first, at most up to the
+        group's first pane (executor.py:5828-5840, 6134-6175)."""
+        slide = self.spec.win.slide_ticks
+        g_max_pane = t_max // slide
+        if self.applied_max_pane is not None \
+                and g_max_pane - self.applied_max_pane >= 2:
+            self.dispatch()
+            self.fire_until_done(
+                min(g_wm, int(self.td.to_ms((t_min // slide) * slide)) - 1),
+                time.perf_counter())
+        self.applied_max_pane = (
+            g_max_pane if self.applied_max_pane is None
+            else max(self.applied_max_pane, g_max_pane))
+
+    def apply_planned(self, pb) -> bool:
+        """Apply one planned batch of one pane group (the reference's
+        _apply_planned, executor.py:5808-5882): the watermark, the time
+        jump guard, then into the drain group (resident modes: it fires
+        in the drain) or one update step and, when the watermark crossed
+        a pane, the fire steps (the split path). Returns True while the
+        batch waits in the group (its offsets are not applied yet)."""
+        wm_ms = self.wm_strategy.on_batch(pb.ts_max)
+        self.time_jump(wm_ms, pb.ticks_min, pb.ticks_max)
+        staged = pb.staged
+        if staged is None:
+            # staging off: the step loop copies the batch
+            staged = ingest_mod.stage_fresh(
+                self.device, self.B, pb.hi, pb.lo, pb.ticks, pb.values,
+                pb.n, *self.value_layout())
+        if self.drain is not None:
+            self.group.push(staged, wm_ms, pb)
+            self.metrics.steps += 1
+            # with lateness every batch fires eagerly (the next batch's
+            # update must see the re-fires of this one), so it drains alone
+            if self.group.full() or self.lateness_ms:
+                self.dispatch()
+                return False
+            return True
+        self.run_update(staged, wm_ms, pb)
+        wp = self.wm_pane_of(wm_ms)
+        if self.lateness_ms or wp > self.host_fired_pane:
+            self.fire_until_done(wm_ms, time.perf_counter())
+            self.host_fired_pane = wp
+        return False
+
+    def value_layout(self):
+        """The staged values column: (numpy dtype, per-lane shape)."""
+        if self.red.kind == "sketch":
+            return np.uint32, ()
+        return np.float32, tuple(self.red.value_shape)
+
+    def apply_general(self, pb) -> None:
+        """The general path (the reference's _apply_general, executor.py:
+        6050-6204): an unplanned batch — the first, one prepped before the
+        plan, a catch-up span — after what the group holds. A batch that
+        spans more panes than the ring holds is cut into pane groups that
+        fire between them; each chunk of B lanes is one update step (a
+        1-slot drain in a drain job, where the reference takes its single
+        step), the watermark riding the last."""
+        self.dispatch()
+        hi, lo, values, ts_ms = pb.hi, pb.lo, pb.values, pb.ts_ms
+        n = pb.n
         ticks = self.td.to_ticks(ts_ms)
         wm_ms = self.wm_strategy.on_batch(int(ts_ms.max()))
         win = self.spec.win
-        slide = win.slide_ticks
-        panes = ticks // np.int32(slide)
-        # a batch spanning more panes than the ring holds is cut into pane
-        # groups that fire between them (the reference's catch-up slicing)
+        panes = ticks // np.int32(win.slide_ticks)
         span_limit = win.ring - max(2, win.panes_per_window + 1)
         if int(panes.max()) - int(panes.min()) >= span_limit:
             order = np.argsort(panes, kind="stable")
@@ -981,7 +1324,9 @@ class _WindowJob(StageJob):
                 i = j
         else:
             groups = [None]
+        catch_up = groups[0] is not None
         ooo = self.wm_strategy.out_of_orderness_ms
+        v_layout = self.value_layout()
         for sel in groups:
             if sel is None:
                 g = (hi, lo, ticks, values)
@@ -992,82 +1337,174 @@ class _WindowJob(StageJob):
                 # be late against their own poll's final watermark
                 g_wm = min(int(self.td.to_ms(int(g[2].max()))) - ooo - 1,
                            wm_ms)
-            # a jump of 2+ panes past everything applied would rotate the
-            # ring over unfired panes: fire their windows first
-            g_max_pane = int(g[2].max()) // slide
-            if self.applied_max_pane is not None \
-                    and g_max_pane - self.applied_max_pane >= 2:
-                g_min_pane = int(g[2].min()) // slide
-                self.dispatch()
-                self.fire_until_done(
-                    min(g_wm, int(self.td.to_ms(g_min_pane * slide)) - 1),
-                    time.perf_counter())
-            self.applied_max_pane = (
-                g_max_pane if self.applied_max_pane is None
-                else max(self.applied_max_pane, g_max_pane))
-            self.stage(*g, g_wm)
-            if sel is not None:
-                self.dispatch()
+            self.time_jump(g_wm, int(g[2].min()), int(g[2].max()))
+            m = len(g[0])
+            for off in range(0, m, self.B):
+                end = min(off + self.B, m)
+                staged = ingest_mod.stage_fresh(
+                    self.device, self.B, *(a[off:end] for a in g),
+                    end - off, *v_layout)
+                wm_chunk = g_wm if end == m else None
+                if self.drain is not None:
+                    # a drain job's chunk is a 1-slot drain: a stage chain
+                    # has no single step, and the flight recorder sees
+                    # every batch
+                    self.group.push(staged, wm_chunk, None)
+                    self.metrics.steps += 1
+                    self.dispatch()
+                else:
+                    self.run_update(staged, wm_chunk, None)
+            if catch_up:
                 self.fire_until_done(g_wm, time.perf_counter())
+        wp = self.wm_pane_of(wm_ms)
+        if self.lateness_ms or wp > self.host_fired_pane:
+            self.fire_until_done(wm_ms, time.perf_counter())
+            self.host_fired_pane = wp
 
-    def stage(self, hi, lo, ticks, values, wm_ms: int) -> None:
-        wm = self.wm_ticks(wm_ms)
-        self.ring.stage(self.staged, hi, lo, ticks, values, wm)
-        self.staged += 1
-        self.staged_wm.append(wm_ms)
+    def note_dispatch(self, t_disp: float) -> None:
+        """The first dispatch after a restore ends its recovery."""
+        if self.t_failed is not None:
+            if self.metrics.recovery_ms is None:
+                self.metrics.recovery_ms = []
+            self.metrics.recovery_ms.append((t_disp - self.t_failed) * 1e3)
+            self.t_failed = None
+
+    # -- the split path ----------------------------------------------------
+    def run_update(self, staged, wm_ms: Optional[int], pb) -> None:
+        """Dispatch one update step (the reference's run_update,
+        executor.py:3981-4091): nothing is read back; on CUDA the loop
+        waits on the event of the step ``pipeline.max-inflight-steps``
+        back, never on the whole device. Every MON_EVERY-th step's
+        (fill, activity, key-group fill) is kept for a lagged read."""
+        # a drain's pending fires (and the fires they call for) precede
+        # this update, as they precede the next drain's
+        self.consume()
+        hi, lo, ts, values, valid = (ingest_mod.adopt(pb) if pb is not None
+                                     and pb.staged is not None else staged)
+        wm = self.to_device_i32(self.wm_ticks(wm_ms))
+        fast = self.step_mode == "fast" and self.fast_step is not None
+        step = self.fast_step if fast else self.update_step
+        self.state, mon = step(self.state, hi, lo, ts, values, valid, wm,
+                               kg_res=self.kg_res)
+        self.note_dispatch(time.perf_counter())
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self.inflight.append(ev)
+            if len(self.inflight) > self.max_inflight:
+                self.inflight.popleft().synchronize()
+        if wm_ms is not None:
+            self.wm_dev = max(self.wm_dev, self.wm_ticks(wm_ms))
         self.metrics.steps += 1
-        if self.telem is not None:
-            # the publish stamp (the reference's ring publish_samples):
-            # (shard, seq, ring fill, max event tick, wall time)
-            self.telem.ingest_publish([(
-                0, self.pub_seq, self.staged,
-                int(ticks.max()) if len(ticks) else None,
-                time.perf_counter())])
-        self.pub_seq += 1
-        # with lateness every batch fires eagerly (the next batch's update
-        # must see the re-fires of this one done), so it drains alone
-        if self.staged == self.depth or self.lateness_ms:
-            self.dispatch()
+        if fast:
+            self.metrics.steps_fast += 1
+        if self.spec.win.overflow or self.kg_stats:
+            self.mon_skip += 1
+            if self.mon_skip >= MON_EVERY:
+                self.mon_skip = 0
+                self.mon_watch.append(mon + (1,))
+                self.check_overflow_pressure()
+
+    def check_overflow_pressure(self) -> None:
+        """Read the monitoring sample OVF_LAG samples back (the reference's
+        check_overflow_pressure, executor.py:4674-4720): its key-group
+        fill into the telemetry, its activity into the step tiering, and
+        a ring fuller than B / 8 drained into the spill stores now."""
+        if len(self.mon_watch) <= OVF_LAG:
+            return
+        ovf_n, act, kgf, n_batches = self.mon_watch.popleft()
+        small = torch.cat([ovf_n.reshape(1), act.reshape(1),
+                           kgf.reshape(-1)]).cpu().numpy().astype(np.int64)
+        if kgf.numel():
+            self.absorb_kg(small[2:], n_batches)
+        if self.fast_step is not None:
+            self.tier(int(small[1]))
+        if int(small[0]) > max(1, self.B // 8):
+            self.drain_overflow()
+
+    def drain_overflow(self) -> None:
+        """The ring into the spill stores, then a hash table's compaction
+        (the reference's drain_overflow); the queued fill samples go
+        stale, their key-group counts are kept."""
+        n = int(self.state.ovf_n)
+        if not n:
+            return
+        self.fold_ring(*self.read_ring(n))
+        while self.mon_watch:
+            _, _, kgf, n_batches = self.mon_watch.popleft()
+            if kgf.numel():
+                self.absorb_kg(kgf.cpu().numpy().astype(np.int64),
+                               n_batches)
+        self.after_ring_drain()
 
     # -- drains and fires --------------------------------------------------
     def dispatch(self) -> None:
-        """Queue one resident drain over the staged slots, on the fast step
-        when the tiering chose it. The previous drain's fires are read
-        first: they may call for watermark-only fires that must precede
-        this drain's updates, and they settle the tier. A chained job's
-        flush they call for runs once this drain is queued."""
-        if not self.staged:
+        """Queue one ring drain over the drain group (the reference's
+        run_update_resident, executor.py:4223-4443), on the fast step
+        when the tiering chose it, then release the ring slots it read
+        and mark its last batch applied. The previous drain's fires are
+        read first: they may call for watermark-only fires that must
+        precede this drain's updates, and they settle the tier. A chained
+        job's flush they call for runs once this drain is queued."""
+        if not len(self.group):
             return
         self.consume()
-        count = self.staged
-        slots = self.ring.slots(count)
-        fast = self.step_mode == "fast"
+        items = self.group.drain()
+        count = len(items)
+        slots = [ingest_mod.adopt(pb) if pb is not None
+                 and pb.staged is not None else args
+                 for args, _wm, pb in items]
+        fast = self.step_mode == "fast" and self.fast_drain is not None
         drain = self.fast_drain if fast else self.drain
+        depth = drain.ring_depth if self.graph is None else self.depth
+        wms = [self.wm_ticks(w) for _a, w, _pb in items]
+        wmv = self.to_device_i32(wms + [WM_SENTINEL] * (depth - count))
         # the mid-drain crash seam of the exactly-once tests
         faults.inject("step.drain", step=self.metrics.steps, slots=count)
+        ringed = [pb for _a, _w, pb in items
+                  if pb is not None and pb.ring_seq is not None]
+        ring = ringed[0].ring if ringed else None
         if self.graph is not None:
             # one dispatch advances every stage; the sinks take the final
             # stage's fires, and mon the fill after the drain and, for the
             # flush decision, each stage's last advance's fire lanes
             out = drain((self.state,) + tuple(self.chain_states), slots,
-                        self.ring.wmv, count)
+                        wmv, count)
             states, mon, fires = out[:3]
             self.state, self.chain_states = states[0], list(states[1:])
             mon = (mon[0][-1:], mon[1], mon[2], drain.stage_lanes)
+        elif self.mode.while_drain:
+            # the loop bound re-reads the ring's write cursor; base makes
+            # cursor - base this group's fill at dispatch (executor.py:
+            # 4322-4362), so the drain retires exactly the staged slots
+            if ring is not None:
+                cursor = ring.write_cursor
+                base = ring.write_cursor() - count
+            else:
+                cursor, base = count, 0
+            out = drain(self.state, slots, wmv, cursor, base, count,
+                        self.kg_res)
+            self.state, mon, fires = out[:3]
+            out = out[:3] + out[4:]          # the recorder, past consumed
         else:
-            out = drain(self.state, slots, self.ring.wmv, count, self.kg_res)
+            out = drain(self.state, slots, wmv, count, self.kg_res)
             self.state, mon, fires = out[:3]
         t_disp = time.perf_counter()
-        if self.t_failed is not None:
-            # the first drain after a restore: the recovery is over
-            if self.metrics.recovery_ms is None:
-                self.metrics.recovery_ms = []
-            self.metrics.recovery_ms.append((t_disp - self.t_failed) * 1e3)
-            self.t_failed = None
-        last_wm = self.staged_wm[-1]
-        self.ring.release(count)
-        self.wm_dev = max([self.wm_dev]
-                          + [self.wm_ticks(w) for w in self.staged_wm])
+        self.note_dispatch(t_disp)
+        last_wm = max((w for _a, w, _pb in items if w is not None),
+                      default=None)
+        released = None
+        if ring is not None:
+            ring.note_read([pb.ring_seq for pb in ringed])
+            released = max(pb.ring_seq for pb in ringed)
+            ring.release_through(released)
+        last_pb = items[-1][2]
+        if last_pb is not None:
+            self.ingest.mark_applied(last_pb)
+        self.wm_dev = max([self.wm_dev] + wms)
+        wp = None if last_wm is None else self.wm_pane_of(last_wm)
+        if wp is not None:
+            self.host_fired_pane = max(self.host_fired_pane, wp)
         # the sampled reads ride this drain's one read (executor.py:4400-
         # 4445): the key-group fill every MON_EVERY batches, the flight
         # recorder every drain-stats-every drains
@@ -1086,19 +1523,25 @@ class _WindowJob(StageJob):
         # the fires' latency origin: the dispatch, or within a chained
         # flush the watermark crossing that called for it
         t_lat = t_disp if self.flush_t is None else self.flush_t
-        self.pending = (fires, count, last_wm, mon, t_lat, ds, kg_batches)
-        self.staged = 0
-        self.staged_wm = []
+        self.pending = (fires, count,
+                        last_wm if last_wm is not None else self.wm_dev_ms(),
+                        mon, t_lat, ds, kg_batches)
         self.metrics.resident_drains += 1
         if fast:
             self.metrics.steps_fast += count
         if self.telem is not None:
-            # every slot was staged for this drain: the ring is empty after
-            self.telem.on_drain([count], [0], [self.pub_seq - 1], t_disp)
+            if ring is not None:
+                self.telem.ingest_publish(ring.publish_samples())
+            fills = ring.occupancy_shards() if ring is not None else [0]
+            self.telem.on_drain([count], fills, [released], t_disp)
         if self.flush_owed is not None:
             wm, t_cross = self.flush_owed
             self.flush_owed = None
-            self.drain_chained(max(wm, last_wm), t_cross)
+            self.drain_chained(max(wm, self.pending[2]), t_cross)
+
+    def wm_dev_ms(self) -> int:
+        """The device watermark in ms (a drain whose chunks carried none)."""
+        return int(self.td.to_ms(self.wm_dev))
 
     def consume(self) -> None:
         """Read the last drain's fires, ring fills and activity (the one
@@ -1120,9 +1563,9 @@ class _WindowJob(StageJob):
         # with lateness the reference fires eagerly after every drain
         if self.graph is not None:
             if self.chain_full and not self.flushing:
-                if self.staged:
-                    # called by dispatch before it queues the staged
-                    # batches: the flush's rounds would overwrite them
+                if len(self.group):
+                    # called by dispatch before it queues the grouped
+                    # batches: the flush must follow their drain
                     self.flush_owed = (last_wm, time.perf_counter())
                 else:
                     self.drain_chained(last_wm, time.perf_counter())
@@ -1137,11 +1580,13 @@ class _WindowJob(StageJob):
 
     def fire_until_done(self, wm_ms: int, t_cross: Optional[float] = None
                         ) -> None:
-        """Watermark-only advances at ``wm_ms`` until an advance fills fewer
-        than F lanes of either kind (the reference's drain_fires).
-        ``t_cross``: when the host saw the watermark crossing; each
-        advance's windows record the time from it to their emission as
-        their fire latency."""
+        """The split path's fire steps at ``wm_ms`` until one fills fewer
+        than F lanes of either kind (the reference's drain_fires,
+        executor.py:5320-5414): the reduced fire step (G4) for
+        device-reduce sinks with no spill stores, else the compact one
+        (G6). ``t_cross``: when the host saw the watermark crossing; each
+        step's windows record the time from it to their emission as their
+        fire latency."""
         if self.graph is not None:
             return self.drain_chained(wm_ms, t_cross)
         self.consume()
@@ -1153,16 +1598,15 @@ class _WindowJob(StageJob):
             self.wm_dev, wm_after, self.spec.win.slide_ticks)
         self.wm_dev = wm_after
         wm = torch.tensor(wm_t, dtype=torch.int32, device=self.device)
-        # compact rows go to the drain's arena slot 0: every drain's rows
-        # were read by the consume above. The ring was drained there too,
-        # so whether the stores exist is fixed for the loop
-        reduced = self.reduced or (self.sink_device_reduce
-                                   and not self.stores)
-        out = None if reduced else self.drain.arena_rows(0)
+        # the ring into the stores before any emission: whether the stores
+        # exist is then fixed for the loop
+        if self.spec.win.overflow:
+            self.drain_overflow()
+        reduced = self.fire_reduced_step is not None and not self.stores
+        step = self.fire_reduced_step if reduced else self.fire_step
         m = self.metrics
         while True:
-            self.state, fires = fire_only(self.state, self.spec, wm,
-                                          reduced=reduced, out=out)
+            self.state, fires = step(self.state, wm)
             m.fire_steps += 1
             fires_before = m.fires
             lanes = self.emit(fires)[0]
@@ -1182,9 +1626,10 @@ class _WindowJob(StageJob):
         down — one a stage and hop, plus ceil((ring + panes a window) / F)
         a stage, bound the backlog. Each round's fires are emitted before
         the next (the final stage's arena is reused), and record their
-        latency from ``t_cross`` when given. Nothing may be staged: the
-        rounds stage into ring slot 0 (``dispatch`` runs a flush its read
-        calls for once its own drain is queued)."""
+        latency from ``t_cross`` when given. Each round's batch is the
+        job's one all-invalid slot, never a ring slot; nothing may be
+        grouped (``dispatch`` runs a flush its read calls for once its own
+        drain is queued)."""
         self.flushing = True
         try:
             self.consume()
@@ -1194,15 +1639,9 @@ class _WindowJob(StageJob):
                 w = sp.win
                 rounds += -(-(w.ring + w.panes_per_window)
                             // w.fires_per_step)
-            v_shape = () if self.red.kind == "sketch" else self.red.value_shape
-            empty = (np.zeros(0, np.uint32), np.zeros(0, np.uint32),
-                     np.zeros(0, np.int32),
-                     np.zeros((0,) + v_shape, np.float32))
             self.flush_t = t_cross
             for _ in range(rounds):
-                self.ring.stage(0, *empty, self.wm_ticks(wm_ms))
-                self.staged = 1
-                self.staged_wm = [wm_ms]
+                self.group.push(self.empty_slot, wm_ms, None)
                 self.dispatch()
                 self.metrics.chain_flush_drains += 1
             self.consume()
@@ -1404,11 +1843,14 @@ class _WindowJob(StageJob):
             "state_layout": self.spec.layout,
             "sink_states": [s.snapshot_state() for s in self.pipe.sinks],
         }
-        offsets = self.pipe.source.snapshot_offsets()
+        # the cut is the last APPLIED batch's offsets: the producer may
+        # have polled past it (executor.py:2904-2960, ingest.py:1157-1166)
+        offsets = self.ingest.applied_offsets()
         entries, scalars = ckpt.extract_entries(staged, self.spec.win)
         entries = self.fold_spill_entries(entries, dumped)
         path = storage.write(cid, entries, scalars, offsets, aux)
-        self.pipe.source.notify_checkpoint_complete(cid, offsets)
+        with self.ingest.source_lock:
+            self.pipe.source.notify_checkpoint_complete(cid, offsets)
         for s in self.pipe.sinks:
             s.notify_checkpoint_complete(cid)
         nbytes = sum(os.path.getsize(os.path.join(path, f))
@@ -1444,9 +1886,12 @@ class _WindowJob(StageJob):
         cid = st.latest()
         if cid is None:
             raise FileNotFoundError(f"no checkpoint in {st.dir}")
+        self.ingest.pause()
         self.pending = None
-        self.staged = 0
-        self.staged_wm = []
+        self.pending_batch = None
+        self.group.clear()
+        self.inflight.clear()
+        self.mon_watch.clear()
         for store in self.stores.values():
             store.close()
         self.stores = {}
@@ -1477,7 +1922,8 @@ class _WindowJob(StageJob):
         self.wm_dev = int(scalars["watermark"])
         if self.tier_mgr is not None:
             self.setup_tiers()
-        self.pipe.source.restore_offsets(offsets)
+        with self.ingest.source_lock:
+            self.pipe.source.restore_offsets(offsets)
         sink_states = aux.get("sink_states")
         if sink_states:
             if len(sink_states) != len(self.pipe.sinks):
@@ -1493,6 +1939,11 @@ class _WindowJob(StageJob):
             self.codec.restore(st.read_keymap(count))
         self.n_keys_logged = self.codec.size() if st is self.storage else 0
         self.steps_at_ckpt = self.metrics.steps
+        # the restored cut fired every window due at its watermark
+        self.host_fired_pane = self.wm_pane_of(int(aux["wm_current"]))
+        # drop the batches prepped past the cut (the rewound source
+        # replays them) and clear the device ring: the epoch bump
+        self.ingest.resume(offsets)
 
     def dump_spill_stores(self):
         """The spill stores' contents as [(pane, keys uint64, values [n, W]
@@ -1879,4 +2330,7 @@ class _WindowJob(StageJob):
         for store in self.stores.values():
             store.close()
         self.stores = {}
+        dr = self.ingest.device_ring
+        if dr is not None:
+            self.metrics.ring_publish_refusals = sum(dr.refusals())
         super().finish()

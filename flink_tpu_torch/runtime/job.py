@@ -74,12 +74,13 @@ class StageJob:
     def end_of_stream(self) -> None:
         pass
 
-    def encode(self, cols):
+    def encode(self, cols, count: bool = True):
         """A batch's keys (as polled), their (hi, lo) identities and the
         extractor's values: float32 ``[n, *value_shape]``, or what the
         stage's ``value_prep`` makes of them on the host (a sketch's uint32
         item hashes, the reference's ``value_prep`` at executor.py:5472);
-        counts the records in."""
+        with ``count``, counts the records in (a window job counts them
+        on the step loop, where it takes the prepped batch)."""
         keys = np.asarray(self.pipe.key_by.key_selector(cols))
         hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
         prep = getattr(self.agg, "value_prep", None)
@@ -93,7 +94,8 @@ class StageJob:
             raise ValueError(
                 f"the extractor gave values of shape {values.shape} for "
                 f"{len(hi)} keys; the stage's reduce takes {want}")
-        self.metrics.records_in += len(hi)
+        if count:
+            self.metrics.records_in += len(hi)
         return keys, hi, lo, values
 
     def event_ts(self, cols, ts_ms) -> np.ndarray:

@@ -120,3 +120,28 @@ class GeneratorSource(ColumnarSource):
 
     def restore_offsets(self, state):
         self.offset = int(state)
+
+
+def snapshot_offsets(source):
+    """``source.snapshot_offsets()``, or None for a source object that
+    does not derive from ``Source`` and has none."""
+    snap = getattr(source, "snapshot_offsets", None)
+    return None if snap is None else snap()
+
+
+def poll_with_offsets(source, max_records: int):
+    """``source.poll_with_offsets(max_records)``; for a source object that
+    does not derive from ``Source``, its poll and no offsets."""
+    poll = getattr(source, "poll_with_offsets", None)
+    if poll is not None:
+        return poll(max_records)
+    polled, end = source.poll(max_records)
+    return polled, end, None
+
+
+def replayable(source) -> bool:
+    """Whether ``source`` can rewind to a checkpoint's cut: it snapshots
+    a position (the reference's test, ``snapshot_offsets() is None`` for
+    a source that cannot). The prefetch thread polls ahead of the cut
+    only from such a source."""
+    return snapshot_offsets(source) is not None

@@ -1,13 +1,15 @@
-"""Stage steps on one device — the window stage (its resident drain, and
-the chained drain of consecutive window stages), the session, count-window
-and rolling stages of flink_tpu/runtime/step.py.
+"""Stage steps on one device — the window stage (the split path's update
+and fire steps, its resident scan drain and while-drain, and the chained
+drain of consecutive window stages), the session, count-window and
+rolling stages of flink_tpu/runtime/step.py.
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
 function over a ``WindowShardState`` whose tensors it updates in place,
-and the resident drain is a Python slot loop that enqueues the kernels of
-``ops/cuda.py`` on one stream without reading anything back between slots.
-(Capturing the slot loop as a CUDA graph is later work: ROADMAP queue 1,
+and a drain is a Python slot loop that enqueues the kernels of
+``ops/cuda.py`` on one stream without reading anything back between slots
+(the while-drain's bound is a host cursor, read under its ring's lock).
+(Capturing the slot loops as CUDA graphs is later work: ROADMAP queue 1,
 item 5.)
 """
 
@@ -232,6 +234,143 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
 
     drain.arena = arena
     drain.arena_rows = arena_rows
+    drain.ring_depth = D
+    return drain
+
+
+def _zero_fires_stack(spec: WindowStageSpec, reduced: bool, depth: int,
+                      device, rows=None):
+    """The while-drain's [depth, Ft] fire stacks, zero (the reference's
+    ``_zero_fires_stack``): slot i's payload is written into row i when it
+    retires, and rows past ``consumed`` stay the skipped slot's zeros. A
+    compact drain's rows are its [depth, Ft, C] arena (never read past a
+    lane's count)."""
+    Ft = spec.win.fire_lanes
+    i32 = dict(dtype=torch.int32, device=device)
+    small = (torch.zeros(depth, Ft, **i32), torch.zeros(depth, Ft, **i32),
+             torch.zeros(depth, **i32),
+             torch.zeros(depth, Ft, dtype=torch.bool, device=device),
+             torch.zeros(depth, Ft, dtype=torch.float32, device=device))
+    if rows is None:
+        return wk.ReducedFires(*small)
+    return wk.CompactFires(*rows, *small)
+
+
+def _while_drain_limit(cursor: int, base: int, staged: int,
+                       max_slots: int) -> int:
+    """The live trip bound of one while-drain dispatch (the reference's
+    ``_while_drain_limit``): slots the publish cursor has committed past
+    the drain's base, clamped to what the host staged into this dispatch
+    and to the per-dispatch bound. Re-evaluated before every iteration."""
+    return min(min(max(cursor - base, 0), staged), max_slots)
+
+
+def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
+                             max_parallelism: int, insert: bool = True,
+                             kg_fill: bool = False, reduced: bool = False,
+                             drain_stats: bool = False, arena=None):
+    """Early-exit ring drain for one device (pipeline.resident-loop:
+    while; the reference's ``build_window_while_drain`` at one shard):
+    the resident drain's slot body (G1-G9, G18), run while ``i <
+    clamp(cursor - base, 0, min(staged, max_slots))``, the bound
+    re-evaluated before each iteration.
+
+    ``drain(state, slots, wmv, cursor, base, staged[, kg_res])``:
+    ``slots`` the staged batches (at least ``staged``), ``wmv`` int32
+    [>= staged] device watermarks, ``cursor`` the publish cursor — an int,
+    or a callable returning the live one. The reference re-reads an HBM
+    cursor slot in its loop condition; PyTorch runs the loop on the host,
+    so the port's cursor is the ring's host write cursor
+    (``DeviceBatchRing.write_cursor``), read under the ring's lock before
+    every iteration at no device read. ``base`` is the drain group's first
+    ring sequence, ``staged`` how many slots the host handed this
+    dispatch. Returns ``(state, (ovf_n, activity, kg_fill), fires,
+    consumed)``: ``fires`` the [max_slots, Ft] stacks — slot i's payload
+    in row i, zeros past ``consumed`` —, ``ovf_n`` int32 [max_slots] the
+    overflow ring's fill after each slot (the last repeated past
+    ``consumed``), ``consumed`` int32 [1] on the device, the slots
+    retired. ``drain_stats`` adds a fifth element, the [max_slots, 9]
+    flight recorder (zero rows past ``consumed``). Compact fires land in
+    a [max_slots, Ft, C] arena made at the first call (``arena`` shares
+    another drain's). Nothing is read back to the host."""
+    D = int(max_slots)
+    Ft = spec.win.fire_lanes
+    kg_end = max_parallelism - 1
+    arena = [None] if arena is None else arena
+
+    def drain(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
+              cursor, base: int, staged: int, kg_res=None):
+        if len(slots) < min(staged, D):
+            raise ValueError(f"{staged} staged slots for a while drain "
+                             f"handed {len(slots)}")
+        if not reduced and arena[0] is None:
+            arena[0] = wk.fire_row_buffers(D, Ft, state.capacity,
+                                           state.device, red=spec.red)
+        rows = None if reduced else arena[0]
+        dev = state.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        fires = _zero_fires_stack(spec, reduced, D, dev, rows)
+        stacked = (fires.counts, fires.window_end_ticks, fires.n_fires,
+                   fires.lane_valid, fires.value_sums)
+        live = cursor if callable(cursor) else (lambda: int(cursor))
+        activity = torch.zeros((), **i32)
+        kgf = torch.zeros((D, max_parallelism) if kg_fill else (0,), **i32)
+        fills = []
+        if drain_stats:
+            ds = torch.zeros((D, len(DRAIN_STAT_FIELDS)), **i32)
+            lane_stats = torch.empty((D, 4), **i32)
+            snaps = torch.empty((D, 3), **i32)
+        pend = None
+        i = 0
+        while i < _while_drain_limit(live(), base, staged, D):
+            hi, lo, ts, values, valid = slots[i]
+            wm = wmv[i]
+            if drain_stats:
+                kernels.slot_stats_begin(state.watermark, state.dropped_late,
+                                         state.dropped_capacity, snaps[i])
+            _st, act, _kgf = mask_update_shard(
+                state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
+                max_parallelism, clear_rows=pend, insert=insert,
+                kg_fill=kg_fill, fill_out=kgf[i] if kg_fill else None,
+                lane_stats=lane_stats[i] if drain_stats else None,
+                kg_res=kg_res)
+            activity += act
+            fills.append(state.ovf_n.clone())
+            state, pend, fr = wk.advance_and_fire_resident(
+                state, spec.win, spec.red, wm, reduced=reduced,
+                out=None if rows is None else tuple(r[i] for r in rows))
+            # row i of each small field (the reference's dynamic update)
+            for buf, v in zip(stacked, (fr.counts, fr.window_end_ticks,
+                                        fr.n_fires, fr.lane_valid,
+                                        fr.value_sums)):
+                buf[i].copy_(v)
+            if drain_stats:
+                kernels.slot_stats(
+                    ds[i], lane_stats[i], act, fr.lane_valid, fr.counts,
+                    state.dropped_late, state.dropped_capacity, state.ovf_n,
+                    kgf[i] if kg_fill else None, state.watermark, snaps[i],
+                    slide=spec.win.slide_ticks)
+            i += 1
+        if pend is not None:
+            wk.apply_pending_purge(state, spec.win, spec.red, pend)
+        if not fills:
+            fills.append(state.ovf_n.clone())
+        fills += fills[-1:] * (D - len(fills))
+        kg_sum = kgf.sum(0, dtype=torch.int32) if kg_fill else kgf
+        consumed = torch.full((1,), i, **i32)
+        out = (state, (torch.stack(fills), activity, kg_sum), fires,
+               consumed)
+        return out + (ds,) if drain_stats else out
+
+    def arena_rows(d: int):
+        """Slot ``d``'s [Ft, C] row views of the arena (compact drains)."""
+        return None if arena[0] is None else tuple(r[d] for r in arena[0])
+
+    drain.arena = arena
+    drain.arena_rows = arena_rows
+    drain.ring_depth = D
+    drain.max_slots = D
+    drain.while_drain = True
     return drain
 
 
@@ -406,6 +545,67 @@ def build_kg_occupancy_step(spec: WindowStageSpec, max_parallelism: int):
     def occupancy_step(state: wk.WindowShardState):
         return wk.kg_occupancy(state, max_parallelism, spec.red, spec.win)
     return occupancy_step
+
+
+def build_window_update_step(spec: WindowStageSpec, max_parallelism: int,
+                             insert: bool = True, kg_fill: bool = False):
+    """The split path's update-only step (the reference's
+    ``build_window_update_step`` at one shard): apply one staged batch
+    and advance the watermark, fire nothing. ``insert=False`` is the
+    lookup-only fast variant (G8). ``step(state, hi, lo, ts, values,
+    valid, wm[, kg_res])`` -> ``(state, (ovf_n, activity, kg_fill))``,
+    all on the device: the overflow ring's fill after the update, the
+    update's activity and the batch's lanes per key group ([0] with the
+    fill off). ``kg_res`` (tiered state) diverts the cold groups' lanes.
+    The state is updated in place; nothing is read back."""
+    kg_end = max_parallelism - 1
+
+    def update_step(state, hi, lo, ts, values, valid, wm, kg_res=None):
+        state, activity, kgf = mask_update_shard(
+            state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
+            max_parallelism, insert=insert, kg_fill=kg_fill, kg_res=kg_res)
+        return state, (state.ovf_n.clone(), activity, kgf)
+
+    update_step.insert = insert
+    return update_step
+
+
+def build_window_step(spec: WindowStageSpec, max_parallelism: int):
+    """Update and fire in one step (the reference's ``build_window_step``
+    at one shard): ``step(state, hi, lo, ts, values, valid, wm)`` ->
+    ``(state, fires)``, the classic advance's compact fires (G1-G3, G6;
+    the purge at once)."""
+    update_step = build_window_update_step(spec, max_parallelism)
+
+    def step(state, hi, lo, ts, values, valid, wm):
+        state, _mon = update_step(state, hi, lo, ts, values, valid, wm)
+        return fire_only(state, spec, wm, reduced=False)
+
+    return step
+
+
+def build_window_fire_step(spec: WindowStageSpec, out=None):
+    """The split path's fire step (the reference's
+    ``build_window_fire_step``): ``fire_step(state, wm)`` advances to
+    ``wm`` and returns ``(state, CompactFires)`` of up to F due window
+    ends over every key (G6, G15 for a sketch, G6's ``fire_pack`` for a
+    generic reduce), purged at once. ``out``: a callable giving the rows'
+    [Ft, C] buffers (the drain arena's slot 0), else they are allocated
+    per call."""
+    def fire_step(state, wm):
+        return fire_only(state, spec, wm, reduced=False,
+                         out=None if out is None else out())
+    return fire_step
+
+
+def build_window_fire_reduced_step(spec: WindowStageSpec):
+    """The split path's reduced fire step (the reference's
+    ``build_window_fire_reduced_step``): ``fire_step(state, wm)`` ->
+    ``(state, ReducedFires)``, each lane's (count, value sum) reduced on
+    the device (G4), for device-reduce sinks with no spill to merge."""
+    def fire_step(state, wm):
+        return fire_only(state, spec, wm, reduced=True)
+    return fire_step
 
 
 def fire_only(state: wk.WindowShardState, spec: WindowStageSpec, wm,

@@ -28,6 +28,11 @@ subsystems the port has not taken yet):
     step.drain              runtime/executor, before every resident ring
                             drain dispatch — the mid-drain crash seam of
                             the exactly-once tests
+    ingest.producer         runtime/ingest IngestPipeline._producer,
+                            before each prep on the prefetch thread and
+                            outside its error delivery: a raise there
+                            kills the producer, which the step loop
+                            surfaces as IngestThreadDied
     tier.demote.write       runtime/tiers.fold_entries, before a demoted
                             key-group's entries fold into the host pane
                             stores — a crash between a demote and its

@@ -230,6 +230,8 @@ def _env(pkg, layout, ckpt_dir=None, interval=1, config=None,
         from flink_tpu_torch import StreamExecutionEnvironment
         from flink_tpu_torch.core.config import Configuration
         from flink_tpu_torch.core.time import TimeCharacteristic
+        # the resident drain, whose step.drain seam the crashes take
+        opts.setdefault("pipeline.resident-loop", "on")
         kw = {"device": "cpu"}
     env = StreamExecutionEnvironment(Configuration(opts), **kw)
     env.set_parallelism(1)
@@ -311,8 +313,12 @@ def test_checkpoint_cuts_match_reference(tmp_path, layout):
     retain = {"checkpoint.retain": 100}
     _job_j, rows_j = _run(_env("jax", layout, tmp_path / "j", config=retain),
                           "jax")
+    # the port polls inline on its split path, so it cuts at every batch
+    # and its key map holds exactly the keys before each cut
     job_t, rows_t = _run(_env("torch", layout, tmp_path / "t",
-                              config=retain), "torch")
+                              config={**retain, "pipeline.prefetch": "off",
+                                      "pipeline.resident-loop": "off"}),
+                         "torch")
     assert rows_t == rows_j == expected()
     assert job_t.metrics.spilled_records > 0
     cuts_j, cuts_t = _cuts(tmp_path / "j"), _cuts(tmp_path / "t")

@@ -161,6 +161,7 @@ def test_checkpoints_and_tiers_run_with_jax_and_the_reference_blocked(
         "from flink_tpu_torch.testing import faults\n"
         "env = StreamExecutionEnvironment(Configuration({\n"
         "    'pipeline.ring-depth': 2,\n"
+        "    'pipeline.resident-loop': 'on',\n"
         "    'state.tiers.resident-key-groups': 2,\n"
         "    'state.tiers.min-dwell-cycles': 1,\n"
         "    'restart-strategy': 'fixed-delay'}), device='cpu')\n"
@@ -190,6 +191,59 @@ def test_checkpoints_and_tiers_run_with_jax_and_the_reference_blocked(
         "assert job.metrics.restarts == 1 and job.metrics.checkpoint_stats\n"
         "assert env._pipeline_report()['tiers']['demotes'] > 0\n"
         f"assert checkpoint.CheckpointStorage({str(tmp_path)!r}).latest()\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_ingest_thread_and_dispatch_modes_run_with_jax_and_the_reference_blocked():
+    """The ingest pipeline (its producer thread), the split steps and the
+    while-drain import and run a job in each mode — the split path fed by
+    the producer, the scan drain, the while-drain with the CPU override —
+    with ``jax`` and ``flink_tpu`` unimportable, every row exact."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flink_tpu'] = None\n"
+        "import numpy as np\n"
+        "from flink_tpu_torch import StreamExecutionEnvironment\n"
+        "from flink_tpu_torch.core.config import Configuration\n"
+        "from flink_tpu_torch.core.time import TimeCharacteristic\n"
+        "from flink_tpu_torch.runtime import ingest, step\n"
+        "from flink_tpu_torch.runtime.sinks import CollectSink\n"
+        "from flink_tpu_torch.runtime.sources import GeneratorSource\n"
+        "def gen(o, n):\n"
+        "    i = np.arange(o, o + n)\n"
+        "    return {'key': i % 300, 'value': np.ones(n, np.float32)}, "
+        "i // 2\n"
+        "cols, ts = gen(0, 4096)\n"
+        "want = {}\n"
+        "for k, t in zip(cols['key'].tolist(), ts.tolist()):\n"
+        "    e = (t // 500 + 1) * 500\n"
+        "    want[(k, e)] = want.get((k, e), 0.0) + 1.0\n"
+        "for cfg in ({}, {'pipeline.resident-loop': 'on'},\n"
+        "            {'pipeline.resident-loop': 'while',\n"
+        "             'pipeline.while-drain.cpu-override': 'on'}):\n"
+        "    env = StreamExecutionEnvironment(Configuration(\n"
+        "        {'pipeline.ring-depth': 2, **cfg}), device='cpu')\n"
+        "    env.set_max_parallelism(8)\n"
+        "    env.set_stream_time_characteristic("
+        "TimeCharacteristic.EventTime)\n"
+        "    env.set_state_capacity(1024)\n"
+        "    env.batch_size = 256\n"
+        "    sink = CollectSink()\n"
+        "    (env.add_source(GeneratorSource(gen, total=4096))\n"
+        "     .key_by(lambda c: c['key']).time_window(500)\n"
+        "     .sum(lambda c: c['value']).add_sink(sink))\n"
+        "    job = env.execute('modes')\n"
+        "    rows = {(r.key, r.window_end_ms): r.value "
+        "for r in sink.results}\n"
+        "    assert rows == want, cfg\n"
+        "    assert (job.metrics.resident_drains > 0) == bool(cfg), cfg\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )

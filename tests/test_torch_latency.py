@@ -252,7 +252,8 @@ def test_kg_heat_normalizes_by_batches_and_resizes(ds):
 
 def _job(sink, extra=None, total=20_000, gap=False):
     env = StreamExecutionEnvironment(Configuration(
-        {"pipeline.ring-depth": 4, **(extra or {})}), device="cpu")
+        {"pipeline.ring-depth": 4, "pipeline.resident-loop": "on",
+         **(extra or {})}), device="cpu")
     env.set_parallelism(1)
     env.set_max_parallelism(8)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)

@@ -628,7 +628,7 @@ def test_chained_job_with_a_downstream_backlog_loses_no_batch(monkeypatch):
     def spy(self):
         consume(self)
         if self.flush_owed is not None:
-            owed.append(self.staged)
+            owed.append(len(self.group))
 
     monkeypatch.setattr(_WindowJob, "consume", spy)
     stages = [(1000, 1000, "sum"), (2000, 2000, "sum")]

@@ -315,7 +315,7 @@ def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
     """The carried state goes on through DeviceBatchRing and the resident
     drain (the executor's path): the staged item hashes, nearly all above
     2^24, must reach the registers unrounded."""
-    from flink_tpu_torch.runtime.ingest import DeviceBatchRing
+    from flink_tpu_torch.runtime.ingest import DeviceBatchRing, IngestPlan
     from flink_tpu_torch.runtime.step import (
         WindowStageSpec,
         build_window_resident_drain,
@@ -331,13 +331,17 @@ def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
                            layout="hash")
     drain = build_window_resident_drain(spec, len(rest), MAXP,
                                         reduced=False)
-    ring = DeviceBatchRing(len(rest), len(rest[0][0]), "cpu",
-                           value_dtype=red_t.dtype)
-    fires_j = []
+    plan = IngestPlan(td=None, slide_ticks=SLIDE, span_limit=R,
+                      B=len(rest[0][0]), staging=True, device="cpu",
+                      value_dtype=np.uint32)
+    ring = DeviceBatchRing(plan, len(rest))
+    fires_j, seqs, wms = [], [], []
     for i, (hi, lo, ts, h, valid, wm, _) in enumerate(rest):
         n = int(valid.sum())
         sel = np.nonzero(valid)[0]
-        ring.stage(i, hi[sel], lo[sel], ts[sel], h[sel], int(wm))
+        seqs.append(ring.try_publish(plan, hi[sel], lo[sel], ts[sel],
+                                     h[sel], n, "mask", 0)[0])
+        wms.append(int(wm))
         sj, _ = upd(sj, hi[sel], lo[sel], ts[sel], h[sel],
                     np.ones(n, bool), pend_j)
         sj = jax_set_watermark(sj, int(wm))
@@ -346,7 +350,8 @@ def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
     # the reference's last deferred purge lands at the drain's end
     win_j = wkj.WindowSpec(2 * SLIDE, SLIDE, ring=R, fires_per_step=F)
     sj = wkj.apply_pending_purge(sj, win_j, sketch_states(kind)[1], pend_j)
-    st, _mon, fires = drain(st, ring.slots(len(rest)), ring.wmv, len(rest))
+    st, _mon, fires = drain(st, [ring.slot(q) for q in seqs],
+                            torch.tensor(wms, dtype=torch.int32), len(rest))
     n_rows = 0
     for d, fr_j in enumerate(fires_j):
         fr_t = wkt.CompactFires(*(getattr(fires, n)[d] for n in (

@@ -239,6 +239,8 @@ def run_job(pkg="torch", tiers=0, packed=None, layout=None, n_keys=N_KEYS,
         from flink_tpu_torch.core.time import TimeCharacteristic
         from flink_tpu_torch.runtime.sinks import CollectSink
         from flink_tpu_torch.runtime.sources import GeneratorSource
+        # the drains the tier swaps ride, as the reference's pin
+        opts.setdefault("pipeline.resident-loop", "on")
         kw = {"device": "cpu"}
     env = StreamExecutionEnvironment(Configuration(opts), **kw)
     env.set_parallelism(1)
@@ -369,7 +371,7 @@ def test_tier_chaos_soak_exactly_once(tmp_path):
                   every=4, times=2),
         FaultRule("tier.promote.read", exc=OSError("chaos promote"),
                   every=5, times=2),
-        FaultRule("step.drain", exc=RuntimeError("chaos drain"), at=6),
+        FaultRule("step.drain", exc=RuntimeError("chaos drain"), at=3),
     ], seed=18)
     with faults.active(inj):
         env, got = run_job(tiers=2, ckpt_dir=tmp_path / "chk", restart=8)
