@@ -328,6 +328,36 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 device ring while the step loop retires slots from
                 write-cursor snapshots: every slot retired once, each
                 read (after its copy event) holding its own batch.
+ 22. megastep — K-step dispatch fusion (``pipeline.steps-per-dispatch``)
+                and its controller. First (``mega_kernel_phase``) the
+                megasteps against K = 8 sequential single steps at the
+                north star's shapes (C = 1M, R = 8, F = 2, B = 262,144,
+                direct sum), over 8 batches that cross the first window's
+                end half-way: the plain megastep against 8 update steps,
+                the fused-fire megastep (reduced and compact) against 8
+                update-then-fire steps, every state field and every
+                sub-step's fires bit-equal, and the wall of one call each
+                (best of 3). Then the north star with
+                ``pipeline.resident-loop: off`` at K = 1, at K = 8 with
+                fused fire and at K = 8 with ``pipeline.fused-fire: off``
+                (count and sum against numpy, events/s, p99 fire latency,
+                megasteps and fused-fire megasteps, the card's idle share
+                from a second, profiled run; G1-G4 launched), and ``auto``
+                at K = 8, which must run the scan drain (drains, no
+                megastep). Then the north star with ``controller.enabled:
+                true`` on ``on`` (the recorder and key-group heat on) and
+                on ``off`` at K = 8: rows against numpy, the controller's
+                cycles, actions, reverts, actuators and ledger on one
+                line, the doctor's findings on the next.
+                bench_configs.py:1306 run_device_update_ceiling's
+                fire_grid (B = 512, C = 4,096, ring 9, 4 fire lanes, 4
+                batches a pane, 256 batches a cell where the bench takes
+                1,024 x K), K in {1, 4, 8}, dup in {0, 0.5}: ``split``
+                (groups broken at each crossing, the reduced fire step and
+                its blocking read) against ``fused`` (fused-fire megasteps,
+                read one dispatch late), events/s and host us a batch
+                (best of 2 after a warm run), every window fired against
+                numpy's (keys, sum).
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -336,8 +366,8 @@ p50 and p99 over its windows, from a drain's dispatch (or a watermark
 crossing) to the emission, with the sample count.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over the
-nineteen paths, every run of the checkpoint and tiered jobs counted;
+after. Then one line {"kernels": [...]} (launches summed over every path,
+every run of the checkpoint, tiered, megastep and controller jobs counted;
 G19's shapes other than cep-within's nested in its entry; G21's edge
 cases nested in its entry; G1's fill and its residency mode nested in
 G1's entry, numbers from phase 3; G14 and G15 at the distinct job's
@@ -5445,6 +5475,373 @@ def ring_race(dev, kind, smi, m_batches=512, b=8192, depth=16) -> None:
           "nvidia_smi": smi})
 
 
+# ------------------------------------------------------------ megasteps
+
+MEGA_K = 8                    # pipeline.steps-per-dispatch of the runs
+MEGA_OFF = {"pipeline.resident-loop": "off",
+            "pipeline.steps-per-dispatch": MEGA_K}
+MEGA_MODES = (
+    ("k1", {"pipeline.resident-loop": "off"}),       # the split path
+    ("k8_fused_fire", MEGA_OFF),                     # fused-fire megasteps
+    ("k8_fire_off", {**MEGA_OFF, "pipeline.fused-fire": "off"}),
+)
+CTL_RUNS = (
+    ("on", {**RESIDENT_ON, "observability.drain-stats": True,
+            "observability.kg-stats": True, "controller.enabled": True}),
+    ("off_k8", {**MEGA_OFF, "controller.enabled": True}),
+)
+
+
+def mega_inputs(dev, k=MEGA_K, batch=BATCH):
+    """``k`` north-star batches straddling the first 5 s window's end
+    (k / 2 before it), as staged slots, and their watermarks (each
+    batch's newest time less 1 ms) as an int32 [k] device tensor."""
+    first = WINDOW_MS * EVENTS_PER_MS - (k // 2) * batch
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots, wms = [], []
+    for j in range(k):
+        keys, ts, vals = gen_batch(first + j * batch, batch)
+        slots.append((torch.zeros(batch, **i32), _t(keys, dev, torch.int32),
+                      _t(ts, dev, torch.int32),
+                      _t(vals, dev, torch.float32),
+                      torch.ones(batch, dtype=torch.bool, device=dev)))
+        wms.append(int(ts.max()) - 1)
+    return slots, torch.tensor(wms, **i32)
+
+
+def _fires_equal(a, b) -> bool:
+    """Two fire payloads equal: every small field, and the compact rows'
+    ``[:count]`` prefixes lane by lane."""
+    small = ("counts", "window_end_ticks", "n_fires", "lane_valid",
+             "value_sums")
+    if not all(torch.equal(getattr(a, n), getattr(b, n)) for n in small):
+        return False
+    if not hasattr(a, "key_hi"):
+        return True
+    counts = a.counts.cpu().tolist()
+    return all(torch.equal(getattr(a, n)[f, :c], getattr(b, n)[f, :c])
+               for f, c in enumerate(counts)
+               for n in ("key_hi", "key_lo", "values"))
+
+
+def mega_kernel_phase(dev, timing=True, k=MEGA_K, batch=BATCH) -> dict:
+    """The K-step megasteps against K sequential single steps on the card
+    at the north star's shapes (C = 1M, R = 8, F = 2, B = 262,144, K = 8,
+    direct layout, sum), over K batches that cross a window end half-way:
+    the plain megastep against K update steps, the fused-fire megastep
+    (reduced and compact) against K update-then-fire steps; every state
+    field and every sub-step's fires bit-equal. Timed with the card
+    synchronised around one call each (host-bound: the wall is the
+    number), best of 3 on fresh states."""
+    from flink_tpu_torch.ops import window_kernels as wk
+    from flink_tpu_torch.runtime.step import (
+        WindowStageSpec, build_window_megastep, build_window_megastep_fired,
+        build_window_update_step, fire_only, init_shard_state)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    spec = WindowStageSpec(
+        win=wk.WindowSpec(size_ticks=WINDOW_MS, slide_ticks=WINDOW_MS,
+                          ring=RING_PANES, fires_per_step=FIRES_PER_STEP),
+        red=wk.ReduceSpec("sum"), capacity_per_shard=N_KEYS)
+    slots, wmv = mega_inputs(dev, k, batch)
+    upd = build_window_update_step(spec, MAX_PARALLELISM)
+    out = {}
+    for variant in ("plain", "fired_reduced", "fired_compact"):
+        fired = variant != "plain"
+        reduced = variant == "fired_reduced"
+        if fired:
+            mega = build_window_megastep_fired(spec, k, MAX_PARALLELISM,
+                                               reduced=reduced)
+        else:
+            mega = build_window_megastep(spec, k, MAX_PARALLELISM)
+
+        def singles():
+            st = init_shard_state(spec, MAX_PARALLELISM, dev)
+            frs = []
+            for i in range(k):
+                st, _ = upd(st, *slots[i], wmv[i])
+                if fired:
+                    st, fr = fire_only(st, spec, wmv[i], reduced=reduced)
+                    frs.append(fr)
+            return st, frs
+
+        def fused():
+            st = init_shard_state(spec, MAX_PARALLELISM, dev)
+            res = mega(st, slots, wmv)
+            return res[0], res[2] if fired else None
+
+        s1, oracle = singles()
+        s2, stack = fused()
+        a, b = wk.state_to_numpy(s1), wk.state_to_numpy(s2)
+        diff = [n for n in wk.STATE_FIELDS if not np.array_equal(a[n], b[n])]
+        check(not diff, f"megastep {variant}: state fields {diff} differ "
+                        f"from {k} single steps")
+        n_fired = 0
+        for i, fr in enumerate(oracle):
+            sub = type(stack)(*(getattr(stack, f)[i] for f in
+                                type(stack).__dataclass_fields__))
+            check(_fires_equal(fr, sub),
+                  f"megastep {variant}: sub-step {i}'s fires differ")
+            n_fired += int(fr.counts.sum())
+        check(not fired or n_fired > 0, f"megastep {variant}: nothing fired")
+        rec = {"max_abs_err": 0.0, "fired_keys": n_fired}
+        if timing:
+            def wall(fn):
+                best = float("inf")
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    best = min(best, time.perf_counter() - t0)
+                return best * 1e3
+            rec["megastep_ms"] = wall(fused)
+            rec["singles_ms"] = wall(singles)
+        out[variant] = rec
+        del s1, s2, oracle, stack
+    return out
+
+
+def megastep_runs(dev, kind, smi, total_launches, want_count) -> None:
+    """The north star (30M events) with ``pipeline.resident-loop: off`` at
+    K = 1 (the split path), K = 8 with fused fire (every full group one
+    fused-fire megastep, reduced on the card for the CountingSink) and
+    K = 8 with ``pipeline.fused-fire: off`` (plain megasteps, groups
+    broken at each crossing, the fire steps after); then ``auto`` at
+    K = 8, which on CUDA with staging must resolve to the scan drain.
+    Each run's count and sum against numpy, G1-G4 launched, events/s,
+    p99 fire latency, the dispatch counters and, from a second profiled
+    run, the card's idle share."""
+    for name, cfg in MEGA_MODES + (("auto_k8",
+                                    {"pipeline.steps-per-dispatch":
+                                     MEGA_K}),):
+        launches, (sink, env, job, secs) = run_path(
+            lambda c=cfg: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                         TOTAL_EVENTS, BATCH, RING_DEPTH,
+                                         config=c, with_env=True),
+            total_launches)
+        m = job.metrics
+        check(sink.value_sum == float(TOTAL_EVENTS)
+              and sink.count == want_count,
+              f"megastep run ({name}): {sink.count} rows summing to "
+              f"{sink.value_sum}, numpy {want_count} and {TOTAL_EVENTS}")
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              f"megastep run ({name}): records dropped")
+        check_launched(launches, NORTH_STAR_KERNELS, f"megastep ({name})")
+        if name == "auto_k8":
+            # the reference's platform gate: the scan drain on the card,
+            # megasteps on the CPU
+            drained = dev.type == "cuda"
+            check((m.resident_drains > 0) == drained
+                  and (m.fused_dispatches == 0) == drained,
+                  f"auto at K = 8: {m.resident_drains} drains, "
+                  f"{m.fused_dispatches} megasteps")
+        elif name == "k1":
+            check(m.fused_dispatches == 0 and m.resident_drains == 0,
+                  "K = 1: a megastep or a drain ran")
+        else:
+            check(m.fused_dispatches > 0 and m.resident_drains == 0,
+                  f"{name}: {m.fused_dispatches} megasteps")
+            check((m.fused_fire_dispatches == m.fused_dispatches)
+                  == (name == "k8_fused_fire"),
+                  f"{name}: {m.fused_fire_dispatches} of "
+                  f"{m.fused_dispatches} megasteps fired")
+        line = {"phase": "megastep_run", "mode": name, "config": cfg,
+                "events": TOTAL_EVENTS, "seconds": secs,
+                "events_per_s": TOTAL_EVENTS / secs,
+                "fire_latency_ms": fire_latency(m), "batches": m.steps,
+                "fused_dispatches": m.fused_dispatches,
+                "fused_fire_dispatches": m.fused_fire_dispatches,
+                "drains": m.resident_drains, "fire_steps": m.fire_steps,
+                "steps_per_dispatch":
+                    env._pipeline_report()["steps_per_dispatch"],
+                "launches": launches}
+        if name != "auto_k8":
+            (_s, _e, _j, wall_p), busy = device_busy(
+                lambda c=cfg: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                             TOTAL_EVENTS, BATCH,
+                                             RING_DEPTH, config=c,
+                                             with_env=True))
+            line.update({"device_busy_ms": busy, "profiled_wall_s": wall_p,
+                         "device_idle_share": 1.0 - busy / (wall_p * 1e3)})
+        emit({**line, "device": kind, "nvidia_smi": smi})
+        del sink, env, job
+
+
+def controller_runs(dev, kind, smi, total_launches, want_count) -> None:
+    """The north star with ``controller.enabled: true`` on ``on`` (the
+    recorder and key-group heat on: its ``ring-fill-target`` and
+    ``drain-stats-cadence`` arms) and on ``off`` at K = 8 (its
+    ``dispatch-group`` arm): rows against numpy, then one line each of
+    the controller's actions, reverts and actuators, and of the doctor's
+    findings."""
+    for name, cfg in CTL_RUNS:
+        launches, (sink, env, job, secs) = run_path(
+            lambda c=cfg: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                         TOTAL_EVENTS, BATCH, RING_DEPTH,
+                                         config=c, with_env=True),
+            total_launches)
+        check(sink.value_sum == float(TOTAL_EVENTS)
+              and sink.count == want_count,
+              f"controller run ({name}): {sink.count} rows summing to "
+              f"{sink.value_sum}")
+        check_launched(launches, NORTH_STAR_KERNELS, f"controller ({name})")
+        ctl = env._controller_report()
+        doc = env._doctor_report()
+        check(ctl["available"] and doc["available"],
+              f"controller run ({name}): no controller or doctor report")
+        check(ctl["rebalances"] == 0, "one shard rebalanced")
+        emit({"phase": "controller", "mode": name, "events": TOTAL_EVENTS,
+              "seconds": secs, "events_per_s": TOTAL_EVENTS / secs,
+              "cycles": ctl["cycle"], "actions": ctl["actions"],
+              "reverts": ctl["reverts"], "actuators": ctl["actuators"],
+              "ledger": [{k: e.get(k) for k in ("kind", "actuator",
+                                                "before", "after")}
+                         for e in ctl["ledger"]][-12:],
+              "fused_dispatches": job.metrics.fused_dispatches,
+              "drains": job.metrics.resident_drains,
+              "device": kind, "nvidia_smi": smi})
+        emit({"phase": "doctor", "mode": name, "clean": doc["clean"],
+              "findings": [{k: f[k] for k in ("rule", "severity", "score")}
+                           for f in doc["findings"]],
+              "fire_latency_ms": doc["snapshot"]["fire_latency_ms"],
+              "device": kind, "nvidia_smi": smi})
+        del sink, env, job
+
+
+# bench_configs.py:1306 run_device_update_ceiling's fire_grid, cut to
+# FG_BATCHES batches a cell (its 1,024 x K would take minutes eagerly)
+FG_B, FG_C, FG_RING, FG_SLIDE, FG_BPP, FG_F = 512, 4096, 9, 1000, 4, 4
+FG_BATCHES = 256
+FG_KS = (1, 4, 8)
+FG_DUPS = (0.0, 0.5)
+
+
+def fire_grid_stream(dev, dup, n):
+    """The grid's firing stream: ``n`` batches of FG_B lanes, a share
+    ``dup`` of them on 64 hot keys, pane j // FG_BPP, each batch's
+    watermark closing the pane before it; and numpy's (keys, sum) per
+    window end."""
+    rng = np.random.default_rng(11)
+    slots, wms, panes = [], [], {}
+    for j in range(n):
+        p = j // FG_BPP
+        n_hot = int(FG_B * dup)
+        lo = np.concatenate([rng.integers(0, FG_C - 1, FG_B - n_hot),
+                             rng.integers(0, 64, n_hot)]).astype(np.int64)
+        rng.shuffle(lo)
+        panes.setdefault(p, []).append(lo)
+        ts = np.full(FG_B, p * FG_SLIDE + FG_SLIDE // 2, np.int32)
+        slots.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            np.zeros(FG_B, np.int32), lo.astype(np.int32), ts,
+            np.ones(FG_B, np.float32), np.ones(FG_B, bool))))
+        wms.append(p * FG_SLIDE - 1)
+    want = {(p + 1) * FG_SLIDE: (len(np.unique(np.concatenate(v))),
+                                 float(FG_B * len(v)))
+            for p, v in panes.items()}
+    return slots, wms, want
+
+
+def fire_grid(dev, kind, smi, total_launches, n=FG_BATCHES) -> None:
+    """run_device_update_ceiling's fire_grid on the card: B = 512, C =
+    4,096, ring 9, 4 fire lanes, 4 batches a pane, K in {1, 4, 8}, dup in
+    {0, 0.5}, each cell in the two disciplines — ``split`` (a group breaks
+    at each crossing, partial groups run as single steps, then the
+    reduced fire step and its blocking small-field read) and ``fused``
+    (fused-fire megasteps throughout, reduced, read one dispatch late) —:
+    events/s and host us a batch (best of 2 after a warm run), and every
+    window fired equal to numpy's (keys, sum)."""
+    from flink_tpu_torch.ops import window_kernels as wk
+    from flink_tpu_torch.runtime.step import (
+        WindowStageSpec, build_window_fire_reduced_step,
+        build_window_megastep, build_window_megastep_fired,
+        build_window_update_step, init_shard_state)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    spec = WindowStageSpec(
+        win=wk.WindowSpec(size_ticks=FG_SLIDE, slide_ticks=FG_SLIDE,
+                          ring=FG_RING, fires_per_step=FG_F),
+        red=wk.ReduceSpec("sum"), capacity_per_shard=FG_C)
+    step1 = build_window_update_step(spec, MAX_PARALLELISM)
+    fire = build_window_fire_reduced_step(spec)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def read(fr, rows):
+        c, ok, e, v = (t.cpu().numpy() for t in (
+            fr.counts, fr.lane_valid, fr.window_end_ticks, fr.value_sums))
+        for cc, oo, ee, vv in zip(c.reshape(-1), ok.reshape(-1),
+                                  e.reshape(-1), v.reshape(-1)):
+            if oo:
+                check(int(ee) not in rows, f"fire grid: {ee} fired twice")
+                rows[int(ee)] = (int(cc), float(vv))
+
+    def split(K, slots, wms, rows):
+        mega = build_window_megastep(spec, K, MAX_PARALLELISM) \
+            if K > 1 else None
+        st = init_shard_state(spec, MAX_PARALLELISM, dev)
+        pend, last = [], -(2**31) + 1
+        for j in range(len(slots)):
+            pend.append(j)
+            crossing = wms[j] > last
+            if crossing or len(pend) == K:
+                if len(pend) == K and mega is not None:
+                    st, _ = mega(st, [slots[i] for i in pend],
+                                 torch.tensor([wms[i] for i in pend],
+                                              **i32))
+                else:
+                    for i in pend:
+                        st, _ = step1(st, *slots[i],
+                                      torch.tensor(wms[i], **i32))
+                pend = []
+                if crossing:
+                    st, fr = fire(st, torch.tensor(wms[j], **i32))
+                    read(fr, rows)
+                    last = wms[j]
+
+    def fused(K, slots, wms, rows):
+        mega = build_window_megastep_fired(spec, K, MAX_PARALLELISM,
+                                           reduced=True)
+        st = init_shard_state(spec, MAX_PARALLELISM, dev)
+        lag = None
+        for g in range(len(slots) // K):
+            sel = range(g * K, (g + 1) * K)
+            st, _mon, fr = mega(st, [slots[i] for i in sel],
+                                torch.tensor([wms[i] for i in sel], **i32))
+            if lag is not None:
+                read(lag, rows)
+            lag = fr
+        read(lag, rows)
+
+    cells = {}
+    for dup in FG_DUPS:
+        slots, wms, want = fire_grid_stream(dev, dup, n)
+        for K in FG_KS:
+            for name, run in (("split", split), ("fused", fused)):
+                best = float("inf")
+                for rep in range(3):
+                    rows = {}
+                    sync()
+                    t0 = time.perf_counter()
+                    run(K, slots, wms, rows)
+                    sync()
+                    if rep:
+                        best = min(best, time.perf_counter() - t0)
+                fired = {e: want.get(e) for e in rows}
+                check(rows == fired and len(rows) == len(want) - 1,
+                      f"fire grid {name} K{K} dup {dup}: {len(rows)} "
+                      f"windows, numpy {len(want) - 1} closed, rows "
+                      f"{'equal' if rows == fired else 'differ'}")
+                cells[f"{name}_K{K}_dup_{dup}"] = {
+                    "events_per_s": FG_B * n / best,
+                    "host_us_per_batch": best / n * 1e6}
+    ratio = {f"K{K}_dup_{dup}": cells[f"fused_K{K}_dup_{dup}"]
+             ["events_per_s"] / cells[f"split_K{K}_dup_{dup}"]
+             ["events_per_s"] for K in FG_KS for dup in FG_DUPS}
+    emit({"phase": "fire_grid", "B": FG_B, "C": FG_C, "ring": FG_RING,
+          "bpp": FG_BPP, "fire_lanes": FG_F, "batches": n, "cells": cells,
+          "fused_over_split": ratio, "device": kind, "nvidia_smi": smi})
+
+
 # ------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -5995,6 +6392,11 @@ def main(argv) -> int:
     ingest_runs(dev, kind, smi, total_launches)
     while_drain_mirror(dev, kind, smi, total_launches)
     ring_race(dev, kind, smi)
+    emit({"phase": "megastep_kernels", "K": MEGA_K,
+          "checks": mega_kernel_phase(dev)})
+    megastep_runs(dev, kind, smi, total_launches, want_count)
+    controller_runs(dev, kind, smi, total_launches, want_count)
+    fire_grid(dev, kind, smi, total_launches)
 
     if "--profile" in argv:
         emit(profile_phase(

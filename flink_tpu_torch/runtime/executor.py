@@ -23,17 +23,33 @@ The dispatch modes resolve as the reference resolves
 ``pipeline.resident-loop`` (executor.py:1639-1697, 5520-5615):
 
   * ``auto`` (and ``off``): the **split path** while
-    ``pipeline.steps-per-dispatch`` is 1 (above 1 raises: the megastep is
-    ROADMAP item 11). One update step a batch (``build_window_update_step``:
-    G1-G3, G5 or G8 in the hash layout, G7 with an overflow ring),
-    nothing read back; on CUDA the loop waits on the event of the step
-    ``pipeline.max-inflight-steps`` (4) back, never on the whole device.
-    When the watermark crosses a pane boundary the fire steps run
-    (``build_window_fire_reduced_step``, G4, for device-reduce sinks with
-    no spill stores, else ``build_window_fire_step``, G6) until one fills
-    fewer than F lanes. Every MON_EVERY-th step's (ring fill, activity,
-    key-group fill) is read OVF_LAG samples late: it settles the insert /
-    fast step tiering and drains a ring fuller than B / 8;
+    ``pipeline.steps-per-dispatch`` is 1. One update step a batch
+    (``build_window_update_step``: G1-G3, G5 or G8 in the hash layout, G7
+    with an overflow ring), nothing read back; on CUDA the loop waits on
+    the event of the dispatch ``pipeline.max-inflight-steps`` (4) back,
+    never on the whole device. When the watermark crosses a pane boundary
+    the fire steps run (``build_window_fire_reduced_step``, G4, for
+    device-reduce sinks with no spill stores, else
+    ``build_window_fire_step``, G6) until one fills fewer than F lanes.
+    Every MON_EVERY-th step's (ring fill, activity, key-group fill) is
+    read OVF_LAG samples late: it settles the insert / fast step tiering
+    and drains a ring fuller than B / 8;
+  * ``off``, and ``auto`` on the CPU or without staging, with
+    ``steps-per-dispatch`` K above 1 (a single-stage job): the split path
+    with **K-step megasteps** (the reference's dispatch fusion,
+    executor.py:4136-4600). K planned batches of one route and staging
+    mode group in the fused slot and run as one ``build_window_megastep``
+    (a partial group — at end of stream, an idle poll, a route change,
+    the time-jump fire, a checkpoint cut — as single steps); the flush
+    marks the group's last batch applied. With ``pipeline.fused-fire``
+    (auto: on) the group holds across crossings and runs as
+    ``build_window_megastep_fired``, each sub-step firing under its own
+    watermark; its fires are read before the next dispatch, and the
+    flush runs the fire steps when the reference's lane-budget model
+    says a backlog may remain (and after every group with allowed
+    lateness). Without it the group flushes at each fire boundary, whose
+    fire steps follow. ``auto`` with K above 1 on CUDA with staging is the
+    scan drain, as the reference's;
   * ``on``: the **scan drain** — the producer publishes into the
     ``DeviceBatchRing`` and the step loop groups up to
     ``pipeline.ring-depth`` staged batches (taking every batch the queue
@@ -145,6 +161,24 @@ time-window job:
 ``observability.tracing`` (the reference's span tracer) is not ported: it
 raises.
 
+The pipeline doctor (``observability.doctor``, default on; the copied
+``metrics/doctor.py``): ``env._doctor_report()`` joins the planes the port
+has — ``pipeline`` (``_pipeline_report()``), ``metrics``
+(``JobMetrics.GAUGE_FIELDS``), ``checkpoints`` and ``fire_latency_ms`` —
+and returns the rule engine's ranked findings with the snapshot and the
+``observability.doctor.*`` thresholds, as the reference's does
+(executor.py:3814-3877); it has no ``compile`` plane (eager steps compile
+nothing per shape) and no ``recovery`` plane (item 13). With
+``controller.enabled`` the copied ``runtime/controller.py``
+``RuntimeController`` is serviced at each poll-cycle cut, its actuators
+where the reference registers them (executor.py:5640-5806):
+``ring-fill-target`` in the resident modes and ``dispatch-group`` with K
+above 1 (the fused slot's capacity: a move changes the next group), and
+``drain-stats-cadence`` and ``tier-prefetch-ahead`` with the recorder and
+tiered state; its ledger persists in the checkpoint directory and
+``env._controller_report()`` serves it. Its rebalance arm needs more than
+one shard (item 10): with one, its skew test never fires.
+
 Checkpoints and restarts (the reference's sync-full path, executor.py:
 2855-2960, 3327-3490, 6270-6360), for a single-stage window job:
 ``env.enable_checkpointing(n, dir)`` takes a checkpoint once n batches
@@ -209,6 +243,7 @@ its end with the reference's "state backend over capacity" error.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from collections import deque
@@ -225,6 +260,7 @@ from flink_tpu_torch.datastream.window.assigners import (
     WindowAssigner,
 )
 from flink_tpu_torch.graph import stream_graph as sg
+from flink_tpu_torch.metrics.doctor import diagnose
 from flink_tpu_torch.metrics.drain_stats import (
     DRAIN_STAT_FIELDS, STAGE_STAT_FIELDS, DrainTelemetry,
 )
@@ -234,6 +270,7 @@ from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
 from flink_tpu_torch.runtime import cep_job, keyed_jobs
 from flink_tpu_torch.runtime import checkpoint as ckpt
+from flink_tpu_torch.runtime import controller as controller_mod
 from flink_tpu_torch.runtime import sources as sources_mod
 from flink_tpu_torch.runtime import tiers as tiers_mod
 from flink_tpu_torch.runtime import ingest as ingest_mod
@@ -245,6 +282,8 @@ from flink_tpu_torch.runtime.step import (
     build_window_chained_drain,
     build_window_fire_reduced_step,
     build_window_fire_step,
+    build_window_megastep,
+    build_window_megastep_fired,
     build_window_resident_drain,
     build_window_update_step,
     build_window_while_drain,
@@ -291,9 +330,15 @@ def panes_crossed(wm_before: int, wm_after: int, slide: int) -> int:
 @dataclasses.dataclass
 class JobMetrics:
     records_in: int = 0
+    records_out: int = 0        # rows (or aggregates) handed to the sinks
     fires: int = 0              # (key, window) results emitted
     steps: int = 0              # micro-batches applied
     resident_drains: int = 0    # drain dispatches (each up to ring depth)
+    # K-step megastep dispatches (pipeline.steps-per-dispatch > 1), each
+    # K micro-batches of ``steps``; of them, those that fired inside the
+    # dispatch (pipeline.fused-fire)
+    fused_dispatches: int = 0
+    fused_fire_dispatches: int = 0
     fire_steps: int = 0         # watermark-only fire advances
     steps_fast: int = 0         # micro-batches run on the fast step
     ring_drains: int = 0        # overflow ring reads into the spill stores
@@ -330,6 +375,23 @@ class JobMetrics:
     # drain that cannot keep up, as backpressure (the reference's
     # ring_publish_refusals gauge)
     ring_publish_refusals: int = 0
+    # the reference's counters of paths the port does not run yet; they
+    # stay 0 (sharded drains: item 10; the failure budget and the
+    # watchdog: item 13)
+    steps_sharded: int = 0
+    checkpoints_aborted: int = 0
+    checkpoints_declined: int = 0
+    watchdog_trips: int = 0
+
+    # the counter fields the reference exports as gauges, and the doctor's
+    # ``metrics`` plane
+    GAUGE_FIELDS = (
+        "records_in", "records_out", "fires", "steps", "steps_fast",
+        "steps_sharded",
+        "fused_dispatches", "fused_fire_dispatches", "resident_drains",
+        "dropped_late", "dropped_capacity", "restarts",
+        "checkpoints_aborted", "checkpoints_declined", "watchdog_trips",
+    )
 
     def record_checkpoint(self, cid: int, trigger_ms: float,
                           duration_ms: float, nbytes: int,
@@ -544,6 +606,8 @@ class LocalExecutor:
         # a time-window job replaces these with its own telemetry
         env._pipeline_report = _no_pipeline_report
         env._kg_report = _no_kg_report(env.max_parallelism)
+        env._doctor_report = _no_doctor_report
+        env._controller_report = _no_controller_report
         env._gauges = {}
         # rolling and count stages need no time characteristic; time and
         # session windows run in event time only
@@ -622,6 +686,15 @@ def _no_pipeline_report() -> dict:
                       "is not active"}
 
 
+def _no_doctor_report() -> dict:
+    return {"available": False,
+            "reason": "the doctor serves keyed time-window jobs"}
+
+
+def _no_controller_report() -> dict:
+    return {"available": False, "reason": "controller.enabled off"}
+
+
 def _no_kg_report(maxp: int):
     def kg_report(k: int = 10) -> dict:
         return {"key_groups": maxp, "n_shards": 1, "occupancy_top": [],
@@ -649,19 +722,26 @@ class _Dispatch:
     resident: bool       # a ring drain (scan, while or chained) per group
     while_drain: bool    # the while-drain (resident-loop: while)
     max_slots: int       # pipeline.while-drain.max-slots, resolved
+    k_fuse: int = 1      # pipeline.steps-per-dispatch
+    fused_fire: bool = False   # K > 1 and pipeline.fused-fire not off
 
 
 def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
                       device) -> _Dispatch:
     """``pipeline.prefetch``, ``pipeline.device-staging`` and
     ``pipeline.resident-loop`` as the reference resolves them, with its
-    errors. ``auto`` is the split path while ``steps-per-dispatch`` is 1
-    (the reference lights the drain only for its fused-fire megasteps);
-    ``on`` is the scan drain, ``while`` the while-drain on CUDA (on the
-    CPU the scan drain unless ``pipeline.while-drain.cpu-override: on``,
-    the reference's platform gate), ``off`` the split path. A chained job
-    has no single steps: ``auto`` takes its drain whenever staging
-    exists, and its setup refuses a job without one."""
+    errors. ``auto`` is the split path while ``steps-per-dispatch`` is 1;
+    above 1 it is the scan drain on CUDA with staging (the reference
+    lights its drain for its fused-fire megasteps on an accelerator), else
+    the split path with K-step megasteps (the reference's platform gate
+    runs them on the CPU). ``on`` is the scan drain, ``while`` the
+    while-drain on CUDA (on the CPU the scan drain unless
+    ``pipeline.while-drain.cpu-override: on``), ``off`` the split path,
+    with megasteps when K is above 1. A chained job has no single steps:
+    ``auto`` takes its drain whenever staging exists, and its setup
+    refuses a job without one. ``pipeline.data-parallel: on`` needs the
+    resident loop (the reference's error) and then runs the sharded
+    drain, which is not ported (item 10)."""
     res_cfg = cfg.get_str("pipeline.resident-loop", "auto")
     ff_cfg = cfg.get_str("pipeline.fused-fire", "auto")
     if ff_cfg not in ("auto", "on", "off"):
@@ -719,8 +799,17 @@ def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
                         and torch.device(device).type != "cpu")
         if chained and res_cfg == "auto":
             use_resident = use_staging
+    if cfg.get_str("pipeline.data-parallel", "auto") == "on":
+        if not use_resident:
+            raise ValueError(
+                "pipeline.data-parallel=on requires the resident "
+                "loop (pipeline.resident-loop + prefetch + device "
+                "staging): the sharded drain consumes per-shard "
+                "ring slices published by the ingest thread")
+        raise _unsupported("pipeline.data-parallel: on (the sharded drain, "
+                           "K13 sharded)", "ROADMAP queue 1, item 10")
     return _Dispatch(use_prefetch, use_staging, use_resident, use_while,
-                     max_slots)
+                     max_slots, k_fuse, use_fused_fire)
 
 
 def _check_config(cfg, red: wk.ReduceSpec) -> None:
@@ -745,10 +834,14 @@ def _check_config(cfg, red: wk.ReduceSpec) -> None:
     if layout not in ("auto", "hash", "direct"):
         raise ValueError(
             f"state.backend.layout must be auto|hash|direct, got {layout!r}")
-    if cfg.get_int("pipeline.steps-per-dispatch", 1) > 1:
-        raise _unsupported("pipeline.steps-per-dispatch > 1 (K13's "
-                           "megastep dispatch fusion)",
-                           "ROADMAP queue 1, item 11")
+    dp_cfg = cfg.get_str("pipeline.data-parallel", "auto")
+    if dp_cfg not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pipeline.data-parallel must be auto|on|off, got {dp_cfg!r}")
+    dp_capf = cfg.get_float("pipeline.shard-capacity-factor", 2.0)
+    if dp_capf < 1.0:
+        raise ValueError(
+            f"pipeline.shard-capacity-factor must be >= 1.0, got {dp_capf}")
 
 
 class _WindowJob(StageJob):
@@ -858,11 +951,25 @@ class _WindowJob(StageJob):
         self.fire_reduced_step = None
         self.fire_rows = None        # the fire steps' [Ft, C] row buffers
         self.empty_slot = None       # a chained flush round's batch
-        # the drain group: up to a drain's slots of staged batches
-        self.group = ingest_mod.FusedBatchAccumulator(
-            self.mode.max_slots if self.mode.while_drain else self.depth)
+        # the K-step megasteps by tier ("insert", "fast"): a single-stage
+        # job on the split path with pipeline.steps-per-dispatch above 1
+        self.mega: Optional[Dict[str, Any]] = None
+        self.fuse_depth = 1          # K of the last dispatch (1: singles)
+        # the fused slot: a drain's slots of staged batches (the resident
+        # modes, which fire in the drain), else K batches of one megastep
+        if self.mode.resident:
+            self.group = ingest_mod.FusedBatchAccumulator(
+                self.mode.max_slots if self.mode.while_drain else self.depth,
+                hold_fires=True)
+        else:
+            self.group = ingest_mod.FusedBatchAccumulator(
+                self.mode.k_fuse, hold_fires=self.mode.fused_fire)
         self.pending_batch = None    # a greedy fill's leftover batch
-        self.pending = None          # (fires, count, last wm, mon) unread
+        # a dispatch's unread fires: (fires, count, last wm, mon, latency
+        # origin, recorder, kg batches, follow) — ``follow``: fire the
+        # windows its last lanes may have left due when it is read (a
+        # drain; a megastep's group settles that at its flush)
+        self.pending = None
         self.applied_max_pane: Optional[int] = None
         self.host_fired_pane = -(2**62)   # newest pane the split path fired
         # the split path's pacing: events of the last max-inflight-steps
@@ -908,6 +1015,13 @@ class _WindowJob(StageJob):
         self.wm_dev = WM_SENTINEL    # the device watermark, in ticks
         env._kg_report = self.kg_report
         env._pipeline_report = self.pipeline_report
+        env._doctor_report = self.doctor_report
+        # the self-tuning controller (runtime/controller.py): built only
+        # with controller.enabled, serviced at the poll-cycle cut
+        self.controller = (self.build_controller()
+                           if cfg.get(CoreOptions.CONTROLLER_ENABLED)
+                           else None)
+        env._controller_report = self.controller_report
 
     # -- setup on the first batch ------------------------------------------
     def resolve_layout(self, hi: np.ndarray, lo: np.ndarray) -> str:
@@ -972,6 +1086,8 @@ class _WindowJob(StageJob):
                     self.fast_step = build_window_update_step(
                         self.spec, self.maxp, insert=False,
                         kg_fill=self.kg_stats)
+            if not mode.resident and mode.k_fuse > 1:
+                self.setup_megasteps(build_fast)
             self.fire_step = build_window_fire_step(
                 self.spec, out=self.fire_row_views)
             if self.sink_device_reduce:
@@ -1020,6 +1136,27 @@ class _WindowJob(StageJob):
                 exchange_lanes=(cfg.get(
                     CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES)
                     if self.graph is not None else 0))
+
+    def setup_megasteps(self, build_fast: bool) -> None:
+        """The K-step megasteps of each tier (the reference's
+        executor.py:2090-2140): with fused fire their fired variants
+        replace the plain ones, full groups always firing inside the
+        dispatch — reduced (G4) when every sink is a device-reduce sink
+        and the stage has no overflow ring, else compact into one arena
+        the two tiers share; partial groups run as single steps."""
+        K = self.mode.k_fuse
+        tel = dict(kg_fill=self.kg_stats, tiered=self.tier_budget > 0)
+        if self.mode.fused_fire:
+            make = functools.partial(build_window_megastep_fired,
+                                     reduced=self.reduced)
+        else:
+            make = build_window_megastep
+        insert = make(self.spec, K, self.maxp, **tel)
+        if build_fast and self.mode.fused_fire:
+            tel["arena"] = insert.arena
+        self.mega = {"insert": insert,
+                     "fast": make(self.spec, K, self.maxp, insert=False,
+                                  **tel) if build_fast else None}
 
     def setup_tiers(self) -> None:
         """The tier manager (executor.py:1947-1986): made once, re-sliced
@@ -1105,10 +1242,13 @@ class _WindowJob(StageJob):
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def fire_row_views(self):
-        """The fire steps' [Ft, C] row buffers: the drain arena's slot 0
-        when a compact drain made one (its rows were read by then), else
-        the job's own, made at first use."""
-        rows = self.drain.arena_rows(0) if self.drain is not None else None
+        """The fire steps' [Ft, C] row buffers: the arena's slot 0 when a
+        compact drain or fused-fire megastep made one (its rows were read
+        by then), else the job's own, made at first use."""
+        owner = self.drain if self.drain is not None else (
+            self.mega or {}).get("insert")
+        arena_rows = getattr(owner, "arena_rows", None)
+        rows = arena_rows(0) if arena_rows is not None else None
         if rows is not None:
             return rows
         if self.fire_rows is None:
@@ -1227,6 +1367,10 @@ class _WindowJob(StageJob):
         # tiered state's maintenance at the cycle's cut, between drains
         if self.tier_mgr is not None and self.td is not None:
             self.tier_maintenance()
+        # the controller's seam (executor.py:5911-5916): at most one knob
+        # move an interval, between dispatches
+        if self.controller is not None and self.td is not None:
+            self.controller.service()
 
     def cycle_end(self) -> None:
         interval = self.env.checkpoint_interval_steps
@@ -1264,9 +1408,12 @@ class _WindowJob(StageJob):
         """Apply one planned batch of one pane group (the reference's
         _apply_planned, executor.py:5808-5882): the watermark, the time
         jump guard, then into the drain group (resident modes: it fires
-        in the drain) or one update step and, when the watermark crossed
-        a pane, the fire steps (the split path). Returns True while the
-        batch waits in the group (its offsets are not applied yet)."""
+        in the drain), into the megastep group (K above 1: flushed when
+        full, on a route or staging change and, without fused fire, at a
+        fire boundary, whose fire steps then run), or one update step and,
+        when the watermark crossed a pane, the fire steps (the split
+        path). Returns True while the batch waits in the group (its
+        offsets are not applied yet)."""
         wm_ms = self.wm_strategy.on_batch(pb.ts_max)
         self.time_jump(wm_ms, pb.ticks_min, pb.ticks_max)
         staged = pb.staged
@@ -1276,7 +1423,7 @@ class _WindowJob(StageJob):
                 self.device, self.B, pb.hi, pb.lo, pb.ticks, pb.values,
                 pb.n, *self.value_layout())
         if self.drain is not None:
-            self.group.push(staged, wm_ms, pb)
+            self.group.push(staged, wm_ms, pb, pb.route)
             self.metrics.steps += 1
             # with lateness every batch fires eagerly (the next batch's
             # update must see the re-fires of this one), so it drains alone
@@ -1284,12 +1431,28 @@ class _WindowJob(StageJob):
                 self.dispatch()
                 return False
             return True
-        self.run_update(staged, wm_ms, pb)
         wp = self.wm_pane_of(wm_ms)
-        if self.lateness_ms or wp > self.host_fired_pane:
+        fire_now = bool(self.lateness_ms) or wp > self.host_fired_pane
+        deferred = False
+        if self.mega is not None:
+            # a fused-fire group holds across crossings: its flush fires
+            # them (fused_fire_bookkeep)
+            in_scan = self.group.hold_fires
+            staged_mode = pb.staged is not None
+            if not self.group.compatible(pb.route, staged_mode):
+                self.dispatch()
+            self.group.push(staged, wm_ms, pb, pb.route, staged_mode)
+            if self.group.full() or (fire_now and not in_scan):
+                self.dispatch()
+            else:
+                deferred = True
+            fire_now = fire_now and not in_scan
+        else:
+            self.run_update(staged, wm_ms, pb)
+        if fire_now:
             self.fire_until_done(wm_ms, time.perf_counter())
             self.host_fired_pane = wp
-        return False
+        return deferred
 
     def value_layout(self):
         """The staged values column: (numpy dtype, per-lane shape)."""
@@ -1387,12 +1550,7 @@ class _WindowJob(StageJob):
         self.state, mon = step(self.state, hi, lo, ts, values, valid, wm,
                                kg_res=self.kg_res)
         self.note_dispatch(time.perf_counter())
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record()
-            self.inflight.append(ev)
-            if len(self.inflight) > self.max_inflight:
-                self.inflight.popleft().synchronize()
+        self.pace()
         if wm_ms is not None:
             self.wm_dev = max(self.wm_dev, self.wm_ticks(wm_ms))
         self.metrics.steps += 1
@@ -1404,6 +1562,16 @@ class _WindowJob(StageJob):
                 self.mon_skip = 0
                 self.mon_watch.append(mon + (1,))
                 self.check_overflow_pressure()
+
+    def pace(self) -> None:
+        """On CUDA, wait on the event of the dispatch
+        ``pipeline.max-inflight-steps`` back, never on the whole device."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self.inflight.append(ev)
+            if len(self.inflight) > self.max_inflight:
+                self.inflight.popleft().synchronize()
 
     def check_overflow_pressure(self) -> None:
         """Read the monitoring sample OVF_LAG samples back (the reference's
@@ -1425,7 +1593,10 @@ class _WindowJob(StageJob):
     def drain_overflow(self) -> None:
         """The ring into the spill stores, then a hash table's compaction
         (the reference's drain_overflow); the queued fill samples go
-        stale, their key-group counts are kept."""
+        stale, their key-group counts are kept. A fused-fire megastep's
+        unread fires are emitted first: their per-sub-step fills index
+        the ring as it stands."""
+        self.consume()
         n = int(self.state.ovf_n)
         if not n:
             return
@@ -1437,19 +1608,125 @@ class _WindowJob(StageJob):
                                n_batches)
         self.after_ring_drain()
 
+    # -- megasteps ---------------------------------------------------------
+    def flush_fused(self) -> None:
+        """Dispatch what the megastep group holds (the reference's
+        flush_fused, executor.py:4445-4550): a full group as one megastep,
+        a partial one as single update steps, then mark the last batch's
+        offsets applied — the megastep-boundary cut. A fused-fire group
+        also settles its crossings here (``fused_fire_bookkeep``)."""
+        _route, _staged, items = self.group.drain()
+        full = len(items) == self.mode.k_fuse
+        if full:
+            self.run_update_fused(items)
+        else:
+            for args, wm_ms, pb in items:
+                self.run_update(args, wm_ms, pb)
+            self.fuse_depth = 1
+        last_pb = items[-1][2]
+        if last_pb is not None:
+            self.ingest.mark_applied(last_pb)
+        if self.group.hold_fires:
+            self.fused_fire_bookkeep(items, full)
+
+    def run_update_fused(self, items) -> None:
+        """Dispatch one K-step megastep over a full group (the reference's
+        run_update_fused, executor.py:4136-4226), on the fast tier when
+        the tiering chose it; the sub-steps' watermarks go to the card as
+        one pinned [K] copy. A fused-fire megastep's fires wait in
+        ``pending`` and are read before the next dispatch (its arena is
+        reused), with its ring fills, so the spill tier folds each
+        sub-step's share of the ring before that sub-step's fires. The
+        monitoring sample has the single step's shapes, ``mon_skip``
+        advances by K and its key-group fill counts K batches."""
+        self.consume()
+        K = len(items)
+        fast = self.step_mode == "fast" and self.mega["fast"] is not None
+        step = self.mega["fast" if fast else "insert"]
+        slots = [ingest_mod.adopt(pb) if pb is not None
+                 and pb.staged is not None else args
+                 for args, _wm, pb in items]
+        wms = [self.wm_ticks(w) for _a, w, _pb in items]
+        wmv = self.to_device_i32(wms)
+        # the device-loss seam of a dispatch, as the reference's
+        faults.inject("step.dispatch", step=self.metrics.steps, k=K)
+        out = step(self.state, slots, wmv, self.kg_res)
+        t_disp = time.perf_counter()
+        self.note_dispatch(t_disp)
+        self.state, mon = out[:2]
+        m = self.metrics
+        if step.fused_fire:
+            self.pending = (out[2], K, max(w for _a, w, _pb in items), mon,
+                            t_disp, None, 0, False)
+            m.fused_fire_dispatches += 1
+            mon = (mon[0][-1],) + mon[1:]
+        self.pace()
+        self.wm_dev = max([self.wm_dev] + wms)
+        m.steps += K
+        m.fused_dispatches += 1
+        self.fuse_depth = K
+        if fast:
+            m.steps_fast += K
+        if self.spec.win.overflow or self.kg_stats:
+            self.mon_skip += K
+            if self.mon_skip >= MON_EVERY:
+                self.mon_skip = 0
+                self.mon_watch.append(mon + (K,))
+                self.check_overflow_pressure()
+
+    def fused_fire_bookkeep(self, items, fired_in_scan: bool) -> None:
+        """The crossings of a fused-fire flush (the reference's
+        _fused_fire_bookkeep, executor.py:4552-4600): a full group fired
+        up to F lanes a sub-step inside the megastep, leftovers rolling to
+        the next sub-step; the host models that lane budget (each crossing
+        adds its panes, at most the ring plus a window's panes, and each
+        fired sub-step retires F) and runs the fire steps when the model
+        leaves a backlog, when a partial group ran as single steps over a
+        crossing, or, with allowed lateness, after every group (its
+        re-fires depend on the data). It also brings ``host_fired_pane``
+        up to the group's last watermark."""
+        win = self.spec.win
+        cap = win.ring + win.size_ticks // win.slide_ticks
+        backlog = 0
+        prev = self.host_fired_pane
+        last_wm = None
+        crossed = False
+        for _args, wm_ms, _pb in items:
+            if wm_ms is None:
+                continue
+            last_wm = wm_ms
+            wp = self.wm_pane_of(wm_ms)
+            if wp > prev:
+                crossed = True
+                backlog += min(wp - prev, cap)
+                prev = wp
+            if fired_in_scan:
+                backlog = max(0, backlog - win.fires_per_step)
+        if last_wm is None:
+            return
+        self.host_fired_pane = max(self.host_fired_pane, prev)
+        eager = bool(self.lateness_ms)
+        if backlog > 0 or (not fired_in_scan and (crossed or eager)) \
+                or (eager and fired_in_scan):
+            self.fire_until_done(last_wm, time.perf_counter())
+
     # -- drains and fires --------------------------------------------------
     def dispatch(self) -> None:
-        """Queue one ring drain over the drain group (the reference's
-        run_update_resident, executor.py:4223-4443), on the fast step
-        when the tiering chose it, then release the ring slots it read
-        and mark its last batch applied. The previous drain's fires are
-        read first: they may call for watermark-only fires that must
-        precede this drain's updates, and they settle the tier. A chained
-        job's flush they call for runs once this drain is queued."""
+        """Dispatch what the fused slot holds: a megastep group through
+        ``flush_fused``, else one ring drain over the drain group (the
+        reference's run_update_resident, executor.py:4223-4443), on the
+        fast step when the tiering chose it, then release the ring slots
+        it read and mark its last batch applied. The previous drain's
+        fires are read first: they may call for watermark-only fires that
+        must precede this drain's updates, and they settle the tier. A
+        chained job's flush they call for runs once this drain is
+        queued."""
         if not len(self.group):
             return
+        if self.drain is None:
+            return self.flush_fused()
         self.consume()
-        items = self.group.drain()
+        _route, _staged, items = self.group.drain()
         count = len(items)
         slots = [ingest_mod.adopt(pb) if pb is not None
                  and pb.staged is not None else args
@@ -1525,7 +1802,7 @@ class _WindowJob(StageJob):
         t_lat = t_disp if self.flush_t is None else self.flush_t
         self.pending = (fires, count,
                         last_wm if last_wm is not None else self.wm_dev_ms(),
-                        mon, t_lat, ds, kg_batches)
+                        mon, t_lat, ds, kg_batches, True)
         self.metrics.resident_drains += 1
         if fast:
             self.metrics.steps_fast += count
@@ -1550,7 +1827,8 @@ class _WindowJob(StageJob):
         due."""
         if self.pending is None:
             return
-        fires, count, last_wm, mon, t_lat, ds, kg_batches = self.pending
+        fires, count, last_wm, mon, t_lat, ds, kg_batches, follow = \
+            self.pending
         self.pending = None
         fires_before = self.metrics.fires
         lanes = self.emit(fires, mon, ds, kg_batches)
@@ -1569,7 +1847,8 @@ class _WindowJob(StageJob):
                     self.flush_owed = (last_wm, time.perf_counter())
                 else:
                     self.drain_chained(last_wm, time.perf_counter())
-        elif self.lateness_ms or self.lanes_full(lanes[count - 1]):
+        elif follow and (self.lateness_ms
+                         or self.lanes_full(lanes[count - 1])):
             self.fire_until_done(last_wm, time.perf_counter())
 
     def lanes_full(self, lanes) -> bool:
@@ -1733,6 +2012,7 @@ class _WindowJob(StageJob):
                 n = int(counts.sum())
                 if n:
                     self.metrics.fires += n
+                    self.metrics.records_out += n
                     for s in self.pipe.sinks:
                         s.invoke_reduced(n, float((vsums * lanes).sum()))
             elif counts.any():
@@ -2034,7 +2314,10 @@ class _WindowJob(StageJob):
 
     def pipeline_report(self) -> dict:
         """The reference's ``env._pipeline_report`` (executor.py:3772-
-        3802): the flight recorder's report, or why there is none."""
+        3802): the flight recorder's report, or why there is none. It
+        also carries ``steps_per_dispatch``, the K of the last dispatch (1
+        for single steps and partial groups), which the reference serves
+        as a gauge of its metric groups (not ported: item 15)."""
         if self.telem is None:
             rep = _no_pipeline_report()
         else:
@@ -2043,7 +2326,135 @@ class _WindowJob(StageJob):
         if self.tier_mgr is not None:
             # tiered jobs stay observable with drain-stats off
             rep["tiers"] = self.tier_mgr.report()
+        rep["steps_per_dispatch"] = self.fuse_depth
         return rep
+
+    def doctor_report(self) -> dict:
+        """The reference's ``env._doctor_report`` (executor.py:3814-3877):
+        the telemetry planes the port has joined into one snapshot —
+        ``pipeline``, ``metrics`` (the gauge fields), ``checkpoints`` and
+        ``fire_latency_ms`` — and the copied rule engine's ranked findings
+        over it, with the snapshot and the ``observability.doctor.*``
+        thresholds embedded, so that ``python -m flink_tpu_torch.doctor``
+        replays the diagnosis. The ``compile`` plane is left out (eager
+        steps compile nothing per shape; its rule finds nothing), and so
+        is ``recovery`` (item 13)."""
+        cfg = self.env.config
+        if not cfg.get(CoreOptions.DOCTOR):
+            return {"available": False, "reason": "observability.doctor off"}
+        m = self.metrics
+        snapshot = {
+            "pipeline": self.pipeline_report(),
+            "metrics": {f: getattr(m, f, 0) for f in JobMetrics.GAUGE_FIELDS},
+            "checkpoints": list(m.checkpoint_stats or []),
+            "fire_latency_ms": {"p50": m.fire_latency_pct(50),
+                                "p99": m.fire_latency_pct(99)},
+        }
+        thresholds = {
+            "starved": cfg.get(CoreOptions.DOCTOR_STARVED_THRESHOLD),
+            "saturated": cfg.get(CoreOptions.DOCTOR_SATURATED_THRESHOLD),
+            "edge_utilization": cfg.get(
+                CoreOptions.DOCTOR_EDGE_UTILIZATION_THRESHOLD),
+            "kg_skew": cfg.get(CoreOptions.DOCTOR_KG_SKEW_THRESHOLD),
+            "recompile": cfg.get(CoreOptions.DOCTOR_RECOMPILE_THRESHOLD),
+            "tier_churn": cfg.get(CoreOptions.DOCTOR_TIER_CHURN_THRESHOLD),
+            "tier_miss": cfg.get(CoreOptions.DOCTOR_TIER_MISS_THRESHOLD),
+        }
+        payload = diagnose(snapshot, thresholds)
+        payload["snapshot"] = snapshot
+        payload["thresholds"] = thresholds
+        return payload
+
+    # -- the self-tuning controller ----------------------------------------
+    def build_controller(self) -> controller_mod.RuntimeController:
+        """The reference's controller wiring (executor.py:5640-5806), its
+        actuators where the reference registers them: ``ring-fill-target``
+        (the drain group's capacity) in the resident modes,
+        ``dispatch-group`` (the megastep group's) with K above 1,
+        ``drain-stats-cadence`` with the flight recorder on, and
+        ``tier-prefetch-ahead`` with tiered state. Each is a host
+        attribute write: a move changes only the next group."""
+        cfg = self.env.config
+        acts = {}
+        group = self.group
+        if self.mode.resident:
+            acts["ring-fill-target"] = controller_mod.Actuator(
+                "ring-fill-target", lambda: int(group.k),
+                lambda v: setattr(group, "k", int(v)), lo=1, hi=self.depth)
+        elif self.mode.k_fuse > 1:
+            acts["dispatch-group"] = controller_mod.Actuator(
+                "dispatch-group", lambda: int(group.k),
+                lambda v: setattr(group, "k", int(v)), lo=1,
+                hi=self.mode.k_fuse)
+        if self.drain_stats:
+            def ds_set(v):
+                self.drain_stats_every = max(1, int(v))
+
+            acts["drain-stats-cadence"] = controller_mod.Actuator(
+                "drain-stats-cadence", lambda: int(self.drain_stats_every),
+                ds_set, lo=1, hi=64)
+        if self.tier_budget > 0:
+            def tp_get():
+                if self.tier_mgr is not None:
+                    return int(self.tier_mgr.prefetch_ahead_panes)
+                return int(cfg.get(
+                    CoreOptions.STATE_TIERS_PREFETCH_AHEAD_PANES))
+
+            def tp_set(v):
+                if self.tier_mgr is not None:
+                    self.tier_mgr.prefetch_ahead_panes = max(0, int(v))
+
+            acts["tier-prefetch-ahead"] = controller_mod.Actuator(
+                "tier-prefetch-ahead", tp_get, tp_set, lo=0, hi=16,
+                step="additive")
+        return controller_mod.RuntimeController(
+            acts, self.controller_sensor,
+            findings_fn=lambda: (self.doctor_report() or {}).get(
+                "findings") or [],
+            rebalancer=self.controller_rebalance,
+            interval_cycles=int(cfg.get(
+                CoreOptions.CONTROLLER_INTERVAL_CYCLES)),
+            revert_threshold=float(cfg.get(
+                CoreOptions.CONTROLLER_REVERT_THRESHOLD)),
+            probation_cycles=int(cfg.get(
+                CoreOptions.CONTROLLER_PROBATION_CYCLES)),
+            cooldown_cycles=int(cfg.get(
+                CoreOptions.CONTROLLER_COOLDOWN_CYCLES)),
+            rebalance_threshold=float(cfg.get(
+                CoreOptions.CONTROLLER_REBALANCE_THRESHOLD)),
+            min_rebalance_interval=float(cfg.get(
+                CoreOptions.CONTROLLER_MIN_REBALANCE_INTERVAL)),
+            min_gain=float(cfg.get(CoreOptions.CONTROLLER_MIN_GAIN)),
+            persist_dir=self.env.checkpoint_dir or None)
+
+    def controller_sensor(self) -> dict:
+        """The planes the controller decides on, all host values the loop
+        already read: events in, the recorder's regime and key-group heat,
+        and the shard's key-group range (one shard owns them all)."""
+        duty = starved = heat = None
+        if self.telem is not None:
+            duty, starved = self.telem.regime()
+            h = getattr(self.telem, "_kg_heat", None)
+            if h is not None and len(h) == self.maxp:
+                heat = np.array(h, np.float64)
+        return {"records": int(self.metrics.records_in), "duty": duty,
+                "starved": starved, "heat": heat, "kg_starts": [0],
+                "kg_ends": [self.maxp - 1]}
+
+    def controller_rebalance(self, starts, ends) -> None:
+        """The rebalance arm re-slices the shards' key-group ranges through
+        the reference's savepoint-cut rescale, which needs more than one
+        shard: with one shard the arm's skew test never fires."""
+        raise _unsupported("the controller's live key-group rebalance "
+                           "(the savepoint-cut rescale across shards)",
+                           "ROADMAP queue 1, item 10")
+
+    def controller_report(self) -> dict:
+        """The reference's ``env._controller_report``: the decision ledger
+        and the actuators, or the off stub."""
+        if self.controller is None:
+            return _no_controller_report()
+        return self.controller.report()
 
     # -- the spill tier ----------------------------------------------------
     def tier(self, act: int) -> None:

@@ -385,34 +385,63 @@ class DeviceBatchRing:
 # ------------------------------------------------------- drain group
 
 class FusedBatchAccumulator:
-    """The drain group (the reference's fused-dispatch slot, at one route
-    and always staged): up to ``k`` batches that the step loop hands to
-    one drain dispatch. The flush triggers (full, a catch-up span, an
-    idle poll, end of stream, a checkpoint cut, a restore) are the step
-    loop's. A batch in the group has not been dispatched, so its offsets
-    become the applied cut only at the flush."""
+    """The fused-dispatch slot (the reference's): up to ``k`` consecutive
+    planned batches that share a route and a staging mode, which the step
+    loop hands to one dispatch — a K-step megastep
+    (``pipeline.steps-per-dispatch``, ``runtime/step.py
+    build_window_megastep*``) or, in the resident modes, one ring drain.
+    The flush triggers (full, a route or staging change, an idle poll,
+    end of stream, a checkpoint cut, a restore, the time-jump fire and,
+    without ``hold_fires``, a fire boundary) are the step loop's; this
+    class keeps the slot's bookkeeping so that the grouping contract is
+    testable on its own.
 
-    def __init__(self, k: int):
+    ``hold_fires`` records that the dispatch fires inside itself (the
+    fused-fire megastep, ``pipeline.fused-fire``, and every ring drain):
+    a pane crossing inside the group no longer breaks it. Without it the
+    step loop flushes at every fire boundary, so that the separate fire
+    steps see every pending update.
+
+    A batch in the slot has not been dispatched, so its offsets become
+    the applied cut only at the flush, which marks the last flushed
+    batch applied (the megastep-boundary cut)."""
+
+    def __init__(self, k: int, hold_fires: bool = False):
         self.k = max(1, int(k))
-        self.items: list = []      # [(staged 5-tuple, wm_ms, pb)]
+        self.hold_fires = bool(hold_fires)
+        self.items: list = []      # [(staged 5-tuple, wm_ms | None, pb)]
+        self.route: Optional[str] = None
+        self.staged: Optional[bool] = None
 
     def __len__(self):
         return len(self.items)
 
-    def push(self, args: Tuple, wm_ms, pb):
+    def compatible(self, route: str, staged: bool) -> bool:
+        """Can a batch of this route and staging mode join the group?"""
+        return not self.items or (route == self.route
+                                  and staged == self.staged)
+
+    def push(self, args: Tuple, wm_ms, pb, route: str = "mask",
+             staged: bool = True):
+        if not self.items:
+            self.route, self.staged = route, staged
         self.items.append((args, wm_ms, pb))
 
     def full(self) -> bool:
         return len(self.items) >= self.k
 
-    def drain(self) -> list:
-        """Take the group's items; the group is empty after."""
+    def drain(self):
+        """Take the group: ``(route, staged, items)``; the slot is empty
+        after."""
         items, self.items = self.items, []
-        return items
+        route, staged = self.route, self.staged
+        self.route = self.staged = None
+        return route, staged, items
 
     def clear(self):
         """Restore path: the pending batches replay from the source."""
         self.items = []
+        self.route = self.staged = None
 
 
 # ------------------------------------------------------------- pipeline

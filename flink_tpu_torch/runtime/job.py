@@ -110,10 +110,12 @@ class StageJob:
         return np.asarray(ts_ms, np.int64)
 
     def sinks_columnar(self, cols) -> None:
+        self.metrics.records_out += len(next(iter(cols.values())))
         for s in self.pipe.sinks:
             s.invoke_columnar(cols)
 
     def sinks_rows(self, rows) -> None:
+        self.metrics.records_out += len(rows)
         for s in self.pipe.sinks:
             s.invoke_batch(rows)
 

@@ -1,7 +1,7 @@
 """Stage steps on one device — the window stage (the split path's update
-and fire steps, its resident scan drain and while-drain, and the chained
-drain of consecutive window stages), the session, count-window and
-rolling stages of flink_tpu/runtime/step.py.
+and fire steps, the K-step megasteps, the resident scan drain and
+while-drain, and the chained drain of consecutive window stages), the
+session, count-window and rolling stages of flink_tpu/runtime/step.py.
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
@@ -9,8 +9,8 @@ function over a ``WindowShardState`` whose tensors it updates in place,
 and a drain is a Python slot loop that enqueues the kernels of
 ``ops/cuda.py`` on one stream without reading anything back between slots
 (the while-drain's bound is a host cursor, read under its ring's lock).
-(Capturing the slot loops as CUDA graphs is later work: ROADMAP queue 1,
-item 5.)
+(Capturing the slot loops and the megasteps, whose K and B are fixed, as
+CUDA graphs is later work: ROADMAP queue 1, item 5.)
 """
 
 from __future__ import annotations
@@ -108,6 +108,44 @@ def _skip_fires(F: int, device, rows=None):
     return wk.CompactFires(*rows, *small)
 
 
+def fire_slot(state: wk.WindowShardState, spec: WindowStageSpec, slot: Slot,
+              wm, max_parallelism: int, pend, insert: bool = True,
+              kg_fill: bool = False, fill_out=None, kg_res=None,
+              reduced: bool = True, out=None, stats=None):
+    """One slot of the drains and one sub-step of the fused-fire megastep
+    (the reference shares ``mask_update_shard`` and
+    ``advance_and_fire_resident`` between them): the update with the
+    previous slot's deferred purge ``pend`` folded into its ring-reset
+    sweep (G1-G3; G5 or G8; G7), the watermark advanced to ``wm``, then
+    the resident advance and fire (G4 reduced, else G6 into ``out``, the
+    slot's [Ft, C] row buffers), its purge deferred. ``fill_out`` takes
+    the slot's key-group fill (``kg_fill``). ``stats``, the flight
+    recorder's ``(row, lane_stats, snap, defer)`` for this slot, brackets
+    the slot with G18's companion and G18. Returns ``(state, pend, fires,
+    activity, fill)``: ``fill`` the overflow ring's fill after the
+    update, int32 0-d."""
+    hi, lo, ts, values, valid = slot
+    if stats is not None:
+        row, lane_stats, snap, defer = stats
+        kernels.slot_stats_begin(state.watermark, state.dropped_late,
+                                 state.dropped_capacity, snap)
+    _st, act, _kgf = mask_update_shard(
+        state, spec, 0, max_parallelism - 1, hi, lo, ts, values, valid, wm,
+        max_parallelism, clear_rows=pend, insert=insert, kg_fill=kg_fill,
+        fill_out=fill_out, lane_stats=None if stats is None else lane_stats,
+        kg_res=kg_res)
+    fill = state.ovf_n.clone()
+    state, pend, fr = wk.advance_and_fire_resident(
+        state, spec.win, spec.red, wm, reduced=reduced, out=out)
+    if stats is not None:
+        kernels.slot_stats(
+            row, lane_stats, act, fr.lane_valid, fr.counts,
+            state.dropped_late, state.dropped_capacity, state.ovf_n,
+            fill_out if kg_fill else None, state.watermark, snap,
+            slide=spec.win.slide_ticks, defer=defer)
+    return state, pend, fr, act, fill
+
+
 def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                                 max_parallelism: int, reduced: bool = True,
                                 insert: bool = True, arena=None,
@@ -166,7 +204,6 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     between drains, and the drain is not rebuilt."""
     D = int(depth)
     F = spec.win.fire_lanes
-    kg_end = max_parallelism - 1
     # the compact drains' (key_hi, key_lo, values) arena, made at first use
     arena = [None] if arena is None else arena
 
@@ -195,29 +232,16 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
             if i >= count:
                 fires.append(_skip_fires(F, dev, slot_rows))
                 continue
-            hi, lo, ts, values, valid = slots[i]
-            wm = wmv[i]
-            if drain_stats:
-                kernels.slot_stats_begin(state.watermark, state.dropped_late,
-                                         state.dropped_capacity, snaps[i])
-            _st, act, _kgf = mask_update_shard(
-                state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
-                max_parallelism, clear_rows=pend, insert=insert,
-                kg_fill=kg_fill, fill_out=kgf[i] if kg_fill else None,
-                lane_stats=lane_stats[i] if drain_stats else None,
-                kg_res=kg_res)
+            state, pend, fr, act, fill = fire_slot(
+                state, spec, slots[i], wmv[i], max_parallelism, pend,
+                insert=insert, kg_fill=kg_fill,
+                fill_out=kgf[i] if kg_fill else None, kg_res=kg_res,
+                reduced=reduced, out=slot_rows,
+                stats=((ds[i], lane_stats[i], snaps[i], defer_fires)
+                       if drain_stats else None))
             activity += act
-            fills.append(state.ovf_n.clone())
-            state, pend, fr = wk.advance_and_fire_resident(
-                state, spec.win, spec.red, wm, reduced=reduced,
-                out=slot_rows)
+            fills.append(fill)
             fires.append(fr)
-            if drain_stats:
-                kernels.slot_stats(
-                    ds[i], lane_stats[i], act, fr.lane_valid, fr.counts,
-                    state.dropped_late, state.dropped_capacity, state.ovf_n,
-                    kgf[i] if kg_fill else None, state.watermark, snaps[i],
-                    slide=spec.win.slide_ticks, defer=defer_fires)
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
         if not fills:
@@ -295,7 +319,6 @@ def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
     another drain's). Nothing is read back to the host."""
     D = int(max_slots)
     Ft = spec.win.fire_lanes
-    kg_end = max_parallelism - 1
     arena = [None] if arena is None else arena
 
     def drain(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
@@ -323,33 +346,21 @@ def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
         pend = None
         i = 0
         while i < _while_drain_limit(live(), base, staged, D):
-            hi, lo, ts, values, valid = slots[i]
-            wm = wmv[i]
-            if drain_stats:
-                kernels.slot_stats_begin(state.watermark, state.dropped_late,
-                                         state.dropped_capacity, snaps[i])
-            _st, act, _kgf = mask_update_shard(
-                state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
-                max_parallelism, clear_rows=pend, insert=insert,
-                kg_fill=kg_fill, fill_out=kgf[i] if kg_fill else None,
-                lane_stats=lane_stats[i] if drain_stats else None,
-                kg_res=kg_res)
+            state, pend, fr, act, fill = fire_slot(
+                state, spec, slots[i], wmv[i], max_parallelism, pend,
+                insert=insert, kg_fill=kg_fill,
+                fill_out=kgf[i] if kg_fill else None, kg_res=kg_res,
+                reduced=reduced,
+                out=None if rows is None else tuple(r[i] for r in rows),
+                stats=((ds[i], lane_stats[i], snaps[i], False)
+                       if drain_stats else None))
             activity += act
-            fills.append(state.ovf_n.clone())
-            state, pend, fr = wk.advance_and_fire_resident(
-                state, spec.win, spec.red, wm, reduced=reduced,
-                out=None if rows is None else tuple(r[i] for r in rows))
+            fills.append(fill)
             # row i of each small field (the reference's dynamic update)
             for buf, v in zip(stacked, (fr.counts, fr.window_end_ticks,
                                         fr.n_fires, fr.lane_valid,
                                         fr.value_sums)):
                 buf[i].copy_(v)
-            if drain_stats:
-                kernels.slot_stats(
-                    ds[i], lane_stats[i], act, fr.lane_valid, fr.counts,
-                    state.dropped_late, state.dropped_capacity, state.ovf_n,
-                    kgf[i] if kg_fill else None, state.watermark, snaps[i],
-                    slide=spec.win.slide_ticks)
             i += 1
         if pend is not None:
             wk.apply_pending_purge(state, spec.win, spec.red, pend)
@@ -372,6 +383,126 @@ def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
     drain.max_slots = D
     drain.while_drain = True
     return drain
+
+
+def _check_megastep_call(K: int, slots, wmv, tiered: bool, kg_res) -> None:
+    if len(slots) != K or wmv.numel() < K:
+        raise ValueError(f"a K = {K} megastep handed {len(slots)} batches "
+                         f"and {wmv.numel()} watermarks")
+    if tiered != (kg_res is not None):
+        raise ValueError("a tiered megastep takes the residency mask, an "
+                         "untiered one none")
+
+
+def build_window_megastep(spec: WindowStageSpec, k_steps: int,
+                          max_parallelism: int, insert: bool = True,
+                          kg_fill: bool = False, tiered: bool = False):
+    """K-step dispatch fusion for one device (pipeline.steps-per-dispatch;
+    the reference's ``build_window_megastep`` at one shard): K staged
+    batches applied in one dispatch, each sub-step the single update
+    step's body (``mask_update_shard``: late checks against the pre-batch
+    watermark, the watermark advanced per batch), so the state equals K
+    sequential single steps' bit for bit. ``insert=False`` is the
+    lookup-only fast variant (G8).
+
+    ``megastep(state, slots, wmv[, kg_res])``: ``slots`` a sequence of K
+    staged batches ``(hi, lo, ticks, values, valid)`` (the drains' slots,
+    never stacked into [K, B]: the reference stacks them only for its
+    scan's operands), ``wmv`` an int32 [K] device tensor of per-batch
+    watermarks, ``kg_res`` the residency mask of tiered state (``tiered``
+    builds that variant). Returns ``(state, (ovf_n, activity,
+    kg_fill))`` with the single step's shapes: ``ovf_n`` the overflow
+    ring's fill after the last sub-step (the fill only grows within a
+    dispatch), ``activity`` and ``kg_fill`` summed over the K sub-steps
+    (int32 0-d and [max_parallelism], [0] with the fill off), all on the
+    device; the state is updated in place. Nothing is read back."""
+    K = int(k_steps)
+    kg_end = max_parallelism - 1
+
+    def megastep(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
+                 kg_res=None):
+        _check_megastep_call(K, slots, wmv, tiered, kg_res)
+        i32 = dict(dtype=torch.int32, device=state.device)
+        activity = torch.zeros((), **i32)
+        kgf = torch.zeros(max_parallelism if kg_fill else 0, **i32)
+        for i in range(K):
+            hi, lo, ts, values, valid = slots[i]
+            _st, act, _kgf = mask_update_shard(
+                state, spec, 0, kg_end, hi, lo, ts, values, valid, wmv[i],
+                max_parallelism, insert=insert, kg_fill=kg_fill,
+                fill_out=kgf if kg_fill else None, kg_res=kg_res)
+            activity += act
+        return state, (state.ovf_n.clone(), activity, kgf)
+
+    megastep.fused_fire = False
+    return megastep
+
+
+def build_window_megastep_fired(spec: WindowStageSpec, k_steps: int,
+                                max_parallelism: int, insert: bool = True,
+                                kg_fill: bool = False, reduced: bool = False,
+                                tiered: bool = False, arena=None):
+    """The fused-fire megastep for one device (pipeline.fused-fire; the
+    reference's ``build_window_megastep_fired`` at one shard): each of the
+    K sub-steps is the drains' slot body (``fire_slot``: the update, then
+    the resident advance and fire under the sub-step's own watermark, its
+    purge deferred into the next sub-step's ring-reset sweep), and the
+    last deferred purge is applied after the loop, so the state equals K
+    sequential update-then-fire steps' bit for bit and a pane crossing
+    inside the group fires within the dispatch. With allowed lateness
+    each sub-step's fire is the classic advance (F on-time and F re-fire
+    lanes, purged at once), as the reference's.
+
+    ``megastep(state, slots, wmv[, kg_res])`` as for
+    ``build_window_megastep``. Returns ``(state, (ovf_n, activity,
+    kg_fill), fires)``: ``fires`` stacked [K, Ft], sub-step i's payload
+    under sub-step i's watermark — ReducedFires (G4) with ``reduced``,
+    else CompactFires (G6) whose rows land in one [K, Ft, C] arena made at
+    the first call and reused by every later one, K·Ft·C·(8 + 4 W) bytes,
+    so a dispatch's rows must be read before the next dispatch runs
+    (``arena`` shares another megastep's). ``ovf_n`` is int32 [K], the
+    overflow ring's fill after each sub-step's update: its last entry is
+    the reference's post-scan fill, the others let the consumer fold each
+    sub-step's share of the ring before that sub-step's fires, as it does
+    for a drain. Nothing is read back to the host."""
+    K = int(k_steps)
+    Ft = spec.win.fire_lanes
+    arena = [None] if arena is None else arena
+
+    def megastep(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
+                 kg_res=None):
+        _check_megastep_call(K, slots, wmv, tiered, kg_res)
+        if not reduced and arena[0] is None:
+            arena[0] = wk.fire_row_buffers(K, Ft, state.capacity,
+                                           state.device, red=spec.red)
+        rows = None if reduced else arena[0]
+        i32 = dict(dtype=torch.int32, device=state.device)
+        activity = torch.zeros((), **i32)
+        kgf = torch.zeros(max_parallelism if kg_fill else 0, **i32)
+        pend, fires, fills = None, [], []
+        for i in range(K):
+            state, pend, fr, act, fill = fire_slot(
+                state, spec, slots[i], wmv[i], max_parallelism, pend,
+                insert=insert, kg_fill=kg_fill,
+                fill_out=kgf if kg_fill else None, kg_res=kg_res,
+                reduced=reduced,
+                out=None if rows is None else tuple(r[i] for r in rows))
+            activity += act
+            fills.append(fill)
+            fires.append(fr)
+        if pend is not None:
+            wk.apply_pending_purge(state, spec.win, spec.red, pend)
+        return (state, (torch.stack(fills), activity, kgf),
+                _stack_fires(fires, rows))
+
+    def arena_rows(d: int):
+        """Sub-step ``d``'s [Ft, C] row views of the arena (compact)."""
+        return None if arena[0] is None else tuple(r[d] for r in arena[0])
+
+    megastep.fused_fire = True
+    megastep.arena = arena
+    megastep.arena_rows = arena_rows
+    return megastep
 
 
 # ------------------------------------------- chained keyed window stages

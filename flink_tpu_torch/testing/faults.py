@@ -28,6 +28,10 @@ subsystems the port has not taken yet):
     step.drain              runtime/executor, before every resident ring
                             drain dispatch — the mid-drain crash seam of
                             the exactly-once tests
+    step.dispatch           runtime/executor, before every K-step megastep
+                            dispatch — a crash inside a fused group (the
+                            reference also hits it before each single step
+                            and drain)
     ingest.producer         runtime/ingest IngestPipeline._producer,
                             before each prep on the prefetch thread and
                             outside its error delivery: a raise there

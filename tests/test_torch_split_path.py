@@ -16,8 +16,8 @@ reference's on the CPU:
   on and off where the mode allows it, every row equal to the
   reference's under the same configuration and to numpy's;
 * the resolution: ``auto`` at ``steps-per-dispatch`` 1 runs the split
-  steps (no drain), ``off`` too, the modes' errors are the reference's,
-  and ``steps-per-dispatch`` 2 is refused naming its ROADMAP item.
+  steps (no drain), ``off`` too, and the modes' errors are the
+  reference's.
 
 Integer-valued data, so everything compares bit for bit.
 """
@@ -228,21 +228,30 @@ def test_every_mode_gives_the_reference_rows(mode, prefetch, monkeypatch):
 
 
 def test_modes_resolve_with_the_reference_errors():
-    """Invalid knob values and the megastep refusal: the port raises the
-    reference's texts; ``steps-per-dispatch`` 2 names its ROADMAP item."""
+    """Invalid knob values: the port raises the reference's texts, and
+    ``pipeline.data-parallel: on`` without the resident loop too; with it
+    (the sharded drain) the port names its ROADMAP item.
+    ``steps-per-dispatch`` 2 runs (its megasteps:
+    tests/test_torch_megastep.py)."""
     for cfg in ({"pipeline.prefetch": "sometimes"},
                 {"pipeline.device-staging": "sometimes"},
                 {"pipeline.resident-loop": "always"},
                 {"pipeline.fused-fire": "sometimes"},
                 {"pipeline.device-staging": "off",
-                 "pipeline.resident-loop": "on"}):
+                 "pipeline.resident-loop": "on"},
+                {"pipeline.data-parallel": "on"},
+                {"pipeline.data-parallel": "sometimes"},
+                {"pipeline.shard-capacity-factor": 0.5}):
         with pytest.raises(ValueError) as got:
             run_job(build_env(**cfg), 512)
         with pytest.raises(ValueError) as want:
             run_job(build_env(pkg="jax", **cfg), 512, pkg="jax")
         assert str(got.value) == str(want.value), cfg
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_job(build_env(**{"pipeline.steps-per-dispatch": 2}), 512)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run_job(build_env(**{"pipeline.data-parallel": "on",
+                             "pipeline.resident-loop": "on"}), 512)
+    got, _job = run_job(build_env(**{"pipeline.steps-per-dispatch": 2}), 512)
+    assert got == expected(512)
 
 
 def test_resolution_table():
