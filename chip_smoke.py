@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G22 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G25 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -120,7 +120,28 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 lanes, maxp 64, the TierManager's initial 5-of-64 mask,
                 without and with the fill); timed beside G1 without the
                 mask, its library time res.index_select(0, kg) over G1's
-                kg.
+                kg. Then (``library_kernel_phase``) the batch libraries'
+                kernels, exactly (integer-valued sums under 2^24; NaN
+                against NaN for an add): G23 scatter_ids at TPC-H Q1's
+                shape (SUM of l_discount x 100 over SF1's 6,001,215
+                lineitem rows into 4 groups, int64 ids), with the count
+                column (AVG), MIN and MAX of l_extendedprice, into Q18's
+                1,500,000 orders, at KMeans' W = 16 with counts (2^20
+                points, 64 centers), 2^25 lanes into community
+                detection's 2^24 cells, and edge lanes (NaN, +-0,
+                negative and out-of-range ids, int32 ids, add, min and
+                max with counts and the touched-row flag, 7 and 2^20
+                rows); its library time index_add_ (scatter_reduce_ amin
+                for MIN); G24 sorted_probe at the DataSet join's shape
+                (1,000,000 probes, a fifth missing, into SF1's 10,000
+                supplier keys; edge: the first and last key, below and
+                above every key, +-2^62, one build key, none), its
+                library time torch.searchsorted; G25 row_argmin at KMeans'
+                [2^20, 64] (edge: ties, NaN, all-equal rows, K = 1, 100),
+                its library time torch.argmin over the materialised
+                distance; row_argmax at community detection's first
+                superstep at V = 4,096 (edge: NaN, zero and negative
+                rows), its library time torch.max(m, 1).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -358,6 +379,40 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 read one dispatch late), events/s and host us a batch
                 (best of 2 after a warm run), every window fired against
                 numpy's (keys, sum).
+ 23. libraries — the batch libraries through the port's public API, the
+                data from seed 13 with numpy, one line a workload (wall
+                seconds, rows / edges / points a second, G23-G25
+                launches, the card's busy ms and idle share from
+                torch.profiler), every result checked in float64:
+                TPC-H Q1 in SQL over an SF1 lineitem with dbgen's value
+                distributions (4 groups, COUNT exact, the sums within
+                rtol 1e-3: both packages accumulate in float32) and
+                Q18's inner aggregate (GROUP BY l_orderkey, 1,500,000
+                groups, every sum exact); the DataSet word count
+                (group_by(0).sum(1)) over 1,000,000 Zipf(1.0) words,
+                every count exact, and an inner join of 1,000,000 probe
+                rows (a fifth missing) against SF1's 10,000 supplier
+                keys, which the plan ships broadcast-hash onto G24, every
+                pair exact; Gelly at Graph500 scale 20, edge factor 16
+                (Kronecker A, B, C = 0.57, 0.19, 0.19, labels permuted,
+                made undirected by doubling: 2^25 edges, uniform(0, 1)
+                weights): page_rank (30 iterations) against a float64
+                power iteration at rtol 1e-3, connected_components
+                against scipy's (minimum vertex id) exactly,
+                single_source_shortest_paths from the vertex of highest
+                degree against scipy's dijkstra at rtol 1e-5, hits (30
+                iterations, unit non-negative vectors), the degrees
+                exactly, and at scale 12 (V = 4,096) triangle_count
+                against scipy exactly and community_detection; FlinkML:
+                KMeans over 2^20 points of 64 blobs (D = 16, K = 64, 20
+                iterations), every assignment equal to a float64 Lloyd
+                from the same seeding; KNN (Q = 4,096, k = 10) against
+                numpy on 64 sampled queries; MultipleLinearRegression at
+                N = 2^20, D = 64 recovering its coefficients within
+                0.05; ALS at MovieLens-1M's dimensions (6,040 users,
+                3,706 items, 1,000,209 synthetic ratings, F = 10, 10
+                iterations), its regularised risk falling from the
+                initial factors'.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -5842,6 +5897,710 @@ def fire_grid(dev, kind, smi, total_launches, n=FG_BATCHES) -> None:
           "fused_over_split": ratio, "device": kind, "nvidia_smi": smi})
 
 
+# ------------------------------------------------------------ phase 23
+
+LIB_SEED = 13                 # every library workload's data
+TPCH_LINEITEM = 6_001_215     # lineitem rows at SF1
+TPCH_ORDERS = 1_500_000       # orders at SF1
+TPCH_SUPPLIERS = 10_000       # supplier rows at SF1
+TPCH_CURRENT = 1263           # dbgen's CURRENTDATE 1995-06-17, days from 1992-01-01
+TPCH_Q1_SHIPDATE = 2436       # 1998-12-01 - 90 days
+WC_WORDS = 1_000_000
+JOIN_PROBES = 1_000_000
+G500_SCALE = 20
+G500_EDGE_FACTOR = 16
+G500_DENSE_SCALE = 12         # the dense metrics' V = 4,096
+PR_ITERS = 30
+HITS_ITERS = 30
+SSSP_SUPERSTEPS = 128
+KM_N, KM_D, KM_K, KM_ITERS = 1 << 20, 16, 64, 20
+KNN_Q, KNN_K, KNN_SAMPLE = 4096, 10, 64
+MLR_N, MLR_D = 1 << 20, 64
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS = 6040, 3706, 1_000_209
+ALS_F, ALS_ITERS = 10, 10
+Q1_RTOL = 1e-3                # Q1's float32 sums against float64: both
+                              # packages accumulate in float32
+PR_RTOL = 1e-3                # PageRank's float32 ranks against float64
+LIB_KERNELS = ("scatter_ids", "sorted_probe", "row_argmin", "row_argmax")
+LIB_WALL = []                 # each workload's seconds, for the phase line
+
+Q1_SQL = (
+    "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+    "SUM(l_extendedprice) AS sum_base_price, "
+    "SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price, "
+    "SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge, "
+    "AVG(l_quantity) AS avg_qty, AVG(l_extendedprice) AS avg_price, "
+    "AVG(l_discount) AS avg_disc, COUNT(*) AS count_order "
+    f"FROM lineitem WHERE l_shipdate <= {TPCH_Q1_SHIPDATE} "
+    "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag")
+Q18_SQL = ("SELECT l_orderkey, SUM(l_quantity) AS sum_qty FROM lineitem "
+           "GROUP BY l_orderkey")
+
+
+_LINEITEM = {}
+
+
+def tpch_lineitem(seed=LIB_SEED) -> dict:
+    """A lineitem table at SF1 (6,001,215 rows) with dbgen's value
+    distributions: 1-7 lines an order (moved to SF1's total one line at a
+    time), dbgen's sparse order keys, quantity 1-50, extended price =
+    quantity x the part's retail price, discount 0-0.10 and tax 0-0.08 in
+    hundredths, order date uniform over 1992-01-01 .. 1998-08-02, ship 1-121
+    days later, receipt 1-30 after that; return flag R or A (even odds)
+    when received by 1995-06-17, else N; line status O when shipped after
+    it, else F. Dates are days from 1992-01-01; also ``order_index``, each
+    line's order 0..1.5M-1, and ``suppkey`` 1..10,000. Made once a
+    seed."""
+    if seed in _LINEITEM:
+        return _LINEITEM[seed]
+    rng = np.random.default_rng(seed)
+    lines = rng.integers(1, 8, TPCH_ORDERS)
+    diff = TPCH_LINEITEM - int(lines.sum())
+    room = np.nonzero(lines < 7 if diff > 0 else lines > 1)[0][:abs(diff)]
+    lines[room] += 1 if diff > 0 else -1
+    check(int(lines.sum()) == TPCH_LINEITEM, "lineitem: wrong row count")
+    o = np.arange(TPCH_ORDERS, dtype=np.int64)
+    orderkey = ((o >> 3) << 5) + (o & 7) + 1
+    order_index = np.repeat(o, lines)
+    n = TPCH_LINEITEM
+    orderdate = rng.integers(0, 2406, TPCH_ORDERS)[order_index]
+    shipdate = orderdate + rng.integers(1, 122, n)
+    receipt = shipdate + rng.integers(1, 31, n)
+    partkey = rng.integers(1, 200_001, n)
+    retail = (90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)) \
+        / 100.0
+    qty = rng.integers(1, 51, n)
+    flag = np.where(receipt <= TPCH_CURRENT,
+                    np.where(rng.random(n) < 0.5, "R", "A"), "N")
+    _LINEITEM[seed] = {
+        "l_orderkey": orderkey[order_index],
+        "l_quantity": qty.astype(np.float64),
+        "l_extendedprice": qty * retail,
+        "l_discount": rng.integers(0, 11, n) / 100.0,
+        "l_tax": rng.integers(0, 9, n) / 100.0,
+        "l_returnflag": flag,
+        "l_linestatus": np.where(shipdate > TPCH_CURRENT, "O", "F"),
+        "l_shipdate": shipdate,
+        "order_index": order_index,
+        "l_suppkey": rng.integers(1, TPCH_SUPPLIERS + 1, n),
+    }
+    return _LINEITEM[seed]
+
+
+def q1_groups(li):
+    """Each row's Q1 group code (R/A/N x F/O), int64."""
+    f = np.searchsorted(np.array(["A", "N", "R"]), li["l_returnflag"])
+    return f * 2 + (li["l_linestatus"] == "O")
+
+
+def kronecker_edges(scale, edge_factor, seed):
+    """Graph500's Kronecker generator (A, B, C = 0.57, 0.19, 0.19): edge
+    factor x 2^scale edges over 2^scale vertices, vertex labels permuted
+    at random. Returns (src, dst) int64."""
+    rng = np.random.default_rng(seed)
+    m = edge_factor << scale
+    a, b, c = 0.57, 0.19, 0.19
+    ab = a + b
+    c_norm, a_norm = c / (1 - ab), a / ab
+    i = np.zeros(m, np.int64)
+    j = np.zeros(m, np.int64)
+    for bit in range(scale):
+        ii = rng.random(m, dtype=np.float32) > ab
+        jj = rng.random(m, dtype=np.float32) > np.where(ii, c_norm, a_norm)
+        i |= ii.astype(np.int64) << bit
+        j |= jj.astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    return perm[i], perm[j]
+
+
+def g500_graph(scale, seed):
+    """Graph500's graph at ``scale`` (edge factor 16) made undirected by
+    doubling, with Graph500's SSSP weights uniform(0, 1) (one an edge,
+    both directions): (src, dst) int32 and w float32, 2^(scale + 5)
+    directed edges."""
+    i, j = kronecker_edges(scale, G500_EDGE_FACTOR, seed)
+    w = np.random.default_rng(seed + 1).random(len(i), dtype=np.float32)
+    return (np.concatenate([i, j]).astype(np.int32),
+            np.concatenate([j, i]).astype(np.int32), np.concatenate([w, w]))
+
+
+def blob_points(n, d, k, seed):
+    """n points around k centers uniform in [-100, 100]^d, sd 0.05, and
+    each point's blob: blobs this tight and far apart make k-means++ seed
+    one center a blob (a second seed in a blob would split it, and the
+    points along the split would tie within float32's rounding)."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-100, 100, (k, d))
+    lab = rng.integers(0, k, n)
+    return (means[lab] + rng.normal(0, 0.05, (n, d))).astype(np.float32), \
+        lab
+
+
+def lib_run(name, run, total_launches, kind, smi, n, unit,
+            need=LIB_KERNELS) -> tuple:
+    """Run one library workload through the port's public API with the
+    launch counts set to 0 just before and read just after, under
+    torch.profiler for the card's busy time; returns (what run returned,
+    the line's timing fields)."""
+    t0 = time.perf_counter()
+    launches, (out, busy) = run_path(lambda: device_busy(run),
+                                     total_launches)
+    secs = time.perf_counter() - t0
+    LIB_WALL.append(secs)
+    check_launched(launches, need, name)
+    return out, {"phase": "libraries", "workload": name, "seconds": secs,
+                 f"{unit}_per_s": n / secs, "busy_ms": busy,
+                 "idle_share": 1.0 - busy / (secs * 1e3),
+                 "launches": {k: launches[k] for k in LIB_KERNELS},
+                 "device": kind, "nvidia_smi": smi}
+
+
+def lib_table_runs(dev, kind, smi, total_launches, li) -> None:
+    from flink_tpu_torch.table import TableEnvironment
+
+    cols = {k: v for k, v in li.items() if k.startswith("l_")}
+    tenv = TableEnvironment.create(device=dev)
+    tenv.register_table("lineitem", tenv.from_columns(cols))
+    t, line = lib_run("tpch_q1", lambda: tenv.sql_query(Q1_SQL),
+                      total_launches, kind, smi, TPCH_LINEITEM, "rows",
+                      ("scatter_ids",))
+    keep = li["l_shipdate"] <= TPCH_Q1_SHIPDATE
+    g = q1_groups(li)[keep]
+    price = li["l_extendedprice"][keep]
+    disc = li["l_discount"][keep]
+    want = {"sum_qty": li["l_quantity"][keep], "sum_base_price": price,
+            "sum_disc_price": price * (1 - disc),
+            "sum_charge": price * (1 - disc) * (1 + li["l_tax"][keep]),
+            "avg_qty": li["l_quantity"][keep], "avg_price": price,
+            "avg_disc": disc}
+    cnt = np.bincount(g, minlength=6)
+    got_g = (np.searchsorted(np.array(["A", "N", "R"]),
+                             t.cols["l_returnflag"]) * 2
+             + (t.cols["l_linestatus"] == "O"))
+    check(t.n == 4 and sorted(got_g.tolist()) == sorted(
+        np.nonzero(cnt)[0].tolist()), f"tpch_q1: {t.n} groups")
+    check(np.array_equal(t.cols["count_order"], cnt[got_g]),
+          "tpch_q1: COUNT(*) differs from numpy")
+    rel = 0.0
+    for name, v in want.items():
+        ref = np.bincount(g, weights=v, minlength=6)[got_g]
+        if name.startswith("avg"):
+            ref = ref / cnt[got_g]
+        rel = max(rel, float(np.max(np.abs(t.cols[name] - ref) / ref)))
+    check(rel <= Q1_RTOL, f"tpch_q1: sums {rel} from float64, over "
+                          f"{Q1_RTOL}")
+    emit({**line, "groups": t.n, "rows_in": int(keep.sum()),
+          "aggregates": 8, "max_rel_err_vs_float64": rel,
+          "rtol": Q1_RTOL})
+    del t
+
+    t, line = lib_run("tpch_q18_inner", lambda: tenv.sql_query(Q18_SQL),
+                      total_launches, kind, smi, TPCH_LINEITEM, "rows",
+                      ("scatter_ids",))
+    ref = np.bincount(li["order_index"], weights=li["l_quantity"])
+    okeys = li["l_orderkey"][np.r_[0, np.nonzero(
+        np.diff(li["order_index"]))[0] + 1]]
+    check(t.n == TPCH_ORDERS
+          and np.array_equal(t.cols["l_orderkey"], okeys)
+          and np.array_equal(t.cols["sum_qty"], ref.astype(np.float32)),
+          "tpch_q18_inner: the per-order sums differ from numpy")
+    emit({**line, "groups": t.n, "exact": True})
+
+
+def lib_dataset_runs(dev, kind, smi, total_launches, li) -> None:
+    from flink_tpu_torch.dataset import ExecutionEnvironment
+
+    env = ExecutionEnvironment.get_execution_environment(device=dev)
+    ranks = word_ranks(np.arange(WC_WORDS, dtype=np.int64))
+    words = [f"w{r}" for r in ranks.tolist()]
+    rows, line = lib_run(
+        "dataset_wordcount",
+        lambda: env.from_collection(words).map(lambda w: (w, 1))
+        .group_by(0).sum(1).collect(),
+        total_launches, kind, smi, WC_WORDS, "words", ("scatter_ids",))
+    uniq, cnt = np.unique(ranks, return_counts=True)
+    want = dict(zip([f"w{r}" for r in uniq.tolist()], cnt.tolist()))
+    check(dict(rows) == want, "dataset_wordcount: counts differ from numpy")
+    emit({**line, "distinct_words": len(rows), "exact": True})
+    del rows, words
+
+    sup = [(k, f"Supplier#{k:09d}") for k in range(1, TPCH_SUPPLIERS + 1)]
+    rng = np.random.default_rng(LIB_SEED + 2)
+    keys = li["l_suppkey"][:JOIN_PROBES].copy()
+    miss = rng.random(JOIN_PROBES) < 0.2
+    keys[miss] += TPCH_SUPPLIERS          # no such supplier
+    probe = list(zip(keys.tolist(), range(JOIN_PROBES)))
+
+    def join():
+        j = (env.from_collection(probe).join(env.from_collection(sup))
+             .where(0).equal_to(0).apply(lambda p, s: (p[1], s[0])))
+        return j.collect(), j.strategy
+
+    (pairs, strategy), line = lib_run(
+        "dataset_broadcast_join", join, total_launches, kind, smi,
+        JOIN_PROBES, "probes", ("sorted_probe",))
+    got = np.asarray(pairs, np.int64).reshape(-1, 2)
+    got = got[np.argsort(got[:, 0], kind="stable")]
+    want_i = np.nonzero(~miss)[0]
+    check(np.array_equal(got[:, 0], want_i)
+          and np.array_equal(got[:, 1], keys[want_i]),
+          "dataset_broadcast_join: the matched pairs differ from numpy")
+    check("broadcast-hash" in strategy and "device" in strategy,
+          f"dataset_broadcast_join: strategy {strategy}")
+    emit({**line, "matched": len(pairs), "build_rows": TPCH_SUPPLIERS,
+          "strategy": strategy, "exact": True})
+
+
+def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from flink_tpu_torch.gelly.graph import state_from_numpy
+
+    V = 1 << G500_SCALE
+    src, dst, w = g500_graph(G500_SCALE, LIB_SEED)
+    E = len(src)
+    g = state_from_numpy({"vertex_values": np.arange(V, dtype=np.float32),
+                          "src": src, "dst": dst, "edge_values": w},
+                         device=dev)
+    s64, d64 = src.astype(np.int64), dst.astype(np.int64)
+    out_deg = np.bincount(s64, minlength=V)
+
+    pr, line = lib_run("gelly_page_rank",
+                       lambda: g.page_rank(num_iterations=PR_ITERS),
+                       total_launches, kind, smi, E * PR_ITERS, "edges",
+                       ("scatter_ids",))
+    rank = np.full(V, 1.0 / V)
+    inv = 1.0 / np.maximum(out_deg, 1)
+    for _ in range(PR_ITERS):
+        agg = np.bincount(d64, weights=(rank * inv)[s64], minlength=V)
+        dangling = rank[out_deg == 0].sum()
+        rank = (1 - 0.85) / V + 0.85 * (agg + dangling / V)
+    got = np.fromiter(pr.values(), np.float64, V)
+    rel = float(np.max(np.abs(got - rank) / rank))
+    check(rel <= PR_RTOL, f"gelly_page_rank: {rel} from float64")
+    emit({**line, "vertices": V, "edges": E, "iterations": PR_ITERS,
+          "max_rel_err_vs_float64": rel, "rtol": PR_RTOL})
+    del pr
+
+    adj = sp.csr_matrix((np.ones(E, np.int8), (s64, d64)), shape=(V, V))
+    cc, line = lib_run("gelly_connected_components",
+                       g.connected_components, total_launches, kind, smi,
+                       E, "edges", ("scatter_ids",))
+    n_comp, lab = csgraph.connected_components(adj, directed=False)
+    low = np.full(n_comp, V, np.int64)
+    np.minimum.at(low, lab, np.arange(V))
+    check(np.array_equal(np.fromiter(cc.values(), np.int64, V), low[lab]),
+          "gelly_connected_components: differs from scipy")
+    emit({**line, "components": int(n_comp),
+          "largest": int(np.bincount(lab).max()), "exact": True})
+    del cc, adj
+
+    source = int(np.argmax(out_deg))
+    dist, line = lib_run(
+        "gelly_sssp", lambda: g.single_source_shortest_paths(
+            source, max_supersteps=SSSP_SUPERSTEPS),
+        total_launches, kind, smi, E, "edges", ("scatter_ids",))
+    order = np.argsort(s64 * V + d64, kind="stable")
+    key = (s64 * V + d64)[order]
+    first = np.r_[0, np.nonzero(np.diff(key))[0] + 1]
+    wmin = np.minimum.reduceat(w[order].astype(np.float64), first)
+    wg = sp.csr_matrix((wmin, (key[first] // V, key[first] % V)),
+                       shape=(V, V))
+    want = csgraph.dijkstra(wg, indices=source)
+    got = np.fromiter(dist.values(), np.float64, V)
+    reach = np.isfinite(want)
+    check(np.array_equal(np.isfinite(got), reach)
+          and np.allclose(got[reach], want[reach], rtol=1e-5, atol=0),
+          "gelly_sssp: differs from scipy's dijkstra at rtol 1e-5")
+    emit({**line, "source": source, "reached": int(reach.sum()),
+          "max_dist": float(want[reach].max()), "rtol": 1e-5})
+    del dist, wg
+
+    hv, line = lib_run("gelly_hits", lambda: g.hits(HITS_ITERS),
+                       total_launches, kind, smi, 2 * E * HITS_ITERS,
+                       "edges", ("scatter_ids",))
+    hub = np.fromiter((h for h, _ in hv.values()), np.float64, V)
+    auth = np.fromiter((a for _, a in hv.values()), np.float64, V)
+    check(np.isfinite(hub).all() and abs(np.linalg.norm(hub) - 1) < 1e-4
+          and abs(np.linalg.norm(auth) - 1) < 1e-4 and (hub >= 0).all(),
+          "gelly_hits: hub or authority vector not unit and non-negative")
+    emit({**line, "iterations": HITS_ITERS})
+    del hv
+
+    deg, line = lib_run("gelly_degrees", g.out_degrees, total_launches,
+                        kind, smi, E, "edges", ("scatter_ids",))
+    check(np.array_equal(np.fromiter(deg.values(), np.int64, V), out_deg),
+          "gelly_degrees: differ from numpy")
+    emit({**line, "max_degree": int(out_deg.max()), "exact": True})
+    del deg, g
+
+    Vs = 1 << G500_DENSE_SCALE
+    s2, d2, _w = g500_graph(G500_DENSE_SCALE, LIB_SEED + 3)
+    small = state_from_numpy({"vertex_values": np.arange(Vs, dtype=np.float32),
+                              "src": s2, "dst": d2}, device=dev)
+
+    def dense():
+        return small.triangle_count(), small.community_detection()
+
+    (tri, comm), line = lib_run("gelly_dense_scale12", dense,
+                                total_launches, kind, smi, len(s2), "edges",
+                                ("scatter_ids", "row_argmax"))
+    a = sp.csr_matrix((np.ones(len(s2)), (s2, d2)), shape=(Vs, Vs))
+    a = ((a + a.T) > 0).astype(np.float64)
+    a.setdiag(0)
+    a.eliminate_zeros()
+    want_tri = int(round((a @ a).multiply(a).sum() / 6))
+    labels = np.fromiter(comm.values(), np.int64, Vs)
+    check(tri == want_tri, f"gelly_dense: {tri} triangles, scipy "
+                           f"{want_tri}")
+    check(((labels >= 0) & (labels < Vs)).all(),
+          "gelly_dense: community labels out of range")
+    emit({**line, "vertices": Vs, "triangles": tri,
+          "communities": int(len(np.unique(labels))), "exact": True})
+
+
+def lib_ml_runs(dev, kind, smi, total_launches) -> None:
+    from flink_tpu_torch import ml
+
+    X, lab = blob_points(KM_N, KM_D, KM_K, LIB_SEED)
+    km = ml.KMeans(k=KM_K, iterations=KM_ITERS, seed=LIB_SEED, device=dev)
+    init = km.seed_centers(X).cpu().numpy().astype(np.float64)
+    (fitted, a), line = lib_run(
+        "ml_kmeans", lambda: (lambda m: (m, m.predict(X).cpu().numpy()))(
+            km.fit(X)),
+        total_launches, kind, smi, KM_N * KM_ITERS, "points",
+        ("scatter_ids", "row_argmin"))
+    X64 = X.astype(np.float64)
+    C = init
+    for it in range(KM_ITERS + 1):
+        # argmin over centers of |c|^2 - 2 x.c (|x|^2 is the row's own)
+        d = (C * C).sum(1) - 2 * (X64 @ C.T)
+        want = np.argmin(d, 1)
+        if it == KM_ITERS:
+            break
+        cnt = np.bincount(want, minlength=KM_K)
+        sums = np.stack([np.bincount(want, weights=X64[:, c],
+                                     minlength=KM_K) for c in range(KM_D)],
+                        1)
+        C = np.where(cnt[:, None] > 0, sums / np.maximum(cnt, 1)[:, None],
+                     C)
+    two = np.partition(d, 1, axis=1)[:, :2]
+    margin = float((two[:, 1] - two[:, 0]).min())
+    check(np.array_equal(a, want),
+          f"ml_kmeans: {int((a != want).sum())} assignments differ from "
+          f"numpy's float64 Lloyd")
+    emit({**line, "n": KM_N, "d": KM_D, "k": KM_K,
+          "iterations": KM_ITERS, "min_margin": margin, "exact": True})
+    del fitted, a, d
+
+    knn = ml.KNN(k=KNN_K, device=dev).fit(X, lab.astype(np.float32))
+    Q, qlab = blob_points(KNN_Q, KM_D, KM_K, LIB_SEED)   # the same blobs
+    pred, line = lib_run("ml_knn", lambda: knn.predict(Q).cpu().numpy(),
+                         total_launches, kind, smi, KNN_Q, "queries", ())
+    for q in range(0, KNN_Q, KNN_Q // KNN_SAMPLE):
+        dq = ((X64 - Q[q].astype(np.float64)) ** 2).sum(1)
+        nn = np.argpartition(dq, KNN_K)[:KNN_K]
+        check(pred[q] == np.float32(lab[nn].mean()),
+              f"ml_knn: query {q} predicts {pred[q]}, numpy "
+              f"{lab[nn].mean()}")
+    emit({**line, "q": KNN_Q, "n": KM_N, "k": KNN_K,
+          "checked_queries": KNN_SAMPLE})
+    del knn, pred
+
+    rng = np.random.default_rng(LIB_SEED + 4)
+    Xl = rng.normal(size=(MLR_N, MLR_D)).astype(np.float32)
+    wt = rng.normal(size=MLR_D)
+    y = (Xl @ wt + 3.0).astype(np.float32)
+    m, line = lib_run("ml_linear_regression",
+                      lambda: ml.MultipleLinearRegression(device=dev)
+                      .fit(Xl, y), total_launches, kind, smi, MLR_N, "rows",
+                      ())
+    wf = m.weights.cpu().numpy()
+    err = float(max(np.abs(wf[:-1] - wt).max(), abs(wf[-1] - 3.0)))
+    check(err < 0.05, f"ml_linear_regression: coefficients off by {err}")
+    emit({**line, "n": MLR_N, "d": MLR_D, "max_coef_err": err})
+    del Xl, y, m
+
+    rng = np.random.default_rng(LIB_SEED + 5)
+    cells = rng.choice(ML1M_USERS * ML1M_ITEMS, ML1M_RATINGS, replace=False)
+    u, i = cells // ML1M_ITEMS, cells % ML1M_ITEMS
+    truth = (rng.normal(size=(ML1M_USERS, 3)) @
+             rng.normal(size=(ML1M_ITEMS, 3)).T)
+    r = np.clip(np.round(3.5 + truth[u, i] + rng.normal(0, 0.3, len(u))),
+                1, 5)
+    rows = list(zip(u.tolist(), i.tolist(), r.tolist()))
+    als = ml.ALS(num_factors=ALS_F, iterations=ALS_ITERS, seed=LIB_SEED,
+                 device=dev)
+    uf0, vf0 = als.initial_factors(ML1M_USERS, ML1M_ITEMS)
+
+    def risk(uf, vf):
+        uf, vf = uf.cpu().double().numpy(), vf.cpu().double().numpy()
+        e = (uf[u] * vf[i]).sum(1) - r
+        return float((e * e).sum() + 0.1 * ((uf * uf).sum() +
+                                              (vf * vf).sum()))
+
+    fitted, line = lib_run("ml_als", lambda: als.fit(rows), total_launches,
+                           kind, smi, ML1M_RATINGS * ALS_ITERS, "ratings",
+                           ())
+    before = risk(uf0, vf0)
+    after = risk(fitted.user_factors, fitted.item_factors)
+    check(after < before, f"ml_als: risk {after} did not fall from "
+                          f"{before}")
+    emit({**line, "users": ML1M_USERS, "items": ML1M_ITEMS,
+          "ratings": ML1M_RATINGS, "factors": ALS_F,
+          "iterations": ALS_ITERS, "risk_before": before,
+          "risk_after": after})
+
+
+def library_runs(dev, kind, smi, total_launches) -> None:
+    """Phase 23: the batch libraries at their sizes, each workload through
+    the port's public API (module docstring); the last line splits the
+    phase's wall between the workloads and the data and checks around
+    them."""
+    LIB_WALL.clear()
+    t0 = time.perf_counter()
+    li = tpch_lineitem()
+    lib_table_runs(dev, kind, smi, total_launches, li)
+    lib_dataset_runs(dev, kind, smi, total_launches, li)
+    del li
+    lib_gelly_runs(dev, kind, smi, total_launches)
+    lib_ml_runs(dev, kind, smi, total_launches)
+    emit({"phase": "libraries", "seconds": time.perf_counter() - t0,
+          "workload_seconds": sum(LIB_WALL),
+          "data_and_check_seconds": time.perf_counter() - t0
+          - sum(LIB_WALL)})
+
+
+# -------------------------------------------- phase 3: G23-G25
+
+def nan_bits_err(a, b) -> float:
+    """Elements that differ: NaN against a number, or two numbers whose
+    bits differ (signed zeros count; any two NaN agree: an add of NaN on
+    the card gives its canonical NaN whatever the payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (na & nb)
+    return float((~same).sum())
+
+
+def case_scatter_ids(dev, kind, li=None):
+    """G23 against its plain version, exactly (integer-valued data whose
+    sums stay under 2^24; min and max exact in any order): ``main`` TPC-H
+    Q1's shape, SUM(l_discount x 100) over 6,001,215 rows into its 4
+    groups (int64 ids; the blocks' shared copies); ``avg`` the same with
+    the count column (AVG); ``minmax`` MIN and MAX of l_extendedprice at
+    Q1's shape; ``q18`` SUM(l_quantity) into Q18's 1,500,000 orders (the
+    global path); ``kmeans`` W = 16 with counts, 2^20 points into 64
+    centers; ``community`` 2^25 lanes into V^2 = 2^24 cells; ``edge`` NaN,
+    +-0, negative and out-of-range lanes (int32 ids), min, max and add,
+    the touched-row flag, 7 and 2^20 rows."""
+    g = torch.Generator().manual_seed(23)
+    if kind in ("main", "avg", "minmax", "q18"):
+        idx = torch.from_numpy(
+            li["order_index"] if kind == "q18"
+            else np.unique(q1_groups(li), return_inverse=True)[1]).to(dev)
+        G = TPCH_ORDERS if kind == "q18" else 4
+        col = {"main": li["l_discount"] * 100, "avg": li["l_tax"] * 100,
+               "minmax": li["l_extendedprice"],
+               "q18": li["l_quantity"]}[kind]
+        vals = torch.from_numpy(np.round(col, 2).astype(np.float32)).to(dev)
+        runs = [dict(op="add", counts=kind == "avg")] if kind != "minmax" \
+            else [dict(op="min"), dict(op="max")]
+    elif kind == "kmeans":
+        idx = torch.randint(0, KM_K, (KM_N,), generator=g).to(dev)
+        vals = torch.randint(-50, 51, (KM_N, KM_D), generator=g).float().to(
+            dev)
+        G = KM_K
+        runs = [dict(op="add", counts=True)]
+    elif kind == "community":
+        V = 1 << G500_DENSE_SCALE
+        n = 1 << 25
+        idx = (torch.randint(0, V, (n,), generator=g) * V
+               + torch.randint(0, V, (n,), generator=g)).to(dev)
+        vals = torch.randint(0, 4, (n,), generator=g).float().to(dev)
+        G = V * V
+        runs = [dict(op="add")]
+    else:
+        n = 1 << 20
+        vals = torch.randint(-9, 10, (n,), generator=g).float()
+        vals[::97] = float("nan")
+        vals[1::31] = -0.0
+        vals[2::29] = 0.0
+        vals = vals.to(dev)
+        runs = []
+        for G in (7, 1 << 20):
+            idx = torch.randint(-3, G + 5, (n,), generator=g).to(
+                torch.int32).to(dev)
+            runs += [dict(op=op, counts=True, has=True, _idx=idx, _G=G)
+                     for op in ("add", "min", "max")]
+    err = 0.0
+    for r in runs:
+        i = r.pop("_idx", idx)
+        n_g = r.pop("_G", G)
+        a = kernels.scatter_ids(i, vals, n_g, **r)
+        b = kernels.scatter_ids_plain(i, vals, n_g, **r)
+        for x, y in zip(a, b):
+            if x is not None:
+                err = max(err, nan_bits_err(x, y)
+                          if x.is_floating_point() else max_abs_err(x, y))
+    r = runs[0]
+    W = 1 if vals.dim() == 1 else vals.shape[1]
+    lib = None
+    if r["op"] == "add":
+        lib = (lambda: torch.zeros((G,) + tuple(vals.shape[1:]),
+                                   device=dev).index_add_(0, idx, vals))
+    elif kind == "minmax":
+        lib = (lambda: torch.full((G,), float("inf"), device=dev)
+               .scatter_reduce_(0, idx, vals, "amin", include_self=True))
+    return {
+        "err": err,
+        "run": lambda: kernels.scatter_ids(idx, vals, G, **r),
+        "plain": lambda: kernels.scatter_ids_plain(idx, vals, G, **r),
+        "library": lib,
+        "bytes": idx.numel() * (idx.element_size() + 4 * W)
+        + G * 4 * (W + int(r.get("counts", False))),
+    }
+
+
+def case_sorted_probe(dev, kind):
+    """G24 against its plain version, exactly: ``main`` the DataSet join's
+    1,000,000 probes (SF1's 10,000 supplier keys, a fifth of the probes
+    missing) into the sorted keys; ``edge`` hits and misses at the first
+    and the last key, below and above every key, negative and 2^62 keys,
+    one build key, and no build key at all."""
+    g = torch.Generator().manual_seed(24)
+    cases = []
+    if kind == "main":
+        tk = torch.arange(1, TPCH_SUPPLIERS + 1, dtype=torch.int64)
+        keys = torch.randint(1, TPCH_SUPPLIERS + 1, (JOIN_PROBES,),
+                             generator=g)
+        keys[torch.rand(JOIN_PROBES, generator=g) < 0.2] += TPCH_SUPPLIERS
+        cases.append((keys, tk))
+    else:
+        tk = torch.sort(torch.randint(-(1 << 62), 1 << 62, (5000,),
+                                      generator=g)).values.unique()
+        keys = torch.cat([tk[:3], tk[-3:], tk[:1] - 1, tk[-1:] + 1,
+                          torch.randint(-(1 << 62), 1 << 62, (4096,),
+                                        generator=g), tk[::7]])
+        cases += [(keys, tk), (keys, tk[:1]), (keys, tk[:0])]
+    err = 0.0
+    for keys, tk in cases:
+        keys, tk = keys.to(dev), tk.to(dev)
+        tv = torch.arange(tk.numel(), dtype=torch.float32, device=dev)
+        a = kernels.sorted_probe(keys, tk, tv)
+        b = kernels.sorted_probe_plain(keys, tk, tv)
+        err = max(err, max(max_abs_err(x, y) for x, y in zip(a, b)))
+    keys, tk = cases[0][0].to(dev), cases[0][1].to(dev)
+    tv = torch.arange(tk.numel(), dtype=torch.float32, device=dev)
+    return {
+        "err": err,
+        "run": lambda: kernels.sorted_probe(keys, tk, tv),
+        "plain": lambda: kernels.sorted_probe_plain(keys, tk, tv),
+        "library": lambda: torch.searchsorted(tk, keys),
+        "bytes": keys.numel() * (8 + 4 + 1 + 4) + tk.numel() * 12,
+    }
+
+
+def case_row_argmin(dev, kind):
+    """G25's arg-min mode against its plain version, exactly: ``main``
+    KMeans' assignment at [2^20, 64] (P = X C^T of the blob points and 64
+    of them as centers, torch.matmul); ``edge`` integer-valued rows full
+    of ties, rows holding NaN (first NaN wins), all-equal rows, K = 1 and
+    K = 100."""
+    g = torch.Generator().manual_seed(25)
+    cases = []
+    if kind == "main":
+        X, _ = blob_points(KM_N, KM_D, KM_K, LIB_SEED)
+        X = torch.from_numpy(X).to(dev)
+        C = X[torch.randint(0, KM_N, (KM_K,), generator=g).to(dev)]
+        cases.append((X @ C.T, torch.sum(X * X, 1), torch.sum(C * C, 1)))
+    else:
+        for K in (64, 1, 100):
+            P = torch.randint(-3, 4, (4096, K), generator=g).float()
+            P[::5, K // 2] = float("nan")
+            P[1::7, :] = float("nan")
+            P[2::11, :] = 1.0
+            xx = torch.randint(0, 9, (4096,), generator=g).float()
+            cc = torch.randint(0, 3, (K,), generator=g).float()
+            cases.append((P.to(dev), xx.to(dev), cc.to(dev)))
+    err = 0.0
+    for P, xx, cc in cases:
+        err = max(err, max_abs_err(kernels.row_argmin(P, xx, cc),
+                                   kernels.row_argmin_plain(P, xx, cc)))
+    P, xx, cc = cases[0]
+    N, K = P.shape
+    d = (xx[:, None] - 2.0 * P) + cc
+    return {
+        "err": err,
+        "run": lambda: kernels.row_argmin(P, xx, cc),
+        "plain": lambda: kernels.row_argmin_plain(P, xx, cc),
+        "library": lambda: torch.argmin(d, 1),
+        "bytes": N * K * 4 + N * 4 + K * 4 + N * 8,
+    }
+
+
+def case_row_argmax(dev, kind):
+    """G25's arg-max mode against its plain version, exactly: ``main``
+    community detection's first superstep at V = 4,096 (the score mass of
+    the scale-12 graph, integer counts full of ties); ``edge`` rows with
+    NaN, rows of zeros (no adoption), negative rows and ties."""
+    g = torch.Generator().manual_seed(26)
+    V = 1 << G500_DENSE_SCALE
+    if kind == "main":
+        s, d, _w = g500_graph(G500_DENSE_SCALE, LIB_SEED + 3)
+        m = kernels.scatter_ids_plain(
+            torch.from_numpy(d.astype(np.int64) * V + s),
+            torch.ones(len(s)), V * V)[0].view(V, V)
+    else:
+        m = torch.randint(-2, 3, (V, V), generator=g).float()
+        m[::9, 5] = float("nan")
+        m[1::13, :] = 0.0
+        m[2::17, :] = -1.0
+    m = m.to(dev)
+    labels = torch.arange(V, dtype=torch.float32, device=dev)
+    scores = torch.rand(V, generator=g).to(dev) + 0.5
+    a = kernels.row_argmax(m, labels, scores, 0.5)
+    b = kernels.row_argmax_plain(m, labels, scores, 0.5)
+    return {
+        "err": max(nan_bits_err(x, y) for x, y in zip(a, b)),
+        "run": lambda: kernels.row_argmax(m, labels, scores, 0.5),
+        "plain": lambda: kernels.row_argmax_plain(m, labels, scores, 0.5),
+        "library": lambda: torch.max(m, 1),
+        "bytes": V * V * 4 + 4 * V * 4,
+    }
+
+
+def library_kernel_phase(dev, timing=True) -> dict:
+    """Hold G23-G25 against their plain versions on every input kind (the
+    case functions say which) and time the main ones, with the other
+    timed shapes of G23 nested under ``modes``. Returns {wrapper:
+    record}."""
+    li = tpch_lineitem()
+    out = {}
+    rec = hold("scatter_ids", lambda k: case_scatter_ids(dev, k, li),
+               timing, ("main", "avg", "minmax", "q18", "kmeans",
+                        "community", "edge"))
+    rec["modes"] = {}
+    for mode in ("avg", "minmax", "q18", "kmeans", "community"):
+        c = case_scatter_ids(dev, mode, li)
+        m = {"bound_ms": bound_ms(c["bytes"])}
+        if timing:
+            m["ms"] = time_ms(c["run"])
+            m["library_ms"] = (time_ms(c["library"])
+                               if c["library"] is not None else None)
+        rec["modes"][mode] = m
+        del c
+    out["scatter_ids"] = rec
+    del li
+    for name, case in (("sorted_probe", case_sorted_probe),
+                       ("row_argmin", case_row_argmin),
+                       ("row_argmax", case_row_argmax)):
+        out[name] = hold(name, lambda k, f=case: f(dev, k), timing)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -5899,6 +6658,14 @@ KERNEL_SOURCES = {
                      "flink_tpu/runtime/step.py:842"),
     "stage_record": ("flink_tpu_torch/csrc/slot_stats.cu",
                      "flink_tpu/runtime/step.py:1962"),
+    "scatter_ids": ("flink_tpu_torch/csrc/scatter_ids.cu",
+                    "flink_tpu/ops/segment.py:183"),
+    "sorted_probe": ("flink_tpu_torch/csrc/sorted_probe.cu",
+                     "flink_tpu/parallel/broadcast.py:52"),
+    "row_argmin": ("flink_tpu_torch/csrc/row_argbest.cu",
+                   "flink_tpu/ml/pipeline.py:230"),
+    "row_argmax": ("flink_tpu_torch/csrc/row_argbest.cu",
+                   "flink_tpu/gelly/graph.py:293"),
 }
 # the host functions of the chained jobs whose cumulative time --profile
 # reads: the key encode, the drains (the stage tail within them), the
@@ -6016,6 +6783,7 @@ def main(argv) -> int:
     recs.update(chain_kernel_phase(dev))
     for name, rec in res_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
+    recs.update(library_kernel_phase(dev))
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -6397,6 +7165,7 @@ def main(argv) -> int:
     megastep_runs(dev, kind, smi, total_launches, want_count)
     controller_runs(dev, kind, smi, total_launches, want_count)
     fire_grid(dev, kind, smi, total_launches)
+    library_runs(dev, kind, smi, total_launches)
 
     if "--profile" in argv:
         emit(profile_phase(

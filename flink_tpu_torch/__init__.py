@@ -13,11 +13,16 @@ Layer map (mirrors flink_tpu/):
   datastream/ — user-facing DataStream API
   graph/      — transformation graph
   runtime/    — executor, device ring, steps, sources, sinks, watermarks
+  table/      — the Table API, SQL and its planner, streaming SQL windows
+  dataset/    — the batch DataSet API
+  gelly/      — graphs (Gelly)
+  ml/         — FlinkML estimators, distances, the optimizer
+  parallel/   — the broadcast join on one device
 
 The port runs one keyed stage a job: an event-time tumbling or sliding
 window, an event-time session window, a count window, a rolling reduce,
-or a CEP pattern (``flink_tpu_torch.cep``), into any of its sinks
-(ROADMAP.md lists what comes next).
+or a CEP pattern (``flink_tpu_torch.cep``), into any of its sinks; and
+the batch libraries (ROADMAP.md lists what comes next).
 """
 
 __version__ = "0.1.0"

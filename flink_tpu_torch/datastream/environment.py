@@ -12,30 +12,17 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import torch
-
 from flink_tpu_torch.core.config import (
     Configuration,
     CoreOptions,
     load_global_configuration,
 )
+from flink_tpu_torch.core.device import resolve_device
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.datastream.datastream import DataStream, _later
 from flink_tpu_torch.graph import stream_graph as sg
 from flink_tpu_torch.runtime import sources as src_mod
 from flink_tpu_torch.runtime.executor import LocalExecutor
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA card. Raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "flink_tpu_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' explicitly to run the plain PyTorch versions "
-            "of the kernels"
-        )
-    return dev
 
 
 class StreamExecutionEnvironment:

@@ -1,11 +1,12 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Twenty-two CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Twenty-five CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
 for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
 telemetry), of chained window stages (G21, G22), of the session,
-count-window and rolling stages (G10-G13, G16) and of device CEP (G19,
-G20, with G5 and G10); each source opens
+count-window and rolling stages (G10-G13, G16), of device CEP (G19,
+G20, with G5 and G10) and of the batch libraries (G23-G25: Table/SQL,
+DataSet, Gelly, FlinkML); each source opens
 with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
@@ -42,6 +43,14 @@ what its design does about that:
                          chained stage's edge lanes; its coupled watermark
   G22 ``fire_columns``   the chained drain's deferred recorder columns;
       ``stage_record``   a downstream stage's recorder row (G18's source)
+  G23 ``scatter_ids``    lanes combined into rows by group id (add, min,
+                         max; counts, touched rows): the libraries'
+                         grouped reduce and scatters
+  G24 ``sorted_probe``   a broadcast join's probe: binary search of the
+                         sorted build keys
+  G25 ``row_argmin``     a row's nearest center (KMeans);
+      ``row_argmax``     a row's adopted label (community detection), in
+                         one source ``row_argbest.cu``
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -102,7 +111,8 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "segment_sort.cu", "session_update.cu", "count_update.cu",
            "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
            "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu",
-           "cep_scan.cu", "chain_pack.cu")
+           "cep_scan.cu", "chain_pack.cu", "scatter_ids.cu",
+           "sorted_probe.cu", "row_argbest.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -157,6 +167,10 @@ _SIGNATURES = {
     "chain_pack": [_P] * 6 + [_I] * 4 + [_P, _P, _I] + [_P] * 8,
     "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 7,
     "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
+    "scatter_ids": [_P, _I, _L, _P, _I, _L, _I, _F, _P, _P, _P, _P],
+    "sorted_probe": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "row_argmin": [_P, _I, _I, _P, _P, _P, _P],
+    "row_argmax": [_P, _I, _I, _P, _P, _F, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -2473,12 +2487,230 @@ def cep_expire(carry, stale, *, S: int, Q: int) -> None:
 
 cep_expire.launches = 0
 
+# ------------------------------------------------------------ G23
+
+NEUTRAL = {"add": 0.0, "min": float("inf"), "max": float("-inf")}
+
+
+def _scatter_ids_args(idx, vals, n_groups: int, op: str):
+    if op not in OPS:
+        raise ValueError(f"unknown scatter op {op!r}")
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64 [N], got {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    if vals is not None and (vals.dim() not in (1, 2)
+                             or vals.shape[0] != idx.shape[0]):
+        raise ValueError(f"vals of shape {tuple(vals.shape)} for "
+                         f"{idx.shape[0]} ids")
+    if n_groups < 0:
+        raise ValueError(f"n_groups {n_groups} < 0")
+
+
+def scatter_ids_plain(idx, vals, n_groups: int, *, op: str = "add",
+                      counts: bool = False, has: bool = False):
+    """Plain version of G23. idx int32 or int64 [N] group ids; vals float32
+    [N] or [N, W], or None; ``op`` add, min or max (OPS). Returns (target,
+    counts, has): target float32 [G] or [G, W] (the shape of vals past its
+    first axis) starting at the neutral of ``op`` (NEUTRAL) with every
+    lane's values combined into row idx[i] (jnp's NaN and signed-zero
+    order for min and max), or None without vals; counts int32 [G], each
+    row's lanes, when ``counts``; has bool [G], the rows some lane reached,
+    when ``has``. Lanes whose id lies outside [0, G) are dropped (the
+    reference's mode="drop")."""
+    _scatter_ids_args(idx, vals, n_groups, op)
+    dev = idx.device
+    ok = (idx >= 0) & (idx < n_groups)
+    i = idx[ok].long()
+    target = None
+    if vals is not None:
+        target = torch.full((n_groups,) + tuple(vals.shape[1:]),
+                            NEUTRAL[op], dtype=torch.float32, device=dev)
+        v = vals[ok].to(torch.float32)
+        if op == "add":
+            target.index_add_(0, i, v)
+        else:
+            _scatter_combine_rows(target, i, v, COMBINE[op])
+    cnt = (torch.bincount(i, minlength=n_groups).to(torch.int32)
+           if counts else None)
+    touched = None
+    if has:
+        touched = torch.zeros(n_groups, dtype=torch.bool, device=dev)
+        touched[i] = True
+    return target, cnt, touched
+
+
+def scatter_ids(idx, vals, n_groups: int, *, op: str = "add",
+                counts: bool = False, has: bool = False):
+    """G23: see scatter_ids_plain for the contract."""
+    if _on_cpu(idx):
+        return scatter_ids_plain(idx, vals, n_groups, op=op, counts=counts,
+                                 has=has)
+    _scatter_ids_args(idx, vals, n_groups, op)
+    dev = idx.device
+    (N,) = idx.shape
+    _check(idx, "idx", idx.dtype, (N,), dev)
+    target = None
+    W = 1
+    if vals is not None:
+        _check(vals, "vals", torch.float32, None, dev)
+        W = 1 if vals.dim() == 1 else vals.shape[1]
+        target = torch.full((n_groups,) + tuple(vals.shape[1:]),
+                            NEUTRAL[op], dtype=torch.float32, device=dev)
+    cnt = (torch.zeros(n_groups, dtype=torch.int32, device=dev)
+           if counts else None)
+    touched = (torch.zeros(n_groups, dtype=torch.bool, device=dev)
+               if has else None)
+    rc = build().scatter_ids(
+        _ptr(idx), idx.element_size(), N, _ptr(vals), W, n_groups, OPS[op],
+        NEUTRAL[op], _ptr(target), _ptr(cnt), _ptr(touched), _stream())
+    _raise_on(rc, "scatter_ids")
+    scatter_ids.launches += 1
+    return target, cnt, touched
+
+
+scatter_ids.launches = 0
+
+
+# ------------------------------------------------------------ G24
+
+def sorted_probe_plain(keys, tkeys, tvals):
+    """Plain version of G24, one shard of the reference's broadcast join
+    (parallel/broadcast.py:55-61). keys int64 [B] probe keys; tkeys int64
+    [K] sorted unique build keys; tvals float32 [K]. Returns (pos int32
+    [B], hit bool [B], joined float32 [B]): pos the searchsorted position
+    (side left) clamped to K - 1 (0 when K is 0), hit where tkeys[pos]
+    equals the key, joined tvals[pos] where hit, else 0."""
+    K = tkeys.shape[0]
+    if K == 0:
+        z = torch.zeros(keys.shape[0], dtype=torch.int32, device=keys.device)
+        return (z, torch.zeros_like(z, dtype=torch.bool),
+                torch.zeros_like(z, dtype=torch.float32))
+    pos = torch.clamp_max(torch.searchsorted(tkeys, keys), K - 1)
+    hit = tkeys[pos] == keys
+    joined = torch.where(hit, tvals[pos], torch.zeros((), dtype=tvals.dtype,
+                                                      device=keys.device))
+    return pos.to(torch.int32), hit, joined
+
+
+def sorted_probe(keys, tkeys, tvals):
+    """G24: see sorted_probe_plain for the contract."""
+    if _on_cpu(keys):
+        return sorted_probe_plain(keys, tkeys, tvals)
+    dev = keys.device
+    (B,) = keys.shape
+    (K,) = tkeys.shape
+    _check(keys, "keys", torch.int64, (B,), dev)
+    _check(tkeys, "tkeys", torch.int64, (K,), dev)
+    _check(tvals, "tvals", torch.float32, (K,), dev)
+    if B > INT32_MAX or K > INT32_MAX:
+        raise ValueError(f"{B} probes or {K} build keys past int32")
+    pos = torch.empty(B, dtype=torch.int32, device=dev)
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
+    joined = torch.empty(B, dtype=torch.float32, device=dev)
+    rc = build().sorted_probe(_ptr(keys), B, _ptr(tkeys), K, _ptr(tvals),
+                              _ptr(pos), _ptr(hit), _ptr(joined), _stream())
+    _raise_on(rc, "sorted_probe")
+    sorted_probe.launches += 1
+    return pos, hit, joined
+
+
+sorted_probe.launches = 0
+
+
+# ------------------------------------------------------------ G25
+
+def _first_best(v, largest: bool):
+    """jnp.argmin / jnp.argmax along rows of ``v`` [N, K]: the first
+    column of the best value, a NaN beating every number (the first NaN
+    wins). Returns (column int64 [N], value float32 [N])."""
+    nan = torch.isnan(v)
+    key = torch.where(nan, float("-inf") if largest else float("inf"), v)
+    best = key.amax(1) if largest else key.amin(1)
+    hit = (key == best[:, None]) & ~nan
+    any_nan = nan.any(1)
+    pick = torch.where(any_nan[:, None], nan, hit)
+    col = pick.to(torch.int8).argmax(1)
+    val = torch.where(any_nan, float("nan"), best)
+    return col, val
+
+
+def row_argmin_plain(P, xx, cc) -> torch.Tensor:
+    """Plain version of G25's arg-min mode (KMeans' assignment,
+    ml/pipeline.py:230-237): for each row i of P float32 [N, K] the first
+    column j minimising (xx[i] - 2 P[i, j]) + cc[j], in that order of
+    float32 operations, with jnp.argmin's NaN rule. Returns int64 [N]."""
+    d = (xx[:, None] - 2.0 * P) + cc[None, :]
+    return _first_best(d, largest=False)[0]
+
+
+def row_argmin(P, xx, cc) -> torch.Tensor:
+    """G25 (arg-min mode): see row_argmin_plain for the contract."""
+    if _on_cpu(P):
+        return row_argmin_plain(P, xx, cc)
+    dev = P.device
+    N, K = P.shape
+    _check(P, "P", torch.float32, (N, K), dev)
+    _check(xx, "xx", torch.float32, (N,), dev)
+    _check(cc, "cc", torch.float32, (K,), dev)
+    if K == 0:
+        raise ValueError("arg-min of rows with no column")
+    out = torch.empty(N, dtype=torch.int64, device=dev)
+    rc = build().row_argmin(_ptr(P), N, K, _ptr(xx), _ptr(cc), _ptr(out),
+                            _stream())
+    _raise_on(rc, "row_argmin")
+    row_argmin.launches += 1
+    return out
+
+
+row_argmin.launches = 0
+
+
+def row_argmax_plain(m, labels, scores, delta: float):
+    """Plain version of G25's arg-max mode (community detection's
+    superstep, gelly/graph.py:293-300). m float32 [N, K] the score mass
+    per (vertex, label); labels / scores float32 [N]. best = the first
+    column of each row's max (jnp.argmax's NaN rule), best_mass = the max;
+    where best_mass > 0 the vertex adopts best as its label and
+    max(best_mass * delta, 1e-6) as its score, else keeps both. Returns
+    (new_labels, new_scores), float32 [N] each."""
+    best, mass = _first_best(m, largest=True)
+    has = mass > 0
+    d = torch.tensor(delta, dtype=torch.float32, device=m.device)
+    return (torch.where(has, best.to(torch.float32), labels),
+            torch.where(has, fmax(mass * d, torch.full_like(mass, 1e-6)),
+                        scores))
+
+
+def row_argmax(m, labels, scores, delta: float):
+    """G25 (arg-max mode): see row_argmax_plain for the contract."""
+    if _on_cpu(m):
+        return row_argmax_plain(m, labels, scores, delta)
+    dev = m.device
+    N, K = m.shape
+    _check(m, "m", torch.float32, (N, K), dev)
+    _check(labels, "labels", torch.float32, (N,), dev)
+    _check(scores, "scores", torch.float32, (N,), dev)
+    if K == 0:
+        raise ValueError("arg-max of rows with no column")
+    new_labels = torch.empty(N, dtype=torch.float32, device=dev)
+    new_scores = torch.empty(N, dtype=torch.float32, device=dev)
+    rc = build().row_argmax(_ptr(m), N, K, _ptr(labels), _ptr(scores),
+                            float(delta), _ptr(new_labels), _ptr(new_scores),
+                            _stream())
+    _raise_on(rc, "row_argmax")
+    row_argmax.launches += 1
+    return new_labels, new_scores
+
+
+row_argmax.launches = 0
+
 KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
            hash_lookup, compact_table, segment_sort, session_update,
            count_update, rolling_update, sketch_update, sketch_fire,
            rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats,
-           cep_scan, cep_expire, chain_pack, fire_columns, stage_record)
+           cep_scan, cep_expire, chain_pack, fire_columns, stage_record,
+           scatter_ids, sorted_probe, row_argmin, row_argmax)
 
 
 # wrappers whose kernel lives in another wrapper's source
@@ -2488,7 +2720,9 @@ _SHARED_SOURCE = {"fresh_rows": "clear_rows.cu",
                   "slot_stats_begin": "slot_stats.cu",
                   "fire_columns": "slot_stats.cu",
                   "stage_record": "slot_stats.cu",
-                  "cep_expire": "cep_scan.cu"}
+                  "cep_expire": "cep_scan.cu",
+                  "row_argmin": "row_argbest.cu",
+                  "row_argmax": "row_argbest.cu"}
 
 
 def source_of(fn) -> str:

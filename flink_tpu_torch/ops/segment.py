@@ -23,16 +23,19 @@ on it. The sort is G10, the gathers around the combine are G16's
 as torch ops over a log-step (Hillis-Steele) segmented scan, the one step
 of the port with no hand kernel. The reference's float ``scatter_combine``
 min and max are G3's (``ops/cuda.py`` ``scatter_update``, its plain
-version ``_scatter_combine_rows``). ``grouped_reduce`` (the batch DataSet
-and Table path) is not ported yet (ROADMAP queue 1, item 14).
+version ``_scatter_combine_rows``). ``grouped_reduce``, the batch
+DataSet and Table path's per-group aggregate, is one launch of G23
+(``scatter_ids``).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
+from flink_tpu_torch.core.device import resolve_device
 from flink_tpu_torch.ops import cuda as kernels
 
 INT32_MAX = 2**31 - 1
@@ -131,3 +134,30 @@ def sort_slot_ts(slot: torch.Tensor, ts: torch.Tensor, live: torch.Tensor,
     key = torch.where(live, key, capacity << 32)
     return kernels.segment_sort(key, bits=32 + _bits(capacity),
                                 seg_shift=32)
+
+
+def grouped_reduce(kind: str, gid, vals, n_groups: int, device=None):
+    """Dictionary-encoded grouped reduction (the reference's
+    ``flink_tpu/ops/segment.py:183 grouped_reduce``), shared by the batch
+    DataSet and Table aggregation paths: one G23 launch an aggregate.
+
+    gid: [N] int group ids in [0, n_groups); vals: [N] float values
+    (ignored for 'count'); kind: count, sum, min, max, avg or mean.
+    Returns a numpy float32 [n_groups]. ``avg`` is one launch that writes
+    the sums and the counts; their quotient is NaN for a group with no
+    row, as the reference's 0/0 is. Counts are exact integers (the
+    reference adds 1.0 in float32, the same below 2^24 rows a group)."""
+    if kind not in ("count", "sum", "min", "max", "avg", "mean"):
+        raise ValueError(f"unknown aggregate kind {kind!r}")
+    dev = resolve_device(device)
+    g = torch.as_tensor(np.asarray(gid, np.int64), device=dev)
+    if kind == "count":
+        _, cnt, _ = kernels.scatter_ids(g, None, n_groups, counts=True)
+        return cnt.to(torch.float32).cpu().numpy()
+    v = torch.as_tensor(np.asarray(vals, np.float32), device=dev)
+    op = {"sum": "add", "avg": "add", "mean": "add"}.get(kind, kind)
+    target, cnt, _ = kernels.scatter_ids(g, v, n_groups, op=op,
+                                         counts=kind in ("avg", "mean"))
+    if cnt is not None:
+        target = target / cnt.to(torch.float32)
+    return target.cpu().numpy()

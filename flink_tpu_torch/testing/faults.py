@@ -19,6 +19,8 @@ exercises exactly the branch a production fault would take.
 Injection points wired in the port (the reference wires more, at the
 subsystems the port has not taken yet):
 
+    fs.open                 core/filesystem open() of a write handle
+                            (the DataSet's write_as_text / write_as_csv)
     ckpt.entries.write      runtime/checkpoint CheckpointStorage.write,
                             before any file IO
     ckpt.publish            CheckpointStorage.write, before the atomic

@@ -251,3 +251,49 @@ def test_ingest_thread_and_dispatch_modes_run_with_jax_and_the_reference_blocked
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_libraries_run_with_jax_and_the_reference_blocked():
+    """The batch libraries (the copied Table planner and filesystem, the
+    Table and SQL, the DataSet, Gelly and FlinkML, the one-shard broadcast
+    join) import and run on the CPU with ``jax`` and ``flink_tpu``
+    unimportable, through G23-G25's plain versions."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flink_tpu'] = None\n"
+        "import numpy as np\n"
+        "from flink_tpu_torch.table import TableEnvironment\n"
+        "from flink_tpu_torch.dataset import ExecutionEnvironment\n"
+        "from flink_tpu_torch.gelly import Graph\n"
+        "from flink_tpu_torch import ml\n"
+        "from flink_tpu_torch.core import filesystem\n"
+        "te = TableEnvironment.create(device='cpu')\n"
+        "te.register_table('t', te.from_columns({'k': [1, 2, 1], "
+        "'v': [1.0, 2.0, 3.0]}))\n"
+        "t = te.sql_query('SELECT k, SUM(v) AS s, AVG(v) AS a FROM t "
+        "GROUP BY k ORDER BY k')\n"
+        "assert t.to_rows() == [(1, 4.0, 2.0), (2, 2.0, 2.0)], t.to_rows()\n"
+        "env = ExecutionEnvironment.get_execution_environment(device='cpu')\n"
+        "big = env.from_collection([(i, i) for i in range(100)])\n"
+        "small = env.from_collection([(3, 'a'), (7, 'b')])\n"
+        "j = big.join(small).where(0).equal_to(0).apply("
+        "lambda l, r: (l[0], r[1]))\n"
+        "assert sorted(j.collect()) == [(3, 'a'), (7, 'b')]\n"
+        "assert 'device' in j.strategy\n"
+        "g = Graph.from_edge_list([(0, 1), (1, 2), (3, 4)], "
+        "undirected=True, device='cpu')\n"
+        "assert g.connected_components() == {0: 0, 1: 0, 2: 0, 3: 3, 4: 3}\n"
+        "assert len(g.community_detection()) == 5\n"
+        "X = np.concatenate([np.zeros((20, 2)), np.ones((20, 2)) * 9])\n"
+        "km = ml.KMeans(k=2, iterations=3, device='cpu').fit(X)\n"
+        "assert sorted(km.predict(X).tolist()) == [0] * 20 + [1] * 20\n"
+        "fs, p = filesystem.get_filesystem('mem://x')\n"
+        "assert p == 'x'\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+        "                     if sys.modules[m] is not None]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

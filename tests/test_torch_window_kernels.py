@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G20)."""
+    moves and nothing is compiled (G1-G25)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -183,5 +183,14 @@ def test_cpu_tensors_never_launch_a_kernel():
                 for sp in (spec, spec_1))
     chained(sts, [lanes_torch(*x[:5]) for x in b],
             torch.tensor([x[5] for x in b], dtype=torch.int32), 2)
-    assert len(kernels.KERNELS) == 27
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 27
+    # the batch libraries' grouped reduce, broadcast probe and arg-bests
+    # (G23-G25)
+    from flink_tpu_torch.ops.segment import grouped_reduce
+    from flink_tpu_torch.parallel.broadcast import broadcast_join
+    grouped_reduce("avg", [0, 1, 1], [1.0, 2.0, 3.0], 2, device="cpu")
+    broadcast_join([1, 5, 7], [5, 1], [2.0, 3.0], device="cpu")
+    m = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    kernels.row_argmin(m, torch.zeros(3), torch.zeros(4))
+    kernels.row_argmax(m, torch.zeros(3), torch.ones(3), 0.5)
+    assert len(kernels.KERNELS) == 31
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 31
