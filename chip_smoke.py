@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G25 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G27 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -413,6 +413,29 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 3,706 items, 1,000,209 synthetic ratings, F = 10, 10
                 iterations), its regularised risk falling from the
                 initial factors'.
+ 24. sharded — the shard mesh (parallelism 4; ``force_device_count(4)``
+                puts the four shards on the one card, a ``sharded_mesh``
+                line says so, and their collectives are copies within
+                it): G26 exchange_pack and G27 shard_sum against their
+                plain versions in phase 3 (``shard_kernel_phase``; G26
+                at one source shard's slice of the north star's batch,
+                65,536 lanes, n = 4, cap 32,768, and edge inputs: one key
+                in every lane, no valid lane, W = 2, a ragged batch, n =
+                8; G27 at the rolling job's B = 262,144 over 4 shards,
+                and edge: W = 2, no valid lane, 8 shards, lanes valid on
+                several shards), exactly; then the north star at full
+                size (30M events) in the default mode (the adaptive
+                exchange, the split path), and at 10M events on
+                ``all_to_all``, ``mask``, the sharded drain (``on``), the
+                sharded while-drain, the exchange drain (``on`` with
+                ``data-parallel: off``) and K = 4 megasteps with fused
+                fire on and off, each one's count and sum against numpy,
+                nothing dropped, its route counts and events/s; the
+                sparse job (10M events, the hash layout) every row
+                against numpy; the rolling WordCount (10M words) every
+                output against numpy, through G27; and the checkpoint
+                job crashed at a sharded drain and restarted, every row
+                against numpy.
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -1662,10 +1685,10 @@ def numpy_reference(total, n_keys, events_per_ms, window_ms, chunk=1 << 22):
 
 
 def north_star_job(device, n_keys, events_per_ms, total, batch, depth,
-                   config=None, with_env=False):
+                   config=None, with_env=False, parallelism=1):
     """The north-star job through the public API, with ``config`` added to
-    its configuration; returns (sink, job, s), or (sink, env, job, s) with
-    ``with_env``."""
+    its configuration, at ``parallelism`` shards; returns (sink, job, s),
+    or (sink, env, job, s) with ``with_env``."""
     def gen(offset, n):
         keys, ts, vals = gen_batch(offset, n, n_keys, events_per_ms)
         return {"key": keys, "value": vals}, ts
@@ -1680,7 +1703,7 @@ def north_star_job(device, n_keys, events_per_ms, total, batch, depth,
         **(config or {}),
     })
     env = StreamExecutionEnvironment(cfg, device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(n_keys)
@@ -1709,9 +1732,9 @@ def sparse_gen(offset, n):
     return {"id": sparse_ids(keys)}, ts
 
 
-def sparse_job(device, total, batch, depth):
+def sparse_job(device, total, batch, depth, parallelism=1):
     """HOP(2 s, 10 s) count per sparse id into a row-keeping sink, through
-    the public API; returns (sink, job, s)."""
+    the public API, at ``parallelism`` shards; returns (sink, job, s)."""
     cfg = Configuration({
         "keys.reverse-map": False,
         "window.fires-per-step": FIRES_PER_STEP,
@@ -1719,7 +1742,7 @@ def sparse_job(device, total, batch, depth):
         "state.probe-len": PROBE_LEN,
     })
     env = StreamExecutionEnvironment(cfg, device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(SPARSE_CAPACITY)
@@ -1879,10 +1902,10 @@ def check_churn_rows(cols, total):
 
 # ------------------------------------------------------ phases 7-9
 
-def keyed_env(device):
+def keyed_env(device, parallelism=1):
     env = StreamExecutionEnvironment(
         Configuration({"keys.reverse-map": False}), device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(KEYED_CAPACITY)
@@ -1967,9 +1990,10 @@ def probe_depths(table, C, probe_len=hashtable.KEYED_PROBE_LEN):
             "keys_at_depth_16_or_more": int((depth >= 16).sum())}
 
 
-def wordcount_job(device, total):
-    """Flink's streaming WordCount: keyBy(word).sum(count)."""
-    env = keyed_env(device)
+def wordcount_job(device, total, parallelism=1):
+    """Flink's streaming WordCount: keyBy(word).sum(count), at
+    ``parallelism`` shards."""
+    env = keyed_env(device, parallelism)
     sink = ColumnarCollectSink()
     (env.add_source(GeneratorSource(word_gen, total=total))
      .key_by(lambda c: c["word"])
@@ -4877,7 +4901,7 @@ CKPT_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
                 "fire_compact")
 
 
-def ckpt_job(device, total, ckpt_dir=None, fault=None):
+def ckpt_job(device, total, ckpt_dir=None, fault=None, parallelism=1):
     """The north-star job (1M integer keys, 5 s tumbling sum, batches of
     262,144, direct layout, no overflow ring, the scan drain, the producer
     thread ahead) into a sink that keeps every row; with ``ckpt_dir``
@@ -4888,7 +4912,8 @@ def ckpt_job(device, total, ckpt_dir=None, fault=None):
     emitted them; the restore goes back to the cut before them, so they
     are emitted again), ``ingest.producer`` at the producer's
     CKPT_PRODUCER_HIT-th prep (the thread dies; the step loop finds it
-    dead). Returns (sink, job, s)."""
+    dead). ``parallelism`` shards (above 1 the scan drain is the sharded
+    drain). Returns (sink, job, s)."""
     def gen(offset, n):
         keys, ts, vals = gen_batch(offset, n)
         return {"key": keys, "value": vals}, ts
@@ -4904,7 +4929,7 @@ def ckpt_job(device, total, ckpt_dir=None, fault=None):
         "restart-strategy.fixed-delay.delay": 0,
     })
     env = StreamExecutionEnvironment(cfg, device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(N_KEYS)
@@ -6601,6 +6626,286 @@ def library_kernel_phase(dev, timing=True) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 24
+
+SHARDS = 4                    # parallelism of the sharded runs
+SHARD_TOTAL = 10_000_000      # the events of every other sharded run
+SHARD_MODES = (
+    ("all_to_all", {"exchange.mode": "all_to_all"}),
+    ("mask", {"exchange.mode": "mask"}),
+    ("sharded_drain", RESIDENT_ON),                   # data-parallel auto
+    ("sharded_while", {"pipeline.resident-loop": "while"}),
+    ("exchange_drain", {**RESIDENT_ON, "pipeline.data-parallel": "off"}),
+    ("megastep_k4", {"pipeline.resident-loop": "off",
+                     "pipeline.steps-per-dispatch": 4}),
+    ("megastep_k4_fire_off", {"pipeline.resident-loop": "off",
+                              "pipeline.steps-per-dispatch": 4,
+                              "pipeline.fused-fire": "off"}),
+)
+# the route each mode must have taken: "exchange", "sharded" or "mask"
+SHARD_ROUTES = {"auto": "exchange", "all_to_all": "exchange",
+                "mask": "mask", "sharded_drain": "sharded",
+                "sharded_while": "sharded", "exchange_drain": "exchange",
+                "megastep_k4": "exchange", "megastep_k4_fire_off": "exchange"}
+SHARD_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                 "fire_reduced", "exchange_pack")
+SHARD_ROLLING_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
+                         "rolling_update", "shard_sum")
+
+
+def _i32(a: np.ndarray, dev) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                            else a).to(dev)
+
+
+def case_exchange_pack(dev, kind):
+    """G26 against its plain version, exactly: ``main`` one source shard's
+    slice of the north star's batch (B / n = 65,536 lanes of its traffic,
+    n = 4, cap = 32,768, the exchange's default capacity); ``edge`` one key
+    in every lane (every lane past the first 32,768 of one bucket
+    overflows), no valid lane, two value words a lane, a ragged batch (its
+    last lanes the padding of a batch not divisible by n), and n = 8."""
+    from flink_tpu_torch.parallel.exchange import bucket_capacity
+
+    bpd = BATCH // SHARDS
+    keys, ts, vals = gen_batch(0, bpd)
+    cases = []
+    if kind == "main":
+        cases.append((keys, ts, vals, np.ones(bpd, bool), SHARDS))
+    else:
+        cases.append((np.full(bpd, 7), ts, vals, np.ones(bpd, bool), SHARDS))
+        cases.append((keys, ts, vals, np.zeros(bpd, bool), SHARDS))
+        w2 = np.stack([vals, np.arange(bpd, dtype=np.float32)], 1)
+        cases.append((keys, ts, w2, np.ones(bpd, bool), SHARDS))
+        ragged = np.ones(bpd, bool)
+        ragged[-(bpd // 3):] = False
+        cases.append((keys, ts, vals, ragged, SHARDS))
+        cases.append((keys, ts, vals, np.ones(bpd, bool), 8))
+    err = 0.0
+    for k, t, v, ok, n in cases:
+        cap = bucket_capacity(bpd, n, 2.0)
+        args = (_i32(np.zeros(bpd, np.uint32), dev),
+                _i32(k.astype(np.uint32), dev), _i32(t.astype(np.int32), dev),
+                torch.from_numpy(v).to(dev), torch.from_numpy(ok).to(dev))
+        a = kernels.exchange_pack(*args, n=n, maxp=MAX_PARALLELISM, cap=cap)
+        b = kernels.exchange_pack_plain(*args, n=n, maxp=MAX_PARALLELISM,
+                                        cap=cap)
+        err = max(err, max_abs_err(list(a), list(b)))
+    k, t, v, ok, n = cases[0]
+    cap = bucket_capacity(bpd, n, 2.0)
+    args = (_i32(np.zeros(bpd, np.uint32), dev),
+            _i32(k.astype(np.uint32), dev), _i32(t.astype(np.int32), dev),
+            torch.from_numpy(v).to(dev), torch.from_numpy(ok).to(dev))
+    W = int(np.prod(v.shape[1:], dtype=np.int64))
+    return {
+        "err": err,
+        "run": lambda: kernels.exchange_pack(*args, n=n,
+                                             maxp=MAX_PARALLELISM, cap=cap),
+        "plain": lambda: kernels.exchange_pack_plain(
+            *args, n=n, maxp=MAX_PARALLELISM, cap=cap),
+        "library": None,
+        "bytes": bpd * (13 + 4 * W) + n * cap * (13 + 4 * W),
+    }
+
+
+def case_shard_sum(dev, kind):
+    """G27 against its plain version, exactly: ``main`` the rolling job's
+    B = 262,144 outputs of 4 shards, each lane owned by one shard or none;
+    ``edge`` two value words a lane, no valid lane, 8 shards, and lanes
+    valid on several shards at once (a general sum in shard order)."""
+    g = torch.Generator().manual_seed(27)
+    B = BATCH
+
+    def make(n, W, share=1.0, overlap=False):
+        shape = (B, W) if W > 1 else (B,)
+        outs = [torch.rand(shape, generator=g).to(dev) for _ in range(n)]
+        if overlap:
+            valids = [(torch.rand(B, generator=g) < 0.5).to(dev)
+                      for _ in range(n)]
+        else:
+            owner = torch.randint(0, n, (B,), generator=g)
+            owner[torch.rand(B, generator=g) >= share] = n
+            valids = [(owner == s).to(dev) for s in range(n)]
+        return outs, valids
+
+    cases = ([make(SHARDS, 1, 0.9)] if kind == "main" else
+             [make(SHARDS, 2, 0.9), make(SHARDS, 1, 0.0), make(8, 1, 0.9),
+              make(SHARDS, 1, overlap=True)])
+    err = 0.0
+    for outs, valids in cases:
+        err = max(err, max_abs_err(list(kernels.shard_sum(outs, valids)),
+                                   list(kernels.shard_sum_plain(outs,
+                                                                valids))))
+    outs, valids = cases[0]
+    masked = [torch.where(v.reshape(v.shape + (1,) * (o.dim() - 1)), o,
+                          torch.zeros((), device=dev))
+              for o, v in zip(outs, valids)]
+    n = len(outs)
+    return {
+        "err": err,
+        "run": lambda: kernels.shard_sum(outs, valids),
+        "plain": lambda: kernels.shard_sum_plain(outs, valids),
+        "library": lambda: torch.stack(masked).sum(0),
+        "bytes": n * B * 5 + B * 5,
+    }
+
+
+def shard_kernel_phase(dev, timing=True) -> dict:
+    """Hold G26 and G27 against their plain versions on every input kind
+    and time the main ones. Returns {wrapper: record}."""
+    return {"exchange_pack": hold("exchange_pack",
+                                  lambda k: case_exchange_pack(dev, k),
+                                  timing),
+            "shard_sum": hold("shard_sum", lambda k: case_shard_sum(dev, k),
+                              timing)}
+
+
+def _routed(m, route: str) -> bool:
+    return {"exchange": m.steps_exchanged > 0,
+            "sharded": m.steps_sharded > 0,
+            "mask": m.steps_exchanged == 0 and m.steps_sharded == 0}[route]
+
+
+def sharded_runs(dev, kind, smi, total_launches, want_count) -> None:
+    """Phase 24: the mesh at parallelism SHARDS, its SHARDS shards forced
+    onto the one card (``force_device_count``). The north star at full
+    size in the default mode (the adaptive exchange on the split path),
+    every other mode of the slice at SHARD_TOTAL events (rows by count and
+    sum against numpy, nothing dropped, the route each mode must take),
+    the sparse job in the hash layout, the rolling WordCount (every output
+    against numpy) and the checkpoint job crashed at a sharded drain and
+    restarted (every row against numpy)."""
+    from flink_tpu_torch.parallel.mesh import forced_device_count, \
+        mesh_devices
+
+    t_phase = time.perf_counter()
+    with forced_device_count(SHARDS):
+        devs = mesh_devices(dev)
+        emit({"phase": "sharded_mesh", "shards": SHARDS,
+              "devices": [str(d) for d in devs],
+              "note": f"{SHARDS} shards share the one card: their "
+                      f"collectives are copies within it, and the times "
+                      f"say nothing of several cards",
+              "device": kind, "nvidia_smi": smi})
+        want_small = numpy_reference(SHARD_TOTAL, N_KEYS, EVENTS_PER_MS,
+                                     WINDOW_MS)
+        for name, cfg, total, want in (
+                (("auto", {}, TOTAL_EVENTS, want_count),)
+                + tuple((n, c, SHARD_TOTAL, want_small)
+                        for n, c in SHARD_MODES)):
+            launches, (sink, job, secs) = run_path(
+                lambda c=cfg, t=total: north_star_job(
+                    dev, N_KEYS, EVENTS_PER_MS, t, BATCH, RING_DEPTH,
+                    config=c, parallelism=SHARDS), total_launches)
+            m = job.metrics
+            emit({"phase": "sharded", "mode": name, "config": cfg,
+                  "events": total, "seconds": secs,
+                  "events_per_s": total / secs, "batches": m.steps,
+                  "exchange_mode": m.exchange_mode,
+                  "steps_exchanged": m.steps_exchanged,
+                  "steps_sharded": m.steps_sharded,
+                  "drains": m.resident_drains,
+                  "fused_dispatches": m.fused_dispatches,
+                  "fire_steps": m.fire_steps,
+                  "dropped_capacity": m.dropped_capacity,
+                  "count": sink.count, "count_ref": want,
+                  "fire_latency_ms": fire_latency(m), "launches": launches,
+                  "device": kind, "nvidia_smi": smi})
+            check(sink.value_sum == float(total) and sink.count == want,
+                  f"sharded {name}: {sink.count} rows summing to "
+                  f"{sink.value_sum}, numpy {want} and {total}")
+            check(m.dropped_late == 0 and m.dropped_capacity == 0,
+                  f"sharded {name}: records dropped")
+            check(_routed(m, SHARD_ROUTES[name]),
+                  f"sharded {name}: the {SHARD_ROUTES[name]} route never "
+                  f"ran ({m.steps_exchanged} exchanged, {m.steps_sharded} "
+                  f"sharded)")
+            check_launched(launches, SHARD_KERNELS if
+                           SHARD_ROUTES[name] == "exchange" else
+                           SHARD_KERNELS[:-1], f"sharded {name}")
+            del sink, job
+            if name == "auto":
+                # the card's idle share of the default mode, from a
+                # second, profiled run
+                (_s, _j, wall_p), busy = device_busy(
+                    lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS,
+                                           total, BATCH, RING_DEPTH,
+                                           parallelism=SHARDS))
+                emit({"phase": "sharded_idle", "mode": name,
+                      "device_busy_ms": busy, "profiled_wall_s": wall_p,
+                      "device_idle_share": 1.0 - busy / (wall_p * 1e3),
+                      "device": kind, "nvidia_smi": smi})
+
+        launches, (sink, job, secs) = run_path(
+            lambda: sparse_job(dev, SHARD_TOTAL, BATCH, RING_DEPTH,
+                               parallelism=SHARDS), total_launches)
+        cols = sink.columns()
+        m = job.metrics
+        emit({"phase": "sharded_sparse", "events": SHARD_TOTAL,
+              "seconds": secs, "events_per_s": SHARD_TOTAL / secs,
+              "rows": len(cols.get("value", ())),
+              "layout": job.state[0].layout,
+              "steps_exchanged": m.steps_exchanged,
+              "spilled_records": m.spilled_records,
+              "steps_fast": m.steps_fast, "launches": launches,
+              "device": kind, "nvidia_smi": smi})
+        check(job.state[0].layout == "hash",
+              f"sharded sparse: layout {job.state[0].layout}")
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              "sharded sparse: records dropped")
+        check_sparse_rows(cols, SHARD_TOTAL)
+        check_launched(launches, ("route_lanes", "clear_rows",
+                                  "scatter_update", "hash_upsert",
+                                  "fire_compact", "ring_append",
+                                  "exchange_pack"), "sharded sparse")
+        del sink, cols, job
+
+        ranks = all_word_ranks(SHARD_TOTAL)
+        launches, (sink, job, secs) = run_path(
+            lambda: wordcount_job(dev, SHARD_TOTAL, parallelism=SHARDS),
+            total_launches)
+        m = job.metrics
+        hot = check_wordcount_rows(sink.columns(), ranks)
+        emit({"phase": "sharded_rolling", "events": SHARD_TOTAL,
+              "seconds": secs, "events_per_s": SHARD_TOTAL / secs,
+              "hot_word_count": hot, "steps": m.steps,
+              "dropped_capacity": m.dropped_capacity, "launches": launches,
+              "device": kind, "nvidia_smi": smi})
+        check(m.dropped_capacity == 0,
+              f"sharded rolling: {m.dropped_capacity} records dropped")
+        check_launched(launches, SHARD_ROLLING_KERNELS, "sharded rolling")
+        del sink, job, ranks
+
+        want_ck = ckpt_reference(TOTAL_EVENTS)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as tmp:
+            launches, (sink, job, secs) = run_path(
+                lambda: ckpt_job(dev, TOTAL_EVENTS,
+                                 ckpt_dir=os.path.join(tmp, "c"),
+                                 fault="step.drain", parallelism=SHARDS),
+                total_launches)
+        m = job.metrics
+        cols = sink.columns()
+        repeats = check_window_rows(cols, want_ck, len(want_ck) // N_KEYS,
+                                    WINDOW_MS, "sharded crash")
+        emit({"phase": "sharded_crash", "events": TOTAL_EVENTS,
+              "seconds": secs, "rows": len(cols["value"]),
+              "repeated_windows": repeats, "restarts": m.restarts,
+              "steps_sharded": m.steps_sharded, **ckpt_stats(m),
+              "fault_to_first_drain_s": [r / 1e3
+                                         for r in (m.recovery_ms or [])],
+              "launches": launches, "device": kind, "nvidia_smi": smi})
+        check(m.restarts == 1 and m.steps_sharded > 0,
+              f"sharded crash: {m.restarts} restarts, {m.steps_sharded} "
+              f"sharded batches")
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              "sharded crash: records dropped")
+        del sink, job, cols
+    emit({"phase": "sharded_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
+
 # ------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -6666,6 +6971,10 @@ KERNEL_SOURCES = {
                    "flink_tpu/ml/pipeline.py:230"),
     "row_argmax": ("flink_tpu_torch/csrc/row_argbest.cu",
                    "flink_tpu/gelly/graph.py:293"),
+    "exchange_pack": ("flink_tpu_torch/csrc/exchange_pack.cu",
+                      "flink_tpu/parallel/exchange.py:49"),
+    "shard_sum": ("flink_tpu_torch/csrc/shard_sum.cu",
+                  "flink_tpu/runtime/step.py:2612"),
 }
 # the host functions of the chained jobs whose cumulative time --profile
 # reads: the key encode, the drains (the stage tail within them), the
@@ -6784,6 +7093,7 @@ def main(argv) -> int:
     for name, rec in res_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
     recs.update(library_kernel_phase(dev))
+    recs.update(shard_kernel_phase(dev))
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -7166,6 +7476,7 @@ def main(argv) -> int:
     controller_runs(dev, kind, smi, total_launches, want_count)
     fire_grid(dev, kind, smi, total_launches)
     library_runs(dev, kind, smi, total_launches)
+    sharded_runs(dev, kind, smi, total_launches, want_count)
 
     if "--profile" in argv:
         emit(profile_phase(

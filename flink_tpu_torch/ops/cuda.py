@@ -1,12 +1,13 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Twenty-five CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Twenty-seven CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
 for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
 telemetry), of chained window stages (G21, G22), of the session,
 count-window and rolling stages (G10-G13, G16), of device CEP (G19,
 G20, with G5 and G10) and of the batch libraries (G23-G25: Table/SQL,
-DataSet, Gelly, FlinkML); each source opens
+DataSet, Gelly, FlinkML) and of jobs over a shard mesh (G26, G27);
+each source opens
 with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
@@ -51,6 +52,10 @@ what its design does about that:
   G25 ``row_argmin``     a row's nearest center (KMeans);
       ``row_argmax``     a row's adopted label (community detection), in
                          one source ``row_argbest.cu``
+  G26 ``exchange_pack``  the keyed exchange's bucket step: a source shard's
+                         lanes packed by owning shard at stable ranks
+  G27 ``shard_sum``      the cross-shard sum of masked per-lane outputs
+                         (the rolling reduce's psum)
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -112,7 +117,8 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "rolling_update.cu", "sketch_update.cu", "sketch_fire.cu",
            "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu",
            "cep_scan.cu", "chain_pack.cu", "scatter_ids.cu",
-           "sorted_probe.cu", "row_argbest.cu")
+           "sorted_probe.cu", "row_argbest.cu", "exchange_pack.cu",
+           "shard_sum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -171,6 +177,8 @@ _SIGNATURES = {
     "sorted_probe": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
     "row_argmin": [_P, _I, _I, _P, _P, _P, _P],
     "row_argmax": [_P, _I, _I, _P, _P, _F, _P, _P, _P],
+    "exchange_pack": [_P] * 5 + [_I] * 5 + [_P] * 8,
+    "shard_sum": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -2704,13 +2712,159 @@ def row_argmax(m, labels, scores, delta: float):
 
 row_argmax.launches = 0
 
+# ------------------------------------------------------------ G26
+
+EXCHANGE_LANES = 1024        # lanes (and threads) a block of G26
+EXCHANGE_MAX_SHARDS = 256    # targets G26's shared counts hold
+
+
+class PackedLanes(NamedTuple):
+    """One source shard's send buffers (G26): ``[n * cap]`` lanes, bucket
+    t at ``[t * cap, (t + 1) * cap)``, every lane past a bucket's fill
+    zero; ``overflow`` int32 [1], the valid lanes that found no room."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    ts: torch.Tensor
+    values: torch.Tensor
+    valid: torch.Tensor
+    overflow: torch.Tensor
+
+
+def exchange_targets(hi, lo, n: int, maxp: int) -> torch.Tensor:
+    """Each lane's owning shard, ``kg * n // maxp`` (int64 [B])."""
+    kg = assign_to_key_group(route_hash(hi, lo), maxp)
+    return kg * n // maxp
+
+
+def exchange_pack_plain(hi, lo, ts, values, valid, *, n: int, maxp: int,
+                        cap: int) -> PackedLanes:
+    """Plain version of G26 (the reference's exchange_records up to its
+    all_to_all): hi / lo int32 [B] holding uint32 bits, ts int32 [B],
+    values [B, *tail] of a 32-bit dtype, valid bool [B]. Each valid lane's
+    rank among the valid lanes of its target (stable), the lanes with rank
+    < cap written to ``[target * cap + rank]`` of zero-filled buffers."""
+    B = hi.shape[0]
+    dev = hi.device
+    tgt = exchange_targets(hi, lo, n, maxp)
+    pos = torch.zeros(B, dtype=torch.int64, device=dev)
+    for t in range(n):
+        m = valid & (tgt == t)
+        pos = torch.where(m, torch.cumsum(m.to(torch.int64), 0) - 1, pos)
+    fits = valid & (pos < cap)
+    idx = torch.where(fits, tgt * cap + pos, n * cap)
+
+    def scatter(col):
+        buf = torch.zeros((n * cap + 1,) + tuple(col.shape[1:]),
+                          dtype=col.dtype, device=dev)
+        buf[idx] = col
+        return buf[:n * cap]
+
+    return PackedLanes(scatter(hi), scatter(lo), scatter(ts),
+                       scatter(values), scatter(fits),
+                       (valid & ~fits).sum(dtype=torch.int32).reshape(1))
+
+
+def exchange_pack(hi, lo, ts, values, valid, *, n: int, maxp: int,
+                  cap: int) -> PackedLanes:
+    """G26: see exchange_pack_plain for the contract."""
+    if _on_cpu(hi):
+        return exchange_pack_plain(hi, lo, ts, values, valid, n=n,
+                                   maxp=maxp, cap=cap)
+    dev = hi.device
+    (B,) = hi.shape
+    for t, name, dt in ((hi, "hi", torch.int32), (lo, "lo", torch.int32),
+                        (ts, "ts", torch.int32),
+                        (valid, "valid", torch.bool)):
+        _check(t, name, dt, (B,), dev)
+    if values.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"values has dtype {values.dtype}, expected a "
+                        f"32-bit float or int")
+    _check(values, "values", values.dtype, None, dev)
+    if values.shape[0] != B:
+        raise ValueError(f"values has {values.shape[0]} lanes, expected {B}")
+    if not 1 <= n <= EXCHANGE_MAX_SHARDS or n > maxp or cap < 1:
+        raise ValueError(f"exchange over {n} shards of {maxp} key groups "
+                         f"with bucket capacity {cap}")
+    tail = tuple(values.shape[1:])
+    W = 1
+    for d in tail:
+        W *= d
+    i32 = dict(dtype=torch.int32, device=dev)
+    blocks = max(1, -(-B // EXCHANGE_LANES))
+    counts = torch.empty(blocks * n, **i32)
+    out = PackedLanes(torch.empty(n * cap, **i32), torch.empty(n * cap, **i32),
+                      torch.empty(n * cap, **i32),
+                      torch.empty((n * cap,) + tail, dtype=values.dtype,
+                                  device=dev),
+                      torch.empty(n * cap, dtype=torch.bool, device=dev),
+                      torch.empty(1, **i32))
+    rc = build().exchange_pack(
+        _ptr(hi), _ptr(lo), _ptr(ts), _ptr(values), _ptr(valid), B, W, n,
+        maxp, cap, _ptr(counts), _ptr(out.hi), _ptr(out.lo), _ptr(out.ts),
+        _ptr(out.values), _ptr(out.valid), _ptr(out.overflow), _stream())
+    _raise_on(rc, "exchange_pack")
+    exchange_pack.launches += 1
+    return out
+
+
+exchange_pack.launches = 0
+
+
+# ------------------------------------------------------------ G27
+
+SHARD_SUM_MAX_SHARDS = 64    # shard pointers G27's launch parameters hold
+
+
+def shard_sum_plain(outs, valids):
+    """Plain version of G27: ``outs`` n float32 [B, *tail] tensors and
+    ``valids`` n bool [B] on one device. Returns (sum over shards in index
+    order of where(valid_s, out_s, 0), OR over shards of valid_s)."""
+    acc = ok = None
+    for o, v in zip(outs, valids):
+        x = torch.where(_expand(v, o), o, torch.zeros((), dtype=o.dtype))
+        acc = x if acc is None else acc + x
+        ok = v if ok is None else ok | v
+    return acc, ok
+
+
+def shard_sum(outs, valids):
+    """G27: see shard_sum_plain for the contract."""
+    if _on_cpu(outs[0]):
+        return shard_sum_plain(outs, valids)
+    n = len(outs)
+    if not 1 <= n <= SHARD_SUM_MAX_SHARDS or len(valids) != n:
+        raise ValueError(f"a shard sum over {n} outputs and {len(valids)} "
+                         f"valid masks")
+    dev = outs[0].device
+    shape = tuple(outs[0].shape)
+    B = shape[0]
+    for o, v in zip(outs, valids):
+        _check(o, "out", torch.float32, shape, dev)
+        _check(v, "valid", torch.bool, (B,), dev)
+    W = 1
+    for d in shape[1:]:
+        W *= d
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs))
+    vptrs = (ctypes.c_void_p * n)(*(v.data_ptr() for v in valids))
+    rc = build().shard_sum(ctypes.cast(ptrs, _P), ctypes.cast(vptrs, _P), n,
+                           B, W, _ptr(out), _ptr(ok), _stream())
+    _raise_on(rc, "shard_sum")
+    shard_sum.launches += 1
+    return out, ok
+
+
+shard_sum.launches = 0
+
 KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
            hash_lookup, compact_table, segment_sort, session_update,
            count_update, rolling_update, sketch_update, sketch_fire,
            rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats,
            cep_scan, cep_expire, chain_pack, fire_columns, stage_record,
-           scatter_ids, sorted_probe, row_argmin, row_argmax)
+           scatter_ids, sorted_probe, row_argmin, row_argmax,
+           exchange_pack, shard_sum)
 
 
 # wrappers whose kernel lives in another wrapper's source

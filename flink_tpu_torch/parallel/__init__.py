@@ -1,3 +1,4 @@
-"""Parallel primitives of the port: today the broadcast join's probe on
-one shard (``broadcast.py``). The mesh, the exchange and the sharded
-steps wait for a process group (ROADMAP queue 1, items 10 and 12)."""
+"""Parallel primitives of the port: the shard mesh (``mesh.py``), its
+collectives (``collectives.py``), the keyed record exchange
+(``exchange.py``) and the broadcast join's probe on one shard
+(``broadcast.py``)."""

@@ -7,8 +7,7 @@ mesh and lets each shard probe its slice of the record stream
 runs on one card, so the whole stream is one shard's slice: the build side
 is sorted on the host with ``np.argsort(kind="stable")`` as there, and the
 probe is one launch of G24 (``ops/cuda.py sorted_probe``). The step over a
-mesh raises: the port has no process group yet (ROADMAP queue 1, item 10),
-and the sharded broadcast is item 12.
+mesh raises: the sharded broadcast is ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations

@@ -1,0 +1,62 @@
+"""The keyed record exchange — the port of flink_tpu/parallel/exchange.py
+(kernel K12): the keyBy hash shuffle between the shards of a mesh.
+
+The host splits each batch into one lane slice a shard (B / n lanes). For
+each source shard, G26 (``ops/cuda.py exchange_pack``) buckets its lanes
+by owning shard into ``[n * cap]`` send buffers, at stable ranks so that
+a target receives each source's lanes in order; ``parallel/collectives.py
+all_to_all`` hands each target its buckets; the target's update masks the
+received lanes to its key groups in G1 (``wk.update``'s ``kg_start`` /
+``kg_end``: the reference's ``exchange_owned`` mask). Lanes past their
+bucket's capacity are counted per source, never silently lost: the
+caller adds them to the source shard's ``dropped_capacity``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from flink_tpu_torch.ops import cuda as kernels
+from flink_tpu_torch.parallel.mesh import device_guard
+from flink_tpu_torch.parallel.collectives import all_to_all
+
+
+def bucket_capacity(batch_per_device: int, n_shards: int,
+                    factor: float = 2.0) -> int:
+    """Per-(sender, target) bucket capacity: factor x expected fill,
+    clamped to [8, batch_per_device] (the reference's)."""
+    expected = max(1, batch_per_device // max(1, n_shards))
+    return max(8, min(batch_per_device, int(round(factor * expected))))
+
+
+def split_lanes(slot, n: int, devices) -> List[Tuple]:
+    """A staged ``[B]`` batch ``(hi, lo, ts, values, valid)`` as n lane
+    slices ``[s * B / n, (s + 1) * B / n)``, slice s on ``devices[s]``."""
+    B = slot[0].shape[0]
+    if B % n:
+        raise ValueError(f"a {B}-lane batch does not split over {n} shards")
+    bpd = B // n
+    return [tuple(t[s * bpd:(s + 1) * bpd].to(devices[s], non_blocking=True)
+                  for t in slot) for s in range(n)]
+
+
+def exchange_records(slices: Sequence[Tuple], n: int, max_parallelism: int,
+                     cap: int, devices):
+    """Route each source shard's lane slice to the owning shards: G26 on
+    every source, then one all_to_all per column. Returns ``(received,
+    overflow)``: for each target t, ``(hi, lo, ts, values, valid)`` of
+    ``n * cap`` lanes on ``devices[t]`` (every valid lane owned by t), and
+    for each source s its int32 [1] count of lanes that found no room."""
+    packs = []
+    for s, (hi, lo, ts, values, valid) in enumerate(slices):
+        dev = torch.device(devices[s])
+        with device_guard(dev):
+            packs.append(kernels.exchange_pack(hi, lo, ts, values, valid,
+                                               n=n, maxp=max_parallelism,
+                                               cap=cap))
+    cols = [all_to_all([p[j] for p in packs], devices) for j in range(5)]
+    received = [tuple(c[t] for c in cols) for t in range(n)]
+    return received, [p.overflow for p in packs]
+

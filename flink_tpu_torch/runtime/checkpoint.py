@@ -47,7 +47,9 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.core.config import CoreOptions as CO
+from flink_tpu_torch.core.keygroups import assign_to_key_group
 from flink_tpu_torch.ops import hashtable
+from flink_tpu_torch.ops.hashing import route_hash
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_NONE
 from flink_tpu_torch.testing import faults
@@ -81,6 +83,53 @@ def stage_window_state(state: wk.WindowShardState,
             "scalars": {n: int(v) for n, v in zip(SCALARS, small)},
             "value_tail": tuple(acc.shape[1:]),
             "value_dtype": np.dtype(acc.dtype)}
+
+
+def stage_sharded_state(states, red: wk.ReduceSpec) -> dict:
+    """The shards' states staged as the reference stages its [n_shards]
+    state (its ``{"n_shards": S, "rows", "shards"}`` form): shard s's
+    host copies under ``shards[s]``, the scalars combined across shards
+    (watermark, fired_through and min_pane their minimum, max_pane the
+    maximum, the drop counters summed)."""
+    parts = [stage_window_state(st, red) for st in states]
+    shards = {s: p["shards"][0] for s, p in enumerate(parts)}
+    sc = [p["scalars"] for p in parts]
+    scalars = {
+        "watermark": min(x["watermark"] for x in sc),
+        "fired_through": min(x["fired_through"] for x in sc),
+        "max_pane": max(x["max_pane"] for x in sc),
+        "min_pane": min(x["min_pane"] for x in sc),
+        "dropped_late": sum(x["dropped_late"] for x in sc),
+        "dropped_capacity": sum(x["dropped_capacity"] for x in sc),
+    }
+    return {"n_shards": len(states), "rows": list(range(len(states))),
+            "shards": shards, "scalars": scalars,
+            "value_tail": parts[0]["value_tail"],
+            "value_dtype": parts[0]["value_dtype"]}
+
+
+def restore_sharded_state(entries, scalars, ctx, spec,
+                          leftover=None) -> list:
+    """Logical entries -> one device state a shard of ``ctx`` (the
+    reference's ``restore_window_state`` onto a possibly different mesh):
+    every entry re-bucketed by its key group through
+    ``ctx.shard_of_key_groups``, each shard rebuilt from its own entries
+    on its device. The drop counters restore on shard 0 (their sum is what
+    a job reports). ``leftover`` as for ``restore_window_rows``."""
+    khi = np.asarray(entries["key_hi"], np.uint32)
+    klo = np.asarray(entries["key_lo"], np.uint32)
+    kg = assign_to_key_group(route_hash(khi, klo, np), ctx.max_parallelism,
+                             np)
+    shard = ctx.shard_of_key_groups(kg)
+    zero = dict(scalars, dropped_late=0, dropped_capacity=0)
+    out = []
+    for s, dev in enumerate(ctx.devices):
+        sel = shard == s
+        part = {k: np.asarray(v)[sel] for k, v in entries.items()}
+        out.append(restore_window_state(
+            part, scalars if s == 0 else zero, spec, ctx.max_parallelism,
+            dev, leftover=leftover))
+    return out
 
 
 def extract_entries(staged: dict, win: wk.WindowSpec):

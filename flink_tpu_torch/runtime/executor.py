@@ -1,5 +1,6 @@
-"""Local executor for one keyed event-time window stage on one device —
-the main-path slice of flink_tpu/runtime/executor.py (``_run_windowed``).
+"""Local executor for one keyed event-time window stage on one device or
+over a shard mesh — the main-path slice of flink_tpu/runtime/executor.py
+(``_run_windowed``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
 event-time window [-> allowed_lateness] -> sum | count | min | max | mean |
@@ -177,7 +178,8 @@ above 1 (the fused slot's capacity: a move changes the next group), and
 ``drain-stats-cadence`` and ``tier-prefetch-ahead`` with the recorder and
 tiered state; its ledger persists in the checkpoint directory and
 ``env._controller_report()`` serves it. Its rebalance arm needs more than
-one shard (item 10): with one, its skew test never fires.
+one shard and the flight recorder's key-group heat, which runs on one
+shard only: its skew test never fires, and the rescale raises (item 10).
 
 Checkpoints and restarts (the reference's sync-full path, executor.py:
 2855-2960, 3327-3490, 6270-6360), for a single-stage window job:
@@ -223,6 +225,25 @@ drains. Edge lanes past the budget count into the downstream stage's
 ``dropped_capacity``, which the job's strict-capacity check sums over
 every stage.
 
+Parallelism (the reference's executor.py:1596-1598, 2013-2052, 5620-
+5631): a job runs ``n = max(1, min(parallelism, len(mesh_devices(
+device))))`` shards (``parallel/mesh.py``; ``force_device_count(n)`` puts
+n shards on one device), each owning a contiguous key-group range, one
+state a shard. With n above 1 ``exchange.mode`` picks how records reach
+their shard: ``auto`` plans each batch (``ingest.plan_route``: the
+all_to_all exchange — G26, the all_to_all, G1's owner mask — when every
+bucket of ``exchange.capacity-factor`` x the balanced share fits, else
+replicate-and-mask), ``all_to_all`` always exchanges (a bucket's overflow
+counts into ``dropped_capacity``), ``mask`` never does; the batch pads to
+a multiple of n. ``pipeline.data-parallel`` (``auto``: on in a resident
+mode at n above 1) adds the sharded route: the producer partitions each
+batch into per-shard rings and each shard drains its own slots. The
+shards' fires merge on the host; the spill stores are shared (the shards
+own disjoint keys), each shard has its own overflow ring. At n above 1
+allowed lateness, tiered state and the flight recorder raise (ROADMAP
+queue 1, item 10); session and count windows, CEP and chained stages at
+parallelism above 1 raise too.
+
 Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
 windows (``count_window(n)``) and event-time session windows go to the
 runners of ``runtime/keyed_jobs.py``; ``CEP.pattern(...).select`` /
@@ -231,10 +252,10 @@ element-mode or a columnar source) to the device CEP job of
 ``runtime/cep_job.py``. Anything else — another topology, processing-time
 windows, an element-mode source under a window or rolling stage, the host
 CEP operator (``cep.device.enabled: false``), checkpoints of anything but
-a single-stage window job, parallelism above 1, an operator after the
-stage, sinks on more than one stage, a reduce other than sum or count
-over session and count windows — raises NotImplementedError naming the
-ROADMAP queue item that brings it.
+a single-stage window job, parallelism above 1 outside time windows and
+rolling reduces, an operator after the stage, sinks on more than one
+stage, a reduce other than sum or count over session and count windows —
+raises NotImplementedError naming the ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -268,6 +289,8 @@ from flink_tpu_torch.metrics.latency import LatencySamples
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_JUMP_CLAMP, WM_FRESH
+from flink_tpu_torch.parallel.exchange import bucket_capacity
+from flink_tpu_torch.parallel.mesh import MeshContext, mesh_devices
 from flink_tpu_torch.runtime import cep_job, keyed_jobs
 from flink_tpu_torch.runtime import checkpoint as ckpt
 from flink_tpu_torch.runtime import controller as controller_mod
@@ -278,18 +301,16 @@ from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
-    build_kg_occupancy_step,
+    build_sharded_drain,
+    build_sharded_fire_step,
+    build_sharded_megastep,
+    build_sharded_update_step,
     build_window_chained_drain,
-    build_window_fire_reduced_step,
-    build_window_fire_step,
-    build_window_megastep,
-    build_window_megastep_fired,
-    build_window_resident_drain,
-    build_window_update_step,
-    build_window_while_drain,
     clear_overflow,
     compact_step,
     init_shard_state,
+    init_sharded_state,
+    sharded_kg_occupancy,
 )
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 from flink_tpu_torch.testing import faults
@@ -375,10 +396,14 @@ class JobMetrics:
     # drain that cannot keep up, as backpressure (the reference's
     # ring_publish_refusals gauge)
     ring_publish_refusals: int = 0
-    # the reference's counters of paths the port does not run yet; they
-    # stay 0 (sharded drains: item 10; the failure budget and the
-    # watchdog: item 13)
+    # over a shard mesh: how records reach their shard ("mask",
+    # "all_to_all" or "adaptive"), the batches the exchange routed and
+    # those the sharded drains took (pipeline.data-parallel)
+    exchange_mode: str = ""
+    steps_exchanged: int = 0
     steps_sharded: int = 0
+    # the reference's counters of paths the port does not run yet; they
+    # stay 0 (the failure budget and the watchdog: item 13)
     checkpoints_aborted: int = 0
     checkpoints_declined: int = 0
     watchdog_trips: int = 0
@@ -594,9 +619,6 @@ class LocalExecutor:
                          or env.checkpoint_interval_steps > 0)
         if checkpointing:
             _check_checkpoint_config(env.config)
-        if env.parallelism != 1:
-            raise _unsupported(f"parallelism {env.parallelism}",
-                               "ROADMAP queue 1, item 10")
         if env.config.get_bool("observability.tracing", False):
             raise _unsupported(
                 "observability.tracing (the step-loop span tracer, the "
@@ -629,6 +651,15 @@ class LocalExecutor:
             job_cls = keyed_jobs.SessionJob
         else:
             job_cls = _WindowJob
+        if env.parallelism > 1 and (job_cls not in (_WindowJob,
+                                                    keyed_jobs.RollingJob)
+                                    or pipe.graph is not None):
+            kind = ("chained window stages" if pipe.graph is not None
+                    else {keyed_jobs.CountJob: "count windows",
+                          keyed_jobs.SessionJob: "session windows"}.get(
+                              job_cls, "CEP"))
+            raise _unsupported(f"parallelism {env.parallelism} on {kind}",
+                               "ROADMAP queue 1, item 10")
         if checkpointing and (job_cls is not _WindowJob
                               or pipe.graph is not None):
             raise _unsupported(
@@ -649,7 +680,10 @@ class LocalExecutor:
             for s in pipe.sinks:
                 s.close()
         job.finish()
-        return JobHandle(job_name, job.metrics, state=job.state)
+        states = getattr(job, "states", None)
+        return JobHandle(job_name, job.metrics,
+                         state=states if states is not None
+                         and len(states) > 1 else job.state)
 
 
 def _check_checkpoint_config(cfg) -> None:
@@ -724,10 +758,11 @@ class _Dispatch:
     max_slots: int       # pipeline.while-drain.max-slots, resolved
     k_fuse: int = 1      # pipeline.steps-per-dispatch
     fused_fire: bool = False   # K > 1 and pipeline.fused-fire not off
+    data_parallel: bool = False   # the sharded route's drains
 
 
 def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
-                      device) -> _Dispatch:
+                      device, n_shards: int = 1) -> _Dispatch:
     """``pipeline.prefetch``, ``pipeline.device-staging`` and
     ``pipeline.resident-loop`` as the reference resolves them, with its
     errors. ``auto`` is the split path while ``steps-per-dispatch`` is 1;
@@ -741,7 +776,8 @@ def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
     ``auto`` takes its drain whenever staging exists, and its setup
     refuses a job without one. ``pipeline.data-parallel: on`` needs the
     resident loop (the reference's error) and then runs the sharded
-    drain, which is not ported (item 10)."""
+    drain; ``auto`` runs it in a resident mode over more than one
+    shard."""
     res_cfg = cfg.get_str("pipeline.resident-loop", "auto")
     ff_cfg = cfg.get_str("pipeline.fused-fire", "auto")
     if ff_cfg not in ("auto", "on", "off"):
@@ -799,17 +835,24 @@ def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
                         and torch.device(device).type != "cpu")
         if chained and res_cfg == "auto":
             use_resident = use_staging
-    if cfg.get_str("pipeline.data-parallel", "auto") == "on":
+    dp_cfg = cfg.get_str("pipeline.data-parallel", "auto")
+    if dp_cfg == "on":
         if not use_resident:
             raise ValueError(
                 "pipeline.data-parallel=on requires the resident "
                 "loop (pipeline.resident-loop + prefetch + device "
                 "staging): the sharded drain consumes per-shard "
                 "ring slices published by the ingest thread")
-        raise _unsupported("pipeline.data-parallel: on (the sharded drain, "
-                           "K13 sharded)", "ROADMAP queue 1, item 10")
+        use_dp = True
+    else:
+        use_dp = dp_cfg == "auto" and use_resident and n_shards > 1
+    if use_dp and chained and dp_cfg == "on":
+        raise _unsupported("pipeline.data-parallel: on with chained stages "
+                           "(the sharded chained drain, K14 sharded)",
+                           "ROADMAP queue 1, item 10")
+    use_dp = use_dp and not chained
     return _Dispatch(use_prefetch, use_staging, use_resident, use_while,
-                     max_slots, k_fuse, use_fused_fire)
+                     max_slots, k_fuse, use_fused_fire, use_dp)
 
 
 def _check_config(cfg, red: wk.ReduceSpec) -> None:
@@ -842,6 +885,10 @@ def _check_config(cfg, red: wk.ReduceSpec) -> None:
     if dp_capf < 1.0:
         raise ValueError(
             f"pipeline.shard-capacity-factor must be >= 1.0, got {dp_capf}")
+    mode = cfg.get_str("exchange.mode", "auto")
+    if mode not in ("auto", "all_to_all", "mask"):
+        raise ValueError(
+            f"exchange.mode must be auto|all_to_all|mask, got {mode!r}")
 
 
 class _WindowJob(StageJob):
@@ -850,6 +897,21 @@ class _WindowJob(StageJob):
     CAPACITY_HINT = (" (raise state.backend.device.slots-per-shard or the "
                      "pane ring, or set state.backend.strict-capacity to "
                      "false to tolerate drops)")
+    states: Optional[List[wk.WindowShardState]] = None   # one a shard
+
+    @property
+    def state(self) -> Optional[wk.WindowShardState]:
+        """The first shard's state (the only one at parallelism 1)."""
+        return None if self.states is None else self.states[0]
+
+    @state.setter
+    def state(self, st) -> None:
+        if st is None:
+            self.states = None
+        elif self.states is None:
+            self.states = [st]
+        else:
+            self.states[0] = st
 
     def __init__(self, env, pipe: _Pipeline, metrics, restore_from=None):
         cfg = env.config
@@ -938,22 +1000,51 @@ class _WindowJob(StageJob):
         self.maxp = env.max_parallelism
         self.td: Optional[TimeDomain] = None
         self.spec: Optional[WindowStageSpec] = None
+        # the shard mesh (executor.py:1596-1598): n shards, each with its
+        # key-group range and device, at most the devices visible
+        devs = mesh_devices(self.device)
+        self.n_shards = max(1, min(env.parallelism, len(devs)))
+        self.ctx = MeshContext.create(self.n_shards, self.maxp,
+                                      devices=devs)
+        if self.n_shards > 1:
+            for what, on in (
+                    ("allowed lateness", self.lateness_ms > 0),
+                    ("tiered key-group state (state.tiers.*)",
+                     self.tier_budget > 0),
+                    ("observability.drain-stats (the flight recorder)",
+                     cfg.get_bool("observability.drain-stats",
+                                  cfg.get_bool("observability.tracing",
+                                               False)))):
+                if on:
+                    raise _unsupported(
+                        f"{what} at parallelism {self.n_shards}",
+                        "ROADMAP queue 1, item 10")
+        self.ex_mode = cfg.get_str("exchange.mode", "auto")
+        self.ex_capf = cfg.get_float("exchange.capacity-factor", 2.0)
+        self.dp_capf = cfg.get_float("pipeline.shard-capacity-factor", 2.0)
+        self.B_step = self.B             # the step's lanes (setup)
+        self.exchange_cap = 0            # the exchange's bucket lanes
+        self.shard_cap = 0               # the sharded route's lanes a shard
+        self.chunk_route = "mask"        # a general-path chunk's route
         # the dispatch modes (the reference's resolution): the split
         # path's update and fire steps, or a ring drain per group
         self.mode = _resolve_dispatch(
             cfg, self.graph is not None, self.storage is not None,
-            pipe.source, self.device)
-        self.drain = None            # the ring drain (resident modes)
-        self.fast_drain = None       # its lookup-only variant (hash + ring)
-        self.update_step = None      # the split steps (single-stage jobs)
-        self.fast_step = None
+            pipe.source, self.device, self.n_shards)
+        # the kernels by route ("mask", "exchange", "sharded") and tier
+        # ("insert", "fast"): the split path's update steps, the K-step
+        # megasteps, the ring drains; ``drain`` is the first drain (a
+        # chained job's one), set in the resident modes
+        self.steps: Dict[str, Dict[str, Any]] = {}
+        self.drains: Dict[str, Dict[str, Any]] = {}
+        self.drain = None
         self.fire_step = None
         self.fire_reduced_step = None
         self.fire_rows = None        # the fire steps' [Ft, C] row buffers
         self.empty_slot = None       # a chained flush round's batch
-        # the K-step megasteps by tier ("insert", "fast"): a single-stage
-        # job on the split path with pipeline.steps-per-dispatch above 1
-        self.mega: Optional[Dict[str, Any]] = None
+        # the K-step megasteps by route and tier: a single-stage job on
+        # the split path with pipeline.steps-per-dispatch above 1
+        self.mega: Optional[Dict[str, Dict[str, Any]]] = None
         self.fuse_depth = 1          # K of the last dispatch (1: singles)
         # the fused slot: a drain's slots of staged batches (the resident
         # modes, which fire in the drain), else K batches of one megastep
@@ -1008,7 +1099,6 @@ class _WindowJob(StageJob):
         self.kg_fill_total = np.zeros(self.maxp, np.int64)
         self.kg_fill_sampled = 0     # batches the fill counts cover
         self.kg_occ: Optional[np.ndarray] = None
-        self.kg_occ_step = None      # G17, built on first use
         self.kg_last_refresh = 0.0
         self.mon_skip = 0            # batches since the last fill sample
         self.ds_skip = 0             # drains since the last payload read
@@ -1069,66 +1159,39 @@ class _WindowJob(StageJob):
         self.spec = WindowStageSpec(
             win=win, red=self.red, capacity_per_shard=capacity,
             layout=layout, probe_len=cfg.get_int("state.probe-len", 16))
-        self.state = init_shard_state(self.spec, self.maxp, self.device)
-        tel = dict(kg_fill=self.kg_stats, drain_stats=self.drain_stats)
+        self.states = init_sharded_state(self.ctx, self.spec)
         mode = self.mode
         build_fast = bool(ovf) and layout == "hash"
         if self.graph is not None:
-            self.setup_chain(ovf, tel)
+            self.setup_chain(ovf, {"kg_fill": self.kg_stats,
+                                   "drain_stats": self.drain_stats})
         else:
-            # the split steps (executor.py:1995-2080, 2437-2455): the fire
-            # steps serve every single-stage mode's watermark-only fires
-            if not mode.resident:
-                self.update_step = build_window_update_step(
-                    self.spec, self.maxp, kg_fill=self.kg_stats)
-                if build_fast:
-                    # the reference's build_fast (executor.py:2053-2072)
-                    self.fast_step = build_window_update_step(
-                        self.spec, self.maxp, insert=False,
-                        kg_fill=self.kg_stats)
-            if not mode.resident and mode.k_fuse > 1:
-                self.setup_megasteps(build_fast)
-            self.fire_step = build_window_fire_step(
-                self.spec, out=self.fire_row_views)
-            if self.sink_device_reduce:
-                self.fire_reduced_step = build_window_fire_reduced_step(
-                    self.spec)
-        if mode.resident and self.graph is None:
-            if mode.while_drain:
-                self.drain = build_window_while_drain(
-                    self.spec, mode.max_slots, self.maxp,
-                    reduced=self.reduced, **tel)
-                fast_of = build_window_while_drain
-                depth = mode.max_slots
-            else:
-                self.drain = build_window_resident_drain(
-                    self.spec, self.depth, self.maxp, reduced=self.reduced,
-                    **tel)
-                fast_of = build_window_resident_drain
-                depth = self.depth
-            if build_fast:
-                self.fast_drain = fast_of(
-                    self.spec, depth, self.maxp, reduced=self.reduced,
-                    insert=False, arena=self.drain.arena, **tel)
+            self.setup_routes(build_fast)
         if self.tier_budget > 0:
             self.setup_tiers()
         # the prep side's plan (executor.py:2456-2490): re-installed by a
         # restore that moves the origin, with the producer paused
         sketch = self.red.kind == "sketch"
         win = self.spec.win
+        routes = tuple(self.steps) + (("sharded",) if "sharded"
+                                      in self.drains else ())
         self.ingest.set_plan(ingest_mod.IngestPlan(
             td=self.td, slide_ticks=win.slide_ticks,
             span_limit=win.ring - max(2, win.panes_per_window + 1),
             B=self.B, staging=mode.staging, device=self.device,
             value_shape=() if sketch else tuple(self.red.value_shape),
             value_dtype=np.uint32 if sketch else np.float32,
-            ring_depth=self.depth if mode.resident else 0))
+            ring_depth=self.depth if mode.resident else 0,
+            B_step=self.B_step, n_shards=self.n_shards,
+            max_parallelism=self.maxp, kg_ends=self.ctx.kg_bounds()[1],
+            exchange_cap=self.exchange_cap, routes=routes,
+            shard_cap=self.shard_cap, devices=self.ctx.devices))
         self.telem = None
         dr = self.ingest.device_ring
         if self.drain_stats and mode.resident and dr is not None:
             dr.stats_enabled = True
             # the flight recorder's host half (executor.py:2325-2350): one
-            # ring lane, since the port runs one shard
+            # ring lane, since it runs on one shard
             self.telem = DrainTelemetry(
                 1, self.depth, key_groups=self.maxp if self.kg_stats else 0,
                 kg_alpha=cfg.get_float("observability.kg-heat-alpha", 0.05),
@@ -1137,26 +1200,91 @@ class _WindowJob(StageJob):
                     CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES)
                     if self.graph is not None else 0))
 
-    def setup_megasteps(self, build_fast: bool) -> None:
-        """The K-step megasteps of each tier (the reference's
-        executor.py:2090-2140): with fused fire their fired variants
-        replace the plain ones, full groups always firing inside the
-        dispatch — reduced (G4) when every sink is a device-reduce sink
-        and the stage has no overflow ring, else compact into one arena
-        the two tiers share; partial groups run as single steps."""
-        K = self.mode.k_fuse
-        tel = dict(kg_fill=self.kg_stats, tiered=self.tier_budget > 0)
-        if self.mode.fused_fire:
-            make = functools.partial(build_window_megastep_fired,
-                                     reduced=self.reduced)
-        else:
-            make = build_window_megastep
-        insert = make(self.spec, K, self.maxp, **tel)
-        if build_fast and self.mode.fused_fire:
-            tel["arena"] = insert.arena
-        self.mega = {"insert": insert,
-                     "fast": make(self.spec, K, self.maxp, insert=False,
-                                  **tel) if build_fast else None}
+    def setup_routes(self, build_fast: bool) -> None:
+        """The kernels of each route and tier (the reference's
+        executor.py:2013-2455): ``exchange.mode`` with more than one shard
+        picks the routes — ``auto`` both the exchange and the mask route
+        (each batch planned), ``all_to_all`` the exchange alone, ``mask``
+        the mask alone — and pads the batch to a multiple of the shards;
+        the split path's update steps and megasteps, or the resident
+        modes' drains of each route (with ``pipeline.data-parallel`` also
+        the sharded route's, over per-shard rings of
+        ``shard-capacity-factor`` x B / n lanes); the fire steps serve
+        every mode's watermark-only fires. A fast variant shares its
+        insert variant's arenas; every drain of a shard shares one."""
+        ctx, n, mode = self.ctx, self.n_shards, self.mode
+        want_ex = n > 1 and self.ex_mode in ("auto", "all_to_all")
+        self.B_step = -(-self.B // n) * n if want_ex else self.B
+        self.metrics.exchange_mode = (
+            "adaptive" if want_ex and self.ex_mode == "auto"
+            else "all_to_all" if want_ex else "mask")
+        routes = []
+        if not want_ex or self.ex_mode == "auto":
+            routes.append("mask")
+        if want_ex:
+            routes.append("exchange")
+            self.exchange_cap = bucket_capacity(self.B_step // n, n,
+                                                self.ex_capf)
+        self.shard_cap = (bucket_capacity(self.B_step, n, self.dp_capf)
+                          if mode.data_parallel else 0)
+        kg_fill = self.kg_stats
+        tiered = self.tier_budget > 0
+        share = None
+        for route in routes:
+            cap = self.exchange_cap if route == "exchange" else 0
+            if not mode.resident:
+                self.steps[route] = {
+                    tier: build_sharded_update_step(
+                        ctx, self.spec, route, insert=tier == "insert",
+                        kg_fill=kg_fill, cap=cap)
+                    if tier == "insert" or build_fast else None
+                    for tier in ("insert", "fast")}
+                if mode.k_fuse > 1:
+                    if self.mega is None:
+                        self.mega = {}
+                    tiers = {}
+                    for tier in ("insert", "fast"):
+                        if tier == "fast" and not build_fast:
+                            tiers[tier] = None
+                            continue
+                        tiers[tier] = build_sharded_megastep(
+                            ctx, self.spec, mode.k_fuse, route,
+                            insert=tier == "insert", kg_fill=kg_fill,
+                            fused_fire=mode.fused_fire,
+                            reduced=self.reduced, cap=cap, share=share,
+                            tiered=tiered)
+                        if mode.fused_fire and share is None:
+                            share = tiers[tier]
+                    self.mega[route] = tiers
+            else:
+                # the single steps' route table, for the plan (a drain
+                # job's general path drains its chunks one slot each)
+                self.steps[route] = {"insert": None, "fast": None}
+        if mode.resident:
+            depth = mode.max_slots if mode.while_drain else self.depth
+            for route in routes + (["sharded"] if mode.data_parallel
+                                   else []):
+                cap = self.exchange_cap if route == "exchange" else 0
+                tiers = {}
+                for tier in ("insert", "fast"):
+                    if tier == "fast" and not build_fast:
+                        tiers[tier] = None
+                        continue
+                    tiers[tier] = build_sharded_drain(
+                        ctx, self.spec, depth, route,
+                        insert=tier == "insert", kg_fill=kg_fill,
+                        reduced=self.reduced, while_drain=mode.while_drain,
+                        cap=cap, share=share, drain_stats=self.drain_stats)
+                    if share is None:
+                        share = tiers[tier]
+                self.drains[route] = tiers
+            self.drain = self.drains[routes[0]]["insert"]
+        self.fire_step = build_sharded_fire_step(ctx, self.spec,
+                                                 out=self.fire_row_views)
+        if self.sink_device_reduce:
+            self.fire_reduced_step = build_sharded_fire_step(
+                ctx, self.spec, reduced=True)
+
 
     def setup_tiers(self) -> None:
         """The tier manager (executor.py:1947-1986): made once, re-sliced
@@ -1241,21 +1369,27 @@ class _WindowJob(StageJob):
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def fire_row_views(self):
-        """The fire steps' [Ft, C] row buffers: the arena's slot 0 when a
-        compact drain or fused-fire megastep made one (its rows were read
-        by then), else the job's own, made at first use."""
-        owner = self.drain if self.drain is not None else (
-            self.mega or {}).get("insert")
-        arena_rows = getattr(owner, "arena_rows", None)
+    def fire_row_views(self, s: int = 0):
+        """Shard ``s``'s fire-step [Ft, C] row buffers: its arena's slot 0
+        when a compact drain or fused-fire megastep made one (every drain
+        and megastep of the shard shares it, and its rows were read by
+        then), else the shard's own, made at first use."""
+        owner = self.drain
+        if owner is None and self.mega:
+            owner = next(iter(self.mega.values()))["insert"]
+        shards = getattr(owner, "shards", None)
+        arena_rows = getattr(shards[s], "arena_rows", None) if shards \
+            else None
         rows = arena_rows(0) if arena_rows is not None else None
         if rows is not None:
             return rows
         if self.fire_rows is None:
-            self.fire_rows = wk.fire_row_buffers(
+            self.fire_rows = [None] * self.n_shards
+        if self.fire_rows[s] is None:
+            self.fire_rows[s] = wk.fire_row_buffers(
                 self.spec.win.fire_lanes, self.spec.capacity_per_shard,
-                self.device, red=self.red)
-        return self.fire_rows
+                self.ctx.devices[s], red=self.red)
+        return self.fire_rows[s]
 
     # -- the prep half (the producer thread, or inline) --------------------
     def prep_batch(self) -> ingest_mod.PreppedBatch:
@@ -1420,9 +1554,13 @@ class _WindowJob(StageJob):
         if staged is None:
             # staging off: the step loop copies the batch
             staged = ingest_mod.stage_fresh(
-                self.device, self.B, pb.hi, pb.lo, pb.ticks, pb.values,
+                self.device, self.B_step, pb.hi, pb.lo, pb.ticks, pb.values,
                 pb.n, *self.value_layout())
         if self.drain is not None:
+            # a drain serves one route: another route's batch waits for
+            # the group's dispatch
+            if not self.group.compatible(pb.route, True):
+                self.dispatch()
             self.group.push(staged, wm_ms, pb, pb.route)
             self.metrics.steps += 1
             # with lateness every batch fires eagerly (the next batch's
@@ -1504,18 +1642,20 @@ class _WindowJob(StageJob):
             m = len(g[0])
             for off in range(0, m, self.B):
                 end = min(off + self.B, m)
+                chunk = [a[off:end] for a in g]
                 staged = ingest_mod.stage_fresh(
-                    self.device, self.B, *(a[off:end] for a in g),
-                    end - off, *v_layout)
+                    self.device, self.B_step, *chunk, end - off, *v_layout)
                 wm_chunk = g_wm if end == m else None
+                route = self.pick_route(chunk[0], chunk[1])
                 if self.drain is not None:
                     # a drain job's chunk is a 1-slot drain: a stage chain
                     # has no single step, and the flight recorder sees
                     # every batch
-                    self.group.push(staged, wm_chunk, None)
+                    self.group.push(staged, wm_chunk, None, route)
                     self.metrics.steps += 1
                     self.dispatch()
                 else:
+                    self.chunk_route = route
                     self.run_update(staged, wm_chunk, None)
             if catch_up:
                 self.fire_until_done(g_wm, time.perf_counter())
@@ -1523,6 +1663,15 @@ class _WindowJob(StageJob):
         if self.lateness_ms or wp > self.host_fired_pane:
             self.fire_until_done(wm_ms, time.perf_counter())
             self.host_fired_pane = wp
+
+    def pick_route(self, hi: np.ndarray, lo: np.ndarray) -> str:
+        """The route of a batch the plan did not route (the reference's
+        ``_pick_route``, executor.py:3960): the plan's one feasibility
+        check on its host arrays."""
+        plan = self.ingest.plan
+        if plan is None or self.n_shards == 1:
+            return "mask"
+        return ingest_mod.plan_route(plan, hi, lo)
 
     def note_dispatch(self, t_disp: float) -> None:
         """The first dispatch after a restore ends its recovery."""
@@ -1542,13 +1691,16 @@ class _WindowJob(StageJob):
         # a drain's pending fires (and the fires they call for) precede
         # this update, as they precede the next drain's
         self.consume()
-        hi, lo, ts, values, valid = (ingest_mod.adopt(pb) if pb is not None
-                                     and pb.staged is not None else staged)
+        slot = (ingest_mod.adopt(pb) if pb is not None
+                and pb.staged is not None else staged)
+        # a planned batch carries its route; a general-path chunk's was
+        # planned by apply_general
+        route = pb.route if pb is not None else self.chunk_route
         wm = self.to_device_i32(self.wm_ticks(wm_ms))
-        fast = self.step_mode == "fast" and self.fast_step is not None
-        step = self.fast_step if fast else self.update_step
-        self.state, mon = step(self.state, hi, lo, ts, values, valid, wm,
-                               kg_res=self.kg_res)
+        tiers = self.steps[route]
+        fast = self.step_mode == "fast" and tiers["fast"] is not None
+        step = tiers["fast" if fast else "insert"]
+        _states, mon = step(self.states, slot, wm, kg_res=self.kg_res)
         self.note_dispatch(time.perf_counter())
         self.pace()
         if wm_ms is not None:
@@ -1556,6 +1708,8 @@ class _WindowJob(StageJob):
         self.metrics.steps += 1
         if fast:
             self.metrics.steps_fast += 1
+        if route == "exchange":
+            self.metrics.steps_exchanged += 1
         if self.spec.win.overflow or self.kg_stats:
             self.mon_skip += 1
             if self.mon_skip >= MON_EVERY:
@@ -1581,13 +1735,14 @@ class _WindowJob(StageJob):
         if len(self.mon_watch) <= OVF_LAG:
             return
         ovf_n, act, kgf, n_batches = self.mon_watch.popleft()
-        small = torch.cat([ovf_n.reshape(1), act.reshape(1),
+        S = self.n_shards
+        small = torch.cat([ovf_n.reshape(S), act.reshape(1),
                            kgf.reshape(-1)]).cpu().numpy().astype(np.int64)
         if kgf.numel():
-            self.absorb_kg(small[2:], n_batches)
-        if self.fast_step is not None:
-            self.tier(int(small[1]))
-        if int(small[0]) > max(1, self.B // 8):
+            self.absorb_kg(small[S + 1:], n_batches)
+        if self.has_fast:
+            self.tier(int(small[S]))
+        if int(small[:S].max()) > max(1, self.B // 8):
             self.drain_overflow()
 
     def drain_overflow(self) -> None:
@@ -1597,10 +1752,12 @@ class _WindowJob(StageJob):
         unread fires are emitted first: their per-sub-step fills index
         the ring as it stands."""
         self.consume()
-        n = int(self.state.ovf_n)
-        if not n:
+        fills = self.ring_fills()
+        if not fills.any():
             return
-        self.fold_ring(*self.read_ring(n))
+        for s, n in enumerate(fills):
+            if n:
+                self.fold_ring(*self.read_ring(int(n), s))
         while self.mon_watch:
             _, _, kgf, n_batches = self.mon_watch.popleft()
             if kgf.numel():
@@ -1615,10 +1772,10 @@ class _WindowJob(StageJob):
         a partial one as single update steps, then mark the last batch's
         offsets applied — the megastep-boundary cut. A fused-fire group
         also settles its crossings here (``fused_fire_bookkeep``)."""
-        _route, _staged, items = self.group.drain()
+        route, _staged, items = self.group.drain()
         full = len(items) == self.mode.k_fuse
         if full:
-            self.run_update_fused(items)
+            self.run_update_fused(items, route)
         else:
             for args, wm_ms, pb in items:
                 self.run_update(args, wm_ms, pb)
@@ -1629,7 +1786,7 @@ class _WindowJob(StageJob):
         if self.group.hold_fires:
             self.fused_fire_bookkeep(items, full)
 
-    def run_update_fused(self, items) -> None:
+    def run_update_fused(self, items, route: str = "mask") -> None:
         """Dispatch one K-step megastep over a full group (the reference's
         run_update_fused, executor.py:4136-4226), on the fast tier when
         the tiering chose it; the sub-steps' watermarks go to the card as
@@ -1641,8 +1798,9 @@ class _WindowJob(StageJob):
         advances by K and its key-group fill counts K batches."""
         self.consume()
         K = len(items)
-        fast = self.step_mode == "fast" and self.mega["fast"] is not None
-        step = self.mega["fast" if fast else "insert"]
+        tiers = self.mega[route]
+        fast = self.step_mode == "fast" and tiers["fast"] is not None
+        step = tiers["fast" if fast else "insert"]
         slots = [ingest_mod.adopt(pb) if pb is not None
                  and pb.staged is not None else args
                  for args, _wm, pb in items]
@@ -1650,16 +1808,19 @@ class _WindowJob(StageJob):
         wmv = self.to_device_i32(wms)
         # the device-loss seam of a dispatch, as the reference's
         faults.inject("step.dispatch", step=self.metrics.steps, k=K)
-        out = step(self.state, slots, wmv, self.kg_res)
+        out = step(self.states, slots, wmv, self.kg_res)
         t_disp = time.perf_counter()
         self.note_dispatch(t_disp)
-        self.state, mon = out[:2]
+        mon = out[1]
         m = self.metrics
+        if route == "exchange":
+            m.steps_exchanged += K
         if step.fused_fire:
             self.pending = (out[2], K, max(w for _a, w, _pb in items), mon,
                             t_disp, None, 0, False)
             m.fused_fire_dispatches += 1
-            mon = (mon[0][-1],) + mon[1:]
+            # the ring fills after the last sub-step, one a shard
+            mon = (mon[0][:, -1],) + mon[1:]
         self.pace()
         self.wm_dev = max([self.wm_dev] + wms)
         m.steps += K
@@ -1726,21 +1887,33 @@ class _WindowJob(StageJob):
         if self.drain is None:
             return self.flush_fused()
         self.consume()
-        _route, _staged, items = self.group.drain()
+        route, _staged, items = self.group.drain()
         count = len(items)
-        slots = [ingest_mod.adopt(pb) if pb is not None
-                 and pb.staged is not None else args
-                 for args, _wm, pb in items]
-        fast = self.step_mode == "fast" and self.fast_drain is not None
-        drain = self.fast_drain if fast else self.drain
+        n = self.n_shards
+        sharded = route == "sharded"
+        if sharded:
+            # each shard's slices of the group, from its own ring
+            slots = [[ingest_mod.adopt_shard(pb, s) for _a, _w, pb in items]
+                     for s in range(n)]
+        else:
+            slots = [ingest_mod.adopt(pb) if pb is not None
+                     and pb.staged is not None else args
+                     for args, _wm, pb in items]
+        if self.graph is not None:
+            fast, drain = False, self.drain
+        else:
+            tiers = self.drains[route]
+            fast = self.step_mode == "fast" and tiers["fast"] is not None
+            drain = tiers["fast" if fast else "insert"]
         depth = drain.ring_depth if self.graph is None else self.depth
         wms = [self.wm_ticks(w) for _a, w, _pb in items]
         wmv = self.to_device_i32(wms + [WM_SENTINEL] * (depth - count))
         # the mid-drain crash seam of the exactly-once tests
         faults.inject("step.drain", step=self.metrics.steps, slots=count)
         ringed = [pb for _a, _w, pb in items
-                  if pb is not None and pb.ring_seq is not None]
+                  if pb is not None and pb.ring is not None]
         ring = ringed[0].ring if ringed else None
+        ds = None
         if self.graph is not None:
             # one dispatch advances every stage; the sinks take the final
             # stage's fires, and mon the fill after the drain and, for the
@@ -1750,28 +1923,44 @@ class _WindowJob(StageJob):
             states, mon, fires = out[:3]
             self.state, self.chain_states = states[0], list(states[1:])
             mon = (mon[0][-1:], mon[1], mon[2], drain.stage_lanes)
-        elif self.mode.while_drain:
-            # the loop bound re-reads the ring's write cursor; base makes
-            # cursor - base this group's fill at dispatch (executor.py:
-            # 4322-4362), so the drain retires exactly the staged slots
-            if ring is not None:
-                cursor = ring.write_cursor
-                base = ring.write_cursor() - count
-            else:
-                cursor, base = count, 0
-            out = drain(self.state, slots, wmv, cursor, base, count,
-                        self.kg_res)
-            self.state, mon, fires = out[:3]
-            out = out[:3] + out[4:]          # the recorder, past consumed
+            fires = [fires]
+            if self.drain_stats:
+                ds = out[3]
         else:
-            out = drain(self.state, slots, wmv, count, self.kg_res)
-            self.state, mon, fires = out[:3]
+            counts = [count] * n if sharded else count
+            if drain.while_drain:
+                # the loop bound re-reads the ring's write cursor; base
+                # makes cursor - base this group's fill at dispatch
+                # (executor.py:4322-4362), so the drain retires exactly
+                # the staged slots — each shard's own ring's on the
+                # sharded route
+                if sharded:
+                    cursors = [r.write_cursor for r in ring.rings]
+                elif ring is not None:
+                    cursors = [ring.write_cursor] * n
+                else:
+                    cursors = [count] * n
+                bases = [(c() if callable(c) else c) - count
+                         for c in cursors]
+                out = drain(self.states, slots, wmv, counts, cursors, bases,
+                            kg_res=self.kg_res)
+            else:
+                out = drain(self.states, slots, wmv, counts,
+                            kg_res=self.kg_res)
+            mon, fires = out[1], out[2]
+            if self.drain_stats:
+                ds = out[-1][0]              # one shard (item 10)
         t_disp = time.perf_counter()
         self.note_dispatch(t_disp)
         last_wm = max((w for _a, w, _pb in items if w is not None),
                       default=None)
         released = None
-        if ring is not None:
+        if sharded:
+            seqs = [[pb.ring_seqs[s] for pb in ringed
+                     if pb.ring_seqs[s] is not None] for s in range(n)]
+            ring.note_read(seqs)
+            ring.release_shards([max(q) if q else None for q in seqs])
+        elif ring is not None:
             ring.note_read([pb.ring_seq for pb in ringed])
             released = max(pb.ring_seq for pb in ringed)
             ring.release_through(released)
@@ -1791,12 +1980,12 @@ class _WindowJob(StageJob):
             if self.mon_skip >= MON_EVERY:
                 self.mon_skip = 0
                 kg_batches = count
-        ds = None
         if self.drain_stats:
             self.ds_skip += 1
             if self.ds_skip >= self.drain_stats_every:
                 self.ds_skip = 0
-                ds = out[3]
+            else:
+                ds = None
         # the fires' latency origin: the dispatch, or within a chained
         # flush the watermark crossing that called for it
         t_lat = t_disp if self.flush_t is None else self.flush_t
@@ -1806,6 +1995,10 @@ class _WindowJob(StageJob):
         self.metrics.resident_drains += 1
         if fast:
             self.metrics.steps_fast += count
+        if route == "exchange":
+            self.metrics.steps_exchanged += count
+        elif sharded:
+            self.metrics.steps_sharded += count
         if self.telem is not None:
             if ring is not None:
                 self.telem.ingest_publish(ring.publish_samples())
@@ -1848,14 +2041,16 @@ class _WindowJob(StageJob):
                 else:
                     self.drain_chained(last_wm, time.perf_counter())
         elif follow and (self.lateness_ms
-                         or self.lanes_full(lanes[count - 1])):
+                         or self.lanes_full(lanes[:, count - 1])):
             self.fire_until_done(last_wm, time.perf_counter())
 
     def lanes_full(self, lanes) -> bool:
-        """Did an advance fill all F on-time lanes, or all F re-fire lanes
-        (backlog may remain)?"""
+        """Did an advance fill all F on-time lanes, or all F re-fire lanes,
+        on any shard (backlog may remain)?"""
         F = self.spec.win.fires_per_step
-        return lanes[:F].sum() == F or lanes[F:].sum() == F
+        lanes = lanes.reshape(-1, self.spec.win.fire_lanes)
+        return bool((lanes[:, :F].sum(1) == F).any()
+                    or (lanes[:, F:].sum(1) == F).any())
 
     def fire_until_done(self, wm_ms: int, t_cross: Optional[float] = None
                         ) -> None:
@@ -1885,10 +2080,10 @@ class _WindowJob(StageJob):
         step = self.fire_reduced_step if reduced else self.fire_step
         m = self.metrics
         while True:
-            self.state, fires = step(self.state, wm)
+            _states, fires = step(self.states, wm)
             m.fire_steps += 1
             fires_before = m.fires
-            lanes = self.emit(fires)[0]
+            lanes = self.emit(fires)
             n = m.fires - fires_before
             m.fire_step_fires += n
             if t_cross is not None:
@@ -1930,31 +2125,35 @@ class _WindowJob(StageJob):
 
     def emit(self, fires, mon=None, ds=None, kg_batches: int = 0
              ) -> np.ndarray:
-        """Emit one [D, Ft] (or [Ft]) fire payload with one device->host
-        read of its small fields — with a drain's, also its ``mon``: the
-        ring's fill after each slot and the drain's activity, and when
-        ``kg_batches`` is above 0 its key-group fill (covering that many
-        batches), and the flight recorder ``ds`` when given — and, when
-        rows are needed, one more of the row prefixes and one of the ring.
-        Returns the lanes that fired, bool [D, Ft]."""
-        st = self.state
-        n_slots = fires.n_fires.numel()
+        """Emit one payload — ``fires`` a list of each shard's [D, Ft] (or
+        [Ft]) fires — with one device->host read of its small fields (on
+        the first shard's device) — with a drain's, also its ``mon``: each
+        shard's ring fill after each slot and the drain's activity, and
+        when ``kg_batches`` is above 0 its key-group fill (covering that
+        many batches), and the flight recorder ``ds`` when given — and,
+        when rows are needed, one more of the row prefixes and one of each
+        shard's ring. Returns the lanes that fired, bool [S, D, Ft]."""
+        states = self.states
+        S = len(fires)
+        dev = states[0].device
+        n_slots = fires[0].n_fires.numel()
+
+        def on0(t):
+            return t if t.device == dev else t.to(dev)
+
         if mon is None:
             # a watermark-only fire adds nothing to the ring and has no
             # activity (the value read in its place is not used)
-            fills, activity = st.ovf_n.reshape(1), st.ovf_n
+            fills = torch.stack([on0(st.ovf_n) for st in states])
+            activity = fills[0]
         else:
             fills, activity = mon[:2]
-        parts = [
-            fires.n_fires.reshape(-1),
-            st.purged_through.reshape(1),
-            activity.reshape(1),
-            fills.reshape(-1),
-            fires.counts.reshape(-1),
-            fires.lane_valid.reshape(-1),
-            fires.window_end_ticks.reshape(-1),
-            fires.value_sums.reshape(-1),
-        ]
+        parts = [on0(f.n_fires).reshape(-1) for f in fires]
+        parts += [on0(st.purged_through).reshape(1) for st in states]
+        parts += [activity.reshape(1), fills.reshape(-1)]
+        for name in ("counts", "lane_valid", "window_end_ticks",
+                     "value_sums"):
+            parts += [on0(getattr(f, name)).reshape(-1) for f in fires]
         n_kg = mon[2].numel() if kg_batches else 0
         if n_kg:
             parts.append(mon[2])
@@ -1968,14 +2167,19 @@ class _WindowJob(StageJob):
         parts += [t.reshape(-1) for t in ds_parts]
         small = torch.cat([t.to(torch.float64) for t in parts]).cpu().numpy()
         F = self.spec.win.fire_lanes
-        purged_through = int(small[n_slots])
-        act = int(small[n_slots + 1])
-        at = n_slots + 2
-        fills = small[at:at + n_slots].astype(np.int64)
-        at += n_slots
+        at = S * n_slots
+        purged_through = int(small[at:at + S].min())
+        at += S
+        act = int(small[at])
+        at += 1
+        n_fill = fills.numel()
+        fills = small[at:at + n_fill].astype(np.int64).reshape(S, -1)
+        if fills.shape[1] != n_slots:
+            fills = np.repeat(fills[:, -1:], n_slots, axis=1)
+        at += n_fill
         counts, lanes, ends, vsums = (
-            small[at:at + 4 * n_slots * F].reshape(4, n_slots, F))
-        at += 4 * n_slots * F
+            small[at:at + 4 * S * n_slots * F].reshape(4, S, n_slots, F))
+        at += 4 * S * n_slots * F
         counts = (counts * lanes).astype(np.int64)
         lanes = lanes.astype(bool)
         ends = ends.astype(np.int64)
@@ -2002,10 +2206,10 @@ class _WindowJob(StageJob):
                 # weighted by its keys
                 self.telem.note_fires(list(zip(ends[lanes].tolist(),
                                                counts[lanes].tolist())))
-        if mon is not None and self.fast_drain is not None:
+        if mon is not None and self.has_fast:
             self.tier(act)
-        n_ring = int(fills[-1])
-        if self.reduced or not (self.stores or n_ring):
+        n_ring = fills[:, -1]
+        if self.reduced or not (self.stores or n_ring.any()):
             # aggregates only, or rows with no spill to merge (the
             # reference's emit_fires shortcut for device-reduce sinks)
             if self.sink_device_reduce:
@@ -2018,56 +2222,65 @@ class _WindowJob(StageJob):
             elif counts.any():
                 self.emit_rows(fires, counts, lanes, ends, fills, None)
         else:
-            ring = self.read_ring(n_ring) if n_ring else None
-            self.emit_rows(fires, counts, lanes, ends, fills, ring)
-        if n_ring:
+            rings = [self.read_ring(int(k), s) if k else None
+                     for s, k in enumerate(n_ring)]
+            self.emit_rows(fires, counts, lanes, ends, fills, rings)
+        if n_ring.any():
             self.after_ring_drain()
         self.prune_stores(purged_through)
         return lanes
 
-    def emit_rows(self, fires: wk.CompactFires, counts: np.ndarray,
-                  lanes: np.ndarray, ends: np.ndarray, fills: np.ndarray,
-                  ring) -> None:
-        """Read the ``[:count]`` row prefixes of every (slot, lane) in one
-        batched read, then for each slot fold its share of the ``ring``
-        rows (host arrays of the ring's ``[:fills[-1]]`` lanes) into the
-        spill stores and hand its rows, merged with the stores, to the
-        sinks."""
-        n_slots, F = counts.shape
-        parts = [(d, f, int(counts[d, f])) for d in range(n_slots)
-                 for f in range(F) if counts[d, f]]
+    def emit_rows(self, fires, counts: np.ndarray, lanes: np.ndarray,
+                  ends: np.ndarray, fills: np.ndarray, rings) -> None:
+        """Read the ``[:count]`` row prefixes of every (shard, slot, lane)
+        in one batched read (each shard's on its device), then for each
+        slot fold each shard's share of its ring rows (``rings[s]``: host
+        arrays of shard s's ``[:fills[s, -1]]`` ring lanes, or None) into
+        the spill stores and hand the slot's rows of every shard, merged
+        with the stores, to the sinks."""
+        S, n_slots, F = counts.shape
+        parts = [(s, d, f, int(counts[s, d, f])) for s in range(S)
+                 for d in range(n_slots) for f in range(F)
+                 if counts[s, d, f]]
         by_slot = {}
         red = self.emit_red
         v_shape = red.out_shape
         v_np = np.float32 if red.out_dtype == torch.float32 else np.int32
         width = int(np.prod(v_shape, dtype=np.int64))
         if parts:
-            C = fires.key_hi.shape[-1]
-            khi = fires.key_hi.reshape(n_slots, F, C)
-            klo = fires.key_lo.reshape(n_slots, F, C)
-            vals = fires.values.reshape(n_slots, F, C * width)
-            if vals.dtype == torch.float32:
-                vals = vals.view(torch.int32)
+            views = []
+            for fr in fires:
+                C = fr.key_hi.shape[-1]
+                vals = fr.values.reshape(n_slots, F, C * width)
+                if vals.dtype == torch.float32:
+                    vals = vals.view(torch.int32)
+                views.append((fr.key_hi.reshape(n_slots, F, C),
+                              fr.key_lo.reshape(n_slots, F, C), vals))
+            dev = fires[0].key_hi.device
             rows = torch.cat([
-                torch.cat([khi[d, f, :n], klo[d, f, :n],
-                           vals[d, f, :n * width]])
-                for d, f, n in parts]).cpu().numpy()
+                torch.cat([views[s][0][d, f, :n], views[s][1][d, f, :n],
+                           views[s][2][d, f, :n * width]]).to(dev)
+                for s, d, f, n in parts]).cpu().numpy()
             at = 0
-            for d, f, n in parts:
+            for _s, d, f, n in parts:
                 r = rows[at:at + (2 + width) * n]
                 at += (2 + width) * n
                 by_slot.setdefault(d, []).append((
                     r[:n].view(np.uint32), r[n:2 * n].view(np.uint32),
                     r[2 * n:].view(v_np).reshape((n,) + v_shape),
-                    np.full(n, self.td.to_ms(int(ends[d, f])), np.int64)))
-        prev = 0
+                    np.full(n, self.td.to_ms(int(ends[_s, d, f])),
+                            np.int64)))
+        prev = [0] * S
         for d in range(n_slots):
-            if ring is not None and fills[d] > prev:
-                self.fold_ring(*(a[prev:fills[d]] for a in ring))
-                prev = int(fills[d])
+            for s in range(S):
+                if rings is not None and rings[s] is not None \
+                        and fills[s, d] > prev[s]:
+                    self.fold_ring(*(a[prev[s]:fills[s, d]]
+                                     for a in rings[s]))
+                    prev[s] = int(fills[s, d])
             cols = [np.concatenate(c) for c in zip(*by_slot[d])] \
                 if d in by_slot else None
-            due = sorted({int(e) for e in ends[d][lanes[d]]})
+            due = sorted({int(e) for e in ends[:, d][lanes[:, d]]})
             if self.stores and due:
                 if cols is None:
                     cols = [np.zeros(0, np.uint32), np.zeros(0, np.uint32),
@@ -2107,7 +2320,7 @@ class _WindowJob(StageJob):
         cid = self.next_cid
         self.dispatch()
         self.fire_until_done(int(self.wm_strategy.current()), t0)
-        staged = ckpt.stage_window_state(self.state, self.red)
+        staged = ckpt.stage_sharded_state(self.states, self.red)
         dumped = self.dump_spill_stores()
         storage = self.storage
         if self.keep_reverse:
@@ -2193,9 +2406,8 @@ class _WindowJob(StageJob):
                 layout = aux.get("state_layout", "hash")
             self.setup(aux["origin_ms"], layout)
         leftover = [] if self.spec.win.overflow else None
-        self.state = ckpt.restore_window_state(
-            entries, scalars, self.spec, self.maxp, self.device,
-            leftover=leftover)
+        self.states = ckpt.restore_sharded_state(
+            entries, scalars, self.ctx, self.spec, leftover=leftover)
         self.seed_spill_leftover(leftover)
         self.reset_step_tier()
         self.kg_occ = None
@@ -2288,23 +2500,21 @@ class _WindowJob(StageJob):
         ``observability.kg-stats-interval-ms`` (executor.py:3725-3744).
         Called at fire boundaries, where the loop reads the device
         anyway; it only reads the state."""
-        if not self.kg_stats or self.state is None:
+        if not self.kg_stats or self.states is None:
             return
         now = time.monotonic()
         if not force and now - self.kg_last_refresh < self.kg_interval_s:
             return
         self.kg_last_refresh = now
-        if self.kg_occ_step is None:
-            self.kg_occ_step = build_kg_occupancy_step(self.spec, self.maxp)
-        self.kg_occ = self.kg_occ_step(self.state).cpu().numpy().astype(
-            np.int64)
+        self.kg_occ = sharded_kg_occupancy(
+            self.ctx, self.spec, self.states).cpu().numpy().astype(np.int64)
 
     def kg_report(self, k: int = 10) -> dict:
         """The reference's ``env._kg_report`` (executor.py:3757-3770)."""
         occ = self.kg_occ
         return {
             "key_groups": self.maxp,
-            "n_shards": 1,
+            "n_shards": self.n_shards,
             "occupancy_top": _top_k(occ, k),
             "fill_top": _top_k(self.kg_fill_total, k),
             "fill_sampled_batches": self.kg_fill_sampled,
@@ -2437,14 +2647,16 @@ class _WindowJob(StageJob):
             h = getattr(self.telem, "_kg_heat", None)
             if h is not None and len(h) == self.maxp:
                 heat = np.array(h, np.float64)
+        starts, ends = self.ctx.kg_bounds()
         return {"records": int(self.metrics.records_in), "duty": duty,
-                "starved": starved, "heat": heat, "kg_starts": [0],
-                "kg_ends": [self.maxp - 1]}
+                "starved": starved, "heat": heat,
+                "kg_starts": starts.tolist(), "kg_ends": ends.tolist()}
 
     def controller_rebalance(self, starts, ends) -> None:
         """The rebalance arm re-slices the shards' key-group ranges through
-        the reference's savepoint-cut rescale, which needs more than one
-        shard: with one shard the arm's skew test never fires."""
+        the reference's savepoint-cut rescale, which is not ported: its
+        skew test reads the flight recorder's heat, which runs on one
+        shard only, so it never fires."""
         raise _unsupported("the controller's live key-group rebalance "
                            "(the savepoint-cut rescale across shards)",
                            "ROADMAP queue 1, item 10")
@@ -2490,10 +2702,23 @@ class _WindowJob(StageJob):
         self.tier_quiet = self.miss_tolerance = self.bounce_miss = 0
         self.bounce_placed = False
 
-    def read_ring(self, n: int):
-        """The ring's first ``n`` lanes as host arrays (key word uint64,
-        pane int64, values float32 [n, W]), in one read."""
-        st = self.state
+    @property
+    def has_fast(self) -> bool:
+        """Does any route have the lookup-only fast variant?"""
+        return any(tiers.get("fast") is not None
+                   for table in (self.steps, self.mega or {}, self.drains)
+                   for tiers in table.values())
+
+    def ring_fills(self) -> np.ndarray:
+        """Each shard's overflow-ring fill, read to the host."""
+        dev = self.states[0].device
+        return torch.stack([st.ovf_n.to(dev) for st in self.states]
+                           ).cpu().numpy().astype(np.int64)
+
+    def read_ring(self, n: int, s: int = 0):
+        """Shard ``s``'s ring's first ``n`` lanes as host arrays (key word
+        uint64, pane int64, values float32 [n, W]), in one read."""
+        st = self.states[s]
         W = self.ovf_w
         raw = torch.cat([st.ovf_hi[:n], st.ovf_lo[:n], st.ovf_pane[:n],
                          st.ovf_val[:n].reshape(-1).view(torch.int32)]
@@ -2533,21 +2758,24 @@ class _WindowJob(StageJob):
                 self.maxp), panes)
 
     def after_ring_drain(self) -> None:
-        """The ring has been folded into the stores: clear it, and compact
-        a hash table (the reference's drain_overflow). A live key that the
-        rebuilt table cannot take moves its cells to the ring, which is
-        folded at once; they belong to windows that have not fired yet."""
-        st = clear_overflow(self.state)
+        """The rings have been folded into the stores: clear them, and
+        compact each shard's hash table (the reference's drain_overflow).
+        A live key that a rebuilt table cannot take moves its cells to its
+        ring, which is folded at once; they belong to windows that have
+        not fired yet."""
+        for st in self.states:
+            clear_overflow(st)
         self.metrics.ring_drains += 1
         self.miss_tolerance = 0
         if self.spec.layout != "hash":
             return
-        self.state = compact_step(st, self.spec)
+        for s, st in enumerate(self.states):
+            self.states[s] = compact_step(st, self.spec)
         self.metrics.compactions += 1
-        n = int(self.state.ovf_n)
-        if n:
-            self.fold_ring(*self.read_ring(n))
-            clear_overflow(self.state)
+        for s, n in enumerate(self.ring_fills()):
+            if n:
+                self.fold_ring(*self.read_ring(int(n), s))
+                clear_overflow(self.states[s])
 
     def spill_window_contrib(self, end_pane: int):
         """The stores' combined contributions to the window ending at pane
@@ -2731,9 +2959,10 @@ class _WindowJob(StageJob):
 
     # -- end of job --------------------------------------------------------
     def loss_counters(self):
-        # every stage's counters: an over-full edge lands its lanes in the
-        # downstream stage's dropped_capacity (executor.py:6384-6405)
-        states = [self.state] + self.chain_states
+        # every shard's and stage's counters: an over-full edge lands its
+        # lanes in the downstream stage's dropped_capacity (executor.py:
+        # 6384-6405)
+        states = list(self.states) + self.chain_states
         return (sum(int(st.dropped_late) for st in states),
                 sum(int(st.dropped_capacity) for st in states))
 

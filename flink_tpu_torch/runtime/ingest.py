@@ -1,6 +1,5 @@
-"""Checkpoint-compatible pipelined ingest on one device — the port of
-flink_tpu/runtime/ingest.py (its one-device half; the sharded ring waits
-for ROADMAP queue 1, item 10).
+"""Checkpoint-compatible pipelined ingest — the port of
+flink_tpu/runtime/ingest.py, for one device and for a shard mesh.
 
 The window job's cycle splits into a *prep* half (source poll with its
 offsets, key / value encode, event times: pure host numpy) and an *apply*
@@ -39,6 +38,16 @@ allocator does not hand its memory back to the copy stream early.
 On the CPU (the tests) slots are plain tensors filled in place, and a
 fresh batch is a tensor over a padded numpy copy.
 
+Over a shard mesh (``plan.n_shards`` above 1) the plan routes each batch
+as the reference's ``plan_route`` does: the all_to_all exchange when
+every (source, target) bucket provably fits its capacity, else the
+replicate-and-mask route; a batch is padded to ``B_step``, a multiple of
+the shard count. With ``pipeline.data-parallel`` the device ring is a
+``ShardedDeviceBatchRing``: ``plan_route_and_shards`` takes the sharded
+route when each shard's slice fits its lane capacity, and the producer
+partitions the batch (a stable sort) into one slot of each shard's own
+ring.
+
 Threading contract (the reference's): ONE producer — the prefetch thread,
 or the step loop itself with ``pipeline.prefetch: off`` — and one
 consumer, the step loop. ``pause()`` / ``resume()`` bracket every source
@@ -59,6 +68,8 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch.core.keygroups import assign_to_key_group
+from flink_tpu_torch.ops.hashing import route_hash
 from flink_tpu_torch.testing import faults
 
 
@@ -92,15 +103,21 @@ class PreppedBatch:
     ticks_min: Optional[int] = None
     ticks_max: Optional[int] = None
     ts_max: Optional[int] = None
-    route: Optional[str] = None  # "mask" once planned; None: general path
-    # the staged (hi, lo, ticks, values, valid) device tensors [B]
+    # "mask" | "exchange" | "sharded" once planned; None: general path
+    route: Optional[str] = None
+    # the staged (hi, lo, ticks, values, valid) device tensors [B]; on the
+    # sharded route a list of each shard's staged [shard_cap] tuple
     staged: Optional[Tuple] = None
-    # CUDA: the event recorded after the staging copy (None on the CPU)
+    # CUDA: the event recorded after the staging copy (None on the CPU);
+    # on the sharded route a list, one a shard
     copied: Any = None
     # the DeviceBatchRing slot sequence holding ``staged`` (None: fresh
-    # tensors, outside the ring) and the ring itself
+    # tensors, outside the ring) and the ring itself; on the sharded route
+    # ``ring_seqs`` holds each shard's sequence (None: that shard's ring
+    # was full and its slice went out fresh)
     ring_seq: Optional[int] = None
     ring: Any = None
+    ring_seqs: Optional[list] = None
 
 
 @dataclasses.dataclass
@@ -120,13 +137,65 @@ class IngestPlan:
     value_shape: Tuple = ()
     value_dtype: Any = np.float32
     ring_depth: int = 0
+    # the mesh (one shard: every field below at its default): the step's
+    # lanes (B padded to a multiple of n_shards; 0 is B), the key-group
+    # range ends of the shards, the exchange's per-(source, target)
+    # bucket lanes (0: no exchange), the routes the stage built, the
+    # sharded route's lanes a shard (0: no sharded ring) and each shard's
+    # device
+    B_step: int = 0
+    n_shards: int = 1
+    max_parallelism: int = 128
+    kg_ends: Any = None
+    exchange_cap: int = 0
+    routes: Tuple[str, ...] = ("mask",)
+    shard_cap: int = 0
+    devices: Any = None
+
+    @property
+    def lanes(self) -> int:
+        """The lanes a staged batch has: ``B_step``, or ``B``."""
+        return self.B_step or self.B
 
 
-def plan_route(plan: IngestPlan, hi: np.ndarray, lo: np.ndarray) -> str:
-    """The batch's route. One device owns every key group, so it is the
-    replicate-and-mask route; the reference's exchange-feasibility check
-    comes with its multi-device routes (ROADMAP queue 1, item 10)."""
-    return "mask"
+def plan_route(plan: IngestPlan, hi: np.ndarray, lo: np.ndarray,
+               kg: Optional[np.ndarray] = None) -> str:
+    """Exact per-batch feasibility of the exchange (the reference's): every
+    lane's owning shard by the key-group math the device uses, and the
+    exchange route only when each (source shard, target shard) bucket
+    fits ``plan.exchange_cap`` — a skewed batch takes the mask route, so
+    the adaptive route is never lossy. Lane i's source is i // (B_step /
+    n). ``kg`` skips the key-group pass when the caller has it."""
+    if "exchange" not in plan.routes:
+        return "mask"
+    if "mask" not in plan.routes:
+        return "exchange"        # exchange.mode=all_to_all forced
+    n = plan.n_shards
+    if kg is None:
+        kg = assign_to_key_group(route_hash(hi, lo, np),
+                                 plan.max_parallelism, np)
+    shard = np.searchsorted(plan.kg_ends, kg)
+    bpd = plan.lanes // n
+    src = np.arange(len(hi)) // bpd
+    counts = np.bincount(src * n + shard, minlength=n * n)
+    return ("exchange" if counts.max(initial=0) <= plan.exchange_cap
+            else "mask")
+
+
+def plan_route_and_shards(plan: IngestPlan, hi: np.ndarray, lo: np.ndarray
+                          ) -> Tuple[str, Optional[np.ndarray]]:
+    """The data-parallel plan (the reference's): one key-group pass gives
+    the route and every lane's owning shard. The sharded route when each
+    shard's slice fits ``plan.shard_cap``, else ``plan_route`` on the same
+    key groups (sharded, then exchange, then mask: never lossy)."""
+    kg = assign_to_key_group(route_hash(hi, lo, np), plan.max_parallelism,
+                             np)
+    if "sharded" in plan.routes and plan.shard_cap > 0:
+        shard = np.searchsorted(plan.kg_ends, kg)
+        counts = np.bincount(shard, minlength=plan.n_shards)
+        if counts.max(initial=0) <= plan.shard_cap:
+            return "sharded", shard
+    return plan_route(plan, hi, lo, kg=kg), None
 
 
 # ---------------------------------------------------------- staging
@@ -202,7 +271,7 @@ class StagingRing:
         self.device = torch.device(plan.device)
         self.cuda = self.device.type == "cuda"
         self.depth = max(2, int(depth))
-        self.B = int(plan.B)
+        self.B = int(plan.lanes)
         self.value_dtype, self.value_shape = (plan.value_dtype,
                                               tuple(plan.value_shape))
         if self.cuda:
@@ -253,9 +322,11 @@ class DeviceBatchRing:
     ``write_cursor()`` is the while-drain's live bound (the reference's
     HBM cursor slot): the host write cursor, read under the lock."""
 
+    sharded = False      # ShardedDeviceBatchRing overrides
+
     def __init__(self, plan: IngestPlan, depth: int):
         self.depth = D = max(2, int(depth))
-        self.B = int(plan.B)
+        self.B = int(plan.lanes)
         self.device = torch.device(plan.device)
         self.cuda = self.device.type == "cuda"
         self._host = _host_buffers(D, self.B, plan.value_dtype,
@@ -382,6 +453,102 @@ class DeviceBatchRing:
         return out
 
 
+class ShardedDeviceBatchRing:
+    """Per-shard device batch rings (pipeline.data-parallel; the
+    reference's ShardedDeviceBatchRing): one ``DeviceBatchRing`` of
+    ``plan.shard_cap`` lanes a shard, on the shard's device. The producer
+    partitions each batch by owning shard with a stable sort (a key's
+    records keep their order, so the accumulation matches the one-shard
+    path) and publishes each shard's slice into that shard's ring. A full
+    ring refuses only its own shard's slice, which is staged fresh
+    (counted in that ring's refusals, its ``ring_seqs`` entry None), so
+    one slow shard never blocks the others; the consumer releases each
+    shard's ring on its own."""
+
+    sharded = True
+
+    def __init__(self, plan: IngestPlan, depth: int):
+        self.depth = max(2, int(depth))
+        self.n_shards = int(plan.n_shards)
+        self.cap = int(plan.shard_cap)
+        devices = plan.devices or [plan.device] * self.n_shards
+        self.rings = [
+            DeviceBatchRing(dataclasses.replace(plan, B=self.cap, B_step=0,
+                                                device=d), self.depth)
+            for d in devices]
+        self.stats_enabled = False
+
+    def publish_batch(self, plan: IngestPlan, hi, lo, ticks, values,
+                      shard: np.ndarray, n: int, epoch: int):
+        """Partition one planned batch by owning shard and publish each
+        slice into its shard's ring. Returns ``(ring_seqs, staged,
+        copied)``: per shard its slot sequence (None: staged fresh), its
+        (hi, lo, ticks, values, valid) tensors and its copy event (None on
+        the CPU)."""
+        # a stable sort of small integers: numpy's radix sort for one-byte
+        # keys, several times faster than its merge sort of int64 keys
+        key = shard[:n].astype(np.uint8 if self.n_shards <= 256
+                               else np.int32)
+        order = np.argsort(key, kind="stable")
+        counts = np.bincount(shard[:n], minlength=self.n_shards)
+        srcs = (hi[order], lo[order], ticks[order], values[order])
+        seqs, staged, copied = [], [], []
+        pos = 0
+        for s, ring in enumerate(self.rings):
+            c = int(counts[s])
+            part = [a[pos:pos + c] for a in srcs]
+            pos += c
+            pub = ring.try_publish(plan, *part, c, "sharded", epoch)
+            if pub is None:
+                seqs.append(None)
+                staged.append(stage_fresh(
+                    ring.device, self.cap, *part, c, plan.value_dtype,
+                    plan.value_shape))
+                copied.append(None)
+            else:
+                seqs.append(pub[0])
+                staged.append(pub[1])
+                copied.append(pub[2])
+        return seqs, staged, copied
+
+    def release_shards(self, seqs) -> None:
+        """Retire each shard's slots up to and including ``seqs[s]`` (None:
+        nothing of that shard)."""
+        for ring, seq in zip(self.rings, seqs):
+            if seq is not None:
+                ring.release_through(seq)
+
+    def note_read(self, seqs_by_shard) -> None:
+        for ring, seqs in zip(self.rings, seqs_by_shard):
+            ring.note_read(seqs)
+
+    def clear(self) -> int:
+        return sum(r.clear() for r in self.rings)
+
+    def refusals(self) -> list:
+        return [r.refusals()[0] for r in self.rings]
+
+    def occupancy_shards(self) -> list:
+        return [r.occupancy() for r in self.rings]
+
+    def publish_samples(self) -> list:
+        return []
+
+
+def adopt_shard(pb: PreppedBatch, s: int) -> Tuple:
+    """Shard ``s``'s staged slice of a sharded batch, adopted as ``adopt``
+    adopts a whole one."""
+    staged = pb.staged[s]
+    ev = pb.copied[s] if pb.copied is not None else None
+    if ev is not None:
+        cur = torch.cuda.current_stream(staged[0].device)
+        cur.wait_event(ev)
+        if pb.ring_seqs[s] is None:
+            for t in staged:
+                t.record_stream(cur)
+    return staged
+
+
 # ------------------------------------------------------- drain group
 
 class FusedBatchAccumulator:
@@ -492,6 +659,10 @@ class IngestPipeline:
 
     # -- plan ------------------------------------------------------------
     @property
+    def plan(self) -> Optional[IngestPlan]:
+        return self._rings[0]
+
+    @property
     def device_ring(self) -> Optional[DeviceBatchRing]:
         return self._rings[2]
 
@@ -503,7 +674,10 @@ class IngestPipeline:
         if plan.staging:
             staging = StagingRing(plan, self._ring_depth)
             if plan.ring_depth > 0:
-                dr = DeviceBatchRing(plan, plan.ring_depth)
+                ring_cls = (ShardedDeviceBatchRing
+                            if plan.shard_cap > 0 and "sharded" in plan.routes
+                            else DeviceBatchRing)
+                dr = ring_cls(plan, plan.ring_depth)
         self._rings = (plan, staging, dr)
 
     def _finish(self, pb: PreppedBatch) -> PreppedBatch:
@@ -528,12 +702,23 @@ class IngestPipeline:
         if not eligible:
             return pb
         pb.ticks_min, pb.ticks_max = t_min, t_max
-        pb.route = plan_route(plan, pb.hi, pb.lo)
+        shard_of = None
+        if dr is not None and dr.sharded:
+            # one key-group pass plans the route and the partition
+            pb.route, shard_of = plan_route_and_shards(plan, pb.hi, pb.lo)
+        else:
+            pb.route = plan_route(plan, pb.hi, pb.lo)
         if staging is None:
             pb.ticks = ticks
             return pb
         pub = None
-        if dr is not None:
+        if shard_of is not None:
+            pb.ring_seqs, pb.staged, pb.copied = dr.publish_batch(
+                plan, pb.hi, pb.lo, ticks, values, shard_of, pb.n, pb.epoch)
+            pb.ring = dr
+            pb.hi = pb.lo = pb.values = None
+            return pb
+        if dr is not None and not dr.sharded:
             pub = dr.try_publish(plan, pb.hi, pb.lo, ticks, values, pb.n,
                                  pb.route, pb.epoch)
         if pub is not None:

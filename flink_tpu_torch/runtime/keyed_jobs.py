@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from flink_tpu_torch.core.time import TimeDomain
+from flink_tpu_torch.parallel.mesh import MeshContext, mesh_devices
 from flink_tpu_torch.runtime import step as step_mod
 from flink_tpu_torch.runtime.job import StageJob, key_words
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
@@ -120,15 +121,30 @@ class RollingJob(_KeyedJob):
         self.keep_reverse = False
         self.spec = step_mod.RollingStageSpec(
             red=self.red, capacity_per_shard=self.capacity)
-        self.state = step_mod.init_rolling_state(self.spec, self.device)
-        self.step = step_mod.build_rolling_step(self.spec)
+        # n shards as the window job takes them (executor.py:7107-7109):
+        # one shard runs the one-device step, more the masked steps and
+        # G27's merge (step.build_rolling_step_sharded)
+        devs = mesh_devices(self.device)
+        n = max(1, min(env.parallelism, len(devs)))
+        self.ctx = MeshContext.create(n, env.max_parallelism, devices=devs)
+        self.states = [step_mod.init_rolling_state(self.spec, d)
+                       for d in self.ctx.devices]
+        self.state = self.states[0]
+        self.step = (step_mod.build_rolling_step(self.spec) if n == 1 else
+                     step_mod.build_rolling_step_sharded(self.ctx,
+                                                         self.spec))
 
     def apply(self, cols, _ts_ms) -> None:
         keys, hi, lo, values = self.encode(cols)
         n = len(hi)
         hi_t, lo_t, v_t = self.lanes(hi, lo, values)
         valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        self.state, out, ok = self.step(self.state, hi_t, lo_t, v_t, valid)
+        if len(self.states) == 1:
+            self.state, out, ok = self.step(self.state, hi_t, lo_t, v_t,
+                                            valid)
+        else:
+            _states, out, ok = self.step(self.states, hi_t, lo_t, v_t,
+                                         valid)
         self.metrics.steps += 1
         self.emitter.push((out, ok, keys, hi, lo))
 
@@ -147,6 +163,12 @@ class RollingJob(_KeyedJob):
         klist = keys.tolist()
         self.sinks_rows([(k, v) for k, v, good in
                          zip(klist, out_np.tolist(), ok_np) if good])
+
+
+    def loss_counters(self):
+        """The shards' summed counters: a rolling state counts no late
+        records."""
+        return None, sum(int(st.dropped_capacity) for st in self.states)
 
 
 class CountJob(_KeyedJob):

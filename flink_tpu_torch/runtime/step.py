@@ -1,7 +1,9 @@
 """Stage steps on one device — the window stage (the split path's update
 and fire steps, the K-step megasteps, the resident scan drain and
 while-drain, and the chained drain of consecutive window stages), the
-session, count-window and rolling stages of flink_tpu/runtime/step.py.
+session, count-window and rolling stages of flink_tpu/runtime/step.py —
+and the window stage and the rolling reduce over a shard mesh (the
+sharded section below: the mask, exchange and sharded routes).
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
@@ -15,6 +17,7 @@ CUDA graphs is later work: ROADMAP queue 1, item 5.)
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -29,6 +32,10 @@ from flink_tpu_torch.ops import rolling
 from flink_tpu_torch.ops import session_windows as sw
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_NONE
+from flink_tpu_torch.parallel.collectives import psum
+from flink_tpu_torch.parallel.exchange import (
+    bucket_capacity, exchange_records, split_lanes,
+)
 
 
 @dataclass
@@ -85,6 +92,13 @@ Slot = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
              torch.Tensor]
 
 
+def _kg_range(kg_range, max_parallelism: int) -> Tuple[int, int]:
+    """A shard's inclusive key-group range; None is every key group."""
+    if kg_range is None:
+        return 0, max_parallelism - 1
+    return int(kg_range[0]), int(kg_range[1])
+
+
 def _stack_fires(fires, arena):
     """Stack per-slot fires to [D, F]: ReducedFires, or CompactFires whose
     row buffers are the drain's [D, F, C] arena (slot d wrote arena[d])."""
@@ -111,7 +125,7 @@ def _skip_fires(F: int, device, rows=None):
 def fire_slot(state: wk.WindowShardState, spec: WindowStageSpec, slot: Slot,
               wm, max_parallelism: int, pend, insert: bool = True,
               kg_fill: bool = False, fill_out=None, kg_res=None,
-              reduced: bool = True, out=None, stats=None):
+              reduced: bool = True, out=None, stats=None, kg_range=None):
     """One slot of the drains and one sub-step of the fused-fire megastep
     (the reference shares ``mask_update_shard`` and
     ``advance_and_fire_resident`` between them): the update with the
@@ -121,16 +135,18 @@ def fire_slot(state: wk.WindowShardState, spec: WindowStageSpec, slot: Slot,
     slot's [Ft, C] row buffers), its purge deferred. ``fill_out`` takes
     the slot's key-group fill (``kg_fill``). ``stats``, the flight
     recorder's ``(row, lane_stats, snap, defer)`` for this slot, brackets
-    the slot with G18's companion and G18. Returns ``(state, pend, fires,
-    activity, fill)``: ``fill`` the overflow ring's fill after the
-    update, int32 0-d."""
+    the slot with G18's companion and G18. ``kg_range`` (inclusive start,
+    end) masks the update to a shard's key groups (all of them by
+    default). Returns ``(state, pend, fires, activity, fill)``: ``fill``
+    the overflow ring's fill after the update, int32 0-d."""
     hi, lo, ts, values, valid = slot
+    kg_start, kg_end = _kg_range(kg_range, max_parallelism)
     if stats is not None:
         row, lane_stats, snap, defer = stats
         kernels.slot_stats_begin(state.watermark, state.dropped_late,
                                  state.dropped_capacity, snap)
     _st, act, _kgf = mask_update_shard(
-        state, spec, 0, max_parallelism - 1, hi, lo, ts, values, valid, wm,
+        state, spec, kg_start, kg_end, hi, lo, ts, values, valid, wm,
         max_parallelism, clear_rows=pend, insert=insert, kg_fill=kg_fill,
         fill_out=fill_out, lane_stats=None if stats is None else lane_stats,
         kg_res=kg_res)
@@ -151,7 +167,7 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                                 insert: bool = True, arena=None,
                                 kg_fill: bool = False,
                                 drain_stats: bool = False,
-                                defer_fires: bool = False):
+                                defer_fires: bool = False, kg_range=None):
     """Device-resident ring drain for one device (the reference's
     ``build_window_resident_drain`` at one shard). ``insert=False`` builds
     the fast variant, whose hash-layout updates look keys up and place
@@ -201,7 +217,8 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
     operand, step.py:861), when given, is a bool [max_parallelism] device
     tensor: every slot's update diverts the lanes of non-resident key
     groups to the overflow ring. The mask is data: a tier swap rewrites it
-    between drains, and the drain is not rebuilt."""
+    between drains, and the drain is not rebuilt. ``kg_range`` masks every
+    slot's update to a shard's key groups (``fire_slot``)."""
     D = int(depth)
     F = spec.win.fire_lanes
     # the compact drains' (key_hi, key_lo, values) arena, made at first use
@@ -238,7 +255,7 @@ def build_window_resident_drain(spec: WindowStageSpec, depth: int,
                 fill_out=kgf[i] if kg_fill else None, kg_res=kg_res,
                 reduced=reduced, out=slot_rows,
                 stats=((ds[i], lane_stats[i], snaps[i], defer_fires)
-                       if drain_stats else None))
+                       if drain_stats else None), kg_range=kg_range)
             activity += act
             fills.append(fill)
             fires.append(fr)
@@ -292,7 +309,8 @@ def _while_drain_limit(cursor: int, base: int, staged: int,
 def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
                              max_parallelism: int, insert: bool = True,
                              kg_fill: bool = False, reduced: bool = False,
-                             drain_stats: bool = False, arena=None):
+                             drain_stats: bool = False, arena=None,
+                             kg_range=None):
     """Early-exit ring drain for one device (pipeline.resident-loop:
     while; the reference's ``build_window_while_drain`` at one shard):
     the resident drain's slot body (G1-G9, G18), run while ``i <
@@ -353,7 +371,7 @@ def build_window_while_drain(spec: WindowStageSpec, max_slots: int,
                 reduced=reduced,
                 out=None if rows is None else tuple(r[i] for r in rows),
                 stats=((ds[i], lane_stats[i], snaps[i], False)
-                       if drain_stats else None))
+                       if drain_stats else None), kg_range=kg_range)
             activity += act
             fills.append(fill)
             # row i of each small field (the reference's dynamic update)
@@ -396,7 +414,8 @@ def _check_megastep_call(K: int, slots, wmv, tiered: bool, kg_res) -> None:
 
 def build_window_megastep(spec: WindowStageSpec, k_steps: int,
                           max_parallelism: int, insert: bool = True,
-                          kg_fill: bool = False, tiered: bool = False):
+                          kg_fill: bool = False, tiered: bool = False,
+                          kg_range=None):
     """K-step dispatch fusion for one device (pipeline.steps-per-dispatch;
     the reference's ``build_window_megastep`` at one shard): K staged
     batches applied in one dispatch, each sub-step the single update
@@ -417,7 +436,7 @@ def build_window_megastep(spec: WindowStageSpec, k_steps: int,
     (int32 0-d and [max_parallelism], [0] with the fill off), all on the
     device; the state is updated in place. Nothing is read back."""
     K = int(k_steps)
-    kg_end = max_parallelism - 1
+    kg_start, kg_end = _kg_range(kg_range, max_parallelism)
 
     def megastep(state: wk.WindowShardState, slots: Sequence[Slot], wmv,
                  kg_res=None):
@@ -428,7 +447,8 @@ def build_window_megastep(spec: WindowStageSpec, k_steps: int,
         for i in range(K):
             hi, lo, ts, values, valid = slots[i]
             _st, act, _kgf = mask_update_shard(
-                state, spec, 0, kg_end, hi, lo, ts, values, valid, wmv[i],
+                state, spec, kg_start, kg_end, hi, lo, ts, values, valid,
+                wmv[i],
                 max_parallelism, insert=insert, kg_fill=kg_fill,
                 fill_out=kgf if kg_fill else None, kg_res=kg_res)
             activity += act
@@ -441,7 +461,8 @@ def build_window_megastep(spec: WindowStageSpec, k_steps: int,
 def build_window_megastep_fired(spec: WindowStageSpec, k_steps: int,
                                 max_parallelism: int, insert: bool = True,
                                 kg_fill: bool = False, reduced: bool = False,
-                                tiered: bool = False, arena=None):
+                                tiered: bool = False, arena=None,
+                                kg_range=None):
     """The fused-fire megastep for one device (pipeline.fused-fire; the
     reference's ``build_window_megastep_fired`` at one shard): each of the
     K sub-steps is the drains' slot body (``fire_slot``: the update, then
@@ -486,7 +507,8 @@ def build_window_megastep_fired(spec: WindowStageSpec, k_steps: int,
                 insert=insert, kg_fill=kg_fill,
                 fill_out=kgf if kg_fill else None, kg_res=kg_res,
                 reduced=reduced,
-                out=None if rows is None else tuple(r[i] for r in rows))
+                out=None if rows is None else tuple(r[i] for r in rows),
+                kg_range=kg_range)
             activity += act
             fills.append(fill)
             fires.append(fr)
@@ -679,7 +701,8 @@ def build_kg_occupancy_step(spec: WindowStageSpec, max_parallelism: int):
 
 
 def build_window_update_step(spec: WindowStageSpec, max_parallelism: int,
-                             insert: bool = True, kg_fill: bool = False):
+                             insert: bool = True, kg_fill: bool = False,
+                             kg_range=None):
     """The split path's update-only step (the reference's
     ``build_window_update_step`` at one shard): apply one staged batch
     and advance the watermark, fire nothing. ``insert=False`` is the
@@ -688,12 +711,13 @@ def build_window_update_step(spec: WindowStageSpec, max_parallelism: int,
     all on the device: the overflow ring's fill after the update, the
     update's activity and the batch's lanes per key group ([0] with the
     fill off). ``kg_res`` (tiered state) diverts the cold groups' lanes.
-    The state is updated in place; nothing is read back."""
-    kg_end = max_parallelism - 1
+    The state is updated in place; nothing is read back. ``kg_range``
+    masks the update to a shard's key groups."""
+    kg_start, kg_end = _kg_range(kg_range, max_parallelism)
 
     def update_step(state, hi, lo, ts, values, valid, wm, kg_res=None):
         state, activity, kgf = mask_update_shard(
-            state, spec, 0, kg_end, hi, lo, ts, values, valid, wm,
+            state, spec, kg_start, kg_end, hi, lo, ts, values, valid, wm,
             max_parallelism, insert=insert, kg_fill=kg_fill, kg_res=kg_res)
         return state, (state.ovf_n.clone(), activity, kgf)
 
@@ -767,6 +791,281 @@ def clear_overflow(state: wk.WindowShardState) -> wk.WindowShardState:
     return state
 
 
+
+# ------------------------------------------- a window stage over n shards
+#
+# The reference's shard_map'd steps (step.py:60, 241, 275, 461, 658, 1011,
+# 1158, 1497) over the port's mesh (parallel/mesh.py): one state a shard,
+# on its device, each shard's kernels run by the one-device step of this
+# module masked to the shard's key groups (``kg_range``). How a batch
+# reaches the shards is the route:
+#
+#   * "mask" (replicate-and-mask): every shard takes the whole batch and
+#     G1 keeps the lanes of its key groups;
+#   * "exchange": the batch splits into n lane slices, G26 buckets each
+#     source's slice by owning shard, the all_to_all hands each target its
+#     buckets (parallel/exchange.py), and the target's update masks them
+#     (every valid lane is its own). Bucket overflow is added to the source
+#     shard's dropped_capacity;
+#   * "sharded" (pipeline.data-parallel): the ingest side partitioned the
+#     batch by owning shard (ShardedDeviceBatchRing), so shard s drains its
+#     own slots, gated on its own count.
+#
+# A sharded step takes the list of shard states and returns ``(states,
+# (ovf_n, activity, kg_fill)[, fires])``: ``ovf_n`` the shards' ring fills
+# stacked on the first shard's device ([n], or [n, D] a slot), activity and
+# the key-group fill summed over the shards, ``fires`` a list of each
+# shard's fires (the reference's leading shard axis). The states are
+# updated in place.
+
+def init_sharded_state(ctx, spec: WindowStageSpec):
+    """One ``WindowShardState`` a shard, on its device (the reference's
+    ``init_sharded_state``, a list where it stacks)."""
+    return [init_shard_state(spec, ctx.max_parallelism, d)
+            for d in ctx.devices]
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    device = torch.device(device)
+    return t if t.device == device else t.to(device, non_blocking=True)
+
+
+def _ranges(ctx):
+    return [(r.start, r.end) for r in ctx.key_group_ranges]
+
+
+def _merge_mon(ctx, mons, kg_fill: bool):
+    """The shards' (ovf_n, activity, kg_fill) on the first shard's device:
+    fills stacked, activity and key-group fill summed."""
+    dev = ctx.devices[0]
+    fills = torch.stack([_to(m[0], dev) for m in mons])
+    act = sum(_to(m[1], dev) for m in mons)
+    kgf = sum(_to(m[2], dev) for m in mons) if kg_fill else mons[0][2]
+    return fills, act, kgf
+
+
+def exchange_update_slots(ctx, states, slots, cap: int):
+    """The exchange route of ``slots`` (a sequence of [B] batches): each
+    batch's lane slices bucketed by G26 and exchanged, the overflow of
+    source s added to ``states[s].dropped_capacity``. Returns the received
+    batches of each target shard, [n][len(slots)]."""
+    n, devs = ctx.n_shards, ctx.devices
+    per = [[] for _ in range(n)]
+    for slot in slots:
+        received, over = exchange_records(split_lanes(slot, n, devs), n,
+                                          ctx.max_parallelism, cap, devs)
+        for st, o in zip(states, over):
+            st.dropped_capacity.add_(_to(o, st.device).reshape(()))
+        for t in range(n):
+            per[t].append(received[t])
+    return per
+
+
+def _route(ctx, route: str, states, slots, cap: int):
+    """Each shard's batches of ``slots`` under ``route`` ("mask" or
+    "exchange"), on its device."""
+    if route == "exchange":
+        return exchange_update_slots(ctx, states, slots, cap)
+    return [[tuple(_to(t, d) for t in slot) for slot in slots]
+            for d in ctx.devices]
+
+
+def build_sharded_update_step(ctx, spec: WindowStageSpec, route: str = "mask",
+                              insert: bool = True, kg_fill: bool = False,
+                              cap: int = 0):
+    """The split path's update step over the mesh: the reference's
+    ``build_window_update_step`` (the mask route) and
+    ``build_window_update_step_exchange`` (``route="exchange"``, bucket
+    capacity ``cap``). ``step(states, slot, wm[, kg_res])`` -> ``(states,
+    (ovf_n [n], activity, kg_fill))``."""
+    maxp = ctx.max_parallelism
+    steps = [build_window_update_step(spec, maxp, insert=insert,
+                                      kg_fill=kg_fill, kg_range=r)
+             for r in _ranges(ctx)]
+
+    def update_step(states, slot, wm, kg_res=None):
+        per = _route(ctx, route, states, [slot], cap)
+        mons = [steps[s](states[s], *per[s][0], _to(wm, states[s].device),
+                         kg_res=kg_res)[1] for s in range(ctx.n_shards)]
+        return states, _merge_mon(ctx, mons, kg_fill)
+
+    update_step.insert = insert
+    update_step.route = route
+    update_step.bucket_cap = cap
+    return update_step
+
+
+def build_window_update_step_exchange(ctx, spec: WindowStageSpec,
+                                      batch_per_device: int,
+                                      capacity_factor: float = 2.0,
+                                      insert: bool = True,
+                                      kg_fill: bool = False):
+    """The reference's exchange update step (G26, the all_to_all, G1-G3):
+    ``build_sharded_update_step`` on the exchange route with the bucket
+    capacity of ``batch_per_device`` lanes a shard."""
+    cap = bucket_capacity(batch_per_device, ctx.n_shards, capacity_factor)
+    step = build_sharded_update_step(ctx, spec, "exchange", insert=insert,
+                                     kg_fill=kg_fill, cap=cap)
+    step.recv_lanes = ctx.n_shards * cap
+    return step
+
+
+def build_sharded_megastep(ctx, spec: WindowStageSpec, k_steps: int,
+                           route: str = "mask", insert: bool = True,
+                           kg_fill: bool = False, fused_fire: bool = False,
+                           reduced: bool = False, cap: int = 0, share=None,
+                           tiered: bool = False):
+    """The K-step megasteps over the mesh (the reference's
+    ``build_window_megastep`` / ``_fired`` on the mask route,
+    ``build_window_megastep_exchange`` / ``_fired_exchange`` on the
+    exchange route): each shard's one-device megastep over its K routed
+    batches. ``megastep(states, slots, wmv[, kg_res])`` -> ``(states,
+    (ovf_n, activity, kg_fill)[, fires])``, ``ovf_n`` [n] (plain) or
+    [n, K] (fused fire). ``share`` gives the fast variant the insert
+    variant's arenas."""
+    maxp = ctx.max_parallelism
+    megas = []
+    for s, r in enumerate(_ranges(ctx)):
+        if fused_fire:
+            arena = share.shards[s].arena if share is not None else None
+            megas.append(build_window_megastep_fired(
+                spec, k_steps, maxp, insert=insert, kg_fill=kg_fill,
+                reduced=reduced, tiered=tiered, arena=arena, kg_range=r))
+        else:
+            megas.append(build_window_megastep(
+                spec, k_steps, maxp, insert=insert, kg_fill=kg_fill,
+                tiered=tiered, kg_range=r))
+
+    def megastep(states, slots, wmv, kg_res=None):
+        per = _route(ctx, route, states, slots, cap)
+        outs = [megas[s](states[s], per[s], _to(wmv, states[s].device),
+                         kg_res) for s in range(ctx.n_shards)]
+        mon = _merge_mon(ctx, [o[1] for o in outs], kg_fill)
+        if fused_fire:
+            return states, mon, [o[2] for o in outs]
+        return states, mon
+
+    megastep.fused_fire = fused_fire
+    megastep.route = route
+    megastep.shards = megas
+    megastep.bucket_cap = cap
+    return megastep
+
+
+def build_sharded_drain(ctx, spec: WindowStageSpec, depth: int,
+                        route: str = "mask", insert: bool = True,
+                        kg_fill: bool = False, reduced: bool = False,
+                        while_drain: bool = False, cap: int = 0,
+                        share=None, drain_stats: bool = False):
+    """The ring drains over the mesh: on the mask route the reference's
+    ``build_window_resident_drain`` (``while_drain``:
+    ``build_window_while_drain``) over n shards, every shard draining the
+    whole batches; on the exchange route
+    ``build_window_resident_drain_exchange`` — each live slot exchanged,
+    then each shard's scan drain over its received slots with the one
+    count all shards share (the reference keeps the scan for this route
+    under ``while`` too, sized to the while bound); on the sharded route
+    ``build_window_sharded_drain`` (``while_drain``:
+    ``build_window_while_drain_sharded``), shard s draining its own
+    partitioned slots gated on its own count.
+
+    ``drain(states, slots, wmv, counts[, cursors, bases])``: mask and
+    exchange routes: ``slots`` the staged [B] batches, ``counts`` one int;
+    sharded route: ``slots[s]`` shard s's batches and ``counts[s]`` its
+    count. A while-drain takes each shard's cursor (callable or int) and
+    base. Returns ``(states, (ovf_n [n, D], activity, kg_fill), fires)``
+    and, for a while-drain, each shard's consumed count (int32 [1]) as a
+    fourth element; ``drain_stats`` adds each shard's flight recorder
+    last."""
+    maxp = ctx.max_parallelism
+    use_while = while_drain and route != "exchange"
+    drains = []
+    for s, r in enumerate(_ranges(ctx)):
+        arena = share.shards[s].arena if share is not None else None
+        if use_while:
+            drains.append(build_window_while_drain(
+                spec, depth, maxp, insert=insert, kg_fill=kg_fill,
+                reduced=reduced, drain_stats=drain_stats, arena=arena,
+                kg_range=r))
+        else:
+            drains.append(build_window_resident_drain(
+                spec, depth, maxp, reduced=reduced, insert=insert,
+                arena=arena, kg_fill=kg_fill, drain_stats=drain_stats,
+                kg_range=r))
+    n = ctx.n_shards
+
+    def drain(states, slots, wmv, counts, cursors=None, bases=None,
+              kg_res=None):
+        if route == "sharded":
+            per, cs = slots, list(counts)
+        else:
+            per = _route(ctx, route, states, slots[:counts], cap)
+            cs = [counts] * n
+        outs = []
+        for s in range(n):
+            w = _to(wmv, states[s].device)
+            if use_while:
+                outs.append(drains[s](states[s], per[s], w, cursors[s],
+                                      bases[s], cs[s], kg_res))
+            else:
+                outs.append(drains[s](states[s], per[s], w, cs[s], kg_res))
+        mon = _merge_mon(ctx, [o[1] for o in outs], kg_fill)
+        res = (states, mon, [o[2] for o in outs])
+        if use_while:
+            res += ([o[3] for o in outs],)
+        if drain_stats:
+            res += ([o[-1] for o in outs],)
+        return res
+
+    drain.shards = drains
+    drain.route = route
+    drain.ring_depth = int(depth)
+    drain.while_drain = use_while
+    if use_while:
+        drain.max_slots = int(depth)
+    drain.bucket_cap = cap
+    return drain
+
+
+def build_window_sharded_drain(ctx, spec: WindowStageSpec, depth: int,
+                               insert: bool = True, kg_fill: bool = False,
+                               reduced: bool = False):
+    """The reference's data-parallel drain: ``build_sharded_drain`` on the
+    sharded route."""
+    return build_sharded_drain(ctx, spec, depth, "sharded", insert=insert,
+                               kg_fill=kg_fill, reduced=reduced)
+
+
+def build_sharded_fire_step(ctx, spec: WindowStageSpec,
+                            reduced: bool = False, out=None):
+    """The split path's fire steps over the mesh: every shard advances to
+    ``wm`` and fires up to F due window-ends (G4 reduced, else G6 into
+    ``out(s)``, shard s's [Ft, C] row buffers). ``fire_step(states, wm)``
+    -> ``(states, fires)``, a list of each shard's fires."""
+    steps = []
+    for s in range(ctx.n_shards):
+        if reduced:
+            steps.append(build_window_fire_reduced_step(spec))
+        else:
+            steps.append(build_window_fire_step(
+                spec, out=None if out is None else
+                functools.partial(out, s)))
+
+    def fire_step(states, wm):
+        return states, [steps[s](states[s], _to(wm, states[s].device))[1]
+                        for s in range(ctx.n_shards)]
+
+    return fire_step
+
+
+def sharded_kg_occupancy(ctx, spec: WindowStageSpec, states):
+    """Live keys per key group over every shard (G17 a shard, summed; the
+    shards own disjoint key groups): int32 [max_parallelism] on the first
+    shard's device."""
+    step = build_kg_occupancy_step(spec, ctx.max_parallelism)
+    return sum(_to(step(st), ctx.devices[0]) for st in states)
+
+
 # ------------------------------------------- sessions, counts, rolling
 #
 # The reference's SessionStageSpec / CountStageSpec / RollingStageSpec and
@@ -836,4 +1135,38 @@ def build_rolling_step(spec: RollingStageSpec):
     merge."""
     def step(state, hi, lo, values, valid):
         return rolling.update(state, hi, lo, values, valid, red=spec.red)
+    return step
+
+
+def build_rolling_step_sharded(ctx, spec: RollingStageSpec):
+    """The rolling reduce over the mesh (the reference's
+    ``build_rolling_step`` at n shards): each shard masks the batch to its
+    key groups with G1 (``route_lanes`` over its range), runs the one-shard
+    update on its state (G5, G10, G13; G16 and the user's combine for a
+    generic reduce), and G27 sums the shards' masked outputs and ORs their
+    valid lanes (``parallel/collectives.py psum``: K18's cross-shard
+    half). ``step(states, hi, lo, values, valid)`` -> ``(states, outputs,
+    out_valid)`` on the first shard's device."""
+    maxp = ctx.max_parallelism
+    ranges = _ranges(ctx)
+
+    def step(states, hi, lo, values, valid):
+        outs, oks = [], []
+        for s, (k0, k1) in enumerate(ranges):
+            dev = ctx.devices[s]
+            h, l, v, ok = (_to(t, dev) for t in (hi, lo, values, valid))
+            none = torch.tensor(PANE_NONE, dtype=torch.int32, device=dev)
+            ts = torch.zeros_like(h)
+            # slide 1 at the MIN watermark: no lane is late, so G1's live
+            # lanes are the valid lanes of the shard's key groups
+            mine = kernels.route_lanes(h, l, ts, ok, none, none, slide=1,
+                                       k=1, maxp=maxp, kg_start=k0,
+                                       kg_end=k1)[2]
+            _st, out, out_ok = rolling.update(states[s], h, l, v, mine,
+                                              red=spec.red)
+            outs.append(out)
+            oks.append(out_ok)
+        out, ok = psum(outs, oks, ctx.devices[0])
+        return states, out, ok
+
     return step

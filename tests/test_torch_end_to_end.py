@@ -357,6 +357,14 @@ def test_port_raises_for_what_this_slice_lacks(change, tmp_path):
         if change == "lateness":
             assert job.state.ovf_hi.numel() == 0
         return
+    if change == "parallelism":
+        # parallelism is ported: on one visible device parallelism 2 runs
+        # one shard (n = min(parallelism, devices), as the reference's
+        # executor.py:1596-1598), exactly
+        job = build().execute("parallelism")
+        assert (sink.count, sink.value_sum) == reference(BATCH)
+        assert job.metrics.exchange_mode == "mask"
+        return
     if change == "map_after_window":
         # refused where the job is built
         with pytest.raises(NotImplementedError, match="ROADMAP"):

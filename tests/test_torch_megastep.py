@@ -590,7 +590,9 @@ def test_device_reduce_sink_takes_reduced_fired_megasteps(monkeypatch):
         made.append(kw.get("reduced"))
         return real(*a, **kw)
 
-    monkeypatch.setattr(ex, "build_window_megastep_fired", spy)
+    # the executor builds each shard's megastep through the step module's
+    # one-device builder
+    monkeypatch.setattr(step_port, "build_window_megastep_fired", spy)
     total = 8192
     env = build_env(**OFF, **{"pipeline.steps-per-dispatch": K,
                               "state.backend.overflow-ring": 0})

@@ -95,7 +95,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G25)."""
+    moves and nothing is compiled (G1-G27)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -192,5 +192,14 @@ def test_cpu_tensors_never_launch_a_kernel():
     m = torch.arange(12, dtype=torch.float32).reshape(3, 4)
     kernels.row_argmin(m, torch.zeros(3), torch.zeros(4))
     kernels.row_argmax(m, torch.zeros(3), torch.ones(3), 0.5)
-    assert len(kernels.KERNELS) == 31
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 31
+    # the shard mesh's exchange and cross-shard sum (G26, G27)
+    from flink_tpu_torch.parallel.collectives import psum
+    from flink_tpu_torch.parallel.exchange import exchange_records, \
+        split_lanes
+    cpu4 = [torch.device("cpu")] * 4
+    slot = lanes_torch(*batches(4)[0][:5])
+    exchange_records(split_lanes(tuple(t[:64] for t in slot), 4, cpu4), 4,
+                     MAXP, 8, cpu4)
+    psum([slot[3][:8]] * 4, [slot[4][:8]] * 4, "cpu")
+    assert len(kernels.KERNELS) == 33
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 33

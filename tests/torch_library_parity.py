@@ -51,6 +51,20 @@ PORT_OF = {
     "flink_tpu.ml.metrics": "flink_tpu_torch.ml.metrics",
     "flink_tpu.ml.optimization": "flink_tpu_torch.ml.optimization",
     "flink_tpu.ml.utils": "flink_tpu_torch.ml.utils",
+    # the window runtime's modules that the reference's mesh test files
+    # import (tests/test_data_parallel.py, tests/test_exchange.py)
+    "flink_tpu.core": "flink_tpu_torch.core",
+    "flink_tpu.core.keygroups": "flink_tpu_torch.core.keygroups",
+    "flink_tpu.ops": "flink_tpu_torch.ops",
+    "flink_tpu.ops.window_kernels": "flink_tpu_torch.ops.window_kernels",
+    "flink_tpu.ops.hashing": "flink_tpu_torch.ops.hashing",
+    "flink_tpu.parallel": "flink_tpu_torch.parallel",
+    "flink_tpu.parallel.mesh": "flink_tpu_torch.parallel.mesh",
+    "flink_tpu.runtime": "flink_tpu_torch.runtime",
+    "flink_tpu.runtime.checkpoint": "flink_tpu_torch.runtime.checkpoint",
+    "flink_tpu.runtime.ingest": "flink_tpu_torch.runtime.ingest",
+    "flink_tpu.runtime.sinks": "flink_tpu_torch.runtime.sinks",
+    "flink_tpu.runtime.step": "flink_tpu_torch.runtime.step",
 }
 
 # the static factories of the entry classes
@@ -113,10 +127,23 @@ def port_modules() -> Dict[str, types.ModuleType]:
 
 
 @contextlib.contextmanager
-def bound_to_port(monkeypatch):
-    """Bind the reference's module names to the port's for the block."""
+def bound_to_port(monkeypatch, keep=()):
+    """Bind the reference's module names to the port's for the block;
+    the modules named in ``keep`` (and their packages) stay the
+    reference's own — a test file may import a helper the port has no
+    counterpart of (the fault injector's device-loss rule) for a case
+    that never calls it."""
+    kept = {}
+    for name in keep:
+        mod = importlib.import_module(name)
+        while name:
+            kept[name] = sys.modules[name]
+            name = name.rpartition(".")[0]
     for name, shim in port_modules().items():
         monkeypatch.setitem(sys.modules, name, shim)
+    for name, mod in kept.items():
+        if name != "flink_tpu":
+            monkeypatch.setitem(sys.modules, name, mod)
     yield
 
 
@@ -157,12 +184,13 @@ def _param_sets(fn) -> List[Tuple[dict, str]]:
 
 
 def run_reference_case(test_file: str, name: str, params: dict, request,
-                       monkeypatch) -> None:
+                       monkeypatch, keep=()) -> None:
     """Execute ``tests/<test_file>``'s source with its ``flink_tpu``
-    imports bound to the port, then call its test ``name`` with
-    ``params`` and the fixtures it asks for."""
+    imports bound to the port (but the modules in ``keep``, see
+    ``bound_to_port``), then call its test ``name`` with ``params`` and
+    the fixtures it asks for."""
     path = TESTS / test_file
-    with bound_to_port(monkeypatch):
+    with bound_to_port(monkeypatch, keep):
         ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
         exec(compile(path.read_text(), str(path), "exec"), ns)
         fn = ns[name]
