@@ -436,6 +436,30 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 output against numpy, through G27; and the checkpoint
                 job crashed at a sharded drain and restarted, every row
                 against numpy.
+ 25. sharded_keyed — every other keyed job kind at parallelism 4, the
+                four shards again on the one card: in phase 3
+                (``sharded_keyed_kernel_phase``) G1's owner mask on the
+                cep and cep-within jobs' batches (16,384 and 8,192
+                lanes; edge: a fifth of the lanes on one key, dead
+                lanes) for each of the four shard ranges, G27 at CEP's
+                float32 [B] delta shape over four disjoint owner masks
+                (timed beside torch.stack(...).sum(0)) and G21 on one
+                shard's stack of the chained job's second drain (edge:
+                an over-full edge), exactly, and G11's check compares
+                its ``marks`` too; then, each job once under
+                torch.profiler recording the card (events/s and the
+                card's idle share from that run): nexmark q11 sessions
+                and WindowWordCount (10M events each; G1's owner mask,
+                G5, G10, G11 / G12 a shard), the cep job (400,000
+                events) and cep-within (8M; the sharded count NFA, G27's
+                delta sum), the chained rollup (10M) on the mask drain
+                and on the sharded chained drain, the late-reduce job
+                (20M: its first window fires while late records still
+                come) and the north star with the flight recorder on
+                every shard (10M; a report row a shard, their events
+                every record, the live keys per key group against
+                numpy's); every row against numpy (CEP key by key and
+                against the host NFA on a sample of keys).
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -1607,10 +1631,16 @@ def case_session_update(dev, C, B, kind, main_state):
     s1 = [x.clone() for x in state0]
     s2 = [x.clone() for x in state0]
     args = (table, wm, order, key_s, h, l, vals)
-    r1, n1 = kernels.session_update(*s1, *args, G=G)
-    r2, n2 = kernels.session_update_plain(*s2, *args, G=G)
+    # with the marks (the row counts after the superseded open and batch
+    # sessions) that a shard mesh's emission orders the shards' rows by
+    m1 = torch.zeros(2, dtype=torch.int32, device=dev)
+    m2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    r1, n1 = kernels.session_update(*s1, *args, G=G, marks=m1)
+    r2, n2 = kernels.session_update_plain(*s2, *args, G=G, marks=m2)
     n = int(n2)
     check(int(n1) == n and n > 0, f"session_update: {int(n1)} rows, plain {n}")
+    check(torch.equal(m1, m2) and 0 <= int(m2[0]) <= int(m2[1]) <= n,
+          f"session_update: marks {m1.tolist()}, plain {m2.tolist()}")
     n_close = int((state0[3] & ~s2[3]).sum())
     n_keys = int(torch.unique(key_s[(key_s >> 32) < C] >> 32).numel())
     # the timing runs on copies whose sessions the first call closed
@@ -1921,12 +1951,13 @@ def _timed_job(env, name, sink):
     return sink, job, time.perf_counter() - t0
 
 
-def sessions_job(device, total):
-    """nexmark q11: sessions (gap 10 s) counting each bidder's bids."""
+def sessions_job(device, total, parallelism=1):
+    """nexmark q11: sessions (gap 10 s) counting each bidder's bids, at
+    ``parallelism`` shards."""
     from flink_tpu_torch.datastream.window.assigners import (
         EventTimeSessionWindows,
     )
-    env = keyed_env(device)
+    env = keyed_env(device, parallelism)
     sink = ColumnarCollectSink()
     (env.add_source(GeneratorSource(session_gen, total=total))
      .key_by(lambda c: c["bidder"])
@@ -2002,9 +2033,10 @@ def wordcount_job(device, total, parallelism=1):
     return _timed_job(env, "chip-smoke-wordcount", sink)
 
 
-def windowcount_job(device, total):
-    """Flink's WindowWordCount: keyBy(word).countWindow(10).sum(count)."""
-    env = keyed_env(device)
+def windowcount_job(device, total, parallelism=1):
+    """Flink's WindowWordCount: keyBy(word).countWindow(10).sum(count), at
+    ``parallelism`` shards."""
+    env = keyed_env(device, parallelism)
     sink = ColumnarCollectSink()
     (env.add_source(GeneratorSource(word_gen, total=total))
      .key_by(lambda c: c["word"])
@@ -2716,14 +2748,14 @@ def late_gen(offset, n):
         None
 
 
-def reduce_env(device, capacity, config=None):
+def reduce_env(device, capacity, config=None, parallelism=1):
     env = StreamExecutionEnvironment(Configuration(dict({
         "keys.reverse-map": False,
         "window.fires-per-step": FIRES_PER_STEP,
         "pipeline.ring-depth": RING_DEPTH,
         "state.probe-len": PROBE_LEN,
     }, **(config or {}))), device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(capacity)
@@ -2752,11 +2784,12 @@ def mean_job(device, total):
     return _timed_job(env, "chip-smoke-mean", sink)
 
 
-def late_job(device, total):
+def late_job(device, total, parallelism=1):
     """time_window(5 s).allowed_lateness(2 s).reduce(a + b) over the north
-    star's traffic, 5 % of it up to 3 s late, watermark 500 ms behind."""
+    star's traffic, 5 % of it up to 3 s late, watermark 500 ms behind, at
+    ``parallelism`` shards."""
     from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
-    env = reduce_env(device, LATE_CAPACITY)
+    env = reduce_env(device, LATE_CAPACITY, parallelism=parallelism)
     sink = ColumnarCollectSink()
     (env.add_source(GeneratorSource(late_gen, total=total))
      .assign_timestamps_and_watermarks(
@@ -3991,12 +4024,13 @@ def cep_reference(names, keys) -> int:
     return int(((before - before[first]) * b_s).sum())
 
 
-def cep_job(device, events):
+def cep_job(device, events, parallelism=1):
     """BASELINE #5 as bench_configs.py:264-287 runs it: processing time,
-    batches of 16,384, select(1.0) into a CountingSink."""
+    batches of 16,384, select(1.0) into a CountingSink; at
+    ``parallelism`` count-NFA shards."""
     from flink_tpu_torch.cep import CEP
     env = StreamExecutionEnvironment(Configuration(), device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.batch_size = CEP_BATCH
     sink = CountingSink()
     stream = env.from_collection(events).key_by(lambda e: e.key)
@@ -4054,16 +4088,17 @@ def cepw_select(m):
             m["end"][CW_SEQ])
 
 
-def cepw_job(device, total, capacity=CEPW_CAPACITY):
+def cepw_job(device, total, capacity=CEPW_CAPACITY, parallelism=1):
     """The pattern keyed by ``key``, in event time, from a columnar
-    GeneratorSource through to_elements, at the port's default batch."""
+    GeneratorSource through to_elements, at the port's default batch, at
+    ``parallelism`` count-NFA shards."""
     from flink_tpu_torch.cep import CEP
     from flink_tpu_torch.runtime.sinks import CollectSink
     from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
     env = StreamExecutionEnvironment(Configuration(), device=device)
     check(env.batch_size == CEPW_BATCH, f"cep-within job: batch "
           f"{env.batch_size}, the kernel phase times G19 at {CEPW_BATCH}")
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(capacity)
     sink = CollectSink()
@@ -4579,13 +4614,14 @@ def chain_kernel_phase(dev, timing=True):
     return out
 
 
-def chained_job(device, total, sparse=False, config=None):
+def chained_job(device, total, sparse=False, config=None, parallelism=1):
     """The chained rollup through the public API: the north star's traffic
     (its dense keys, or with ``sparse`` the sparse job's splitmix64 ids)
     through key_by -> 1 s tumbling sum -> key_by(r.key) -> 5 s tumbling
     sum(r.value) into a row-keeping sink; direct layout at capacity 1M, or
     the hash layout at 2^21 probed 64 deep; no overflow ring; an edge of
-    CHAIN_EDGE_LANES lanes. Returns (sink, env, job, s)."""
+    CHAIN_EDGE_LANES lanes; ``parallelism`` shards, each that capacity.
+    Returns (sink, env, job, s)."""
     def gen(offset, n):
         keys, ts, vals = gen_batch(offset, n)
         key = sparse_ids(keys) if sparse else keys
@@ -4602,7 +4638,7 @@ def chained_job(device, total, sparse=False, config=None):
         **(config or {}),
     })
     env = StreamExecutionEnvironment(cfg, device=device)
-    env.set_parallelism(1)
+    env.set_parallelism(parallelism)
     env.set_max_parallelism(MAX_PARALLELISM)
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
     env.set_state_capacity(SPARSE_CAPACITY if sparse else N_KEYS)
@@ -5202,18 +5238,22 @@ NS_MODES = (
 )
 
 
-def device_busy(run):
+def device_busy(run, cpu=True):
     """``run()`` under torch.profiler: (what it returned, the card's busy
     ms — the union of kernel and copy intervals, the producer's copies
-    included —)."""
+    included —). ``cpu=False`` records the card's activity alone, which
+    costs the host less. The intervals come from the profiler's raw
+    kineto events: building its FunctionEvent tree takes minutes on a
+    job of millions of host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         out = run()
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    spans = [(ev.start_ns() / 1e3, (ev.start_ns() + ev.duration_ns()) / 1e3)
+             for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == DeviceType.CUDA]
     return out, _busy_ms(spans)
 
 
@@ -6906,6 +6946,338 @@ def sharded_runs(dev, kind, smi, total_launches, want_count) -> None:
 
 
 
+# ------------------------------------- phase 25 (and its phase 3 checks)
+
+SHARD_KEYED_CEP_B = (CEP_BATCH, CEPW_BATCH)   # the two CEP jobs' batches
+# the late-reduce job's events at parallelism 4: at SHARD_TOTAL its 5 s of
+# event time fire no window before the end of the stream, so nothing
+# could re-fire; 10 s fire the first window while late records still come
+SHARD_LATE_TOTAL = 20_000_000
+# the kernels each phase-25 path must launch (G1's owner mask a shard)
+SHARD_SESSION_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
+                         "session_update")
+SHARD_WINDOWCOUNT_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
+                             "count_update")
+SHARD_CEP_KERNELS = ("route_lanes", "shard_sum") + CEP_KERNELS
+SHARD_CEPW_KERNELS = SHARD_CEP_KERNELS + ("cep_expire",)
+
+
+def _shard_ranges():
+    from flink_tpu_torch.parallel.mesh import MeshContext
+    ctx = MeshContext.create(SHARDS, MAX_PARALLELISM,
+                             devices=["cpu"] * SHARDS)
+    return [(r.start, r.end) for r in ctx.key_group_ranges]
+
+
+def _cep_key_lanes(dev, B, kind):
+    """A CEP batch's key halves as the job encodes them: the cep job's
+    1,000 integer keys (B = 16,384) or the cep-within job's sparse ids
+    (B = 8,192)."""
+    if B == CEP_BATCH:
+        _e, _n, keys = cep_events(B)
+        hi, lo = np.zeros(B, np.uint32), keys.astype(np.uint32)
+    else:
+        ids = cepw_gen(0, B)[0]["key"].view(np.uint64)
+        hi = (ids >> np.uint64(32)).astype(np.uint32)
+        lo = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    valid = np.ones(B, bool)
+    if kind == "edge":
+        hi[: B // 5] = hi[0]          # a fifth of the lanes on one key
+        lo[: B // 5] = lo[0]
+        valid[-(B // 20):] = False    # dead lanes
+    return _i32(hi, dev), _i32(lo, dev), torch.from_numpy(valid).to(dev)
+
+
+def case_route_owner(dev, kind, B):
+    """G1's owner mask (``parallel/exchange.py owned_lanes``: slide 1,
+    zero ticks, the MIN watermark) on a CEP batch for each of the four
+    shard ranges, against its plain version; timed on shard 0's."""
+    hi, lo, valid = _cep_key_lanes(dev, B, kind)
+    ts = torch.zeros_like(hi)
+    none = torch.tensor(PANE_NONE, dtype=torch.int32, device=dev)
+    err, owned = 0.0, 0
+    for k0, k1 in _shard_ranges():
+        kw = dict(slide=1, k=1, maxp=MAX_PARALLELISM, kg_start=k0,
+                  kg_end=k1)
+        a = kernels.route_lanes(hi, lo, ts, valid, none, none, **kw)
+        b = kernels.route_lanes_plain(hi, lo, ts, valid, none, none, **kw)
+        err = max(err, max_abs_err(list(a), list(b)))
+        owned += int(a[2].sum())
+    check(owned == int(valid.sum()), f"owner masks ({kind}, B = {B}) "
+          f"own {owned} lanes of {int(valid.sum())}")
+    k0, k1 = _shard_ranges()[0]
+    kw = dict(slide=1, k=1, maxp=MAX_PARALLELISM, kg_start=k0, kg_end=k1)
+    return {
+        "err": err,
+        "run": lambda: kernels.route_lanes(hi, lo, ts, valid, none, none,
+                                           **kw),
+        "plain": lambda: kernels.route_lanes_plain(hi, lo, ts, valid, none,
+                                                   none, **kw),
+        "library": None,
+        # hi, lo, ts, valid read; pane, kg, live written
+        "bytes": B * 22,
+    }
+
+
+def case_shard_sum_cep(dev, kind, B):
+    """G27 at CEP's delta shape: four shards' float32 [B] match deltas
+    (small counts on a tenth of the lanes), each masked by its owner mask
+    of the batch's keys (disjoint: the sum is exact), against its plain
+    version; its library time ``torch.stack(...).sum(0)`` over the masked
+    deltas."""
+    from flink_tpu_torch.parallel.exchange import owned_lanes
+    hi, lo, valid = _cep_key_lanes(dev, B, kind)
+    g = torch.Generator().manual_seed(20)
+    mines = [owned_lanes(hi, lo, valid, k0, k1, MAX_PARALLELISM)
+             for k0, k1 in _shard_ranges()]
+    outs = []
+    for m in mines:
+        d = torch.randint(0, 4, (B,), generator=g).float()
+        d[torch.rand(B, generator=g) > 0.1] = 0.0
+        outs.append(torch.where(m.cpu(), d, 0.0).to(dev))
+    a = kernels.shard_sum(outs, mines)
+    b = kernels.shard_sum_plain(outs, mines)
+    masked = [torch.where(m, o, 0.0) for o, m in zip(outs, mines)]
+    err = max_abs_err(list(a), list(b))
+    err = max(err, max_abs_err(a[0], torch.stack(masked).sum(0)))
+    return {
+        "err": err,
+        "run": lambda: kernels.shard_sum(outs, mines),
+        "plain": lambda: kernels.shard_sum_plain(outs, mines),
+        "library": lambda: torch.stack(masked).sum(0),
+        "bytes": SHARDS * B * 5 + B * 5,
+    }
+
+
+def case_chain_pack_shard(dev, kind):
+    """G21 on one shard's fire stack of the chained job at parallelism
+    four: the stage-0 fires of its second drain restricted to the keys
+    shard 0 owns, in the shard's [16, 2, 1M] arena, into an edge of
+    CHAIN_EDGE_LANES (``edge``: a quarter of them, so lanes drop)."""
+    planes = chain_main_planes()
+    k0, k1 = _shard_ranges()[0]
+    mine = {}
+    for key, (k, v, end) in planes.items():
+        kt = torch.from_numpy(k.astype(np.int32))
+        kg = assign_to_key_group(route_hash(torch.zeros_like(kt), kt),
+                                 MAX_PARALLELISM).numpy()
+        own = (kg >= k0) & (kg <= k1)
+        mine[key] = (k[own], v[own], end)
+    E = CHAIN_EDGE_LANES if kind == "main" else CHAIN_EDGE_LANES // 16
+    i32 = dict(dtype=torch.int32, device=dev)
+    up_wm = (2 * RING_DEPTH * BATCH - 1) // EVENTS_PER_MS - 1
+    ft = max(e for _k, _v, e in planes.values()) // CHAIN_W1_MS - 1
+    stack = chain_stack(dev, RING_DEPTH, FIRES_PER_STEP, N_KEYS, mine)
+    kw = dict(n_lanes=E, up_wm=torch.tensor(up_wm, **i32),
+              fired_through=torch.tensor(ft, **i32), slide=CHAIN_W1_MS)
+    got = kernels.chain_pack(*stack, **kw)
+    want = kernels.chain_pack_plain(*stack, **kw)
+    demand = int(want.demand)
+    check(demand == sum(len(k) for k, _v, _e in mine.values()),
+          f"chain_pack (shard, {kind}): demand {demand}")
+    live = min(demand, E)
+    return {
+        "err": max_abs_err(list(got), list(want)),
+        "run": lambda: kernels.chain_pack(*stack, **kw),
+        "plain": lambda: kernels.chain_pack_plain(*stack, **kw),
+        "library": None,
+        "bytes": E * 17 + live * 12 + RING_DEPTH * FIRES_PER_STEP * 9 + 12,
+    }
+
+
+def sharded_keyed_kernel_phase(dev, timing=True) -> dict:
+    """Phase 3's checks of the kernels phase 25's jobs run per shard:
+    G1's owner mask on both CEP batches for each shard range, G27 at both
+    CEP delta shapes and G21 on one shard's fire stack. Returns {kernel:
+    {mode: record}}."""
+    out = {"route_lanes": {}, "shard_sum": {}, "chain_pack": {}}
+    for B in SHARD_KEYED_CEP_B:
+        out["route_lanes"][f"owner_cep_{B}"] = hold(
+            f"route_lanes (owner mask, B = {B})",
+            lambda k, b=B: case_route_owner(dev, k, b), timing)
+        out["shard_sum"][f"cep_{B}"] = hold(
+            f"shard_sum (CEP deltas, B = {B})",
+            lambda k, b=B: case_shard_sum_cep(dev, k, b), timing)
+    out["chain_pack"]["shard"] = hold(
+        "chain_pack (one shard's stack)",
+        lambda k: case_chain_pack_shard(dev, k), timing)
+    return out
+
+
+def check_sharded_telemetry(env, job, total, want_count, sink) -> dict:
+    """The north star at parallelism 4 with the flight recorder: a report
+    row a shard (the sharded ring), their events every record, their
+    fired keys the drains' fires, nothing dropped; the live keys per key
+    group against numpy's."""
+    m = job.metrics
+    rep = env._pipeline_report()
+    rows = rep["shards"]
+    check(sink.count == want_count and sink.value_sum == float(total),
+          f"telemetry at parallelism {SHARDS}: {sink.count} rows summing "
+          f"to {sink.value_sum}")
+    check(rep["available"] and rep["n_shards"] == SHARDS
+          and len(rows) == SHARDS,
+          f"telemetry at parallelism {SHARDS}: {len(rows)} report rows")
+    tot = {f: sum(r["totals"][f] for r in rows) for f in rows[0]["totals"]}
+    check(tot["events"] == total and tot["late_dropped"] == 0
+          and tot["nofit_dropped"] == 0
+          and all(r["totals"]["events"] > 0 for r in rows),
+          f"telemetry at parallelism {SHARDS}: totals {tot}")
+    check(tot["fired_keys"] == m.fires - m.fire_step_fires,
+          f"telemetry at parallelism {SHARDS}: fired keys "
+          f"{tot['fired_keys']}, the drains' fires "
+          f"{m.fires - m.fire_step_fires}")
+    kg = env._kg_report(MAX_PARALLELISM)
+    occ = np.zeros(MAX_PARALLELISM, np.int64)
+    for r in kg["occupancy_top"]:
+        occ[r["group"]] = r["count"]
+    want_occ = live_key_groups(total, EVENTS_PER_MS, WINDOW_MS, N_KEYS,
+                               MAX_PARALLELISM)
+    check(np.array_equal(occ, want_occ),
+          f"telemetry at parallelism {SHARDS}: occupancy differs from "
+          f"numpy's in {int((occ != want_occ).sum())} groups")
+    return {"totals": tot, "rows": len(rows),
+            "publish_refusals": [r.get("publish_refusals") for r in rows],
+            "drains": rep["drains"]}
+
+
+def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
+    """Phase 25: every keyed job kind but tiered state at parallelism
+    SHARDS, its shards forced onto the one card, each job once under
+    torch.profiler recording the card's activity (events/s and the card's
+    idle share from that run):
+    nexmark q11 sessions and WindowWordCount (G1's owner mask a shard,
+    then G5, G10, G11 / G12), the cep and cep-within jobs (the sharded
+    count NFA: G1, G5, G10, G19, G20 a shard, G27's delta sum), the
+    chained rollup on the mask drain and on the sharded chained drain
+    (``pipeline.data-parallel: on``), the late-reduce job (the split
+    path's fire steps with re-fires a shard) and the north star with the
+    flight recorder on every shard. Each at SHARD_TOTAL events or its
+    one-shard size where that is smaller (the late-reduce job at
+    SHARD_LATE_TOTAL); every row against numpy's (CEP key by key)."""
+    from flink_tpu_torch.parallel.mesh import forced_device_count
+
+    t_phase = time.perf_counter()
+
+    def run(name, job_fn, total, kernels_of, unit="events"):
+        launches, (out, busy) = run_path(
+            lambda: device_busy(job_fn, cpu=False), total_launches)
+        secs = out[-1]
+        check_launched(launches, kernels_of, f"parallelism-{SHARDS} {name}")
+        line = {"phase": "sharded_keyed", "job": name, unit: total,
+                "seconds": secs, f"{unit}_per_s": total / secs,
+                "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / (secs * 1e3),
+                "timed": "under torch.profiler (the card's activity)",
+                "launches": launches,
+                "device": kind, "nvidia_smi": smi}
+        return out, line
+
+    with forced_device_count(SHARDS):
+        total = SHARD_TOTAL
+        (sink, job, _s), line = run(
+            "sessions", lambda: sessions_job(dev, total, SHARDS), total,
+            SHARD_SESSION_KERNELS)
+        m = job.metrics
+        n_rows, _early = check_session_rows(sink.columns(), total)
+        check(m.dropped_late == 0 and m.dropped_capacity == 0,
+              "sharded sessions: records dropped")
+        emit({**line, "rows": n_rows, "steps": m.steps})
+        del sink, job
+
+        ranks = all_word_ranks(total)
+        (sink, job, _s), line = run(
+            "windowcount", lambda: windowcount_job(dev, total, SHARDS),
+            total, SHARD_WINDOWCOUNT_KERNELS)
+        n_rows = check_windowcount_rows(sink.columns(), ranks)
+        check(job.metrics.dropped_capacity == 0,
+              "sharded windowcount: records dropped")
+        emit({**line, "rows": n_rows})
+        del sink, job, ranks
+
+        events, names, keys = cep_events(CEP_TOTAL)
+        want = cep_reference(names, keys)
+        (sink, job, _s), line = run(
+            "cep", lambda: cep_job(dev, events, SHARDS), CEP_TOTAL,
+            SHARD_CEP_KERNELS)
+        m = job.metrics
+        check(sink.count == want == m.cep_matches_detected
+              == m.cep_matches_extracted and m.dropped_capacity == 0,
+              f"sharded cep: {sink.count} matches, numpy {want}, detected "
+              f"{m.cep_matches_detected}, extracted "
+              f"{m.cep_matches_extracted}")
+        emit({**line, "matches": sink.count, "matches_numpy": want,
+              "device_steps": m.cep_device_steps})
+        del sink, job, events, names, keys
+
+        (sink, job, _s), line = run(
+            "cep_within", lambda: cepw_job(dev, CEPW_TOTAL,
+                                           parallelism=SHARDS),
+            CEPW_TOTAL, SHARD_CEPW_KERNELS)
+        m = job.metrics
+        cols = cepw_columns(CEPW_TOTAL)
+        pane_ms = DevicePatternSpec.from_pattern(cepw_pattern()).pane_ms
+        n_rows, want, keys_matched, sample_rows = check_cepw_rows(
+            sink.results, cols, pane_ms, CEPW_SEED)
+        check(m.cep_matches_detected == m.cep_matches_extracted == n_rows
+              and m.dropped_capacity == 0,
+              f"sharded cep-within: detected {m.cep_matches_detected}, "
+              f"extracted {m.cep_matches_extracted}, rows {n_rows}")
+        emit({**line, "rows": n_rows, "rows_numpy": want,
+              "sampled_keys_with_matches": keys_matched,
+              "sampled_rows": sample_rows,
+              "device_steps": m.cep_device_steps})
+        del sink, job, cols
+
+        want5, _stage0 = chained_reference(total)
+        for name, dp, route in (("chained_mask", "off", "mask"),
+                                ("chained_sharded", "on", "sharded")):
+            (sink, _env, job, _s), line = run(
+                name, lambda d=dp: chained_job(
+                    dev, total, config={"pipeline.data-parallel": d},
+                    parallelism=SHARDS), total, CHAIN_KERNELS)
+            m = job.metrics
+            n_rows = check_chained_rows(sink.columns(), want5)
+            check(m.dropped_late == 0 and m.dropped_capacity == 0,
+                  f"sharded {name}: records dropped")
+            check(_routed(m, route), f"sharded {name}: the {route} route "
+                  f"never ran ({m.steps_sharded} sharded batches)")
+            emit({**line, "rows": n_rows, "steps_sharded": m.steps_sharded,
+                  **chain_metrics(m)})
+            del sink, _env, job
+
+        late_total = SHARD_LATE_TOTAL
+        (sink, job, _s), line = run(
+            "late_reduce", lambda: late_job(dev, late_total, SHARDS),
+            late_total, LATE_KERNELS)
+        m = job.metrics
+        n_rows, n_refired, n_refire_rows = check_late_rows(
+            sink.columns(), late_total, m.dropped_late)
+        check(m.dropped_capacity == 0 and n_refire_rows > 0,
+              f"sharded late-reduce: capacity drops {m.dropped_capacity}, "
+              f"re-fire rows {n_refire_rows}")
+        emit({**line, "rows": n_rows, "windows_refired": n_refired,
+              "refire_rows": n_refire_rows, "dropped_late": m.dropped_late,
+              "fire_steps": m.fire_steps})
+        del sink, job
+
+        want_small = numpy_reference(total, N_KEYS, EVENTS_PER_MS,
+                                     WINDOW_MS)
+        (sink, env_t, job, _s), line = run(
+            "north_star_telemetry", lambda: north_star_job(
+                dev, N_KEYS, EVENTS_PER_MS, total, BATCH, RING_DEPTH,
+                config=TELEMETRY_CONFIG, with_env=True,
+                parallelism=SHARDS), total, TELEMETRY_KERNELS)
+        checked = check_sharded_telemetry(env_t, job, total, want_small,
+                                          sink)
+        check(job.metrics.steps_sharded > 0,
+              "sharded telemetry: the sharded drain never ran")
+        emit({**line, **checked, "steps_sharded": job.metrics.steps_sharded})
+        del sink, env_t, job
+    emit({"phase": "sharded_keyed_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
 # ------------------------------------------------------------ main
 
 KERNEL_SOURCES = {
@@ -7094,6 +7466,8 @@ def main(argv) -> int:
         recs.setdefault(name, {}).update(rec)
     recs.update(library_kernel_phase(dev))
     recs.update(shard_kernel_phase(dev))
+    for name, rec in sharded_keyed_kernel_phase(dev).items():
+        recs.setdefault(name, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
 
     total_launches = {}
@@ -7477,6 +7851,7 @@ def main(argv) -> int:
     fire_grid(dev, kind, smi, total_launches)
     library_runs(dev, kind, smi, total_launches)
     sharded_runs(dev, kind, smi, total_launches, want_count)
+    sharded_keyed_runs(dev, kind, smi, total_launches)
 
     if "--profile" in argv:
         emit(profile_phase(

@@ -1,5 +1,6 @@
-"""Device CEP behind ``CEP.pattern()`` on one card — the counterpart of
-flink_tpu/cep/accel.py (``DeviceCepOperator`` with one shard).
+"""Device CEP behind ``CEP.pattern()`` — the counterpart of
+flink_tpu/cep/accel.py (``DeviceCepOperator``), on one shard or over a
+shard mesh.
 
 Division of labour, as in the reference:
 
@@ -21,9 +22,20 @@ origin of the card's int32 pane arithmetic. ``snapshot()`` /
 ``restore()`` carry the reference's layout both ways (the table as uint32
 [C, 2] rows), so either package continues from the other's state; a
 restore adopts the reference's host NFA partials into the port's classes.
-Not ported: ``n_shards > 1`` (the sharded operator and its psum, ROADMAP
-queue 1, item 10) and ``peek_state`` (queryable ``cep-nfa-state``, item
-15), which raise. ``batch_gaps`` is a copy of the reference's.
+
+With ``n_shards`` above 1 (the reference's ``_init_sharded``) the count
+NFA's state shards by key group over a ``MeshContext``: each shard holds
+its keys' table and carry on its device, masks the replicated batch to the
+key groups it owns with G1 (``parallel/exchange.py owned_lanes``) and runs
+the one-shard advance (G20, G5, G10, G19) under its device's guard; the
+shards' per-lane match deltas are disjoint, so G27's shard-order sum
+(``parallel/collectives.py psum``, each shard's owner mask its valid
+plane) reassembles the batch's delta exactly. The host side (buffers,
+partials, replay) stays one for all shards, as in the reference; a
+snapshot stacks the shards' leaves on a leading axis, the reference's
+layout. Not ported: ``peek_state`` (queryable ``cep-nfa-state``, ROADMAP
+queue 1, item 15), which raises. ``batch_gaps`` is a copy of the
+reference's.
 """
 
 from __future__ import annotations
@@ -40,6 +52,11 @@ from flink_tpu_torch.cep.nfa import NFA, Entry, Partial
 from flink_tpu_torch.cep.pattern import Pattern, RELAXED
 from flink_tpu_torch.core.types import KeyCodec
 from flink_tpu_torch.ops import hashtable
+from flink_tpu_torch.parallel.collectives import psum
+from flink_tpu_torch.parallel.exchange import owned_lanes
+from flink_tpu_torch.parallel.mesh import (
+    MeshContext, device_guard, mesh_devices,
+)
 from flink_tpu_torch.runtime.job import key_words
 
 
@@ -136,16 +153,14 @@ def adopt_partials(partials: list, memo: Dict[int, Entry]) -> list:
 
 class DeviceCepOperator:
     """Keyed CEP over micro-batches: the card's count NFA detects, the host
-    replays the flagged keys to extract. One instance per job, one shard."""
+    replays the flagged keys to extract. One instance per job; ``n_shards``
+    count-NFA states, one a shard of ``mesh_devices(device)`` (``capacity``
+    is per shard, as ``env.state_capacity_per_shard``)."""
 
     def __init__(self, pattern: Pattern, capacity: int = 1 << 16,
                  probe_len: int = hashtable.KEYED_PROBE_LEN,
                  within_buckets: int = 8, n_shards: int = 1,
                  max_parallelism: int = 128, device="cuda"):
-        if n_shards != 1:
-            raise _unsupported(
-                f"device CEP over {n_shards} shards (the sharded count NFA "
-                f"and its psum)", "ROADMAP queue 1, item 10")
         self.pattern = pattern
         self.spec = DevicePatternSpec.from_pattern(
             pattern, within_buckets=within_buckets)
@@ -153,12 +168,15 @@ class DeviceCepOperator:
         self.stages = pattern.stages
         self.codec = KeyCodec()
         self.capacity = 1 << max(1, int(capacity) - 1).bit_length()
-        self.n_shards = 1
+        self.n_shards = int(n_shards)
         self.max_parallelism = max_parallelism
         self.device = torch.device(device)
         self.probe_len = probe_len
-        self.state: CepShardState = init_state(self.capacity, probe_len,
-                                               self.spec, self.device)
+        self.ctx = MeshContext.create(self.n_shards, max_parallelism,
+                                      devices=mesh_devices(self.device))
+        self.states: List[CepShardState] = [
+            init_state(self.capacity, probe_len, self.spec, d)
+            for d in self.ctx.devices]
         # per-key host side, keyed by the 64-bit key identity; the events
         # themselves carry the original keys for extraction
         self.buffers: Dict[int, List[Tuple[Any, bool, int]]] = {}
@@ -173,8 +191,40 @@ class DeviceCepOperator:
         self._pane_origin: Optional[int] = None
 
     @property
+    def state(self) -> CepShardState:
+        """The first shard's state (the only one with one shard)."""
+        return self.states[0]
+
+    @state.setter
+    def state(self, st: CepShardState) -> None:
+        self.states[0] = st
+
+    @property
     def dropped_capacity(self) -> int:
-        return int(self.state.dropped_capacity)
+        """Records that found no slot, summed over the shards."""
+        return sum(int(st.dropped_capacity) for st in self.states)
+
+    def _advance_sharded(self, hi, lo, masks, valid, pane: int):
+        """One batch through every shard (the reference's sharded step):
+        G1's owner mask over the shard's key groups, the one-shard advance
+        on its state, and G27's sum of the shards' deltas, each masked to
+        its owned lanes. Returns the delta float32 [B] on the first
+        shard's device."""
+        ctx = self.ctx
+        deltas, mines = [], []
+        for st_i, (dev, r) in enumerate(zip(ctx.devices,
+                                            ctx.key_group_ranges)):
+            with device_guard(dev):
+                h, l, m, ok = (t.to(dev, non_blocking=True)
+                               for t in (hi, lo, masks, valid))
+                mine = owned_lanes(h, l, ok, r.start, r.end,
+                                   self.max_parallelism)
+                self.states[st_i], delta, _tot = advance(
+                    self.states[st_i], self.spec, h, l, m, mine, pane)
+            deltas.append(delta)
+            mines.append(mine)
+        delta, _ok = psum(deltas, mines, ctx.devices[0])
+        return delta
 
     def _masks(self, elements: Sequence) -> np.ndarray:
         m = np.zeros((len(elements), len(self.stages)), bool)
@@ -209,8 +259,11 @@ class DeviceCepOperator:
             dev, non_blocking=True)
             for a in (hi.view(np.int32), lo.view(np.int32), masks)]
         valid = torch.ones(B, dtype=torch.bool, device=dev)
-        self.state, delta, _total = advance(self.state, self.spec, *lanes,
-                                            valid, pane)
+        if self.n_shards == 1:
+            self.state, delta, _total = advance(self.state, self.spec,
+                                                *lanes, valid, pane)
+        else:
+            delta = self._advance_sharded(*lanes, valid, pane)
         delta = delta.cpu().numpy()
         self.steps += 1
 
@@ -247,18 +300,25 @@ class DeviceCepOperator:
         """The reference's snapshot layout: the card's state as host arrays
         under the reference's leaf names (``table.keys`` uint32 [C, 2],
         ``carry`` float32 [C+1, D], ``pane_ids`` int32 [Q],
-        ``dropped_capacity``), the host dicts, the counters and the
-        bucketing parameters. The barrier is the step boundary."""
-        st = self.state
-        return {
-            "device": {
+        ``dropped_capacity``; with n shards each stacked on a leading [n]
+        axis, as the reference stacks its sharded state), the host dicts,
+        the counters and the bucketing parameters. The barrier is the step
+        boundary."""
+        def leaves(st):
+            return {
                 "table.keys": hashtable.to_rows(st.table),
                 # copies: on the CPU a tensor's numpy view is its memory
                 "carry": np.array(st.carry.cpu()),
                 "pane_ids": np.array(st.pane_ids),
                 "dropped_capacity": np.asarray(int(st.dropped_capacity),
                                                np.int32),
-            },
+            }
+
+        per = [leaves(st) for st in self.states]
+        device = per[0] if self.n_shards == 1 else {
+            k: np.stack([p[k] for p in per]) for k in per[0]}
+        return {
+            "device": device,
             # the live buffers grow in place: the snapshot keeps copies
             "buffers": {k: list(v) for k, v in self.buffers.items()},
             "partials": dict(self.partials),
@@ -310,18 +370,24 @@ class DeviceCepOperator:
             pane_ids, dropped = d.pane_ids, d.dropped_capacity
         carry = np.array(carry, np.float32)
         want = (self.capacity + 1, self.spec.dim)
+        n = self.n_shards
+        if n > 1:
+            want = (n,) + want
         if carry.shape != want:
             raise ValueError(f"device CEP carry of shape {carry.shape}, the "
                              f"job's is {want}")
-        dev = self.device
-        self.state = CepShardState(
-            table=hashtable.from_rows(rows, dev),
-            carry=torch.from_numpy(carry).to(dev),
-            pane_ids=torch.from_numpy(np.array(pane_ids, np.int32)),
-            dropped_capacity=torch.tensor(int(np.asarray(dropped).sum()),
+        rows, pane_ids = np.asarray(rows), np.asarray(pane_ids, np.int32)
+        dropped = np.asarray(dropped).reshape(n, -1)
+        if n == 1:
+            rows, carry, pane_ids = rows[None], carry[None], pane_ids[None]
+        self.states = [CepShardState(
+            table=hashtable.from_rows(rows[s], dev),
+            carry=torch.from_numpy(carry[s]).to(dev),
+            pane_ids=torch.from_numpy(np.array(pane_ids[s], np.int32)),
+            dropped_capacity=torch.tensor(int(dropped[s].sum()),
                                           dtype=torch.int32, device=dev),
             probe_len=self.probe_len,
-        )
+        ) for s, dev in enumerate(self.ctx.devices)]
         memo: Dict[int, Entry] = {}
         self.buffers = {k: list(v) for k, v in snap["buffers"].items()}
         self.partials = {k: adopt_partials(v, memo)
@@ -363,13 +429,15 @@ class DeviceCepOperator:
         analog, as the reference's): pending buffers of unflagged keys hold
         no completion, so they drain into each key's partials; keys that
         never won a slot lose their state. Returns any matches found while
-        draining (expected none; the runner emits them). One read of the
-        whole table from the card."""
+        draining (expected none; the runner emits them). One read of each
+        shard's whole table from its card."""
         if not (self.buffers or self.partials or self.trailing):
             return []
-        tk = hashtable.to_rows(self.state.table)
-        occ = ~np.all(tk == hashtable.EMPTY, axis=1)
-        in_table = set(key_words(tk[occ, 0], tk[occ, 1]).tolist())
+        in_table = set()
+        for st in self.states:
+            tk = hashtable.to_rows(st.table)
+            occ = ~np.all(tk == hashtable.EMPTY, axis=1)
+            in_table.update(key_words(tk[occ, 0], tk[occ, 1]).tolist())
 
         unexpected: List[dict] = []
         for k in list(self.buffers):

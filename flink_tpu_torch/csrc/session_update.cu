@@ -21,7 +21,10 @@
 // fire rows (key hi, key lo, start, end = last + G, value), old fires then
 // mid fires in sorted-lane order, then the close fires in slot order — the
 // reference's emission order — at row positions n_rows, n_rows + 1, ...;
-// n_rows advances. The reference instead returns [B]- and [C]-sized masks
+// n_rows advances. ``marks`` (int32 [2] on the card, or null) gets the
+// row count after the old fires and after the mid fires, so that a caller
+// merging several shards' rows can order them by kind, as the reference's
+// host loop does. The reference instead returns [B]- and [C]-sized masks
 // that the host reads whole each step.
 //
 // Design: one segmented scan (segscan.cuh) of (sum, first tick, first
@@ -220,7 +223,7 @@ __global__ void sess_writeback_kernel(const unsigned long long* __restrict__ key
 
 // scratch: fl uint8 [B]; m_start, m_last int32 [B]; m_acc float32 [B]; blk
 // (scan pairs); blk_count, blk_off int32 [ceil(max(B, C) / kRingChunk)];
-// lost int32 0-d. O >= 2B + C row positions past n_rows.
+// lost int32 0-d. O >= 2B + C row positions past n_rows. marks: see above.
 extern "C" int session_update(const void* key_s, const void* order,
                               const void* hi, const void* lo, const void* vals,
                               int B, int C, int G, void* start, void* last,
@@ -230,7 +233,7 @@ extern "C" int session_update(const void* key_s, const void* order,
                               void* row_val, void* n_rows, void* fl,
                               void* m_start, void* m_last, void* m_acc,
                               void* blk, void* blk_count, void* blk_off,
-                              void* lost, void* stream) {
+                              void* lost, void* marks, void* stream) {
   if (G < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ks = static_cast<const unsigned long long*>(key_s);
@@ -250,6 +253,7 @@ extern "C" int session_update(const void* key_s, const void* order,
   auto* lo_t = static_cast<int32_t*>(lost);
   auto* bc = static_cast<int32_t*>(blk_count);
   auto* bo = static_cast<int32_t*>(blk_off);
+  auto* mk = static_cast<int32_t*>(marks);
   int rc;
   if (B > 0) {
     const SessSrc src{ks, ord, static_cast<const float*>(vals), st, la, ac,
@@ -259,11 +263,26 @@ extern "C" int session_update(const void* key_s, const void* order,
     const OldFireSrc old_f{m.fl, ks, ord, h, l, st, la, ac, G};
     rc = ring_append_launch(old_f, B, O, out, nr, lo_t, bc, bo, s);
     if (rc) return rc;
+    if (mk) {
+      rc = static_cast<int>(cudaMemcpyAsync(mk, nr, sizeof(int32_t),
+                                            cudaMemcpyDeviceToDevice, s));
+      if (rc) return rc;
+    }
     const MidFireSrc mid_f{m.fl, ord, h, l, m, G};
     rc = ring_append_launch(mid_f, B, O, out, nr, lo_t, bc, bo, s);
     if (rc) return rc;
     sess_writeback_kernel<<<(B + 255) / 256, 256, 0, s>>>(ks, m, B, st, la, ac,
                                                           act);
+  }
+  if (mk) {
+    if (B == 0) {
+      rc = static_cast<int>(cudaMemcpyAsync(mk, nr, sizeof(int32_t),
+                                            cudaMemcpyDeviceToDevice, s));
+      if (rc) return rc;
+    }
+    rc = static_cast<int>(cudaMemcpyAsync(mk + 1, nr, sizeof(int32_t),
+                                          cudaMemcpyDeviceToDevice, s));
+    if (rc) return rc;
   }
   const CloseSrc close_f{static_cast<const unsigned long long*>(table), st, la,
                          ac, act, static_cast<const int32_t*>(wm), G};

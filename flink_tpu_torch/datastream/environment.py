@@ -84,9 +84,9 @@ class StreamExecutionEnvironment:
         return DataStream(self, t)
 
     def from_collection(self, elements) -> DataStream:
-        """An element-mode stream over a finite collection. The port runs
-        element streams into CEP patterns; a window or rolling stage over
-        one raises (ROADMAP queue 1, item 9)."""
+        """An element-mode stream over a finite collection: a stage over
+        it calls its key selector, value extractor and timestamp
+        assigner per element (the reference's element mode)."""
         return self.add_source(src_mod.CollectionSource(list(elements)))
 
     def from_elements(self, *elements) -> DataStream:

@@ -154,7 +154,7 @@ _SIGNATURES = {
     "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P],
     "count_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "rolling_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -357,10 +357,14 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
     wm_pane_l = _floor_div(base + 1 - slide, slide)
     late = mine & ((pane + (k - 1) <= wm_pane_l) | (pane <= purged_through))
     live = mine & ~late
+    # the sentinels head each extreme, so an empty batch reads them (G1's
+    # initial stats)
+    none, top = (torch.full((1,), v, dtype=torch.int32, device=hi.device)
+                 for v in (PANE_NONE, INT32_MAX))
     stats = torch.stack([
         late.sum(dtype=torch.int32),
-        torch.where(live, pane, PANE_NONE).max(),
-        torch.where(live, pane, INT32_MAX).min(),
+        torch.cat([none, torch.where(live, pane, PANE_NONE)]).max(),
+        torch.cat([top, torch.where(live, pane, INT32_MAX)]).min(),
         valid.sum(dtype=torch.int32),
     ]).to(torch.int32)
     if fill is not None:
@@ -1480,7 +1484,7 @@ def session_key_ts(key_s):
 
 
 def session_update_plain(start, last, acc, active, table, wm, order, key_s,
-                         hi, lo, values, *, G: int):
+                         hi, lo, values, *, G: int, marks=None):
     """Plain version of G11. State start, last int32 [C], acc float32 [C],
     active bool [C] (updated in place) and table int64 [C] key words; wm
     int32 0-d, the watermark after the batch; order, key_s from G10 on the
@@ -1489,11 +1493,15 @@ def session_update_plain(start, last, acc, active, table, wm, order, key_s,
     Returns (rows, n_rows): (key hi, key lo, start, end = last + G, value)
     rows in the prefix ``[:n_rows]`` of 2B + C — the superseded open
     sessions, then the superseded batch sessions (both in sorted-lane
-    order), then the watermark closes in slot order."""
+    order), then the watermark closes in slot order. ``marks`` (int32 [2]),
+    when given, gets the row count after the superseded open sessions and
+    after the superseded batch sessions."""
     C = start.shape[0]
     B = order.shape[0]
     dev = start.device
     rows, n_rows = session_rows(2 * B + C, dev)
+    if marks is not None:
+        marks.zero_()
     if B:
         o = order.long()
         ids, ts = session_key_ts(key_s)
@@ -1520,6 +1528,8 @@ def session_update_plain(start, last, acc, active, table, wm, order, key_s,
         _append_rows_plain(rows, n_rows, o_active & ~merges,
                            (hi[o], lo[o], o_start,
                             _wrap32(o_last.long() + G), o_acc))
+        if marks is not None:
+            marks[0] = n_rows
         _append_rows_plain(rows, n_rows, rep & ~last_of_slot,
                            (hi[o], lo[o], m_start,
                             _wrap32(m_last.long() + G), m_acc))
@@ -1528,6 +1538,8 @@ def session_update_plain(start, last, acc, active, table, wm, order, key_s,
         last[s] = m_last[last_of_slot]
         acc[s] = m_acc[last_of_slot]
         active[s] = True
+    if marks is not None:
+        marks[1] = n_rows
     close = active & (_wrap32(last.long() + G) <= wm)
     khi, klo = split_words(table)
     _append_rows_plain(rows, n_rows, close,
@@ -1538,13 +1550,14 @@ def session_update_plain(start, last, acc, active, table, wm, order, key_s,
 
 
 def session_update(start, last, acc, active, table, wm, order, key_s, hi,
-                   lo, values, *, G: int):
+                   lo, values, *, G: int, marks=None):
     """G11: see session_update_plain for the contract."""
     if G < 0:
         raise ValueError(f"session gap must be >= 0, got {G}")
     if _on_cpu(start):
         return session_update_plain(start, last, acc, active, table, wm,
-                                    order, key_s, hi, lo, values, G=G)
+                                    order, key_s, hi, lo, values, G=G,
+                                    marks=marks)
     dev = start.device
     (C,) = start.shape
     (B,) = order.shape
@@ -1559,6 +1572,8 @@ def session_update(start, last, acc, active, table, wm, order, key_s, hi,
                      (hi, "hi", torch.int32), (lo, "lo", torch.int32),
                      (values, "values", torch.float32)):
         _check(t, n, dt, (B,), dev)
+    if marks is not None:
+        _check(marks, "marks", torch.int32, (2,), dev)
     O = 2 * B + C
     if O > INT32_MAX:
         raise ValueError(f"{O} session rows overflow int32")
@@ -1574,7 +1589,7 @@ def session_update(start, last, acc, active, table, wm, order, key_s, hi,
         _ptr(wm), O, *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(fl),
         _ptr(m_start), _ptr(m_last), _ptr(m_acc),
         _ptr(_scan_scratch(B, dev)), _ptr(blk_count), _ptr(blk_off),
-        _ptr(torch.zeros((), **i32)), _stream())
+        _ptr(torch.zeros((), **i32)), _ptr(marks), _stream())
     _raise_on(rc, "session_update")
     session_update.launches += 1
     return rows, n_rows

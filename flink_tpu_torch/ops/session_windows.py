@@ -72,14 +72,15 @@ def init_state(capacity: int, device="cuda") -> SessionShardState:
 
 
 def update_and_fire(state: SessionShardState, gap: int, hi, lo, ts, values,
-                    valid, new_watermark):
+                    valid, new_watermark, marks=None):
     """One micro-batch and watermark advance, state in place. hi/lo int32
     [B] (uint32 bits), ts int32 [B] ticks, values float32 [B], valid bool
     [B], new_watermark int32 0-d. Returns (state, rows, n_rows): the fired
     sessions (key hi, key lo, start tick, end tick, value) in the prefix
     ``[:n_rows]`` of 2B + C row buffers — superseded open sessions, then
     superseded batch sessions, then watermark closes, the reference's
-    emission order."""
+    emission order. ``marks`` (int32 [2]), when given, gets the row counts
+    where the superseded batch sessions and the closes begin (G11's)."""
     C = state.capacity
     # late against the pre-batch watermark (the elements process before
     # their own batch's watermark advances, as in the reference); int32
@@ -95,7 +96,7 @@ def update_and_fire(state: SessionShardState, gap: int, hi, lo, ts, values,
     order, key_s, _ = segment.sort_slot_ts(slot, ts, live, C)
     rows, n_rows = kernels.session_update(
         state.start, state.last, state.acc, state.active, state.table_keys,
-        state.watermark, order, key_s, hi, lo, values, G=gap)
+        state.watermark, order, key_s, hi, lo, values, G=gap, marks=marks)
     return state, rows, n_rows
 
 

@@ -60,3 +60,18 @@ def exchange_records(slices: Sequence[Tuple], n: int, max_parallelism: int,
     received = [tuple(c[t] for c in cols) for t in range(n)]
     return received, [p.overflow for p in packs]
 
+
+
+def owned_lanes(hi, lo, valid, kg_start: int, kg_end: int,
+                max_parallelism: int) -> torch.Tensor:
+    """The replicate-and-mask route's owner mask for a stage with no pane
+    ring (rolling reduces, sessions, count windows, CEP): G1 over the
+    shard's key-group range at slide 1, zero ticks and the MIN watermark,
+    so that no lane is late and its live lanes are the valid lanes of the
+    shard's key groups (the reference's ``valid & kg in [start, end]``).
+    bool [B] on the lanes' device."""
+    none = torch.tensor(kernels.PANE_NONE, dtype=torch.int32,
+                        device=hi.device)
+    return kernels.route_lanes(hi, lo, torch.zeros_like(hi), valid, none,
+                               none, slide=1, k=1, maxp=max_parallelism,
+                               kg_start=kg_start, kg_end=kg_end)[2]

@@ -1,4 +1,4 @@
-"""The device CEP job on one card — the counterpart of
+"""The device CEP job on one card or over a shard mesh — the counterpart of
 flink_tpu/runtime/executor.py ``_run_cep_device`` (:6541-6822), which
 ``runtime/executor.py`` dispatches ``CEP.pattern(...).select`` /
 ``flat_select`` to.
@@ -26,9 +26,11 @@ matches go through the select function to the sinks' ``invoke_batch``.
 
 At the end ``JobMetrics`` gets ``cep_engine = "device"``, the device steps,
 the matches detected on the card and extracted on the host, and the
-records lost to capacity. Nothing else is refused here: the executor's
+records lost to capacity. At ``set_parallelism(n)`` the operator takes
+``min(n, len(mesh_devices(device)))`` count-NFA shards (the reference's
+executor.py:6552-6561). Nothing else is refused here: the executor's
 ``_translate`` and ``LocalExecutor.run`` raise for what the slice does not
-carry (the host NFA path, checkpoints, parallelism above 1).
+carry (the host NFA path, checkpoints).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import List
 import numpy as np
 
 from flink_tpu_torch.cep.accel import DeviceCepOperator
+from flink_tpu_torch.parallel.mesh import mesh_devices
 from flink_tpu_torch.runtime.union import to_elements
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy
 
@@ -89,6 +92,8 @@ class CepJob:
             fn.pattern,
             capacity=env.state_capacity_per_shard or (1 << 16),
             within_buckets=env.config.get_int("cep.device.within-buckets", 8),
+            n_shards=max(1, min(env.parallelism,
+                                len(mesh_devices(env.device)))),
             max_parallelism=env.max_parallelism,
             device=env.device,
         )
@@ -106,6 +111,10 @@ class CepJob:
     @property
     def state(self):
         return self.op.state
+
+    @property
+    def states(self):
+        return self.op.states
 
     def run(self) -> None:
         env, pipe, op, m = self.env, self.pipe, self.op, self.metrics

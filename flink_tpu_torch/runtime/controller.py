@@ -25,9 +25,9 @@ applies remedies LIVE through two actuator classes:
   rebalancer. Rate-limited by ``controller.min-rebalance-interval`` and
   gated off when the predicted imbalance gain is under
   ``controller.min-gain``. The arm needs two shards or more and the
-  key-group heat of the drain flight recorder, which the port records on
-  one shard only; the executor's rescale raises (ROADMAP queue 1,
-  item 10).
+  key-group heat of the drain flight recorder; the executor's rescale,
+  the reference's savepoint-cut ``_rescale_live``, raises (ROADMAP queue
+  1, item 10).
 
 Everything here is host-side arithmetic over already-fetched telemetry:
 the actuators are attribute writes — data the kernels already consume —

@@ -178,8 +178,9 @@ above 1 (the fused slot's capacity: a move changes the next group), and
 ``drain-stats-cadence`` and ``tier-prefetch-ahead`` with the recorder and
 tiered state; its ledger persists in the checkpoint directory and
 ``env._controller_report()`` serves it. Its rebalance arm needs more than
-one shard and the flight recorder's key-group heat, which runs on one
-shard only: its skew test never fires, and the rescale raises (item 10).
+one shard and the flight recorder's key-group heat; when its skew test
+fires, the rescale (the reference's savepoint-cut ``_rescale_live``)
+raises (ROADMAP queue 1, item 10).
 
 Checkpoints and restarts (the reference's sync-full path, executor.py:
 2855-2960, 3327-3490, 6270-6360), for a single-stage window job:
@@ -239,23 +240,30 @@ a multiple of n. ``pipeline.data-parallel`` (``auto``: on in a resident
 mode at n above 1) adds the sharded route: the producer partitions each
 batch into per-shard rings and each shard drains its own slots. The
 shards' fires merge on the host; the spill stores are shared (the shards
-own disjoint keys), each shard has its own overflow ring. At n above 1
-allowed lateness, tiered state and the flight recorder raise (ROADMAP
-queue 1, item 10); session and count windows, CEP and chained stages at
-parallelism above 1 raise too.
+own disjoint keys), each shard has its own overflow ring. Allowed
+lateness runs each shard's fire steps with re-fires; the flight recorder
+reads every shard's [D, 9] stack (a report row a ring lane: a shard with
+the sharded ring, else one). A chained job drains each shard's stages
+over its key groups (``step.build_sharded_chained_drain``: the mask
+route, or with ``pipeline.data-parallel`` the sharded route, each shard
+its own slots, count and watermark). Session and count windows, rolling
+reduces and device CEP take n shards too (``keyed_jobs.py``,
+``cep_job.py``). At n above 1 tiered state raises (ROADMAP queue 1,
+item 10).
 
 Rolling reduces (``key_by(...).sum(...)``, ``.reduce(fn)``), count
 windows (``count_window(n)``) and event-time session windows go to the
 runners of ``runtime/keyed_jobs.py``; ``CEP.pattern(...).select`` /
 ``flat_select`` (keyed or not, processing or event time, from an
 element-mode or a columnar source) to the device CEP job of
-``runtime/cep_job.py``. Anything else — another topology, processing-time
-windows, an element-mode source under a window or rolling stage, the host
-CEP operator (``cep.device.enabled: false``), checkpoints of anything but
-a single-stage window job, parallelism above 1 outside time windows and
-rolling reduces, an operator after the stage, sinks on more than one
-stage, a reduce other than sum or count over session and count windows —
-raises NotImplementedError naming the ROADMAP queue item that brings it.
+``runtime/cep_job.py``. An element-mode source (``from_collection``)
+feeds any stage as the reference's element mode: each selector called
+per element. Anything else — another topology, processing-time windows,
+the host CEP operator (``cep.device.enabled: false``), checkpoints of
+anything but a single-stage window job, an operator after the stage,
+sinks on more than one stage, a reduce other than sum or count over
+session and count windows — raises NotImplementedError naming the
+ROADMAP queue item that brings it.
 Records lost to capacity (no ring, a full ring, or panes evicted from the
 pane ring unfired) count into ``dropped_capacity``, and the job fails at
 its end with the reference's "state backend over capacity" error.
@@ -282,9 +290,7 @@ from flink_tpu_torch.datastream.window.assigners import (
 )
 from flink_tpu_torch.graph import stream_graph as sg
 from flink_tpu_torch.metrics.doctor import diagnose
-from flink_tpu_torch.metrics.drain_stats import (
-    DRAIN_STAT_FIELDS, STAGE_STAT_FIELDS, DrainTelemetry,
-)
+from flink_tpu_torch.metrics.drain_stats import DrainTelemetry
 from flink_tpu_torch.metrics.latency import LatencySamples
 from flink_tpu_torch.native import SpillStore
 from flink_tpu_torch.ops import window_kernels as wk
@@ -297,15 +303,17 @@ from flink_tpu_torch.runtime import controller as controller_mod
 from flink_tpu_torch.runtime import sources as sources_mod
 from flink_tpu_torch.runtime import tiers as tiers_mod
 from flink_tpu_torch.runtime import ingest as ingest_mod
-from flink_tpu_torch.runtime.job import StageJob, key_words
+from flink_tpu_torch.runtime.job import (
+    StageJob, batch_len, key_words, split_poll,
+)
 from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
 from flink_tpu_torch.runtime.step import (
     WindowStageSpec,
+    build_sharded_chained_drain,
     build_sharded_drain,
     build_sharded_fire_step,
     build_sharded_megastep,
     build_sharded_update_step,
-    build_window_chained_drain,
     clear_overflow,
     compact_step,
     init_shard_state,
@@ -564,13 +572,7 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
         # every unsupported chain shape raises here, naming its stage or
         # edge, before anything runs (the reference's executor.py:1239-1245)
         pipe.graph = StageGraph.from_pipeline(pipe)
-    if pipe.process is not None:
-        return pipe
-    if not getattr(pipe.source, "columnar", False):
-        raise _unsupported("an element-mode source (from_collection, "
-                           "from_elements) under a window or rolling stage",
-                           "ROADMAP queue 1, item 9")
-    if pipe.rolling is not None:
+    if pipe.process is not None or pipe.rolling is not None:
         return pipe
     wagg = pipe.window_agg
     assigner = wagg.assigner
@@ -651,15 +653,6 @@ class LocalExecutor:
             job_cls = keyed_jobs.SessionJob
         else:
             job_cls = _WindowJob
-        if env.parallelism > 1 and (job_cls not in (_WindowJob,
-                                                    keyed_jobs.RollingJob)
-                                    or pipe.graph is not None):
-            kind = ("chained window stages" if pipe.graph is not None
-                    else {keyed_jobs.CountJob: "count windows",
-                          keyed_jobs.SessionJob: "session windows"}.get(
-                              job_cls, "CEP"))
-            raise _unsupported(f"parallelism {env.parallelism} on {kind}",
-                               "ROADMAP queue 1, item 10")
         if checkpointing and (job_cls is not _WindowJob
                               or pipe.graph is not None):
             raise _unsupported(
@@ -846,11 +839,6 @@ def _resolve_dispatch(cfg, chained: bool, can_snapshot: bool, source,
         use_dp = True
     else:
         use_dp = dp_cfg == "auto" and use_resident and n_shards > 1
-    if use_dp and chained and dp_cfg == "on":
-        raise _unsupported("pipeline.data-parallel: on with chained stages "
-                           "(the sharded chained drain, K14 sharded)",
-                           "ROADMAP queue 1, item 10")
-    use_dp = use_dp and not chained
     return _Dispatch(use_prefetch, use_staging, use_resident, use_while,
                      max_slots, k_fuse, use_fused_fire, use_dp)
 
@@ -1006,19 +994,10 @@ class _WindowJob(StageJob):
         self.n_shards = max(1, min(env.parallelism, len(devs)))
         self.ctx = MeshContext.create(self.n_shards, self.maxp,
                                       devices=devs)
-        if self.n_shards > 1:
-            for what, on in (
-                    ("allowed lateness", self.lateness_ms > 0),
-                    ("tiered key-group state (state.tiers.*)",
-                     self.tier_budget > 0),
-                    ("observability.drain-stats (the flight recorder)",
-                     cfg.get_bool("observability.drain-stats",
-                                  cfg.get_bool("observability.tracing",
-                                               False)))):
-                if on:
-                    raise _unsupported(
-                        f"{what} at parallelism {self.n_shards}",
-                        "ROADMAP queue 1, item 10")
+        if self.n_shards > 1 and self.tier_budget > 0:
+            raise _unsupported(
+                f"tiered key-group state (state.tiers.*) at parallelism "
+                f"{self.n_shards}", "ROADMAP queue 1, item 10")
         self.ex_mode = cfg.get_str("exchange.mode", "auto")
         self.ex_capf = cfg.get_float("exchange.capacity-factor", 2.0)
         self.dp_capf = cfg.get_float("pipeline.shard-capacity-factor", 2.0)
@@ -1190,10 +1169,12 @@ class _WindowJob(StageJob):
         dr = self.ingest.device_ring
         if self.drain_stats and mode.resident and dr is not None:
             dr.stats_enabled = True
-            # the flight recorder's host half (executor.py:2325-2350): one
-            # ring lane, since it runs on one shard
+            # the flight recorder's host half (executor.py:2325-2350): a
+            # lane a shard with the sharded ring, else one lane (its
+            # absorb folds the shards' rows)
             self.telem = DrainTelemetry(
-                1, self.depth, key_groups=self.maxp if self.kg_stats else 0,
+                self.n_shards if mode.data_parallel else 1, self.depth,
+                key_groups=self.maxp if self.kg_stats else 0,
                 kg_alpha=cfg.get_float("observability.kg-heat-alpha", 0.05),
                 n_stages=1 + len(self.chain_specs),
                 exchange_lanes=(cfg.get(
@@ -1334,12 +1315,25 @@ class _WindowJob(StageJob):
                 "stage graphs — the identity re-key keeps fires "
                 "shard-local, so the chained drain runs the "
                 "replicate-and-mask route; unset exchange.mode")
-        self.chain_states = [init_shard_state(cs, self.maxp, self.device)
-                             for cs in self.chain_specs]
-        self.drain = build_window_chained_drain(
-            (self.spec,) + tuple(self.chain_specs), self.depth, self.maxp,
-            exchange_lanes=cfg.get(
-                CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES), **tel)
+        # each shard's downstream stages, on its device
+        self.chain_states = [[init_shard_state(cs, self.maxp, d)
+                              for cs in self.chain_specs]
+                             for d in self.ctx.devices]
+        # the mask route's chained drain and, with pipeline.data-parallel,
+        # the sharded route's over per-shard rings (executor.py:2144-2185)
+        routes = ["mask"]
+        if self.mode.data_parallel:
+            routes.append("sharded")
+            self.shard_cap = bucket_capacity(self.B_step, self.n_shards,
+                                             self.dp_capf)
+        self.steps["mask"] = {"insert": None, "fast": None}
+        specs = (self.spec,) + tuple(self.chain_specs)
+        for route in routes:
+            self.drains[route] = {"insert": build_sharded_chained_drain(
+                self.ctx, specs, self.depth, route, exchange_lanes=cfg.get(
+                    CoreOptions.PIPELINE_STAGES_EXCHANGE_LANES), **tel),
+                "fast": None}
+        self.drain = self.drains["mask"]["insert"]
         # a flush round's batch: B lanes, none valid (read only)
         v_dtype, v_shape = self.value_layout()
         self.empty_slot = ingest_mod.stage_fresh(
@@ -1399,10 +1393,10 @@ class _WindowJob(StageJob):
         nothing the step loop mutates, so the producer runs it ahead."""
         polled, end, offsets = sources_mod.poll_with_offsets(
             self.pipe.source, self.B)
-        cols, ts_ms = polled
+        cols, ts_ms = split_poll(polled)
         hi = lo = values = None
         n = 0
-        if cols and len(next(iter(cols.values()))):
+        if batch_len(cols):
             _keys, hi, lo, values = self.encode(cols, count=False)
             n = len(hi)
             ts_ms = self.event_ts(cols, ts_ms)
@@ -1899,13 +1893,10 @@ class _WindowJob(StageJob):
             slots = [ingest_mod.adopt(pb) if pb is not None
                      and pb.staged is not None else args
                      for args, _wm, pb in items]
-        if self.graph is not None:
-            fast, drain = False, self.drain
-        else:
-            tiers = self.drains[route]
-            fast = self.step_mode == "fast" and tiers["fast"] is not None
-            drain = tiers["fast" if fast else "insert"]
-        depth = drain.ring_depth if self.graph is None else self.depth
+        tiers = self.drains[route]
+        fast = self.step_mode == "fast" and tiers["fast"] is not None
+        drain = tiers["fast" if fast else "insert"]
+        depth = drain.ring_depth
         wms = [self.wm_ticks(w) for _a, w, _pb in items]
         wmv = self.to_device_i32(wms + [WM_SENTINEL] * (depth - count))
         # the mid-drain crash seam of the exactly-once tests
@@ -1914,20 +1905,22 @@ class _WindowJob(StageJob):
                   if pb is not None and pb.ring is not None]
         ring = ringed[0].ring if ringed else None
         ds = None
+        counts = [count] * n if sharded else count
         if self.graph is not None:
-            # one dispatch advances every stage; the sinks take the final
-            # stage's fires, and mon the fill after the drain and, for the
-            # flush decision, each stage's last advance's fire lanes
-            out = drain((self.state,) + tuple(self.chain_states), slots,
-                        wmv, count)
+            # one dispatch advances every stage of every shard; the sinks
+            # take the final stages' fires, and mon each shard's fill after
+            # the drain and, for the flush decision, every stage's last
+            # advance's fire lanes
+            out = drain([(st,) + tuple(cs) for st, cs in
+                         zip(self.states, self.chain_states)], slots, wmv,
+                        counts)
             states, mon, fires = out[:3]
-            self.state, self.chain_states = states[0], list(states[1:])
-            mon = (mon[0][-1:], mon[1], mon[2], drain.stage_lanes)
-            fires = [fires]
+            for s, st in enumerate(states):
+                self.states[s], self.chain_states[s] = st[0], list(st[1:])
+            mon = (mon[0][:, -1:], mon[1], mon[2], drain.stage_lanes)
             if self.drain_stats:
                 ds = out[3]
         else:
-            counts = [count] * n if sharded else count
             if drain.while_drain:
                 # the loop bound re-reads the ring's write cursor; base
                 # makes cursor - base this group's fill at dispatch
@@ -1949,21 +1942,24 @@ class _WindowJob(StageJob):
                             kg_res=self.kg_res)
             mon, fires = out[1], out[2]
             if self.drain_stats:
-                ds = out[-1][0]              # one shard (item 10)
+                # every shard's recorder, [n, D, 9] on the first device
+                dev0 = self.ctx.devices[0]
+                ds = torch.stack([d.to(dev0) for d in out[-1]])
         t_disp = time.perf_counter()
         self.note_dispatch(t_disp)
         last_wm = max((w for _a, w, _pb in items if w is not None),
                       default=None)
-        released = None
+        released = None        # each ring lane's released-through seq
         if sharded:
             seqs = [[pb.ring_seqs[s] for pb in ringed
                      if pb.ring_seqs[s] is not None] for s in range(n)]
             ring.note_read(seqs)
-            ring.release_shards([max(q) if q else None for q in seqs])
+            released = [max(q) if q else None for q in seqs]
+            ring.release_shards(released)
         elif ring is not None:
             ring.note_read([pb.ring_seq for pb in ringed])
-            released = max(pb.ring_seq for pb in ringed)
-            ring.release_through(released)
+            released = [max(pb.ring_seq for pb in ringed)]
+            ring.release_through(released[0])
         last_pb = items[-1][2]
         if last_pb is not None:
             self.ingest.mark_applied(last_pb)
@@ -2003,7 +1999,8 @@ class _WindowJob(StageJob):
             if ring is not None:
                 self.telem.ingest_publish(ring.publish_samples())
             fills = ring.occupancy_shards() if ring is not None else [0]
-            self.telem.on_drain([count], fills, [released], t_disp)
+            self.telem.on_drain([count] * len(fills), fills,
+                                released or [None] * len(fills), t_disp)
         if self.flush_owed is not None:
             wm, t_cross = self.flush_owed
             self.flush_owed = None
@@ -2160,8 +2157,9 @@ class _WindowJob(StageJob):
         n_sl = mon[3].numel() if mon is not None and len(mon) > 3 else 0
         if n_sl:
             parts.append(mon[3])
-        # the flight recorder: a [D, 9] stack, or a chained drain's pair
-        # (stage 0's stack, the downstream stages' [S - 1, 6] records)
+        # the flight recorder: the shards' [n, D, 9] stacks, or a chained
+        # drain's pair (stage 0's stacks, the downstream stages' [S - 1,
+        # n, 6] records)
         ds_parts = () if ds is None else (
             ds if isinstance(ds, tuple) else (ds,))
         parts += [t.reshape(-1) for t in ds_parts]
@@ -2197,10 +2195,10 @@ class _WindowJob(StageJob):
                 rest = small[at:].astype(np.int64)
                 n0 = ds_parts[0].numel()
                 self.telem.absorb_payload(
-                    rest[:n0].reshape(1, -1, len(DRAIN_STAT_FIELDS)))
+                    rest[:n0].reshape(tuple(ds_parts[0].shape)))
                 if len(ds_parts) > 1:
                     self.telem.absorb_stage_payload(
-                        rest[n0:].reshape(-1, 1, len(STAGE_STAT_FIELDS)))
+                        rest[n0:].reshape(tuple(ds_parts[1].shape)))
             if lanes.any():
                 # event time to fire: each live lane is one window end
                 # weighted by its keys
@@ -2531,7 +2529,10 @@ class _WindowJob(StageJob):
         if self.telem is None:
             rep = _no_pipeline_report()
         else:
-            rep = self.telem.report(refusals=None)
+            # a row a ring lane, with its publish refusals
+            dr = self.ingest.device_ring
+            rep = self.telem.report(
+                refusals=dr.refusals() if dr is not None else None)
             rep["drain_stats_every"] = self.drain_stats_every
         if self.tier_mgr is not None:
             # tiered jobs stay observable with drain-stats off
@@ -2640,7 +2641,7 @@ class _WindowJob(StageJob):
     def controller_sensor(self) -> dict:
         """The planes the controller decides on, all host values the loop
         already read: events in, the recorder's regime and key-group heat,
-        and the shard's key-group range (one shard owns them all)."""
+        and the shards' key-group ranges."""
         duty = starved = heat = None
         if self.telem is not None:
             duty, starved = self.telem.regime()
@@ -2654,9 +2655,9 @@ class _WindowJob(StageJob):
 
     def controller_rebalance(self, starts, ends) -> None:
         """The rebalance arm re-slices the shards' key-group ranges through
-        the reference's savepoint-cut rescale, which is not ported: its
-        skew test reads the flight recorder's heat, which runs on one
-        shard only, so it never fires."""
+        the reference's savepoint-cut rescale, which is not ported: a job
+        of more than one shard with the flight recorder on fails when the
+        arm's skew test fires."""
         raise _unsupported("the controller's live key-group rebalance "
                            "(the savepoint-cut rescale across shards)",
                            "ROADMAP queue 1, item 10")
@@ -2962,7 +2963,8 @@ class _WindowJob(StageJob):
         # every shard's and stage's counters: an over-full edge lands its
         # lanes in the downstream stage's dropped_capacity (executor.py:
         # 6384-6405)
-        states = list(self.states) + self.chain_states
+        states = list(self.states) + [st for cs in self.chain_states
+                                      for st in cs]
         return (sum(int(st.dropped_late) for st in states),
                 sum(int(st.dropped_capacity) for st in states))
 

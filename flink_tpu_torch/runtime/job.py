@@ -18,6 +18,31 @@ def key_words(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
 
+def split_poll(polled):
+    """A source's poll payload as ``(batch, ts_ms)``: a columnar source's
+    ``(columns dict, ts_ms)`` as it is, an element source's list of
+    elements with no timestamps (the reference's element mode)."""
+    if isinstance(polled, tuple) and len(polled) == 2 \
+            and isinstance(polled[0], dict):
+        return polled
+    return list(polled), None
+
+
+def batch_len(batch) -> int:
+    """Records in a batch of ``split_poll``."""
+    if isinstance(batch, list):
+        return len(batch)
+    return len(next(iter(batch.values()))) if batch else 0
+
+
+def per_batch(fn, batch):
+    """A user function over a batch: a columns dict in one call, a list of
+    elements one element at a time (the reference's element mode)."""
+    if isinstance(batch, list):
+        return [fn(e) for e in batch]
+    return fn(batch)
+
+
 class StageJob:
     """One run of one keyed stage. Subclasses give ``apply(cols, ts_ms)``
     for a non-empty polled batch, and may give ``idle()`` (the source had
@@ -49,8 +74,9 @@ class StageJob:
         pipe = self.pipe
         while True:
             self.cycle_start()
-            (cols, ts_ms), end = pipe.source.poll(self.B)
-            if cols and len(next(iter(cols.values()))):
+            polled, end = pipe.source.poll(self.B)
+            cols, ts_ms = split_poll(polled)
+            if batch_len(cols):
                 self.apply(cols, ts_ms)
             else:
                 self.idle()
@@ -80,15 +106,20 @@ class StageJob:
         stage's ``value_prep`` makes of them on the host (a sketch's uint32
         item hashes, the reference's ``value_prep`` at executor.py:5472);
         with ``count``, counts the records in (a window job counts them
-        on the step loop, where it takes the prepped batch)."""
-        keys = np.asarray(self.pipe.key_by.key_selector(cols))
+        on the step loop, where it takes the prepped batch). ``cols`` is a
+        columns dict, or a list of elements whose selectors run one
+        element at a time."""
+        keys = per_batch(self.pipe.key_by.key_selector, cols)
         hi, lo = self.codec.encode(keys, keep_reverse=self.keep_reverse)
+        keys = np.asarray(keys)
         prep = getattr(self.agg, "value_prep", None)
         if prep is not None:
-            values = np.asarray(prep(self.agg.extractor(cols)))
+            values = np.asarray(prep(np.asarray(
+                per_batch(self.agg.extractor, cols))))
             want = hi.shape
         else:
-            values = np.asarray(self.agg.extractor(cols), np.float32)
+            values = np.asarray(per_batch(self.agg.extractor, cols),
+                                np.float32)
             want = hi.shape + tuple(self.red.value_shape)
         if values.shape != want:
             raise ValueError(
@@ -102,7 +133,7 @@ class StageJob:
         """The batch's event times in ms: the timestamp assigner's, else
         the source's."""
         if self.pipe.ts_transform is not None:
-            ts_ms = self.pipe.ts_transform.timestamp_fn(cols)
+            ts_ms = per_batch(self.pipe.ts_transform.timestamp_fn, cols)
         elif ts_ms is None:
             raise ValueError(
                 "event-time job but the columnar source provides no "

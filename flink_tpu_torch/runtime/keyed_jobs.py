@@ -1,8 +1,17 @@
 """Runners for the keyed stages without a pane ring — rolling reduces,
-count windows and event-time session windows — on one device: the
-counterparts of flink_tpu/runtime/executor.py ``_run_rolling`` (:7096),
-``_run_count`` (:7446) and ``_run_session`` (:7231), which
-``runtime/executor.py`` dispatches to.
+count windows and event-time session windows — on one device or over a
+shard mesh: the counterparts of flink_tpu/runtime/executor.py
+``_run_rolling`` (:7096), ``_run_count`` (:7446) and ``_run_session``
+(:7231), which ``runtime/executor.py`` dispatches to.
+
+At ``set_parallelism(n)`` a runner takes ``min(n, len(mesh_devices))``
+shards, as the window job does: each shard owns a key-group range and
+holds its state on its device, masks the replicated batch to its key
+groups with G1 (``step.build_*_step_sharded``) and runs the one-shard
+update. Rolling outputs merge through G27; count windows emit shard after
+shard; sessions emit every shard's superseded open sessions, then every
+shard's superseded batch sessions, then every shard's closes (the
+reference's emission order, executor.py:7271-7310, 7472-7491).
 
 Each runs ``source -> [assign timestamps] -> key_by -> stage -> sinks``
 one step per polled batch: encode the keys (``KeyCodec``), copy the lanes
@@ -81,6 +90,27 @@ class _KeyedJob(StageJob):
         super().__init__(env, pipe, metrics, agg)
         self.capacity = env.state_capacity_per_shard
         self.emitter = _LaggedEmitter(env, self.emit)
+        # n shards as the window job takes them (executor.py:7107-7109)
+        devs = mesh_devices(self.device)
+        n = max(1, min(env.parallelism, len(devs)))
+        self.ctx = MeshContext.create(n, env.max_parallelism, devices=devs)
+        self.states = None
+
+    @property
+    def n_shards(self) -> int:
+        return self.ctx.n_shards
+
+    def init_states(self, init) -> None:
+        """``init(device)`` a shard, on each shard's device."""
+        self.states = [init(d) for d in self.ctx.devices]
+        self.state = self.states[0]
+
+    def loss_counters(self):
+        """The shards' summed counters (``None`` late records where the
+        state counts none)."""
+        late = (sum(int(st.dropped_late) for st in self.states)
+                if hasattr(self.states[0], "dropped_late") else None)
+        return late, sum(int(st.dropped_capacity) for st in self.states)
 
     def lanes(self, *arrays):
         """Host lane arrays -> device tensors (uint32 halves as int32)."""
@@ -108,6 +138,34 @@ class _KeyedJob(StageJob):
         raw = torch.cat([r[:n].view(torch.int32) for r in rows]).cpu()
         return raw.numpy().reshape(len(rows), n)
 
+    def read_shard_rows(self, fires, cuts=None):
+        """Every shard's row segments in two device-to-host reads (the
+        counts, then the rows, on the first shard's device). ``fires[s]``
+        is shard s's ``(rows, n_rows[, marks])``; ``cuts(counts)`` maps
+        the read counts of shard s (n_rows, then the marks) to its
+        segments ``[(start, end), ...]``. Returns the rows of every
+        segment, grouped segment index first and shard second, as one
+        int32 [len(rows), n] array, or None when no shard fired."""
+        dev = self.ctx.devices[0]
+        counts = torch.stack([torch.cat([f[1].reshape(1)] + [
+            m.reshape(-1) for m in f[2:]]).to(dev) for f in fires]).cpu()
+        counts = counts.numpy().astype(np.int64)
+        segs = [cuts(c) if cuts is not None else [(0, int(c[0]))]
+                for c in counts]
+        order = [(s, a, b) for k in range(len(segs[0]))
+                 for s, sg in enumerate(segs) for a, b in [sg[k]] if b > a]
+        if not order:
+            return None
+        raw = torch.cat([torch.cat([r[a:b].view(torch.int32)
+                                    for r in fires[s][0]]).to(dev)
+                         for s, a, b in order]).cpu().numpy()
+        width = len(fires[0][0])
+        out, at = [], 0
+        for _s, a, b in order:
+            out.append(raw[at:at + width * (b - a)].reshape(width, b - a))
+            at += width * (b - a)
+        return np.concatenate(out, axis=1)
+
 
 class RollingJob(_KeyedJob):
     """``key_by(...).sum(...)`` / ``.reduce(fn)``: every record emits its
@@ -121,16 +179,11 @@ class RollingJob(_KeyedJob):
         self.keep_reverse = False
         self.spec = step_mod.RollingStageSpec(
             red=self.red, capacity_per_shard=self.capacity)
-        # n shards as the window job takes them (executor.py:7107-7109):
         # one shard runs the one-device step, more the masked steps and
         # G27's merge (step.build_rolling_step_sharded)
-        devs = mesh_devices(self.device)
-        n = max(1, min(env.parallelism, len(devs)))
-        self.ctx = MeshContext.create(n, env.max_parallelism, devices=devs)
-        self.states = [step_mod.init_rolling_state(self.spec, d)
-                       for d in self.ctx.devices]
-        self.state = self.states[0]
-        self.step = (step_mod.build_rolling_step(self.spec) if n == 1 else
+        self.init_states(lambda d: step_mod.init_rolling_state(self.spec, d))
+        self.step = (step_mod.build_rolling_step(self.spec)
+                     if self.n_shards == 1 else
                      step_mod.build_rolling_step_sharded(self.ctx,
                                                          self.spec))
 
@@ -165,12 +218,6 @@ class RollingJob(_KeyedJob):
                          zip(klist, out_np.tolist(), ok_np) if good])
 
 
-    def loss_counters(self):
-        """The shards' summed counters: a rolling state counts no late
-        records."""
-        return None, sum(int(st.dropped_capacity) for st in self.states)
-
-
 class CountJob(_KeyedJob):
     """``count_window(N).sum(...)`` / ``.count()``: per-key tumbling
     windows of N elements."""
@@ -180,20 +227,27 @@ class CountJob(_KeyedJob):
         self.spec = step_mod.CountStageSpec(
             red=self.red, n_per_window=pipe.window_agg.assigner.size_n,
             capacity_per_shard=self.capacity)
-        self.state = step_mod.init_count_state(self.spec, self.device)
-        self.step = step_mod.build_count_step(self.spec)
+        self.init_states(lambda d: step_mod.init_count_state(self.spec, d))
+        self.step = (step_mod.build_count_step(self.spec)
+                     if self.n_shards == 1 else
+                     step_mod.build_count_step_sharded(self.ctx, self.spec))
 
     def apply(self, cols, _ts_ms) -> None:
         _keys, hi, lo, values = self.encode(cols)
         hi_t, lo_t, v_t = self.lanes(hi, lo, values)
         valid = torch.ones(len(hi), dtype=torch.bool, device=self.device)
-        self.state, rows, n_rows = self.step(self.state, hi_t, lo_t, v_t,
-                                             valid)
+        if self.n_shards == 1:
+            self.state, rows, n_rows = self.step(self.state, hi_t, lo_t,
+                                                 v_t, valid)
+            fires = [(rows, n_rows)]
+        else:
+            _states, fires = self.step(self.states, hi_t, lo_t, v_t, valid)
         self.metrics.steps += 1
-        self.emitter.push((rows, n_rows))
+        self.emitter.push(fires)
 
-    def emit(self, item) -> None:
-        got = self.read_rows(*item)
+    def emit(self, fires) -> None:
+        got = (self.read_rows(*fires[0]) if len(fires) == 1
+               else self.read_shard_rows(fires))
         if got is None:
             return
         hi, lo, w, val = got
@@ -219,8 +273,12 @@ class SessionJob(_KeyedJob):
         self.spec = step_mod.SessionStageSpec(
             red=self.red, gap_ticks=pipe.window_agg.assigner.gap_ms,
             capacity_per_shard=self.capacity)
-        self.state = step_mod.init_session_state(self.spec, self.device)
-        self.step = step_mod.build_session_step(self.spec)
+        self.init_states(
+            lambda d: step_mod.init_session_state(self.spec, d))
+        self.step = (step_mod.build_session_step(self.spec)
+                     if self.n_shards == 1 else
+                     step_mod.build_session_step_sharded(self.ctx,
+                                                         self.spec))
         self.wm_strategy = (
             pipe.ts_transform.strategy if pipe.ts_transform is not None
             else WatermarkStrategy.for_monotonous_timestamps())
@@ -240,10 +298,15 @@ class SessionJob(_KeyedJob):
         hi_t, lo_t, ts_t, v_t = self.lanes(hi, lo, ticks, values)
         valid = torch.ones(len(hi), dtype=torch.bool, device=self.device)
         wm_t = torch.tensor(wm, dtype=torch.int32, device=self.device)
-        self.state, rows, n_rows = self.step(self.state, hi_t, lo_t, ts_t,
-                                             v_t, valid, wm_t)
+        if self.n_shards == 1:
+            self.state, rows, n_rows = self.step(self.state, hi_t, lo_t,
+                                                 ts_t, v_t, valid, wm_t)
+            fires = [(rows, n_rows)]
+        else:
+            _states, fires = self.step(self.states, hi_t, lo_t, ts_t, v_t,
+                                       valid, wm_t)
         self.metrics.steps += 1
-        self.emitter.push((rows, n_rows))
+        self.emitter.push(fires)
 
     def end_of_stream(self) -> None:
         if self.td is None:
@@ -253,8 +316,17 @@ class SessionJob(_KeyedJob):
                       np.zeros(0, np.float32),
                       int(self.td.to_ms(FINAL_WM_TICKS)))
 
-    def emit(self, item) -> None:
-        got = self.read_rows(*item)
+    @staticmethod
+    def _kinds(counts):
+        """A shard's three row segments from its (n_rows, marks): the
+        superseded open sessions, the superseded batch sessions, the
+        closes."""
+        n, m0, m1 = (int(c) for c in counts)
+        return [(0, m0), (m0, m1), (m1, n)]
+
+    def emit(self, fires) -> None:
+        got = (self.read_rows(*fires[0][:2]) if len(fires) == 1
+               else self.read_shard_rows(fires, self._kinds))
         if got is None:
             return
         hi, lo, start, end, val = got

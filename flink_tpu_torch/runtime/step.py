@@ -34,8 +34,9 @@ from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_NONE
 from flink_tpu_torch.parallel.collectives import psum
 from flink_tpu_torch.parallel.exchange import (
-    bucket_capacity, exchange_records, split_lanes,
+    bucket_capacity, exchange_records, owned_lanes, split_lanes,
 )
+from flink_tpu_torch.parallel.mesh import device_guard
 
 
 @dataclass
@@ -580,7 +581,8 @@ def deferred_fire_columns(ds_stack, cf_stack):
 
 def _chained_stage_tail(down_states, specs, st0, cf_stack, wm_last,
                         max_parallelism: int, exchange_lanes: int, arenas,
-                        drain_stats: bool = False, lanes_out=None):
+                        drain_stats: bool = False, lanes_out=None,
+                        kg_range=None):
     """Downstream stages of the chained drain, once a drain (the
     reference's ``_chained_stage_tail``): for each stage j >= 1, G21 packs
     its upstream's fires into ``exchange_lanes`` edge lanes and computes
@@ -592,10 +594,13 @@ def _chained_stage_tail(down_states, specs, st0, cf_stack, wm_last,
     records for it. Returns ``(down_states, final fires stacked [1, F])``
     and, with ``drain_stats``, the per-stage int32 [S - 1, 6] record
     (G22 ``stage_record``, STAGE_STAT_FIELDS order). ``lanes_out``, a
-    list, receives each stage's fire ``lane_valid``."""
+    list, receives each stage's fire ``lane_valid``. ``kg_range`` masks the
+    downstream updates to a shard's key groups: the identity re-key keeps
+    every fired key on the shard that fired it, so the edge is a local
+    pack and the mask drops nothing."""
     out, recs = [], []
     up_state, up_fires, wm_up = st0, cf_stack, wm_last
-    kg_end = max_parallelism - 1
+    kg_start, kg_end = _kg_range(kg_range, max_parallelism)
     E = int(exchange_lanes)
     for j in range(1, len(specs)):
         sp = specs[j]
@@ -607,8 +612,9 @@ def _chained_stage_tail(down_states, specs, st0, cf_stack, wm_last,
         st_j = down_states[j - 1]
         wm_b = st_j.watermark.clone() if drain_stats else None
         # downstream stages always insert: their keys arrive by the edge
-        mask_update_shard(st_j, sp, 0, kg_end, edge.hi, edge.lo, edge.ts,
-                          edge.vals, edge.ok, edge.wm, max_parallelism)
+        mask_update_shard(st_j, sp, kg_start, kg_end, edge.hi, edge.lo,
+                          edge.ts, edge.vals, edge.ok, edge.wm,
+                          max_parallelism)
         st_j.dropped_capacity.add_(edge.dropped)                 # in place
         if arenas[j - 1] is None:
             arenas[j - 1] = wk.fire_row_buffers(
@@ -637,7 +643,7 @@ def _chained_stage_tail(down_states, specs, st0, cf_stack, wm_last,
 def build_window_chained_drain(specs: Sequence[WindowStageSpec], depth: int,
                                max_parallelism: int, kg_fill: bool = False,
                                exchange_lanes: int = 1024,
-                               drain_stats: bool = False):
+                               drain_stats: bool = False, kg_range=None):
     """Multi-stage resident ring drain for one device (the reference's
     ``build_window_chained_drain`` over a one-shard mesh): stage 0 consumes
     up to ``depth`` staged slots as ``build_window_resident_drain`` does,
@@ -659,12 +665,14 @@ def build_window_chained_drain(specs: Sequence[WindowStageSpec], depth: int,
     ``drain.stage_lanes`` holds, bool [S * F] on the device, the fire
     lanes of each stage's last advance (stage 0's last live slot's, then
     each downstream stage's): where one stage filled all F, due windows
-    may remain for a flush."""
+    may remain for a flush. ``kg_range`` makes it one shard's drain of a
+    mesh: every stage's update masked to the shard's key groups."""
     specs = tuple(specs)
     D = int(depth)
     stage0 = build_window_resident_drain(
         specs[0], D, max_parallelism, reduced=False,
-        kg_fill=kg_fill, drain_stats=drain_stats, defer_fires=True)
+        kg_fill=kg_fill, drain_stats=drain_stats, defer_fires=True,
+        kg_range=kg_range)
     arenas = [None] * (len(specs) - 1)
 
     def drain(states, slots: Sequence[Slot], wmv, count: int):
@@ -676,7 +684,8 @@ def build_window_chained_drain(specs: Sequence[WindowStageSpec], depth: int,
         lanes = [cf_stack.lane_valid[max(count, 1) - 1]]
         tail = _chained_stage_tail(states[1:], specs, st0, cf_stack, wm_last,
                                    max_parallelism, exchange_lanes, arenas,
-                                   drain_stats=drain_stats, lanes_out=lanes)
+                                   drain_stats=drain_stats, lanes_out=lanes,
+                                   kg_range=kg_range)
         drain.stage_lanes = torch.cat(lanes)
         res = ((st0,) + tail[0], mon, tail[1])
         if drain_stats:
@@ -1036,6 +1045,78 @@ def build_window_sharded_drain(ctx, spec: WindowStageSpec, depth: int,
                                kg_fill=kg_fill, reduced=reduced)
 
 
+def build_sharded_chained_drain(ctx, specs: Sequence[WindowStageSpec],
+                                depth: int, route: str = "mask",
+                                kg_fill: bool = False,
+                                exchange_lanes: int = 1024,
+                                drain_stats: bool = False):
+    """The chained drains over the mesh: on the mask route the reference's
+    ``build_window_chained_drain`` at n shards, every shard draining the
+    whole staged batches masked to its key groups; on the sharded route
+    ``build_window_chained_drain_sharded``, shard s draining its own
+    partitioned slots up to its own count. Each shard runs the one-device
+    chained drain over its key-group range (G1-G3, G5, G6, G21, G22; the
+    edge a local pack: the identity re-key keeps a fired key on its
+    owner, so there is no exchange between stages), under its device's
+    guard, and its tail advances at the maximum watermark of its own live
+    slots (a shard with none advances nothing downstream).
+
+    ``drain(states, slots, wmv, counts)``: ``states[s]`` shard s's tuple of
+    stage states (updated in place); mask route: ``slots`` the staged [B]
+    batches and ``counts`` one int; sharded route: ``slots[s]`` shard s's
+    batches and ``counts[s]`` its count; ``wmv`` the drain's int32 [depth]
+    watermarks. Returns ``(states, (ovf_n [n, D], activity, kg_fill),
+    fires)``, ``fires[s]`` shard s's final-stage fires stacked [1, F]; with
+    ``drain_stats`` a fourth element, the pair ``(ds0, ss)``: the shards'
+    stage-0 recorders int32 [n, depth, 9] and the downstream stages'
+    records [S - 1, n, 6] (the reference's blocks). After each call
+    ``drain.stage_lanes`` holds every shard's stage fire lanes, bool
+    [n * S * F] on the first shard's device."""
+    maxp = ctx.max_parallelism
+    n = ctx.n_shards
+    drains = [build_window_chained_drain(
+        specs, depth, maxp, kg_fill=kg_fill, exchange_lanes=exchange_lanes,
+        drain_stats=drain_stats, kg_range=r) for r in _ranges(ctx)]
+    dev0 = ctx.devices[0]
+
+    def drain(states, slots, wmv, counts):
+        if route == "sharded":
+            per, cs = slots, list(counts)
+        else:
+            per = _route(ctx, route, states, slots[:counts], 0)
+            cs = [counts] * n
+        outs, lanes = [], []
+        for s in range(n):
+            dev = ctx.devices[s]
+            with device_guard(dev):
+                outs.append(drains[s](tuple(states[s]), per[s],
+                                      _to(wmv, dev), cs[s]))
+            lanes.append(_to(drains[s].stage_lanes, dev0))
+        drain.stage_lanes = torch.cat(lanes)
+        mon = _merge_mon(ctx, [o[1] for o in outs], kg_fill)
+        res = ([o[0] for o in outs], mon, [o[2] for o in outs])
+        if drain_stats:
+            ds0 = torch.stack([_to(o[3][0], dev0) for o in outs])
+            ss = torch.stack([_to(o[3][1], dev0) for o in outs], dim=1)
+            res += ((ds0, ss),)
+        return res
+
+    drain.stage_lanes = None
+    drain.ring_depth = int(depth)
+    return drain
+
+
+def build_window_chained_drain_sharded(ctx, specs: Sequence[WindowStageSpec],
+                                       depth: int, kg_fill: bool = False,
+                                       exchange_lanes: int = 1024,
+                                       drain_stats: bool = False):
+    """The reference's data-parallel chained drain:
+    ``build_sharded_chained_drain`` on the sharded route."""
+    return build_sharded_chained_drain(
+        ctx, specs, depth, "sharded", kg_fill=kg_fill,
+        exchange_lanes=exchange_lanes, drain_stats=drain_stats)
+
+
 def build_sharded_fire_step(ctx, spec: WindowStageSpec,
                             reduced: bool = False, out=None):
     """The split path's fire steps over the mesh: every shard advances to
@@ -1154,19 +1235,70 @@ def build_rolling_step_sharded(ctx, spec: RollingStageSpec):
         outs, oks = [], []
         for s, (k0, k1) in enumerate(ranges):
             dev = ctx.devices[s]
-            h, l, v, ok = (_to(t, dev) for t in (hi, lo, values, valid))
-            none = torch.tensor(PANE_NONE, dtype=torch.int32, device=dev)
-            ts = torch.zeros_like(h)
-            # slide 1 at the MIN watermark: no lane is late, so G1's live
-            # lanes are the valid lanes of the shard's key groups
-            mine = kernels.route_lanes(h, l, ts, ok, none, none, slide=1,
-                                       k=1, maxp=maxp, kg_start=k0,
-                                       kg_end=k1)[2]
-            _st, out, out_ok = rolling.update(states[s], h, l, v, mine,
-                                              red=spec.red)
+            with device_guard(dev):
+                h, l, v, ok = (_to(t, dev) for t in (hi, lo, values, valid))
+                mine = owned_lanes(h, l, ok, k0, k1, maxp)
+                _st, out, out_ok = rolling.update(states[s], h, l, v, mine,
+                                                  red=spec.red)
             outs.append(out)
             oks.append(out_ok)
         out, ok = psum(outs, oks, ctx.devices[0])
         return states, out, ok
+
+    return step
+
+
+def build_session_step_sharded(ctx, spec: SessionStageSpec):
+    """Session windows over the mesh (the reference's ``build_session_step``
+    at n shards): each shard masks the replicated batch to its key groups
+    with G1 (``owned_lanes``) and runs the one-shard step on its state (G5,
+    G10, G11). No psum: the shards own disjoint keys. ``step(states, hi,
+    lo, ts, values, valid, wm)`` -> ``(states, fires)``, ``fires[s]`` shard
+    s's ``(rows, n_rows, marks)``: G11's row buffers, their count and the
+    counts where its superseded batch sessions and its closes begin, so
+    that the caller emits every shard's superseded open sessions, then
+    every shard's batch sessions, then every shard's closes, as the
+    reference's host loop does."""
+    maxp = ctx.max_parallelism
+    ranges = _ranges(ctx)
+
+    def step(states, hi, lo, ts, values, valid, wm):
+        fires = []
+        for s, (k0, k1) in enumerate(ranges):
+            dev = ctx.devices[s]
+            with device_guard(dev):
+                h, l, t, v, ok, w = (_to(x, dev) for x in
+                                     (hi, lo, ts, values, valid, wm))
+                mine = owned_lanes(h, l, ok, k0, k1, maxp)
+                marks = torch.zeros(2, dtype=torch.int32, device=dev)
+                _st, rows, n_rows = sw.update_and_fire(
+                    states[s], spec.gap_ticks, h, l, t, v, mine, w,
+                    marks=marks)
+            fires.append((rows, n_rows, marks))
+        return states, fires
+
+    return step
+
+
+def build_count_step_sharded(ctx, spec: CountStageSpec):
+    """Count windows over the mesh (the reference's ``build_count_step`` at
+    n shards): each shard masks the replicated batch to its key groups with
+    G1 and runs the one-shard step (G5, G10, G12). ``step(states, hi, lo,
+    values, valid)`` -> ``(states, fires)``, ``fires[s]`` shard s's
+    ``(rows, n_rows)``, emitted shard after shard."""
+    maxp = ctx.max_parallelism
+    ranges = _ranges(ctx)
+
+    def step(states, hi, lo, values, valid):
+        fires = []
+        for s, (k0, k1) in enumerate(ranges):
+            dev = ctx.devices[s]
+            with device_guard(dev):
+                h, l, v, ok = (_to(x, dev) for x in (hi, lo, values, valid))
+                mine = owned_lanes(h, l, ok, k0, k1, maxp)
+                _st, rows, n_rows = cw.update(states[s], spec.n_per_window,
+                                              h, l, v, mine)
+            fires.append((rows, n_rows))
+        return states, fires
 
     return step

@@ -35,6 +35,7 @@ from flink_tpu_torch.cep.accel import DeviceCepOperator
 from flink_tpu_torch.cep.accel import batch_gaps as batch_gaps_t
 from flink_tpu_torch.core.config import Configuration as ConfigT
 from flink_tpu_torch.core.time import TimeCharacteristic as TCT
+from flink_tpu_torch.parallel.mesh import forced_device_count
 from flink_tpu_torch.runtime.sinks import CollectSink as CollectT
 from flink_tpu_torch.runtime.sources import GeneratorSource as GenT
 from flink_tpu_torch.runtime.watermarks import WatermarkStrategy as WST
@@ -182,7 +183,6 @@ def _job(cfg=None, *, parallelism=1, checkpoint=False, event_time=False,
 @pytest.mark.parametrize("what, make, item", [
     ("the host NFA", lambda: _job({"cep.device.enabled": False}), "item 9"),
     ("checkpoints", lambda: _job(checkpoint=True), "item 6"),
-    ("parallelism 2", lambda: _job(parallelism=2), "item 10"),
     ("event time without timestamps",
      lambda: _job(event_time=True, timestamps=False), "item 9"),
 ])
@@ -193,11 +193,25 @@ def test_unported_cep_paths_raise(what, make, item):
 
 
 def test_window_stage_over_an_element_source_raises():
-    from flink_tpu_torch.runtime.sinks import CountingSink
+    """An element-mode source under a window stage runs as the reference's
+    element mode (each selector called per element); what still raises
+    under it is an unported window, as over a columnar source."""
+    from flink_tpu_torch.datastream.window.assigners import (
+        ProcessingTimeSessionWindows,
+    )
     env = StreamExecutionEnvironment(device="cpu")
     env.set_stream_time_characteristic(TCT.EventTime)
-    (env.from_elements(1, 2, 3).assign_timestamps_and_watermarks(lambda e: e)
-     .key_by(lambda e: e).time_window(10).sum().add_sink(CountingSink()))
+    sink = CollectT()
+    (env.from_elements(1, 2, 3, 12, 14).assign_timestamps_and_watermarks(
+        lambda e: e).key_by(lambda e: e % 2).time_window(10).sum()
+     .add_sink(sink))
+    env.execute("window")
+    assert sorted((r.key, r.window_end_ms, r.value) for r in sink.results) \
+        == [(0, 10, 2.0), (0, 20, 26.0), (1, 10, 4.0)]
+    env = StreamExecutionEnvironment(device="cpu")
+    (env.from_elements(1, 2).key_by(lambda e: e)
+     .window(ProcessingTimeSessionWindows.with_gap(10)).sum()
+     .add_sink(CollectT()))
     with pytest.raises(NotImplementedError, match="item 9"):
         env.execute("window")
 
@@ -210,8 +224,24 @@ def test_process_with_another_function_raises():
 
 
 def test_operator_refuses_shards_and_queryable_state():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Two shards need two mesh devices (the reference's MeshContext
+    check) and match what one shard matches; queryable state still
+    raises."""
+    with pytest.raises(ValueError, match="need 2 devices"):
         DeviceCepOperator(abc(PT), n_shards=2, device="cpu")
+    got = []
+    for n in (1, 2):
+        with forced_device_count(n):
+            op = DeviceCepOperator(abc(PT), capacity=64, n_shards=n,
+                                   device="cpu")
+        evs = events(n=300)
+        out = []
+        for off in range(0, len(evs), 64):
+            chunk = evs[off:off + 64]
+            out += op.process_batch(chunk, [KEY(e) for e in chunk], 0)
+        assert op.matches_detected == op.matches_extracted > 0
+        got.append(sorted(select(m) for m in out))
+    assert got[1] == got[0]
     op = DeviceCepOperator(abc(PT), capacity=64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         op.peek_state(1)

@@ -4,10 +4,11 @@ against the port (``tests/torch_library_parity.py run_reference_case``,
 job cases of ``tests/test_exchange_default.py``, ``tests/test_exchange.py
 ::test_exchange_mode_end_to_end`` and two cases of
 ``tests/test_data_parallel.py``; its planner case on the port's mesh and
-the sharded ring's per-shard refusals and releases; and the refusals that
-stay: parallelism 4 on session and count windows, CEP
-and chained stages, and allowed lateness, tiered state and the flight
-recorder at parallelism 4, each citing ROADMAP queue 1, item 10.
+the sharded ring's per-shard refusals and releases; the job kinds that
+run at parallelism 4 — session and count windows, device CEP, chained
+stages, allowed lateness and the flight recorder —, each job's rows equal
+to numpy's; and the refusals that stay at parallelism 4: tiered state and
+the controller's rebalance arm, each citing ROADMAP queue 1, item 10.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ from torch_library_parity import reference_cases, run_reference_case
 from test_torch_sharded import eight_devices  # noqa: F401 (the fixture)
 
 from flink_tpu_torch import StreamExecutionEnvironment
-from flink_tpu_torch.cep import CEP, Pattern
+from flink_tpu_torch.cep import CEP, NFA, Pattern
 from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.keygroups import assign_to_key_group
 from flink_tpu_torch.core.time import TimeCharacteristic
@@ -88,6 +89,9 @@ def _gen(offset, n):
     return {"key": idx % 50, "value": np.ones(n, np.float32)}, idx
 
 
+TOTAL = 1024
+
+
 def _env(parallelism=4, **cfg):
     env = StreamExecutionEnvironment(Configuration(cfg), device="cpu")
     env.set_parallelism(parallelism)
@@ -97,58 +101,144 @@ def _env(parallelism=4, **cfg):
 
 
 def _keyed(env):
-    return env.add_source(GeneratorSource(_gen, total=1024)).key_by(
+    return env.add_source(GeneratorSource(_gen, total=TOTAL)).key_by(
         lambda c: c["key"])
+
+
+def _tumbling(size):
+    """numpy's tumbling sums of _gen: {(key, window end): count}."""
+    idx = np.arange(TOTAL)
+    out = {}
+    for k, t in zip((idx % 50).tolist(), idx.tolist()):
+        kw = (k, (t // size + 1) * size)
+        out[kw] = out.get(kw, 0.0) + 1.0
+    return out
 
 
 def _session(env):
     from flink_tpu_torch.datastream.window.assigners import (
         EventTimeSessionWindows,
     )
+    sink = CollectSink()
     _keyed(env).window(EventTimeSessionWindows.with_gap(100)).sum(
-        lambda c: c["value"]).add_sink(CollectSink())
+        lambda c: c["value"]).add_sink(sink)
+    # every key's records 50 ms apart: one session a key
+    want = {(k, k, k + 50 * ((TOTAL - 1 - k) // 50) + 100):
+            float((TOTAL - 1 - k) // 50 + 1) for k in range(50)}
+    return sink, lambda: {(r.key, r.window_start_ms, r.window_end_ms):
+                          r.value for r in sink.results}, want
 
 
 def _count(env):
-    _keyed(env).count_window(10).sum(lambda c: c["value"]).add_sink(
-        CollectSink())
+    sink = CollectSink()
+    _keyed(env).count_window(10).sum(lambda c: c["value"]).add_sink(sink)
+    want = {(k, w): 10.0 for k in range(50)
+            for w in range(((TOTAL - 1 - k) // 50 + 1) // 10)}
+    return sink, lambda: {(r.key, r.window_end_ms): r.value
+                          for r in sink.results}, want
 
 
 def _cep(env):
     env.set_stream_time_characteristic(TimeCharacteristic.ProcessingTime)
-    stream = env.from_collection([(i % 7, "a" if i % 3 else "b", i)
-                                  for i in range(200)]).key_by(
-        lambda e: e[0])
+    evs = [(i % 7, "a" if i % 3 else "b", i) for i in range(200)]
+    stream = env.from_collection(evs).key_by(lambda e: e[0])
     pattern = Pattern.begin("a").where(lambda e: e[1] == "a").followed_by(
         "b").where(lambda e: e[1] == "b")
-    CEP.pattern(stream, pattern).select(lambda m: m["a"][2]).add_sink(
-        CollectSink())
+    sink = CollectSink()
+    CEP.pattern(stream, pattern).select(lambda m: (m["a"][2], m["b"][2])
+                                        ).add_sink(sink)
+    # the exact host NFA (cep/nfa.py), one key's events at a time
+    nfa, want = NFA(pattern), []
+    for k in range(7):
+        partials = []
+        for e in evs:
+            if e[0] == k:
+                partials, ms = nfa.process(partials, e, e[2])
+                want += [(m["a"][2], m["b"][2]) for m in ms]
+    return sink, lambda: sorted(sink.results), sorted(want)
 
 
 def _chained(env):
+    sink = CollectSink()
     (_keyed(env).time_window(100).sum(lambda c: c["value"])
      .key_by(lambda r: r.key).time_window(200).sum(lambda r: r.value)
-     .add_sink(CollectSink()))
+     .add_sink(sink))
+    return sink, lambda: {(r.key, r.window_end_ms): r.value
+                          for r in sink.results}, _tumbling(200)
 
 
 def _window(env):
-    _keyed(env).time_window(100).sum(lambda c: c["value"]).add_sink(
-        CollectSink())
+    sink = CollectSink()
+    _keyed(env).time_window(100).sum(lambda c: c["value"]).add_sink(sink)
+    return sink, lambda: {(r.key, r.window_end_ms): r.value
+                          for r in sink.results}, _tumbling(100)
 
 
 def _late(env):
+    sink = CollectSink()
     (_keyed(env).time_window(100).allowed_lateness(50)
-     .sum(lambda c: c["value"]).add_sink(CollectSink()))
+     .sum(lambda c: c["value"]).add_sink(sink))
+    return sink, lambda: {(r.key, r.window_end_ms): r.value
+                          for r in sink.results}, _tumbling(100)
 
 
-REFUSED = {
+RESIDENT = {"pipeline.prefetch": "on", "pipeline.device-staging": "on",
+            "pipeline.resident-loop": "on", "pipeline.ring-depth": 4}
+
+RUNS = {
     "session": (_session, {}),
     "count": (_count, {}),
     "cep": (_cep, {}),
     "chained": (_chained, {}),
     "lateness": (_late, {}),
-    "tiers": (_window, {"state.tiers.resident-key-groups": 32}),
-    "drain_stats": (_window, {"observability.drain-stats": True}),
+    "drain_stats": (_window, {**RESIDENT, "observability.drain-stats": True,
+                              "observability.drain-stats-every": 1}),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(RUNS))
+def test_parallelism_4_runs_the_item_10_kinds(kind):
+    """What ROADMAP queue 1, item 10 refused at parallelism 4 until its
+    sharded steps and drains came: it runs, its rows equal numpy's."""
+    build, cfg = RUNS[kind]
+    env = _env(**cfg)
+    _sink, rows, want = build(env)
+    job = env.execute(kind)
+    assert rows() == want
+    assert job.metrics.dropped_capacity == 0
+    if kind == "drain_stats":
+        rep = env._pipeline_report()
+        assert sum(r["totals"]["events"] for r in rep["shards"]) == TOTAL
+
+
+def _rebalance(env):
+    """Every record on two key groups that shard 0 owns: the flight
+    recorder's heat makes the rebalance arm fire at its first service."""
+    from flink_tpu_torch.core.keygroups import assign_to_key_group
+    cand = np.arange(4096, dtype=np.int64)
+    kg = assign_to_key_group(cand.astype(np.uint32), 128, np)
+    hot = np.concatenate([cand[kg == g][:2] for g in (3, 9)])
+
+    def gen(offset, n):
+        idx = np.arange(offset, offset + n, dtype=np.int64)
+        return ({"key": hot[idx % len(hot)],
+                 "value": np.ones(n, np.float32)}, idx)
+
+    (env.add_source(GeneratorSource(gen, total=8 * TOTAL))
+     .key_by(lambda c: c["key"]).time_window(100)
+     .sum(lambda c: c["value"]).add_sink(CollectSink()))
+
+
+REFUSED = {
+    "tiers": (lambda env: _window(env),
+              {"state.tiers.resident-key-groups": 32}),
+    "rebalance": (_rebalance, {
+        **RESIDENT, "observability.drain-stats": True,
+        "observability.kg-stats": True, "observability.kg-heat-alpha": 0.5,
+        "controller.enabled": True, "controller.interval-cycles": 1,
+        "controller.rebalance-threshold": 1.5,
+        "controller.min-rebalance-interval": 0.0,
+        "controller.min-gain": 1.01}),
 }
 
 

@@ -17,7 +17,8 @@
 * the flush's windows timing their fire latency from the watermark
   crossing;
 * every StageGraphError of ``tests/test_stages.py``, and the port's
-  refusals of checkpoints (ROADMAP item 6) and parallelism 2 (item 10).
+  refusals of checkpoints (ROADMAP item 6); parallelism 2 runs, to the
+  rows of parallelism 1.
 
 Both packages force pre-combine, packed planes and the resident loop on
 (the reference's ``RESIDENT_CFG``). The reference keeps split planes
@@ -47,6 +48,7 @@ from flink_tpu_torch.core.config import Configuration
 from flink_tpu_torch.core.time import TimeCharacteristic
 from flink_tpu_torch.metrics.drain_stats import STAGE_STAT_FIELDS
 from flink_tpu_torch.ops import window_kernels as wkt
+from flink_tpu_torch.parallel.mesh import forced_device_count
 from flink_tpu_torch.runtime import step as step_port
 from flink_tpu_torch.runtime.sinks import CollectSink
 from flink_tpu_torch.runtime.sources import GeneratorSource
@@ -543,11 +545,17 @@ def test_chained_checkpoints_and_parallelism_refuse_naming_their_items(
     _chain(env, PORT)
     with pytest.raises(NotImplementedError, match="item 6"):
         env.execute("ckpt")
-    env = port_env()
-    env.set_parallelism(2)
-    _chain(env, PORT)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        env.execute("sharded")
+    # parallelism 2 runs (the chained drains over the shard mesh), to the
+    # rows of parallelism 1
+    rows = []
+    for n in (1, 2):
+        with forced_device_count(2):
+            env = port_env()
+            env.set_parallelism(n)
+            _chain(env, PORT)
+            env.execute("sharded")
+        rows.append(sorted(env._sinks[0].sink.results))
+    assert rows[1] == rows[0] and rows[0]
     env = port_env()
     _chain(env, PORT)
     from flink_tpu_torch.runtime.executor import _translate

@@ -223,16 +223,44 @@ class _Spy:
         monkeypatch.setattr(ex._WindowJob, "dispatch", wrapped)
 
 
+def _plan_first(monkeypatch):
+    """A fault-seam rule that holds the producer's second prep until the
+    step loop has installed the ingest plan. Without it, how many batches
+    the producer preps before the plan exists (each a 1-slot drain on the
+    general path) is a race that differs between two runs; with it every
+    run has exactly one unplanned batch, so two runs' dispatch counts
+    compare. Returns the injector to install around a run."""
+    planned = threading.Event()
+    set_plan = ingest_mod.IngestPipeline.set_plan
+
+    def wrapped(pipe, plan):
+        set_plan(pipe, plan)
+        planned.set()
+
+    monkeypatch.setattr(ingest_mod.IngestPipeline, "set_plan", wrapped)
+
+    def injector():
+        planned.clear()
+        return FaultInjector([FaultRule(
+            "ingest.producer", action="call", at=1,
+            fn=lambda _ctx: planned.wait(30.0))])
+
+    return injector
+
+
 def test_while_drain_exact_with_no_more_dispatches_than_scan(monkeypatch):
     spy = _Spy(monkeypatch)
+    plan_first = _plan_first(monkeypatch)
     total = 4096
-    got, job = run_job(build_env(**WHILE_CFG), total)
+    with faults.active(plan_first()):
+        got, job = run_job(build_env(**WHILE_CFG), total)
     assert got == expected(total)
     m = job.metrics
     assert m.resident_drains > 0
     assert spy.drains and all(getattr(d, "while_drain", False)
                               for d, _n in spy.drains)
-    _, scan_job = run_job(build_env(**SCAN_CFG), total)
+    with faults.active(plan_first()):
+        _, scan_job = run_job(build_env(**SCAN_CFG), total)
     assert scan_job.metrics.resident_drains > 0
     assert m.resident_drains <= scan_job.metrics.resident_drains
 

@@ -65,6 +65,18 @@ PORT_OF = {
     "flink_tpu.runtime.ingest": "flink_tpu_torch.runtime.ingest",
     "flink_tpu.runtime.sinks": "flink_tpu_torch.runtime.sinks",
     "flink_tpu.runtime.step": "flink_tpu_torch.runtime.step",
+    # the keyed runners', CEP's and the stage graph's test files
+    # (tests/test_session_windows.py, test_cep_accel.py, test_stages.py)
+    "flink_tpu.cep": "flink_tpu_torch.cep",
+    "flink_tpu.cep.accel": "flink_tpu_torch.cep.accel",
+    "flink_tpu.datastream": "flink_tpu_torch.datastream",
+    "flink_tpu.datastream.window": "flink_tpu_torch.datastream.window",
+    "flink_tpu.datastream.window.assigners":
+        "flink_tpu_torch.datastream.window.assigners",
+    "flink_tpu.runtime.stages": "flink_tpu_torch.runtime.stages",
+    "flink_tpu.runtime.watermarks": "flink_tpu_torch.runtime.watermarks",
+    "flink_tpu.testing": "flink_tpu_torch.testing",
+    "flink_tpu.testing.faults": "flink_tpu_torch.testing.faults",
 }
 
 # the static factories of the entry classes
