@@ -451,7 +451,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 card's idle share from that run): nexmark q11 sessions
                 and WindowWordCount (10M events each; G1's owner mask,
                 G5, G10, G11 / G12 a shard), the cep job (400,000
-                events) and cep-within (8M; the sharded count NFA, G27's
+                events) and cep-within (2M; the sharded count NFA, G27's
                 delta sum), the chained rollup (10M) on the mask drain
                 and on the sharded chained drain, the late-reduce job
                 (20M: its first window fires while late records still
@@ -460,6 +460,46 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 every record, the live keys per key group against
                 numpy's); every row against numpy (CEP key by key and
                 against the host NFA on a sample of keys).
+ 26. dcn      — the sharded broadcast join through ``broadcast_join(...,
+                ctx)`` over 4 forced shards (1,000,000 probes, half
+                missing, into 10,000 build keys; every lane against
+                numpy, one G24 launch a shard), and the cross-process
+                plane (``flink_tpu_torch/runtime/
+                dcn.py``): in phase 3 (``dcn_kernel_phase``) the sharded
+                broadcast join (K21 sharded: 1,000,000 probes into
+                10,000 build keys over 4 forced shards, each shard's G24
+                against its plain version, edge: the single-shard edge
+                probes with invalid lanes; the whole join timed beside
+                one torch.searchsorted over the same probes), G26 at
+                the window job's shard slice (131,072 lanes, n = 4, cap
+                65,536), and the keyed jobs' kernels at the lanes their
+                workers give shard 0, driven round by round from each
+                builder's own source (round 3, and the last round): G10
+                and G11 at the sessions job's (524,288 gathered lanes, C
+                = 2^18), G10 and G19 at the cep job's (32,768, C =
+                2^16), G10 and G13 at the rolling job's (262,144
+                exchanged, C = 2^20), all exactly; then two worker
+                processes of
+                ``python -m flink_tpu_torch.runtime.dcn`` on the one
+                card, two forced shards each (n = 4), over a Gloo group
+                on localhost, nvidia-smi sampling the card's utilization
+                every 100 ms (the lockstep window run also under
+                torch.profiler recording the card): the window job (the
+                north star's 1M keys, 5 s tumbling sum, 262,144 lanes a
+                host, 4M events a host, the hosts' streams interleaved
+                at 500 events a ms: 16 s, three windows firing before
+                its end) lockstep and resident at ring depth 8, the
+                resident job stopped after a complete checkpoint that
+                holds emitted rows and restored (its rows exactly once,
+                the cut's rows replayed), nexmark
+                q11 sessions, a rolling sum over the north star's keys
+                (2M events a host each) and BASELINE #5's pattern
+                without within (the cep job's 400,000 events); every
+                row against numpy (CEP key by key), each job's events/s,
+                the Gloo bytes a host sends per round and the card's
+                idle share, and each kernel of its path launched by the
+                workers. The kernels are built before the workers start
+                (they load the library, never build it).
 
 Every event-time window job's line (north star, telemetry, sparse, churn,
 distinct, countmin, maxprice, mean, late-reduce, the three chained runs,
@@ -499,6 +539,7 @@ salts the cep-within job's events and its sample of keys with N, and
 also appends every JSON line to PATH.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1626,6 +1667,16 @@ def case_session_update(dev, C, B, kind, main_state):
         vals = _t(rng.integers(1, 9, B).astype(np.float32), dev,
                   torch.float32)
         wm_v = 65_000
+    return session_update_pair(dev, C, G, state0, table, slot, ts, live, h,
+                               l, vals, wm_v)
+
+
+def session_update_pair(dev, C, G, state0, table, slot, ts, live, h, l,
+                        vals, wm_v, fires=True):
+    """G11 against its plain version on copies of ``state0`` (start, last,
+    acc, active) after G10 sorted the lanes' (slot, tick) keys: the record
+    of a ``case_session_update``. ``fires``: the inputs must fire a row."""
+    B = slot.numel()
     order, key_s, _ss = segment.sort_slot_ts(slot, ts, live, C)
     wm = torch.tensor(wm_v, dtype=torch.int32, device=dev)
     s1 = [x.clone() for x in state0]
@@ -1638,7 +1689,8 @@ def case_session_update(dev, C, B, kind, main_state):
     r1, n1 = kernels.session_update(*s1, *args, G=G, marks=m1)
     r2, n2 = kernels.session_update_plain(*s2, *args, G=G, marks=m2)
     n = int(n2)
-    check(int(n1) == n and n > 0, f"session_update: {int(n1)} rows, plain {n}")
+    check(int(n1) == n and (n > 0 or not fires),
+          f"session_update: {int(n1)} rows, plain {n}")
     check(torch.equal(m1, m2) and 0 <= int(m2[0]) <= int(m2[1]) <= n,
           f"session_update: marks {m1.tolist()}, plain {m2.tolist()}")
     n_close = int((state0[3] & ~s2[3]).sum())
@@ -3992,14 +4044,18 @@ class CepEvent:
         self.ts = ts
 
 
-def cep_events(total, seed=CEP_SEED):
-    """bench_configs.py:290-307's stream: names a, b, x, y at 0.05, 0.05,
-    0.45, 0.45 and 1,000 keys from ``seed``; returns (events, names,
-    keys)."""
+def cep_arrays(total, seed=CEP_SEED):
+    """bench_configs.py:290-307's stream as arrays: names a, b, x, y at
+    0.05, 0.05, 0.45, 0.45 and 1,000 keys from ``seed``."""
     rng = np.random.default_rng(seed)
     names = rng.choice(["a", "b", "x", "y"], total,
                        p=[0.05, 0.05, 0.45, 0.45])
-    keys = rng.integers(0, CEP_KEYS, total)
+    return names, rng.integers(0, CEP_KEYS, total)
+
+
+def cep_events(total, seed=CEP_SEED):
+    """``cep_arrays``' stream as events; returns (events, names, keys)."""
+    names, keys = cep_arrays(total, seed)
     events = [CepEvent(n, k, i) for i, (n, k) in
               enumerate(zip(names.tolist(), keys.tolist()))]
     return events, names, keys
@@ -6953,6 +7009,10 @@ SHARD_KEYED_CEP_B = (CEP_BATCH, CEPW_BATCH)   # the two CEP jobs' batches
 # event time fire no window before the end of the stream, so nothing
 # could re-fire; 10 s fire the first window while late records still come
 SHARD_LATE_TOTAL = 20_000_000
+# cep-within's events at parallelism 4: 20 s of event time, two within()
+# horizons, so panes expire (the one-shard run keeps 8M); cut from 8M to
+# 4M, then to 2M, to hold the whole script near 800 s beside phase 26
+SHARD_CEPW_TOTAL = 2_000_000
 # the kernels each phase-25 path must launch (G1's owner mask a shard)
 SHARD_SESSION_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
                          "session_update")
@@ -7154,7 +7214,8 @@ def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
     path's fire steps with re-fires a shard) and the north star with the
     flight recorder on every shard. Each at SHARD_TOTAL events or its
     one-shard size where that is smaller (the late-reduce job at
-    SHARD_LATE_TOTAL); every row against numpy's (CEP key by key)."""
+    SHARD_LATE_TOTAL, cep-within at SHARD_CEPW_TOTAL); every row against
+    numpy's (CEP key by key)."""
     from flink_tpu_torch.parallel.mesh import forced_device_count
 
     t_phase = time.perf_counter()
@@ -7211,11 +7272,11 @@ def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
         del sink, job, events, names, keys
 
         (sink, job, _s), line = run(
-            "cep_within", lambda: cepw_job(dev, CEPW_TOTAL,
+            "cep_within", lambda: cepw_job(dev, SHARD_CEPW_TOTAL,
                                            parallelism=SHARDS),
-            CEPW_TOTAL, SHARD_CEPW_KERNELS)
+            SHARD_CEPW_TOTAL, SHARD_CEPW_KERNELS)
         m = job.metrics
-        cols = cepw_columns(CEPW_TOTAL)
+        cols = cepw_columns(SHARD_CEPW_TOTAL)
         pane_ms = DevicePatternSpec.from_pattern(cepw_pattern()).pane_ms
         n_rows, want, keys_matched, sample_rows = check_cepw_rows(
             sink.results, cols, pane_ms, CEPW_SEED)
@@ -7279,6 +7340,907 @@ def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
 
 
 # ------------------------------------------------------------ main
+
+# ------------------------------------------------------------ phase 26
+
+DCN_PROCS = 2                  # worker processes on the one card
+DCN_LOCAL = 2                  # forced shards a worker: n = 4
+DCN_WINDOW_EVENTS = 4_000_000  # a host's events of the window jobs
+# the window jobs' events a ms of the global stream: 2 x 4M span 16 s, so
+# three 5 s windows fire before the end of the stream and one at it
+DCN_EVENTS_PER_MS = 500
+DCN_KEYED_EVENTS = 2_000_000   # a host's events of sessions and rolling
+DCN_RING_DEPTH = 8             # the resident window job's ring
+# hash slots a shard of the window and rolling jobs: a quarter of the 1M
+# keys a shard at a load of 0.24, where no key sits 16 probes deep (at
+# 2^19 some do, and are lost)
+DCN_CAPACITY = 1 << 20
+DCN_WALL_S = 300               # a worker's wall limit
+DCN_GLOO_TIMEOUT_S = 120       # the Gloo group's limit on one collective
+DCN_WINDOW_KERNELS = ("route_lanes", "clear_rows", "scatter_update",
+                      "hash_upsert", "fire_compact", "exchange_pack")
+DCN_SESSION_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
+                       "session_update")
+DCN_ROLLING_KERNELS = ("exchange_pack", "route_lanes", "hash_upsert",
+                       "segment_sort", "rolling_update")
+DCN_CEP_KERNELS = ("route_lanes", "hash_upsert", "segment_sort", "cep_scan")
+CEP_TS_DIV = 16                # the DCN cep job's events a ms
+
+
+def _interleaved(events_of, total):
+    """A host's partition of a global stream: host p of P takes the
+    events p, p + P, p + 2P, ..., ``total`` of them, so every host's
+    event time advances with the others'. ``events_of(idx)`` gives
+    (keys, ts ms, values) of global event indices."""
+    def factory(pid, nproc):
+        from flink_tpu_torch.runtime.dcn import GeneratorPartitionSource
+
+        def fn(offset, n):
+            return events_of(pid + nproc * np.arange(offset, offset + n,
+                                                     dtype=np.int64))
+        return GeneratorPartitionSource(fn, total)
+    return factory
+
+
+def north_star_events(idx, per_ms=EVENTS_PER_MS):
+    return ((idx * 2862933555777941757) % N_KEYS, idx // per_ms,
+            np.ones(len(idx), np.float32))
+
+
+def session_events(idx):
+    b, t = session_index(idx)
+    return splitmix64(b).view(np.int64), t, np.ones(len(idx), np.float32)
+
+
+_CEP_BITS = {}
+
+
+def cep_bit_events(idx):
+    """The cep job's events with the stage bits in the value lane (bit 0
+    ``a``, bit 1 ``b``: the pattern's predicates at the ingesting host)."""
+    if "bits" not in _CEP_BITS:
+        names, keys = cep_arrays(CEP_TOTAL)
+        _CEP_BITS["bits"] = ((names == "a") * 1 + (names == "b") * 2)
+        _CEP_BITS["keys"] = keys
+    return (_CEP_BITS["keys"][idx], idx // CEP_TS_DIV,
+            _CEP_BITS["bits"][idx].astype(np.float32))
+
+
+def dcn_window_job(events=DCN_WINDOW_EVENTS, per_ms=DCN_EVENTS_PER_MS,
+                   resident=False):
+    """The window job of phase 26 (a worker's ``--builder``; ``events`` a
+    host, ``per_ms`` the global stream's events a ms, given by
+    ``--builder-kwargs``): the north star's keys and 5 s tumbling sum,
+    262,144 lanes a host."""
+    from flink_tpu_torch.runtime.dcn import DCNJobSpec
+    return DCNJobSpec(
+        source_factory=_interleaved(
+            lambda idx: north_star_events(idx, per_ms), events),
+        size_ms=WINDOW_MS, capacity_per_shard=DCN_CAPACITY,
+        max_parallelism=MAX_PARALLELISM, batch_per_host=BATCH,
+        fires_per_step=4, resident=resident,
+        resident_ring_depth=DCN_RING_DEPTH)
+
+
+def dcn_window_resident_job(**kw):
+    return dcn_window_job(resident=True, **kw)
+
+
+def dcn_window_resident_stalled(**kw):
+    """The resident job whose second checkpoint write stalls (the
+    ``dcn.ckpt.write`` seam) until the worker is killed: the first cut
+    completes, then the ensemble stops."""
+    faults.install(faults.FaultInjector([faults.FaultRule(
+        "dcn.ckpt.write", action="sleep", delay_s=DCN_WALL_S, at=1)]))
+    return dcn_window_job(resident=True, **kw)
+
+
+def dcn_session_job(events=DCN_KEYED_EVENTS):
+    from flink_tpu_torch.runtime.dcn import DCNJobSpec
+    return DCNJobSpec(
+        source_factory=_interleaved(session_events, events),
+        window_kind="session", gap_ms=SESSION_GAP_MS, reduce_kind="count",
+        capacity_per_shard=1 << 18, max_parallelism=MAX_PARALLELISM,
+        batch_per_host=BATCH)
+
+
+def dcn_rolling_job(events=DCN_KEYED_EVENTS):
+    from flink_tpu_torch.runtime.dcn import DCNJobSpec
+    return DCNJobSpec(
+        source_factory=_interleaved(north_star_events, events),
+        window_kind="rolling", capacity_per_shard=DCN_CAPACITY,
+        max_parallelism=MAX_PARALLELISM, batch_per_host=BATCH)
+
+
+def dcn_cep_job(events=CEP_TOTAL // DCN_PROCS):
+    from flink_tpu_torch.runtime.dcn import DCNJobSpec
+    return DCNJobSpec(
+        source_factory=_interleaved(cep_bit_events, events),
+        window_kind="cep", cep_pattern_factory=cep_pattern,
+        capacity_per_shard=CEP_CAPACITY, max_parallelism=MAX_PARALLELISM,
+        batch_per_host=CEP_BATCH)
+
+
+def _free_port() -> int:
+    """A free port below the kernel's ephemeral range, which no outgoing
+    connection can take between this pick and the worker's bind."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.SystemRandom()
+    while True:
+        port = rng.randrange(max(1024, low - 12000), low)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+
+
+def dcn_spawn(tag, builder, tmp, extra=(), profile=False, kwargs=None,
+              device=None):
+    """Start the two workers of one ensemble on the card (``profile``: each
+    under torch.profiler recording the card; ``device`` another device,
+    ``kwargs`` the builder's keyword arguments, for a rehearsal at a
+    smaller size); returns (procs, their row files)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    # one OpenMP thread a worker: two workers' thread pools on the
+    # machine's cores spin against each other (the window job ran 1.7x
+    # slower with the default pools on an H100 host of 8 cores)
+    # and a bytecode cache the workers share: the installed packages may
+    # carry none, and each worker would compile torch's sources anew
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPYCACHEPREFIX=os.path.join(tmp, "pycache"),
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = [os.path.join(tmp, f"{tag}-{p}.npz") for p in range(DCN_PROCS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flink_tpu_torch.runtime.dcn",
+         "--coordinator", coord, "--num-processes", str(DCN_PROCS),
+         "--process-id", str(p), "--builder",
+         f"{os.path.join(here, 'chip_smoke.py')}:{builder}",
+         "--out", outs[p], "--local-devices", str(DCN_LOCAL),
+         "--timeout-s", str(DCN_GLOO_TIMEOUT_S),
+         *(["--builder-kwargs", json.dumps(kwargs)] if kwargs else []),
+         *(["--device", device] if device else
+           ["--profile"] if profile else []),
+         *extra],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for p in range(DCN_PROCS)]
+    return procs, outs
+
+
+def dcn_wait(procs, tag):
+    """Wait for an ensemble (killing it past the wall limit); returns each
+    worker's JSON result line by process id."""
+    deadline = time.time() + DCN_WALL_S
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1, deadline - time.time()))
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    stats = {}
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0,
+              f"dcn {tag}: a worker failed:\n{log[-4000:]}")
+        for line in log.splitlines():
+            if line.startswith("{"):
+                row = json.loads(line)
+                stats[row["pid"]] = row
+    return stats
+
+
+class UtilSampler:
+    """nvidia-smi's ``utilization.gpu`` (the share of its sample period in
+    which a kernel ran on the card, whichever process launched it) every
+    100 ms while the block runs; ``busy(t0, t1)`` is (the mean over the
+    samples taken between two wall-clock times, None without one; their
+    count)."""
+
+    def __enter__(self):
+        self.proc = None
+        self.samples = []
+        if torch.cuda.is_available():
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        import datetime as dt
+
+        for line in out.splitlines():
+            try:
+                stamp, util = (x.strip() for x in line.split(","))
+                t = dt.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+                self.samples.append((t.timestamp(), float(util)))
+            except ValueError:
+                continue
+
+    def busy(self, t0, t1):
+        inside = [u for t, u in self.samples if t0 <= t <= t1]
+        return (sum(inside) / len(inside) / 100 if inside else None,
+                len(inside))
+
+
+def dcn_run(tag, builder, tmp, extra=(), profile=False, kwargs=None,
+            device=None):
+    t0 = time.perf_counter()
+    with UtilSampler() as util:
+        procs, outs = dcn_spawn(tag, builder, tmp, extra, profile, kwargs,
+                                device)
+        stats = dcn_wait(procs, tag)
+    runs = [st["run_epoch_s"] for st in stats.values()]
+    smi_busy, n = util.busy(min(r[0] for r in runs),
+                            max(r[1] for r in runs))
+    for st in stats.values():
+        st["ensemble_s"] = time.perf_counter() - t0
+        st["smi_busy"], st["smi_samples"] = smi_busy, n
+    return stats, outs
+
+
+def dcn_rows(outs):
+    """Both workers' rows, concatenated, and each one's busy spans."""
+    cols = {k: [] for k in ("key_id", "window_start_ms", "window_end_ms",
+                            "value")}
+    spans = []
+    for path in outs:
+        data = np.load(path)
+        for k in cols:
+            cols[k].append(data[k])
+        spans += [tuple(r) for r in data["busy_spans_us"]]
+    return {k: np.concatenate(v) for k, v in cols.items()}, spans
+
+
+def dcn_line(name, stats, spans, events, rows, kernels_of, total_launches,
+             kind, smi, extra=None) -> dict:
+    """One job's phase line: events/s over the slower worker's run, the
+    Gloo bytes a host sends per lockstep cycle (one exchange round; a
+    resident cycle's drain runs one a live slot), the card's idle share
+    over that run from nvidia-smi's utilization samples and, for a
+    profiled run, from its busy time (the union of both workers' kernel
+    and copy intervals); the workers' launches, each kernel of the path
+    launched."""
+    secs = max(st["seconds"] for st in stats.values())
+    launches = {}
+    for st in stats.values():
+        for k, n in st["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    for k, n in launches.items():
+        total_launches[k] = total_launches.get(k, 0) + n
+    check_launched(launches, kernels_of, f"dcn {name}")
+    busy = _busy_ms(spans) if spans else None
+    smi_busy = stats[0].get("smi_busy")
+    line = {"phase": f"dcn_{name}", "events": events, "seconds": secs,
+            "events_per_s": events / secs, "rows": rows,
+            "cycles": stats[0]["cycles"],
+            "gloo_bytes_sent": [st["gloo_bytes_sent"]
+                                for st in stats.values()],
+            "gloo_bytes_per_cycle": [st["gloo_bytes_sent"] / st["cycles"]
+                                     for st in stats.values()],
+            "gloo_collectives": [st["gloo_rounds"]
+                                 for st in stats.values()],
+            "ingested": [st["ingested_local"] for st in stats.values()],
+            "worker_s": {k: [st.get(k) for st in stats.values()] for k in
+                         ("ensemble_s", "setup_s", "profiler_start_s",
+                          "profiler_stop_s")},
+            "card_busy_ms": busy,
+            "card_idle_share": (None if busy is None
+                                else 1 - busy / (1e3 * secs)),
+            "card_idle_share_smi": (None if smi_busy is None
+                                    else 1 - smi_busy),
+            "smi_samples_in_run": stats[0].get("smi_samples"),
+            "processes": DCN_PROCS, "shards": DCN_PROCS * DCN_LOCAL,
+            "launches": launches, "device": kind, "nvidia_smi": smi}
+    line.update(extra or {})
+    emit(line)
+    check(all(st["dropped_capacity"] == 0 for st in stats.values()),
+          f"dcn {name}: records dropped: {stats}")
+    return line
+
+
+def check_dcn_window_rows(cols, events, per_ms):
+    """Every (key, window, sum) row of the window job against numpy, each
+    (key, window) once; the stream must span more than one window, so
+    that windows fire before its end. Returns (rows, windows)."""
+    idx_total = DCN_PROCS * events
+    n_win = -(-idx_total // (per_ms * WINDOW_MS))
+    check(n_win > 1, f"the window job's stream spans {n_win} window")
+    counts = np.zeros(n_win * N_KEYS, np.int64)
+    for off in range(0, idx_total, 1 << 22):
+        idx = np.arange(off, min(off + (1 << 22), idx_total), dtype=np.int64)
+        keys, ts, _ = north_star_events(idx, per_ms)
+        counts += np.bincount(ts // WINDOW_MS * N_KEYS + keys,
+                              minlength=n_win * N_KEYS)
+    end = cols["window_end_ms"].astype(np.int64)
+    cell = (end // WINDOW_MS - 1) * N_KEYS + cols["key_id"].astype(np.int64)
+    check(np.all(end % WINDOW_MS == 0)
+          and np.all(cols["window_start_ms"] == end - WINDOW_MS)
+          and len(np.unique(cell)) == len(cell),
+          "dcn window: a (key, window) emitted twice, or off the grid")
+    want = np.flatnonzero(counts)
+    o = np.argsort(cell)
+    check(np.array_equal(cell[o], want)
+          and np.array_equal(cols["value"][o], counts[want].astype(
+              np.float32)),
+          f"dcn window: {len(cell)} rows, numpy {len(want)}; the rows "
+          f"differ from numpy's")
+    return len(cell), n_win
+
+
+def check_dcn_rolling_rows(cols, events):
+    """Each key's emissions are its running count 1..n (every record once),
+    n the key's events in numpy."""
+    idx = np.arange(DCN_PROCS * events, dtype=np.int64)
+    counts = np.bincount(north_star_events(idx)[0], minlength=N_KEYS)
+    key = cols["key_id"].astype(np.int64)
+    val = cols["value"]
+    o = np.lexsort((val, key))
+    key, val = key[o], val[o]
+    start = np.r_[True, key[1:] != key[:-1]]
+    first = np.maximum.accumulate(np.where(start, np.arange(len(key)), 0))
+    check(len(key) == len(idx)
+          and np.array_equal(np.bincount(key, minlength=N_KEYS), counts)
+          and np.array_equal(val, (np.arange(len(key)) - first + 1)
+                             .astype(np.float32)),
+          "dcn rolling: the running counts differ from numpy's")
+    return len(key)
+
+
+def dcn_cep_order(b_host):
+    """The global event indices in the plane's processing order: round by
+    round, host 0's lanes then host 1's (the all_gather's order)."""
+    per = CEP_TOTAL // DCN_PROCS
+    hosts = [p + DCN_PROCS * np.arange(per, dtype=np.int64)
+             for p in range(DCN_PROCS)]
+    return np.concatenate([h[r:r + b_host] for r in range(0, per, b_host)
+                           for h in hosts])
+
+
+def check_dcn_cep_rows(cols):
+    """Each key's matches (sum of the completions at its events) against
+    numpy's ``a followedBy b`` count in the plane's processing order."""
+    names, keys = cep_arrays(CEP_TOTAL)
+    o = dcn_cep_order(CEP_BATCH)
+    names, keys = names[o], keys[o]
+    order = np.argsort(keys, kind="stable")
+    k_s = keys[order]
+    a_s = (names[order] == "a").astype(np.int64)
+    b_s = names[order] == "b"
+    before = np.cumsum(a_s) - a_s
+    starts = np.r_[True, k_s[1:] != k_s[:-1]]
+    first = np.maximum.accumulate(np.where(starts, np.arange(len(k_s)), 0))
+    want = np.bincount(k_s, weights=(before - before[first]) * b_s,
+                       minlength=CEP_KEYS)
+    got = np.bincount(cols["key_id"].astype(np.int64),
+                      weights=cols["value"].astype(np.float64),
+                      minlength=CEP_KEYS)
+    check(np.array_equal(got, want),
+          f"dcn cep: {got.sum()} matches, numpy {want.sum()}; the per-key "
+          f"totals differ")
+    return int(want.sum())
+
+
+def dcn_kill_after_first_cut(procs, ckpt, tag):
+    """Wait for a checkpoint that both workers completed, then SIGKILL
+    them (the lockstep failure unit is the job)."""
+    deadline = time.time() + DCN_WALL_S
+    cut = None
+    try:
+        while time.time() < deadline and cut is None:
+            for d in sorted(os.listdir(ckpt)):
+                if all(os.path.exists(os.path.join(
+                        ckpt, d, f"proc-{p}.meta.json"))
+                       for p in range(DCN_PROCS)):
+                    cut = d
+            check(all(p.poll() is None for p in procs) or cut is not None,
+                  f"dcn {tag}: a worker ended before the first cut")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    check(cut is not None, f"dcn {tag}: no complete checkpoint")
+    return cut
+
+
+def cut_rows(ckpt, cut) -> int:
+    """The rows emitted up to a cut: the row deltas of every checkpoint up
+    to it, of every process, that a restore replays."""
+    return sum(len(np.load(os.path.join(ckpt, d, f"proc-{p}.npz"))
+                   ["rows_key"])
+               for d in sorted(os.listdir(ckpt)) if d <= cut
+               for p in range(DCN_PROCS))
+
+
+def broadcast_sharded_run(dev, kind, smi, total_launches) -> None:
+    """K21 sharded through its entry point: ``broadcast_join`` over 4
+    forced shards (each G24 on a quarter of the lanes), the DataSet
+    join's shape (1,000,000 probes, half of them missing, into SF1's
+    10,000 supplier keys, shuffled), every lane against numpy."""
+    from flink_tpu_torch.parallel.broadcast import broadcast_join
+    from flink_tpu_torch.parallel.mesh import MeshContext
+
+    rng = np.random.default_rng(LIB_SEED)
+    tkeys = rng.permutation(np.arange(1, TPCH_SUPPLIERS + 1,
+                                      dtype=np.int64))
+    tvals = (tkeys % 1000).astype(np.float32)
+    keys = rng.integers(1, 2 * TPCH_SUPPLIERS + 1, JOIN_PROBES)
+    ctx = MeshContext.create(SHARDS, devices=[dev] * SHARDS)
+
+    def run():
+        t = time.perf_counter()
+        out = broadcast_join(keys, tkeys, tvals, ctx)
+        return out, time.perf_counter() - t
+
+    launches, ((joined, hit), secs) = run_path(run, total_launches)
+    want = keys <= TPCH_SUPPLIERS
+    check(np.array_equal(hit, want) and np.array_equal(
+        joined, np.where(want, keys % 1000, 0).astype(np.float32)),
+          "sharded broadcast join: lanes differ from numpy's")
+    check(dev.type != "cuda" or launches["sorted_probe"] == SHARDS,
+          f"sharded broadcast join: {launches['sorted_probe']} G24 "
+          f"launches, not one a shard")
+    emit({"phase": "broadcast_sharded", "shards": SHARDS,
+          "probes": JOIN_PROBES, "build_keys": TPCH_SUPPLIERS,
+          "seconds": secs, "probes_per_s": JOIN_PROBES / secs,
+          "hits": int(hit.sum()), "launches": launches, "device": kind,
+          "nvidia_smi": smi})
+
+
+def dcn_runs(dev, kind, smi, total_launches, events=DCN_WINDOW_EVENTS,
+             per_ms=DCN_EVENTS_PER_MS, keyed_events=DCN_KEYED_EVENTS,
+             worker_device=None) -> None:
+    """Phase 26: the sharded broadcast join, then the cross-process plane,
+    two workers on the one card. The arguments are the full size; a
+    rehearsal on the CPU passes smaller ones and ``worker_device="cpu"``."""
+    broadcast_sharded_run(dev, kind, smi, total_launches)
+    t0 = time.perf_counter()
+    wkw = {"events": events, "per_ms": per_ms}
+    kkw = {"events": keyed_events}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dcn-") as tmp:
+        wevents = DCN_PROCS * events
+        for name, builder in (("window", "dcn_window_job"),
+                              ("window_resident", "dcn_window_resident_job")):
+            # the lockstep run under the profiler too: its CUPTI start
+            # costs each worker ~8 s, so the other runs take the samples
+            stats, outs = dcn_run(name, builder, tmp,
+                                  profile=name == "window", kwargs=wkw,
+                                  device=worker_device)
+            cols, spans = dcn_rows(outs)
+            rows, n_win = check_dcn_window_rows(cols, events, per_ms)
+            dcn_line(name, stats, spans, wevents, rows, DCN_WINDOW_KERNELS,
+                     total_launches, kind, smi,
+                     {"ring_depth": DCN_RING_DEPTH
+                      if name == "window_resident" else 1,
+                      "windows": n_win, "events_per_ms": per_ms})
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        extra = ["--checkpoint-dir", ckpt, "--ckpt-every", "1"]
+        procs, _ = dcn_spawn("stalled", "dcn_window_resident_stalled", tmp,
+                             extra, kwargs=wkw, device=worker_device)
+        cut = dcn_kill_after_first_cut(procs, ckpt, "window_restore")
+        replayed = cut_rows(ckpt, cut)
+        check(replayed > 0, f"dcn window_restore: the cut {cut} comes "
+                            f"before the first emitted window")
+        stats, outs = dcn_run("restored", "dcn_window_resident_job", tmp,
+                              extra + ["--restore"], kwargs=wkw,
+                              device=worker_device)
+        cols, spans = dcn_rows(outs)
+        rows, n_win = check_dcn_window_rows(cols, events, per_ms)
+        dcn_line("window_restore", stats, spans,
+                 sum(st["ingested_local"] for st in stats.values()), rows,
+                 DCN_WINDOW_KERNELS, total_launches, kind, smi,
+                 {"restored_from": cut, "rows_replayed": replayed,
+                  "ring_depth": DCN_RING_DEPTH, "windows": n_win,
+                  "note": "events: those the restored run ingested"})
+
+        kevents = DCN_PROCS * keyed_events
+        stats, outs = dcn_run("sessions", "dcn_session_job", tmp,
+                              kwargs=kkw, device=worker_device)
+        cols, spans = dcn_rows(outs)
+        rows, _closed = check_session_rows(cols, kevents)
+        dcn_line("sessions", stats, spans, kevents, rows,
+                 DCN_SESSION_KERNELS, total_launches, kind, smi)
+
+        stats, outs = dcn_run("rolling", "dcn_rolling_job", tmp,
+                              kwargs=kkw, device=worker_device)
+        cols, spans = dcn_rows(outs)
+        rows = check_dcn_rolling_rows(cols, keyed_events)
+        dcn_line("rolling", stats, spans, kevents, rows,
+                 DCN_ROLLING_KERNELS, total_launches, kind, smi)
+
+        stats, outs = dcn_run("cep", "dcn_cep_job", tmp,
+                              device=worker_device)
+        cols, spans = dcn_rows(outs)
+        matches = check_dcn_cep_rows(cols)
+        dcn_line("cep", stats, spans, CEP_TOTAL, len(cols["key_id"]),
+                 DCN_CEP_KERNELS, total_launches, kind, smi,
+                 {"matches": matches})
+    emit({"phase": "dcn", "seconds": time.perf_counter() - t0,
+          "processes": DCN_PROCS, "shards_a_process": DCN_LOCAL})
+
+
+def probe_sharded_plain(keys, valid, tk, tv, n):
+    """The plain twin of the sharded broadcast join: G24's plain version
+    on each of n lane slices, invalid lanes joining nothing."""
+    b = keys.numel() // n
+    joined, hit = [], []
+    for s in range(n):
+        _p, h, j = kernels.sorted_probe_plain(keys[s * b:(s + 1) * b], tk, tv)
+        h = h & valid[s * b:(s + 1) * b]
+        joined.append(torch.where(h, j, torch.zeros_like(j)))
+        hit.append(h)
+    return torch.cat(joined), torch.cat(hit)
+
+
+def case_probe_sharded(dev, kind):
+    """K21 sharded: the broadcast join's step over 4 forced shards
+    (``parallel/broadcast.py build_broadcast_join_step``) against its
+    plain twin, exactly: ``main`` the DataSet join's 1,000,000 probes
+    into SF1's 10,000 supplier keys; ``edge`` G24's edge probes (+-2^62
+    keys, the first and last key, one build key) with every seventh lane
+    invalid. Its library time: one torch.searchsorted over the probes."""
+    from flink_tpu_torch.parallel.broadcast import build_broadcast_join_step
+    from flink_tpu_torch.parallel.mesh import MeshContext
+
+    g = torch.Generator().manual_seed(21)
+    if kind == "main":
+        tk = torch.arange(1, TPCH_SUPPLIERS + 1, dtype=torch.int64)
+        keys = torch.randint(1, TPCH_SUPPLIERS + 1, (JOIN_PROBES,),
+                             generator=g)
+        keys[torch.rand(JOIN_PROBES, generator=g) < 0.2] += TPCH_SUPPLIERS
+        valid = torch.ones(JOIN_PROBES, dtype=torch.bool)
+    else:
+        tk = torch.sort(torch.randint(-(1 << 62), 1 << 62, (5000,),
+                                      generator=g)).values.unique()
+        keys = torch.cat([tk[:3], tk[-3:], tk[:1] - 1, tk[-1:] + 1,
+                          torch.randint(-(1 << 62), 1 << 62, (4096,),
+                                        generator=g), tk[::7]])
+        keys = keys[:keys.numel() - keys.numel() % SHARDS]
+        valid = torch.arange(keys.numel()) % 7 != 3
+    keys, valid, tk = keys.to(dev), valid.to(dev), tk.to(dev)
+    tv = torch.arange(tk.numel(), dtype=torch.float32, device=dev)
+    step = build_broadcast_join_step(MeshContext.create(
+        SHARDS, devices=[dev] * SHARDS))
+    got = step(keys, valid, tk, tv)
+    want = probe_sharded_plain(keys, valid, tk, tv, SHARDS)
+    return {
+        "err": max_abs_err(list(got), list(want)),
+        "run": lambda: step(keys, valid, tk, tv),
+        "plain": lambda: probe_sharded_plain(keys, valid, tk, tv, SHARDS),
+        "library": lambda: torch.searchsorted(tk, keys),
+        "bytes": keys.numel() * (8 + 1 + 4 + 1) + tk.numel() * 12,
+    }
+
+
+def case_exchange_pack_dcn(dev, kind):
+    """G26 at the DCN window job's shard slice, exactly: ``main`` one of
+    the 131,072-lane slices (262,144 lanes a host over 2 local shards) of
+    its first round on host 0, n = 4 shards, cap = bucket_capacity(131,072,
+    4) = 65,536; ``edge`` one key in every lane (the bucket overflows) and
+    the exhausted host's all-invalid slice."""
+    from flink_tpu_torch.parallel.exchange import bucket_capacity
+
+    n = DCN_PROCS * DCN_LOCAL
+    bpd = BATCH // DCN_LOCAL
+    cap = bucket_capacity(bpd, n, 2.0)
+    keys, ts, vals = north_star_events(
+        DCN_PROCS * np.arange(bpd, dtype=np.int64), DCN_EVENTS_PER_MS)
+    ok = np.ones(bpd, bool)
+    cases = ([(keys, ok)] if kind == "main" else
+             [(np.full(bpd, 7), ok), (keys, np.zeros(bpd, bool))])
+    err = 0.0
+    for k, v_ok in cases:
+        args = (_i32(np.zeros(bpd, np.uint32), dev),
+                _i32(k.astype(np.uint32), dev), _i32(ts.astype(np.int32), dev),
+                torch.from_numpy(vals).to(dev), torch.from_numpy(v_ok).to(dev))
+        a = kernels.exchange_pack(*args, n=n, maxp=MAX_PARALLELISM, cap=cap)
+        b = kernels.exchange_pack_plain(*args, n=n, maxp=MAX_PARALLELISM,
+                                        cap=cap)
+        err = max(err, max_abs_err(list(a), list(b)))
+    return {
+        "err": err,
+        "run": lambda: kernels.exchange_pack(*args, n=n,
+                                             maxp=MAX_PARALLELISM, cap=cap),
+        "plain": lambda: kernels.exchange_pack_plain(
+            *args, n=n, maxp=MAX_PARALLELISM, cap=cap),
+        "library": None,
+        "bytes": bpd * 17 + n * cap * 17,
+    }
+
+
+DCN_HELD_ROUND = 3             # the lockstep round phase 3 holds (main)
+
+
+def dcn_rounds(spec):
+    """The lockstep rounds of a phase-26 job as its workers see them: each
+    host polls its partition of the builder's own source up to its lane
+    budget and pads it. Yields per round the hosts' columns (hi, lo, ts,
+    float32 value bits, valid as int32 [5, P, B]) and the agreed
+    watermark (the pmin of the hosts', MAX_TICKS from a host that the
+    round exhausted), up to the round that exhausts every source."""
+    from flink_tpu_torch.ops.hashing import key_identity64
+    from flink_tpu_torch.runtime.dcn import MAX_TICKS
+
+    B = spec.batch_per_host
+    srcs = [spec.source_factory(p, DCN_PROCS) for p in range(DCN_PROCS)]
+    wm = [-(2**31) + 1] * DCN_PROCS
+    done = [False] * DCN_PROCS
+    while not all(done):
+        cols = np.zeros((5, DCN_PROCS, B), np.int32)
+        wms = []
+        for p, src in enumerate(srcs):
+            keys, ts, vals, done[p] = src.poll(B)
+            m = len(keys)
+            if m:
+                h = key_identity64(keys)
+                cols[0, p, :m] = (h >> np.uint64(32)).astype(np.uint32).view(
+                    np.int32)
+                cols[1, p, :m] = h.astype(np.uint32).view(np.int32)
+                cols[2, p, :m] = ts - spec.origin_ms
+                cols[3, p, :m] = vals.astype(np.float32).view(np.int32)
+                cols[4, p, :m] = 1
+                wm[p] = min(max(wm[p], int(ts.max()) - spec.origin_ms
+                                - spec.out_of_orderness_ms - 1), MAX_TICKS)
+            wms.append(MAX_TICKS if done[p] else wm[p])
+        yield cols, min(wms)
+
+
+def _lanes(cols, dev):
+    """(hi, lo, ts, values, valid) tensors of int32 [5, B] columns."""
+    t = torch.from_numpy(np.ascontiguousarray(cols)).to(dev)
+    return t[0], t[1], t[2], t[3].view(torch.float32), t[4] != 0
+
+
+def _shard0_range():
+    from flink_tpu_torch.parallel.mesh import MeshContext
+
+    r = MeshContext.create(
+        DCN_PROCS * DCN_LOCAL, MAX_PARALLELISM, devices=["cpu"] * DCN_LOCAL,
+        process_count=DCN_PROCS, process_index=0).local_key_group_ranges[0]
+    return r.start, r.end
+
+
+def _clone_state(st):
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)
+        if isinstance(getattr(st, f.name), torch.Tensor)})
+
+
+_DCN_HELD = {}
+
+
+def dcn_held(dev, job):
+    """Shard 0 (process 0) of a phase-26 job driven through its path
+    round by round, the rounds from ``dcn_rounds`` of the builder's own
+    spec: G1's owner mask on the gathered lanes (sessions, cep) or on the
+    lanes G26 buckets for shard 0 from every shard (rolling), then the
+    stage's one-shard step. Returns {"main": the round DCN_HELD_ROUND,
+    "edge": the last round (a partial batch; the MAX watermark)}, each
+    the shard's state before the round (G5 already run on a copy of its
+    table) and the round's lanes: a dict with ``st``, ``slot``, ``live``
+    and the lanes."""
+    if job in _DCN_HELD:
+        return _DCN_HELD[job]
+    from flink_tpu_torch.cep import device as cdev
+    from flink_tpu_torch.ops import rolling
+    from flink_tpu_torch.parallel.exchange import bucket_capacity, owned_lanes
+
+    spec = {"sessions": dcn_session_job, "rolling": dcn_rolling_job,
+            "cep": dcn_cep_job}[job]()
+    C = spec.capacity_per_shard
+    k0, k1 = _shard0_range()
+    n = DCN_PROCS * DCN_LOCAL
+    if job == "sessions":
+        st = session_windows.init_state(C, dev)
+    elif job == "rolling":
+        st = rolling.init_state(C, dev)
+        bpd = spec.batch_per_host // DCN_LOCAL
+        cap = bucket_capacity(bpd, n, 2.0)
+    else:
+        dspec = DevicePatternSpec.from_pattern(cep_pattern())
+        st = cdev.init_state(C, 16, dspec, dev)
+    held, last = {}, None
+    for r, (cols, wm) in enumerate(dcn_rounds(spec)):
+        if job == "rolling":
+            # shard 0's bucket of each source shard, in shard order
+            got = []
+            for p in range(DCN_PROCS):
+                for s in range(DCN_LOCAL):
+                    pk = kernels.exchange_pack(*_lanes(
+                        cols[:, p, s * bpd:(s + 1) * bpd], dev), n=n,
+                        maxp=MAX_PARALLELISM, cap=cap)
+                    check(int(pk.overflow) == 0, "dcn rolling: a bucket "
+                                                 "overflows")
+                    got.append([x.reshape(n, cap)[0] for x in
+                                (pk.hi, pk.lo, pk.ts, pk.values, pk.valid)])
+            h, l, t, v, ok = (torch.cat(c) for c in zip(*got))
+        else:
+            h, l, t, v, ok = _lanes(cols.reshape(5, -1), dev)
+        mine = owned_lanes(h, l, ok, k0, k1, MAX_PARALLELISM)
+        want = owned_lanes(h.cpu(), l.cpu(), ok.cpu(), k0, k1,
+                           MAX_PARALLELISM) if dev.type == "cuda" else mine
+        check(torch.equal(mine.cpu(), want), f"dcn {job}: G1's owner mask "
+                                             f"differs from its plain twin")
+        rec = {"st": _clone_state(st), "h": h, "l": l, "t": t, "v": v,
+               "mine": mine, "wm": wm}
+        table = rec["st"].table if job == "cep" else rec["st"].table_keys
+        if job == "cep":
+            rec["slot"], ok5, _ = hashtable.upsert_counted(
+                table, h, l, mine, probe_len=st.probe_len)
+            bits = v.to(torch.int32)
+            rec["masks"] = ((bits[:, None] >> torch.arange(
+                dspec.n_stages, dtype=torch.int32, device=dev)) & 1).bool()
+            rec["dspec"] = dspec
+            cdev.advance(st, dspec, h, l, rec["masks"], mine)
+        elif job == "sessions":
+            v = torch.ones_like(v)
+            rec["v"] = v
+            late = mine & (t + spec.gap_ms <= rec["st"].watermark)
+            rec["slot"], ok5 = hashtable.upsert(table, h, l, mine & ~late)
+            ok5 = ok5 & ~late
+            session_windows.update_and_fire(
+                st, spec.gap_ms, h, l, t, v, mine,
+                torch.tensor(wm, dtype=torch.int32, device=dev))
+        else:
+            rec["slot"], ok5 = hashtable.upsert(table, h, l, mine)
+            rolling.update(st, h, l, v, mine)
+        rec["live"] = mine & ok5
+        if r == DCN_HELD_ROUND:
+            held["main"] = rec
+        last = rec
+    held["edge"] = last
+    check("main" in held, f"dcn {job}: fewer than {DCN_HELD_ROUND + 1} "
+                          f"rounds")
+    _DCN_HELD[job] = held
+    return held
+
+
+def case_segment_sort_dcn(dev, kind, job):
+    """G10 at a phase-26 job's shard-0 lanes (``dcn_held``), exactly:
+    sessions' (slot, tick) keys over 524,288 gathered lanes, C = 2^18;
+    cep's and rolling's slot keys over 32,768 gathered lanes (C = 2^16)
+    and 262,144 exchanged lanes (C = 2^20)."""
+    rec = dcn_held(dev, job)[kind]
+    C = rec["st"].capacity
+    if job == "sessions":
+        key = (rec["slot"].to(torch.int64) << 32) | (rec["t"].to(torch.int64)
+                                                     + 2**31)
+        key = torch.where(rec["live"], key, C << 32)
+        bits, sh = 32 + C.bit_length(), 32
+    else:
+        key = torch.where(rec["live"], rec["slot"].to(torch.int64), C)
+        bits, sh = C.bit_length(), 0
+    got = kernels.segment_sort(key, bits=bits, seg_shift=sh)
+    want = kernels.segment_sort_plain(key, bits=bits, seg_shift=sh)
+    return {
+        "err": max_abs_err(list(got), list(want)),
+        "run": lambda: kernels.segment_sort(key, bits=bits, seg_shift=sh),
+        "plain": lambda: kernels.segment_sort_plain(key, bits=bits,
+                                                    seg_shift=sh),
+        "library": lambda: torch.sort(key, stable=True),
+        "bytes": key.numel() * (8 + 4 + 8 + 1),
+    }
+
+
+def case_session_update_dcn(dev, kind):
+    """G11 at the DCN sessions job's shard-0 lanes (524,288 gathered,
+    C = 2^18), exactly: ``main`` round 3 into the open sessions of the
+    rounds before (no session closes or is superseded there: the states
+    are what is compared); ``edge`` the last round, a partial batch at
+    the MAX watermark, which closes every open session."""
+    rec = dcn_held(dev, "sessions")[kind]
+    st = rec["st"]
+    c = session_update_pair(
+        dev, st.capacity, SESSION_GAP_MS,
+        (st.start, st.last, st.acc, st.active), st.table_keys, rec["slot"],
+        rec["t"], rec["live"], rec["h"], rec["l"], rec["v"],
+        max(rec["wm"], int(st.watermark)), fires=kind == "edge")
+    c["err"] = max_abs_err(c.pop("got"), c.pop("want"))
+    return c
+
+
+def case_cep_scan_dcn(dev, kind):
+    """G19 at the DCN cep job's shard-0 lanes (32,768 gathered, C = 2^16,
+    D = 3), exactly: ``main`` round 3 on the carry of the rounds before;
+    ``edge`` the last round, the exhausted hosts' partial batches."""
+    rec = dcn_held(dev, "cep")[kind]
+    st, dspec = rec["st"], rec["dspec"]
+    C = st.capacity
+    order, key_s, seg = segment.sort_slots(rec["slot"], rec["live"], C)
+    args = dict(relaxed=dspec.relaxed, Q=dspec.within_panes, q_t=0)
+    c1, c2 = st.carry.clone(), st.carry.clone()
+    masks = rec["masks"]
+    d1 = kernels.cep_scan(order, key_s, seg, masks, c1, **args)
+    d2 = kernels.cep_scan_plain(order, key_s, seg, masks, c2, **args)
+    touched = int(torch.unique(key_s[key_s < C]).numel())
+    D = st.carry.shape[1]
+    return {
+        "err": max_abs_err((d1, c1), (d2, c2)),
+        "run": lambda: kernels.cep_scan(order, key_s, seg, masks, c1,
+                                        **args),
+        "plain": lambda: kernels.cep_scan_plain(order, key_s, seg, masks,
+                                                c2, **args),
+        "library": None,
+        "bytes": masks.shape[0] * (dspec.n_stages + 4 + 8 + 1 + 4)
+        + touched * D * 4 * 2,
+    }
+
+
+def case_rolling_update_dcn(dev, kind):
+    """G13 at the DCN rolling job's shard-0 lanes (262,144: shard 0's
+    G26 bucket from each of the 4 shards, C = 2^20), exactly: ``main``
+    round 3 on the totals of the rounds before; ``edge`` the last round,
+    the exhausted hosts' partial batches."""
+    rec = dcn_held(dev, "rolling")[kind]
+    st = rec["st"]
+    C = st.capacity
+    order, key_s, seg = segment.sort_slots(rec["slot"], rec["live"], C)
+    a1, t1 = st.acc.clone(), st.touched.clone()
+    a2, t2 = st.acc.clone(), st.touched.clone()
+    vals = rec["v"]
+    o1 = kernels.rolling_update(a1, t1, order, key_s, seg, vals)
+    o2 = kernels.rolling_update_plain(a2, t2, order, key_s, seg, vals)
+    n_keys = int(torch.unique(key_s[key_s < C]).numel())
+    return {
+        "err": max_abs_err((o1, a1, t1), (o2, a2, t2)),
+        "run": lambda: kernels.rolling_update(a1, t1, order, key_s, seg,
+                                              vals),
+        "plain": lambda: kernels.rolling_update_plain(a2, t2, order, key_s,
+                                                      seg, vals),
+        "library": None,
+        "bytes": vals.numel() * (8 + 1 + 4 + 4 + 4) + n_keys * (4 + 1) * 2,
+    }
+
+
+def dcn_kernel_phase(dev, timing=True) -> dict:
+    """Phase 3's checks for phase 26: K21 sharded, and each kernel of the
+    DCN jobs at the shapes their workers give it (shard 0 of process 0):
+    G26 at the window job's slice; G10 and G11 at the sessions job's
+    gathered lanes; G10 and G19 at the cep job's; G10 and G13 at the
+    rolling job's exchanged lanes. Returns {kernel: {mode: record}}."""
+    out = {"sorted_probe": {"sharded": hold(
+               "broadcast join over 4 shards",
+               lambda k: case_probe_sharded(dev, k), timing)},
+           "exchange_pack": {"dcn": hold(
+               "exchange_pack (the DCN window job's slice)",
+               lambda k: case_exchange_pack_dcn(dev, k), timing)},
+           "segment_sort": {}}
+    for job in ("sessions", "cep", "rolling"):
+        out["segment_sort"][f"dcn_{job}"] = hold(
+            f"segment_sort (the DCN {job} job's shard lanes)",
+            lambda k, j=job: case_segment_sort_dcn(dev, k, j), timing)
+    out["session_update"] = {"dcn": hold(
+        "session_update (the DCN sessions job's shard lanes)",
+        lambda k: case_session_update_dcn(dev, k), timing)}
+    out["cep_scan"] = {"dcn": hold(
+        "cep_scan (the DCN cep job's shard lanes)",
+        lambda k: case_cep_scan_dcn(dev, k), timing)}
+    out["rolling_update"] = {"dcn": hold(
+        "rolling_update (the DCN rolling job's shard lanes)",
+        lambda k: case_rolling_update_dcn(dev, k), timing)}
+    _DCN_HELD.clear()
+    return out
+
 
 KERNEL_SOURCES = {
     "route_lanes": ("flink_tpu_torch/csrc/route_lanes.cu",
@@ -7467,6 +8429,8 @@ def main(argv) -> int:
     recs.update(library_kernel_phase(dev))
     recs.update(shard_kernel_phase(dev))
     for name, rec in sharded_keyed_kernel_phase(dev).items():
+        recs.setdefault(name, {}).update(rec)
+    for name, rec in dcn_kernel_phase(dev).items():
         recs.setdefault(name, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
 
@@ -7852,6 +8816,7 @@ def main(argv) -> int:
     library_runs(dev, kind, smi, total_launches)
     sharded_runs(dev, kind, smi, total_launches, want_count)
     sharded_keyed_runs(dev, kind, smi, total_launches)
+    dcn_runs(dev, kind, smi, total_launches)
 
     if "--profile" in argv:
         emit(profile_phase(

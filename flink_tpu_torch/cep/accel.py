@@ -151,6 +151,29 @@ def adopt_partials(partials: list, memo: Dict[int, Entry]) -> list:
     return out
 
 
+def advance_shards(ctx: MeshContext, states: List[CepShardState],
+                   spec: DevicePatternSpec, hi, lo, masks, valid,
+                   pane: int = 0):
+    """One replicated batch through each of this process's shards: G1's
+    owner mask over the shard's key groups (``owned_lanes``), then the
+    one-shard advance (G5, G10, G19; G20 with within()) on ``states[s]``,
+    in place, under the shard's device guard. Returns each shard's
+    (delta float32 [B], owned lanes bool [B]) on its device; the deltas
+    are zero off the owned lanes."""
+    out = []
+    for s, (dev, r) in enumerate(zip(ctx.devices,
+                                     ctx.local_key_group_ranges)):
+        with device_guard(dev):
+            h, l, m, ok = (t.to(dev, non_blocking=True)
+                           for t in (hi, lo, masks, valid))
+            mine = owned_lanes(h, l, ok, r.start, r.end,
+                               ctx.max_parallelism)
+            states[s], delta, _tot = advance(states[s], spec, h, l, m,
+                                             mine, pane)
+        out.append((delta, mine))
+    return out
+
+
 class DeviceCepOperator:
     """Keyed CEP over micro-batches: the card's count NFA detects, the host
     replays the flagged keys to extract. One instance per job; ``n_shards``
@@ -206,24 +229,13 @@ class DeviceCepOperator:
 
     def _advance_sharded(self, hi, lo, masks, valid, pane: int):
         """One batch through every shard (the reference's sharded step):
-        G1's owner mask over the shard's key groups, the one-shard advance
-        on its state, and G27's sum of the shards' deltas, each masked to
-        its owned lanes. Returns the delta float32 [B] on the first
-        shard's device."""
-        ctx = self.ctx
-        deltas, mines = [], []
-        for st_i, (dev, r) in enumerate(zip(ctx.devices,
-                                            ctx.key_group_ranges)):
-            with device_guard(dev):
-                h, l, m, ok = (t.to(dev, non_blocking=True)
-                               for t in (hi, lo, masks, valid))
-                mine = owned_lanes(h, l, ok, r.start, r.end,
-                                   self.max_parallelism)
-                self.states[st_i], delta, _tot = advance(
-                    self.states[st_i], self.spec, h, l, m, mine, pane)
-            deltas.append(delta)
-            mines.append(mine)
-        delta, _ok = psum(deltas, mines, ctx.devices[0])
+        ``advance_shards``, then G27's sum of the shards' deltas, each
+        masked to its owned lanes. Returns the delta float32 [B] on the
+        first shard's device."""
+        deltas, mines = zip(*advance_shards(self.ctx, self.states,
+                                            self.spec, hi, lo, masks, valid,
+                                            pane))
+        delta, _ok = psum(list(deltas), list(mines), self.ctx.devices[0])
         return delta
 
     def _masks(self, elements: Sequence) -> np.ndarray:

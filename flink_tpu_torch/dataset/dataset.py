@@ -599,7 +599,8 @@ def _device_broadcast_join(lefts, rights, k1, k2, build_left, f, device):
     from flink_tpu_torch.parallel.broadcast import broadcast_join
 
     idx, hit = broadcast_join(
-        pkeys, bkeys, np.arange(len(build), dtype=np.float32), device)
+        pkeys, bkeys, np.arange(len(build), dtype=np.float32),
+        device=device)
     out = []
     pos = idx.astype(np.int64)
     for i in np.nonzero(hit)[0]:

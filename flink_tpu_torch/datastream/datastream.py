@@ -10,7 +10,10 @@ sketch windows ``distinct_count`` (HyperLogLog) and ``count_min``, the
 rolling ``KeyedStream.sum`` and ``KeyedStream.reduce``,
 ``allowed_lateness``, ``add_sink``, ``assign_timestamps_and_watermarks``
 and, for ``CEP.pattern(...).select`` / ``flat_select``, the
-``KeyedStream.process`` of a ``CEPProcessFunction``. A ``reduce``'s function is an
+``KeyedStream.process`` of a ``CEPProcessFunction``, and the partition
+annotations ``rebalance``, ``rescale``, ``shuffle``, ``global_`` and
+``forward`` (a recorded no-op on one process, the ingest partitioner of
+the multi-process path). A ``reduce``'s function is an
 associative callable on torch tensors, as the reference's is on jnp
 arrays. Every other method
 of the reference exists and raises NotImplementedError naming the ROADMAP
@@ -53,6 +56,7 @@ def _later(owner: str, name: str, item: str):
 
 
 _OPS = "ROADMAP queue 1, item 9"
+# connect and broadcast wait for item 9's runners (item 12's API half)
 _MULTI = "ROADMAP queue 1, item 12"
 _EDGES = "ROADMAP queue 1, item 15"
 
@@ -97,13 +101,28 @@ class DataStream:
     split = _later("DataStream", "split", _OPS)
     iterate = _later("DataStream", "iterate", _OPS)
     broadcast = _later("DataStream", "broadcast", _MULTI)
-    rebalance = _later("DataStream", "rebalance", _MULTI)
-    rescale = _later("DataStream", "rescale", _MULTI)
-    shuffle = _later("DataStream", "shuffle", _MULTI)
-    global_ = _later("DataStream", "global_", _MULTI)
-    forward = _later("DataStream", "forward", _MULTI)
     print_ = _later("DataStream", "print_", _EDGES)
     write_as_text = _later("DataStream", "write_as_text", _EDGES)
+
+    # -- explicit exchange annotations (see PartitionTransformation) -----
+    def _partition(self, mode: str) -> "DataStream":
+        t = sg.PartitionTransformation(mode, self.transformation, mode=mode)
+        return DataStream(self.env, t)
+
+    def rebalance(self) -> "DataStream":
+        return self._partition("rebalance")
+
+    def rescale(self) -> "DataStream":
+        return self._partition("rescale")
+
+    def shuffle(self) -> "DataStream":
+        return self._partition("shuffle")
+
+    def global_(self) -> "DataStream":
+        return self._partition("global")
+
+    def forward(self) -> "DataStream":
+        return self._partition("forward")
 
 
 class KeyedStream(DataStream):

@@ -237,13 +237,22 @@ def _compile(out: Path) -> None:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernels' shared library."""
+    """Compile (if needed) and load the kernels' shared library. The
+    compile runs under a file lock in the build directory, so processes
+    that start together (the workers of the cross-process plane) build it
+    once: the first takes the lock and builds, the others wait and load."""
     global _lib
     with _lib_lock:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
+                import fcntl
+
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / "build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not path.exists():
+                        _compile(path)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -10,6 +10,12 @@ received lanes to its key groups in G1 (``wk.update``'s ``kg_start`` /
 ``kg_end``: the reference's ``exchange_owned`` mask). Lanes past their
 bucket's capacity are counted per source, never silently lost: the
 caller adds them to the source shard's ``dropped_capacity``.
+
+Over a mesh that spans processes (``exchange_across``) the five columns
+of each send buffer travel packed as one int32 ``[n, 5, cap]`` block (the
+values' float bits, the valid flag as 0 / 1) through the plane's
+all_to_all (``parallel/collectives.py ProcessPlane``): one Gloo call a
+round instead of five.
 """
 
 from __future__ import annotations
@@ -60,6 +66,34 @@ def exchange_records(slices: Sequence[Tuple], n: int, max_parallelism: int,
     received = [tuple(c[t] for c in cols) for t in range(n)]
     return received, [p.overflow for p in packs]
 
+
+
+def exchange_across(plane, slices: Sequence[Tuple], n: int,
+                    max_parallelism: int, cap: int, devices):
+    """``exchange_records`` over a mesh of ``plane.nproc`` processes:
+    ``slices[s]`` is this process's shard s's ``(hi, lo, ts, values,
+    valid)`` lane slice (scalar float32 values) on ``devices[s]``, and
+    ``n`` counts the shards of every process. G26 buckets each slice over
+    the n shards, the plane's all_to_all hands each local target its
+    buckets from every shard of every process. Returns ``(received,
+    overflow)`` as ``exchange_records`` does, for this process's shards."""
+    packed, overflow = [], []
+    for s, (hi, lo, ts, values, valid) in enumerate(slices):
+        dev = torch.device(devices[s])
+        with device_guard(dev):
+            p = kernels.exchange_pack(hi, lo, ts, values, valid, n=n,
+                                      maxp=max_parallelism, cap=cap)
+            cols = torch.stack([p.hi, p.lo, p.ts, p.values.view(torch.int32),
+                                p.valid.to(torch.int32)])
+            packed.append(cols.view(5, n, cap).transpose(0, 1).contiguous())
+        overflow.append(p.overflow)
+    received = []
+    for t, buf in enumerate(plane.all_to_all(packed, devices)):
+        with device_guard(devices[t]):
+            col = [buf[:, c, :].reshape(-1) for c in range(5)]
+            received.append((col[0], col[1], col[2],
+                             col[3].view(torch.float32), col[4] != 0))
+    return received, overflow
 
 
 def owned_lanes(hi, lo, valid, kg_start: int, kg_end: int,

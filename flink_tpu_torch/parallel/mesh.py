@@ -14,6 +14,14 @@ copies (``parallel/collectives.py``).
 the counterpart of XLA's ``--xla_force_host_platform_device_count``, with
 which the reference's tests get an 8-device mesh on one CPU. Several
 shards then share one device, and their collectives are copies within it.
+
+A mesh may span processes (the cross-process plane, ``runtime/dcn.py``:
+the counterpart of the reference's global mesh over ``jax.devices()``).
+Each process then holds ``L = len(devices)`` shards on its own devices,
+``process_count x L`` shards in all: process p holds shards ``[p * L,
+(p + 1) * L)``, and the key groups spread over every shard of every
+process. The collectives between processes ride a Gloo group
+(``parallel/collectives.py ProcessPlane``).
 """
 
 from __future__ import annotations
@@ -103,34 +111,62 @@ def validate_kg_slices(max_parallelism: int, n_shards: int, slices):
 
 @dataclass
 class MeshContext:
-    """A job's shard topology: ``devices[s]`` holds shard s, which owns the
-    key groups ``key_group_ranges[s]``. ``kg_slices`` optionally replaces
-    the uniform partition with a custom contiguous slicing of inclusive
-    (start, end) pairs."""
+    """A job's shard topology: ``devices[s]`` holds this process's shard s,
+    which owns the key groups ``local_key_group_ranges[s]``. Over
+    ``process_count`` processes the mesh has ``n_shards = process_count x
+    len(devices)`` shards, and process ``process_index`` holds shards
+    ``local_shards`` of ``key_group_ranges``. ``kg_slices`` optionally
+    replaces the uniform partition with a custom contiguous slicing of
+    inclusive (start, end) pairs."""
 
     devices: List[torch.device]
     max_parallelism: int
     kg_slices: Optional[tuple] = None
+    process_count: int = 1
+    process_index: int = 0
     _ranges: Optional[list] = field(default=None, repr=False)
 
     @staticmethod
     def create(n_shards: Optional[int] = None, max_parallelism: int = 128,
-               devices=None, kg_slices=None) -> "MeshContext":
+               devices=None, kg_slices=None, process_count: int = 1,
+               process_index: int = 0) -> "MeshContext":
+        """``n_shards`` over this process's ``devices`` (one process), or
+        ``n_shards = process_count x L`` over ``process_count`` processes,
+        this one holding L shards on the first L of ``devices``."""
         devices = list(devices) if devices is not None else \
             mesh_devices("cpu")
-        n = n_shards or len(devices)
-        if n > len(devices):
-            raise ValueError(f"need {n} devices, have {len(devices)}")
+        n = n_shards or len(devices) * process_count
+        if n % process_count:
+            raise ValueError(f"{n} shards do not split over "
+                             f"{process_count} processes")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process index {process_index} outside "
+                             f"[0, {process_count})")
+        local = n // process_count
+        if local > len(devices):
+            raise ValueError(f"need {local} devices, have {len(devices)}")
         check_parallelism(max_parallelism, n)
         if kg_slices is not None:
             kg_slices = tuple((int(s), int(e)) for s, e in kg_slices)
             validate_kg_slices(max_parallelism, n, kg_slices)
-        return MeshContext([torch.device(d) for d in devices[:n]],
-                           max_parallelism, kg_slices)
+        return MeshContext([torch.device(d) for d in devices[:local]],
+                           max_parallelism, kg_slices, process_count,
+                           process_index)
 
     @property
     def n_shards(self) -> int:
-        return len(self.devices)
+        return len(self.devices) * self.process_count
+
+    @property
+    def local_shards(self) -> range:
+        """The global indices of this process's shards."""
+        L = len(self.devices)
+        return range(self.process_index * L, (self.process_index + 1) * L)
+
+    @property
+    def local_key_group_ranges(self) -> List[KeyGroupRange]:
+        """The key-group ranges of this process's shards, in order."""
+        return [self.key_group_ranges[s] for s in self.local_shards]
 
     @property
     def key_group_ranges(self) -> List[KeyGroupRange]:

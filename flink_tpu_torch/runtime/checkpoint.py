@@ -123,11 +123,11 @@ def restore_sharded_state(entries, scalars, ctx, spec,
     shard = ctx.shard_of_key_groups(kg)
     zero = dict(scalars, dropped_late=0, dropped_capacity=0)
     out = []
-    for s, dev in enumerate(ctx.devices):
+    for i, (s, dev) in enumerate(zip(ctx.local_shards, ctx.devices)):
         sel = shard == s
         part = {k: np.asarray(v)[sel] for k, v in entries.items()}
         out.append(restore_window_state(
-            part, scalars if s == 0 else zero, spec, ctx.max_parallelism,
+            part, scalars if i == 0 else zero, spec, ctx.max_parallelism,
             dev, leftover=leftover))
     return out
 

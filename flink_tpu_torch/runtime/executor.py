@@ -1,6 +1,8 @@
 """Local executor for one keyed event-time window stage on one device or
 over a shard mesh — the main-path slice of flink_tpu/runtime/executor.py
-(``_run_windowed``).
+(``_run_windowed``), and with ``dcn.coordinator`` set the multi-process
+path (``_run_dcn``: the job's stage over a mesh that spans every worker
+process running the same program, ``runtime/dcn.py``).
 
 It runs ``source -> [assign timestamps] -> key_by -> tumbling or sliding
 event-time window [-> allowed_lateness] -> sum | count | min | max | mean |
@@ -304,7 +306,7 @@ from flink_tpu_torch.runtime import sources as sources_mod
 from flink_tpu_torch.runtime import tiers as tiers_mod
 from flink_tpu_torch.runtime import ingest as ingest_mod
 from flink_tpu_torch.runtime.job import (
-    StageJob, batch_len, key_words, split_poll,
+    StageJob, batch_len, key_words, per_batch, split_poll,
 )
 from flink_tpu_torch.runtime.stages import StageGraph, StageGraphError
 from flink_tpu_torch.runtime.step import (
@@ -410,6 +412,9 @@ class JobMetrics:
     exchange_mode: str = ""
     steps_exchanged: int = 0
     steps_sharded: int = 0
+    # the multi-process path (dcn.coordinator): the records this process's
+    # lanes carried
+    dcn_ingested_local: int = 0
     # the reference's counters of paths the port does not run yet; they
     # stay 0 (the failure budget and the watchdog: item 13)
     checkpoints_aborted: int = 0
@@ -475,6 +480,10 @@ class _Pipeline:
     # pairs in order, validated into ``graph`` (runtime/stages.py)
     stages: List[list] = dataclasses.field(default_factory=list)
     graph: Optional[StageGraph] = None
+    # the partition annotation upstream of key_by (rebalance, rescale,
+    # shuffle, global): the multi-process path's ingest partitioner, a
+    # recorded no-op on one process (the reference's executor.py:925-927)
+    ingest_partition: Optional[str] = None
 
     @property
     def stage(self):
@@ -496,13 +505,17 @@ def _chain_tail_error(stages) -> StageGraphError:
         f"and process functions cannot chain after a windowed stage)")
 
 
-def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
+def _translate(sink_ts: List[sg.SinkTransformation],
+               dcn: bool = False) -> _Pipeline:
     """Check the job is a topology the port runs and collect it:
-    source -> [timestamps] -> key_by -> a window aggregation, a rolling
-    reduce or a CEP pattern -> sinks."""
+    source -> [timestamps] -> [a partition annotation] -> key_by -> a
+    window aggregation, a rolling reduce or a CEP pattern -> sinks.
+    ``dcn``: the multi-process path, which checks the stage itself
+    (``_run_dcn``)."""
     if not sink_ts:
         raise ValueError("job has no sinks")
     pipe = None
+    partition = None
     for st in sink_ts:
         chain = sg.lineage(st)
         head, rest = chain[0], chain[1:]
@@ -512,7 +525,10 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
         ts_t = key_t = agg_t = None
         stages: List[list] = []
         for t in rest:
-            if isinstance(t, sg.TimestampsWatermarksTransformation) \
+            if isinstance(t, sg.PartitionTransformation) and key_t is None:
+                if t.mode not in ("broadcast", "forward"):
+                    partition = t.mode
+            elif isinstance(t, sg.TimestampsWatermarksTransformation) \
                     and key_t is None and ts_t is None:
                 ts_t = t
             elif isinstance(t, sg.KeyByTransformation) and key_t is None:
@@ -568,11 +584,12 @@ def _translate(sink_ts: List[sg.SinkTransformation]) -> _Pipeline:
         else:
             raise _unsupported("sinks on more than one keyed stage or "
                                "branch of the job", "ROADMAP queue 1, item 9")
+    pipe.ingest_partition = partition
     if pipe.stages:
         # every unsupported chain shape raises here, naming its stage or
         # edge, before anything runs (the reference's executor.py:1239-1245)
         pipe.graph = StageGraph.from_pipeline(pipe)
-    if pipe.process is not None or pipe.rolling is not None:
+    if dcn or pipe.process is not None or pipe.rolling is not None:
         return pipe
     wagg = pipe.window_agg
     assigner = wagg.assigner
@@ -626,13 +643,30 @@ class LocalExecutor:
                 "observability.tracing (the step-loop span tracer, the "
                 "reference's metrics/tracing.py SpanTracer)",
                 "ROADMAP queue 1, item 15")
-        pipe = _translate(sinks)
+        dcn = bool(env.config.get_str("dcn.coordinator", ""))
+        pipe = _translate(sinks, dcn=dcn)
         # a time-window job replaces these with its own telemetry
         env._pipeline_report = _no_pipeline_report
         env._kg_report = _no_kg_report(env.max_parallelism)
         env._doctor_report = _no_doctor_report
         env._controller_report = _no_controller_report
         env._gauges = {}
+        if dcn:
+            # never single-host: the plane runs the job or it raises
+            if pipe.stages:
+                raise StageGraphError(
+                    "multi-stage keyed chains are single-host for now — "
+                    "the DCN lockstep plane runs one keyed stage")
+            for s in pipe.sinks:
+                s.open()
+            pipe.source.open()
+            try:
+                return _run_dcn(env, pipe, JobMetrics(), job_name,
+                                restore_from)
+            finally:
+                pipe.source.close()
+                for s in pipe.sinks:
+                    s.close()
         # rolling and count stages need no time characteristic; time and
         # session windows run in event time only
         if pipe.window_agg is not None \
@@ -677,6 +711,210 @@ class LocalExecutor:
         return JobHandle(job_name, job.metrics,
                          state=states if states is not None
                          and len(states) > 1 else job.state)
+
+
+def _run_dcn(env, pipe: _Pipeline, metrics: JobMetrics, job_name,
+             restore_from=None) -> JobHandle:
+    """Multi-process execution over the DCN plane (the reference's
+    ``_run_dcn``, executor.py:1298-1541): the SAME program runs in every
+    worker process; ``dcn.coordinator``, ``dcn.num-processes`` and
+    ``dcn.process-id`` select this path from ``env.execute()``. The
+    pipeline's windowed keyed stage lowers to a ``DCNJobSpec``; each
+    process ingests ITS source's records, and the keyed shuffle rides the
+    plane's collectives (``runtime/dcn.py``). Covered: event-time
+    tumbling, sliding and session windows over integer keys with a
+    builtin reduce (sum, min, max, count; sessions sum and count). Every
+    other stage raises the reference's error, or NotImplementedError
+    naming the ROADMAP item, and never runs single-host."""
+    from flink_tpu_torch.parallel.collectives import ProcessPlane
+    from flink_tpu_torch.runtime import dcn
+
+    cfg = env.config
+    coord = cfg.get_str("dcn.coordinator")
+    nproc = cfg.get_int("dcn.num-processes", 1)
+    pid = cfg.get_int("dcn.process-id", 0)
+    res_dcn = cfg.get_str("pipeline.resident-loop", "auto")
+    # "on" and "while" drain up to ring-depth locally polled batches per
+    # lockstep round in one dispatch (the slot count agreed as the pmax of
+    # the hosts' fills); "auto" keeps the single-step lockstep dispatch
+    if cfg.get_str("pipeline.data-parallel", "auto") == "on":
+        raise ValueError(
+            "pipeline.data-parallel=on is incompatible with the DCN "
+            "lockstep plane: the sharded ring drain rides the "
+            "resident loop, which the lockstep plane cannot run; "
+            "unset it or use pipeline.data-parallel=auto"
+        )
+    wagg = pipe.window_agg
+    if wagg is None or pipe.key_by is None:
+        raise NotImplementedError(
+            "dcn execution covers windowed keyed stages "
+            "(tumbling/sliding/session); run other stage kinds "
+            "single-host or restructure the job"
+        )
+    if env.time_characteristic != TimeCharacteristic.EventTime or (
+        pipe.ts_transform is None and not pipe.source.columnar
+    ):
+        raise NotImplementedError(
+            "dcn execution requires event time, with an "
+            "assign_timestamps_and_watermarks stage or a columnar "
+            "source carrying a timestamp array (the lockstep "
+            "watermark is the pmin of per-host event-time watermarks)"
+        )
+    if (wagg.trigger is not None or wagg.evictor is not None
+            or wagg.window_fn is not None or wagg.allowed_lateness_ms):
+        raise NotImplementedError(
+            "dcn execution does not cover custom triggers/evictors/"
+            "window functions or allowed lateness — these stage "
+            "shapes run single-host (the generic window operator)"
+        )
+    if wagg.reduce_spec_factory is None:
+        raise NotImplementedError(
+            "dcn execution requires a reduce aggregation "
+            "(sum/min/max/count)"
+        )
+    red = wagg.reduce_spec_factory()
+    if red.kind not in ("sum", "min", "max", "count") or \
+            red.finalize is not None or \
+            tuple(red.value_shape or ()) not in ((), (1,)):
+        raise NotImplementedError(
+            f"dcn execution supports scalar built-in reduces, not "
+            f"{red.kind!r} with value shape {red.value_shape!r} (e.g. "
+            f"mean() needs the composite-accumulator fire path)"
+        )
+    if wagg.result_fn is not None:
+        raise NotImplementedError(
+            "dcn execution does not apply result_fn finalization; "
+            "use a plain sum/min/max/count reduce"
+        )
+    assigner = wagg.assigner
+    spec_kw = dict(
+        capacity_per_shard=env.state_capacity_per_shard,
+        max_parallelism=env.max_parallelism,
+        batch_per_host=env.batch_size,
+        reduce_kind=red.kind,
+        out_of_orderness_ms=(
+            getattr(pipe.ts_transform.strategy, "out_of_orderness_ms", 0)
+            if pipe.ts_transform is not None else 0),
+        origin_ms=cfg.get_int("dcn.origin-ms", 0),
+        steps_per_dispatch=cfg.get_int("pipeline.steps-per-dispatch", 1),
+        resident=res_dcn in ("on", "while"),
+        resident_ring_depth=cfg.get_int("pipeline.ring-depth", 16),
+    )
+    # the physical ingest partitioner: the API annotation wins, the
+    # dcn.ingest-partitioner config is the fallback; the ring side
+    # channel takes one host:port per process from dcn.rebalance-addrs
+    part = pipe.ingest_partition or cfg.get_str("dcn.ingest-partitioner",
+                                                "forward")
+    if part == "rebalance":
+        spec_kw.update(rebalance=True)
+    elif part != "forward":
+        spec_kw.update(ingest_partitioner=part)
+    if part not in ("forward", "rescale") and nproc > 1:
+        addrs = cfg.get_str("dcn.rebalance-addrs", "")
+        if not addrs:
+            raise ValueError(f"ingest partitioner {part!r} needs "
+                             f"dcn.rebalance-addrs (one host:port per "
+                             f"process)")
+        spec_kw.update(rebalance_addrs=addrs.split(","))
+    if isinstance(assigner, SessionWindowAssigner):
+        if not assigner.is_event_time:
+            raise NotImplementedError(
+                "dcn execution covers event-time sessions only "
+                "(processing-time sessions would close on the host "
+                "clock, not the lockstep watermark)")
+        if red.kind not in ("sum", "count"):
+            raise _unsupported(f"{red.kind} reduces over session windows",
+                               "ROADMAP queue 1, item 9")
+        spec_kw.update(window_kind="session", gap_ms=assigner.gap_ms)
+    elif isinstance(assigner, WindowAssigner) and assigner.is_event_time:
+        spec_kw.update(size_ms=assigner.size_ms, slide_ms=assigner.slide_ms,
+                       fires_per_step=cfg.get_int("window.fires-per-step",
+                                                  4))
+    else:
+        raise NotImplementedError(
+            f"dcn execution does not cover {type(assigner).__name__} "
+            f"windows")
+    if restore_from and (
+            not env.checkpoint_dir
+            or os.path.abspath(str(restore_from))
+            != os.path.abspath(env.checkpoint_dir)):
+        # the runner restores the latest GLOBAL cut from the job's own
+        # lockstep checkpoint directory; substituting it for a named
+        # savepoint would resume from different state
+        raise NotImplementedError(
+            "dcn execution restores from the job's configured checkpoint "
+            "directory (the lockstep global cut); pass restore_from equal "
+            "to the checkpoint directory, or point enable_checkpointing "
+            "at the savepoint")
+
+    key_sel = pipe.key_by.key_selector
+    ts_fn = (pipe.ts_transform.timestamp_fn
+             if pipe.ts_transform is not None else None)
+    source = pipe.source
+
+    class _PipeSource:
+        """This process's pipeline source as the plane's per-host
+        partition (poll / snapshot / restore)."""
+
+        def poll(self, max_records):
+            polled, end = source.poll(max_records)
+            batch, src_ts = split_poll(polled)
+            if not batch_len(batch):
+                z = np.zeros(0, np.int64)
+                return z, z, np.zeros(0, np.float32), end
+            keys = np.asarray(per_batch(key_sel, batch))
+            vals = np.asarray(per_batch(wagg.extractor, batch), np.float32)
+            ts = np.asarray(per_batch(ts_fn, batch) if ts_fn is not None
+                            else src_ts, np.int64)
+            if not np.issubdtype(keys.dtype, np.integer):
+                raise NotImplementedError(
+                    "dcn execution requires integer keys (the key id IS "
+                    "the 64-bit routing identity across processes; string "
+                    "keys would need a coordinated codec)")
+            metrics.records_in += len(keys)
+            return keys.astype(np.int64), ts, vals.reshape(-1), end
+
+        def snapshot(self):
+            return source.snapshot_offsets()
+
+        def restore(self, state):
+            source.restore_offsets(state)
+
+    spec = dcn.DCNJobSpec(source_factory=lambda _pid, _nproc: _PipeSource(),
+                          **spec_kw)
+    plane = ProcessPlane(nproc, pid, coord)
+    try:
+        runner = dcn.runner_for_spec(
+            spec, pid, nproc, checkpoint_dir=env.checkpoint_dir or None,
+            ckpt_every=env.checkpoint_interval_steps or 0,
+            restore=bool(restore_from), device=env.device, plane=plane)
+        out = runner.run()
+    finally:
+        plane.close()
+    metrics.steps = out["cycles"]
+    metrics.dcn_ingested_local = int(out["ingested_local"])
+    metrics.dropped_capacity = int(out["dropped_capacity"])
+    keys = out["key_id"].astype(np.uint64).view(np.int64)
+    metrics.fires += len(keys)
+    metrics.records_out += len(keys)
+    if all(getattr(s, "columnar", False) for s in pipe.sinks):
+        cols = {"key_id": out["key_id"], "window_end_ms": out["window_end_ms"],
+                "value": out["value"]}
+        if spec.window_kind == "session":
+            cols["window_start_ms"] = out["window_start_ms"]
+        for s in pipe.sinks:
+            s.invoke_columnar(cols)
+    else:
+        if spec.window_kind == "session":
+            rows = [SessionResult(k, int(a), int(b), float(v)) for k, a, b, v
+                    in zip(keys.tolist(), out["window_start_ms"],
+                           out["window_end_ms"], out["value"])]
+        else:
+            rows = [WindowResult(k, int(b), float(v)) for k, b, v in
+                    zip(keys.tolist(), out["window_end_ms"], out["value"])]
+        for s in pipe.sinks:
+            s.invoke_batch(rows)
+    return JobHandle(job_name, metrics)
 
 
 def _check_checkpoint_config(cfg) -> None:

@@ -3,7 +3,9 @@ and fire steps, the K-step megasteps, the resident scan drain and
 while-drain, and the chained drain of consecutive window stages), the
 session, count-window and rolling stages of flink_tpu/runtime/step.py —
 and the window stage and the rolling reduce over a shard mesh (the
-sharded section below: the mask, exchange and sharded routes).
+sharded section below: the mask, exchange and sharded routes), and the
+window stage over a mesh that spans processes (the DCN drain,
+``build_window_dcn_resident_drain``).
 
 The reference compiles a stage into one jitted SPMD function per dispatch
 and donates the state to XLA. Here PyTorch runs eagerly: a step is a plain
@@ -21,6 +23,7 @@ import functools
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from flink_tpu_torch.metrics.drain_stats import (
@@ -32,9 +35,10 @@ from flink_tpu_torch.ops import rolling
 from flink_tpu_torch.ops import session_windows as sw
 from flink_tpu_torch.ops import window_kernels as wk
 from flink_tpu_torch.ops.cuda import PANE_NONE
-from flink_tpu_torch.parallel.collectives import psum
+from flink_tpu_torch.parallel.collectives import ProcessPlane, psum
 from flink_tpu_torch.parallel.exchange import (
-    bucket_capacity, exchange_records, owned_lanes, split_lanes,
+    bucket_capacity, exchange_across, exchange_records, owned_lanes,
+    split_lanes,
 )
 from flink_tpu_torch.parallel.mesh import device_guard
 
@@ -126,7 +130,8 @@ def _skip_fires(F: int, device, rows=None):
 def fire_slot(state: wk.WindowShardState, spec: WindowStageSpec, slot: Slot,
               wm, max_parallelism: int, pend, insert: bool = True,
               kg_fill: bool = False, fill_out=None, kg_res=None,
-              reduced: bool = True, out=None, stats=None, kg_range=None):
+              reduced: bool = True, out=None, stats=None, kg_range=None,
+              begin: bool = True):
     """One slot of the drains and one sub-step of the fused-fire megastep
     (the reference shares ``mask_update_shard`` and
     ``advance_and_fire_resident`` between them): the update with the
@@ -138,14 +143,17 @@ def fire_slot(state: wk.WindowShardState, spec: WindowStageSpec, slot: Slot,
     recorder's ``(row, lane_stats, snap, defer)`` for this slot, brackets
     the slot with G18's companion and G18. ``kg_range`` (inclusive start,
     end) masks the update to a shard's key groups (all of them by
-    default). Returns ``(state, pend, fires, activity, fill)``: ``fill``
+    default). ``begin=False`` leaves G18's companion to the caller, which
+    ran it before its own changes to the counters (the DCN drain's bucket
+    overflow). Returns ``(state, pend, fires, activity, fill)``: ``fill``
     the overflow ring's fill after the update, int32 0-d."""
     hi, lo, ts, values, valid = slot
     kg_start, kg_end = _kg_range(kg_range, max_parallelism)
     if stats is not None:
         row, lane_stats, snap, defer = stats
-        kernels.slot_stats_begin(state.watermark, state.dropped_late,
-                                 state.dropped_capacity, snap)
+        if begin:
+            kernels.slot_stats_begin(state.watermark, state.dropped_late,
+                                     state.dropped_capacity, snap)
     _st, act, _kgf = mask_update_shard(
         state, spec, kg_start, kg_end, hi, lo, ts, values, valid, wm,
         max_parallelism, clear_rows=pend, insert=insert, kg_fill=kg_fill,
@@ -840,7 +848,9 @@ def _to(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def _ranges(ctx):
-    return [(r.start, r.end) for r in ctx.key_group_ranges]
+    """The key-group ranges of this process's shards, paired with
+    ``ctx.devices`` (over several processes, the local ones only)."""
+    return [(r.start, r.end) for r in ctx.local_key_group_ranges]
 
 
 def _merge_mon(ctx, mons, kg_fill: bool):
@@ -857,7 +867,13 @@ def exchange_update_slots(ctx, states, slots, cap: int):
     """The exchange route of ``slots`` (a sequence of [B] batches): each
     batch's lane slices bucketed by G26 and exchanged, the overflow of
     source s added to ``states[s].dropped_capacity``. Returns the received
-    batches of each target shard, [n][len(slots)]."""
+    batches of each target shard, [n][len(slots)]. One process's mesh only:
+    across processes the exchange is ``parallel/exchange.py
+    exchange_across`` over the plane."""
+    if ctx.process_count > 1:
+        raise ValueError("exchange_update_slots exchanges within one "
+                         "process; a mesh over processes exchanges "
+                         "through exchange_across")
     n, devs = ctx.n_shards, ctx.devices
     per = [[] for _ in range(n)]
     for slot in slots:
@@ -1145,6 +1161,136 @@ def sharded_kg_occupancy(ctx, spec: WindowStageSpec, states):
     shard's device."""
     step = build_kg_occupancy_step(spec, ctx.max_parallelism)
     return sum(_to(step(st), ctx.devices[0]) for st in states)
+
+
+# ------------------------------------------- a window stage over processes
+
+def _host_bits(a) -> np.ndarray:
+    """A host array, uint32 key halves seen as the int32 the kernels take."""
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def build_window_dcn_resident_drain(ctx, spec: WindowStageSpec,
+                                    batch_per_device: int, depth: int,
+                                    capacity_factor: float = 2.0,
+                                    insert: bool = True,
+                                    drain_stats: bool = False, plane=None):
+    """The per-host DCN drain (the reference's
+    ``build_window_dcn_resident_drain``, K13 DCN): the lockstep window step
+    of ``runtime/dcn.py``'s window runner run up to ``depth`` times a
+    dispatch, over a mesh ``ctx`` whose shards span ``plane``'s processes
+    (one process without a plane).
+
+    ``drain(states, hi, lo, ts, values, valid, wm, done, fills)``: this
+    process's local shard states (updated in place), its [depth, B] slot
+    stacks (uint32 halves as int32, int32 ticks, float32, bool; B =
+    ``batch_per_device`` x its shard count; numpy or tensors), its [depth]
+    per-slot watermarks, its done flag and its fill. One all_reduce agrees
+    before the loop on the slot count (the ``pmax`` of the fills, so every
+    process enters the same number of exchanges, a shallower ring padding
+    empty slots), done (``pmin``) and each slot's watermark (``pmin``). Each
+    live slot splits into one lane slice a local shard, is exchanged over
+    every shard of every process (G26 and the plane's all_to_all, bucket
+    capacity ``bucket_capacity(batch_per_device, n, capacity_factor)``,
+    overflow into the source shard's ``dropped_capacity``), and each local
+    shard's received lanes run its update masked to its key groups (G1-G3;
+    G5 or G8 in the hash layout), the advance to the slot's watermark and
+    its fire (G6 into the shard's [depth, F, C] arena), its purge deferred
+    to the next slot's sweep (G2). After the loop a second all_reduce
+    agrees on the fire backlog (``pmax``: a slot with F fired lanes means
+    more window ends may be due). Returns ``(states, fires, stop,
+    drained)``: ``fires[s]`` local shard s's CompactFires stacked [depth,
+    F] over its arena (zero past ``drained``), ``stop`` whether every
+    process is done with no backlog, ``drained`` the agreed slot count.
+    ``drain_stats`` adds each local shard's flight recorder, int32 [depth,
+    9] by G18 (the reference's ``_slot_drain_stats`` per shard: its
+    ``events`` the shard's own pre-exchange lanes)."""
+    plane = plane or ProcessPlane()
+    n, maxp = ctx.n_shards, ctx.max_parallelism
+    devs = [torch.device(d) for d in ctx.devices]
+    L = len(devs)
+    if n != L * plane.nproc:
+        raise ValueError(f"a {n}-shard mesh over {plane.nproc} processes of "
+                         f"{L} shards")
+    cap = bucket_capacity(batch_per_device, n, capacity_factor)
+    D = int(depth)
+    F = spec.win.fires_per_step
+    if spec.win.lateness_ticks:
+        raise ValueError("the DCN drain takes no allowed lateness")
+    ranges = [(r.start, r.end) for r in ctx.local_key_group_ranges]
+    arenas = [None] * L
+
+    def drain(states, hi, lo, ts, values, valid, wm, done, fills):
+        cols = [torch.as_tensor(_host_bits(c)) for c in
+                (hi, lo, ts, values, valid)]
+        wm = [int(w) for w in np.asarray(wm).reshape(D, -1)[:, 0]]
+        g_min, g_max = plane.agree(mins=[int(done)] + wm,
+                                   maxs=[int(fills)])
+        gdone, gwm, count = g_min[0], g_min[1:], g_max[0]
+        for s in range(L):
+            if arenas[s] is None:
+                arenas[s] = wk.fire_row_buffers(D, F, states[s].capacity,
+                                                devs[s], red=spec.red)
+        fires = [[] for _ in range(L)]
+        pend = [None] * L
+        backlog = []
+        if drain_stats:
+            i32 = [dict(dtype=torch.int32, device=d) for d in devs]
+            ds = [torch.zeros((D, len(DRAIN_STAT_FIELDS)), **a) for a in i32]
+            lane_stats = [torch.empty((D, 4), **a) for a in i32]
+            snaps = [torch.empty((D, 3), **a) for a in i32]
+        for i in range(D):
+            rows = [tuple(r[i] for r in arenas[s]) for s in range(L)]
+            if i >= count:
+                for s in range(L):
+                    fires[s].append(_skip_fires(F, devs[s], rows[s]))
+                continue
+            slices = split_lanes(tuple(c[i] for c in cols), L, devs)
+            received, over = exchange_across(plane, slices, n, maxp, cap,
+                                             devs)
+            for s in range(L):
+                st = states[s]
+                with device_guard(devs[s]):
+                    w = torch.tensor(gwm[i], dtype=torch.int32,
+                                     device=devs[s])
+                    stats = None
+                    if drain_stats:
+                        stats = (ds[s][i], lane_stats[s][i], snaps[s][i],
+                                 False)
+                        kernels.slot_stats_begin(
+                            st.watermark, st.dropped_late,
+                            st.dropped_capacity, snaps[s][i])
+                    st.dropped_capacity.add_(_to(over[s], devs[s])
+                                             .reshape(()))
+                    _st, pend[s], fr, _act, _fill = fire_slot(
+                        st, spec, received[s], w, maxp, pend[s],
+                        insert=insert, reduced=False, out=rows[s],
+                        stats=stats, kg_range=ranges[s], begin=False)
+                    if drain_stats:
+                        ds[s][i, 0] = slices[s][4].sum(dtype=torch.int32)
+                fires[s].append(fr)
+                backlog.append(_to(fr.lane_valid[:F].sum(dtype=torch.int32)
+                                   >= F, devs[0]))
+        for s in range(L):
+            if pend[s] is not None:
+                with device_guard(devs[s]):
+                    wk.apply_pending_purge(states[s], spec.win, spec.red,
+                                           pend[s])
+        pending = int(torch.stack(backlog).any()) if backlog else 0
+        _, (gpending,) = plane.agree(maxs=[pending])
+        stop = bool(gdone) and not gpending
+        out = (states, [_stack_fires(f, arenas[s])
+                        for s, f in enumerate(fires)], stop, count)
+        return out + (ds,) if drain_stats else out
+
+    drain.ring_depth = D
+    drain.dcn_resident = True
+    drain.recv_lanes = n * cap
+    drain.bucket_cap = cap
+    drain.drain_stats = drain_stats
+    drain.plane = plane
+    return drain
 
 
 # ------------------------------------------- sessions, counts, rolling

@@ -49,6 +49,15 @@ subsystems the port has not taken yet):
                             promote pulls a key-group's pending entries
                             out of the pane stores (the read half of the
                             tier swap)
+    dcn.send                runtime/dcn rebalance / targeted ring, before
+                            a frame is sent to a ring neighbor (``sock`` in
+                            the context: a rule may close it)
+    dcn.recv                the same rings, before each frame read
+    dcn.ckpt.write          runtime/dcn, before a process writes its half
+                            of a lockstep checkpoint (a crash mid-cut; the
+                            cut then stays incomplete)
+    dcn.ckpt.read           runtime/dcn, before a restore reads this
+                            process's half of the latest complete cut
 
 Actions:
 

@@ -13,6 +13,8 @@ clock) and in event time with and without within(), strict and relaxed,
 keyed and not, from ``from_collection``, ``from_elements`` and a columnar
 ``GeneratorSource``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 from collections import namedtuple
 from operator import itemgetter
 

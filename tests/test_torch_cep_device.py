@@ -11,6 +11,8 @@ and the carry row by row per key (a key may sit in another slot in each
 package), as long as every count stays below 2^24 — where float32 is
 exact in both packages; the cases here stay far below it."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 from collections import namedtuple
 

@@ -8,6 +8,8 @@ the port runs the kernels' plain versions. Every case is bit-exact: the
 edge only moves bits.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import types
 
 import jax.numpy as jnp

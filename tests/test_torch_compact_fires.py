@@ -15,6 +15,8 @@ Integer-valued data is exact; random floats hold at rtol 1e-6 (the sums
 add in another order, tests/test_torch_window_kernels.py says why).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

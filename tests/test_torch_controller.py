@@ -15,6 +15,8 @@ CPU:
   rebalancer raising ``NotImplementedError`` citing item 10 when called.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import json
 
 import numpy as np

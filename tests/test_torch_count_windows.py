@@ -5,6 +5,8 @@ fires as sorted rows, state key by key — then both packages' public APIs
 on Flink's WindowWordCount shape. Integer-valued data compares bit for
 bit; positive random floats at rtol 1e-6."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import jax

@@ -10,6 +10,8 @@ sources raise citing ROADMAP queue 1, item 15; and
 ``examples/batch_word_count.py`` prints what the reference prints.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

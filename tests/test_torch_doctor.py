@@ -18,6 +18,8 @@ reference's on the CPU, mirroring tests/test_doctor.py:
   controller's actuators.
 """
 
+import torch_threads  # first: caps torch's threads
+
 import ast
 import inspect
 import json
@@ -150,7 +152,8 @@ def test_cli_replays_a_served_payload(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["findings"] == \
         served["findings"]
     r = subprocess.run([sys.executable, "-m", "flink_tpu_torch.doctor", p],
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=120,
+                       env=torch_threads.worker_env())
     assert r.returncode == 1, r.stderr
     assert "watchdog-trips" in r.stdout
 

@@ -8,6 +8,8 @@ the same rows: in order in the direct layout, sorted by key in the hash
 layout, where the tables may place keys at other slots. Integer-valued
 data, so everything compares bit for bit."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

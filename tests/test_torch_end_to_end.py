@@ -14,6 +14,8 @@ packages must emit the same rows (sorted: which slot a key takes, and so
 the order of a window's rows, differs in the hash layout).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

@@ -9,6 +9,8 @@ the reference's rolling psum, and the route planner's answers
 the reference's on the same inputs.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

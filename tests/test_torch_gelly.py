@@ -12,6 +12,8 @@ reference's arrays with ``state_from_numpy`` gives the same answers, and
 ``examples/page_rank.py`` prints what the reference prints.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,8 @@ versions behind kernel G1) against flink_tpu's jnp versions and numpy, bit
 for bit. torch has no uint32 shifts or remainders on the CPU, so the port
 carries each 32-bit word in an int64 masked to 32 bits."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

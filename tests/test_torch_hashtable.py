@@ -12,6 +12,8 @@ and the port's walk place the same keys; the overload case checks the
 port's own contract instead.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

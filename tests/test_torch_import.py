@@ -2,6 +2,8 @@
 its entry points run on the CUDA card or raise — never silently on the
 CPU."""
 
+import torch_threads  # first: caps torch's threads
+
 import ast
 import os
 import subprocess
@@ -43,7 +45,7 @@ def test_port_imports_without_jax_or_the_reference():
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.worker_env(dict(os.environ, PYTHONPATH=str(REPO)))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -61,6 +63,30 @@ def test_no_source_file_imports_jax_or_the_reference(path):
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_every_port_test_file_caps_torch_threads_first():
+    """Every ``tests/test_torch_*.py`` imports ``tests/torch_threads.py``
+    before anything else, so that parallel test workers (pytest-xdist)
+    do not each spin torch's whole thread pool (and the shared parity
+    modules do too)."""
+    tests = REPO / "tests"
+    files = sorted(tests.glob("test_torch_*.py")) + [
+        tests / "torch_parity.py", tests / "torch_library_parity.py"]
+    late = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        imports = [n for n in tree.body
+                   if isinstance(n, (ast.Import, ast.ImportFrom))
+                   and not (isinstance(n, ast.ImportFrom)
+                            and n.module == "__future__")]
+        first = imports[0] if imports else None
+        if not (isinstance(first, ast.Import)
+                and [a.name for a in first.names] == ["torch_threads"]):
+            late.append(path.name)
+    assert len(files) > 40
+    assert not late, f"import torch_threads first in {late}"
+    assert torch.get_num_threads() == torch_threads.THREADS
 
 
 def test_environment_raises_without_cuda(monkeypatch):
@@ -134,7 +160,7 @@ def test_chained_stages_run_with_jax_and_the_reference_blocked():
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.worker_env(dict(os.environ, PYTHONPATH=str(REPO)))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -194,7 +220,7 @@ def test_checkpoints_and_tiers_run_with_jax_and_the_reference_blocked(
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.worker_env(dict(os.environ, PYTHONPATH=str(REPO)))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -247,7 +273,7 @@ def test_ingest_thread_and_dispatch_modes_run_with_jax_and_the_reference_blocked
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.worker_env(dict(os.environ, PYTHONPATH=str(REPO)))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -293,7 +319,7 @@ def test_libraries_run_with_jax_and_the_reference_blocked():
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = torch_threads.worker_env(dict(os.environ, PYTHONPATH=str(REPO)))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -21,6 +21,8 @@ Every job's rows are held against numpy and, where it runs the same
 configuration, the reference's.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import threading
 import time
 

@@ -10,6 +10,8 @@ bucket resolution tests/test_latency.py sets; the EWMA heat compares with
 pytest.approx as tests/test_doctor.py does.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

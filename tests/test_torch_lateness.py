@@ -23,6 +23,8 @@ Tolerances: as tests/test_torch_reduces.py — integer-valued data and min
 exact, random float sums at rtol 1e-6 (values) and 1e-5 (lane sums).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import jax

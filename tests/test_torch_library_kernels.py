@@ -7,16 +7,22 @@ community detection's superstep. Integer-valued data must match bit for
 bit (NaN by position, signed zeros by sign); float sums, which the port
 adds in another order, at rtol 1e-6."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from flink_tpu.ops.segment import grouped_reduce as ref_grouped_reduce
+from flink_tpu.parallel import broadcast as ref_broadcast
 from flink_tpu.parallel.broadcast import broadcast_join as ref_broadcast_join
+from flink_tpu.parallel.mesh import MeshContext as RefMesh
 from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops.segment import grouped_reduce
 from flink_tpu_torch.parallel import broadcast
+from flink_tpu_torch.parallel.mesh import MeshContext
 
 KINDS = ("count", "sum", "min", "max", "avg", "mean")
 
@@ -201,8 +207,26 @@ def test_broadcast_join_compares_int64_keys_whole():
 
 
 def test_broadcast_step_over_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        broadcast.build_broadcast_join_step(None)
+    """The sharded step (K21 sharded; it raised until the shard mesh's
+    broadcast was ported, hence the name) gives the reference's
+    ``(joined, hit)`` at 2, 4 and 8 shards: each shard's G24 probes its
+    slice of the lanes, invalid lanes join nothing."""
+    keys, tkeys, tvals = _join_inputs(5, 1 << 31)
+    B = len(keys) - len(keys) % 8
+    keys = keys[:B]
+    valid = np.arange(B) % 7 != 3
+    order = np.argsort(tkeys, kind="stable")
+    tk, tv = tkeys[order], tvals[order].astype(np.float32)
+    for n in (2, 4, 8):
+        ref_step = ref_broadcast.build_broadcast_join_step(
+            RefMesh.create(n, devices=jax.devices()[:n]))
+        want_j, want_h = ref_step(keys, valid, tk, tv)
+        step = broadcast.build_broadcast_join_step(
+            MeshContext.create(n, devices=[torch.device("cpu")] * n))
+        joined, hit = step(keys, valid, tk, tv)
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(want_h))
+        assert same_bits(joined.numpy(), np.asarray(want_j))
+        assert hit.numpy().any() and not hit.numpy()[~valid].any()
 
 
 # ------------------------------------------------------------ G25

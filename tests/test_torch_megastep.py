@@ -27,6 +27,8 @@ against the reference on the CPU, mirroring tests/test_megastep.py:
 Integer-valued data, so everything compares bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

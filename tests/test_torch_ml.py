@@ -14,6 +14,8 @@ within rtol 1e-3. ``state_from_numpy`` carries a fitted KMeans, SVM and
 ALS across, after which their predictions are equal.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

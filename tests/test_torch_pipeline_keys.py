@@ -10,6 +10,8 @@ class —
   as a whole; the case names and exercises that refusal.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import importlib.util
 import pathlib
 

@@ -29,6 +29,8 @@ the port in lane order (and on the card with atomics, in any order).
 Integer-valued data is bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import functools
 from typing import Any

@@ -8,6 +8,8 @@ rtol 1e-6 (the port scans in another order than the reference's
 associative-scan tree). Tables compare as sets: a key may take another
 slot in each package."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import jax

@@ -6,6 +6,8 @@ outputs and the assignment of records to count windows follow lane order
 within a key). The segmented scan holds integer-valued data bit for bit
 and positive random floats at rtol 1e-6 (another combine order)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,8 @@ jump in time, the key -1 (never placed), and a final watermark of 2^31 - 4
 ticks that closes every open session. Integer-valued data compares bit for
 bit; positive random floats at rtol 1e-6."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import jax

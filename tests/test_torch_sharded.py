@@ -21,6 +21,8 @@ sum of the two route counts is compared, elsewhere each. At parallelism
 ``run`` and ``gen`` serve the other ``test_torch_sharded_*.py`` files.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

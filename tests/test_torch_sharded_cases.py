@@ -11,6 +11,8 @@ to numpy's; and the refusals that stay at parallelism 4: tiered state and
 the controller's rebalance arm, each citing ROADMAP queue 1, item 10.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

@@ -31,6 +31,8 @@ above 1) against the reference, on the CPU.
 Integer-valued data: everything compares bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import numpy as np
 import pytest

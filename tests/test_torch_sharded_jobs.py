@@ -8,6 +8,8 @@ merge); checkpoints written at parallelism 4 restored at 4 and at 2 by
 either package, and a crash at a sharded drain restarted exactly.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

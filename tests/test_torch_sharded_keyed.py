@@ -26,6 +26,8 @@ on the CPU.
 Integer-valued data: everything compares bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import jax

@@ -20,6 +20,8 @@ the port takes it in float64. Value sums of HyperLogLog lanes add those
 differences over the lane's rows.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax.numpy as jnp

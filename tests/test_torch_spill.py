@@ -18,6 +18,8 @@ set invariants. End to end, sink rows must equal the reference's and
 numpy's, whichever keys each package kept on the card.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import functools
 

@@ -22,6 +22,8 @@ reference's on the CPU:
 Integer-valued data, so everything compares bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import numpy as np
 import pytest

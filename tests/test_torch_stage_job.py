@@ -7,6 +7,8 @@ extractor that gives more than one value per record fails the job with
 the same error in every stage.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

@@ -27,6 +27,8 @@ builtin reduce's packed plane, and the states compare cell by cell. All
 data is integer-valued: bit-exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

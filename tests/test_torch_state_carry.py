@@ -14,6 +14,8 @@ int32 values column keeps item hashes above 2^24 that a float32 one
 would round; HyperLogLog estimates are held to the tolerance of
 ``tests/test_torch_sketches.py``."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ float aggregates at rtol 1e-6), ``explain`` text, and streaming TUMBLE,
 HOP and SESSION windows.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 

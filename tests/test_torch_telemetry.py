@@ -22,6 +22,8 @@ version; the reference on its CPU mesh):
 All of it is integer: every comparison is exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

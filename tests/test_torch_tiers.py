@@ -20,6 +20,8 @@ The reference runs with its gated knobs forced on; every value is an
 integer, so every comparison is exact.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

@@ -23,6 +23,8 @@ the mirror of the reference's tests/test_while_drain.py:
 Integer-valued data, so everything compares bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import threading
 import time
 

@@ -14,6 +14,8 @@ port adds them in lane order (and on the card with atomics, in any
 order), so the float sums round differently.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import numpy as np

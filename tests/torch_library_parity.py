@@ -19,6 +19,8 @@ suite, and decides nothing about the machine.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 import importlib
 import inspect

@@ -9,6 +9,8 @@ ring panes, B = 1024 lanes, max parallelism 128, slide = 10 ticks.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import functools
 
