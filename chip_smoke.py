@@ -6,7 +6,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
 
   1. device   — requires CUDA; prints the card's name and power limit as
                 nvidia-smi reports them.
-  2. build    — compiles the kernels G1-G27 from flink_tpu_torch/csrc with
+  2. build    — compiles the kernels G1-G28 from flink_tpu_torch/csrc with
                 nvcc (one process a source, all started together), and the
                 spill store (host C++) with g++.
   3. kernels  — runs each kernel at the shapes its job gives it and holds it
@@ -141,7 +141,26 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 its library time torch.argmin over the materialised
                 distance; row_argmax at community detection's first
                 superstep at V = 4,096 (edge: NaN, zero and negative
-                rows), its library time torch.max(m, 1).
+                rows), its library time torch.max(m, 1). G23's shared
+                path also on its risky shapes (``scatter_edge_checks``: W
+                = 3 through an offset view with N not a multiple of a
+                chunk, G (W + 1) at its shared limit and past it, each
+                path asserted, and KMeans' shape on random floats twice,
+                bit for bit the same). G6 on its tiling's risky shapes
+                (``fire_edge_checks``: C at a tile +- 1 and +- 2, one
+                emitting slot in the last tile, every lane emitting every
+                slot, no lane due, min, max, a fresh plane, W = 2, 3 and
+                16 at k = 64, fire_pack with W = 3 and without rows, two
+                calls on one scratch, one device kernel a call by
+                torch.profiler); its library times torch.masked_select of
+                the due lanes' payload by the emitted mask (one call),
+                beside nonzero + index_select (fire_compact) and one
+                lane's index_select of precomputed indices (fire_pack).
+                G28 remove_slots, which no path calls (as in the
+                reference), on a 2^21-slot table with half its slots
+                cleared (main) and on masked-off lanes, slots out of range
+                and in [-C, 0), repeated slots, int32 and int64 slots and
+                no lane (edge), its library time index_fill_.
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -254,7 +273,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
  16. cep-within — the Flink 1.2 CEP documentation's Getting Started
                 pattern, keyed and in event time: start (id == 42) next
                 middle (SubEvent, volume >= 10) followedBy end (name ==
-                "end") within 10 s (S = 3, Q = 9, D = 20), over 8M events
+                "end") within 10 s (S = 3, Q = 9, D = 20), over 2M events
                 at 100 a ms from a columnar GeneratorSource through
                 to_elements (1M sparse splitmix64 keys; id uniform in
                 [0, 64), SubEvent p 0.5, volume uniform in [0, 20), end p
@@ -342,7 +361,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 bench_configs.py:1912 run_while_drain at its shape (B =
                 512, C = 4,096, ring 9, 4 fire lanes, 4 batches a pane,
                 512 batches): the scan drain at D = 32 against the
-                while-drain at 64 slots, events/s (best of three after a
+                while-drain at 64 slots, events/s (best of two after a
                 warm run), dispatches, p99 fire visibility, every fired
                 window's keys and sum against numpy's. A producer thread
                 publishing 512 batches of 8,192 lanes into a 16-slot
@@ -377,7 +396,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 (groups broken at each crossing, the reduced fire step and
                 its blocking read) against ``fused`` (fused-fire megasteps,
                 read one dispatch late), events/s and host us a batch
-                (best of 2 after a warm run), every window fired against
+                (one timed run after a warm run), every window fired against
                 numpy's (keys, sum).
  23. libraries — the batch libraries through the port's public API, the
                 data from seed 13 with numpy, one line a workload (wall
@@ -396,21 +415,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 pair exact; Gelly at Graph500 scale 20, edge factor 16
                 (Kronecker A, B, C = 0.57, 0.19, 0.19, labels permuted,
                 made undirected by doubling: 2^25 edges, uniform(0, 1)
-                weights): page_rank (30 iterations) against a float64
+                weights): page_rank (5 iterations) against a float64
                 power iteration at rtol 1e-3, connected_components
                 against scipy's (minimum vertex id) exactly,
                 single_source_shortest_paths from the vertex of highest
-                degree against scipy's dijkstra at rtol 1e-5, hits (30
+                degree against scipy's dijkstra at rtol 1e-5, hits (5
                 iterations, unit non-negative vectors), the degrees
                 exactly, and at scale 12 (V = 4,096) triangle_count
                 against scipy exactly and community_detection; FlinkML:
-                KMeans over 2^20 points of 64 blobs (D = 16, K = 64, 20
+                KMeans over 2^20 points of 64 blobs (D = 16, K = 64, 5
                 iterations), every assignment equal to a float64 Lloyd
                 from the same seeding; KNN (Q = 4,096, k = 10) against
                 numpy on 64 sampled queries; MultipleLinearRegression at
                 N = 2^20, D = 64 recovering its coefficients within
                 0.05; ALS at MovieLens-1M's dimensions (6,040 users,
-                3,706 items, 1,000,209 synthetic ratings, F = 10, 10
+                3,706 items, 1,000,209 synthetic ratings, F = 10, 5
                 iterations), its regularised risk falling from the
                 initial factors'.
  24. sharded — the shard mesh (parallelism 4; ``force_device_count(4)``
@@ -508,7 +527,10 @@ p50 and p99 over its windows, from a drain's dispatch (or a watermark
 crossing) to the emission, with the sample count.
 
 Each path's launch counters are set to 0 just before it runs and read just
-after. Then one line {"kernels": [...]} (launches summed over every path,
+after. A line {"phase": "phase_seconds", ...} gives each phase's wall
+(by the numbers above; 21 holds the north star's dispatch modes, run
+right after phase 4) and the walls of phase 3's and phase 23's parts.
+Then one line {"kernels": [...]} (launches summed over every path,
 every run of the checkpoint, tiered, megastep and controller jobs counted;
 G19's shapes other than cep-within's nested in its entry; G21's edge
 cases nested in its entry; G1's fill and its residency mode nested in
@@ -546,6 +568,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1116,13 +1139,15 @@ def case_fire_compact(dev, C, kind, table):
         n = int(c2[f])
         got += [r[f, :n] for r in rows1]
         want += [r[f, :n] for r in rows2]
-    # the library yardstick: the compaction alone, of the due lane's
-    # precomputed dense emit mask and (hi, lo, value) payload
+    # the library yardsticks: the compaction alone, of the due lane's
+    # precomputed dense emit mask and (hi, lo, value) payload, as one call
+    # (masked_select) and as nonzero + index_select
     emit, vals = kernels._eval_fire_lanes_plain(acc, pane_ids, p_f, lane_ok,
                                                 C=C, R=R, k=k)
     hi, lo = kernels.split_words(table)
     payload = torch.stack([hi, lo, vals[0, :, 0].view(torch.int32)], 1)
     mask0 = emit[0]
+    keep0 = mask0[:, None]
     n_rows = int(c2.sum())
     n_present = sum(int(pane_ids[(e - j) % R]) == e - j
                     for e, ok in zip(ends, lane_ok.tolist()) if ok
@@ -1132,8 +1157,9 @@ def case_fire_compact(dev, C, kind, table):
         "run": lambda: kernels.fire_compact(*args, *rows1, C=C, R=R, k=k),
         "plain": lambda: kernels.fire_compact_plain(*args, *rows2, C=C, R=R,
                                                     k=k),
-        "library": lambda: payload.index_select(
-            0, torch.nonzero(mask0).reshape(-1)),
+        "library": lambda: torch.masked_select(payload, keep0),
+        "yardsticks": {"nonzero_index_select": lambda: payload.index_select(
+            0, torch.nonzero(mask0).reshape(-1))},
         # each present row of each due lane read once, the key word of each
         # emitted slot, 12 B per emitted row written, pane_ids, lane outs
         "bytes": n_present * C * 8 + n_rows * (8 + 12) + R * 4
@@ -1198,6 +1224,55 @@ def case_ring_append(dev, B, kind):
         "library": lambda: torch.masked_select(lanes, mask[:, None]),
         # the mask read once, each taken lane read and written (16 B each)
         "bytes": B * 1 + n * (16 + 16) + 8,
+    }
+
+
+def case_remove_slots(dev, kind):
+    """G28 against its plain version, bit for bit. ``main``: a table of 2^21
+    random key words (the sparse job's capacity), about half its slots
+    cleared by 2^20 lanes of distinct int32 slots. ``edge``: 2^16 lanes,
+    a third masked off, slots past C, below -C and in [-C, 0) (which count
+    from the end, as the reference's indexing wraps them), a quarter of
+    the lanes repeating others' slots, as int32 and as int64 slots; and no
+    lane at all. The library time: index_fill_ of the cleared slots."""
+    C = SPARSE_CAPACITY
+    g = torch.Generator().manual_seed(28)
+    table = torch.randint(-2**62, 2**62, (C,), generator=g,
+                          dtype=torch.int64).to(dev)
+    if kind == "main":
+        B = C // 2
+        slots = torch.randperm(C, generator=g)[:B].to(torch.int32).to(dev)
+        mask = torch.ones(B, dtype=torch.bool, device=dev)
+        runs = [(slots, mask)]
+    else:
+        B = 1 << 16
+        s64 = torch.randint(-C - 100, C + 100, (B,), generator=g)
+        s64[:B // 4] = s64[B // 4:B // 2]
+        mask = (torch.rand(B, generator=g) < 0.67).to(dev)
+        s64 = s64.to(dev)
+        runs = [(s64.to(torch.int32), mask), (s64, mask),
+                (s64[:0].to(torch.int32), mask[:0])]
+    err = 0.0
+    for sl, m in runs:
+        t1, t2 = table.clone(), table.clone()
+        kernels.remove_slots(t1, sl, m)
+        kernels.remove_slots_plain(t2, sl, m)
+        err += bits_err(t1, t2)
+    sl, m = runs[0]
+    if kind == "main":
+        cleared = int((t1 != table).sum())
+        check(cleared == B, f"remove_slots: {cleared} slots cleared, not {B}")
+    at = sl.long()
+    at = torch.where(at < 0, at + C, at)
+    fill = at[m & (at >= 0) & (at < C)]
+    tk, tp, tl = table.clone(), table.clone(), table.clone()
+    return {
+        "err": err,
+        "run": lambda: kernels.remove_slots(tk, sl, m),
+        "plain": lambda: kernels.remove_slots_plain(tp, sl, m),
+        "library": lambda: tl.index_fill_(0, fill, EMPTY_WORD),
+        # a lane's slot and mask read, each cleared word written
+        "bytes": sl.numel() * (sl.element_size() + 1) + fill.numel() * 8,
     }
 
 
@@ -1426,6 +1501,8 @@ def kernel_phase(dev, C, R, B, F, maxp, slide, timing=True):
             rec["plain_ms"] = time_ms(main["plain"], reps=5)
             rec["library_ms"] = (time_ms(main["library"])
                                  if main["library"] is not None else None)
+            for name_y, fn in main.get("yardsticks", {}).items():
+                rec[f"{name_y}_ms"] = time_ms(fn)
             if len(mains) > 1:
                 rec["sparse_ms"] = time_ms(mains[1]["run"])
                 rec["sparse_bound_ms"] = bound_ms(mains[1]["bytes"])
@@ -3220,6 +3297,9 @@ def _fire_setup(dev, shape, kind, g):
             fresh, n_ontime)
 
 
+_FIRE_SETUPS = {}    # (shape, kind) -> _fire_setup's tensors, G4 and G6
+
+
 def case_fire_reduce(dev, kind, shape, compact):
     """G4 (``compact`` False) or G6 with a reduce's combine and width:
     ``maxprice`` (max, k = 5; min on the edge inputs), ``mean`` (W = 2)
@@ -3227,9 +3307,13 @@ def case_fire_reduce(dev, kind, shape, compact):
     sum with allowed lateness: two on-time lanes, then two re-fire lanes
     emitting by the fresh plane). ``edge`` adds a second due lane and a
     ring row that holds another pane."""
-    g = torch.Generator(device="cpu").manual_seed(37)
+    key = (shape, kind)
+    if key not in _FIRE_SETUPS:   # the same inputs for G4 and G6
+        g = torch.Generator(device="cpu").manual_seed(37)
+        _FIRE_SETUPS[key] = _fire_setup(dev, shape, kind, g)
     (acc, pane_ids, p_f, lane_ok, table, C, R, k, op, W, neutral, fresh,
-     n_ontime) = _fire_setup(dev, shape, kind, g)
+     n_ontime) = _FIRE_SETUPS[key]
+    pane_ids = pane_ids.clone()
     if kind == "edge":
         lane_ok = torch.ones_like(lane_ok)
         pane_ids[int(p_f[0]) % R] = PANE_NONE
@@ -3484,6 +3568,12 @@ def case_fire_pack(dev, kind):
     emitted = mask & lane_ok[:, None]
     n_rows = int(emitted.sum())
     m0 = torch.nonzero(emitted[0]).reshape(-1)
+    # the one-call yardstick: the due lanes' [F, C] (hi, lo, value) payload
+    # compacted by the emitted mask
+    hi, lo = kernels.split_words(table)
+    payload = torch.stack([hi.expand(F, C), lo.expand(F, C),
+                           vals.view(torch.int32)], 2)
+    keep = emitted[:, :, None]
     return {
         "err": bits_err(got, want),
         # the lane sums add in another order on the card: rtol 1e-5
@@ -3493,7 +3583,8 @@ def case_fire_pack(dev, kind):
                                          outs[0]),
         "plain": lambda: kernels.fire_pack_plain(table, mask, vals, lane_ok,
                                                  outs[1]),
-        "library": lambda: vals[0].index_select(0, m0),
+        "library": lambda: torch.masked_select(payload, keep),
+        "yardsticks": {"index_select": lambda: vals[0].index_select(0, m0)},
         # the masks of the due lanes read, each emitted slot's value and
         # key word read and its row (12 B) written
         "bytes": int(lane_ok.sum()) * C + n_rows * (4 + 8 + 12),
@@ -3571,6 +3662,234 @@ def case_ring_mean(dev, kind):
     }
 
 
+# G6's tiles: 2,048 slots a block at W = 1 and 2, 512 beyond
+# (csrc/fire_compact.cu: 8 warps of kRounds x 32 x kSpt slots)
+G6_TILE, G6_SMALL_TILE = 2048, 512
+
+
+def _fire_edge_inputs(dev, C, W, op, k, shape, seed):
+    """A fire over F = 3 lanes of k-pane windows on an R = k + 2 ring: its
+    plane (small integers where touched, the neutral elsewhere), pane ids,
+    window ends, due lanes and a table of random key words. ``shape``:
+    ``random`` (30 % of the cells touched and the last three slots of
+    every row), ``last`` (lane 1's window touched at slot C - 1 alone),
+    ``full`` (every cell touched, every lane due), ``none`` (no lane due)."""
+    R, F = k + 2, 3
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    neutral = {"add": 0.0, "min": FLT_MAX, "max": -FLT_MAX}[op]
+    pane_ids = torch.arange(40, 40 + R, dtype=torch.int32)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))]
+    ends = [39 + R, 38 + R, 37 + R]
+    touch = torch.rand(R, C, generator=g) < 0.3
+    touch[:, -3:] = True
+    lane_ok = [True, True, False]
+    if shape == "last":
+        # lane 1's panes: ends[1] - k + 1 .. ends[1]; lane 0's newest stays
+        for j in range(k):
+            row = (ends[1] - j) % R
+            touch[row] = False
+            touch[row, C - 1] = True
+    elif shape == "full":
+        touch[:] = True
+        lane_ok = [True] * F
+    elif shape == "none":
+        lane_ok = [False] * F
+    acc = torch.full((R * C, W + 1), neutral)
+    t = touch.reshape(-1)
+    acc[t, :W] = torch.randint(-40, 41, (int(t.sum()), W),
+                               generator=g).float()
+    acc[t, W] = 1.0 if op == "add" else 0.0
+    table = torch.randint(-2**62, 2**62, (C,), generator=g,
+                          dtype=torch.int64)
+    return (acc.to(dev), pane_ids.to(dev),
+            torch.tensor(ends, dtype=torch.int32, device=dev),
+            torch.tensor(lane_ok, device=dev), table.to(dev), R, neutral, g)
+
+
+def _fires_err(c1, v1, rows1, c2, v2, rows2):
+    """(bits that differ over the counts and each lane's prefix rows, the
+    lane sums' relative error)."""
+    got, want = [c1], [c2]
+    for f in range(c2.shape[0]):
+        n = int(c2[f])
+        got += [r[f, :n] for r in rows1]
+        want += [r[f, :n] for r in rows2]
+    rel = float(((v1.double() - v2.double()).abs()
+                 / v2.double().abs().clamp_min(1.0)).max())
+    return bits_err(got, want), rel
+
+
+def fire_compact_edge(dev, C, W, *, op="add", k=2, shape="random",
+                      fresh=False, seed=0):
+    """One fire_compact call against its plain version on an edge shape
+    (``fresh``: lane 2 a re-fire lane emitting by a fresh plane). Returns
+    (the kernel's call, bits that differ, the lane sums' relative error)."""
+    acc, pane_ids, p_f, lane_ok, table, R, neutral, g = _fire_edge_inputs(
+        dev, C, W, op, k, shape, seed)
+    fr = n_ontime = None
+    if fresh:
+        fr = (torch.rand(R * C, generator=g) < 0.05).to(dev) & (
+            acc[:, W] != neutral)
+        n_ontime = 2
+        lane_ok = torch.ones_like(lane_ok)
+    F = p_f.shape[0]
+    vs = (F, C) if W == 1 else (F, C, W)
+    rows = [(torch.empty(F, C, dtype=torch.int32, device=dev),
+             torch.empty(F, C, dtype=torch.int32, device=dev),
+             torch.empty(vs, dtype=torch.float32, device=dev))
+            for _ in range(2)]
+    kw = dict(C=C, R=R, k=k, op=op, neutral=neutral, fresh=fr,
+              n_ontime=n_ontime)
+    args = (acc, pane_ids, p_f, lane_ok, table)
+
+    def run():
+        return kernels.fire_compact(*args, *rows[0], **kw), rows[0]
+
+    (c1, v1), _ = run()
+    c2, v2 = kernels.fire_compact_plain(*args, *rows[1], **kw)
+    if shape == "none":
+        check(int(c1.abs().sum()) == 0 and float(v1.abs().sum()) == 0.0,
+              "fire_compact: a lane that is not due emitted")
+    if shape == "full":
+        check(c1.tolist() == [C] * F, f"fire_compact: full lanes {c1}")
+    return (run, *_fires_err(c1, v1, rows[0], c2, v2, rows[1]))
+
+
+def fire_pack_edge(dev, C, W, *, shape="random", count_only=False, seed=0):
+    """One fire_pack call against its plain version on an edge shape: the
+    dense fire of ``_fire_edge_inputs``' lanes (lane 1 emitting slot C - 1
+    alone for ``last``). Returns (the kernel's call, bits that differ, the
+    lane sums' relative error)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    F = 3
+    mask = torch.rand(F, C, generator=g) < 0.3
+    mask[:, -3:] = True
+    ok = [True, True, False]
+    if shape == "last":
+        mask[1] = False
+        mask[1, C - 1] = True
+    elif shape == "full":
+        mask[:] = True
+        ok = [True] * F
+    elif shape == "none":
+        ok = [False] * F
+    vals = torch.randint(-40, 41, (F, C) if W == 1 else (F, C, W),
+                         generator=g).float().to(dev)
+    mask, lane_ok = mask.to(dev), torch.tensor(ok, device=dev)
+    table = torch.randint(-2**62, 2**62, (C,), generator=g,
+                          dtype=torch.int64).to(dev)
+    outs = [None, None] if count_only else [
+        (torch.empty(F, C, dtype=torch.int32, device=dev),
+         torch.empty(F, C, dtype=torch.int32, device=dev),
+         torch.empty(vals.shape, dtype=torch.float32, device=dev))
+        for _ in range(2)]
+
+    def run():
+        return kernels.fire_pack(table, mask, vals, lane_ok, outs[0]), \
+            outs[0]
+
+    (c1, v1), _ = run()
+    c2, v2 = kernels.fire_pack_plain(table, mask, vals, lane_ok, outs[1])
+    if count_only:
+        return (run, *_fires_err(c1, v1, (), c2, v2, ()))
+    return (run, *_fires_err(c1, v1, outs[0], c2, v2, outs[1]))
+
+
+def g6_launches_a_call(dev, calls) -> Optional[int]:
+    """Device kernels one G6 call launches, by torch.profiler over each of
+    ``calls`` (None when the profiler records no device kernel)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        for run in calls:
+            run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    if not names:
+        return None
+    return len(names) // len(calls)
+
+
+def fire_edge_checks(dev) -> dict:
+    """G6's single pass on the shapes its tiling makes risky, each bit for
+    bit against its plain version (the lane sums at rtol 1e-5): C at a tile
+    ± 1 and ± 2 (odd C takes the scalar loads, even C the float4 cells of a
+    W = 1 plane; C a multiple of 4 fire_pack's mask words), one emitting
+    slot in the last tile, every lane emitting every slot, no lane due,
+    min and max, a fresh plane's re-fire lane, W = 2, W = 3 and W = 16 at k
+    = 64 (kMaxPanes), fire_pack with W = 3 and without rows; then two calls
+    on one scratch (the epoch): A, B, A again, A's outputs the same both
+    times; then the device kernels a call launches (torch.profiler): one.
+    Returns {"fire_compact": {"edges": ...}, "fire_pack": {"edges": ...}}."""
+    fc, fp = [], []
+    T, t = G6_TILE, G6_SMALL_TILE
+    for C in (T - 1, T + 1, T - 2, T + 2, 2 * T):
+        for shape in ("random", "last"):
+            fc.append((f"W1 C={C} {shape}", dict(C=C, W=1, shape=shape)))
+    fc += [(f"W1 C={T + 2} {s}", dict(C=T + 2, W=1, shape=s))
+           for s in ("full", "none")]
+    fc += [(f"W1 C={T + 2} {op}", dict(C=T + 2, W=1, op=op))
+           for op in ("min", "max")]
+    fc += [(f"W1 C={C} fresh", dict(C=C, W=1, fresh=True))
+           for C in (T + 2, T + 1)]
+    fc += [(f"W2 C={C} {s}", dict(C=C, W=2, shape=s))
+           for C in (T - 1, T + 1) for s in ("random", "last")]
+    fc += [(f"W3 C={C} {s}", dict(C=C, W=3, shape=s))
+           for C in (t - 1, t + 1) for s in ("random", "last", "full")]
+    fc += [(f"W16 k=64 C={t + 1} {op}", dict(C=t + 1, W=16, k=64, op=op))
+           for op in ("add", "max")]
+    fc.append((f"W1 k=64 C={T + 2}", dict(C=T + 2, W=1, k=64)))
+    for C in (T - 1, T + 1, T - 4, T + 4):
+        for shape in ("random", "last"):
+            fp.append((f"W1 C={C} {shape}", dict(C=C, W=1, shape=shape)))
+    fp += [(f"W1 C={T + 4} {s}", dict(C=T + 4, W=1, shape=s))
+           for s in ("full", "none")]
+    fp.append((f"W1 C={T + 4} counts only",
+               dict(C=T + 4, W=1, count_only=True)))
+    fp += [(f"W3 C={C} {s}", dict(C=C, W=3, shape=s))
+           for C in (t - 1, t + 1) for s in ("random", "last")]
+    out, runs = {}, {}
+    for name, edge, cases in (("fire_compact", fire_compact_edge, fc),
+                              ("fire_pack", fire_pack_edge, fp)):
+        bits, rel = 0.0, 0.0
+        for i, (label, kw) in enumerate(cases):
+            _run, b, r = edge(dev, seed=i, **kw)
+            check(b == 0.0 and r <= 1e-5,
+                  f"{name} ({label}) disagrees with its plain version: {b} "
+                  f"elements differ, lane sums rel err {r}")
+            bits, rel = max(bits, b), max(rel, r)
+        # two calls in a row on one scratch: A, B, A
+        kw = dict(C=T + 2 if name == "fire_compact" else T + 4, W=1)
+        run_a, b_a, _ = edge(dev, seed=100, **kw)
+        (c_a, v_a), rows_a = run_a()
+        first = [c_a.clone(), v_a.clone()] + [r.clone() for r in rows_a]
+        _run_b, b_b, r_b = edge(dev, seed=101, **kw)
+        (c_a, v_a), rows_a = run_a()
+        again = bits_err(first, [c_a, v_a] + list(rows_a))
+        check(b_a == b_b == 0.0 and r_b <= 1e-5 and again == 0.0,
+              f"{name}: two calls on one scratch disagree ({b_a}, {b_b}, "
+              f"{again} elements)")
+        runs[name] = run_a
+        out[name] = {"edges": {"cases": len(cases) + 2,
+                               "max_abs_err": bits, "max_rel_err": rel,
+                               "scratch_twice_err": again,
+                               "shapes": [label for label, _ in cases]}}
+    # one profiler session over 4 calls of each entry point
+    n_launch = g6_launches_a_call(dev, [runs["fire_compact"],
+                                        runs["fire_pack"]] * 4)
+    check(n_launch in (None, 1),
+          f"G6: {n_launch} device kernels a call, not one")
+    for name in out:
+        out[name]["edges"]["kernels_a_call"] = n_launch
+    return out
+
+
 def hold(name, make, timing, kinds=("main", "edge")):
     """Hold one kernel mode against its plain version on each input kind
     (bit for bit; a fire's float lane sums, which the card adds in another
@@ -3596,6 +3915,8 @@ def hold(name, make, timing, kinds=("main", "edge")):
         rec["plain_ms"] = time_ms(main["plain"], reps=3)
         rec["library_ms"] = (time_ms(main["library"])
                              if main["library"] is not None else None)
+        for name_y, fn in main.get("yardsticks", {}).items():
+            rec[f"{name_y}_ms"] = time_ms(fn)
     del main
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -3628,8 +3949,11 @@ def reduce_kernel_phase(dev, timing=True):
     out = {}
     for name, by_mode in modes.items():
         for mode, make in by_mode.items():
-            out.setdefault(name, {})[mode] = hold(f"{name} ({mode})", make,
-                                                  timing)
+            out.setdefault(name, {})[mode] = part(
+                f"3_kernels/reduce/{name}",
+                lambda m=make, n=name, md=mode: hold(f"{n} ({md})", m,
+                                                     timing))
+    _FIRE_SETUPS.clear()
     del full
     out["fresh_rows"] = hold("fresh_rows", lambda k: case_fresh_rows(dev, k),
                              timing)
@@ -3639,6 +3963,9 @@ def reduce_kernel_phase(dev, timing=True):
         out[f"rep_{phase}"] = hold(
             f"rep_{phase}", lambda k, p=phase: case_rep_update(dev, k, p),
             timing)
+    for name, rec in part("3_kernels/reduce/edges",
+                          lambda: fire_edge_checks(dev)).items():
+        out[name].update(rec)
     return out
 
 
@@ -4018,7 +4345,9 @@ CEP_BATCH = 16_384             # bench_configs.py:276
 CEP_KEYS = 1_000
 CEP_SEED = 3
 CEP_CAPACITY = 1 << 16         # the env's default slots, as the bench runs
-CEPW_TOTAL = 8_000_000         # 80 s of event time: eight within() horizons
+# 20 s of event time, two within() horizons (8M, eight, until the script
+# was cut back under 800 s)
+CEPW_TOTAL = 2_000_000
 CEPW_EVENTS_PER_MS = 100
 CEPW_KEYS = 1_000_000
 CEPW_CAPACITY = 1 << 22
@@ -5495,7 +5824,7 @@ def while_drain_mirror(dev, kind, smi, total_launches) -> None:
     """run_while_drain: the scan drain at D = 32 against the while-drain
     at max_slots 64 (its cursor the whole staged burst, as the bench's
     steady state), B = 512, C = 4,096, ring 9, 4 fire lanes: events/s
-    (best of 3 after a warm run), dispatches, p99 fire visibility, and
+    (best of 2 after a warm run), dispatches, p99 fire visibility, and
     every fired window's (keys, sum) against numpy's."""
     from flink_tpu_torch.ops import window_kernels as wk
     from flink_tpu_torch.runtime.step import (
@@ -5562,7 +5891,7 @@ def while_drain_mirror(dev, kind, smi, total_launches) -> None:
 
         run_once()
         lat.clear()
-        dt = min(run_once() for _ in range(3))
+        dt = min(run_once() for _ in range(2))
         check(rows == want, f"while mirror: fired windows differ from "
                             f"numpy's ({len(rows)} of {len(want)})")
         return WD_B * n / dt, lat, n // group
@@ -5925,7 +6254,7 @@ def fire_grid(dev, kind, smi, total_launches, n=FG_BATCHES) -> None:
     at each crossing, partial groups run as single steps, then the
     reduced fire step and its blocking small-field read) and ``fused``
     (fused-fire megasteps throughout, reduced, read one dispatch late) —:
-    events/s and host us a batch (best of 2 after a warm run), and every
+    events/s and host us a batch (one timed run after a warm run), and every
     window fired equal to numpy's (keys, sum)."""
     from flink_tpu_torch.ops import window_kernels as wk
     from flink_tpu_torch.runtime.step import (
@@ -5994,7 +6323,7 @@ def fire_grid(dev, kind, smi, total_launches, n=FG_BATCHES) -> None:
         for K in FG_KS:
             for name, run in (("split", split), ("fused", fused)):
                 best = float("inf")
-                for rep in range(3):
+                for rep in range(2):   # a warm run, then the timed one
                     rows = {}
                     sync()
                     t0 = time.perf_counter()
@@ -6031,14 +6360,16 @@ JOIN_PROBES = 1_000_000
 G500_SCALE = 20
 G500_EDGE_FACTOR = 16
 G500_DENSE_SCALE = 12         # the dense metrics' V = 4,096
-PR_ITERS = 30
-HITS_ITERS = 30
+# the iterations of the timed runs, cut (from 30, 30, 20 and 10) to hold
+# the whole script under 800 s: every check holds at any count
+PR_ITERS = 5
+HITS_ITERS = 5
 SSSP_SUPERSTEPS = 128
-KM_N, KM_D, KM_K, KM_ITERS = 1 << 20, 16, 64, 20
+KM_N, KM_D, KM_K, KM_ITERS = 1 << 20, 16, 64, 5
 KNN_Q, KNN_K, KNN_SAMPLE = 4096, 10, 64
 MLR_N, MLR_D = 1 << 20, 64
 ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS = 6040, 3706, 1_000_209
-ALS_F, ALS_ITERS = 10, 10
+ALS_F, ALS_ITERS = 10, 5
 Q1_RTOL = 1e-3                # Q1's float32 sums against float64: both
                               # packages accumulate in float32
 PR_RTOL = 1e-3                # PageRank's float32 ranks against float64
@@ -6278,6 +6609,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
 
     from flink_tpu_torch.gelly.graph import state_from_numpy
 
+    mark = Marks("23_libraries/gelly")
     V = 1 << G500_SCALE
     src, dst, w = g500_graph(G500_SCALE, LIB_SEED)
     E = len(src)
@@ -6286,6 +6618,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
                          device=dev)
     s64, d64 = src.astype(np.int64), dst.astype(np.int64)
     out_deg = np.bincount(s64, minlength=V)
+    mark("graph")
 
     pr, line = lib_run("gelly_page_rank",
                        lambda: g.page_rank(num_iterations=PR_ITERS),
@@ -6303,6 +6636,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
     emit({**line, "vertices": V, "edges": E, "iterations": PR_ITERS,
           "max_rel_err_vs_float64": rel, "rtol": PR_RTOL})
     del pr
+    mark("page_rank")
 
     adj = sp.csr_matrix((np.ones(E, np.int8), (s64, d64)), shape=(V, V))
     cc, line = lib_run("gelly_connected_components",
@@ -6316,6 +6650,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
     emit({**line, "components": int(n_comp),
           "largest": int(np.bincount(lab).max()), "exact": True})
     del cc, adj
+    mark("connected_components")
 
     source = int(np.argmax(out_deg))
     dist, line = lib_run(
@@ -6337,6 +6672,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
     emit({**line, "source": source, "reached": int(reach.sum()),
           "max_dist": float(want[reach].max()), "rtol": 1e-5})
     del dist, wg
+    mark("sssp")
 
     hv, line = lib_run("gelly_hits", lambda: g.hits(HITS_ITERS),
                        total_launches, kind, smi, 2 * E * HITS_ITERS,
@@ -6348,6 +6684,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
           "gelly_hits: hub or authority vector not unit and non-negative")
     emit({**line, "iterations": HITS_ITERS})
     del hv
+    mark("hits")
 
     deg, line = lib_run("gelly_degrees", g.out_degrees, total_launches,
                         kind, smi, E, "edges", ("scatter_ids",))
@@ -6355,6 +6692,7 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
           "gelly_degrees: differ from numpy")
     emit({**line, "max_degree": int(out_deg.max()), "exact": True})
     del deg, g
+    mark("degrees")
 
     Vs = 1 << G500_DENSE_SCALE
     s2, d2, _w = g500_graph(G500_DENSE_SCALE, LIB_SEED + 3)
@@ -6379,11 +6717,13 @@ def lib_gelly_runs(dev, kind, smi, total_launches) -> None:
           "gelly_dense: community labels out of range")
     emit({**line, "vertices": Vs, "triangles": tri,
           "communities": int(len(np.unique(labels))), "exact": True})
+    mark("dense_scale12")
 
 
 def lib_ml_runs(dev, kind, smi, total_launches) -> None:
     from flink_tpu_torch import ml
 
+    mark = Marks("23_libraries/ml")
     X, lab = blob_points(KM_N, KM_D, KM_K, LIB_SEED)
     km = ml.KMeans(k=KM_K, iterations=KM_ITERS, seed=LIB_SEED, device=dev)
     init = km.seed_centers(X).cpu().numpy().astype(np.float64)
@@ -6414,6 +6754,7 @@ def lib_ml_runs(dev, kind, smi, total_launches) -> None:
     emit({**line, "n": KM_N, "d": KM_D, "k": KM_K,
           "iterations": KM_ITERS, "min_margin": margin, "exact": True})
     del fitted, a, d
+    mark("kmeans")
 
     knn = ml.KNN(k=KNN_K, device=dev).fit(X, lab.astype(np.float32))
     Q, qlab = blob_points(KNN_Q, KM_D, KM_K, LIB_SEED)   # the same blobs
@@ -6428,6 +6769,7 @@ def lib_ml_runs(dev, kind, smi, total_launches) -> None:
     emit({**line, "q": KNN_Q, "n": KM_N, "k": KNN_K,
           "checked_queries": KNN_SAMPLE})
     del knn, pred
+    mark("knn")
 
     rng = np.random.default_rng(LIB_SEED + 4)
     Xl = rng.normal(size=(MLR_N, MLR_D)).astype(np.float32)
@@ -6442,6 +6784,7 @@ def lib_ml_runs(dev, kind, smi, total_launches) -> None:
     check(err < 0.05, f"ml_linear_regression: coefficients off by {err}")
     emit({**line, "n": MLR_N, "d": MLR_D, "max_coef_err": err})
     del Xl, y, m
+    mark("linear_regression")
 
     rng = np.random.default_rng(LIB_SEED + 5)
     cells = rng.choice(ML1M_USERS * ML1M_ITEMS, ML1M_RATINGS, replace=False)
@@ -6472,6 +6815,7 @@ def lib_ml_runs(dev, kind, smi, total_launches) -> None:
           "ratings": ML1M_RATINGS, "factors": ALS_F,
           "iterations": ALS_ITERS, "risk_before": before,
           "risk_after": after})
+    mark("als")
 
 
 def library_runs(dev, kind, smi, total_launches) -> None:
@@ -6481,12 +6825,16 @@ def library_runs(dev, kind, smi, total_launches) -> None:
     them."""
     LIB_WALL.clear()
     t0 = time.perf_counter()
-    li = tpch_lineitem()
-    lib_table_runs(dev, kind, smi, total_launches, li)
-    lib_dataset_runs(dev, kind, smi, total_launches, li)
+    li = part("23_libraries/lineitem", tpch_lineitem)
+    part("23_libraries/table", lambda: lib_table_runs(
+        dev, kind, smi, total_launches, li))
+    part("23_libraries/dataset", lambda: lib_dataset_runs(
+        dev, kind, smi, total_launches, li))
     del li
-    lib_gelly_runs(dev, kind, smi, total_launches)
-    lib_ml_runs(dev, kind, smi, total_launches)
+    part("23_libraries/gelly", lambda: lib_gelly_runs(
+        dev, kind, smi, total_launches))
+    part("23_libraries/ml", lambda: lib_ml_runs(dev, kind, smi,
+                                               total_launches))
     emit({"phase": "libraries", "seconds": time.perf_counter() - t0,
           "workload_seconds": sum(LIB_WALL),
           "data_and_check_seconds": time.perf_counter() - t0
@@ -6691,6 +7039,94 @@ def case_row_argmax(dev, kind):
     }
 
 
+def scatter_block_path(idx, vals, G) -> bool:
+    """Whether G23 takes a block path (registers or shared memory) for
+    these inputs, not the global one: the scratch its blocks' partial
+    copies need."""
+    W = 1 if vals is None or vals.dim() == 1 else vals.shape[1]
+    return kernels.build().scatter_ids_scratch(
+        idx.numel(), kernels._ptr(vals), W, G) > 0
+
+
+def scatter_edge_checks(dev) -> dict:
+    """G23's block paths on the shapes their tiling makes risky, each
+    against its plain version exactly (integer-valued data; NaN against
+    NaN): W = 3 through an offset view of its buffer (4-byte aligned only:
+    the scalar loads) with N not a multiple of a chunk, NaN and +-0 lanes
+    and lanes out of range, add, min and max with counts and the touched
+    flag; G (W + 1) at the shared limit (a block path) and past it (the
+    global path), with W = 3 and with counts alone; the register path at
+    its limit (W = 2 into 4 groups, counts alone into 8) and past it (9
+    groups: the shared path); and KMeans' shape on random floats twice
+    (within rtol 1e-5 of the plain version; how many bits differ between
+    the two calls is reported: lanes of one warp instruction on one cell
+    meet in shared-memory atomics of unspecified order). Returns a record
+    nested under scatter_ids."""
+    g = torch.Generator().manual_seed(123)
+    N = (1 << 20) + 13
+    lim = kernels.SCATTER_SHARED_CELLS
+
+    def offset_vals(n, W):
+        buf = torch.randint(-9, 10, (n * W + 1,), generator=g).float()
+        buf[::97] = float("nan")
+        buf[1::31] = -0.0
+        v = buf.to(dev)[1:].view(n, W)
+        check(v.is_contiguous() and v.data_ptr() % 16 != 0,
+              "scatter_ids: the offset view is 16-byte aligned")
+        return v
+
+    cases = []   # (label, idx, vals, G, op, shared expected)
+    v3 = offset_vals(N, 3)
+    idx = torch.randint(-3, 105, (N,), generator=g).to(dev)
+    cases += [(f"W3 offset view {op}", idx, v3, 100, op, True)
+              for op in ("add", "min", "max")]
+    for G, shared in ((lim // 4, True), (lim // 4 + 1, False)):
+        i = torch.randint(-2, G + 3, (N,), generator=g).to(dev)
+        cases += [(f"W3 G={G} {op}", i, v3, G, op, shared)
+                  for op in ("add", "max")]
+    for G, shared in ((lim - 1, True), (lim, True), (lim + 1, False),
+                      (8, True), (9, True)):
+        i = torch.randint(-2, G + 3, (N,), generator=g).to(
+            torch.int32).to(dev)
+        cases.append((f"counts G={G}", i, None, G, "add", shared))
+    v2 = offset_vals(N, 2)
+    i = torch.randint(-1, 6, (N,), generator=g).to(dev)
+    cases += [(f"W2 G=4 registers {op}", i, v2, 4, op, True)
+              for op in ("add", "min", "max")]
+    err, paths = 0.0, {}
+    for label, i, v, G, op, shared in cases:
+        if dev.type == "cuda":   # the plain version has no paths
+            got = scatter_block_path(i, v, G)
+            check(got == shared, f"scatter_ids ({label}): the "
+                                 f"{'shared' if got else 'global'} path")
+            paths[label] = "shared" if got else "global"
+        a = kernels.scatter_ids(i, v, G, op=op, counts=True, has=True)
+        b = kernels.scatter_ids_plain(i, v, G, op=op, counts=True, has=True)
+        for x, y in zip(a, b):
+            if x is not None:
+                e = (nan_bits_err(x, y) if x.is_floating_point()
+                     else max_abs_err(x, y))
+                check(e == 0.0, f"scatter_ids ({label}) disagrees with its "
+                                f"plain version: {e} elements differ")
+                err = max(err, e)
+    # KMeans' shape on random floats: the same bits twice
+    i = torch.randint(0, KM_K, (KM_N,), generator=g).to(dev)
+    x = torch.rand(KM_N, KM_D, generator=g).to(dev)
+    check(dev.type != "cuda" or scatter_block_path(i, x, KM_K),
+          "scatter_ids: KMeans' shape took the global path")
+    r1 = kernels.scatter_ids(i, x, KM_K, counts=True)
+    r2 = kernels.scatter_ids(i, x, KM_K, counts=True)
+    rp = kernels.scatter_ids_plain(i, x, KM_K, counts=True)
+    twice = bits_err([r1[0], r1[1]], [r2[0], r2[1]])
+    rel = float(((r1[0].double() - rp[0].double()).abs()
+                 / rp[0].double().abs().clamp_min(1.0)).max())
+    check(rel <= 1e-5 and max_abs_err(r1[1], rp[1]) == 0,
+          f"scatter_ids: KMeans' float sums differ from the plain version "
+          f"(rel {rel})")
+    return {"cases": len(cases) + 1, "max_abs_err": err, "paths": paths,
+            "kmeans_float_twice_err": twice, "kmeans_float_rel_err": rel}
+
+
 def library_kernel_phase(dev, timing=True) -> dict:
     """Hold G23-G25 against their plain versions on every input kind (the
     case functions say which) and time the main ones, with the other
@@ -6711,6 +7147,7 @@ def library_kernel_phase(dev, timing=True) -> dict:
                                if c["library"] is not None else None)
         rec["modes"][mode] = m
         del c
+    rec["edges"] = scatter_edge_checks(dev)
     out["scatter_ids"] = rec
     del li
     for name, case in (("sorted_probe", case_sorted_probe),
@@ -7010,8 +7447,8 @@ SHARD_KEYED_CEP_B = (CEP_BATCH, CEPW_BATCH)   # the two CEP jobs' batches
 # could re-fire; 10 s fire the first window while late records still come
 SHARD_LATE_TOTAL = 20_000_000
 # cep-within's events at parallelism 4: 20 s of event time, two within()
-# horizons, so panes expire (the one-shard run keeps 8M); cut from 8M to
-# 4M, then to 2M, to hold the whole script near 800 s beside phase 26
+# horizons, so panes expire (as the one-shard run); cut from 8M to 4M,
+# then to 2M, to hold the whole script near 800 s beside phase 26
 SHARD_CEPW_TOTAL = 2_000_000
 # the kernels each phase-25 path must launch (G1's owner mask a shard)
 SHARD_SESSION_KERNELS = ("route_lanes", "hash_upsert", "segment_sort",
@@ -7219,10 +7656,13 @@ def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
     from flink_tpu_torch.parallel.mesh import forced_device_count
 
     t_phase = time.perf_counter()
+    mark = Marks("25_sharded_keyed")
 
     def run(name, job_fn, total, kernels_of, unit="events"):
+        mark("before " + name)   # the previous job's checks, this one's data
         launches, (out, busy) = run_path(
             lambda: device_busy(job_fn, cpu=False), total_launches)
+        mark(name)
         secs = out[-1]
         check_launched(launches, kernels_of, f"parallelism-{SHARDS} {name}")
         line = {"phase": "sharded_keyed", "job": name, unit: total,
@@ -7335,6 +7775,7 @@ def sharded_keyed_runs(dev, kind, smi, total_launches) -> None:
               "sharded telemetry: the sharded drain never ran")
         emit({**line, **checked, "steps_sharded": job.metrics.steps_sharded})
         del sink, env_t, job
+    mark("last checks")
     emit({"phase": "sharded_keyed_done",
           "seconds": time.perf_counter() - t_phase})
 
@@ -7812,7 +8253,9 @@ def dcn_runs(dev, kind, smi, total_launches, events=DCN_WINDOW_EVENTS,
     """Phase 26: the sharded broadcast join, then the cross-process plane,
     two workers on the one card. The arguments are the full size; a
     rehearsal on the CPU passes smaller ones and ``worker_device="cpu"``."""
+    mark = Marks("26_dcn")
     broadcast_sharded_run(dev, kind, smi, total_launches)
+    mark("broadcast_sharded")
     t0 = time.perf_counter()
     wkw = {"events": events, "per_ms": per_ms}
     kkw = {"events": keyed_events}
@@ -7825,8 +8268,10 @@ def dcn_runs(dev, kind, smi, total_launches, events=DCN_WINDOW_EVENTS,
             stats, outs = dcn_run(name, builder, tmp,
                                   profile=name == "window", kwargs=wkw,
                                   device=worker_device)
+            mark(f"{name}_workers")
             cols, spans = dcn_rows(outs)
             rows, n_win = check_dcn_window_rows(cols, events, per_ms)
+            mark(f"{name}_check")
             dcn_line(name, stats, spans, wevents, rows, DCN_WINDOW_KERNELS,
                      total_launches, kind, smi,
                      {"ring_depth": DCN_RING_DEPTH
@@ -7838,12 +8283,14 @@ def dcn_runs(dev, kind, smi, total_launches, events=DCN_WINDOW_EVENTS,
         procs, _ = dcn_spawn("stalled", "dcn_window_resident_stalled", tmp,
                              extra, kwargs=wkw, device=worker_device)
         cut = dcn_kill_after_first_cut(procs, ckpt, "window_restore")
+        mark("stalled_workers")
         replayed = cut_rows(ckpt, cut)
         check(replayed > 0, f"dcn window_restore: the cut {cut} comes "
                             f"before the first emitted window")
         stats, outs = dcn_run("restored", "dcn_window_resident_job", tmp,
                               extra + ["--restore"], kwargs=wkw,
                               device=worker_device)
+        mark("restored_workers")
         cols, spans = dcn_rows(outs)
         rows, n_win = check_dcn_window_rows(cols, events, per_ms)
         dcn_line("window_restore", stats, spans,
@@ -7854,24 +8301,31 @@ def dcn_runs(dev, kind, smi, total_launches, events=DCN_WINDOW_EVENTS,
                   "note": "events: those the restored run ingested"})
 
         kevents = DCN_PROCS * keyed_events
+        mark("restored_check")
         stats, outs = dcn_run("sessions", "dcn_session_job", tmp,
                               kwargs=kkw, device=worker_device)
+        mark("sessions_workers")
         cols, spans = dcn_rows(outs)
         rows, _closed = check_session_rows(cols, kevents)
+        mark("sessions_check")
         dcn_line("sessions", stats, spans, kevents, rows,
                  DCN_SESSION_KERNELS, total_launches, kind, smi)
 
         stats, outs = dcn_run("rolling", "dcn_rolling_job", tmp,
                               kwargs=kkw, device=worker_device)
+        mark("rolling_workers")
         cols, spans = dcn_rows(outs)
         rows = check_dcn_rolling_rows(cols, keyed_events)
+        mark("rolling_check")
         dcn_line("rolling", stats, spans, kevents, rows,
                  DCN_ROLLING_KERNELS, total_launches, kind, smi)
 
         stats, outs = dcn_run("cep", "dcn_cep_job", tmp,
                               device=worker_device)
+        mark("cep_workers")
         cols, spans = dcn_rows(outs)
         matches = check_dcn_cep_rows(cols)
+        mark("cep_check")
         dcn_line("cep", stats, spans, CEP_TOTAL, len(cols["key_id"]),
                  DCN_CEP_KERNELS, total_launches, kind, smi,
                  {"matches": matches})
@@ -8309,6 +8763,8 @@ KERNEL_SOURCES = {
                       "flink_tpu/parallel/exchange.py:49"),
     "shard_sum": ("flink_tpu_torch/csrc/shard_sum.cu",
                   "flink_tpu/runtime/step.py:2612"),
+    "remove_slots": ("flink_tpu_torch/csrc/remove_slots.cu",
+                     "flink_tpu/ops/hashtable.py:191"),
 }
 # the host functions of the chained jobs whose cumulative time --profile
 # reads: the key encode, the drains (the stage tail within them), the
@@ -8366,6 +8822,41 @@ def read_launches() -> dict:
     return out
 
 
+PHASE_S = {}      # each phase's wall seconds, by its number and name
+PARTS_S = {}      # the walls of parts of a phase
+_LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Add the wall since the previous lap to phase ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - _LAP[0]
+    _LAP[0] = now
+
+
+def part(name: str, fn):
+    """Run ``fn``, adding its wall to PARTS_S[name]; return what it
+    returned."""
+    t0 = time.perf_counter()
+    out = fn()
+    PARTS_S[name] = PARTS_S.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+class Marks:
+    """Walls of the steps of one phase: each call adds the wall since the
+    previous one to PARTS_S["<prefix>/<name>"]."""
+
+    def __init__(self, prefix: str):
+        self.prefix, self.t = prefix, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        key = f"{self.prefix}/{name}"
+        PARTS_S[key] = PARTS_S.get(key, 0.0) + now - self.t
+        self.t = now
+
+
 def run_path(run, total_launches):
     """Run one path with every launch count set to 0 just before; add its
     counts to ``total_launches``; return (its counts, what run returned)."""
@@ -8393,6 +8884,7 @@ def main(argv) -> int:
     if "--log" in argv:
         LOG.append(argv[argv.index("--log") + 1])
     dev = torch.device("cuda")
+    _LAP[0] = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -8402,6 +8894,7 @@ def main(argv) -> int:
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    lap("1_device")
 
     t0 = time.perf_counter()
     kernels.build()
@@ -8409,30 +8902,40 @@ def main(argv) -> int:
     native.get_lib()
     emit({"phase": "build", "seconds": t1 - t0,
           "spill_store_seconds": time.perf_counter() - t1})
+    lap("2_build")
 
-    recs = kernel_phase(dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP,
-                        MAX_PARALLELISM, WINDOW_MS)
-    recs.update(keyed_kernel_phase(dev, KEYED_CAPACITY, BATCH))
-    sk_recs = sketch_kernel_phase(dev)
+    recs = part("3_kernels/G1-G9", lambda: kernel_phase(
+        dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP, MAX_PARALLELISM,
+        WINDOW_MS))
+    recs["remove_slots"] = part("3_kernels/G28", lambda: hold(
+        "remove_slots", lambda k: case_remove_slots(dev, k), True))
+    recs.update(part("3_kernels/keyed", lambda: keyed_kernel_phase(
+        dev, KEYED_CAPACITY, BATCH)))
+    sk_recs = part("3_kernels/sketch", lambda: sketch_kernel_phase(dev))
     for name in ("sketch_update", "sketch_fire"):
         recs[name] = dict(sk_recs[name]["distinct"],
                           countmin=sk_recs[name]["countmin"])
     recs["clear_rows"]["split"] = sk_recs["clear_rows_split"]
-    for name, rec in reduce_kernel_phase(dev).items():
+    for name, phase3 in (("reduce", reduce_kernel_phase),
+                         ("telemetry", telemetry_kernel_phase)):
+        for kname, rec in part(f"3_kernels/{name}",
+                               lambda f=phase3: f(dev)).items():
+            recs.setdefault(kname, {}).update(rec)
+    recs.update(part("3_kernels/cep", lambda: cep_kernel_phase(dev)))
+    recs.update(part("3_kernels/chain", lambda: chain_kernel_phase(dev)))
+    for name, rec in part("3_kernels/res",
+                          lambda: res_kernel_phase(dev)).items():
         recs.setdefault(name, {}).update(rec)
-    for name, rec in telemetry_kernel_phase(dev).items():
-        recs.setdefault(name, {}).update(rec)
-    recs.update(cep_kernel_phase(dev))
-    recs.update(chain_kernel_phase(dev))
-    for name, rec in res_kernel_phase(dev).items():
-        recs.setdefault(name, {}).update(rec)
-    recs.update(library_kernel_phase(dev))
-    recs.update(shard_kernel_phase(dev))
-    for name, rec in sharded_keyed_kernel_phase(dev).items():
-        recs.setdefault(name, {}).update(rec)
-    for name, rec in dcn_kernel_phase(dev).items():
-        recs.setdefault(name, {}).update(rec)
+    recs.update(part("3_kernels/library",
+                     lambda: library_kernel_phase(dev)))
+    recs.update(part("3_kernels/shard", lambda: shard_kernel_phase(dev)))
+    for name, phase3 in (("sharded_keyed", sharded_keyed_kernel_phase),
+                         ("dcn", dcn_kernel_phase)):
+        for kname, rec in part(f"3_kernels/{name}",
+                               lambda f=phase3: f(dev)).items():
+            recs.setdefault(kname, {}).update(rec)
     emit({"phase": "kernels", "checks": recs})
+    lap("3_kernels")
 
     total_launches = {}
     launches, (sink, job, secs) = run_path(
@@ -8461,8 +8964,11 @@ def main(argv) -> int:
     for name in NORTH_STAR_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched on the north-star path")
-    mode_eps = north_star_modes(dev, kind, smi, total_launches, want_count)
+    lap("4_e2e")
+    mode_eps = part("21_ingest/modes", lambda: north_star_modes(
+        dev, kind, smi, total_launches, want_count))
     plain_eps = mode_eps["on"]
+    lap("21_ingest")
 
     launches, (sink, env_t, job, secs) = run_path(
         lambda: north_star_job(dev, N_KEYS, EVENTS_PER_MS, TOTAL_EVENTS,
@@ -8487,6 +8993,7 @@ def main(argv) -> int:
           "launches": launches, "device": kind, "nvidia_smi": smi})
     check_launched(launches, TELEMETRY_KERNELS, "telemetry")
     del sink, env_t, job
+    lap("4_e2e")
 
     launches, (sink, job, secs) = run_path(
         lambda: sparse_job(dev, TOTAL_EVENTS, BATCH, RING_DEPTH),
@@ -8512,6 +9019,7 @@ def main(argv) -> int:
         check(launches[name] > 0,
               f"kernel {name} never launched on the sparse-key path")
     del sink, cols
+    lap("5_sparse")
 
     launches, (sink, job, secs) = run_path(
         lambda: churn_job(dev, CHURN_TOTAL, BATCH, RING_DEPTH),
@@ -8550,6 +9058,7 @@ def main(argv) -> int:
         check(launches[name] > 0,
               f"kernel {name} never launched on the churn path")
     del sink, cols
+    lap("6_churn")
 
     launches, (sink, job, secs) = run_path(
         lambda: sessions_job(dev, SESSION_TOTAL), total_launches)
@@ -8569,6 +9078,7 @@ def main(argv) -> int:
           f"{m.dropped_capacity}")
     check_launched(launches, SESSION_KERNELS, "sessions")
     del sink, cols
+    lap("7_sessions")
 
     ranks = all_word_ranks(WORD_TOTAL)
     launches, (sink, job, secs) = run_path(
@@ -8584,6 +9094,7 @@ def main(argv) -> int:
           f"wordcount job: {m.dropped_capacity} records dropped")
     check_launched(launches, WORDCOUNT_KERNELS, "wordcount")
     del sink
+    lap("8_wordcount")
 
     launches, (sink, job, secs) = run_path(
         lambda: windowcount_job(dev, WORD_TOTAL), total_launches)
@@ -8597,6 +9108,7 @@ def main(argv) -> int:
           f"windowcount job: {m.dropped_capacity} records dropped")
     check_launched(launches, WINDOWCOUNT_KERNELS, "windowcount")
     del sink, ranks
+    lap("9_windowcount")
 
     launches, (sink, job, secs) = run_path(
         lambda: distinct_job(dev, BID_TOTAL), total_launches)
@@ -8623,6 +9135,7 @@ def main(argv) -> int:
           f"{m.dropped_capacity}")
     check_launched(launches, SKETCH_KERNELS, "distinct")
     del sink, job
+    lap("10_distinct")
 
     launches, (sink, job, secs) = run_path(
         lambda: countmin_job(dev, BID_TOTAL), total_launches)
@@ -8647,6 +9160,7 @@ def main(argv) -> int:
           f"{m.dropped_capacity}")
     check_launched(launches, SKETCH_KERNELS, "countmin")
     del sink, job
+    lap("11_countmin")
 
     launches, (sink, job, secs) = run_path(
         lambda: maxprice_job(dev, REDUCE_TOTAL), total_launches)
@@ -8669,6 +9183,7 @@ def main(argv) -> int:
           f"capacity {m.dropped_capacity}")
     check_launched(launches, MAXPRICE_KERNELS, "maxprice")
     del sink, job
+    lap("12_maxprice")
 
     launches, (sink, job, secs) = run_path(
         lambda: mean_job(dev, REDUCE_TOTAL), total_launches)
@@ -8691,6 +9206,7 @@ def main(argv) -> int:
           f"{m.dropped_capacity}")
     check_launched(launches, MEAN_KERNELS, "mean")
     del sink, job
+    lap("13_mean")
 
     launches, (sink, job, secs) = run_path(
         lambda: late_job(dev, REDUCE_TOTAL), total_launches)
@@ -8713,6 +9229,7 @@ def main(argv) -> int:
           f"drops {m.dropped_late}, re-fire rows {n_refire_rows}")
     check_launched(launches, LATE_KERNELS, "late-reduce")
     del sink, job
+    lap("14_late_reduce")
 
     events, names, keys = cep_events(CEP_TOTAL)
     want = cep_reference(names, keys)
@@ -8737,6 +9254,7 @@ def main(argv) -> int:
           f"cep job: {m.dropped_capacity} records dropped")
     check_launched(launches, CEP_KERNELS, "cep")
     del sink, job, events, names, keys
+    lap("15_cep")
 
     launches, (sink, job, secs) = run_path(
         lambda: cepw_job(dev, CEPW_TOTAL), total_launches)
@@ -8765,6 +9283,7 @@ def main(argv) -> int:
     check(sample_rows > 0, "cep-within job: no sampled key matched")
     check_launched(launches, CEPW_KERNELS, "cep-within")
     del sink, job, cols
+    lap("16_cep_within")
 
     want5, stage0_rows = chained_reference(TOTAL_EVENTS)
     for name, run, kernels_of in (
@@ -8802,21 +9321,36 @@ def main(argv) -> int:
                   f"chained-sparse job: {launches['hash_upsert']} G5 "
                   f"launches, the two stages' {want_g5}")
         del sink, env_c, job
+        lap("18_chained_sparse" if sparse else "17_chained")
 
     checkpoint_runs(dev, kind, smi, total_launches, TOTAL_EVENTS)
+    lap("19_checkpoint")
     tiered_runs(dev, kind, smi, total_launches, TIER_TOTAL)
-    ingest_runs(dev, kind, smi, total_launches)
-    while_drain_mirror(dev, kind, smi, total_launches)
-    ring_race(dev, kind, smi)
+    lap("20_tiered")
+    part("21_ingest/ingest_runs", lambda: ingest_runs(
+        dev, kind, smi, total_launches))
+    part("21_ingest/while_drain_mirror", lambda: while_drain_mirror(
+        dev, kind, smi, total_launches))
+    part("21_ingest/ring_race", lambda: ring_race(dev, kind, smi))
+    lap("21_ingest")
     emit({"phase": "megastep_kernels", "K": MEGA_K,
-          "checks": mega_kernel_phase(dev)})
-    megastep_runs(dev, kind, smi, total_launches, want_count)
-    controller_runs(dev, kind, smi, total_launches, want_count)
-    fire_grid(dev, kind, smi, total_launches)
+          "checks": part("22_megastep/kernels",
+                         lambda: mega_kernel_phase(dev))})
+    part("22_megastep/runs", lambda: megastep_runs(
+        dev, kind, smi, total_launches, want_count))
+    part("22_megastep/controller", lambda: controller_runs(
+        dev, kind, smi, total_launches, want_count))
+    part("22_megastep/fire_grid", lambda: fire_grid(
+        dev, kind, smi, total_launches))
+    lap("22_megastep")
     library_runs(dev, kind, smi, total_launches)
+    lap("23_libraries")
     sharded_runs(dev, kind, smi, total_launches, want_count)
+    lap("24_sharded")
     sharded_keyed_runs(dev, kind, smi, total_launches)
+    lap("25_sharded_keyed")
     dcn_runs(dev, kind, smi, total_launches)
+    lap("26_dcn")
 
     if "--profile" in argv:
         emit(profile_phase(
@@ -8871,6 +9405,9 @@ def main(argv) -> int:
             dev, "tiered", tier_gen,
             lambda: _no_env(tier_job(dev, TIER_TOTAL, TIER_BUDGET)),
             TIER_TOTAL, TIER_HOST_FUNCTIONS))
+        lap("profile")
+    emit({"phase": "phase_seconds", "seconds": PHASE_S, "parts": PARTS_S,
+          "total": sum(PHASE_S.values())})
     line = [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
         "replaces": KERNEL_SOURCES[name][1],

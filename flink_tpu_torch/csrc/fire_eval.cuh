@@ -17,9 +17,18 @@
 // the combine (0 add, 1 min, 2 max). ``with_plane`` picks them from the
 // runtime arguments.
 //
-// DenseSrc reads a dense fire result computed elsewhere: mask [F, C] bytes
-// and values [F, C, W] (the generic reduce's fire, whose combine is the
-// user's torch function), for the compaction alone.
+// DenseSrc<kW> reads a dense fire result computed elsewhere: mask [F, C]
+// bytes and values [F, C, W] (the generic reduce's fire, whose combine is
+// the user's torch function), for the compaction alone.
+//
+// eval_rounds (G6's single pass) evaluates one thread's slots of a tile:
+// kRounds rounds of kSpt neighbouring slots, c0 + r * step + s, with the
+// pane loop outside the rounds so that a thread keeps kRounds loads in
+// flight. kSpt = 2 reads a W = 1 plane's two cells as one float4 (C even,
+// the plane 16-byte aligned); a dense source's kSpt = 4 reads four mask
+// bytes as one word and, where one of them is set, four W = 1 values as
+// one float4 (C a multiple of 4, both aligned). Slots at or past C emit
+// nothing.
 
 #pragma once
 
@@ -94,6 +103,60 @@ struct PlaneSrc : PlaneArgs {
     }
     return emit;
   }
+
+  template <int kSpt, int kRounds, int kNV>
+  __device__ __forceinline__ void eval_rounds(
+      int f, const int32_t* rows, int c0, int step,
+      float (&v)[kRounds][kSpt][kNV], unsigned (&bits)[kRounds]) const {
+    static_assert(kSpt == 1 || (kSpt == 2 && kW == 1), "float4 cells: W = 1");
+    const int nw = W();
+    const bool late = fresh != nullptr && f >= n_ontime;
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      bits[r] = 0u;
+#pragma unroll
+      for (int s = 0; s < kSpt; ++s) {
+#pragma unroll
+        for (int w = 0; w < kNV; ++w) v[r][s][w] = neutral;
+      }
+    }
+    for (int j = 0; j < k; ++j) {
+      const int32_t row = rows[j];
+      if (row < 0) continue;
+      const size_t base = static_cast<size_t>(row) * C;
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        const int c = c0 + r * step;
+        if (c >= C) continue;
+        const size_t cell = base + c;
+        if constexpr (kSpt == 2) {
+          const float4 a = *reinterpret_cast<const float4*>(acc + cell * 2);
+          if (a.y != neutral) v[r][0][0] = combine_op(kOp, v[r][0][0], a.x);
+          if (a.w != neutral) v[r][1][0] = combine_op(kOp, v[r][1][0], a.z);
+          if (late) {
+            const uchar2 fr = *reinterpret_cast<const uchar2*>(fresh + cell);
+            bits[r] |= (fr.x != 0 ? 1u : 0u) | (fr.y != 0 ? 2u : 0u);
+          } else {
+            bits[r] |= (a.y != neutral ? 1u : 0u) | (a.w != neutral ? 2u : 0u);
+          }
+        } else if constexpr (kW == 1) {
+          const float2 a = reinterpret_cast<const float2*>(acc)[cell];
+          if (a.y != neutral) v[r][0][0] = combine_op(kOp, v[r][0][0], a.x);
+          bits[r] |= (late ? fresh[cell] != 0 : a.y != neutral) ? 1u : 0u;
+        } else {
+          const float* a = acc + cell * (nw + 1);
+          const float t = a[nw];
+          if (t != neutral) {
+#pragma unroll
+            for (int w = 0; w < kNV; ++w) {
+              if (w < nw) v[r][0][w] = combine_op(kOp, v[r][0][w], a[w]);
+            }
+          }
+          bits[r] |= (late ? fresh[cell] != 0 : t != neutral) ? 1u : 0u;
+        }
+      }
+    }
+  }
 };
 
 template <int kW, class Fn>
@@ -121,20 +184,58 @@ void with_plane(const PlaneArgs& a, int op, Fn fn) {
   }
 }
 
+template <int kW>
 struct DenseSrc {
-  static constexpr int kWidth = 0;
+  static constexpr int kWidth = kW;
   const uint8_t* mask;   // [F, C]
   const float* values;   // [F, C, W]
   int W_rt;
   int C;
 
-  __device__ __forceinline__ int W() const { return W_rt; }
+  __device__ __forceinline__ int W() const { return kW ? kW : W_rt; }
   __device__ __forceinline__ void prepare(int, int32_t*) const {}
-  __device__ __forceinline__ bool eval(int f, const int32_t*, int c,
-                                       float* v) const {
-    const size_t at = static_cast<size_t>(f) * C + c;
-    if (!mask[at]) return false;
-    for (int w = 0; w < W_rt && w < kMaxW; ++w) v[w] = values[at * W_rt + w];
-    return true;
+
+  template <int kSpt, int kRounds, int kNV>
+  __device__ __forceinline__ void eval_rounds(
+      int f, const int32_t*, int c0, int step,
+      float (&v)[kRounds][kSpt][kNV], unsigned (&bits)[kRounds]) const {
+    static_assert(kSpt == 1 || (kSpt == 4 && kW == 1), "float4 values: W = 1");
+    const int nw = W();
+    const size_t lane = static_cast<size_t>(f) * C;
+    // the mask words of every round first, then the values they select
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int c = c0 + r * step;
+      bits[r] = 0u;
+      if (c >= C) continue;
+      if constexpr (kSpt == 4) {
+        const uchar4 m = *reinterpret_cast<const uchar4*>(mask + lane + c);
+        bits[r] = (m.x ? 1u : 0u) | (m.y ? 2u : 0u) | (m.z ? 4u : 0u) |
+                  (m.w ? 8u : 0u);
+      } else {
+        bits[r] = mask[lane + c] ? 1u : 0u;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const size_t at = lane + c0 + r * step;
+      if constexpr (kSpt == 4) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (bits[r]) q = *reinterpret_cast<const float4*>(values + at);
+        v[r][0][0] = q.x;
+        v[r][1][0] = q.y;
+        v[r][2][0] = q.z;
+        v[r][3][0] = q.w;
+      } else {
+#pragma unroll
+        for (int w = 0; w < kNV; ++w) v[r][0][w] = 0.f;
+        if (bits[r]) {
+#pragma unroll
+          for (int w = 0; w < kNV; ++w) {
+            if (w < nw) v[r][0][w] = values[at * nw + w];
+          }
+        }
+      }
+    }
   }
 };

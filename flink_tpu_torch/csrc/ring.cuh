@@ -10,7 +10,7 @@
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions
 // >= O are lost and counted; ovf_n becomes min(ovf_n + taken, O).
 //
-// Design: the three-pass block scan of G6 fire_compact.cu. Blocks own
+// Design: a three-pass block scan (count, scan, write). Blocks own
 // contiguous chunks of kRingChunk lanes. (1) count: each block counts its
 // taken lanes. (2) scan: one block turns the counts into absolute ring
 // positions, reading the base ovf_n on the card (so the host never syncs),

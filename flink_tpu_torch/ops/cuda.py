@@ -1,13 +1,14 @@
 """The hand-written Hopper kernels and their plain versions.
 
-Twenty-seven CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
+Twenty-eight CUDA C++ kernels (``flink_tpu_torch/csrc/*.cu``, built for
 ``sm_90a``) carry the device work of the window stage (G1-G9, G14, G15
 for its sketch reduces, G16 for its generic reduce, G17 and G18 for its
 telemetry), of chained window stages (G21, G22), of the session,
 count-window and rolling stages (G10-G13, G16), of device CEP (G19,
 G20, with G5 and G10) and of the batch libraries (G23-G25: Table/SQL,
-DataSet, Gelly, FlinkML) and of jobs over a shard mesh (G26, G27);
-each source opens
+DataSet, Gelly, FlinkML) and of jobs over a shard mesh (G26, G27), and
+the hash table's point removal (G28, which no path calls, as in the
+reference); each source opens
 with the reference function it replaces, what bounds it on the card and
 what its design does about that:
 
@@ -56,6 +57,8 @@ what its design does about that:
                          lanes packed by owning shard at stable ranks
   G27 ``shard_sum``      the cross-shard sum of masked per-lane outputs
                          (the rolling reduce's psum)
+  G28 ``remove_slots``   table slots marked empty (the hash layout's point
+                         removal)
 
 The builtin reduces combine by ``OPS``: add (sum, count), min, max, with
 jnp's NaN and signed-zero order (``fmin`` / ``fmax``). A generic reduce's
@@ -118,7 +121,7 @@ SOURCES = ("route_lanes.cu", "clear_rows.cu", "scatter_update.cu",
            "rep_update.cu", "kg_occupancy.cu", "slot_stats.cu",
            "cep_scan.cu", "chain_pack.cu", "scatter_ids.cu",
            "sorted_probe.cu", "row_argbest.cu", "exchange_pack.cu",
-           "shard_sum.cu")
+           "shard_sum.cu", "remove_slots.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -128,6 +131,7 @@ _D = ctypes.c_double
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
+_UI = ctypes.c_uint
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P],
@@ -141,9 +145,10 @@ _SIGNATURES = {
                      _P, _P],
     "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fire_compact": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "fire_pack": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _P],
+                     _P, _P, _I, _UI, _P, _P, _P, _P, _P, _P],
+    "fire_pack": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _UI, _P, _P, _P,
+                  _P, _P, _P],
+    "fire_compact_tiles": [_I],
     "ring_append": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P, _P, _P],
     "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -173,13 +178,17 @@ _SIGNATURES = {
     "chain_pack": [_P] * 6 + [_I] * 4 + [_P, _P, _I] + [_P] * 8,
     "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 7,
     "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
-    "scatter_ids": [_P, _I, _L, _P, _I, _L, _I, _F, _P, _P, _P, _P],
+    "scatter_ids": [_P, _I, _L, _P, _I, _L, _I, _F, _P, _P, _P, _P, _P],
+    "scatter_ids_scratch": [_L, _P, _I, _L],
     "sorted_probe": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
     "row_argmin": [_P, _I, _I, _P, _P, _P, _P],
     "row_argmax": [_P, _I, _I, _P, _P, _F, _P, _P, _P],
     "exchange_pack": [_P] * 5 + [_I] * 5 + [_P] * 8,
     "shard_sum": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "remove_slots": [_P, _L, _P, _I, _P, _I, _P],
 }
+# the entry points that return something other than a CUDA error code
+_RESTYPES = {"scatter_ids_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -257,7 +266,7 @@ def build() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 
@@ -848,9 +857,6 @@ hash_upsert.launches = 0
 
 # ------------------------------------------------------------ G6
 
-COMPACT_CHUNK = 4096   # slots per block of G6 (a multiple of its 256 threads)
-
-
 def pack_fire_lanes(table, mask, values):
     """The pack of the reference's ``_pack_fire_lanes``: per fire lane,
     compact dense (mask bool [F, C], values float32 [F, C, *v]) planes into
@@ -897,12 +903,46 @@ def fire_compact_plain(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo,
     return counts, vsums
 
 
+class _LookBack:
+    """G6's look-back scratch for F lanes of ``stride`` tiles on one device
+    and stream: the tiles' status words and partial sums, each tagged with
+    the call's epoch. Allocated once and never cleared: each call takes the
+    next epoch, so a word of an earlier call reads as not yet published;
+    when the 32-bit epoch wraps, the words are zeroed (0 is never an
+    epoch)."""
+
+    def __init__(self, F: int, stride: int, dev):
+        self.stride = stride
+        self.status = torch.zeros(F, stride, dtype=torch.int64, device=dev)
+        self.sums = torch.zeros(F, stride, dtype=torch.int64, device=dev)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        if self.epoch >= 1 << 32:
+            self.status.zero_()
+            self.sums.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+_LOOK_BACK = {}
+_look_back_lock = threading.Lock()
+
+
 def _compact_scratch(F: int, C: int, dev):
-    n_blk = -(-C // COMPACT_CHUNK)
-    i32 = dict(dtype=torch.int32, device=dev)
-    return (torch.empty(F, n_blk, **i32), torch.empty(F, n_blk, **i32),
-            torch.empty(F, n_blk, dtype=torch.float32, device=dev),
-            torch.empty(F, **i32),
+    """(scratch, epoch, counts, value_sums) for one G6 call: the cached
+    look-back scratch of this device, stream and shape, the call's epoch,
+    and fresh outputs."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    stride = build().fire_compact_tiles(C)
+    with _look_back_lock:
+        key = (dev, stream, F, stride)
+        lb = _LOOK_BACK.get(key)
+        if lb is None:
+            lb = _LOOK_BACK[key] = _LookBack(F, stride, dev)
+        epoch = lb.next_epoch()
+    return (lb, epoch, torch.empty(F, dtype=torch.int32, device=dev),
             torch.empty(F, dtype=torch.float32, device=dev))
 
 
@@ -930,12 +970,12 @@ def fire_compact(acc, pane_ids, p_f, lane_ok, table, key_hi, key_lo, values,
     F, W = _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, C=C,
                        R=R, k=k)
     _check_rows(table, key_hi, key_lo, values, F, C, W, dev)
-    blk_count, blk_off, blk_sum, counts, vsums = _compact_scratch(F, C, dev)
+    lb, epoch, counts, vsums = _compact_scratch(F, C, dev)
     rc = build().fire_compact(
         _ptr(acc), W, OPS[op], float(neutral), _ptr(fresh),
         F if fresh is None else n_ontime, _ptr(pane_ids), _ptr(p_f),
-        _ptr(lane_ok), _ptr(table), C, R, k, F, _ptr(blk_count),
-        _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi), _ptr(key_lo),
+        _ptr(lane_ok), _ptr(table), C, R, k, F, _ptr(lb.status),
+        _ptr(lb.sums), lb.stride, epoch, _ptr(key_hi), _ptr(key_lo),
         _ptr(values), _ptr(counts), _ptr(vsums), _stream())
     _raise_on(rc, "fire_compact")
     fire_compact.launches += 1
@@ -978,10 +1018,10 @@ def fire_pack(table, mask, values, lane_ok, out=None):
         key_hi, key_lo, rows = out
         _check_rows(table, key_hi, key_lo, rows.view(F, C, W) if W > 1
                     else rows, F, C, W, dev)
-    blk_count, blk_off, blk_sum, counts, vsums = _compact_scratch(F, C, dev)
+    lb, epoch, counts, vsums = _compact_scratch(F, C, dev)
     rc = build().fire_pack(
         _ptr(mask), _ptr(values), W, _ptr(lane_ok), _ptr(table), C, F,
-        _ptr(blk_count), _ptr(blk_off), _ptr(blk_sum), _ptr(key_hi),
+        _ptr(lb.status), _ptr(lb.sums), lb.stride, epoch, _ptr(key_hi),
         _ptr(key_lo), _ptr(rows), _ptr(counts), _ptr(vsums), _stream())
     _raise_on(rc, "fire_pack")
     fire_pack.launches += 1
@@ -2522,6 +2562,10 @@ cep_expire.launches = 0
 # ------------------------------------------------------------ G23
 
 NEUTRAL = {"add": 0.0, "min": float("inf"), "max": float("-inf")}
+# the most 4-byte cells, G (W + 1), that G23's shared path holds in a
+# warp's copy of the target (csrc/scatter_ids.cu kSharedCells); larger
+# targets take its global path
+SCATTER_SHARED_CELLS = 3072
 
 
 def _scatter_ids_args(idx, vals, n_groups: int, op: str):
@@ -2592,9 +2636,15 @@ def scatter_ids(idx, vals, n_groups: int, *, op: str = "add",
            if counts else None)
     touched = (torch.zeros(n_groups, dtype=torch.bool, device=dev)
                if has else None)
-    rc = build().scatter_ids(
+    lib = build()
+    words = lib.scatter_ids_scratch(N, _ptr(vals), W, n_groups)
+    # the block paths' scratch: their blocks' partial copies
+    part = (torch.empty(words, dtype=torch.float32, device=dev) if words
+            else None)
+    rc = lib.scatter_ids(
         _ptr(idx), idx.element_size(), N, _ptr(vals), W, n_groups, OPS[op],
-        NEUTRAL[op], _ptr(target), _ptr(cnt), _ptr(touched), _stream())
+        NEUTRAL[op], _ptr(target), _ptr(cnt), _ptr(touched), _ptr(part),
+        _stream())
     _raise_on(rc, "scatter_ids")
     scatter_ids.launches += 1
     return target, cnt, touched
@@ -2881,6 +2931,43 @@ def shard_sum(outs, valids):
 
 shard_sum.launches = 0
 
+# ------------------------------------------------------------ G28
+
+def remove_slots_plain(table, slots, mask) -> torch.Tensor:
+    """Plain version of G28: mark table slots empty, in place. table int64
+    [C] key words; slots int32 or int64 [B]; mask bool [B]. Each lane with
+    ``mask`` sets its slot's word to EMPTY_WORD. A slot in [-C, 0) counts
+    from the end (the reference's ``.at[]`` wraps a negative index before
+    its mode="drop" scatter); other slots outside [0, C) and masked-off
+    lanes are dropped. Returns the table."""
+    C = table.shape[0]
+    s = slots.long()
+    s = torch.where(s < 0, s + C, s)
+    table[s[mask & (s >= 0) & (s < C)]] = EMPTY_WORD
+    return table
+
+
+def remove_slots(table, slots, mask) -> torch.Tensor:
+    """G28: see remove_slots_plain for the contract."""
+    if _on_cpu(table):
+        return remove_slots_plain(table, slots, mask)
+    dev = table.device
+    (C,) = table.shape
+    (B,) = slots.shape
+    if slots.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slots must be int32 or int64, got {slots.dtype}")
+    _check(table, "table", torch.int64, (C,), dev)
+    _check(slots, "slots", slots.dtype, (B,), dev)
+    _check(mask, "mask", torch.bool, (B,), dev)
+    rc = build().remove_slots(_ptr(table), C, _ptr(slots),
+                              slots.element_size(), _ptr(mask), B, _stream())
+    _raise_on(rc, "remove_slots")
+    remove_slots.launches += 1
+    return table
+
+
+remove_slots.launches = 0
+
 KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            fire_reduced, hash_upsert, fire_compact, fire_pack, ring_append,
            hash_lookup, compact_table, segment_sort, session_update,
@@ -2888,7 +2975,7 @@ KERNELS = (route_lanes, clear_rows, fresh_rows, scatter_update,
            rep_gather, rep_set, kg_occupancy, slot_stats_begin, slot_stats,
            cep_scan, cep_expire, chain_pack, fire_columns, stage_record,
            scatter_ids, sorted_probe, row_argmin, row_argmax,
-           exchange_pack, shard_sum)
+           exchange_pack, shard_sum, remove_slots)
 
 
 # wrappers whose kernel lives in another wrapper's source

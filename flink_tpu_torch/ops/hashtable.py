@@ -14,9 +14,12 @@ free when it arrived. ``lookup`` / ``lookup_counted`` find keys (G8 on the
 card); ``upsert_counted`` inserts or finds them (G5). The key word equal to
 EMPTY — integer key -1 — is never found nor placed: the window update
 takes its lanes to the overflow ring, or counts them as capacity loss
-without one, as the reference does. A slot is freed only by rebuilding
-the whole table (``window_kernels.compact_table``, G9); the reference's
-point removal ``remove_slots`` has no caller there and is not ported.
+without one, as the reference does. The paths free slots only by
+rebuilding the whole table (``window_kernels.compact_table``, G9).
+``remove_slots`` is the reference's point removal (G28), which neither
+package calls: G5 and G8 stop at a chain's first empty slot, so a slot
+cleared in the middle of a chain can hide the keys behind it from them
+(the plain versions, like the reference, scan the whole chain).
 """
 
 from __future__ import annotations
@@ -80,6 +83,14 @@ def upsert(table: torch.Tensor, hi, lo,
     slot, ok, _ = upsert_counted(table, hi, lo, valid,
                                  probe_len=KEYED_PROBE_LEN)
     return slot, ok
+
+
+def remove_slots(table: torch.Tensor, slots, mask) -> torch.Tensor:
+    """Mark the slots of the masked lanes empty, the table updated in place
+    and returned (G28): the reference's ``remove_slots``. slots int32 or
+    int64 [B]; a slot in [-C, 0) counts from the end, as the reference's
+    indexing wraps it, and other slots outside [0, C) are dropped."""
+    return kernels.remove_slots(table, slots, mask)
 
 
 def to_rows(table: torch.Tensor) -> np.ndarray:

@@ -11,6 +11,12 @@ the CPU, at C = 4096 slots, B = 1024 lanes, P = 16.
   key within each window end, and states compare key by key
   (``torch_parity.logical_state``); activity (newly placed keys) is equal.
 
+* G6's plain version (evaluation, then the pack) at the slot counts where
+  the kernel's tiles end (C = 512 and 2,048 slots, each +-1), W = 1 and
+  W = 3, against the reference's ``_eval_fire_lanes`` and
+  ``_pack_fire_lanes``: a lane emitting one slot in the last tile, a lane
+  emitting every slot, a lane that is not due.
+
 Integer-valued data is exact; random floats hold at rtol 1e-6 (the sums
 add in another order, tests/test_torch_window_kernels.py says why).
 """
@@ -30,6 +36,7 @@ from torch_parity import (
 
 from flink_tpu.ops import hashtable as ht_ref
 from flink_tpu.ops import window_kernels as wkj
+from flink_tpu_torch.ops import cuda as kernels
 from flink_tpu_torch.ops import hashtable as ht_port
 from flink_tpu_torch.ops import window_kernels as wkt
 
@@ -164,3 +171,63 @@ def test_hash_layout_rows_match_reference(window, floats):
     assert n_rows > 0 and n_new > 0
     # the key -1 lanes and the too-old lanes dropped on both sides
     assert int(st.dropped_capacity) > 0
+
+
+@pytest.mark.parametrize("C", [511, 513, 2047, 2049])
+@pytest.mark.parametrize("W", [1, 3])
+@pytest.mark.parametrize("pattern", ["last_slot", "everything"])
+def test_fire_compact_plain_at_tile_edges(C, W, pattern):
+    """fire_compact_plain on a packed sum plane [C * R, W + 1] against the
+    reference's evaluation and pack on the same panes, k = 2 of R = 4
+    ring rows, three lanes: lane 0 due over random touches plus the last
+    three slots (one of its panes absent from the ring for ``last_slot``),
+    lane 1 due over a pane touched at slot C - 1 alone (``last_slot``) or
+    at every slot (``everything``), lane 2 not due."""
+    rng = np.random.default_rng(C + 10 * W)
+    Rr, k, n_f = 4, 2, 3
+    vs = () if W == 1 else (W,)
+    touched = rng.random((Rr, C)) < 0.3
+    touched[:, -3:] = True
+    pane_ids = np.array([8, 5, 6, 7], np.int32)        # pane q in row q % 4
+    if pattern == "last_slot":
+        touched[1] = False                              # pane 5: lane 1's
+        touched[1, C - 1] = True
+        pane_ids[2] = 2                                 # pane 6 is absent
+    else:
+        touched[1] = touched[0] = True
+    vals = rng.integers(-9, 10, (Rr, C) + vs).astype(np.float32)
+    vals = np.where(touched.reshape(touched.shape + (1,) * len(vs)), vals,
+                    np.float32(0))
+    p_f = np.array([7, 5, 9], np.int32)
+    lane_ok = np.array([True, True, False])
+    rows = rng.integers(0, 2**32, (C, 2), dtype=np.uint64).astype(np.uint32)
+
+    win = wkj.WindowSpec(2 * 10, 10, ring=Rr, fires_per_step=n_f)
+    red = wkj.ReduceSpec("sum", jnp.float32, value_shape=vs)
+    emit_j, vals_j = wkj._eval_fire_lanes(
+        jnp.asarray(vals), jnp.asarray(touched), jnp.asarray(pane_ids), win,
+        red, jnp.asarray(p_f), jnp.asarray(lane_ok), jnp.asarray(touched))
+    want = wkj._pack_fire_lanes(ht_ref.SlotTable(jnp.asarray(rows), 16),
+                                emit_j, vals_j)
+
+    acc = np.concatenate([vals.reshape(Rr * C, W),
+                          touched.reshape(Rr * C, 1).astype(np.float32)], 1)
+    out = (torch.empty(n_f, C, dtype=torch.int32),
+           torch.empty(n_f, C, dtype=torch.int32),
+           torch.empty((n_f, C) + vs, dtype=torch.float32))
+    counts, vsums = kernels.fire_compact_plain(
+        torch.from_numpy(acc), torch.from_numpy(pane_ids),
+        torch.from_numpy(p_f), torch.from_numpy(lane_ok),
+        ht_port.from_rows(rows, device="cpu"), *out, C=C, R=Rr, k=k)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want[3]))
+    np.testing.assert_array_equal(vsums.numpy(), np.asarray(want[4]))
+    if pattern == "last_slot":
+        assert counts.tolist()[1:] == [1, 0]
+    else:
+        assert counts.tolist()[1] == C
+    for f in range(n_f):
+        n = int(counts[f])
+        for got, ref in zip(out, want[:3]):
+            ref = np.asarray(ref)[f, :n]
+            np.testing.assert_array_equal(
+                got[f, :n].numpy().view(ref.dtype), ref)

@@ -9,7 +9,9 @@ port, so tables compare as sets: the same keys, each once, each within P
 slots of its chain's start, at the slot ``lookup`` returns. ``ok`` and
 ``n_new`` must be equal. Below capacity the reference's four claim rounds
 and the port's walk place the same keys; the overload case checks the
-port's own contract instead.
+port's own contract instead. ``remove_slots`` (G28's plain version) must
+leave the reference's table row for row, and lookups after it must find
+and miss the same keys in both packages.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -193,3 +195,50 @@ def test_table_rows_round_trip_and_capacity_check():
         ht_port.to_rows(ht_port.from_rows(rows, device="cpu")), rows)
     with pytest.raises(ValueError, match="power of two"):
         ht_port.create(3000, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["masked", "out_of_range", "repeated",
+                                  "empty", "placed"])
+def test_remove_slots_matches_reference(case):
+    """remove_slots on a table the reference built, carried over: the same
+    rows after it as the reference's, whatever the lanes hold — masked-off
+    lanes, slots past C, below -C and in [-C, 0) (the reference's indexing
+    counts those from the end), repeated slots, no lane at all, or the
+    slots of placed keys — and the same slot and found flag for every key
+    of the batch afterwards, the cleared keys missing in both."""
+    rng = np.random.default_rng(30 + len(case))
+    empty_rows = np.full((C, 2), ht_ref.EMPTY, np.uint32)
+    keys, valid = _batch(5, "sparse")
+    tab_j, slot_j, ok_j, _ = _ref_upsert(empty_rows, keys, valid)
+    placed = np.unique(slot_j[ok_j])
+    n = 0 if case == "empty" else 96
+    slots = rng.choice(placed, n).astype(np.int32)
+    mask = np.ones(n, bool)
+    if case == "masked":
+        mask[::3] = False
+    elif case == "out_of_range":
+        slots[:8] = [C, C + 1, 2**31 - 1, -1, -C, -C - 1, -(2**31), C - 1]
+    elif case == "repeated":
+        slots[n // 2:] = slots[:n // 2]
+    ref = ht_ref.remove_slots(ht_ref.SlotTable(jnp.asarray(tab_j), P),
+                              jnp.asarray(slots), jnp.asarray(mask))
+    port = ht_port.remove_slots(ht_port.from_rows(tab_j, device="cpu"),
+                                torch.from_numpy(slots),
+                                torch.from_numpy(mask))
+    want = np.asarray(ref.keys)
+    np.testing.assert_array_equal(ht_port.to_rows(port), want)
+    cleared = (tab_j != want).any(axis=1)
+    at = np.where(slots < 0, slots.astype(np.int64) + C, slots)
+    hit = np.unique(at[mask & (at >= 0) & (at < C)])
+    occupied = (tab_j[hit] != ht_ref.EMPTY).any(axis=1)
+    np.testing.assert_array_equal(np.nonzero(cleared)[0], hit[occupied])
+    hi, lo = _halves(keys)
+    slot_r, found_r = ht_ref.lookup(ref, jnp.asarray(hi), jnp.asarray(lo))
+    slot_p, found_p = ht_port.lookup(port, _t(hi), _t(lo), probe_len=P)
+    np.testing.assert_array_equal(found_p.numpy(), np.asarray(found_r))
+    np.testing.assert_array_equal(slot_p.numpy(), np.asarray(slot_r))
+    gone = ok_j & cleared[np.minimum(slot_j, C - 1)]
+    assert not found_p.numpy()[gone].any()
+    assert (slot_p.numpy()[gone] == C).all()
+    if case == "placed":
+        assert gone.any() and found_p.numpy()[ok_j & ~gone].all()

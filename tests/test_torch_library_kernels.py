@@ -134,6 +134,47 @@ def test_scatter_ids_rows_with_counts_is_kmeans_update():
     assert same_bits(counts.numpy().astype(np.float32), np.asarray(want_c))
 
 
+LIMIT = kernels.SCATTER_SHARED_CELLS
+
+
+@pytest.mark.parametrize("op", ("add", "min", "max"))
+@pytest.mark.parametrize("W,G", [(0, LIMIT - 1), (0, LIMIT), (0, LIMIT + 1),
+                                 (3, LIMIT // 4), (3, LIMIT // 4 + 1),
+                                 (16, 64)])
+def test_scatter_ids_at_the_shared_limit(op, W, G):
+    """Around G23's shared path limit (G (W + 1) cells a warp's copy: one
+    side takes the shared path on the card, the other the global one),
+    W = 3 through an offset (not 16-byte aligned) view, KMeans' W = 16,
+    and a lane count that fills no whole chunk: the plain version against
+    jnp's .at[] scatter and numpy's bincount, NaN and +-0 lanes and lanes
+    out of range included."""
+    rng = np.random.default_rng(G + W)
+    n = 5003
+    idx = rng.integers(-2, G + 3, n).astype(np.int64)
+    vals = None
+    if W:
+        buf = rng.integers(-9, 10, n * W + 1).astype(np.float32)
+        buf[::97] = np.nan
+        buf[1::31] = -0.0
+        vals = torch.from_numpy(buf)[1:].view(n, W)     # an offset view
+        assert vals.is_contiguous() and vals.data_ptr() % 16 != 0
+    target, counts, has = kernels.scatter_ids_plain(
+        _t(idx), vals, G, op=op, counts=True, has=True)
+    ok = (idx >= 0) & (idx < G)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(idx[ok], minlength=G))
+    np.testing.assert_array_equal(has.numpy(), np.bincount(
+        idx[ok], minlength=G) > 0)
+    if W:
+        neutral = {"add": 0.0, "min": jnp.inf, "max": -jnp.inf}[op]
+        at = jnp.full((G, W), neutral, jnp.float32).at[
+            jnp.asarray(np.where(ok, idx, G))]
+        want = getattr(at, op)(jnp.asarray(vals.numpy()), mode="drop")
+        assert same_bits(target.numpy(), np.asarray(want))
+    else:
+        assert target is None
+
+
 def test_scatter_ids_counts_alone_and_no_lanes():
     _, counts, _ = kernels.scatter_ids_plain(
         _t([3, 3, 0, 9], torch.int32), None, 4, counts=True)

@@ -97,7 +97,7 @@ def test_fire_and_purge_sequence_matches_reference(window, precombine,
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors every wrapper runs its plain version: no counter
-    moves and nothing is compiled (G1-G27)."""
+    moves and nothing is compiled (G1-G28)."""
     kernels.reset_launch_counts()
     _, _, win_t, red_t, _, st = _fresh("tumbling")
     hi, lo, ts, vals, valid, wm, clear = batches(3)[0]
@@ -203,5 +203,10 @@ def test_cpu_tensors_never_launch_a_kernel():
     exchange_records(split_lanes(tuple(t[:64] for t in slot), 4, cpu4), 4,
                      MAXP, 8, cpu4)
     psum([slot[3][:8]] * 4, [slot[4][:8]] * 4, "cpu")
-    assert len(kernels.KERNELS) == 33
-    assert [fn.launches for fn in kernels.KERNELS] == [0] * 33
+    # the hash table's point removal (G28), which no path calls
+    from flink_tpu_torch.ops import hashtable as ht
+    ht.remove_slots(ht.create(8, device="cpu"),
+                    torch.tensor([1, -1, 9], dtype=torch.int32),
+                    torch.tensor([True, True, False]))
+    assert len(kernels.KERNELS) == 34
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * 34
