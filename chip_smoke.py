@@ -42,10 +42,17 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 batch), its edge inputs one key in every lane, dead lanes,
                 ticks over the whole int32 range; its permutation also
                 equal to torch.sort(stable=True)'s, which is its library
-                time. G11 on the sessions job's state 17 s in (main) and
-                on random open sessions (edge: several sessions of one key
-                in a batch, out-of-order ticks, merges, supersession, dead
-                lanes, a watermark jump closing ~40 % of them); G12 with
+                time (the session key's too); and on the shapes its
+                tiling, digit plan and scratch make risky
+                (``sort_edge_checks``: n at and around a tile, n = 1,
+                bits 1 to 63, constant low, middle and top digits, equal
+                and descending keys, dead lanes, a 51-bit session key,
+                calls in a row on one scratch, one device kernel a call
+                by torch.profiler). G11 on the sessions job's state 17 s
+                in (main) and on random open sessions (edge: several
+                sessions of one key in a batch, out-of-order ticks,
+                merges, supersession, dead lanes, a watermark jump
+                closing ~40 % of them); G12 with
                 N = 10, edge one key in every lane; G13 edge one key in
                 every lane. G14, G15 and G2's split clear at both sketch
                 jobs' shapes (C = 2^14, W = 4,096: HyperLogLog p = 12,
@@ -141,7 +148,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 its library time torch.argmin over the materialised
                 distance; row_argmax at community detection's first
                 superstep at V = 4,096 (edge: NaN, zero and negative
-                rows), its library time torch.max(m, 1). G23's shared
+                rows; ``argmax_edge_checks``: K from 1 to 4,097 on the
+                warp and block paths, float4 and scalar loads, NaN first,
+                last and inside a float4, ties across warps and load
+                slots, labels and scores bit for bit), its library time
+                torch.max(m, 1). G23's shared
                 path also on its risky shapes (``scatter_edge_checks``: W
                 = 3 through an offset view with N not a multiple of a
                 chunk, G (W + 1) at its shared limit and past it, each
@@ -212,8 +223,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
   8. wordcount — Flink's streaming WordCount, key_by(word).sum(value):
                 word ranks by the inverse Zipf(1.0, 1M) CDF at
                 splitmix64(event index) / 2^64, ids splitmix64(rank), value
-                1; 30M events, capacity 2^22. Every one of the 30M rows, in
-                input order, must equal numpy's running count of its word;
+                1; 15M events (30M cut to keep the script's wall),
+                capacity 2^22. Every one of the 15M rows, in input
+                order, must equal numpy's running count of its word;
                 G5, G10, G13 launched.
   9. windowcount — Flink's WindowWordCount as count_window(10).sum(value)
                 on the same stream (the example's slide of 5 cut: the
@@ -354,7 +366,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 runs pin ``on`` (the recorder and the step.drain seam
                 exist only on the drains). bench_configs.py:459
                 run_ingest_pipeline at its shape (2^20 keys, capacity
-                2^21, batches of 131,072, 10 s windows, 30M events):
+                2^21, batches of 131,072, 10 s windows; 15M events, its
+                30M cut to keep the script's wall):
                 prefetch off, on, and on with sync-full cuts every 8
                 batches (its incremental and async cuts raise: item 13),
                 count and sum against numpy, the ratios.
@@ -568,7 +581,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -631,7 +644,7 @@ SESSION_WARM_BATCHES = 130    # the G11 main case: 17 s into the stream
 # the wordcount and windowcount jobs: Flink's streaming WordCount and
 # WindowWordCount over a Zipf(1.0) stream of a 1M-word vocabulary
 N_WORDS = 1_000_000
-WORD_TOTAL = 30_000_000
+WORD_TOTAL = 15_000_000       # 30M cut to keep the script's wall
 COUNT_N = 10                  # WindowWordCount's countWindow(10, 5), cut
 KEYED_CAPACITY = 1 << 22      # the three jobs' state slots (probe 16)
 # the sketch jobs (BASELINE config #3): nexmark's bid stream
@@ -1610,6 +1623,7 @@ def case_segment_sort(dev, C, B, kind):
         "library": lambda: torch.sort(key1, stable=True),
         "session_run": lambda: kernels.segment_sort(key2, bits=bits2,
                                                     seg_shift=32),
+        "session_library": lambda: torch.sort(key2, stable=True),
         # key in; order, sorted key, flag out
         "bytes": B * (8 + 4 + 8 + 1),
     }
@@ -1824,9 +1838,103 @@ def keyed_kernel_phase(dev, C, B, timing=True):
                                  if main["library"] is not None else None)
             if "session_run" in main:
                 rec["session_key_ms"] = time_ms(main["session_run"])
+                rec["session_key_library_ms"] = time_ms(
+                    main["session_library"])
         out[name] = rec
         del main
+    out["segment_sort"]["edges"] = sort_edge_checks(dev)
     return out
+
+
+def session_keys(rng, n, C, ticks, dead=0.05):
+    """(slot, tick) keys as ops/segment.py sort_slot_ts builds them: slots
+    in [0, C), ticks from ``ticks`` (an int64 array of n), ``dead`` of the
+    lanes at C << 32. Their bits: 32 + C.bit_length()."""
+    slot = rng.integers(0, C, n).astype(np.int64)
+    key = (slot << 32) | ((ticks.astype(np.int64) + 2**31) & 0xFFFFFFFF)
+    return np.where(rng.random(n) < dead, C << 32, key)
+
+
+def sort_edge_checks(dev) -> dict:
+    """G10 on the shapes its tiling, its digit plan and its scratch make
+    risky, each bit for bit against its plain version and its permutation
+    and keys against torch.sort(stable=True)'s: n below one tile, at k
+    tiles and k tiles +- 1, n = 1; bits 1, 8, 9, 16, 63; a constant low,
+    middle and top digit; every key equal, strictly descending keys, dead
+    lanes at C (slot keys) and C << 32 (session keys, a 51-bit key whose
+    tick digits above the lowest two are constant); then calls in a row on
+    one scratch (A, B, no lanes, A again: A's outputs the same both times,
+    the histogram half, tile counters and barrier carried over); then the
+    device kernels a call launches at the 51-bit shape (torch.profiler):
+    one. Returns a record nested under segment_sort."""
+    rng = np.random.default_rng(18)
+    tile = kernels.SORT_TILE
+    if dev.type == "cuda":
+        check(kernels.build().segment_sort_tile() == tile,
+              "segment_sort: SORT_TILE differs from the kernel's tile")
+        check(kernels.build().segment_sort_state_words()
+              == kernels.SORT_STATE_WORDS,
+              "segment_sort: SORT_STATE_WORDS differs from the kernel's")
+
+    def rand(n, bits):
+        return rng.integers(0, 1 << bits, n, dtype=np.uint64).astype(
+            np.int64) if bits < 63 else rng.integers(
+            0, 2**63 - 1, n, dtype=np.int64)
+
+    ticks = rng.integers(5_000_000, 5_000_000 + 40_000, 1 << 19)
+    cases = [  # (label, keys, bits, seg_shift)
+        ("n below a tile", rand(tile // 3, 23), 23, 0),
+        ("n = 1", rand(1, 23), 23, 0),
+        ("n = tile", rand(tile, 23), 23, 0),
+        ("n = 3 tiles - 1", rand(3 * tile - 1, 23), 23, 0),
+        ("n = 3 tiles + 1", rand(3 * tile + 1, 23), 23, 0),
+        ("n = 64 tiles + 1", rand(64 * tile + 1, 23), 23, 0),
+    ]
+    cases += [(f"bits {b}", rand(50_000, b), b, max(0, b - 5))
+              for b in (1, 8, 9, 16, 63)]
+    lo = rand(60_000, 16)
+    cases += [
+        ("constant low digit", (lo << 8) | 0x5A, 24, 8),
+        ("constant middle digit", ((lo >> 8) << 16) | (0xA5 << 8)
+         | (lo & 255), 24, 0),
+        ("constant top digit", (0xC3 << 16) | lo, 24, 16),
+        ("every key equal", np.full(100_000, 0x1234_5678_9A), 40, 0),
+        ("descending", np.arange(100_000, 0, -1, dtype=np.int64), 17, 0),
+        ("dead slots at C", np.where(rng.random(200_000) < 0.3, 1 << 18,
+                                     rand(200_000, 18)), 19, 0),
+        ("51-bit session keys", session_keys(rng, 1 << 19, 1 << 18, ticks),
+         51, 32),
+    ]
+    err = 0.0
+    for label, key, bits, sh in cases:
+        k = torch.from_numpy(np.ascontiguousarray(key, np.int64)).to(dev)
+        got = kernels.segment_sort(k, bits=bits, seg_shift=sh)
+        want = kernels.segment_sort_plain(k, bits=bits, seg_shift=sh)
+        lib = torch.sort(k, stable=True)
+        e = max(max_abs_err(list(got), list(want)),
+                max_abs_err([got[0].long(), got[1]],
+                            [lib.indices, lib.values]))
+        check(e == 0.0, f"segment_sort ({label}, n {k.numel()}, bits "
+                        f"{bits}) differs from its plain version or a "
+                        f"stable sort: {e} elements")
+        err = max(err, e)
+    # calls in a row on one scratch: A, B, no lanes, A again
+    ka = torch.from_numpy(cases[4][1]).to(dev)
+    kb = torch.from_numpy(cases[-1][1]).to(dev)
+    a1 = kernels.segment_sort(ka, bits=23, seg_shift=0)
+    kernels.segment_sort(kb, bits=51, seg_shift=32)
+    kernels.segment_sort(ka[:0], bits=23, seg_shift=0)   # no launch
+    a2 = kernels.segment_sort(ka, bits=23, seg_shift=0)
+    again = max_abs_err(list(a1), list(a2))
+    check(again == 0.0, f"segment_sort: a call on a used scratch differs "
+                        f"({again} elements)")
+    n_launch, seen = launches_a_call(
+        dev, [lambda: kernels.segment_sort(kb, bits=51, seg_shift=32)] * 4)
+    check(n_launch in (None, 1) and all("sort_kernel" in k for k in seen),
+          f"G10: {n_launch} device kernels a call, not one: {seen}")
+    return {"cases": len(cases) + 1, "max_abs_err": err,
+            "scratch_twice_err": again, "kernels_a_call": n_launch,
+            "shapes": [c[0] for c in cases]}
 
 
 # ------------------------------------------------------------ phase 4
@@ -3795,13 +3903,17 @@ def fire_pack_edge(dev, C, W, *, shape="random", count_only=False, seed=0):
     return (run, *_fires_err(c1, v1, outs[0], c2, v2, outs[1]))
 
 
-def g6_launches_a_call(dev, calls) -> Optional[int]:
-    """Device kernels one G6 call launches, by torch.profiler over each of
-    ``calls`` (None when the profiler records no device kernel)."""
+def launches_a_call(dev, calls) -> Tuple[Optional[int], dict]:
+    """Device kernels one call launches, by torch.profiler over each of
+    ``calls`` (None when the profiler records no device kernel), and how
+    many of each name it recorded. The count a call rounds up: the
+    profiler may miss a launch (it has recorded 3 of 4 of each of G6's
+    two kernels in one session), while a call with two kernels shows
+    twice as many, or a second name."""
     from torch.profiler import ProfilerActivity, profile as profiler
 
     if dev.type != "cuda":
-        return None
+        return None, {}
     torch.cuda.synchronize()
     with profiler(activities=[ProfilerActivity.CUDA]) as prof:
         for run in calls:
@@ -3811,9 +3923,12 @@ def g6_launches_a_call(dev, calls) -> Optional[int]:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "memcpy" not in e.name.lower()
              and "memset" not in e.name.lower()]
+    seen = {}
+    for name in names:
+        seen[name[:80]] = seen.get(name[:80], 0) + 1
     if not names:
-        return None
-    return len(names) // len(calls)
+        return None, seen
+    return -(-len(names) // len(calls)), seen
 
 
 def fire_edge_checks(dev) -> dict:
@@ -3881,10 +3996,10 @@ def fire_edge_checks(dev) -> dict:
                                "scratch_twice_err": again,
                                "shapes": [label for label, _ in cases]}}
     # one profiler session over 4 calls of each entry point
-    n_launch = g6_launches_a_call(dev, [runs["fire_compact"],
+    n_launch, seen = launches_a_call(dev, [runs["fire_compact"],
                                         runs["fire_pack"]] * 4)
-    check(n_launch in (None, 1),
-          f"G6: {n_launch} device kernels a call, not one")
+    check(n_launch in (None, 1) and all("compact_kernel" in k for k in seen),
+          f"G6: {n_launch} device kernels a call, not one: {seen}")
     for name in out:
         out[name]["edges"]["kernels_a_call"] = n_launch
     return out
@@ -5694,7 +5809,7 @@ INGEST_KEYS = 1 << 20
 INGEST_CAPACITY = 1 << 21
 INGEST_BATCH = 131_072
 INGEST_WINDOW_MS = 10_000
-INGEST_TOTAL = 30_000_000
+INGEST_TOTAL = 15_000_000     # run_ingest_pipeline's 30M, cut likewise
 INGEST_CKPT_INTERVAL = 8      # batches between two sync-full cuts
 
 
@@ -7039,6 +7154,54 @@ def case_row_argmax(dev, kind):
     }
 
 
+def argmax_edge_checks(dev) -> dict:
+    """G25's arg-max mode on the shapes its split rows make risky, its
+    labels and scores bit for bit (NaN bits too) against its plain
+    version: K in 1, 3, 31, 33, 4,095, 4,096 and 4,097 at N = 1 and N = 65
+    (a warp a row below 1,024 columns, a block above; float4 loads where
+    K % 4 == 0, scalar loads otherwise), a row through an offset view (4-
+    byte aligned: the scalar loads), and at K = 4,096 and 4,097: a NaN
+    first, last and inside one float4, two NaN, ties between columns that
+    different warps and load slots read (the first wins), all-zero rows
+    and negative rows. Returns a record nested under row_argmax."""
+    g = torch.Generator().manual_seed(251)
+
+    def rows(n, K):
+        return torch.randint(-3, 4, (n, K), generator=g).float()
+
+    cases = []   # (label, m)
+    for K in (1, 3, 31, 33, 4095, 4096, 4097):
+        cases += [(f"K={K} N=1", rows(1, K)), (f"K={K} N=65", rows(65, K))]
+    for K in (4096, 4097):
+        m = rows(16, K)
+        m[0, 0] = m[1, K - 1] = m[2, 4 * 100 + 2] = float("nan")
+        m[3, 7] = m[3, 3000] = float("nan")
+        m[4, :] = 0.0
+        m[5, :] = -torch.rand(K, generator=g) - 0.5
+        m[6, :] = 1.0
+        m[6, [900, 1030, 4000]] = 9.0   # warp 7 slot 0, warp 0 slot 1
+        m[7, :] = 2.0
+        m[7, [4095, 2049, 1023]] = 5.0
+        cases.append((f"K={K} NaN, ties, zero and negative rows", m))
+    buf = rows(1, 65 * 4096 + 1).view(-1)
+    cases.append(("offset view", buf.to(dev)[1:].view(65, 4096)))
+    err = 0.0
+    for label, m in cases:
+        m = m.to(dev)
+        N = m.shape[0]
+        labels = torch.arange(N, dtype=torch.float32, device=dev) + 0.5
+        scores = torch.rand(N, generator=g).to(dev) + 0.5
+        a = kernels.row_argmax(m, labels, scores, 0.5)
+        b = kernels.row_argmax_plain(m, labels, scores, 0.5)
+        e = max(float((x.view(torch.int32) != y.view(torch.int32)).sum())
+                for x, y in zip(a, b))
+        check(e == 0.0, f"row_argmax ({label}) disagrees with its plain "
+                        f"version: {e} elements differ")
+        err = max(err, e)
+    return {"cases": len(cases), "max_abs_err": err,
+            "shapes": [label for label, _ in cases]}
+
+
 def scatter_block_path(idx, vals, G) -> bool:
     """Whether G23 takes a block path (registers or shared memory) for
     these inputs, not the global one: the scratch its blocks' partial
@@ -7154,6 +7317,7 @@ def library_kernel_phase(dev, timing=True) -> dict:
                        ("row_argmin", case_row_argmin),
                        ("row_argmax", case_row_argmax)):
         out[name] = hold(name, lambda k, f=case: f(dev, k), timing)
+    out["row_argmax"]["edges"] = argmax_edge_checks(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -8570,8 +8734,8 @@ def dcn_held(dev, job):
 
 
 def case_segment_sort_dcn(dev, kind, job):
-    """G10 at a phase-26 job's shard-0 lanes (``dcn_held``), exactly:
-    sessions' (slot, tick) keys over 524,288 gathered lanes, C = 2^18;
+    """G10 at a phase-26 job's shard-0 lanes (``dcn_held``), exactly, its
+    permutation also torch.sort(stable=True)'s: sessions' (slot, tick) keys over 524,288 gathered lanes, C = 2^18;
     cep's and rolling's slot keys over 32,768 gathered lanes (C = 2^16)
     and 262,144 exchanged lanes (C = 2^20)."""
     rec = dcn_held(dev, job)[kind]
@@ -8586,6 +8750,10 @@ def case_segment_sort_dcn(dev, kind, job):
         bits, sh = C.bit_length(), 0
     got = kernels.segment_sort(key, bits=bits, seg_shift=sh)
     want = kernels.segment_sort_plain(key, bits=bits, seg_shift=sh)
+    lib = torch.sort(key, stable=True)
+    check(bool((lib.indices == got[0].long()).all()),
+          f"segment_sort at {job}'s lanes: the permutation differs from a "
+          f"stable sort")
     return {
         "err": max_abs_err(list(got), list(want)),
         "run": lambda: kernels.segment_sort(key, bits=bits, seg_shift=sh),
@@ -8903,7 +9071,6 @@ def main(argv) -> int:
     emit({"phase": "build", "seconds": t1 - t0,
           "spill_store_seconds": time.perf_counter() - t1})
     lap("2_build")
-
     recs = part("3_kernels/G1-G9", lambda: kernel_phase(
         dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP, MAX_PARALLELISM,
         WINDOW_MS))

@@ -27,7 +27,9 @@ what its design does about that:
   G7 ``ring_append``     nofit lanes appended to the overflow ring
   G8 ``hash_lookup``     the fast step's find-only probe + missing count
   G9 ``compact_table``   table rebuild around the live keys, state moved
-  G10 ``segment_sort``   stable radix sort of lanes by slot (or slot, tick)
+  G10 ``segment_sort``   stable radix sort of lanes by slot (or slot, tick):
+                         one cooperative launch, onesweep passes over the
+                         digits that vary, decoupled look-back
   G11 ``session_update`` session cuts, merges, fires and watermark close
   G12 ``count_update``   count windows: positions, window reduce, fires
   G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
@@ -50,9 +52,11 @@ what its design does about that:
                          grouped reduce and scatters
   G24 ``sorted_probe``   a broadcast join's probe: binary search of the
                          sorted build keys
-  G25 ``row_argmin``     a row's nearest center (KMeans);
-      ``row_argmax``     a row's adopted label (community detection), in
-                         one source ``row_argbest.cu``
+  G25 ``row_argmin``     a row's nearest center (KMeans), a warp a row;
+      ``row_argmax``     a row's adopted label (community detection), a
+                         block a row at K >= 1,024 (float4 loads, four
+                         candidates a thread), in one source
+                         ``row_argbest.cu``
   G26 ``exchange_pack``  the keyed exchange's bucket step: a source shard's
                          lanes packed by owning shard at stable ranks
   G27 ``shard_sum``      the cross-shard sum of masked per-lane outputs
@@ -156,7 +160,10 @@ _SIGNATURES = {
     "compact_move": [_P, _I, _F, _P, _P, _I, _I, _P, _P, _P],
     "compact_export": [_P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P],
-    "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _UI,
+                     _P],
+    "segment_sort_tile": [],
+    "segment_sort_state_words": [],
     "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P],
@@ -1263,7 +1270,12 @@ compact_table.launches = 0
 
 # ------------------------------------------------------------ G10
 
-SORT_TILE = 2048       # lanes per block of G10 (csrc/segment_sort.cu)
+SORT_TILE = 2048       # lanes a tile of G10 (csrc/segment_sort.cu kTile)
+SORT_BINS = 256        # G10's digit bins: status words a tile
+# G10's state words (csrc/segment_sort.cu kStateWords): two histogram
+# halves of 8 digits, then three lines of 32 words: the tile counters, the
+# grid barrier's count and its generation
+SORT_STATE_WORDS = 2 * 8 * SORT_BINS + 3 * 32
 SCAN_CHUNK = 1024      # lanes per block of the segmented scan (segscan.cuh)
 SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G11-G13 scan
 
@@ -1292,8 +1304,50 @@ def segment_sort_plain(key, *, bits: int, seg_shift: int):
     return idx, k, seg_start
 
 
+def sort_tiles(n: int) -> int:
+    """G10's tiles for n lanes (at least one): the rows of each half of
+    its look-back status."""
+    return max(1, -(-n // SORT_TILE))
+
+
+class _SortScratch:
+    """G10's scratch on one device and stream, allocated zeroed: ``status``
+    int32 [2, tiles, SORT_BINS], each tile's digit counts (the live passes
+    take the halves in turn, each zeroing the other for the next);
+    ``state`` int32 [SORT_STATE_WORDS], the histogram halves (a call adds
+    into the half of its parity and zeroes the other), the tile counters
+    and the grid barrier. So the launches must take the parities in turn:
+    ``take(n)`` grows the status to n's tiles and gives it with the next
+    parity, under the lock that also holds the launch; after a launch the
+    card refused (which zeroed nothing), ``reset`` zeroes the state."""
+
+    def __init__(self, dev):
+        self.status = torch.zeros(2, 0, SORT_BINS, dtype=torch.int32,
+                                  device=dev)
+        self.state = torch.zeros(SORT_STATE_WORDS, dtype=torch.int32,
+                                 device=dev)
+        self.parity = 0
+
+    def take(self, n: int) -> Tuple[torch.Tensor, int]:
+        tiles = sort_tiles(n)
+        if self.status.shape[1] < tiles:
+            self.status = torch.zeros(2, tiles, SORT_BINS, dtype=torch.int32,
+                                      device=self.state.device)
+        parity, self.parity = self.parity, self.parity ^ 1
+        return self.status, parity
+
+    def reset(self) -> None:
+        self.state.zero_()
+        self.parity = 0
+
+
+_SORT_SCRATCH = {}
+_sort_lock = threading.Lock()
+
+
 def segment_sort(key, *, bits: int, seg_shift: int):
-    """G10: see segment_sort_plain for the contract."""
+    """G10: see segment_sort_plain for the contract. One launch a call
+    (none for no lanes)."""
     if not 1 <= bits <= 63 or not 0 <= seg_shift <= 63:
         raise ValueError(f"bits {bits} / seg_shift {seg_shift} out of range")
     if _on_cpu(key):
@@ -1304,14 +1358,22 @@ def segment_sort(key, *, bits: int, seg_shift: int):
     order = torch.empty(n, dtype=torch.int32, device=dev)
     key_s = torch.empty(n, dtype=torch.int64, device=dev)
     seg_start = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return order, key_s, seg_start
     kalt = torch.empty_like(key_s)
     ialt = torch.empty_like(order)
-    hist = torch.empty(2 * 256 * max(1, -(-n // SORT_TILE)),
-                       dtype=torch.int32, device=dev)
-    skip = torch.empty(8, dtype=torch.int32, device=dev)
-    rc = build().segment_sort(_ptr(key), n, bits, seg_shift, _ptr(order),
-                              _ptr(key_s), _ptr(seg_start), _ptr(kalt),
-                              _ptr(ialt), _ptr(hist), _ptr(skip), _stream())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _sort_lock:
+        sc = _SORT_SCRATCH.get((dev, stream))
+        if sc is None:
+            sc = _SORT_SCRATCH[(dev, stream)] = _SortScratch(dev)
+        status, parity = sc.take(n)
+        rc = build().segment_sort(_ptr(key), n, bits, seg_shift, _ptr(order),
+                                  _ptr(key_s), _ptr(seg_start), _ptr(kalt),
+                                  _ptr(ialt), _ptr(status), status.shape[1],
+                                  _ptr(sc.state), parity, _stream())
+        if rc:
+            sc.reset()
     _raise_on(rc, "segment_sort")
     segment_sort.launches += 1
     return order, key_s, seg_start

@@ -310,6 +310,36 @@ def test_row_argmax_matches_community_superstep():
     assert same_bits(new_s.numpy(), np.asarray(want_s))
 
 
+@pytest.mark.parametrize("K", (1, 3, 31, 33, 4095, 4097))
+def test_row_argmax_nan_placements_and_odd_widths(K):
+    """Widths that are not a multiple of 4 (the kernel's scalar loads),
+    NaN first, last and inside one float4, two NaN, ties whose first
+    column comes late in the row, all-zero and negative rows."""
+    rng = np.random.default_rng(K)
+    m = rng.integers(-3, 4, (12, K)).astype(np.float32)
+    m[0, 0] = np.nan
+    m[1, K - 1] = np.nan
+    m[2, min(K - 1, 4 * 7 + 2)] = np.nan
+    m[3, [K // 3, K - 1]] = np.nan
+    m[4, :] = 0.0
+    m[5, :] = -rng.uniform(0.5, 2.0, K)
+    m[6, :] = 1.0
+    m[6, [K // 2, K - 1]] = 7.0
+    labels = np.arange(12, dtype=np.float32) + 0.5
+    scores = rng.uniform(0.1, 2, 12).astype(np.float32)
+    new_l, new_s = kernels.row_argmax_plain(_t(m), _t(labels), _t(scores),
+                                            0.25)
+    jm = jnp.asarray(m)
+    mass = jnp.max(jm, 1)
+    has = mass > 0
+    want_l = jnp.where(has, jnp.argmax(jm, 1).astype(jnp.float32),
+                       jnp.asarray(labels))
+    want_s = jnp.where(has, jnp.maximum(mass * 0.25, 1e-6),
+                       jnp.asarray(scores))
+    assert same_bits(new_l.numpy(), np.asarray(want_l))
+    assert same_bits(new_s.numpy(), np.asarray(want_s))
+
+
 def test_plain_versions_count_no_launch():
     before = [fn.launches for fn in (kernels.scatter_ids,
                                      kernels.sorted_probe,

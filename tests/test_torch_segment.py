@@ -55,12 +55,16 @@ def test_segment_sort_equals_reference(kind):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("capacity", [1024, 1 << 22])
-def test_slot_sort_equals_reference(capacity):
+@pytest.mark.parametrize("capacity,n", [
+    (1024, B), (1 << 22, B),
+    # lane counts around G10's tile (kernels.SORT_TILE lanes)
+    (1 << 20, kernels.SORT_TILE - 1), (1 << 20, kernels.SORT_TILE + 1),
+    (1 << 16, 3 * kernels.SORT_TILE + 5)])
+def test_slot_sort_equals_reference(capacity, n):
     rng = np.random.default_rng(4)
-    slot = rng.integers(0, capacity, B).astype(np.int32)
-    slot[: B // 4] = 9
-    live = rng.random(B) < 0.9
+    slot = rng.integers(0, capacity, n).astype(np.int32)
+    slot[: n // 4] = 9
+    live = rng.random(n) < 0.9
     want = np.asarray(sgj.argsort_ids(jnp.where(live, slot, BIG)))
     order, key_s, seg_start = sgt.sort_slots(torch.from_numpy(slot),
                                              torch.from_numpy(live),
@@ -72,18 +76,28 @@ def test_slot_sort_equals_reference(capacity):
         seg_start.numpy(), np.r_[True, ids_s[1:] != ids_s[:-1]])
 
 
-@pytest.mark.parametrize("ts_kind", ["narrow", "wide"])
-def test_slot_tick_sort_equals_reference_lexsort(ts_kind):
+@pytest.mark.parametrize("ts_kind,C,n", [
+    ("narrow", 4096, B), ("wide", 4096, B),
+    # the DCN sessions' 51-bit key (C = 2^18): ticks in a 40,000-tick
+    # batch, so the tick's two high digits are constant and the slot's
+    # low digit lies between live ones; lane counts off G10's tile
+    ("batch", 1 << 18, kernels.SORT_TILE + 3),
+    ("batch", 1 << 18, 2 * kernels.SORT_TILE - 7)])
+def test_slot_tick_sort_equals_reference_lexsort(ts_kind, C, n):
     rng = np.random.default_rng(5)
-    C = 4096
-    slot = rng.integers(0, 300, B).astype(np.int32)
-    slot[: B // 3] = 17
+    slot = rng.integers(0, min(C, 300), n).astype(np.int32)
+    slot[: n // 3] = 17
     if ts_kind == "narrow":
-        ts = rng.integers(1000, 1200, B).astype(np.int32)
+        ts = rng.integers(1000, 1200, n).astype(np.int32)
+    elif ts_kind == "batch":
+        slot = rng.integers(0, C, n).astype(np.int32)
+        ts = rng.integers(5_000_000, 5_040_000, n).astype(np.int32)
+        # the key's two middle digits (bits 16-31) are one value
+        assert len(np.unique((ts.astype(np.int64) + 2**31) >> 16)) == 1
     else:
-        ts = rng.integers(-(2**31) + 1, 2**31 - 5, B).astype(np.int32)
+        ts = rng.integers(-(2**31) + 1, 2**31 - 5, n).astype(np.int32)
     ts[:50] = ts[50]                          # equal (slot, tick) pairs
-    live = rng.random(B) < 0.9
+    live = rng.random(n) < 0.9
     want = np.asarray(swj._lexsort_slot_ts(
         jnp.where(live, slot, BIG), jnp.where(live, ts, BIG)))
     order, key_s, seg_start = sgt.sort_slot_ts(
@@ -97,6 +111,34 @@ def test_slot_tick_sort_equals_reference_lexsort(ts_kind):
     np.testing.assert_array_equal(seg_start.numpy(),
                                   np.r_[True, ids_s[1:].numpy()
                                         != ids_s[:-1].numpy()])
+
+
+@pytest.mark.parametrize("n,tiles", [
+    (0, 1), (1, 1), (kernels.SORT_TILE, 1), (kernels.SORT_TILE + 1, 2),
+    (1 << 19, (1 << 19) // kernels.SORT_TILE)])
+def test_sort_tiles(n, tiles):
+    assert kernels.sort_tiles(n) == tiles
+
+
+def test_sort_scratch_grows_and_flips_its_parity():
+    """G10's scratch (allocated once a device and stream): the status
+    halves grow to the largest n's tiles; each take gives the next
+    parity; a reset (after a refused launch) zeroes the state and starts
+    the parities again."""
+    sc = kernels._SortScratch(torch.device("cpu"))
+    assert sc.state.shape == (kernels.SORT_STATE_WORDS,)
+    assert not sc.state.any()
+    status, parity = sc.take(5 * kernels.SORT_TILE)
+    assert status.shape == (2, 5, kernels.SORT_BINS) and parity == 0
+    assert status.dtype == torch.int32 and not status.any()
+    status2, parity = sc.take(kernels.SORT_TILE)
+    assert status2 is status and parity == 1
+    status3, parity = sc.take(9 * kernels.SORT_TILE + 1)
+    assert status3.shape == (2, 10, kernels.SORT_BINS) and parity == 0
+    sc.take(1)
+    sc.state.fill_(7)
+    sc.reset()
+    assert not sc.state.any() and sc.take(1)[1] == 0
 
 
 def test_invert_permutation_equals_reference():
