@@ -171,7 +171,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 reference), on a 2^21-slot table with half its slots
                 cleared (main) and on masked-off lanes, slots out of range
                 and in [-C, 0), repeated slots, int32 and int64 slots and
-                no lane (edge), its library time index_fill_.
+                no lane (edge), its library time index_fill_. G2 on the
+                shapes its 16-byte stores make risky
+                (``clear_edge_checks``: Wc = 3 rows off 16-byte alignment
+                with an evicted row, every row, no row, the last row, a
+                +FLT_MAX neutral, the fresh plane alone, split planes
+                with a vector neutral, fresh rows on their own mask, int32
+                rows not a multiple of 4 words, one device kernel a call
+                by torch.profiler). G19 on the shapes its tiles and
+                look-back make risky (``cep_edge_checks``: segments ending
+                a lane before, at and after a tile boundary, a hot key
+                through every tile, pieces of one lane, S = 1, Q = 1, dead
+                lanes across tiles, B below a tile and ragged, D = 128 at
+                S = 2, 15 and 127, S = 4, batches for its 128- and
+                256-lane tiles, calls in a row on one scratch, one device
+                kernel a call by torch.profiler).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -3370,6 +3384,86 @@ def case_clear_reduce(dev, kind, shape):
     }
 
 
+def clear_edge_checks(dev) -> dict:
+    """G2's single grid-stride pass on the shapes its 16-byte stores make
+    risky, each bit for bit (dropped_capacity included) against its plain
+    version: mean's Wc = 3 plane at an odd C (rows off 16-byte alignment:
+    the head and tail words) with an evicted row; every row flagged, some
+    evicted; no row flagged; only the last row; min's +FLT_MAX neutral;
+    the fresh plane alone; split float planes with a two-word neutral (the
+    repeated pattern), touched bytes and fresh rows on their own mask;
+    int32 split planes whose rows are not a multiple of 4 words; then the
+    device kernels a call launches (torch.profiler): one. Returns a record
+    nested under clear_rows."""
+    g = torch.Generator(device="cpu").manual_seed(27)
+    cases = [  # (label, C, R, W, neutral, split, clear, evicted, fresh)
+        ("Wc 3, odd C, evicted", 100_003, 8, 2, 0.0, None, [2, 7], [2],
+         None),
+        ("every row, some evicted", 1 << 16, 8, 1, 0.0, None, list(range(8)),
+         [1, 4, 6], None),
+        ("no row", 1 << 16, 8, 1, 0.0, None, [], [], None),
+        ("last row only", 70_001, 6, 1, 0.0, None, [5], [5], None),
+        ("min neutral, Wc 3", 4_099, 4, 2, FLT_MAX, None, [0, 3], [3],
+         None),
+        ("fresh rows alone", 1 << 16, 8, 1, 0.0, None, [], [], [3, 7]),
+        ("split float, vector neutral", 50_001, 8, 2, (0.0, -1e30),
+         "float", [1, 6], [6], [2, 6]),
+        ("split int32, odd words", 1_001, 4, 3, 0, "int", [0, 3], [0],
+         None),
+        ("split float, every row", 1 << 14, 4, 1, 0.0, "float",
+         [0, 1, 2, 3], [2], [0, 1, 2, 3]),
+    ]
+    err, runs = 0.0, []
+    for label, C, R, W, neutral, split, rows, ev, fr in cases:
+        def flags(idx):
+            f = torch.zeros(R, dtype=torch.bool)
+            f[list(idx)] = True
+            return f.to(dev)
+        clear, evicted = flags(rows), flags(ev)
+        fresh_clear = None if fr is None else flags(fr)
+        fresh0 = (torch.rand(R * C, generator=g) < 0.3).to(dev)
+        if split is None:
+            acc0 = neutral_plane(dev, C, R, W, neutral, 0.6, len(runs),
+                                 _mean_pairs if W == 2 else _prices)
+            touched0 = None
+        else:
+            touched0 = (torch.rand(R * C, generator=g) < 0.5).to(dev)
+            vals = torch.randint(1, 99, (R * C, W), generator=g)
+            acc0 = (vals.to(torch.int32) if split == "int"
+                    else vals.float()).to(dev)
+            if W == 1:
+                acc0 = acc0.reshape(R * C)
+        sides = [dict(acc=acc0.clone(), d=_zero_i32(dev),
+                      touched=None if touched0 is None else touched0.clone(),
+                      fresh=fresh0.clone()) for _ in range(2)]
+        kw = dict(C=C, R=R, neutral=neutral, fresh_clear=fresh_clear)
+
+        def call(fn, sd, kw=kw, clear=clear, evicted=evicted):
+            fn(sd["acc"], clear, evicted, sd["d"], touched=sd["touched"],
+               fresh=sd["fresh"], **kw)
+
+        call(kernels.clear_rows, sides[0])
+        call(kernels.clear_rows_plain, sides[1])
+        e = bits_err([v for v in sides[0].values() if v is not None],
+                     [v for v in sides[1].values() if v is not None])
+        check(e == 0.0, f"clear_rows ({label}) differs from its plain "
+                        f"version: {e} elements")
+        err = max(err, e)
+        if label == "Wc 3, odd C, evicted":
+            check(int(sides[1]["d"]) > 0, "clear_rows: the evicted row "
+                                          "counted no touched key")
+            runs.append(lambda sd=sides[0], c=call: c(kernels.clear_rows,
+                                                      sd))
+        else:
+            runs.append(None)
+        del sides
+    n_launch, seen = launches_a_call(dev, [runs[0]] * 4)
+    check(n_launch in (None, 1) and all("clear_kernel" in k for k in seen),
+          f"G2: {n_launch} device kernels a call, not one: {seen}")
+    return {"cases": len(cases), "max_abs_err": err,
+            "kernels_a_call": n_launch, "shapes": [c[0] for c in cases]}
+
+
 def _fire_setup(dev, shape, kind, g):
     """(acc, pane_ids, p_f, lane_ok, table, C, R, k, op, W, neutral, fresh,
     n_ontime) for a fire case (``maxprice``: max on the main inputs, min on
@@ -4081,6 +4175,8 @@ def reduce_kernel_phase(dev, timing=True):
     for name, rec in part("3_kernels/reduce/edges",
                           lambda: fire_edge_checks(dev)).items():
         out[name].update(rec)
+    out["clear_rows"]["edges"] = part("3_kernels/reduce/clear_edges",
+                                      lambda: clear_edge_checks(dev))
     return out
 
 
@@ -4783,8 +4879,9 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
     262,144 lanes (stress), (c) one segment of 262,144 lanes at D = 20
     (the non-keyed stream), and an edge case at the largest D, 128 (15
     stages, Q = 9; a hot key, dead lanes); G20 at (d), carry [2^22 + 1,
-    20] with one stale bucket. D = 129 must raise. Returns {"cep_scan":
-    record of (b) with the others nested, "cep_expire": record of (d)}."""
+    20] with one stale bucket. D = 129 must raise. Then G19's edge shapes
+    (``cep_edge_checks``). Returns {"cep_scan": record of (b) with the
+    others and the edges nested, "cep_expire": record of (d)}."""
     within = (True, False, True)         # begin, next, followedBy
     shapes = {
         "cep_job": (CEP_CAPACITY, cep_b, CEP_KEYS, 2, 1, (True, True),
@@ -4822,10 +4919,12 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
     except ValueError:
         raised = True
     check(raised, "cep_scan took D = 129")
+    edges = cep_edge_checks(dev)
     scan = dict(recs["cep_within"],
                 max_abs_err=max(r["max_abs_err"] for r in recs.values()))
     del recs["cep_within"]
     scan.update(recs)
+    scan["edges"] = edges
     c = case_cep_expire(dev, cepw_c, 3, 9)
     check(c["err"] == 0.0, f"cep_expire disagrees with its plain version: "
                            f"{c['err']}")
@@ -4836,6 +4935,112 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
         exp["library_ms"] = None
     del c
     return {"cep_scan": scan, "cep_expire": exp}
+
+
+def cep_edge_checks(dev) -> dict:
+    """G19's single pass on the shapes its tiles and look-back make risky,
+    each bit for bit (deltas and carry) against its plain version, two
+    batches in a row on one carry: a segment that ends one lane before, at
+    and one lane after a tile boundary; a hot key through every tile with
+    a new segment starting mid-tile; pieces of one lane; S = 1; Q = 1;
+    dead lanes crossing tiles inside a batch of few keys; B below one tile
+    and B not a multiple of it; D = 128 at S = 15, Q = 9, at S = 2, Q =
+    126 and at S = 127, Q = 1 (maps read from global memory), each with a
+    key across tiles; S = 4, Q = 2 (the arrays in local memory); batches
+    large enough for G19's 128- and 256-lane tiles (smaller ones take 64).
+    Then
+    calls in a row on one scratch (A, B, A again on A's inputs: the same
+    outputs, the epoch) and the device kernels a call launches
+    (torch.profiler): one. Returns a record nested under cep_scan."""
+    rng = np.random.default_rng(19)
+    T = kernels.CEP_TILE
+    C = 1 << 12
+
+    def keys(*runs):  # runs of (slot, lanes) in sorted order
+        return np.concatenate([np.full(n, k) for k, n in runs])
+
+    cases = [  # (label, slots, live, S, Q, stage-bit probability)
+        ("ends a lane before a tile", keys((1, T - 1), (2, 40), (3, 300)),
+         None, 3, 9, 0.2),
+        ("ends at a tile", keys((1, T), (2, 40), (3, 300)), None, 3, 9, 0.2),
+        ("ends a lane after a tile", keys((1, T + 1), (2, 40), (3, 300)),
+         None, 3, 9, 0.2),
+        ("hot key through every tile", keys((1, 9 * T + 100), (2, 70)),
+         None, 3, 9, 0.05),
+        ("pieces of one lane", rng.permutation(C)[:3 * T + 5], None, 3, 9,
+         0.3),
+        ("S = 1", rng.integers(0, 50, 4 * T + 9), None, 1, 1, 0.3),
+        ("Q = 1", rng.integers(0, 7, 4 * T + 9), None, 3, 1, 0.1),
+        ("dead lanes across tiles", rng.integers(0, 5, 6 * T),
+         rng.random(6 * T) < 0.3, 3, 9, 0.1),
+        ("B below one tile", rng.integers(0, 9, 100), None, 3, 9, 0.2),
+        ("B not a multiple of the tile", rng.integers(0, 30, 5 * T + 37),
+         None, 2, 1, 0.2),
+        ("D = 128, S = 15", keys((1, 3 * T), (5, 500)), None, 15, 9, 0.05),
+        ("D = 128, S = 2", keys((1, 3 * T), (5, 100)), None, 2, 126, 0.1),
+        ("D = 128, S = 127", keys((1, 4 * T), (5, 100)), None, 127, 1,
+         0.02),
+        ("S = 4, Q = 2", keys((1, 2 * T + 3), (2, T)), None, 4, 2, 0.1),
+        # batches large enough for 128- and 256-lane tiles
+        ("128-lane tiles", np.concatenate([keys((1, 127), (2, 129), (3, 2000)),
+                                           np.sort(rng.integers(9, C, 36_000))]),
+         None, 3, 9, 0.1),
+        ("256-lane tiles", np.concatenate([keys((1, 255), (2, 257), (3, 600)),
+                                           np.sort(rng.integers(9, C, 70_000))]),
+         None, 3, 9, 0.05),
+    ]
+    err, matches, kept = 0.0, 0.0, {}
+    for label, slots, live, S, Q, p in cases:
+        B = len(slots)
+        live = np.ones(B, bool) if live is None else live
+        relaxed = (True, True) + tuple(rng.random(S - 2) < 0.3) \
+            if S > 1 else (True,)
+        order, key_s, seg_start = slot_lanes(dev, slots, live, C)
+        D = (S - 1) * Q + 2
+        carry0 = np.zeros((C + 1, D), np.float32)
+        carry0[:, D - 1] = 1.0
+        carry0[:C, :D - 2] = rng.integers(0, 3, (C, D - 2)) * (
+            rng.random((C, D - 2)) < 0.2)
+        c1 = _t(carry0.copy(), dev, torch.float32)
+        c2 = c1.clone()
+        for call in range(2):
+            masks = _t(rng.random((B, S)) < p, dev, torch.bool)
+            q_t = int(rng.integers(0, Q))
+            args = dict(relaxed=relaxed, Q=Q, q_t=q_t)
+            d1 = kernels.cep_scan(order, key_s, seg_start, masks, c1, **args)
+            d2 = kernels.cep_scan_plain(order, key_s, seg_start, masks, c2,
+                                        **args)
+            e = max_abs_err((d1, c1), (d2, c2))
+            check(e == 0.0, f"cep_scan ({label}, call {call}) differs from "
+                            f"its plain version: max abs err {e}")
+            check(float(c2.max()) < 2**24, f"cep_scan ({label}): counts "
+                                           f"reach 2^24")
+            err = max(err, e)
+            matches += float(d2.sum())
+        if label in ("hot key through every tile", "pieces of one lane"):
+            kept[label] = (order, key_s, seg_start, masks, carry0, args)
+    # calls in a row on one scratch: A, B, A again from A's carry
+    outs = []
+    for label in ("hot key through every tile", "pieces of one lane",
+                  "hot key through every tile"):
+        order, key_s, seg_start, masks, carry0, args = kept[label]
+        c = _t(carry0.copy(), dev, torch.float32)
+        outs.append((kernels.cep_scan(order, key_s, seg_start, masks, c,
+                                      **args), c))
+    again = max_abs_err(list(outs[0]), list(outs[2]))
+    check(again == 0.0, f"cep_scan: a call on a used scratch differs "
+                        f"({again})")
+    order, key_s, seg_start, masks, carry0, args = kept[
+        "hot key through every tile"]
+    c = _t(carry0.copy(), dev, torch.float32)
+    n_launch, seen = launches_a_call(dev, [lambda: kernels.cep_scan(
+        order, key_s, seg_start, masks, c, **args)] * 4)
+    check(n_launch in (None, 1) and all("cep_fast_kernel" in k
+                                        for k in seen),
+          f"G19: {n_launch} device kernels a call, not one: {seen}")
+    return {"cases": len(cases) + 1, "max_abs_err": err,
+            "scratch_twice_err": again, "kernels_a_call": n_launch,
+            "matches": matches, "shapes": [c[0] for c in cases]}
 
 
 # ------------------------------------- chained stages: G21, G22, two jobs

@@ -16,7 +16,9 @@ what its design does about that:
                          and optionally the batch's key-group fill and
                          the residency divert's cold lanes (tiered state)
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
-                         (packed planes, or split planes), fresh rows;
+                         (packed planes, or split planes), fresh rows:
+                         one grid-stride pass of 16-byte stores, the grid
+                         sized to the card;
      ``fresh_rows``      each ring row's count of fresh flags
   G3 ``scatter_update``  the update's accumulate phase (atomic add, min,
                          max), the lateness fresh marking
@@ -41,7 +43,9 @@ what its design does about that:
   G18 ``slot_stats``     a drain slot's flight-recorder row;
       ``slot_stats_begin`` the slot's counters saved before its update
   G19 ``cep_scan``       CEP's count NFA: each key's events applied in lane
-                         order to its carried count vector, match deltas
+                         order to its carried count vector, match deltas:
+                         one launch a call, a segmented scan of block-form
+                         tile maps with decoupled look-back
   G20 ``cep_expire``     CEP's within() expiry: stale ring buckets zeroed
   G21 ``chain_pack``     a drain's stacked fires packed into the next
                          chained stage's edge lanes; its coupled watermark
@@ -183,7 +187,8 @@ _SIGNATURES = {
     "fire_columns": [_P, _I, _I, _P, _P, _I, _P],
     "stage_record": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "chain_pack": [_P] * 6 + [_I] * 4 + [_P, _P, _I] + [_P] * 8,
-    "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 7,
+    "cep_scan": [_P] * 4 + [_U] * 2 + [_I] * 6 + [_P] * 6 + [_UI, _UI, _P],
+    "cep_scan_tiles": [_I, _I, _I],
     "cep_expire": [_P, _L, _I, _I, _I, _U, _U, _P],
     "scatter_ids": [_P, _I, _L, _P, _I, _L, _I, _F, _P, _P, _P, _P, _P],
     "scatter_ids_scratch": [_L, _P, _I, _L],
@@ -2449,9 +2454,11 @@ chain_pack.launches = 0
 
 # ------------------------------------------------------------ G19, G20
 
-CEP_TILE = 256        # lanes per tile of G19 (csrc/cep_scan.cu)
+CEP_TILE = 256        # the most lanes a tile of G19 holds (csrc/cep_scan.cu;
+                      # smaller batches take 64 or 128: cep_scan_tiles)
 CEP_MAX_DIM = 128     # the largest state dimension D G19 and G20 take
 CEP_INT_MAX = float(2**31)   # the reference's float32(2^31 - 1)
+CEP_MAP_FLOATS = 9    # a tile map of G19's register path (S <= 3)
 
 
 def _mask_bits(flags) -> int:
@@ -2550,10 +2557,92 @@ def cep_scan_plain(order, key_s, seg_start, masks, carry, *, relaxed,
     return delta
 
 
+def cep_tile_map_plain(masks, live, relaxed):
+    """The block form of the product of a run of lanes' transitions, as
+    G19 composes a tile (csrc/cep_scan.cu): every bucket q moves under one
+    shared (S-1) x (S-1) matrix A, the injection b lands in bucket q_t
+    only, and M gains f . sigma + g, sigma = sum_q c_q, so
+
+        c_q' = A c_q + [q == q_t] b * v[D-1],
+        M'   = M + f . sigma + g * v[D-1].
+
+    masks bool [n, S] (sorted lane order), live bool [n]; ``relaxed`` the
+    S stages' contiguity. Returns float32 (A [S-1, S-1], b [S-1], f [S-1],
+    g 0-d). No path calls it; the tests hold it against the reference's
+    dense ``event_matrices`` product."""
+    S = masks.shape[1]
+    ns = S - 1
+    dev = masks.device
+    A = torch.eye(ns, dtype=torch.float32, device=dev)
+    b = torch.zeros(ns, dtype=torch.float32, device=dev)
+    f = torch.zeros(ns, dtype=torch.float32, device=dev)
+    g = torch.zeros((), dtype=torch.float32, device=dev)
+    keep = torch.tensor([float(relaxed[s + 1]) for s in range(ns)],
+                        dtype=torch.float32, device=dev)
+    for m, ok in zip(masks.to(torch.float32), live):
+        if not ok:
+            continue
+        if ns == 0:
+            g = g + m[0]
+            continue
+        f = f + m[ns] * A[ns - 1]           # M reads the old last stage
+        g = g + m[ns] * b[ns - 1]
+        L = torch.diag(keep)                 # keep_s c_s + m_s c_{s-1}
+        if ns > 1:
+            L = L + torch.diag(m[1:ns], -1)
+        A = L @ A
+        b = L @ b
+        b[0] = b[0] + m[0]                   # a new partial on m_0
+    return A, b, f, g
+
+
+class _CepScratch:
+    """G19's look-back scratch on one device and stream: each tile's status
+    word (epoch << 32 | flag), map (max(S * S, CEP_MAP_FLOATS) floats)
+    and end state (D floats), and the tile counter. Allocated once (grown for more tiles or
+    larger maps) and never cleared: each call takes the next epoch, so a
+    word of an earlier call reads as not yet published (when the 32-bit
+    epoch wraps, the status words are zeroed: 0 is never an epoch), and the
+    counter's value when the call starts (``base``), since each of the
+    call's blocks takes one tile from it."""
+
+    def __init__(self, dev):
+        self.status = torch.zeros(0, dtype=torch.int64, device=dev)
+        self.maps = torch.empty(0, dtype=torch.float32, device=dev)
+        self.states = torch.empty(0, dtype=torch.float32, device=dev)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.base = 0
+        self.epoch = 0
+
+    def take(self, tiles: int, S: int, D: int) -> Tuple[int, int]:
+        """(base, epoch) for a launch of ``tiles`` blocks."""
+        dev = self.counter.device
+        if self.status.numel() < tiles:
+            self.status = torch.zeros(tiles, dtype=torch.int64, device=dev)
+        per_map = max(S * S, CEP_MAP_FLOATS)
+        if self.maps.numel() < tiles * per_map:
+            self.maps = torch.empty(tiles * per_map, dtype=torch.float32,
+                                    device=dev)
+        if self.states.numel() < tiles * D:
+            self.states = torch.empty(tiles * D, dtype=torch.float32,
+                                      device=dev)
+        self.epoch += 1
+        if self.epoch >= 1 << 32:
+            self.status.zero_()
+            self.epoch = 1
+        base = self.base
+        self.base = (base + tiles) & 0xFFFFFFFF
+        return base, self.epoch
+
+
+_CEP_SCRATCH = {}
+_cep_lock = threading.Lock()
+
+
 def cep_scan(order, key_s, seg_start, masks, carry, *, relaxed, Q: int,
              q_t: int) -> torch.Tensor:
     """G19: see cep_scan_plain for the contract. Raises for D above
-    CEP_MAX_DIM."""
+    CEP_MAX_DIM. One launch a call; it allocates only the deltas."""
     C1, D = carry.shape
     S = masks.shape[1]
     if D != (S - 1) * Q + 2 or len(relaxed) != S or not 0 <= q_t < Q:
@@ -2570,19 +2659,22 @@ def cep_scan(order, key_s, seg_start, masks, carry, *, relaxed, Q: int,
     _check(key_s, "key_s", torch.int64, (B,), dev)
     _check(seg_start, "seg_start", torch.bool, (B,), dev)
     _check(masks, "masks", torch.bool, (B, S), dev)
-    n_tiles = -(-B // CEP_TILE)
+    tiles = build().cep_scan_tiles(B, S, D)
     delta = torch.empty(B, dtype=torch.float32, device=dev)
-    reset = torch.empty(max(1, n_tiles), dtype=torch.int32, device=dev)
-    W = torch.empty(max(1, n_tiles) * D, dtype=torch.float32, device=dev)
-    Sv = torch.empty_like(W)
-    A = torch.empty(max(1, n_tiles) * D * D, dtype=torch.float32,
-                    device=dev)
     bits = _mask_bits(relaxed)
-    rc = build().cep_scan(
-        _ptr(order), _ptr(key_s), _ptr(seg_start), _ptr(masks),
-        bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, B, C1 - 1, S, Q, D, q_t,
-        _ptr(carry), _ptr(delta), _ptr(reset), _ptr(W), _ptr(Sv), _ptr(A),
-        _stream())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _cep_lock:
+        sc = _CEP_SCRATCH.get((dev, stream))
+        if sc is None:
+            sc = _CEP_SCRATCH[(dev, stream)] = _CepScratch(dev)
+        base, epoch = sc.take(tiles, S, D)
+        rc = build().cep_scan(
+            _ptr(order), _ptr(key_s), _ptr(seg_start), _ptr(masks),
+            bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, B, C1 - 1, S, Q, D, q_t,
+            _ptr(carry), _ptr(delta), _ptr(sc.status), _ptr(sc.maps),
+            _ptr(sc.states), _ptr(sc.counter), base, epoch, _stream())
+        if rc:  # the card refused the launch: no block took a tile
+            sc.base = base
     _raise_on(rc, "cep_scan")
     cep_scan.launches += 1
     return delta

@@ -555,7 +555,8 @@ def state_to_numpy(state: WindowShardState) -> Dict[str, np.ndarray]:
     state's layout: packed (``touched`` is the zero-length placeholder;
     use ``split_packed`` for the logical planes) or split planes
     (``packed = -1``). ``table.keys`` and the overflow identities come back
-    as uint32, as the reference holds them."""
+    as uint32, as the reference holds them. On the CPU the arrays are views
+    of the state's tensors and change with it: copy them to keep them."""
     out = {}
     for name in STATE_FIELDS:
         attr = "table_keys" if name == "table.keys" else name

@@ -97,10 +97,12 @@ def ref_leaves(st) -> dict:
 
 
 def ref_state(fields: dict, packed: int):
-    """A one-shard stacked reference state from numpy fields."""
+    """A one-shard stacked reference state from numpy fields, copied first
+    (they may be views of a port state's live CPU tensors, which
+    ``jnp.asarray`` can alias: see ``test_torch_state_carry._jax_state``)."""
     st = wkj.WindowShardState(
-        SlotTable(jnp.asarray(fields["table.keys"]), 16),
-        *(jnp.asarray(fields[n]) for n in wkt.STATE_FIELDS[1:]),
+        SlotTable(jnp.asarray(np.array(fields["table.keys"])), 16),
+        *(jnp.asarray(np.array(fields[n])) for n in wkt.STATE_FIELDS[1:]),
         packed=packed)
     return jax.tree_util.tree_map(lambda x: x[None], st)
 

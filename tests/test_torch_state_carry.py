@@ -368,13 +368,17 @@ def test_sketch_state_carried_into_the_drain_keeps_hashes_above_2_24(kind):
 
 def _jax_state(fields: dict, packed: int):
     """A reference WindowShardState from host fields named as its leaves
-    (a port state's ``state_to_numpy``, carried back)."""
+    (a port state's ``state_to_numpy``, carried back). Each field is copied
+    first: on the CPU ``state_to_numpy`` gives views of the port's live
+    tensors, ``jnp.asarray`` may alias a numpy buffer, and JAX runs its
+    steps asynchronously, so without the copy the port's next in-place
+    update could reach the reference's inputs before its step reads them."""
     import jax.numpy as jnp
     from flink_tpu.ops.hashtable import SlotTable
 
     return wkj.WindowShardState(
-        SlotTable(jnp.asarray(fields["table.keys"]), 16),
-        *(jnp.asarray(fields[n]) for n in wkt.STATE_FIELDS[1:]),
+        SlotTable(jnp.asarray(np.array(fields["table.keys"])), 16),
+        *(jnp.asarray(np.array(fields[n])) for n in wkt.STATE_FIELDS[1:]),
         packed=packed)
 
 
