@@ -185,7 +185,20 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 lanes across tiles, B below a tile and ragged, D = 128 at
                 S = 2, 15 and 127, S = 4, batches for its 128- and
                 256-lane tiles, calls in a row on one scratch, one device
-                kernel a call by torch.profiler).
+                kernel a call by torch.profiler). G1 on the shapes its
+                4-lane groups, its multiply-shift divide and its tagged
+                last-block fold make risky (``route_edge_checks``: B = 0,
+                1, 3, 1,001, a view one lane in, every lane invalid or
+                late, one owned key group, negative ticks down to
+                INT32_MIN at slides 1, 7 and 1,000, maxp 100 and 32,768,
+                each alone, with the fill, the residency mask and both;
+                calls A, B, A on one scratch; one device kernel a call).
+                G3 on the shapes its 4-lane groups and vector reductions
+                make risky (``update_edge_checks``: B = 1, 3 and odd, a
+                view one lane in, W = 1, 2 at both 8-byte phases, 3 and
+                16, count, a hot cell under add, min and max with signed
+                zeros and NaN, a fresh plane, no-slot lanes counted and
+                not; one device kernel a call).
   4. e2e      — the north-star job (1M integer keys, 2,000 events/ms, 5 s
                 tumbling-window sum, batches of 262,144, ring depth 16,
                 2 fires per step, 30M events = 3 windows) through the port's
@@ -3299,9 +3312,19 @@ def case_scatter_reduce(dev, kind, shape, full):
           "scatter_update: the edge batch marked no fresh cell")
     ok = live & (pane >= max_pane - (R - 1)) & (slot < C)
     flat = (torch.remainder(pane.long(), R) * C + slot.long())[ok]
-    lib_idx = flat[:, None] * (W + 1) + torch.arange(W, device=dev)
-    lib_val = vals[ok].reshape(-1, W)
+    lib_idx = flat[:, None] * (W + 1) + torch.arange(W + 1, device=dev)
+    lib_val = torch.cat([vals[ok].reshape(-1, W), torch.full(
+        (flat.shape[0], 1), 1.0 if op == "add" else 0.0, device=dev)], 1)
     lib = {"max": "amax", "min": "amin", "add": "sum"}[op]
+    vo_idx = lib_idx[:, :W].reshape(-1)
+    vo_val = lib_val[:, :W].reshape(-1)
+    if op == "add":   # the value columns and the marker in one call
+        library = lambda: a2.view(-1).index_add_(0, lib_idx.reshape(-1),
+                                                 lib_val.reshape(-1))
+    else:
+        library = lambda: a2.view(-1).scatter_reduce_(
+            0, lib_idx.reshape(-1), lib_val.reshape(-1), lib,
+            include_self=True)
     return {
         "err": bits_err(got, want),
         "run": lambda: kernels.scatter_update(a1, dirty1, d1, *lanes, **kw,
@@ -3309,11 +3332,12 @@ def case_scatter_reduce(dev, kind, shape, full):
         "plain": lambda: kernels.scatter_update_plain(a2, dirty2, d2,
                                                       *lanes, **kw,
                                                       **fresh_kw[1]),
-        # the value columns' scatter-reduce in one call (no marker, no
-        # drop counting)
-        "library": lambda: a2.view(-1).scatter_reduce_(
-            0, lib_idx.reshape(-1), lib_val.reshape(-1), lib,
-            include_self=True),
+        # the scatter of the value columns and the touch marker in one call
+        # (no drop counting, lanes filtered before the timer)
+        "library": library,
+        # the earlier yardstick: the value columns alone, scatter-reduced
+        "yardsticks": {"values_only": lambda: a2.view(-1).scatter_reduce_(
+            0, vo_idx, vo_val, lib, include_self=True)},
         # pane, kg, live, slot, W values in; each touched cell read and
         # written once
         "bytes": B * (4 + 4 + 1 + 4 + 4 * W)
@@ -3460,6 +3484,270 @@ def clear_edge_checks(dev) -> dict:
     n_launch, seen = launches_a_call(dev, [runs[0]] * 4)
     check(n_launch in (None, 1) and all("clear_kernel" in k for k in seen),
           f"G2: {n_launch} device kernels a call, not one: {seen}")
+    return {"cases": len(cases), "max_abs_err": err,
+            "kernels_a_call": n_launch, "shapes": [c[0] for c in cases]}
+
+
+def route_edge_inputs(dev, B, seed, *, offset=0, invalid=False,
+                      late=False, negative=False):
+    """G1's lanes for an edge case: ``B`` lanes (as a view ``offset`` lanes
+    into larger tensors), keys with a nonzero high word on 1 %, ticks in
+    panes -2 .. 4 of a 1,000-tick slide (``negative``: down to INT32_MIN
+    and across zero), 5 % invalid (``invalid``: all), a watermark in pane 1
+    and the purge cursor at pane -1 (``late``: the watermark far ahead, so
+    every valid lane is late)."""
+    rng = np.random.default_rng(seed)
+    n = B + offset
+    hi = np.where(rng.random(n) < 0.01, rng.integers(1, 1 << 31, n),
+                  0).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    if negative:
+        ts = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+        ts[: n // 2] = rng.integers(-5000, 5000, n // 2)
+        ts[:4] = [-(1 << 31), (1 << 31) - 1, -1, 0][: min(4, n)]
+    else:
+        ts = rng.integers(-2000, 5000, n)
+    valid = rng.random(n) >= (1.0 if invalid else 0.05)
+    wm = (1 << 30) if late else 1500
+    sl = slice(offset, offset + B)
+    return dict(
+        hi=_t(hi.view(np.int32), dev, torch.int32)[sl],
+        lo=_t(lo.view(np.int32), dev, torch.int32)[sl],
+        ts=_t(ts.astype(np.int32), dev, torch.int32)[sl],
+        valid=_t(valid, dev, torch.bool)[sl],
+        watermark=torch.tensor(wm, dtype=torch.int32, device=dev),
+        purged_through=torch.tensor(-1, dtype=torch.int32, device=dev))
+
+
+def route_edge_checks(dev) -> dict:
+    """G1's one-launch grid-stride pass on the shapes its 4-lane groups, its
+    divide by a multiply and a shift and its last-block fold make risky,
+    each bit for bit (pane, kg, live, the four stats, the fill, the cold
+    lanes) against its plain version, each alone, with the fill, with the
+    residency mask and with both: B = 0 (the sentinels), 1, 3 and 1,001;
+    a view one lane in (the scalar path); every lane invalid; every lane
+    late; an owner range of one key group; negative ticks down to
+    INT32_MIN at slides 1, 7 and 1,000 with lateness; maxp 100 (not a power
+    of two) and 32,768; then calls in a row on one scratch (A, B, A, A's
+    outputs the same both times) and the device kernels a call launches
+    (torch.profiler): one. Returns a record nested under route_lanes."""
+    cases = [  # (label, B, inputs, slide, k, L, maxp, kg range)
+        ("B 0", 0, {}, 1000, 1, 0, 128, None),
+        ("B 1", 1, {}, 1000, 1, 0, 128, None),
+        ("B 3", 3, {}, 1000, 2, 0, 128, None),
+        ("B 1001", 1001, {}, 1000, 1, 0, 128, None),
+        ("view at lane 1", 100_001, dict(offset=1), 1000, 3, 0, 128, None),
+        ("all invalid", 4096, dict(invalid=True), 1000, 1, 0, 128, None),
+        ("all late", 4096, dict(late=True), 1000, 1, 0, 128, None),
+        ("one key group", 65_536, {}, 1000, 1, 0, 128, (37, 37)),
+        ("negative ticks, slide 1", 65_537, dict(negative=True), 1, 1, 0,
+         128, None),
+        ("negative ticks, slide 7, L 20", 65_536, dict(negative=True), 7, 2,
+         20, 128, (3, 90)),
+        ("negative ticks, slide 1000, L 500", 65_538, dict(negative=True),
+         1000, 4, 500, 128, None),
+        ("maxp 100", 65_536, {}, 1000, 1, 0, 100, (10, 60)),
+        ("maxp 32768", BATCH, {}, WINDOW_MS, 1, 0, 1 << 15, (0, 20_000)),
+    ]
+    g = torch.Generator(device="cpu").manual_seed(41)
+    err, runs = 0.0, {}
+    for i, (label, B, extra, slide, k, L, maxp, kgr) in enumerate(cases):
+        inp = route_edge_inputs(dev, B, 50 + i, **extra)
+        args = (inp["hi"], inp["lo"], inp["ts"], inp["valid"],
+                inp["watermark"], inp["purged_through"])
+        lo_kg, hi_kg = kgr if kgr is not None else (0, maxp - 1)
+        kw = dict(slide=slide, k=k, maxp=maxp, kg_start=lo_kg,
+                  kg_end=hi_kg, L=L)
+        res = (torch.rand(maxp, generator=g) < 0.5).to(dev)
+        for mode in ("plain", "fill", "res", "fill+res"):
+            fills = [torch.randint(0, 9, (maxp,), generator=g,
+                                   dtype=torch.int32).to(dev)
+                     if "fill" in mode else None]
+            fills.append(None if fills[0] is None else fills[0].clone())
+            r = res if "res" in mode else None
+            got = list(kernels.route_lanes(*args, **kw, fill=fills[0],
+                                           res=r))
+            want = list(kernels.route_lanes_plain(*args, **kw,
+                                                  fill=fills[1], res=r))
+            if fills[0] is not None:
+                got.append(fills[0])
+                want.append(fills[1])
+            e = bits_err(got, want)
+            check(e == 0.0, f"route_lanes ({label}, {mode}) differs from "
+                            f"its plain version: {e} elements")
+            err = max(err, e)
+        stats = want[3].tolist()
+        if label == "B 0":
+            check(stats == [0, PANE_NONE, 2**31 - 1, 0],
+                  f"route_lanes (B 0): stats {stats}, not the sentinels")
+        if label == "all late":
+            check(stats[0] > 0 and stats[1] == PANE_NONE,
+                  f"route_lanes (all late): stats {stats}")
+        if label in ("B 1001", "view at lane 1"):
+            runs[label] = (lambda a=args, kw=kw: kernels.route_lanes(*a,
+                                                                     **kw))
+    # A, B, A on one scratch
+    first = [t.clone() for t in runs["B 1001"]()]
+    runs["view at lane 1"]()
+    again = bits_err(first, list(runs["B 1001"]()))
+    check(again == 0.0, f"route_lanes: two calls on one scratch disagree "
+                        f"({again} elements)")
+    n_launch, seen = launches_a_call(dev, [runs["B 1001"]] * 4)
+    check(n_launch in (None, 1) and all("route_lanes" in k for k in seen),
+          f"G1: {n_launch} device kernels a call, not one: {seen}")
+    return {"cases": len(cases) * 4 + 1, "max_abs_err": err,
+            "scratch_twice_err": again, "kernels_a_call": n_launch,
+            "shapes": [c[0] for c in cases]}
+
+
+SIGNED_ZEROS = (0.0, -0.0)
+MINMAX_SPECIALS = (0.0, -0.0, float("nan"), FLT_MAX, -FLT_MAX)
+
+
+def update_edge_lanes(dev, B, W, seed, *, C, R, offset=0, hot=0.0,
+                      specials=(), integer=True, count=False):
+    """G3's lanes for an edge case: ``B`` lanes (a view ``offset`` lanes
+    in), panes max_pane - R - 2 .. max_pane (the oldest three too old),
+    10 % dead, slots over [0, C) with 3 % at C (no slot) and 1 % at -1, a
+    ``hot`` share on one slot and pane; values small integers (``integer``:
+    every sum exact in any order) or random floats with signs, 5 % of them
+    one of ``specials``; None for ``count``."""
+    rng = np.random.default_rng(seed)
+    n = B + offset
+    max_pane = 40
+    pane = rng.integers(max_pane - R - 2, max_pane + 1, n)
+    live = rng.random(n) >= 0.1
+    slot = rng.integers(0, C, n)
+    slot[rng.random(n) < 0.03] = C
+    slot[rng.random(n) < 0.01] = -1
+    kg = rng.integers(0, MAX_PARALLELISM, n)
+    hot_lane = rng.random(n) < hot
+    slot[hot_lane] = 5
+    pane[hot_lane] = max_pane - 1
+    if integer:
+        vals = rng.integers(-9, 10, (n, W)).astype(np.float32)
+    else:
+        vals = (rng.standard_normal((n, W)) * 100).astype(np.float32)
+    if specials:
+        special = np.array(specials, np.float32)
+        pick = rng.random((n, W)) < 0.05
+        vals[pick] = special[rng.integers(0, len(special),
+                                          int(pick.sum()))]
+    sl = slice(offset, offset + B)
+    values = None
+    if not count:
+        values = _t(vals if W > 1 else vals[:, 0], dev, torch.float32)[sl]
+    return dict(pane=_t(pane.astype(np.int32), dev, torch.int32)[sl],
+                kg=_t(kg.astype(np.int32), dev, torch.int32)[sl],
+                live=_t(live, dev, torch.bool)[sl],
+                slot=_t(slot.astype(np.int32), dev, torch.int32)[sl],
+                values=values,
+                max_pane=torch.tensor(max_pane, dtype=torch.int32,
+                                      device=dev))
+
+
+def update_edge_checks(dev) -> dict:
+    """G3's grid-stride pass of 4-lane groups and vector reductions on the
+    shapes they make risky, each bit for bit (plane, kg_dirty,
+    dropped_capacity, fresh flags, n_fresh) against its plain version:
+    B = 1, 3 and 100,003 (a tail), a view one lane in (the scalar path);
+    W = 1, 2 (cells at both 8-byte phases), 3 and 16; count; a hot cell
+    taking 20 % of the lanes under add (small integers, signed zeros), min
+    and max (random floats with signed zeros, NaN and +-FLT_MAX, a NaN and
+    signed zeros already in the plane); a fresh plane; no-slot lanes with
+    count_nofit on and off; then the device kernels a call launches
+    (torch.profiler): one. Returns a record nested under scatter_update."""
+    C, R = 1 << 16, 8
+    cases = [  # (label, B, W, op, lanes' options, fresh, count_nofit)
+        ("W1 B 1", 1, 1, "add", {}, False, True),
+        ("W1 B 3", 3, 1, "add", {}, False, True),
+        ("W1 odd B", 100_003, 1, "add", {}, False, True),
+        ("W1 view at lane 1", 100_003, 1, "add", dict(offset=1), False,
+         True),
+        ("W2 both phases", 100_000, 2, "add", {}, False, True),
+        ("W2 view at lane 1", 100_001, 2, "add", dict(offset=1), False,
+         False),
+        ("W3", 100_000, 3, "add", {}, False, True),
+        ("W16", 50_001, 16, "add", {}, False, True),
+        ("count", 100_002, 1, "add", dict(count=True), False, True),
+        ("count W2", 100_000, 2, "add", dict(count=True), False, False),
+        ("hot add", 100_000, 1, "add", dict(hot=0.2, specials=SIGNED_ZEROS),
+         False, True),
+        ("hot add W2", 100_000, 2, "add",
+         dict(hot=0.2, specials=SIGNED_ZEROS), True, True),
+        ("hot min", 100_000, 1, "min",
+         dict(hot=0.2, specials=MINMAX_SPECIALS, integer=False), False,
+         True),
+        ("hot max", 100_001, 1, "max",
+         dict(hot=0.2, specials=MINMAX_SPECIALS, integer=False), True,
+         False),
+        ("hot max W3", 100_000, 3, "max",
+         dict(hot=0.2, specials=MINMAX_SPECIALS, integer=False), False,
+         True),
+        ("fresh", 100_000, 1, "add", {}, True, True),
+        ("nofit counted off", 100_000, 1, "add", {}, False, False),
+    ]
+    err, runs = 0.0, {}
+    for i, (label, B, W, op, opts, fresh, nofit) in enumerate(cases):
+        lanes = update_edge_lanes(dev, B, W, 70 + i, C=C, R=R, **opts)
+        neutral = {"min": FLT_MAX, "max": -FLT_MAX, "add": 0.0}[op]
+        acc0 = neutral_plane(dev, C, R, W, neutral, 0.3, i,
+                             _mean_pairs if W == 2 else
+                             (lambda n, g, W=W: torch.randint(
+                                 -9, 10, (n, W), generator=g).float()))
+        if op != "add":
+            acc0[:64:2, 0] = float("nan")
+            acc0[1:64:4, 0] = -0.0
+            acc0[3:64:4, 0] = 0.0
+        sides = []
+        for _ in range(2):
+            sd = dict(acc=acc0.clone(),
+                      dirty=torch.zeros(MAX_PARALLELISM, dtype=torch.bool,
+                                        device=dev),
+                      d=_zero_i32(dev))
+            if fresh:
+                sd.update(fresh=torch.zeros(C * R, dtype=torch.bool,
+                                            device=dev),
+                          fired_through=torch.tensor(37, dtype=torch.int32,
+                                                     device=dev),
+                          n_fresh=_zero_i32(dev))
+            sides.append(sd)
+        kw = dict(C=C, R=R, op=op, count_nofit=nofit)
+
+        def call(fn, sd, lanes=lanes, kw=kw):
+            extra = {k: sd[k] for k in ("fresh", "fired_through", "n_fresh")
+                     if k in sd}
+            fn(sd["acc"], sd["dirty"], sd["d"], lanes["pane"], lanes["kg"],
+               lanes["live"], lanes["slot"], lanes["values"],
+               lanes["max_pane"], **kw, **extra)
+
+        call(kernels.scatter_update, sides[0])
+        call(kernels.scatter_update_plain, sides[1])
+        e = bits_err(list(sides[0].values()), list(sides[1].values()))
+        check(e == 0.0, f"scatter_update ({label}) differs from its plain "
+                        f"version: {e} elements")
+        err = max(err, e)
+        if label == "W2 both phases":
+            ok = (lanes["live"] & (lanes["slot"] >= 0)
+                  & (lanes["slot"] < C)
+                  & (lanes["pane"] >= lanes["max_pane"] - (R - 1)))
+            flat = (torch.remainder(lanes["pane"].long(), R) * C
+                    + lanes["slot"].long())[ok]
+            check(bool((flat % 2 == 0).any()) and bool((flat % 2).any()),
+                  "scatter_update (W2): cells at one 8-byte phase only")
+        if fresh:
+            check(int(sides[1]["n_fresh"]) > 0,
+                  f"scatter_update ({label}): no fresh cell marked")
+        if label == "W1 odd B":
+            check(int(sides[1]["d"]) > 0,
+                  "scatter_update (W1 odd B): no lane dropped")
+            runs[label] = lambda sd=sides[0], c=call: c(
+                kernels.scatter_update, sd)
+        del sides
+    n_launch, seen = launches_a_call(dev, [runs["W1 odd B"]] * 4)
+    check(n_launch in (None, 1)
+          and all("scatter_update" in k for k in seen),
+          f"G3: {n_launch} device kernels a call, not one: {seen}")
     return {"cases": len(cases), "max_abs_err": err,
             "kernels_a_call": n_launch, "shapes": [c[0] for c in cases]}
 
@@ -4177,6 +4465,10 @@ def reduce_kernel_phase(dev, timing=True):
         out[name].update(rec)
     out["clear_rows"]["edges"] = part("3_kernels/reduce/clear_edges",
                                       lambda: clear_edge_checks(dev))
+    out["route_lanes"]["edges"] = part("3_kernels/reduce/route_edges",
+                                       lambda: route_edge_checks(dev))
+    out["scatter_update"]["edges"] = part("3_kernels/reduce/update_edges",
+                                          lambda: update_edge_checks(dev))
     return out
 
 

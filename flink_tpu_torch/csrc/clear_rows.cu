@@ -223,18 +223,6 @@ __global__ void __launch_bounds__(kThreads) clear_kernel(ClearArgs a) {
   }
 }
 
-int sm_count() {
-  static int sms[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (sms[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    sms[dev] = n > 0 ? n : 132;
-  }
-  return sms[dev];
-}
-
 int launch_clear(const ClearArgs& a, void* stream) {
   if (a.R <= 0 || a.C <= 0) return static_cast<int>(cudaGetLastError());
   // a row's 16-byte chunks of words (more than of its bytes: n >= C), one

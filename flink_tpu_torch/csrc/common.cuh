@@ -1,10 +1,11 @@
 // Shared helpers of the window-path kernels (route_lanes.cu, clear_rows.cu,
 // scatter_update.cu, fire_reduced.cu, hash_upsert.cu, fire_compact.cu,
 // sketch_update.cu, sketch_fire.cu and the rest of csrc/):
-// int32 pane arithmetic with the reference's floor semantics, the key-group
-// hash of a key identity, block-wide reductions that end in one atomic per
-// block, a block-wide scan, a shared-memory key-group histogram, and the
-// float min / max combines of the min and max reduces.
+// int32 pane arithmetic with the reference's floor semantics (the divide by
+// a multiply and a shift), the key-group hash of a key identity, block-wide
+// reductions that end in one atomic per block, a block-wide scan, a
+// shared-memory key-group histogram, the float min / max combines of the
+// min and max reduces, and the card's multiprocessor count.
 #pragma once
 
 #include <cstdint>
@@ -14,10 +15,31 @@
 // flink_tpu/ops/window_kernels.py PANE_NONE: the "no pane" sentinel.
 constexpr int32_t kPaneNone = INT32_MIN + 1;
 
-// floor(a / b) for b > 0, also for negative a (jnp.floor_divide).
-__device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
-  int32_t q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
+// floor(a / d) (jnp.floor_divide) for a divisor d > 0 fixed at launch, by a
+// multiply and a shift: the numerator n = a for a >= 0 and ~a = -a - 1 for
+// a < 0 lies in [0, 2^31), and floor(a / d) is n / d for a >= 0 and
+// ~(n / d) for a < 0. With l = ceil(log2 d) and m = ceil(2^(31 + l) / d) <
+// 2^32, n / d == (n * m) >> (31 + l) for every n < 2^31 (Granlund and
+// Montgomery: m d - 2^(31 + l) < d <= 2^l). div_magic computes m and the
+// shift on the host.
+struct DivMagic {
+  uint32_t m;
+  int shift;
+};
+
+inline DivMagic div_magic(int32_t d) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  const unsigned long long m = ((1ULL << (31 + l)) + d - 1) / d;
+  return DivMagic{static_cast<uint32_t>(m), 31 + l};
+}
+
+__device__ __forceinline__ int32_t floor_div(int32_t a, DivMagic dm) {
+  const int32_t s = a >> 31;  // 0, or -1 for a negative a
+  const uint32_t n = static_cast<uint32_t>(a ^ s);
+  const uint32_t q = static_cast<uint32_t>(
+      (static_cast<unsigned long long>(n) * dm.m) >> dm.shift);
+  return static_cast<int32_t>(q) ^ s;
 }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -41,11 +63,14 @@ __device__ __forceinline__ uint32_t murmur3_32(uint32_t k) {
 }
 
 // The key group of a key identity (hi, lo): ops/hashing.py route_hash,
-// then core/keygroups.py assign_to_key_group over maxp groups.
+// then core/keygroups.py assign_to_key_group over maxp groups; the modulo
+// is a mask when the caller knows maxp to be a power of two (``mask`` =
+// maxp - 1; -1 otherwise).
 __device__ __forceinline__ int32_t key_group(uint32_t hi, uint32_t lo,
-                                             int maxp) {
-  const uint32_t h = lo ^ (hi * 0x9E3779B9u);
-  return static_cast<int32_t>(murmur3_32(h) % static_cast<uint32_t>(maxp));
+                                             int maxp, int mask = -1) {
+  const uint32_t h = murmur3_32(lo ^ (hi * 0x9E3779B9u));
+  return static_cast<int32_t>(mask >= 0 ? h & static_cast<uint32_t>(mask)
+                                        : h % static_cast<uint32_t>(maxp));
 }
 
 // a mod b in [0, b) for b > 0 (jnp.mod).
@@ -76,16 +101,13 @@ __device__ __forceinline__ float combine_op(int op, float a, float b) {
   return op == 0 ? a + b : (op == 1 ? jnp_min(a, b) : jnp_max(a, b));
 }
 
-// *p = combine(*p, v), atomically. Add is the hardware float atomicAdd;
-// min and max loop on a 32-bit atomicCAS, leaving at once when the cell
-// already holds the result (a hot key's repeated max costs one load).
-__device__ __forceinline__ void atomic_combine(float* p, float v, int op) {
-  if (op == 0) {
-    atomicAdd(p, v);
-    return;
-  }
+// *p = min or max (op 1, 2) of *p and v, atomically, from ``old``, the
+// word's value as the caller read it: a loop on a 32-bit atomicCAS that
+// leaves at once when the cell already holds the result (a hot key's
+// repeated max costs one load).
+__device__ __forceinline__ void combine_from(float* p, unsigned int old,
+                                             float v, int op) {
   unsigned int* q = reinterpret_cast<unsigned int*>(p);
-  unsigned int old = *q;
   while (true) {
     const float cur = __uint_as_float(old);
     const unsigned int want =
@@ -95,6 +117,16 @@ __device__ __forceinline__ void atomic_combine(float* p, float v, int op) {
     if (seen == old) return;
     old = seen;
   }
+}
+
+// *p = combine(*p, v), atomically. Add is the hardware float atomicAdd;
+// min and max read the word, then combine_from.
+__device__ __forceinline__ void atomic_combine(float* p, float v, int op) {
+  if (op == 0) {
+    atomicAdd(p, v);
+    return;
+  }
+  combine_from(p, *reinterpret_cast<unsigned int*>(p), v, op);
 }
 
 __device__ __forceinline__ int32_t warp_sum(int32_t v) {
@@ -193,16 +225,26 @@ __device__ __forceinline__ void kg_hist_flush(const int32_t* hist, int maxp,
   }
 }
 
+// The current device's multiprocessor count, asked once a device (132 on
+// an H100 SXM when the query fails).
+inline int sm_count() {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (sms[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = n > 0 ? n : 132;
+  }
+  return sms[dev];
+}
+
 // Blocks for a histogramming pass over n items with maxp bins: enough
 // blocks to fill the card (two a multiprocessor), and no more than one per
 // ``threads`` items, each block taking at least 4 * maxp items when that
 // still leaves two a multiprocessor.
 inline int kg_hist_blocks(long long n, int maxp, int threads) {
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   const long long most = (n + threads - 1) / threads;
   const long long per = 4LL * maxp > threads ? 4LL * maxp : threads;
   long long want = (n + per - 1) / per;

@@ -14,14 +14,18 @@ what its design does about that:
 
   G1 ``route_lanes``     key-group routing + the update's lane prologue,
                          and optionally the batch's key-group fill and
-                         the residency divert's cold lanes (tiered state)
+                         the residency divert's cold lanes (tiered state):
+                         one grid-stride launch of 4-lane groups, the
+                         batch scalars folded by the last block;
   G2 ``clear_rows``      ring-row resets, eviction count, deferred purge
                          (packed planes, or split planes), fresh rows:
                          one grid-stride pass of 16-byte stores, the grid
                          sized to the card;
      ``fresh_rows``      each ring row's count of fresh flags
   G3 ``scatter_update``  the update's accumulate phase (atomic add, min,
-                         max), the lateness fresh marking
+                         max), the lateness fresh marking: one grid-stride
+                         launch of 4-lane groups, add one vector reduction
+                         a cell where aligned
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
   G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
   G6 ``fire_compact``    window evaluation compacted to (key, value) rows;
@@ -142,7 +146,8 @@ _U = ctypes.c_ulonglong
 _UI = ctypes.c_uint
 _SIGNATURES = {
     "route_lanes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                    _P, _P, _P, _P, _P, _P, _P],
+                    _P, _P, _P, _P, _P, _P, _P, _P],
+    "route_lanes_scratch_words": [],
     "clear_rows": [_P, _I, _F, _P, _P, _P, _I, _I, _P, _P, _P],
     "clear_rows_split": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                          _P],
@@ -404,6 +409,26 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
     return pane, kg, live, stats
 
 
+_ROUTE_SCRATCH = {}
+_route_lock = threading.Lock()
+
+
+def _route_scratch(dev) -> torch.Tensor:
+    """G1's scratch on this device and stream: a slot for each block's
+    four batch scalars, each word tagged with the call's number, the ticket
+    counter the last block resets and the count of calls it advances;
+    zeroed once, the kernel leaves it ready for the next call on the
+    stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _route_lock:
+        sc = _ROUTE_SCRATCH.get((dev, stream))
+        if sc is None:
+            sc = _ROUTE_SCRATCH[(dev, stream)] = torch.zeros(
+                build().route_lanes_scratch_words(), dtype=torch.int32,
+                device=dev)
+    return sc
+
+
 def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
                 k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0,
                 fill=None, res=None):
@@ -436,7 +461,7 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
         _ptr(purged_through), slide, k, L, maxp, kg_start, kg_end,
         _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _ptr(fill),
-        _ptr(res), _ptr(cold), _stream())
+        _ptr(res), _ptr(cold), _ptr(_route_scratch(dev)), _stream())
     _raise_on(rc, "route_lanes")
     route_lanes.launches += 1
     if fill is not None:
