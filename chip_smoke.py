@@ -25,18 +25,27 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 the table's invariants: equal ok and n_new, the same keys
                 each once, each within 64 slots of its chain's start where
                 lookup finds it, and equal per-key values after a G3 pass
-                (kernels against plain versions). G9, whose re-insert is a
-                G5 launch, is held to the new table's invariants, its row
-                move and ring export equal to the plain ones on its own slot
-                map, and the same logical cells (plane + ring) as the plain
-                version. G7's edge ring fills and loses lanes; G8's edge
-                table has no free slot; G9's edge table leaves live keys
-                without a slot. A "hash_table" line says how deep the sparse
-                job's 1M keys sit in their probe chains once all have
-                arrived. Times kernel, plain version and, where one PyTorch
-                call computes the same function, that call, with CUDA
-                events, beside the bound the card's 3.35 TB/s sets on the
-                bytes moved. G10-G13 at the keyed jobs' shapes (C = 2^22
+                (kernels against plain versions). G9, whose re-insert is
+                G5's CAS walk, is held to the new table's invariants, its
+                row move and ring export equal to the plain ones on its own
+                slot map, and the same logical cells (plane + ring) as the
+                plain version. G7's edge ring fills and loses lanes; G8's
+                edge table has no free slot; G9's edge table leaves live
+                keys without a slot. ``table_edge_checks`` holds G5, G8 and
+                G9 at the shapes their walks and folds make risky (keys up
+                to 63 deep at every sector phase, slots cleared by
+                remove_slots in front of them, chains that wrap at C, P = 1,
+                2, 16, 64, C = 8, B = 0 and 1, views; G9's dead, full,
+                failing, R = 1, min / max and Wc = 3 planes), calls A, B, A
+                on one scratch and the device operations a call; a
+                "table_split" line gives each device operation of G5, G8 and
+                G9 at their main shapes (and G5 cold, G5 and G8 on absent
+                keys) with its device time. A "hash_table" line says how
+                deep the sparse job's 1M keys sit in their probe chains once
+                all have arrived. Times kernel, plain version and, where one
+                PyTorch call computes the same function, that call, with
+                CUDA events, beside the bound the card's 3.35 TB/s sets on
+                the bytes moved. G10-G13 at the keyed jobs' shapes (C = 2^22
                 slots, B = 262,144 lanes): G10 on slot keys (the wordcount
                 batch's Zipf ranks) and (slot, tick) keys (a sessions
                 batch), its edge inputs one key in every lane, dead lanes,
@@ -1403,15 +1412,16 @@ def churned_state(dev, C, R, probe_len, n_keys, alive_share, seed):
 
 
 def logical_cells(table, acc, ring, C, R, pane_ids, neutral=0.0):
-    """The (key word, pane, value) cells of a plane (touch column !=
-    ``neutral``) and the filled ring lanes, sorted by key then pane, as
-    three tensors."""
-    a3 = acc.view(R, C, 2)
-    r, c = torch.nonzero(a3[:, :, 1] != neutral, as_tuple=True)
+    """The (key word, pane, W values) cells of a plane [C*R, W + 1] (touch
+    column != ``neutral``) and the filled ring lanes, sorted by key then
+    pane, as three tensors."""
+    Wc = acc.shape[1]
+    a3 = acc.view(R, C, Wc)
+    r, c = torch.nonzero(a3[:, :, -1] != neutral, as_tuple=True)
     n = int(ring[4])
     keys = torch.cat([table[c], kernels.key_words(ring[0][:n], ring[1][:n])])
     panes = torch.cat([pane_ids[r], ring[2][:n]])
-    vals = torch.cat([a3[r, c, 0], ring[3][:n]])
+    vals = torch.cat([a3[r, c, :-1], ring[3][:n].reshape(n, Wc - 1)])
     order = torch.argsort(panes, stable=True)
     order = order[torch.argsort(keys[order], stable=True)]
     return keys[order], panes[order], vals[order]
@@ -1459,20 +1469,445 @@ def case_compact_table(dev, C, R, kind):
     src = acc.view(R, C, 2)[:, ok1]
     dst_idx = slot1[ok1].long()
     lib_out = torch.zeros(R, C, 2, device=dev)
+    # the timed calls share one ring: the main table exports nothing
+    ring_t, lost_t = clone_ring(ring0), _zero_i32(dev)
     return {
         "got": [acc1, *r1, l1, *cells1], "want": [want_moved, *r3, l3,
                                                   *cells2],
         "run": lambda: kernels.compact_table(
-            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), R=R,
-            probe_len=probe),
+            acc, table, pane_ids, ring_t, lost_t, R=R, probe_len=probe),
         "plain": lambda: kernels.compact_table_plain(
-            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), R=R,
-            probe_len=probe),
+            acc, table, pane_ids, ring_t, lost_t, R=R, probe_len=probe),
         "library": lambda: lib_out.index_copy_(1, dst_idx, src),
         # the plane and the table read once; the new plane and the new
         # table written once; 16 B per exported ring lane
         "bytes": C * R * 8 * 2 + C * 8 * 2 + exported * 16,
         "exported": exported,
+    }
+
+
+def op_split(dev, calls) -> dict:
+    """Each device operation that one call makes, by torch.profiler over
+    ``calls`` (one call's closures, all alike): {name: [operations a call,
+    device us a call]}, kernels, memsets and copies alike."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    if dev.type != "cuda":
+        return {}
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        for run in calls:
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rec = out.setdefault(e.name[:70], [0.0, 0.0])
+        rec[0] += 1.0 / len(calls)
+        rec[1] += e.time_range.elapsed_us() / len(calls)
+    return out
+
+
+def table_op_split(dev, B=BATCH, reps=8) -> dict:
+    """The device operations of G5, G8 and G9 at their main shapes, each
+    with its device time (op_split), beside the call's time_ms: G5 in the
+    sparse job's steady state (every key resident) and cold (its first
+    batch into an empty table, every lane claiming), G5 and G8 on a batch
+    of absent keys (every chain read to its end), G8 on the sparse job's
+    fast step, G9 at the churn job's compaction on a sum and a max plane.
+    """
+    C, R = SPARSE_CAPACITY, SPARSE_RING
+    full = full_table(dev, C, B, report=False)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    steady = id_halves(sparse_ids(gen_batch(5 * B, B)[0]), dev)
+    first = id_halves(sparse_ids(gen_batch(0, B)[0]), dev)
+    absent = id_halves(sparse_ids(np.arange(B) + 90 * N_KEYS), dev)
+    colds = [hashtable.create(C, dev) for _ in range(reps + 24)]
+    table, acc, pane_ids, _alive = churned_state(dev, C, R, PROBE_LEN,
+                                                 1_900_000, 0.7, 4)
+    touched = acc[:, 1] != 0
+    acc_max = torch.where(touched[:, None], torch.stack(
+        [acc[:, 0] - 4.5, torch.zeros_like(acc[:, 0])], 1), -FLT_MAX)
+    ring, lost = ring_of(dev, RING_LANES, 1000), _zero_i32(dev)
+
+    def upsert(t, hl):
+        return lambda: kernels.hash_upsert(t, *hl, ones, probe_len=PROBE_LEN)
+
+    def lookup(hl):
+        return lambda: kernels.hash_lookup(full, *hl, ones,
+                                           probe_len=PROBE_LEN)
+
+    def compact(a, neutral):
+        return lambda: kernels.compact_table(a, table, pane_ids, ring, lost,
+                                             R=R, probe_len=PROBE_LEN,
+                                             neutral=neutral)
+
+    cold_iter = iter(colds)
+    runs = {
+        "hash_upsert steady": upsert(full.clone(), steady),
+        "hash_upsert cold": lambda: kernels.hash_upsert(
+            next(cold_iter), *first, ones, probe_len=PROBE_LEN),
+        "hash_upsert absent, brimful table": upsert(
+            full_to_the_brim(dev, C, B), absent),
+        "hash_lookup steady": lookup(steady),
+        "hash_lookup absent": lookup(absent),
+        "compact_table sum": compact(acc, 0.0),
+        "compact_table max": compact(acc_max, -FLT_MAX),
+    }
+    out = {}
+    for name, run in runs.items():
+        ms = time_ms(run)
+        out[name] = {"ms": ms, "ops": op_split(dev, [run] * reps)}
+    check(int(ring[4]) == 1000 and int(lost) == 0,
+          "compact_table exported cells at the churn job's main shape")
+    return out
+
+
+EDGE_DEPTHS = (0, 15, 16, 17, 31, 32, 33, 63)
+EDGE_C = 1 << 12
+
+
+def chain_starts(ids: np.ndarray, C: int) -> np.ndarray:
+    w = ids.view(np.uint64)
+    return probe_hash((w >> np.uint64(32)).astype(np.uint32),
+                      (w & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                      ) & np.uint32(C - 1)
+
+
+def ids_at(C: int, bases, per: int, seed: int) -> dict:
+    """``per`` distinct ids whose chains start at each of ``bases``."""
+    rng = np.random.default_rng(seed)
+    out = {int(b): [] for b in bases}
+    while any(len(v) < per for v in out.values()):
+        ids = rng.integers(-(2**62), 2**62, 1 << 20, dtype=np.int64)
+        starts = chain_starts(ids, C)
+        for b, v in out.items():
+            if len(v) < per:
+                v.extend(ids[starts == b][:per - len(v)].tolist())
+    return out
+
+
+def depth_chains(C, regions, seed):
+    """A table holding, for each (base, depth) of ``regions``, a key whose
+    chain starts at base and that sits ``depth`` deep behind other keys,
+    and a second key of that base that is absent. Returns (table words,
+    the present keys, the absent keys)."""
+    rng = np.random.default_rng(seed)
+    found = ids_at(C, [b for b, _ in regions], 2, seed)
+    table = np.full(C, -1, np.int64)
+    fillers = rng.integers(1, 2**62, C, dtype=np.int64)
+    present, absent = [], []
+    for b, d in regions:
+        for j in range(d):
+            table[(b + j) % C] = fillers[(b + j) % C]
+        table[(b + d) % C] = found[b][0]
+        present.append(found[b][0])
+        absent.append(found[b][1])
+    return table, np.array(present), np.array(absent)
+
+
+def edge_lanes(present, absent, seed, n_extra=0, pool=None):
+    """Lanes of present keys, absent keys twice (duplicates), a few of the
+    key -1, about 8 % invalid, shuffled; ``n_extra`` more drawn from
+    ``pool``."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([present, absent, absent, np.full(5, -1, np.int64)])
+    if n_extra:
+        ids = np.concatenate([ids, rng.choice(pool, n_extra)])
+    ids = ids[rng.permutation(len(ids))]
+    return ids, rng.random(len(ids)) >= 0.08
+
+
+def hold_upsert(dev, table0, ids, valid, P, exact=True, hl=None):
+    """G5 on (table0, lanes) against its plain twin. Always: the lanes whose
+    key was present find it at its slot in both; every ok lane's slot holds
+    its key; no key placed twice; a failed lane's chain holds neither EMPTY
+    nor its key; n_new counts the ok lanes whose key was absent; old keys
+    stay.
+    ``exact``: ok, n_new and the table's keys as a set also equal the plain
+    twin's (placements of new keys may differ). Returns (elements that
+    differ, the kernel's outputs)."""
+    C = table0.shape[0]
+    hi, lo = hl if hl is not None else id_halves(ids, dev)
+    v = _t(valid, dev, torch.bool)
+    t1, t2 = table0.clone(), table0.clone()
+    s1, ok1, n1 = kernels.hash_upsert(t1, hi, lo, v, probe_len=P)
+    s2, ok2, n2 = kernels.hash_upsert_plain(t2, hi, lo, v, probe_len=P)
+    s0, f0, _ = kernels.hash_lookup_plain(table0, hi, lo, v, probe_len=P)
+    key = kernels.key_words(hi, lo)
+    err = float((s1[f0] != s0[f0]).sum() + (s2[f0] != s0[f0]).sum())
+    err += float((~ok1[f0]).sum())
+    err += float((t1[s1[ok1].long()] != key[ok1]).sum())
+    err += float((s1[~ok1] != C).sum())
+    placed = t1[t1 != table0]
+    err += float(placed.numel() - torch.unique(placed).numel())
+    err += float((t1[table0 != EMPTY_WORD] != table0[table0 != EMPTY_WORD]
+                  ).sum())
+    err += abs(int(n1) - int((ok1 & v & ~f0).sum()))
+    fail = v & ~ok1 & (key != EMPTY_WORD)
+    if bool(fail.any()):
+        cand = kernels.probe_chain(hi[fail], lo[fail], C=C, probe_len=P)
+        words = t1[cand]
+        err += float(((words == EMPTY_WORD)
+                      | (words == key[fail][:, None])).any(dim=1).sum())
+    if exact:
+        err += float((ok1 != ok2).sum()) + abs(int(n1) - int(n2))
+        err += float((torch.sort(t1).values != torch.sort(t2).values).sum())
+    return err, (s1, ok1, n1, t1)
+
+
+def hold_lookup(dev, table, ids, valid, P, hl=None):
+    """G8 against its plain twin, bit for bit."""
+    hi, lo = hl if hl is not None else id_halves(ids, dev)
+    v = _t(valid, dev, torch.bool)
+    got = kernels.hash_lookup(table, hi, lo, v, probe_len=P)
+    want = kernels.hash_lookup_plain(table, hi, lo, v, probe_len=P)
+    return bits_err(list(got), list(want)), got
+
+
+def compact_edge_state(dev, C, R, Wc, neutral, n_keys, alive_share, seed,
+                       offset=False):
+    """A plane [C*R, Wc] over a table of ``n_keys`` ids placed by the plain
+    G5 (probe 64), ``alive_share`` of them with touched cells (the marker
+    1 for a sum, 0 for min and max), the rest the neutral; ``offset``: the
+    plane as a view one cell into a larger tensor (off 16-byte
+    alignment)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = hashtable.create(C, "cpu")
+    h, l = id_halves(sparse_ids(np.arange(n_keys) + seed * 10**7), "cpu")
+    kernels.hash_upsert_plain(table, h, l,
+                              torch.ones_like(h, dtype=torch.bool),
+                              probe_len=PROBE_LEN)
+    used = table != EMPTY_WORD
+    alive = used & (torch.rand(C, generator=g) < alive_share)
+    touch = (torch.rand(R, C, generator=g) < 0.4) & alive[None, :]
+    touch[torch.randint(0, R, (C,), generator=g), torch.arange(C)] |= alive
+    vals = torch.randint(-9, 9, (R, C, Wc - 1), generator=g).float()
+    acc = torch.full((R, C, Wc), float(neutral))
+    acc[touch] = torch.cat([vals[touch], torch.full(
+        (int(touch.sum()), 1), 1.0 if neutral == 0 else 0.0)], 1)
+    acc = acc.reshape(C * R, Wc)
+    pane_ids = torch.arange(40, 40 + R, dtype=torch.int32)
+    if offset:
+        acc = torch.cat([acc.new_zeros(1, Wc), acc]).to(dev)[1:]
+    return table.to(dev), acc.to(dev), pane_ids.to(dev)
+
+
+def hold_compact(dev, table, acc, pane_ids, R, P, neutral, ring0):
+    """G9 against its plain twin: the new table's set invariants; every
+    placed key alive and its slot holding it; the move equal to the plain
+    move on G9's own slot map, the ring and ``lost`` equal to the plain
+    export on it; and, where neither loses a cell, the same logical cells
+    (plane + ring) as the plain version. Returns (elements that differ,
+    the kernel's outputs and ring)."""
+    C = table.shape[0]
+    kw = dict(R=R, probe_len=P, neutral=neutral)
+    r1, r2, r3 = clone_ring(ring0), clone_ring(ring0), clone_ring(ring0)
+    l1, l2, l3 = _zero_i32(dev), _zero_i32(dev), _zero_i32(dev)
+    acc1, tab1, slot1, ok1 = kernels.compact_table(acc, table, pane_ids, r1,
+                                                   l1, **kw)
+    acc2, tab2, _s2, _ok2 = kernels.compact_table_plain(
+        acc, table, pane_ids, r2, l2, **kw)
+    alive = kernels.compact_alive_plain(acc, C=C, R=R, neutral=neutral)
+    table_invariants(tab1, C, P)
+    err = float((ok1 & ~alive).sum()) + float((slot1[~ok1] != C).sum())
+    err += float((tab1[slot1[ok1].long()] != table[ok1]).sum())
+    err += abs(int((tab1 != EMPTY_WORD).sum()) - int(ok1.sum()))
+    err += bits_err(acc1, kernels.compact_move_plain(acc, slot1, ok1, C=C,
+                                                     R=R, neutral=neutral))
+    kernels.compact_export_plain(acc, table, pane_ids, alive, ok1, r3, l3,
+                                 C=C, R=R, neutral=neutral)
+    err += bits_err(list(r1) + [l1], list(r3) + [l3])
+    if int(l1) == 0 and int(l2) == 0:
+        err += bits_err(list(logical_cells(tab1, acc1, r1, C, R, pane_ids,
+                                           neutral)),
+                        list(logical_cells(tab2, acc2, r2, C, R, pane_ids,
+                                           neutral)))
+    return err, (acc1, tab1, slot1, ok1, r1, l1)
+
+
+def table_edge_checks(dev) -> dict:
+    """G5, G8 and G9 on the shapes their walks, worklist, folds and passes
+    make risky, each against its plain twin (hold_upsert, hold_lookup,
+    hold_compact). G5 and G8: keys 0, 15, 16, 17, 31, 32, 33 and 63 deep
+    in their chains at every sector phase, each chain's second key absent
+    (at depth 63 a full chain that fails), duplicates, the key -1, invalid
+    lanes, at P = 1, 2, 16 and 64; the same with a slot cleared by
+    remove_slots in front of each key 15 or more deep (the kernels find the
+    key behind it and the absent key takes the hole); chains that wrap at C
+    at each of the 16 phases of a 128-byte line; C = 8 at P = 64 and 2; B
+    = 0, 1, 1,001 and a view one lane in; every lane new; half new with
+    duplicates. G9 (C = 2^10 and 2^12): every key dead; every key alive
+    under capacity; alive keys failing at probe 2 into a ring that fills,
+    lost counted; R = 1; min and max neutrals; mean's Wc = 3; a plane off
+    16-byte alignment. Then calls A, B, A on one scratch, each kernel, and
+    the device operations a call (torch.profiler): G5 one kernel, G8 one,
+    G9 four operations with its memset. Returns {kernel: record}."""
+    C = EDGE_C
+    regions = [(128 * k + (5 * k) % 16, EDGE_DEPTHS[k // 4])
+               for k in range(32)]
+    words, present, absent = depth_chains(C, regions, 61)
+    table = _t(words, dev, torch.int64)
+    holes = table.clone()
+    hole_slots = [(b + d // 2) % C for b, d in regions if d >= 15]
+    kernels.remove_slots(holes, _t(np.array(hole_slots), dev, torch.int32),
+                         torch.ones(len(hole_slots), dtype=torch.bool,
+                                    device=dev))
+    ids, valid = edge_lanes(present, absent, 62)
+    g5, g8, labels = [], [], []
+
+    def both(label, tab, ids, valid, P, exact=True, hl=None):
+        e5, _ = hold_upsert(dev, tab, ids, valid, P, exact, hl)
+        e8, got = hold_lookup(dev, tab, ids, valid, P, hl)
+        check(e5 == 0.0 and e8 == 0.0,
+              f"hash_upsert / hash_lookup ({label}) differ from their plain "
+              f"twins: {e5} / {e8} elements")
+        g5.append(e5)
+        g8.append(e8)
+        labels.append(label)
+        return got
+
+    for P in (1, 2, 16, 64):
+        both(f"depths P={P}", table, ids, valid, P)
+        got = both(f"holes P={P}", holes, ids, valid, P, exact=P != 16)
+    key = kernels.key_words(*id_halves(ids, dev))
+    deep = torch.isin(key, _t(present[[d >= 15 for _, d in regions]], dev,
+                              torch.int64))
+    check(bool(got[1][deep & _t(valid, dev, torch.bool)].all()),
+          "hash_lookup: a key behind a cleared slot was not found")
+    for p in range(16):
+        base = C - 1 - p
+        w, pr, ab = depth_chains(C, [(base, 20)], 70 + p)
+        i2, v2 = edge_lanes(pr, ab, 90 + p)
+        for P in (16, 64):
+            both(f"wrap phase {p} P={P}", _t(w, dev, torch.int64), i2, v2, P)
+    rng = np.random.default_rng(5)
+    small = hashtable.create(8, dev)
+    three = sparse_ids(np.arange(3) + 7_000_000)
+    kernels.hash_upsert_plain(small, *id_halves(three, dev),
+                              torch.ones(3, dtype=torch.bool, device=dev),
+                              probe_len=64)
+    new4 = sparse_ids(np.arange(4) + 8_000_000)
+    i8 = np.concatenate([three, new4, new4, [-1]])
+    both("C=8 P=64", small, i8, np.ones(len(i8), bool), 64)
+    i8b = np.concatenate([three, sparse_ids(np.arange(9) + 8_000_000)])
+    both("C=8 P=2 (contested)", small, i8b, np.ones(len(i8b), bool), 2,
+         exact=False)
+    pool = np.concatenate([present, absent])
+    for B in (0, 1, 1001):
+        ib, vb = edge_lanes(present, absent, 100 + B, n_extra=B, pool=pool)
+        both(f"B={B}", table, ib[:B], vb[:B], 64)
+    big_hi, big_lo = id_halves(np.concatenate([[7], ids]), dev)
+    both("view one lane in", table, ids, valid, 64,
+         hl=(big_hi[1:], big_lo[1:]))
+    empty = hashtable.create(C, dev)
+    fresh = sparse_ids(np.arange(2500) + 9_000_000)
+    i_new = np.concatenate([fresh, fresh[:1000]])
+    both("every lane new", empty, i_new, np.ones(len(i_new), bool), 64)
+    half = hashtable.create(C, dev)
+    kernels.hash_upsert_plain(half, *id_halves(fresh[:1500], dev),
+                              torch.ones(1500, dtype=torch.bool, device=dev),
+                              probe_len=64)
+    i_half = np.concatenate([fresh[:1500], fresh[1500:], fresh[1500:2000]])
+    i_half = i_half[rng.permutation(len(i_half))]
+    both("half new with duplicates", half, i_half,
+         rng.random(len(i_half)) >= 0.05, 64)
+    # A, B, A on one scratch
+    ones = np.ones(len(i_half), bool)
+    _e, a1 = hold_upsert(dev, half, i_half, ones, 64)
+    hold_upsert(dev, empty, i_new, np.ones(len(i_new), bool), 64)
+    _e, a2 = hold_upsert(dev, half, i_half, ones, 64)
+    up_again = (float((a1[1] != a2[1]).sum()) + abs(int(a1[2]) - int(a2[2]))
+                + bits_err(torch.sort(a1[3]).values,
+                           torch.sort(a2[3]).values))
+    _e, b1 = hold_lookup(dev, holes, ids, valid, 64)
+    hold_lookup(dev, table, i_new, np.ones(len(i_new), bool), 16)
+    _e, b2 = hold_lookup(dev, holes, ids, valid, 64)
+    lk_again = bits_err(list(b1), list(b2))
+    check(up_again == 0.0 and lk_again == 0.0,
+          f"hash_upsert / hash_lookup: calls A, B, A on one scratch disagree "
+          f"({up_again} / {lk_again} elements)")
+    hl_half = id_halves(i_half, dev)
+    v_half = _t(ones, dev, torch.bool)
+    steady = half.clone()
+    kernels.hash_upsert(steady, *hl_half, v_half, probe_len=64)
+    n5, seen5 = launches_a_call(dev, [lambda: kernels.hash_upsert(
+        steady, *hl_half, v_half, probe_len=64)] * 4)
+    check(n5 in (None, 1) and all("upsert_kernel" in k for k in seen5),
+          f"G5: {n5} device kernels a call, not one: {seen5}")
+    n8, seen8 = launches_a_call(dev, [lambda: kernels.hash_lookup(
+        steady, *hl_half, v_half, probe_len=64)] * 4)
+    check(n8 in (None, 1) and all("lookup_kernel" in k for k in seen8),
+          f"G8: {n8} device kernels a call, not one: {seen8}")
+    # G9
+    g9, labels9 = [], []
+    specs = [  # (label, C, R, Wc, neutral, keys, alive share, probe, fill, O)
+        ("every key dead", 1 << 10, 6, 2, 0.0, 700, 0.0, 64, 10, 4096),
+        ("every key alive", 1 << 10, 6, 2, 0.0, 700, 1.0, 64, 10, 4096),
+        ("fail at probe 2, ring fills", EDGE_C, 8, 2, 0.0, 3600, 0.9, 2, 500,
+         2000),
+        ("fail at probe 2, ring has room", EDGE_C, 8, 2, 0.0, 3600, 0.9, 2,
+         10, 1 << 16),
+        ("R=1", 1 << 10, 1, 2, 0.0, 700, 0.8, 64, 10, 4096),
+        ("max neutral, probe 2", EDGE_C, 4, 2, -FLT_MAX, 3600, 0.8, 2, 10,
+         1 << 15),
+        ("min neutral", 1 << 10, 4, 2, FLT_MAX, 700, 0.8, 64, 10, 4096),
+        ("mean Wc=3, probe 2", EDGE_C, 4, 3, 0.0, 3600, 0.8, 2, 10, 1 << 15),
+        ("plane off 16-byte alignment, probe 2", EDGE_C, 4, 2, 0.0, 3600,
+         0.8, 2, 10, 1 << 15),
+    ]
+    runs9, lost_seen = {}, 0
+    for i, (label, C9, R, Wc, nt, n, share, P, fill, O) in enumerate(specs):
+        t9, a9, p9 = compact_edge_state(dev, C9, R, Wc, nt, n, share, 30 + i,
+                                        offset="alignment" in label)
+        ring0 = ring_of(dev, O, fill, seed=i)
+        if Wc == 3:
+            ring0 = ring0[:3] + (torch.stack([ring0[3], ring0[3]], 1),
+                                 ring0[4])
+        e9, out = hold_compact(dev, t9, a9, p9, R, P, nt, ring0)
+        check(e9 == 0.0, f"compact_table ({label}) differs from its plain "
+                         f"twin: {e9} elements")
+        if label == "every key dead":
+            check(not bool(out[3].any()), "compact_table placed a dead key")
+        if "ring fills" in label:
+            lost_seen = int(out[5])
+            check(lost_seen > 0, "compact_table: the full ring lost nothing")
+        g9.append(e9)
+        labels9.append(label)
+        runs9[label] = (t9, a9, p9, R, P, nt, ring0)
+
+    def cells9(label):
+        t9, a9, p9, R, P, nt, ring0 = runs9[label]
+        r, lost = clone_ring(ring0), _zero_i32(dev)
+        acc1, tab1, _s, _o = kernels.compact_table(a9, t9, p9, r, lost, R=R,
+                                                   probe_len=P, neutral=nt)
+        return list(logical_cells(tab1, acc1, r, t9.shape[0], R, p9,
+                                  nt)) + [lost]
+
+    first = cells9("fail at probe 2, ring has room")
+    cells9("every key alive")
+    c9_again = bits_err(first, cells9("fail at probe 2, ring has room"))
+    check(c9_again == 0.0, f"compact_table: calls A, B, A on one scratch "
+                           f"disagree ({c9_again} elements)")
+    t9, a9, p9, R, P, nt, ring0 = runs9["every key alive"]
+    ring_c, lost_c = clone_ring(ring0), _zero_i32(dev)
+    split9 = op_split(dev, [lambda: kernels.compact_table(
+        a9, t9, p9, ring_c, lost_c, R=R, probe_len=P, neutral=nt)] * 4)
+    n9 = round(sum(v[0] for v in split9.values())) if split9 else None
+    check(n9 is None or n9 <= 5, f"G9: {n9} device operations a call: "
+                                 f"{split9}")
+    return {
+        "hash_upsert": {"cases": len(g5) + 1, "max_abs_err": max(g5),
+                        "scratch_twice_err": up_again,
+                        "kernels_a_call": n5, "shapes": labels},
+        "hash_lookup": {"cases": len(g8) + 1, "max_abs_err": max(g8),
+                        "scratch_twice_err": lk_again,
+                        "kernels_a_call": n8},
+        "compact_table": {"cases": len(g9) + 1, "max_abs_err": max(g9),
+                          "scratch_twice_err": c9_again,
+                          "operations_a_call": n9, "lost_when_full":
+                          lost_seen, "shapes": labels9},
     }
 
 
@@ -3886,15 +4321,17 @@ def case_compact_reduce(dev, kind):
     check(int(cells1[0].numel()) == int(
         (touched.view(R, C) & alive[None, :]).sum()) + 1000,
         "compact_table (min / max plane): cells lost or invented")
+    ring_t, lost_t = clone_ring(ring0), _zero_i32(dev)
     return {
         # G5's CAS walk and the plain claim rounds may place other keys
         # (and, with chains of 2, another number of them): the cells of
         # the plane and the ring together must be the same
         "err": bits_err(list(cells1), list(cells2)),
-        "run": lambda: kernels.compact_table(
-            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), **kw),
-        "plain": lambda: kernels.compact_table_plain(
-            acc, table, pane_ids, clone_ring(ring0), _zero_i32(dev), **kw),
+        # the timed calls share one ring: the main table exports nothing
+        "run": lambda: kernels.compact_table(acc, table, pane_ids, ring_t,
+                                             lost_t, **kw),
+        "plain": lambda: kernels.compact_table_plain(acc, table, pane_ids,
+                                                     ring_t, lost_t, **kw),
         "library": None,
         "bytes": C * R * 8 * 2 + C * 8 * 2,
     }
@@ -9571,6 +10008,15 @@ def main(argv) -> int:
     recs = part("3_kernels/G1-G9", lambda: kernel_phase(
         dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP, MAX_PARALLELISM,
         WINDOW_MS))
+    for name, rec in part("3_kernels/table_edges",
+                          lambda: table_edge_checks(dev)).items():
+        recs[name]["edges"] = rec
+    split = part("3_kernels/table_split", lambda: table_op_split(dev))
+    emit({"phase": "table_split", "device": smi, "calls": split})
+    recs["hash_upsert"].update(
+        cold_ms=split["hash_upsert cold"]["ms"],
+        absent_brimful_ms=split["hash_upsert absent, brimful table"]["ms"])
+    recs["hash_lookup"]["absent_ms"] = split["hash_lookup absent"]["ms"]
     recs["remove_slots"] = part("3_kernels/G28", lambda: hold(
         "remove_slots", lambda k: case_remove_slots(dev, k), True))
     recs.update(part("3_kernels/keyed", lambda: keyed_kernel_phase(

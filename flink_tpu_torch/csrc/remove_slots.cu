@@ -10,8 +10,8 @@
 // lies outside [0, C); any other slot, and every masked-off lane, is
 // dropped. Lanes that clear one slot write the same word, so their order
 // does not matter. Neither package calls it on a path (the reference's
-// docstring keeps it for rebuilds): G5 and G8 stop at a chain's first
-// empty slot, so a slot cleared mid-chain can hide the keys behind it.
+// docstring keeps it for rebuilds). G5 and G8 read a key's whole chain
+// before they call it absent, so a slot cleared mid-chain hides no key.
 //
 // Bound: bytes. Per lane it reads the slot (4 or 8 B) and the mask (1 B)
 // and writes one 8-byte word for each lane it clears (a scattered store:

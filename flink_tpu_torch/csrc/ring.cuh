@@ -1,10 +1,11 @@
-// Stable append of masked lanes to the overflow ring, shared by G7
-// ring_append.cu (the update's nofit lanes) and G9 compact_table.cu (the
-// touched rows of keys that find no slot in the rebuilt table), as the
-// reference shares ops/window_kernels.py ring_append between the two so
-// that their lost-record accounting cannot diverge. G11 session_update.cu
-// and G12 count_update.cu compact their fire rows with it too, into row
-// buffers of their own (the Out type).
+// Stable append of masked lanes to the overflow ring, used by G7
+// ring_append.cu (the update's nofit lanes). G9 compact_table.cu appends
+// the touched rows of keys that find no slot in the rebuilt table through
+// the same RingOut with the same semantics, as the reference shares
+// ops/window_kernels.py ring_append between the two so that their
+// lost-record accounting cannot diverge. G11 session_update.cu and G12
+// count_update.cu compact their fire rows with it too, into row buffers of
+// their own (the Out type).
 //
 // Semantics (window_kernels.py:222): the lanes i < n with take(i), in lane
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions

@@ -27,12 +27,17 @@ what its design does about that:
                          launch of 4-lane groups, add one vector reduction
                          a cell where aligned
   G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
-  G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout
+  G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout:
+                         one cooperative launch, whole-chain lookups, then
+                         CAS claims only in blocks with a lane to claim
   G6 ``fire_compact``    window evaluation compacted to (key, value) rows;
      ``fire_pack``       the same compaction of a dense fire result
   G7 ``ring_append``     nofit lanes appended to the overflow ring
   G8 ``hash_lookup``     the fast step's find-only probe + missing count
-  G9 ``compact_table``   table rebuild around the live keys, state moved
+                         (G5's walk, the count folded by the last block)
+  G9 ``compact_table``   table rebuild around the live keys, state moved:
+                         a memset, a claim pass, a gather, an export that
+                         returns when nothing failed
   G10 ``segment_sort``   stable radix sort of lanes by slot (or slot, tick):
                          one cooperative launch, onesweep passes over the
                          digits that vary, decoupled look-back
@@ -78,8 +83,9 @@ combine is the user's torch function; it runs as torch ops between G16's
 two launches and in the fire before G6's ``fire_pack``: the one path with
 no hand kernel for its combine.
 
-G11-G13 share one segmented scan (``csrc/segscan.cuh``), and G7, G9, G11
-and G12 one stable row compaction (``csrc/ring.cuh``).
+G11-G13 share one segmented scan (``csrc/segscan.cuh``), G7, G11 and G12
+one stable row compaction (``csrc/ring.cuh``, whose order G9's export
+keeps), and G5, G8 and G9 one probe walk (``csrc/hash_probe.cuh``).
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -156,7 +162,7 @@ _SIGNATURES = {
                        _I, _I, _P, _P, _P, _P],
     "fire_reduced": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
                      _P, _P],
-    "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fire_compact": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                      _P, _P, _I, _UI, _P, _P, _P, _P, _P, _P],
     "fire_pack": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _UI, _P, _P, _P,
@@ -164,11 +170,8 @@ _SIGNATURES = {
     "fire_compact_tiles": [_I],
     "ring_append": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                     _P, _P, _P],
-    "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "compact_alive": [_P, _I, _F, _I, _I, _P, _P],
-    "compact_move": [_P, _I, _F, _P, _P, _I, _I, _P, _P, _P],
-    "compact_export": [_P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P],
+    "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "compact_table": [_P, _I, _F, _P, _P, _I, _I, _I, _I] + [_P] * 14,
     "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _UI,
                      _P],
     "segment_sort_tile": [],
@@ -863,6 +866,25 @@ def hash_upsert_plain(table, hi, lo, valid, *, probe_len: int):
     return slot, ok, n_new
 
 
+TABLE_SCRATCH_WORDS = 4   # csrc/hash_probe.cuh TableScratch, int64 words
+_TABLE_SCRATCH = {}
+_table_lock = threading.Lock()
+
+
+def _table_scratch(dev) -> torch.Tensor:
+    """G5's, G8's and G9's scratch on this device and stream (TableScratch:
+    G5's arrival and claim fold words, G8's fold word, G9's count of failed
+    keys); zeroed once, each call leaves it zeroed for the next call on the
+    stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _table_lock:
+        sc = _TABLE_SCRATCH.get((dev, stream))
+        if sc is None:
+            sc = _TABLE_SCRATCH[(dev, stream)] = torch.zeros(
+                TABLE_SCRATCH_WORDS, dtype=torch.int64, device=dev)
+    return sc
+
+
 def hash_upsert(table, hi, lo, valid, *, probe_len: int):
     """G5: see hash_upsert_plain for the contract."""
     if _on_cpu(table):
@@ -880,10 +902,10 @@ def hash_upsert(table, hi, lo, valid, *, probe_len: int):
         _check(t, n, dt, (B,), dev)
     slot = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
-    n_new = torch.zeros((), dtype=torch.int32, device=dev)
+    n_new = torch.empty((), dtype=torch.int32, device=dev)
     rc = build().hash_upsert(_ptr(table), _ptr(hi), _ptr(lo), _ptr(valid), B,
                              C, probe_len, _ptr(slot), _ptr(ok), _ptr(n_new),
-                             _stream())
+                             _ptr(_table_scratch(dev)), _stream())
     _raise_on(rc, "hash_upsert")
     hash_upsert.launches += 1
     return slot, ok, n_new
@@ -1069,7 +1091,7 @@ fire_pack.launches = 0
 
 # ------------------------------------------------------------ G7
 
-RING_CHUNK = 1024   # lanes per block of G7's and G9's ring scan (ring.cuh)
+RING_CHUNK = 1024   # lanes a block of G7's, G11's, G12's ring scan (ring.cuh)
 
 
 def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
@@ -1184,10 +1206,11 @@ def hash_lookup(table, hi, lo, valid, *, probe_len: int):
         _check(t, n, dt, (B,), dev)
     slot = torch.empty(B, dtype=torch.int32, device=dev)
     found = torch.empty(B, dtype=torch.bool, device=dev)
-    n_missing = torch.zeros((), dtype=torch.int32, device=dev)
+    n_missing = torch.empty((), dtype=torch.int32, device=dev)
     rc = build().hash_lookup(_ptr(table), _ptr(hi), _ptr(lo), _ptr(valid), B,
                              C, probe_len, _ptr(slot), _ptr(found),
-                             _ptr(n_missing), _stream())
+                             _ptr(n_missing), _ptr(_table_scratch(dev)),
+                             _stream())
     _raise_on(rc, "hash_lookup")
     hash_lookup.launches += 1
     return slot, found, n_missing
@@ -1197,6 +1220,9 @@ hash_lookup.launches = 0
 
 
 # ------------------------------------------------------------ G9
+
+COMPACT_CHUNK = 256    # old slots a block of G9's claim (compact_table.cu)
+
 
 def compact_alive_plain(acc, *, C: int, R: int, neutral=0.0) -> torch.Tensor:
     """bool [C]: slots with a touched cell (touch column != ``neutral``) in
@@ -1256,15 +1282,19 @@ def compact_table_plain(acc, table, pane_ids, ring, lost, *, R: int,
 
 def compact_table(acc, table, pane_ids, ring, lost, *, R: int,
                   probe_len: int, neutral=0.0):
-    """G9: see compact_table_plain for the contract. The re-insert is a G5
-    ``hash_upsert`` launch; a contested slot may go to another key than in
-    the plain version, so the two agree as sets (see hash_upsert_plain)."""
+    """G9: see compact_table_plain for the contract. Its claim is G5's CAS
+    walk; a contested slot may go to another key than in the plain version,
+    so the two agree as sets (see hash_upsert_plain)."""
     if _on_cpu(acc):
         return compact_table_plain(acc, table, pane_ids, ring, lost, R=R,
                                    probe_len=probe_len, neutral=neutral)
     dev = acc.device
     (C,) = table.shape
     Wc = acc.shape[1]
+    if C & (C - 1) or C == 0:
+        raise ValueError(f"table capacity must be a power of two, got {C}")
+    if probe_len < 1 or R < 1:
+        raise ValueError(f"probe_len {probe_len} and R {R} must be >= 1")
     _check(acc, "acc", torch.float32, (C * R, Wc), dev)
     _check(table, "table", torch.int64, (C,), dev)
     _check(pane_ids, "pane_ids", torch.int32, (R,), dev)
@@ -1274,24 +1304,19 @@ def compact_table(acc, table, pane_ids, ring, lost, *, R: int,
     _check(lost, "lost", torch.int32, (), dev)
     if O + C * R > INT32_MAX:
         raise ValueError(f"ring of {O} lanes + {C * R} cells overflows int32")
-    lib = build()
-    alive = torch.empty(C, dtype=torch.bool, device=dev)
-    nt = float(neutral)
-    _raise_on(lib.compact_alive(_ptr(acc), Wc, nt, C, R, _ptr(alive),
-                                _stream()), "compact_table (alive)")
-    new_table = torch.full_like(table, EMPTY_WORD)
-    hi, lo = split_words(table)
-    slot, ok, _ = hash_upsert(new_table, hi, lo, alive, probe_len=probe_len)
-    inv = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    new_table = torch.empty_like(table)
     new_acc = torch.empty_like(acc)
-    _raise_on(lib.compact_move(_ptr(acc), Wc, nt, _ptr(slot), _ptr(ok), C, R,
-                               _ptr(inv), _ptr(new_acc), _stream()),
-              "compact_table (move)")
-    blk_count, blk_off = _ring_scratch(C * R, dev)
-    _raise_on(lib.compact_export(
-        _ptr(acc), Wc, nt, _ptr(alive), _ptr(ok), _ptr(table),
-        _ptr(pane_ids), C, R, O, *_ring_ptrs(ring, lost), _ptr(blk_count),
-        _ptr(blk_off), _stream()), "compact_table (export)")
+    slot = torch.empty(C, dtype=torch.int32, device=dev)
+    ok = torch.empty(C, dtype=torch.bool, device=dev)
+    inv = torch.empty(C, dtype=torch.int32, device=dev)
+    blk = torch.empty(2 * -(-C // COMPACT_CHUNK), dtype=torch.int32,
+                      device=dev)
+    rc = build().compact_table(
+        _ptr(acc), Wc, float(neutral), _ptr(table), _ptr(pane_ids), C, R,
+        probe_len, O, *_ring_ptrs(ring, lost), _ptr(new_table),
+        _ptr(new_acc), _ptr(slot), _ptr(ok), _ptr(inv), _ptr(blk),
+        _ptr(_table_scratch(dev)), _stream())
+    _raise_on(rc, "compact_table")
     compact_table.launches += 1
     return new_acc, new_table, slot, ok
 

@@ -17,9 +17,9 @@ takes its lanes to the overflow ring, or counts them as capacity loss
 without one, as the reference does. The paths free slots only by
 rebuilding the whole table (``window_kernels.compact_table``, G9).
 ``remove_slots`` is the reference's point removal (G28), which neither
-package calls: G5 and G8 stop at a chain's first empty slot, so a slot
-cleared in the middle of a chain can hide the keys behind it from them
-(the plain versions, like the reference, scan the whole chain).
+package calls on a path. A key is absent only when its whole chain lacks
+it, as in the reference, so a key behind a slot that ``remove_slots``
+cleared is still found, and ``upsert_counted`` does not place it twice.
 """
 
 from __future__ import annotations
