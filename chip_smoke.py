@@ -37,7 +37,21 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 remove_slots in front of them, chains that wrap at C, P = 1,
                 2, 16, 64, C = 8, B = 0 and 1, views; G9's dead, full,
                 failing, R = 1, min / max and Wc = 3 planes), calls A, B, A
-                on one scratch and the device operations a call; a
+                on one scratch and the device operations a call;
+                ``fire_session_edge_checks`` holds G4 and G11 at theirs
+                (G4: C off its tiles, due and quiet lanes mixed, every
+                lane quiet, k = 5 with missing panes, W = 1, 2, 3 and 16,
+                add, min, max, re-fire lanes, random floats summed alike
+                on two runs; G11: one key over many scan tiles, sessions
+                cut at tile edges, B = 0, wrapping ticks, a watermark
+                that closes nothing and one that closes every slot),
+                calls A, B, A on one scratch and the device operations a
+                call, counted in a CUDA graph of one call (G4 one kernel
+                on each read path, G11 at most three, no fill or copy);
+                ``fire_session_op_split`` gives each device operation of
+                G4 (north star, a quiet call, max k = 5, W = 2, fresh)
+                and G11 (the sessions job's main case, the DCN shape)
+                with its device time (the fire_session_split line); a
                 "table_split" line gives each device operation of G5, G8 and
                 G9 at their main shapes (and G5 cold, G5 and G8 on absent
                 keys) with its device time. A "hash_table" line says how
@@ -608,8 +622,15 @@ salts the cep-within job's events and its sample of keys with N, and
     python3 chip_smoke.py --log PATH
 
 also appends every JSON line to PATH.
+
+    python3 chip_smoke.py --stress N
+
+builds the kernels, then runs every phase-3 check of G4 and G11 N times
+over (a "stress" line a round) and their operation split once, and stops:
+no other phase and no contract line.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -981,12 +1002,17 @@ def case_fire_reduced(dev, C, R, F, kind):
         int(pane_ids[(int(p) - j) % R]) == int(p) - j
         for p, ok in zip(p_f.tolist(), lane_ok.tolist()) if ok
         for j in range(k)))
+    due_row = acc0.view(R, C, 2)[ends[0] % R]
     return {
         "got": kernels.fire_reduced(*args, C=C, R=R, k=k),
         "want": kernels.fire_reduced_plain(*args, C=C, R=R, k=k),
         "run": lambda: kernels.fire_reduced(*args, C=C, R=R, k=k),
         "plain": lambda: kernels.fire_reduced_plain(*args, C=C, R=R, k=k),
+        "args": args,
         "library": None,
+        # a yardstick for the W = 1 read, a part only: one Tensor.sum over
+        # the due row's [C, 2] plane (no touch test, no count)
+        "yardsticks": {"read_sum": lambda: due_row.sum()},
         # each present row of each due lane read once, pane_ids, lane outs
         "bytes": n_rows * C * 8 + R * 4 + F * (4 + 1 + 4 + 4),
     }
@@ -1506,6 +1532,64 @@ def op_split(dev, calls) -> dict:
         rec = out.setdefault(e.name[:70], [0.0, 0.0])
         rec[0] += 1.0 / len(calls)
         rec[1] += e.time_range.elapsed_us() / len(calls)
+    return out
+
+
+def ops_a_call(dev, calls, tries=3) -> dict:
+    """op_split of ``calls``, taken again when the profiler recorded no
+    device operation (a capture that comes back empty now and then); {}
+    when it never records one."""
+    for _ in range(tries):
+        ops = op_split(dev, calls)
+        if ops:
+            return ops
+    return {}
+
+
+_GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+
+
+def graph_ops(dev, run) -> dict:
+    """The device operations that one call of ``run`` enqueues, by kind
+    ({"kernel": n, "memset": n, "memcpy": n, "other": n}): the call is
+    captured into a CUDA graph on a side stream (relaxed mode, after one
+    call there that sets up its scratch and allocations; the captured
+    kernels never run) and the graph's nodes are counted by libcuda's
+    cuGraphGetNodes and cuGraphNodeGetType. Unlike a profiler's capture
+    it cannot come back empty: a failed capture raises."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, ref = ctypes.c_void_p, ctypes.byref
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        run()
+    s.synchronize()
+    graph = vp()
+    with torch.cuda.stream(s):
+        rc = cu.cuStreamBeginCapture_v2(vp(s.cuda_stream), ctypes.c_int(2))
+        check(rc == 0, f"graph_ops: stream capture failed to begin ({rc})")
+        try:
+            run()
+        finally:
+            rc = cu.cuStreamEndCapture(vp(s.cuda_stream), ref(graph))
+    check(rc == 0 and graph.value,
+          f"graph_ops: stream capture failed ({rc})")
+    out = {"kernel": 0, "memset": 0, "memcpy": 0, "other": 0}
+    try:
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(graph, None, ref(n)) == 0,
+              "graph_ops: cuGraphGetNodes failed")
+        nodes = (vp * n.value)()
+        check(cu.cuGraphGetNodes(graph, nodes, ref(n)) == 0,
+              "graph_ops: cuGraphGetNodes failed")
+        for node in nodes:
+            t = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(vp(node), ref(t)) == 0,
+                  "graph_ops: cuGraphNodeGetType failed")
+            out[_GRAPH_NODE_KINDS.get(t.value, "other")] += 1
+    finally:
+        cu.cuGraphDestroy(graph)
+    torch.cuda.current_stream(dev).wait_stream(s)
     return out
 
 
@@ -2306,6 +2390,390 @@ def keyed_kernel_phase(dev, C, B, timing=True):
         del main
     out["segment_sort"]["edges"] = sort_edge_checks(dev)
     return out
+
+
+def fire_session_op_split(dev, reps=8) -> dict:
+    """The device operations of G4 and G11 at their job shapes, each with
+    its device time (op_split), beside the call's time_ms: G4 at the north
+    star (one lane due of F = 2 over the 1M-key plane), on a quiet call (no
+    lane due, the same plane), and at phase 3's max k = 5, mean W = 2 and
+    fresh shapes; G11 at the sessions job's main case and at the DCN
+    sessions job's shard lanes (the main inputs of phase 3's cases)."""
+    g4 = case_fire_reduced(dev, N_KEYS, RING_PANES, FIRES_PER_STEP, "main")
+    acc, pane_ids, p_f, lane_ok = g4["args"]
+    quiet = torch.zeros_like(lane_ok)
+    runs = {
+        "fire_reduced north star": g4["run"],
+        "fire_reduced quiet": lambda: kernels.fire_reduced(
+            acc, pane_ids, p_f, quiet, C=N_KEYS, R=RING_PANES, k=1),
+    }
+    for shape, label in (("maxprice", "max k = 5"), ("mean", "W = 2"),
+                         ("fresh", "fresh")):
+        runs[f"fire_reduced {label}"] = case_fire_reduce(
+            dev, "main", shape, False)["run"]
+    main_state = session_state_at(dev, KEYED_CAPACITY, BATCH,
+                                  SESSION_WARM_BATCHES)
+    runs["session_update main"] = case_session_update(
+        dev, KEYED_CAPACITY, BATCH, "main", main_state)["run"]
+    runs["session_update dcn"] = case_session_update_dcn(dev, "main")["run"]
+    out = {}
+    for name, run in runs.items():
+        out[name] = {"ms": time_ms(run), "ops": ops_a_call(dev, [run] * reps),
+                     "graph_ops": graph_ops(dev, run)}
+    _FIRE_SETUPS.clear()
+    _DCN_HELD.clear()
+    return out
+
+
+EDGE_C_CARD = 1 << 20   # the north star's plane: 1M keys
+G11_EDGE_B = 1 << 18    # lanes of G11's edge cases (C = KEYED_CAPACITY)
+
+
+def g4_edge_inputs(dev, C, W, lanes, *, op="add", k=1, missing=(),
+                   fresh_from=None, floats=False, seed=0):
+    """A G4 fire over F = len(lanes) lanes (``lanes`` a string of ``T``
+    due and ``F`` quiet) of k-pane windows on an R = k + F ring: the plane
+    (small integers, or random floats with ``floats``, in 30 % of the cells
+    and the last three slots of every row; the neutral elsewhere), the pane
+    ids (the panes ``missing``, offsets into the ring's pane range, absent),
+    the window ends, the due lanes and, from lane ``fresh_from`` on, re-fire
+    lanes over a fresh plane. Returns (args, kw) for fire_reduced."""
+    F = len(lanes)
+    R = k + F
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    neutral = {"add": 0.0, "min": FLT_MAX, "max": -FLT_MAX}[op]
+    pane_ids = torch.arange(40, 40 + R, dtype=torch.int32)
+    pane_ids = pane_ids[torch.argsort(torch.remainder(pane_ids, R))]
+    for m in missing:
+        pane_ids[(40 + m) % R] = PANE_NONE
+    ends = [39 + R - f for f in range(F)]
+    touch = torch.rand(R, C, generator=g) < 0.3
+    touch[:, -3:] = True
+    t = touch.reshape(-1)
+    acc = torch.full((R * C, W + 1), neutral)
+    n_t = int(t.sum())
+    acc[t, :W] = (torch.rand(n_t, W, generator=g) * 80 - 40 if floats
+                  else torch.randint(-40, 41, (n_t, W), generator=g).float())
+    acc[t, W] = 1.0 if op == "add" else 0.0
+    fresh = n_ontime = None
+    if fresh_from is not None:
+        fresh = ((torch.rand(R * C, generator=g) < 0.05) & t).to(dev)
+        n_ontime = fresh_from
+    args = (acc.to(dev), pane_ids.to(dev),
+            torch.tensor(ends, dtype=torch.int32, device=dev),
+            torch.tensor([c == "T" for c in lanes], device=dev))
+    return args, dict(C=C, R=R, k=k, op=op, neutral=neutral, fresh=fresh,
+                      n_ontime=n_ontime)
+
+
+def g4_edge(dev, C, W, lanes="TTF", **kw):
+    """One G4 call against its plain version: (the call, counts and sums
+    bit for bit as integers (elements that differ), sums' relative error,
+    the outputs)."""
+    floats = kw.get("floats", False)
+    args, fkw = g4_edge_inputs(dev, C, W, lanes, **kw)
+
+    def run():
+        return kernels.fire_reduced(*args, **fkw)
+
+    c1, v1 = run()
+    c2, v2 = kernels.fire_reduced_plain(*args, **fkw)
+    check(c1.shape == c2.shape and v1.shape == v2.shape,
+          "fire_reduced: output shapes")
+    bits = float((c1 != c2).sum())
+    if not floats:
+        bits += float((v1 != v2).sum())
+    rel = float(((v1.double() - v2.double()).abs()
+                 / v2.double().abs().clamp_min(1.0)).max())
+    quiet = torch.tensor([c != "T" for c in lanes], device=dev)
+    check(bool((c1[quiet] == 0).all()) and bool((v1[quiet] == 0).all()),
+          "fire_reduced: a lane that is not due has a nonzero output")
+    return run, bits, rel, (c1, v1)
+
+
+def g11_state(dev, C, rng, *, active=0.5, t0=0, span=50_000):
+    """Random open sessions over ``active`` of C slots, ticks from t0."""
+    act = rng.random(C) < active
+    start = t0 + rng.integers(0, span, C)
+    last = start + rng.integers(0, 20_000, C)
+    return ((_t(start.astype(np.int64).astype(np.int32), dev, torch.int32),
+             _t(last.astype(np.int64).astype(np.int32), dev, torch.int32),
+             _t(rng.integers(1, 50, C).astype(np.float32) * act, dev,
+                torch.float32),
+             _t(act, dev, torch.bool)),
+            _t(rng.integers(-(2**62), 2**62, C), dev, torch.int64))
+
+
+def g11_lanes(dev, rng, slot, t, dead=0.0):
+    """The lanes of a G11 case from slots and ticks (numpy int64)."""
+    B = slot.shape[0]
+    h, l = id_halves(rng.integers(-(2**62), 2**62, B), dev)
+    return (_t(slot.astype(np.int32), dev, torch.int32),
+            _t(t.astype(np.int64).astype(np.int32), dev, torch.int32),
+            _t(rng.random(B) >= dead, dev, torch.bool), h, l,
+            _t(rng.integers(1, 9, B).astype(np.float32), dev,
+               torch.float32))
+
+
+def g11_edge_case(dev, name, C, B, seed):
+    """The G11 edge cases at card sizes: (state0, table, lanes, wm)."""
+    rng = np.random.default_rng(seed)
+    G = SESSION_GAP_MS
+    if name == "wrapping ticks":
+        state0, table = g11_state(dev, C, rng, t0=2**31 - 60_000,
+                                  span=40_000)
+        t = 2**31 - 30_000 + rng.integers(0, 60_000, B)  # past INT32_MAX
+        slot = rng.integers(0, C // 8, B)
+        return state0, table, g11_lanes(dev, rng, slot, t, 0.05), \
+            -(2**31) + 20_000
+    state0, table = g11_state(dev, C, rng)
+    slot = rng.integers(0, C // 10, B)
+    t = rng.integers(40_000, 90_000, B)
+    wm, dead = 65_000, 0.05
+    if name == "one key over many tiles":
+        hot = min(20_000, B // 2)         # ~20 scan tiles of one session
+        slot[:hot] = 5
+        t[:hot] = 60_000 + rng.integers(0, 5_000, hot)
+    elif name == "cuts at tile edges":
+        # slot 0's lanes come first: 3,072 of them, ticks that cut a new
+        # session at lanes 1,024 and 2,048; slot 1 starts at lane 3,072
+        n0 = 3072
+        slot[:n0] = 0
+        slot[n0:] = np.maximum(slot[n0:], 1)
+        t[:n0] = (np.arange(n0) // 1024) * (3 * G) + np.arange(n0) % 1024
+        slot[n0:n0 + 1024] = 1
+        dead = 0.0     # a dead lane would move slot 0's cuts
+    elif name == "closes nothing":
+        wm = -(2**31) + 1
+    elif name == "closes every slot":
+        wm = 2**31 - 1
+    return state0, table, g11_lanes(dev, rng, slot, t, dead), wm
+
+
+def g11_call(dev, C, state0, table, lanes, wm_v):
+    """G11 against its plain version on copies of ``state0``: (the call
+    on a third copy, elements that differ: rows, n_rows, marks, state)."""
+    slot, ts, live, h, l, vals = lanes
+    B = slot.numel()
+    G = SESSION_GAP_MS
+    if B:
+        order, key_s, _ss = segment.sort_slot_ts(slot, ts, live, C)
+    else:
+        order = torch.empty(0, dtype=torch.int32, device=dev)
+        key_s = torch.empty(0, dtype=torch.int64, device=dev)
+    wm = torch.tensor(wm_v, dtype=torch.int32, device=dev)
+    args = (table, wm, order, key_s, h, l, vals)
+    s1 = [x.clone() for x in state0]
+    s2 = [x.clone() for x in state0]
+    m1 = torch.full((2,), -7, dtype=torch.int32, device=dev)
+    m2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    r1, n1 = kernels.session_update(*s1, *args, G=G, marks=m1)
+    r2, n2 = kernels.session_update_plain(*s2, *args, G=G, marks=m2)
+    n = int(n2)
+    err = float(int(n1) != n) + max_abs_err(m1, m2)
+    if int(n1) == n:
+        err += max_abs_err([r[:n] for r in r1] + s1,
+                           [r[:n] for r in r2] + s2)
+    s3 = [x.clone() for x in state0]
+
+    def run():
+        for x, x0 in zip(s3, state0):
+            x.copy_(x0)
+        m = torch.zeros(2, dtype=torch.int32, device=dev)
+        r, nr = kernels.session_update(*s3, *args, G=G, marks=m)
+        return [x[:int(nr)] for x in r] + [nr, m] + [x.clone() for x in s3]
+
+    return run, err, n
+
+
+def fire_session_edge_checks(dev) -> dict:
+    """G4 and G11 on the shapes their new designs make risky, at card
+    sizes, against their plain versions (counts, integer sums, rows,
+    marks and state bit for bit; random float sums at rtol 1e-5, and bit
+    for bit across two runs): G4 over C at its tiles ± 1 and ± 2 and at the
+    north star's 2^20, due and quiet lanes mixed over F = 5, every lane
+    quiet, k = 5 with missing panes, W = 1, 2, 3 and 16, min, max and add,
+    re-fire lanes past n_ontime, random floats; G11 with one key over many
+    scan tiles, sessions cut at tile edges, B = 0, int32-wrapping ticks, a
+    watermark that closes nothing and one that closes every slot, marks
+    given. The tile edges are those of the read path each C takes, as
+    the library reports them (``fire_reduced_tile``). Then calls A, B, A on
+    one scratch for each (a stale tag would show), and the device
+    operations of a call, counted in a CUDA graph of it (graph_ops): G4
+    one kernel, G11 at most three kernels, neither a fill nor a copy."""
+    def tile(W, C, fresh=False):
+        return kernels.build().fire_reduced_tile(W, C, int(fresh))
+
+    g4 = []
+    T, Tc = tile(1, 2), tile(1, 3)     # W = 1: even C, odd C
+    for C in (T - 2, T + 2, 3 * T + 2, Tc - 1, Tc + 1, 3 * Tc + 1,
+              EDGE_C_CARD, EDGE_C_CARD + 3):
+        g4.append((f"W1 C={C}", dict(C=C, W=1)))
+    g4 += [("W1 F=5 TFTFT", dict(C=EDGE_C_CARD, W=1, lanes="TFTFT")),
+           ("W1 F=5 FFFFT", dict(C=EDGE_C_CARD, W=1, lanes="FFFFT")),
+           ("W1 all quiet", dict(C=EDGE_C_CARD, W=1, lanes="FFF")),
+           ("W1 k=5 missing panes", dict(C=EDGE_C_CARD, W=1, k=5,
+                                         missing=(3, 5))),
+           ("W1 k=5 max missing", dict(C=EDGE_C_CARD + 2, W=1, k=5,
+                                       op="max", missing=(4,))),
+           ("W1 min", dict(C=EDGE_C_CARD, W=1, op="min")),
+           ("W1 fresh F=4", dict(C=EDGE_C_CARD, W=1, lanes="TTTT",
+                                 fresh_from=2)),
+           ("W1 fresh odd C", dict(C=EDGE_C_CARD + 1, W=1, lanes="TFTT",
+                                   fresh_from=2)),
+           ("W1 fresh C=2 mod 4", dict(C=EDGE_C_CARD + 2, W=1, lanes="TTTT",
+                                       fresh_from=1))]
+    # W = 2: C a multiple of 4 and not; W = 3
+    for W, C0, step in ((2, 4, 4), (2, 5, 1), (3, 4, 1)):
+        t = tile(W, C0)
+        for C in (t - step, t + step, 3 * t + 2 * step):
+            g4.append((f"W{W} C={C}", dict(C=C, W=W)))
+        if C0 == 5 or W == 3:
+            g4.append((f"W{W} C={EDGE_C_CARD + 1}",
+                       dict(C=EDGE_C_CARD + 1, W=W)))
+    g4 += [("W2 k=5 missing min", dict(C=EDGE_C_CARD, W=2, k=5, op="min",
+                                       missing=(2,))),
+           ("W2 fresh", dict(C=EDGE_C_CARD, W=2, lanes="TTFT",
+                             fresh_from=2)),
+           ("W3 max F=5", dict(C=EDGE_C_CARD, W=3, op="max",
+                               lanes="FTFTT")),
+           ("W16 k=3", dict(C=(1 << 14) + 1, W=16, k=3)),
+           ("W1 floats", dict(C=EDGE_C_CARD, W=1, floats=True)),
+           ("W2 floats", dict(C=EDGE_C_CARD, W=2, floats=True))]
+    bits, rel = 0.0, 0.0
+    for i, (label, kw) in enumerate(g4):
+        _run, b, r, _ = g4_edge(dev, seed=i, **kw)
+        check(b == 0.0 and r <= 1e-5,
+              f"fire_reduced ({label}) disagrees with its plain version: {b} "
+              f"elements differ, lane sums rel err {r}")
+        bits, rel = max(bits, b), max(rel, r)
+    # float sums in block order: two runs bit-equal
+    run_f, _b, _r, (c_f, v_f) = g4_edge(dev, EDGE_C_CARD, 1, floats=True,
+                                        seed=77)
+    v_again = run_f()[1]
+    check(torch.equal(v_f, v_again),
+          f"fire_reduced: float sums differ across runs {v_f} {v_again}")
+    # A, B, A on one scratch
+    run_a, b_a, _, (c_a, v_a) = g4_edge(dev, EDGE_C_CARD, 1, seed=100)
+    first = [c_a.clone(), v_a.clone()]
+    _run_b, b_b, r_b, _ = g4_edge(dev, EDGE_C_CARD + 2, 2, lanes="TFTTF",
+                                  seed=101)
+    g4_again = bits_err(first, list(run_a()))
+    check(b_a == b_b == 0.0 and r_b <= 1e-5 and g4_again == 0.0,
+          f"fire_reduced: two calls on one scratch disagree ({b_a}, {b_b}, "
+          f"{g4_again} elements)")
+    # the device operations of a call, on each read path
+    quiet_args, quiet_kw = g4_edge_inputs(dev, EDGE_C_CARD, 1, "FF")
+    g4_ops = {"quiet": graph_ops(dev, lambda: kernels.fire_reduced(
+        *quiet_args, **quiet_kw))}
+    for label, kw in (("W1", dict(C=EDGE_C_CARD, W=1)),
+                      ("W1 odd C", dict(C=EDGE_C_CARD + 1, W=1)),
+                      ("W1 k=5", dict(C=EDGE_C_CARD, W=1, k=5)),
+                      ("W2", dict(C=EDGE_C_CARD, W=2)),
+                      ("W2 odd C", dict(C=EDGE_C_CARD + 1, W=2)),
+                      ("W3", dict(C=EDGE_C_CARD, W=3))):
+        a, fkw = g4_edge_inputs(dev, lanes="TF", **kw)
+        g4_ops[label] = graph_ops(
+            dev, lambda a=a, fkw=fkw: kernels.fire_reduced(*a, **fkw))
+    for label, ops in g4_ops.items():
+        check(ops == {"kernel": 1, "memset": 0, "memcpy": 0, "other": 0},
+              f"fire_reduced ({label}): not one kernel a call: {ops}")
+
+    C, B = KEYED_CAPACITY, G11_EDGE_B
+    g11 = ("random", "one key over many tiles", "cuts at tile edges",
+           "wrapping ticks", "closes nothing", "closes every slot")
+    errs, rows = {}, {}
+    for i, name in enumerate(g11):
+        state0, table, lanes, wm = g11_edge_case(dev, name, C, B, 50 + i)
+        _run, err, n = g11_call(dev, C, state0, table, lanes, wm)
+        check(err == 0.0, f"session_update ({name}) disagrees with its "
+                          f"plain version: {err} elements differ")
+        errs[name], rows[name] = err, n
+        del state0, table, lanes
+    # B = 0: the closes alone
+    rng = np.random.default_rng(60)
+    state0, table = g11_state(dev, C, rng)
+    empty = g11_lanes(dev, rng, np.zeros(0, np.int64), np.zeros(0, np.int64))
+    for label, wm in (("B=0", 40_000), ("B=0 closes nothing", -5)):
+        _run, err, n = g11_call(dev, C, state0, table, empty, wm)
+        check(err == 0.0, f"session_update ({label}) disagrees with its "
+                          f"plain version: {err} elements differ")
+        errs[label], rows[label] = err, n
+    # A, B, A on one scratch
+    sa, ta, la, wa = g11_edge_case(dev, "random", C, B, 90)
+    run_a, e_a, _ = g11_call(dev, C, sa, ta, la, wa)
+    first = [x.clone() for x in run_a()]
+    sb, tb, lb, wb = g11_edge_case(dev, "one key over many tiles", C // 4,
+                                   B // 2, 91)
+    _run_b, e_b, _ = g11_call(dev, C // 4, sb, tb, lb, wb)
+    again = max_abs_err(first, run_a())
+    check(e_a == e_b == 0.0 and again == 0.0,
+          f"session_update: two calls on one scratch disagree ({e_a}, "
+          f"{e_b}, {again})")
+    st = [x.clone() for x in sa]
+    order, key_s, _ss = segment.sort_slot_ts(la[0], la[1], la[2], C)
+    g11_args = (ta, torch.tensor(wa, dtype=torch.int32, device=dev), order,
+                key_s, *la[3:])
+    marks = torch.zeros(2, dtype=torch.int32, device=dev)
+    g11_ops = graph_ops(dev, lambda: kernels.session_update(
+        *st, *g11_args, G=SESSION_GAP_MS, marks=marks))
+    check(1 <= g11_ops["kernel"] <= 3 and g11_ops["memset"] == 0
+          and g11_ops["memcpy"] == 0 and g11_ops["other"] == 0,
+          f"session_update: more than three device operations, or a copy "
+          f"or fill: {g11_ops}")
+    return {
+        "fire_reduced": {"edges": {
+            "cases": len(g4) + 3, "max_abs_err": bits, "max_rel_err": rel,
+            "scratch_twice_err": g4_again,
+            "shapes": [label for label, _ in g4],
+            "graph_ops": g4_ops}},
+        "session_update": {"edges": {
+            "cases": len(errs) + 2, "errs": errs, "rows": rows,
+            "scratch_twice_err": again, "graph_ops": g11_ops}},
+    }
+
+
+def stress_checks(dev, rounds: int) -> None:
+    """``--stress N``: every check phase 3 makes of G4 and G11, N times over
+    in one process (fire_session_edge_checks; G4's north-star cases and its
+    max k = 5, W = 2 and fresh cases; G11's sessions-job and DCN cases),
+    then fire_session_op_split once: a fault that shows only now and then
+    fails one of the rounds. A "stress" line a round, a "stress_split"
+    line at the end."""
+    main_state = session_state_at(dev, KEYED_CAPACITY, BATCH,
+                                  SESSION_WARM_BATCHES)
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        edges = fire_session_edge_checks(dev)
+        for kind in ("main", "edge"):
+            c = case_fire_reduced(dev, N_KEYS, RING_PANES, FIRES_PER_STEP,
+                                  kind)
+            err = max_abs_err(c["got"], c["want"])
+            check(err == 0.0, f"fire_reduced ({kind}) disagrees with its "
+                              f"plain version: {err}")
+            for shape in ("maxprice", "mean", "fresh"):
+                c = case_fire_reduce(dev, kind, shape, False)
+                check(c["err"] == 0.0 and c["float_rel"] <= 1e-5,
+                      f"fire_reduced ({shape}, {kind}) disagrees with its "
+                      f"plain version: {c['err']}, {c['float_rel']}")
+            c = case_session_update(dev, KEYED_CAPACITY, BATCH, kind,
+                                    main_state)
+            err = max_abs_err(c["got"], c["want"])
+            check(err == 0.0, f"session_update ({kind}) disagrees with its "
+                              f"plain version: {err}")
+            c = case_session_update_dcn(dev, kind)
+            check(c["err"] == 0.0, f"session_update (DCN, {kind}) disagrees "
+                                   f"with its plain version: {c['err']}")
+            del c
+        _FIRE_SETUPS.clear()
+        emit({"phase": "stress", "round": r,
+              "seconds": time.perf_counter() - t0,
+              "g4_cases": edges["fire_reduced"]["edges"]["cases"] + 8,
+              "g11_cases": edges["session_update"]["edges"]["cases"] + 4,
+              "graph_ops": {"fire_reduced": edges["fire_reduced"]["edges"][
+                  "graph_ops"]["W1"], "session_update": edges[
+                  "session_update"]["edges"]["graph_ops"]}})
+    emit({"phase": "stress_split", "calls": fire_session_op_split(dev)})
 
 
 def session_keys(rng, n, C, ticks, dead=0.05):
@@ -4271,13 +4739,21 @@ def case_fire_reduce(dev, kind, shape, compact):
     # the lane sums add in another order on the card: rtol 1e-5
     rel = float(((v1.double() - v2.double()).abs()
                  / v2.double().abs().clamp_min(1.0)).max())
-    n_present = sum(int(pane_ids[(int(e) - j) % R]) == int(e) - j
-                    for e, o in zip(p_f.tolist(), lane_ok.tolist()) if o
-                    for j in range(k))
+    present = [(int(e) - j) % R
+               for e, o in zip(p_f.tolist(), lane_ok.tolist()) if o
+               for j in range(k) if int(pane_ids[(int(e) - j) % R])
+               == int(e) - j]
+    n_present = len(present)
     n_rows = int(c2.sum())
+    rows = torch.tensor(present, dtype=torch.long, device=dev)
+    a3 = acc.view(R, C, W + 1)
     return {
         "err": bits_err(got, want), "float_rel": rel,
         "run": run, "plain": plain, "library": None,
+        # a yardstick for G4's read, a part only: one Tensor.sum over the
+        # present rows (gathered outside the timer)
+        "yardsticks": {} if compact else {
+            "read_sum": (lambda g=a3[rows]: g.sum())},
         # each present row of each due lane read once (and its fresh
         # bytes for a re-fire lane), the emitted rows written
         "bytes": n_present * C * 4 * (W + 1)
@@ -10005,6 +10481,9 @@ def main(argv) -> int:
     emit({"phase": "build", "seconds": t1 - t0,
           "spill_store_seconds": time.perf_counter() - t1})
     lap("2_build")
+    if "--stress" in argv:
+        stress_checks(dev, int(argv[argv.index("--stress") + 1]))
+        return 0
     recs = part("3_kernels/G1-G9", lambda: kernel_phase(
         dev, N_KEYS, RING_PANES, BATCH, FIRES_PER_STEP, MAX_PARALLELISM,
         WINDOW_MS))
@@ -10021,6 +10500,13 @@ def main(argv) -> int:
         "remove_slots", lambda k: case_remove_slots(dev, k), True))
     recs.update(part("3_kernels/keyed", lambda: keyed_kernel_phase(
         dev, KEYED_CAPACITY, BATCH)))
+    for name, rec in part("3_kernels/fire_session_edges",
+                          lambda: fire_session_edge_checks(dev)).items():
+        recs[name].update(rec)
+    fs_split = part("3_kernels/fire_session_split",
+                    lambda: fire_session_op_split(dev))
+    emit({"phase": "fire_session_split", "device": smi, "calls": fs_split})
+    recs["fire_reduced"]["quiet_ms"] = fs_split["fire_reduced quiet"]["ms"]
     sk_recs = part("3_kernels/sketch", lambda: sketch_kernel_phase(dev))
     for name in ("sketch_update", "sketch_fire"):
         recs[name] = dict(sk_recs[name]["distinct"],
@@ -10525,6 +11011,10 @@ def main(argv) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": "bytes", "library_ms": r["library_ms"],
+        **({"quiet_ms": r["quiet_ms"],
+            "yardstick_ms": r["read_sum_ms"],
+            "yardstick": "a part only: one Tensor.sum over the due row's "
+                         "[C, 2] plane"} if name == "fire_reduced" else {}),
     } for name, r in recs.items()]
     fill = recs["route_lanes"]["kg_fill"]
     line[0]["kg_fill"] = {

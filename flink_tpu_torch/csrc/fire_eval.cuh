@@ -21,7 +21,8 @@
 // bytes and values [F, C, W] (the generic reduce's fire, whose combine is
 // the user's torch function), for the compaction alone.
 //
-// eval_rounds (G6's single pass) evaluates one thread's slots of a tile:
+// eval_rounds (G6's single pass, G4's path for an odd C or an unaligned
+// plane) evaluates one thread's slots of a tile:
 // kRounds rounds of kSpt neighbouring slots, c0 + r * step + s, with the
 // pane loop outside the rounds so that a thread keeps kRounds loads in
 // flight. kSpt = 2 reads a W = 1 plane's two cells as one float4 (C even,
@@ -69,39 +70,6 @@ struct PlaneSrc : PlaneArgs {
   // every thread of the block calls it (it syncs)
   __device__ __forceinline__ void prepare(int f, int32_t* rows) const {
     window_rows(pane_ids, p_f[f], R, k, rows);
-  }
-
-  __device__ __forceinline__ bool eval(int f, const int32_t* rows, int c,
-                                       float* v) const {
-    const int nw = W();
-    const bool late = fresh != nullptr && f >= n_ontime;
-#pragma unroll
-    for (int w = 0; w < (kW ? kW : kMaxW); ++w) {
-      if (w < nw) v[w] = neutral;
-    }
-    bool emit = false;
-    for (int j = 0; j < k; ++j) {
-      const int32_t row = rows[j];
-      if (row < 0) continue;
-      const size_t cell = static_cast<size_t>(row) * C + c;
-      float t;
-      if (kW == 1) {
-        const float2 a = reinterpret_cast<const float2*>(acc)[cell];
-        t = a.y;
-        if (t != neutral) v[0] = combine_op(kOp, v[0], a.x);
-      } else {
-        const float* a = acc + cell * (nw + 1);
-        t = a[nw];
-        if (t != neutral) {
-#pragma unroll
-          for (int w = 0; w < (kW ? kW : kMaxW); ++w) {
-            if (w < nw) v[w] = combine_op(kOp, v[w], a[w]);
-          }
-        }
-      }
-      emit |= late ? fresh[cell] != 0 : t != neutral;
-    }
-    return emit;
   }
 
   template <int kSpt, int kRounds, int kNV>

@@ -3,9 +3,9 @@
 // the touched rows of keys that find no slot in the rebuilt table through
 // the same RingOut with the same semantics, as the reference shares
 // ops/window_kernels.py ring_append between the two so that their
-// lost-record accounting cannot diverge. G11 session_update.cu and G12
-// count_update.cu compact their fire rows with it too, into row buffers of
-// their own (the Out type).
+// lost-record accounting cannot diverge. G12 count_update.cu compacts its
+// fire rows with it too, into row buffers of its own (the Out type); a
+// single-pass compaction with decoupled look-back is lookback.cuh's (G11).
 //
 // Semantics (window_kernels.py:222): the lanes i < n with take(i), in lane
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions

@@ -29,7 +29,7 @@
 // power of two. The batch scalars (late lanes, max and min live pane, valid
 // lanes) reduce in registers, by warp reductions and once through shared
 // memory; each block stores its four in its own slot of a scratch cached
-// per device and stream (ops/cuda.py _route_scratch) and takes a ticket
+// per device and stream (ops/cuda.py _stream_scratch) and takes a ticket
 // from a counter. The block that draws the last ticket folds the slots into
 // ``stats``, a thread a slot, and resets the counter for the next call, so
 // no host code touches the scratch between calls and no word takes more

@@ -26,7 +26,11 @@ what its design does about that:
                          max), the lateness fresh marking: one grid-stride
                          launch of 4-lane groups, add one vector reduction
                          a cell where aligned
-  G4 ``fire_reduced``    window evaluation reduced to per-lane scalars
+  G4 ``fire_reduced``    window evaluation reduced to per-lane scalars:
+                         one launch a call, no fill, a grid sized to the
+                         card walking (due lane, tile) items with 16-byte
+                         loads, the blocks' sums folded in block order by
+                         the last block
   G5 ``hash_upsert``     probe_hash + insert-or-find in the hash layout:
                          one cooperative launch, whole-chain lookups, then
                          CAS claims only in blocks with a lane to claim
@@ -41,7 +45,10 @@ what its design does about that:
   G10 ``segment_sort``   stable radix sort of lanes by slot (or slot, tick):
                          one cooperative launch, onesweep passes over the
                          digits that vary, decoupled look-back
-  G11 ``session_update`` session cuts, merges, fires and watermark close
+  G11 ``session_update`` session cuts, merges, fires and watermark close:
+                         two launches a call, a single-pass scan with
+                         decoupled look-back, then a close sweep launched
+                         while the scan runs
   G12 ``count_update``   count windows: positions, window reduce, fires
   G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
   G14 ``sketch_update``  Count-Min / HyperLogLog register scatter (add, max)
@@ -83,9 +90,10 @@ combine is the user's torch function; it runs as torch ops between G16's
 two launches and in the fire before G6's ``fire_pack``: the one path with
 no hand kernel for its combine.
 
-G11-G13 share one segmented scan (``csrc/segscan.cuh``), G7, G11 and G12
+G12 and G13 share one segmented scan (``csrc/segscan.cuh``), G7 and G12
 one stable row compaction (``csrc/ring.cuh``, whose order G9's export
-keeps), and G5, G8 and G9 one probe walk (``csrc/hash_probe.cuh``).
+keeps), and G5, G8 and G9 one probe walk (``csrc/hash_probe.cuh``); G11
+compacts in one pass with a device-tagged look-back (``csrc/lookback.cuh``).
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -161,7 +169,9 @@ _SIGNATURES = {
     "scatter_update": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _P, _P, _P, _P],
     "fire_reduced": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P,
-                     _P, _P],
+                     _P, _P, _L, _P],
+    "fire_reduced_scratch_words": [_I],
+    "fire_reduced_tile": [_I, _I, _I],
     "hash_upsert": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fire_compact": [_P, _I, _I, _F, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                      _P, _P, _I, _UI, _P, _P, _P, _P, _P, _P],
@@ -177,8 +187,8 @@ _SIGNATURES = {
     "segment_sort_tile": [],
     "segment_sort_state_words": [],
     "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "session_scratch_bytes": [_I, _I],
     "count_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "rolling_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -208,7 +218,9 @@ _SIGNATURES = {
     "remove_slots": [_P, _L, _P, _I, _P, _I, _P],
 }
 # the entry points that return something other than a CUDA error code
-_RESTYPES = {"scatter_ids_scratch": ctypes.c_longlong}
+_RESTYPES = {"scatter_ids_scratch": ctypes.c_longlong,
+             "fire_reduced_scratch_words": ctypes.c_longlong,
+             "session_scratch_bytes": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -326,6 +338,27 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+_STREAM_SCRATCH = {}
+_scratch_lock = threading.RLock()
+
+
+def _stream_scratch(name: str, words: int, dev, layout=None) -> torch.Tensor:
+    """The scratch of kernel ``name`` on this device and the current
+    stream: int64 [>= words], zeroed when it is allocated, which is again
+    (zeroed, and at least as large) when a call asks for more words or
+    another ``layout``. A kernel leaves its scratch ready for its next call
+    on the stream, so its words carry state from call to call (a count of
+    calls, a ticket): a zeroed word is one that no call has written."""
+    key = (name, dev, torch.cuda.current_stream(dev).cuda_stream)
+    with _scratch_lock:
+        got = _STREAM_SCRATCH.get(key)
+        if got is None or got[0].numel() < words or got[1] != layout:
+            n = words if got is None else max(words, got[0].numel())
+            got = _STREAM_SCRATCH[key] = (
+                torch.zeros(n, dtype=torch.int64, device=dev), layout)
+    return got[0]
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc:
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
@@ -412,26 +445,6 @@ def route_lanes_plain(hi, lo, ts, valid, watermark, purged_through, *,
     return pane, kg, live, stats
 
 
-_ROUTE_SCRATCH = {}
-_route_lock = threading.Lock()
-
-
-def _route_scratch(dev) -> torch.Tensor:
-    """G1's scratch on this device and stream: a slot for each block's
-    four batch scalars, each word tagged with the call's number, the ticket
-    counter the last block resets and the count of calls it advances;
-    zeroed once, the kernel leaves it ready for the next call on the
-    stream."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with _route_lock:
-        sc = _ROUTE_SCRATCH.get((dev, stream))
-        if sc is None:
-            sc = _ROUTE_SCRATCH[(dev, stream)] = torch.zeros(
-                build().route_lanes_scratch_words(), dtype=torch.int32,
-                device=dev)
-    return sc
-
-
 def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
                 k: int, maxp: int, kg_start: int, kg_end: int, L: int = 0,
                 fill=None, res=None):
@@ -464,7 +477,9 @@ def route_lanes(hi, lo, ts, valid, watermark, purged_through, *, slide: int,
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(valid), B, _ptr(watermark),
         _ptr(purged_through), slide, k, L, maxp, kg_start, kg_end,
         _ptr(pane), _ptr(kg), _ptr(live), _ptr(stats), _ptr(fill),
-        _ptr(res), _ptr(cold), _ptr(_route_scratch(dev)), _stream())
+        _ptr(res), _ptr(cold), _ptr(_stream_scratch(
+            "route_lanes", -(-build().route_lanes_scratch_words() // 2),
+            dev)), _stream())
     _raise_on(rc, "route_lanes")
     route_lanes.launches += 1
     if fill is not None:
@@ -780,7 +795,10 @@ def _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, *, C, R, k):
 def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int, k: int,
                  op: str = "add", neutral=0.0, fresh=None,
                  n_ontime=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G4: see fire_reduced_plain for the contract."""
+    """G4: see fire_reduced_plain for the contract. One launch a call and
+    no fill: the kernel writes every lane of the outputs (0 for a lane not
+    due), and its blocks' partial sums are folded in block order by the
+    block that finishes last, so two runs on one input give equal sums."""
     if _on_cpu(acc):
         return fire_reduced_plain(acc, pane_ids, p_f, lane_ok, C=C, R=R, k=k,
                                   op=op, neutral=neutral, fresh=fresh,
@@ -788,12 +806,17 @@ def fire_reduced(acc, pane_ids, p_f, lane_ok, *, C: int, R: int, k: int,
     dev = acc.device
     F, W = _check_fire(acc, pane_ids, p_f, lane_ok, fresh, n_ontime, C=C,
                        R=R, k=k)
-    counts = torch.zeros(F, dtype=torch.int32, device=dev)
-    vsums = torch.zeros(F, dtype=torch.float32, device=dev)
+    counts = torch.empty(F, dtype=torch.int32, device=dev)
+    vsums = torch.empty(F, dtype=torch.float32, device=dev)
+    # the ticket and the count of calls, then each block's tagged (count,
+    # sum) words for each lane: every word tagged, so any F's layout
+    sc = _stream_scratch("fire_reduced",
+                         build().fire_reduced_scratch_words(F), dev)
     rc = build().fire_reduced(
         _ptr(acc), W, OPS[op], float(neutral), _ptr(fresh),
         F if fresh is None else n_ontime, _ptr(pane_ids), _ptr(p_f),
-        _ptr(lane_ok), C, R, k, F, _ptr(counts), _ptr(vsums), _stream())
+        _ptr(lane_ok), C, R, k, F, _ptr(counts), _ptr(vsums), _ptr(sc),
+        sc.numel(), _stream())
     _raise_on(rc, "fire_reduced")
     fire_reduced.launches += 1
     return counts, vsums
@@ -867,22 +890,13 @@ def hash_upsert_plain(table, hi, lo, valid, *, probe_len: int):
 
 
 TABLE_SCRATCH_WORDS = 4   # csrc/hash_probe.cuh TableScratch, int64 words
-_TABLE_SCRATCH = {}
-_table_lock = threading.Lock()
 
 
 def _table_scratch(dev) -> torch.Tensor:
-    """G5's, G8's and G9's scratch on this device and stream (TableScratch:
-    G5's arrival and claim fold words, G8's fold word, G9's count of failed
-    keys); zeroed once, each call leaves it zeroed for the next call on the
-    stream."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with _table_lock:
-        sc = _TABLE_SCRATCH.get((dev, stream))
-        if sc is None:
-            sc = _TABLE_SCRATCH[(dev, stream)] = torch.zeros(
-                TABLE_SCRATCH_WORDS, dtype=torch.int64, device=dev)
-    return sc
+    """G5's, G8's and G9's scratch (TableScratch: G5's arrival and claim
+    fold words, G8's fold word, G9's count of failed keys); each call
+    leaves it zeroed."""
+    return _stream_scratch("table", TABLE_SCRATCH_WORDS, dev)
 
 
 def hash_upsert(table, hi, lo, valid, *, probe_len: int):
@@ -1091,7 +1105,7 @@ fire_pack.launches = 0
 
 # ------------------------------------------------------------ G7
 
-RING_CHUNK = 1024   # lanes a block of G7's, G11's, G12's ring scan (ring.cuh)
+RING_CHUNK = 1024   # lanes a block of G7's and G12's ring scan (ring.cuh)
 
 
 def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
@@ -1332,7 +1346,7 @@ SORT_BINS = 256        # G10's digit bins: status words a tile
 # grid barrier's count and its generation
 SORT_STATE_WORDS = 2 * 8 * SORT_BINS + 3 * 32
 SCAN_CHUNK = 1024      # lanes per block of the segmented scan (segscan.cuh)
-SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G11-G13 scan
+SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G12 and G13 scan
 
 
 def segment_sort_plain(key, *, bits: int, seg_shift: int):
@@ -1633,15 +1647,16 @@ count_update.launches = 0
 
 # ------------------------------------------------------------ G11
 
-def session_rows(cap: int, dev):
+def session_rows(cap: int, dev, zeroed: bool = True):
     """Fire row buffers of a session step: (key hi, key lo, start tick,
     end tick, value) [cap] each, only their ``[:n_rows]`` prefix written,
-    and the row count int32 0-d, 0."""
+    and the row count int32 0-d: 0, or left for G11 to write when not
+    ``zeroed``."""
     i32 = dict(dtype=torch.int32, device=dev)
+    n_rows = torch.zeros((), **i32) if zeroed else torch.empty((), **i32)
     return ((torch.empty(cap, **i32), torch.empty(cap, **i32),
              torch.empty(cap, **i32), torch.empty(cap, **i32),
-             torch.empty(cap, dtype=torch.float32, device=dev)),
-            torch.zeros((), **i32))
+             torch.empty(cap, dtype=torch.float32, device=dev)), n_rows)
 
 
 def session_key_ts(key_s):
@@ -1715,9 +1730,32 @@ def session_update_plain(start, last, acc, active, table, wm, order, key_s,
     return rows, n_rows
 
 
+_SESSION_CAPS = {}
+
+
+def _session_scratch(B: int, C: int, dev):
+    """G11's scratch (``_stream_scratch``) and the lanes and slots its
+    layout holds: the count of calls whose next value tags the look-back
+    words, the batch's old and mid fire totals, the scan and sweep tiles'
+    status words, where each sweep tile's lanes begin, and the lanes'
+    merged sessions, fire flags and mid ranks. The layout follows these
+    capacities, which only grow, so that a status word never sits where an
+    earlier call left an untagged one. Returns (scratch, lanes, slots)."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    with _scratch_lock:
+        B_cap, C_cap = _SESSION_CAPS.get(key, (0, 0))
+        B_cap, C_cap = _SESSION_CAPS[key] = max(B, B_cap), max(C, C_cap)
+        n = build().session_scratch_bytes(B_cap, C_cap)
+        return (_stream_scratch("session_update", -(-n // 8), dev,
+                                layout=(B_cap, C_cap)), B_cap, C_cap)
+
+
 def session_update(start, last, acc, active, table, wm, order, key_s, hi,
                    lo, values, *, G: int, marks=None):
-    """G11: see session_update_plain for the contract."""
+    """G11: see session_update_plain for the contract. Two launches a call,
+    no copy and no fill: a single-pass scan that writes the old rows, then
+    the write-back, the mid rows and the watermark close, which writes
+    ``n_rows`` and ``marks``."""
     if G < 0:
         raise ValueError(f"session gap must be >= 0, got {G}")
     if _on_cpu(start):
@@ -1743,19 +1781,13 @@ def session_update(start, last, acc, active, table, wm, order, key_s, hi,
     O = 2 * B + C
     if O > INT32_MAX:
         raise ValueError(f"{O} session rows overflow int32")
-    rows, n_rows = session_rows(O, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    fl = torch.empty(B, dtype=torch.uint8, device=dev)
-    m_start, m_last = torch.empty(B, **i32), torch.empty(B, **i32)
-    m_acc = torch.empty(B, dtype=torch.float32, device=dev)
-    blk_count, blk_off = _ring_scratch(max(B, C), dev)
+    rows, n_rows = session_rows(O, dev, zeroed=False)
+    sc, B_cap, C_cap = _session_scratch(B, C, dev)
     rc = build().session_update(
-        _ptr(key_s), _ptr(order), _ptr(hi), _ptr(lo), _ptr(values), B, C, G,
-        _ptr(start), _ptr(last), _ptr(acc), _ptr(active), _ptr(table),
-        _ptr(wm), O, *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(fl),
-        _ptr(m_start), _ptr(m_last), _ptr(m_acc),
-        _ptr(_scan_scratch(B, dev)), _ptr(blk_count), _ptr(blk_off),
-        _ptr(torch.zeros((), **i32)), _ptr(marks), _stream())
+        _ptr(key_s), _ptr(order), _ptr(hi), _ptr(lo), _ptr(values), B, C,
+        G, _ptr(start), _ptr(last), _ptr(acc), _ptr(active), _ptr(table),
+        _ptr(wm), *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(marks),
+        _ptr(sc), B_cap, C_cap, _stream())
     _raise_on(rc, "session_update")
     session_update.launches += 1
     return rows, n_rows
