@@ -54,7 +54,22 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 with its device time (the fire_session_split line); a
                 "table_split" line gives each device operation of G5, G8 and
                 G9 at their main shapes (and G5 cold, G5 and G8 on absent
-                keys) with its device time. A "hash_table" line says how
+                keys) with its device time. After the DCN shapes,
+                ``ring_exchange_edge_checks`` holds G7 and G26 at the
+                shapes their single launches make risky (G7: B = 0, 1,
+                one lane either side of a 2,048-lane tile edge, a taken
+                lane at each end of 40 tiles, a ring that fills exactly,
+                one full on entry, one that fills mid-tile, every lane
+                masked and none, an unaligned mask, W = 1, 2 and a
+                count; G26: n = 1, 2, 4, 8, 256, a maxp no power of two,
+                cap = 8, one key, no valid lane, W = 2, a ragged batch,
+                B = 0, 1 and 2^20), calls A, B, A on one scratch and
+                counts each call's device operations in a CUDA graph
+                (one kernel, no fill or copy); ``ring_exchange_op_split``
+                gives each device operation of G7 (main, W = 2, no lane
+                masked) and G26 (the north star's and the DCN window
+                job's slices) with its device time (the
+                ring_exchange_split line). A "hash_table" line says how
                 deep the sparse job's 1M keys sit in their probe chains once
                 all have arrived. Times kernel, plain version and, where one
                 PyTorch call computes the same function, that call, with
@@ -625,9 +640,9 @@ also appends every JSON line to PATH.
 
     python3 chip_smoke.py --stress N
 
-builds the kernels, then runs every phase-3 check of G4 and G11 N times
-over (a "stress" line a round) and their operation split once, and stops:
-no other phase and no contract line.
+builds the kernels, then runs every phase-3 check of G4, G11, G7 and
+G26 N times over (a "stress" line a round) and their operation splits
+once, and stops: no other phase and no contract line.
 """
 
 import ctypes
@@ -2734,10 +2749,12 @@ def fire_session_edge_checks(dev) -> dict:
 
 
 def stress_checks(dev, rounds: int) -> None:
-    """``--stress N``: every check phase 3 makes of G4 and G11, N times over
-    in one process (fire_session_edge_checks; G4's north-star cases and its
-    max k = 5, W = 2 and fresh cases; G11's sessions-job and DCN cases),
-    then fire_session_op_split once: a fault that shows only now and then
+    """``--stress N``: every check phase 3 makes of G4, G11, G7 and G26, N
+    times over in one process (fire_session_edge_checks; G4's north-star
+    cases and its max k = 5, W = 2 and fresh cases; G11's sessions-job and
+    DCN cases; ring_exchange_edge_checks; G7's main and mean cases, G26's
+    north-star and DCN slices), then fire_session_op_split and
+    ring_exchange_op_split once: a fault that shows only now and then
     fails one of the rounds. A "stress" line a round, a "stress_split"
     line at the end."""
     main_state = session_state_at(dev, KEYED_CAPACITY, BATCH,
@@ -2764,16 +2781,282 @@ def stress_checks(dev, rounds: int) -> None:
             c = case_session_update_dcn(dev, kind)
             check(c["err"] == 0.0, f"session_update (DCN, {kind}) disagrees "
                                    f"with its plain version: {c['err']}")
+            c = case_ring_append(dev, BATCH, kind)
+            err = max_abs_err(c["got"], c["want"])
+            check(err == 0.0, f"ring_append ({kind}) disagrees with its "
+                              f"plain version: {err}")
+            for name, make in (("ring_append (mean)", case_ring_mean),
+                               ("exchange_pack", case_exchange_pack),
+                               ("exchange_pack (DCN)",
+                                case_exchange_pack_dcn)):
+                c = make(dev, kind)
+                check(c["err"] == 0.0, f"{name} ({kind}) disagrees with its "
+                                       f"plain version: {c['err']}")
             del c
         _FIRE_SETUPS.clear()
+        _DCN_HELD.clear()
+        ring_ex = ring_exchange_edge_checks(dev)
         emit({"phase": "stress", "round": r,
               "seconds": time.perf_counter() - t0,
               "g4_cases": edges["fire_reduced"]["edges"]["cases"] + 8,
               "g11_cases": edges["session_update"]["edges"]["cases"] + 4,
+              "g7_cases": ring_ex["ring_append"]["edges"]["cases"] + 4,
+              "g26_cases": ring_ex["exchange_pack"]["edges"]["cases"] + 4,
               "graph_ops": {"fire_reduced": edges["fire_reduced"]["edges"][
                   "graph_ops"]["W1"], "session_update": edges[
                   "session_update"]["edges"]["graph_ops"]}})
-    emit({"phase": "stress_split", "calls": fire_session_op_split(dev)})
+    emit({"phase": "stress_split", "calls": {
+        **fire_session_op_split(dev), **ring_exchange_op_split(dev)}})
+
+
+# ------------------------------------------ phase 3, G7 and G26 edges
+
+G7_TILE = 2048     # ring_append.cu's tile (ops/cuda.py RING_TILE)
+
+
+def g7_lanes(dev, mask, W, seed):
+    """G7's lane columns for ``mask`` (bool numpy [B]): random key halves,
+    panes and W value columns of small integers (W = 0: a count)."""
+    rng = np.random.default_rng(seed)
+    B = mask.shape[0]
+    hi, lo = (_t(rng.integers(-2**31, 2**31, B), dev, torch.int32)
+              for _ in range(2))
+    pane = _t(rng.integers(-5, 40, B), dev, torch.int32)
+    vals = (None if W == 0 else
+            _t(rng.integers(1, 99, (B, W) if W > 1 else B), dev,
+               torch.float32))
+    return _t(mask, dev, torch.bool), hi, lo, pane, vals
+
+
+def g7_ring(dev, O, fill, W, seed):
+    """An overflow ring of O lanes holding ``fill`` lanes, W value
+    columns (a count's ring holds one)."""
+    ring = list(ring_of(dev, O, fill, seed))
+    if W > 1:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        ring[3] = torch.randint(1, 9, (O, W), generator=g).float().to(dev)
+    return tuple(ring)
+
+
+def g7_call(dev, ring0, lanes):
+    """G7 against its plain version on copies of ``ring0``: (elements of
+    the ring and ``lost`` whose bits differ, the call's outputs)."""
+    r1, r2 = clone_ring(ring0), clone_ring(ring0)
+    l1, l2 = _zero_i32(dev), _zero_i32(dev)
+    kernels.ring_append(r1, l1, *lanes)
+    kernels.ring_append_plain(r2, l2, *lanes)
+    return bits_err(list(r1) + [l1], list(r2) + [l2]), list(r1) + [l1]
+
+
+def g7_edge_cases(B_main=BATCH):
+    """G7's risky shapes: (label, B, O, fill, mask, W), ``mask`` a bool
+    numpy array, over tiles of G7_TILE lanes."""
+    rng = np.random.default_rng(70)
+    T = G7_TILE
+
+    def half(n):
+        return rng.random(n) < 0.5
+
+    cases = [("B=0", 0, 64, 10, np.zeros(0, bool), 1),
+             ("B=1", 1, 64, 10, np.ones(1, bool), 1)]
+    for B in (T - 1, T, T + 1, 3 * T - 1, 3 * T + 1):
+        cases.append((f"B={B}", B, 4 * T, 100, half(B), 1))
+    ends = np.zeros(40 * T, bool)         # each tile's first and last lane
+    ends[::T] = True
+    ends[T - 1::T] = True
+    cases.append(("a lane at each tile end", 40 * T, 100 * T, 7, ends, 1))
+    m = half(5 * T + 77)
+    n = int(m.sum())
+    cases += [("fills exactly", m.shape[0], 1000 + n, 1000, m, 1),
+              ("full on entry", m.shape[0], 5000, 5000, m, 1)]
+    # the ring fills in the middle of tile 3
+    upto = int(m[:3 * T + T // 2].sum())
+    cases.append(("fills mid-tile", m.shape[0], 300 + upto, 300, m, 1))
+    cases += [("every lane masked", B_main, 2 * B_main, 5,
+               np.ones(B_main, bool), 1),
+              ("no lane masked", B_main, 1000, 5, np.zeros(B_main, bool), 1),
+              ("W=2", 7 * T + 5, 8 * T, 11, half(7 * T + 5), 2),
+              ("W=2 fills", 7 * T + 5, 3 * T, 11, half(7 * T + 5), 2),
+              ("count", 7 * T + 5, 8 * T, 11, half(7 * T + 5), 0),
+              ("count fills", 7 * T + 5, 2 * T, 11, half(7 * T + 5), 0)]
+    return cases
+
+
+def g26_lanes(B, seed, W=1, one_key=False, share=1.0):
+    """G26's lane columns (numpy): random 64-bit keys' halves (or one key
+    in every lane), ticks, W value columns, a ``share`` of lanes valid."""
+    rng = np.random.default_rng(seed)
+    keys = (np.full(B, 7, np.int64) if one_key
+            else rng.integers(0, 2**62, B))
+    hi = (keys >> 32).astype(np.uint32)
+    lo = (keys & 0xFFFFFFFF).astype(np.uint32)
+    ts = rng.integers(0, 1 << 20, B).astype(np.int32)
+    vals = rng.integers(1, 99, (B, W) if W > 1 else B).astype(np.float32)
+    return hi, lo, ts, vals, rng.random(B) < share
+
+
+def g26_edge_cases(B=None):
+    """G26's risky shapes: {label: (lanes, n, maxp, cap)}, ``lanes`` the
+    numpy columns of g26_lanes; B one source's slice of a north-star batch
+    by default."""
+    from flink_tpu_torch.parallel.exchange import bucket_capacity
+
+    B = BATCH // SHARDS if B is None else B
+
+    def cap(n, b=B):
+        return bucket_capacity(b, n, 2.0)
+
+    cases = {f"n={n}": (g26_lanes(B, 260 + n), n, MAX_PARALLELISM, cap(n))
+             for n in (1, 2, 4, 8)}
+    cases.update({
+        "n=256 (the most)": (g26_lanes(B, 261), 256, 1 << 15, cap(256)),
+        "n=256, B=1000": (g26_lanes(1000, 262), 256, 1 << 15,
+                          cap(256, 1000)),
+        "maxp=100": (g26_lanes(B, 263), 4, 100, cap(4)),
+        "cap=8": (g26_lanes(B, 264), 4, MAX_PARALLELISM, 8),
+        "one key": (g26_lanes(B, 265, one_key=True), 4, MAX_PARALLELISM,
+                    cap(4)),
+        "no valid lane": (g26_lanes(B, 266, share=0.0), 4, MAX_PARALLELISM,
+                          cap(4)),
+        "W=2": (g26_lanes(B, 267, W=2), 4, MAX_PARALLELISM, cap(4)),
+        "ragged": (g26_lanes(B - 77, 268, share=0.9), 4, MAX_PARALLELISM,
+                   cap(4, B - 77)),
+        "B=0": (g26_lanes(0, 269), 4, MAX_PARALLELISM, 8),
+        "B=1": (g26_lanes(1, 270), 4, MAX_PARALLELISM, 8),
+        "B=2^20": (g26_lanes(1 << 20, 271), 4, MAX_PARALLELISM,
+                   cap(4, 1 << 20)),
+    })
+    return cases
+
+
+def g26_args(dev, hi, lo, ts, vals, valid):
+    return (_i32(hi, dev), _i32(lo, dev), _i32(ts, dev),
+            torch.from_numpy(vals).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def g26_call(dev, args, n, maxp, cap):
+    """G26 against its plain version: (elements of the six outputs whose
+    bits differ, the call's outputs)."""
+    a = kernels.exchange_pack(*args, n=n, maxp=maxp, cap=cap)
+    b = kernels.exchange_pack_plain(*args, n=n, maxp=maxp, cap=cap)
+    return bits_err(list(a), list(b)), list(a)
+
+
+ONE_KERNEL = {"kernel": 1, "memset": 0, "memcpy": 0, "other": 0}
+
+
+def ring_exchange_edge_checks(dev) -> dict:
+    """G7 and G26 on the shapes their single launches make risky, bit for
+    bit against their plain versions: G7 (tiles of 2,048 lanes) at B = 0,
+    1, one lane either side of a tile edge, many tiles with a taken lane
+    at each end, a ring that fills exactly, one full on entry, one that
+    fills mid-tile, every lane masked and none, an unaligned mask (byte
+    loads), W = 1 and 2 and a count; G26 at n = 1, 2, 4, 8 and 256 (also
+    with more shards than blocks), a maxp no power of two, cap = 8, one key
+    in every lane, no valid lane, W = 2, a ragged batch, B = 0 and 1, and
+    2^20 lanes (passes past the registers). Then calls A, B, A on one
+    scratch for each (a stale tag would show), and on the card the device
+    operations of each call, counted in a CUDA graph of it (graph_ops): one
+    kernel, no fill, no copy, on every shape."""
+    on_card = dev.type == "cuda"
+    g7, g7_ops = {}, {}
+    for i, (label, B, O, fill, mask, W) in enumerate(g7_edge_cases()):
+        ring0 = g7_ring(dev, O, fill, W, seed=i)
+        lanes = g7_lanes(dev, mask, W, seed=100 + i)
+        g7[label], _ = g7_call(dev, ring0, lanes)
+        check(g7[label] == 0.0, f"ring_append ({label}) disagrees with its "
+                                f"plain version: {g7[label]} elements differ")
+        if on_card:
+            rt, lt = clone_ring(ring0), _zero_i32(dev)
+            g7_ops[label] = graph_ops(
+                dev, lambda r=rt, l=lt, a=lanes: kernels.ring_append(r, l, *a))
+    # an unaligned mask: a view one byte in, so the tiles read bytes
+    m = np.random.default_rng(71).random(3 * G7_TILE + 9) < 0.5
+    ring0 = g7_ring(dev, 4 * G7_TILE, 20, 1, seed=50)
+    lanes = list(g7_lanes(dev, m, 1, seed=150))
+    lanes[0] = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                          lanes[0]])[1:]
+    g7["unaligned mask"], _ = g7_call(dev, ring0, lanes)
+    check(g7["unaligned mask"] == 0.0,
+          f"ring_append (unaligned mask) disagrees with its plain version: "
+          f"{g7['unaligned mask']} elements differ")
+    # A, B, A on one scratch: many tiles, then few, then many again
+    ra = g7_ring(dev, 60 * G7_TILE, 3, 1, seed=51)
+    la = g7_lanes(dev, np.random.default_rng(72).random(50 * G7_TILE) < 0.3,
+                  1, seed=151)
+    rb = g7_ring(dev, 4 * G7_TILE, 9, 2, seed=52)
+    lb = g7_lanes(dev, np.random.default_rng(73).random(2 * G7_TILE) < 0.6,
+                  2, seed=152)
+    e_a, first = g7_call(dev, ra, la)
+    e_b, _ = g7_call(dev, rb, lb)
+    e_a2, again = g7_call(dev, ra, la)
+    g7_twice = bits_err(first, again)
+    check(e_a == e_b == e_a2 == 0.0 and g7_twice == 0.0,
+          f"ring_append: calls on one scratch disagree ({e_a}, {e_b}, "
+          f"{e_a2}, {g7_twice})")
+    for label, ops in g7_ops.items():
+        check(ops == ONE_KERNEL,
+              f"ring_append ({label}): not one kernel a call: {ops}")
+
+    g26, g26_ops = {}, {}
+    cases = g26_edge_cases()
+    for label, (cols, n, maxp, cap) in cases.items():
+        args = g26_args(dev, *cols)
+        g26[label], _ = g26_call(dev, args, n, maxp, cap)
+        check(g26[label] == 0.0, f"exchange_pack ({label}) disagrees with "
+                                 f"its plain version: {g26[label]} elements "
+                                 f"differ")
+        if on_card:
+            g26_ops[label] = graph_ops(
+                dev, lambda a=args, n=n, m=maxp, c=cap: kernels.exchange_pack(
+                    *a, n=n, maxp=m, cap=c))
+        del args
+    for label, ops in g26_ops.items():
+        check(ops == ONE_KERNEL,
+              f"exchange_pack ({label}): not one kernel a call: {ops}")
+    # A, B, A on one scratch: n = 4, then n = 8 over fewer lanes, n = 4
+    (ca, *ka), (cb, nb, mb, _) = cases["n=4"], cases["n=8"]
+    aa = g26_args(dev, *ca)
+    ab = g26_args(dev, *(x[:5000] for x in cb))
+    e_a, first = g26_call(dev, aa, *ka)
+    e_b, _ = g26_call(dev, ab, nb, mb, 8)
+    e_a2, again = g26_call(dev, aa, *ka)
+    g26_twice = bits_err(first, again)
+    check(e_a == e_b == e_a2 == 0.0 and g26_twice == 0.0,
+          f"exchange_pack: calls on one scratch disagree ({e_a}, {e_b}, "
+          f"{e_a2}, {g26_twice})")
+    return {
+        "ring_append": {"edges": {
+            "cases": len(g7) + 3, "errs": g7, "scratch_twice_err": g7_twice,
+            "graph_ops": g7_ops}},
+        "exchange_pack": {"edges": {
+            "cases": len(g26) + 3, "errs": g26,
+            "scratch_twice_err": g26_twice, "graph_ops": g26_ops}},
+    }
+
+
+def ring_exchange_op_split(dev, reps=8) -> dict:
+    """The device operations of G7 and G26 at their main shapes, each with
+    its device time (op_split) and its graph count (graph_ops), beside the
+    call's time_ms: G7 at its main case (RING_LANES, 1 % of a batch's
+    lanes masked, a count), at mean's W = 2 and with no lane masked; G26
+    at one source's slice of the north star (65,536 lanes, n = 4, cap =
+    32,768) and at the DCN window job's (131,072 lanes, n = 4, cap =
+    65,536)."""
+    ring0 = g7_ring(dev, RING_LANES, 40_000, 0, seed=9)
+    quiet = g7_lanes(dev, np.zeros(BATCH, bool), 0, seed=3)
+    rq, lq = clone_ring(ring0), _zero_i32(dev)
+    runs = {"ring_append main": case_ring_append(dev, BATCH, "main")["run"],
+            "ring_append W = 2": case_ring_mean(dev, "main")["run"],
+            "ring_append no lane masked": lambda: kernels.ring_append(
+                rq, lq, *quiet),
+            "exchange_pack main": case_exchange_pack(dev, "main")["run"],
+            "exchange_pack dcn": case_exchange_pack_dcn(dev, "main")["run"]}
+    out = {}
+    for name, run in runs.items():
+        out[name] = {"ms": time_ms(run), "ops": ops_a_call(dev, [run] * reps),
+                     "graph_ops": graph_ops(dev, run)}
+    return out
 
 
 def session_keys(rng, n, C, ticks, dead=0.05):
@@ -10526,10 +10809,14 @@ def main(argv) -> int:
                      lambda: library_kernel_phase(dev)))
     recs.update(part("3_kernels/shard", lambda: shard_kernel_phase(dev)))
     for name, phase3 in (("sharded_keyed", sharded_keyed_kernel_phase),
-                         ("dcn", dcn_kernel_phase)):
+                         ("dcn", dcn_kernel_phase),
+                         ("ring_exchange_edges", ring_exchange_edge_checks)):
         for kname, rec in part(f"3_kernels/{name}",
                                lambda f=phase3: f(dev)).items():
             recs.setdefault(kname, {}).update(rec)
+    rx_split = part("3_kernels/ring_exchange_split",
+                    lambda: ring_exchange_op_split(dev))
+    emit({"phase": "ring_exchange_split", "device": smi, "calls": rx_split})
     emit({"phase": "kernels", "checks": recs})
     lap("3_kernels")
 

@@ -1,8 +1,8 @@
 // A single-pass stable compaction's tile offsets: decoupled look-back
 // (Merrill and Garland) over status words that carry a tag kept on the
 // device, used by G11 session_update.cu (its old fires and its watermark
-// close); a single-pass form of ring.cuh's three passes that G7's append
-// can take up.
+// close) and G7 ring_append.cu (the single-pass form of ring.cuh's three
+// passes, the ring's base folded into tile 0's prefix).
 //
 // Tiles are blocks in blockIdx order (the card starts lower blocks first,
 // so a tile waits only on tiles that run or ran). A tile publishes its
@@ -24,10 +24,15 @@ constexpr unsigned long long kLbInclusive = 2ull << 30;
 constexpr unsigned long long kLbFlags = 3ull << 30;
 constexpr uint32_t kLbCountMask = (1u << 30) - 1u;
 
-// The call's tag from its scratch's count of calls.
-__device__ __forceinline__ uint32_t lb_tag(const uint32_t* calls) {
-  const uint32_t t = __ldcg(calls) + 1u;
+// The call's tag from its scratch's count of calls (a value read, or the
+// word to read).
+__device__ __forceinline__ uint32_t lb_tag_of(uint32_t calls) {
+  const uint32_t t = calls + 1u;
   return t + (t == 0u ? 1u : 0u);
+}
+
+__device__ __forceinline__ uint32_t lb_tag(const uint32_t* calls) {
+  return lb_tag_of(__ldcg(calls));
 }
 
 __device__ __forceinline__ void lb_publish(unsigned long long* p, uint32_t tag,

@@ -1,11 +1,12 @@
-// Stable append of masked lanes to the overflow ring, used by G7
-// ring_append.cu (the update's nofit lanes). G9 compact_table.cu appends
-// the touched rows of keys that find no slot in the rebuilt table through
-// the same RingOut with the same semantics, as the reference shares
-// ops/window_kernels.py ring_append between the two so that their
-// lost-record accounting cannot diverge. G12 count_update.cu compacts its
-// fire rows with it too, into row buffers of its own (the Out type); a
-// single-pass compaction with decoupled look-back is lookback.cuh's (G11).
+// Stable append of masked lanes to the overflow ring in three passes, used
+// by G9 compact_table.cu: it appends the touched rows of keys that find no
+// slot in the rebuilt table with the semantics of G7 ring_append.cu (the
+// update's nofit lanes), as the reference shares ops/window_kernels.py
+// ring_append between the two so that their lost-record accounting cannot
+// diverge. G12 count_update.cu compacts its fire rows with it too, into
+// row buffers of its own (the Out type). G7 itself takes one pass over
+// tiles with a device-tagged decoupled look-back (lookback.cuh, as G11),
+// in the same lane order; a later redesign of G12 may take that up too.
 //
 // Semantics (window_kernels.py:222): the lanes i < n with take(i), in lane
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions

@@ -36,7 +36,9 @@ what its design does about that:
                          CAS claims only in blocks with a lane to claim
   G6 ``fire_compact``    window evaluation compacted to (key, value) rows;
      ``fire_pack``       the same compaction of a dense fire result
-  G7 ``ring_append``     nofit lanes appended to the overflow ring
+  G7 ``ring_append``     nofit lanes appended to the overflow ring: one
+                         launch a call, a single pass over 2,048-lane
+                         tiles with a device-tagged look-back, no fill
   G8 ``hash_lookup``     the fast step's find-only probe + missing count
                          (G5's walk, the count folded by the last block)
   G9 ``compact_table``   table rebuild around the live keys, state moved:
@@ -78,7 +80,9 @@ what its design does about that:
                          candidates a thread), in one source
                          ``row_argbest.cu``
   G26 ``exchange_pack``  the keyed exchange's bucket step: a source shard's
-                         lanes packed by owning shard at stable ranks
+                         lanes packed by owning shard at stable ranks: one
+                         cooperative launch, the blocks' tagged counts
+                         read by every block as its barrier, no fill
   G27 ``shard_sum``      the cross-shard sum of masked per-lane outputs
                          (the rolling reduce's psum)
   G28 ``remove_slots``   table slots marked empty (the hash layout's point
@@ -90,10 +94,11 @@ combine is the user's torch function; it runs as torch ops between G16's
 two launches and in the fire before G6's ``fire_pack``: the one path with
 no hand kernel for its combine.
 
-G12 and G13 share one segmented scan (``csrc/segscan.cuh``), G7 and G12
-one stable row compaction (``csrc/ring.cuh``, whose order G9's export
-keeps), and G5, G8 and G9 one probe walk (``csrc/hash_probe.cuh``); G11
-compacts in one pass with a device-tagged look-back (``csrc/lookback.cuh``).
+G12 and G13 share one segmented scan (``csrc/segscan.cuh``), G9's export
+and G12 one three-pass stable row compaction (``csrc/ring.cuh``), and G5,
+G8 and G9 one probe walk (``csrc/hash_probe.cuh``); G7 and G11 compact in
+one pass with a device-tagged look-back (``csrc/lookback.cuh``), in the
+same lane order.
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -179,7 +184,7 @@ _SIGNATURES = {
                   _P, _P, _P],
     "fire_compact_tiles": [_I],
     "ring_append": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                    _P, _P, _P],
+                    _P, _P],
     "hash_lookup": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "compact_table": [_P, _I, _F, _P, _P, _I, _I, _I, _I] + [_P] * 14,
     "segment_sort": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _UI,
@@ -214,11 +219,13 @@ _SIGNATURES = {
     "row_argmin": [_P, _I, _I, _P, _P, _P, _P],
     "row_argmax": [_P, _I, _I, _P, _P, _F, _P, _P, _P],
     "exchange_pack": [_P] * 5 + [_I] * 5 + [_P] * 8,
+    "exchange_pack_grid": [_I, _I, _I],
     "shard_sum": [_P, _P, _I, _I, _I, _P, _P, _P],
     "remove_slots": [_P, _L, _P, _I, _P, _I, _P],
 }
 # the entry points that return something other than a CUDA error code
 _RESTYPES = {"scatter_ids_scratch": ctypes.c_longlong,
+             "exchange_pack_grid": ctypes.c_longlong,
              "fire_reduced_scratch_words": ctypes.c_longlong,
              "session_scratch_bytes": ctypes.c_longlong}
 
@@ -1105,7 +1112,9 @@ fire_pack.launches = 0
 
 # ------------------------------------------------------------ G7
 
-RING_CHUNK = 1024   # lanes a block of G7's and G12's ring scan (ring.cuh)
+RING_CHUNK = 1024   # lanes a block of G12's three-pass compaction (ring.cuh)
+RING_TILE = 2048    # lanes a tile of G7's single pass (ring_append.cu)
+RING_MAX_LANES = 2**30   # O + B bound of G7's status words (counts < 2^30)
 
 
 def ring_append_plain(ring, lost, mask, hi, lo, pane, values) -> None:
@@ -1147,6 +1156,7 @@ def _check_ring(ring, dev) -> Tuple[int, int]:
 
 
 def _ring_scratch(n: int, dev):
+    """G12's per-call block counts and offsets (ring.cuh)."""
     n_blk = max(1, -(-n // RING_CHUNK))
     return (torch.empty(n_blk, dtype=torch.int32, device=dev),
             torch.empty(n_blk, dtype=torch.int32, device=dev))
@@ -1157,7 +1167,10 @@ def _ring_ptrs(ring, lost):
 
 
 def ring_append(ring, lost, mask, hi, lo, pane, values) -> None:
-    """G7: see ring_append_plain for the contract."""
+    """G7: see ring_append_plain for the contract. One launch a call, no
+    fill: a single pass over 2,048-lane tiles with a device-tagged look-back
+    over a scratch cached per device and stream (``_stream_scratch``).
+    Raises for O + B >= 2^30."""
     if _on_cpu(mask):
         return ring_append_plain(ring, lost, mask, hi, lo, pane, values)
     dev = mask.device
@@ -1170,12 +1183,14 @@ def ring_append(ring, lost, mask, hi, lo, pane, values) -> None:
     if values is not None:
         _check(values, "values", torch.float32,
                (B,) + tuple(ring[3].shape[1:]), dev)
-    if O + B > INT32_MAX:
-        raise ValueError(f"ring of {O} lanes + {B} lanes overflows int32")
-    blk_count, blk_off = _ring_scratch(B, dev)
+    if O + B >= RING_MAX_LANES:
+        raise ValueError(f"a ring of {O} lanes and {B} lanes: G7's tile "
+                         f"counts hold O + B below 2^30")
+    # the count of calls, then a status word a tile; zeroed once
+    sc = _stream_scratch("ring_append", 1 + max(1, -(-B // RING_TILE)), dev)
     rc = build().ring_append(
         _ptr(mask), _ptr(hi), _ptr(lo), _ptr(pane), _ptr(values), W, B, O,
-        *_ring_ptrs(ring, lost), _ptr(blk_count), _ptr(blk_off), _stream())
+        *_ring_ptrs(ring, lost), _ptr(sc), _stream())
     _raise_on(rc, "ring_append")
     ring_append.launches += 1
 
@@ -3024,7 +3039,6 @@ row_argmax.launches = 0
 
 # ------------------------------------------------------------ G26
 
-EXCHANGE_LANES = 1024        # lanes (and threads) a block of G26
 EXCHANGE_MAX_SHARDS = 256    # targets G26's shared counts hold
 
 
@@ -3076,7 +3090,11 @@ def exchange_pack_plain(hi, lo, ts, values, valid, *, n: int, maxp: int,
 
 def exchange_pack(hi, lo, ts, values, valid, *, n: int, maxp: int,
                   cap: int) -> PackedLanes:
-    """G26: see exchange_pack_plain for the contract."""
+    """G26: see exchange_pack_plain for the contract. One cooperative
+    launch a call, no fill: its blocks' counts a target go through a
+    scratch cached per device and stream (``_stream_scratch``), tagged with
+    the call. Raises for a batch whose ranks a block cannot hold (above
+    some 5M lanes on an H100)."""
     if _on_cpu(hi):
         return exchange_pack_plain(hi, lo, ts, values, valid, n=n,
                                    maxp=maxp, cap=cap)
@@ -3099,18 +3117,26 @@ def exchange_pack(hi, lo, ts, values, valid, *, n: int, maxp: int,
     W = 1
     for d in tail:
         W *= d
+    if n * cap * W >= 2**31:
+        raise ValueError(f"{n} buckets of {cap} lanes of {W} words "
+                         f"overflow int32")
+    lib = build()
+    grid = lib.exchange_pack_grid(B, n, cap)
+    if grid < 1:
+        raise ValueError(f"exchange_pack takes no batch of {B} lanes on "
+                         f"{dev}: its blocks cannot hold their ranks")
+    # the count of calls, then each block's tagged count a target
+    sc = _stream_scratch("exchange_pack", 1 + n * grid, dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    blocks = max(1, -(-B // EXCHANGE_LANES))
-    counts = torch.empty(blocks * n, **i32)
     out = PackedLanes(torch.empty(n * cap, **i32), torch.empty(n * cap, **i32),
                       torch.empty(n * cap, **i32),
                       torch.empty((n * cap,) + tail, dtype=values.dtype,
                                   device=dev),
                       torch.empty(n * cap, dtype=torch.bool, device=dev),
                       torch.empty(1, **i32))
-    rc = build().exchange_pack(
+    rc = lib.exchange_pack(
         _ptr(hi), _ptr(lo), _ptr(ts), _ptr(values), _ptr(valid), B, W, n,
-        maxp, cap, _ptr(counts), _ptr(out.hi), _ptr(out.lo), _ptr(out.ts),
+        maxp, cap, _ptr(sc), _ptr(out.hi), _ptr(out.lo), _ptr(out.ts),
         _ptr(out.values), _ptr(out.valid), _ptr(out.overflow), _stream())
     _raise_on(rc, "exchange_pack")
     exchange_pack.launches += 1

@@ -99,7 +99,7 @@ def _pad(arrays, B_step):
 
 
 @pytest.mark.parametrize("case", ["balanced", "one_key", "all_invalid",
-                                  "w2", "ragged"])
+                                  "w2", "ragged", "one_lane"])
 def test_exchange_matches_reference_exchange_records(case):
     B = 256
     if case == "balanced":
@@ -110,6 +110,8 @@ def test_exchange_matches_reference_exchange_records(case):
         arrays = _batch(3, B, valid_frac=0.0)
     elif case == "w2":
         arrays = _batch(4, B, W=2, valid_frac=0.8)
+    elif case == "one_lane":
+        arrays = _batch(7, N)                     # one lane a shard
     else:
         # B = 250 is no multiple of 4: the batch pads to 252 invalid lanes
         arrays = _pad(_batch(5, 250, valid_frac=0.9), 252)

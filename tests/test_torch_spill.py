@@ -56,10 +56,13 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 # ------------------------------------------------------------ kernels
 
-@pytest.mark.parametrize("case", ["room", "fills", "count"])
+@pytest.mark.parametrize("case", ["room", "fills", "count", "fills_exactly",
+                                  "none_masked", "one_lane"])
 def test_ring_append_matches_reference(case):
     """G7's plain version: the masked lanes land in lane order from the
-    ring's fill on; a ring that fills loses the rest and counts them."""
+    ring's fill on; a ring that fills loses the rest and counts them. A
+    ring that the batch fills to its last lane loses none; a batch with no
+    lane masked, or one, moves the fill by that much."""
     rng = np.random.default_rng(11)
     size = 700 if case == "fills" else O
     n0 = 300 if case == "fills" else 100
@@ -72,6 +75,13 @@ def test_ring_append_matches_reference(case):
     pane = rng.integers(-3, 20, B).astype(np.int32)
     vals = rng.integers(1, 9, B).astype(np.float32)
     mask = rng.random(B) < 0.6
+    if case == "fills_exactly":
+        n0 = size - int(mask.sum())
+    elif case == "none_masked":
+        mask[:] = False
+    elif case == "one_lane":
+        mask[:] = False
+        mask[-1] = True
     contrib = np.ones_like(vals) if case == "count" else vals
     (jh, jl, jp, jv, jn), j_lost = wkj.ring_append(
         tuple(jnp.asarray(a) for a in ring0) + (jnp.int32(n0),),
