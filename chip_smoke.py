@@ -69,7 +69,22 @@ Phases, each printing one JSON line (any failure exits nonzero):
                 gives each device operation of G7 (main, W = 2, no lane
                 masked) and G26 (the north star's and the DCN window
                 job's slices) with its device time (the
-                ring_exchange_split line). A "hash_table" line says how
+                ring_exchange_split line). Then
+                ``count_cep_edge_checks`` holds G12 (B = 1 and one lane
+                either side of a 1,024-lane tile edge; N = 1, 10, a tile
+                +- 1 and above B; one key in every lane, a key over three
+                tiles with a window across each edge, fires at tile ends;
+                old counts multiples of N or not, `touched` set or not;
+                dead lanes, random floats, counts that wrap) and G20 (S =
+                2, 3, 15; Q = 2, 9, 126; one, several and all buckets
+                stale; one row, an odd row count, an unaligned carry, a
+                carry past 2^31 floats) bit for bit, calls A, B, A and
+                counts each call's device operations in a CUDA graph (one
+                kernel); ``count_cep_op_split`` gives each device operation
+                of G20 (one stale bucket and all nine, each beside
+                ``index_fill_``) and G12 (the windowcount batch, one key
+                in every lane) (the count_cep_split line). A
+                "hash_table" line says how
                 deep the sparse job's 1M keys sit in their probe chains once
                 all have arrived. Times kernel, plain version and, where one
                 PyTorch call computes the same function, that call, with
@@ -640,14 +655,17 @@ also appends every JSON line to PATH.
 
     python3 chip_smoke.py --stress N
 
-builds the kernels, then runs every phase-3 check of G4, G11, G7 and
-G26 N times over (a "stress" line a round) and their operation splits
-once, and stops: no other phase and no contract line.
+builds the kernels, then runs every phase-3 check of G4, G11, G7, G26,
+G12 and G20 N times over (a "stress" line a round), their operation
+splits once and a probe of whether a store of part of a 32-byte sector
+makes the card read it (the sector_probe line), and stops: no other phase
+and no contract line.
 """
 
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2749,14 +2767,16 @@ def fire_session_edge_checks(dev) -> dict:
 
 
 def stress_checks(dev, rounds: int) -> None:
-    """``--stress N``: every check phase 3 makes of G4, G11, G7 and G26, N
-    times over in one process (fire_session_edge_checks; G4's north-star
-    cases and its max k = 5, W = 2 and fresh cases; G11's sessions-job and
-    DCN cases; ring_exchange_edge_checks; G7's main and mean cases, G26's
-    north-star and DCN slices), then fire_session_op_split and
-    ring_exchange_op_split once: a fault that shows only now and then
-    fails one of the rounds. A "stress" line a round, a "stress_split"
-    line at the end."""
+    """``--stress N``: every check phase 3 makes of G4, G11, G7, G26, G12
+    and G20, N times over in one process (fire_session_edge_checks; G4's
+    north-star cases and its max k = 5, W = 2 and fresh cases; G11's
+    sessions-job and DCN cases; ring_exchange_edge_checks; G7's main and
+    mean cases, G26's north-star and DCN slices; count_cep_edge_checks;
+    G12's main and edge cases, G20's main case with one stale bucket and
+    with all), then fire_session_op_split, ring_exchange_op_split and
+    count_cep_op_split once, and sector_probe: a fault that shows only now
+    and then fails one of the rounds. A "stress" line a round, a
+    "stress_split" line and a "sector_probe" line at the end."""
     main_state = session_state_at(dev, KEYED_CAPACITY, BATCH,
                                   SESSION_WARM_BATCHES)
     for r in range(rounds):
@@ -2785,6 +2805,10 @@ def stress_checks(dev, rounds: int) -> None:
             err = max_abs_err(c["got"], c["want"])
             check(err == 0.0, f"ring_append ({kind}) disagrees with its "
                               f"plain version: {err}")
+            c = case_count_update(dev, KEYED_CAPACITY, BATCH, kind)
+            err = bits_err(c["got"], c["want"])
+            check(err == 0.0, f"count_update ({kind}) disagrees with its "
+                              f"plain version: {err}")
             for name, make in (("ring_append (mean)", case_ring_mean),
                                ("exchange_pack", case_exchange_pack),
                                ("exchange_pack (DCN)",
@@ -2793,11 +2817,19 @@ def stress_checks(dev, rounds: int) -> None:
                 check(c["err"] == 0.0, f"{name} ({kind}) disagrees with its "
                                        f"plain version: {c['err']}")
             del c
+        for stale in (None, [True] * 9):
+            c = case_cep_expire(dev, CEPW_CAPACITY, 3, 9, stale=stale)
+            check(c["err"] == 0.0, f"cep_expire ({stale}) disagrees with "
+                                   f"its plain version: {c['err']}")
+        del c
         _FIRE_SETUPS.clear()
         _DCN_HELD.clear()
         ring_ex = ring_exchange_edge_checks(dev)
+        cc = count_cep_edge_checks(dev)
         emit({"phase": "stress", "round": r,
               "seconds": time.perf_counter() - t0,
+              "g12_cases": cc["count_update"]["edges"]["cases"] + 2,
+              "g20_cases": cc["cep_expire"]["edges"]["cases"] + 2,
               "g4_cases": edges["fire_reduced"]["edges"]["cases"] + 8,
               "g11_cases": edges["session_update"]["edges"]["cases"] + 4,
               "g7_cases": ring_ex["ring_append"]["edges"]["cases"] + 4,
@@ -2806,7 +2838,9 @@ def stress_checks(dev, rounds: int) -> None:
                   "graph_ops"]["W1"], "session_update": edges[
                   "session_update"]["edges"]["graph_ops"]}})
     emit({"phase": "stress_split", "calls": {
-        **fire_session_op_split(dev), **ring_exchange_op_split(dev)}})
+        **fire_session_op_split(dev), **ring_exchange_op_split(dev),
+        **count_cep_op_split(dev)}})
+    emit({"phase": "sector_probe", "calls": sector_probe(dev)})
 
 
 # ------------------------------------------ phase 3, G7 and G26 edges
@@ -3057,6 +3091,340 @@ def ring_exchange_op_split(dev, reps=8) -> dict:
         out[name] = {"ms": time_ms(run), "ops": ops_a_call(dev, [run] * reps),
                      "graph_ops": graph_ops(dev, run)}
     return out
+
+
+def count_cep_op_split(dev, reps=8) -> dict:
+    """The device operations of G20 and G12 at their main shapes, each with
+    its device time (op_split) and its graph count (graph_ops), beside the
+    call's time_ms: G20 over cep-within's carry [2^22 + 1, 20] with one
+    stale bucket and with all nine, each beside ``index_fill_`` over the
+    same columns; G12 at the windowcount batch (``case_count_update``
+    main) and with one key in every lane (edge)."""
+    runs = {}
+    for label, stale in (("one stale bucket", [q == 5 for q in range(9)]),
+                         ("all buckets stale", [True] * 9)):
+        c = case_cep_expire(dev, CEPW_CAPACITY, 3, 9, stale=stale)
+        check(c["err"] == 0.0, f"cep_expire ({label}) disagrees with its "
+                               f"plain version: {c['err']}")
+        runs[f"cep_expire {label}"] = (c["run"], c["bytes"],
+                                       c["sector_bytes"])
+        runs[f"index_fill_ {label}"] = (c["library"], c["bytes"],
+                                        c["sector_bytes"])
+        del c
+    for kind in ("main", "edge"):
+        c = case_count_update(dev, KEYED_CAPACITY, BATCH, kind)
+        err = max_abs_err(c["got"], c["want"])
+        check(err == 0.0, f"count_update ({kind}) disagrees with its plain "
+                          f"version: {err}")
+        runs[f"count_update {kind}"] = (c["run"], c["bytes"], None)
+        del c
+    out = split_runs(dev, runs, reps)
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+SECTOR_PROBE_FLOATS = 1 << 26   # 268 MB: 2^23 sectors, past the 50 MB L2
+
+
+def sector_probe(dev, reps=8) -> dict:
+    """Whether a store of part of a 32-byte sector costs the card a read of
+    it: over 2^23 sectors (268 MB), 4 bytes written a sector, all 32
+    written, and all 32 read and written, each timed as count_cep_op_split
+    times a call (torch's own elementwise kernels, a probe of the memory
+    system used nowhere in the port)."""
+    buf = torch.zeros(SECTOR_PROBE_FLOATS, dtype=torch.float32, device=dev)
+    sectors = SECTOR_PROBE_FLOATS // 8
+    out = split_runs(dev, {
+        "sectors, 4 B written a sector": (
+            lambda: buf.view(-1, 8)[:, 0].zero_(), sectors * 4,
+            sectors * 32),
+        "sectors, 32 B written a sector": (
+            buf.zero_, sectors * 32, sectors * 32),
+        "sectors, 32 B read and written a sector": (
+            lambda: buf.mul_(1.0), sectors * 64, sectors * 32)}, reps)
+    del buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_runs(dev, runs, reps) -> dict:
+    """Each call of ``runs`` ({name: (call, bytes or None, sector bytes or
+    None)}) with its time_ms, its device operations and its graph count,
+    beside its byte bound and the bound of the 32-byte sectors it
+    touches."""
+    out = {}
+    for name, (run, n_bytes, sector_bytes) in runs.items():
+        rec = {"ms": time_ms(run), "ops": ops_a_call(dev, [run] * reps),
+               "graph_ops": graph_ops(dev, run)}
+        if n_bytes is not None:
+            rec["bound_ms"] = bound_ms(n_bytes)
+        if sector_bytes is not None:
+            rec["sector_bound_ms"] = bound_ms(sector_bytes)
+        out[name] = rec
+    return out
+
+
+# ------------------------------------------ phase 3, G12 and G20 edges
+
+G12_TILE = 1024    # count_update.cu's tile (ops/cuda.py COUNT_TILE)
+G12_EDGE_C = 1 << 16
+
+
+def g12_segments(runs):
+    """Sorted slots from (slot, lanes) runs: the batch G10 sorts into this
+    order."""
+    return np.concatenate([np.full(n, s, np.int64) for s, n in runs])
+
+
+def g12_lanes(dev, slots, live, floats=False, seed=0):
+    """G12's lane columns for ``slots`` (numpy, any order; shuffled into
+    lane order) and ``live``: G10's order, sorted keys and flags at
+    G12_EDGE_C, key halves, and values (small integers, or random floats
+    in [0, 10) with ``floats``)."""
+    rng = np.random.default_rng(seed)
+    B = slots.shape[0]
+    perm = rng.permutation(B)
+    slots, live = slots[perm], live[perm]
+    order, key_s, seg_start = slot_lanes(dev, slots, live, G12_EDGE_C)
+    hi, lo = id_halves(splitmix64(slots.astype(np.int64)).view(np.int64),
+                       dev)
+    v = rng.random(B) * 10 if floats else rng.integers(1, 9, B)
+    return (order, key_s, seg_start, hi, lo,
+            _t(v.astype(np.float32), dev, torch.float32))
+
+
+def g12_state(dev, N, seed, cnt=None):
+    """A count-window state of G12_EDGE_C keys: old counts (random over a
+    few windows, or ``cnt``), partials of small integers, and `touched`
+    set at random, whether or not a count is a multiple of N."""
+    rng = np.random.default_rng(seed)
+    C = G12_EDGE_C
+    cnt0 = rng.integers(0, 5 * N + 3, C) if cnt is None else cnt
+    return [_t(np.asarray(cnt0, np.int64).astype(np.int32), dev,
+               torch.int32),
+            _t(rng.integers(0, 60, C).astype(np.float32), dev,
+               torch.float32),
+            _t(rng.random(C) < 0.5, dev, torch.bool)]
+
+
+def g12_call(dev, state0, lanes, N, floats=False):
+    """G12 against its plain version on copies of ``state0``: (elements of
+    n_rows, the rows and the state whose bits differ, the largest relative
+    error of the sums, the row count, the call's outputs). With
+    ``floats`` the row values and acc are held at rtol 1e-6 instead."""
+    s1 = [x.clone() for x in state0]
+    s2 = [x.clone() for x in state0]
+    r1, n1 = kernels.count_update(*s1, *lanes, N=N)
+    r2, n2 = kernels.count_update_plain(*s2, *lanes, N=N)
+    n = int(n2)
+    got = [n1] + [r[:n] for r in r1] + s1
+    want = [n2] + [r[:n] for r in r2] + s2
+    if int(n1) != n:
+        return float("inf"), float("inf"), n, got
+    exact = [0, 1, 2, 3, 5, 7] if floats else range(len(got))
+    err = bits_err([got[k] for k in exact], [want[k] for k in exact])
+    rel = 0.0
+    for k in (4, 6):
+        d = (got[k].double() - want[k].double()).abs()
+        if d.numel():
+            rel = max(rel, float((d / want[k].double().abs()
+                                  .clamp_min(1e-30)).max()))
+    return err, rel, n, got
+
+
+def g12_edge_cases():
+    """G12's risky shapes: (label, slots, live, N, cnt, floats), ``slots``
+    and ``live`` numpy arrays (``cnt``: the old counts, or None for
+    random ones)."""
+    rng = np.random.default_rng(120)
+    T, C = G12_TILE, G12_EDGE_C
+
+    def rand(B, keys, dead=0.0):
+        return rng.integers(0, keys, B), rng.random(B) >= dead
+
+    def ones(B):
+        return np.ones(B, bool)
+
+    cases = [("B=1", np.array([7]), ones(1), 10, None, False)]
+    for B in (T - 1, T, T + 1):
+        cases.append((f"B={B}", *rand(B, 300), 10, None, False))
+    cases += [
+        ("N=1", *rand(5000, 400), 1, None, False),
+        ("N=10, 5 % dead", *rand(5000, 400, 0.05), 10, None, False),
+        (f"N={T - 1}", *rand(9000, 5), T - 1, None, False),
+        (f"N={T + 1}", *rand(9000, 5), T + 1, None, False),
+        ("N above B", *rand(5000, 4), 8000, np.full(C, 7700), False),
+        ("one key in every lane", np.full(40_000, 4321), ones(40_000), 10,
+         np.full(C, 3), False),
+        ("one key, N=1500", np.full(9000, 77), rng.random(9000) >= 0.05,
+         1500, None, False),
+    ]
+    # a key over three tiles (lanes 1,019-3,080), its windows of 7 open
+    # across each tile edge
+    three = g12_segments([(s, 1) for s in range(1019)] + [(5000, 2062)]
+                         + [(s, 1) for s in range(6000, 7000)])
+    cnt = rng.integers(0, 40, C)
+    cnt[5000] = 3
+    cases.append(("a key across three tiles", three, ones(three.size), 7,
+                  cnt, False))
+    # fires at lane 0 (tile 0's first), 1,024 and 2,047 (tile 1's first
+    # and last)
+    edges = g12_segments([(s, 1) for s in range(1020)] + [(9000, 5)]
+                         + [(s, 1) for s in range(9001, 10016)]
+                         + [(10500, 8)]
+                         + [(s, 1) for s in range(20000, 20100)])
+    cnt = rng.integers(0, 40, C)
+    cnt[[0, 9000, 10500]] = [9, 5, 2]
+    cases.append(("fires at tile ends", edges, ones(edges.size), 10, cnt,
+                  False))
+    mult = rng.integers(0, 6, C) * 10
+    cases += [
+        ("old counts multiples of N", *rand(5000, 500), 10, mult, False),
+        ("all lanes dead", rng.integers(0, 100, 3000),
+         np.zeros(3000, bool), 10, None, False),
+        ("random floats", *rand(20_000, 3000, 0.05), 10, None, True),
+        ("old counts near 2^31 (a wraps)", *rand(3000, 50), 10,
+         2**31 - 1 - rng.integers(0, 25, C), False),
+    ]
+    return cases
+
+
+def g20_edge_cases():
+    """G20's risky shapes: (label, rows, S, Q, stale)."""
+    one9 = [q == 3 for q in range(9)]
+    some9 = [q in (0, 4, 8) for q in range(9)]
+    return [
+        ("S=2, Q=9, one stale", 5000, 2, 9, one9),
+        ("S=3, Q=9, several", 5000, 3, 9, some9),
+        ("S=3, Q=9, all", 5000, 3, 9, [True] * 9),
+        ("S=15, Q=9, one stale", 3001, 15, 9, one9),
+        ("S=15, Q=9, all", 3001, 15, 9, [True] * 9),
+        ("S=3, Q=2, one stale", 777, 3, 2, [False, True]),
+        ("S=3, Q=2, all", 777, 3, 2, [True, True]),
+        ("S=2, Q=126, stale_hi", 2049, 2, 126,
+         [q in (1, 70, 125) for q in range(126)]),
+        ("S=2, Q=126, all", 2049, 2, 126, [True] * 126),
+        ("one row", 1, 3, 9, some9),
+        ("rows no multiple of a block", 256 * 7 + 13, 3, 9, one9),
+    ]
+
+
+def g20_call(dev, carry0, stale, S, Q):
+    """G20 against its plain version on copies of ``carry0``: (elements
+    whose bits differ, the call's carry)."""
+    c1, c2 = carry0.clone(), carry0.clone()
+    kernels.cep_expire(c1, stale, S=S, Q=Q)
+    kernels.cep_expire_plain(c2, stale, S=S, Q=Q)
+    return bits_err(c1, c2), c1
+
+
+def count_cep_edge_checks(dev) -> dict:
+    """G12 and G20 on the shapes their single launches make risky, bit for
+    bit against their plain versions. G12 (1,024-lane tiles): B = 1 and
+    one lane either side of a tile edge; N = 1, 10, a tile +- 1 and above
+    B; one key in every lane (N = 10 and 1,500), a key over three tiles
+    with a window across each edge, fires at a tile's first and last lane;
+    old counts multiples of N or not, `touched` set or not at random; 5 %
+    dead lanes, all dead, random floats (rtol 1e-6), old counts near 2^31
+    (a wraps as int32). G20: S = 2, 3, 15; Q = 2, 9 and 126 (stale bits
+    past 64); one stale bucket, several, all; one row, a row count no
+    multiple of a block, a carry one float off 16-byte alignment, and on
+    the card a carry of 2^31 floats and more (64-bit offsets; a carry of
+    ones, its stale cells counted and its sum taken). Then
+    calls A, B, A on one scratch for each (a stale tag would show), and
+    on the card the device operations of each call, counted in a CUDA
+    graph of it (graph_ops): one kernel, no fill, no copy."""
+    on_card = dev.type == "cuda"
+    g12, g12_ops, rel, rows = {}, {}, 0.0, {}
+    cases = g12_edge_cases()
+    inputs = {}
+    for i, (label, slots, live, N, cnt, floats) in enumerate(cases):
+        state0 = g12_state(dev, N, seed=200 + i, cnt=cnt)
+        lanes = g12_lanes(dev, slots, live, floats, seed=300 + i)
+        err, r, rows[label], _ = g12_call(dev, state0, lanes, N, floats)
+        g12[label] = err
+        rel = max(rel, r)
+        check(err == 0.0 and r <= 1e-6,
+              f"count_update ({label}) disagrees with its plain version: "
+              f"{err} elements differ, rel err {r}")
+        if on_card:
+            st = [x.clone() for x in state0]
+            g12_ops[label] = graph_ops(
+                dev, lambda s=st, a=lanes, n=N: kernels.count_update(
+                    *s, *a, N=n))
+        inputs[label] = (state0, lanes, N)
+    # A, B, A on one scratch: three tiles, then 40 tiles of one key, again
+    sa, la, na = inputs["a key across three tiles"]
+    sb, lb, nb = inputs["one key in every lane"]
+    e_a, _, _, first = g12_call(dev, sa, la, na)
+    e_b, _, _, _ = g12_call(dev, sb, lb, nb)
+    e_a2, _, _, again = g12_call(dev, sa, la, na)
+    g12_twice = bits_err(first, again)
+    check(e_a == e_b == e_a2 == 0.0 and g12_twice == 0.0,
+          f"count_update: calls on one scratch disagree ({e_a}, {e_b}, "
+          f"{e_a2}, {g12_twice})")
+    for label, ops in g12_ops.items():
+        check(ops == ONE_KERNEL,
+              f"count_update ({label}): not one kernel a call: {ops}")
+    del inputs
+
+    g20, g20_ops = {}, {}
+    g = torch.Generator(device="cpu").manual_seed(201)
+    for label, n, S, Q, stale in g20_edge_cases():
+        D = (S - 1) * Q + 2
+        carry0 = torch.randint(0, 5, (n, D), generator=g).float().to(dev)
+        g20[label], _ = g20_call(dev, carry0, stale, S, Q)
+        check(g20[label] == 0.0, f"cep_expire ({label}) disagrees with its "
+                                 f"plain version: {g20[label]} elements")
+        if on_card:
+            c = carry0.clone()
+            g20_ops[label] = graph_ops(
+                dev, lambda c=c, st=stale, S=S, Q=Q: kernels.cep_expire(
+                    c, st, S=S, Q=Q))
+    # a carry one float off 16-byte alignment (4-byte stores)
+    flat = torch.randint(0, 5, (1 + 999 * 20,), generator=g).float().to(dev)
+    g20["unaligned carry"], _ = g20_call(
+        dev, flat[1:].view(999, 20), [q % 2 == 0 for q in range(9)], 3, 9)
+    check(g20["unaligned carry"] == 0.0,
+          f"cep_expire (unaligned carry) disagrees with its plain version: "
+          f"{g20['unaligned carry']} elements")
+    if on_card:  # 64-bit offsets: a carry of 2^31 floats and more (8.6 GB)
+        rows, one = (1 << 31) // 20 + 1000, [q == 4 for q in range(9)]
+        big = torch.ones(rows, 20, device=dev)
+        kernels.cep_expire(big, one, S=3, Q=9)
+        cols = cep_stale_cols(3, 9, one)
+        zeros = int((big[:, cols] == 0).sum())
+        total = float(big.sum(dtype=torch.float64))
+        g20["64-bit offsets"] = float(abs(zeros - rows * len(cols))
+                                      + abs(total - rows * (20 - len(cols))))
+        check(g20["64-bit offsets"] == 0.0,
+              f"cep_expire (64-bit offsets): {zeros} stale cells zeroed of "
+              f"{rows * len(cols)}, sum {total}")
+        del big
+        torch.cuda.empty_cache()
+    # A, B, A: G20 keeps no scratch, so this holds its store lists apart
+    ca = torch.randint(0, 5, (3001, 128), generator=g).float().to(dev)
+    cb = torch.randint(0, 5, (777, 6), generator=g).float().to(dev)
+    e_a, first = g20_call(dev, ca, [True] * 9, 15, 9)
+    e_b, _ = g20_call(dev, cb, [False, True], 3, 2)
+    e_a2, again = g20_call(dev, ca, [True] * 9, 15, 9)
+    g20_twice = bits_err(first, again)
+    check(e_a == e_b == e_a2 == 0.0 and g20_twice == 0.0,
+          f"cep_expire: calls in a row disagree ({e_a}, {e_b}, {e_a2}, "
+          f"{g20_twice})")
+    for label, ops in g20_ops.items():
+        check(ops == ONE_KERNEL,
+              f"cep_expire ({label}): not one kernel a call: {ops}")
+    return {
+        "count_update": {"edges": {
+            "cases": len(g12) + 3, "errs": g12, "max_rel_err": rel,
+            "rows": rows, "scratch_twice_err": g12_twice,
+            "graph_ops": g12_ops}},
+        "cep_expire": {"edges": {
+            "cases": len(g20) + 3, "errs": g20,
+            "twice_err": g20_twice, "graph_ops": g20_ops}},
+    }
 
 
 def session_keys(rng, n, C, ticks, dead=0.05):
@@ -6338,22 +6706,48 @@ def case_cep_scan(dev, C, B, n_keys, S, Q, relaxed, kind, seed=31):
     }
 
 
-def case_cep_expire(dev, C, S, Q, seed=32):
+def cep_stale_cols(S, Q, stale):
+    """The carry columns s * Q + q (s < S - 1) of the stale ring slots."""
+    return [s * Q + q for s in range(S - 1) for q in range(Q) if stale[q]]
+
+
+def cep_expire_sectors(rows, D, cols) -> int:
+    """The 32-byte sectors that zeroing ``cols`` of every row of a float32
+    [rows, D] carry (32-byte aligned) writes into. Whole sectors repeat
+    every ``per`` rows, and no sector straddles two such periods."""
+    per = 32 // math.gcd(4 * D, 32)
+
+    def touched(n):
+        return len({(r * D + c) * 4 // 32 for r in range(n) for c in cols})
+
+    return touched(per) * (rows // per) + touched(rows % per)
+
+
+def case_cep_expire(dev, C, S, Q, seed=32, stale=None):
+    """G20 on a random carry [C + 1, D]; ``stale`` the ring slots (the
+    slot seed % Q alone by default)."""
     rng = np.random.default_rng(seed)
     D = (S - 1) * Q + 2
     carry0 = _t(rng.integers(0, 4, (C + 1, D)).astype(np.float32), dev,
                 torch.float32)
-    stale = [q == seed % Q for q in range(Q)]
+    if stale is None:
+        stale = [q == seed % Q for q in range(Q)]
     c1, c2 = carry0.clone(), carry0.clone()
+    del carry0
     kernels.cep_expire(c1, stale, S=S, Q=Q)
     kernels.cep_expire_plain(c2, stale, S=S, Q=Q)
+    cols = cep_stale_cols(S, Q, stale)
+    idx = torch.tensor(cols, dtype=torch.int64, device=dev)
     return {
-        "err": max_abs_err(c1, c2),
+        "err": bits_err(c1, c2),
         "run": lambda: kernels.cep_expire(c1, stale, S=S, Q=Q),
         "plain": lambda: kernels.cep_expire_plain(c2, stale, S=S, Q=Q),
-        "library": None,
-        # the stale columns, read and written
-        "bytes": (C + 1) * (S - 1) * sum(stale) * 4 * 2,
+        # one call over the stale columns, their indices on the card
+        "library": lambda: c2.index_fill_(1, idx, 0.0),
+        # the zeros written into the stale columns
+        "bytes": (C + 1) * len(cols) * 4,
+        # the 32-byte sectors the zeros land in
+        "sector_bytes": cep_expire_sectors(C + 1, D, cols) * 32,
     }
 
 
@@ -6416,11 +6810,16 @@ def cep_kernel_phase(dev, timing=True, cep_b=CEP_BATCH,
     c = case_cep_expire(dev, cepw_c, 3, 9)
     check(c["err"] == 0.0, f"cep_expire disagrees with its plain version: "
                            f"{c['err']}")
-    exp = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"])}
+    # beside the byte bound, the sectors the zeros land in: written once,
+    # and read first as well where the card fills a partly written sector
+    exp = {"max_abs_err": c["err"], "bound_ms": bound_ms(c["bytes"]),
+           "sector_bytes": c["sector_bytes"],
+           "sector_bound_ms": bound_ms(c["sector_bytes"]),
+           "sector_read_bound_ms": bound_ms(2 * c["sector_bytes"])}
     if timing:
         exp["ms"] = time_ms(c["run"])
         exp["plain_ms"] = time_ms(c["plain"], reps=3)
-        exp["library_ms"] = None
+        exp["library_ms"] = time_ms(c["library"])
     del c
     return {"cep_scan": scan, "cep_expire": exp}
 
@@ -10810,13 +11209,22 @@ def main(argv) -> int:
     recs.update(part("3_kernels/shard", lambda: shard_kernel_phase(dev)))
     for name, phase3 in (("sharded_keyed", sharded_keyed_kernel_phase),
                          ("dcn", dcn_kernel_phase),
-                         ("ring_exchange_edges", ring_exchange_edge_checks)):
+                         ("ring_exchange_edges", ring_exchange_edge_checks),
+                         ("count_cep_edges", count_cep_edge_checks)):
         for kname, rec in part(f"3_kernels/{name}",
                                lambda f=phase3: f(dev)).items():
             recs.setdefault(kname, {}).update(rec)
     rx_split = part("3_kernels/ring_exchange_split",
                     lambda: ring_exchange_op_split(dev))
     emit({"phase": "ring_exchange_split", "device": smi, "calls": rx_split})
+    cc_split = part("3_kernels/count_cep_split",
+                    lambda: count_cep_op_split(dev))
+    emit({"phase": "count_cep_split", "device": smi, "calls": cc_split})
+    recs["cep_expire"]["all_stale_ms"] = cc_split[
+        "cep_expire all buckets stale"]["ms"]
+    recs["cep_expire"]["all_stale_library_ms"] = cc_split[
+        "index_fill_ all buckets stale"]["ms"]
+    recs["count_update"]["edge_ms"] = cc_split["count_update edge"]["ms"]
     emit({"phase": "kernels", "checks": recs})
     lap("3_kernels")
 
@@ -11302,6 +11710,9 @@ def main(argv) -> int:
             "yardstick_ms": r["read_sum_ms"],
             "yardstick": "a part only: one Tensor.sum over the due row's "
                          "[C, 2] plane"} if name == "fire_reduced" else {}),
+        **({k: r[k] for k in ("sector_bound_ms", "sector_read_bound_ms",
+                              "all_stale_ms", "all_stale_library_ms")}
+           if name == "cep_expire" else {}),
     } for name, r in recs.items()]
     fill = recs["route_lanes"]["kg_fill"]
     line[0]["kg_fill"] = {

@@ -81,9 +81,24 @@
 // the stage bits and of the carry rows, the scan's barriers, and, where a
 // segment crosses tiles, a look-back.
 //
-// G20: a thread per carry element over [C+1, D]; it writes 0 where the
-// column is a stale bucket of a stage row. Bound: the stale columns, read
-// and written: (C + 1) * (S-1) * n_stale * 8 B.
+// G20 (redesigned for the card; its parent took a thread per carry
+// element over all [C+1, D], a 64-bit division each, and wrote the few in
+// stale columns): the host turns the stale columns into a row's list of
+// stores (expire_items), and one launch writes only those, a thread a
+// store: zeros of 4, 8 or 16 bytes where the stale columns fill them,
+// consecutive threads over one row's stores and then the next row's (one
+// stale bucket of cep-within's [2^22 + 1, 20] carry: two 4-byte stores a
+// row, 36 bytes apart). 32-bit offsets where rows x D < 2^31 - 256 (every
+// shape the jobs run), a grid that covers the stores; 64-bit ones above,
+// a grid-stride loop. Row C is zeroed like every other row.
+// Bound: bytes, (C + 1) * (S-1) * n_stale * 4 B, the zeros written (one
+// stale bucket at the main shape: 33.6 MB, 0.010 ms at 3.35 TB/s); but a
+// store of part of a 32-byte sector makes the card read the sector first
+// (measured: chip_smoke.py --stress's sector probe), so the floor is the
+// touched sectors read and written: 2^23 sectors, 0.160 ms, for one stale
+// bucket at the main shape. Writing fewer sectors would need the zeroing
+// deferred or the unoccupied slots skipped, which changes what the state
+// holds.
 
 #include <cuda_pipeline.h>
 
@@ -868,18 +883,103 @@ __global__ void __launch_bounds__(kThreads) cep_any_kernel(CepArgs a) {
   }
 }
 
-__global__ void cep_expire_kernel(float* __restrict__ carry, long long n, int D, int S,
-                                  int Q, unsigned long long stale_lo,
-                                  unsigned long long stale_hi) {
-  const int n_cols = (S - 1) * Q;
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int col = static_cast<int>(k % D);
-    if (col >= n_cols) continue;
-    const int q = col % Q;
-    const unsigned long long bit = q < 64 ? (stale_lo >> q) : (stale_hi >> (q - 64));
-    if (bit & 1ull) carry[k] = 0.0f;
+// G20's stores into one carry row: (offset, width) items in floats, each
+// width 1, 2 or 4 at an offset that is a multiple of it (built on the
+// host from the stale columns, expire_items).
+constexpr int kExpireItems = kCepMaxDim;
+struct ExpireItems {
+  uint8_t off[kExpireItems];
+  uint8_t width[kExpireItems];
+  int n;
+};
+
+// One item's store: zeros of width 1, 2 or 4 floats.
+__device__ __forceinline__ void expire_item(float* p, int width) {
+  if (width == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else if (width == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(0.0f, 0.0f);
+  } else {
+    *p = 0.0f;
   }
+}
+
+// G20 over `rows` rows, a thread an item: consecutive threads over a
+// row's items, then the next row's, so a warp's stores cover neighbouring
+// rows. With 32-bit offsets the grid covers the items, one a thread (an
+// item's row by a multiply and a shift, dm dividing by it.n; measured
+// faster than a grid-stride loop over 32 blocks an SM); with 64-bit ones
+// the loop steps by the grid, adding its stride in rows and items. The
+// items sit in shared memory, for indexing by a thread's item.
+template <typename Idx>
+__global__ void __launch_bounds__(256)
+    cep_expire_kernel(float* __restrict__ carry, Idx rows, int D,
+                      ExpireItems it, DivMagic dm) {
+  __shared__ uint8_t s_off[kExpireItems], s_w[kExpireItems];
+  for (int k = threadIdx.x; k < it.n; k += blockDim.x) {
+    s_off[k] = it.off[k];
+    s_w[k] = it.width[k];
+  }
+  __syncthreads();
+  const Idx g = static_cast<Idx>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (sizeof(Idx) == 4) {
+    const int32_t r = floor_div(static_cast<int32_t>(g), dm);
+    const int k = static_cast<int>(g) - r * it.n;
+    if (r < rows) expire_item(carry + r * D + s_off[k], s_w[k]);
+    return;
+  }
+  const int n = it.n;
+  const Idx step = static_cast<Idx>(gridDim.x) * blockDim.x;
+  const Idx step_r = step / n;
+  const int step_k = static_cast<int>(step - step_r * n);
+  Idx r = g / n;
+  int k = static_cast<int>(g - r * n);
+  while (r < rows) {
+    expire_item(carry + r * D + s_off[k], s_w[k]);
+    r += step_r;
+    k += step_k;
+    if (k >= n) {
+      k -= n;
+      ++r;
+    }
+  }
+}
+
+template <typename Idx>
+void launch_expire(float* c, long long rows, int D, const ExpireItems& it,
+                   cudaStream_t s) {
+  const long long want = (rows * it.n + 255) / 256;
+  const long long most = sizeof(Idx) == 4 ? want : 32LL * sm_count();
+  cep_expire_kernel<Idx>
+      <<<static_cast<int>(want < most ? want : most), 256, 0, s>>>(
+          c, static_cast<Idx>(rows), D, it, div_magic(it.n));
+}
+
+// The items of the stale columns (bit c of col_lo / col_hi). g is the
+// widest store the rows allow (4 when D % 4 == 0 and the carry is 16-byte
+// aligned, 2 when D is even and it is 8-byte aligned, else 1).
+ExpireItems expire_items(unsigned long long col_lo, unsigned long long col_hi,
+                         int D, int g) {
+  auto stale = [&](int c) {
+    return ((c < 64 ? col_lo >> c : col_hi >> (c - 64)) & 1ull) != 0ull;
+  };
+  ExpireItems it{};
+  for (int c = 0; c < D;) {
+    int w = 0;
+    for (int cand = g; cand >= 1 && w == 0; cand >>= 1) {
+      bool all = c % cand == 0 && c + cand <= D;
+      for (int j = 0; all && j < cand; ++j) all = stale(c + j);
+      if (all) w = cand;
+    }
+    if (w) {
+      it.off[it.n] = static_cast<uint8_t>(c);
+      it.width[it.n++] = static_cast<uint8_t>(w);
+      c += w;
+    } else {
+      ++c;
+    }
+  }
+  return it;
 }
 
 // A tile's lanes: the register path takes 64 or 128 for a batch too small
@@ -954,17 +1054,33 @@ extern "C" int cep_scan(const void* order, const void* key_s, const void* seg_st
 }
 
 // G20. carry float32 [C+1, D] in place; the stale ring slots as a 128-bit
-// mask (Q <= 126, since D <= kCepMaxDim).
+// mask (Q <= 126, since D <= kCepMaxDim). Launches nothing when no column
+// is stale.
 extern "C" int cep_expire(void* carry, long long rows, int D, int S, int Q,
-                          unsigned long long stale_lo, unsigned long long stale_hi,
-                          void* stream) {
+                          unsigned long long stale_lo,
+                          unsigned long long stale_hi, void* stream) {
+  if (S < 1 || Q < 1 || D != (S - 1) * Q + 2 || D > kCepMaxDim || rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned long long col[2] = {0ull, 0ull};
+  for (int c = 0; c < (S - 1) * Q; ++c) {
+    const int q = c % Q;
+    if ((q < 64 ? stale_lo >> q : stale_hi >> (q - 64)) & 1ull) {
+      col[c >> 6] |= 1ull << (c & 63);
+    }
+  }
+  const uintptr_t at = reinterpret_cast<uintptr_t>(carry);
+  const int g = D % 4 == 0 && at % 16 == 0 ? 4
+                : D % 2 == 0 && at % 8 == 0 ? 2 : 1;
+  const ExpireItems it = expire_items(col[0], col[1], D, g);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = rows * D;
-  if (n > 0) {
-    const long long want = (n + 255) / 256;
-    const long long blocks = want < 132LL * 32 ? want : 132LL * 32;
-    cep_expire_kernel<<<static_cast<int>(blocks), 256, 0, s>>>(
-        static_cast<float*>(carry), n, D, S, Q, stale_lo, stale_hi);
+  if (it.n == 0 || rows == 0) return static_cast<int>(cudaGetLastError());
+  float* c = static_cast<float*>(carry);
+  constexpr long long kNarrow = (1LL << 31) - 256;  // 32-bit offsets
+  if (rows * D < kNarrow && rows * it.n < kNarrow) {
+    launch_expire<int>(c, rows, D, it, s);
+  } else {
+    launch_expire<long long>(c, rows, D, it, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // A single-pass stable compaction's tile offsets: decoupled look-back
 // (Merrill and Garland) over status words that carry a tag kept on the
 // device, used by G11 session_update.cu (its old fires and its watermark
-// close) and G7 ring_append.cu (the single-pass form of ring.cuh's three
-// passes, the ring's base folded into tile 0's prefix).
+// close), G7 ring_append.cu (the single-pass form of ring.cuh's three
+// passes, the ring's base folded into tile 0's prefix) and G12
+// count_update.cu (its words and tags, read a warp's rows at a time).
 //
 // Tiles are blocks in blockIdx order (the card starts lower blocks first,
 // so a tile waits only on tiles that run or ran). A tile publishes its

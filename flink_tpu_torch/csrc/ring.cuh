@@ -3,10 +3,10 @@
 // slot in the rebuilt table with the semantics of G7 ring_append.cu (the
 // update's nofit lanes), as the reference shares ops/window_kernels.py
 // ring_append between the two so that their lost-record accounting cannot
-// diverge. G12 count_update.cu compacts its fire rows with it too, into
-// row buffers of its own (the Out type). G7 itself takes one pass over
-// tiles with a device-tagged decoupled look-back (lookback.cuh, as G11),
-// in the same lane order; a later redesign of G12 may take that up too.
+// diverge; G9's export is its only user. G7 itself, and G12
+// count_update.cu for its fire rows, take one pass over tiles with a
+// device-tagged decoupled look-back (lookback.cuh, as G11), in the same
+// lane order.
 //
 // Semantics (window_kernels.py:222): the lanes i < n with take(i), in lane
 // order, go to ring positions ovf_n, ovf_n + 1, ...; those at positions
@@ -27,7 +27,7 @@
 #include "common.cuh"
 
 constexpr int kRingThreads = 256;
-constexpr int kRingChunk = 1024;  // lanes per block; ops/cuda.py RING_CHUNK
+constexpr int kRingChunk = 1024;  // lanes per block
 
 struct RingOut {
   uint32_t* hi;

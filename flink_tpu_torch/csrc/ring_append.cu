@@ -32,7 +32,7 @@
 // (an atomicAdd cursor would not: which lanes are lost, and the order in
 // which the host adds a key's contributions, depend on it). The status
 // words hold counts below 2^30: the wrapper refuses O + B >= 2^30.
-// G9's export and G12's fire rows keep ring.cuh's three passes.
+// G9's export keeps ring.cuh's three passes.
 
 #include "lookback.cuh"
 

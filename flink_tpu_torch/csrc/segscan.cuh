@@ -1,5 +1,6 @@
-// The segmented scan shared by G12 count_update.cu and G13
-// rolling_update.cu (G11 session_update.cu takes only its int32 wrapping
+// The segmented scan of G13 rolling_update.cu, its three passes' only
+// user (G12 count_update.cu takes its block scan, block_seg_scan, inside
+// a single pass, and G11 session_update.cu only its int32 wrapping
 // helpers at the end): an inclusive scan of (flag, value) pairs over
 // lanes sorted by segment (G10), under the reference's flagged operator
 // (ops/segment.py segmented_reduce_sorted, :21-45)

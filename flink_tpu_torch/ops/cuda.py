@@ -51,7 +51,10 @@ what its design does about that:
                          two launches a call, a single-pass scan with
                          decoupled look-back, then a close sweep launched
                          while the scan runs
-  G12 ``count_update``   count windows: positions, window reduce, fires
+  G12 ``count_update``   count windows: positions, window reduce, fires:
+                         one launch a call, no fill, 1,024-lane tiles with
+                         three device-tagged look-backs (segment starts,
+                         window sums, fire rows)
   G13 ``rolling_update`` rolling reduce: segmented scan, lane-order outputs
   G14 ``sketch_update``  Count-Min / HyperLogLog register scatter (add, max)
   G15 ``sketch_fire``    sketch windows: pane combine, finalize, compaction
@@ -64,7 +67,9 @@ what its design does about that:
                          order to its carried count vector, match deltas:
                          one launch a call, a segmented scan of block-form
                          tile maps with decoupled look-back
-  G20 ``cep_expire``     CEP's within() expiry: stale ring buckets zeroed
+  G20 ``cep_expire``     CEP's within() expiry: stale ring buckets zeroed:
+                         one launch of a row's store list, a thread a
+                         store
   G21 ``chain_pack``     a drain's stacked fires packed into the next
                          chained stage's edge lanes; its coupled watermark
   G22 ``fire_columns``   the chained drain's deferred recorder columns;
@@ -94,11 +99,11 @@ combine is the user's torch function; it runs as torch ops between G16's
 two launches and in the fire before G6's ``fire_pack``: the one path with
 no hand kernel for its combine.
 
-G12 and G13 share one segmented scan (``csrc/segscan.cuh``), G9's export
-and G12 one three-pass stable row compaction (``csrc/ring.cuh``), and G5,
-G8 and G9 one probe walk (``csrc/hash_probe.cuh``); G7 and G11 compact in
-one pass with a device-tagged look-back (``csrc/lookback.cuh``), in the
-same lane order.
+G13 takes a three-pass segmented scan (``csrc/segscan.cuh``, whose block
+scan G12 takes in its single pass), G9's export a three-pass stable row
+compaction (``csrc/ring.cuh``), and G5, G8 and G9 one probe walk
+(``csrc/hash_probe.cuh``); G7, G11 and G12 compact in one pass with
+device-tagged look-backs (``csrc/lookback.cuh``), in the same lane order.
 
 Build: ``nvcc`` compiles each source to an object (all started together)
 and links one shared library with a plain C interface under
@@ -194,8 +199,7 @@ _SIGNATURES = {
     "session_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "session_scratch_bytes": [_I, _I],
-    "count_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
-                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "count_update": [_P] * 6 + [_I] * 3 + [_P] * 10,
     "rolling_update": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "sketch_update": [_P] * 11 + [_I] * 8 + [_P],
     "sketch_fire": [_P] * 6 + [_I] * 7 + [_P, _I, _I, _I, _D, _D, _I]
@@ -1112,7 +1116,6 @@ fire_pack.launches = 0
 
 # ------------------------------------------------------------ G7
 
-RING_CHUNK = 1024   # lanes a block of G12's three-pass compaction (ring.cuh)
 RING_TILE = 2048    # lanes a tile of G7's single pass (ring_append.cu)
 RING_MAX_LANES = 2**30   # O + B bound of G7's status words (counts < 2^30)
 
@@ -1153,13 +1156,6 @@ def _check_ring(ring, dev) -> Tuple[int, int]:
         raise ValueError(f"ring values of shape {tuple(ovf_val.shape)}")
     _check(ovf_n, "ovf_n", torch.int32, (), dev)
     return O, (ovf_val.shape[1] if ovf_val.dim() == 2 else 1)
-
-
-def _ring_scratch(n: int, dev):
-    """G12's per-call block counts and offsets (ring.cuh)."""
-    n_blk = max(1, -(-n // RING_CHUNK))
-    return (torch.empty(n_blk, dtype=torch.int32, device=dev),
-            torch.empty(n_blk, dtype=torch.int32, device=dev))
 
 
 def _ring_ptrs(ring, lost):
@@ -1361,7 +1357,7 @@ SORT_BINS = 256        # G10's digit bins: status words a tile
 # grid barrier's count and its generation
 SORT_STATE_WORDS = 2 * 8 * SORT_BINS + 3 * 32
 SCAN_CHUNK = 1024      # lanes per block of the segmented scan (segscan.cuh)
-SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G12 and G13 scan
+SCAN_PAIR_BYTES = 16   # the largest (flag, value) pair G13 scans
 
 
 def segment_sort_plain(key, *, bits: int, seg_shift: int):
@@ -1573,15 +1569,20 @@ rolling_update.launches = 0
 
 # ------------------------------------------------------------ G12
 
-def count_rows(cap: int, dev):
+COUNT_TILE = 1024      # lanes a tile of G12 (count_update.cu kTile)
+COUNT_MAX_LANES = 2**30 - COUNT_TILE   # B bound of G12's status words
+
+
+def count_rows(cap: int, dev, zeroed: bool = True):
     """Fire row buffers of a count-window step: (key hi, key lo, window
     ordinal, value) [cap] each, only their ``[:n_rows]`` prefix written,
-    and the row count int32 0-d, 0."""
+    and the row count int32 0-d: 0, or left for G12 to write when not
+    ``zeroed``."""
     i32 = dict(dtype=torch.int32, device=dev)
+    n_rows = torch.zeros((), **i32) if zeroed else torch.empty((), **i32)
     return ((torch.empty(cap, **i32), torch.empty(cap, **i32),
              torch.empty(cap, **i32),
-             torch.empty(cap, dtype=torch.float32, device=dev)),
-            torch.zeros((), **i32))
+             torch.empty(cap, dtype=torch.float32, device=dev)), n_rows)
 
 
 def count_update_plain(count, acc, touched, order, key_s, seg_start, hi, lo,
@@ -1622,7 +1623,10 @@ def count_update_plain(count, acc, touched, order, key_s, seg_start, hi, lo,
 
 def count_update(count, acc, touched, order, key_s, seg_start, hi, lo,
                  values, *, N: int):
-    """G12: see count_update_plain for the contract."""
+    """G12: see count_update_plain for the contract. One launch a call, no
+    fill: 1,024-lane tiles with device-tagged look-backs over a scratch
+    cached per device and stream (``_stream_scratch``); the kernel writes
+    n_rows. Raises for B > 2^30 - 1,024."""
     if N < 1:
         raise ValueError(f"count windows need N >= 1, got {N}")
     if _on_cpu(count):
@@ -1640,18 +1644,17 @@ def count_update(count, acc, touched, order, key_s, seg_start, hi, lo,
                      (hi, "hi", torch.int32), (lo, "lo", torch.int32),
                      (values, "values", torch.float32)):
         _check(t, n, dt, (B,), dev)
-    rows, n_rows = count_rows(B, dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    pos, a, w = (torch.empty(B, **i32) for _ in range(3))
-    v = torch.empty(B, dtype=torch.float32, device=dev)
-    fire = torch.empty(B, dtype=torch.bool, device=dev)
-    blk_count, blk_off = _ring_scratch(B, dev)
+    if B > COUNT_MAX_LANES:
+        raise ValueError(f"a batch of {B} lanes: G12's status words hold "
+                         f"at most {COUNT_MAX_LANES}")
+    rows, n_rows = count_rows(B, dev, zeroed=False)
+    # the count of calls, then four status words a tile; zeroed once
+    sc = _stream_scratch("count_update",
+                         1 + 4 * max(1, -(-B // COUNT_TILE)), dev)
     rc = build().count_update(
         _ptr(key_s), _ptr(seg_start), _ptr(order), _ptr(hi), _ptr(lo),
-        _ptr(values), B, C, N, _ptr(count), _ptr(acc), _ptr(touched), B,
-        *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(pos), _ptr(a), _ptr(w),
-        _ptr(v), _ptr(fire), _ptr(_scan_scratch(B, dev)), _ptr(blk_count),
-        _ptr(blk_off), _ptr(torch.zeros((), **i32)), _stream())
+        _ptr(values), B, C, N, _ptr(count), _ptr(acc), _ptr(touched),
+        *(_ptr(r) for r in rows), _ptr(n_rows), _ptr(sc), _stream())
     _raise_on(rc, "count_update")
     count_update.launches += 1
     return rows, n_rows
@@ -2793,7 +2796,8 @@ def cep_expire_plain(carry, stale, *, S: int, Q: int) -> None:
 
 def cep_expire(carry, stale, *, S: int, Q: int) -> None:
     """G20: see cep_expire_plain for the contract. ``stale`` is a host
-    sequence of Q flags."""
+    sequence of Q flags. One launch a call, none when no column is stale:
+    the stale columns' stores, a thread a store."""
     C1, D = carry.shape
     if D != (S - 1) * Q + 2 or len(stale) != Q:
         raise ValueError(f"carry width {D} does not fit S = {S}, Q = {Q}")
@@ -2801,9 +2805,12 @@ def cep_expire(carry, stale, *, S: int, Q: int) -> None:
     if _on_cpu(carry):
         return cep_expire_plain(carry, stale, S=S, Q=Q)
     _check(carry, "carry", torch.float32, (C1, D), carry.device)
+    if S == 1 or not any(stale):
+        return  # no column to zero: no launch
     bits = _mask_bits(stale)
     rc = build().cep_expire(_ptr(carry), C1, D, S, Q,
-                            bits & 0xFFFFFFFFFFFFFFFF, bits >> 64, _stream())
+                            bits & 0xFFFFFFFFFFFFFFFF, bits >> 64,
+                            _stream())
     _raise_on(rc, "cep_expire")
     cep_expire.launches += 1
 

@@ -64,7 +64,8 @@ def run_both(batches, n, sj=None, st=None, rtol=0.0):
     return sj, st, n_fires
 
 
-@pytest.mark.parametrize("n,floats", [(3, False), (10, False), (10, True)])
+@pytest.mark.parametrize("n,floats", [(1, False), (3, False), (10, False),
+                                     (10, True)])
 def test_count_windows_fire_and_state_match_reference(n, floats):
     rtol = 1e-6 if floats else 0.0
     sj, st, n_fires = run_both(keyed_batches(4, 4, floats=floats), n,
